@@ -1,0 +1,248 @@
+"""Multi-layer graph sampler with the PyG-compatible output contract.
+
+The port of ``quiver_tpu/sampling/sampler.py``: a fanout list ``sizes``,
+per-layer sample + reindex, ``Adj(edge_index, e_id, size)`` records
+returned deepest layer first, and ``n_id[:batch_size] == seeds``. Shapes
+are padded exactly as in the JAX package: seeds to ``seed_capacity``,
+every frontier to its cap, ``-1`` sentinels on invalid lanes.
+
+Draws follow the JAX package's per-layer key discipline: each layer draws
+from its own ``torch.Generator``, seeded by ``(seed, call, layer)``. A
+``draw_fn(layer, deg) -> offs`` seam replaces those draws (the tests feed
+it JAX's).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..core.config import SampleMode
+from ..core.memory import resolve_device
+from ..core.topology import CSRTopo, VersionMismatchError
+from ..ops.reindex import reindex_layer
+from ..ops.sample import sample_layer, seeded_generator, uniform_offsets
+
+__all__ = ["Adj", "GraphSageSampler", "SampleOutput", "multilayer_sample"]
+
+
+class Adj:
+    """PyG-shaped adjacency record.
+
+    ``edge_index`` is ``(..., 2, E_cap)`` with [0] = source (frontier-local
+    neighbour id) and [1] = target (seed-local id); invalid edges have
+    source == -1. ``size`` = (num_source_nodes_cap, num_target_nodes_cap).
+    ``fanout``, when set, asserts the regular layout: lane ``s*fanout + k``
+    targets seed ``s``, which lets the model aggregate densely.
+    """
+
+    def __init__(self, edge_index, e_id, size: tuple[int, int],
+                 fanout: int | None = None):
+        self.edge_index = edge_index
+        self.e_id = e_id
+        self.size = tuple(size)
+        self.fanout = fanout
+
+    def __iter__(self):
+        return iter((self.edge_index, self.e_id, self.size))
+
+    def __repr__(self):
+        return f"Adj(edge_index={tuple(self.edge_index.shape)}, size={self.size})"
+
+    def to(self, device):
+        return Adj(self.edge_index.to(device),
+                   None if self.e_id is None else self.e_id.to(device),
+                   self.size, self.fanout)
+
+
+class SampleOutput(NamedTuple):
+    n_id: torch.Tensor  # (frontier_cap,) node ids, seeds first, -1 padded
+    batch_size: int
+    adjs: list  # deepest layer first
+    n_count: torch.Tensor  # valid entries in n_id
+    overflow: torch.Tensor  # uniques dropped by frontier caps (0 = exact)
+    edge_counts: tuple = ()  # per-layer valid edges, deepest first
+    frontier_counts: tuple = ()  # per-layer unclipped unique counts, deepest first
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw,
+                      with_eid: bool = False):
+    """The multi-layer sample + reindex loop.
+
+    ``seeds`` is ``(..., S)``, ``num_seeds`` a scalar or ``(...)``; every
+    leading index is an independent sample (the serving ladder's lanes).
+    ``draw(layer, deg) -> offs`` gives each hop's ``(..., S_l, k)`` offsets
+    from its ``(..., S_l)`` degrees.
+
+    Returns (n_id, n_count, adjs deepest-first, overflow, per-layer edge
+    counts, per-layer unclipped frontier counts).
+    """
+    adjs, edge_counts, frontier_counts = [], [], []
+    cur, cur_n = seeds, torch.as_tensor(num_seeds, device=seeds.device)
+    total_overflow = torch.zeros(cur.shape[:-1], dtype=torch.int32,
+                                 device=seeds.device)
+    for l, k in enumerate(sizes):
+        out = sample_layer(topo, cur, cur_n, k, with_eid=with_eid,
+                           offs=lambda deg, l=l: draw(l, deg))
+        nbr = out[0]
+        frontier, n_frontier, col, overflow = reindex_layer(
+            cur, cur_n, nbr, caps[l])
+        S = cur.shape[-1]
+        row = torch.arange(S, dtype=torch.int32, device=seeds.device)[:, None]
+        row = torch.where(col >= 0, row, -1)
+        lead = col.shape[:-2]
+        edge_index = torch.stack(
+            [col.reshape(*lead, S * k), row.reshape(*lead, S * k)], dim=-2)
+        eids = None
+        if with_eid:
+            # neighbours dropped by frontier-cap overflow must not leak
+            # their edge ids
+            eids = torch.where(col >= 0, out[2], -1).reshape(*lead, S * k)
+        adjs.append(Adj(edge_index, eids, (caps[l], S), fanout=k))
+        edge_counts.append((col >= 0).sum(dim=(-2, -1)).to(torch.int32))
+        frontier_counts.append(n_frontier + overflow)
+        cur, cur_n = frontier, n_frontier
+        total_overflow = total_overflow + overflow
+    return (cur, cur_n, adjs[::-1], total_overflow, tuple(edge_counts[::-1]),
+            tuple(frontier_counts[::-1]))
+
+
+class GraphSageSampler:
+    """K-hop neighbour sampler over a placed CSR topology.
+
+    Args:
+      csr_topo: host CSRTopo.
+      sizes: fanouts per layer, seeds outward; -1 = full neighbourhood
+        (capped at the graph's max degree).
+      device: sampling device; CUDA unless the caller passes another
+        (``"cpu"`` runs the kernels' plain versions).
+      mode: ``"GPU"``/``"HBM"`` (topology in device memory) or
+        ``"UVA"``/``"HOST"`` (``indices`` in pinned host memory, read over
+        UVA by the select kernel).
+      seed_capacity: padded batch size; defaults to the batch rounded up to
+        a multiple of 128.
+      frontier_caps: per-layer unique-node capacity; defaults to the
+        worst-case growth clamped at node_count.
+      seed: base seed; call ``c``'s layer ``l`` draws from a generator
+        seeded by ``(seed, c, l)``.
+      with_eid: populate ``Adj.e_id`` with per-edge ids.
+    """
+
+    def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
+                 mode: str | SampleMode = SampleMode.HBM,
+                 seed_capacity: int | None = None,
+                 frontier_caps: Sequence[int] | None = None, seed: int = 0,
+                 with_eid: bool = False):
+        self.device = resolve_device(device)
+        self.csr_topo = csr_topo
+        self.mode = SampleMode.parse(mode)
+        max_deg = csr_topo.max_degree
+        self.sizes = tuple(int(k) if k != -1 else max_deg for k in sizes)
+        if any(k < 1 for k in self.sizes):
+            raise ValueError(f"fanouts must be >= 1 or -1, got {sizes}")
+        self.with_eid = bool(with_eid)
+        if frontier_caps is not None:
+            frontier_caps = tuple(int(c) for c in frontier_caps)
+            if len(frontier_caps) != len(self.sizes):
+                raise ValueError(
+                    f"frontier_caps needs one entry per layer "
+                    f"({len(self.sizes)}), got {len(frontier_caps)}"
+                )
+            if any(c < 1 for c in frontier_caps):
+                raise ValueError(f"frontier_caps must be positive, got {frontier_caps}")
+        self._frontier_caps = frontier_caps
+        self._seed_capacity = seed_capacity
+        self.seed = int(seed)
+        self._call = 0
+        self.topo = self._place()
+        self._topo_version = int(csr_topo.version)
+
+    def _place(self):
+        return self.csr_topo.to_device(self.mode, self.device,
+                                       with_eid=self.with_eid)
+
+    # -- streaming-mutation versioning --------------------------------------
+
+    def check_topo_version(self) -> None:
+        """Raise :class:`VersionMismatchError` when the host CSR has
+        committed a version this sampler's placement was not built from."""
+        current = int(self.csr_topo.version)
+        if current != self._topo_version:
+            raise VersionMismatchError(
+                f"sampler topology placement is at version "
+                f"{self._topo_version} but the host CSR has committed "
+                f"version {current}; call refresh_topology() to re-place "
+                f"the device topology before sampling"
+            )
+
+    def refresh_topology(self) -> "GraphSageSampler":
+        """Re-place the topology from the host CSR and adopt its version."""
+        self.topo = self._place()
+        self._topo_version = int(self.csr_topo.version)
+        return self
+
+    # -- static-shape planning ---------------------------------------------
+
+    def _worst_caps(self, seed_cap: int) -> tuple[int, ...]:
+        caps = []
+        cur = seed_cap
+        n = self.csr_topo.node_count
+        for k in self.sizes:
+            # clamp growth at node_count but never below the previous cap:
+            # forced seed lanes keep duplicate seeds as distinct slots
+            cur = max(min(cur * (k + 1), n), cur)
+            cur = _round_up(cur, 8)
+            caps.append(cur)
+        return tuple(caps)
+
+    def _caps_for(self, seed_cap: int) -> tuple[int, ...]:
+        if self._frontier_caps is not None:
+            return self._frontier_caps
+        return self._worst_caps(seed_cap)
+
+    # -- public API ----------------------------------------------------------
+
+    def sample(self, input_nodes, draw_fn=None) -> SampleOutput:
+        """Sample k-hop neighbourhoods of ``input_nodes``.
+
+        ``draw_fn(layer, deg) -> offs`` replaces the generator draws:
+        it receives layer ``l``'s ``(S_l,)`` int32 degrees (0 on invalid
+        seeds) and returns ``(S_l, sizes[l])`` int32 offsets.
+        """
+        self.check_topo_version()
+        seeds = np.asarray(input_nodes)
+        batch = int(seeds.shape[0])
+        n = self.csr_topo.node_count
+        if batch and (seeds.min() < 0 or seeds.max() >= n):
+            raise ValueError(
+                f"seed ids must be in [0, {n}); got range "
+                f"[{seeds.min()}, {seeds.max()}]"
+            )
+        cap = self._seed_capacity or max(_round_up(batch, 128), 128)
+        if batch > cap:
+            raise ValueError(f"batch {batch} exceeds seed_capacity {cap}")
+        padded = np.full(cap, -1, dtype=np.int32)
+        padded[:batch] = seeds
+        self._call += 1
+        call = self._call
+
+        def draw(l, deg):
+            if draw_fn is not None:
+                return torch.as_tensor(draw_fn(l, deg), device=self.device)
+            g = seeded_generator(self.device, self.seed, call, l)
+            return uniform_offsets(deg, self.sizes[l], g)
+
+        n_id, n_count, adjs, overflow, edge_counts, frontier_counts = (
+            multilayer_sample(
+                self.topo, torch.from_numpy(padded).to(self.device), batch,
+                self.sizes, self._caps_for(cap), draw,
+                with_eid=self.with_eid,
+            ))
+        return SampleOutput(n_id, batch, adjs, n_count, overflow,
+                            edge_counts, frontier_counts)
