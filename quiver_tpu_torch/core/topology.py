@@ -2,13 +2,16 @@
 
 ``CSRTopo`` is the host-side CSR graph (the port of
 ``quiver_tpu.core.topology.CSRTopo``): built from COO ``edge_index`` or
-from ``indptr``/``indices``, exposing ``degree``/``eid``/``feature_order``.
-The COO -> CSR build is a numpy stable argsort plus bincount, so CSR slots
-within a row follow COO order and ``eid`` maps them back.
+from ``indptr``/``indices``, exposing ``degree``/``eid``/``feature_order``,
+per-edge weights (``cum_weights``, the row-local prefix sums the weighted
+hop searches) and per-edge timestamps (rows re-sorted by time for the
+temporal hop). The COO -> CSR build is a numpy stable argsort plus
+bincount, so CSR slots within a row follow COO order and ``eid`` maps them
+back.
 
 ``DeviceTopology`` is the sampling view: torch tensors in device memory
-(``GPU`` mode) or with ``indices``/``eid`` in pinned host memory, read
-over UVA by the select kernel (``UVA`` mode).
+(``GPU`` mode) or with ``indices``/``eid``/``cum_weights`` in pinned host
+memory, read over UVA by the select kernels (``UVA`` mode).
 """
 
 from __future__ import annotations
@@ -47,6 +50,37 @@ def _build_csr(row, col, node_count: int):
     return indptr, np.ascontiguousarray(col[order]), order
 
 
+def _row_prefix_weights(w: np.ndarray, indptr: np.ndarray) -> np.ndarray:
+    """Row-local inclusive prefix sums of CSR-ordered edge weights.
+
+    Computed in float64 (one global cumsum, rebased per row) and emitted
+    float32. Rows whose total weight is <= 0 get the uniform prefix
+    1..deg, so they sample uniformly instead of searching a flat CDF.
+    """
+    E = int(w.shape[0])
+    deg = np.diff(indptr).astype(np.int64)
+    starts = np.repeat(indptr[:-1].astype(np.int64), deg)  # row start per edge
+    cw = np.cumsum(w, dtype=np.float64)
+    base = np.where(starts > 0, cw[np.maximum(starts - 1, 0)], 0.0)
+    prefix = cw - base
+    ends = indptr[1:].astype(np.int64) - 1
+    tot = np.where(deg > 0, prefix[np.maximum(ends, 0)], 0.0)
+    bad = np.repeat(tot <= 0, deg)
+    if bad.any():
+        local = np.arange(E, dtype=np.int64) - starts
+        prefix[bad] = (local[bad] + 1).astype(np.float64)
+    return prefix.astype(np.float32)
+
+
+def _time_sort_order(indptr: np.ndarray, times: np.ndarray) -> np.ndarray:
+    """Permutation that stably sorts each CSR row's edges by timestamp;
+    ties keep CSR slot order."""
+    deg = np.diff(indptr).astype(np.int64)
+    rows = np.repeat(np.arange(deg.shape[0], dtype=np.int64), deg)
+    # lexsort: last key (rows) is primary, stable on equal (row, time) pairs
+    return np.lexsort((times, rows))
+
+
 class CSRTopo:
     """CSR graph topology with degree and feature-order bookkeeping.
 
@@ -54,10 +88,13 @@ class CSRTopo:
     ``eid`` maps CSR edge slots back to COO edge positions (None when built
     from indptr/indices without one). ``indptr`` keeps the narrowest width
     that holds the edge count; ``indices`` the narrowest that holds the
-    node ids.
+    node ids. ``edge_weight``/``edge_time`` attach per-edge weights and
+    timestamps (in COO order when built from ``edge_index``, else in CSR
+    slot order); see :meth:`set_edge_weight` and :meth:`set_edge_time`.
     """
 
-    def __init__(self, edge_index=None, indptr=None, indices=None, eid=None):
+    def __init__(self, edge_index=None, indptr=None, indices=None, eid=None,
+                 edge_weight=None, edge_time=None):
         if edge_index is not None:
             if indptr is not None or indices is not None:
                 raise ValueError("pass either edge_index or indptr/indices, not both")
@@ -101,10 +138,17 @@ class CSRTopo:
         self._eid = None if eid is None else eid.astype(
             _index_dtype(max(edge_count - 1, 0)), copy=False)
         self._feature_order = None  # set by Feature's degree reorder
+        self._edge_weight = None
+        self._cum_weights = None
+        self._edge_time = None
         self._max_degree = None
         # committed mutation version; device placements record the version
         # they were built from and raise VersionMismatchError once it moves
         self._version = 0
+        if edge_weight is not None:
+            self.set_edge_weight(edge_weight, coo_order=edge_index is not None)
+        if edge_time is not None:
+            self.set_edge_time(edge_time, coo_order=edge_index is not None)
 
     @property
     def indptr(self) -> np.ndarray:
@@ -131,6 +175,78 @@ class CSRTopo:
                 f"feature_order must have shape ({self.node_count},), got {order.shape}"
             )
         self._feature_order = order
+
+    # -- edge weights (weighted sampling) -----------------------------------
+
+    def set_edge_weight(self, edge_weight, coo_order: bool = True) -> "CSRTopo":
+        """Attach per-edge weights for weighted neighbour sampling.
+
+        ``coo_order=True`` means the weights follow the COO edge order this
+        topology was built from (translated through ``eid``); otherwise
+        they are taken in CSR slot order. Weights must be finite and
+        non-negative.
+        """
+        w = _as_numpy(edge_weight).astype(np.float64, copy=False).reshape(-1)
+        if w.shape[0] != self.edge_count:
+            raise ValueError(
+                f"edge_weight must have {self.edge_count} entries, got {w.shape[0]}"
+            )
+        if w.size and not (np.isfinite(w).all() and w.min() >= 0):
+            raise ValueError("edge weights must be finite and non-negative")
+        if coo_order and self._eid is not None:
+            w = w[self._eid]
+        self._edge_weight = w.astype(np.float32)
+        self._cum_weights = _row_prefix_weights(w, self._indptr)
+        return self
+
+    @property
+    def edge_weight(self) -> np.ndarray | None:
+        """Per-edge weights in CSR slot order (float32), or None."""
+        return self._edge_weight
+
+    @property
+    def cum_weights(self) -> np.ndarray | None:
+        """Row-local inclusive prefix sums of the edge weights (float32, CSR
+        order); rows with non-positive total weight carry 1..deg."""
+        return self._cum_weights
+
+    # -- edge timestamps (temporal sampling) ---------------------------------
+
+    def set_edge_time(self, edge_time, coo_order: bool = True) -> "CSRTopo":
+        """Attach per-edge timestamps for time-windowed sampling.
+
+        Each row's edges are stably re-sorted by time (``indices``, ``eid``
+        and the weights follow; ``cum_weights`` is derived again), so the
+        temporal hop can binary-search a ``[lo, hi]`` window to a slot
+        range. The re-sort changes CSR slot order: attach timestamps before
+        placing the topology. ``coo_order`` as in :meth:`set_edge_weight`.
+        """
+        t = _as_numpy(edge_time).astype(np.float64, copy=False).reshape(-1)
+        if t.shape[0] != self.edge_count:
+            raise ValueError(
+                f"edge_time must have {self.edge_count} entries, got {t.shape[0]}"
+            )
+        if t.size and not np.isfinite(t).all():
+            raise ValueError("edge times must be finite")
+        if coo_order and self._eid is not None:
+            t = t[self._eid]
+        t = t.astype(np.float32)
+        order = _time_sort_order(self._indptr, t)
+        self._indices = self._indices[order]
+        self._edge_time = t[order]
+        if self._eid is not None:
+            self._eid = self._eid[order]
+        if self._edge_weight is not None:
+            self._edge_weight = self._edge_weight[order]
+            self._cum_weights = _row_prefix_weights(self._edge_weight,
+                                                    self._indptr)
+        return self
+
+    @property
+    def edge_time(self) -> np.ndarray | None:
+        """Per-edge timestamps in CSR slot order (float32, each row sorted
+        non-decreasing), or None."""
+        return self._edge_time
 
     @property
     def version(self) -> int:
@@ -159,45 +275,81 @@ class CSRTopo:
         return f"CSRTopo(nodes={self.node_count}, edges={self.edge_count})"
 
     def to_device(self, mode: SampleMode | str = SampleMode.HBM, device=None,
-                  with_eid: bool = False) -> "DeviceTopology":
+                  with_eid: bool = False, with_weights: bool = False,
+                  with_times: bool = False) -> "DeviceTopology":
         """Place the topology for sampling on ``device`` (CUDA by default).
 
         ``GPU``/``HBM`` mode puts every array in device memory. ``UVA``/
-        ``HOST`` mode keeps ``indices`` (and ``eid``) in pinned host memory
-        and ``indptr`` on the device; on a CPU device the arrays simply
-        stay in host memory.
+        ``HOST`` mode keeps the per-edge arrays (``indices``, ``eid``,
+        ``cum_weights``) in pinned host memory and ``indptr`` on the
+        device; on a CPU device the arrays simply stay in host memory.
+        ``with_weights`` places ``cum_weights`` (needs
+        :meth:`set_edge_weight`); ``with_times`` places ``edge_time``
+        (needs :meth:`set_edge_time`; ``GPU`` mode only, since the window
+        search reads timestamps in plain torch ops).
         """
-        device = resolve_device(device)
+        if with_weights and self._cum_weights is None:
+            raise ValueError(
+                "weighted sampling requires edge weights; call "
+                "set_edge_weight() or pass edge_weight= to CSRTopo"
+            )
         mode = SampleMode.parse(mode)
+        if with_times:
+            if self._edge_time is None:
+                raise ValueError(
+                    "temporal sampling requires edge timestamps; call "
+                    "set_edge_time() or pass edge_time= to CSRTopo"
+                )
+            if mode is not SampleMode.HBM:
+                raise ValueError(
+                    "temporal sampling requires mode='GPU': the window "
+                    "search reads timestamps in device memory"
+                )
+        device = resolve_device(device)
         indptr = torch.from_numpy(np.ascontiguousarray(self._indptr)).to(device)
-        eid = self._eid if with_eid else None
+        per_edge = [self._indices, self._eid if with_eid else None,
+                    self._cum_weights if with_weights else None]
         host = False
         if mode is SampleMode.HOST:
-            indices, host = to_pinned_host(self._indices, device)
-            if eid is not None:
-                eid = to_pinned_host(eid, device)[0]
+            placed = [None if a is None else to_pinned_host(a, device)[0]
+                      for a in per_edge]
+            host = device.type == "cuda"
         else:
-            indices = torch.from_numpy(np.ascontiguousarray(self._indices)).to(device)
-            if eid is not None:
-                eid = torch.from_numpy(np.ascontiguousarray(eid)).to(device)
-        return DeviceTopology(indptr, indices, eid, host_indices=host,
-                              max_degree=self.max_degree)
+            placed = [None if a is None else
+                      torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                      for a in per_edge]
+        indices, eid, cum_weights = placed
+        edge_time = None
+        if with_times:
+            edge_time = torch.from_numpy(self._edge_time).to(device)
+        iters = (max(int(np.ceil(np.log2(self.max_degree + 1))), 1)
+                 if with_weights or with_times else 0)
+        return DeviceTopology(indptr, indices, eid, cum_weights=cum_weights,
+                              edge_time=edge_time, host_indices=host,
+                              search_iters=iters, max_degree=self.max_degree)
 
 
 class DeviceTopology:
     """CSR tensors placed for sampling.
 
-    ``host_indices`` is True when ``indices``/``eid`` live in pinned host
-    memory (UVA mode); the select kernel then reads them over PCIe.
-    ``indptr`` always lives on the sampling device.
+    ``host_indices`` is True when ``indices``/``eid``/``cum_weights`` live
+    in pinned host memory (UVA mode); the select kernels then read them
+    over PCIe. ``indptr`` (and ``edge_time``) always live on the sampling
+    device. ``search_iters`` bounds the weighted and temporal binary
+    searches: ``ceil(log2(max_degree + 1))`` (at least 1) when weights or
+    times are placed, else 0.
     """
 
-    def __init__(self, indptr, indices, eid=None, host_indices: bool = False,
-                 max_degree: int | None = None):
+    def __init__(self, indptr, indices, eid=None, cum_weights=None,
+                 edge_time=None, host_indices: bool = False,
+                 search_iters: int = 0, max_degree: int | None = None):
         self.indptr = indptr
         self.indices = indices
         self.eid = eid
+        self.cum_weights = cum_weights
+        self.edge_time = edge_time
         self.host_indices = host_indices
+        self.search_iters = int(search_iters)
         self.max_degree = max_degree
 
     @property

@@ -25,7 +25,7 @@ __all__ = ["KERNELS", "build_all", "check", "device_pointer", "load", "stream_pt
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, ".cuda_build")
-KERNELS = ("select", "gather")
+KERNELS = ("select", "gather", "wselect")
 _HEADERS = ("common.cuh",)
 
 
@@ -107,6 +107,8 @@ _SIGNATURES = {
                                  ctypes.c_longlong, ctypes.c_int, _P]),
     "gather": ("quiver_gather_rows", [_P, _P, _P, ctypes.c_longlong,
                                       ctypes.c_longlong, ctypes.c_int, _P]),
+    "wselect": ("quiver_wselect", [_P] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int, _P]),
 }
 
 

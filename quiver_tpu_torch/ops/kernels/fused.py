@@ -1,16 +1,19 @@
-"""Per-hop neighbour select (kernel K1, ``select.cu``).
+"""Per-hop neighbour select (kernel K1, ``select.cu``) and weighted select
+(kernel K3, ``wselect.cu``).
 
-The port of ``quiver_tpu/ops/pallas/fused.py``. There the TPU kernel
-``_select_kernel`` DMAs a 2048-slot window of each CSR row into VMEM and
-picks the drawn slots with a one-hot masked sum; rows longer than the
-window are sampled from a random window (hub-row attenuation). On Hopper a
-thread loads each drawn slot directly, so the hop takes the exact draw of
-``ops.sample.sample_layer`` with ``start = indptr[seed]`` and no window:
+The port of ``quiver_tpu/ops/pallas/fused.py``. There the TPU kernels
+``_select_kernel`` and ``_wselect_kernel`` DMA a 2048-slot window of each
+CSR row into VMEM and pick (or inverse-CDF search) the drawn slots with
+one-hot masked sums; rows longer than the window are sampled from a random
+window (uniform) or refused (weighted). On Hopper a thread loads each drawn
+slot, or each probe of its search, directly, so a hop takes the exact draw
+of ``ops.sample.sample_layer`` with ``start = indptr[seed]`` and no window:
 every row is sampled exactly.
 
-:func:`select` launches the kernel for CUDA tensors and raises if it
-cannot; :func:`select_plain` is the same function in plain PyTorch, used
-for CPU tensors and as the reference the kernel is checked against.
+:func:`select` and :func:`wselect` launch their kernels for CUDA tensors
+and raise if they cannot; :func:`select_plain` and :func:`wselect_plain`
+are the same functions in plain PyTorch, used for CPU tensors and as the
+references the kernels are checked against.
 """
 
 from __future__ import annotations
@@ -19,7 +22,15 @@ import torch
 
 from .build import check, device_pointer, load, stream_ptr
 
-__all__ = ["fused_sample_layer", "fused_select_hop", "select", "select_plain"]
+__all__ = [
+    "fused_sample_layer",
+    "fused_select_hop",
+    "fused_weighted_hop",
+    "select",
+    "select_plain",
+    "wselect",
+    "wselect_plain",
+]
 
 
 def select_plain(tables, start, offs, count=None):
@@ -97,6 +108,98 @@ def select(tables, start, offs, count=None):
 select.launches = 0
 
 
+def wselect_plain(indices, cum_weights, start, deg, u, iters: int, *,
+                  eid=None, scale_u: bool = True):
+    """Weighted select in plain PyTorch: per lane ``(r, c)`` of ``u``, the
+    row-local offset ``row_off`` of the inverse-CDF draw over row
+    ``[start[r], start[r] + deg[r])`` (``u`` scaled by the row total when
+    ``scale_u``; rows with ``deg <= k`` take ``c``), and
+    ``nbr = indices[start + row_off]`` (plus the ``eid`` lane). Lanes
+    ``c >= min(deg, k)`` are ``-1`` in every output."""
+    from ..sample import weighted_offsets
+
+    S, k = u.shape
+    dev = u.device
+    if cum_weights.numel() == 0:  # no edges: every lane is masked
+        return tuple(torch.full((S, k), -1, dtype=torch.int32, device=dev)
+                     for _ in range(2 if eid is None else 3))
+    s = start.to(device=dev, dtype=torch.int64)
+    d = deg.to(dev)
+    off, mask = weighted_offsets(cum_weights.to(dev), s, d, k, iters, u,
+                                 scale_u=scale_u)
+    off = torch.where(mask, off, -1)
+    pos = torch.where(mask, s[:, None] + off, 0)
+    outs = [torch.where(mask, indices.to(dev)[pos], -1).to(torch.int32), off]
+    if eid is not None:
+        outs.append(torch.where(mask, eid.to(dev)[pos], -1).to(torch.int32))
+    return tuple(outs)
+
+
+def wselect(indices, cum_weights, start, deg, u, iters: int, *, eid=None,
+            scale_u: bool = True):
+    """Weighted neighbour select (kernel K3).
+
+    Args:
+      indices: ``(E,)`` int32 CSR neighbours, on the device or in pinned
+        host memory (read over UVA); ``cum_weights`` ``(E,)`` float32
+        row-local inclusive prefix weights and ``eid`` ``(E,)`` int32
+        (optional) alike.
+      start: ``(S,)`` int64 row starts (``indptr[seed]``).
+      deg: ``(S,)`` int32 row lengths, 0 on invalid seeds.
+      u: ``(S, k)`` float32 contiguous draws: uniforms in ``[0, 1)``
+        scaled in-kernel by the row total when ``scale_u``, else already
+        scaled.
+      iters: bisection rounds, ``>= ceil(log2(max_degree + 1))``.
+
+    Returns ``(nbr, row_off[, eid])``, each ``(S, k)`` int32, ``-1`` on
+    lanes ``c >= min(deg, k)``. CPU ``u`` takes :func:`wselect_plain`;
+    CUDA ``u`` launches the kernel.
+    """
+    if not u.is_cuda:
+        return wselect_plain(indices, cum_weights, start, deg, u, iters,
+                             eid=eid, scale_u=scale_u)
+    S, k = u.shape
+    dev = u.device
+    E = indices.shape[0]
+    for name, tab, dtype in (("indices", indices, torch.int32),
+                             ("cum_weights", cum_weights, torch.float32),
+                             ("eid", eid, torch.int32)):
+        if tab is None:
+            continue
+        if (tab.dtype != dtype or tab.dim() != 1 or tab.shape[0] != E
+                or not tab.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous ({E},) {dtype}")
+        if tab.is_cuda and tab.device != dev:
+            raise ValueError(f"{name} on {tab.device}, draws on {dev}")
+    if start.dtype != torch.int64 or start.shape != (S,) or start.device != dev:
+        raise ValueError(f"start must be ({S},) int64 on {dev}")
+    if deg.dtype != torch.int32 or deg.shape != (S,) or deg.device != dev:
+        raise ValueError(f"deg must be ({S},) int32 on {dev}")
+    if u.dtype != torch.float32 or not u.is_contiguous():
+        raise ValueError("u must be contiguous float32")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    start, deg = start.contiguous(), deg.contiguous()
+    lib = load("wselect")
+    outs = [torch.empty((S, k), dtype=torch.int32, device=dev)
+            for _ in range(2 if eid is None else 3)]
+    with torch.cuda.device(dev):
+        err = lib.quiver_wselect(
+            device_pointer(lib, indices), device_pointer(lib, cum_weights),
+            None if eid is None else device_pointer(lib, eid),
+            start.data_ptr(), deg.data_ptr(), u.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if eid is not None else None,
+            S, k, int(iters), int(bool(scale_u)), stream_ptr(dev),
+        )
+    check(err, "wselect kernel launch")
+    wselect.launches += 1
+    return tuple(outs)
+
+
+wselect.launches = 0
+
+
 def fused_select_hop(indices, start, offs, *, eid=None):
     """Raw gather-select ``out[r, c] = indices[start[r] + offs[r, c]]``
     (plus an aligned ``eid`` lane when given), the contract of
@@ -106,11 +209,25 @@ def fused_select_hop(indices, start, offs, *, eid=None):
     return select(tables, start.to(torch.int64), offs.to(torch.int32))
 
 
+def fused_weighted_hop(indices, cum_weights, start, deg, u, iters: int, *,
+                       eid=None, scale_u: bool = True):
+    """Raw weighted select, the contract of
+    ``quiver_tpu.ops.pallas.fused.fused_weighted_hop`` without its window:
+    the row is ``[start, start + deg)`` itself. Returns
+    ``(nbr, row_off[, eids])``, each ``(S, k)`` int32 (see :func:`wselect`)."""
+    return wselect(indices, cum_weights, start.to(torch.int64),
+                   deg.to(torch.int32), u.to(torch.float32).contiguous(),
+                   iters, eid=eid, scale_u=scale_u)
+
+
 def fused_sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
-                       with_eid: bool = False, offs=None):
-    """The uniform fused hop: on Hopper it is ``ops.sample.sample_layer``
-    itself (exact draw, K1 select, no window)."""
+                       weighted: bool = False, time_window=None,
+                       with_eid: bool = False, offs=None, u=None):
+    """The fused hop, every variant: on Hopper it is
+    ``ops.sample.sample_layer`` itself (exact draw, no window; K1 selects
+    uniform and temporal hops, K3 runs weighted ones)."""
     from ..sample import sample_layer
 
     return sample_layer(topo, seeds, num_seeds, k, generator,
-                        with_eid=with_eid, offs=offs)
+                        with_eid=with_eid, offs=offs, weighted=weighted,
+                        time_window=time_window, u=u)

@@ -1,9 +1,10 @@
-"""Fixed-fanout uniform neighbour sampling with padded shapes.
+"""Fixed-fanout neighbour sampling with padded shapes: uniform, weighted
+and time-windowed hops.
 
-The port of ``quiver_tpu/ops/sample.py`` (uniform draws). Outputs are
-padded ``(S, k)`` blocks with ``-1`` sentinels, and every function takes
-optional leading batch dimensions (the serving ladder samples all lanes
-of a batch in one pass).
+The port of ``quiver_tpu/ops/sample.py``. Outputs are padded ``(S, k)``
+blocks with ``-1`` sentinels, and every function takes optional leading
+batch dimensions (the serving ladder samples all lanes of a batch in one
+pass).
 
 The draw is the same scheme as the JAX package: **stratified offsets plus
 a uniform rotation**. ``[0, deg)`` is split into k integer strata, one
@@ -18,6 +19,20 @@ explicit ``torch.Generator`` and the offset functions reduce them modulo
 each row's span (the bias is below span / 2^62). :func:`sample_layer`
 also takes the offsets themselves (``offs``), which is how the tests feed
 it JAX's draws and hold it bitwise against the JAX package.
+
+A **weighted** hop draws k independent slots per row (with replacement)
+from the row's categorical distribution: each lane scales a uniform
+``u01`` in ``[0, 1)`` by the row's total weight and binary-searches the
+row-local inclusive prefix ``cum_weights`` (inverse CDF); rows with
+``deg <= k`` take all neighbours in CSR order. Its draw seam is that f32
+``u01`` block (:func:`draw_u01`, or ``sample_layer(u=...)``), the same
+block JAX's ``weighted_offsets`` and its Pallas kernel consume; the search
+and select run on kernel K3 for CUDA tensors.
+
+A **temporal** hop samples uniformly among a row's edges whose timestamp
+lies in ``[lo, hi]``: two binary searches over the time-sorted row give
+the window's first slot and length, and the uniform draw runs over that
+length (kernel K1 selects).
 """
 
 from __future__ import annotations
@@ -25,18 +40,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels.fused import select
+from .kernels.fused import select, wselect
 from .kernels.gather import gather_rows
 
 __all__ = [
+    "cdf_search",
     "draw_bits",
+    "draw_u01",
     "rotate_offsets",
     "sample_layer",
     "seed_degrees",
     "seeded_generator",
     "staged_gather",
     "stratified_offsets",
+    "temporal_window_counts",
     "uniform_offsets",
+    "weighted_offsets",
 ]
 
 _BITS = 2**62
@@ -102,6 +121,95 @@ def uniform_offsets(deg, k: int, generator: torch.Generator):
     return rotate_offsets(off, deg, k, rot)
 
 
+def draw_u01(shape, k: int, generator: torch.Generator):
+    """The port's own weighted draw: ``(*shape, k)`` float32 in ``[0, 1)``."""
+    return torch.rand(tuple(shape) + (k,), generator=generator,
+                      device=generator.device, dtype=torch.float32)
+
+
+def cdf_search(cum_weights, u, base, deg, iters: int):
+    """Per-lane inverse-CDF binary search: for each lane ``(..., s, j)`` the
+    smallest slot ``m`` of row ``[base_s, base_s + deg_s)`` with
+    ``cum_weights[m] >= u[..., s, j]``, as a row-local int32 offset.
+
+    ``iters >= ceil(log2(max_degree + 1))`` guarantees convergence; every
+    probe stays inside the row. Empty rows probe slot 0 and return 0, so
+    ``cum_weights`` must not be empty.
+    """
+    degc = deg.to(torch.int64)[..., None]
+    basec = base.to(torch.int64)[..., None]
+    nonempty = degc > 0
+    lo = basec.expand(u.shape)
+    hi = lo + (degc - 1) * nonempty
+    for _ in range(iters):
+        mid = (lo + hi) // 2
+        go_right = cum_weights[mid * nonempty] < u
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return (lo - basec).to(torch.int32)
+
+
+def weighted_offsets(cum_weights, base, deg, k: int, iters: int, u01, *,
+                     scale_u: bool = True):
+    """k weight-proportional draws per row from the ``(..., S, k)`` f32
+    block ``u01``: ``u = u01 * total`` (one f32 multiply; ``scale_u=False``
+    takes ``u01`` as already scaled), then :func:`cdf_search`. Rows with
+    ``deg <= k`` take ``0..deg-1``.
+
+    Returns ``(offsets (..., S, k) int32 row-local, sel_mask)``: the plain
+    form of the XLA oracle, and the arithmetic of K3's plain version.
+    """
+    degc = deg.to(torch.int64)[..., None]
+    i = torch.arange(k, device=deg.device)
+    sel_mask = i < degc.clamp(max=k)
+    if cum_weights.numel() == 0:  # no edges: every row is empty
+        return torch.zeros(u01.shape, dtype=torch.int32,
+                           device=deg.device), sel_mask
+    if scale_u:  # by the row total, the last prefix entry (1 on empty rows)
+        end = torch.where(degc > 0, base.to(torch.int64)[..., None] + degc - 1, 0)
+        u01 = u01 * torch.where(degc > 0, cum_weights[end], 1.0)
+    off = cdf_search(cum_weights, u01, base, deg, iters).to(torch.int64)
+    off = torch.where(degc <= k, torch.minimum(i, (degc - 1).clamp(min=0)), off)
+    return off.to(torch.int32), sel_mask
+
+
+def temporal_window_counts(edge_time, base, deg, lo_t, hi_t, iters: int):
+    """Per-row slot range of the edges whose timestamp lies in
+    ``[lo_t, hi_t]``, over rows sorted by time (``CSRTopo.set_edge_time``).
+
+    Two binary searches over each row's ``deg + 1`` split points:
+    ``first`` counts edges with ``t < lo_t`` and ``deg_t`` those with
+    ``lo_t <= t <= hi_t``, so the window is row-local slots
+    ``[first, first + deg_t)``. The bounds compare in float32, as the
+    timestamps are stored. Returns ``(first, deg_t)``, both int32 shaped
+    like ``deg``.
+    """
+    degc = deg.to(torch.int64)
+    if edge_time.numel() == 0:
+        zero = torch.zeros_like(deg, dtype=torch.int32)
+        return zero, zero
+    basec = base.to(torch.int64)
+    probe_cap = (degc - 1).clamp(min=0)
+    lo_t, hi_t = float(np.float32(lo_t)), float(np.float32(hi_t))
+
+    def count(below):
+        lo = torch.zeros_like(degc)
+        hi = degc
+        for _ in range(iters):
+            active = lo < hi
+            mid = (lo + hi) // 2
+            # inactive and empty rows probe slot 0 and are masked out
+            pos = torch.where(active, basec + torch.minimum(mid, probe_cap), 0)
+            go = below(edge_time[pos]) & active
+            lo = torch.where(go, mid + 1, lo)
+            hi = torch.where(go | ~active, hi, mid)
+        return lo
+
+    first = count(lambda t: t < lo_t)
+    below_hi = count(lambda t: t <= hi_t)
+    return first.to(torch.int32), (below_hi - first).to(torch.int32)
+
+
 def seed_degrees(topo, seeds, num_seeds):
     """``(valid, base, deg)`` of padded seeds ``(..., S)``: a seed is valid
     when its lane is below ``num_seeds`` (scalar or ``(...,)``) and it is
@@ -118,7 +226,8 @@ def seed_degrees(topo, seeds, num_seeds):
 
 
 def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
-                 with_eid: bool = False, offs=None):
+                 with_eid: bool = False, offs=None, weighted: bool = False,
+                 time_window=None, u=None):
     """Sample up to ``k`` neighbours for each valid seed.
 
     Args:
@@ -130,44 +239,87 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
       generator: the ``torch.Generator`` of the port's own draw.
       with_eid: also return per-sample edge ids (COO positions when the
         topology carries ``eid``, CSR slots otherwise).
-      offs: the draw-injection seam. A ``(..., S, k)`` int32 tensor of
-        row-local offsets, or a callable ``deg -> offs`` that receives the
-        ``(..., S)`` int32 degrees (0 on invalid seeds); replaces the
-        generator draw.
+      offs: the uniform draw's injection seam. A ``(..., S, k)`` int32
+        tensor of row-local offsets, or a callable ``deg -> offs`` that
+        receives the ``(..., S)`` int32 degrees (0 on invalid seeds;
+        in-window degrees on a temporal hop); replaces the generator draw.
+      weighted: draw in proportion to the edge weights (needs a topology
+        placed ``with_weights=True``).
+      time_window: ``(lo, hi)``: draw uniformly among the edges with
+        ``lo <= t <= hi`` (needs ``with_times=True``); excludes
+        ``weighted``.
+      u: the weighted draw's injection seam. A ``(..., S, k)`` float32
+        block of uniforms in ``[0, 1)``, or a callable ``deg -> u``.
 
     Returns ``(neighbors (..., S, k) int32, counts (..., S) int32[, eids])``
-    with -1 on invalid lanes. The select runs on kernel K1 for CUDA
-    tensors.
+    with -1 on invalid lanes. For CUDA tensors the select runs on kernel
+    K1, and a weighted hop's search and select on kernel K3.
     """
     if k < 1:
         raise ValueError(f"fanout k must be >= 1, got {k}")
     if k > 46340:
         # the int32 stratum arithmetic of the JAX package needs k^2 < 2^31
         raise ValueError(f"fanout k must be <= 46340, got {k}")
+    if weighted and time_window is not None:
+        raise ValueError(
+            "time_window cannot be combined with weighted=True; pick one "
+            "biased draw per sampler"
+        )
+    if weighted and topo.cum_weights is None:
+        raise ValueError(
+            "weighted sampling needs topo.cum_weights; build the "
+            "DeviceTopology with to_device(with_weights=True)"
+        )
+    if time_window is not None and topo.edge_time is None:
+        raise ValueError(
+            "temporal sampling needs topo.edge_time; build the "
+            "DeviceTopology with to_device(with_times=True)"
+        )
     valid, base, deg = seed_degrees(topo, seeds, num_seeds)
-    if offs is None:
-        if generator is None:
-            raise ValueError("sample_layer needs a generator or offs")
-        offs = uniform_offsets(deg, k, generator)
-    elif callable(offs):
-        offs = offs(deg)
     lead = deg.shape
-    offs = offs.to(device=deg.device, dtype=torch.int32).reshape(-1, k)
-    counts = torch.where(valid, deg.clamp(max=k), 0)
-    tables = (topo.indices,)
-    if with_eid and topo.eid is not None:
-        tables += (topo.eid,)
-    outs = select(tables, base.reshape(-1).to(torch.int64), offs.contiguous(),
-                  counts.reshape(-1).contiguous())
+    start = base.to(torch.int64)
+    if time_window is not None:
+        first, deg = temporal_window_counts(
+            topo.edge_time, base, deg, time_window[0], time_window[1],
+            topo.search_iters)
+        deg = torch.where(valid, deg, 0)
+        # the window's slots start at `first`: rebase the row start
+        start = start + first.to(torch.int64)
+    counts = deg.clamp(max=k)  # deg is 0 on invalid seeds
+    eid_tab = topo.eid if with_eid else None
+    if weighted:
+        if u is None:
+            if generator is None:
+                raise ValueError("sample_layer needs a generator or u")
+            u = draw_u01(lead, k, generator)
+        elif callable(u):
+            u = u(deg)
+        u = u.to(device=deg.device, dtype=torch.float32).reshape(-1, k)
+        outs = wselect(topo.indices, topo.cum_weights, start.reshape(-1),
+                       deg.reshape(-1).contiguous(), u.contiguous(),
+                       topo.search_iters, eid=eid_tab)
+        row_off = outs[1]
+        eid_out = outs[2] if eid_tab is not None else None
+    else:
+        if offs is None:
+            if generator is None:
+                raise ValueError("sample_layer needs a generator or offs")
+            offs = uniform_offsets(deg, k, generator)
+        elif callable(offs):
+            offs = offs(deg)
+        row_off = offs.to(device=deg.device, dtype=torch.int32).reshape(-1, k)
+        tables = (topo.indices,) if eid_tab is None else (topo.indices, eid_tab)
+        outs = select(tables, start.reshape(-1), row_off.contiguous(),
+                      counts.reshape(-1).contiguous())
+        eid_out = outs[1] if eid_tab is not None else None
     nbr = outs[0].reshape(*lead, k)
     if not with_eid:
         return nbr, counts
-    if topo.eid is not None:
-        eids = outs[1].reshape(*lead, k)
-    else:
-        mask = nbr >= 0
-        epos = base[..., None] + offs.reshape(*lead, k).to(base.dtype)
-        eids = torch.where(mask, epos, -1)
+    if eid_out is not None:
+        eids = eid_out.reshape(*lead, k)
+    else:  # CSR slots, in indptr's width
+        epos = start[..., None] + row_off.reshape(*lead, k).to(torch.int64)
+        eids = torch.where(nbr >= 0, epos, -1).to(base.dtype)
     return nbr, counts, eids
 
 

@@ -8,8 +8,9 @@ every frontier to its cap, ``-1`` sentinels on invalid lanes.
 
 Draws follow the JAX package's per-layer key discipline: each layer draws
 from its own ``torch.Generator``, seeded by ``(seed, call, layer)``. A
-``draw_fn(layer, deg) -> offs`` seam replaces those draws (the tests feed
-it JAX's).
+``draw_fn(layer, deg)`` seam replaces those draws (the tests feed it
+JAX's): it returns a uniform hop's int32 offsets, or a weighted hop's
+float32 ``u01`` block.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..core.config import SampleMode
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, VersionMismatchError
 from ..ops.reindex import reindex_layer
-from ..ops.sample import sample_layer, seeded_generator, uniform_offsets
+from ..ops.sample import draw_u01, sample_layer, seeded_generator, uniform_offsets
 
 __all__ = ["Adj", "GraphSageSampler", "SampleOutput", "multilayer_sample"]
 
@@ -72,13 +73,16 @@ def _round_up(x: int, m: int) -> int:
 
 
 def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw,
-                      with_eid: bool = False):
+                      with_eid: bool = False, weighted: bool = False,
+                      time_window=None):
     """The multi-layer sample + reindex loop.
 
     ``seeds`` is ``(..., S)``, ``num_seeds`` a scalar or ``(...)``; every
     leading index is an independent sample (the serving ladder's lanes).
-    ``draw(layer, deg) -> offs`` gives each hop's ``(..., S_l, k)`` offsets
-    from its ``(..., S_l)`` degrees.
+    ``draw(layer, deg)`` gives each hop's ``(..., S_l, k)`` draws from its
+    ``(..., S_l)`` degrees: int32 offsets, or float32 ``u01`` when
+    ``weighted``. ``time_window`` makes every hop temporal (``deg`` is
+    then the in-window degree).
 
     Returns (n_id, n_count, adjs deepest-first, overflow, per-layer edge
     counts, per-layer unclipped frontier counts).
@@ -88,8 +92,10 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw,
     total_overflow = torch.zeros(cur.shape[:-1], dtype=torch.int32,
                                  device=seeds.device)
     for l, k in enumerate(sizes):
+        seam = {"u" if weighted else "offs": lambda deg, l=l: draw(l, deg)}
         out = sample_layer(topo, cur, cur_n, k, with_eid=with_eid,
-                           offs=lambda deg, l=l: draw(l, deg))
+                           weighted=weighted, time_window=time_window,
+                           **seam)
         nbr = out[0]
         frontier, n_frontier, col, overflow = reindex_layer(
             cur, cur_n, nbr, caps[l])
@@ -123,8 +129,8 @@ class GraphSageSampler:
       device: sampling device; CUDA unless the caller passes another
         (``"cpu"`` runs the kernels' plain versions).
       mode: ``"GPU"``/``"HBM"`` (topology in device memory) or
-        ``"UVA"``/``"HOST"`` (``indices`` in pinned host memory, read over
-        UVA by the select kernel).
+        ``"UVA"``/``"HOST"`` (``indices``, ``eid`` and ``cum_weights`` in
+        pinned host memory, read over UVA by the select kernels).
       seed_capacity: padded batch size; defaults to the batch rounded up to
         a multiple of 128.
       frontier_caps: per-layer unique-node capacity; defaults to the
@@ -132,13 +138,19 @@ class GraphSageSampler:
       seed: base seed; call ``c``'s layer ``l`` draws from a generator
         seeded by ``(seed, c, l)``.
       with_eid: populate ``Adj.e_id`` with per-edge ids.
+      weighted: draw neighbours in proportion to the edge weights
+        (needs ``csr_topo.set_edge_weight``); every hop runs kernel K3.
+      time_window: ``(lo, hi)``: every hop draws only from edges with
+        ``lo <= t <= hi`` (needs ``csr_topo.set_edge_time`` and GPU mode);
+        excludes ``weighted``.
     """
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str | SampleMode = SampleMode.HBM,
                  seed_capacity: int | None = None,
                  frontier_caps: Sequence[int] | None = None, seed: int = 0,
-                 with_eid: bool = False):
+                 with_eid: bool = False, weighted: bool = False,
+                 time_window=None):
         self.device = resolve_device(device)
         self.csr_topo = csr_topo
         self.mode = SampleMode.parse(mode)
@@ -147,6 +159,26 @@ class GraphSageSampler:
         if any(k < 1 for k in self.sizes):
             raise ValueError(f"fanouts must be >= 1 or -1, got {sizes}")
         self.with_eid = bool(with_eid)
+        self.weighted = bool(weighted)
+        if time_window is not None:
+            lo_t, hi_t = time_window
+            time_window = (float(lo_t), float(hi_t))
+            if self.weighted:
+                raise ValueError(
+                    "time_window cannot be combined with weighted=True; "
+                    "pick one biased draw per sampler"
+                )
+        self.time_window = time_window
+        if self.weighted and csr_topo.cum_weights is None:
+            raise ValueError(
+                "weighted=True requires edge weights; call "
+                "csr_topo.set_edge_weight() or pass edge_weight= to CSRTopo"
+            )
+        if self.time_window is not None and csr_topo.edge_time is None:
+            raise ValueError(
+                "time_window requires edge timestamps; call "
+                "csr_topo.set_edge_time() or pass edge_time= to CSRTopo"
+            )
         if frontier_caps is not None:
             frontier_caps = tuple(int(c) for c in frontier_caps)
             if len(frontier_caps) != len(self.sizes):
@@ -164,8 +196,10 @@ class GraphSageSampler:
         self._topo_version = int(csr_topo.version)
 
     def _place(self):
-        return self.csr_topo.to_device(self.mode, self.device,
-                                       with_eid=self.with_eid)
+        return self.csr_topo.to_device(
+            self.mode, self.device, with_eid=self.with_eid,
+            with_weights=self.weighted,
+            with_times=self.time_window is not None)
 
     # -- streaming-mutation versioning --------------------------------------
 
@@ -211,9 +245,11 @@ class GraphSageSampler:
     def sample(self, input_nodes, draw_fn=None) -> SampleOutput:
         """Sample k-hop neighbourhoods of ``input_nodes``.
 
-        ``draw_fn(layer, deg) -> offs`` replaces the generator draws:
-        it receives layer ``l``'s ``(S_l,)`` int32 degrees (0 on invalid
-        seeds) and returns ``(S_l, sizes[l])`` int32 offsets.
+        ``draw_fn(layer, deg)`` replaces the generator draws: it
+        receives layer ``l``'s ``(S_l,)`` int32 degrees (0 on invalid
+        seeds; in-window degrees on a temporal sampler) and returns
+        ``(S_l, sizes[l])`` int32 row-local offsets, or, on a weighted
+        sampler, ``(S_l, sizes[l])`` float32 uniforms ``u01`` in ``[0, 1)``.
         """
         self.check_topo_version()
         seeds = np.asarray(input_nodes)
@@ -236,13 +272,16 @@ class GraphSageSampler:
             if draw_fn is not None:
                 return torch.as_tensor(draw_fn(l, deg), device=self.device)
             g = seeded_generator(self.device, self.seed, call, l)
+            if self.weighted:
+                return draw_u01(deg.shape, self.sizes[l], g)
             return uniform_offsets(deg, self.sizes[l], g)
 
         n_id, n_count, adjs, overflow, edge_counts, frontier_counts = (
             multilayer_sample(
                 self.topo, torch.from_numpy(padded).to(self.device), batch,
                 self.sizes, self._caps_for(cap), draw,
-                with_eid=self.with_eid,
+                with_eid=self.with_eid, weighted=self.weighted,
+                time_window=self.time_window,
             ))
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)

@@ -3,15 +3,19 @@
 The port of ``quiver_tpu/serving/ladder.py``. For each power-of-two bucket
 size ``B`` the ladder runs two fixed-shape steps:
 
-* **sample**: the ``B`` lanes are sampled together, one K1 launch per hop
-  for all lanes, but every lane is its own single-seed sample with its own
-  frontier caps (planned for ONE seed) and its own draws, from generators
-  seeded by ``(seed, seq, layer)``. Lanes share no state, so a request's
+* **sample**: the ``B`` lanes are sampled together, one select launch per
+  hop for all lanes (K1, or K3 on a weighted sampler), but every lane is
+  its own single-seed sample with its own frontier caps (planned for ONE
+  seed) and its own draws, from generators seeded by
+  ``(seed, seq, layer)``. Lanes share no state, so a request's
   neighbourhood is a function of ``(node, seq)`` alone, whatever the
   bucket, the padding or the co-batched requests: the ladder's ids and
   edges equal the direct single-query oracle bitwise.
-* **forward**: the model over the ``(B, cap, F)`` block of gathered rows,
-  all lanes in one batched pass.
+* **forward**: the model run once per lane, at the oracle's shapes, over
+  that lane's ``(cap, F)`` rows of the gathered block (the JAX ladder's
+  ``lax.scan`` over lanes). A batched pass would let the matrix products
+  sum in another order than one lane; per lane, the ladder's log-probs
+  equal the oracle's bitwise too.
 
 The feature gather sits between the two steps, in the server. PyTorch runs
 eagerly, so there is nothing to compile: ``warmup`` runs every bucket once
@@ -22,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.sample import (draw_bits, rotate_offsets, seeded_generator,
-                          stratified_offsets)
+from ..ops.sample import (draw_bits, draw_u01, rotate_offsets,
+                          seeded_generator, stratified_offsets)
 from ..sampling.sampler import Adj, GraphSageSampler, multilayer_sample
 
 __all__ = ["ServeLadder"]
@@ -41,8 +45,10 @@ class ServeLadder:
       lane_caps: per-layer frontier caps for ONE seed; defaults to the
         sampler's worst-case single-seed plan.
       seed: base seed of the lanes' generators.
-      draw_fn: optional ``draw_fn(seq, layer, deg) -> offs`` replacing a
-        lane's generator draws (the parity tests feed it JAX's).
+      draw_fn: optional ``draw_fn(seq, layer, deg)`` replacing a lane's
+        generator draws (the parity tests feed it JAX's): it returns the
+        lane's ``(S, k)`` int32 offsets, or its float32 ``u01`` block on a
+        weighted sampler.
     """
 
     def __init__(self, sampler: GraphSageSampler, model, feature_dim: int,
@@ -61,6 +67,7 @@ class ServeLadder:
             )
         self.lane_caps = tuple(int(c) for c in caps)
         self.sizes = tuple(sampler.sizes)
+        self.weighted = bool(sampler.weighted)
         self.seed = int(seed)
         self.draw_fn = draw_fn
         self.device = sampler.device
@@ -77,33 +84,40 @@ class ServeLadder:
 
     def _lane_bits(self, seq: int, layer: int, rows: int):
         """One lane's raw draws for ``rows`` rows, from the generator
-        seeded by ``(seed, seq, layer)``."""
+        seeded by ``(seed, seq, layer)``: ``u01`` on a weighted sampler,
+        else the uniform draw's ``(jitter, rotation)``."""
         g = seeded_generator(self.device, self.seed, seq, layer)
+        if self.weighted:
+            return draw_u01((rows,), self.sizes[layer], g)
         return draw_bits((rows,), self.sizes[layer], g)
 
-    def _lane_offsets(self, seq: int, layer: int, deg):
-        """One lane's ``(S, k)`` offsets from its ``(S,)`` degrees."""
+    def _lane_draw(self, seq: int, layer: int, deg):
+        """One lane's ``(S, k)`` draws from its ``(S,)`` degrees: offsets,
+        or ``u01`` on a weighted sampler."""
         k = self.sizes[layer]
         if self.draw_fn is not None:
+            dtype = torch.float32 if self.weighted else torch.int32
             return torch.as_tensor(self.draw_fn(seq, layer, deg),
-                                   dtype=torch.int32, device=self.device)
-        jitter, rot = self._lane_bits(seq, layer, deg.shape[0])
-        off, _ = stratified_offsets(deg, k, jitter)
-        return rotate_offsets(off, deg, k, rot)
+                                   dtype=dtype, device=self.device)
+        bits = self._lane_bits(seq, layer, deg.shape[0])
+        if self.weighted:
+            return bits
+        off, _ = stratified_offsets(deg, k, bits[0])
+        return rotate_offsets(off, deg, k, bits[1])
 
     def _draw(self, seqs):
         """``draw(layer, deg)`` over ``(B, S)`` degrees. Each live lane
-        draws from its own generator and the offsets of all lanes are then
-        computed in one pass; padding lanes (``seq`` None, every degree 0)
-        take zero draws, which the select never reads."""
+        draws from its own generator; padding lanes (``seq`` None, every
+        degree 0) take zero draws, which the select never reads. Uniform
+        offsets of all lanes are then computed in one pass."""
         def draw(layer, deg):
             k = self.sizes[layer]
             rows = deg.shape[-1]
-            if self.draw_fn is not None:
-                zero = torch.zeros((rows, k), dtype=torch.int32,
-                                   device=self.device)
+            if self.weighted or self.draw_fn is not None:
+                dtype = torch.float32 if self.weighted else torch.int32
+                zero = torch.zeros((rows, k), dtype=dtype, device=self.device)
                 return torch.stack([
-                    zero if seq is None else self._lane_offsets(seq, layer, d)
+                    zero if seq is None else self._lane_draw(seq, layer, d)
                     for seq, d in zip(seqs, deg)])
             zeros = (torch.zeros((rows, k), dtype=torch.int64, device=self.device),
                      torch.zeros((rows, 1), dtype=torch.int64, device=self.device))
@@ -123,20 +137,29 @@ class ServeLadder:
         layer deepest-first ``(B, 2, E_l)``, overflow ``(B,)``)."""
         n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
             self.sampler.topo, seeds[:, None], 1, self.sizes,
-            self.lane_caps, self._draw(list(seqs)),
+            self.lane_caps, self._draw(list(seqs)), weighted=self.weighted,
         )
         return n_id, tuple(a.edge_index for a in adjs), overflow
 
-    def _forward(self, x, edge_indices):
-        """``x`` ``(..., cap_last, F)`` + deepest-first edge_index arrays ->
-        ``(..., num_classes)`` log-probs of the seed lane."""
+    def _lane_forward(self, x, edge_indices):
+        """One lane's forward: ``x`` ``(cap_last, F)`` + deepest-first
+        ``(2, E_l)`` edge_index arrays -> ``(num_classes,)`` log-probs of
+        the seed. The bucket's forward and the oracle both run this, so
+        they run the same products at the same shapes."""
         adjs = [
             Adj(ei, None, (cap, dst), fanout=k)
             for ei, (cap, dst, k) in zip(edge_indices,
                                          reversed(self._adj_meta))
         ]
+        return self.model(x, adjs)[0]
+
+    def _forward(self, x, edge_indices):
+        """``x`` ``(B, cap_last, F)`` + deepest-first ``(B, 2, E_l)``
+        edge_index arrays -> ``(B, num_classes)``: one lane at a time."""
         with torch.inference_mode():
-            return self.model(x, adjs)[..., 0, :]
+            return torch.stack([
+                self._lane_forward(x[j], [ei[j] for ei in edge_indices])
+                for j in range(x.shape[0])])
 
     def sample_exec(self, bucket: int):
         """The bucket's sample step: ``(seeds, seqs) -> (n_id,
@@ -182,11 +205,12 @@ class ServeLadder:
         seeds = torch.tensor([int(node)], dtype=torch.int32, device=self.device)
         n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
             self.sampler.topo, seeds, 1, self.sizes, self.lane_caps,
-            lambda layer, deg: self._lane_offsets(int(seq), layer, deg),
+            lambda layer, deg: self._lane_draw(int(seq), layer, deg),
+            weighted=self.weighted,
         )
         return n_id, tuple(a.edge_index for a in adjs), overflow
 
     def oracle_forward(self, x, edge_indices):
-        """One lane's forward at the oracle's shapes: ``x (cap_last, F)``
-        -> ``(num_classes,)``."""
-        return self._forward(x, edge_indices)
+        """One lane's forward: ``x (cap_last, F)`` -> ``(num_classes,)``."""
+        with torch.inference_mode():
+            return self._lane_forward(x, edge_indices)

@@ -73,8 +73,10 @@ class InferenceServer:
         sampler's worst-case single-seed plan).
       seed: base seed; a request's draws come from generators seeded by
         ``(seed, seq, layer)``, so responses are functions of (node, seq).
-      draw_fn: optional ``draw_fn(seq, layer, deg) -> offs`` replacing the
-        generator draws (the parity tests feed it JAX's).
+      draw_fn: optional ``draw_fn(seq, layer, deg)`` replacing the
+        generator draws (the parity tests feed it JAX's): it returns a
+        lane's int32 offsets, or its float32 ``u01`` block when the
+        sampler is weighted.
     """
 
     STAGES = ("queue_wait", "pad", "sample", "gather", "forward", "readback")

@@ -2,7 +2,8 @@
 card. Marked ``cuda``; each test skips without a CUDA device. Run on a GPU
 machine with ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 
-Tolerance: bitwise (both kernels move integers or bytes).
+Tolerance: bitwise (the kernels move integers or bytes; K3's one float
+product and compares are the plain version's, op for op).
 """
 
 import numpy as np
@@ -64,3 +65,41 @@ def test_gather_refuses_pageable_host_table(cuda):
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="pinned"):
         gather_rows(torch.zeros((10, 4)), ids)
+
+
+@pytest.mark.parametrize("rows,k", [(1, 1), (1003, 5), (64, 15)])
+@pytest.mark.parametrize("with_eid,scale_u,pinned", [(False, True, False), (True, True, False),
+                                                     (True, False, False), (True, True, True)])
+def test_wselect_kernel_matches_plain(cuda, rows, k, with_eid, scale_u, pinned):
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.ops.kernels.fused import wselect, wselect_plain
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(rows * k)
+    coo = generate_pareto_graph(3000, 12.0, seed=1)
+    w = np.exp(rng.normal(size=coo.shape[1])).astype(np.float32)
+    w[coo[0] < 20] = 0.0  # zero-total rows: uniform prefix
+    topo = CSRTopo(edge_index=coo, edge_weight=w)
+    dt = topo.to_device("UVA" if pinned else "GPU", cuda, with_eid=True, with_weights=True)
+    seeds = rng.integers(0, topo.node_count, rows)
+    seeds[0] = int(np.argmax(topo.degree))
+    if rows > 2:
+        seeds[1] = 3
+    base = torch.from_numpy(topo.indptr[seeds].astype(np.int64)).to(cuda)
+    deg = torch.from_numpy(topo.degree[seeds].astype(np.int32)).to(cuda)
+    deg[::7] = 0  # invalid seeds
+    u = torch.rand((rows, k), device=cuda)
+    if not scale_u:
+        end = (base + deg.long() - 1).clamp(min=0)
+        u = u * torch.where(deg > 0, dt.cum_weights.to(cuda)[end], 1.0)[:, None]
+    eid = dt.eid if with_eid else None
+    before = wselect.launches
+    got = wselect(dt.indices, dt.cum_weights, base, deg, u.contiguous(), dt.search_iters,
+                  eid=eid, scale_u=scale_u)
+    want = wselect_plain(dt.indices, dt.cum_weights, base, deg, u, dt.search_iters,
+                         eid=eid, scale_u=scale_u)
+    torch.cuda.synchronize()
+    assert wselect.launches == before + 1
+    assert len(got) == len(want) == (3 if with_eid else 2)
+    for g, h in zip(got, want):
+        assert torch.equal(g, h)

@@ -3,14 +3,16 @@ against quiver_tpu's, on the same graph, features, parameters and
 ``(node, seq)`` stream.
 
 The port's ``draw_fn`` replays the JAX server's key chain
-(``fold_in(PRNGKey(seed), seq)``, ``split`` per layer, ``split`` into
-``kj, kr``), so both sides draw the same offsets.
+(``fold_in(PRNGKey(seed), seq)``, ``split`` per layer, then ``split`` into
+``kj, kr`` for a uniform hop or the unsplit ``uniform`` block for a
+weighted one), so both sides draw the same offsets. The ``weighted``
+servers sample every hop in proportion to exp(N(0,1)) edge weights.
 
 Tolerance: bitwise for sampled ids and edges (compared through
 ``oracle_sample`` on both sides); served log-probs within atol = rtol =
 1e-5 (float32, different summation orders). The port's ladder against the
-port's own oracle: ids and edges bitwise, log-probs within 1e-5 (the
-batched forward may sum in another order than one lane).
+port's own oracle: bitwise, log-probs included (the ladder runs the
+forward per lane at the oracle's shapes).
 """
 
 import os
@@ -40,14 +42,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F, HID, CLS, SIZES, SEED = 12, 16, 5, (4, 3), 3
 
 
-def jax_draw_fn(seed, sizes):
-    """``draw_fn(seq, layer, deg)`` replaying the JAX ladder's draws."""
+def jax_draw_fn(seed, sizes, weighted=False):
+    """``draw_fn(seq, layer, deg)`` replaying the JAX ladder's draws:
+    offsets, or the ``u01`` block of a weighted hop."""
     base = jax.random.PRNGKey(seed)
 
     def draw(seq, layer, deg):
         key = jax.random.fold_in(base, seq)
         for _ in range(layer + 1):
             key, sub = jax.random.split(key)
+        if weighted:
+            return torch.from_numpy(np.array(jax.random.uniform(
+                sub, (deg.shape[0], sizes[layer]), jnp.float32)))
         kj, kr = jax.random.split(sub)
         d = jnp.asarray(deg.numpy())
         off, _ = stratified_offsets(kj, d, sizes[layer])
@@ -55,12 +61,17 @@ def jax_draw_fn(seed, sizes):
     return draw
 
 
-@pytest.fixture(scope="module", params=["hot", "tiered"])
+@pytest.fixture(scope="module", params=["hot", "tiered", "weighted"])
 def servers(request):
     coo = generate_pareto_graph(400, 6.0, seed=5)
     tj, tt = qj.CSRTopo(edge_index=coo), qt.CSRTopo(edge_index=coo)
+    weighted = request.param == "weighted"
+    if weighted:
+        w = np.exp(np.random.default_rng(10).normal(size=coo.shape[1])).astype(np.float32)
+        tj.set_edge_weight(w)
+        tt.set_edge_weight(w)
     x = np.random.default_rng(5).normal(size=(400, F)).astype(np.float32)
-    if request.param == "hot":
+    if request.param in ("hot", "weighted"):
         fj = qj.Feature(device_cache_size="1G").from_cpu_tensor(x)
         ft = qt.Feature(device_cache_size="1G", device="cpu").from_cpu_tensor(x)
     else:  # 100 hot rows by degree, 300 cold
@@ -73,11 +84,13 @@ def servers(request):
                         np.zeros((adjs[0].size[0], F), np.float32), adjs)
     mt = qt.GraphSAGE(F, HID, CLS, num_layers=2)
     mt.load_state_dict(flax_sage_to_state_dict(jax.tree_util.tree_map(np.asarray, params)))
-    sj = qj.InferenceServer(qj.GraphSageSampler(tj, list(SIZES), seed=SEED),
-                            mj, params, fj, buckets=(1, 2), seed=SEED)
-    st = qt.InferenceServer(qt.GraphSageSampler(tt, list(SIZES), device="cpu", seed=SEED),
-                            mt, ft, device="cpu", buckets=(1, 2), seed=SEED,
-                            draw_fn=jax_draw_fn(SEED, SIZES))
+    sj = qj.InferenceServer(
+        qj.GraphSageSampler(tj, list(SIZES), seed=SEED, weighted=weighted),
+        mj, params, fj, buckets=(1, 2), seed=SEED)
+    st = qt.InferenceServer(
+        qt.GraphSageSampler(tt, list(SIZES), device="cpu", seed=SEED, weighted=weighted),
+        mt, ft, device="cpu", buckets=(1, 2), seed=SEED,
+        draw_fn=jax_draw_fn(SEED, SIZES, weighted))
     sj.warmup()
     st.warmup()
     return sj, st
@@ -125,27 +138,36 @@ def test_port_ladder_equals_port_oracle_every_bucket(servers):
                 np.testing.assert_array_equal(n_ids[j].numpy(), o_nid.numpy())
                 for e, oe in zip(eis, o_eis):
                     np.testing.assert_array_equal(e[j].numpy(), oe.numpy())
-                np.testing.assert_allclose(logp[j], st.oracle(node, seq),
-                                           atol=1e-5, rtol=1e-5)
+                np.testing.assert_array_equal(logp[j], st.oracle(node, seq))
 
 
 def test_port_generator_draws_reproducible_per_seq():
     """Without draw_fn the port's own draws make a response a function of
     (node, seq): two servers agree, and a lane equals its oracle."""
-    tt = qt.CSRTopo(edge_index=generate_pareto_graph(300, 8.0, seed=1))
+    _check_own_draws(weighted=False)
+
+
+def test_port_weighted_draws_reproducible_per_seq():
+    """The same for a weighted sampler's own ``u01`` draws."""
+    _check_own_draws(weighted=True)
+
+
+def _check_own_draws(weighted):
+    coo = generate_pareto_graph(300, 8.0, seed=1)
+    tt = qt.CSRTopo(edge_index=coo, edge_weight=np.random.default_rng(2).random(coo.shape[1]))
     x = np.random.default_rng(1).normal(size=(300, F)).astype(np.float32)
     out = []
     for _ in range(2):
         torch.manual_seed(0)
         st = qt.InferenceServer(
-            qt.GraphSageSampler(tt, [5, 5], device="cpu"), qt.GraphSAGE(F, HID, CLS),
+            qt.GraphSageSampler(tt, [5, 5], device="cpu", weighted=weighted),
+            qt.GraphSAGE(F, HID, CLS),
             qt.Feature(device_cache_size="1G", device="cpu").from_cpu_tensor(x),
             device="cpu", max_batch=4, seed=7)
         reqs = st.serve([1, 2, 3, 250, 250])
         out.append(np.stack([r.result for r in reqs]))
         for r in reqs:
-            np.testing.assert_allclose(r.result, st.oracle(r.node, r.seq),
-                                       atol=1e-5, rtol=1e-5)
+            np.testing.assert_array_equal(r.result, st.oracle(r.node, r.seq))
     np.testing.assert_array_equal(out[0], out[1])
     stats = st.stats()
     assert stats["requests"] == 5 and set(qt.InferenceServer.STAGES) <= set(stats["stages"])
