@@ -9,10 +9,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the hand-written kernels (K1 ``select.cu``, K2
    ``gather.cu``, K3 ``wselect.cu``) from the sources in this checkout, one
    ``nvcc`` each, in parallel.
-3. kernel checks: hold each kernel bitwise against its plain PyTorch
-   version on the card, on the products-scale graph (with exp(N(0,1)) edge
-   weights) and feature tables, device and pinned host (UVA) tables, and
-   time both at the serving path's shapes and in bulk.
+3. kernel checks: hold every kernel entry bitwise against its plain
+   PyTorch version on the card (K1's select and fused uniform hop, K2's
+   single-table and tiered gathers, K3), on the products-scale graph (with
+   exp(N(0,1)) edge weights) and feature tables (and wide f32 rows of
+   1 KB and 2.4 KB), device and pinned host (UVA) tables; then time each
+   entry at the serving path's shapes and in bulk, in turns with its
+   yardstick (yardstick, kernel, kernel, yardstick), beside its bound.
 4. serve, uniform: the full-width serving configuration (products-shaped
    graph, F=100, GraphSAGE hidden 256 / 47 classes / 2 layers, fanouts
    [5, 5], max_batch 8) answers closed-loop point queries with every kernel
@@ -24,18 +27,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. serve, weighted: the same server over ``GraphSageSampler(weighted=True)``
    (every hop on K3, none on K1), with the same checks, and the same stream
    again from a UVA weighted topology.
-6. sampler, weighted: ``bench_sampler``'s configuration (fanouts
-   [15, 10, 5], batch 2048, worst-case caps) samples a few batches; every
-   edge must join a frontier node to one of its CSR neighbours, with
-   ``min(deg, k)`` edges per node. Prints sampled edges/s.
+6. sampler, uniform and weighted: ``bench_sampler``'s configuration
+   (fanouts [15, 10, 5], batch 2048, worst-case caps) samples a few
+   batches; every edge must join a frontier node to one of its CSR
+   neighbours, with ``min(deg, k)`` edges per node. Prints sampled edges/s.
 7. sampler, temporal: a copy of the graph with U[0, 1) edge timestamps
    samples at [15, 10, 5] in the window [0.25, 0.75]; every edge must be an
    in-window edge of its node, with ``min(in-window degree, k)`` per node.
    Prints sampled edges/s and the window search's share of a batch.
 
-Prints one ``{"kernels": [...]}`` line with all three kernels; the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of
-the JAX package ``quiver_tpu``.
+Prints one ``{"kernels": [...]}`` line with every kernel entry under its
+TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or of the JAX package ``quiver_tpu``.
 """
 
 from __future__ import annotations
@@ -54,7 +57,30 @@ SECTOR = 32  # bytes a random device-memory load moves
 
 PRODUCTS_NODES = 2_450_000
 PRODUCTS_AVG_DEG = 50.5
+WIDE_ROWS = 1_000_000  # rows of the wide-row gather tables
 KERNELS = ("select", "gather", "wselect")
+# the wrappers, each with its launch count: K1's two entries, K2's two, K3
+ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather", "wselect")
+SELECT_BOUND_RULE = (
+    "8 B start + 4 B count per row; 4 B offset and 4 B output per lane; one "
+    "32 B sector for each distinct sector of indices that the selected "
+    "lanes touch (replayed)"
+)
+HOP_BOUND_RULE = (
+    "4 B seed + 4 B count per row, 4 B num per lead, 4 B output per lane; "
+    "one 32 B sector for each distinct sector that the hop touches "
+    "(replayed) of indptr (two loads per valid seed, indptr[0] for invalid "
+    "ones), of the rotation bits (one 8 B load per row of degree > k) and "
+    "the jitter bits (one 8 B load per lane of such a row), and of indices "
+    "(the selected lanes)"
+)
+GATHER_BOUND_RULE = (
+    "device memory: 4 B per id (+4 B per valid id for the order lookup), "
+    "each hot row read once and each output row written once, at 3.35 "
+    "TB/s; cold rows (pinned host, read over UVA) at the pinned-host -> "
+    "device copy rate measured in the same call; the bound is the larger "
+    "of the two times"
+)
 WSELECT_BOUND_RULE = (
     "8 B start + 4 B deg per row; 4 B u and two 4 B outputs per lane; one "
     "32 B sector for each distinct sector of cum_weights and of indices "
@@ -124,11 +150,13 @@ def check(cond: bool, what: str) -> None:
 
 
 def kernel_fns():
-    """The three kernel wrappers, by name; each carries a launch count."""
-    from quiver_tpu_torch.ops.kernels.fused import select, wselect
-    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+    """The kernel entries' wrappers, by name; each carries a launch count."""
+    from quiver_tpu_torch.ops.kernels.fused import select, uniform_hop, wselect
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows, tiered_gather
 
-    return {"select": select, "gather": gather_rows, "wselect": wselect}
+    return {"select": select, "uniform_hop": uniform_hop,
+            "gather_rows": gather_rows, "tiered_gather": tiered_gather,
+            "wselect": wselect}
 
 
 def reset_launches() -> None:
@@ -140,12 +168,38 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
+def expect_launches(launches: dict, want: dict, what: str) -> None:
+    """Every entry launched exactly as ``want`` says (0 when unnamed)."""
+    full = {name: want.get(name, 0) for name in ENTRIES}
+    check(launches == full, f"{what}: launches {launches}, expected {full}")
+
+
+def in_turns(kernel_fn, yard_fn, iters: int = 200, reps: int = 7) -> dict:
+    """Kernel and yardstick timed in turns (yardstick, kernel, kernel,
+    yardstick) in this call; each figure the mean of its two turns."""
+    y1 = cuda_ms(yard_fn, iters, reps)
+    k1 = cuda_ms(kernel_fn, iters, reps)
+    k2 = cuda_ms(kernel_fn, iters, reps)
+    y2 = cuda_ms(yard_fn, iters, reps)
+    return {"ms": (k1 + k2) / 2, "ms_turns": [k1, k2],
+            "yard_ms": (y1 + y2) / 2, "yard_turns": [y1, y2],
+            "ratio": (k1 + k2) / (y1 + y2)}
+
+
 # -- phase 3: kernel checks ---------------------------------------------------
 
 
+def max_err(got, want) -> int:
+    import torch
+
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               if a.numel() else 0 for a, b in zip(got, want))
+
+
 def select_checks(topo_np, dev_topo, uva_topo, rng):
-    """K1 against select_plain on the products CSR: with and without the
-    eid lane, a ragged row count, counts on and off, and a UVA table."""
+    """K1's select entry against select_plain on the products CSR: with
+    and without the eid lane, a ragged row count, counts on and off, and a
+    UVA table."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.fused import select, select_plain
@@ -158,7 +212,7 @@ def select_checks(topo_np, dev_topo, uva_topo, rng):
     for rows, k in ((100_003, 5), (64, 5), (8, 5)):
         seeds = torch.from_numpy(rng.integers(
             0, topo_np.node_count, rows).astype("int32")).to(dev)
-        valid, base, deg = seed_degrees(dev_topo, seeds, rows)
+        valid, base, deg = seed_degrees(dev_topo.indptr, seeds, rows)
         offs = uniform_offsets(deg, k, g)
         count = torch.where(valid, deg.clamp(max=k), 0)
         start = base.to(torch.int64)
@@ -175,18 +229,74 @@ def select_checks(topo_np, dev_topo, uva_topo, rng):
             got = select(tabs, st, of.contiguous(), cnt)
             want = select_plain(tabs, st, of, cnt)
             sync()
-            ok = all(equal(a, b) for a, b in zip(got, want))
-            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                      if a.numel() else 0 for a, b in zip(got, want))
+            ok = len(got) == len(want) and all(equal(a, b) for a, b in zip(got, want))
             results.append({"rows": int(st.shape[0]), "k": k, "case": name,
-                            "match": ok, "max_abs_err": err})
+                            "match": ok, "max_abs_err": max_err(got, want)})
             check(ok, f"select {name} rows={rows}")
     return results
 
 
+def hop_seeds(topo_np, shape, k, rng, dev):
+    """Seeds of ``shape`` holding, in every lane, the max-degree row, a row
+    of degree <= k and a -1."""
+    import numpy as np
+    import torch
+
+    seeds = rng.integers(0, topo_np.node_count, shape).astype(np.int32)
+    seeds[..., 0] = int(np.argmax(topo_np.degree))
+    seeds[..., 1] = int(np.flatnonzero(topo_np.degree <= k)[0])
+    seeds[..., 2] = -1
+    return torch.from_numpy(seeds).to(dev)
+
+
+def hop_checks(topo_np, dev_topo, uva_topo, rng):
+    """K1's fused uniform hop against uniform_hop_plain on the products
+    CSR: 100,003 flat rows with a scalar count (3 invalid), and 8 x 8 lanes
+    with per-lane counts at k 5 and 15; without an eid lane, with the eid
+    table's, with CSR slots in int32 and int64 indptr; device and UVA
+    tables."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
+    from quiver_tpu_torch.ops.sample import draw_bits
+
+    dev = dev_topo.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    ip64 = dev_topo.indptr.to(torch.int64)
+    results = []
+    for shape, k in (((100_003,), 5), ((8, 8), 5), ((8, 8), 15)):
+        seeds = hop_seeds(topo_np, shape, k, rng, dev)
+        if len(shape) == 1:
+            num = shape[0] - 3
+        else:
+            num = torch.from_numpy(rng.integers(
+                0, shape[1] + 1, shape[0]).astype("int32")).to(dev)
+            num[0] = shape[1]
+        jitter, rot = draw_bits(shape, k, g)
+        for name, t, indptr, eid, with_eid in (
+                ("device", dev_topo, dev_topo.indptr, None, False),
+                ("device+eid", dev_topo, dev_topo.indptr, dev_topo.eid, True),
+                ("device, CSR slots", dev_topo, dev_topo.indptr, None, True),
+                ("device, int64 indptr, CSR slots", dev_topo, ip64, None, True),
+                ("uva+eid", uva_topo, uva_topo.indptr, uva_topo.eid, True)):
+            got = uniform_hop(indptr, t.indices, seeds, num, jitter, rot,
+                              eid=eid, with_eid=with_eid)
+            want = uniform_hop_plain(indptr, dev_topo.indices, seeds, num, jitter,
+                                     rot, eid=None if eid is None else dev_topo.eid,
+                                     with_eid=with_eid)
+            sync()
+            ok = len(got) == len(want) and all(equal(a, b) for a, b in zip(got, want))
+            results.append({"shape": list(shape), "k": k, "case": name,
+                            "match": ok, "max_abs_err": max_err(got, want)})
+            check(ok, f"uniform_hop {name} shape={shape} k={k}")
+    return results
+
+
 def gather_checks(tables, rng):
-    """K2 against gather_rows_plain: f32/bf16/int8 tables, device and
-    pinned host, a ragged id count with -1 lanes, and the keep-out form."""
+    """K2's single-table entry against gather_rows_plain: f32/bf16/int8
+    tables, device and pinned host, wide f32 rows, a ragged id count with
+    -1 lanes, and the keep-out form."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
@@ -199,17 +309,43 @@ def gather_checks(tables, rng):
             ids = rng.integers(0, n, count).astype("int32")
             ids[rng.random(count) < 0.1] = -1
             ids_d = torch.from_numpy(ids).to(dev)
-            got = gather_rows(tab, ids_d)
             want = gather_rows_plain(tab, ids_d)
             base = torch.full_like(want, 3)
-            got_keep = gather_rows(tab, ids_d, out=base.clone())
             want_keep = gather_rows_plain(tab, ids_d, out=base)
+            got = gather_rows(tab, ids_d)
+            got_keep = gather_rows(tab, ids_d, out=base.clone())
             sync()
             ok = equal(got, want) and equal(got_keep, want_keep)
             err = float((got.float() - want.float()).abs().max()) if count else 0.0
-            results.append({"table": name, "ids": count, "match": ok,
-                            "max_abs_err": err})
-            check(ok, f"gather {name} ids={count}")
+            results.append({"table": name, "ids": count, "match": ok, "max_abs_err": err})
+            check(ok, f"gather_rows {name} ids={count}")
+    return results
+
+
+def tiered_checks(stores, rng):
+    """K2's tiered entry against tiered_gather_plain on feature stores
+    (hot-only, hot + pinned cold with the degree reorder, cold-only; f32
+    and bf16), for ragged id counts with -1 lanes."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather, tiered_gather_plain
+
+    results = []
+    for name, feat in stores:
+        n = feat.shape[0]
+        for count in (100_003, 384, 7):
+            ids = rng.integers(0, n, count).astype("int32")
+            ids[rng.random(count) < 0.1] = -1
+            args = (torch.from_numpy(ids).to("cuda"), feat.feature_order,
+                    feat.hot_rows, feat.hot, feat.cold)
+            want = tiered_gather_plain(*args)
+            got = tiered_gather(*args)
+            sync()
+            ok = equal(got, want)
+            err = float((got.float() - want.float()).abs().max()) if count else 0.0
+            results.append({"store": name, "ids": count, "hot_rows": feat.hot_rows,
+                            "match": ok, "max_abs_err": err})
+            check(ok, f"tiered_gather {name} ids={count}")
     return results
 
 
@@ -223,7 +359,7 @@ def wselect_cases(dev_topo, uva_topo, seeds, k, g, label):
     from quiver_tpu_torch.ops.sample import seed_degrees
 
     S = seeds.shape[0]
-    _valid, base, deg = seed_degrees(dev_topo, seeds, S)
+    _valid, base, deg = seed_degrees(dev_topo.indptr, seeds, S)
     start = base.to(torch.int64)
     iters = dev_topo.search_iters
     u01 = torch.rand((S, k), generator=g, device=seeds.device)
@@ -245,11 +381,9 @@ def wselect_cases(dev_topo, uva_topo, seeds, k, g, label):
             sync()
             # zip stops at got's length: without eid, (nbr, row_off) only
             ok = all(equal(a, b) for a, b in zip(got, want))
-            err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                      if a.numel() else 0 for a, b in zip(got, want))
             results.append({"graph": label, "rows": S, "k": k, "case": name,
                             "scale_u": scale_u, "match": ok,
-                            "max_abs_err": err, **classes})
+                            "max_abs_err": max_err(got, want), **classes})
             check(ok, f"wselect {label} {name} rows={S} k={k} scale_u={scale_u}")
     return results
 
@@ -291,53 +425,194 @@ def wselect_checks(topo_np, dev_topo, uva_topo, rng):
     return results
 
 
+# -- phase 3: timing ------------------------------------------------------------
+
+
+def distinct_sectors(pos, elem_bytes: int) -> int:
+    """32 B sectors touched by loads at element positions ``pos`` of an
+    array of ``elem_bytes`` elements (allocations are sector-aligned)."""
+    import torch
+
+    return int(torch.unique(pos.reshape(-1) // (SECTOR // elem_bytes)).numel())
+
+
+def h2d_rate() -> float:
+    """Bytes/s of one 256 MiB pinned-host -> device copy."""
+    import torch
+
+    src = torch.empty(64 << 20, dtype=torch.float32).pin_memory()
+    dst = torch.empty_like(src, device="cuda")
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), iters=10, reps=5)
+    return src.numel() * 4 / (ms * 1e-3)
+
+
 def time_select(dev_topo, seeds, k, g):
-    """K1 at one hop's shapes: kernel, plain version and the stock
-    ``index_select`` of the drawn slots, with its byte bound."""
+    """K1's select entry at one hop's shapes, in turns with the stock
+    ``index_select`` of the drawn slots, beside its plain version and its
+    SELECT_BOUND_RULE bound."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.fused import select, select_plain
     from quiver_tpu_torch.ops.sample import seed_degrees, uniform_offsets
 
-    valid, base, deg = seed_degrees(dev_topo, seeds, seeds.shape[0])
+    S = seeds.shape[0]
+    valid, base, deg = seed_degrees(dev_topo.indptr, seeds, S)
     offs = uniform_offsets(deg, k, g).contiguous()
     count = torch.where(valid, deg.clamp(max=k), 0)
     start = base.to(torch.int64)
     tabs = (dev_topo.indices,)
-    before = select.launches
-    ms = cuda_ms(lambda: select(tabs, start, offs, count))
+    lane = torch.arange(k, device=seeds.device)[None, :] < count[:, None]
+    pos = torch.where(lane, start[:, None] + offs.to(torch.int64), 0).reshape(-1)
+    t = in_turns(lambda: select(tabs, start, offs, count),
+                 lambda: torch.index_select(dev_topo.indices, 0, pos))
     plain_ms = cuda_ms(lambda: select_plain(tabs, start, offs, count))
-    pos = (start[:, None] + offs.to(torch.int64)).reshape(-1)
-    pos = torch.where(
-        (torch.arange(k, device=pos.device)[None, :] < count[:, None]).reshape(-1),
-        pos, 0)
-    stock_ms = cuda_ms(lambda: torch.index_select(dev_topo.indices, 0, pos))
-    select.launches = before  # timing launches are not main-path launches
-    S = seeds.shape[0]
-    lanes = int(count.sum())
-    nbytes = S * 8 + S * k * 4 + S * 4 + lanes * 4 + S * k * 4
-    return {"ms": ms, "plain_ms": plain_ms, "stock_ms": stock_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "rows": S, "k": k}
+    sectors = distinct_sectors(pos[lane.reshape(-1)], 4)
+    nbytes = S * 12 + S * k * 8 + SECTOR * sectors
+    return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
+            "stock_ms": t["yard_ms"], "stock_turns": t["yard_turns"],
+            "ratio_to_stock": t["ratio"], "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / t["ms"],
+            "index_sectors": sectors, "rows": S, "k": k}
+
+
+def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 7):
+    """K1's fused hop at ``shape`` rows (per-lane counts when it has lanes),
+    in turns with the composed path on the same bits (``sample_layer`` with
+    the offsets computed from them: seed_degrees, stratified_offsets,
+    rotate_offsets, then the select entry), beside its plain version and
+    its HOP_BOUND_RULE bound."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
+    from quiver_tpu_torch.ops.sample import (draw_bits, rotate_offsets, sample_layer,
+                                             seed_degrees, stratified_offsets)
+
+    dev = dev_topo.device
+    seeds = hop_seeds(topo_np, shape, k, rng, dev)
+    num = (shape[0] - 3 if len(shape) == 1 else
+           torch.full(shape[:-1], shape[-1], dtype=torch.int32, device=dev))
+    jitter, rot = draw_bits(shape, k, g)
+    indptr, indices = dev_topo.indptr, dev_topo.indices
+
+    def offs(deg):
+        off, _ = stratified_offsets(deg, k, jitter)
+        return rotate_offsets(off, deg, k, rot)
+
+    fused = uniform_hop(indptr, indices, seeds, num, jitter, rot)
+    composed = sample_layer(dev_topo, seeds, num, k, offs=offs)
+    sync()
+    check(all(equal(a, b) for a, b in zip(fused, composed)),
+          f"uniform_hop == composed path at {shape} x {k}")
+    t = in_turns(lambda: uniform_hop(indptr, indices, seeds, num, jitter, rot),
+                 lambda: sample_layer(dev_topo, seeds, num, k, offs=offs),
+                 iters, reps)
+    plain_ms = cuda_ms(lambda: uniform_hop_plain(indptr, indices, seeds, num,
+                                                 jitter, rot), iters, reps)
+    valid, base, deg = seed_degrees(indptr, seeds, num)
+    lane = torch.arange(k, device=dev) < deg.clamp(max=k)[..., None]
+    pos = (base.to(torch.int64)[..., None] + offs(deg).to(torch.int64))[lane]
+    s = seeds.to(torch.int64)[valid]
+    ip_pos = torch.cat([s, s + 1] + ([torch.zeros(1, dtype=torch.int64, device=dev)]
+                                     if bool((~valid).any()) else []))
+    ip_sectors = distinct_sectors(ip_pos, indptr.element_size())
+    ix_sectors = distinct_sectors(pos, 4)
+    # the draw bits are read only for rows of degree > k, all k lanes each
+    drawn = torch.nonzero((deg > k).reshape(-1)).reshape(-1)
+    rot_sectors = distinct_sectors(drawn, 8)
+    jit_sectors = distinct_sectors(drawn[:, None] * k + torch.arange(k, device=dev), 8)
+    rows = seeds.numel()
+    lead = rows // shape[-1] if len(shape) > 1 else 0
+    nbytes = (rows * 8 + lead * 4 + rows * k * 4
+              + SECTOR * (ip_sectors + ix_sectors + rot_sectors + jit_sectors))
+    return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
+            "composed_ms": t["yard_ms"], "composed_turns": t["yard_turns"],
+            "speedup_over_composed": 1 / t["ratio"], "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / t["ms"],
+            "indptr_sectors": ip_sectors, "index_sectors": ix_sectors,
+            "rot_sectors": rot_sectors, "jitter_sectors": jit_sectors,
+            "drawn_rows": int(drawn.numel()), "shape": list(shape), "k": k}
 
 
 def time_gather(table, ids):
-    """K2 at one lookup's shapes (in-range ids): kernel, plain version and
-    ``torch.index_select``, which computes the same function here."""
+    """K2's single-table entry at one lookup's shapes (in-range ids), in
+    turns with ``torch.index_select``, which computes the same function
+    here, beside its plain version and its byte bound."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
 
-    before = gather_rows.launches
-    ms = cuda_ms(lambda: gather_rows(table, ids))
-    plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids))
     ids64 = ids.to(torch.int64)
-    library_ms = cuda_ms(lambda: torch.index_select(table, 0, ids64))
-    gather_rows.launches = before
+    t = in_turns(lambda: gather_rows(table, ids),
+                 lambda: torch.index_select(table, 0, ids64))
+    plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids))
     B = ids.shape[0]
     row_bytes = table.shape[1] * table.element_size()
     nbytes = B * 4 + 2 * B * row_bytes
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ids": B,
+    return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
+            "library_ms": t["yard_ms"], "library_turns": t["yard_turns"],
+            "ratio_to_library": t["ratio"],
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / t["ms"], "ids": B,
+            "row_bytes": row_bytes}
+
+
+def two_launch_lookup(n_id, order, hot_rows, hot, cold):
+    """The tiered lookup as two K2 single-table launches around id ops (the
+    port's lookup before the tiered entry): the yardstick of a split store."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+
+    valid = n_id >= 0
+    ids = torch.where(valid, n_id, 0).to(torch.int64)
+    if order is not None:
+        ids = order[ids].to(torch.int64)
+    ids = torch.where(valid, ids, -1)
+    out = gather_rows(hot, torch.where(ids < hot_rows, ids, -1).to(torch.int32))
+    cold_ids = torch.where(ids >= hot_rows, ids - hot_rows, -1)
+    return gather_rows(cold, cold_ids.to(torch.int32), out=out)
+
+
+def time_tiered(feat, ids, pcie_bytes_per_s, iters: int = 200):
+    """K2's tiered entry on a store at one lookup's shapes: in turns with
+    ``index_select`` on a hot-only store without reorder (the same function
+    for in-range ids), else with the two-launch lookup; beside its plain
+    version and its GATHER_BOUND_RULE bound."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather, tiered_gather_plain
+
+    args = (ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold)
+    if feat.cold is None and feat.feature_order is None:
+        ids64 = ids.to(torch.int64)
+        yard, yard_name = (lambda: torch.index_select(feat.hot, 0, ids64)), "index_select"
+    else:
+        yard, yard_name = (lambda: two_launch_lookup(*args)), "two K2 launches"
+        check(equal(tiered_gather(*args), two_launch_lookup(*args)),
+              "tiered_gather == two-launch lookup")
+    t = in_turns(lambda: tiered_gather(*args), yard, iters)
+    plain_ms = cuda_ms(lambda: tiered_gather_plain(*args), max(iters // 20, 5), 3)
+    valid = ids >= 0
+    rows = ids[valid].to(torch.int64)
+    if feat.feature_order is not None:
+        rows = feat.feature_order[rows].to(torch.int64)
+    n_cold = int((rows >= feat.hot_rows).sum())
+    n_valid = int(valid.sum())
+    B = ids.shape[0]
+    row_bytes = feat.shape[1] * (feat.hot if feat.hot is not None else feat.cold).element_size()
+    dev_bytes = (B * 4 + (n_valid * 4 if feat.feature_order is not None else 0)
+                 + (n_valid - n_cold) * row_bytes + B * row_bytes)
+    cold_bytes = n_cold * row_bytes
+    bound_s = max(dev_bytes / HBM_BYTES_PER_S, cold_bytes / pcie_bytes_per_s)
+    return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
+            "yardstick": yard_name, "yard_ms": t["yard_ms"],
+            "yard_turns": t["yard_turns"], "ratio_to_yard": t["ratio"],
+            "library_ms": t["yard_ms"] if yard_name == "index_select" else None,
+            "bound_ms": bound_s * 1e3, "bound_share": bound_s * 1e3 / t["ms"],
+            "device_bytes": dev_bytes,
+            "cold_bytes": cold_bytes, "cold_rows": n_cold, "ids": B,
             "row_bytes": row_bytes}
 
 
@@ -366,9 +641,9 @@ def wselect_sectors(dev_topo, start, deg, u, k):
     loads.append(torch.minimum(lo, s + dd - 1).reshape(-1))
     probes, loads = torch.cat(probes), torch.cat(loads)
     return {"cw_probes": int(probes.numel()),
-            "cw_sectors": int(torch.unique(probes // 8).numel()),
+            "cw_sectors": distinct_sectors(probes, 4),
             "index_loads": int(loads.numel()),
-            "index_sectors": int(torch.unique(loads // 8).numel())}
+            "index_sectors": distinct_sectors(loads, 4)}
 
 
 def time_wselect(dev_topo, seeds, k, g, iters_timed: int = 200):
@@ -384,21 +659,20 @@ def time_wselect(dev_topo, seeds, k, g, iters_timed: int = 200):
     from quiver_tpu_torch.ops.sample import seed_degrees
 
     S = seeds.shape[0]
-    _valid, base, deg = seed_degrees(dev_topo, seeds, S)
+    _valid, base, deg = seed_degrees(dev_topo.indptr, seeds, S)
     start = base.to(torch.int64)
     u = torch.rand((S, k), generator=g, device=seeds.device)
     iters = dev_topo.search_iters
     args = (dev_topo.indices, dev_topo.cum_weights, start, deg, u, iters)
-    before = wselect.launches
     ms = cuda_ms(lambda: wselect(*args), iters=iters_timed)
     plain_ms = cuda_ms(lambda: wselect_plain(*args), iters=iters_timed)
-    wselect.launches = before
     sec = wselect_sectors(dev_topo, start, deg, u, k)
     dense = S * 12 + S * k * 12
     nbytes = dense + SECTOR * (sec["cw_sectors"] + sec["index_sectors"])
     probe_bytes = dense + SECTOR * (sec["cw_probes"] + sec["index_loads"])
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms,
             "probe_bound_ms": probe_bytes / HBM_BYTES_PER_S * 1e3,
             "rows": S, "k": k, "iters": iters, **sec,
             "dependent_loads_per_searching_lane": iters + 2}
@@ -454,9 +728,11 @@ def ladder_parity(server, picks):
 def serve_phase(args, topo, feat_hot, variants, card, weighted):
     """Serve ``args.requests`` closed-loop queries over the [5, 5] sampler
     (weighted or uniform), with every kernel launch counted, and check the
-    answers; then serve the first 64 again through each of ``variants``
-    (``(label, sampler kwargs or None to reuse the sampler, store)``),
-    which must answer bitwise the same."""
+    answers and the launches (per batch: one hop launch per layer, K1's
+    fused hop or K3, and one K2 tiered lookup; nothing else); then serve
+    the same stream again through each of ``variants`` (``(label, sampler
+    kwargs or None to reuse the sampler, store)``), which must answer
+    bitwise the same with the same launches."""
     import numpy as np
     import torch
 
@@ -491,16 +767,14 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
     sums = np.exp(out.astype(np.float64)).sum(axis=1)
     check(bool(np.all(np.abs(sums - 1.0) < 1e-4)), "exp(log-probs) sums to 1")
     check(all(r.overflow == 0 for r in reqs), "overflow == 0")
-    hop, off_path = ("wselect", "select") if weighted else ("select", "wselect")
-    check(launches[hop] == 2 * batches and launches[off_path] == 0,
-          f"{hop} launched twice per batch and {off_path} never: {launches}")
-    check(launches["gather"] == batches, f"gather once per batch: {launches}")
+    hop = "wselect" if weighted else "uniform_hop"
+    expect_launches(launches, {hop: 2 * batches, "tiered_gather": batches},
+                    "serve")
 
     picks = [(r.node, r.seq) for r in
              (reqs[i] for i in rng.choice(len(reqs), 16, replace=False))]
     parity = ladder_parity(server, picks)
 
-    m = min(64, args.requests)
     reruns = {}
     for label, kwargs, store in variants:
         smp = sampler if kwargs is None else GraphSageSampler(
@@ -508,10 +782,13 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
         other = InferenceServer(smp, model, store, device="cuda", max_batch=8,
                                 seed=0)
         reset_launches()
-        got = closed_loop(other, nodes[:m], 8)
-        reruns[label] = {"queries": m, **read_launches()}
-        check(all(np.array_equal(a.result, b.result)
-                  for a, b in zip(got, reqs)),
+        got = closed_loop(other, nodes, 8)
+        runs = len(other.timeline.samples["sample"])
+        reruns[label] = {"queries": len(got), "batches": runs, **read_launches()}
+        expect_launches(read_launches(), {hop: 2 * runs, "tiered_gather": runs},
+                        f"{label} rerun")
+        check(len(got) == len(reqs) and all(
+            np.array_equal(a.result, b.result) for a, b in zip(got, reqs)),
               f"{label} answers == the first run's answers")
 
     st = server.stats()["stages"]
@@ -557,10 +834,11 @@ def verify_sample(out, sizes, indptr, row_limit, member):
     return edges
 
 
-def sampler_weighted_phase(topo, card, batches: int = 5):
-    """``bench_sampler``'s weighted configuration: [15, 10, 5], batch 2048,
-    worst-case caps, seed 0. Times ``batches`` calls after one warm-up and
-    checks the last one against the CSR."""
+def sampler_phase(topo, card, weighted: bool, batches: int = 5):
+    """``bench_sampler``'s configuration, uniform (K1's fused hop) or
+    weighted (K3): [15, 10, 5], batch 2048, worst-case caps, seed 0. Times
+    ``batches`` calls after one warm-up and checks the last one against
+    the CSR."""
     import numpy as np
     import torch
 
@@ -568,7 +846,7 @@ def sampler_weighted_phase(topo, card, batches: int = 5):
 
     sizes, batch = (15, 10, 5), 2048
     smp = GraphSageSampler(topo, list(sizes), device="cuda", seed=0,
-                           seed_capacity=batch, weighted=True)
+                           seed_capacity=batch, weighted=weighted)
     rng = np.random.default_rng(0)
     n = topo.node_count
     smp.sample(rng.integers(0, n, batch))
@@ -582,8 +860,9 @@ def sampler_weighted_phase(topo, card, batches: int = 5):
     sync()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    check(launches["wselect"] == len(sizes) * batches and launches["select"] == 0,
-          f"weighted sampler: K3 on every hop, K1 never: {launches}")
+    hop = "wselect" if weighted else "uniform_hop"
+    expect_launches(launches, {hop: len(sizes) * batches},
+                    f"{'weighted' if weighted else 'uniform'} sampler")
 
     dev = smp.topo.device
     indptr = smp.topo.indptr.to(torch.int64)
@@ -599,9 +878,11 @@ def sampler_weighted_phase(topo, card, batches: int = 5):
         return keys[pos] == key
 
     checked = verify_sample(out, sizes, indptr, deg, member)
-    return {"sizes": list(sizes), "batch": batch, "batches": batches,
+    return {"sampler": "weighted" if weighted else "uniform",
+            "sizes": list(sizes), "batch": batch, "batches": batches,
             "edges": total, "seconds": dt, "edges_per_s": total / dt,
-            "launches": launches, "edges_checked": checked, "card": card}
+            "batch_ms": 1e3 * dt / batches, "launches": launches,
+            "edges_checked": checked, "card": card}
 
 
 def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int = 5):
@@ -638,8 +919,8 @@ def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int =
     sync()
     dt = time.perf_counter() - t1
     launches = read_launches()
-    check(launches["select"] == len(sizes) * batches and launches["wselect"] == 0,
-          f"temporal sampler: K1 on every hop: {launches}")
+    expect_launches(launches, {"select": len(sizes) * batches},
+                    "temporal sampler (K1's select entry on every hop)")
 
     d = smp.topo
     lo, hi = np.float32(window[0]), np.float32(window[1])
@@ -677,12 +958,14 @@ def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int =
             "launches": launches, "edges_checked": checked, "card": card}
 
 
-def kernel_row(name, source, replaces, launches, checks, t, extra, card, device):
+def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
+               device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches, "path": path,
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": t.get("library_ms"),
+            "bound_share": t["bound_share"], "bound_by": "bytes",
+            "library_ms": t.get("library_ms"),
             "match": all(c["match"] for c in checks), **extra,
             "checks": checks, "device": device, "card": card}
 
@@ -747,46 +1030,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     x_all = rng.standard_normal((topo.node_count, 100), dtype=np.float32)
 
-    # phase 3: kernel checks
-    dev_topo = topo.to_device("GPU", "cuda", with_eid=True, with_weights=True)
-    uva_topo = topo.to_device("UVA", "cuda", with_eid=True, with_weights=True)
-    sel = select_checks(topo, dev_topo, uva_topo, rng)
-    wsel = wselect_checks(topo, dev_topo, uva_topo, rng)
-    x_dev = torch.from_numpy(x_all).to("cuda")
-    codes = torch.randint(-127, 128, x_dev.shape, dtype=torch.int8,
-                          device="cuda")
-    pin_rows = 500_000
-    tables = [
-        ("f32 device", x_dev), ("bf16 device", x_dev.to(torch.bfloat16)),
-        ("int8 device", codes),
-        ("f32 pinned", pinned(torch.from_numpy(x_all[:pin_rows]))),
-        ("bf16 pinned", pinned(x_dev[:pin_rows].to(torch.bfloat16).cpu())),
-        ("int8 pinned", pinned(codes[:pin_rows].cpu())),
-    ]
-    gat = gather_checks(tables, rng)
-    del tables, codes
-    # timing at the serving path's shapes: its largest hop (8 lanes x 8
-    # frontier rows, fanout 5) and its lookup (8 lanes x 48 rows, F=100)
-    g = torch.Generator(device="cuda")
-    g.manual_seed(2)
-    hop_seeds = torch.from_numpy(
-        rng.integers(0, topo.node_count, 64).astype(np.int32)).to("cuda")
-    t_sel = time_select(dev_topo, hop_seeds, 5, g)
-    t_wsel = time_wselect(dev_topo, hop_seeds, 5, g)
-    look_ids = torch.from_numpy(
-        rng.integers(0, topo.node_count, 384).astype(np.int32)).to("cuda")
-    t_gat = time_gather(x_dev, look_ids)
-    bulk_seeds = torch.from_numpy(rng.integers(
-        0, topo.node_count, 1_000_000).astype(np.int32)).to("cuda")
-    bulk = {
-        "select": time_select(dev_topo, bulk_seeds, 5, g),
-        "gather": time_gather(x_dev, torch.from_numpy(rng.integers(
-            0, topo.node_count, 100_000).astype(np.int32)).to("cuda")),
-        "wselect": time_wselect(dev_topo, bulk_seeds, 5, g, iters_timed=50),
-    }
-    del x_dev, dev_topo, uva_topo, bulk_seeds
-
-    # phases 4 and 5: serve (the main paths; launch counts are read there)
+    # the serving configuration's feature stores: every row on the card,
+    # and a quarter of them on the card with the rest pinned on the host
     n, F = x_all.shape
     t0 = time.time()
     feat_hot = Feature(device_cache_size=n * F * 4,
@@ -796,6 +1041,74 @@ def main() -> int:
     log(f"feature stores built in {time.time() - t0:.1f}s: hot-only "
         f"{feat_hot.hot_rows} rows; tiered {feat_cold.hot_rows} hot / "
         f"{n - feat_cold.hot_rows} cold (pinned host)")
+
+    # phase 3: kernel checks
+    dev_topo = topo.to_device("GPU", "cuda", with_eid=True, with_weights=True)
+    uva_topo = topo.to_device("UVA", "cuda", with_eid=True, with_weights=True)
+    sel = select_checks(topo, dev_topo, uva_topo, rng)
+    hop = hop_checks(topo, dev_topo, uva_topo, rng)
+    wsel = wselect_checks(topo, dev_topo, uva_topo, rng)
+    x_dev = feat_hot.hot  # every row, in node order, on the card
+    codes = torch.randint(-127, 128, x_dev.shape, dtype=torch.int8,
+                          device="cuda")
+    pin_rows = 500_000
+    # wide f32 rows (1 KB: two rows per warp; 2.4 KB: one row per warp in
+    # two chunks), checked here and timed in bulk
+    wide = [(f"f32 {F * 4} B device", torch.randn(WIDE_ROWS, F, device="cuda"))
+            for F in (256, 600)]
+    tables = wide + [
+        ("f32 device", x_dev), ("bf16 device", x_dev.to(torch.bfloat16)),
+        ("int8 device", codes),
+        ("f32 pinned", pinned(torch.from_numpy(x_all[:pin_rows]))),
+        ("bf16 pinned", pinned(x_dev[:pin_rows].to(torch.bfloat16).cpu())),
+        ("int8 pinned", pinned(codes[:pin_rows].cpu())),
+    ]
+    gat = gather_checks(tables, rng)
+    del tables, codes
+    small_topo = CSRTopo(edge_index=generate_pareto_graph(20_000, 10.0, seed=6))
+    x_small = rng.standard_normal((20_000, F), dtype=np.float32)
+    stores = [("f32 hot-only", feat_hot), ("f32 tiered, reorder", feat_cold)] + [
+        (f"bf16 {label}", Feature(device_cache_size=budget, csr_topo=t,
+                                  dtype="bfloat16", device="cuda").from_cpu_tensor(x_small))
+        for label, budget, t in (("hot-only", 20_000 * F * 2, None),
+                                 ("tiered, reorder", 5_000 * F * 2, small_topo),
+                                 ("cold-only", 0, None))]
+    tier = tiered_checks(stores, rng)
+    del stores
+    # timing at the serving path's shapes: its largest hop (8 lanes x 8
+    # frontier rows, fanout 5; the select entry's 64 x 5) and its lookup
+    # (8 lanes x 48 rows, F=100); then in bulk
+    pcie = h2d_rate()
+    log(f"pinned host -> device copy: {pcie / 1e9:.4g} GB/s")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    sel_seeds = torch.from_numpy(
+        rng.integers(0, n, 64).astype(np.int32)).to("cuda")
+    t_sel = time_select(dev_topo, sel_seeds, 5, g)
+    t_hop = time_hop(topo, dev_topo, (8, 8), 5, g, rng)
+    t_wsel = time_wselect(dev_topo, sel_seeds, 5, g)
+    look_ids = torch.from_numpy(
+        rng.integers(0, n, 384).astype(np.int32)).to("cuda")
+    t_gat = time_gather(x_dev, look_ids)
+    t_tier = time_tiered(feat_hot, look_ids, pcie)
+    t_tier_split = time_tiered(feat_cold, look_ids, pcie)
+    bulk_seeds = torch.from_numpy(rng.integers(0, n, 1_000_000).astype(np.int32)).to("cuda")
+    bulk_ids = torch.from_numpy(rng.integers(0, n, 100_000).astype(np.int32)).to("cuda")
+    wide_ids = torch.from_numpy(rng.integers(0, WIDE_ROWS, 100_000).astype(np.int32)).to("cuda")
+    bulk = {
+        "select": time_select(dev_topo, bulk_seeds, 5, g),
+        "uniform_hop": time_hop(topo, dev_topo, (1_000_000,), 5, g, rng, 20, 5),
+        "gather_rows": time_gather(x_dev, bulk_ids),
+        "tiered_gather": time_tiered(feat_hot, bulk_ids, pcie),
+        "tiered_gather, tiered store": time_tiered(feat_cold, bulk_ids, pcie, 20),
+        **{f"gather_rows, {tab.shape[1] * 4} B rows": time_gather(tab, wide_ids)
+           for _name, tab in wide},
+        "wselect": time_wselect(dev_topo, bulk_seeds, 5, g, iters_timed=50),
+        "pcie_h2d_bytes_per_s": pcie,
+    }
+    del x_dev, dev_topo, uva_topo, bulk_seeds, bulk_ids, wide, wide_ids
+
+    # phases 4 and 5: serve (the main paths; launch counts are read there)
     launches_u, serve_u = serve_phase(
         args, topo, feat_hot,
         [("tiered store", None, feat_cold),
@@ -806,23 +1119,51 @@ def main() -> int:
     del feat_hot, feat_cold
 
     # phases 6 and 7: sampler entry points
-    samp_w = sampler_weighted_phase(topo, card)
+    samp_u = sampler_phase(topo, card, weighted=False)
+    log(f"uniform sampler: {samp_u['edges_per_s']:.4g} sampled edges/s")
+    samp_w = sampler_phase(topo, card, weighted=True)
     log(f"weighted sampler: {samp_w['edges_per_s']:.4g} sampled edges/s")
     samp_t = sampler_temporal_phase(topo, args, card)
     log(f"temporal sampler: {samp_t['edges_per_s']:.4g} sampled edges/s, "
         f"{samp_t['batch_ms']:.3f} ms per batch, window search "
         f"{samp_t['window_search_ms_per_batch']:.3f} ms of it")
+    samplers = {"uniform": samp_u, "weighted": samp_w, "temporal": samp_t}
 
+    k1, k2 = "quiver_tpu/ops/pallas/fused.py:75", "quiver_tpu/ops/pallas/gather.py:28"
     kernels = [
-        kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu",
-                   "quiver_tpu/ops/pallas/fused.py:75", launches_u, sel, t_sel,
-                   {"stock_ms": t_sel["stock_ms"],
-                    "shape": [t_sel["rows"], t_sel["k"]]}, card, name),
-        kernel_row("gather", "quiver_tpu_torch/ops/kernels/gather.cu",
-                   "quiver_tpu/ops/pallas/gather.py:28", launches_u, gat, t_gat,
-                   {"shape": [t_gat["ids"], t_gat["row_bytes"]]}, card, name),
+        kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu", k1,
+                   samp_t["launches"]["select"],
+                   "temporal sampler (and the offs/draw_fn seams)", sel, t_sel,
+                   {"stock_ms": t_sel["stock_ms"], "ratio_to_stock": t_sel["ratio_to_stock"],
+                    "shape": [t_sel["rows"], t_sel["k"]], "bound_rule": SELECT_BOUND_RULE,
+                    "library": "none: its yardstick is the stock index_select "
+                               "of the already-computed slots"},
+                   card, name),
+        kernel_row("uniform_hop", "quiver_tpu_torch/ops/kernels/select.cu", k1,
+                   launches_u["uniform_hop"], "uniform serving", hop, t_hop,
+                   {"composed_ms": t_hop["composed_ms"],
+                    "speedup_over_composed": t_hop["speedup_over_composed"],
+                    "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
+                    "library": "none: its yardstick is the composed path"},
+                   card, name),
+        kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
+                   launches_u["tiered_gather"], "uniform serving (hot-only store)",
+                   tier, t_tier,
+                   {"ratio_to_library": t_tier["ratio_to_yard"],
+                    "shape": [t_tier["ids"], t_tier["row_bytes"]],
+                    "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
+                    "single_table_entry": {
+                        "name": "gather_rows", "path": "none (staged_gather)",
+                        "launches": launches_u["gather_rows"],
+                        "max_abs_err": max(c["max_abs_err"] for c in gat),
+                        "match": all(c["match"] for c in gat),
+                        **{key: t_gat[key] for key in ("ms", "plain_ms", "library_ms",
+                                                       "ratio_to_library", "bound_ms",
+                                                       "bound_share")}}},
+                   card, name),
         kernel_row("wselect", "quiver_tpu_torch/ops/kernels/wselect.cu",
-                   "quiver_tpu/ops/pallas/fused.py:113", launches_w, wsel, t_wsel,
+                   "quiver_tpu/ops/pallas/fused.py:113", launches_w["wselect"],
+                   "weighted serving", wsel, t_wsel,
                    {"shape": [t_wsel["rows"], t_wsel["k"]],
                     "iters": t_wsel["iters"],
                     "bound_rule": WSELECT_BOUND_RULE,
@@ -832,21 +1173,22 @@ def main() -> int:
                                "row-local inverse-CDF select over ragged rows"},
                    card, name),
     ]
-    check(all(k["launches"] > 0 and k["match"] for k in kernels),
-          "every kernel launched on its main path and matched")
+    check(all(k["launches"] > 0 and k["match"] for k in kernels)
+          and kernels[2]["single_table_entry"]["match"],
+          "every kernel launched on its main path and every entry matched")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as fh:
             json.dump({"kernels": kernels, "bulk": bulk,
                        "serve": {"uniform": serve_u, "weighted": serve_w},
-                       "sampler": {"weighted": samp_w, "temporal": samp_t},
+                       "sampler": samplers,
                        "build_s": build_s, "graph_s": graph_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
                                  "max_degree": topo.max_degree}}, fh, indent=1)
     print(json.dumps({"bulk": bulk, "card": card}), flush=True)
     print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w}}), flush=True)
-    print(json.dumps({"sampler": {"weighted": samp_w, "temporal": samp_t}}), flush=True)
+    print(json.dumps({"sampler": samplers}), flush=True)
     for k in kernels:
         k.pop("checks")
     print(json.dumps({"kernels": kernels}), flush=True)

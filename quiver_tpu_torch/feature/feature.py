@@ -5,9 +5,11 @@ The port of ``quiver_tpu/feature/feature.py`` (``Feature`` and
 device memory, and cold rows, kept in pinned host memory. With a
 ``csr_topo`` the rows are first reordered by descending degree, so the hot
 tier holds the high-degree nodes, and ``feature_order`` translates node
-ids on lookup. Both tiers are served by the row-gather kernel K2: the hot
-tier from device memory, the cold tier straight from pinned host memory
-over UVA (the reference's zero-copy design; the TPU had to stage it).
+ids on lookup. A lookup is one launch of kernel K2's tiered entry
+(``tiered_gather``): it translates the ids, picks the tier and reads each
+row once, the hot tier from device memory and the cold tier straight from
+pinned host memory over UVA (the reference's zero-copy design; the TPU had
+to stage it).
 
 Storage is float32 or bfloat16. Per-row int8 quantisation is not ported
 yet.
@@ -21,7 +23,7 @@ import torch
 from ..core.config import CachePolicy, parse_size_bytes
 from ..core.memory import resolve_device, to_pinned_host
 from ..core.topology import CSRTopo
-from ..ops.kernels.gather import gather_rows
+from ..ops.kernels.gather import tiered_gather
 from ..utils.reorder import reorder_by_degree
 
 __all__ = ["Feature", "tiered_lookup"]
@@ -51,23 +53,12 @@ def tiered_lookup(n_id, feature_order, hot_rows: int, hot, cold):
     """Rows for padded node ids from a hot and a cold tier.
 
     ``hot`` holds translated rows ``[0, hot_rows)`` and ``cold`` the rest
-    (either may be None). ``-1`` lanes return zero rows. The hot gather
-    writes zeros on every lane it does not own; the cold gather then fills
-    only its own lanes of the same output, so the two tiers merge with no
-    extra pass.
+    (either may be None); ``feature_order`` (int32, or None) translates
+    node ids to rows. ``-1`` lanes return zero rows. One K2 launch on the
+    card (:func:`~..ops.kernels.gather.tiered_gather`).
     """
-    valid = n_id >= 0
-    ids = torch.where(valid, n_id, 0).to(torch.int64)
-    if feature_order is not None:
-        ids = feature_order[ids].to(torch.int64)
-    ids = torch.where(valid, ids, -1)
-    if hot is None:
-        return gather_rows(cold, ids.to(torch.int32))
-    if cold is None:
-        return gather_rows(hot, ids.to(torch.int32))
-    out = gather_rows(hot, torch.where(ids < hot_rows, ids, -1).to(torch.int32))
-    cold_ids = torch.where(ids >= hot_rows, ids - hot_rows, -1)
-    return gather_rows(cold, cold_ids.to(torch.int32), out=out)
+    return tiered_gather(n_id.to(torch.int32).contiguous(), feature_order,
+                         hot_rows, hot, cold)
 
 
 class Feature:
@@ -118,7 +109,9 @@ class Feature:
             perm[torch.from_numpy(order).to(torch.int64)] = torch.arange(n)
             table = table[perm]
             self.csr_topo.feature_order = order
-            self.feature_order = torch.from_numpy(order).to(self.device)
+            # int32 once here, the width K2 reads it in
+            self.feature_order = torch.from_numpy(order).to(self.device,
+                                                            torch.int32)
         self.shape = (n, f)
         self.dtype = dtype
         self.hot_rows = int(hot_rows)

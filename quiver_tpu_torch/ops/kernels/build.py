@@ -1,15 +1,25 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load and launch the hand-written CUDA kernels.
 
 Each ``<name>.cu`` beside this file is compiled by ``nvcc`` into its own
 shared library with a plain C interface and loaded through ``ctypes``. The
 build runs at first use, never at import, from the sources in the package
-only, into ``.cuda_build/`` beside them. The library's file name carries a
-digest of its sources and flags, so an edited source rebuilds and a stale
-library is never loaded. Compilation goes to a temporary file that is then
-renamed into place, so a concurrent loader never opens a torn library.
+only, into ``.cuda_build/`` beside them; the first use builds every library
+at once, one ``nvcc`` per source in parallel. The library's file name
+carries a digest of its sources and flags, so an edited source rebuilds
+and a stale library is never loaded. Compilation goes to a temporary file
+that is then renamed into place, so a concurrent loader never opens a torn
+library.
 
-A build or load failure raises: there is no fallback to the plain PyTorch
-version on a CUDA device.
+Every wrapper launches through the same lean host path: :func:`address`
+gives a table's address (a pinned host table's UVA address is looked up
+once per table and kept on the tensor), and :func:`launch` calls the
+entry (looked up once) with the current raw stream, enters no device
+context when the launch device is already current, and raises on a launch
+error. The entries of ``select.cu`` and ``gather.cu`` take their arguments
+as one packed struct of 8-byte fields, which ctypes passes as one pointer
+(every ctypes argument costs host time to convert); ``wselect.cu`` keeps
+its argument list. A build or launch failure raises: there is no fallback
+to the plain PyTorch version on a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,9 +29,12 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 
-__all__ = ["KERNELS", "build_all", "check", "device_pointer", "load", "stream_ptr"]
+import torch
+
+__all__ = ["KERNELS", "address", "build_all", "launch"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, ".cuda_build")
@@ -45,8 +58,6 @@ def _nvcc() -> str:
 
 def _arch() -> str:
     """The gencode target of device 0: ``sm_90a`` on Hopper."""
-    import torch
-
     major, minor = torch.cuda.get_device_capability(0)
     suffix = "a" if major == 9 else ""
     return f"{major}{minor}{suffix}"
@@ -101,53 +112,81 @@ def build_all(names=KERNELS) -> dict[str, str]:
     return libs
 
 
-_P = ctypes.c_void_p
-_SIGNATURES = {
-    "select": ("quiver_select", [_P, _P, _P, _P, _P, _P, _P,
-                                 ctypes.c_longlong, ctypes.c_int, _P]),
-    "gather": ("quiver_gather_rows", [_P, _P, _P, ctypes.c_longlong,
-                                      ctypes.c_longlong, ctypes.c_int, _P]),
-    "wselect": ("quiver_wselect", [_P] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_int, _P]),
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# entry -> (library, C function, fields): an int is the number of 8-byte
+# fields of the packed argument struct, the stream last among them; a list
+# gives the argument types, the stream last after them. Every C function
+# returns the launch's CUDA error code.
+_ENTRIES = {
+    "select": ("select", "quiver_select", 10),
+    "uniform_hop": ("select", "quiver_uniform_hop", 18),
+    "gather": ("gather", "quiver_gather", 10),
+    "wselect": ("wselect", "quiver_wselect", [_P] * 9 + [_L, _I, _I, _I]),
 }
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use)."""
-    lib = ctypes.CDLL(build_all((name,))[name])
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    lib.quiver_device_pointer.argtypes = [_P, ctypes.POINTER(_P)]
-    lib.quiver_device_pointer.restype = ctypes.c_int
-    return lib
+def _libraries() -> dict[str, ctypes.CDLL]:
+    libs = {name: ctypes.CDLL(path) for name, path in build_all().items()}
+    for lib in libs.values():
+        lib.quiver_device_pointer.argtypes = [_P, ctypes.POINTER(_P)]
+        lib.quiver_device_pointer.restype = _I
+    return libs
 
 
-def check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {err}")
+@functools.cache
+def _kernel(entry: str):
+    """``(ctypes function, struct packer or None)`` of kernel entry
+    ``entry``; every library is built on first use."""
+    lib, fn_name, fields = _ENTRIES[entry]
+    fn = getattr(_libraries()[lib], fn_name)
+    fn.restype = _I
+    if isinstance(fields, int):
+        fn.argtypes = [ctypes.c_char_p]
+        return fn, struct.Struct(f"<{fields}q").pack
+    fn.argtypes = fields + [_P]
+    return fn, None
 
 
-def device_pointer(lib, t) -> int:
-    """Address a kernel reads ``t`` at: its own for a CUDA tensor, the UVA
-    device address for a pinned host tensor. Raises for pageable host
-    memory, which a kernel cannot read."""
-    if t.is_cuda:
+def address(t, index: int) -> int:
+    """Address a kernel on CUDA device ``index`` reads ``t`` at: its own
+    for a tensor on that device, the UVA device address for a pinned host
+    tensor (looked up once per tensor and storage). Raises for another
+    device and for pageable host memory, which a kernel cannot read."""
+    where = t.get_device()
+    if where == index:
         return t.data_ptr()
+    if where >= 0:
+        raise ValueError(f"tensor on cuda:{where}, kernel on cuda:{index}")
+    ptr = t.data_ptr()
+    known = t.__dict__.get("_uva_address")
+    if known is not None and known[0] == ptr:
+        return known[1]
     if not t.is_pinned():
         raise ValueError(
             "a CUDA kernel can read a host tensor only from pinned memory "
             "(see core.memory.to_pinned_host)"
         )
     dev = _P()
-    check(lib.quiver_device_pointer(t.data_ptr(), ctypes.byref(dev)),
-          "cudaHostGetDevicePointer")
+    err = _libraries()[KERNELS[0]].quiver_device_pointer(ptr, ctypes.byref(dev))
+    if err:
+        raise RuntimeError(f"cudaHostGetDevicePointer failed with CUDA error {err}")
+    t._uva_address = (ptr, dev.value)
     return dev.value
 
 
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
+def launch(entry: str, index: int, *args) -> None:
+    """Launch kernel entry ``entry`` on CUDA device ``index`` with
+    ``args`` (ints; 0 for an absent pointer) and the device's current raw
+    stream, entering that device's context only when it is not already
+    current; raises if the launch fails."""
+    fn, pack = _kernel(entry)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    args = (pack(*args, stream),) if pack is not None else args + (stream,)
+    if torch._C._cuda_getDevice() == index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed with CUDA error {err}")

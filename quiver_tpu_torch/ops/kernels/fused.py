@@ -10,17 +10,25 @@ slot, or each probe of its search, directly, so a hop takes the exact draw
 of ``ops.sample.sample_layer`` with ``start = indptr[seed]`` and no window:
 every row is sampled exactly.
 
-:func:`select` and :func:`wselect` launch their kernels for CUDA tensors
-and raise if they cannot; :func:`select_plain` and :func:`wselect_plain`
-are the same functions in plain PyTorch, used for CPU tensors and as the
-references the kernels are checked against.
+K1 has two entries. :func:`uniform_hop` is the whole uniform hop in one
+launch: degrees, stratified offsets, rotation, count, select and eid lane
+from the raw draws of ``ops.sample.draw_bits``. :func:`select` is the
+select alone (the Pallas contract), for offsets drawn elsewhere (the
+``offs=`` and ``draw_fn`` seams, which carry JAX's draws) and for the
+temporal hop, whose row start and degree come from the window search.
+
+:func:`select`, :func:`uniform_hop` and :func:`wselect` launch their
+kernels for CUDA tensors and raise if they cannot; :func:`select_plain`,
+:func:`uniform_hop_plain` and :func:`wselect_plain` are the same functions
+in plain PyTorch, used for CPU tensors and as the references the kernels
+are checked against.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .build import check, device_pointer, load, stream_ptr
+from .build import address, launch
 
 __all__ = [
     "fused_sample_layer",
@@ -28,6 +36,8 @@ __all__ = [
     "fused_weighted_hop",
     "select",
     "select_plain",
+    "uniform_hop",
+    "uniform_hop_plain",
     "wselect",
     "wselect_plain",
 ]
@@ -56,6 +66,20 @@ def select_plain(tables, start, offs, count=None):
     return tuple(outs)
 
 
+def _check_table(tab, name: str, dtype, index: int) -> int:
+    """``tab``'s address for a kernel on ``index``, after the memory checks."""
+    if tab.dtype != dtype or tab.dim() != 1 or not tab.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
+    return address(tab, index)
+
+
+def _check_rows(t, name: str, dtype, S: int, index: int):
+    """``t`` as a contiguous ``(S,)`` tensor of ``dtype`` on ``index``."""
+    if t.dtype != dtype or t.shape != (S,) or t.get_device() != index:
+        raise ValueError(f"{name} must be ({S},) {dtype} on cuda:{index}")
+    return t.contiguous()
+
+
 def select(tables, start, offs, count=None):
     """Neighbour select over one or two int32 tables (kernel K1).
 
@@ -63,7 +87,7 @@ def select(tables, start, offs, count=None):
       tables: ``(indices,)`` or ``(indices, eid)``, int32 ``(E,)`` each, on
         the device or in pinned host memory (read over UVA).
       start: ``(S,)`` int64 row starts (``indptr[seed]``).
-      offs: ``(S, k)`` int32 row-local slot offsets.
+      offs: ``(S, k)`` int32 contiguous row-local slot offsets.
       count: optional ``(S,)`` int32 valid lanes per row; lanes past it
         are ``-1`` and read nothing. Without it every lane must be valid.
 
@@ -74,38 +98,131 @@ def select(tables, start, offs, count=None):
         raise ValueError(f"select takes one or two tables, got {len(tables)}")
     if not offs.is_cuda:
         return select_plain(tables, start, offs, count)
+    index = offs.get_device()
+    if offs.dtype != torch.int32 or offs.dim() != 2 or not offs.is_contiguous():
+        raise ValueError("offs must be contiguous (S, k) int32")
     S, k = offs.shape
-    dev = offs.device
-    for tab in tables:
-        if tab.dtype != torch.int32 or tab.dim() != 1 or not tab.is_contiguous():
-            raise ValueError("select tables must be contiguous 1-D int32")
-        if tab.is_cuda and tab.device != dev:
-            raise ValueError(f"table on {tab.device}, offsets on {dev}")
-    if start.dtype != torch.int64 or start.shape != (S,) or start.device != dev:
-        raise ValueError(f"start must be ({S},) int64 on {dev}")
-    if offs.dtype != torch.int32 or not offs.is_contiguous():
-        raise ValueError("offs must be contiguous int32")
-    if count is not None and (count.dtype != torch.int32
-                              or count.shape != (S,) or count.device != dev):
-        raise ValueError(f"count must be ({S},) int32 on {dev}")
-    start = start.contiguous()
-    lib = load("select")
-    outs = [torch.empty((S, k), dtype=torch.int32, device=dev)
-            for _ in tables]
-    tabs = [device_pointer(lib, t) for t in tables]
-    with torch.cuda.device(dev):
-        err = lib.quiver_select(
-            tabs[0], tabs[1] if len(tabs) == 2 else None, start.data_ptr(),
-            offs.data_ptr(), None if count is None else count.contiguous().data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr() if len(outs) == 2 else None,
-            S, k, stream_ptr(dev),
-        )
-    check(err, "select kernel launch")
+    start = _check_rows(start, "start", torch.int64, S, index)
+    if count is not None:
+        count = _check_rows(count, "count", torch.int32, S, index)
+    two = len(tables) == 2
+    tab0 = _check_table(tables[0], "select table", torch.int32, index)
+    tab1 = _check_table(tables[1], "select table", torch.int32, index) if two else 0
+    # one allocation per output: cheaper on the host than views of one
+    out0 = torch.empty_like(offs)
+    out1 = torch.empty_like(offs) if two else None
+    launch("select", index, tab0, tab1, start.data_ptr(), offs.data_ptr(),
+           0 if count is None else count.data_ptr(), out0.data_ptr(),
+           out1.data_ptr() if two else 0, S, k)
     select.launches += 1
-    return tuple(outs)
+    return (out0, out1) if two else (out0,)
 
 
 select.launches = 0
+
+
+def uniform_hop_plain(indptr, indices, seeds, num_seeds, jitter, rot, *,
+                      eid=None, with_eid: bool = False):
+    """:func:`uniform_hop` in plain PyTorch: ``seed_degrees``, then
+    ``stratified_offsets`` and ``rotate_offsets`` on the raw draws, then
+    :func:`select_plain`."""
+    from ..sample import rotate_offsets, seed_degrees, stratified_offsets
+
+    k = jitter.shape[-1]
+    _valid, base, deg = seed_degrees(indptr, seeds, num_seeds)
+    off, _ = stratified_offsets(deg, k, jitter)
+    off = rotate_offsets(off, deg, k, rot)
+    counts = deg.clamp(max=k)  # deg is 0 on invalid seeds
+    start = base.to(torch.int64)
+    tables = (indices,) if eid is None or not with_eid else (indices, eid)
+    outs = select_plain(tables, start.reshape(-1), off.reshape(-1, k),
+                        counts.reshape(-1))
+    nbr = outs[0].reshape(off.shape)
+    if not with_eid:
+        return nbr, counts
+    if eid is not None:
+        return nbr, counts, outs[1].reshape(off.shape)
+    # CSR slots, in indptr's width
+    epos = start[..., None] + off.to(torch.int64)
+    return nbr, counts, torch.where(nbr >= 0, epos, -1).to(base.dtype)
+
+
+def uniform_hop(indptr, indices, seeds, num_seeds, jitter, rot, *, eid=None,
+                with_eid: bool = False):
+    """The uniform hop in one launch (kernel K1, ``quiver_uniform_hop``).
+
+    Args:
+      indptr: ``(N + 1,)`` CSR row pointers, int32 or int64.
+      indices: ``(E,)`` int32 CSR neighbours, on the device or in pinned
+        host memory (read over UVA); ``eid`` ``(E,)`` int32 (optional)
+        alike.
+      seeds: ``(..., S)`` int32 node ids, -1 padded.
+      num_seeds: valid seeds, an int or a tensor of one count for all or
+        one per leading index.
+      jitter: ``(..., S, k)`` int64 raw draws, reduced modulo each
+        stratum's span (``ops.sample.draw_bits``).
+      rot: ``(..., S, 1)`` int64 raw draws, reduced modulo the degree.
+      with_eid: also return the eid lane: ``eid``'s values, or the CSR
+        slots in indptr's width when ``eid`` is None.
+
+    Returns ``(neighbors (..., S, k) int32, counts (..., S) int32[,
+    eids])``, -1 on invalid lanes: exactly ``ops.sample.sample_layer``'s
+    uniform hop on these draws. CPU ``seeds`` take
+    :func:`uniform_hop_plain`; CUDA ``seeds`` launch the kernel.
+    """
+    if not seeds.is_cuda:
+        return uniform_hop_plain(indptr, indices, seeds, num_seeds, jitter,
+                                 rot, eid=eid, with_eid=with_eid)
+    index = seeds.get_device()
+    shape = seeds.shape
+    k = jitter.shape[-1]
+    if not 1 <= k <= 46340:  # the kernel's 32-bit strata need k^2 < 2^31
+        raise ValueError(f"uniform_hop needs 1 <= k <= 46340, got {k}")
+    if seeds.dtype != torch.int32:
+        raise ValueError("seeds must be int32")
+    seeds = seeds.contiguous()  # a frontier is a strided view of its buffer
+    if (jitter.dtype != torch.int64 or jitter.shape != shape + (k,)
+            or jitter.get_device() != index or not jitter.is_contiguous()):
+        raise ValueError(f"jitter must be contiguous {tuple(shape) + (k,)} "
+                         f"int64 on cuda:{index}")
+    if (rot.dtype != torch.int64 or rot.shape != shape + (1,)
+            or rot.get_device() != index or not rot.is_contiguous()):
+        raise ValueError(f"rot must be contiguous {tuple(shape) + (1,)} "
+                         f"int64 on cuda:{index}")
+    if indptr.dtype not in (torch.int32, torch.int64):
+        raise ValueError("indptr must be int32 or int64")
+    indptr_ptr = _check_table(indptr, "indptr", indptr.dtype, index)
+    tab = _check_table(indices, "indices", torch.int32, index)
+    eid_ptr = 0
+    if with_eid and eid is not None:
+        eid_ptr = _check_table(eid, "eid", torch.int32, index)
+    rows = seeds.numel()
+    num, num_scalar, num_stride = 0, 0, 0
+    if isinstance(num_seeds, torch.Tensor):
+        lead_n = rows // shape[-1] if shape[-1] else 0
+        if num_seeds.numel() not in (1, lead_n):
+            raise ValueError(f"num_seeds must hold 1 or {lead_n} counts")
+        num_t = num_seeds.to(device=seeds.device, dtype=torch.int32).contiguous()
+        num, num_stride = num_t.data_ptr(), int(num_seeds.numel() != 1)
+    else:
+        num_scalar = int(num_seeds)
+    # one allocation per output: cheaper on the host than views of one
+    nbr = torch.empty_like(jitter, dtype=torch.int32)
+    counts = torch.empty_like(seeds)
+    eids, eid_lane = None, 0
+    if with_eid:  # the eid table's int32, or CSR slots in indptr's width
+        eid_lane = 1 if eid is not None else 2
+        eids = torch.empty_like(jitter, dtype=torch.int32 if eid is not None
+                                else indptr.dtype)
+    launch("uniform_hop", index, indptr_ptr, int(indptr.dtype == torch.int64),
+           seeds.data_ptr(), num, num_scalar, num_stride, jitter.data_ptr(),
+           rot.data_ptr(), tab, eid_ptr, nbr.data_ptr(), counts.data_ptr(),
+           0 if eids is None else eids.data_ptr(), eid_lane, rows, shape[-1], k)
+    uniform_hop.launches += 1
+    return (nbr, counts) if eids is None else (nbr, counts, eids)
+
+
+uniform_hop.launches = 0
 
 
 def wselect_plain(indices, cum_weights, start, deg, u, iters: int, *,
@@ -152,49 +269,35 @@ def wselect(indices, cum_weights, start, deg, u, iters: int, *, eid=None,
       iters: bisection rounds, ``>= ceil(log2(max_degree + 1))``.
 
     Returns ``(nbr, row_off[, eid])``, each ``(S, k)`` int32, ``-1`` on
-    lanes ``c >= min(deg, k)``. CPU ``u`` takes :func:`wselect_plain`;
-    CUDA ``u`` launches the kernel.
+    lanes ``c >= min(deg, k)``. CPU ``u`` takes
+    :func:`wselect_plain`; CUDA ``u`` launches the kernel.
     """
     if not u.is_cuda:
         return wselect_plain(indices, cum_weights, start, deg, u, iters,
                              eid=eid, scale_u=scale_u)
+    index = u.get_device()
+    if u.dtype != torch.float32 or u.dim() != 2 or not u.is_contiguous():
+        raise ValueError("u must be contiguous (S, k) float32")
     S, k = u.shape
-    dev = u.device
     E = indices.shape[0]
-    for name, tab, dtype in (("indices", indices, torch.int32),
-                             ("cum_weights", cum_weights, torch.float32),
-                             ("eid", eid, torch.int32)):
-        if tab is None:
-            continue
-        if (tab.dtype != dtype or tab.dim() != 1 or tab.shape[0] != E
-                or not tab.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous ({E},) {dtype}")
-        if tab.is_cuda and tab.device != dev:
-            raise ValueError(f"{name} on {tab.device}, draws on {dev}")
-    if start.dtype != torch.int64 or start.shape != (S,) or start.device != dev:
-        raise ValueError(f"start must be ({S},) int64 on {dev}")
-    if deg.dtype != torch.int32 or deg.shape != (S,) or deg.device != dev:
-        raise ValueError(f"deg must be ({S},) int32 on {dev}")
-    if u.dtype != torch.float32 or not u.is_contiguous():
-        raise ValueError("u must be contiguous float32")
+    tabs = [0 if tab is None else _check_table(tab, name, dtype, index)
+            for name, tab, dtype in (("indices", indices, torch.int32),
+                                     ("cum_weights", cum_weights, torch.float32),
+                                     ("eid", eid, torch.int32))]
+    if cum_weights.shape[0] != E or (eid is not None and eid.shape[0] != E):
+        raise ValueError(f"indices, cum_weights and eid must hold {E} edges")
+    start = _check_rows(start, "start", torch.int64, S, index)
+    deg = _check_rows(deg, "deg", torch.int32, S, index)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
-    start, deg = start.contiguous(), deg.contiguous()
-    lib = load("wselect")
-    outs = [torch.empty((S, k), dtype=torch.int32, device=dev)
-            for _ in range(2 if eid is None else 3)]
-    with torch.cuda.device(dev):
-        err = lib.quiver_wselect(
-            device_pointer(lib, indices), device_pointer(lib, cum_weights),
-            None if eid is None else device_pointer(lib, eid),
-            start.data_ptr(), deg.data_ptr(), u.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr() if eid is not None else None,
-            S, k, int(iters), int(bool(scale_u)), stream_ptr(dev),
-        )
-    check(err, "wselect kernel launch")
+    outs = tuple(torch.empty_like(u, dtype=torch.int32)
+                 for _ in range(2 if eid is None else 3))
+    launch("wselect", index, tabs[0], tabs[1], tabs[2], start.data_ptr(),
+           deg.data_ptr(), u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+           outs[2].data_ptr() if eid is not None else 0, S, k, int(iters),
+           int(bool(scale_u)))
     wselect.launches += 1
-    return tuple(outs)
+    return outs
 
 
 wselect.launches = 0
@@ -206,7 +309,7 @@ def fused_select_hop(indices, start, offs, *, eid=None):
     ``quiver_tpu.ops.pallas.fused.fused_select_hop`` without its window.
     Returns a tuple of ``(S, k)`` int32 tensors, one per table."""
     tables = (indices,) if eid is None else (indices, eid)
-    return select(tables, start.to(torch.int64), offs.to(torch.int32))
+    return select(tables, start.to(torch.int64), offs.to(torch.int32).contiguous())
 
 
 def fused_weighted_hop(indices, cum_weights, start, deg, u, iters: int, *,
@@ -224,8 +327,8 @@ def fused_sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
                        weighted: bool = False, time_window=None,
                        with_eid: bool = False, offs=None, u=None):
     """The fused hop, every variant: on Hopper it is
-    ``ops.sample.sample_layer`` itself (exact draw, no window; K1 selects
-    uniform and temporal hops, K3 runs weighted ones)."""
+    ``ops.sample.sample_layer`` itself (exact draw, no window; K1 runs
+    uniform and temporal hops, K3 weighted ones)."""
     from ..sample import sample_layer
 
     return sample_layer(topo, seeds, num_seeds, k, generator,

@@ -1,22 +1,31 @@
-"""Row gather (kernel K2, ``gather.cu``).
+"""Row gather (kernel K2, ``gather.cu``): the single-table gather and the
+tiered feature lookup.
 
 The port of ``quiver_tpu/ops/pallas/gather.py``, whose TPU kernel
-``_gather_kernel`` issues one DMA per row. On Hopper one warp copies one
-row with coalesced words; the same kernel reads a device table (the hot
-feature tier) or a pinned host table over UVA (the cold tier).
+``_gather_kernel`` issues one DMA per row, and of the XLA ops of
+``quiver_tpu/feature/feature.py`` ``tiered_lookup`` around it. On Hopper a
+warp copies up to four rows (as many as their width allows) with
+coalesced words, loads before stores; the same kernel reads a device table
+(the hot feature tier) and a pinned host table over UVA (the cold tier),
+and :func:`tiered_gather` translates the ids, picks the tier and merges
+both tiers in its one launch.
 
-:func:`gather_rows` launches the kernel for CUDA ids and raises if it
-cannot; :func:`gather_rows_plain` is the same function in plain PyTorch,
-used for CPU tensors and as the reference the kernel is checked against.
+:func:`gather_rows` and :func:`tiered_gather` launch the kernel for CUDA
+ids and raise if they cannot; :func:`gather_rows_plain` and
+:func:`tiered_gather_plain` are the same functions in plain PyTorch, used
+for CPU tensors and as the references the kernel is checked against.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .build import check, device_pointer, load, stream_ptr
+from .build import address, launch
 
-__all__ = ["gather_rows", "gather_rows_plain"]
+__all__ = ["gather_rows", "gather_rows_plain", "tiered_gather",
+           "tiered_gather_plain"]
+
+_ALL_HOT = 2**63 - 1  # hot_rows of a single table: every row is "hot"
 
 
 def gather_rows_plain(table, ids, out=None):
@@ -24,7 +33,8 @@ def gather_rows_plain(table, ids, out=None):
     ``out[j]`` when ``out`` is given. Plain PyTorch."""
     valid = ids >= 0
     if table.shape[0]:
-        rows = table.to(ids.device)[ids.clamp(min=0).to(torch.int64)]
+        pos = ids.clamp(min=0).to(device=table.device, dtype=torch.int64)
+        rows = table[pos].to(ids.device)
     else:
         rows = torch.zeros((ids.shape[0],) + tuple(table.shape[1:]),
                            dtype=table.dtype, device=ids.device)
@@ -32,8 +42,20 @@ def gather_rows_plain(table, ids, out=None):
     return torch.where(valid[:, None], rows, base)
 
 
+def _check_ids(ids, name: str) -> None:
+    if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError(f"{name} must be contiguous 1-D int32")
+
+
+def _check_table(table, name: str, F=None, dtype=None) -> None:
+    if table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous (N, F) tensor")
+    if F is not None and (table.shape[1] != F or table.dtype != dtype):
+        raise ValueError(f"{name} must hold ({F},) {dtype} rows")
+
+
 def gather_rows(table, ids, out=None):
-    """Gather rows of a ``(N, F)`` table (kernel K2).
+    """Gather rows of a ``(N, F)`` table (kernel K2, one table).
 
     Args:
       table: ``(N, F)`` contiguous table of any element type, on the device
@@ -48,29 +70,86 @@ def gather_rows(table, ids, out=None):
     """
     if not ids.is_cuda:
         return gather_rows_plain(table, ids, out)
-    dev = ids.device
-    if table.dim() != 2 or not table.is_contiguous():
-        raise ValueError("gather_rows table must be a contiguous (N, F) tensor")
-    if table.is_cuda and table.device != dev:
-        raise ValueError(f"table on {table.device}, ids on {dev}")
-    if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
-        raise ValueError("ids must be contiguous 1-D int32")
+    index = ids.get_device()
+    _check_ids(ids, "ids")
+    _check_table(table, "table")
     B, F = ids.shape[0], table.shape[1]
     keep = out is not None
     if out is None:
-        out = torch.empty((B, F), dtype=table.dtype, device=dev)
-    elif (out.shape != (B, F) or out.dtype != table.dtype or out.device != dev
-          or not out.is_contiguous()):
-        raise ValueError(f"out must be contiguous ({B}, {F}) {table.dtype} on {dev}")
-    lib = load("gather")
-    with torch.cuda.device(dev):
-        err = lib.quiver_gather_rows(
-            device_pointer(lib, table), ids.data_ptr(), out.data_ptr(), B,
-            F * table.element_size(), int(keep), stream_ptr(dev),
-        )
-    check(err, "gather kernel launch")
+        out = torch.empty(B, F, dtype=table.dtype, device=ids.device)
+    elif (out.shape != (B, F) or out.dtype != table.dtype
+          or out.get_device() != index or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous ({B}, {F}) {table.dtype} "
+                         f"on cuda:{index}")
+    launch("gather", index, address(table, index), 0, ids.data_ptr(), 0,
+           _ALL_HOT, out.data_ptr(), B, F * table.element_size(), int(keep))
     gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+
+
+def tiered_gather_plain(n_id, feature_order, hot_rows: int, hot, cold):
+    """:func:`tiered_gather` in plain PyTorch: translate, then one gather
+    per tier, the cold one filling only its own lanes of the hot one's
+    output."""
+    valid = n_id >= 0
+    ids = torch.where(valid, n_id, 0).to(torch.int64)
+    if feature_order is not None:
+        ids = feature_order[ids].to(torch.int64)
+    ids = torch.where(valid, ids, -1)
+    if hot is None:
+        return gather_rows_plain(cold, ids.to(torch.int32))
+    if cold is None:
+        return gather_rows_plain(hot, ids.to(torch.int32))
+    out = gather_rows_plain(hot, torch.where(ids < hot_rows, ids, -1).to(torch.int32))
+    cold_ids = torch.where(ids >= hot_rows, ids - hot_rows, -1)
+    return gather_rows_plain(cold, cold_ids.to(torch.int32), out=out)
+
+
+def tiered_gather(n_id, feature_order, hot_rows: int, hot, cold):
+    """Rows for padded node ids from a hot and a cold tier (kernel K2, one
+    launch).
+
+    Args:
+      n_id: ``(B,)`` int32 node ids, ``-1`` on invalid lanes (zero rows).
+      feature_order: optional ``(N,)`` int32 node id -> table row (the
+        degree reorder), on the ids' device; None takes the id itself.
+      hot_rows: rows ``[0, hot_rows)`` are in ``hot``, the rest in ``cold``.
+      hot: ``(hot_rows, F)`` contiguous rows on the device, or None when
+        ``hot_rows`` is 0.
+      cold: ``(N - hot_rows, F)`` contiguous rows of the same dtype in
+        pinned host memory (read over UVA) or on the device, or None when
+        ``hot`` holds every row.
+
+    CPU ``n_id`` take :func:`tiered_gather_plain`; CUDA ``n_id`` launch the
+    kernel.
+    """
+    if not n_id.is_cuda:
+        return tiered_gather_plain(n_id, feature_order, hot_rows, hot, cold)
+    index = n_id.get_device()
+    _check_ids(n_id, "n_id")
+    first = hot if hot is not None else cold
+    if first is None:
+        raise ValueError("tiered_gather needs a hot or a cold table")
+    _check_table(first, "hot" if hot is not None else "cold")
+    F, dtype = first.shape[1], first.dtype
+    if cold is not None:
+        _check_table(cold, "cold", F, dtype)
+    if hot_rows != (0 if hot is None else hot.shape[0]):
+        raise ValueError(f"hot_rows={hot_rows} does not match the hot table")
+    order = 0
+    if feature_order is not None:
+        _check_ids(feature_order, "feature_order")
+        order = address(feature_order, index)
+    B = n_id.shape[0]
+    out = torch.empty(B, F, dtype=dtype, device=n_id.device)
+    launch("gather", index, 0 if hot is None else address(hot, index),
+           0 if cold is None else address(cold, index), n_id.data_ptr(), order,
+           hot_rows, out.data_ptr(), B, F * first.element_size(), 0)
+    tiered_gather.launches += 1
+    return out
+
+
+tiered_gather.launches = 0

@@ -16,9 +16,13 @@ neighbour is included with probability exactly ``k/deg``. Rows with
 Torch's Philox cannot reproduce JAX's threefry bits, so the random part
 is a separate input: :func:`draw_bits` draws raw 62-bit integers from an
 explicit ``torch.Generator`` and the offset functions reduce them modulo
-each row's span (the bias is below span / 2^62). :func:`sample_layer`
-also takes the offsets themselves (``offs``), which is how the tests feed
-it JAX's draws and hold it bitwise against the JAX package.
+each row's span (the bias is below span / 2^62). A uniform hop from those
+bits (a generator, or the ``bits=`` seam) runs in one launch of kernel K1's
+fused entry (``kernels.fused.uniform_hop``): degrees, offsets, rotation,
+counts and select together. :func:`sample_layer` also takes the offsets
+themselves (``offs``), which is how the tests feed it JAX's draws and hold
+it bitwise against the JAX package; those, and temporal hops, run the
+offset functions here and K1's select entry.
 
 A **weighted** hop draws k independent slots per row (with replacement)
 from the row's categorical distribution: each lane scales a uniform
@@ -40,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels.fused import select, wselect
+from .kernels.fused import select, uniform_hop, wselect
 from .kernels.gather import gather_rows
 
 __all__ = [
@@ -210,7 +214,7 @@ def temporal_window_counts(edge_time, base, deg, lo_t, hi_t, iters: int):
     return first.to(torch.int32), (below_hi - first).to(torch.int32)
 
 
-def seed_degrees(topo, seeds, num_seeds):
+def seed_degrees(indptr, seeds, num_seeds):
     """``(valid, base, deg)`` of padded seeds ``(..., S)``: a seed is valid
     when its lane is below ``num_seeds`` (scalar or ``(...,)``) and it is
     not -1; ``base = indptr[seed]`` keeps indptr's width and ``deg`` is
@@ -220,14 +224,27 @@ def seed_degrees(topo, seeds, num_seeds):
     lane = torch.arange(S, device=seeds.device)
     valid = (lane < num[..., None]) & (seeds >= 0)
     s = torch.where(valid, seeds, 0).to(torch.int64)
-    base = topo.indptr[s]
-    deg = (topo.indptr[s + 1] - base).to(torch.int32)
+    base = indptr[s]
+    deg = (indptr[s + 1] - base).to(torch.int32)
     return valid, base, torch.where(valid, deg, 0)
+
+
+def _uniform_bits(bits, shape, k: int, generator, device):
+    """The uniform draw's raw ``(jitter, rot)`` over rows of ``shape``: the
+    ``bits`` seam (a pair, or a callable of the shape), else
+    :func:`draw_bits` from ``generator``."""
+    if bits is None:
+        if generator is None:
+            raise ValueError("sample_layer needs a generator, bits or offs")
+        return draw_bits(shape, k, generator)
+    jitter, rot = bits(tuple(shape)) if callable(bits) else bits
+    return (jitter.to(device=device, dtype=torch.int64).contiguous(),
+            rot.to(device=device, dtype=torch.int64).contiguous())
 
 
 def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
                  with_eid: bool = False, offs=None, weighted: bool = False,
-                 time_window=None, u=None):
+                 time_window=None, u=None, bits=None):
     """Sample up to ``k`` neighbours for each valid seed.
 
     Args:
@@ -250,10 +267,16 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         ``weighted``.
       u: the weighted draw's injection seam. A ``(..., S, k)`` float32
         block of uniforms in ``[0, 1)``, or a callable ``deg -> u``.
+      bits: the uniform draw's raw-bits seam. The ``(jitter (..., S, k),
+        rot (..., S, 1))`` int64 pair of :func:`draw_bits`, or a callable
+        of the hop's row shape ``(..., S)`` that returns it; replaces the
+        generator's :func:`draw_bits` (excludes ``offs`` and ``weighted``).
 
     Returns ``(neighbors (..., S, k) int32, counts (..., S) int32[, eids])``
-    with -1 on invalid lanes. For CUDA tensors the select runs on kernel
-    K1, and a weighted hop's search and select on kernel K3.
+    with -1 on invalid lanes. For CUDA tensors a uniform hop from raw bits
+    runs in one launch of K1's fused entry (:func:`uniform_hop`); given
+    ``offs``, or on a temporal hop, the offsets are computed here and K1's
+    select entry runs; a weighted hop's search and select run on kernel K3.
     """
     if k < 1:
         raise ValueError(f"fanout k must be >= 1, got {k}")
@@ -275,7 +298,15 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
             "temporal sampling needs topo.edge_time; build the "
             "DeviceTopology with to_device(with_times=True)"
         )
-    valid, base, deg = seed_degrees(topo, seeds, num_seeds)
+    if bits is not None and (weighted or offs is not None):
+        raise ValueError("bits is the uniform draw's seam; it excludes "
+                         "offs and weighted=True")
+    if not weighted and time_window is None and offs is None:
+        jitter, rot = _uniform_bits(bits, seeds.shape, k, generator,
+                                    seeds.device)
+        return uniform_hop(topo.indptr, topo.indices, seeds, num_seeds,
+                           jitter, rot, eid=topo.eid, with_eid=with_eid)
+    valid, base, deg = seed_degrees(topo.indptr, seeds, num_seeds)
     lead = deg.shape
     start = base.to(torch.int64)
     if time_window is not None:
@@ -301,10 +332,10 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         row_off = outs[1]
         eid_out = outs[2] if eid_tab is not None else None
     else:
-        if offs is None:
-            if generator is None:
-                raise ValueError("sample_layer needs a generator or offs")
-            offs = uniform_offsets(deg, k, generator)
+        if offs is None:  # a temporal hop: the draw runs over the window
+            jitter, rot = _uniform_bits(bits, lead, k, generator, deg.device)
+            off, _ = stratified_offsets(deg, k, jitter)
+            offs = rotate_offsets(off, deg, k, rot)
         elif callable(offs):
             offs = offs(deg)
         row_off = offs.to(device=deg.device, dtype=torch.int32).reshape(-1, k)

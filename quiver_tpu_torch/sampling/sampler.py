@@ -7,10 +7,11 @@ are padded exactly as in the JAX package: seeds to ``seed_capacity``,
 every frontier to its cap, ``-1`` sentinels on invalid lanes.
 
 Draws follow the JAX package's per-layer key discipline: each layer draws
-from its own ``torch.Generator``, seeded by ``(seed, call, layer)``. A
-``draw_fn(layer, deg)`` seam replaces those draws (the tests feed it
-JAX's): it returns a uniform hop's int32 offsets, or a weighted hop's
-float32 ``u01`` block.
+from its own ``torch.Generator``, seeded by ``(seed, call, layer)``; a
+uniform hop's draw is its raw bits, so the hop runs in one launch of
+kernel K1's fused entry. A ``draw_fn(layer, deg)`` seam replaces those
+draws (the tests feed it JAX's): it returns a uniform hop's int32 offsets
+(then K1's select entry runs), or a weighted hop's float32 ``u01`` block.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..core.config import SampleMode
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, VersionMismatchError
 from ..ops.reindex import reindex_layer
-from ..ops.sample import draw_u01, sample_layer, seeded_generator, uniform_offsets
+from ..ops.sample import draw_bits, draw_u01, sample_layer, seeded_generator
 
 __all__ = ["Adj", "GraphSageSampler", "SampleOutput", "multilayer_sample"]
 
@@ -72,27 +73,34 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw,
+def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
                       with_eid: bool = False, weighted: bool = False,
-                      time_window=None):
+                      time_window=None, bits=None):
     """The multi-layer sample + reindex loop.
 
     ``seeds`` is ``(..., S)``, ``num_seeds`` a scalar or ``(...)``; every
     leading index is an independent sample (the serving ladder's lanes).
-    ``draw(layer, deg)`` gives each hop's ``(..., S_l, k)`` draws from its
-    ``(..., S_l)`` degrees: int32 offsets, or float32 ``u01`` when
-    ``weighted``. ``time_window`` makes every hop temporal (``deg`` is
-    then the in-window degree).
+    Each hop draws through one of two seams. ``draw(layer, deg)`` gives
+    its ``(..., S_l, k)`` draws from its ``(..., S_l)`` degrees: int32
+    offsets, or float32 ``u01`` when ``weighted``. ``bits(layer, shape)``
+    gives a uniform hop's raw ``(jitter, rot)`` over rows of ``shape``
+    (``sample_layer``'s ``bits=`` seam). ``time_window`` makes every hop
+    temporal (``deg`` is then the in-window degree).
 
     Returns (n_id, n_count, adjs deepest-first, overflow, per-layer edge
     counts, per-layer unclipped frontier counts).
     """
+    if (draw is None) == (bits is None):
+        raise ValueError("multilayer_sample takes one of draw and bits")
     adjs, edge_counts, frontier_counts = [], [], []
-    cur, cur_n = seeds, torch.as_tensor(num_seeds, device=seeds.device)
+    cur, cur_n = seeds, num_seeds
     total_overflow = torch.zeros(cur.shape[:-1], dtype=torch.int32,
                                  device=seeds.device)
     for l, k in enumerate(sizes):
-        seam = {"u" if weighted else "offs": lambda deg, l=l: draw(l, deg)}
+        if bits is not None:
+            seam = {"bits": lambda shape, l=l: bits(l, shape)}
+        else:
+            seam = {"u" if weighted else "offs": lambda deg, l=l: draw(l, deg)}
         out = sample_layer(topo, cur, cur_n, k, with_eid=with_eid,
                            weighted=weighted, time_window=time_window,
                            **seam)
@@ -115,7 +123,8 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw,
         frontier_counts.append(n_frontier + overflow)
         cur, cur_n = frontier, n_frontier
         total_overflow = total_overflow + overflow
-    return (cur, cur_n, adjs[::-1], total_overflow, tuple(edge_counts[::-1]),
+    return (cur, torch.as_tensor(cur_n, device=seeds.device), adjs[::-1],
+            total_overflow, tuple(edge_counts[::-1]),
             tuple(frontier_counts[::-1]))
 
 
@@ -268,20 +277,24 @@ class GraphSageSampler:
         self._call += 1
         call = self._call
 
+        def generator(l):
+            return seeded_generator(self.device, self.seed, call, l)
+
         def draw(l, deg):
             if draw_fn is not None:
                 return torch.as_tensor(draw_fn(l, deg), device=self.device)
-            g = seeded_generator(self.device, self.seed, call, l)
-            if self.weighted:
-                return draw_u01(deg.shape, self.sizes[l], g)
-            return uniform_offsets(deg, self.sizes[l], g)
+            return draw_u01(deg.shape, self.sizes[l], generator(l))
 
+        def bits(l, shape):
+            return draw_bits(shape, self.sizes[l], generator(l))
+
+        seam = ({"draw": draw} if draw_fn is not None or self.weighted
+                else {"bits": bits})
         n_id, n_count, adjs, overflow, edge_counts, frontier_counts = (
             multilayer_sample(
                 self.topo, torch.from_numpy(padded).to(self.device), batch,
-                self.sizes, self._caps_for(cap), draw,
-                with_eid=self.with_eid, weighted=self.weighted,
-                time_window=self.time_window,
+                self.sizes, self._caps_for(cap), with_eid=self.with_eid,
+                weighted=self.weighted, time_window=self.time_window, **seam,
             ))
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)

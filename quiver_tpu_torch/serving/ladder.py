@@ -3,14 +3,16 @@
 The port of ``quiver_tpu/serving/ladder.py``. For each power-of-two bucket
 size ``B`` the ladder runs two fixed-shape steps:
 
-* **sample**: the ``B`` lanes are sampled together, one select launch per
-  hop for all lanes (K1, or K3 on a weighted sampler), but every lane is
-  its own single-seed sample with its own frontier caps (planned for ONE
-  seed) and its own draws, from generators seeded by
+* **sample**: the ``B`` lanes are sampled together, one launch per hop
+  for all lanes (K1's fused uniform hop on the lanes' stacked raw bits,
+  K3 on a weighted sampler, K1's select entry under a ``draw_fn``), but
+  every lane is its own single-seed sample with its own frontier caps
+  (planned for ONE seed) and its own draws, from generators seeded by
   ``(seed, seq, layer)``. Lanes share no state, so a request's
   neighbourhood is a function of ``(node, seq)`` alone, whatever the
   bucket, the padding or the co-batched requests: the ladder's ids and
-  edges equal the direct single-query oracle bitwise.
+  edges equal the direct single-query oracle (which computes the offsets
+  and runs K1's select entry) bitwise.
 * **forward**: the model run once per lane, at the oracle's shapes, over
   that lane's ``(cap, F)`` rows of the gathered block (the JAX ladder's
   ``lax.scan`` over lanes). A batched pass would let the matrix products
@@ -105,28 +107,35 @@ class ServeLadder:
         off, _ = stratified_offsets(deg, k, bits[0])
         return rotate_offsets(off, deg, k, bits[1])
 
+    def _bits(self, seqs):
+        """``bits(layer, shape)`` over ``(B, S)`` rows: each live lane's
+        raw uniform draws from its own generator; padding lanes (``seq``
+        None, every seed -1) take zero bits, which the hop never reads."""
+        def bits(layer, shape):
+            rows = shape[-1]
+            zeros = None
+            if None in seqs:
+                zeros = (
+                    torch.zeros((rows, self.sizes[layer]), dtype=torch.int64,
+                                device=self.device),
+                    torch.zeros((rows, 1), dtype=torch.int64, device=self.device))
+            lanes = [zeros if seq is None else self._lane_bits(seq, layer, rows)
+                     for seq in seqs]
+            return (torch.stack([j for j, _ in lanes]),
+                    torch.stack([r for _, r in lanes]))
+        return bits
+
     def _draw(self, seqs):
-        """``draw(layer, deg)`` over ``(B, S)`` degrees. Each live lane
-        draws from its own generator; padding lanes (``seq`` None, every
-        degree 0) take zero draws, which the select never reads. Uniform
-        offsets of all lanes are then computed in one pass."""
+        """``draw(layer, deg)`` over ``(B, S)`` degrees, for a weighted
+        sampler or a ``draw_fn``: each live lane's draws; padding lanes
+        (every degree 0) take zero draws, which the select never reads."""
         def draw(layer, deg):
-            k = self.sizes[layer]
-            rows = deg.shape[-1]
-            if self.weighted or self.draw_fn is not None:
-                dtype = torch.float32 if self.weighted else torch.int32
-                zero = torch.zeros((rows, k), dtype=dtype, device=self.device)
-                return torch.stack([
-                    zero if seq is None else self._lane_draw(seq, layer, d)
-                    for seq, d in zip(seqs, deg)])
-            zeros = (torch.zeros((rows, k), dtype=torch.int64, device=self.device),
-                     torch.zeros((rows, 1), dtype=torch.int64, device=self.device))
-            bits = [zeros if seq is None else self._lane_bits(seq, layer, rows)
-                    for seq in seqs]
-            jitter = torch.stack([j for j, _ in bits])
-            rot = torch.stack([r for _, r in bits])
-            off, _ = stratified_offsets(deg, k, jitter)
-            return rotate_offsets(off, deg, k, rot)
+            dtype = torch.float32 if self.weighted else torch.int32
+            zero = torch.zeros((deg.shape[-1], self.sizes[layer]), dtype=dtype,
+                               device=self.device)
+            return torch.stack([
+                zero if seq is None else self._lane_draw(seq, layer, d)
+                for seq, d in zip(seqs, deg)])
         return draw
 
     # -- steps -----------------------------------------------------------------
@@ -135,9 +144,13 @@ class ServeLadder:
         """``seeds`` ``(B,)`` int32 (-1 on padding lanes), ``seqs`` B ints
         (None on padding lanes) -> (n_id ``(B, cap_last)``, edge_index per
         layer deepest-first ``(B, 2, E_l)``, overflow ``(B,)``)."""
+        seqs = list(seqs)
+        seam = ({"draw": self._draw(seqs)}
+                if self.weighted or self.draw_fn is not None
+                else {"bits": self._bits(seqs)})
         n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
             self.sampler.topo, seeds[:, None], 1, self.sizes,
-            self.lane_caps, self._draw(list(seqs)), weighted=self.weighted,
+            self.lane_caps, weighted=self.weighted, **seam,
         )
         return n_id, tuple(a.edge_index for a in adjs), overflow
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Marked ``cuda``; each test skips without a CUDA device. Run on a GPU
-machine with ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
+machine with ``python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda``.
 
 Tolerance: bitwise (the kernels move integers or bytes; K3's one float
 product and compares are the plain version's, op for op).
@@ -103,3 +103,84 @@ def test_wselect_kernel_matches_plain(cuda, rows, k, with_eid, scale_u, pinned):
     assert len(got) == len(want) == (3 if with_eid else 2)
     for g, h in zip(got, want):
         assert torch.equal(g, h)
+
+
+@pytest.mark.parametrize("indptr64", [False, True])
+@pytest.mark.parametrize("with_eid,topo_eid,pinned", [(False, False, False), (True, True, False),
+                                                      (True, False, False), (True, True, True)])
+@pytest.mark.parametrize("lanes", [False, True])
+def test_uniform_hop_kernel_matches_plain(cuda, indptr64, with_eid, topo_eid, pinned, lanes):
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    topo = CSRTopo(edge_index=generate_pareto_graph(3000, 12.0, seed=2))
+    dt = topo.to_device("UVA" if pinned else "GPU", cuda, with_eid=topo_eid)
+    indptr = dt.indptr.long() if indptr64 else dt.indptr
+    rng = np.random.default_rng(int(indptr64) + 2 * int(with_eid) + 4 * int(lanes))
+    shape = (3, 64) if lanes else (1003,)
+    seeds = rng.integers(0, topo.node_count, shape).astype(np.int32)
+    seeds[..., 0] = int(np.argmax(topo.degree))
+    seeds[..., 1] = int(np.flatnonzero(topo.degree <= 7)[0])
+    seeds[..., 5::9] = -1
+    seeds = torch.from_numpy(seeds).to(cuda)
+    num = torch.tensor([64, 20, 0], dtype=torch.int32, device=cuda) if lanes else 1000
+    k = 7
+    jitter = torch.randint(0, 2**62, shape + (k,), device=cuda)
+    rot = torch.randint(0, 2**62, shape + (1,), device=cuda)
+    before = uniform_hop.launches
+    got = uniform_hop(indptr, dt.indices, seeds, num, jitter, rot, eid=dt.eid,
+                      with_eid=with_eid)
+    want = uniform_hop_plain(indptr, dt.indices, seeds, num, jitter, rot, eid=dt.eid,
+                             with_eid=with_eid)
+    torch.cuda.synchronize()
+    assert uniform_hop.launches == before + 1
+    assert len(got) == len(want) == (3 if with_eid else 2)
+    for g, h in zip(got, want):
+        assert g.dtype == h.dtype and torch.equal(g, h)
+
+
+# row widths that take every warp layout: four rows per warp (400 B, 200 B,
+# 6 B), two (1 KB), one row in one chunk (1.6 KB), one in several (2.4 KB,
+# and 516 B in 4 B words)
+@pytest.mark.parametrize("dtype,F", [(torch.float32, 100), (torch.bfloat16, 100),
+                                     (torch.bfloat16, 3), (torch.float32, 256),
+                                     (torch.float32, 400), (torch.float32, 600),
+                                     (torch.float32, 129)])
+@pytest.mark.parametrize("store", ["hot", "cold", "split", "split, reorder"])
+def test_tiered_gather_kernel_matches_plain(cuda, dtype, F, store):
+    from quiver_tpu_torch import CSRTopo, Feature
+    from quiver_tpu_torch.ops.kernels import gather
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    n = 2000
+    rng = np.random.default_rng(F)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    row_bytes = F * torch.tensor([], dtype=dtype).element_size()
+    budget = {"hot": n * row_bytes, "cold": 0}.get(store, 600 * row_bytes)
+    topo = CSRTopo(edge_index=generate_pareto_graph(n, 5.0, seed=3)) if "reorder" in store else None
+    feat = Feature(device_cache_size=budget, csr_topo=topo, dtype=dtype,
+                   device=cuda).from_cpu_tensor(x)
+    ids = rng.integers(0, n, 555).astype(np.int32)
+    ids[::6] = -1
+    ids = torch.from_numpy(ids).to(cuda)
+    args = (ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold)
+    before = gather.tiered_gather.launches
+    got = gather.tiered_gather(*args)
+    want = gather.tiered_gather_plain(*args)
+    torch.cuda.synchronize()
+    assert gather.tiered_gather.launches == before + 1
+    assert torch.equal(got, want)
+    if feat.hot is not None:  # the single-table entry, same kernel
+        hot_ids = torch.where(ids < feat.hot_rows, ids, -1)
+        assert torch.equal(gather.gather_rows(feat.hot, hot_ids),
+                           gather.gather_rows_plain(feat.hot, hot_ids))
+
+
+def test_tiered_gather_refuses_pageable_cold_table(cuda):
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather
+
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    hot = torch.zeros((5, 4), device=cuda)
+    with pytest.raises(ValueError, match="pinned"):
+        tiered_gather(ids, None, 5, hot, torch.zeros((5, 4)))
