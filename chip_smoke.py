@@ -11,23 +11,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` each, in parallel.
 3. kernel checks: hold every kernel entry bitwise against its plain
    PyTorch version on the card (K1's select and fused uniform hop, K2's
-   single-table and tiered gathers, K3), on the products-scale graph (with
-   exp(N(0,1)) edge weights) and feature tables (and wide f32 rows of
-   1 KB and 2.4 KB), device and pinned host (UVA) tables; then time each
+   single-table and tiered gathers, K3's search-and-select and fused
+   weighted hop), on the products-scale graph (with exp(N(0,1)) edge
+   weights) and feature tables (and wide f32 rows of 1 KB and 2.4 KB), a
+   small graph with zero-weight rows and one whose rows take every degree
+   of 0-40 and some up to 3232, device and pinned host (UVA) tables; then time each
    entry at the serving path's shapes and in bulk, in turns with its
-   yardstick (yardstick, kernel, kernel, yardstick), beside its bound.
+   yardstick (yardstick, kernel, kernel, yardstick) where it has one,
+   beside its bound.
 4. serve, uniform: the full-width serving configuration (products-shaped
    graph, F=100, GraphSAGE hidden 256 / 47 classes / 2 layers, fanouts
    [5, 5], max_batch 8) answers closed-loop point queries with every kernel
    launch counted; the answers are checked (finite, normalised, no
    overflow, ladder == single-query oracle bitwise at every bucket, full
-   and padded), then the same stream is served again from a store with 3/4
+   and padded, with the oracle's launches counted), then the same stream
+   is served again from a store with 3/4
    of its rows cold in pinned host memory and from a UVA topology, both of
    which must answer bitwise the same.
 5. serve, weighted: the same server over ``GraphSageSampler(weighted=True)``
-   (every hop on K3, none on K1), with the same checks, and the same stream
+   (every hop one launch of K3's fused entry, none on K1; the oracle runs
+   K3's search-and-select), with the same checks, and the same stream
    again from a UVA weighted topology.
-6. sampler, uniform and weighted: ``bench_sampler``'s configuration
+6. sampler, uniform and weighted (K1's and K3's fused hops):
+   ``bench_sampler``'s configuration
    (fanouts [15, 10, 5], batch 2048, worst-case caps) samples a few
    batches; every edge must join a frontier node to one of its CSR
    neighbours, with ``min(deg, k)`` edges per node. Prints sampled edges/s.
@@ -59,8 +65,9 @@ PRODUCTS_NODES = 2_450_000
 PRODUCTS_AVG_DEG = 50.5
 WIDE_ROWS = 1_000_000  # rows of the wide-row gather tables
 KERNELS = ("select", "gather", "wselect")
-# the wrappers, each with its launch count: K1's two entries, K2's two, K3
-ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather", "wselect")
+# the wrappers, each with its launch count: K1's two entries, K2's two, K3's two
+ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather", "wselect",
+           "weighted_hop")
 SELECT_BOUND_RULE = (
     "8 B start + 4 B count per row; 4 B offset and 4 B output per lane; one "
     "32 B sector for each distinct sector of indices that the selected "
@@ -85,6 +92,14 @@ WSELECT_BOUND_RULE = (
     "8 B start + 4 B deg per row; 4 B u and two 4 B outputs per lane; one "
     "32 B sector for each distinct sector of cum_weights and of indices "
     "that this call's searches and selects touch"
+)
+WHOP_BOUND_RULE = (
+    "4 B seed + 4 B count per row, 4 B num per lead, 4 B output per lane; "
+    "one 32 B sector for each distinct sector that the hop touches "
+    "(replayed) of indptr (two loads per valid seed, indptr[0] for invalid "
+    "ones), of u (one 4 B load per lane of a row of degree > k), of "
+    "cum_weights (the searches, as WSELECT_BOUND_RULE) and of indices (the "
+    "selects)"
 )
 WSELECT_PROBE_RULE = (
     "as WSELECT_BOUND_RULE, but one 32 B sector for every probe (each "
@@ -151,12 +166,13 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_fns():
     """The kernel entries' wrappers, by name; each carries a launch count."""
-    from quiver_tpu_torch.ops.kernels.fused import select, uniform_hop, wselect
+    from quiver_tpu_torch.ops.kernels.fused import (select, uniform_hop,
+                                                    weighted_hop, wselect)
     from quiver_tpu_torch.ops.kernels.gather import gather_rows, tiered_gather
 
     return {"select": select, "uniform_hop": uniform_hop,
             "gather_rows": gather_rows, "tiered_gather": tiered_gather,
-            "wselect": wselect}
+            "wselect": wselect, "weighted_hop": weighted_hop}
 
 
 def reset_launches() -> None:
@@ -388,16 +404,44 @@ def wselect_cases(dev_topo, uva_topo, seeds, k, g, label):
     return results
 
 
-def wselect_checks(topo_np, dev_topo, uva_topo, rng):
-    """K3 on the weighted products CSR (rows 100,003 / 64 / 8 at k 5 and
-    15, each seed set holding the max-degree row, a row of degree <= k and
-    an invalid seed of degree 0), then on a small CSR with empty rows and
-    zero-total-weight rows (which carry the uniform prefix)."""
+def small_graphs():
+    """K3's edge cases as placed ``(label, CSRTopo, device, UVA)`` triples:
+    a small CSR with empty rows and zero-total-weight rows (which carry the
+    uniform prefix), and one whose rows take every degree of 0-40, 60-69,
+    250-262, 500, 1000 and 3232 (the products graph's largest)."""
     import numpy as np
-    import torch
 
     from quiver_tpu_torch import CSRTopo
     from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    coo = generate_pareto_graph(20_000, 20.0, seed=3)
+    coo = coo[:, coo[0] % 50 != 7]  # empty rows
+    w = np.exp(np.random.default_rng(4).normal(size=coo.shape[1])).astype(np.float32)
+    w[coo[0] % 10 == 3] = 0.0  # zero-total rows
+    rng = np.random.default_rng(7)
+    degs = np.array(list(range(41)) + list(range(60, 70)) + list(range(250, 263))
+                    + [500, 1000, 3232])
+    deg_coo = np.stack([np.repeat(np.arange(len(degs)), degs),
+                        rng.integers(0, len(degs), degs.sum())])
+    deg_w = np.exp(rng.normal(size=deg_coo.shape[1])).astype(np.float32)
+    deg_w[deg_coo[0] % 5 == 3] = 0.0
+    out = []
+    for label, c, wt in (("small, zero-weight rows", coo, w),
+                         ("every degree to 3232", deg_coo, deg_w)):
+        topo = CSRTopo(edge_index=c, edge_weight=wt)
+        out.append((label, topo, *(topo.to_device(mode, "cuda", with_eid=True,
+                                                  with_weights=True)
+                                   for mode in ("GPU", "UVA"))))
+    return out
+
+
+def wselect_checks(topo_np, dev_topo, uva_topo, smalls, rng):
+    """K3's search-and-select entry on the weighted products CSR (rows
+    100,003 / 64 / 8 at k 5 and 15, each seed set holding the max-degree
+    row, a row of degree <= k and an invalid seed of degree 0), then on
+    every row of each of ``smalls`` at k 5 and 15."""
+    import numpy as np
+    import torch
 
     dev = dev_topo.device
     g = torch.Generator(device=dev)
@@ -412,16 +456,65 @@ def wselect_checks(topo_np, dev_topo, uva_topo, rng):
             results += wselect_cases(dev_topo, uva_topo,
                                      torch.from_numpy(seeds).to(dev), k, g,
                                      "products")
-    coo = generate_pareto_graph(20_000, 20.0, seed=3)
-    coo = coo[:, coo[0] % 50 != 7]  # empty rows
-    w = np.exp(np.random.default_rng(4).normal(size=coo.shape[1])).astype(np.float32)
-    w[coo[0] % 10 == 3] = 0.0  # zero-total rows
-    small = CSRTopo(edge_index=coo, edge_weight=w)
-    s_dev = small.to_device("GPU", "cuda", with_eid=True, with_weights=True)
-    s_uva = small.to_device("UVA", "cuda", with_eid=True, with_weights=True)
-    seeds = torch.arange(small.node_count, dtype=torch.int32, device=dev)
-    for k in (5, 15):
-        results += wselect_cases(s_dev, s_uva, seeds, k, g, "small, zero-weight rows")
+    for label, topo, s_dev, s_uva in smalls:
+        seeds = torch.arange(topo.node_count, dtype=torch.int32, device=dev)
+        for k in (5, 15):
+            results += wselect_cases(s_dev, s_uva, seeds, k, g, label)
+    return results
+
+
+def whop_checks(topo_np, dev_topo, uva_topo, smalls, rng):
+    """K3's fused weighted hop against weighted_hop_plain: on the products
+    CSR, 100,003 flat rows with a scalar count (3 invalid) and 8 x 8 lanes
+    with per-lane counts at k 5 and 15 (the max-degree row, a row of
+    degree <= k and a -1 in every lane); on every row of each of
+    ``smalls`` at k 5 and 15 (every ninth seed -1, the last 3 invalid);
+    without an eid lane, with the eid table's, with CSR slots in int32 and
+    int64 indptr; device and UVA tables."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.fused import weighted_hop, weighted_hop_plain
+
+    dev = dev_topo.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    sets = []
+    for shape, k in (((100_003,), 5), ((8, 8), 5), ((8, 8), 15)):
+        seeds = hop_seeds(topo_np, shape, k, rng, dev)
+        if len(shape) == 1:
+            num = shape[0] - 3
+        else:
+            num = torch.from_numpy(rng.integers(
+                0, shape[1] + 1, shape[0]).astype("int32")).to(dev)
+            num[0] = shape[1]
+        sets.append(("products", dev_topo, uva_topo, seeds, num, k))
+    for label, topo, s_dev, s_uva in smalls:
+        seeds = torch.arange(topo.node_count, dtype=torch.int32, device=dev)
+        seeds[5::9] = -1
+        sets += [(label, s_dev, s_uva, seeds, topo.node_count - 3, k) for k in (5, 15)]
+    results = []
+    for label, d_topo, u_topo, seeds, num, k in sets:
+        u01 = torch.rand(tuple(seeds.shape) + (k,), generator=g, device=dev)
+        ip64 = d_topo.indptr.to(torch.int64)
+        iters = d_topo.search_iters
+        for name, t, indptr, eid, with_eid in (
+                ("device", d_topo, d_topo.indptr, None, False),
+                ("device+eid", d_topo, d_topo.indptr, d_topo.eid, True),
+                ("device, CSR slots", d_topo, d_topo.indptr, None, True),
+                ("device, int64 indptr, CSR slots", d_topo, ip64, None, True),
+                ("uva+eid", u_topo, u_topo.indptr, u_topo.eid, True)):
+            got = weighted_hop(indptr, t.indices, t.cum_weights, seeds, num, u01,
+                               iters, eid=eid, with_eid=with_eid)
+            want = weighted_hop_plain(indptr, d_topo.indices, d_topo.cum_weights,
+                                      seeds, num, u01, iters,
+                                      eid=None if eid is None else d_topo.eid,
+                                      with_eid=with_eid)
+            sync()
+            ok = len(got) == len(want) and all(equal(a, b) for a, b in zip(got, want))
+            results.append({"graph": label, "shape": list(seeds.shape), "k": k,
+                            "case": name, "match": ok, "max_abs_err": max_err(got, want)})
+            check(ok, f"weighted_hop {label} {name} shape={tuple(seeds.shape)} k={k}")
     return results
 
 
@@ -434,6 +527,17 @@ def distinct_sectors(pos, elem_bytes: int) -> int:
     import torch
 
     return int(torch.unique(pos.reshape(-1) // (SECTOR // elem_bytes)).numel())
+
+
+def indptr_sectors(indptr, seeds, valid) -> int:
+    """Sectors of ``indptr`` a fused hop loads: two entries per valid seed,
+    ``indptr[0]`` for invalid ones."""
+    import torch
+
+    s = seeds.to(torch.int64)[valid]
+    pos = torch.cat([s, s + 1] + ([torch.zeros(1, dtype=torch.int64, device=s.device)]
+                                  if bool((~valid).any()) else []))
+    return distinct_sectors(pos, indptr.element_size())
 
 
 def h2d_rate() -> float:
@@ -512,10 +616,7 @@ def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 
     valid, base, deg = seed_degrees(indptr, seeds, num)
     lane = torch.arange(k, device=dev) < deg.clamp(max=k)[..., None]
     pos = (base.to(torch.int64)[..., None] + offs(deg).to(torch.int64))[lane]
-    s = seeds.to(torch.int64)[valid]
-    ip_pos = torch.cat([s, s + 1] + ([torch.zeros(1, dtype=torch.int64, device=dev)]
-                                     if bool((~valid).any()) else []))
-    ip_sectors = distinct_sectors(ip_pos, indptr.element_size())
+    ip_sectors = indptr_sectors(indptr, seeds, valid)
     ix_sectors = distinct_sectors(pos, 4)
     # the draw bits are read only for rows of degree > k, all k lanes each
     drawn = torch.nonzero((deg > k).reshape(-1)).reshape(-1)
@@ -674,8 +775,54 @@ def time_wselect(dev_topo, seeds, k, g, iters_timed: int = 200):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
             "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms,
             "probe_bound_ms": probe_bytes / HBM_BYTES_PER_S * 1e3,
-            "rows": S, "k": k, "iters": iters, **sec,
-            "dependent_loads_per_searching_lane": iters + 2}
+            "rows": S, "k": k, "iters": iters, **sec}
+
+
+def time_whop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 7):
+    """K3's fused weighted hop at ``shape`` rows (per-lane counts when it
+    has lanes), in turns with the composed path on the same ``u01``
+    (``sample_layer`` with a ``u`` callable of the degrees: seed_degrees,
+    then the search-and-select entry), beside its plain version and its
+    WHOP_BOUND_RULE bound."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.fused import weighted_hop, weighted_hop_plain
+    from quiver_tpu_torch.ops.sample import sample_layer, seed_degrees
+
+    dev = dev_topo.device
+    seeds = hop_seeds(topo_np, shape, k, rng, dev)
+    num = (shape[0] - 3 if len(shape) == 1 else
+           torch.full(shape[:-1], shape[-1], dtype=torch.int32, device=dev))
+    u01 = torch.rand(tuple(shape) + (k,), generator=g, device=dev)
+    args = (dev_topo.indptr, dev_topo.indices, dev_topo.cum_weights, seeds, num,
+            u01, dev_topo.search_iters)
+
+    def composed():
+        return sample_layer(dev_topo, seeds, num, k, weighted=True, u=lambda deg: u01)
+
+    sync()
+    check(all(equal(a, b) for a, b in zip(weighted_hop(*args), composed())),
+          f"weighted_hop == composed path at {shape} x {k}")
+    t = in_turns(lambda: weighted_hop(*args), composed, iters, reps)
+    plain_ms = cuda_ms(lambda: weighted_hop_plain(*args), iters, reps)
+    valid, base, deg = seed_degrees(dev_topo.indptr, seeds, num)
+    start, d = base.to(torch.int64).reshape(-1), deg.reshape(-1)
+    sec = wselect_sectors(dev_topo, start, d, u01.reshape(-1, k), k)
+    ip_sectors = indptr_sectors(dev_topo.indptr, seeds, valid)
+    drawn = torch.nonzero(d > k).reshape(-1)  # rows whose lanes read u
+    u_sectors = distinct_sectors(drawn[:, None] * k + torch.arange(k, device=dev), 4)
+    rows = seeds.numel()
+    lead = rows // shape[-1] if len(shape) > 1 else 0
+    nbytes = (rows * 8 + lead * 4 + rows * k * 4 + SECTOR * (
+        ip_sectors + u_sectors + sec["cw_sectors"] + sec["index_sectors"]))
+    return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
+            "composed_ms": t["yard_ms"], "composed_turns": t["yard_turns"],
+            "speedup_over_composed": 1 / t["ratio"], "library_ms": None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / t["ms"],
+            "indptr_sectors": ip_sectors, "u_sectors": u_sectors,
+            "cw_sectors": sec["cw_sectors"], "index_sectors": sec["index_sectors"],
+            "drawn_rows": int(drawn.numel()), "shape": list(shape), "k": k}
 
 
 # -- phases 4 and 5: serve ----------------------------------------------------
@@ -691,15 +838,20 @@ def closed_loop(server, nodes, top):
     return done
 
 
-def ladder_parity(server, picks):
+def ladder_parity(server, picks, hop: str, composed: str):
     """Ladder lanes against the single-query oracle at every bucket, full
-    and with a padded tail: ids, edges and log-probs bitwise."""
+    and with a padded tail: ids, edges and log-probs bitwise. Counts the
+    launches: per group one ``hop`` launch per layer and one lookup, per
+    lane the oracle's two samples (``composed`` on each layer) and one
+    lookup."""
     import numpy as np
     import torch
 
     lad = server.ladder
     capL = lad.lane_caps[-1]
-    lanes = 0
+    lanes = groups_run = 0
+    sync()
+    reset_launches()
     for bucket in server.batcher.buckets:
         groups = [picks[i:i + bucket] for i in range(0, len(picks), bucket)]
         if bucket > 1:
@@ -722,14 +874,23 @@ def ladder_parity(server, picks):
                 check(np.array_equal(logp[j], server.oracle(node, seq)),
                       f"log-probs bucket={bucket} lane={j} bitwise")
                 lanes += 1
-    return {"ids_edges": "bitwise", "logp": "bitwise", "lanes": lanes}
+            groups_run += 1
+    sync()
+    layers = len(lad.sizes)
+    launches = read_launches()
+    expect_launches(launches, {hop: layers * groups_run,
+                               composed: 2 * layers * lanes,
+                               "tiered_gather": groups_run + lanes},
+                    "ladder parity")
+    return {"ids_edges": "bitwise", "logp": "bitwise", "lanes": lanes,
+            "groups": groups_run, "launches": launches}
 
 
 def serve_phase(args, topo, feat_hot, variants, card, weighted):
     """Serve ``args.requests`` closed-loop queries over the [5, 5] sampler
     (weighted or uniform), with every kernel launch counted, and check the
-    answers and the launches (per batch: one hop launch per layer, K1's
-    fused hop or K3, and one K2 tiered lookup; nothing else); then serve
+    answers and the launches (per batch: one hop launch per layer, K1's or
+    K3's fused hop, and one K2 tiered lookup; nothing else); then serve
     the same stream again through each of ``variants`` (``(label, sampler
     kwargs or None to reuse the sampler, store)``), which must answer
     bitwise the same with the same launches."""
@@ -767,13 +928,13 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
     sums = np.exp(out.astype(np.float64)).sum(axis=1)
     check(bool(np.all(np.abs(sums - 1.0) < 1e-4)), "exp(log-probs) sums to 1")
     check(all(r.overflow == 0 for r in reqs), "overflow == 0")
-    hop = "wselect" if weighted else "uniform_hop"
+    hop = "weighted_hop" if weighted else "uniform_hop"
     expect_launches(launches, {hop: 2 * batches, "tiered_gather": batches},
                     "serve")
 
     picks = [(r.node, r.seq) for r in
              (reqs[i] for i in rng.choice(len(reqs), 16, replace=False))]
-    parity = ladder_parity(server, picks)
+    parity = ladder_parity(server, picks, hop, "wselect" if weighted else "select")
 
     reruns = {}
     for label, kwargs, store in variants:
@@ -836,7 +997,7 @@ def verify_sample(out, sizes, indptr, row_limit, member):
 
 def sampler_phase(topo, card, weighted: bool, batches: int = 5):
     """``bench_sampler``'s configuration, uniform (K1's fused hop) or
-    weighted (K3): [15, 10, 5], batch 2048, worst-case caps, seed 0. Times
+    weighted (K3's): [15, 10, 5], batch 2048, worst-case caps, seed 0. Times
     ``batches`` calls after one warm-up and checks the last one against
     the CSR."""
     import numpy as np
@@ -860,7 +1021,7 @@ def sampler_phase(topo, card, weighted: bool, batches: int = 5):
     sync()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    hop = "wselect" if weighted else "uniform_hop"
+    hop = "weighted_hop" if weighted else "uniform_hop"
     expect_launches(launches, {hop: len(sizes) * batches},
                     f"{'weighted' if weighted else 'uniform'} sampler")
 
@@ -1047,7 +1208,10 @@ def main() -> int:
     uva_topo = topo.to_device("UVA", "cuda", with_eid=True, with_weights=True)
     sel = select_checks(topo, dev_topo, uva_topo, rng)
     hop = hop_checks(topo, dev_topo, uva_topo, rng)
-    wsel = wselect_checks(topo, dev_topo, uva_topo, rng)
+    smalls = small_graphs()
+    wsel = wselect_checks(topo, dev_topo, uva_topo, smalls, rng)
+    whop = whop_checks(topo, dev_topo, uva_topo, smalls, rng)
+    del smalls
     x_dev = feat_hot.hot  # every row, in node order, on the card
     codes = torch.randint(-127, 128, x_dev.shape, dtype=torch.int8,
                           device="cuda")
@@ -1076,7 +1240,7 @@ def main() -> int:
     tier = tiered_checks(stores, rng)
     del stores
     # timing at the serving path's shapes: its largest hop (8 lanes x 8
-    # frontier rows, fanout 5; the select entry's 64 x 5) and its lookup
+    # frontier rows, fanout 5; the select entries' 64 x 5) and its lookup
     # (8 lanes x 48 rows, F=100); then in bulk
     pcie = h2d_rate()
     log(f"pinned host -> device copy: {pcie / 1e9:.4g} GB/s")
@@ -1087,6 +1251,7 @@ def main() -> int:
     t_sel = time_select(dev_topo, sel_seeds, 5, g)
     t_hop = time_hop(topo, dev_topo, (8, 8), 5, g, rng)
     t_wsel = time_wselect(dev_topo, sel_seeds, 5, g)
+    t_whop = time_whop(topo, dev_topo, (8, 8), 5, g, rng)
     look_ids = torch.from_numpy(
         rng.integers(0, n, 384).astype(np.int32)).to("cuda")
     t_gat = time_gather(x_dev, look_ids)
@@ -1104,6 +1269,7 @@ def main() -> int:
         **{f"gather_rows, {tab.shape[1] * 4} B rows": time_gather(tab, wide_ids)
            for _name, tab in wide},
         "wselect": time_wselect(dev_topo, bulk_seeds, 5, g, iters_timed=50),
+        "weighted_hop": time_whop(topo, dev_topo, (1_000_000,), 5, g, rng, 20, 5),
         "pcie_h2d_bytes_per_s": pcie,
     }
     del x_dev, dev_topo, uva_topo, bulk_seeds, bulk_ids, wide, wide_ids
@@ -1130,6 +1296,7 @@ def main() -> int:
     samplers = {"uniform": samp_u, "weighted": samp_w, "temporal": samp_t}
 
     k1, k2 = "quiver_tpu/ops/pallas/fused.py:75", "quiver_tpu/ops/pallas/gather.py:28"
+    k3 = "quiver_tpu/ops/pallas/fused.py:113"
     kernels = [
         kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    samp_t["launches"]["select"],
@@ -1161,9 +1328,10 @@ def main() -> int:
                                                        "ratio_to_library", "bound_ms",
                                                        "bound_share")}}},
                    card, name),
-        kernel_row("wselect", "quiver_tpu_torch/ops/kernels/wselect.cu",
-                   "quiver_tpu/ops/pallas/fused.py:113", launches_w["wselect"],
-                   "weighted serving", wsel, t_wsel,
+        kernel_row("wselect", "quiver_tpu_torch/ops/kernels/wselect.cu", k3,
+                   serve_w["parity"]["launches"]["wselect"],
+                   "weighted serving's single-query oracle (ladder parity)",
+                   wsel, t_wsel,
                    {"shape": [t_wsel["rows"], t_wsel["k"]],
                     "iters": t_wsel["iters"],
                     "bound_rule": WSELECT_BOUND_RULE,
@@ -1171,6 +1339,14 @@ def main() -> int:
                     "probe_bound_rule": WSELECT_PROBE_RULE,
                     "library": "none: no single PyTorch call computes a "
                                "row-local inverse-CDF select over ragged rows"},
+                   card, name),
+        kernel_row("weighted_hop", "quiver_tpu_torch/ops/kernels/wselect.cu", k3,
+                   launches_w["weighted_hop"], "weighted serving", whop, t_whop,
+                   {"composed_ms": t_whop["composed_ms"],
+                    "speedup_over_composed": t_whop["speedup_over_composed"],
+                    "shape": t_whop["shape"] + [t_whop["k"]],
+                    "bound_rule": WHOP_BOUND_RULE,
+                    "library": "none: its yardstick is the composed path"},
                    card, name),
     ]
     check(all(k["launches"] > 0 and k["match"] for k in kernels)

@@ -15,11 +15,10 @@ gives a table's address (a pinned host table's UVA address is looked up
 once per table and kept on the tensor), and :func:`launch` calls the
 entry (looked up once) with the current raw stream, enters no device
 context when the launch device is already current, and raises on a launch
-error. The entries of ``select.cu`` and ``gather.cu`` take their arguments
-as one packed struct of 8-byte fields, which ctypes passes as one pointer
-(every ctypes argument costs host time to convert); ``wselect.cu`` keeps
-its argument list. A build or launch failure raises: there is no fallback
-to the plain PyTorch version on a CUDA device.
+error. Every entry takes its arguments as one packed struct of 8-byte
+fields, the stream last, which ctypes passes as one pointer (every ctypes
+argument costs host time to convert). A build or launch failure raises:
+there is no fallback to the plain PyTorch version on a CUDA device.
 """
 
 from __future__ import annotations
@@ -112,16 +111,16 @@ def build_all(names=KERNELS) -> dict[str, str]:
     return libs
 
 
-_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# entry -> (library, C function, fields): an int is the number of 8-byte
-# fields of the packed argument struct, the stream last among them; a list
-# gives the argument types, the stream last after them. Every C function
-# returns the launch's CUDA error code.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# entry -> (library, C function, the number of 8-byte fields of its packed
+# argument struct, the stream last among them). Every C function returns
+# the launch's CUDA error code.
 _ENTRIES = {
     "select": ("select", "quiver_select", 10),
     "uniform_hop": ("select", "quiver_uniform_hop", 18),
     "gather": ("gather", "quiver_gather", 10),
-    "wselect": ("wselect", "quiver_wselect", [_P] * 9 + [_L, _I, _I, _I]),
+    "wselect": ("wselect", "quiver_wselect", 14),
+    "weighted_hop": ("wselect", "quiver_weighted_hop", 19),
 }
 
 
@@ -136,16 +135,13 @@ def _libraries() -> dict[str, ctypes.CDLL]:
 
 @functools.cache
 def _kernel(entry: str):
-    """``(ctypes function, struct packer or None)`` of kernel entry
-    ``entry``; every library is built on first use."""
+    """``(ctypes function, struct packer)`` of kernel entry ``entry``;
+    every library is built on first use."""
     lib, fn_name, fields = _ENTRIES[entry]
     fn = getattr(_libraries()[lib], fn_name)
     fn.restype = _I
-    if isinstance(fields, int):
-        fn.argtypes = [ctypes.c_char_p]
-        return fn, struct.Struct(f"<{fields}q").pack
-    fn.argtypes = fields + [_P]
-    return fn, None
+    fn.argtypes = [ctypes.c_char_p]
+    return fn, struct.Struct(f"<{fields}q").pack
 
 
 def address(t, index: int) -> int:
@@ -181,12 +177,11 @@ def launch(entry: str, index: int, *args) -> None:
     stream, entering that device's context only when it is not already
     current; raises if the launch fails."""
     fn, pack = _kernel(entry)
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    args = (pack(*args, stream),) if pack is not None else args + (stream,)
+    packed = pack(*args, torch._C._cuda_getCurrentRawStream(index))
     if torch._C._cuda_getDevice() == index:
-        err = fn(*args)
+        err = fn(packed)
     else:
         with torch.cuda.device(index):
-            err = fn(*args)
+            err = fn(packed)
     if err:
         raise RuntimeError(f"{fn.__name__} launch failed with CUDA error {err}")

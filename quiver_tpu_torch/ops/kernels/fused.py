@@ -6,9 +6,9 @@ The port of ``quiver_tpu/ops/pallas/fused.py``. There the TPU kernels
 CSR row into VMEM and pick (or inverse-CDF search) the drawn slots with
 one-hot masked sums; rows longer than the window are sampled from a random
 window (uniform) or refused (weighted). On Hopper a thread loads each drawn
-slot, or each probe of its search, directly, so a hop takes the exact draw
-of ``ops.sample.sample_layer`` with ``start = indptr[seed]`` and no window:
-every row is sampled exactly.
+slot directly, and a weighted search bisects the row's prefix weights in
+device memory, so a hop takes the exact draw of ``ops.sample.sample_layer`` with
+``start = indptr[seed]`` and no window: every row is sampled exactly.
 
 K1 has two entries. :func:`uniform_hop` is the whole uniform hop in one
 launch: degrees, stratified offsets, rotation, count, select and eid lane
@@ -17,11 +17,16 @@ select alone (the Pallas contract), for offsets drawn elsewhere (the
 ``offs=`` and ``draw_fn`` seams, which carry JAX's draws) and for the
 temporal hop, whose row start and degree come from the window search.
 
-:func:`select`, :func:`uniform_hop` and :func:`wselect` launch their
-kernels for CUDA tensors and raise if they cannot; :func:`select_plain`,
-:func:`uniform_hop_plain` and :func:`wselect_plain` are the same functions
-in plain PyTorch, used for CPU tensors and as the references the kernels
-are checked against.
+K3 has two entries alike. :func:`weighted_hop` is the whole weighted hop
+in one launch from the ``u01`` draws of ``ops.sample.draw_u01``: degrees,
+counts, the scaled inverse-CDF search, select and eid lane. :func:`wselect`
+is the search and select alone (the Pallas contract), for draws that are
+a callable of the degrees (the ``u=`` and ``draw_fn`` seams) and for
+draws scaled elsewhere (``scale_u=False``).
+
+Each of the four launches its kernel for CUDA tensors and raises if it
+cannot; its ``*_plain`` twin is the same function in plain PyTorch, used
+for CPU tensors and as the reference the kernel is checked against.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ __all__ = [
     "select_plain",
     "uniform_hop",
     "uniform_hop_plain",
+    "weighted_hop",
+    "weighted_hop_plain",
     "wselect",
     "wselect_plain",
 ]
@@ -189,6 +196,26 @@ def uniform_hop(indptr, indices, seeds, num_seeds, jitter, rot, *, eid=None,
             or rot.get_device() != index or not rot.is_contiguous()):
         raise ValueError(f"rot must be contiguous {tuple(shape) + (1,)} "
                          f"int64 on cuda:{index}")
+    head, tail, outputs, _num = _hop_args(indptr, indices, eid, with_eid, seeds,
+                                          num_seeds, jitter, index)
+    launch("uniform_hop", index, *head, jitter.data_ptr(), rot.data_ptr(),
+           *tail, k)
+    uniform_hop.launches += 1
+    return outputs
+
+
+uniform_hop.launches = 0
+
+
+def _hop_args(indptr, indices, eid, with_eid, seeds, num_seeds, draws, index):
+    """The checked arguments and outputs a fused hop entry shares: ``(head,
+    tail, outputs, num)`` with ``head`` = (indptr, indptr64, seeds, num,
+    num_scalar, num_stride), the struct's fields before the draws, ``tail``
+    = (indices, eid, nbr, counts, eids, eid_lane, rows, S) after them,
+    ``outputs`` = ``(nbr, counts[, eids])``, each lane output allocated
+    like ``draws``, and ``num`` the per-lead count tensor the launch reads
+    (or None), which the caller holds until it has launched."""
+    shape = seeds.shape
     if indptr.dtype not in (torch.int32, torch.int64):
         raise ValueError("indptr must be int32 or int64")
     indptr_ptr = _check_table(indptr, "indptr", indptr.dtype, index)
@@ -197,7 +224,7 @@ def uniform_hop(indptr, indices, seeds, num_seeds, jitter, rot, *, eid=None,
     if with_eid and eid is not None:
         eid_ptr = _check_table(eid, "eid", torch.int32, index)
     rows = seeds.numel()
-    num, num_scalar, num_stride = 0, 0, 0
+    num, num_scalar, num_stride, num_t = 0, 0, 0, None
     if isinstance(num_seeds, torch.Tensor):
         lead_n = rows // shape[-1] if shape[-1] else 0
         if num_seeds.numel() not in (1, lead_n):
@@ -207,22 +234,18 @@ def uniform_hop(indptr, indices, seeds, num_seeds, jitter, rot, *, eid=None,
     else:
         num_scalar = int(num_seeds)
     # one allocation per output: cheaper on the host than views of one
-    nbr = torch.empty_like(jitter, dtype=torch.int32)
+    nbr = torch.empty_like(draws, dtype=torch.int32)
     counts = torch.empty_like(seeds)
     eids, eid_lane = None, 0
     if with_eid:  # the eid table's int32, or CSR slots in indptr's width
         eid_lane = 1 if eid is not None else 2
-        eids = torch.empty_like(jitter, dtype=torch.int32 if eid is not None
+        eids = torch.empty_like(draws, dtype=torch.int32 if eid is not None
                                 else indptr.dtype)
-    launch("uniform_hop", index, indptr_ptr, int(indptr.dtype == torch.int64),
-           seeds.data_ptr(), num, num_scalar, num_stride, jitter.data_ptr(),
-           rot.data_ptr(), tab, eid_ptr, nbr.data_ptr(), counts.data_ptr(),
-           0 if eids is None else eids.data_ptr(), eid_lane, rows, shape[-1], k)
-    uniform_hop.launches += 1
-    return (nbr, counts) if eids is None else (nbr, counts, eids)
-
-
-uniform_hop.launches = 0
+    head = (indptr_ptr, int(indptr.dtype == torch.int64), seeds.data_ptr(),
+            num, num_scalar, num_stride)
+    tail = (tab, eid_ptr, nbr.data_ptr(), counts.data_ptr(),
+            0 if eids is None else eids.data_ptr(), eid_lane, rows, shape[-1])
+    return head, tail, (nbr, counts) if eids is None else (nbr, counts, eids), num_t
 
 
 def wselect_plain(indices, cum_weights, start, deg, u, iters: int, *,
@@ -292,15 +315,92 @@ def wselect(indices, cum_weights, start, deg, u, iters: int, *, eid=None,
         raise ValueError(f"iters must be >= 0, got {iters}")
     outs = tuple(torch.empty_like(u, dtype=torch.int32)
                  for _ in range(2 if eid is None else 3))
-    launch("wselect", index, tabs[0], tabs[1], tabs[2], start.data_ptr(),
-           deg.data_ptr(), u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-           outs[2].data_ptr() if eid is not None else 0, S, k, int(iters),
+    launch("wselect", index, *tabs, start.data_ptr(), deg.data_ptr(),
+           u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+           outs[2].data_ptr() if eid is not None else 0, S, k, iters,
            int(bool(scale_u)))
     wselect.launches += 1
     return outs
 
 
 wselect.launches = 0
+
+
+def weighted_hop_plain(indptr, indices, cum_weights, seeds, num_seeds, u01,
+                       iters: int, *, eid=None, with_eid: bool = False):
+    """:func:`weighted_hop` in plain PyTorch: ``seed_degrees``, then
+    :func:`wselect_plain` (``weighted_offsets`` and the select) on the rows'
+    starts and degrees."""
+    from ..sample import seed_degrees
+
+    k = u01.shape[-1]
+    _valid, base, deg = seed_degrees(indptr, seeds, num_seeds)
+    counts = deg.clamp(max=k)  # deg is 0 on invalid seeds
+    start = base.to(torch.int64)
+    outs = wselect_plain(indices, cum_weights, start.reshape(-1), deg.reshape(-1),
+                         u01.reshape(-1, k), iters,
+                         eid=eid if with_eid else None)
+    nbr = outs[0].reshape(u01.shape)
+    if not with_eid:
+        return nbr, counts
+    if eid is not None:
+        return nbr, counts, outs[2].reshape(u01.shape)
+    # CSR slots, in indptr's width
+    epos = start[..., None] + outs[1].reshape(u01.shape).to(torch.int64)
+    return nbr, counts, torch.where(nbr >= 0, epos, -1).to(base.dtype)
+
+
+def weighted_hop(indptr, indices, cum_weights, seeds, num_seeds, u01,
+                 iters: int, *, eid=None, with_eid: bool = False):
+    """The weighted hop in one launch (kernel K3, ``quiver_weighted_hop``).
+
+    Args:
+      indptr: ``(N + 1,)`` CSR row pointers, int32 or int64.
+      indices: ``(E,)`` int32 CSR neighbours, on the device or in pinned
+        host memory (read over UVA); ``cum_weights`` ``(E,)`` float32
+        row-local inclusive prefix weights and ``eid`` ``(E,)`` int32
+        (optional) alike.
+      seeds: ``(..., S)`` int32 node ids, -1 padded.
+      num_seeds: valid seeds, an int or a tensor of one count for all or
+        one per leading index.
+      u01: ``(..., S, k)`` float32 uniforms in ``[0, 1)``, scaled by each
+        row's total weight (``ops.sample.draw_u01``).
+      iters: bisection rounds, ``>= ceil(log2(max_degree + 1))``.
+      with_eid: also return the eid lane: ``eid``'s values, or the CSR
+        slots in indptr's width when ``eid`` is None.
+
+    Returns ``(neighbors (..., S, k) int32, counts (..., S) int32[,
+    eids])``, -1 on invalid lanes: exactly ``ops.sample.sample_layer``'s
+    weighted hop on these draws. CPU ``seeds`` take
+    :func:`weighted_hop_plain`; CUDA ``seeds`` launch the kernel.
+    """
+    if not seeds.is_cuda:
+        return weighted_hop_plain(indptr, indices, cum_weights, seeds, num_seeds,
+                                  u01, iters, eid=eid, with_eid=with_eid)
+    index = seeds.get_device()
+    k = u01.shape[-1]
+    if k < 1:
+        raise ValueError(f"weighted_hop needs k >= 1, got {k}")
+    if seeds.dtype != torch.int32:
+        raise ValueError("seeds must be int32")
+    seeds = seeds.contiguous()  # a frontier is a strided view of its buffer
+    if (u01.dtype != torch.float32 or u01.shape != seeds.shape + (k,)
+            or u01.get_device() != index or not u01.is_contiguous()):
+        raise ValueError(f"u01 must be contiguous {tuple(seeds.shape) + (k,)} "
+                         f"float32 on cuda:{index}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    cw = _check_table(cum_weights, "cum_weights", torch.float32, index)
+    if cum_weights.shape[0] != indices.shape[0]:
+        raise ValueError("indices and cum_weights must hold the same edges")
+    head, tail, outputs, _num = _hop_args(indptr, indices, eid, with_eid, seeds,
+                                          num_seeds, u01, index)
+    launch("weighted_hop", index, *head, u01.data_ptr(), cw, *tail, k, iters)
+    weighted_hop.launches += 1
+    return outputs
+
+
+weighted_hop.launches = 0
 
 
 def fused_select_hop(indices, start, offs, *, eid=None):
@@ -328,7 +428,8 @@ def fused_sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
                        with_eid: bool = False, offs=None, u=None):
     """The fused hop, every variant: on Hopper it is
     ``ops.sample.sample_layer`` itself (exact draw, no window; K1 runs
-    uniform and temporal hops, K3 weighted ones)."""
+    uniform and temporal hops, K3 weighted ones, each in one launch from a
+    generator's or a tensor's draws)."""
     from ..sample import sample_layer
 
     return sample_layer(topo, seeds, num_seeds, k, generator,

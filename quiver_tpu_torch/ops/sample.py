@@ -28,10 +28,13 @@ A **weighted** hop draws k independent slots per row (with replacement)
 from the row's categorical distribution: each lane scales a uniform
 ``u01`` in ``[0, 1)`` by the row's total weight and binary-searches the
 row-local inclusive prefix ``cum_weights`` (inverse CDF); rows with
-``deg <= k`` take all neighbours in CSR order. Its draw seam is that f32
-``u01`` block (:func:`draw_u01`, or ``sample_layer(u=...)``), the same
-block JAX's ``weighted_offsets`` and its Pallas kernel consume; the search
-and select run on kernel K3 for CUDA tensors.
+``deg <= k`` take all neighbours in CSR order. Its draw is that f32
+``u01`` block (:func:`draw_u01`), the same block JAX's ``weighted_offsets``
+and its Pallas kernel consume. From a generator, a ``u01`` tensor or the
+``bits=`` seam it runs in one launch of kernel K3's fused entry
+(``kernels.fused.weighted_hop``); a ``u`` that is a callable of the
+degrees (how the tests feed JAX's draws) runs :func:`seed_degrees` here
+and K3's search-and-select entry.
 
 A **temporal** hop samples uniformly among a row's edges whose timestamp
 lies in ``[lo, hi]``: two binary searches over the time-sorted row give
@@ -44,13 +47,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels.fused import select, uniform_hop, wselect
+from .kernels.fused import select, uniform_hop, weighted_hop, wselect
 from .kernels.gather import gather_rows
 
 __all__ = [
     "cdf_search",
     "draw_bits",
     "draw_u01",
+    "hop_draws",
     "rotate_offsets",
     "sample_layer",
     "seed_degrees",
@@ -129,6 +133,15 @@ def draw_u01(shape, k: int, generator: torch.Generator):
     """The port's own weighted draw: ``(*shape, k)`` float32 in ``[0, 1)``."""
     return torch.rand(tuple(shape) + (k,), generator=generator,
                       device=generator.device, dtype=torch.float32)
+
+
+def hop_draws(shape, k: int, generator: torch.Generator, *,
+              weighted: bool = False):
+    """The raw draws a fused hop over rows of ``shape`` consumes:
+    :func:`draw_u01` for a weighted hop, else :func:`draw_bits`."""
+    if weighted:
+        return draw_u01(shape, k, generator)
+    return draw_bits(shape, k, generator)
 
 
 def cdf_search(cum_weights, u, base, deg, iters: int):
@@ -229,15 +242,23 @@ def seed_degrees(indptr, seeds, num_seeds):
     return valid, base, torch.where(valid, deg, 0)
 
 
-def _uniform_bits(bits, shape, k: int, generator, device):
-    """The uniform draw's raw ``(jitter, rot)`` over rows of ``shape``: the
-    ``bits`` seam (a pair, or a callable of the shape), else
-    :func:`draw_bits` from ``generator``."""
+def _raw_draws(bits, shape, k: int, generator, device, weighted: bool):
+    """A hop's raw draws over rows of ``shape``, on ``device``: the ``bits``
+    seam (the draws, or a callable of the shape), else :func:`hop_draws`
+    from ``generator``. A weighted hop's are its ``(*shape, k)`` f32
+    ``u01``; a uniform hop's the int64 ``(jitter, rot)`` pair."""
     if bits is None:
         if generator is None:
-            raise ValueError("sample_layer needs a generator, bits or offs")
-        return draw_bits(shape, k, generator)
-    jitter, rot = bits(tuple(shape)) if callable(bits) else bits
+            raise ValueError("sample_layer needs a generator or u, or bits"
+                             if weighted else
+                             "sample_layer needs a generator, bits or offs")
+        draws = hop_draws(shape, k, generator, weighted=weighted)
+    else:
+        draws = bits(tuple(shape)) if callable(bits) else bits
+    if weighted:
+        return draws.to(device=device, dtype=torch.float32).reshape(
+            tuple(shape) + (k,)).contiguous()
+    jitter, rot = draws
     return (jitter.to(device=device, dtype=torch.int64).contiguous(),
             rot.to(device=device, dtype=torch.int64).contiguous())
 
@@ -266,17 +287,21 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         ``lo <= t <= hi`` (needs ``with_times=True``); excludes
         ``weighted``.
       u: the weighted draw's injection seam. A ``(..., S, k)`` float32
-        block of uniforms in ``[0, 1)``, or a callable ``deg -> u``.
-      bits: the uniform draw's raw-bits seam. The ``(jitter (..., S, k),
-        rot (..., S, 1))`` int64 pair of :func:`draw_bits`, or a callable
-        of the hop's row shape ``(..., S)`` that returns it; replaces the
-        generator's :func:`draw_bits` (excludes ``offs`` and ``weighted``).
+        block of uniforms in ``[0, 1)``, or a callable ``deg -> u``
+        (needs ``weighted``).
+      bits: the raw-draw seam of the fused hops: the draws of
+        :func:`hop_draws` (a uniform hop's ``(jitter (..., S, k), rot
+        (..., S, 1))`` int64 pair, a weighted hop's ``(..., S, k)`` f32
+        ``u01``), or a callable of the hop's row shape ``(..., S)`` that
+        returns them; replaces the generator's draw. At most one of
+        ``offs``, ``u`` and ``bits`` is given.
 
     Returns ``(neighbors (..., S, k) int32, counts (..., S) int32[, eids])``
-    with -1 on invalid lanes. For CUDA tensors a uniform hop from raw bits
-    runs in one launch of K1's fused entry (:func:`uniform_hop`); given
-    ``offs``, or on a temporal hop, the offsets are computed here and K1's
-    select entry runs; a weighted hop's search and select run on kernel K3.
+    with -1 on invalid lanes. For CUDA tensors a hop from a generator, raw
+    bits or a ``u`` tensor runs in one launch of a fused entry (K1's
+    :func:`uniform_hop`, K3's :func:`weighted_hop`); given ``offs``, or a
+    ``u`` callable, or on a temporal hop, the degrees (and offsets) are
+    computed here and K1's select entry or K3's search-and-select runs.
     """
     if k < 1:
         raise ValueError(f"fanout k must be >= 1, got {k}")
@@ -298,12 +323,23 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
             "temporal sampling needs topo.edge_time; build the "
             "DeviceTopology with to_device(with_times=True)"
         )
-    if bits is not None and (weighted or offs is not None):
-        raise ValueError("bits is the uniform draw's seam; it excludes "
-                         "offs and weighted=True")
+    if sum(x is not None for x in (offs, u, bits)) > 1:
+        raise ValueError("the draw seams exclude each other: give at most "
+                         "one of offs, u and bits")
+    if u is not None and not weighted:
+        raise ValueError("u is the weighted draw's seam; it needs weighted=True")
+    if offs is not None and weighted:
+        raise ValueError("offs is the uniform draw's seam; it excludes "
+                         "weighted=True")
+    if weighted and not callable(u):  # a u tensor is the draws themselves
+        u01 = _raw_draws(bits if u is None else u, seeds.shape, k, generator,
+                         seeds.device, True)
+        return weighted_hop(topo.indptr, topo.indices, topo.cum_weights, seeds,
+                            num_seeds, u01, topo.search_iters, eid=topo.eid,
+                            with_eid=with_eid)
     if not weighted and time_window is None and offs is None:
-        jitter, rot = _uniform_bits(bits, seeds.shape, k, generator,
-                                    seeds.device)
+        jitter, rot = _raw_draws(bits, seeds.shape, k, generator, seeds.device,
+                                 False)
         return uniform_hop(topo.indptr, topo.indices, seeds, num_seeds,
                            jitter, rot, eid=topo.eid, with_eid=with_eid)
     valid, base, deg = seed_degrees(topo.indptr, seeds, num_seeds)
@@ -318,14 +354,8 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         start = start + first.to(torch.int64)
     counts = deg.clamp(max=k)  # deg is 0 on invalid seeds
     eid_tab = topo.eid if with_eid else None
-    if weighted:
-        if u is None:
-            if generator is None:
-                raise ValueError("sample_layer needs a generator or u")
-            u = draw_u01(lead, k, generator)
-        elif callable(u):
-            u = u(deg)
-        u = u.to(device=deg.device, dtype=torch.float32).reshape(-1, k)
+    if weighted:  # a callable u of the degrees
+        u = u(deg).to(device=deg.device, dtype=torch.float32).reshape(-1, k)
         outs = wselect(topo.indices, topo.cum_weights, start.reshape(-1),
                        deg.reshape(-1).contiguous(), u.contiguous(),
                        topo.search_iters, eid=eid_tab)
@@ -333,7 +363,7 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         eid_out = outs[2] if eid_tab is not None else None
     else:
         if offs is None:  # a temporal hop: the draw runs over the window
-            jitter, rot = _uniform_bits(bits, lead, k, generator, deg.device)
+            jitter, rot = _raw_draws(bits, lead, k, generator, deg.device, False)
             off, _ = stratified_offsets(deg, k, jitter)
             offs = rotate_offsets(off, deg, k, rot)
         elif callable(offs):

@@ -8,10 +8,12 @@ every frontier to its cap, ``-1`` sentinels on invalid lanes.
 
 Draws follow the JAX package's per-layer key discipline: each layer draws
 from its own ``torch.Generator``, seeded by ``(seed, call, layer)``; a
-uniform hop's draw is its raw bits, so the hop runs in one launch of
-kernel K1's fused entry. A ``draw_fn(layer, deg)`` seam replaces those
-draws (the tests feed it JAX's): it returns a uniform hop's int32 offsets
-(then K1's select entry runs), or a weighted hop's float32 ``u01`` block.
+hop's draw is its raw bits (a uniform hop's) or its ``u01`` block (a
+weighted hop's), so the hop runs in one launch of a fused entry (K1's or
+K3's). A ``draw_fn(layer, deg)`` seam replaces those draws (the tests
+feed it JAX's): it returns a uniform hop's int32 offsets (then K1's select
+entry runs), or a weighted hop's float32 ``u01`` block (then K3's
+search-and-select entry runs).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..core.config import SampleMode
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, VersionMismatchError
 from ..ops.reindex import reindex_layer
-from ..ops.sample import draw_bits, draw_u01, sample_layer, seeded_generator
+from ..ops.sample import hop_draws, sample_layer, seeded_generator
 
 __all__ = ["Adj", "GraphSageSampler", "SampleOutput", "multilayer_sample"]
 
@@ -83,9 +85,10 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
     Each hop draws through one of two seams. ``draw(layer, deg)`` gives
     its ``(..., S_l, k)`` draws from its ``(..., S_l)`` degrees: int32
     offsets, or float32 ``u01`` when ``weighted``. ``bits(layer, shape)``
-    gives a uniform hop's raw ``(jitter, rot)`` over rows of ``shape``
-    (``sample_layer``'s ``bits=`` seam). ``time_window`` makes every hop
-    temporal (``deg`` is then the in-window degree).
+    gives its raw draws over rows of ``shape`` (``sample_layer``'s
+    ``bits=`` seam: a uniform hop's ``(jitter, rot)``, a weighted hop's
+    ``u01``), which a fused entry consumes. ``time_window`` makes every
+    hop temporal (``deg`` is then the in-window degree).
 
     Returns (n_id, n_count, adjs deepest-first, overflow, per-layer edge
     counts, per-layer unclipped frontier counts).
@@ -148,7 +151,8 @@ class GraphSageSampler:
         seeded by ``(seed, c, l)``.
       with_eid: populate ``Adj.e_id`` with per-edge ids.
       weighted: draw neighbours in proportion to the edge weights
-        (needs ``csr_topo.set_edge_weight``); every hop runs kernel K3.
+        (needs ``csr_topo.set_edge_weight``); every hop runs kernel K3
+        (one launch of its fused entry).
       time_window: ``(lo, hi)``: every hop draws only from edges with
         ``lo <= t <= hi`` (needs ``csr_topo.set_edge_time`` and GPU mode);
         excludes ``weighted``.
@@ -277,19 +281,14 @@ class GraphSageSampler:
         self._call += 1
         call = self._call
 
-        def generator(l):
-            return seeded_generator(self.device, self.seed, call, l)
-
         def draw(l, deg):
-            if draw_fn is not None:
-                return torch.as_tensor(draw_fn(l, deg), device=self.device)
-            return draw_u01(deg.shape, self.sizes[l], generator(l))
+            return torch.as_tensor(draw_fn(l, deg), device=self.device)
 
         def bits(l, shape):
-            return draw_bits(shape, self.sizes[l], generator(l))
+            return hop_draws(shape, self.sizes[l], seeded_generator(
+                self.device, self.seed, call, l), weighted=self.weighted)
 
-        seam = ({"draw": draw} if draw_fn is not None or self.weighted
-                else {"bits": bits})
+        seam = {"draw": draw} if draw_fn is not None else {"bits": bits}
         n_id, n_count, adjs, overflow, edge_counts, frontier_counts = (
             multilayer_sample(
                 self.topo, torch.from_numpy(padded).to(self.device), batch,

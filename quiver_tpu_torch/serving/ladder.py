@@ -4,15 +4,16 @@ The port of ``quiver_tpu/serving/ladder.py``. For each power-of-two bucket
 size ``B`` the ladder runs two fixed-shape steps:
 
 * **sample**: the ``B`` lanes are sampled together, one launch per hop
-  for all lanes (K1's fused uniform hop on the lanes' stacked raw bits,
-  K3 on a weighted sampler, K1's select entry under a ``draw_fn``), but
-  every lane is its own single-seed sample with its own frontier caps
-  (planned for ONE seed) and its own draws, from generators seeded by
-  ``(seed, seq, layer)``. Lanes share no state, so a request's
-  neighbourhood is a function of ``(node, seq)`` alone, whatever the
-  bucket, the padding or the co-batched requests: the ladder's ids and
-  edges equal the direct single-query oracle (which computes the offsets
-  and runs K1's select entry) bitwise.
+  for all lanes (a fused entry on the lanes' stacked raw draws: K1's
+  uniform hop, or K3's weighted hop on a weighted sampler; K1's select
+  entry or K3's search-and-select under a ``draw_fn``), but every lane is
+  its own single-seed sample with its own frontier caps (planned for ONE
+  seed) and its own draws, from generators seeded by ``(seed, seq,
+  layer)``. Lanes share no state, so a request's neighbourhood is a
+  function of ``(node, seq)`` alone, whatever the bucket, the padding or
+  the co-batched requests: the ladder's ids and edges equal the direct
+  single-query oracle (which draws from the lane's degrees and runs the
+  composed path: K1's select entry, or K3's search-and-select) bitwise.
 * **forward**: the model run once per lane, at the oracle's shapes, over
   that lane's ``(cap, F)`` rows of the gathered block (the JAX ladder's
   ``lax.scan`` over lanes). A batched pass would let the matrix products
@@ -28,8 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.sample import (draw_bits, draw_u01, rotate_offsets,
-                          seeded_generator, stratified_offsets)
+from ..ops.sample import (hop_draws, rotate_offsets, seeded_generator,
+                          stratified_offsets)
 from ..sampling.sampler import Adj, GraphSageSampler, multilayer_sample
 
 __all__ = ["ServeLadder"]
@@ -89,9 +90,7 @@ class ServeLadder:
         seeded by ``(seed, seq, layer)``: ``u01`` on a weighted sampler,
         else the uniform draw's ``(jitter, rotation)``."""
         g = seeded_generator(self.device, self.seed, seq, layer)
-        if self.weighted:
-            return draw_u01((rows,), self.sizes[layer], g)
-        return draw_bits((rows,), self.sizes[layer], g)
+        return hop_draws((rows,), self.sizes[layer], g, weighted=self.weighted)
 
     def _lane_draw(self, seq: int, layer: int, deg):
         """One lane's ``(S, k)`` draws from its ``(S,)`` degrees: offsets,
@@ -109,26 +108,29 @@ class ServeLadder:
 
     def _bits(self, seqs):
         """``bits(layer, shape)`` over ``(B, S)`` rows: each live lane's
-        raw uniform draws from its own generator; padding lanes (``seq``
-        None, every seed -1) take zero bits, which the hop never reads."""
+        raw draws from its own generator (``u01`` on a weighted sampler,
+        else ``(jitter, rot)``); padding lanes (``seq`` None, every seed
+        -1) take zeros, which the hop never reads."""
         def bits(layer, shape):
-            rows = shape[-1]
+            rows, k = shape[-1], self.sizes[layer]
             zeros = None
             if None in seqs:
-                zeros = (
-                    torch.zeros((rows, self.sizes[layer]), dtype=torch.int64,
-                                device=self.device),
-                    torch.zeros((rows, 1), dtype=torch.int64, device=self.device))
+                zeros = (torch.zeros((rows, k), device=self.device)
+                         if self.weighted else
+                         (torch.zeros((rows, k), dtype=torch.int64, device=self.device),
+                          torch.zeros((rows, 1), dtype=torch.int64, device=self.device)))
             lanes = [zeros if seq is None else self._lane_bits(seq, layer, rows)
                      for seq in seqs]
+            if self.weighted:
+                return torch.stack(lanes)
             return (torch.stack([j for j, _ in lanes]),
                     torch.stack([r for _, r in lanes]))
         return bits
 
     def _draw(self, seqs):
-        """``draw(layer, deg)`` over ``(B, S)`` degrees, for a weighted
-        sampler or a ``draw_fn``: each live lane's draws; padding lanes
-        (every degree 0) take zero draws, which the select never reads."""
+        """``draw(layer, deg)`` over ``(B, S)`` degrees, under a
+        ``draw_fn``: each live lane's draws; padding lanes (every degree 0)
+        take zero draws, which the select never reads."""
         def draw(layer, deg):
             dtype = torch.float32 if self.weighted else torch.int32
             zero = torch.zeros((deg.shape[-1], self.sizes[layer]), dtype=dtype,
@@ -145,8 +147,7 @@ class ServeLadder:
         (None on padding lanes) -> (n_id ``(B, cap_last)``, edge_index per
         layer deepest-first ``(B, 2, E_l)``, overflow ``(B,)``)."""
         seqs = list(seqs)
-        seam = ({"draw": self._draw(seqs)}
-                if self.weighted or self.draw_fn is not None
+        seam = ({"draw": self._draw(seqs)} if self.draw_fn is not None
                 else {"bits": self._bits(seqs)})
         n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
             self.sampler.topo, seeds[:, None], 1, self.sizes,

@@ -105,6 +105,76 @@ def test_wselect_kernel_matches_plain(cuda, rows, k, with_eid, scale_u, pinned):
         assert torch.equal(g, h)
 
 
+def _degree_graph(cuda, pinned, seed):
+    """A weighted CSR whose rows take every degree of 0-40, 60-69, 250-262,
+    500, 1000 and 3232 (the products graph's largest), short rows and
+    long, some with all-zero weights (the uniform prefix)."""
+    from quiver_tpu_torch import CSRTopo
+
+    rng = np.random.default_rng(seed)
+    degs = np.array(list(range(41)) + list(range(60, 70)) + list(range(250, 263))
+                    + [500, 1000, 3232])
+    n = len(degs)
+    coo = np.stack([np.repeat(np.arange(n), degs), rng.integers(0, n, degs.sum())])
+    w = np.exp(rng.normal(size=coo.shape[1])).astype(np.float32)
+    w[coo[0] % 5 == 3] = 0.0
+    topo = CSRTopo(edge_index=coo, edge_weight=w)
+    dt = topo.to_device("UVA" if pinned else "GPU", cuda, with_eid=True, with_weights=True)
+    return topo, dt
+
+
+@pytest.mark.parametrize("k", [1, 5, 15, 40])
+@pytest.mark.parametrize("scale_u,pinned", [(True, False), (False, False), (True, True)])
+def test_wselect_kernel_every_degree(cuda, k, scale_u, pinned):
+    from quiver_tpu_torch.ops.kernels.fused import wselect, wselect_plain
+
+    topo, dt = _degree_graph(cuda, pinned, k)
+    rows = np.tile(np.arange(topo.node_count), 3)
+    base = torch.from_numpy(topo.indptr[rows].astype(np.int64)).to(cuda)
+    deg = torch.from_numpy(topo.degree[rows].astype(np.int32)).to(cuda)
+    u = torch.rand((rows.shape[0], k), device=cuda)
+    if not scale_u:
+        end = (base + deg.long() - 1).clamp(min=0)
+        u = u * torch.where(deg > 0, dt.cum_weights.to(cuda)[end], 1.0)[:, None]
+    args = (dt.indices, dt.cum_weights, base, deg, u.contiguous(), dt.search_iters)
+    got = wselect(*args, eid=dt.eid, scale_u=scale_u)
+    want = wselect_plain(*args, eid=dt.eid, scale_u=scale_u)
+    torch.cuda.synchronize()
+    for g, h in zip(got, want):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.parametrize("indptr64", [False, True])
+@pytest.mark.parametrize("with_eid,topo_eid,pinned", [(False, False, False), (True, True, False),
+                                                      (True, False, False), (True, True, True)])
+@pytest.mark.parametrize("k,lanes", [(5, False), (15, True), (40, True)])
+def test_weighted_hop_kernel_matches_plain(cuda, indptr64, with_eid, topo_eid, pinned, k,
+                                           lanes):
+    from quiver_tpu_torch.ops.kernels.fused import weighted_hop, weighted_hop_plain
+
+    topo, dt = _degree_graph(cuda, pinned, k + int(indptr64))
+    indptr = dt.indptr.long() if indptr64 else dt.indptr
+    eid = dt.eid if topo_eid else None
+    rng = np.random.default_rng(k + 2 * int(with_eid))
+    shape = (3, 64) if lanes else (1003,)
+    seeds = rng.integers(0, topo.node_count, shape).astype(np.int32)
+    seeds[..., :5] = [topo.node_count - 1, 1, 0, 45, 46]  # degrees 3232, 1, 0, 64, 65
+    seeds[..., 5::9] = -1
+    seeds = torch.from_numpy(seeds).to(cuda)
+    num = torch.tensor([64, 20, 0], dtype=torch.int32, device=cuda) if lanes else 1000
+    u01 = torch.rand(shape + (k,), device=cuda)
+    before = weighted_hop.launches
+    got = weighted_hop(indptr, dt.indices, dt.cum_weights, seeds, num, u01,
+                       dt.search_iters, eid=eid, with_eid=with_eid)
+    want = weighted_hop_plain(indptr, dt.indices, dt.cum_weights, seeds, num, u01,
+                              dt.search_iters, eid=eid, with_eid=with_eid)
+    torch.cuda.synchronize()
+    assert weighted_hop.launches == before + 1
+    assert len(got) == len(want) == (3 if with_eid else 2)
+    for g, h in zip(got, want):
+        assert g.dtype == h.dtype and torch.equal(g, h)
+
+
 @pytest.mark.parametrize("indptr64", [False, True])
 @pytest.mark.parametrize("with_eid,topo_eid,pinned", [(False, False, False), (True, True, False),
                                                       (True, False, False), (True, True, True)])
