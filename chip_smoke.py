@@ -41,6 +41,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    samples at [15, 10, 5] in the window [0.25, 0.75]; every edge must be an
    in-window edge of its node, with ``min(in-window degree, k)`` per node.
    Prints sampled edges/s and the window search's share of a batch.
+8. train, full width: ``examples/train_sage_torch.py``'s default
+   configuration (Reddit-scale synthetic graph, 232,965 nodes, F=602, 41
+   classes, GraphSAGE 256 x 2, fanouts [25, 10], batch 1024, 20% of the
+   rows cached on the card and the rest pinned on the host, auto caps,
+   Adam). The planning call, one warm-up step, then 20 timed steps with
+   the sample, gather and train-step (forward, backward, Adam) times, each
+   ending in a synchronise; steps/s, sampled edges/s, peak device memory,
+   the planned caps beside the worst case; 5 more steps under
+   ``torch.profiler`` (device time per kernel, each stage's span on the
+   card, the device's idle share); finite losses; exactly 2
+   ``uniform_hop`` and 1 ``tiered_gather`` launches per step (2 more per
+   regrowth rerun, counted apart); then the card's train step against the
+   CPU's on one full-width batch (dropout 0, TF32 off): loss within 1e-5
+   relative, each gradient within 1e-4 x its max |g|.
+9. train, acceptance: the twin's ``--dataset planted:20000 --epochs 4``
+   on the card, with sampled and then layer-wise evaluation; each test
+   accuracy must clear the feature-only Bayes accuracy + 0.15.
 
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -64,6 +81,7 @@ SECTOR = 32  # bytes a random device-memory load moves
 PRODUCTS_NODES = 2_450_000
 PRODUCTS_AVG_DEG = 50.5
 WIDE_ROWS = 1_000_000  # rows of the wide-row gather tables
+PROFILED_STEPS = 5  # training steps traced by torch.profiler
 KERNELS = ("select", "gather", "wselect")
 # the wrappers, each with its launch count: K1's two entries, K2's two, K3's two
 ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather", "wselect",
@@ -1119,6 +1137,242 @@ def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int =
             "launches": launches, "edges_checked": checked, "card": card}
 
 
+# -- phases 8 and 9: train ---------------------------------------------------
+
+
+def step_grads(model, x, adjs, labels, mask):
+    """One ``make_train_step`` call at SGD lr 0 (the parameters stay, the
+    gradients stay in ``.grad``): (loss, gradients on the host)."""
+    import torch
+
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))
+    loss = float(step(x, adjs, labels, mask))
+    return loss, [p.grad.detach().cpu() for p in model.parameters()]
+
+
+def train_parity(run, seeds):
+    """The card's train step against the CPU's plain run on one full-width
+    batch: the same ``init_model`` parameters (dropout 0), the same x,
+    Adjs, labels and mask; TF32 is off for the whole smoke. The loss within
+    1e-5 relative, each gradient within 1e-4 x its max |g|."""
+    import copy
+
+    from examples.train_sage_torch import batch_inputs
+    from quiver_tpu_torch import GraphSAGE
+    from quiver_tpu_torch.parallel.train import init_model
+
+    import torch
+
+    out, x, labels, mask = batch_inputs(run, seeds)
+    model = GraphSAGE(x.shape[1], 256, run.ds.num_classes, num_layers=2,
+                      dropout=0.0)
+    init_model(model, torch.Generator().manual_seed(1))
+    cpu_model = copy.deepcopy(model)
+    t0 = time.time()
+    loss_g, grads_g = step_grads(model.to("cuda"), x, out.adjs, labels, mask)
+    loss_c, grads_c = step_grads(cpu_model, x.cpu(), [a.to("cpu") for a in out.adjs],
+                                 labels.cpu(), mask.cpu())
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
+                for g, c in zip(grads_g, grads_c)]
+    check(rel <= 1e-5, f"train parity: loss {loss_g} (card) vs {loss_c} (CPU)")
+    check(max(grad_err) <= 1e-4,
+          f"train parity: gradient errors / max |g| {grad_err}")
+    return {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+            "grad_err_over_max": grad_err, "rows": int(x.shape[0]),
+            "seconds": time.time() - t0,
+            "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
+
+
+def profile_steps(step, batches, first, median_step_ms):
+    """``PROFILED_STEPS`` more steps under ``torch.profiler``: the device
+    time of every kernel and copy per step, the span on the card of each
+    stage's annotation, and the device's idle share against the median
+    step time of the unprofiled run (the profiler's own host cost would
+    inflate the profiled steps' wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(first, first + PROFILED_STEPS):
+            step(i, batches[i])
+    spans, kernels = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        ms = e.self_device_time_total / 1e3 / PROFILED_STEPS
+        (spans if e.key.startswith("train:") else kernels)[e.key] = ms
+    busy = sum(kernels.values())
+    check(busy > 0 and len(spans) == 3, f"the profiler saw the card: spans {spans}")
+    ours = {name: sum(ms for key, ms in kernels.items() if name in key)
+            for name in ("uniform_hop_kernel", "gather_kernel")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    log(f"train profile: device busy {busy:.3f} ms per step of {median_step_ms:.3f}; "
+        f"stage spans {spans}")
+    return {"steps": PROFILED_STEPS, "device_busy_ms_per_step": busy,
+            "median_step_ms": median_step_ms,
+            "idle_share": 1 - busy / median_step_ms,
+            "stage_span_ms_per_step": spans, "port_kernels_ms_per_step": ours,
+            "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
+
+
+def train_phase(card, pcie_bytes_per_s, steps: int = 20):
+    """The twin's default configuration (``examples/train_sage_torch.py``):
+    the Reddit-scale synthetic graph, F=602 f32, 41 classes, GraphSAGE 256
+    x 2, fanouts [25, 10], batch 1024, a 20% degree-ordered cache on the
+    card and the rest pinned on the host, auto caps, Adam at 0.01. One
+    warm-up step, then ``steps`` timed steps, each stage ending in a
+    synchronise; exact launches; then card-vs-CPU step parity. K2's
+    lookup is held to GATHER_BOUND_RULE with the pinned-host rate
+    ``pcie_bytes_per_s`` measured in phase 3."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from torch.profiler import record_function
+
+    from examples.train_sage_torch import parse_args, setup
+    from quiver_tpu_torch.ops.sample import seeded_generator
+
+    args = parse_args(["--device", "cuda"])
+    t0 = time.time()
+    reset_launches()
+    run = setup(args)  # its first sample plans the auto caps
+    sync()
+    setup_s = time.time() - t0
+    plan_launches, plan_reruns = read_launches(), run.sampler.reruns
+    expect_launches(plan_launches, {"uniform_hop": 2 * (1 + plan_reruns)},
+                    "train: the planning call")
+    worst = run.sampler._worst_caps(args.batch)
+    caps = run.sampler._frontier_caps
+    log(f"train set-up {setup_s:.1f}s; auto caps {caps} (worst case {worst}), "
+        f"{plan_reruns} reruns")
+
+    # the batches of two epochs of the twin's shuffles: warm-up, timed,
+    # profiled and parity steps
+    train_idx = np.asarray(run.ds.train_idx)
+    order = np.concatenate([np.random.default_rng(e).permutation(train_idx)
+                            for e in (1, 2)])
+    batches = [order[i * args.batch:(i + 1) * args.batch]
+               for i in range(len(order) // args.batch)]
+    check(len(batches) >= steps + PROFILED_STEPS + 2, "enough training batches")
+
+    def step(i, seeds):
+        a = time.perf_counter()
+        with record_function("train:sample"):
+            out = run.sampler.sample(seeds)
+            sync()
+        b = time.perf_counter()
+        with record_function("train:gather"):
+            x = run.feature[out.n_id]
+            seed_ids = out.n_id[:args.batch]
+            labels = run.labels_all[seed_ids.clamp(min=0)]
+            mask = seed_ids >= 0
+            sync()
+        c = time.perf_counter()
+        with record_function("train:step"):
+            loss = run.train_step(x, out.adjs, labels, mask,
+                                  seeded_generator(run.device, args.seed, i))
+            sync()
+        d = time.perf_counter()
+        return out, loss, (b - a, c - b, d - c)
+
+    step(0, batches[0])  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reruns0 = run.sampler.reruns
+    reset_launches()
+    rows, kept = [], []
+    t_all = time.perf_counter()
+    for i in range(1, steps + 1):
+        out, loss, (ts, tg, tt) = step(i, batches[i])
+        rows.append({"sample_ms": ts * 1e3, "gather_ms": tg * 1e3,
+                     "train_step_ms": tt * 1e3})
+        kept.append((out.n_id, out.edge_counts, loss))
+    wall = time.perf_counter() - t_all
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    reruns = run.sampler.reruns - reruns0
+    # per step: its loss, sampled edges, valid and cold rows, and the
+    # GATHER_BOUND_RULE bound of its lookup
+    losses, edges, cold, k2_bound = [], 0, [], []
+    row_bytes = run.feature.shape[1] * run.feature.hot.element_size()
+    for n_id, edge_counts, loss in kept:
+        losses.append(float(loss))
+        edges += int(torch.stack(list(edge_counts)).sum())
+        valid = n_id[n_id >= 0].to(torch.int64)
+        nv = int(valid.shape[0])
+        nc = int((run.feature.feature_order[valid] >= run.feature.hot_rows).sum())
+        cold.append((nv, nc))
+        dev_bytes = (n_id.shape[0] * 4 + nv * 4 + (nv - nc) * row_bytes
+                     + n_id.shape[0] * row_bytes)
+        k2_bound.append(1e3 * max(dev_bytes / HBM_BYTES_PER_S,
+                                  nc * row_bytes / pcie_bytes_per_s))
+    del kept
+    for i, r in enumerate(rows, 1):
+        log(f"train step {i:02d}: sample {r['sample_ms']:.3f} ms, gather "
+            f"{r['gather_ms']:.3f} ms, train step {r['train_step_ms']:.3f} ms, "
+            f"loss {losses[i - 1]:.4f}")
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    expect_launches(launches, {"uniform_hop": 2 * (steps + reruns),
+                               "tiered_gather": steps},
+                    f"train: {steps} steps ({reruns} reruns)")
+    step_s = sum(sum(r.values()) for r in rows) / 1e3
+    stage = {k: statistics.median(r[k] for r in rows)
+             for k in ("sample_ms", "gather_ms", "train_step_ms")}
+    prof = profile_steps(step, batches, steps + 1,
+                         statistics.median(sum(r.values()) for r in rows))
+    parity = train_parity(run, batches[steps + 1 + PROFILED_STEPS])
+    log(f"train: {steps / wall:.4g} steps/s, {edges / wall:.4g} sampled "
+        f"edges/s, peak {peak / 2**30:.3f} GiB; medians {stage}; parity "
+        f"loss rel {parity['loss_rel_err']:.3g}")
+    return launches, {
+        "config": "examples/train_sage_torch.py defaults: synthetic "
+                  "generate_pareto_graph(232965, 100, seed=0), F=602 f32, 41 "
+                  "classes, hidden 256, 2 layers, fanouts [25, 10], batch 1024, "
+                  "cache 20%, auto caps, Adam 0.01",
+        "nodes": run.topo.node_count, "edges": run.topo.edge_count,
+        "hot_rows": run.feature.hot_rows, "setup_s": setup_s,
+        "caps": list(caps), "worst_caps": list(worst),
+        "planning_reruns": plan_reruns, "planning_launches": plan_launches,
+        "steps": steps, "reruns": reruns, "launches": launches,
+        "wall_s": wall, "steps_per_s": steps / wall,
+        "step_stage_sum_s": step_s, "sampled_edges": edges,
+        "edges_per_s": edges / wall, "peak_bytes": peak,
+        "median_ms": stage, "per_step": rows, "losses": losses,
+        "valid_rows_and_cold_rows": cold, "profile": prof,
+        "tiered_gather_bound_ms": statistics.median(k2_bound),
+        "tiered_gather_bound_share": statistics.median(k2_bound)
+        / prof["port_kernels_ms_per_step"]["gather_kernel"],
+        "pcie_h2d_bytes_per_s": pcie_bytes_per_s,
+        "cold_row_share": sum(c for _, c in cold) / sum(v for v, _ in cold),
+        "parity": parity, "card": card}
+
+
+def acceptance_phase(card):
+    """The twin's acceptance run on the card: ``--dataset planted:20000
+    --epochs 4`` with its other defaults, sampled evaluation and then
+    layer-wise; each test accuracy must clear feature-only Bayes + 0.15."""
+    from examples.train_sage_torch import main
+
+    runs = {}
+    for mode in ("sampled", "layerwise"):
+        t0 = time.time()
+        acc, ds = main(["--dataset", "planted:20000", "--epochs", "4",
+                        "--device", "cuda", "--eval", mode])
+        sync()
+        bayes = ds.meta["feature_bayes_acc"]
+        check(acc >= bayes + 0.15,
+              f"planted:20000 {mode}: test acc {acc} < feature-only Bayes "
+              f"{bayes} + 0.15")
+        runs[mode] = {"test_acc": acc, "feature_bayes_acc": bayes,
+                      "seconds": time.time() - t0}
+    return {"dataset": "planted:20000", "epochs": 4, **runs, "card": card}
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1295,6 +1549,13 @@ def main() -> int:
         f"{samp_t['window_search_ms_per_batch']:.3f} ms of it")
     samplers = {"uniform": samp_u, "weighted": samp_w, "temporal": samp_t}
 
+    # phases 8 and 9: train (the twin's main path; its launches are read there)
+    launches_t, train = train_phase(card, pcie)
+    accept = acceptance_phase(card)
+    for mode in ("sampled", "layerwise"):
+        log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
+            f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
+
     k1, k2 = "quiver_tpu/ops/pallas/fused.py:75", "quiver_tpu/ops/pallas/gather.py:28"
     k3 = "quiver_tpu/ops/pallas/fused.py:113"
     kernels = [
@@ -1311,6 +1572,7 @@ def main() -> int:
                    {"composed_ms": t_hop["composed_ms"],
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
+                    "train_launches": launches_t["uniform_hop"],
                     "library": "none: its yardstick is the composed path"},
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
@@ -1319,6 +1581,7 @@ def main() -> int:
                    {"ratio_to_library": t_tier["ratio_to_yard"],
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
+                    "train_launches": launches_t["tiered_gather"],
                     "single_table_entry": {
                         "name": "gather_rows", "path": "none (staged_gather)",
                         "launches": launches_u["gather_rows"],
@@ -1357,7 +1620,8 @@ def main() -> int:
         with open(args.report, "w") as fh:
             json.dump({"kernels": kernels, "bulk": bulk,
                        "serve": {"uniform": serve_u, "weighted": serve_w},
-                       "sampler": samplers,
+                       "sampler": samplers, "train": train,
+                       "acceptance": accept,
                        "build_s": build_s, "graph_s": graph_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -1365,6 +1629,8 @@ def main() -> int:
     print(json.dumps({"bulk": bulk, "card": card}), flush=True)
     print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w}}), flush=True)
     print(json.dumps({"sampler": samplers}), flush=True)
+    print(json.dumps({"train": {k: v for k, v in train.items() if k != "per_step"},
+                      "acceptance": accept}), flush=True)
     for k in kernels:
         k.pop("checks")
     print(json.dumps({"kernels": kernels}), flush=True)

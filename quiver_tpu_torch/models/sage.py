@@ -4,6 +4,11 @@ The port of ``quiver_tpu/models/sage.py``: per-layer
 ``W_l · mean(neighbours) + W_r · x_self`` (PyG's SAGEConv(mean)), ReLU and
 dropout between layers, a log-softmax head computed in float32. Layers are
 consumed deepest-first with ``x_target = x[..., :size[1], :]``.
+
+Training-mode dropout draws its keep mask from an explicit
+``torch.Generator`` (flax ``nn.Dropout``'s rule: keep where ``u >= p``,
+scale kept values by ``1/(1-p)``), never from torch's global generator, so
+a training step is a function of its inputs and its generator.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from torch import nn
 
 from .layers import gather_src, segment_mean_aggregate
 
-__all__ = ["GraphSAGE", "SAGEConv"]
+__all__ = ["GraphSAGE", "SAGEConv", "dropout"]
 
 
 def _compute_dtype(dtype) -> torch.dtype | None:
@@ -24,6 +29,17 @@ def _compute_dtype(dtype) -> torch.dtype | None:
         return dtype
     return {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
             "float32": torch.float32}[str(dtype)]
+
+
+def dropout(x, p: float, generator: torch.Generator):
+    """Zero each element with probability ``p``: keep where ``u >= p`` for
+    ``u ~ U[0, 1)`` drawn from ``generator``, scaling kept values by
+    ``1/(1-p)``."""
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u >= p, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
 
 
 class SAGEConv(nn.Module):
@@ -73,7 +89,12 @@ class GraphSAGE(nn.Module):
             for i in range(num_layers)
         )
 
-    def forward(self, x, adjs: Sequence):
+    def forward(self, x, adjs: Sequence, generator: torch.Generator | None = None):
+        """Log-probs of the seed rows. In training mode with ``dropout >
+        0``, ``generator`` (on ``x``'s device) draws the dropout masks."""
+        drop = self.training and self.dropout > 0
+        if drop and generator is None:
+            raise ValueError("training-mode dropout needs a generator")
         if len(adjs) != self.num_layers:
             raise ValueError(
                 f"model has {self.num_layers} layers but got {len(adjs)} adjs; "
@@ -84,6 +105,8 @@ class GraphSAGE(nn.Module):
         for i, (conv, adj) in enumerate(zip(self.convs, adjs)):
             x = conv(x, adj.edge_index, adj.size[1], adj.fanout)
             if i != self.num_layers - 1:
-                x = F.dropout(F.relu(x), self.dropout, self.training)
+                x = F.relu(x)
+                if drop:
+                    x = dropout(x, self.dropout, generator)
         # log-softmax in f32: bf16 has too little mantissa for a stable NLL
         return torch.log_softmax(x.to(torch.float32), dim=-1)

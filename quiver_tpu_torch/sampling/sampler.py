@@ -146,7 +146,17 @@ class GraphSageSampler:
       seed_capacity: padded batch size; defaults to the batch rounded up to
         a multiple of 128.
       frontier_caps: per-layer unique-node capacity; defaults to the
-        worst-case growth clamped at node_count.
+        worst-case growth clamped at node_count. ``"auto"`` sizes the caps
+        from the first call's unclipped unique counts times
+        ``auto_margin`` (rounded up to 128, clamped to the worst case,
+        never shrinking) and regrows them when a later call overflows,
+        rerunning that call with the same draws. An auto sampler pays one
+        host sync per call to read the counts. Each hop draws over (at
+        least) its worst-case rows and uses the prefix it needs, so a row's
+        draws do not depend on the caps: an auto sampler's samples equal a
+        worst-case sampler's with the same seed. (The JAX package bounds
+        its cache of compiled programs, one per plan; the port compiles
+        nothing, so it has no such cache.)
       seed: base seed; call ``c``'s layer ``l`` draws from a generator
         seeded by ``(seed, c, l)``.
       with_eid: populate ``Adj.e_id`` with per-edge ids.
@@ -156,6 +166,10 @@ class GraphSageSampler:
       time_window: ``(lo, hi)``: every hop draws only from edges with
         ``lo <= t <= hi`` (needs ``csr_topo.set_edge_time`` and GPU mode);
         excludes ``weighted``.
+      auto_margin: headroom factor of ``"auto"`` caps (>= 1).
+
+    ``reruns`` counts the calls that an auto sampler ran again under
+    regrown caps.
     """
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
@@ -163,7 +177,7 @@ class GraphSageSampler:
                  seed_capacity: int | None = None,
                  frontier_caps: Sequence[int] | None = None, seed: int = 0,
                  with_eid: bool = False, weighted: bool = False,
-                 time_window=None):
+                 time_window=None, auto_margin: float = 1.25):
         self.device = resolve_device(device)
         self.csr_topo = csr_topo
         self.mode = SampleMode.parse(mode)
@@ -192,7 +206,13 @@ class GraphSageSampler:
                 "time_window requires edge timestamps; call "
                 "csr_topo.set_edge_time() or pass edge_time= to CSRTopo"
             )
-        if frontier_caps is not None:
+        self._auto_caps = isinstance(frontier_caps, str) and frontier_caps == "auto"
+        self._auto_margin = float(auto_margin)
+        if self._auto_margin < 1.0:
+            raise ValueError(f"auto_margin must be >= 1.0, got {auto_margin}")
+        if self._auto_caps:
+            frontier_caps = None  # the first call plans from the worst case
+        elif frontier_caps is not None:
             frontier_caps = tuple(int(c) for c in frontier_caps)
             if len(frontier_caps) != len(self.sizes):
                 raise ValueError(
@@ -205,6 +225,7 @@ class GraphSageSampler:
         self._seed_capacity = seed_capacity
         self.seed = int(seed)
         self._call = 0
+        self.reruns = 0
         self.topo = self._place()
         self._topo_version = int(csr_topo.version)
 
@@ -253,6 +274,21 @@ class GraphSageSampler:
             return self._frontier_caps
         return self._worst_caps(seed_cap)
 
+    def _plan_auto(self, seed_cap: int, observed: Sequence[int]) -> None:
+        """Set the caps to margin x the observed unclipped unique counts
+        (seeds outward), rounded up to 128, at least the previous layer's
+        cap, never below the caps already planned, at most the worst case."""
+        worst = self._worst_caps(seed_cap)
+        old = self._frontier_caps or (0,) * len(worst)
+        caps, prev = [], seed_cap
+        for w, o, c in zip(worst, observed, old):
+            cap = _round_up(int(self._auto_margin * o), 128)
+            cap = max(cap, prev, c, 128)
+            cap = min(cap, w)
+            caps.append(cap)
+            prev = cap
+        self._frontier_caps = tuple(caps)
+
     # -- public API ----------------------------------------------------------
 
     def sample(self, input_nodes, draw_fn=None) -> SampleOutput:
@@ -280,20 +316,51 @@ class GraphSageSampler:
         padded[:batch] = seeds
         self._call += 1
         call = self._call
+        # each hop draws over (at least) its worst-case rows and takes the
+        # prefix it needs, so a row's draws do not depend on the caps: an
+        # auto sampler's rerun repeats them
+        rows = (cap,) + tuple(map(max, self._worst_caps(cap), self._caps_for(cap)))
 
         def draw(l, deg):
             return torch.as_tensor(draw_fn(l, deg), device=self.device)
 
         def bits(l, shape):
-            return hop_draws(shape, self.sizes[l], seeded_generator(
+            draws = hop_draws((rows[l],), self.sizes[l], seeded_generator(
                 self.device, self.seed, call, l), weighted=self.weighted)
+            if self.weighted:
+                return draws[:shape[0]]
+            return tuple(d[:shape[0]] for d in draws)
 
         seam = {"draw": draw} if draw_fn is not None else {"bits": bits}
-        n_id, n_count, adjs, overflow, edge_counts, frontier_counts = (
-            multilayer_sample(
-                self.topo, torch.from_numpy(padded).to(self.device), batch,
-                self.sizes, self._caps_for(cap), with_eid=self.with_eid,
-                weighted=self.weighted, time_window=self.time_window, **seam,
-            ))
+        dev_seeds = torch.from_numpy(padded).to(self.device)
+
+        def run():
+            return multilayer_sample(
+                self.topo, dev_seeds, batch, self.sizes, self._caps_for(cap),
+                with_eid=self.with_eid, weighted=self.weighted,
+                time_window=self.time_window, **seam)
+
+        n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run()
+        if self._auto_caps:
+            first_plan = self._frontier_caps is None
+            # regrowth converges in <= len(sizes) rounds (each round's caps
+            # cover that round's counts); the bound guards the saturated
+            # case, where duplicate seeds overflow even the worst case and
+            # the clipped result and its overflow stand
+            for _ in range(len(self.sizes) + 2):
+                # one host sync: the overflow and the unclipped counts
+                ovf, *counts = torch.stack(
+                    [overflow, *frontier_counts]).tolist()
+                if not first_plan and ovf == 0:
+                    break
+                before = self._frontier_caps
+                self._plan_auto(cap, counts[::-1])
+                if first_plan and ovf == 0:
+                    break  # the worst-case run stands; later calls fit
+                if not first_plan and self._frontier_caps == before:
+                    break  # saturated at the worst case
+                n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run()
+                self.reruns += 1
+                first_plan = False
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)

@@ -3,7 +3,14 @@ card. Marked ``cuda``; each test skips without a CUDA device. Run on a GPU
 machine with ``python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda``.
 
 Tolerance: bitwise (the kernels move integers or bytes; K3's one float
-product and compares are the plain version's, op for op).
+product and compares are the plain version's, op for op). The training
+step on the card against the same step on the CPU (TF32 off, dropout 0,
+the same parameters and inputs): the loss within 1e-5 relative, each
+gradient within 1e-4 x its max |g| (cuBLAS and the CPU's GEMMs sum in
+different orders). ``full_neighbor_mean`` on the card against the CPU:
+within 1e-5 relative and 1e-6 absolute (the card's accumulate may group
+and round its float sums differently); HOST against HBM placement:
+bitwise.
 """
 
 import numpy as np
@@ -254,3 +261,69 @@ def test_tiered_gather_refuses_pageable_cold_table(cuda):
     hot = torch.zeros((5, 4), device=cuda)
     with pytest.raises(ValueError, match="pinned"):
         tiered_gather(ids, None, 5, hot, torch.zeros((5, 4)))
+
+
+def _train_grads(model, x, adjs, labels, mask):
+    """One ``make_train_step`` call at SGD lr 0: (loss, gradients)."""
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))
+    loss = step(x, adjs, labels, mask)
+    return float(loss), [p.grad.detach().cpu() for p in model.parameters()]
+
+
+@pytest.mark.parametrize("batch,fanout", [(64, (10, 5)), (256, (25, 10)), (128, (10, 5, 3))])
+def test_train_step_card_matches_cpu(cuda, batch, fanout):
+    """A batch sampled and looked up on the card (K1's fused hop, K2's
+    tiered lookup) trains one step on the card; the same x, Adjs, labels
+    and parameters, copied to the CPU, train the same step there."""
+    import copy
+
+    from quiver_tpu_torch import Feature, GraphSAGE, GraphSageSampler
+    from quiver_tpu_torch.datasets import planted_partition
+    from quiver_tpu_torch.parallel.train import init_model
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ds = planted_partition(n=3000, num_classes=6, feature_dim=40, seed=1)
+        feat = Feature(device_cache_size=600 * 40 * 4, csr_topo=ds.topo,
+                       device=cuda).from_cpu_tensor(ds.features)
+        sampler = GraphSageSampler(ds.topo, list(fanout), device=cuda, seed=3,
+                                   seed_capacity=batch, frontier_caps="auto")
+        out = sampler.sample(ds.train_idx[:batch])
+        x = feat[out.n_id]
+        seed_ids = out.n_id[:batch]
+        labels = torch.from_numpy(ds.labels).to(cuda)[seed_ids.clamp(min=0)]
+        mask = seed_ids >= 0
+        model = GraphSAGE(40, 64, 6, num_layers=len(fanout), dropout=0.0)
+        init_model(model, torch.Generator().manual_seed(0))
+        cpu_model = copy.deepcopy(model)
+        loss_g, grads_g = _train_grads(model.to(cuda), x, out.adjs, labels, mask)
+        loss_c, grads_c = _train_grads(cpu_model, x.cpu(), [a.to("cpu") for a in out.adjs],
+                                       labels.cpu(), mask.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.isfinite(loss_g)
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for g, c in zip(grads_g, grads_c):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+def test_layerwise_host_equals_hbm_on_card(cuda):
+    """The HOST placement reads the edge array over UVA (K2 single-table
+    entry) and must equal the HBM placement bitwise on the card."""
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.models.inference import full_neighbor_mean
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    topo = CSRTopo(edge_index=generate_pareto_graph(5000, 20.0, seed=2))
+    x = torch.randn(topo.node_count, 33, device=cuda)
+    hbm = full_neighbor_mean(topo, x, chunk=4096, mode="HBM", device=cuda)
+    before = gather_rows.launches
+    host = full_neighbor_mean(topo, x, chunk=4096, mode="HOST", device=cuda)
+    assert gather_rows.launches > before
+    assert torch.equal(host, hbm)
+    cpu = full_neighbor_mean(topo, x.cpu(), chunk=4096, device="cpu")
+    assert torch.allclose(hbm.cpu(), cpu, rtol=1e-5, atol=1e-6)
