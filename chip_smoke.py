@@ -11,14 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` each, in parallel.
 3. kernel checks: hold every kernel entry bitwise against its plain
    PyTorch version on the card (K1's select and fused uniform hop, K2's
-   single-table and tiered gathers, K3's search-and-select and fused
-   weighted hop), on the products-scale graph (with exp(N(0,1)) edge
-   weights) and feature tables (and wide f32 rows of 1 KB and 2.4 KB), a
-   small graph with zero-weight rows and one whose rows take every degree
-   of 0-40 and some up to 3232, device and pinned host (UVA) tables; then time each
-   entry at the serving path's shapes and in bulk, in turns with its
-   yardstick (yardstick, kernel, kernel, yardstick) where it has one,
-   beside its bound.
+   single-table and tiered gathers and the int8 dequantising tiered
+   gather, K3's search-and-select and fused weighted hop), on the
+   products-scale graph (with exp(N(0,1)) edge weights) and feature tables
+   (and wide f32 rows of 1 KB and 2.4 KB; int8 stores at F = 100, 602 and
+   7, hot-only, cold-only and split, with and without the degree reorder),
+   a small graph with zero-weight rows and one whose rows take every degree
+   of 0-40 and some up to 3232, device and pinned host (UVA) tables, and
+   K2's lookups also at ids past the table (which read its last row); then
+   time each entry at the serving path's shapes and in bulk, in turns with
+   its yardstick (yardstick, kernel, kernel, yardstick) where it has one,
+   beside its bound, and the int8 lookup at ``bench_feature.py``'s
+   configuration (65,536 uniform ids, a 20%-of-f32 budget stored as int8)
+   in turns with the same lookup in stock torch ops.
 4. serve, uniform: the full-width serving configuration (products-shaped
    graph, F=100, GraphSAGE hidden 256 / 47 classes / 2 layers, fanouts
    [5, 5], max_batch 8) answers closed-loop point queries with every kernel
@@ -31,7 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. serve, weighted: the same server over ``GraphSageSampler(weighted=True)``
    (every hop one launch of K3's fused entry, none on K1; the oracle runs
    K3's search-and-select), with the same checks, and the same stream
-   again from a UVA weighted topology.
+   again from a UVA weighted topology. Then the uniform server over the
+   tiered store stored as int8 (612,500 rows on the card, the rest pinned;
+   every lookup one launch of K2's dequantising entry), with the same
+   checks.
 6. sampler, uniform and weighted (K1's and K3's fused hops):
    ``bench_sampler``'s configuration
    (fanouts [15, 10, 5], batch 2048, worst-case caps) samples a few
@@ -54,10 +62,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``uniform_hop`` and 1 ``tiered_gather`` launches per step (2 more per
    regrowth rerun, counted apart); then the card's train step against the
    CPU's on one full-width batch (dropout 0, TF32 off): loss within 1e-5
-   relative, each gradient within 1e-4 x its max |g|.
+   relative, each gradient within 1e-4 x its max |g|; and K2's lookup of
+   one step's ids timed in turns with the same lookup in stock torch ops.
+   Then the same configuration stored as int8 (``--int8``), twice: (a) under
+   the same byte budget (about four times the rows on the card) and (b)
+   with the f32 run's hot rows; each with exactly 2 ``uniform_hop`` and 1
+   ``tiered_gather_dequant`` launches per step.
 9. train, acceptance: the twin's ``--dataset planted:20000 --epochs 4``
-   on the card, with sampled and then layer-wise evaluation; each test
-   accuracy must clear the feature-only Bayes accuracy + 0.15.
+   on the card, with sampled and then layer-wise evaluation, then sampled
+   once more over an int8 store; each test accuracy must clear the
+   feature-only Bayes accuracy + 0.15.
 
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -83,9 +97,10 @@ PRODUCTS_AVG_DEG = 50.5
 WIDE_ROWS = 1_000_000  # rows of the wide-row gather tables
 PROFILED_STEPS = 5  # training steps traced by torch.profiler
 KERNELS = ("select", "gather", "wselect")
-# the wrappers, each with its launch count: K1's two entries, K2's two, K3's two
-ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather", "wselect",
-           "weighted_hop")
+# the wrappers, each with its launch count: K1's two entries, K2's three,
+# K3's two
+ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather",
+           "tiered_gather_dequant", "wselect", "weighted_hop")
 SELECT_BOUND_RULE = (
     "8 B start + 4 B count per row; 4 B offset and 4 B output per lane; one "
     "32 B sector for each distinct sector of indices that the selected "
@@ -104,7 +119,8 @@ GATHER_BOUND_RULE = (
     "each hot row read once and each output row written once, at 3.35 "
     "TB/s; cold rows (pinned host, read over UVA) at the pinned-host -> "
     "device copy rate measured in the same call; the bound is the larger "
-    "of the two times"
+    "of the two times. int8 stores: a stored row is F code bytes, each "
+    "valid id also reads its 4 B scale, and each output row is 4F bytes"
 )
 WSELECT_BOUND_RULE = (
     "8 B start + 4 B deg per row; 4 B u and two 4 B outputs per lane; one "
@@ -186,10 +202,12 @@ def kernel_fns():
     """The kernel entries' wrappers, by name; each carries a launch count."""
     from quiver_tpu_torch.ops.kernels.fused import (select, uniform_hop,
                                                     weighted_hop, wselect)
-    from quiver_tpu_torch.ops.kernels.gather import gather_rows, tiered_gather
+    from quiver_tpu_torch.ops.kernels.gather import (gather_rows, tiered_gather,
+                                                     tiered_gather_dequant)
 
     return {"select": select, "uniform_hop": uniform_hop,
             "gather_rows": gather_rows, "tiered_gather": tiered_gather,
+            "tiered_gather_dequant": tiered_gather_dequant,
             "wselect": wselect, "weighted_hop": weighted_hop}
 
 
@@ -327,10 +345,16 @@ def hop_checks(topo_np, dev_topo, uva_topo, rng):
     return results
 
 
+def past_the_table(ids, n: int) -> None:
+    """Put ids of ``n`` and more (which read row ``n - 1``) in the first
+    lanes of ``ids``."""
+    ids[:3] = [n, n + 5, 2**31 - 1][:len(ids)]
+
+
 def gather_checks(tables, rng):
     """K2's single-table entry against gather_rows_plain: f32/bf16/int8
     tables, device and pinned host, wide f32 rows, a ragged id count with
-    -1 lanes, and the keep-out form."""
+    -1 lanes and ids past the table, and the keep-out form."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
@@ -342,6 +366,7 @@ def gather_checks(tables, rng):
         for count in (100_003, 384, 7):
             ids = rng.integers(0, n, count).astype("int32")
             ids[rng.random(count) < 0.1] = -1
+            past_the_table(ids, n)
             ids_d = torch.from_numpy(ids).to(dev)
             want = gather_rows_plain(tab, ids_d)
             base = torch.full_like(want, 3)
@@ -357,30 +382,60 @@ def gather_checks(tables, rng):
 
 
 def tiered_checks(stores, rng):
-    """K2's tiered entry against tiered_gather_plain on feature stores
-    (hot-only, hot + pinned cold with the degree reorder, cold-only; f32
-    and bf16), for ragged id counts with -1 lanes."""
+    """K2's tiered entries against tiered_gather_plain on feature stores
+    (hot-only, hot + pinned cold with the degree reorder, cold-only; f32,
+    bf16, and int8 through the dequantising entry), for ragged id counts
+    with -1 lanes and ids past the table."""
     import torch
 
-    from quiver_tpu_torch.ops.kernels.gather import tiered_gather, tiered_gather_plain
+    from quiver_tpu_torch.ops.kernels.gather import (tiered_gather, tiered_gather_dequant,
+                                                     tiered_gather_plain)
 
     results = []
     for name, feat in stores:
         n = feat.shape[0]
+        entry = tiered_gather if feat.scale is None else tiered_gather_dequant
+        extra = () if feat.scale is None else (feat.scale,)
         for count in (100_003, 384, 7):
             ids = rng.integers(0, n, count).astype("int32")
             ids[rng.random(count) < 0.1] = -1
+            past_the_table(ids, n)
             args = (torch.from_numpy(ids).to("cuda"), feat.feature_order,
-                    feat.hot_rows, feat.hot, feat.cold)
+                    feat.hot_rows, feat.hot, feat.cold) + extra
             want = tiered_gather_plain(*args)
-            got = tiered_gather(*args)
+            got = entry(*args)
             sync()
             ok = equal(got, want)
             err = float((got.float() - want.float()).abs().max()) if count else 0.0
             results.append({"store": name, "ids": count, "hot_rows": feat.hot_rows,
                             "match": ok, "max_abs_err": err})
-            check(ok, f"tiered_gather {name} ids={count}")
+            check(ok, f"{entry.__name__} {name} ids={count}")
     return results
+
+
+def int8_stores(x_small, small_topo):
+    """int8 stores of the small graph at F = 100, 602 and 7: hot-only,
+    cold-only and split, with and without the degree reorder (row 5 all
+    zeros: scale 0)."""
+    import numpy as np
+
+    from quiver_tpu_torch import Feature
+
+    n = x_small.shape[0]
+    rng = np.random.default_rng(7)
+    stores = []
+    for F in (100, 602, 7):
+        x = np.array(x_small[:, :F]) if F <= x_small.shape[1] else rng.standard_normal(
+            (n, F), dtype=np.float32)
+        x[5] = 0.0
+        for label, hot, topo in (("hot-only", n, None), ("cold-only", 0, None),
+                                 ("cold-only, reorder", 0, small_topo),
+                                 ("split", n // 4, None),
+                                 ("split, reorder", n // 4, small_topo)):
+            stores.append((f"int8 F={F} {label}", Feature(
+                device_cache_size=4 * n + hot * F, csr_topo=topo, dtype="int8",
+                device="cuda").from_cpu_tensor(x)))
+    return stores
 
 
 def wselect_cases(dev_topo, uva_topo, seeds, k, g, label):
@@ -713,17 +768,9 @@ def time_tiered(feat, ids, pcie_bytes_per_s, iters: int = 200):
               "tiered_gather == two-launch lookup")
     t = in_turns(lambda: tiered_gather(*args), yard, iters)
     plain_ms = cuda_ms(lambda: tiered_gather_plain(*args), max(iters // 20, 5), 3)
-    valid = ids >= 0
-    rows = ids[valid].to(torch.int64)
-    if feat.feature_order is not None:
-        rows = feat.feature_order[rows].to(torch.int64)
-    n_cold = int((rows >= feat.hot_rows).sum())
-    n_valid = int(valid.sum())
+    _, n_cold, dev_bytes, cold_bytes = lookup_bytes(feat, ids)
     B = ids.shape[0]
     row_bytes = feat.shape[1] * (feat.hot if feat.hot is not None else feat.cold).element_size()
-    dev_bytes = (B * 4 + (n_valid * 4 if feat.feature_order is not None else 0)
-                 + (n_valid - n_cold) * row_bytes + B * row_bytes)
-    cold_bytes = n_cold * row_bytes
     bound_s = max(dev_bytes / HBM_BYTES_PER_S, cold_bytes / pcie_bytes_per_s)
     return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
             "yardstick": yard_name, "yard_ms": t["yard_ms"],
@@ -733,6 +780,86 @@ def time_tiered(feat, ids, pcie_bytes_per_s, iters: int = 200):
             "device_bytes": dev_bytes,
             "cold_bytes": cold_bytes, "cold_rows": n_cold, "ids": B,
             "row_bytes": row_bytes}
+
+
+def staged_lookup(n_id, feat, buf):
+    """The tiered lookup in stock torch ops: translate on the card, a host
+    ``index_select`` of the cold rows into the pinned buffer ``buf``, one
+    ``non_blocking`` copy to the card, the hot rows' ``index_select``, the
+    merge and, for int8 codes, the multiply by their scales. The same
+    function as K2's tiered entries (a split store)."""
+    import torch
+
+    valid = n_id >= 0
+    t = n_id.clamp(0, feat.shape[0] - 1).to(torch.int64)
+    if feat.feature_order is not None:
+        t = feat.feature_order[t].to(torch.int64)
+    sel = torch.nonzero(valid & (t >= feat.hot_rows)).squeeze(1)
+    cold_rows = (t[sel] - feat.hot_rows).cpu()  # waits for the last copy too
+    staged = buf[:cold_rows.shape[0]]
+    torch.index_select(feat.cold, 0, cold_rows, out=staged)
+    rows = torch.index_select(feat.hot, 0, t.clamp(max=feat.hot_rows - 1))
+    rows[sel] = staged.to(n_id.device, non_blocking=True)
+    if feat.scale is not None:
+        rows = rows.float() * feat.scale[t][:, None]
+    return torch.where(valid[:, None], rows, 0)
+
+
+def lookup_bytes(feat, n_id):
+    """(valid ids, cold ids, device bytes, cold bytes) of one tiered lookup
+    of ``n_id`` under GATHER_BOUND_RULE."""
+    import torch
+
+    B = n_id.shape[0]
+    valid = n_id[n_id >= 0].clamp(max=feat.shape[0] - 1).to(torch.int64)
+    if feat.feature_order is not None:
+        valid = feat.feature_order[valid].to(torch.int64)
+    nv = int(valid.shape[0])
+    nc = int((valid >= feat.hot_rows).sum())
+    row_bytes = feat.shape[1] * (feat.hot if feat.hot is not None else feat.cold).element_size()
+    out_bytes = feat.shape[1] * 4 if feat.scale is not None else row_bytes
+    dev_bytes = (B * 4 + (nv * 4 if feat.feature_order is not None else 0)
+                 + (nv * 4 if feat.scale is not None else 0)
+                 + (nv - nc) * row_bytes + B * out_bytes)
+    return nv, nc, dev_bytes, nc * row_bytes
+
+
+def time_lookup(feat, ids, pcie_bytes_per_s, iters: int, reps: int):
+    """K2's tiered entry (the dequantising one for an int8 store) on a
+    split store, in turns with :func:`staged_lookup`, beside its plain
+    version and its GATHER_BOUND_RULE bound."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import (tiered_gather, tiered_gather_dequant,
+                                                     tiered_gather_plain)
+
+    args = (ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold)
+    if feat.scale is not None:
+        args, entry = args + (feat.scale,), tiered_gather_dequant
+    else:
+        entry = tiered_gather
+    buf = torch.empty((ids.shape[0], feat.shape[1]), dtype=feat.cold.dtype).pin_memory()
+    got = entry(*args)
+    check(equal(got, staged_lookup(ids, feat, buf)), f"{entry.__name__} == staged lookup")
+    check(equal(got, tiered_gather_plain(*args)), f"{entry.__name__} == plain")
+    del got
+    t = in_turns(lambda: entry(*args), lambda: staged_lookup(ids, feat, buf), iters, reps)
+    plain_ms = cuda_ms(lambda: tiered_gather_plain(*args), max(iters // 5, 2), 3)
+    nv, nc, dev_bytes, cold_bytes = lookup_bytes(feat, ids)
+    bound_s = max(dev_bytes / HBM_BYTES_PER_S, cold_bytes / pcie_bytes_per_s)
+    return {"entry": entry.__name__, "ms": t["ms"], "ms_turns": t["ms_turns"],
+            "plain_ms": plain_ms, "yardstick": "staged lookup in stock torch ops "
+            "(host index_select of the cold rows into a pinned buffer, one "
+            "non_blocking copy, hot index_select, merge"
+            + (", multiply)" if feat.scale is not None else ")"),
+            "yard_ms": t["yard_ms"], "yard_turns": t["yard_turns"],
+            "ratio_to_yard": t["ratio"], "library_ms": None,
+            "bound_ms": bound_s * 1e3, "bound_share": bound_s * 1e3 / t["ms"],
+            "bound_by": "bytes", "device_bytes": dev_bytes, "cold_bytes": cold_bytes,
+            "ids": int(ids.shape[0]), "valid_ids": nv, "cold_rows": nc,
+            "hot_rows": feat.hot_rows, "rows": feat.shape[0],
+            "stored_row_bytes": feat.shape[1] * feat.cold.element_size(),
+            "iters": iters, "reps": reps}
 
 
 def wselect_sectors(dev_topo, start, deg, u, k):
@@ -856,12 +983,12 @@ def closed_loop(server, nodes, top):
     return done
 
 
-def ladder_parity(server, picks, hop: str, composed: str):
+def ladder_parity(server, picks, hop: str, composed: str, lookup: str):
     """Ladder lanes against the single-query oracle at every bucket, full
     and with a padded tail: ids, edges and log-probs bitwise. Counts the
-    launches: per group one ``hop`` launch per layer and one lookup, per
-    lane the oracle's two samples (``composed`` on each layer) and one
-    lookup."""
+    launches: per group one ``hop`` launch per layer and one ``lookup``,
+    per lane the oracle's two samples (``composed`` on each layer) and one
+    ``lookup``."""
     import numpy as np
     import torch
 
@@ -898,7 +1025,7 @@ def ladder_parity(server, picks, hop: str, composed: str):
     launches = read_launches()
     expect_launches(launches, {hop: layers * groups_run,
                                composed: 2 * layers * lanes,
-                               "tiered_gather": groups_run + lanes},
+                               lookup: groups_run + lanes},
                     "ladder parity")
     return {"ids_edges": "bitwise", "logp": "bitwise", "lanes": lanes,
             "groups": groups_run, "launches": launches}
@@ -906,9 +1033,10 @@ def ladder_parity(server, picks, hop: str, composed: str):
 
 def serve_phase(args, topo, feat_hot, variants, card, weighted):
     """Serve ``args.requests`` closed-loop queries over the [5, 5] sampler
-    (weighted or uniform), with every kernel launch counted, and check the
-    answers and the launches (per batch: one hop launch per layer, K1's or
-    K3's fused hop, and one K2 tiered lookup; nothing else); then serve
+    (weighted or uniform) from the store ``feat_hot``, with every kernel
+    launch counted, and check the answers and the launches (per batch: one
+    hop launch per layer, K1's or K3's fused hop, and one K2 tiered lookup,
+    the dequantising entry for an int8 store; nothing else); then serve
     the same stream again through each of ``variants`` (``(label, sampler
     kwargs or None to reuse the sampler, store)``), which must answer
     bitwise the same with the same launches."""
@@ -947,12 +1075,13 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
     check(bool(np.all(np.abs(sums - 1.0) < 1e-4)), "exp(log-probs) sums to 1")
     check(all(r.overflow == 0 for r in reqs), "overflow == 0")
     hop = "weighted_hop" if weighted else "uniform_hop"
-    expect_launches(launches, {hop: 2 * batches, "tiered_gather": batches},
-                    "serve")
+    lookup = "tiered_gather" if feat_hot.scale is None else "tiered_gather_dequant"
+    expect_launches(launches, {hop: 2 * batches, lookup: batches}, "serve")
 
     picks = [(r.node, r.seq) for r in
              (reqs[i] for i in rng.choice(len(reqs), 16, replace=False))]
-    parity = ladder_parity(server, picks, hop, "wselect" if weighted else "select")
+    parity = ladder_parity(server, picks, hop, "wselect" if weighted else "select",
+                           lookup)
 
     reruns = {}
     for label, kwargs, store in variants:
@@ -964,7 +1093,7 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
         got = closed_loop(other, nodes, 8)
         runs = len(other.timeline.samples["sample"])
         reruns[label] = {"queries": len(got), "batches": runs, **read_launches()}
-        expect_launches(read_launches(), {hop: 2 * runs, "tiered_gather": runs},
+        expect_launches(read_launches(), {hop: 2 * runs, lookup: runs},
                         f"{label} rerun")
         check(len(got) == len(reqs) and all(
             np.array_equal(a.result, b.result) for a, b in zip(got, reqs)),
@@ -975,6 +1104,8 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
               for k, v in st.items()}
     return launches, {
         "sampler": "weighted" if weighted else "uniform",
+        "store": {"dtype": str(feat_hot.dtype), "hot_rows": feat_hot.hot_rows,
+                  "rows": feat_hot.shape[0]},
         "queries": len(reqs), "batches": batches, "qps": len(reqs) / wall,
         "wall_s": wall, "launches": launches, "stages": stages,
         "parity": parity, "bitwise_reruns_launches": reruns, "card": card,
@@ -1207,7 +1338,7 @@ def profile_steps(step, batches, first, median_step_ms):
     busy = sum(kernels.values())
     check(busy > 0 and len(spans) == 3, f"the profiler saw the card: spans {spans}")
     ours = {name: sum(ms for key, ms in kernels.items() if name in key)
-            for name in ("uniform_hop_kernel", "gather_kernel")}
+            for name in ("uniform_hop_kernel", "gather_kernel", "gather_dequant_kernel")}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     log(f"train profile: device busy {busy:.3f} ms per step of {median_step_ms:.3f}; "
         f"stage spans {spans}")
@@ -1218,15 +1349,19 @@ def profile_steps(step, batches, first, median_step_ms):
             "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
 
 
-def train_phase(card, pcie_bytes_per_s, steps: int = 20):
+def train_phase(card, pcie_bytes_per_s, steps: int = 20, int8: bool = False,
+                budget=None, parity: bool = True):
     """The twin's default configuration (``examples/train_sage_torch.py``):
     the Reddit-scale synthetic graph, F=602 f32, 41 classes, GraphSAGE 256
     x 2, fanouts [25, 10], batch 1024, a 20% degree-ordered cache on the
-    card and the rest pinned on the host, auto caps, Adam at 0.01. One
-    warm-up step, then ``steps`` timed steps, each stage ending in a
-    synchronise; exact launches; then card-vs-CPU step parity. K2's
-    lookup is held to GATHER_BOUND_RULE with the pinned-host rate
-    ``pcie_bytes_per_s`` measured in phase 3."""
+    card and the rest pinned on the host, auto caps, Adam at 0.01; with
+    ``int8`` the store holds int8 codes (``--int8``), under ``budget``
+    bytes when given. One warm-up step, then ``steps`` timed steps, each
+    stage ending in a synchronise; exact launches; K2's lookup of one
+    step's ids in turns with the staged lookup in stock torch ops; then
+    (with ``parity``) card-vs-CPU step parity. K2's lookup is held to
+    GATHER_BOUND_RULE with the pinned-host rate ``pcie_bytes_per_s``
+    measured in phase 3."""
     import math
 
     import numpy as np
@@ -1237,10 +1372,11 @@ def train_phase(card, pcie_bytes_per_s, steps: int = 20):
     from examples.train_sage_torch import parse_args, setup
     from quiver_tpu_torch.ops.sample import seeded_generator
 
-    args = parse_args(["--device", "cuda"])
+    args = parse_args(["--device", "cuda"] + (["--int8"] if int8 else []))
+    lookup = "tiered_gather_dequant" if int8 else "tiered_gather"
     t0 = time.time()
     reset_launches()
-    run = setup(args)  # its first sample plans the auto caps
+    run = setup(args, budget=budget)  # its first sample plans the auto caps
     sync()
     setup_s = time.time() - t0
     plan_launches, plan_reruns = read_launches(), run.sampler.reruns
@@ -1248,8 +1384,9 @@ def train_phase(card, pcie_bytes_per_s, steps: int = 20):
                     "train: the planning call")
     worst = run.sampler._worst_caps(args.batch)
     caps = run.sampler._frontier_caps
-    log(f"train set-up {setup_s:.1f}s; auto caps {caps} (worst case {worst}), "
-        f"{plan_reruns} reruns")
+    log(f"train{' int8' if int8 else ''} set-up {setup_s:.1f}s; "
+        f"{run.feature.hot_rows} hot rows; auto caps {caps} (worst case "
+        f"{worst}), {plan_reruns} reruns")
 
     # the batches of two epochs of the twin's shuffles: warm-up, timed,
     # profiled and parity steps
@@ -1298,43 +1435,44 @@ def train_phase(card, pcie_bytes_per_s, steps: int = 20):
     reruns = run.sampler.reruns - reruns0
     # per step: its loss, sampled edges, valid and cold rows, and the
     # GATHER_BOUND_RULE bound of its lookup
-    losses, edges, cold, k2_bound = [], 0, [], []
-    row_bytes = run.feature.shape[1] * run.feature.hot.element_size()
+    losses, edges, cold, k2_bound, cold_bytes = [], 0, [], [], []
     for n_id, edge_counts, loss in kept:
         losses.append(float(loss))
         edges += int(torch.stack(list(edge_counts)).sum())
-        valid = n_id[n_id >= 0].to(torch.int64)
-        nv = int(valid.shape[0])
-        nc = int((run.feature.feature_order[valid] >= run.feature.hot_rows).sum())
+        nv, nc, dev_bytes, cb = lookup_bytes(run.feature, n_id)
         cold.append((nv, nc))
-        dev_bytes = (n_id.shape[0] * 4 + nv * 4 + (nv - nc) * row_bytes
-                     + n_id.shape[0] * row_bytes)
-        k2_bound.append(1e3 * max(dev_bytes / HBM_BYTES_PER_S,
-                                  nc * row_bytes / pcie_bytes_per_s))
+        cold_bytes.append(cb)
+        k2_bound.append(1e3 * max(dev_bytes / HBM_BYTES_PER_S, cb / pcie_bytes_per_s))
+    last_n_id = kept[-1][0]
     del kept
     for i, r in enumerate(rows, 1):
         log(f"train step {i:02d}: sample {r['sample_ms']:.3f} ms, gather "
             f"{r['gather_ms']:.3f} ms, train step {r['train_step_ms']:.3f} ms, "
             f"loss {losses[i - 1]:.4f}")
     check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
-    expect_launches(launches, {"uniform_hop": 2 * (steps + reruns),
-                               "tiered_gather": steps},
+    expect_launches(launches, {"uniform_hop": 2 * (steps + reruns), lookup: steps},
                     f"train: {steps} steps ({reruns} reruns)")
     step_s = sum(sum(r.values()) for r in rows) / 1e3
     stage = {k: statistics.median(r[k] for r in rows)
              for k in ("sample_ms", "gather_ms", "train_step_ms")}
     prof = profile_steps(step, batches, steps + 1,
                          statistics.median(sum(r.values()) for r in rows))
-    parity = train_parity(run, batches[steps + 1 + PROFILED_STEPS])
-    log(f"train: {steps / wall:.4g} steps/s, {edges / wall:.4g} sampled "
-        f"edges/s, peak {peak / 2**30:.3f} GiB; medians {stage}; parity "
-        f"loss rel {parity['loss_rel_err']:.3g}")
-    return launches, {
+    k2_ms = prof["port_kernels_ms_per_step"][
+        "gather_dequant_kernel" if int8 else "gather_kernel"]
+    # K2 and the staged lookup in stock torch ops on the last timed step's ids
+    yard = time_lookup(run.feature, last_n_id.to(torch.int32), pcie_bytes_per_s, 10, 5)
+    log(f"train lookup ({lookup}): {yard['ms']:.3f} ms, staged lookup in torch "
+        f"ops {yard['yard_ms']:.3f} ms, bound {yard['bound_ms']:.3f} ms")
+    result = {
         "config": "examples/train_sage_torch.py defaults: synthetic "
                   "generate_pareto_graph(232965, 100, seed=0), F=602 f32, 41 "
                   "classes, hidden 256, 2 layers, fanouts [25, 10], batch 1024, "
-                  "cache 20%, auto caps, Adam 0.01",
+                  "cache 20%, auto caps, Adam 0.01"
+                  + (", stored as int8 (--int8)" if int8 else "")
+                  + (f", budget {budget} B" if budget is not None else ""),
+        "storage": str(run.feature.dtype), "budget_bytes": run.feature.cache_budget,
         "nodes": run.topo.node_count, "edges": run.topo.edge_count,
+        "feature_dim": run.feature.shape[1],
         "hot_rows": run.feature.hot_rows, "setup_s": setup_s,
         "caps": list(caps), "worst_caps": list(worst),
         "planning_reruns": plan_reruns, "planning_launches": plan_launches,
@@ -1344,32 +1482,48 @@ def train_phase(card, pcie_bytes_per_s, steps: int = 20):
         "edges_per_s": edges / wall, "peak_bytes": peak,
         "median_ms": stage, "per_step": rows, "losses": losses,
         "valid_rows_and_cold_rows": cold, "profile": prof,
+        "k2_device_ms_per_step": k2_ms,
+        "cold_rows_per_step": statistics.median(c for _, c in cold),
+        "cold_bytes_per_step": statistics.median(cold_bytes),
         "tiered_gather_bound_ms": statistics.median(k2_bound),
-        "tiered_gather_bound_share": statistics.median(k2_bound)
-        / prof["port_kernels_ms_per_step"]["gather_kernel"],
+        "tiered_gather_bound_share": statistics.median(k2_bound) / k2_ms,
         "pcie_h2d_bytes_per_s": pcie_bytes_per_s,
         "cold_row_share": sum(c for _, c in cold) / sum(v for v, _ in cold),
-        "parity": parity, "card": card}
+        "lookup_in_turns": yard, "card": card}
+    if parity:
+        result["parity"] = train_parity(run, batches[steps + 1 + PROFILED_STEPS])
+    log(f"train{' int8' if int8 else ''}: {steps / wall:.4g} steps/s, {edges / wall:.4g} "
+        f"sampled edges/s, peak {peak / 2**30:.3f} GiB; medians {stage}; K2 "
+        f"{k2_ms:.3f} ms per step")
+    return launches, result
 
 
 def acceptance_phase(card):
     """The twin's acceptance run on the card: ``--dataset planted:20000
     --epochs 4`` with its other defaults, sampled evaluation and then
-    layer-wise; each test accuracy must clear feature-only Bayes + 0.15."""
+    layer-wise, then sampled over an int8 store (``--int8``, every lookup
+    K2's dequantising entry); each test accuracy must clear feature-only
+    Bayes + 0.15."""
     from examples.train_sage_torch import main
 
     runs = {}
-    for mode in ("sampled", "layerwise"):
+    for label, extra in (("sampled", ["--eval", "sampled"]),
+                         ("layerwise", ["--eval", "layerwise"]),
+                         ("int8_sampled", ["--eval", "sampled", "--int8"])):
         t0 = time.time()
+        reset_launches()
         acc, ds = main(["--dataset", "planted:20000", "--epochs", "4",
-                        "--device", "cuda", "--eval", mode])
+                        "--device", "cuda"] + extra)
         sync()
+        launches = read_launches()
+        lookup = "tiered_gather_dequant" if "--int8" in extra else "tiered_gather"
+        check(launches[lookup] > 0, f"planted:20000 {label}: {lookup} launched")
         bayes = ds.meta["feature_bayes_acc"]
         check(acc >= bayes + 0.15,
-              f"planted:20000 {mode}: test acc {acc} < feature-only Bayes "
+              f"planted:20000 {label}: test acc {acc} < feature-only Bayes "
               f"{bayes} + 0.15")
-        runs[mode] = {"test_acc": acc, "feature_bayes_acc": bayes,
-                      "seconds": time.time() - t0}
+        runs[label] = {"test_acc": acc, "feature_bayes_acc": bayes,
+                       "seconds": time.time() - t0, "launches": launches}
     return {"dataset": "planted:20000", "epochs": 4, **runs, "card": card}
 
 
@@ -1394,6 +1548,13 @@ def main() -> int:
     p.add_argument("--report", default=None,
                    help="also write every check and timing to this JSON file")
     args = p.parse_args()
+    phase_s, last = {}, [time.time()]
+
+    def lap(label: str) -> None:
+        """Record the seconds since the last lap under ``label``."""
+        now = time.time()
+        phase_s[label] = now - last[0]
+        last[0] = now
 
     # phase 1: device
     import torch
@@ -1493,6 +1654,20 @@ def main() -> int:
                                  ("cold-only", 0, None))]
     tier = tiered_checks(stores, rng)
     del stores
+    lap("set-up and phase 3 checks")
+    # int8 stores: the small graph's, and bench_feature.py's configuration
+    # (its budget int(0.2 n) * F * 4 B, stored as int8 under the degree
+    # reorder: 1,862,000 of 2,450,000 rows on the card)
+    t0 = time.time()
+    feat_q = Feature(device_cache_size=int(0.2 * n) * F * 4, csr_topo=topo,
+                     dtype="int8", device="cuda").from_cpu_tensor(x_all)
+    if n == PRODUCTS_NODES:
+        check(feat_q.hot_rows == 1_862_000, f"int8 hot rows {feat_q.hot_rows}")
+    log(f"int8 store built in {time.time() - t0:.1f}s: {feat_q.hot_rows} hot / "
+        f"{n - feat_q.hot_rows} cold rows")
+    deq = tiered_checks(int8_stores(x_small, small_topo)
+                        + [("int8 bench_feature store, reorder", feat_q)], rng)
+    lap("phase 3 int8 stores and checks")
     # timing at the serving path's shapes: its largest hop (8 lanes x 8
     # frontier rows, fanout 5; the select entries' 64 x 5) and its lookup
     # (8 lanes x 48 rows, F=100); then in bulk
@@ -1511,6 +1686,14 @@ def main() -> int:
     t_gat = time_gather(x_dev, look_ids)
     t_tier = time_tiered(feat_hot, look_ids, pcie)
     t_tier_split = time_tiered(feat_cold, look_ids, pcie)
+    lap("phase 3 timing at serving shapes")
+    # the int8 lookup at bench_feature.py's configuration: 65,536 uniform ids
+    q_ids = torch.from_numpy(rng.integers(0, n, 65_536).astype(np.int32)).to("cuda")
+    t_q = time_lookup(feat_q, q_ids, pcie, 50, 5)
+    log(f"int8 lookup, 65,536 ids: {t_q['ms']:.4f} ms (staged lookup in torch ops "
+        f"{t_q['yard_ms']:.4f}, plain {t_q['plain_ms']:.4f}, bound {t_q['bound_ms']:.4f})")
+    del feat_q, q_ids
+    lap("phase 3 int8 lookup timing")
     bulk_seeds = torch.from_numpy(rng.integers(0, n, 1_000_000).astype(np.int32)).to("cuda")
     bulk_ids = torch.from_numpy(rng.integers(0, n, 100_000).astype(np.int32)).to("cuda")
     wide_ids = torch.from_numpy(rng.integers(0, WIDE_ROWS, 100_000).astype(np.int32)).to("cuda")
@@ -1527,6 +1710,7 @@ def main() -> int:
         "pcie_h2d_bytes_per_s": pcie,
     }
     del x_dev, dev_topo, uva_topo, bulk_seeds, bulk_ids, wide, wide_ids
+    lap("phase 3 bulk timing")
 
     # phases 4 and 5: serve (the main paths; launch counts are read there)
     launches_u, serve_u = serve_phase(
@@ -1537,6 +1721,15 @@ def main() -> int:
         args, topo, feat_hot, [("UVA topology", {"mode": "UVA"}, feat_hot)],
         card, weighted=True)
     del feat_hot, feat_cold
+    lap("phases 4 and 5")
+    # uniform serving over the tiered store stored as int8: 612,500 rows on
+    # the card (the scales charged first), the rest pinned
+    feat_q = Feature(device_cache_size=4 * n + (n // 4) * F, csr_topo=topo,
+                     dtype="int8", device="cuda").from_cpu_tensor(x_all)
+    check(feat_q.hot_rows == n // 4, f"int8 serving store hot rows {feat_q.hot_rows}")
+    launches_q, serve_q = serve_phase(args, topo, feat_q, [], card, weighted=False)
+    del feat_q
+    lap("int8 serving")
 
     # phases 6 and 7: sampler entry points
     samp_u = sampler_phase(topo, card, weighted=False)
@@ -1548,11 +1741,22 @@ def main() -> int:
         f"{samp_t['batch_ms']:.3f} ms per batch, window search "
         f"{samp_t['window_search_ms_per_batch']:.3f} ms of it")
     samplers = {"uniform": samp_u, "weighted": samp_w, "temporal": samp_t}
+    lap("phases 6 and 7")
 
     # phases 8 and 9: train (the twin's main path; its launches are read there)
     launches_t, train = train_phase(card, pcie)
+    lap("phase 8")
+    # int8 storage: (a) the same byte budget, (b) the f32 run's hot rows
+    launches_qa, train_qa = train_phase(card, pcie, int8=True, parity=False)
+    lap("int8 training (a)")
+    budget_b = train["hot_rows"] * train["feature_dim"] + 4 * train["nodes"]
+    launches_qb, train_qb = train_phase(card, pcie, int8=True, budget=budget_b,
+                                        parity=False)
+    check(train_qb["hot_rows"] == train["hot_rows"], "int8 (b) keeps the f32 hot rows")
+    lap("int8 training (b)")
     accept = acceptance_phase(card)
-    for mode in ("sampled", "layerwise"):
+    lap("phase 9 (with its int8 run)")
+    for mode in ("sampled", "layerwise", "int8_sampled"):
         log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
             f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
 
@@ -1582,6 +1786,7 @@ def main() -> int:
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
                     "train_launches": launches_t["tiered_gather"],
+                    "train_lookup_in_turns": train["lookup_in_turns"],
                     "single_table_entry": {
                         "name": "gather_rows", "path": "none (staged_gather)",
                         "launches": launches_u["gather_rows"],
@@ -1590,6 +1795,23 @@ def main() -> int:
                         **{key: t_gat[key] for key in ("ms", "plain_ms", "library_ms",
                                                        "ratio_to_library", "bound_ms",
                                                        "bound_share")}}},
+                   card, name),
+        kernel_row("tiered_gather_dequant", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
+                   launches_qa["tiered_gather_dequant"],
+                   "int8 training (a) (also int8 training (b) and int8 serving)",
+                   deq, t_q,
+                   {"yardstick": t_q["yardstick"], "yard_ms": t_q["yard_ms"],
+                    "ratio_to_yard": t_q["ratio_to_yard"],
+                    "shape": [t_q["ids"], t_q["stored_row_bytes"]],
+                    "config": "bench_feature.py: 2,450,000 rows x F=100 stored "
+                              "int8 under int(0.2 n) * F * 4 B, 65,536 uniform ids",
+                    "bound_rule": GATHER_BOUND_RULE,
+                    "serve_launches": launches_q["tiered_gather_dequant"],
+                    "train_b_launches": launches_qb["tiered_gather_dequant"],
+                    "train_lookup_in_turns": train_qa["lookup_in_turns"],
+                    "library": "none: no single PyTorch call dequantises a "
+                               "tiered lookup; its yardstick is the staged "
+                               "lookup in stock torch ops"},
                    card, name),
         kernel_row("wselect", "quiver_tpu_torch/ops/kernels/wselect.cu", k3,
                    serve_w["parity"]["launches"]["wselect"],
@@ -1613,24 +1835,34 @@ def main() -> int:
                    card, name),
     ]
     check(all(k["launches"] > 0 and k["match"] for k in kernels)
-          and kernels[2]["single_table_entry"]["match"],
+          and kernels[2]["single_table_entry"]["match"]
+          and launches_q["tiered_gather_dequant"] > 0
+          and launches_qb["tiered_gather_dequant"] > 0,
           "every kernel launched on its main path and every entry matched")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as fh:
-            json.dump({"kernels": kernels, "bulk": bulk,
-                       "serve": {"uniform": serve_u, "weighted": serve_w},
+            json.dump({"kernels": kernels, "bulk": bulk, "int8_lookup": t_q,
+                       "serve": {"uniform": serve_u, "weighted": serve_w,
+                                 "int8": serve_q},
                        "sampler": samplers, "train": train,
+                       "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept,
-                       "build_s": build_s, "graph_s": graph_s,
+                       "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
                                  "max_degree": topo.max_degree}}, fh, indent=1)
-    print(json.dumps({"bulk": bulk, "card": card}), flush=True)
-    print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w}}), flush=True)
+    print(json.dumps({"bulk": bulk, "int8_lookup": t_q, "card": card}), flush=True)
+    print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w,
+                                "int8": serve_q}}), flush=True)
     print(json.dumps({"sampler": samplers}), flush=True)
-    print(json.dumps({"train": {k: v for k, v in train.items() if k != "per_step"},
-                      "acceptance": accept}), flush=True)
+    for label, tr in (("train", train), ("train_int8_a", train_qa),
+                      ("train_int8_b", train_qb)):
+        print(json.dumps({label: {k: v for k, v in tr.items()
+                                  if k not in ("per_step", "valid_rows_and_cold_rows")}}),
+              flush=True)
+    print(json.dumps({"acceptance": accept}), flush=True)
+    log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")
     print(json.dumps({"kernels": kernels}), flush=True)

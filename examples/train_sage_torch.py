@@ -18,7 +18,8 @@ Datasets (quiver_tpu_torch.datasets):
 
 It runs on the CUDA card unless ``--device`` names another (``--device
 cpu`` runs the kernels' plain versions); with no card and no ``--device``
-it raises.
+it raises. ``--int8`` stores the features as int8 codes under the same
+byte budget (about four times the rows on the card).
 
     python -m examples.train_sage_torch --dataset planted:20000 --epochs 4
     python -m examples.train_sage_torch --dataset planted:4000:6 --device cpu \\
@@ -117,6 +118,11 @@ def parse_args(argv=None):
         help="bfloat16 feature storage + mixed-precision model compute",
     )
     p.add_argument(
+        "--int8", action="store_true",
+        help="int8 feature storage (per-row absmax codes and float32 scales; "
+        "lookups return float32) under the same byte budget",
+    )
+    p.add_argument(
         "--eval", default="sampled", choices=["sampled", "layerwise"],
         help="test-time evaluation: batched sampled fanout (fast) or "
         "full-neighbour layer-wise inference over all edges",
@@ -126,10 +132,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def setup(args):
+def setup(args, budget=None):
     """The dataset, feature store, sampler, model, optimizer and steps of
     a run, the model initialised from ``--seed`` and the auto caps planned
-    on the first training batch. Returns a namespace of them."""
+    on the first training batch. ``budget`` overrides the feature store's
+    byte budget (by default ``--cache-ratio`` of the rows at 4 B per
+    element). Returns a namespace of them."""
+    if args.bf16 and args.int8:
+        raise ValueError("--bf16 and --int8 are two storage dtypes; pick one")
     device = resolve_device(args.device)
     if args.dataset == "synthetic":
         ds = synthetic_dataset(args)
@@ -141,10 +151,12 @@ def setup(args):
           f"{len(ds.train_idx)} train / {len(ds.test_idx)} test")
 
     # degree-ordered cache of cache_ratio of the rows; the rest pinned
-    budget = int(args.cache_ratio * n) * ds.feature_dim * 4
+    if budget is None:
+        budget = int(args.cache_ratio * n) * ds.feature_dim * 4
     feature = Feature(
         device_cache_size=budget, csr_topo=topo,
-        dtype="bfloat16" if args.bf16 else None, device=device,
+        dtype="bfloat16" if args.bf16 else ("int8" if args.int8 else None),
+        device=device,
     ).from_cpu_tensor(ds.features)
     feature_dim = ds.feature_dim
     # drop the source array: the tiered store holds the only copy now

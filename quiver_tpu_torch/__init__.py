@@ -10,11 +10,15 @@ PyTorch versions run instead.
 
 from .core.config import CachePolicy, SampleMode, parse_size_bytes
 from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
-from .feature.feature import Feature
+from .datasets import GraphDataset, load_dataset, planted_partition
+from .feature.feature import Feature, HeteroFeature
 from .models.sage import GraphSAGE
 from .sampling.sampler import Adj, GraphSageSampler, SampleOutput
 from .serving.coalesce import DeadlineBatcher, ServeQueueFull, ServeRequest
 from .serving.server import InferenceServer
+from .utils.debug import show_tensor_info, tensor_info
+from .utils.reorder import reorder_by_degree
+from .utils.trace import Timer, enable_trace, get_logger, trace_scope
 
 __all__ = [
     "Adj",
@@ -23,13 +27,24 @@ __all__ = [
     "DeadlineBatcher",
     "DeviceTopology",
     "Feature",
+    "GraphDataset",
     "GraphSAGE",
     "GraphSageSampler",
+    "HeteroFeature",
     "InferenceServer",
     "SampleMode",
     "SampleOutput",
     "ServeQueueFull",
     "ServeRequest",
+    "Timer",
     "VersionMismatchError",
+    "enable_trace",
+    "get_logger",
+    "load_dataset",
     "parse_size_bytes",
+    "planted_partition",
+    "reorder_by_degree",
+    "show_tensor_info",
+    "tensor_info",
+    "trace_scope",
 ]

@@ -118,7 +118,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {
     "select": ("select", "quiver_select", 10),
     "uniform_hop": ("select", "quiver_uniform_hop", 18),
-    "gather": ("gather", "quiver_gather", 10),
+    "gather": ("gather", "quiver_gather", 12),
+    "gather_dequant": ("gather", "quiver_gather_dequant", 12),
     "wselect": ("wselect", "quiver_wselect", 14),
     "weighted_hop": ("wselect", "quiver_weighted_hop", 19),
 }

@@ -23,7 +23,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..core.config import SampleMode
+from ..core.config import SampleMode, validate_dedup, validate_kernel_arg
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, VersionMismatchError
 from ..ops.reindex import reindex_layer
@@ -154,12 +154,9 @@ class GraphSageSampler:
         host sync per call to read the counts. Each hop draws over (at
         least) its worst-case rows and uses the prefix it needs, so a row's
         draws do not depend on the caps: an auto sampler's samples equal a
-        worst-case sampler's with the same seed. (The JAX package bounds
-        its cache of compiled programs, one per plan; the port compiles
-        nothing, so it has no such cache.)
+        worst-case sampler's with the same seed.
       seed: base seed; call ``c``'s layer ``l`` draws from a generator
         seeded by ``(seed, c, l)``.
-      with_eid: populate ``Adj.e_id`` with per-edge ids.
       weighted: draw neighbours in proportion to the edge weights
         (needs ``csr_topo.set_edge_weight``); every hop runs kernel K3
         (one launch of its fused entry).
@@ -167,6 +164,20 @@ class GraphSageSampler:
         ``lo <= t <= hi`` (needs ``csr_topo.set_edge_time`` and GPU mode);
         excludes ``weighted``.
       auto_margin: headroom factor of ``"auto"`` caps (>= 1).
+      kernel: ``"auto"`` or ``"pallas"`` (the hand-written hops) or
+        ``"xla"`` (raises on the card, see
+        :func:`~..core.config.validate_kernel_arg`).
+      with_eid: populate ``Adj.e_id`` with per-edge ids.
+      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, validated:
+        the JAX package's three reindex strategies give identical results,
+        and every one runs the port's one reindex, which gives them too.
+      device_topo: sharing one placed topology between samplers is not
+        ported (ROADMAP A.6); anything but None raises.
+      topo_sharding: ``"replicated"``; ``"mesh"`` (a topology partitioned
+        across cards, ROADMAP A.11) raises.
+      compiled_cache_size: accepted for API parity and inert: the JAX
+        package bounds its cache of compiled programs with it; the port
+        compiles nothing.
 
     ``reruns`` counts the calls that an auto sampler ran again under
     regrown caps.
@@ -175,10 +186,31 @@ class GraphSageSampler:
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str | SampleMode = SampleMode.HBM,
                  seed_capacity: int | None = None,
-                 frontier_caps: Sequence[int] | None = None, seed: int = 0,
-                 with_eid: bool = False, weighted: bool = False,
-                 time_window=None, auto_margin: float = 1.25):
+                 frontier_caps: Sequence[int] | str | None = None,
+                 seed: int = 0, weighted: bool = False, time_window=None,
+                 auto_margin: float = 1.25, kernel: str = "auto",
+                 with_eid: bool = False, dedup: str = "auto",
+                 device_topo=None, topo_sharding: str = "replicated",
+                 compiled_cache_size: int = 8):
+        if topo_sharding == "mesh":
+            raise NotImplementedError(
+                "topo_sharding='mesh' (a topology partitioned across cards) "
+                "is not ported (ROADMAP A.11)")
+        if topo_sharding != "replicated":
+            raise ValueError(
+                f"topo_sharding must be 'replicated' or 'mesh', "
+                f"got {topo_sharding!r}")
+        if device_topo is not None:
+            raise NotImplementedError(
+                "device_topo= (one placed topology shared between samplers) "
+                "is not ported (ROADMAP A.6)")
+        if compiled_cache_size < 1:
+            raise ValueError(
+                f"compiled_cache_size must be >= 1, got {compiled_cache_size}")
+        self.compiled_cache_size = int(compiled_cache_size)
         self.device = resolve_device(device)
+        self.kernel = validate_kernel_arg(str(kernel), self.device)
+        self.dedup = validate_dedup(str(dedup))
         self.csr_topo = csr_topo
         self.mode = SampleMode.parse(mode)
         max_deg = csr_topo.max_degree
@@ -364,3 +396,15 @@ class GraphSageSampler:
                 first_plan = False
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)
+
+    # -- reference API shims (one process owns the sampler) -----------------
+
+    def share_ipc(self):
+        """The rebuild recipe (reference sage_sampler.py:114-120); there is
+        nothing to share between processes here."""
+        return (self.csr_topo, self.sizes, self.mode)
+
+    @classmethod
+    def lazy_from_ipc_handle(cls, handle, device=None):
+        csr_topo, sizes, mode = handle
+        return cls(csr_topo, sizes, device=device, mode=mode)

@@ -327,3 +327,87 @@ def test_layerwise_host_equals_hbm_on_card(cuda):
     assert torch.equal(host, hbm)
     cpu = full_neighbor_mean(topo, x.cpu(), chunk=4096, device="cpu")
     assert torch.allclose(hbm.cpu(), cpu, rtol=1e-5, atol=1e-6)
+
+
+def _int8_store(cuda, n, F, store, seed):
+    """An int8 ``Feature`` of ``n`` random rows (row 5 all zeros) in one of
+    the store layouts, and its ids: ``-1`` lanes and ids past the table."""
+    from quiver_tpu_torch import CSRTopo, Feature
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    x[5] = 0.0
+    hot = {"hot": n, "cold": 0}.get(store, n // 3)
+    topo = CSRTopo(edge_index=generate_pareto_graph(n, 5.0, seed=3)) if "reorder" in store else None
+    feat = Feature(device_cache_size=4 * n + hot * F, csr_topo=topo, dtype="int8",
+                   device=cuda).from_cpu_tensor(x)
+    assert feat.hot_rows == hot
+    ids = rng.integers(0, n + 50, 777).astype(np.int32)
+    ids[::6] = -1
+    ids[1:4] = [n - 1, n, 2**31 - 1]
+    return feat, torch.from_numpy(ids).to(cuda)
+
+
+# F=100: 4 codes a word, four rows a warp; F=602: 2 codes a word, one row in
+# several chunks; F=7: single codes
+@pytest.mark.parametrize("F", [100, 602, 7])
+@pytest.mark.parametrize("store", ["hot", "cold", "split", "split, reorder", "cold, reorder"])
+def test_tiered_gather_dequant_matches_plain(cuda, F, store):
+    from quiver_tpu_torch.ops.kernels import gather
+
+    feat, ids = _int8_store(cuda, 1500, F, store, F)
+    args = (ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold, feat.scale)
+    before = gather.tiered_gather_dequant.launches
+    got = gather.tiered_gather_dequant(*args)
+    want = gather.tiered_gather_plain(*args)
+    torch.cuda.synchronize()
+    assert gather.tiered_gather_dequant.launches == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(feat[ids], got)
+    assert not got[ids < 0].any()
+    # ids past the table read the row of id N - 1
+    assert torch.equal(got[2], got[1]) and torch.equal(got[3], got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("store", ["hot", "cold", "split", "split, reorder"])
+def test_tiered_gather_clamps_like_plain(cuda, dtype, store):
+    """Ids past the table read row N - 1 (or order[N - 1]) on the card, as
+    in the plain version, in every store layout."""
+    from quiver_tpu_torch import CSRTopo, Feature
+    from quiver_tpu_torch.ops.kernels import gather
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    n, F = 1000, 100
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    row_bytes = F * torch.tensor([], dtype=dtype).element_size()
+    budget = {"hot": n * row_bytes, "cold": 0}.get(store, 300 * row_bytes)
+    topo = CSRTopo(edge_index=generate_pareto_graph(n, 5.0, seed=3)) if "reorder" in store else None
+    feat = Feature(device_cache_size=budget, csr_topo=topo, dtype=dtype,
+                   device=cuda).from_cpu_tensor(x)
+    ids = torch.tensor([n - 1, n, n + 7, 2**31 - 1, -1, 0], dtype=torch.int32, device=cuda)
+    args = (ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold)
+    got = gather.tiered_gather(*args)
+    assert torch.equal(got, gather.tiered_gather_plain(*args))
+    for j in (1, 2, 3):
+        assert torch.equal(got[j], got[0])
+    assert not got[4].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_gather_rows_clamps_like_plain(cuda, dtype, pinned):
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+
+    rng = np.random.default_rng(9)
+    table = torch.from_numpy(rng.normal(size=(300, 37)).astype(np.float32) * 50).to(dtype)
+    table = table.pin_memory() if pinned else table.to(cuda)
+    ids = torch.tensor([299, 300, 5000, 2**31 - 1, -1, 3], dtype=torch.int32, device=cuda)
+    got = gather_rows(table, ids)
+    assert torch.equal(got, gather_rows_plain(table, ids))
+    assert torch.equal(got[1], got[0]) and torch.equal(got[3], got[0])
+    base = torch.full((6, 37), 3, dtype=dtype, device=cuda)
+    assert torch.equal(gather_rows(table, ids, out=base.clone()),
+                       gather_rows_plain(table, ids, out=base))
