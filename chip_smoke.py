@@ -24,6 +24,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside its bound, and the int8 lookup at ``bench_feature.py``'s
    configuration (65,536 uniform ids, a 20%-of-f32 budget stored as int8)
    in turns with the same lookup in stock torch ops.
+   Then both kernel resolutions from an empty election cache
+   (``QUIVER_ELECTION_CACHE`` in a fresh temporary directory): the
+   lookup's ``auto`` is K2 after its bitwise smoke, with nothing measured
+   or cached, and every store of the later phases resolves to it; the
+   sample election (the fused hop against the composed path, edges/s on
+   a 4,096-node, 2^18-edge graph, batch 1,024, k = 8) passes its bitwise
+   smoke, elects the higher score, which must be the fused hop whose
+   launches the later phases count, and comes from the disk cache on a
+   fresh resolution; an explicit ``kernel="xla"`` store over the tiered
+   table returns K2's rows bitwise with no K2 launch.
 4. serve, uniform: the full-width serving configuration (products-shaped
    graph, F=100, GraphSAGE hidden 256 / 47 classes / 2 layers, fanouts
    [5, 5], max_batch 8) answers closed-loop point queries with every kernel
@@ -45,6 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (fanouts [15, 10, 5], batch 2048, worst-case caps) samples a few
    batches; every edge must join a frontier node to one of its CSR
    neighbours, with ``min(deg, k)`` edges per node. Prints sampled edges/s.
+   A ``kernel="xla"`` sampler (the composed path: one K1 ``select`` or K3
+   ``wselect`` launch per hop, no fused one) passes the same checks and
+   equals a ``kernel="pallas"`` sampler's samples bitwise.
 7. sampler, temporal: a copy of the graph with U[0, 1) edge timestamps
    samples at [15, 10, 5] in the window [0.25, 0.75]; every edge must be an
    in-window edge of its node, with ``min(in-window degree, k)`` per node.
@@ -72,6 +85,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card, with sampled and then layer-wise evaluation, then sampled
    once more over an int8 store; each test accuracy must clear the
    feature-only Bayes accuracy + 0.15.
+10. serve, observed and degraded, last so that the earlier phases run as
+   before them; over phase 4's tiered store (612,500 hot rows): serving
+   under telemetry, uniform and then weighted: the tracer, the registry
+   and the flight recorder on against all off, in 4 alternating pairs of
+   the 256 closed-loop queries: responses bitwise equal, ladder ==
+   oracle, one trace per request with exactly the six stage spans, the
+   registry's counters equal to ``stats()``, the Prometheus and JSONL
+   exports parsing back, exact launches; queries/s on and off are printed
+   and the Chrome trace is written to ``OUT_DIR``. Serving's device
+   idle share: ``profile_epoch`` around the 256 served queries (32
+   batches), busy time summed as phase 8 sums it, against the median
+   batch time of 3 unprofiled passes of the same stream on the same
+   server.
+   Degraded serving: lookups 5-9 of a host-side wrapper of the store
+   raise; with ``degraded="zeros"`` and again ``"last-good"`` the breaker
+   fails two batches, opens on the third failure, serves 12 batches
+   degraded (counted in ``serve.degraded_lookups``; every opening dumps a
+   bundle that passes ``verify_bundle``), closes on the probe after the
+   window, and answers bitwise as a healthy server after it; K2 launches
+   once per batch whose lookup reaches the store.
 
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -96,6 +129,7 @@ PRODUCTS_NODES = 2_450_000
 PRODUCTS_AVG_DEG = 50.5
 WIDE_ROWS = 1_000_000  # rows of the wide-row gather tables
 PROFILED_STEPS = 5  # training steps traced by torch.profiler
+OUT_DIR = os.path.join(HERE, "chiprun_out")  # run artifacts (git-ignored)
 KERNELS = ("select", "gather", "wselect")
 # the wrappers, each with its launch count: K1's two entries, K2's three,
 # K3's two
@@ -783,26 +817,16 @@ def time_tiered(feat, ids, pcie_bytes_per_s, iters: int = 200):
 
 
 def staged_lookup(n_id, feat, buf):
-    """The tiered lookup in stock torch ops: translate on the card, a host
+    """The tiered lookup in stock torch ops: the port's ``kernel="xla"``
+    path (``feature.stock_lookup``): translate on the card, a host
     ``index_select`` of the cold rows into the pinned buffer ``buf``, one
     ``non_blocking`` copy to the card, the hot rows' ``index_select``, the
     merge and, for int8 codes, the multiply by their scales. The same
-    function as K2's tiered entries (a split store)."""
-    import torch
+    function as K2's tiered entries."""
+    from quiver_tpu_torch.feature.feature import stock_lookup
 
-    valid = n_id >= 0
-    t = n_id.clamp(0, feat.shape[0] - 1).to(torch.int64)
-    if feat.feature_order is not None:
-        t = feat.feature_order[t].to(torch.int64)
-    sel = torch.nonzero(valid & (t >= feat.hot_rows)).squeeze(1)
-    cold_rows = (t[sel] - feat.hot_rows).cpu()  # waits for the last copy too
-    staged = buf[:cold_rows.shape[0]]
-    torch.index_select(feat.cold, 0, cold_rows, out=staged)
-    rows = torch.index_select(feat.hot, 0, t.clamp(max=feat.hot_rows - 1))
-    rows[sel] = staged.to(n_id.device, non_blocking=True)
-    if feat.scale is not None:
-        rows = rows.float() * feat.scale[t][:, None]
-    return torch.where(valid[:, None], rows, 0)
+    return stock_lookup(n_id, feat.feature_order, feat.hot_rows, feat.hot,
+                        feat.cold, feat.scale, buf)
 
 
 def lookup_bytes(feat, n_id):
@@ -1063,7 +1087,7 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
     sync()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    batches = len(server.timeline.samples["sample"])
+    batches = server.timeline.stats("sample").count
     log(f"served {len(reqs)} {'weighted' if weighted else 'uniform'} queries "
         f"in {wall:.3f}s ({batches} batches); launches {launches}")
 
@@ -1091,7 +1115,7 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
                                 seed=0)
         reset_launches()
         got = closed_loop(other, nodes, 8)
-        runs = len(other.timeline.samples["sample"])
+        runs = other.timeline.stats("sample").count
         reruns[label] = {"queries": len(got), "batches": runs, **read_launches()}
         expect_launches(read_launches(), {hop: 2 * runs, lookup: runs},
                         f"{label} rerun")
@@ -1100,7 +1124,7 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
               f"{label} answers == the first run's answers")
 
     st = server.stats()["stages"]
-    stages = {k: {"p50_ms": v["p50"] * 1e3, "p99_ms": v["p99"] * 1e3}
+    stages = {k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
               for k, v in st.items()}
     return launches, {
         "sampler": "weighted" if weighted else "uniform",
@@ -1110,6 +1134,405 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
         "wall_s": wall, "launches": launches, "stages": stages,
         "parity": parity, "bitwise_reruns_launches": reruns, "card": card,
     }
+
+
+# -- the elections, serving under telemetry, idle share, degraded serving ------
+
+
+def election_phase(topo, x_all, feat_cold, rng):
+    """Both kernel resolutions from an empty cache (``QUIVER_ELECTION_CACHE``
+    in a fresh temporary directory): the lookup's ``auto`` is K2 once its
+    smoke passes bitwise, with nothing measured or cached; the sample
+    election passes its bitwise smoke, measures both paths, elects the
+    higher score, which must be the fused hop (the later phases count its
+    launches), and a fresh resolution (``reset()``) comes from the disk
+    cache. Then an explicit ``kernel="xla"`` store over the tiered table
+    returns K2's rows bitwise (ids past the table and ``-1`` lanes
+    included) with no K2 launch."""
+    import tempfile
+
+    import torch
+
+    import quiver_tpu_torch.ops.election as EL
+    from quiver_tpu_torch import Feature
+    from quiver_tpu_torch.feature import feature as FM
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather
+    from quiver_tpu_torch.sampling import sampler as SM
+
+    cache = os.path.join(tempfile.mkdtemp(prefix="quiver-election-"),
+                         "kernel_elections.json")
+    os.environ["QUIVER_ELECTION_CACHE"] = cache
+    for var in ("QUIVER_GATHER_KERNEL", "QUIVER_SAMPLE_KERNEL"):
+        os.environ.pop(var, None)
+    EL._ELECTION_CACHE_PATH = None
+    FM._PALLAS_GATHER_OK = SM._PALLAS_SAMPLE_OK = None
+    out = {}
+    FM.GATHER_ELECTION.reset()
+    t0 = time.time()
+    kernel = FM.resolve_gather_kernel("auto", "cuda")
+    seconds = time.time() - t0
+    check(kernel == "pallas" and FM.GATHER_ELECTION.result["how"] == "smoke",
+          f"gather auto on the card is K2 after its smoke: {FM.GATHER_ELECTION.result}")
+    check(not os.path.exists(cache), "the gather resolution caches nothing")
+    out["gather"] = {"resolved": kernel, "how": "smoke", "seconds": seconds}
+    log(f"gather: auto -> {kernel} (smoke {seconds:.2f} s; nothing measured)")
+    SM.SAMPLE_ELECTION.reset()
+    t0 = time.time()
+    kernel = SM.resolve_sample_kernel("auto", "cuda")
+    seconds = time.time() - t0
+    res = dict(SM.SAMPLE_ELECTION.result)
+    check(res["how"] == "measured", f"sample election measured: {res}")
+    check(kernel == max(res["score"], key=res["score"].get),
+          f"sample election elects the higher score: {res}")
+    check(kernel == "pallas", f"sample election elects the fused hop: {res}")
+    SM.SAMPLE_ELECTION.reset()
+    check(SM.resolve_sample_kernel("auto", "cuda") == kernel
+          and SM.SAMPLE_ELECTION.result["how"] == "disk cache",
+          f"sample election from the disk cache after reset(): "
+          f"{SM.SAMPLE_ELECTION.result}")
+    out["sample"] = {"elected": kernel, "score": res["score"],
+                     "unit": SM.SAMPLE_ELECTION.unit, "key": res["key"],
+                     "seconds": seconds}
+    log(f"sample election: {res['score']} {SM.SAMPLE_ELECTION.unit} -> {kernel} "
+        f"({seconds:.2f} s with the smoke)")
+    check(FM._PALLAS_GATHER_OK is True and SM._PALLAS_SAMPLE_OK is True,
+          "both smokes bitwise")
+    with open(cache) as fh:
+        check(set(json.load(fh)) == {"torch.sample"},
+              "the port's entry in the election cache")
+
+    # the explicit stock-op store over the tiered table
+    n, F = x_all.shape
+    feat_x = Feature(device_cache_size=(n // 4) * F * 4, csr_topo=topo,
+                     kernel="xla", device="cuda").from_cpu_tensor(x_all)
+    check(feat_x.kernel == "xla" and feat_x.hot_rows == feat_cold.hot_rows,
+          "kernel='xla' store")
+    checks = []
+    for count in (100_003, 384, 7):
+        ids = rng.integers(0, n, count).astype("int32")
+        ids[rng.random(count) < 0.1] = -1
+        past_the_table(ids, n)
+        ids_d = torch.from_numpy(ids).to("cuda")
+        want = tiered_gather(ids_d, feat_cold.feature_order, feat_cold.hot_rows,
+                             feat_cold.hot, feat_cold.cold)
+        sync()
+        reset_launches()
+        got = feat_x[ids_d]
+        sync()
+        expect_launches(read_launches(), {}, "kernel='xla' lookup (no K2 launch)")
+        ok = equal(got, want)
+        checks.append({"ids": count, "match": ok,
+                       "max_abs_err": float((got - want).abs().max())})
+        check(ok, f"kernel='xla' rows == K2's rows, ids={count}")
+    out["xla_store"] = {"hot_rows": feat_x.hot_rows, "checks": checks}
+    return out
+
+
+def serve_pair(args, topo, store, weighted, model, **telemetry):
+    """A server with the telemetry of ``telemetry`` (none: all off) over the
+    [5, 5] sampler (seed 0) and ``store``, warmed up."""
+    from quiver_tpu_torch import GraphSageSampler, InferenceServer
+
+    sampler = GraphSageSampler(topo, [5, 5], device="cuda", seed=0, weighted=weighted)
+    server = InferenceServer(sampler, model, store, device="cuda", max_batch=8,
+                             seed=0, **telemetry)
+    server.warmup()
+    return server
+
+
+def telemetry_phase(args, topo, store, card, weighted, pairs: int = 4):
+    """Phase 5's serving configuration over ``store`` with the tracer, the
+    registry and the recorder on, against a server with all off, in
+    ``pairs`` alternating pairs of ``args.requests`` closed-loop queries:
+    responses bitwise equal (log-probs included), ladder == oracle under
+    telemetry, one trace per request with exactly the six stage spans, the
+    registry's counters equal to ``stats()``, the Prometheus text and the
+    JSONL parsing back, exact launches; the Chrome trace is written under
+    ``OUT_DIR``. Queries/s on and off are tracing's cost (no claim)."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import FlightRecorder, GraphSAGE, MetricsRegistry, Tracer
+    from quiver_tpu_torch.obs import export
+
+    torch.manual_seed(0)
+    model = GraphSAGE(store.size(1), 256, 47, num_layers=2)
+    reg = MetricsRegistry()
+    tracer = Tracer(max_spans=8 * args.requests * pairs + 64, metrics=reg)
+    rec = FlightRecorder(tempfile.mkdtemp(prefix="quiver-pm-"), tracer=tracer,
+                         metrics=reg)
+    on = serve_pair(args, topo, store, weighted, model, tracer=tracer, metrics=reg,
+                    recorder=rec)
+    off = serve_pair(args, topo, store, weighted, model)
+    nodes = np.random.default_rng(args.seed + 7).integers(0, topo.node_count,
+                                                           args.requests)
+    hop = "weighted_hop" if weighted else "uniform_hop"
+    lookup = "tiered_gather" if store.scale is None else "tiered_gather_dequant"
+    qps = {"on": [], "off": []}
+    traced = []
+    for _ in range(pairs):
+        runs = {}
+        for label, server in (("off", off), ("on", on)):
+            before = server.timeline.stats("sample").count if \
+                server.timeline.stats("sample") else 0
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            runs[label] = closed_loop(server, nodes, 8)
+            sync()
+            qps[label].append(len(nodes) / (time.perf_counter() - t0))
+            batches = server.timeline.stats("sample").count - before
+            expect_launches(read_launches(), {hop: 2 * batches, lookup: batches},
+                            f"telemetry {label}")
+        check(all(a.seq == b.seq and np.array_equal(a.result.view(np.uint8),
+                                                    b.result.view(np.uint8))
+                  for a, b in zip(runs["on"], runs["off"])),
+              "tracing on == off, bitwise")
+        traced += runs["on"]
+    by_trace = {}
+    for sp in tracer.spans():
+        by_trace.setdefault(sp.trace_id, []).append(sp)
+    stage_names = sorted(f"serve.{s}" for s in on.STAGES)
+    for r in traced:
+        spans = by_trace.get(r.trace_id, [])
+        roots = [sp for sp in spans if sp.name == "serve.request"]
+        check(len(roots) == 1, f"one trace root per request ({r.trace_id})")
+        check(sorted(sp.name for sp in spans if sp.parent_id == roots[0].span_id)
+              == stage_names, f"six stage spans under {r.trace_id}")
+    stats = on.stats()
+    counters = {
+        "serve.requests": stats["requests"],
+        "serve.deadline_misses": stats["deadline_misses"],
+        "serve.shed_requests": [stats["shed"][p] for p in ("gold", "bronze")],
+        "serve.class_deadline_misses": [stats["class_deadline_misses"][p]
+                                        for p in ("gold", "bronze")],
+    }
+    for name, want in counters.items():
+        check(reg.snapshot(name).numpy.tolist() == want, f"registry {name} == stats()")
+    check(int(reg.value("trace.spans")) == tracer.spans_total, "trace.spans counter")
+    snaps = reg.snapshots()
+    buf = io.StringIO()
+    export.write_jsonl(snaps, buf)
+    for back in (export.from_prometheus(export.to_prometheus(snaps)),
+                 export.read_jsonl(buf.getvalue())):
+        check([(b.name, b.numpy.tolist()) for b in back]
+              == [(a.name, a.numpy.tolist()) for a in snaps],
+              "Prometheus and JSONL exports parse back")
+    parity = ladder_parity(on, [(r.node, r.seq) for r in traced[:16]], hop,
+                           "wselect" if weighted else "select", lookup)
+    label = "weighted" if weighted else "uniform"
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace_path = os.path.join(OUT_DIR, f"serve_trace_{label}.json")
+    events = tracer.write_chrome(trace_path)
+    log(f"telemetry {label}: queries/s on {[round(q, 1) for q in qps['on']]}, "
+        f"off {[round(q, 1) for q in qps['off']]}; {events} trace events")
+    return {"sampler": label, "store_hot_rows": store.hot_rows, "pairs": pairs,
+            "queries_per_run": len(nodes), "qps_on": qps["on"], "qps_off": qps["off"],
+            "qps_on_median": statistics.median(qps["on"]),
+            "qps_off_median": statistics.median(qps["off"]),
+            "traced_requests": len(traced), "spans_total": tracer.spans_total,
+            "chrome_trace": os.path.relpath(trace_path, HERE), "trace_events": events,
+            "stages_on": {k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
+                          for k, v in stats["stages"].items()},
+            "stages_off": {k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
+                           for k, v in off.stats()["stages"].items()},
+            "parity": parity, "card": card}
+
+
+SERVE_ANNOTATIONS = ("serve", "queue_wait", "pad", "sample", "gather", "forward",
+                     "readback", "feature_gather")
+
+
+def idle_phase(args, topo, store, card, passes: int = 3):
+    """Serving's device idle share over ``args.requests`` closed-loop
+    queries (uniform, over ``store``, telemetry off), all on one server:
+    the median batch time of ``passes`` unprofiled passes of the stream,
+    then one pass under ``profile_epoch``, whose card busy time is summed
+    as phase 8's ``profile_steps`` sums it (device time of every kernel
+    and copy, the annotations left out). The share is taken against the
+    unprofiled batch time (the profiler's own host cost inflates the
+    profiled batches) and, for the same window, against the profiled
+    pass's wall time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import GraphSAGE, profile_epoch
+
+    torch.manual_seed(0)
+    model = GraphSAGE(store.size(1), 256, 47, num_layers=2)
+    nodes = np.random.default_rng(args.seed + 9).integers(0, topo.node_count,
+                                                           args.requests)
+    server = serve_pair(args, topo, store, False, model)
+
+    def batches() -> int:
+        stats = server.timeline.stats("sample")
+        return stats.count if stats else 0
+
+    pass_ms = []
+    for _ in range(passes):
+        before = batches()
+        sync()
+        t0 = time.perf_counter()
+        closed_loop(server, nodes, 8)
+        sync()
+        pass_ms.append((time.perf_counter() - t0) * 1e3 / (batches() - before))
+    batch_ms = statistics.median(pass_ms)
+    log_dir = tempfile.mkdtemp(prefix="quiver-profile-")
+    before = batches()
+    t0 = time.perf_counter()
+    with profile_epoch(log_dir, "serve") as prof:
+        reqs = closed_loop(server, nodes, 8)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    profiled = batches() - before
+    spans, kernels = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        (spans if e.key in SERVE_ANNOTATIONS else kernels)[e.key] = \
+            e.self_device_time_total / 1e3 / profiled
+    busy = sum(kernels.values())
+    check(len(reqs) == len(nodes) and busy > 0, f"the profiler saw the card: {spans}")
+    ours = {k: v for k, v in kernels.items()
+            if any(m in k for m in ("uniform_hop_kernel", "gather_kernel"))}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    trace_bytes = os.path.getsize(os.path.join(log_dir, "serve.trace.json"))
+    log(f"serving idle share: device busy {busy:.4f} ms per batch of "
+        f"{batch_ms:.4f} (median of {passes} unprofiled passes: {pass_ms})")
+    return {"queries": len(nodes), "batches": profiled,
+            "device_busy_ms_per_batch": busy,
+            "batch_ms_unprofiled": batch_ms, "batch_ms_unprofiled_passes": pass_ms,
+            "idle_share": 1 - busy / batch_ms,
+            "profiled_wall_ms_per_batch": wall_ms / profiled,
+            "idle_share_of_profiled_wall": 1 - busy * profiled / wall_ms,
+            "stage_span_ms_per_batch": spans, "port_kernels_ms_per_batch": ours,
+            "top_kernels_ms_per_batch": {k[:100]: v for k, v in top},
+            "profile_trace_bytes": trace_bytes, "card": card}
+
+
+class ScriptedOutage:
+    """A store whose lookups raise ``ConnectionError`` while its call index
+    lies in ``window`` (a host-side wrapper: the failing calls never reach
+    the store, so they launch no kernel)."""
+
+    def __init__(self, store, window):
+        self.store = store
+        self.window = range(*window)
+        self.calls = 0
+
+    def __getitem__(self, ids):
+        call = self.calls
+        self.calls += 1
+        if call in self.window:
+            raise ConnectionError(f"scripted outage (lookup {call})")
+        return self.store[ids]
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+
+def degraded_phase(args, topo, store, card, window=(5, 10), failures: int = 3,
+                   probe_every: int = 4):
+    """Degraded serving on the card: lookups ``window`` of the store fail
+    (lookup 0 is the server's probe). With ``degraded="zeros"`` and again
+    ``"last-good"``: the breaker opens at the ``failures``-th failure (the
+    earlier ones fail their batches), every short-circuited batch and
+    failed probe is served degraded and counted in
+    ``serve.degraded_lookups``, each opening dumps a bundle that passes
+    ``verify_bundle``, a probe after the window closes the breaker, and the
+    answers after it are bitwise a healthy server's. Every batch samples
+    (2 hop launches); K2 launches once per batch whose lookup reaches the
+    store."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import FlightRecorder, GraphSAGE, MetricsRegistry, Tracer
+    from quiver_tpu_torch.obs.recorder import verify_bundle
+
+    torch.manual_seed(0)
+    model = GraphSAGE(store.size(1), 256, 47, num_layers=2)
+    nodes = np.random.default_rng(args.seed + 11).integers(0, topo.node_count,
+                                                            args.requests)
+    healthy = serve_pair(args, topo, store, False, model)
+    want = {(r.node, r.seq): r.result for r in closed_loop(healthy, nodes, 8)}
+    out = {}
+    for fallback in ("zeros", "last-good"):
+        reg = MetricsRegistry()
+        rec = FlightRecorder(tempfile.mkdtemp(prefix="quiver-pm-"), tracer=Tracer(),
+                             metrics=reg)
+        server = serve_pair(args, topo, ScriptedOutage(store, window), False, model,
+                            degraded=fallback, breaker_failures=failures,
+                            probe_every=probe_every, metrics=reg, recorder=rec,
+                            tracer=rec.tracer)
+        breaker = server.feature.breaker
+        sync()
+        reset_launches()
+        states, failed, done = [], 0, []
+        t0 = time.perf_counter()
+        for i in range(0, len(nodes), 8):
+            for n in nodes[i:i + 8]:
+                server.submit(int(n))
+            try:
+                done.append(server.pump(force=True))
+            except ConnectionError:
+                failed += 1
+                done.append([])
+            states.append(breaker.state)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        batches = len(states)
+        # lookups window[0]..: `failures` failures open the breaker; each
+        # later outage lookup is a failed probe after probe_every - 1
+        # short-circuited batches; the probe after the window closes it
+        first_bad = window[0] - 1  # the batch of lookup window[0]
+        probes = window[1] - window[0] - failures
+        degraded = 1 + probes * probe_every + (probe_every - 1)
+        reached = batches - failed - degraded
+        stats = server.stats()
+        check(failed == failures - 1, f"{fallback}: {failed} failed batches")
+        check(stats["degraded_lookups"] == degraded
+              and int(reg.value("serve.degraded_lookups")) == degraded
+              and int(reg.value("resilience.degraded_lookups")) == degraded,
+              f"{fallback}: {stats['degraded_lookups']} degraded lookups, "
+              f"expected {degraded}")
+        check(states[-1] == "closed" and "open" in states, f"{fallback}: states {states}")
+        expect_launches(launches, {"uniform_hop": 2 * batches, "tiered_gather": reached},
+                        f"degraded serving ({fallback})")
+        bundles = rec.bundles()
+        check(len(bundles) == 1 + probes
+              and all(m["reason"] == "breaker_open" and m["stage"] == "gather"
+                      for _p, m in bundles),
+              f"{fallback}: breaker-open bundles {[m['reason'] for _p, m in bundles]}")
+        for path, _m in bundles:
+            verify_bundle(path)
+        recovered = first_bad + failed + degraded
+        after = [r for batch in done[recovered:] for r in batch]
+        check(after and all(np.array_equal(r.result.view(np.uint8),
+                                           want[(r.node, r.seq)].view(np.uint8))
+                            for r in after),
+              f"{fallback}: answers after recovery == a healthy server's")
+        served = [r for batch in done for r in batch]
+        check(all(np.isfinite(r.result).all() for r in served), f"{fallback}: finite")
+        gather = stats["stages"]["gather"]
+        out[fallback] = {"batches": batches, "failed_batches": failed,
+                         "degraded_lookups": degraded, "store_lookups": reached,
+                         "bundles": len(bundles), "recovered_batches": len(done) - recovered,
+                         "launches": launches, "wall_s": wall,
+                         "qps": len(served) / wall,
+                         "gather_p50_ms": gather["p50_ms"], "gather_max_ms": gather["max_ms"],
+                         "states": states}
+        log(f"degraded serving ({fallback}): {failed} failed, {degraded} degraded, "
+            f"{reached} store lookups of {batches} batches; {len(bundles)} bundles; "
+            f"{len(served) / wall:.1f} queries/s")
+    return {**out, "window": list(window), "failures": failures,
+            "probe_every": probe_every, "card": card}
 
 
 # -- phases 6 and 7: sampler --------------------------------------------------
@@ -1188,11 +1611,32 @@ def sampler_phase(topo, card, weighted: bool, batches: int = 5):
         return keys[pos] == key
 
     checked = verify_sample(out, sizes, indptr, deg, member)
+    # kernel="xla", the composed path: one K1 select (or K3 wselect) launch
+    # per hop and no fused one, the invariants above, and bitwise a fused
+    # sampler's samples from the same seed
+    seeds = rng.integers(0, n, batch)
+    paths = {}
+    for kernel in ("pallas", "xla"):
+        fresh = GraphSageSampler(topo, list(sizes), device="cuda", seed=3,
+                                 seed_capacity=batch, weighted=weighted, kernel=kernel)
+        sync()
+        reset_launches()
+        paths[kernel] = fresh.sample(seeds)
+        sync()
+        composed = "wselect" if weighted else "select"
+        expect_launches(read_launches(), {hop if kernel == "pallas" else composed: len(sizes)},
+                        f"kernel={kernel!r} sampler")
+    xla_checked = verify_sample(paths["xla"], sizes, indptr, deg, member)
+    check(equal(paths["xla"].n_id, paths["pallas"].n_id) and all(
+        equal(a.edge_index, b.edge_index)
+        for a, b in zip(paths["xla"].adjs, paths["pallas"].adjs)),
+          "kernel='xla' sampler == kernel='pallas' sampler, bitwise")
     return {"sampler": "weighted" if weighted else "uniform",
             "sizes": list(sizes), "batch": batch, "batches": batches,
             "edges": total, "seconds": dt, "edges_per_s": total / dt,
             "batch_ms": 1e3 * dt / batches, "launches": launches,
-            "edges_checked": checked, "card": card}
+            "edges_checked": checked, "xla_sampler_edges_checked": xla_checked,
+            "card": card}
 
 
 def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int = 5):
@@ -1711,6 +2155,11 @@ def main() -> int:
     }
     del x_dev, dev_topo, uva_topo, bulk_seeds, bulk_ids, wide, wide_ids
     lap("phase 3 bulk timing")
+    # the elections, before any store or sampler resolves kernel="auto"
+    elect = election_phase(topo, x_all, feat_cold, rng)
+    check(feat_hot.kernel == feat_cold.kernel == "pallas",
+          "the serving stores' auto lookups resolve to K2")
+    lap("elections")
 
     # phases 4 and 5: serve (the main paths; launch counts are read there)
     launches_u, serve_u = serve_phase(
@@ -1720,7 +2169,7 @@ def main() -> int:
     launches_w, serve_w = serve_phase(
         args, topo, feat_hot, [("UVA topology", {"mode": "UVA"}, feat_hot)],
         card, weighted=True)
-    del feat_hot, feat_cold
+    del feat_hot
     lap("phases 4 and 5")
     # uniform serving over the tiered store stored as int8: 612,500 rows on
     # the card (the scales charged first), the rest pinned
@@ -1756,6 +2205,18 @@ def main() -> int:
     lap("int8 training (b)")
     accept = acceptance_phase(card)
     lap("phase 9 (with its int8 run)")
+    # last, so that the earlier phases run as they did before them: serving
+    # under telemetry (tracer, registry, recorder on against off), its
+    # device idle share, and degraded serving through an outage, all over
+    # phase 4's tiered store
+    telemetry = {"uniform": telemetry_phase(args, topo, feat_cold, card, False),
+                 "weighted": telemetry_phase(args, topo, feat_cold, card, True)}
+    lap("serving under telemetry")
+    idle = idle_phase(args, topo, feat_cold, card)
+    lap("serving idle share")
+    degraded = degraded_phase(args, topo, feat_cold, card)
+    del feat_cold
+    lap("degraded serving")
     for mode in ("sampled", "layerwise", "int8_sampled"):
         log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
             f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
@@ -1777,6 +2238,9 @@ def main() -> int:
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
                     "train_launches": launches_t["uniform_hop"],
+                    "degraded_serve_launches": {
+                        k: degraded[k]["launches"]["uniform_hop"]
+                        for k in ("zeros", "last-good")},
                     "library": "none: its yardstick is the composed path"},
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
@@ -1786,6 +2250,9 @@ def main() -> int:
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
                     "train_launches": launches_t["tiered_gather"],
+                    "degraded_serve_launches": {
+                        k: degraded[k]["launches"]["tiered_gather"]
+                        for k in ("zeros", "last-good")},
                     "train_lookup_in_turns": train["lookup_in_turns"],
                     "single_table_entry": {
                         "name": "gather_rows", "path": "none (staged_gather)",
@@ -1845,6 +2312,8 @@ def main() -> int:
             json.dump({"kernels": kernels, "bulk": bulk, "int8_lookup": t_q,
                        "serve": {"uniform": serve_u, "weighted": serve_w,
                                  "int8": serve_q},
+                       "elections": elect, "telemetry": telemetry,
+                       "serve_idle": idle, "degraded": degraded,
                        "sampler": samplers, "train": train,
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept,
@@ -1855,6 +2324,11 @@ def main() -> int:
     print(json.dumps({"bulk": bulk, "int8_lookup": t_q, "card": card}), flush=True)
     print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w,
                                 "int8": serve_q}}), flush=True)
+    print(json.dumps({"elections": elect}), flush=True)
+    print(json.dumps({"telemetry": {k: {key: v for key, v in t.items() if key != "parity"}
+                                    for k, t in telemetry.items()}}), flush=True)
+    print(json.dumps({"serve_idle": idle}), flush=True)
+    print(json.dumps({"degraded": degraded}), flush=True)
     print(json.dumps({"sampler": samplers}), flush=True)
     for label, tr in (("train", train), ("train_int8_a", train_qa),
                       ("train_int8_b", train_qb)):

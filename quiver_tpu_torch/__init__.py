@@ -13,6 +13,16 @@ from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from .datasets import GraphDataset, load_dataset, planted_partition
 from .feature.feature import Feature, HeteroFeature
 from .models.sage import GraphSAGE
+from .obs import (
+    FlightRecorder,
+    MetricSnapshot,
+    MetricsRegistry,
+    StepTimeline,
+    TelemetryEndpoint,
+    Tracer,
+    profile_epoch,
+)
+from .resilience import CircuitBreaker, CorruptCheckpoint, DegradedFeature
 from .sampling.sampler import Adj, GraphSageSampler, SampleOutput
 from .serving.coalesce import DeadlineBatcher, ServeQueueFull, ServeRequest
 from .serving.server import InferenceServer
@@ -24,25 +34,35 @@ __all__ = [
     "Adj",
     "CSRTopo",
     "CachePolicy",
+    "CircuitBreaker",
+    "CorruptCheckpoint",
     "DeadlineBatcher",
+    "DegradedFeature",
     "DeviceTopology",
     "Feature",
+    "FlightRecorder",
     "GraphDataset",
     "GraphSAGE",
     "GraphSageSampler",
     "HeteroFeature",
     "InferenceServer",
+    "MetricSnapshot",
+    "MetricsRegistry",
     "SampleMode",
     "SampleOutput",
     "ServeQueueFull",
     "ServeRequest",
+    "StepTimeline",
+    "TelemetryEndpoint",
     "Timer",
+    "Tracer",
     "VersionMismatchError",
     "enable_trace",
     "get_logger",
     "load_dataset",
     "parse_size_bytes",
     "planted_partition",
+    "profile_epoch",
     "reorder_by_degree",
     "show_tensor_info",
     "tensor_info",

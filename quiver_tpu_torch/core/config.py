@@ -1,10 +1,10 @@
 """Typed runtime configuration: byte sizes, cache policy, sample mode.
 
 The port's copy of ``quiver_tpu/core/config.py`` (the parts the serving
-path reads), and the checks of the ``kernel=`` and ``dedup=`` arguments
-that ``Feature`` and ``GraphSageSampler`` share. The enums accept the
-reference's spellings (``gpu``/``uva``, ``device_replicate``) so
-configurations carry over unchanged.
+path reads), and the check of the sampler's ``dedup=`` argument (the
+``kernel=`` check lives with the elections, ``ops/election.py``). The
+enums accept the reference's spellings (``gpu``/``uva``,
+``device_replicate``) so configurations carry over unchanged.
 """
 
 from __future__ import annotations
@@ -12,10 +12,7 @@ from __future__ import annotations
 import enum
 import re
 
-import torch
-
-__all__ = ["parse_size_bytes", "CachePolicy", "SampleMode", "validate_dedup",
-           "validate_kernel_arg"]
+__all__ = ["parse_size_bytes", "CachePolicy", "SampleMode", "validate_dedup"]
 
 # the JAX package's reindex strategies; the port's one reindex is bitwise
 # all three, so each (and "auto") runs it
@@ -108,25 +105,6 @@ class SampleMode(enum.Enum):
             raise ValueError(
                 f"unknown sample mode {value!r}; expected one of {sorted(aliases)}"
             ) from None
-
-
-def validate_kernel_arg(kernel: str, device) -> str:
-    """Check a ``kernel=`` request of ``Feature`` or ``GraphSageSampler``:
-    ``auto``, ``pallas`` or ``xla``. On the card ``auto`` and ``pallas``
-    name the hand-written kernel, and ``xla`` (the stock op) raises: the
-    election between the two is not ported (ROADMAP A.4), and nothing
-    swaps in the plain version quietly. On the CPU every request runs the
-    plain versions, as the JAX package's ``auto`` resolves to xla off the
-    TPU."""
-    if kernel not in ("auto", "pallas", "xla"):
-        raise ValueError(f"kernel must be auto|pallas|xla, got {kernel!r}")
-    if kernel == "xla" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "kernel='xla' (the stock op on the card) is not ported: the "
-            "election between a hand-written kernel and a stock op is "
-            "ROADMAP A.4; use 'auto' or 'pallas' (the hand-written kernel)"
-        )
-    return kernel
 
 
 def validate_dedup(dedup: str) -> str:

@@ -18,10 +18,15 @@ halves the bytes per row), or ``"int8"``: per-row absmax codes with an
 rows. An id past the table reads the row of its last id, as the JAX
 package's gathers clamp; ``-1`` lanes return zero rows.
 
-The JAX package elects its hot-tier gather kernel by measurement
-(``kernel="auto"``); the port has one kernel per lookup, so ``kernel`` is
-validated and ``"xla"``, the stock gather, is not ported on the card yet.
-The reference's IPC methods are no-op shims, as in the JAX package.
+``kernel=`` picks the lookup's path: ``"pallas"`` is kernel K2's one
+launch, ``"xla"`` the same lookup in stock torch ops (:func:`stock_lookup`,
+rows bitwise K2's, with the cold rows staged on the host), and ``"auto"``
+is K2 on the card once its smoke passes (``GATHER_ELECTION``, the shared
+``ops.election`` contract) and ``"xla"`` on the CPU. Unlike the JAX
+package's, the card's ``auto`` measures nothing: the stock lookup runs no
+port kernel and moves the cold rows' work to the host, so it is taken only
+on request. The reference's IPC methods are no-op shims, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -29,14 +34,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.config import CachePolicy, parse_size_bytes, validate_kernel_arg
+from ..core.config import CachePolicy, parse_size_bytes
 from ..core.memory import resolve_device, to_pinned_host
 from ..core.topology import CSRTopo
-from ..ops.kernels.gather import tiered_gather, tiered_gather_dequant
+from ..ops.election import KernelElection, validate_kernel_arg
+from ..ops.kernels.gather import gather_rows, tiered_gather, tiered_gather_dequant
 from ..utils.reorder import reorder_by_degree
 from ..utils.trace import get_logger, info_once, trace_scope
 
-__all__ = ["Feature", "HeteroFeature", "quantize_rows_int8", "tiered_lookup"]
+__all__ = ["Feature", "GATHER_ELECTION", "HeteroFeature", "KernelChoice",
+           "quantize_rows_int8", "resolve_gather_kernel", "stock_lookup",
+           "tiered_lookup", "validate_gather_kernel"]
 
 
 def _parse_storage_dtype(dtype):
@@ -102,6 +110,99 @@ def tiered_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None):
     return tiered_gather_dequant(n_id, feature_order, hot_rows, hot, cold, scale)
 
 
+def stock_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None,
+                 buf=None):
+    """:func:`tiered_lookup` in stock torch ops (the ``kernel="xla"``
+    path), rows bitwise K2's: clamp and translate on the ids' device, a
+    host ``index_select`` of the cold rows (into the pinned buffer ``buf``
+    when one is given), one ``non_blocking`` copy to the device, the hot
+    rows' ``index_select``, the merge, and for int8 codes the multiply by
+    their scales; zero rows on ``-1`` lanes."""
+    n_id = n_id.to(torch.int32)
+    dev = n_id.device
+    n = hot_rows + (0 if cold is None else cold.shape[0])
+    valid = n_id >= 0
+    t = n_id.clamp(0, max(n - 1, 0)).to(torch.int64)
+    if feature_order is not None:
+        t = feature_order[t].to(torch.int64)
+    if cold is None:
+        rows = torch.index_select(hot, 0, t)
+    else:
+        sel = torch.nonzero(valid & (t >= hot_rows)).squeeze(1)
+        cold_rows = (t[sel] - hot_rows).to(cold.device)  # waits on a card
+        if hot is None:
+            rows = torch.zeros((n_id.shape[0], cold.shape[1]),
+                               dtype=cold.dtype, device=dev)
+        else:
+            rows = torch.index_select(hot, 0, t.clamp(max=hot_rows - 1))
+        staged = None if buf is None else buf[:cold_rows.shape[0]]
+        staged = torch.index_select(cold, 0, cold_rows, out=staged)
+        rows[sel] = staged.to(dev, non_blocking=True)
+    if scale is not None:
+        rows = rows.to(torch.float32) * scale[t][:, None]
+    return torch.where(valid[:, None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=dev))
+
+
+# -- kernel=auto election (ops/election.py) -----------------------------------
+
+
+def validate_gather_kernel(kernel: str) -> str:
+    """Argument check only; touches no device."""
+    return validate_kernel_arg(kernel)
+
+
+def resolve_gather_kernel(kernel: str, device) -> str:
+    """Resolve the lookup's path on ``device``: explicit requests pass
+    through; ``"auto"`` is ``"xla"`` off the card, and K2 (``"pallas"``)
+    on a CUDA device after its bitwise smoke (``GATHER_ELECTION``; a
+    failed smoke raises, ``QUIVER_GATHER_KERNEL=pallas|xla`` forces)."""
+    return GATHER_ELECTION.resolve_request(kernel, device)
+
+
+_PALLAS_GATHER_OK: bool | None = None
+
+
+def _pallas_gather_usable(device) -> bool:
+    """One-time smoke of K2 on ``device``: four rows of a 32 x 128 f32
+    table, bitwise ``table[ids]``."""
+    global _PALLAS_GATHER_OK
+    if _PALLAS_GATHER_OK is None:
+        table = torch.arange(32 * 128, dtype=torch.float32,
+                             device=device).reshape(32, 128)
+        ids = torch.tensor([3, 0, 31, 7], dtype=torch.int32, device=device)
+        _PALLAS_GATHER_OK = bool(torch.equal(gather_rows(table, ids),
+                                             table[ids.to(torch.int64)]))
+    return _PALLAS_GATHER_OK
+
+
+# The gather election has no measurement: on the card auto is K2 once its
+# smoke passes. The rev bumps when K2 changes. The smoke callable defers
+# the module-global lookup so tests can monkeypatch _pallas_gather_usable.
+GATHER_ELECTION = KernelElection(
+    "gather", env_var="QUIVER_GATHER_KERNEL", rev=1,
+    smoke=lambda device: _pallas_gather_usable(device),  # noqa: PLW0108
+    measure=None, log_child="feature",
+)
+
+
+class KernelChoice:
+    """The lazy lookup-path choice of a store: ``_kernel`` holds the
+    constructor's request verbatim, ``kernel`` resolves it on first use
+    (never in a constructor) for the store's ``device``."""
+
+    _kernel: str
+    device: torch.device
+
+    @property
+    def kernel(self) -> str:
+        resolved = getattr(self, "_kernel_resolved", None)
+        if resolved is None:
+            resolved = resolve_gather_kernel(self._kernel, self.device)
+            self._kernel_resolved = resolved
+        return resolved
+
+
 def _numpy_rows(tensor) -> np.ndarray:
     """A host numpy view of a table given as an array or a tensor (bf16
     tensors widen to float32, which numpy can hold)."""
@@ -111,7 +212,7 @@ def _numpy_rows(tensor) -> np.ndarray:
     return np.asarray(tensor)
 
 
-class Feature:
+class Feature(KernelChoice):
     """Tiered node-feature table; the JAX package's constructor, with the
     port's ``device`` last.
 
@@ -126,9 +227,10 @@ class Feature:
       cache_policy: ``"device_replicate"``.
       csr_topo: enables the degree reorder; sets ``csr_topo.feature_order``.
       hot_shuffle_seed: shuffle seed of the hot prefix.
-      kernel: ``"auto"`` or ``"pallas"`` (the hand-written K2) or ``"xla"``
-        (raises on the card, see
-        :func:`~..core.config.validate_kernel_arg`).
+      kernel: ``"pallas"`` (K2's one launch), ``"xla"`` (the same lookup
+        in stock torch ops, :func:`stock_lookup`) or ``"auto"`` (K2 on the
+        card after its smoke, ``"xla"`` on the CPU; see
+        :func:`resolve_gather_kernel`), resolved at the first lookup.
       dtype: storage dtype: None keeps the input's, a float dtype or
         ``"bfloat16"`` casts, ``"int8"`` quantises each row (lookups
         return float32).
@@ -171,7 +273,8 @@ class Feature:
         self.hot_shuffle_seed = hot_shuffle_seed
         self.storage_dtype = _parse_storage_dtype(dtype)
         self.device = resolve_device(device)
-        self.kernel = validate_kernel_arg(kernel, self.device)
+        self._kernel = validate_gather_kernel(kernel)
+        self._staging = None  # pinned buffer of the "xla" path's cold rows
         self.hot = None
         self.cold = None
         self.feature_order = None
@@ -238,10 +341,26 @@ class Feature:
     def __getitem__(self, n_id):
         """Rows for (possibly padded, -1 sentinel) node ids; invalid lanes
         return zero rows, int8 stores return float32."""
-        n_id = torch.as_tensor(n_id, device=self.device)
+        n_id = torch.as_tensor(n_id, device=self.device).reshape(-1)
         with trace_scope("feature_gather"):
-            return tiered_lookup(n_id.reshape(-1), self.feature_order,
-                                 self.hot_rows, self.hot, self.cold, self.scale)
+            if self.kernel == "pallas":
+                return tiered_lookup(n_id, self.feature_order, self.hot_rows,
+                                     self.hot, self.cold, self.scale)
+            return stock_lookup(n_id, self.feature_order, self.hot_rows,
+                                self.hot, self.cold, self.scale,
+                                self._staging_rows(n_id.shape[0]))
+
+    def _staging_rows(self, rows: int):
+        """A pinned host buffer of at least ``rows`` cold rows for the
+        ``"xla"`` path's copy, when the cold tier is pinned host memory
+        read from a card; else None."""
+        if (self.cold is None or self.device.type != "cuda"
+                or self.cold.device.type != "cpu"):
+            return None
+        if self._staging is None or self._staging.shape[0] < rows:
+            self._staging = torch.empty((rows, self.cold.shape[1]),
+                                        dtype=self.cold.dtype, pin_memory=True)
+        return self._staging
 
     def size(self, dim: int) -> int:
         return self.shape[dim]
@@ -254,6 +373,7 @@ class Feature:
         """Free the device and host buffers now (the reference's
         ``shard_tensor.delete``). The store is unusable after."""
         self.hot = self.cold = self.feature_order = self.scale = None
+        self._staging = None
         self.hot_rows = 0
 
     # -- reference API shims (one process owns the store; IPC is a no-op) --

@@ -10,14 +10,52 @@ messages ``(..., E, F)``: any leading dimensions are independent graphs
 Two aggregation paths, identical results: the dense path for the regular
 sampler layout (lane ``s*fanout + k`` targets seed ``s``), a masked
 reshape and sum; and the segment path for irregular Adjs, a scatter-add
-with an overflow bucket for invalid lanes.
+with an overflow bucket for invalid lanes. ``QUIVER_CHECK=1`` asserts the
+regular layout that the dense path trusts.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from ..utils.trace import info_once
+
 __all__ = ["fanout_sum_aggregate", "gather_src", "segment_mean_aggregate"]
+
+
+_check_cache: bool | None = None
+
+
+def _check_enabled() -> bool:
+    """``QUIVER_CHECK=1`` turns on the layout assertion of the dense path.
+
+    Read ONCE per process, at the first aggregation: set it before the
+    first model call. Tests reset ``_check_cache`` to re-read it."""
+    global _check_cache
+    if _check_cache is None:
+        _check_cache = os.environ.get("QUIVER_CHECK", "0") not in (
+            "", "0", "false", "False"
+        )
+    return _check_cache
+
+
+def _check_regular_layout(dst, valid, num_dst: int, fanout: int) -> None:
+    """Assert the regular-layout claim the dense path trusts: lane
+    ``s*fanout + k`` targets seed ``s`` on every valid lane. It reads back
+    one count per aggregation (a host sync on the card), so it runs only
+    under ``QUIVER_CHECK``."""
+    expected = torch.arange(num_dst, dtype=dst.dtype,
+                            device=dst.device).repeat_interleave(fanout)
+    bad = int(((dst != expected) & valid).sum())
+    if bad > 0:
+        raise AssertionError(
+            f"QUIVER_CHECK: {bad} valid edge lanes violate the regular "
+            "layout dst == repeat(arange(num_dst), fanout) that the dense "
+            "aggregation path trusts; this Adj's fanout claim is wrong and "
+            "the dense path would mis-aggregate"
+        )
 
 
 def gather_src(x, src):
@@ -47,9 +85,20 @@ def segment_mean_aggregate(messages, dst, valid, num_dst: int,
     """
     E = messages.shape[-2]
     if fanout is not None and E == num_dst * fanout:
+        if _check_enabled():
+            _check_regular_layout(dst, valid, num_dst, fanout)
         total = fanout_sum_aggregate(messages, valid, num_dst, fanout)
         cnt = valid.reshape(*valid.shape[:-1], num_dst, fanout).sum(dim=-1)
         return total / cnt.to(messages.dtype).clamp(min=1.0)[..., None]
+    if fanout is not None:
+        # the gate failed on shape: fanout promised the dense layout but
+        # E != num_dst * fanout, so this aggregation takes the scatter path
+        info_once(
+            f"dense-gate-fallback-{E}-{num_dst}-{fanout}",
+            "Adj.fanout=%d set but E=%d != num_dst*fanout=%d; falling back "
+            "to the segment-scatter aggregation path",
+            fanout, E, num_dst * fanout,
+        )
     lead, F = messages.shape[:-2], messages.shape[-1]
     seg = torch.where(valid, dst, num_dst).to(torch.int64)
     total = torch.zeros(*lead, num_dst + 1, F, dtype=messages.dtype,

@@ -1,0 +1,249 @@
+"""Host-side per-stage timeline with streaming percentiles.
+
+The port of ``quiver_tpu/obs/timeline.py``. :class:`StepTimeline` times
+named stages (``with timeline.stage("sample", sync=out.n_id):``), keeps
+streaming p50/p95/p99 per stage through the P² algorithm (O(1) memory: a
+long run never stores every sample), and each stage also enters
+``trace_scope(name)``, so a profile taken with ``obs.profile_epoch``
+carries the same stage names as the host report.
+
+PyTorch returns before the card finishes, so ``sync=`` names what to wait
+for before the clock stops: without it a stage measures the launches, not
+the work. ``utils.trace.Timer(registry=timeline)`` feeds a timeline too.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+
+import torch
+
+from ..utils.trace import trace_scope
+
+__all__ = ["P2Quantile", "StageStats", "StepTimeline"]
+
+
+def _synchronize(sync) -> None:
+    """Wait for the CUDA devices that ``sync`` names: a tensor (its
+    device), a ``torch.device`` or device string, or a sequence of them.
+    CPU devices need no wait."""
+    items = sync if isinstance(sync, (list, tuple)) else (sync,)
+    seen = set()
+    for item in items:
+        dev = item.device if isinstance(item, torch.Tensor) else torch.device(item)
+        if dev.type == "cuda" and dev not in seen:
+            seen.add(dev)
+            torch.cuda.synchronize(dev)
+
+
+class P2Quantile:
+    """Streaming quantile estimate (Jain & Chlamtac's P² algorithm).
+
+    Five markers track the running quantile without storing observations;
+    until five samples arrive the estimate is exact (sorted buffer).
+    """
+
+    def __init__(self, q: float):
+        if not 0.0 < q < 1.0:
+            raise ValueError(f"quantile must be in (0, 1), got {q}")
+        self.q = q
+        self._heights: list[float] = []  # marker heights (first 5: buffer)
+        self._pos = [1, 2, 3, 4, 5]  # marker positions (1-based)
+        self._want = [1.0, 1 + 2 * q, 1 + 4 * q, 3 + 2 * q, 5.0]
+        self._dpos = [0.0, q / 2, q, (1 + q) / 2, 1.0]
+        self.count = 0
+
+    def update(self, x: float) -> None:
+        self.count += 1
+        h = self._heights
+        if len(h) < 5:
+            h.append(float(x))
+            h.sort()
+            return
+        # locate the cell k with h[k] <= x < h[k+1]
+        if x < h[0]:
+            h[0] = float(x)
+            k = 0
+        elif x >= h[4]:
+            h[4] = float(x)
+            k = 3
+        else:
+            k = 0
+            while x >= h[k + 1]:
+                k += 1
+        for i in range(k + 1, 5):
+            self._pos[i] += 1
+        for i in range(5):
+            self._want[i] += self._dpos[i]
+        # adjust the three interior markers toward their desired positions
+        for i in (1, 2, 3):
+            d = self._want[i] - self._pos[i]
+            if (d >= 1 and self._pos[i + 1] - self._pos[i] > 1) or (
+                d <= -1 and self._pos[i - 1] - self._pos[i] < -1
+            ):
+                s = 1 if d >= 0 else -1
+                cand = self._parabolic(i, s)
+                if not h[i - 1] < cand < h[i + 1]:
+                    cand = self._linear(i, s)
+                h[i] = cand
+                self._pos[i] += s
+
+    def _parabolic(self, i: int, s: int) -> float:
+        h, p = self._heights, self._pos
+        return h[i] + s / (p[i + 1] - p[i - 1]) * (
+            (p[i] - p[i - 1] + s) * (h[i + 1] - h[i]) / (p[i + 1] - p[i])
+            + (p[i + 1] - p[i] - s) * (h[i] - h[i - 1]) / (p[i] - p[i - 1])
+        )
+
+    def _linear(self, i: int, s: int) -> float:
+        h, p = self._heights, self._pos
+        return h[i] + s * (h[i + s] - h[i]) / (p[i + s] - p[i])
+
+    @property
+    def value(self) -> float | None:
+        h = self._heights
+        if not h:
+            return None
+        if self.count < 5:
+            # exact nearest-rank order statistic while the buffer is
+            # small: ceil(q*n) 1-based (round()-based indexing returned
+            # interpolated-garbage picks, e.g. p99 of {1,2} -> 1)
+            idx = max(0, math.ceil(self.q * len(h)) - 1)
+            return h[idx]
+        return h[2]
+
+
+class StageStats:
+    """Aggregate for one named stage: count/total/min/max + p50/p95/p99."""
+
+    QUANTILES = (0.5, 0.95, 0.99)
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self.total = 0.0
+        self.min = float("inf")
+        self.max = 0.0
+        self._q = {q: P2Quantile(q) for q in self.QUANTILES}
+
+    def observe(self, seconds: float) -> None:
+        s = float(seconds)
+        self.count += 1
+        self.total += s
+        self.min = min(self.min, s)
+        self.max = max(self.max, s)
+        for est in self._q.values():
+            est.update(s)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def quantile(self, q: float) -> float | None:
+        est = self._q.get(q)
+        return None if est is None else est.value
+
+    def as_dict(self) -> dict:
+        return {
+            "stage": self.name,
+            "count": self.count,
+            "total_s": self.total,
+            "mean_ms": self.mean * 1e3,
+            "min_ms": (0.0 if self.count == 0 else self.min * 1e3),
+            "max_ms": self.max * 1e3,
+            **{
+                f"p{int(q * 100)}_ms": (v * 1e3 if v is not None else None)
+                for q, v in ((q, self.quantile(q)) for q in self.QUANTILES)
+            },
+        }
+
+
+class StepTimeline:
+    """Named-stage wall-clock aggregation for a host loop (the server's
+    batch stages, a training loop's steps)."""
+
+    def __init__(self):
+        self._stages: dict[str, StageStats] = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync=None):
+        """Time a stage; ``sync`` (a tensor, a device, or a sequence of
+        them) names the CUDA devices to synchronise before the clock
+        stops. Also a ``trace_scope``: under a profiler capture the card's
+        timeline shows the same stage name."""
+        with trace_scope(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync is not None:
+                    _synchronize(sync)
+                self.observe(name, time.perf_counter() - t0)
+
+    def observe(self, name: str, seconds: float) -> None:
+        """Record one duration for ``name`` (the ``Timer(registry=...)``
+        feed point)."""
+        stats = self._stages.get(name)
+        if stats is None:
+            stats = self._stages[name] = StageStats(name)
+        stats.observe(seconds)
+
+    def stats(self, name: str) -> StageStats | None:
+        return self._stages.get(name)
+
+    def overlap_efficiency(self, serial_stages, measured: str,
+                           q: float = 0.5) -> float | None:
+        """Derived pipeline-attribution metric: the sum of the SERIAL
+        stage quantiles divided by the quantile of the overlapped
+        (measured) step stage — i.e. how much latency the schedule hides.
+        1.0 = no overlap (the pipelined step costs the full stage sum);
+        values above 1.0 mean sample/gather time is running under
+        compute; the upper bound is stage-sum / max-stage (a perfectly
+        hidden pipeline is bounded by its slowest stage).
+
+        ``serial_stages``: stage names timed by a serial estimator (e.g.
+        ``("sample", "gather", "train_step")``); ``measured``: the stage
+        holding per-step times of the overlapped schedule. Returns None
+        when any stage is missing or untimed — a partial sum would
+        silently understate the baseline.
+        """
+        total = 0.0
+        for name in serial_stages:
+            st = self._stages.get(name)
+            v = None if st is None else st.quantile(q)
+            if v is None:
+                return None
+            total += v
+        st = self._stages.get(measured)
+        v = None if st is None else st.quantile(q)
+        if not v:
+            return None
+        return total / v
+
+    def summary(self) -> dict[str, StageStats]:
+        return dict(self._stages)
+
+    def clear(self) -> None:
+        self._stages.clear()
+
+    def report(self) -> str:
+        """Fixed-width per-stage table (count, mean, p50/p95/p99, max)."""
+        if not self._stages:
+            return "(no stages timed)"
+        hdr = (f"{'stage':<16} {'count':>6} {'mean ms':>9} {'p50 ms':>9} "
+               f"{'p95 ms':>9} {'p99 ms':>9} {'max ms':>9}")
+        lines = [hdr, "-" * len(hdr)]
+        for st in self._stages.values():
+            d = st.as_dict()
+
+            def ms(v):
+                return "-" if v is None else f"{v:9.2f}"
+
+            lines.append(
+                f"{st.name:<16} {st.count:>6d} {d['mean_ms']:9.2f} "
+                f"{ms(d['p50_ms'])} {ms(d['p95_ms'])} {ms(d['p99_ms'])} "
+                f"{d['max_ms']:9.2f}"
+            )
+        return "\n".join(lines)

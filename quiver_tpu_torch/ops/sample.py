@@ -265,7 +265,7 @@ def _raw_draws(bits, shape, k: int, generator, device, weighted: bool):
 
 def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
                  with_eid: bool = False, offs=None, weighted: bool = False,
-                 time_window=None, u=None, bits=None):
+                 time_window=None, u=None, bits=None, fused: bool = True):
     """Sample up to ``k`` neighbours for each valid seed.
 
     Args:
@@ -295,6 +295,11 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         ``u01``), or a callable of the hop's row shape ``(..., S)`` that
         returns them; replaces the generator's draw. At most one of
         ``offs``, ``u`` and ``bits`` is given.
+      fused: run a hop from a generator, raw bits or a ``u`` tensor in one
+        launch of its fused entry (the sampler's ``kernel="pallas"``);
+        False runs the composed path on the same draws instead (the
+        offsets or ``u`` here, then K1's select or K3's search-and-select:
+        the sampler's ``kernel="xla"``), with bitwise the same result.
 
     Returns ``(neighbors (..., S, k) int32, counts (..., S) int32[, eids])``
     with -1 on invalid lanes. For CUDA tensors a hop from a generator, raw
@@ -334,10 +339,12 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
     if weighted and not callable(u):  # a u tensor is the draws themselves
         u01 = _raw_draws(bits if u is None else u, seeds.shape, k, generator,
                          seeds.device, True)
-        return weighted_hop(topo.indptr, topo.indices, topo.cum_weights, seeds,
-                            num_seeds, u01, topo.search_iters, eid=topo.eid,
-                            with_eid=with_eid)
-    if not weighted and time_window is None and offs is None:
+        if fused:
+            return weighted_hop(topo.indptr, topo.indices, topo.cum_weights,
+                                seeds, num_seeds, u01, topo.search_iters,
+                                eid=topo.eid, with_eid=with_eid)
+        u = lambda _deg: u01  # noqa: E731 — the composed path below
+    if fused and not weighted and time_window is None and offs is None:
         jitter, rot = _raw_draws(bits, seeds.shape, k, generator, seeds.device,
                                  False)
         return uniform_hop(topo.indptr, topo.indices, seeds, num_seeds,
@@ -362,7 +369,7 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
         row_off = outs[1]
         eid_out = outs[2] if eid_tab is not None else None
     else:
-        if offs is None:  # a temporal hop: the draw runs over the window
+        if offs is None:  # the draw runs over deg (a temporal hop's window)
             jitter, rot = _raw_draws(bits, lead, k, generator, deg.device, False)
             off, _ = stratified_offsets(deg, k, jitter)
             offs = rotate_offsets(off, deg, k, rot)

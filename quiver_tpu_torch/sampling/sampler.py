@@ -14,6 +14,14 @@ K3's). A ``draw_fn(layer, deg)`` seam replaces those draws (the tests
 feed it JAX's): it returns a uniform hop's int32 offsets (then K1's select
 entry runs), or a weighted hop's float32 ``u01`` block (then K3's
 search-and-select entry runs).
+
+``kernel=`` picks the hop's path, as in the JAX package: ``"pallas"`` is
+the fused hop (one launch of K1's ``uniform_hop`` or K3's
+``weighted_hop``), ``"xla"`` the composed path on the same draws (the
+offsets or ``u`` in torch ops, then K1's ``select`` or K3's ``wselect``:
+the counterpart of JAX's XLA ``sample_layer``, bitwise the fused hop), and
+``"auto"`` the measured election on the card (``SAMPLE_ELECTION``), xla on
+the CPU.
 """
 
 from __future__ import annotations
@@ -23,13 +31,16 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..core.config import SampleMode, validate_dedup, validate_kernel_arg
+from ..core.config import SampleMode, validate_dedup
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, VersionMismatchError
+from ..ops.election import KernelElection, validate_kernel_arg
 from ..ops.reindex import reindex_layer
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
+from ..utils.trace import get_logger
 
-__all__ = ["Adj", "GraphSageSampler", "SampleOutput", "multilayer_sample"]
+__all__ = ["Adj", "GraphSageSampler", "SAMPLE_ELECTION", "SampleOutput",
+           "multilayer_sample", "resolve_sample_kernel"]
 
 
 class Adj:
@@ -77,7 +88,7 @@ def _round_up(x: int, m: int) -> int:
 
 def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
                       with_eid: bool = False, weighted: bool = False,
-                      time_window=None, bits=None):
+                      time_window=None, bits=None, fused: bool = True):
     """The multi-layer sample + reindex loop.
 
     ``seeds`` is ``(..., S)``, ``num_seeds`` a scalar or ``(...)``; every
@@ -88,7 +99,9 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
     gives its raw draws over rows of ``shape`` (``sample_layer``'s
     ``bits=`` seam: a uniform hop's ``(jitter, rot)``, a weighted hop's
     ``u01``), which a fused entry consumes. ``time_window`` makes every
-    hop temporal (``deg`` is then the in-window degree).
+    hop temporal (``deg`` is then the in-window degree). ``fused=False``
+    runs a ``bits`` hop through the composed path (``sample_layer``'s
+    ``fused``).
 
     Returns (n_id, n_count, adjs deepest-first, overflow, per-layer edge
     counts, per-layer unclipped frontier counts).
@@ -106,7 +119,7 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
             seam = {"u" if weighted else "offs": lambda deg, l=l: draw(l, deg)}
         out = sample_layer(topo, cur, cur_n, k, with_eid=with_eid,
                            weighted=weighted, time_window=time_window,
-                           **seam)
+                           fused=fused, **seam)
         nbr = out[0]
         frontier, n_frontier, col, overflow = reindex_layer(
             cur, cur_n, nbr, caps[l])
@@ -129,6 +142,92 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
     return (cur, torch.as_tensor(cur_n, device=seeds.device), adjs[::-1],
             total_overflow, tuple(edge_counts[::-1]),
             tuple(frontier_counts[::-1]))
+
+
+# -- kernel=auto election (ops/election.py) ------------------------------------
+
+_PALLAS_SAMPLE_OK: bool | None = None
+
+
+def _pallas_sample_usable(device) -> bool:
+    """One-time bitwise smoke of the fused hops on ``device``: on the JAX
+    package's 64-node graph (512 random edges, 16 seeds, k = 4), the fused
+    uniform and weighted hops must return the composed path's neighbours,
+    counts and edge ids on shared draws."""
+    global _PALLAS_SAMPLE_OK
+    if _PALLAS_SAMPLE_OK is None:
+        rng = np.random.default_rng(0)
+        ei = rng.integers(0, 64, size=(2, 512))
+        seeds_np = rng.integers(0, 64, 16).astype(np.int32)
+        topo = CSRTopo(edge_index=ei,
+                       edge_weight=rng.random(512).astype(np.float32))
+        dev = topo.to_device(SampleMode.HBM, device, with_eid=True,
+                             with_weights=True)
+        seeds = torch.from_numpy(seeds_np).to(device)
+        ok = True
+        for weighted in (False, True):
+            g = seeded_generator(device, 0, int(weighted))
+            draws = hop_draws((16,), 4, g, weighted=weighted)
+            fused, composed = (
+                sample_layer(dev, seeds, 16, 4, with_eid=True,
+                             weighted=weighted, bits=draws, fused=f)
+                for f in (True, False))
+            ok &= all(torch.equal(a, b) for a, b in zip(fused, composed))
+        _PALLAS_SAMPLE_OK = bool(ok)
+    return _PALLAS_SAMPLE_OK
+
+
+def _measure_sample_eps(kernel: str, device, nodes: int = 4096,
+                        edges: int = 1 << 18, batch: int = 1024, k: int = 8,
+                        reps: int = 8) -> float:
+    """Sampled edges/s of one hop path on ``device``: ``reps`` distinct
+    batches of ``batch`` seeds over a random ``nodes``-node,
+    ``edges``-edge graph, each hop drawing from a generator, timed between
+    CUDA events after a warm-up; the middle of 3 runs."""
+    rng = np.random.default_rng(0)
+    topo = CSRTopo(edge_index=rng.integers(0, nodes, size=(2, edges)))
+    dev = topo.to_device(SampleMode.HBM, device)
+    seeds_mat = torch.from_numpy(
+        rng.integers(0, nodes, (reps, batch)).astype(np.int32)).to(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    fused = kernel == "pallas"
+
+    def run():
+        for seeds in seeds_mat:
+            sample_layer(dev, seeds, batch, k, g, fused=fused)
+
+    run()  # warm-up (builds the kernels on first use)
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    return reps * batch * k / sorted(times)[1]
+
+
+# edges/s election between the fused hop and the composed path. The rev
+# bumps when either path's implementation changes. The callables defer the
+# module-global lookup so tests can monkeypatch them.
+SAMPLE_ELECTION = KernelElection(
+    "sample", env_var="QUIVER_SAMPLE_KERNEL", rev=1,
+    smoke=lambda device: _pallas_sample_usable(device),  # noqa: PLW0108
+    measure=lambda kernel, device: _measure_sample_eps(kernel, device),
+    unit="edges/s", log_child="sampler",
+)
+
+
+def resolve_sample_kernel(kernel: str, device) -> str:
+    """Resolve the sampler's hop path on ``device``: explicit requests
+    pass through; ``"auto"`` is ``"xla"`` off the card, and on a CUDA
+    device the measured election between the fused hop and the composed
+    path (a bitwise smoke, an edges/s measurement, the shared disk cache,
+    ``QUIVER_SAMPLE_KERNEL=pallas|xla`` to force). A failed smoke raises."""
+    return SAMPLE_ELECTION.resolve_request(kernel, device)
 
 
 class GraphSageSampler:
@@ -164,9 +263,10 @@ class GraphSageSampler:
         ``lo <= t <= hi`` (needs ``csr_topo.set_edge_time`` and GPU mode);
         excludes ``weighted``.
       auto_margin: headroom factor of ``"auto"`` caps (>= 1).
-      kernel: ``"auto"`` or ``"pallas"`` (the hand-written hops) or
-        ``"xla"`` (raises on the card, see
-        :func:`~..core.config.validate_kernel_arg`).
+      kernel: ``"pallas"`` (the fused hops), ``"xla"`` (the composed
+        path on the same draws) or ``"auto"`` (the measured election on the
+        card, ``"xla"`` on the CPU; see :func:`resolve_sample_kernel`),
+        resolved at the first ``sample``.
       with_eid: populate ``Adj.e_id`` with per-edge ids.
       dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, validated:
         the JAX package's three reindex strategies give identical results,
@@ -209,7 +309,7 @@ class GraphSageSampler:
                 f"compiled_cache_size must be >= 1, got {compiled_cache_size}")
         self.compiled_cache_size = int(compiled_cache_size)
         self.device = resolve_device(device)
-        self.kernel = validate_kernel_arg(str(kernel), self.device)
+        self._kernel = validate_kernel_arg(str(kernel))
         self.dedup = validate_dedup(str(dedup))
         self.csr_topo = csr_topo
         self.mode = SampleMode.parse(mode)
@@ -260,6 +360,16 @@ class GraphSageSampler:
         self.reruns = 0
         self.topo = self._place()
         self._topo_version = int(csr_topo.version)
+
+    @property
+    def kernel(self) -> str:
+        """The resolved hop path (``"pallas"`` or ``"xla"``); ``_kernel``
+        holds the constructor's request."""
+        resolved = getattr(self, "_kernel_resolved", None)
+        if resolved is None:
+            resolved = resolve_sample_kernel(self._kernel, self.device)
+            self._kernel_resolved = resolved
+        return resolved
 
     def _place(self):
         return self.csr_topo.to_device(
@@ -365,12 +475,13 @@ class GraphSageSampler:
 
         seam = {"draw": draw} if draw_fn is not None else {"bits": bits}
         dev_seeds = torch.from_numpy(padded).to(self.device)
+        fused = self.kernel == "pallas"
 
         def run():
             return multilayer_sample(
                 self.topo, dev_seeds, batch, self.sizes, self._caps_for(cap),
                 with_eid=self.with_eid, weighted=self.weighted,
-                time_window=self.time_window, **seam)
+                time_window=self.time_window, fused=fused, **seam)
 
         n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run()
         if self._auto_caps:
@@ -387,6 +498,12 @@ class GraphSageSampler:
                     break
                 before = self._frontier_caps
                 self._plan_auto(cap, counts[::-1])
+                if self._frontier_caps != before:
+                    get_logger().info(
+                        "auto caps %s: %s -> %s (recompile)",
+                        "planned" if before is None else "regrown",
+                        before, self._frontier_caps,
+                    )
                 if first_plan and ovf == 0:
                     break  # the worst-case run stands; later calls fit
                 if not first_plan and self._frontier_caps == before:

@@ -6,7 +6,8 @@ size ``B`` the ladder runs two fixed-shape steps:
 * **sample**: the ``B`` lanes are sampled together, one launch per hop
   for all lanes (a fused entry on the lanes' stacked raw draws: K1's
   uniform hop, or K3's weighted hop on a weighted sampler; K1's select
-  entry or K3's search-and-select under a ``draw_fn``), but every lane is
+  entry or K3's search-and-select under a ``draw_fn`` or the sampler's
+  ``kernel="xla"``), but every lane is
   its own single-seed sample with its own frontier caps (planned for ONE
   seed) and its own draws, from generators seeded by ``(seed, seq,
   layer)``. Lanes share no state, so a request's neighbourhood is a
@@ -151,7 +152,8 @@ class ServeLadder:
                 else {"bits": self._bits(seqs)})
         n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
             self.sampler.topo, seeds[:, None], 1, self.sizes,
-            self.lane_caps, weighted=self.weighted, **seam,
+            self.lane_caps, weighted=self.weighted,
+            fused=self.sampler.kernel == "pallas", **seam,
         )
         return n_id, tuple(a.edge_index for a in adjs), overflow
 

@@ -3,13 +3,20 @@
 The port of ``quiver_tpu/serving/server.py``. It composes the
 :class:`~.coalesce.DeadlineBatcher` (admission, deadline-aware coalescing,
 bounded-queue backpressure), the :class:`~.ladder.ServeLadder` (per-bucket
-sample and forward steps) and the feature store's gather between them.
+sample and forward steps) and the feature store's gather between them: a
+:class:`~..feature.feature.Feature`, or the circuit-breaker-wrapped
+:class:`~..resilience.elastic.DegradedFeature`, so a cold-tier outage
+degrades responses instead of failing them.
 
-Every batch walks the same six stages as the JAX server: ``queue_wait``,
-``pad``, ``sample``, ``gather``, ``forward`` and ``readback``. Each stage
-ends in a device synchronise, so its host-clock time is the time of its
-device work; the times are kept per stage and summarised by
-:meth:`InferenceServer.stats`.
+Every batch walks the JAX server's six stages, ``queue_wait``, ``pad``,
+``sample``, ``gather``, ``forward`` and ``readback``, on an
+:class:`~..obs.timeline.StepTimeline` (P² p50/p95/p99 per stage); each
+stage ends in a device synchronise, so its host-clock time covers its
+device work. The serve counters land on a
+:class:`~..obs.registry.MetricsRegistry` under the ``serve.*`` names, a
+:class:`~..obs.tracing.Tracer` records one trace per request with the six
+stages as child spans, and a :class:`~..obs.recorder.FlightRecorder`
+dumps a postmortem bundle on a shed burst or a breaker opening.
 
 Staleness: the server records the host CSR's committed ``version`` when it
 builds its ladder, and every serve path raises
@@ -19,7 +26,6 @@ until :meth:`InferenceServer.refresh` re-places the topology.
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
@@ -27,29 +33,47 @@ import torch
 
 from ..core.memory import resolve_device
 from ..core.topology import VersionMismatchError
+from ..obs.registry import (
+    SERVE_AOT_LOADS,
+    SERVE_CLASS_MISSES,
+    SERVE_DEADLINE_MISSES,
+    SERVE_DEGRADED_LOOKUPS,
+    SERVE_RECOMPILES,
+    SERVE_REQUESTS,
+    SERVE_SHED,
+    MetricsRegistry,
+)
+from ..obs.timeline import StepTimeline
+from ..obs.tracing import Tracer
+from ..resilience.elastic import DegradedFeature
 from .coalesce import PRIORITIES, DeadlineBatcher, ServeRequest, ladder_buckets
 from .ladder import ServeLadder
 
-__all__ = ["InferenceServer", "StageTimes"]
+__all__ = ["InferenceServer"]
 
 
-class StageTimes:
-    """Per-stage latency samples (seconds), summarised on demand."""
+class _MarkedStage:
+    """Context manager pairing one :class:`StepTimeline` stage with a
+    ``(name, t0, dur)`` mark on the server's tracer clock."""
 
-    def __init__(self, stages):
-        self.samples = {name: [] for name in stages}
+    __slots__ = ("_server", "_name", "_marks", "_inner", "_t0")
 
-    def observe(self, name: str, seconds: float) -> None:
-        self.samples[name].append(float(seconds))
+    def __init__(self, server, name, marks):
+        self._server = server
+        self._name = name
+        self._marks = marks
+        self._inner = server.timeline.stage(name, sync=server.device)
 
-    def summary(self) -> dict:
-        out = {}
-        for name, xs in self.samples.items():
-            if xs:
-                a = np.asarray(xs)
-                out[name] = {"count": len(xs), "mean": float(a.mean()),
-                             "p50": float(np.percentile(a, 50)),
-                             "p99": float(np.percentile(a, 99))}
+    def __enter__(self):
+        self._t0 = self._server.tracer.now()
+        return self._inner.__enter__()
+
+    def __exit__(self, exc_type, exc, tb):
+        # the inner stage synchronises, so its exit ends the mark
+        out = self._inner.__exit__(exc_type, exc, tb)
+        self._marks.append(
+            (self._name, self._t0, self._server.tracer.now() - self._t0)
+        )
         return out
 
 
@@ -61,7 +85,8 @@ class InferenceServer:
         the placed topology to serve from.
       model: the module, ``model(x, adjs)`` -> log-probs; it is put in
         eval mode.
-      feature: ids -> rows store (:class:`~..feature.feature.Feature`).
+      feature: ids -> rows store (:class:`~..feature.feature.Feature`, or
+        a wrapper of one exposing ``shape`` and ``device``).
       device: the serving device; CUDA unless the caller passes another.
         The sampler and the store must live on it.
       max_batch: top of the power-of-two bucket ladder.
@@ -73,6 +98,25 @@ class InferenceServer:
         sampler's worst-case single-seed plan).
       seed: base seed; a request's draws come from generators seeded by
         ``(seed, seq, layer)``, so responses are functions of (node, seq).
+      degraded: None (store failures propagate), or ``"zeros"`` /
+        ``"last-good"``: wrap the store in a circuit-breaker
+        :class:`DegradedFeature`, so an outage serves degraded rows
+        instead of failing requests.
+      breaker_failures / probe_every: breaker thresholds when wrapping.
+      metrics / timeline: external sinks (private by default).
+      controller: the cache controller's serve-path feed is not ported
+        (ROADMAP A.12); anything but None raises.
+      aot_cache: a persisted-program cache is not ported (ROADMAP A.6: the
+        port compiles nothing until CUDA-graph capture); anything but None
+        raises.
+      tracer: optional :class:`Tracer`: every admitted request opens one
+        trace, and the six batch stages land as child spans of it.
+        Default: a disabled tracer (no work, bitwise-identical responses).
+      recorder: optional :class:`~..obs.recorder.FlightRecorder`: dumps a
+        postmortem bundle on a shed burst (``shed_burst`` sheds since the
+        last dump) and, when this server wraps its store in a
+        ``DegradedFeature``, on breaker open.
+      shed_burst: shed-count threshold for the recorder trigger.
       draw_fn: optional ``draw_fn(seq, layer, deg)`` replacing the
         generator draws (the parity tests feed it JAX's): it returns a
         lane's int32 offsets, or its float32 ``u01`` block when the
@@ -86,7 +130,21 @@ class InferenceServer:
                  default_deadline_s: float = 0.05,
                  budget_fraction: float = 0.5, max_queue: int = 256,
                  clock=time.monotonic, lane_caps=None, seed: int = 0,
-                 class_deadlines: dict | None = None, draw_fn=None):
+                 degraded: str | None = None, breaker_failures: int = 3,
+                 probe_every: int = 8,
+                 metrics: MetricsRegistry | None = None,
+                 timeline: StepTimeline | None = None,
+                 controller=None, class_deadlines: dict | None = None,
+                 aot_cache=None, tracer: Tracer | None = None,
+                 recorder=None, shed_burst: int = 8, draw_fn=None):
+        if controller is not None:
+            raise NotImplementedError(
+                "controller= (the cache controller's serve-path feed) is "
+                "not ported (ROADMAP A.12)")
+        if aot_cache is not None:
+            raise NotImplementedError(
+                "aot_cache= (persisted serving programs) is not ported "
+                "(ROADMAP A.6: CUDA-graph capture)")
         self.device = resolve_device(device)
         for name, dev in (("sampler", sampler.device),
                           ("feature", feature.device)):
@@ -95,10 +153,22 @@ class InferenceServer:
                     f"{name} lives on {dev}, the server on {self.device}")
         self.sampler = sampler
         self.model = model.to(self.device).eval()
-        self.feature = feature
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.timeline = timeline if timeline is not None else StepTimeline()
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.recorder = recorder
+        self.replica_index = 0
+        self.shed_burst = int(shed_burst)
+        self._shed_dumped = 0
         self.clock = clock
         self.seed = int(seed)
         self.draw_fn = draw_fn
+        if degraded is not None and not isinstance(feature, DegradedFeature):
+            feature = DegradedFeature(
+                feature, failures=breaker_failures, probe_every=probe_every,
+                fallback=degraded, metrics=self.metrics, recorder=recorder,
+            )
+        self.feature = feature
         self.batcher = DeadlineBatcher(
             buckets=tuple(buckets) if buckets else ladder_buckets(max_batch),
             default_deadline_s=default_deadline_s,
@@ -106,11 +176,49 @@ class InferenceServer:
             max_queue=max_queue, clock=clock,
             class_deadlines=class_deadlines,
         )
-        self.timeline = StageTimes(self.STAGES)
         self._lane_caps = lane_caps
+        self.metrics.counter(
+            SERVE_REQUESTS, unit="requests",
+            doc="point queries completed by the serving path",
+        )
+        self.metrics.counter(
+            SERVE_DEADLINE_MISSES, unit="requests",
+            doc="requests completed after their admission deadline",
+        )
+        self.metrics.counter(
+            SERVE_DEGRADED_LOOKUPS, unit="lookups",
+            doc="serve-batch feature gathers satisfied by the circuit "
+                "breaker's degraded fallback instead of the real store",
+        )
+        self.metrics.counter(
+            SERVE_RECOMPILES, unit="programs",
+            doc="ladder program compilations (0 after warmup = the "
+                "steady-state never-recompile contract)",
+        )
+        self.metrics.counter(
+            SERVE_AOT_LOADS, unit="programs",
+            doc="ladder programs warmed by deserializing a persisted AOT "
+                "executable instead of compiling (a cache-warm replica "
+                "reports recompiles == 0)",
+        )
+        self.metrics.counter(
+            SERVE_SHED, shape=(len(PRIORITIES),), unit="requests",
+            doc="requests shed at admission under a full queue, by SLO "
+                "class (coalesce.PRIORITIES order: gold, bronze)",
+        )
+        self.metrics.counter(
+            SERVE_CLASS_MISSES, shape=(len(PRIORITIES),), unit="requests",
+            doc="deadline misses attributed by SLO class "
+                "(coalesce.PRIORITIES order: gold, bronze)",
+        )
         self._requests_total = 0
         self._misses_total = 0
         self._class_misses = [0] * len(PRIORITIES)
+        self._serve_degraded_total = 0
+        self._degraded_seen = (
+            feature.degraded_total if isinstance(feature, DegradedFeature)
+            else 0
+        )
         # row dtype/width probe: one -1 (padding) id returns one zero row of
         # exactly the dtype and width the store serves
         probe = self.feature[torch.full((1,), -1, dtype=torch.int32)]
@@ -125,6 +233,24 @@ class InferenceServer:
             row_dtype=self._row_dtype, lane_caps=self._lane_caps,
             seed=self.seed, draw_fn=self.draw_fn,
         )
+
+    def _sync_shed(self) -> None:
+        shed = [self.batcher.shed_by_class[p] for p in PRIORITIES]
+        self.metrics.set(SERVE_SHED, np.asarray(shed, np.int32))
+        total = int(sum(shed))
+        if self.recorder is not None:
+            if total > self._shed_dumped:
+                self.recorder.note(
+                    "serve.shed", replica=self.replica_index,
+                    shed_total=total,
+                )
+            if total - self._shed_dumped >= self.shed_burst:
+                self._shed_dumped = total
+                self.recorder.trigger(
+                    "shed_burst", stage="queue",
+                    replica=self.replica_index, shed_total=total,
+                    queue_depth=self.batcher.depth,
+                )
 
     @property
     def ladder(self) -> ServeLadder:
@@ -157,9 +283,26 @@ class InferenceServer:
     # -- serving -------------------------------------------------------------
 
     def submit(self, node: int, deadline_s: float | None = None,
-               priority: str = "gold") -> ServeRequest:
-        """Admit one point query (see :meth:`DeadlineBatcher.submit`)."""
-        return self.batcher.submit(node, deadline_s, priority)
+               priority: str = "gold",
+               trace_id: str | None = None) -> ServeRequest:
+        """Admit one point query (see :meth:`DeadlineBatcher.submit`); the
+        shed policy under a full queue drops bronze before gold, and shed
+        counts land per class on ``serve.shed_requests``. ``trace_id``
+        joins the request to an existing trace; absent, a fresh trace
+        opens per request when tracing is on."""
+        try:
+            req = self.batcher.submit(node, deadline_s, priority)
+        finally:
+            self._sync_shed()
+        if self.tracer.enabled:
+            req.trace_id = (trace_id if trace_id is not None
+                            else self.tracer.trace())
+            self.tracer.event(
+                "serve.enqueue", trace=req.trace_id, subsystem="serve",
+                node=int(node), seq=req.seq, priority=priority,
+                replica=self.replica_index,
+            )
+        return req
 
     def warmup(self, buckets=None) -> int:
         """Run every bucket once before traffic (all batcher buckets by
@@ -192,31 +335,59 @@ class InferenceServer:
             self.pump(force=True)
         return reqs
 
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timeline.observe(name, time.perf_counter() - t0)
+    def _stage(self, name: str, marks):
+        """One timed batch stage, ending in a device synchronise: always
+        on the P² timeline; when tracing, also a ``(name, t0, dur)`` mark
+        (tracer clock) for every request of the batch."""
+        if marks is None:
+            return self.timeline.stage(name, sync=self.device)
+        return _MarkedStage(self, name, marks)
+
+    def _emit_batch_spans(self, reqs, bucket, marks, t_batch0, t_pop):
+        """Per-request traces: one ``serve.request`` root from admission to
+        completion, a ``serve.queue_wait`` child from the batcher clock,
+        and the five measured batch stages as children (shared by the
+        co-batched requests)."""
+        t_end = self.tracer.now()
+        for r in reqs:
+            qwait = max(t_pop - r.t_admit, 0.0)
+            root = self.tracer.record(
+                "serve.request", t_batch0 - qwait,
+                (t_end - t_batch0) + qwait, trace=r.trace_id,
+                subsystem="serve", node=int(r.node), seq=r.seq,
+                priority=r.priority, bucket=bucket,
+                replica=self.replica_index, missed=bool(r.missed),
+            )
+            self.tracer.record(
+                "serve.queue_wait", t_batch0 - qwait, qwait,
+                trace=r.trace_id, parent=root, subsystem="serve",
+            )
+            for name, t0, dur in marks:
+                self.tracer.record(
+                    f"serve.{name}", t0, dur, trace=r.trace_id,
+                    parent=root, subsystem="serve", bucket=bucket,
+                )
 
     def _run_batch(self, reqs, bucket: int) -> list[ServeRequest]:
+        marks = [] if self.tracer.enabled else None
+        t_batch0 = self.tracer.now() if marks is not None else 0.0
+        t_pop = self.clock()
         capL = self._ladder.lane_caps[-1]
-        with self._stage("pad"):
+        with self._stage("pad", marks):
             seeds = np.full(bucket, -1, np.int32)
             seqs = [None] * bucket
             for i, r in enumerate(reqs):
                 seeds[i] = r.node
                 seqs[i] = r.seq
             seeds_d = torch.from_numpy(seeds).to(self.device)
-        with self._stage("sample"):
+        with self._stage("sample", marks):
             n_ids, eis, overflow = self._ladder.sample_exec(bucket)(seeds_d, seqs)
-        with self._stage("gather"):
+        with self._stage("gather", marks):
             x = self.feature[n_ids.reshape(-1)].reshape(
                 bucket, capL, self._feature_dim)
-        with self._stage("forward"):
+        with self._stage("forward", marks):
             out = self._ladder.forward_exec(bucket)(x, eis)
-        with self._stage("readback"):
+        with self._stage("readback", marks):
             out_np = out.cpu().numpy()
             ovf_np = overflow.cpu().numpy()
         t_done = self.clock()
@@ -231,6 +402,22 @@ class InferenceServer:
                 self._class_misses[PRIORITIES.index(r.priority)] += 1
         self._requests_total += len(reqs)
         self._misses_total += misses
+        self.metrics.set(SERVE_REQUESTS, np.int32(self._requests_total))
+        self.metrics.set(SERVE_DEADLINE_MISSES, np.int32(self._misses_total))
+        self.metrics.set(
+            SERVE_CLASS_MISSES, np.asarray(self._class_misses, np.int32)
+        )
+        if isinstance(self.feature, DegradedFeature):
+            delta = self.feature.degraded_total - self._degraded_seen
+            if delta:
+                self._degraded_seen = self.feature.degraded_total
+                self._serve_degraded_total += delta
+                self.metrics.set(
+                    SERVE_DEGRADED_LOOKUPS,
+                    np.int32(self._serve_degraded_total),
+                )
+        if marks is not None:
+            self._emit_batch_spans(reqs, bucket, marks, t_batch0, t_pop)
         return reqs
 
     # -- parity oracle -------------------------------------------------------
@@ -247,13 +434,38 @@ class InferenceServer:
 
     # -- introspection -------------------------------------------------------
 
+    @property
+    def recompiles(self) -> int:
+        """Ladder program compilations (``serve.recompiles``): always 0,
+        since the port compiles nothing (CUDA-graph capture, ROADMAP A.6,
+        will count its captures here)."""
+        return 0
+
+    @property
+    def aot_loads(self) -> int:
+        """Ladder programs loaded from a persisted cache
+        (``serve.aot_loads``): always 0 (ROADMAP A.6)."""
+        return 0
+
     def stats(self) -> dict:
-        """Serve counters and per-stage latency quantiles (seconds)."""
+        """Host-side serve counters and per-stage latency quantiles: the
+        JAX server's layout, ``stages`` as ``StageStats.as_dict()`` (P²
+        estimates, milliseconds). ``recompiles`` and ``aot_loads`` stay 0:
+        the port compiles nothing yet (ROADMAP A.6)."""
+        stages = {
+            name: st.as_dict()
+            for name, st in self.timeline.summary().items()
+        }
         return {
             "requests": self._requests_total,
             "deadline_misses": self._misses_total,
-            "class_deadline_misses": dict(zip(PRIORITIES, self._class_misses)),
+            "class_deadline_misses": dict(
+                zip(PRIORITIES, self._class_misses)
+            ),
             "shed": dict(self.batcher.shed_by_class),
+            "degraded_lookups": self._serve_degraded_total,
+            "recompiles": self.recompiles,
+            "aot_loads": self.aot_loads,
             "queue_depth": self.batcher.depth,
-            "stages": self.timeline.summary(),
+            "stages": stages,
         }

@@ -171,6 +171,8 @@ def _check_own_draws(weighted):
     np.testing.assert_array_equal(out[0], out[1])
     stats = st.stats()
     assert stats["requests"] == 5 and set(qt.InferenceServer.STAGES) <= set(stats["stages"])
+    assert stats["stages"]["queue_wait"]["count"] == 5  # StageStats.as_dict()
+    assert stats["stages"]["sample"]["stage"] == "sample"
 
 
 def test_version_check_and_refresh():
