@@ -36,8 +36,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    table returns K2's rows bitwise with no K2 launch.
 4. serve, uniform: the full-width serving configuration (products-shaped
    graph, F=100, GraphSAGE hidden 256 / 47 classes / 2 layers, fanouts
-   [5, 5], max_batch 8) answers closed-loop point queries with every kernel
-   launch counted; the answers are checked (finite, normalised, no
+   [5, 5], max_batch 8) captures its per-bucket programs as CUDA graphs
+   (each bucket's sample program runs its two hops once eagerly and once
+   under capture) and answers closed-loop point queries by replaying them,
+   with every kernel launch counted from before the capture: the wrappers'
+   calls, plus each replay's captured launches (a replay calls no wrapper;
+   ``torch.profiler`` sees the hop's kernel run in one); the answers are
+   checked (finite, normalised, no
    overflow, ladder == single-query oracle bitwise at every bucket, full
    and padded, with the oracle's launches counted), then the same stream
    is served again from a store with 3/4
@@ -105,6 +110,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    bundle that passes ``verify_bundle``), closes on the probe after the
    window, and answers bitwise as a healthy server after it; K2 launches
    once per batch whose lookup reaches the store.
+11. serving fleet, last (its version drill mutates the topology); over
+   phase 4's tiered store: a 2-replica ``ServingFleet`` with a fresh
+   program cache and a ``CacheController``; replica 0 captures 8 programs
+   (4 buckets x 2), replica 1 joins with none (join seconds and capture ms
+   printed); 256 closed-loop queries, every replica serving every bucket
+   full and padded, answer bitwise as ``fleet.oracle``, and the sketch
+   counts every valid served id. A weighted fleet whose sampler shares the
+   uniform sampler's placement (``device_topo``) answers bitwise as a
+   server over its own placement. An ``EmbeddingRefresher`` over the full
+   graph publishes from its background lane (its own CUDA stream) while
+   the fleet serves, equal to a foreground refresh (bitwise expected,
+   within 1e-5 at worst). The version drill: one
+   edge inserted through ``CSRTopo._publish_mutation``; every serve path
+   and the refresher raise; ``fleet.refresh()`` recaptures on replica 0
+   and loads on replica 1; the answers equal the oracle. Then the
+   replayed fleet's device idle share, as phase 10 measures it, with the
+   controller's feed and without it.
 
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -246,18 +268,39 @@ def kernel_fns():
 
 
 def reset_launches() -> None:
+    """Set every wrapper's count and the programs' replay tally to 0."""
+    from quiver_tpu_torch.serving.ladder import REPLAYED_LAUNCHES
+
     for fn in kernel_fns().values():
         fn.launches = 0
+    REPLAYED_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_fns().items()}
+    """The wrappers' counts: launches made by calling a wrapper (eagerly,
+    or into a CUDA graph under capture)."""
+    from quiver_tpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()
 
 
-def expect_launches(launches: dict, want: dict, what: str) -> None:
-    """Every entry launched exactly as ``want`` says (0 when unnamed)."""
+def read_replayed() -> dict:
+    """Launches made by replaying captured serving programs: each replay
+    launches again every kernel its capture recorded, calling no wrapper."""
+    from quiver_tpu_torch.serving.ladder import REPLAYED_LAUNCHES
+
+    return {name: REPLAYED_LAUNCHES.get(name, 0) for name in ENTRIES}
+
+
+def expect_launches(launches: dict, want: dict, what: str,
+                    replayed: dict | None = None) -> None:
+    """Every entry launched exactly as ``want`` says through its wrapper
+    and as ``replayed`` says through program replays (0 when unnamed)."""
     full = {name: want.get(name, 0) for name in ENTRIES}
     check(launches == full, f"{what}: launches {launches}, expected {full}")
+    got = read_replayed()
+    full = {name: (replayed or {}).get(name, 0) for name in ENTRIES}
+    check(got == full, f"{what}: replayed launches {got}, expected {full}")
 
 
 def in_turns(kernel_fn, yard_fn, iters: int = 200, reps: int = 7) -> dict:
@@ -1010,8 +1053,9 @@ def closed_loop(server, nodes, top):
 def ladder_parity(server, picks, hop: str, composed: str, lookup: str):
     """Ladder lanes against the single-query oracle at every bucket, full
     and with a padded tail: ids, edges and log-probs bitwise. Counts the
-    launches: per group one ``hop`` launch per layer and one ``lookup``,
-    per lane the oracle's two samples (``composed`` on each layer) and one
+    launches: per group one ``hop`` launch per layer, replayed by the
+    bucket's captured sample program, and one ``lookup``; per lane the
+    oracle's two samples (``composed`` on each layer) and one
     ``lookup``."""
     import numpy as np
     import torch
@@ -1047,23 +1091,52 @@ def ladder_parity(server, picks, hop: str, composed: str, lookup: str):
     sync()
     layers = len(lad.sizes)
     launches = read_launches()
-    expect_launches(launches, {hop: layers * groups_run,
-                               composed: 2 * layers * lanes,
+    replayed = read_replayed()
+    expect_launches(launches, {composed: 2 * layers * lanes,
                                lookup: groups_run + lanes},
-                    "ladder parity")
+                    "ladder parity", replayed={hop: layers * groups_run})
     return {"ids_edges": "bitwise", "logp": "bitwise", "lanes": lanes,
-            "groups": groups_run, "launches": launches}
+            "groups": groups_run, "launches": launches, "replayed": replayed}
+
+
+def replay_profile(server, hop: str) -> dict:
+    """``torch.profiler`` over one replay of the bucket-8 sample program
+    (8 live lanes): the hop's kernel runs on the card inside the replay,
+    which calls no wrapper."""
+    import torch
+
+    name = {"uniform_hop": "uniform_hop_kernel",
+            "weighted_hop": "weighted_hop_kernel"}[hop]
+    run = server.ladder.sample_exec(8)
+    seeds = torch.arange(8, dtype=torch.int32)
+    seqs = list(range(1 << 20, (1 << 20) + 8))
+    sync()
+    before = read_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(seeds, seqs)
+        sync()
+    check(read_launches() == before, "a replay calls no wrapper")
+    rows = [e for e in prof.key_averages()
+            if name in e.key and e.self_device_time_total > 0]
+    check(bool(rows), f"the profiler sees {name} run in a replay")
+    return {"kernel": name, "calls": sum(e.count for e in rows),
+            "device_us": sum(e.self_device_time_total for e in rows)}
 
 
 def serve_phase(args, topo, feat_hot, variants, card, weighted):
-    """Serve ``args.requests`` closed-loop queries over the [5, 5] sampler
-    (weighted or uniform) from the store ``feat_hot``, with every kernel
-    launch counted, and check the answers and the launches (per batch: one
-    hop launch per layer, K1's or K3's fused hop, and one K2 tiered lookup,
-    the dequantising entry for an int8 store; nothing else); then serve
-    the same stream again through each of ``variants`` (``(label, sampler
-    kwargs or None to reuse the sampler, store)``), which must answer
-    bitwise the same with the same launches."""
+    """Build the server's programs (warm-up: each bucket's sample program
+    runs its two hops once eagerly and once under capture) and serve
+    ``args.requests`` closed-loop queries over the [5, 5] sampler (weighted
+    or uniform) from the store ``feat_hot``, with every kernel launch
+    counted from before the warm-up, and check the answers and the
+    launches (per batch: one hop launch per layer, K1's or K3's fused hop,
+    replayed by the captured sample program, and one K2 tiered lookup,
+    eager, the dequantising entry for an int8 store; nothing else); the
+    profiler sees the hop's kernel in a replay; then serve the same stream
+    again through each of ``variants`` (``(label, sampler kwargs or None
+    to reuse the sampler, store)``), which must answer bitwise the same
+    with the same launches (its programs built at first use)."""
     import numpy as np
     import torch
 
@@ -1076,20 +1149,37 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
     model = GraphSAGE(F, 256, 47, num_layers=2)
     server = InferenceServer(sampler, model, feat_hot, device="cuda",
                              max_batch=8, seed=0)
-    server.warmup()
+    hop = "weighted_hop" if weighted else "uniform_hop"
+    lookup = "tiered_gather" if feat_hot.scale is None else "tiered_gather_dequant"
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    captures = server.warmup()
+    sync()
+    warm_s = time.perf_counter() - t0
+    buckets = len(server.batcher.buckets)
+    programs = server.ladder.programs()
+    check(captures == 2 * buckets == len(programs)
+          and all(p.graph is not None for p in programs),
+          f"warm-up captured {captures} programs")
+    check([p.launches for p in programs] == [{hop: 2}, {}] * buckets,
+          f"captured launches {[p.launches for p in programs]}")
+    expect_launches(read_launches(), {hop: 2 * 2 * buckets},
+                    "warm-up (eager passes and captures)")
 
     rng = np.random.default_rng(args.seed)
     nodes = rng.integers(0, n, args.requests)
     sync()
-    reset_launches()
     t0 = time.perf_counter()
     reqs = closed_loop(server, nodes, 8)
     sync()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    wrapped, replayed = read_launches(), read_replayed()
+    launches = {k: wrapped[k] + replayed[k] for k in ENTRIES}
     batches = server.timeline.stats("sample").count
     log(f"served {len(reqs)} {'weighted' if weighted else 'uniform'} queries "
-        f"in {wall:.3f}s ({batches} batches); launches {launches}")
+        f"in {wall:.3f}s ({batches} batches); launches {launches} "
+        f"({replayed[hop]} {hop} replayed)")
 
     check(len(reqs) == args.requests, "every request answered")
     out = np.stack([r.result for r in reqs])
@@ -1098,9 +1188,9 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
     sums = np.exp(out.astype(np.float64)).sum(axis=1)
     check(bool(np.all(np.abs(sums - 1.0) < 1e-4)), "exp(log-probs) sums to 1")
     check(all(r.overflow == 0 for r in reqs), "overflow == 0")
-    hop = "weighted_hop" if weighted else "uniform_hop"
-    lookup = "tiered_gather" if feat_hot.scale is None else "tiered_gather_dequant"
-    expect_launches(launches, {hop: 2 * batches, lookup: batches}, "serve")
+    expect_launches(wrapped, {hop: 2 * 2 * buckets, lookup: batches}, "serve",
+                    replayed={hop: 2 * batches})
+    profiled = replay_profile(server, hop)
 
     picks = [(r.node, r.seq) for r in
              (reqs[i] for i in rng.choice(len(reqs), 16, replace=False))]
@@ -1116,9 +1206,12 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
         reset_launches()
         got = closed_loop(other, nodes, 8)
         runs = other.timeline.stats("sample").count
-        reruns[label] = {"queries": len(got), "batches": runs, **read_launches()}
-        expect_launches(read_launches(), {hop: 2 * runs, lookup: runs},
-                        f"{label} rerun")
+        built = len(other.ladder._sample_exec)
+        reruns[label] = {"queries": len(got), "batches": runs,
+                         "built_buckets": built, **read_launches(),
+                         "replayed": read_replayed()}
+        expect_launches(read_launches(), {hop: 2 * 2 * built, lookup: runs},
+                        f"{label} rerun", replayed={hop: 2 * runs})
         check(len(got) == len(reqs) and all(
             np.array_equal(a.result, b.result) for a, b in zip(got, reqs)),
               f"{label} answers == the first run's answers")
@@ -1131,7 +1224,11 @@ def serve_phase(args, topo, feat_hot, variants, card, weighted):
         "store": {"dtype": str(feat_hot.dtype), "hot_rows": feat_hot.hot_rows,
                   "rows": feat_hot.shape[0]},
         "queries": len(reqs), "batches": batches, "qps": len(reqs) / wall,
-        "wall_s": wall, "launches": launches, "stages": stages,
+        "wall_s": wall, "launches": launches,
+        "launches_by": {"wrapper_calls": wrapped, "replayed": replayed},
+        "warmup": {"captures": captures, "seconds": warm_s,
+                   "capture_ms": [p.build_s * 1e3 for p in programs]},
+        "replay_profile": profiled, "stages": stages,
         "parity": parity, "bitwise_reruns_launches": reruns, "card": card,
     }
 
@@ -1285,8 +1382,8 @@ def telemetry_phase(args, topo, store, card, weighted, pairs: int = 4):
             sync()
             qps[label].append(len(nodes) / (time.perf_counter() - t0))
             batches = server.timeline.stats("sample").count - before
-            expect_launches(read_launches(), {hop: 2 * batches, lookup: batches},
-                            f"telemetry {label}")
+            expect_launches(read_launches(), {lookup: batches},
+                            f"telemetry {label}", replayed={hop: 2 * batches})
         check(all(a.seq == b.seq and np.array_equal(a.result.view(np.uint8),
                                                     b.result.view(np.uint8))
                   for a, b in zip(runs["on"], runs["off"])),
@@ -1356,12 +1453,10 @@ def idle_phase(args, topo, store, card, passes: int = 3):
     unprofiled batch time (the profiler's own host cost inflates the
     profiled batches) and, for the same window, against the profiled
     pass's wall time."""
-    import tempfile
-
     import numpy as np
     import torch
 
-    from quiver_tpu_torch import GraphSAGE, profile_epoch
+    from quiver_tpu_torch import GraphSAGE
 
     torch.manual_seed(0)
     model = GraphSAGE(store.size(1), 256, 47, num_layers=2)
@@ -1373,12 +1468,28 @@ def idle_phase(args, topo, store, card, passes: int = 3):
         stats = server.timeline.stats("sample")
         return stats.count if stats else 0
 
+    return idle_share(lambda: closed_loop(server, nodes, 8), batches,
+                      len(nodes), card, passes)
+
+
+def idle_share(serve_pass, batches, queries: int, card, passes: int = 3):
+    """The device idle share of ``serve_pass()`` (which serves ``queries``
+    queries and returns their requests; ``batches()`` counts the batches
+    served so far): the median batch time of ``passes`` unprofiled passes,
+    then one pass under ``profile_epoch``, busy time summed over every
+    kernel and copy (the annotations left out)."""
+    import tempfile
+
+    import torch
+
+    from quiver_tpu_torch import profile_epoch
+
     pass_ms = []
     for _ in range(passes):
         before = batches()
         sync()
         t0 = time.perf_counter()
-        closed_loop(server, nodes, 8)
+        serve_pass()
         sync()
         pass_ms.append((time.perf_counter() - t0) * 1e3 / (batches() - before))
     batch_ms = statistics.median(pass_ms)
@@ -1386,7 +1497,7 @@ def idle_phase(args, topo, store, card, passes: int = 3):
     before = batches()
     t0 = time.perf_counter()
     with profile_epoch(log_dir, "serve") as prof:
-        reqs = closed_loop(server, nodes, 8)
+        reqs = serve_pass()
     wall_ms = (time.perf_counter() - t0) * 1e3
     profiled = batches() - before
     spans, kernels = {}, {}
@@ -1396,14 +1507,14 @@ def idle_phase(args, topo, store, card, passes: int = 3):
         (spans if e.key in SERVE_ANNOTATIONS else kernels)[e.key] = \
             e.self_device_time_total / 1e3 / profiled
     busy = sum(kernels.values())
-    check(len(reqs) == len(nodes) and busy > 0, f"the profiler saw the card: {spans}")
+    check(len(reqs) == queries and busy > 0, f"the profiler saw the card: {spans}")
     ours = {k: v for k, v in kernels.items()
             if any(m in k for m in ("uniform_hop_kernel", "gather_kernel"))}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     trace_bytes = os.path.getsize(os.path.join(log_dir, "serve.trace.json"))
     log(f"serving idle share: device busy {busy:.4f} ms per batch of "
         f"{batch_ms:.4f} (median of {passes} unprofiled passes: {pass_ms})")
-    return {"queries": len(nodes), "batches": profiled,
+    return {"queries": queries, "batches": profiled,
             "device_busy_ms_per_batch": busy,
             "batch_ms_unprofiled": batch_ms, "batch_ms_unprofiled_passes": pass_ms,
             "idle_share": 1 - busy / batch_ms,
@@ -1445,7 +1556,7 @@ def degraded_phase(args, topo, store, card, window=(5, 10), failures: int = 3,
     ``serve.degraded_lookups``, each opening dumps a bundle that passes
     ``verify_bundle``, a probe after the window closes the breaker, and the
     answers after it are bitwise a healthy server's. Every batch samples
-    (2 hop launches); K2 launches once per batch whose lookup reaches the
+    (2 hop launches, replayed by the captured program); K2 launches once per batch whose lookup reaches the
     store."""
     import tempfile
 
@@ -1486,7 +1597,8 @@ def degraded_phase(args, topo, store, card, window=(5, 10), failures: int = 3,
             states.append(breaker.state)
         sync()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        wrapped, replayed = read_launches(), read_replayed()
+        launches = {k: wrapped[k] + replayed[k] for k in ENTRIES}
         batches = len(states)
         # lookups window[0]..: `failures` failures open the breaker; each
         # later outage lookup is a failed probe after probe_every - 1
@@ -1503,8 +1615,9 @@ def degraded_phase(args, topo, store, card, window=(5, 10), failures: int = 3,
               f"{fallback}: {stats['degraded_lookups']} degraded lookups, "
               f"expected {degraded}")
         check(states[-1] == "closed" and "open" in states, f"{fallback}: states {states}")
-        expect_launches(launches, {"uniform_hop": 2 * batches, "tiered_gather": reached},
-                        f"degraded serving ({fallback})")
+        expect_launches(wrapped, {"tiered_gather": reached},
+                        f"degraded serving ({fallback})",
+                        replayed={"uniform_hop": 2 * batches})
         bundles = rec.bundles()
         check(len(bundles) == 1 + probes
               and all(m["reason"] == "breaker_open" and m["stage"] == "gather"
@@ -1533,6 +1646,282 @@ def degraded_phase(args, topo, store, card, window=(5, 10), failures: int = 3,
             f"{len(served) / wall:.1f} queries/s")
     return {**out, "window": list(window), "failures": failures,
             "probe_every": probe_every, "card": card}
+
+
+# -- phase 11: the serving fleet ------------------------------------------------
+
+# queries submitted before each drain of the fleet's queues: least-depth
+# routing splits a group between the two replicas, so every replica serves
+# every bucket full (16, 8, 4, 2) and the padded ones (14, 6, 13, 5, 3)
+FLEET_GROUPS = (16, 14, 8, 6, 4, 2, 1, 13, 5, 3)
+
+
+def fleet_loop(fleet, nodes, groups=FLEET_GROUPS):
+    """Closed loop over a fleet: submit the next group of ``nodes``, drain
+    every replica's queue; returns the requests in admission order."""
+    reqs, i, g = [], 0, 0
+    while i < len(nodes):
+        size = groups[g % len(groups)]
+        g += 1
+        reqs += [fleet.submit(int(node)) for node in nodes[i:i + size]]
+        i += size
+        while any(srv.batcher.depth for srv in fleet.servers):
+            fleet.pump(force=True)
+    return reqs
+
+
+def fleet_batches(fleet) -> int:
+    return sum(srv.timeline.stats("sample").count if srv.timeline.stats("sample")
+               else 0 for srv in fleet.servers)
+
+
+def fleet_phase(args, topo, store, x_all, card):
+    """Phase 11, the serving fleet, over phase 4's tiered store.
+
+    A 2-replica uniform ``ServingFleet`` with a fresh program cache and a
+    ``CacheController``, its sampler over a placement it shares
+    (``device_topo``) with the weighted fleet: replica 0 captures the 8
+    programs, replica 1 joins with none; ``args.requests`` closed-loop
+    queries, every replica serving every bucket full and padded, answer
+    bitwise as ``fleet.oracle``, and the sketch counts every valid served
+    id. The weighted fleet over the shared placement answers bitwise as a
+    server over its own placement. An ``EmbeddingRefresher`` over the full
+    graph publishes from its background lane while the fleet serves, equal
+    to a foreground refresh of the same version (bitwise expected; within
+    1e-5 at worst). Then the version drill: one
+    edge inserted through ``CSRTopo._publish_mutation``, every serve path
+    and the refresher raise, ``fleet.refresh()`` recaptures on replica 0
+    and loads on replica 1, and the answers equal the oracle. Last, the
+    replayed fleet's device idle share, as phase 10 measures it, with the
+    controller's feed and without it."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import (CacheController, EmbeddingRefresher, FreqSketch,
+                                  GraphSAGE, GraphSageSampler, InferenceServer,
+                                  ServingFleet, VersionMismatchError)
+
+    n = topo.node_count
+    torch.manual_seed(0)
+    model = GraphSAGE(store.size(1), 256, 47, num_layers=2)
+    rng = np.random.default_rng(args.seed + 13)
+    placed = topo.to_device("GPU", "cuda", with_weights=True)
+    ctl = CacheController(FreqSketch(n, 256, top_k=1024))
+    sampler = GraphSageSampler(topo, [5, 5], device="cuda", seed=0,
+                               device_topo=placed)
+    cache_dir = tempfile.mkdtemp(prefix="quiver-aot-")
+    out = {"config": "2 replicas, max_batch 8, [5, 5], tiered store "
+                     f"({store.hot_rows} hot rows), one shared placement"}
+
+    # joins: replica 0 captures, replica 1 takes its programs
+    sync()
+    reset_launches()
+    fleet = ServingFleet(sampler, model, store, replicas=2, aot_cache=cache_dir,
+                         controller=ctl, seed=0, max_batch=8, device="cuda")
+    sync()
+    joins = [dict(c) for c in fleet.cold_starts]
+    check([(c["loaded"], c["compiled"]) for c in joins] == [(0, 8), (8, 0)],
+          f"joins {joins}")
+    check(fleet.recompiles == 8 and fleet.aot_loads == 8 and len(fleet.aot_cache) == 8,
+          f"fleet counters {fleet.stats()['aot_cache']}")
+    progs = [srv.ladder.programs() for srv in fleet.servers]
+    check(all(a is b and a.graph is not None for a, b in zip(*progs)),
+          "replica 1 replays replica 0's captured programs")
+    # a store probe per replica; replica 0's 4 sample programs run their 2
+    # hops eagerly and under capture
+    expect_launches(read_launches(), {"uniform_hop": 16, "tiered_gather": 2},
+                    "fleet joins")
+    out["joins"] = joins
+    out["capture_ms"] = [p.build_s * 1e3 for p in progs[0]]
+    log(f"fleet joins: replica 0 {joins[0]['seconds']:.3f} s ({joins[0]['compiled']} "
+        f"captures), replica 1 {joins[1]['seconds']:.3f} s ({joins[1]['loaded']} "
+        f"loaded, 0 captures); capture ms per program "
+        f"{[round(m, 1) for m in out['capture_ms']]}")
+
+    # closed loop: every bucket full and padded on both replicas
+    seen = collections.Counter()
+    for srv in fleet.servers:
+        def counted(reqs, bucket, inner=srv._run_batch, idx=srv.replica_index):
+            seen[(idx, bucket, "full" if len(reqs) == bucket else "padded")] += 1
+            return inner(reqs, bucket)
+        srv._run_batch = counted
+    nodes = rng.integers(0, n, args.requests)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = fleet_loop(fleet, nodes)
+    sync()
+    wall = time.perf_counter() - t0
+    batches = fleet_batches(fleet)
+    wrapped, replayed = read_launches(), read_replayed()
+    expect_launches(wrapped, {"tiered_gather": batches}, "fleet serving",
+                    replayed={"uniform_hop": 2 * batches})
+    for srv in fleet.servers:
+        del srv._run_batch
+    want_seen = {(i, b, f) for i in (0, 1) for b, f in
+                 ((1, "full"), (2, "full"), (4, "full"), (8, "full"),
+                  (4, "padded"), (8, "padded"))}
+    check(want_seen <= set(seen), f"buckets served {sorted(seen)}")
+    check(len(reqs) == len(nodes) and all(r.done and not r.shed for r in reqs),
+          "every fleet request answered")
+    sync()
+    reset_launches()
+    valid = 0
+    for r in reqs:
+        check(np.array_equal(r.result, fleet.oracle(r.node, r.seq)),
+              f"fleet answer == oracle bitwise ({r.node}, {r.seq})")
+        n_id, _eis, _ovf = fleet.servers[0].ladder.oracle_sample(r.node, r.seq)
+        valid += int((n_id >= 0).sum())
+    expect_launches(read_launches(), {"select": 2 * 2 * len(reqs),
+                                      "tiered_gather": len(reqs)}, "fleet oracle")
+    check(ctl.sketch.observed == valid, f"sketch observed {ctl.sketch.observed} "
+          f"of {valid} valid served ids")
+    stats = fleet.stats()
+    out["serve"] = {
+        "queries": len(reqs), "batches": batches, "qps": len(reqs) / wall,
+        "wall_s": wall, "buckets_served": {f"{i}/{b}/{f}": c
+                                           for (i, b, f), c in sorted(seen.items())},
+        "launches": {"wrapper_calls": wrapped, "replayed": replayed},
+        "sketch_observed": ctl.sketch.observed,
+        "stages": [{k: {"p50_ms": v["p50_ms"], "p99_ms": v["p99_ms"]}
+                    for k, v in p["stages"].items()} for p in stats["per_replica"]],
+        "recompiles": stats["recompiles"], "aot_loads": stats["aot_loads"]}
+    log(f"fleet served {len(reqs)} queries in {wall:.3f} s "
+        f"({len(reqs) / wall:.1f} queries/s, {batches} batches); == oracle bitwise; "
+        f"sketch observed {valid} ids")
+
+    # the weighted fleet over the shared placement against its own placement
+    wsampler = GraphSageSampler(topo, [5, 5], device="cuda", seed=0, weighted=True,
+                                device_topo=placed)
+    check(wsampler.topo is sampler.topo, "the samplers share one placement")
+    wfleet = ServingFleet(wsampler, model, store, replicas=2, aot_cache=cache_dir,
+                          seed=0, max_batch=8, device="cuda")
+    check([(c["loaded"], c["compiled"]) for c in wfleet.cold_starts] == [(0, 8), (8, 0)],
+          f"weighted joins {wfleet.cold_starts}")
+    own = InferenceServer(GraphSageSampler(topo, [5, 5], device="cuda", seed=0,
+                                           weighted=True), model, store,
+                          device="cuda", max_batch=8, seed=0)
+    wnodes = rng.integers(0, n, 64)
+    sync()
+    reset_launches()
+    got = fleet_loop(wfleet, wnodes)
+    wb = fleet_batches(wfleet)
+    expect_launches(read_launches(), {"tiered_gather": wb}, "weighted fleet serving",
+                    replayed={"weighted_hop": 2 * wb})
+    for r in got:
+        check(np.array_equal(r.result, own.oracle(r.node, r.seq)),
+              "shared-placement answer == own-placement oracle bitwise")
+    for r in own.serve(wnodes):
+        check(np.array_equal(r.result, wfleet.oracle(r.node, r.seq)),
+              "own-placement answer == shared-placement oracle bitwise")
+    out["weighted"] = {"queries": len(got), "batches": wb,
+                       "joins": [dict(c) for c in wfleet.cold_starts]}
+    del own
+
+    # the refresher over the full graph: background lane while the fleet serves
+    x_dev = torch.from_numpy(x_all).to("cuda")
+    bg = EmbeddingRefresher(model, topo, x_dev, device="cuda")
+    sync()
+    t0 = time.perf_counter()
+    bg.start(interval_s=0.05)
+    during = fleet_loop(fleet, rng.integers(0, n, 64))
+    while bg.version is None and time.perf_counter() - t0 < 300:
+        time.sleep(0.01)
+    bg.stop()
+    bg_s = time.perf_counter() - t0
+    check(bg.version == topo.version and bg.refreshes == 1 and bg._thread is None,
+          f"background lane published version {bg.version} and joined")
+    for r in during[:16]:
+        check(np.array_equal(r.result, fleet.oracle(r.node, r.seq)),
+              "answers while the lane runs == oracle bitwise")
+    fg = EmbeddingRefresher(model, topo, x_dev, device="cuda")
+    sync()
+    t0 = time.perf_counter()
+    fg.refresh()
+    sync()
+    fg_s = time.perf_counter() - t0
+    check(fg.table.shape == (n, 47) and bool(torch.isfinite(fg.table).all()),
+          "refresher table shape and finite")
+    # the layer-wise path is deterministic on the card (a sorted accumulate,
+    # the same GEMMs), so the tables should agree bitwise; the stated
+    # tolerance (tests/test_torch_inference.py's) is the floor
+    bitwise = bool(torch.equal(bg.table, fg.table))
+    err = float((bg.table - fg.table).abs().max())
+    check(bitwise or bool(torch.allclose(bg.table, fg.table, atol=1e-5, rtol=1e-5)),
+          f"background table == foreground table (max abs err {err})")
+    ids = torch.from_numpy(rng.integers(0, n, 1000))
+    check(torch.equal(bg.lookup(ids), bg.table[ids.to("cuda")]), "refresher lookup")
+    out["refresher"] = {"foreground_s": fg_s, "background_with_serving_s": bg_s,
+                        "served_while_refreshing": len(during), "bitwise": bitwise,
+                        "max_abs_err": err}
+    log(f"refresher: full graph in {fg_s:.3f} s (foreground); background lane "
+        f"published in {bg_s:.3f} s while the fleet served {len(during)} queries")
+    del x_dev
+
+    # the version drill: one edge inserted through the mutation seam
+    indptr = topo.indptr.astype(np.int64)
+    u = int(np.argmax(np.diff(indptr) > 0))
+    row = set(topo.indices[indptr[u]:indptr[u + 1]].tolist())
+    v = next(c for c in range(n) if c not in row)
+    at = int(indptr[u + 1])
+    new_indptr = indptr.copy()
+    new_indptr[u + 1:] += 1
+    t0 = time.perf_counter()
+    topo._publish_mutation(new_indptr, np.insert(topo.indices, at, v),
+                           edge_weight=np.insert(topo.edge_weight, at, 1.0))
+    publish_s = time.perf_counter() - t0
+    check(topo.version == 1 and topo.edge_count == len(topo.indices), "published")
+    stale = {"fleet.pump": lambda: fleet.pump(force=True),
+             "replica 1 pump": lambda: fleet.servers[1].pump(force=True),
+             "fleet.oracle": lambda: fleet.oracle(1, 0),
+             "weighted fleet": wfleet.check_version,
+             "sampler.sample": lambda: sampler.sample(np.arange(4)),
+             "refresher lookup": lambda: bg.lookup([0])}
+    for what, fn in stale.items():
+        try:
+            fn()
+            raised = False
+        except VersionMismatchError:
+            raised = True
+        check(raised, f"{what} raises after the mutation")
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    fleet.refresh()
+    sync()
+    refresh_s = time.perf_counter() - t0
+    r0, r1 = fleet.servers
+    check(r0.recompiles == 16 and r0.aot_loads == 0 and r1.recompiles == 0
+          and r1.aot_loads == 16, f"refresh: replica 0 recaptures, replica 1 loads "
+          f"({r0.recompiles}, {r0.aot_loads}, {r1.recompiles}, {r1.aot_loads})")
+    expect_launches(read_launches(), {"uniform_hop": 16}, "fleet refresh")
+    after = fleet_loop(fleet, rng.integers(0, n, 64))
+    for r in after:
+        check(np.array_equal(r.result, fleet.oracle(r.node, r.seq)),
+              "answers after the refresh == oracle bitwise")
+    out["drill"] = {"inserted": [u, v], "publish_s": publish_s, "refresh_s": refresh_s,
+                    "stale_paths_raised": sorted(stale), "answers_after": len(after)}
+    log(f"version drill: publish {publish_s:.2f} s, fleet refresh {refresh_s:.3f} s "
+        f"(replica 0 recaptured 8, replica 1 loaded 8)")
+
+    # the replayed fleet's idle share, batches of 8 on each replica, with
+    # the controller's feed and without it (its host cost)
+    idle_nodes = rng.integers(0, n, args.requests)
+    for label in ("idle", "idle_no_controller"):
+        if label == "idle_no_controller":
+            for srv in fleet.servers:
+                srv.controller = None
+        out[label] = idle_share(lambda: fleet_loop(fleet, idle_nodes, (16,)),
+                                lambda: fleet_batches(fleet), len(idle_nodes), card)
+        what = "with" if label == "idle" else "without"
+        log(f"fleet idle share {what} the controller {out[label]['idle_share']:.4f}: "
+            f"busy {out[label]['device_busy_ms_per_batch']:.4f} ms of a "
+            f"{out[label]['batch_ms_unprofiled']:.4f} ms batch")
+    out["card"] = card
+    return out
 
 
 # -- phases 6 and 7: sampler --------------------------------------------------
@@ -2215,8 +2604,11 @@ def main() -> int:
     idle = idle_phase(args, topo, feat_cold, card)
     lap("serving idle share")
     degraded = degraded_phase(args, topo, feat_cold, card)
-    del feat_cold
     lap("degraded serving")
+    # phase 11, last: it mutates the topology (the version drill)
+    fleet = fleet_phase(args, topo, feat_cold, x_all, card)
+    del feat_cold
+    lap("phase 11 (serving fleet)")
     for mode in ("sampled", "layerwise", "int8_sampled"):
         log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
             f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
@@ -2241,6 +2633,10 @@ def main() -> int:
                     "degraded_serve_launches": {
                         k: degraded[k]["launches"]["uniform_hop"]
                         for k in ("zeros", "last-good")},
+                    "launches_by": serve_u["launches_by"],
+                    "replay_profile": serve_u["replay_profile"],
+                    "fleet_serve_replayed": fleet["serve"]["launches"]["replayed"][
+                        "uniform_hop"],
                     "library": "none: its yardstick is the composed path"},
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
@@ -2298,6 +2694,8 @@ def main() -> int:
                     "speedup_over_composed": t_whop["speedup_over_composed"],
                     "shape": t_whop["shape"] + [t_whop["k"]],
                     "bound_rule": WHOP_BOUND_RULE,
+                    "launches_by": serve_w["launches_by"],
+                    "replay_profile": serve_w["replay_profile"],
                     "library": "none: its yardstick is the composed path"},
                    card, name),
     ]
@@ -2313,7 +2711,7 @@ def main() -> int:
                        "serve": {"uniform": serve_u, "weighted": serve_w,
                                  "int8": serve_q},
                        "elections": elect, "telemetry": telemetry,
-                       "serve_idle": idle, "degraded": degraded,
+                       "serve_idle": idle, "degraded": degraded, "fleet": fleet,
                        "sampler": samplers, "train": train,
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept,
@@ -2329,6 +2727,7 @@ def main() -> int:
                                     for k, t in telemetry.items()}}), flush=True)
     print(json.dumps({"serve_idle": idle}), flush=True)
     print(json.dumps({"degraded": degraded}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"sampler": samplers}), flush=True)
     for label, tr in (("train", train), ("train_int8_a", train_qa),
                       ("train_int8_b", train_qb)):

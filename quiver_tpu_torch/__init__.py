@@ -8,6 +8,7 @@ on CUDA unless the caller passes ``device="cpu"``, where the kernels' plain
 PyTorch versions run instead.
 """
 
+from .control import AlphaTuner, CacheController, CostModel, FreqSketch, SplitTuner
 from .core.config import CachePolicy, SampleMode, parse_size_bytes
 from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from .datasets import GraphDataset, load_dataset, planted_partition
@@ -24,23 +25,37 @@ from .obs import (
 )
 from .resilience import CircuitBreaker, CorruptCheckpoint, DegradedFeature
 from .sampling.sampler import Adj, GraphSageSampler, SampleOutput
-from .serving.coalesce import DeadlineBatcher, ServeQueueFull, ServeRequest
-from .serving.server import InferenceServer
+from .serving import (
+    AOTExecutableCache,
+    DeadlineBatcher,
+    EmbeddingRefresher,
+    InferenceServer,
+    ServeQueueFull,
+    ServeRequest,
+    ServingFleet,
+    program_fingerprint,
+)
 from .utils.debug import show_tensor_info, tensor_info
 from .utils.reorder import reorder_by_degree
 from .utils.trace import Timer, enable_trace, get_logger, trace_scope
 
 __all__ = [
+    "AOTExecutableCache",
     "Adj",
+    "AlphaTuner",
     "CSRTopo",
+    "CacheController",
     "CachePolicy",
     "CircuitBreaker",
     "CorruptCheckpoint",
+    "CostModel",
     "DeadlineBatcher",
     "DegradedFeature",
     "DeviceTopology",
+    "EmbeddingRefresher",
     "Feature",
     "FlightRecorder",
+    "FreqSketch",
     "GraphDataset",
     "GraphSAGE",
     "GraphSageSampler",
@@ -52,6 +67,8 @@ __all__ = [
     "SampleOutput",
     "ServeQueueFull",
     "ServeRequest",
+    "ServingFleet",
+    "SplitTuner",
     "StepTimeline",
     "TelemetryEndpoint",
     "Timer",
@@ -63,6 +80,7 @@ __all__ = [
     "parse_size_bytes",
     "planted_partition",
     "profile_epoch",
+    "program_fingerprint",
     "reorder_by_degree",
     "show_tensor_info",
     "tensor_info",

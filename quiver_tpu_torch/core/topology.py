@@ -253,6 +253,56 @@ class CSRTopo:
         """Committed mutation version (0 for a freshly built topology)."""
         return self._version
 
+    def _publish_mutation(self, indptr: np.ndarray, indices: np.ndarray,
+                          edge_weight: np.ndarray | None = None,
+                          edge_time: np.ndarray | None = None) -> None:
+        """The one mutation seam (a streaming commit's publish): swap in
+        merged, already verified CSR arrays and bump the version. Every
+        array is built aside before this runs, so no reader sees a half
+        applied merge. ``eid`` is dropped (COO provenance does not survive
+        a mutation); ``feature_order`` is kept (mutations add no nodes).
+        A weighted or timestamped topology must be published with its
+        merged weights or times; timestamped rows are re-sorted by time
+        (ties in slot order), restoring the temporal hop's invariant.
+        Every placement built before raises
+        :class:`VersionMismatchError` until it is refreshed."""
+        if (self._edge_weight is not None) != (edge_weight is not None):
+            raise ValueError(
+                "mutation publish must carry edge weights exactly when the "
+                "topology is weighted"
+            )
+        if (self._edge_time is not None) != (edge_time is not None):
+            raise ValueError(
+                "mutation publish must carry edge times exactly when the "
+                "topology is timestamped"
+            )
+        indptr, indices = _as_numpy(indptr), _as_numpy(indices)
+        edge_count = int(indptr[-1])
+        node_count = int(indptr.shape[0] - 1)
+        indptr = indptr.astype(_index_dtype(edge_count), copy=False)
+        indices = indices.astype(
+            _index_dtype(max(node_count - 1, 0)), copy=False)
+        if edge_time is not None:
+            t = _as_numpy(edge_time).astype(np.float32, copy=False)
+            # appended inserts land at row ends: re-sort each row by time
+            # (the identity on untouched rows)
+            order = _time_sort_order(indptr, t)
+            indices = indices[order]
+            t = t[order]
+            if edge_weight is not None:
+                edge_weight = _as_numpy(edge_weight)[order]
+            self._edge_time = t
+        if edge_weight is not None:
+            self._edge_weight = _as_numpy(edge_weight).astype(np.float32,
+                                                              copy=False)
+            self._cum_weights = _row_prefix_weights(
+                self._edge_weight.astype(np.float64), indptr)
+        self._indptr = indptr
+        self._indices = indices
+        self._eid = None
+        self._max_degree = None  # degrees changed; derived again on demand
+        self._version += 1
+
     @property
     def degree(self) -> np.ndarray:
         return np.diff(self._indptr)

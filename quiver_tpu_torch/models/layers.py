@@ -45,7 +45,8 @@ def _check_regular_layout(dst, valid, num_dst: int, fanout: int) -> None:
     """Assert the regular-layout claim the dense path trusts: lane
     ``s*fanout + k`` targets seed ``s`` on every valid lane. It reads back
     one count per aggregation (a host sync on the card), so it runs only
-    under ``QUIVER_CHECK``."""
+    under ``QUIVER_CHECK``, and not while the stream is capturing a CUDA
+    graph."""
     expected = torch.arange(num_dst, dtype=dst.dtype,
                             device=dst.device).repeat_interleave(fanout)
     bad = int(((dst != expected) & valid).sum())
@@ -85,7 +86,10 @@ def segment_mean_aggregate(messages, dst, valid, num_dst: int,
     """
     E = messages.shape[-2]
     if fanout is not None and E == num_dst * fanout:
-        if _check_enabled():
+        # the check reads a count back, which a stream under CUDA-graph
+        # capture cannot do: a captured program checks in its eager pass
+        if _check_enabled() and not (
+                dst.is_cuda and torch.cuda.is_current_stream_capturing()):
             _check_regular_layout(dst, valid, num_dst, fanout)
         total = fanout_sum_aggregate(messages, valid, num_dst, fanout)
         cnt = valid.reshape(*valid.shape[:-1], num_dst, fanout).sum(dim=-1)

@@ -108,7 +108,7 @@ def stratified_offsets(deg, k: int, jitter):
     span = (hi - lo).clamp(min=1)
     take_all = torch.minimum(i, (degc - 1).clamp(min=0))
     off = torch.where(degc <= k, take_all, lo + jitter % span)
-    sel_mask = i < torch.minimum(degc, torch.tensor(k, device=deg.device))
+    sel_mask = i < degc.clamp(max=k)
     return off.to(torch.int32), sel_mask
 
 

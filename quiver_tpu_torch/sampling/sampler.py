@@ -33,7 +33,7 @@ import torch
 
 from ..core.config import SampleMode, validate_dedup
 from ..core.memory import resolve_device
-from ..core.topology import CSRTopo, VersionMismatchError
+from ..core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from ..ops.election import KernelElection, validate_kernel_arg
 from ..ops.reindex import reindex_layer
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
@@ -271,8 +271,12 @@ class GraphSageSampler:
       dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, validated:
         the JAX package's three reindex strategies give identical results,
         and every one runs the port's one reindex, which gives them too.
-      device_topo: sharing one placed topology between samplers is not
-        ported (ROADMAP A.6); anything but None raises.
+      device_topo: a placed :class:`~..core.topology.DeviceTopology` to
+        reuse instead of placing a fresh copy, so that samplers (and the
+        serving replicas over them) share one device-resident graph. It
+        must lie on ``device`` and carry what this sampler reads: ``eid``
+        when ``with_eid``, ``cum_weights`` when ``weighted``,
+        ``edge_time`` with a ``time_window``; otherwise this raises.
       topo_sharding: ``"replicated"``; ``"mesh"`` (a topology partitioned
         across cards, ROADMAP A.11) raises.
       compiled_cache_size: accepted for API parity and inert: the JAX
@@ -300,10 +304,6 @@ class GraphSageSampler:
             raise ValueError(
                 f"topo_sharding must be 'replicated' or 'mesh', "
                 f"got {topo_sharding!r}")
-        if device_topo is not None:
-            raise NotImplementedError(
-                "device_topo= (one placed topology shared between samplers) "
-                "is not ported (ROADMAP A.6)")
         if compiled_cache_size < 1:
             raise ValueError(
                 f"compiled_cache_size must be >= 1, got {compiled_cache_size}")
@@ -358,7 +358,7 @@ class GraphSageSampler:
         self.seed = int(seed)
         self._call = 0
         self.reruns = 0
-        self.topo = self._place()
+        self.topo = self._init_topo(device_topo)
         self._topo_version = int(csr_topo.version)
 
     @property
@@ -371,11 +371,31 @@ class GraphSageSampler:
             self._kernel_resolved = resolved
         return resolved
 
-    def _place(self):
-        return self.csr_topo.to_device(
-            self.mode, self.device, with_eid=self.with_eid,
-            with_weights=self.weighted,
-            with_times=self.time_window is not None)
+    def _init_topo(self, device_topo=None):
+        """Place the topology, or adopt ``device_topo`` after checking that
+        it lies on this sampler's device and carries what it reads."""
+        if device_topo is None:
+            return self.csr_topo.to_device(
+                self.mode, self.device, with_eid=self.with_eid,
+                with_weights=self.weighted,
+                with_times=self.time_window is not None)
+        if not isinstance(device_topo, DeviceTopology):
+            raise TypeError(
+                f"device_topo must be a DeviceTopology, got "
+                f"{type(device_topo).__name__}")
+        if device_topo.device != self.device:
+            raise ValueError(
+                f"device_topo lives on {device_topo.device}, the sampler on "
+                f"{self.device}")
+        for need, attr, flag in ((self.with_eid, "eid", "with_eid"),
+                                 (self.weighted, "cum_weights", "with_weights"),
+                                 (self.time_window is not None, "edge_time",
+                                  "with_times")):
+            if need and getattr(device_topo, attr) is None:
+                raise ValueError(
+                    f"device_topo lacks {attr}, which this sampler reads; "
+                    f"place it with to_device({flag}=True)")
+        return device_topo
 
     # -- streaming-mutation versioning --------------------------------------
 
@@ -392,8 +412,15 @@ class GraphSageSampler:
             )
 
     def refresh_topology(self) -> "GraphSageSampler":
-        """Re-place the topology from the host CSR and adopt its version."""
-        self.topo = self._place()
+        """Re-place the topology from the host CSR and adopt its version.
+
+        A no-op when the placement is already at the committed version:
+        serving replicas share one sampler and each refreshes it, and the
+        programs a first replica captured after its refresh read the
+        placement that a second re-place would free."""
+        if self._topo_version == int(self.csr_topo.version):
+            return self
+        self.topo = self._init_topo()
         self._topo_version = int(self.csr_topo.version)
         return self
 

@@ -3,7 +3,8 @@
 The port of ``quiver_tpu/serving/server.py``. It composes the
 :class:`~.coalesce.DeadlineBatcher` (admission, deadline-aware coalescing,
 bounded-queue backpressure), the :class:`~.ladder.ServeLadder` (per-bucket
-sample and forward steps) and the feature store's gather between them: a
+sample and forward programs, CUDA graphs on the card, replayed in steady
+state) and the feature store's gather between them: a
 :class:`~..feature.feature.Feature`, or the circuit-breaker-wrapped
 :class:`~..resilience.elastic.DegradedFeature`, so a cold-tier outage
 degrades responses instead of failing them.
@@ -21,7 +22,8 @@ dumps a postmortem bundle on a shed burst or a breaker opening.
 Staleness: the server records the host CSR's committed ``version`` when it
 builds its ladder, and every serve path raises
 :class:`~..core.topology.VersionMismatchError` once the version moves,
-until :meth:`InferenceServer.refresh` re-places the topology.
+until :meth:`InferenceServer.refresh` re-places the topology and rebuilds
+the programs (through the program cache, when one is attached).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..obs.registry import (
 from ..obs.timeline import StepTimeline
 from ..obs.tracing import Tracer
 from ..resilience.elastic import DegradedFeature
+from .aot import as_cache
 from .coalesce import PRIORITIES, DeadlineBatcher, ServeRequest, ladder_buckets
 from .ladder import ServeLadder
 
@@ -104,11 +107,16 @@ class InferenceServer:
         instead of failing requests.
       breaker_failures / probe_every: breaker thresholds when wrapping.
       metrics / timeline: external sinks (private by default).
-      controller: the cache controller's serve-path feed is not ported
-        (ROADMAP A.12); anything but None raises.
-      aot_cache: a persisted-program cache is not ported (ROADMAP A.6: the
-        port compiles nothing until CUDA-graph capture); anything but None
-        raises.
+      controller: optional :class:`~..control.CacheController` fed every
+        served batch's sampled node ids (``observe_serve``, after the
+        sample stage, from the sample program's output), so the store can
+        re-tier under serving traffic; attached to the underlying store
+        when it has a controller slot. It must have ``observe_serve``.
+      aot_cache: optional program cache: an
+        :class:`~.aot.AOTExecutableCache`, a directory path, or ``True``
+        for the default location. Ladder builds consult it before
+        capturing and publish after; :meth:`warm_from_cache` is the
+        replica join that captures nothing the process already holds.
       tracer: optional :class:`Tracer`: every admitted request opens one
         trace, and the six batch stages land as child spans of it.
         Default: a disabled tracer (no work, bitwise-identical responses).
@@ -137,14 +145,11 @@ class InferenceServer:
                  controller=None, class_deadlines: dict | None = None,
                  aot_cache=None, tracer: Tracer | None = None,
                  recorder=None, shed_burst: int = 8, draw_fn=None):
-        if controller is not None:
-            raise NotImplementedError(
-                "controller= (the cache controller's serve-path feed) is "
-                "not ported (ROADMAP A.12)")
-        if aot_cache is not None:
-            raise NotImplementedError(
-                "aot_cache= (persisted serving programs) is not ported "
-                "(ROADMAP A.6: CUDA-graph capture)")
+        if controller is not None and not hasattr(controller, "observe_serve"):
+            raise TypeError(
+                f"controller must have observe_serve (a CacheController), "
+                f"got {type(controller).__name__}")
+        self.aot_cache = as_cache(aot_cache)
         self.device = resolve_device(device)
         for name, dev in (("sampler", sampler.device),
                           ("feature", feature.device)):
@@ -169,6 +174,14 @@ class InferenceServer:
                 fallback=degraded, metrics=self.metrics, recorder=recorder,
             )
         self.feature = feature
+        self.controller = controller
+        if controller is not None:
+            # repin decisions land on the underlying store (the breaker
+            # unwrapped); a plain Feature has no tiers to move
+            store = feature.feature if isinstance(feature, DegradedFeature) \
+                else feature
+            if hasattr(store, "_controller"):
+                controller.attach(store)
         self.batcher = DeadlineBatcher(
             buckets=tuple(buckets) if buckets else ladder_buckets(max_batch),
             default_deadline_s=default_deadline_s,
@@ -213,6 +226,8 @@ class InferenceServer:
         )
         self._requests_total = 0
         self._misses_total = 0
+        self._recompiles_total = 0
+        self._aot_loads_total = 0
         self._class_misses = [0] * len(PRIORITIES)
         self._serve_degraded_total = 0
         self._degraded_seen = (
@@ -232,7 +247,17 @@ class InferenceServer:
             self.sampler, self.model, self._feature_dim,
             row_dtype=self._row_dtype, lane_caps=self._lane_caps,
             seed=self.seed, draw_fn=self.draw_fn,
+            on_compile=self._on_ladder_compile, aot_cache=self.aot_cache,
+            on_cache_load=self._on_ladder_cache_load,
         )
+
+    def _on_ladder_compile(self) -> None:
+        self._recompiles_total += 1
+        self.metrics.set(SERVE_RECOMPILES, np.int32(self._recompiles_total))
+
+    def _on_ladder_cache_load(self) -> None:
+        self._aot_loads_total += 1
+        self.metrics.set(SERVE_AOT_LOADS, np.int32(self._aot_loads_total))
 
     def _sync_shed(self) -> None:
         shed = [self.batcher.shed_by_class[p] for p in PRIORITIES]
@@ -270,9 +295,14 @@ class InferenceServer:
             )
 
     def refresh(self, warmup: bool = True) -> "InferenceServer":
-        """Re-place the topology and rebuild the ladder after a commit;
-        ``warmup`` re-warms the buckets that were warm before."""
-        live = sorted(self._ladder._warm)
+        """Re-place the topology and rebuild the ladder after a commit.
+        ``warmup`` rebuilds the buckets that were live before; with a
+        program cache attached each rebuild checks the cache first (the
+        committed version is in the fingerprint), so a replica whose
+        sampler another replica already refreshed takes that replica's
+        programs and captures nothing."""
+        live = sorted(set(self._ladder._sample_exec)
+                      | set(self._ladder._forward_exec))
         self.sampler.refresh_topology()
         self._ladder = self._make_ladder()
         self._topo_version = int(self.sampler.csr_topo.version)
@@ -305,10 +335,23 @@ class InferenceServer:
         return req
 
     def warmup(self, buckets=None) -> int:
-        """Run every bucket once before traffic (all batcher buckets by
-        default); returns the number of buckets warmed."""
+        """Build every bucket's programs before traffic (all batcher
+        buckets by default); returns the number of captures. Steady-state
+        serving after warmup replays programs only."""
         self.check_version()
         return self._ladder.warmup(
+            tuple(buckets) if buckets else self.batcher.buckets
+        )
+
+    def warm_from_cache(self, buckets=None) -> dict:
+        """Warm the ladder (all batcher buckets by default) from the
+        program cache wherever it holds the program, capturing and
+        publishing only the rest; returns ``{"loaded": n, "compiled":
+        m}``. A replica joining a process whose first replica captured
+        reports ``compiled == 0`` and answers bitwise as that replica. A
+        fresh process captures again (CUDA graphs are process-local)."""
+        self.check_version()
+        return self._ladder.warm_from_cache(
             tuple(buckets) if buckets else self.batcher.buckets
         )
 
@@ -379,17 +422,26 @@ class InferenceServer:
             for i, r in enumerate(reqs):
                 seeds[i] = r.node
                 seqs[i] = r.seq
-            seeds_d = torch.from_numpy(seeds).to(self.device)
+        sample_ex = self._ladder.sample_exec(bucket)
         with self._stage("sample", marks):
-            n_ids, eis, overflow = self._ladder.sample_exec(bucket)(seeds_d, seqs)
+            # the seeds are copied into the program's own buffer, outside
+            # the captured graph
+            n_ids, eis, overflow = sample_ex(torch.from_numpy(seeds), seqs)
+        if self.controller is not None:
+            # serve-path gather frequencies feed the same sketch a training
+            # loop does (padding -1 lanes are filtered there)
+            self.controller.observe_serve(n_ids.reshape(-1))
         with self._stage("gather", marks):
             x = self.feature[n_ids.reshape(-1)].reshape(
                 bucket, capL, self._feature_dim)
+        forward_ex = self._ladder.forward_exec(bucket)
         with self._stage("forward", marks):
-            out = self._ladder.forward_exec(bucket)(x, eis)
+            out = forward_ex(x, eis)
         with self._stage("readback", marks):
-            out_np = out.cpu().numpy()
-            ovf_np = overflow.cpu().numpy()
+            # copies: the outputs are the programs' own tensors, which the
+            # next batch overwrites
+            out_np = out.to("cpu", copy=True).numpy()
+            ovf_np = overflow.to("cpu", copy=True).numpy()
         t_done = self.clock()
         misses = 0
         for i, r in enumerate(reqs):
@@ -436,22 +488,20 @@ class InferenceServer:
 
     @property
     def recompiles(self) -> int:
-        """Ladder program compilations (``serve.recompiles``): always 0,
-        since the port compiles nothing (CUDA-graph capture, ROADMAP A.6,
-        will count its captures here)."""
-        return 0
+        """Ladder program builds, each a capture on the card
+        (``serve.recompiles``; flat after :meth:`warmup`)."""
+        return self._recompiles_total
 
     @property
     def aot_loads(self) -> int:
-        """Ladder programs loaded from a persisted cache
-        (``serve.aot_loads``): always 0 (ROADMAP A.6)."""
-        return 0
+        """Ladder programs taken from the program cache
+        (``serve.aot_loads``)."""
+        return self._aot_loads_total
 
     def stats(self) -> dict:
         """Host-side serve counters and per-stage latency quantiles: the
         JAX server's layout, ``stages`` as ``StageStats.as_dict()`` (P²
-        estimates, milliseconds). ``recompiles`` and ``aot_loads`` stay 0:
-        the port compiles nothing yet (ROADMAP A.6)."""
+        estimates, milliseconds)."""
         stages = {
             name: st.as_dict()
             for name, st in self.timeline.summary().items()
@@ -464,8 +514,8 @@ class InferenceServer:
             ),
             "shed": dict(self.batcher.shed_by_class),
             "degraded_lookups": self._serve_degraded_total,
-            "recompiles": self.recompiles,
-            "aot_loads": self.aot_loads,
+            "recompiles": self._recompiles_total,
+            "aot_loads": self._aot_loads_total,
             "queue_depth": self.batcher.depth,
             "stages": stages,
         }

@@ -411,3 +411,129 @@ def test_gather_rows_clamps_like_plain(cuda, dtype, pinned):
     base = torch.full((6, 37), 3, dtype=dtype, device=cuda)
     assert torch.equal(gather_rows(table, ids, out=base.clone()),
                        gather_rows_plain(table, ids, out=base))
+
+
+# -- serving programs captured as CUDA graphs ------------------------------------
+
+
+def _replay_stack(cuda, store="hot", weighted=False, kernel="pallas", nodes=5000,
+                  mode="GPU", device_topo=None, tmp=None, max_batch=8, model=None):
+    from quiver_tpu_torch import (CSRTopo, Feature, GraphSAGE, GraphSageSampler,
+                                  InferenceServer)
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    coo = generate_pareto_graph(nodes, 12.0, seed=3)
+    w = np.exp(np.random.default_rng(4).normal(size=coo.shape[1])).astype(np.float32)
+    topo = CSRTopo(edge_index=coo, edge_weight=w)
+    x = np.random.default_rng(5).normal(size=(nodes, 24)).astype(np.float32)
+    budget = {"hot": "1G", "split": nodes // 4 * 24 * 4}[store.split(",")[0]]
+    dtype = "int8" if "int8" in store else None
+    feat = Feature(device_cache_size=budget, csr_topo=topo, device=cuda,
+                   **({"dtype": dtype} if dtype else {})).from_cpu_tensor(x)
+    sampler = GraphSageSampler(topo, [5, 5], device=cuda, seed=0, weighted=weighted,
+                               kernel=kernel, mode=mode, device_topo=device_topo)
+    if model is None:
+        torch.manual_seed(0)
+        model = GraphSAGE(24, 64, 7)
+    server = InferenceServer(sampler, model, feat, device=cuda, max_batch=max_batch,
+                             seed=0, aot_cache=tmp)
+    return server
+
+
+@pytest.mark.parametrize("store,weighted,kernel", [
+    ("hot", False, "pallas"), ("split", False, "pallas"), ("hot", True, "pallas"),
+    ("split, int8", False, "pallas"), ("hot", False, "xla"), ("hot", True, "xla")])
+def test_replay_equals_eager_step_every_bucket(cuda, store, weighted, kernel):
+    """Each bucket's captured programs against the same steps run eagerly on
+    the same inputs, and the served answers against the single-query oracle:
+    bitwise, full and padded lanes; each replay makes the launches its
+    capture recorded, and no wrapper is called by a replay."""
+    from quiver_tpu_torch.ops.kernels import launch_counts
+    from quiver_tpu_torch.serving.ladder import REPLAYED_LAUNCHES
+
+    server = _replay_stack(cuda, store, weighted, kernel)
+    assert server.warmup() == 2 * len(server.batcher.buckets) == server.recompiles
+    lad = server.ladder
+    hop = ("weighted_hop" if weighted else "uniform_hop") if kernel == "pallas" else (
+        "wselect" if weighted else "select")
+    for prog in lad.programs():
+        assert prog.graph is not None
+    for b in server.batcher.buckets:
+        assert lad.sample_program(b).launches == {hop: 2}
+        assert lad.forward_program(b).launches == {}
+    rng = np.random.default_rng(1)
+    for bucket in server.batcher.buckets:
+        for live in sorted({bucket, max(bucket - 1, 1)}):
+            nodes = rng.integers(0, 5000, live)
+            seqs = [int(s) for s in rng.integers(0, 1000, live)] + [None] * (bucket - live)
+            seeds = torch.full((bucket,), -1, dtype=torch.int32)
+            seeds[:live] = torch.from_numpy(nodes.astype(np.int32))
+            before, replayed = launch_counts(), dict(REPLAYED_LAUNCHES)
+            n_ids, eis, ovf = lad.sample_exec(bucket)(seeds, seqs)
+            assert launch_counts() == before
+            assert REPLAYED_LAUNCHES[hop] == replayed.get(hop, 0) + 2
+            prog = lad.sample_program(bucket)
+            eager = prog.step()  # the same step on the same static inputs
+            for got, want in zip((n_ids, *eis, ovf), (eager[0], *eager[1], eager[2])):
+                assert torch.equal(got, want)
+            x = server.feature[n_ids.reshape(-1)].reshape(bucket, lad.lane_caps[-1], 24)
+            out = lad.forward_exec(bucket)(x, eis).clone()
+            fwd = lad.forward_program(bucket)
+            assert torch.equal(out, fwd.step())
+            for j in range(live):
+                assert np.array_equal(out[j].cpu().numpy(),
+                                      server.oracle(int(nodes[j]), seqs[j]))
+    reqs = server.serve(rng.integers(0, 5000, 19))
+    for r in reqs:
+        assert np.array_equal(r.result, server.oracle(r.node, r.seq))
+    assert server.recompiles == 2 * len(server.batcher.buckets)
+
+
+def test_replay_under_quiver_check_and_uva(cuda, monkeypatch):
+    """QUIVER_CHECK's readback runs in the eager pass and is skipped under
+    capture; a UVA topology's pinned tables are read by the replays."""
+    from quiver_tpu_torch.models import layers
+
+    monkeypatch.setattr(layers, "_check_cache", True)
+    server = _replay_stack(cuda, mode="UVA")
+    server.warmup()
+    for r in server.serve(np.arange(0, 5000, 371)):
+        assert np.array_equal(r.result, server.oracle(r.node, r.seq))
+
+
+def test_programs_never_shared_across_placements(cuda, tmp_path):
+    """Two servers over one graph, model and cache but different placements
+    share the forward programs and never a sample program; a sampler that
+    adopts the first placement through device_topo shares both."""
+    a = _replay_stack(cuda, tmp=str(tmp_path))
+    first = a.warm_from_cache()
+    assert first == {"loaded": 0, "compiled": 8}
+    b = _replay_stack(cuda, tmp=str(tmp_path), model=a.model)  # another placement
+    assert b.warm_from_cache() == {"loaded": 4, "compiled": 4}
+    for pa, pb in zip(a.ladder.programs(), b.ladder.programs()):
+        assert (pa is pb) == (pa.launches == {})
+    c = _replay_stack(cuda, tmp=str(tmp_path), device_topo=a.sampler.topo,
+                      model=a.model)
+    assert c.warm_from_cache() == {"loaded": 8, "compiled": 0}
+    nodes = np.arange(3, 5000, 517)
+    for ra, rb, rc in zip(a.serve(nodes), b.serve(nodes), c.serve(nodes)):
+        assert np.array_equal(ra.result, rb.result)
+        assert np.array_equal(ra.result, rc.result)
+
+
+def test_profiler_sees_the_hop_kernel_in_a_replay(cuda):
+    """torch.profiler records the fused hop's kernel running inside a
+    replayed sample program, which calls no wrapper."""
+    for weighted, name in ((False, "uniform_hop_kernel"), (True, "weighted_hop_kernel")):
+        server = _replay_stack(cuda, weighted=weighted)
+        server.warmup()
+        run = server.ladder.sample_exec(8)
+        seeds = torch.arange(8, dtype=torch.int32)
+        run(seeds, list(range(8)))
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            run(seeds, list(range(8)))
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert any(name in k for k in names), names

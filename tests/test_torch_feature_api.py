@@ -244,7 +244,7 @@ def test_sampler_argument_checks(data):
         assert qt.GraphSageSampler(tt, [2], device="cpu", dedup=dedup).dedup == dedup
     with pytest.raises(ValueError, match="dedup"):
         qt.GraphSageSampler(tt, [2], device="cpu", dedup="hash")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(TypeError, match="DeviceTopology"):
         qt.GraphSageSampler(tt, [2], device="cpu", device_topo=object())
     with pytest.raises(NotImplementedError, match="A.11"):
         qt.GraphSageSampler(tt, [2], device="cpu", topo_sharding="mesh")
