@@ -90,6 +90,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card, with sampled and then layer-wise evaluation, then sampled
    once more over an int8 store; each test accuracy must clear the
    feature-only Bayes accuracy + 0.15.
+9b. the training epoch's host loop, ``benchmarks/bench_epoch.py``'s
+   configuration (the products-shaped graph on the card, F=100 f32, 47
+   classes, a 20% degree-ordered cache, the rest pinned, fanouts [15, 10,
+   5], batch 1024, auto caps, hidden 256, GAT heads 4, Adam 1e-3) for
+   ``--model`` sage, gcn, gin and gat: 3 warm-up iterations, then 40
+   serial ones (``--prefetch 0``: stage medians, 10%-trimmed mean) and 40
+   through a ``Prefetcher`` at depth 2 (its dispatch on the worker's own
+   CUDA stream); steps/s, sampled edges/s, peak memory, and the idle
+   share of 5 prefetched steps under ``torch.profiler``; exactly 3
+   ``uniform_hop`` and 1 ``tiered_gather`` launches per iteration (from
+   the worker thread under the Prefetcher; regrowth reruns counted
+   apart); the prefetched batches bitwise the serial loop's (fresh
+   samplers, one seed stream); finite losses. Then GCN, GIN and GAT each
+   train one step on the card against the CPU (fanouts [15, 10, 5] x 64,
+   phase 8's tolerances); their layer-wise inference at
+   ``benchmarks/bench_infer.py``'s defaults over the products graph
+   (nodes/s, finite) and on the small graphs against the CPU (within 1e-5
+   x max |out|); and the twin's ``--save-dir`` drill: planted:20000 for 2
+   epochs, then resumed to 4 (epochs 3-4 only, the restored state bitwise
+   the saved one, test accuracy above feature-only Bayes + 0.15).
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -2150,6 +2170,42 @@ def train_parity(run, seeds):
             "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
 
 
+def annotation(e) -> bool:
+    """Whether a profiled device row is the span of a ``record_function``
+    annotation (the step's stages, the optimizer's ``Optimizer.step#...``)
+    rather than a kernel or copy."""
+    return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("train:")
+
+
+def device_ms(prof, steps: int) -> tuple[dict, dict]:
+    """Device time per step in ms of every profiled CUDA row: ``(kernels
+    and copies, annotations' spans)``."""
+    import torch
+
+    kernels, spans = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+            (spans if annotation(e) else kernels)[e.key] = \
+                e.self_device_time_total / 1e3 / steps
+    return kernels, spans
+
+
+def device_union_ms(prof, steps: int) -> float:
+    """Device time per step in ms during which at least one kernel or copy
+    ran, on any stream (kernels that overlap on two streams count once)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not annotation(e))
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3 / steps
+
+
 def profile_steps(step, batches, first, median_step_ms):
     """``PROFILED_STEPS`` more steps under ``torch.profiler``: the device
     time of every kernel and copy per step, the span on the card of each
@@ -2162,12 +2218,8 @@ def profile_steps(step, batches, first, median_step_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(first, first + PROFILED_STEPS):
             step(i, batches[i])
-    spans, kernels = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
-            continue
-        ms = e.self_device_time_total / 1e3 / PROFILED_STEPS
-        (spans if e.key.startswith("train:") else kernels)[e.key] = ms
+    kernels, spans = device_ms(prof, PROFILED_STEPS)
+    spans = {k: ms for k, ms in spans.items() if k.startswith("train:")}
     busy = sum(kernels.values())
     check(busy > 0 and len(spans) == 3, f"the profiler saw the card: spans {spans}")
     ours = {name: sum(ms for key, ms in kernels.items() if name in key)
@@ -2358,6 +2410,450 @@ def acceptance_phase(card):
         runs[label] = {"test_acc": acc, "feature_bayes_acc": bayes,
                        "seconds": time.time() - t0, "launches": launches}
     return {"dataset": "planted:20000", "epochs": 4, **runs, "card": card}
+
+
+# -- phase 9b: the training epoch's host loop, the other families ------------
+
+EPOCH_FAMILIES = ("sage", "gcn", "gin", "gat")
+EPOCH_FANOUT = [15, 10, 5]  # benchmarks/bench_epoch.py:44-57, 104-109
+EPOCH_BATCH, EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, EPOCH_HEADS = 1024, 100, 256, 47, 4
+EPOCH_ITERS, EPOCH_WARMUP = 40, 3
+BITWISE_BATCHES = 3  # prefetched against serial batches, per family
+# layer-wise inference at benchmarks/bench_infer.py's defaults (2 layers)
+# with the family's default chunk; GAT walks the edges twice per layer
+INFER_SWEEPS = {"gcn": 1, "gin": 1, "gat": 2}
+
+
+def make_family(family, in_channels, hidden, classes, layers, dropout=0.5):
+    """A port model of ``family`` (``benchmarks/common.py:677-710``'s
+    dispatch), initialised from generator seed 0 on the host."""
+    import torch
+
+    from quiver_tpu_torch.models import GAT, GCN, GIN, GraphSAGE
+    from quiver_tpu_torch.parallel.train import init_model
+
+    if family == "gat":
+        model = GAT(in_channels, hidden, classes, num_layers=layers,
+                    heads=EPOCH_HEADS, dropout=dropout)
+    else:
+        model = {"sage": GraphSAGE, "gcn": GCN, "gin": GIN}[family](
+            in_channels, hidden, classes, num_layers=layers, dropout=dropout)
+    return init_model(model, torch.Generator().manual_seed(0))
+
+
+def trimmed_mean(times) -> float:
+    """10%-trimmed mean (``benchmarks/common.py`` ``trimmed_mean``)."""
+    times = sorted(times)
+    k = max(1, len(times) // 10)
+    if len(times) > 2 * k:
+        times = times[k:-k]
+    return sum(times) / len(times)
+
+
+def host_copy(tree):
+    """A state tree with every tensor copied to the host."""
+    import torch
+
+    if isinstance(tree, dict):
+        return type(tree)((k, host_copy(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def same_tree(a, b) -> bool:
+    """Bitwise equality of two host state trees."""
+    import torch
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a, key=str) == sorted(b, key=str)
+                and all(same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_tree(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def epoch_family(family, topo, feat, labels_all, card):
+    """``benchmarks/bench_epoch.py``'s host loop for one ``--model``: the
+    planning call and 3 warm-up iterations, then (a) ``--prefetch 0``, 40
+    serial iterations, each stage ending in a synchronise (10%-trimmed
+    mean per iteration, stage medians); (b) ``--prefetch 2``, 40
+    iterations through a ``Prefetcher`` at depth 2 (wall / iterations),
+    its sample and lookup on the worker's own CUDA stream; 5 prefetched
+    steps under ``torch.profiler`` (device time, idle share); then the
+    prefetched batches against the serial loop's from two freshly seeded
+    samplers, bitwise. Exactly 3 ``uniform_hop`` and 1 ``tiered_gather``
+    launches per iteration (3 more per regrowth rerun, counted apart), in
+    (b) all from the worker thread."""
+    import math
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from quiver_tpu_torch import Batch, GraphSageSampler, Prefetcher
+    from quiver_tpu_torch.ops.sample import seeded_generator
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    n = topo.node_count
+
+    def fresh_sampler():
+        return GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", mode="HBM",
+                                seed_capacity=EPOCH_BATCH, seed=0,
+                                frontier_caps="auto")
+
+    t0 = time.time()
+    sampler = fresh_sampler()
+    model = make_family(family, EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES,
+                        len(EPOCH_FANOUT)).to("cuda")
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    rng = np.random.default_rng(1)  # bench_epoch: seed + 1
+
+    def labels_of(out):
+        seed_ids = out.n_id[:EPOCH_BATCH]
+        return labels_all[seed_ids.clamp(min=0)], seed_ids >= 0
+
+    def train(batch_x, out, i):
+        labels, mask = labels_of(out)
+        return step(batch_x, out.adjs, labels, mask,
+                    seeded_generator("cuda", 0, 100 + i))
+
+    def iteration(i):
+        seeds = rng.integers(0, n, EPOCH_BATCH)
+        a = time.perf_counter()
+        out = sampler.sample(seeds)
+        sync()
+        b = time.perf_counter()
+        x = feat[out.n_id]
+        sync()
+        c = time.perf_counter()
+        loss = train(x, out, i)
+        sync()
+        return out, loss, (b - a, c - b, time.perf_counter() - c)
+
+    out0 = sampler.sample(rng.integers(0, n, EPOCH_BATCH))  # plans the caps
+    feat[out0.n_id]
+    del out0
+    for i in range(EPOCH_WARMUP):
+        iteration(i)
+    sync()
+    setup_s = time.time() - t0
+
+    def edges_of(counts) -> int:
+        return int(torch.stack([torch.stack(list(c)) for c in counts]).sum())
+
+    def profiled(run_steps, step_ms: float) -> dict:
+        """Device time of ``PROFILED_STEPS`` more steps under the
+        profiler: busy is the union of the device intervals over every
+        stream, the idle share is against ``step_ms`` (the unprofiled
+        run's), K1 and K2 are summed by kernel name."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_steps()
+            sync()
+        kernels, _spans = device_ms(prof, PROFILED_STEPS)
+        busy = device_union_ms(prof, PROFILED_STEPS)
+        check(busy > 0, f"epoch {family}: the profiler saw the card")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+        return {"device_busy_ms_per_step": busy,
+                "device_summed_ms_per_step": sum(kernels.values()),
+                "idle_share": 1 - busy / step_ms,
+                "k2_device_ms_per_step": sum(ms for k, ms in kernels.items()
+                                             if "gather_kernel" in k),
+                "k1_device_ms_per_step": sum(ms for k, ms in kernels.items()
+                                             if "uniform_hop_kernel" in k),
+                "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
+
+    # (a) --prefetch 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reruns0 = sampler.reruns
+    rows, losses, counts = [], [], []
+    for i in range(EPOCH_ITERS):
+        out, loss, stages = iteration(i)
+        rows.append(stages)
+        losses.append(loss)
+        counts.append(out.edge_counts)
+    reruns_a = sampler.reruns - reruns0
+    expect_launches(read_launches(), {"uniform_hop": 3 * (EPOCH_ITERS + reruns_a),
+                                      "tiered_gather": EPOCH_ITERS},
+                    f"epoch {family} --prefetch 0 ({reruns_a} reruns)")
+    iter_a = trimmed_mean([sum(r) for r in rows])
+    serial = {"iter_ms_trimmed_mean": iter_a * 1e3, "steps_per_s": 1 / iter_a,
+              "edges_per_s": edges_of(counts) / len(counts) / iter_a,
+              "reruns": reruns_a,
+              "median_ms": {k: statistics.median(r[j] for r in rows) * 1e3
+                            for j, k in enumerate(("sample", "gather", "train_step"))},
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    serial.update(profiled(lambda: [iteration(EPOCH_ITERS + k)
+                                    for k in range(PROFILED_STEPS)],
+                           serial["iter_ms_trimmed_mean"]))
+
+    # (b) --prefetch 2
+    threads = set()
+
+    def on_worker(seeds, out, x):
+        threads.add(threading.current_thread().name)
+        return Batch(seeds, out, x)
+
+    stream = [rng.integers(0, n, EPOCH_BATCH) for _ in range(EPOCH_ITERS)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reruns0 = sampler.reruns
+    counts = []
+    sync()
+    ends = [time.perf_counter()]
+    for i, batch in enumerate(Prefetcher(sampler, feat, depth=2,
+                                         transform=on_worker).run(stream)):
+        losses.append(train(batch.x, batch.out, EPOCH_ITERS + i))
+        counts.append(batch.out.edge_counts)
+        ends.append(time.perf_counter())
+    sync()
+    iter_b = (time.perf_counter() - ends[0]) / EPOCH_ITERS
+    reruns_b = sampler.reruns - reruns0
+    launches_b = read_launches()
+    expect_launches(launches_b, {"uniform_hop": 3 * (EPOCH_ITERS + reruns_b),
+                                 "tiered_gather": EPOCH_ITERS},
+                    f"epoch {family} --prefetch 2 ({reruns_b} reruns)")
+    check(len(counts) == EPOCH_ITERS and threads
+          and all(t.startswith("quiver-prefetch") for t in threads),
+          f"epoch {family}: every dispatch on the prefetch worker ({threads})")
+    prefetched = {"iter_ms": iter_b * 1e3, "steps_per_s": 1 / iter_b,
+                  "host_iter_ms_median": statistics.median(
+                      b - a for a, b in zip(ends, ends[1:])) * 1e3,
+                  "edges_per_s": edges_of(counts) / len(counts) / iter_b,
+                  "reruns": reruns_b, "peak_bytes": torch.cuda.max_memory_allocated()}
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"epoch {family}: finite losses")
+    stream = [rng.integers(0, n, EPOCH_BATCH) for _ in range(PROFILED_STEPS)]
+    prefetched.update(profiled(
+        lambda: [train(batch.x, batch.out, 2 * EPOCH_ITERS + i) for i, batch in
+                 enumerate(Prefetcher(sampler, feat, depth=2).run(stream))],
+        prefetched["iter_ms"]))
+
+    # bitwise: the prefetched stream against the serial loop, each from a
+    # freshly seeded sampler, the train step running on every batch
+    seeds = [np.random.default_rng(50 + i).integers(0, n, EPOCH_BATCH)
+             for i in range(BITWISE_BATCHES)]
+    plain = fresh_sampler()
+    want = []
+    for s in seeds:
+        out = plain.sample(s)
+        want.append((out.n_id, [a.edge_index for a in out.adjs], feat[out.n_id]))
+    del plain
+    same = []
+    for i, (batch, (n_id, eis, x)) in enumerate(zip(
+            Prefetcher(fresh_sampler(), feat, depth=2).run(seeds), want)):
+        train(batch.x, batch.out, 3 * EPOCH_ITERS + i)
+        same.append(equal(batch.out.n_id, n_id) and equal(batch.x, x)
+                    and all(equal(a.edge_index, e)
+                            for a, e in zip(batch.out.adjs, eis)))
+    check(len(same) == BITWISE_BATCHES and all(same),
+          f"epoch {family}: prefetched batches bitwise the serial loop's {same}")
+    del want
+    result = {"family": family, "setup_s": setup_s, "caps": list(sampler._frontier_caps),
+              "prefetch_0": serial, "prefetch_2": prefetched,
+              "launches_per_iteration": {"uniform_hop": 3, "tiered_gather": 1},
+              "launches_prefetch_2": launches_b,
+              "losses_first_last": [losses[0], losses[-1]],
+              "bitwise_batches": BITWISE_BATCHES, "card": card}
+    log(f"epoch {family} --prefetch 0: stage medians "
+        f"{ {k: round(v, 3) for k, v in serial['median_ms'].items()} } ms [{card}]")
+    for mode, r in (("--prefetch 0", serial), ("--prefetch 2", prefetched)):
+        log(f"epoch {family} {mode}: {r['steps_per_s']:.4g} steps/s [{card}]")
+        log(f"epoch {family} {mode}: {r['edges_per_s']:.4g} sampled edges/s [{card}]")
+        log(f"epoch {family} {mode}: peak device memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+        log(f"epoch {family} {mode}: idle share {r['idle_share']:.4f} (device busy "
+            f"{r['device_busy_ms_per_step']:.3f} ms, kernels summed over the streams "
+            f"{r['device_summed_ms_per_step']:.3f} ms, K2 "
+            f"{r['k2_device_ms_per_step']:.3f} ms) [{card}]")
+    return result
+
+
+def family_parity(family, topo, feat, labels_all):
+    """One train step of ``family`` on the card against the CPU's on one
+    batch at fanouts [15, 10, 5] x 64 (dropout 0, TF32 off for the whole
+    smoke): the loss within 1e-5 relative, each gradient within 1e-4 x
+    its max |g| (phase 8's tolerances)."""
+    import copy
+
+    import numpy as np
+
+    from quiver_tpu_torch import GraphSageSampler
+
+    sampler = GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", seed_capacity=64,
+                               seed=5)
+    out = sampler.sample(np.random.default_rng(7).integers(0, topo.node_count, 64))
+    x = feat[out.n_id]
+    seed_ids = out.n_id[:64]
+    labels, mask = labels_all[seed_ids.clamp(min=0)], seed_ids >= 0
+    model = make_family(family, EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES,
+                        len(EPOCH_FANOUT), dropout=0.0)
+    cpu_model = copy.deepcopy(model)
+    loss_g, grads_g = step_grads(model.to("cuda"), x, out.adjs, labels, mask)
+    loss_c, grads_c = step_grads(cpu_model, x.cpu(), [a.to("cpu") for a in out.adjs],
+                                 labels.cpu(), mask.cpu())
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
+                for g, c in zip(grads_g, grads_c)]
+    check(rel <= 1e-5, f"{family} parity: loss {loss_g} (card) vs {loss_c} (CPU)")
+    check(max(grad_err) <= 1e-4, f"{family} parity: gradient errors / max |g| {grad_err}")
+    return {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+            "max_grad_err_over_max": max(grad_err), "rows": int(x.shape[0]),
+            "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
+
+
+def layerwise_families(topo, x_feat, card):
+    """``benchmarks/bench_infer.py``'s defaults for GCN, GIN and GAT (2
+    layers, hidden 256, 47 classes, GAT heads 4, the family's default
+    chunk, HBM): one warm-up pass, then one timed pass over the products
+    graph (nodes/s, finite log-probs); then on ``small_graphs()`` (chunks
+    of 65,536 edges) the card's log-probs against the CPU's, within 1e-5
+    x max |out|."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.models import inference
+
+    n, E = topo.node_count, topo.edge_count
+    x_dev = torch.from_numpy(x_feat).to("cuda")
+    smalls = [(label, t) for label, t, *_ in small_graphs()]
+    out = {}
+    for family in ("gcn", "gin", "gat"):
+        infer = getattr(inference, f"{family}_layerwise_inference")
+        model = make_family(family, EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, 2,
+                            dropout=0.0)
+        cpu_model = copy.deepcopy(model)
+        model.to("cuda")
+        infer(model, topo, x_dev, device="cuda")  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        logp = infer(model, topo, x_dev, device="cuda")
+        sync()
+        dt = time.perf_counter() - t0
+        check(logp.shape == (n, EPOCH_CLASSES) and bool(torch.isfinite(logp).all()),
+              f"layer-wise {family}: finite ({n}, {EPOCH_CLASSES}) log-probs")
+        del logp
+        errs = {}
+        for label, st in smalls:
+            xs = np.random.default_rng(3).normal(size=(st.node_count, EPOCH_F)).astype(
+                np.float32)
+            got = infer(model, st, torch.from_numpy(xs).to("cuda"), chunk=65_536,
+                        device="cuda").cpu()
+            want = infer(cpu_model, st, torch.from_numpy(xs), chunk=65_536, device="cpu")
+            errs[label] = float((got - want).abs().max()) / float(want.abs().max())
+        check(max(errs.values()) <= 1e-5,
+              f"layer-wise {family}: card against CPU, error / max |out| {errs}")
+        out[family] = {"pass_s": dt, "nodes_per_s": n / dt,
+                       "edges_per_s": INFER_SWEEPS[family] * 2 * E / dt,
+                       "small_graph_err_over_max": errs, "card": card}
+        log(f"layer-wise {family}: {n / dt:.4g} nodes/s ({dt:.3f} s a pass) [{card}]")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def resume_drill(card):
+    """The twin's ``--save-dir``: ``--dataset planted:20000 --epochs 2``,
+    then ``--epochs 4`` over the same directory (under ``OUT_DIR``). The
+    second run resumes at epoch 2 and trains epochs 3-4 only; the state it
+    restores is bitwise what the first run saved after epoch 2; its test
+    accuracy clears feature-only Bayes + 0.15."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    from examples.train_sage_torch import main
+    from quiver_tpu_torch.utils import checkpoint
+
+    d = os.path.join(OUT_DIR, "resume_drill")
+    shutil.rmtree(d, ignore_errors=True)
+    saved, restored = {}, []
+    save, restore = checkpoint.Checkpointer.save, checkpoint.Checkpointer.restore
+
+    def record_save(self, step, state, *a, **kw):
+        saved[step] = host_copy(state)
+        return save(self, step, state, *a, **kw)
+
+    def record_restore(self, *a, **kw):
+        state = restore(self, *a, **kw)
+        restored.append(host_copy(state))
+        return state
+
+    runs = []
+    checkpoint.Checkpointer.save = record_save
+    checkpoint.Checkpointer.restore = record_restore
+    try:
+        for epochs in (2, 4):
+            t0 = time.time()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                acc, ds = main(["--dataset", "planted:20000", "--epochs", str(epochs),
+                                "--save-dir", d, "--device", "cuda"])
+            for line in text.getvalue().splitlines():
+                log(f"resume drill, --epochs {epochs}: {line}")
+            runs.append({"epochs": epochs, "test_acc": acc, "seconds": time.time() - t0,
+                         "trained": re.findall(r"Epoch (\d+)", text.getvalue()),
+                         "resumed": f"resumed from {d} at epoch 2" in text.getvalue()})
+    finally:
+        checkpoint.Checkpointer.save = save
+        checkpoint.Checkpointer.restore = restore
+    bayes = ds.meta["feature_bayes_acc"]
+    check(runs[0]["trained"] == ["01", "02"] and not runs[0]["resumed"],
+          f"resume drill: the first run trains epochs 1-2 {runs[0]}")
+    check(runs[1]["trained"] == ["03", "04"] and runs[1]["resumed"],
+          f"resume drill: the second run resumes at epoch 2 {runs[1]}")
+    check(len(restored) == 1 and same_tree(saved[2], restored[0]),
+          "resume drill: the restored state is bitwise the saved one")
+    check(runs[1]["test_acc"] >= bayes + 0.15,
+          f"resume drill: test acc {runs[1]['test_acc']} < Bayes {bayes} + 0.15")
+    return {"runs": runs, "feature_bayes_acc": bayes, "restored_bitwise": True,
+            "saved_steps": sorted(saved), "card": card}
+
+
+def epoch_phase(topo, card):
+    """Phase 9b: bench_epoch's configuration on the products graph (F = 100
+    f32 from ``default_rng(0).normal``, 47 labels from ``default_rng(1)``,
+    a 20% degree-ordered cache, the rest pinned) for every family; the
+    card-vs-CPU steps of GCN, GIN and GAT; layer-wise inference at
+    bench_infer's configuration; the resume drill."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import Feature
+
+    t0 = time.time()
+    n = topo.node_count
+    x_feat = np.random.default_rng(0).normal(size=(n, EPOCH_F)).astype(np.float32)
+    feat = Feature(device_cache_size=int(0.2 * n) * EPOCH_F * 4, csr_topo=topo,
+                   device="cuda").from_cpu_tensor(x_feat)
+    labels_all = torch.from_numpy(np.random.default_rng(1).integers(
+        0, EPOCH_CLASSES, n).astype(np.int32)).to("cuda")
+    log(f"epoch phase set-up {time.time() - t0:.1f}s: {feat.hot_rows} hot rows")
+    result = {"config": "benchmarks/bench_epoch.py defaults: products-shaped "
+                        "generate_pareto_graph(2450000, 50.5, seed=0), HBM topology, "
+                        "F=100 f32, 47 classes, 20% cache, fanouts [15, 10, 5], "
+                        "batch 1024, auto caps, hidden 256, GAT heads 4, Adam 1e-3, "
+                        f"{EPOCH_WARMUP} warm-up + {EPOCH_ITERS} iterations",
+              "hot_rows": feat.hot_rows, "families": {}, "parity": {}}
+    for family in EPOCH_FAMILIES:
+        result["families"][family] = epoch_family(family, topo, feat, labels_all, card)
+        torch.cuda.empty_cache()
+    for family in ("gcn", "gin", "gat"):
+        result["parity"][family] = family_parity(family, topo, feat, labels_all)
+    del feat, labels_all
+    torch.cuda.empty_cache()
+    result["layerwise"] = layerwise_families(topo, x_feat, card)
+    result["resume"] = resume_drill(card)
+    result["seconds"] = time.time() - t0
+    return result
 
 
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
@@ -2594,6 +3090,11 @@ def main() -> int:
     lap("int8 training (b)")
     accept = acceptance_phase(card)
     lap("phase 9 (with its int8 run)")
+    # phase 9b: bench_epoch's host loop for every family (serial and
+    # through the Prefetcher), GCN/GIN/GAT against the CPU, their
+    # layer-wise inference, and the --save-dir resume drill
+    epoch = epoch_phase(topo, card)
+    lap("phase 9b (epoch loop, families, resume)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -2630,6 +3131,9 @@ def main() -> int:
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
                     "train_launches": launches_t["uniform_hop"],
+                    "epoch_launches_prefetch_2": {
+                        f: r["launches_prefetch_2"]["uniform_hop"]
+                        for f, r in epoch["families"].items()},
                     "degraded_serve_launches": {
                         k: degraded[k]["launches"]["uniform_hop"]
                         for k in ("zeros", "last-good")},
@@ -2646,6 +3150,9 @@ def main() -> int:
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
                     "train_launches": launches_t["tiered_gather"],
+                    "epoch_launches_prefetch_2": {
+                        f: r["launches_prefetch_2"]["tiered_gather"]
+                        for f, r in epoch["families"].items()},
                     "degraded_serve_launches": {
                         k: degraded[k]["launches"]["tiered_gather"]
                         for k in ("zeros", "last-good")},
@@ -2714,7 +3221,7 @@ def main() -> int:
                        "serve_idle": idle, "degraded": degraded, "fleet": fleet,
                        "sampler": samplers, "train": train,
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
-                       "acceptance": accept,
+                       "acceptance": accept, "epoch": epoch,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -2735,6 +3242,7 @@ def main() -> int:
                                   if k not in ("per_step", "valid_rows_and_cold_rows")}}),
               flush=True)
     print(json.dumps({"acceptance": accept}), flush=True)
+    print(json.dumps({"epoch": epoch}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -19,7 +19,12 @@ Datasets (quiver_tpu_torch.datasets):
 It runs on the CUDA card unless ``--device`` names another (``--device
 cpu`` runs the kernels' plain versions); with no card and no ``--device``
 it raises. ``--int8`` stores the features as int8 codes under the same
-byte budget (about four times the rows on the card).
+byte budget (about four times the rows on the card). ``--save-dir``
+checkpoints the model and Adam state after each epoch into an atomic
+manifest store (``quiver_tpu_torch.utils.checkpoint.Checkpointer``) and
+resumes from its latest checkpoint, as the JAX twin does: the epochs up
+to the checkpoint are skipped, and the dropout generators' step count
+starts again at 0.
 
     python -m examples.train_sage_torch --dataset planted:20000 --epochs 4
     python -m examples.train_sage_torch --dataset planted:4000:6 --device cpu \\
@@ -40,6 +45,7 @@ from quiver_tpu_torch.models.sage import GraphSAGE
 from quiver_tpu_torch.ops.sample import seeded_generator
 from quiver_tpu_torch.parallel.train import (init_model, make_eval_step,
                                              make_train_step)
+from quiver_tpu_torch.utils.checkpoint import Checkpointer
 from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
 
 
@@ -123,6 +129,11 @@ def parse_args(argv=None):
         "lookups return float32) under the same byte budget",
     )
     p.add_argument(
+        "--save-dir", default=None,
+        help="checkpoint directory (atomic manifest Checkpointer): training "
+        "resumes from the latest checkpoint there and saves each epoch",
+    )
+    p.add_argument(
         "--eval", default="sampled", choices=["sampled", "layerwise"],
         help="test-time evaluation: batched sampled fanout (fast) or "
         "full-neighbour layer-wise inference over all edges",
@@ -198,8 +209,20 @@ def main(argv=None):
     ds = run.ds
     train_idx = np.asarray(ds.train_idx)
 
+    ckpt = start_epoch = None
+    if args.save_dir:
+        ckpt = Checkpointer(args.save_dir)
+        start_epoch = ckpt.latest_step()
+        if start_epoch is not None:
+            state = ckpt.restore()
+            run.model.load_state_dict(state["params"])
+            run.optimizer.load_state_dict(state["opt_state"])
+            print(f"resumed from {args.save_dir} at epoch {start_epoch}")
+
     step_i = 0
     for epoch in range(1, args.epochs + 1):
+        if start_epoch is not None and epoch <= start_epoch:
+            continue  # already trained in a previous run
         t0 = time.time()
         order = np.random.default_rng(epoch).permutation(train_idx)
         losses, correct, total = [], 0, 0
@@ -217,6 +240,12 @@ def main(argv=None):
             f"Approx. Train Acc: {correct / max(total, 1):.4f} "
             f"({time.time() - t0:.1f}s)"
         )
+        if ckpt is not None:
+            ckpt.save(epoch, {"params": run.model.state_dict(),
+                              "opt_state": run.optimizer.state_dict()})
+
+    if ckpt is not None:
+        ckpt.close()  # waits for the last save
 
     if args.eval == "layerwise":
         test_acc = evaluate_layerwise(

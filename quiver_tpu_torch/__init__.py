@@ -13,6 +13,9 @@ from .core.config import CachePolicy, SampleMode, parse_size_bytes
 from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from .datasets import GraphDataset, load_dataset, planted_partition
 from .feature.feature import Feature, HeteroFeature
+from .models.gat import GAT
+from .models.gcn import GCN
+from .models.gin import GIN
 from .models.sage import GraphSAGE
 from .obs import (
     FlightRecorder,
@@ -23,6 +26,7 @@ from .obs import (
     Tracer,
     profile_epoch,
 )
+from .parallel.pipeline import Batch, Prefetcher
 from .resilience import CircuitBreaker, CorruptCheckpoint, DegradedFeature
 from .sampling.sampler import Adj, GraphSageSampler, SampleOutput
 from .serving import (
@@ -43,9 +47,11 @@ __all__ = [
     "AOTExecutableCache",
     "Adj",
     "AlphaTuner",
+    "Batch",
     "CSRTopo",
     "CacheController",
     "CachePolicy",
+    "Checkpointer",
     "CircuitBreaker",
     "CorruptCheckpoint",
     "CostModel",
@@ -56,6 +62,9 @@ __all__ = [
     "Feature",
     "FlightRecorder",
     "FreqSketch",
+    "GAT",
+    "GCN",
+    "GIN",
     "GraphDataset",
     "GraphSAGE",
     "GraphSageSampler",
@@ -63,6 +72,7 @@ __all__ = [
     "InferenceServer",
     "MetricSnapshot",
     "MetricsRegistry",
+    "Prefetcher",
     "SampleMode",
     "SampleOutput",
     "ServeQueueFull",
@@ -86,3 +96,12 @@ __all__ = [
     "tensor_info",
     "trace_scope",
 ]
+
+
+def __getattr__(name):
+    # Checkpointer resolves lazily, as the JAX package's does
+    if name == "Checkpointer":
+        from .utils.checkpoint import Checkpointer
+
+        return Checkpointer
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

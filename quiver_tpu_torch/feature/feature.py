@@ -31,6 +31,8 @@ package.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -274,7 +276,8 @@ class Feature(KernelChoice):
         self.storage_dtype = _parse_storage_dtype(dtype)
         self.device = resolve_device(device)
         self._kernel = validate_gather_kernel(kernel)
-        self._staging = None  # pinned buffer of the "xla" path's cold rows
+        # per thread: the "xla" path's pinned buffer of cold rows
+        self._staging = threading.local()
         self.hot = None
         self.cold = None
         self.feature_order = None
@@ -346,21 +349,34 @@ class Feature(KernelChoice):
             if self.kernel == "pallas":
                 return tiered_lookup(n_id, self.feature_order, self.hot_rows,
                                      self.hot, self.cold, self.scale)
-            return stock_lookup(n_id, self.feature_order, self.hot_rows,
-                                self.hot, self.cold, self.scale,
-                                self._staging_rows(n_id.shape[0]))
+            buf = self._staging_rows(n_id.shape[0])
+            rows = stock_lookup(n_id, self.feature_order, self.hot_rows,
+                                self.hot, self.cold, self.scale, buf)
+            if buf is not None:
+                self._staging.copied = torch.cuda.Event()
+                self._staging.copied.record(torch.cuda.current_stream(self.device))
+            return rows
 
     def _staging_rows(self, rows: int):
-        """A pinned host buffer of at least ``rows`` cold rows for the
-        ``"xla"`` path's copy, when the cold tier is pinned host memory
-        read from a card; else None."""
+        """This thread's pinned host buffer of at least ``rows`` cold rows
+        for the ``"xla"`` path's copy, when the cold tier is pinned host
+        memory read from a card; else None. A buffer is written on the
+        host only after its last copy to the card (on whatever stream
+        made it) has landed. Each thread has its own: two threads reading
+        one store (a ``Prefetcher``'s worker and an evaluation on the main
+        thread) would otherwise overwrite a buffer still being copied."""
         if (self.cold is None or self.device.type != "cuda"
                 or self.cold.device.type != "cpu"):
             return None
-        if self._staging is None or self._staging.shape[0] < rows:
-            self._staging = torch.empty((rows, self.cold.shape[1]),
-                                        dtype=self.cold.dtype, pin_memory=True)
-        return self._staging
+        local = self._staging
+        buf = getattr(local, "buf", None)
+        if buf is None or buf.shape[0] < rows:
+            local.buf = buf = torch.empty((rows, self.cold.shape[1]),
+                                          dtype=self.cold.dtype, pin_memory=True)
+            local.copied = None
+        elif local.copied is not None:
+            local.copied.synchronize()
+        return buf
 
     def size(self, dim: int) -> int:
         return self.shape[dim]
@@ -373,7 +389,7 @@ class Feature(KernelChoice):
         """Free the device and host buffers now (the reference's
         ``shard_tensor.delete``). The store is unusable after."""
         self.hot = self.cold = self.feature_order = self.scale = None
-        self._staging = None
+        self._staging = threading.local()
         self.hot_rows = 0
 
     # -- reference API shims (one process owns the store; IPC is a no-op) --

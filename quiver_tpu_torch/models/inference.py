@@ -1,24 +1,31 @@
-"""Full-neighbour layer-wise GraphSAGE inference over the whole graph.
+"""Full-neighbour layer-wise inference over the whole graph.
 
-The port of the SAGE part of ``quiver_tpu/models/inference.py``: the
-reference's ``model.inference`` evaluation walks one layer at a time over
-every node with all of its edges (torch-quiver
-examples/pyg/reddit_quiver.py:68-92). Mean aggregation over every node is
-``D^-1 A X``, computed as chunked whole-graph segment sums: walk the CSR
-edge array in fixed-size chunks, gather the source rows, accumulate them
-into an ``(N, F)`` buffer, divide by the degree, then apply the trained
-layer's weights.
+The port of ``quiver_tpu/models/inference.py`` for the homogeneous
+families (GraphSAGE, GCN, GIN, GAT): the reference's ``model.inference``
+evaluation walks one layer at a time over every node with all of its
+edges (torch-quiver examples/pyg/reddit_quiver.py:68-92). Mean aggregation
+over every node is ``D^-1 A X``, computed as chunked whole-graph segment
+sums: walk the CSR edge array in fixed-size chunks, gather the source
+rows, accumulate them into an ``(N, F)`` buffer, divide by the degree,
+then apply the trained layer's weights. GCN and GIN reuse it (a sum is
+the mean times the degree); GAT runs two chunked passes per layer, the
+per-destination logit max and then the softmax's numerator and
+denominator together.
 
 One aggregation strategy: a sorted accumulate per chunk. The JAX package
 also has a cumsum-difference ("scan") strategy because XLA serialises
 scatters on the TPU; the tests hold this one against both. The chunk's
 destinations are sorted (CSR order), and the accumulate is
-``index_put_(accumulate=True)``, which on the card sums each row's
-messages in edge order after a stable sort rather than with atomics, so a
+``index_put_(accumulate=True)`` on the card, which sums each row's
+messages in edge order after a stable sort rather than with atomics, and
+``index_add_`` on the CPU, which adds them one index after another (the
+CPU's ``index_put_`` adds large float chunks with parallel atomics), so a
 result is the same from run to run and from HBM and HOST placements.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +34,9 @@ from ..core.config import SampleMode
 from ..core.memory import resolve_device, to_pinned_host
 from ..ops.sample import staged_gather
 
-__all__ = ["full_neighbor_mean", "sage_layerwise_inference"]
+__all__ = ["full_neighbor_mean", "gat_layerwise_inference",
+           "gcn_layerwise_inference", "gin_layerwise_inference",
+           "sage_layerwise_inference"]
 
 
 def _place(topo, mode, device):
@@ -42,14 +51,12 @@ def _place(topo, mode, device):
     return indptr, torch.from_numpy(topo.indices).to(device), False
 
 
-def _neighbor_mean_dev(indptr, indices, x_all, chunk: int, host: bool = False):
-    """:func:`full_neighbor_mean` on placed CSR tensors (``indptr`` int64).
-
-    The output has ``indptr``'s row count; zero-degree rows are zeros."""
-    n_out, f = indptr.shape[0] - 1, x_all.shape[1]
+def _edge_chunks(indptr, indices, chunk: int, host: bool):
+    """``(src, dst)`` int64 ids of each chunk of ``chunk`` edges in CSR
+    order; ``dst`` comes from a binary search of the edge positions in
+    ``indptr``, so it is sorted within the chunk."""
     E = indices.shape[0]
-    dev = x_all.device
-    acc = torch.zeros(n_out, f, dtype=x_all.dtype, device=dev)
+    dev = indptr.device
     for e0 in range(0, E, chunk):
         epos = torch.arange(e0, min(e0 + chunk, E), device=dev)
         if host:
@@ -57,9 +64,39 @@ def _neighbor_mean_dev(indptr, indices, x_all, chunk: int, host: bool = False):
         else:
             src = indices[e0:e0 + epos.shape[0]]
         dst = torch.searchsorted(indptr, epos, right=True) - 1
-        acc.index_put_((dst,), x_all[src.to(torch.int64)], accumulate=True)
+        yield src.to(torch.int64), dst
+
+
+def _accumulate(acc, dst, values) -> None:
+    """``acc[dst] += values`` with repeated ``dst``, in the same order on
+    every run (see the module docstring)."""
+    if acc.is_cuda:
+        acc.index_put_((dst,), values, accumulate=True)
+    else:
+        acc.index_add_(0, dst, values)
+
+
+def _neighbor_mean_dev(indptr, indices, x_all, chunk: int, host: bool = False):
+    """:func:`full_neighbor_mean` on placed CSR tensors (``indptr`` int64).
+
+    The output has ``indptr``'s row count; zero-degree rows are zeros."""
+    n_out, f = indptr.shape[0] - 1, x_all.shape[1]
+    acc = torch.zeros(n_out, f, dtype=x_all.dtype, device=x_all.device)
+    for src, dst in _edge_chunks(indptr, indices, chunk, host):
+        _accumulate(acc, dst, x_all[src])
     deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(x_all.dtype)
     return acc / deg[:, None]
+
+
+def _float32_convs(model) -> list:
+    """``model``'s layers computing in float32 (as the JAX package's fresh
+    layers compute layer-wise inference), whatever their compute dtype:
+    shallow copies sharing the parameters, so the model itself, which
+    another thread may be running, is left as it is."""
+    convs = [copy.copy(conv) for conv in model.convs]
+    for conv in convs:
+        conv.dtype = None
+    return convs
 
 
 def full_neighbor_mean(topo, x_all, chunk: int = 1 << 21,
@@ -87,7 +124,8 @@ def sage_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     each layer is ``lin_l(mean of neighbours) + lin_r(x)`` in float32 (as
     the JAX package's fresh ``SAGEConv`` computes it), ReLU between
     layers, no dropout. ``chunk`` edges per accumulate; ``mode`` as
-    :func:`full_neighbor_mean`.
+    :func:`full_neighbor_mean`. The other families' passes compute in
+    float32 too.
     """
     device = resolve_device(device)
     # place the (possibly multi-GB) CSR arrays once, not once per layer
@@ -102,3 +140,96 @@ def sage_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
             if i != len(model.convs) - 1:
                 x = torch.relu(x)
         return torch.log_softmax(x, dim=-1)
+
+
+def gcn_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
+                            mode: str | SampleMode = SampleMode.HBM,
+                            device=None):
+    """Layer-wise full-neighbour GCN inference: ``D^-1/2 (A + I) D^-1/2
+    X`` per layer with global degrees, what ``GCNConv`` computes on a
+    block that covers the whole graph (on the usual symmetric topology,
+    whose CSR row degree is both sides' degree). The neighbour sum is the
+    chunked mean times the degree, over features pre-scaled by
+    ``rsqrt(deg + 1)``; ReLU between layers. ``(N, num_classes)`` float32
+    log-probs; ``chunk``, ``mode`` and ``device`` as
+    :func:`sage_layerwise_inference`."""
+    device = resolve_device(device)
+    indptr, indices, host = _place(topo, mode, device)
+    x = torch.as_tensor(x_all).to(device)
+    deg = (indptr[1:] - indptr[:-1]).to(x.dtype)
+    inv_s = torch.rsqrt(deg + 1.0)  # self-loop-augmented degrees
+    convs = _float32_convs(model)
+    with torch.no_grad():
+        for i, conv in enumerate(convs):
+            h = x * inv_s[:, None]
+            agg = _neighbor_mean_dev(indptr, indices, h, chunk, host)
+            x = conv.combine((agg * deg[:, None] + h) * inv_s[:, None])
+            if i != len(convs) - 1:
+                x = torch.relu(x)
+        return torch.log_softmax(x.float(), dim=-1)
+
+
+def gin_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
+                            mode: str | SampleMode = SampleMode.HBM,
+                            device=None):
+    """Layer-wise full-neighbour GIN inference: ``MLP((1 + eps) x + A x)``
+    per layer, what ``GINConv`` computes on a block that covers the whole
+    graph (the neighbour sum is the chunked mean times the degree); ReLU
+    between layers. Arguments and result as
+    :func:`sage_layerwise_inference`."""
+    device = resolve_device(device)
+    indptr, indices, host = _place(topo, mode, device)
+    x = torch.as_tensor(x_all).to(device)
+    deg = (indptr[1:] - indptr[:-1]).to(x.dtype)
+    convs = _float32_convs(model)
+    with torch.no_grad():
+        for i, conv in enumerate(convs):
+            agg = _neighbor_mean_dev(indptr, indices, x, chunk, host)
+            x = conv.combine(agg * deg[:, None] + (1.0 + conv.eps) * x)
+            if i != len(convs) - 1:
+                x = torch.relu(x)
+        return torch.log_softmax(x.float(), dim=-1)
+
+
+def gat_layerwise_inference(model, topo, x_all, chunk: int = 1 << 20,
+                            mode: str | SampleMode = SampleMode.HBM,
+                            device=None):
+    """Layer-wise full-neighbour GAT inference: attention over all edges.
+
+    Per layer, two chunked edge passes give an exact whole-graph segment
+    softmax: (1) each destination's largest logit (a ``scatter_reduce``
+    max), (2) the shifted exponentials' sum and the weighted messages'
+    sum together (one sorted accumulate each per chunk); then the layer's
+    ``finish`` (heads concatenated or averaged, plus the bias), ELU
+    between layers. A node with no in-edges gets its bias only, as the
+    sampled model gives it. The default ``chunk`` is half the other
+    families' (a chunk's messages are ``(chunk, H, F)``). Arguments and
+    result as :func:`sage_layerwise_inference`."""
+    device = resolve_device(device)
+    indptr, indices, host = _place(topo, mode, device)
+    x = torch.as_tensor(x_all).to(device)
+    n = indptr.shape[0] - 1
+    convs = _float32_convs(model)
+    with torch.no_grad():
+        for i, conv in enumerate(convs):
+            h_all, a_s, a_d = conv.project(x)
+            H = h_all.shape[1]
+            slope = conv.negative_slope
+            seg_max = torch.full((n, H), -torch.inf, dtype=h_all.dtype, device=device)
+            for src, dst in _edge_chunks(indptr, indices, chunk, host):
+                logit = F.leaky_relu(a_s[src] + a_d[dst], slope)
+                seg_max.scatter_reduce_(0, dst[:, None].expand_as(logit), logit,
+                                        "amax")
+            # destinations with no in-edges: a finite shift (their sums stay 0)
+            seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+            num = torch.zeros_like(h_all)
+            denom = torch.zeros((n, H), dtype=h_all.dtype, device=device)
+            for src, dst in _edge_chunks(indptr, indices, chunk, host):
+                w = torch.exp(F.leaky_relu(a_s[src] + a_d[dst], slope) - seg_max[dst])
+                _accumulate(num, dst, w[:, :, None] * h_all[src])
+                _accumulate(denom, dst, w)
+            out = num / denom.clamp(min=torch.finfo(h_all.dtype).tiny)[:, :, None]
+            x = conv.finish(out)
+            if i != len(convs) - 1:
+                x = F.elu(x)
+        return torch.log_softmax(x.float(), dim=-1)

@@ -21,7 +21,7 @@ from torch import nn
 
 from .layers import gather_src, segment_mean_aggregate
 
-__all__ = ["GraphSAGE", "SAGEConv", "dropout"]
+__all__ = ["GraphSAGE", "SAGEConv", "apply_linear", "dropout", "stacked_forward"]
 
 
 def _compute_dtype(dtype) -> torch.dtype | None:
@@ -42,6 +42,41 @@ def dropout(x, p: float, generator: torch.Generator):
                                                           device=x.device))
 
 
+def apply_linear(lin: nn.Linear, x, dtype=None):
+    """``lin(x)``; with a compute ``dtype`` the input, weight and bias are
+    cast to it first (flax ``Dense(dtype=)``; the parameters themselves
+    stay float32)."""
+    if dtype is None:
+        return lin(x)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def stacked_forward(model, x, adjs: Sequence, generator, act=F.relu):
+    """The layer loop every model family shares: ``model.convs`` over the
+    Adjs deepest-first, ``act`` and dropout (``model.dropout``, drawn from
+    ``generator`` in training mode) between layers, and a float32
+    log-softmax head."""
+    drop = model.training and model.dropout > 0
+    if drop and generator is None:
+        raise ValueError("training-mode dropout needs a generator")
+    if len(adjs) != model.num_layers:
+        raise ValueError(
+            f"model has {model.num_layers} layers but got {len(adjs)} adjs; "
+            "sampler sizes and num_layers must match"
+        )
+    if model.dtype is not None:
+        x = x.to(model.dtype)
+    for i, (conv, adj) in enumerate(zip(model.convs, adjs)):
+        x = conv(x, adj.edge_index, adj.size[1], adj.fanout)
+        if i != model.num_layers - 1:
+            x = act(x)
+            if drop:
+                x = dropout(x, model.dropout, generator)
+    # log-softmax in f32: bf16 has too little mantissa for a stable NLL
+    return torch.log_softmax(x.to(torch.float32), dim=-1)
+
+
 class SAGEConv(nn.Module):
     """One mean-aggregation SAGE layer; ``lin_l`` has a bias, ``lin_r``
     none. ``dtype="bfloat16"`` runs the products and the aggregation in
@@ -53,14 +88,9 @@ class SAGEConv(nn.Module):
         self.lin_r = nn.Linear(in_channels, out_channels, bias=False)
         self.dtype = _compute_dtype(dtype)
 
-    def _linear(self, lin: nn.Linear, x):
-        if self.dtype is None:
-            return lin(x)
-        bias = None if lin.bias is None else lin.bias.to(self.dtype)
-        return F.linear(x, lin.weight.to(self.dtype), bias)
-
     def combine(self, agg, x_self):
-        return self._linear(self.lin_l, agg) + self._linear(self.lin_r, x_self)
+        return (apply_linear(self.lin_l, agg, self.dtype)
+                + apply_linear(self.lin_r, x_self, self.dtype))
 
     def forward(self, x, edge_index, num_dst: int, fanout: int | None = None):
         src, dst = edge_index[..., 0, :], edge_index[..., 1, :]
@@ -92,21 +122,4 @@ class GraphSAGE(nn.Module):
     def forward(self, x, adjs: Sequence, generator: torch.Generator | None = None):
         """Log-probs of the seed rows. In training mode with ``dropout >
         0``, ``generator`` (on ``x``'s device) draws the dropout masks."""
-        drop = self.training and self.dropout > 0
-        if drop and generator is None:
-            raise ValueError("training-mode dropout needs a generator")
-        if len(adjs) != self.num_layers:
-            raise ValueError(
-                f"model has {self.num_layers} layers but got {len(adjs)} adjs; "
-                "sampler sizes and num_layers must match"
-            )
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        for i, (conv, adj) in enumerate(zip(self.convs, adjs)):
-            x = conv(x, adj.edge_index, adj.size[1], adj.fanout)
-            if i != self.num_layers - 1:
-                x = F.relu(x)
-                if drop:
-                    x = dropout(x, self.dropout, generator)
-        # log-softmax in f32: bf16 has too little mantissa for a stable NLL
-        return torch.log_softmax(x.to(torch.float32), dim=-1)
+        return stacked_forward(self, x, adjs, generator)

@@ -8,7 +8,9 @@ at once, one ``nvcc`` per source in parallel. The library's file name
 carries a digest of its sources and flags, so an edited source rebuilds
 and a stale library is never loaded. Compilation goes to a temporary file
 that is then renamed into place, so a concurrent loader never opens a torn
-library.
+library. Building and the first load hold one process-wide lock, so two
+threads (a ``Prefetcher``'s worker and the main thread) never run
+``nvcc`` twice into the same temporary file.
 
 Every wrapper launches through the same lean host path: :func:`address`
 gives a table's address (a pinned host table's UVA address is looked up
@@ -30,6 +32,7 @@ import os
 import shutil
 import struct
 import subprocess
+import threading
 
 import torch
 
@@ -39,6 +42,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, ".cuda_build")
 KERNELS = ("select", "gather", "wselect")
 _HEADERS = ("common.cuh",)
+_LOCK = threading.RLock()  # builds and the first load of the libraries
+_LIBS: dict[str, ctypes.CDLL] | None = None
 
 
 def _nvcc() -> str:
@@ -83,8 +88,13 @@ def _target(name: str, arch: str) -> tuple[str, list[str]]:
 
 def build_all(names=KERNELS) -> dict[str, str]:
     """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together. Returns ``{name: library path}``; raises with the
-    compiler's output if any build fails."""
+    started together, under the build lock. Returns ``{name: library
+    path}``; raises with the compiler's output if any build fails."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     arch = _arch()
     libs, procs = {}, []
@@ -125,13 +135,19 @@ _ENTRIES = {
 }
 
 
-@functools.cache
 def _libraries() -> dict[str, ctypes.CDLL]:
-    libs = {name: ctypes.CDLL(path) for name, path in build_all().items()}
-    for lib in libs.values():
-        lib.quiver_device_pointer.argtypes = [_P, ctypes.POINTER(_P)]
-        lib.quiver_device_pointer.restype = _I
-    return libs
+    """Every kernel library, built and loaded once per process; the first
+    call holds the build lock, so concurrent first uses load once."""
+    global _LIBS
+    if _LIBS is None:
+        with _LOCK:
+            if _LIBS is None:
+                libs = {name: ctypes.CDLL(path) for name, path in build_all().items()}
+                for lib in libs.values():
+                    lib.quiver_device_pointer.argtypes = [_P, ctypes.POINTER(_P)]
+                    lib.quiver_device_pointer.restype = _I
+                _LIBS = libs
+    return _LIBS
 
 
 @functools.cache

@@ -35,7 +35,9 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every ``nn.Linear`` of ``model`` as flax's ``nn.Dense``
     does, drawing from ``generator``: the weight from ``lecun_normal`` (a
     normal of std ``sqrt(1/fan_in) / 0.8796`` truncated at two of those
-    stds), the bias zero. Returns ``model``."""
+    stds), the bias zero. A module's other parameters (GAT's attention
+    vectors, a learnable GIN ``eps``, GCN's bias) are set by its
+    ``init_extra(generator)``. Returns ``model``."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
@@ -44,6 +46,8 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
                                       generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif hasattr(mod, "init_extra"):
+                mod.init_extra(generator)
     return model
 
 

@@ -537,3 +537,113 @@ def test_profiler_sees_the_hop_kernel_in_a_replay(cuda):
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()]
         assert any(name in k for k in names), names
+
+
+def _prefetch_setup(cuda, kernel="auto"):
+    from quiver_tpu_torch import Feature, GraphSageSampler
+    from quiver_tpu_torch.datasets import planted_partition
+
+    ds = planted_partition(n=4000, num_classes=6, feature_dim=24, seed=2)
+    feat = Feature(device_cache_size=1000 * 24 * 4, csr_topo=ds.topo, kernel=kernel,
+                   device=cuda).from_cpu_tensor(ds.features)
+
+    def sampler():
+        return GraphSageSampler(ds.topo, [10, 5], device=cuda, seed=4,
+                                seed_capacity=128, frontier_caps="auto")
+
+    seeds = [np.random.default_rng(i).choice(ds.train_idx, 128, replace=False)
+             for i in range(8)]
+    return ds, feat, sampler, seeds
+
+
+@pytest.mark.parametrize("kernel", ["auto", "xla"])
+def test_prefetcher_on_card_equals_serial_loop(cuda, kernel):
+    """The Prefetcher's batches, dispatched on its worker's own stream
+    while the main stream runs matmuls on each batch, are bitwise the
+    serial loop's; every sampler launch is counted from the worker."""
+    from quiver_tpu_torch import Prefetcher
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop
+
+    _ds, feat, sampler, seeds = _prefetch_setup(cuda, kernel)
+    serial = sampler()
+    want = []
+    for s in seeds:
+        out = serial.sample(s)
+        want.append((out.n_id.clone(), [a.edge_index.clone() for a in out.adjs],
+                     feat[out.n_id].clone()))
+    pf = Prefetcher(sampler(), feat, depth=2)
+    assert pf.device == cuda or pf.device.type == "cuda"
+    before = uniform_hop.launches
+    got = 0
+    w = torch.randn(24, 2048, device=cuda)
+    for b, (n_id, eis, x) in zip(pf.run(seeds), want):
+        torch.relu(b.x @ w).sum()  # the consumer's stream works on the batch
+        assert torch.equal(b.out.n_id, n_id)
+        assert all(torch.equal(a.edge_index, e) for a, e in zip(b.out.adjs, eis))
+        assert torch.equal(b.x, x)
+        got += 1
+    assert got == len(seeds)
+    if kernel == "auto":
+        assert uniform_hop.launches - before >= 2 * len(seeds)
+
+
+def test_xla_store_read_from_two_threads(cuda):
+    """One ``kernel="xla"`` tiered store read at once from two threads
+    (each on its own stream): every lookup equals K2's rows bitwise."""
+    import threading
+
+    from quiver_tpu_torch.feature.feature import tiered_lookup
+
+    _ds, feat, _sampler, _seeds = _prefetch_setup(cuda, "xla")
+    n = feat.shape[0]
+    errors = []
+
+    def reader(seed):
+        stream = torch.cuda.Stream(cuda)
+        rng = np.random.default_rng(seed)
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(40):
+                    ids = torch.from_numpy(rng.integers(0, n, 3000).astype(np.int32)).to(cuda)
+                    got = feat[ids]
+                    want = tiered_lookup(ids, feat.feature_order, feat.hot_rows,
+                                         feat.hot, feat.cold, feat.scale)
+                    if not torch.equal(got, want):
+                        errors.append(seed)
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=reader, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+
+
+def test_first_kernel_load_from_two_threads_builds_once(cuda, monkeypatch):
+    """Two threads' first use of the kernels: one build, one load."""
+    import threading
+    import time
+
+    from quiver_tpu_torch.ops.kernels import build
+
+    calls = []
+    real = build._build_locked
+
+    def counted(names):
+        calls.append(threading.current_thread().name)
+        time.sleep(0.2)
+        return real(names)
+
+    monkeypatch.setattr(build, "_LIBS", None)
+    monkeypatch.setattr(build, "_build_locked", counted)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(build._libraries()))
+               for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 1 and len(got) == 2 and got[0] is got[1]
+    assert sorted(got[0]) == sorted(build.KERNELS)
