@@ -110,6 +110,45 @@ Phases, in order; any failure raises and the script exits non-zero:
    x max |out|); and the twin's ``--save-dir`` drill: planted:20000 for 2
    epochs, then resumed to 4 (epochs 3-4 only, the restored state bitwise
    the saved one, test accuracy above feature-only Bayes + 0.15).
+9c. heterogeneous R-GCN and GraphSAINT. (a) ``benchmarks/bench_rgcn.py``
+   at its defaults: a MAG-shaped ``HeteroCSRTopo`` (200,000 papers citing
+   by ``generate_pareto_graph(200000, 10.0, seed=0)``, 100,000 authors
+   writing 3 per paper, 5,000 institutions employing 2 per author), F=128
+   f32 per type in a ``HeteroFeature`` (4G budget: every row on the card),
+   16 classes, ``RGCN`` hidden 64 x 2, ``HeteroGraphSampler`` [8, 4] x
+   512 with auto caps, Adam 5e-3: the planning call, 3 warm-up and 30
+   timed iterations (10%-trimmed mean, stage medians, iterations per
+   epoch, the planned caps beside the worst case, peak memory), the idle
+   share of 5 profiled iterations; exactly 5 ``uniform_hop`` and 3
+   ``tiered_gather`` launches per iteration (5 more per regrowth rerun),
+   finite losses, no overflow, seeds first, every sampled lane a real
+   edge of its relation. The same sampler over exp(N(0, 1)) weights on
+   every relation: 5 ``weighted_hop`` and no ``uniform_hop`` launch per
+   call, the same checks. One call of each sampler at its planned caps on
+   the card against the same relations on the CPU, on the same raw draws
+   (frontiers, counts, every Adj, overflow, bitwise), and the lookup of
+   the uniform call's frontiers against each type's plain
+   ``tiered_gather``. One R-GCN step on the card against the CPU
+   (phase 8's tolerances), and ``rgcn_layerwise_inference`` over the
+   whole graph in HBM and HOST mode (nodes/s, finite, HOST within 1e-5 x
+   max |out| of HBM). (b) ``benchmarks/bench_saint.py`` at its defaults
+   (``generate_pareto_graph(500000, 50.5, seed=0)`` on the card): the
+   node and edge samplers at budget 4096 and the random-walk sampler at
+   1024 roots x 3 steps, 5 warm-up and 50 timed draws each (subgraphs/s,
+   induced edges/s, ``deg_cap``, the idle share of 5 profiled draws);
+   exactly 1 ``gather_rows`` launch per node or walk draw, 2 per edge
+   draw, 3 ``uniform_hop`` per walk draw; every induced edge a CSR edge
+   between subgraph nodes, no duplicate node; ``saint_subgraph`` on the
+   card bitwise its plain version on the same nodes, HBM and HOST; the
+   walk's steps (K1 ``uniform_hop``, 1024 walkers x k=1) on the same raw
+   draws, and ``random_walk`` under a ``draw_fn`` (K1 ``select``), on the
+   card bitwise the CPU; K2's single-table entry at the window's shape
+   bitwise its plain version and timed in turns with ``index_select``. (c) The twins:
+   ``examples/train_saint_torch.py`` at ``tests/test_saint.py``'s
+   acceptance arguments (test accuracy >= 0.85 and >= feature-only Bayes
+   + 0.15) and ``examples/train_rgcn_hetero_torch.py`` at its defaults
+   (finite losses). Cut in nothing but iterations: none of the three runs
+   more than its benchmark's default count.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -210,6 +249,14 @@ WHOP_BOUND_RULE = (
     "ones), of u (one 4 B load per lane of a row of degree > k), of "
     "cum_weights (the searches, as WSELECT_BOUND_RULE) and of indices (the "
     "selects)"
+)
+WINDOW_BOUND_RULE = (
+    "device memory: 4 B per id, each distinct table row read once and each "
+    "output row written once, at 3.35 TB/s"
+)
+K3_LIBRARY = (
+    "none: no single PyTorch call does a per-row inverse-CDF search over "
+    "ragged rows (torch.searchsorted needs one sequence length per batch row)"
 )
 WSELECT_PROBE_RULE = (
     "as WSELECT_BOUND_RULE, but one 32 B sector for every probe (each "
@@ -806,10 +853,11 @@ def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 
             "drawn_rows": int(drawn.numel()), "shape": list(shape), "k": k}
 
 
-def time_gather(table, ids):
+def time_gather(table, ids, distinct_rows=None):
     """K2's single-table entry at one lookup's shapes (in-range ids), in
     turns with ``torch.index_select``, which computes the same function
-    here, beside its plain version and its byte bound."""
+    here, beside its plain version and its byte bound (a table row read
+    per id, or once per distinct row when ``distinct_rows`` counts them)."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
@@ -820,7 +868,8 @@ def time_gather(table, ids):
     plain_ms = cuda_ms(lambda: gather_rows_plain(table, ids))
     B = ids.shape[0]
     row_bytes = table.shape[1] * table.element_size()
-    nbytes = B * 4 + 2 * B * row_bytes
+    nbytes = B * 4 + (B if distinct_rows is None else distinct_rows) * row_bytes \
+        + B * row_bytes
     return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
             "library_ms": t["yard_ms"], "library_turns": t["yard_turns"],
             "ratio_to_library": t["ratio"],
@@ -2136,13 +2185,32 @@ def step_grads(model, x, adjs, labels, mask):
     return loss, [p.grad.detach().cpu() for p in model.parameters()]
 
 
-def train_parity(run, seeds):
-    """The card's train step against the CPU's plain run on one full-width
-    batch: the same ``init_model`` parameters (dropout 0), the same x,
-    Adjs, labels and mask; TF32 is off for the whole smoke. The loss within
-    1e-5 relative, each gradient within 1e-4 x its max |g|."""
+def step_parity(model, x, adjs, labels, mask, what: str) -> dict:
+    """One train step of ``model`` (host parameters, dropout 0) on the card
+    against the same step on the CPU: the same parameters, x (a tensor or a
+    dict of them), Adjs or hetero layers, labels and mask; TF32 is off for
+    the whole smoke. The loss within 1e-5 relative, each gradient within
+    1e-4 x its max |g|."""
     import copy
 
+    cpu_model = copy.deepcopy(model)
+    loss_g, grads_g = step_grads(model.to("cuda"), x, adjs, labels, mask)
+    x_cpu = {t: v.cpu() for t, v in x.items()} if isinstance(x, dict) else x.cpu()
+    loss_c, grads_c = step_grads(cpu_model, x_cpu, [a.to("cpu") for a in adjs],
+                                 labels.cpu(), mask.cpu())
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
+                for g, c in zip(grads_g, grads_c)]
+    check(rel <= 1e-5, f"{what} parity: loss {loss_g} (card) vs {loss_c} (CPU)")
+    check(max(grad_err) <= 1e-4, f"{what} parity: gradient errors / max |g| {grad_err}")
+    return {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+            "grad_err_over_max": grad_err, "max_grad_err_over_max": max(grad_err),
+            "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
+
+
+def train_parity(run, seeds):
+    """Phase 8's card-vs-CPU step (:func:`step_parity`) on one full-width
+    batch, from ``init_model`` parameters with dropout 0."""
     from examples.train_sage_torch import batch_inputs
     from quiver_tpu_torch import GraphSAGE
     from quiver_tpu_torch.parallel.train import init_model
@@ -2153,21 +2221,9 @@ def train_parity(run, seeds):
     model = GraphSAGE(x.shape[1], 256, run.ds.num_classes, num_layers=2,
                       dropout=0.0)
     init_model(model, torch.Generator().manual_seed(1))
-    cpu_model = copy.deepcopy(model)
     t0 = time.time()
-    loss_g, grads_g = step_grads(model.to("cuda"), x, out.adjs, labels, mask)
-    loss_c, grads_c = step_grads(cpu_model, x.cpu(), [a.to("cpu") for a in out.adjs],
-                                 labels.cpu(), mask.cpu())
-    rel = abs(loss_g - loss_c) / abs(loss_c)
-    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
-                for g, c in zip(grads_g, grads_c)]
-    check(rel <= 1e-5, f"train parity: loss {loss_g} (card) vs {loss_c} (CPU)")
-    check(max(grad_err) <= 1e-4,
-          f"train parity: gradient errors / max |g| {grad_err}")
-    return {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
-            "grad_err_over_max": grad_err, "rows": int(x.shape[0]),
-            "seconds": time.time() - t0,
-            "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
+    result = step_parity(model, x, out.adjs, labels, mask, "train")
+    return {**result, "rows": int(x.shape[0]), "seconds": time.time() - t0}
 
 
 def annotation(e) -> bool:
@@ -2231,6 +2287,28 @@ def profile_steps(step, batches, first, median_step_ms):
             "median_step_ms": median_step_ms,
             "idle_share": 1 - busy / median_step_ms,
             "stage_span_ms_per_step": spans, "port_kernels_ms_per_step": ours,
+            "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
+
+
+def profiled_idle(run_steps, steps: int, step_ms: float, names=()) -> dict:
+    """``steps`` more steps under ``torch.profiler``: busy is the union of
+    the device intervals, the idle share is against ``step_ms`` (the
+    unprofiled run's), and the kernels whose names hold one of ``names``
+    are summed apart, as phase 9b reads them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps()
+        sync()
+    kernels, _spans = device_ms(prof, steps)
+    busy = device_union_ms(prof, steps)
+    check(busy > 0, "the profiler saw the card")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "device_busy_ms_per_step": busy,
+            "device_summed_ms_per_step": sum(kernels.values()),
+            "idle_share": 1 - busy / step_ms, "step_ms": step_ms,
+            "port_kernels_ms_per_step": {n: sum(ms for k, ms in kernels.items() if n in k)
+                                         for n in names},
             "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
 
 
@@ -2493,7 +2571,6 @@ def epoch_family(family, topo, feat, labels_all, card):
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from quiver_tpu_torch import Batch, GraphSageSampler, Prefetcher
     from quiver_tpu_torch.ops.sample import seeded_generator
@@ -2547,25 +2624,13 @@ def epoch_family(family, topo, feat, labels_all, card):
         return int(torch.stack([torch.stack(list(c)) for c in counts]).sum())
 
     def profiled(run_steps, step_ms: float) -> dict:
-        """Device time of ``PROFILED_STEPS`` more steps under the
-        profiler: busy is the union of the device intervals over every
-        stream, the idle share is against ``step_ms`` (the unprofiled
-        run's), K1 and K2 are summed by kernel name."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_steps()
-            sync()
-        kernels, _spans = device_ms(prof, PROFILED_STEPS)
-        busy = device_union_ms(prof, PROFILED_STEPS)
-        check(busy > 0, f"epoch {family}: the profiler saw the card")
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-        return {"device_busy_ms_per_step": busy,
-                "device_summed_ms_per_step": sum(kernels.values()),
-                "idle_share": 1 - busy / step_ms,
-                "k2_device_ms_per_step": sum(ms for k, ms in kernels.items()
-                                             if "gather_kernel" in k),
-                "k1_device_ms_per_step": sum(ms for k, ms in kernels.items()
-                                             if "uniform_hop_kernel" in k),
-                "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
+        """Device time of ``PROFILED_STEPS`` more steps
+        (:func:`profiled_idle`); K1 and K2 summed by kernel name."""
+        r = profiled_idle(run_steps, PROFILED_STEPS, step_ms,
+                          ("gather_kernel", "uniform_hop_kernel"))
+        ours = r.pop("port_kernels_ms_per_step")
+        return {**r, "k2_device_ms_per_step": ours["gather_kernel"],
+                "k1_device_ms_per_step": ours["uniform_hop_kernel"]}
 
     # (a) --prefetch 0
     torch.cuda.reset_peak_memory_stats()
@@ -2675,12 +2740,8 @@ def epoch_family(family, topo, feat, labels_all, card):
 
 
 def family_parity(family, topo, feat, labels_all):
-    """One train step of ``family`` on the card against the CPU's on one
-    batch at fanouts [15, 10, 5] x 64 (dropout 0, TF32 off for the whole
-    smoke): the loss within 1e-5 relative, each gradient within 1e-4 x
-    its max |g| (phase 8's tolerances)."""
-    import copy
-
+    """One train step of ``family`` on the card against the CPU's
+    (:func:`step_parity`) on one batch at fanouts [15, 10, 5] x 64."""
     import numpy as np
 
     from quiver_tpu_torch import GraphSageSampler
@@ -2693,18 +2754,8 @@ def family_parity(family, topo, feat, labels_all):
     labels, mask = labels_all[seed_ids.clamp(min=0)], seed_ids >= 0
     model = make_family(family, EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES,
                         len(EPOCH_FANOUT), dropout=0.0)
-    cpu_model = copy.deepcopy(model)
-    loss_g, grads_g = step_grads(model.to("cuda"), x, out.adjs, labels, mask)
-    loss_c, grads_c = step_grads(cpu_model, x.cpu(), [a.to("cpu") for a in out.adjs],
-                                 labels.cpu(), mask.cpu())
-    rel = abs(loss_g - loss_c) / abs(loss_c)
-    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
-                for g, c in zip(grads_g, grads_c)]
-    check(rel <= 1e-5, f"{family} parity: loss {loss_g} (card) vs {loss_c} (CPU)")
-    check(max(grad_err) <= 1e-4, f"{family} parity: gradient errors / max |g| {grad_err}")
-    return {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
-            "max_grad_err_over_max": max(grad_err), "rows": int(x.shape[0]),
-            "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
+    return {**step_parity(model, x, out.adjs, labels, mask, family),
+            "rows": int(x.shape[0])}
 
 
 def layerwise_families(topo, x_feat, card):
@@ -2854,6 +2905,621 @@ def epoch_phase(topo, card):
     result["resume"] = resume_drill(card)
     result["seconds"] = time.time() - t0
     return result
+
+
+# -- phase 9c: heterogeneous R-GCN and GraphSAINT ------------------------------
+
+# benchmarks/bench_rgcn.py's defaults (:27-33 flags, :73 nodes, batch, iters,
+# warm-up; :97-99 the node counts)
+MAG_PAPERS, MAG_AUTHORS, MAG_INSTS = 200_000, 100_000, 5_000
+RGCN_F, RGCN_CLASSES, RGCN_HIDDEN, RGCN_FANOUT, RGCN_BATCH = 128, 16, 64, [8, 4], 512
+RGCN_WARMUP, RGCN_ITERS = 3, 30
+RGCN_HOPS = 5  # relation hops per sample at [8, 4]: 2 into paper, then 2 + 1
+RGCN_TYPES = 3  # one K2 lookup per node type
+# benchmarks/bench_saint.py's defaults (:20-25) on common.py's graph
+SAINT_NODES, SAINT_DEG, SAINT_BUDGET, SAINT_ROOTS, SAINT_WALK = 500_000, 50.5, 4096, 1024, 3
+SAINT_WARMUP, SAINT_ITERS = 5, 50
+# launches per draw: the window read (and the edge sampler's endpoints) by
+# K2, each walk step by K1
+SAINT_LAUNCHES = {"node": {"gather_rows": 1}, "edge": {"gather_rows": 2},
+                  "rw": {"gather_rows": 1, "uniform_hop": SAINT_WALK}}
+
+
+def mag_graph():
+    """``bench_rgcn.py``'s graph, features and labels, drawn in its order
+    from ``default_rng(0)``: paper-cites-paper from
+    ``generate_pareto_graph(200000, 10.0, seed=0)``, 3 writes per paper, 2
+    employs per author, F = 128 f32 per type, 16 labels."""
+    import numpy as np
+
+    from quiver_tpu_torch import HeteroCSRTopo
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(0)
+    num_nodes = {"paper": MAG_PAPERS, "author": MAG_AUTHORS, "inst": MAG_INSTS}
+    topo = HeteroCSRTopo(num_nodes, {
+        ("paper", "cites", "paper"): generate_pareto_graph(MAG_PAPERS, 10.0, seed=0),
+        ("author", "writes", "paper"): np.stack([
+            rng.integers(0, MAG_AUTHORS, MAG_PAPERS * 3),
+            rng.integers(0, MAG_PAPERS, MAG_PAPERS * 3)]),
+        ("inst", "employs", "author"): np.stack([
+            rng.integers(0, MAG_INSTS, MAG_AUTHORS * 2),
+            rng.integers(0, MAG_AUTHORS, MAG_AUTHORS * 2)]),
+    })
+    feats = {t: rng.normal(size=(c, RGCN_F)).astype(np.float32)
+             for t, c in num_nodes.items()}
+    labels = rng.integers(0, RGCN_CLASSES, MAG_PAPERS).astype(np.int32)
+    return topo, feats, labels, rng
+
+
+def edge_keys(indptr, indices, n_src: int):
+    """Sorted ``row * n_src + col`` keys of a CSR's edges, on the card."""
+    import torch
+
+    indptr = torch.as_tensor(indptr).to("cuda", torch.int64)
+    rows = torch.repeat_interleave(torch.arange(indptr.shape[0] - 1, device="cuda"),
+                                   indptr[1:] - indptr[:-1])
+    cols = torch.as_tensor(indices).to("cuda", torch.int64)
+    return torch.sort(rows * n_src + cols).values
+
+
+def real_edges(keys, n_src: int, rows, cols) -> bool:
+    """Whether every ``(rows[i], cols[i])`` is an edge of ``keys``'s CSR."""
+    import torch
+
+    if rows.numel() == 0:
+        return True
+    q = rows.to(torch.int64) * n_src + cols.to(torch.int64)
+    pos = torch.searchsorted(keys, q).clamp(max=keys.shape[0] - 1)
+    return bool((keys[pos] == q).all())
+
+
+def hetero_checks(out, seeds, rel_keys, topo) -> int:
+    """A hetero sample's checks: no overflow, ``n_id[paper][:batch] ==
+    seeds``, and every valid lane of every relation a real edge (its
+    source and destination read back through the final frontiers, of which
+    each earlier frontier is a prefix). Returns the lanes checked."""
+    import torch
+
+    check(int(out.overflow) == 0, f"hetero sample overflow {int(out.overflow)}")
+    check(equal(out.n_id["paper"][:len(seeds)].cpu(),
+                torch.from_numpy(seeds.astype("int32"))), "n_id[paper][:batch] == seeds")
+    lanes = 0
+    for layer in out.adjs:
+        for et, adj in layer.adjs.items():
+            col, row = adj.edge_index[0], adj.edge_index[1]
+            valid = col >= 0
+            src = out.n_id[et[0]][col[valid].to(torch.int64)]
+            dst = out.n_id[et[2]][row[valid].to(torch.int64)]
+            check(real_edges(rel_keys[et], topo.num_nodes[et[0]], dst, src),
+                  f"every sampled {et} lane is an edge of its relation")
+            lanes += int(valid.sum())
+    return lanes
+
+
+def rgcn_parity(model_args, out, x, labels, mask):
+    """One R-GCN step on the card against the CPU's (:func:`step_parity`)
+    on one full-width batch, from ``init_model`` parameters with dropout
+    0."""
+    import torch
+
+    from quiver_tpu_torch import RGCN
+    from quiver_tpu_torch.parallel.train import init_model
+
+    model = RGCN(*model_args, dropout=0.0)
+    init_model(model, torch.Generator().manual_seed(1))
+    return {**step_parity(model, x, out.adjs, labels, mask, "R-GCN"),
+            "rows": {t: int(v.shape[0]) for t, v in x.items()}}
+
+
+def hetero_parity(topo, sampler, seeds, what: str):
+    """One call of the hetero loop at the main path's planned caps: on the
+    card over ``sampler.dev_topos`` (one fused K1 or K3 launch per relation
+    per hop) against its plain run over the same relations placed on the
+    CPU, on the same raw draws (made on the card, then copied). Frontiers,
+    counts, every ``Adj`` (and ``e_id``), overflow and the per-hop unique
+    counts must agree bitwise. Returns ``(check row, the card's
+    frontiers)``."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, weighted_hop
+    from quiver_tpu_torch.ops.sample import hop_draws, seeded_generator
+    from quiver_tpu_torch.sampling.hetero import hetero_multilayer_sample
+
+    plans = sampler._plan(RGCN_BATCH, sampler._cap_overrides)
+    draws = {}
+
+    def bits_on(dev):
+        def bits(hop, et, shape):
+            if (hop, et) not in draws:
+                g = seeded_generator("cuda", 7, hop, sampler._rel_index[et])
+                draws[hop, et] = hop_draws(shape, plans[hop][0][et], g,
+                                           weighted=et in sampler.weighted_rels)
+            d = draws[hop, et]
+            return d.to(dev) if torch.is_tensor(d) else tuple(x.to(dev) for x in d)
+        return bits
+
+    ids = torch.from_numpy(seeds.astype("int32"))
+    kw = {"weighted_rels": sampler.weighted_rels, "with_eid": sampler.with_eid}
+    before = (uniform_hop.launches, weighted_hop.launches)
+    got = hetero_multilayer_sample(sampler.dev_topos, ids.to("cuda"), len(seeds), "paper",
+                                   plans, bits=bits_on("cuda"), **kw)
+    sync()
+    fired = {"uniform_hop": uniform_hop.launches - before[0],
+             "weighted_hop": weighted_hop.launches - before[1]}
+    cpu_topos = topo.to_device(sampler.mode, with_eid=sampler.with_eid,
+                               weighted_rels=sampler.weighted_rels, device="cpu")
+    want = hetero_multilayer_sample(cpu_topos, ids, len(seeds), "paper", plans,
+                                    bits=bits_on("cpu"), **kw)
+    pairs = [(got[0][t], want[0][t]) for t in want[0]]
+    pairs += [(torch.as_tensor(got[1][t]), torch.as_tensor(want[1][t])) for t in want[1]]
+    same_keys = got[0].keys() == want[0].keys() and len(got[2]) == len(want[2])
+    for lg, lw in zip(got[2], want[2]):
+        same_keys &= lg.adjs.keys() == lw.adjs.keys()
+        for et, a in lw.adjs.items():
+            pairs.append((lg.adjs[et].edge_index, a.edge_index))
+            if a.e_id is not None:
+                pairs.append((lg.adjs[et].e_id, a.e_id))
+    pairs.append((got[3], want[3]))
+    for fg, fw in zip(got[4], want[4]):
+        pairs += [(fg[t], fw[t]) for t in fw]
+    pairs = [(a.cpu(), b) for a, b in pairs]
+    ok = same_keys and all(equal(a, b) for a, b in pairs)
+    entry = "weighted_hop" if sampler.weighted_rels else "uniform_hop"
+    check(ok, f"hetero sample {what} on the card == plain on the CPU")
+    check(fired == {"uniform_hop": 0, "weighted_hop": 0, entry: RGCN_HOPS},
+          f"hetero sample {what}: launches {fired}")
+    check(int(got[3]) == 0, f"hetero sample {what}: overflow {int(got[3])}")
+    row = {"case": f"R-GCN {what} sample on the MAG graph: {len(seeds)} seeds x "
+                   f"{RGCN_FANOUT} at the planned caps, card against CPU",
+           "caps": [p[2] for p in plans], "launches": fired[entry],
+           "match": ok, "max_abs_err": max_err(*zip(*pairs))}
+    return row, got[0]
+
+
+def hetero_gather_parity(feature, n_id):
+    """``HeteroFeature[n_id]`` on the card (one ``tiered_gather`` launch
+    per node type) against each type's ``tiered_gather_plain`` on the same
+    ids and tiers, bitwise. Returns one check row per type."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather, tiered_gather_plain
+
+    before = tiered_gather.launches
+    x = feature[n_id]
+    sync()
+    check(tiered_gather.launches - before == RGCN_TYPES,
+          f"HeteroFeature lookup: {tiered_gather.launches - before} tiered_gather launches")
+    rows = []
+    for t, ids in n_id.items():
+        f = feature.features[t]
+        want = tiered_gather_plain(ids.to(torch.int32).contiguous(), f.feature_order,
+                                   f.hot_rows, f.hot, f.cold)
+        ok = equal(x[t], want)
+        rows.append({"store": f"R-GCN {t} rows (F={RGCN_F} f32) at a batch's n_id",
+                     "ids": int(ids.numel()), "hot_rows": f.hot_rows, "match": ok,
+                     "max_abs_err": float((x[t] - want).abs().max())})
+        check(ok, f"HeteroFeature[{t}] on the card == tiered_gather_plain")
+    return rows
+
+
+def rgcn_phase(card):
+    """``bench_rgcn.py`` at its defaults on the card (see the module
+    docstring, phase 9c (a)). Returns ``(launches of the timed
+    iterations, launches of the weighted calls, check rows by entry,
+    result)``."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+
+    from quiver_tpu_torch import HeteroFeature, HeteroGraphSampler, RGCN
+    from quiver_tpu_torch.models.inference import rgcn_layerwise_inference
+    from quiver_tpu_torch.models.rgcn import rgcn_schema
+    from quiver_tpu_torch.ops.sample import seeded_generator
+    from quiver_tpu_torch.parallel.train import init_model, make_train_step
+
+    t0 = time.time()
+    topo, feats, labels_np, rng = mag_graph()
+    feature = HeteroFeature.from_cpu_tensors(feats, device_cache_size="4G", device="cuda")
+    labels_all = torch.from_numpy(labels_np).to("cuda")
+    rel_keys = {et: edge_keys(rel.indptr, rel.indices, topo.num_nodes[et[0]])
+                for et, rel in topo.relations.items()}
+    sampler = HeteroGraphSampler(topo, RGCN_FANOUT, "paper", seed_capacity=RGCN_BATCH,
+                                 frontier_caps="auto", seed=0, device="cuda")
+    reset_launches()
+    out = sampler.sample(rng.integers(0, MAG_PAPERS, RGCN_BATCH))  # plans the caps
+    sync()
+    plan_reruns = sampler.reruns
+    expect_launches(read_launches(), {"uniform_hop": RGCN_HOPS * (1 + plan_reruns)},
+                    "R-GCN: the planning call")
+    model_args = (rgcn_schema(out.adjs, {t: RGCN_F for t in topo.num_nodes}),
+                  RGCN_HIDDEN, RGCN_CLASSES, "paper", len(RGCN_FANOUT))
+    model = RGCN(*model_args)
+    init_model(model, torch.Generator().manual_seed(0))
+    model.to("cuda")
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=5e-3))
+    worst = sampler._plan(RGCN_BATCH)
+    planned = sampler._plan(RGCN_BATCH, sampler._cap_overrides)
+    setup_s = time.time() - t0
+
+    def iteration(i):
+        seeds = rng.integers(0, MAG_PAPERS, RGCN_BATCH)
+        a = time.perf_counter()
+        with record_function("rgcn:sample"):
+            out = sampler.sample(seeds)
+            sync()
+        b = time.perf_counter()
+        with record_function("rgcn:gather"):
+            x = feature[out.n_id]
+            seed_ids = out.n_id["paper"][:RGCN_BATCH]
+            labels, mask = labels_all[seed_ids.clamp(min=0)], seed_ids >= 0
+            sync()
+        c = time.perf_counter()
+        with record_function("rgcn:step"):
+            loss = step(x, out.adjs, labels, mask, seeded_generator("cuda", 0, i))
+            sync()
+        return out, seeds, loss, (b - a, c - b, time.perf_counter() - c)
+
+    for i in range(RGCN_WARMUP):
+        iteration(i)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reruns0 = sampler.reruns
+    rows, losses, kept = [], [], []
+    for i in range(RGCN_ITERS):
+        out, seeds, loss, stages = iteration(100 + i)
+        rows.append(stages)
+        losses.append(loss)
+        kept.append((out, seeds))
+    launches = read_launches()
+    reruns = sampler.reruns - reruns0
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {"uniform_hop": RGCN_HOPS * (RGCN_ITERS + reruns),
+                               "tiered_gather": RGCN_TYPES * RGCN_ITERS},
+                    f"R-GCN: {RGCN_ITERS} iterations ({reruns} reruns)")
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"R-GCN: finite losses {losses}")
+    lanes = sum(hetero_checks(out, seeds, rel_keys, topo) for out, seeds in kept)
+    del kept
+    iter_s = trimmed_mean([sum(r) for r in rows])
+    per_epoch = -(-(MAG_PAPERS // 10) // RGCN_BATCH)
+    stage = {k: statistics.median(r[j] for r in rows) * 1e3
+             for j, k in enumerate(("sample", "gather", "train_step"))}
+    prof = profiled_idle(lambda: [iteration(200 + k) for k in range(PROFILED_STEPS)],
+                         PROFILED_STEPS, iter_s * 1e3,
+                         ("uniform_hop_kernel", "gather_kernel"))
+
+    # the same sampler over exp(N(0, 1)) weights on every relation
+    # (bench_rgcn.py:120-125): every hop one K3 fused launch, none on K1
+    wrng = np.random.default_rng(5)
+    for et in topo.relations:
+        topo.set_edge_weight(et, np.exp(wrng.normal(size=topo.relations[et].edge_count)))
+    wsampler = HeteroGraphSampler(topo, RGCN_FANOUT, "paper", seed_capacity=RGCN_BATCH,
+                                  frontier_caps="auto", weighted=True, seed=0,
+                                  device="cuda")
+    wsampler.sample(rng.integers(0, MAG_PAPERS, RGCN_BATCH))  # plans the caps
+    reset_launches()
+    wreruns0, wtimes, wouts = wsampler.reruns, [], []
+    for _ in range(5):
+        seeds = rng.integers(0, MAG_PAPERS, RGCN_BATCH)
+        a = time.perf_counter()
+        wout = wsampler.sample(seeds)
+        sync()
+        wtimes.append(time.perf_counter() - a)
+        wouts.append((wout, seeds))
+    wlaunches = read_launches()
+    wreruns = wsampler.reruns - wreruns0
+    expect_launches(wlaunches, {"weighted_hop": RGCN_HOPS * (5 + wreruns)},
+                    f"weighted R-GCN sampler: 5 calls ({wreruns} reruns)")
+    wlanes = sum(hetero_checks(o, s, rel_keys, topo) for o, s in wouts)
+    del wouts
+
+    # the kernels at the main path's shapes against their plain versions:
+    # one call of each sampler on the card against the CPU, and the lookup
+    # of the uniform call's frontiers against each type's plain gather
+    prng = np.random.default_rng(12)
+    u_row, n_id = hetero_parity(topo, sampler, prng.integers(0, MAG_PAPERS, RGCN_BATCH),
+                                "uniform")
+    w_row, _ = hetero_parity(topo, wsampler, prng.integers(0, MAG_PAPERS, RGCN_BATCH),
+                             "weighted")
+    parity_rows = {"uniform_hop": [u_row], "weighted_hop": [w_row],
+                   "tiered_gather": hetero_gather_parity(feature, n_id)}
+    del n_id
+
+    # one step on the card against the CPU, on one full-width batch
+    seeds = rng.integers(0, MAG_PAPERS, RGCN_BATCH)
+    out = sampler.sample(seeds)
+    x = feature[out.n_id]
+    seed_ids = out.n_id["paper"][:RGCN_BATCH]
+    parity = rgcn_parity(model_args, out, x, labels_all[seed_ids.clamp(min=0)],
+                         seed_ids >= 0)
+
+    # layer-wise inference over the whole graph, HBM and HOST
+    x_all = {t: torch.from_numpy(v).to("cuda") for t, v in feats.items()}
+    model.eval()
+    layerwise = {}
+    for mode in ("HBM", "HOST"):
+        rgcn_layerwise_inference(model, topo, x_all, mode=mode, device="cuda")  # warm-up
+        sync()
+        a = time.perf_counter()
+        logp = rgcn_layerwise_inference(model, topo, x_all, mode=mode, device="cuda")
+        sync()
+        dt = time.perf_counter() - a
+        check(logp.shape == (MAG_PAPERS, RGCN_CLASSES) and bool(torch.isfinite(logp).all()),
+              f"R-GCN layer-wise {mode}: finite log-probs")
+        layerwise[mode] = {"pass_s": dt, "paper_nodes_per_s": MAG_PAPERS / dt,
+                           "all_nodes_per_s": sum(topo.num_nodes.values()) / dt,
+                           "logp": logp}
+    hbm, host = layerwise["HBM"].pop("logp"), layerwise["HOST"].pop("logp")
+    err = float((hbm - host).abs().max()) / float(hbm.abs().max())
+    check(err <= 1e-5, f"R-GCN layer-wise HOST against HBM: {err} x max |out|")
+    layerwise["host_err_over_max"] = err
+    del hbm, host, x_all
+    result = {
+        "config": "benchmarks/bench_rgcn.py defaults: 200000 papers (cites: "
+                  "generate_pareto_graph(200000, 10.0, seed=0)), 100000 authors (3 "
+                  "writes per paper), 5000 institutions (2 employs per author), F=128 "
+                  "f32 per type, HeteroFeature device_cache_size 4G, 16 classes, RGCN "
+                  "hidden 64 x 2, fanouts [8, 4], batch 512, auto caps, Adam 5e-3, "
+                  f"{RGCN_WARMUP} warm-up + {RGCN_ITERS} iterations",
+        "setup_s": setup_s, "planning_reruns": plan_reruns, "reruns": reruns,
+        "caps": [p[2] for p in planned], "worst_caps": [p[2] for p in worst],
+        "iter_ms_trimmed_mean": iter_s * 1e3, "iterations_per_epoch": per_epoch,
+        "epoch_s": iter_s * per_epoch, "median_ms": stage,
+        "peak_bytes": peak, "launches": launches,
+        "launches_per_iteration": {"uniform_hop": RGCN_HOPS, "tiered_gather": RGCN_TYPES},
+        "losses_first_last": [losses[0], losses[-1]], "checked_lanes": lanes,
+        "profile": prof,
+        "weighted": {"calls": 5, "reruns": wreruns, "launches": wlaunches,
+                     "sample_ms_median": statistics.median(wtimes) * 1e3,
+                     "checked_lanes": wlanes},
+        "parity": parity, "kernel_parity": parity_rows, "layerwise": layerwise,
+        "card": card}
+    log(f"R-GCN: {iter_s * 1e3:.3f} ms an iteration (10%-trimmed mean), {per_epoch} "
+        f"iterations an epoch ({iter_s * per_epoch:.3f} s); medians "
+        f"{ {k: round(v, 3) for k, v in stage.items()} } ms; idle share "
+        f"{prof['idle_share']:.4f}; peak {peak / 2**30:.3f} GiB [{card}]")
+    log(f"R-GCN caps {result['caps']} (worst case {result['worst_caps']})")
+    log(f"R-GCN weighted sample: {result['weighted']['sample_ms_median']:.3f} ms median; "
+        f"layer-wise HBM {layerwise['HBM']['paper_nodes_per_s']:.4g} / HOST "
+        f"{layerwise['HOST']['paper_nodes_per_s']:.4g} paper nodes/s [{card}]")
+    return launches, wlaunches, parity_rows, result
+
+
+def walk_parity(topo):
+    """The random walk's kernels at its shape (``SAINT_ROOTS`` rows, k =
+    1) on the card against the CPU: each step's K1 ``uniform_hop`` (the
+    main path's entry) against its plain run on the same raw draws and the
+    same walkers, then :func:`random_walk` under a ``draw_fn`` (each step
+    one K1 ``select``), bitwise. Returns check rows by entry."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.fused import select, uniform_hop
+    from quiver_tpu_torch.ops.sample import draw_bits, sample_layer
+    from quiver_tpu_torch.sampling.saint import random_walk
+
+    dev_t, cpu_t = topo.to_device("HBM", "cuda"), topo.to_device("HBM", "cpu")
+    g = torch.Generator().manual_seed(11)
+    starts = torch.randint(0, topo.node_count, (SAINT_ROOTS,), generator=g,
+                           dtype=torch.int32)
+    cur, pairs = starts, []
+    before = uniform_hop.launches
+    for _ in range(SAINT_WALK):
+        bits = draw_bits((SAINT_ROOTS,), 1, g)
+        got = sample_layer(dev_t, cur.to("cuda"), SAINT_ROOTS, 1,
+                           bits=tuple(b.to("cuda") for b in bits))
+        want = sample_layer(cpu_t, cur, SAINT_ROOTS, 1, bits=bits)
+        pairs += [(a.cpu(), b) for a, b in zip(got, want)]
+        nxt = want[0][:, 0]
+        cur = torch.where(nxt >= 0, nxt, cur)
+    sync()
+    hops = uniform_hop.launches - before
+    ok = hops == SAINT_WALK and all(equal(a, b) for a, b in pairs)
+    check(ok, f"random-walk steps: uniform_hop on the card == plain ({hops} launches)")
+    r = np.random.default_rng(13).integers(0, 2**30, (SAINT_WALK, SAINT_ROOTS, 1))
+
+    def draw_fn(step, deg):
+        bound = deg.to(torch.int64).clamp(min=1)[:, None]
+        return (torch.from_numpy(r[step]).to(deg.device) % bound).to(torch.int32)
+
+    before = select.launches
+    walk = random_walk(dev_t, starts.to("cuda"), SAINT_WALK, draw_fn=draw_fn)
+    sync()
+    picks = select.launches - before
+    want_walk = random_walk(cpu_t, starts, SAINT_WALK, draw_fn=draw_fn)
+    walk_ok = picks == SAINT_WALK and equal(walk.cpu(), want_walk)
+    check(walk_ok, f"random_walk under a draw_fn on the card == CPU ({picks} select "
+                   "launches)")
+    return {"uniform_hop": [{"case": f"random-walk steps: {SAINT_ROOTS} walkers x k=1, "
+                                      f"{SAINT_WALK} steps, card against CPU",
+                             "launches": hops, "match": ok,
+                             "max_abs_err": max_err(*zip(*pairs))}],
+            "select": [{"case": f"random_walk under a draw_fn: {SAINT_ROOTS} walkers x "
+                                f"{SAINT_WALK} steps, card against CPU",
+                        "launches": picks, "match": walk_ok,
+                        "max_abs_err": max_err([walk.cpu()], [want_walk])}]}
+
+
+def saint_phase(card):
+    """``bench_saint.py`` at its defaults on the card (see the module
+    docstring, phase 9c (b)). Returns ``(launches summed over the three
+    samplers' timed draws, K2's row for the kernel line, the random
+    walk's check rows by entry, result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import (CSRTopo, SAINTEdgeSampler, SAINTNodeSampler,
+                                  SAINTRandomWalkSampler)
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+    from quiver_tpu_torch.sampling.saint import saint_subgraph
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    t0 = time.time()
+    topo = CSRTopo(edge_index=generate_pareto_graph(SAINT_NODES, SAINT_DEG, seed=0))
+    keys = edge_keys(topo.indptr, topo.indices, topo.node_count)
+    setup_s = time.time() - t0
+    makers = {
+        "node": lambda: SAINTNodeSampler(topo, budget=SAINT_BUDGET, seed=0, device="cuda"),
+        "edge": lambda: SAINTEdgeSampler(topo, budget=SAINT_BUDGET, seed=0, device="cuda"),
+        "rw": lambda: SAINTRandomWalkSampler(topo, roots=SAINT_ROOTS,
+                                             walk_length=SAINT_WALK, seed=0, device="cuda"),
+    }
+    total = {name: 0 for name in ENTRIES}
+    out, node_sub = {}, None
+    for kind, make in makers.items():
+        s = make()
+        for _ in range(SAINT_WARMUP):
+            sub = s.sample()
+        sync()
+        reset_launches()
+        edges, kept = 0, []
+        a = time.perf_counter()
+        for i in range(SAINT_ITERS):
+            sub = s.sample()
+            edges += int(sub.num_edges)  # one scalar sync per draw, as bench_saint
+            if i >= SAINT_ITERS - 3:
+                kept.append(sub)
+        sync()
+        dt = time.perf_counter() - a
+        launches = read_launches()
+        expect_launches(launches, {k: v * SAINT_ITERS for k, v in SAINT_LAUNCHES[kind].items()},
+                        f"SAINT {kind}: {SAINT_ITERS} draws")
+        for name, v in launches.items():
+            total[name] += v
+        for sub in kept:
+            valid = sub.node_id[sub.node_id >= 0]
+            check(valid.unique().numel() == valid.numel() == int(sub.num_nodes),
+                  f"SAINT {kind}: node_id holds no duplicate")
+            src, dst = sub.edge_index[0], sub.edge_index[1]
+            keep = src >= 0
+            check(int(keep.sum()) == int(sub.num_edges), f"SAINT {kind}: edge count")
+            u = sub.node_id[src[keep].to(torch.int64)]
+            v = sub.node_id[dst[keep].to(torch.int64)]
+            check(bool((u >= 0).all() and (v >= 0).all())
+                  and real_edges(keys, topo.node_count, u, v),
+                  f"SAINT {kind}: every induced edge is a CSR edge between subgraph nodes")
+        prof = profiled_idle(lambda: [s.sample() for _ in range(PROFILED_STEPS)],
+                             PROFILED_STEPS, dt / SAINT_ITERS * 1e3,
+                             ("gather_kernel", "uniform_hop_kernel"))
+        out[kind] = {"subgraphs_per_s": SAINT_ITERS / dt,
+                     "induced_edges_per_s": edges / dt, "draw_ms": dt / SAINT_ITERS * 1e3,
+                     "budget": s.budget, "deg_cap": s.deg_cap, "launches": launches,
+                     "launches_per_draw": SAINT_LAUNCHES[kind], "profile": prof,
+                     "card": card}
+        log(f"SAINT {kind}: {SAINT_ITERS / dt:.4g} subgraphs/s, {edges / dt:.4g} induced "
+            f"edges/s, deg_cap {s.deg_cap}; idle share {prof['idle_share']:.4f} [{card}]")
+        if kind == "node":
+            node_sub = kept[-1]
+        del s, kept
+    # the induction on the card against its plain version on the same nodes
+    deg_cap = out["node"]["deg_cap"]
+    nodes, num = node_sub.node_id, node_sub.num_nodes
+    want = saint_subgraph(topo.to_device("HBM", "cpu"), nodes.cpu(), int(num), deg_cap)
+    bitwise = {}
+    for mode in ("HBM", "HOST"):
+        got = saint_subgraph(topo.to_device(mode, "cuda"), nodes, num, deg_cap)
+        bitwise[mode] = all(equal(a.cpu(), b) for a, b in zip(got, want))
+        check(bitwise[mode], f"saint_subgraph {mode} on the card == plain")
+    walk_rows = walk_parity(topo)
+    # K2's single-table entry at the main path's shape: the node sampler's
+    # (budget, deg_cap) window over the (E, 1) int32 indices
+    table = topo.to_device("HBM", "cuda").indices.reshape(-1, 1)
+    valid = torch.arange(nodes.shape[0], device="cuda") < num
+    s_ids = torch.where(valid, nodes, 0).to(torch.int64)
+    indptr = torch.from_numpy(topo.indptr).to("cuda", torch.int64)
+    base, deg = indptr[s_ids], torch.where(valid, indptr[s_ids + 1] - indptr[s_ids], 0)
+    j = torch.arange(deg_cap, device="cuda")[None, :]
+    ids = (base[:, None] + torch.where(j < deg.clamp(max=deg_cap)[:, None], j, 0)).reshape(
+        -1).to(torch.int32)
+    got, want_rows = gather_rows(table, ids), gather_rows_plain(table, ids)
+    sync()
+    window = [{"table": "int32 (E, 1) indices, the node sampler's window", "ids": int(
+        ids.shape[0]), "match": equal(got, want_rows),
+               "max_abs_err": float((got - want_rows).abs().max())}]
+    check(window[0]["match"], "gather_rows at the SAINT window's shape == plain")
+    rng = np.random.default_rng(9)
+    window += gather_checks([("int32 (E, 1) indices", table)], rng)
+    t_win = time_gather(table, ids, distinct_rows=int(torch.unique(ids).numel()))
+    log(f"gather_rows, SAINT window ({ids.shape[0]} ids): {t_win['ms']:.4f} ms, "
+        f"index_select {t_win['library_ms']:.4f}, plain {t_win['plain_ms']:.4f}, bound "
+        f"{t_win['bound_ms']:.4f} [{card}]")
+    result = {"config": "benchmarks/bench_saint.py defaults: generate_pareto_graph("
+                        "500000, 50.5, seed=0) on the card, node and edge budget 4096, "
+                        f"rw roots 1024 x walk 3; {SAINT_WARMUP} warm-up + {SAINT_ITERS} "
+                        "draws each",
+              "nodes": topo.node_count, "edges": topo.edge_count, "setup_s": setup_s,
+              "samplers": out, "subgraph_bitwise": bitwise, "window_gather": t_win,
+              "walk_parity": walk_rows, "card": card}
+    return total, (window, t_win), walk_rows, result
+
+
+def twins_phase(card):
+    """The two example twins on the card: ``train_saint_torch.py`` at
+    ``tests/test_saint.py``'s acceptance arguments (test accuracy >= 0.85
+    and >= feature-only Bayes + 0.15), then ``train_rgcn_hetero_torch.py``
+    at its defaults (finite losses; its labels are random)."""
+    import contextlib
+    import io
+    import math
+
+    from examples.train_rgcn_hetero_torch import main as rgcn_main
+    from examples.train_saint_torch import main as saint_main
+
+    t0 = time.time()
+    reset_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        acc, ds = saint_main(["--dataset", "planted:4000:6", "--steps", "150",
+                              "--budget", "512", "--norm-iters", "15", "--device", "cuda"])
+    saint_launches = read_launches()
+    bayes = ds.meta["feature_bayes_acc"]
+    for line in text.getvalue().splitlines():
+        log(f"train_saint_torch: {line}")
+    check(acc >= 0.85 and acc >= bayes + 0.15,
+          f"SAINT twin: test acc {acc} against 0.85 and Bayes {bayes} + 0.15")
+    check(saint_launches["gather_rows"] > 0, "SAINT twin: gather_rows launched")
+    saint_s = time.time() - t0
+    t0 = time.time()
+    reset_launches()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        losses = rgcn_main(["--device", "cuda"])
+    rgcn_launches = read_launches()
+    for line in text.getvalue().splitlines():
+        log(f"train_rgcn_hetero_torch: {line}")
+    check(len(losses) == 60 and all(math.isfinite(v) for v in losses),
+          "R-GCN twin: 60 finite losses")
+    check(rgcn_launches["uniform_hop"] > 0 and rgcn_launches["tiered_gather"] > 0,
+          "R-GCN twin: K1 and K2 launched")
+    return {"saint": {"args": "--dataset planted:4000:6 --steps 150 --budget 512 "
+                              "--norm-iters 15", "test_acc": acc,
+                      "feature_bayes_acc": bayes, "seconds": saint_s,
+                      "launches": saint_launches},
+            "rgcn": {"args": "defaults (20000 papers, 60 steps)",
+                     "losses_first_last": [losses[0], losses[-1]],
+                     "seconds": time.time() - t0, "launches": rgcn_launches},
+            "card": card}
+
+
+def hetero_saint_phase(card):
+    """Phase 9c: R-GCN (a), GraphSAINT (b), the twins (c). Returns
+    ``(launches by part, K2's window row, the check rows of the kernels at
+    the phase's shapes by entry, result)``."""
+    import torch
+
+    t0 = time.time()
+    rgcn_launches, rgcn_wlaunches, rgcn_rows, rgcn = rgcn_phase(card)
+    torch.cuda.empty_cache()
+    saint_launches, k2_row, walk_rows, saint = saint_phase(card)
+    torch.cuda.empty_cache()
+    twins = twins_phase(card)
+    rows = {name: rgcn_rows.get(name, []) + walk_rows.get(name, []) for name in ENTRIES}
+    return ({"rgcn": rgcn_launches, "rgcn_weighted": rgcn_wlaunches,
+             "saint": saint_launches}, k2_row, rows,
+            {"rgcn": rgcn, "saint": saint, "twins": twins, "seconds": time.time() - t0})
 
 
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
@@ -3095,6 +3761,10 @@ def main() -> int:
     # layer-wise inference, and the --save-dir resume drill
     epoch = epoch_phase(topo, card)
     lap("phase 9b (epoch loop, families, resume)")
+    # phase 9c: bench_rgcn.py's R-GCN and bench_saint.py's samplers at
+    # their defaults, and the two example twins
+    launches_h, (win_checks, t_win), rows_h, hetero = hetero_saint_phase(card)
+    lap("phase 9c (R-GCN, GraphSAINT, twins)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -3119,14 +3789,16 @@ def main() -> int:
     kernels = [
         kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    samp_t["launches"]["select"],
-                   "temporal sampler (and the offs/draw_fn seams)", sel, t_sel,
+                   "temporal sampler (and the offs/draw_fn seams)",
+                   sel + rows_h["select"], t_sel,
                    {"stock_ms": t_sel["stock_ms"], "ratio_to_stock": t_sel["ratio_to_stock"],
                     "shape": [t_sel["rows"], t_sel["k"]], "bound_rule": SELECT_BOUND_RULE,
                     "library": "none: its yardstick is the stock index_select "
                                "of the already-computed slots"},
                    card, name),
         kernel_row("uniform_hop", "quiver_tpu_torch/ops/kernels/select.cu", k1,
-                   launches_u["uniform_hop"], "uniform serving", hop, t_hop,
+                   launches_u["uniform_hop"], "uniform serving", hop + rows_h["uniform_hop"],
+                   t_hop,
                    {"composed_ms": t_hop["composed_ms"],
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
@@ -3141,11 +3813,25 @@ def main() -> int:
                     "replay_profile": serve_u["replay_profile"],
                     "fleet_serve_replayed": fleet["serve"]["launches"]["replayed"][
                         "uniform_hop"],
+                    "rgcn_launches": launches_h["rgcn"]["uniform_hop"],
+                    "saint_rw_launches": launches_h["saint"]["uniform_hop"],
                     "library": "none: its yardstick is the composed path"},
+                   card, name),
+        kernel_row("gather_rows", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
+                   launches_h["saint"]["gather_rows"],
+                   "GraphSAINT samplers (each draw's (budget, deg_cap) window; the "
+                   "edge sampler's endpoints)", gat + win_checks, t_win,
+                   {"shape": [t_win["ids"], t_win["row_bytes"]],
+                    "ratio_to_library": t_win["ratio_to_library"],
+                    "bound_rule": WINDOW_BOUND_RULE,
+                    "serving_shape": {key: t_gat[key] for key in (
+                        "ms", "plain_ms", "library_ms", "ratio_to_library", "bound_ms",
+                        "bound_share", "ids", "row_bytes")},
+                    "library": "torch.index_select"},
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_u["tiered_gather"], "uniform serving (hot-only store)",
-                   tier, t_tier,
+                   tier + rows_h["tiered_gather"], t_tier,
                    {"ratio_to_library": t_tier["ratio_to_yard"],
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
@@ -3157,14 +3843,7 @@ def main() -> int:
                         k: degraded[k]["launches"]["tiered_gather"]
                         for k in ("zeros", "last-good")},
                     "train_lookup_in_turns": train["lookup_in_turns"],
-                    "single_table_entry": {
-                        "name": "gather_rows", "path": "none (staged_gather)",
-                        "launches": launches_u["gather_rows"],
-                        "max_abs_err": max(c["max_abs_err"] for c in gat),
-                        "match": all(c["match"] for c in gat),
-                        **{key: t_gat[key] for key in ("ms", "plain_ms", "library_ms",
-                                                       "ratio_to_library", "bound_ms",
-                                                       "bound_share")}}},
+                    "rgcn_launches": launches_h["rgcn"]["tiered_gather"]},
                    card, name),
         kernel_row("tiered_gather_dequant", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_qa["tiered_gather_dequant"],
@@ -3192,22 +3871,23 @@ def main() -> int:
                     "bound_rule": WSELECT_BOUND_RULE,
                     "probe_bound_ms": t_wsel["probe_bound_ms"],
                     "probe_bound_rule": WSELECT_PROBE_RULE,
-                    "library": "none: no single PyTorch call computes a "
-                               "row-local inverse-CDF select over ragged rows"},
+                    "library": K3_LIBRARY},
                    card, name),
         kernel_row("weighted_hop", "quiver_tpu_torch/ops/kernels/wselect.cu", k3,
-                   launches_w["weighted_hop"], "weighted serving", whop, t_whop,
+                   launches_w["weighted_hop"], "weighted serving",
+                   whop + rows_h["weighted_hop"], t_whop,
                    {"composed_ms": t_whop["composed_ms"],
                     "speedup_over_composed": t_whop["speedup_over_composed"],
                     "shape": t_whop["shape"] + [t_whop["k"]],
                     "bound_rule": WHOP_BOUND_RULE,
                     "launches_by": serve_w["launches_by"],
                     "replay_profile": serve_w["replay_profile"],
-                    "library": "none: its yardstick is the composed path"},
+                    "rgcn_weighted_launches": launches_h["rgcn_weighted"]["weighted_hop"],
+                    "library": K3_LIBRARY + "; its yardstick is the composed path"},
                    card, name),
     ]
-    check(all(k["launches"] > 0 and k["match"] for k in kernels)
-          and kernels[2]["single_table_entry"]["match"]
+    check(len(kernels) == len(ENTRIES)
+          and all(k["launches"] > 0 and k["match"] for k in kernels)
           and launches_q["tiered_gather_dequant"] > 0
           and launches_qb["tiered_gather_dequant"] > 0,
           "every kernel launched on its main path and every entry matched")
@@ -3221,7 +3901,7 @@ def main() -> int:
                        "serve_idle": idle, "degraded": degraded, "fleet": fleet,
                        "sampler": samplers, "train": train,
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
-                       "acceptance": accept, "epoch": epoch,
+                       "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -3243,6 +3923,7 @@ def main() -> int:
               flush=True)
     print(json.dumps({"acceptance": accept}), flush=True)
     print(json.dumps({"epoch": epoch}), flush=True)
+    print(json.dumps({"hetero_saint": hetero}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -10,12 +10,14 @@ PyTorch versions run instead.
 
 from .control import AlphaTuner, CacheController, CostModel, FreqSketch, SplitTuner
 from .core.config import CachePolicy, SampleMode, parse_size_bytes
+from .core.hetero import HeteroCSRTopo, RelCSR
 from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from .datasets import GraphDataset, load_dataset, planted_partition
 from .feature.feature import Feature, HeteroFeature
 from .models.gat import GAT
 from .models.gcn import GCN
 from .models.gin import GIN
+from .models.rgcn import RGCN
 from .models.sage import GraphSAGE
 from .obs import (
     FlightRecorder,
@@ -28,6 +30,13 @@ from .obs import (
 )
 from .parallel.pipeline import Batch, Prefetcher
 from .resilience import CircuitBreaker, CorruptCheckpoint, DegradedFeature
+from .sampling.hetero import HeteroGraphSampler, HeteroLayer, HeteroSampleOutput
+from .sampling.saint import (
+    SAINTEdgeSampler,
+    SAINTNodeSampler,
+    SAINTRandomWalkSampler,
+    saint_subgraph,
+)
 from .sampling.sampler import Adj, GraphSageSampler, SampleOutput
 from .serving import (
     AOTExecutableCache,
@@ -68,11 +77,20 @@ __all__ = [
     "GraphDataset",
     "GraphSAGE",
     "GraphSageSampler",
+    "HeteroCSRTopo",
     "HeteroFeature",
+    "HeteroGraphSampler",
+    "HeteroLayer",
+    "HeteroSampleOutput",
     "InferenceServer",
     "MetricSnapshot",
     "MetricsRegistry",
     "Prefetcher",
+    "RGCN",
+    "RelCSR",
+    "SAINTEdgeSampler",
+    "SAINTNodeSampler",
+    "SAINTRandomWalkSampler",
     "SampleMode",
     "SampleOutput",
     "ServeQueueFull",
@@ -92,6 +110,7 @@ __all__ = [
     "profile_epoch",
     "program_fingerprint",
     "reorder_by_degree",
+    "saint_subgraph",
     "show_tensor_info",
     "tensor_info",
     "trace_scope",

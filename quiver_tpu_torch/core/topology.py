@@ -22,7 +22,7 @@ import torch
 from .config import SampleMode
 from .memory import resolve_device, to_pinned_host
 
-__all__ = ["CSRTopo", "DeviceTopology", "VersionMismatchError"]
+__all__ = ["CSRTopo", "DeviceTopology", "VersionMismatchError", "place_csr_arrays"]
 
 
 class VersionMismatchError(RuntimeError):
@@ -355,28 +355,47 @@ class CSRTopo:
                     "temporal sampling requires mode='GPU': the window "
                     "search reads timestamps in device memory"
                 )
-        device = resolve_device(device)
-        indptr = torch.from_numpy(np.ascontiguousarray(self._indptr)).to(device)
-        per_edge = [self._indices, self._eid if with_eid else None,
-                    self._cum_weights if with_weights else None]
-        host = False
-        if mode is SampleMode.HOST:
-            placed = [None if a is None else to_pinned_host(a, device)[0]
-                      for a in per_edge]
-            host = device.type == "cuda"
-        else:
-            placed = [None if a is None else
-                      torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                      for a in per_edge]
-        indices, eid, cum_weights = placed
-        edge_time = None
-        if with_times:
-            edge_time = torch.from_numpy(self._edge_time).to(device)
-        iters = (max(int(np.ceil(np.log2(self.max_degree + 1))), 1)
-                 if with_weights or with_times else 0)
-        return DeviceTopology(indptr, indices, eid, cum_weights=cum_weights,
-                              edge_time=edge_time, host_indices=host,
-                              search_iters=iters, max_degree=self.max_degree)
+        return place_csr_arrays(
+            self._indptr, self._indices, self._eid if with_eid else None,
+            self._cum_weights if with_weights else None, self.max_degree,
+            mode, device, edge_time=self._edge_time if with_times else None)
+
+
+def place_csr_arrays(indptr, indices, eid, cum_weights, max_degree: int,
+                     mode: SampleMode | str, device=None,
+                     edge_time=None) -> "DeviceTopology":
+    """The CSR placement that ``CSRTopo`` and the heterogeneous
+    ``RelCSR`` share: numpy arrays in, a :class:`DeviceTopology` out.
+
+    ``HBM`` mode puts every array on ``device`` (CUDA unless named);
+    ``HOST`` mode keeps the per-edge arrays (``indices``, ``eid``,
+    ``cum_weights``) in pinned host memory, read over UVA, and ``indptr``
+    on the device. Pass ``eid``, ``cum_weights`` or ``edge_time`` as None
+    to leave them out (``edge_time`` is placed on the device; the callers
+    allow it in ``HBM`` mode only). The weighted and temporal searches'
+    iteration bound derives from ``max_degree``.
+    """
+    mode = SampleMode.parse(mode)
+    device = resolve_device(device)
+    indptr = torch.from_numpy(np.ascontiguousarray(indptr)).to(device)
+    per_edge = [indices, eid, cum_weights]
+    host = False
+    if mode is SampleMode.HOST:
+        placed = [None if a is None else to_pinned_host(a, device)[0]
+                  for a in per_edge]
+        host = device.type == "cuda"
+    else:
+        placed = [None if a is None else
+                  torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in per_edge]
+    indices, eid, cum_weights = placed
+    if edge_time is not None:
+        edge_time = torch.from_numpy(edge_time).to(device)
+    iters = (max(int(np.ceil(np.log2(max_degree + 1))), 1)
+             if cum_weights is not None or edge_time is not None else 0)
+    return DeviceTopology(indptr, indices, eid, cum_weights=cum_weights,
+                          edge_time=edge_time, host_indices=host,
+                          search_iters=iters, max_degree=int(max_degree))
 
 
 class DeviceTopology:

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_gat_to_state_dict", "flax_gcn_to_state_dict",
-           "flax_gin_to_state_dict", "flax_sage_to_state_dict"]
+           "flax_gin_to_state_dict", "flax_rgcn_to_state_dict",
+           "flax_sage_to_state_dict"]
 
 
 def _t(a) -> torch.Tensor:
@@ -79,4 +80,23 @@ def flax_gat_to_state_dict(params) -> dict[str, torch.Tensor]:
         state[f"convs.{i}.lin.weight"] = _t(conv["lin"]["kernel"]).T.contiguous()
         for name in ("att_l", "att_r", "bias"):
             state[f"convs.{i}.{name}"] = _t(conv[name])
+    return state
+
+
+def flax_rgcn_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The ``RGCN.state_dict()`` for a flax R-GCN tree: ``{"conv{i}":
+    {"self_{t}": {"kernel", "bias"}, "rel_{s}__{r}__{d}": {"kernel"}}}``,
+    or with bases ``"bases_{in_dim}"`` ``(B, in, out)`` and
+    ``"coef_{s}__{r}__{d}"`` ``(B,)`` in place of the ``rel_`` kernels;
+    names carry across unchanged."""
+    state = {}
+    for i, conv in _convs(params):
+        for name, leaf in conv.items():
+            pre = f"conv{i}.{name}"
+            if name.startswith(("self_", "rel_")):
+                state[f"{pre}.weight"] = _t(leaf["kernel"]).T.contiguous()
+                if "bias" in leaf:
+                    state[f"{pre}.bias"] = _t(leaf["bias"])
+            else:  # bases_{in_dim}, coef_{relation}
+                state[pre] = _t(leaf)
     return state

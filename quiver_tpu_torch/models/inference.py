@@ -1,7 +1,7 @@
 """Full-neighbour layer-wise inference over the whole graph.
 
-The port of ``quiver_tpu/models/inference.py`` for the homogeneous
-families (GraphSAGE, GCN, GIN, GAT): the reference's ``model.inference``
+The port of ``quiver_tpu/models/inference.py`` (GraphSAGE, GCN, GIN, GAT,
+and R-GCN over a typed graph): the reference's ``model.inference``
 evaluation walks one layer at a time over every node with all of its
 edges (torch-quiver examples/pyg/reddit_quiver.py:68-92). Mean aggregation
 over every node is ``D^-1 A X``, computed as chunked whole-graph segment
@@ -36,7 +36,7 @@ from ..ops.sample import staged_gather
 
 __all__ = ["full_neighbor_mean", "gat_layerwise_inference",
            "gcn_layerwise_inference", "gin_layerwise_inference",
-           "sage_layerwise_inference"]
+           "rgcn_layerwise_inference", "sage_layerwise_inference"]
 
 
 def _place(topo, mode, device):
@@ -233,3 +233,51 @@ def gat_layerwise_inference(model, topo, x_all, chunk: int = 1 << 20,
             if i != len(convs) - 1:
                 x = F.elu(x)
         return torch.log_softmax(x.float(), dim=-1)
+
+
+def rgcn_layerwise_inference(model, topo, x_dict, chunk: int = 1 << 20,
+                             mode: str | SampleMode = SampleMode.HBM,
+                             device=None):
+    """Layer-wise full-neighbour R-GCN inference over a typed graph.
+
+    Per layer: each node type's self transform, plus, per relation in
+    ``sorted(..., key=str)`` order, the chunked whole-relation mean of the
+    relation-projected source rows, walked over the relation's own CSR
+    (rows are its destination nodes), all in float32. What each layer
+    computes is read from the model's modules, as the JAX package reads
+    it from the parameter tree: a type with no ``self_{t}`` transform in a
+    layer is skipped there, and so is a relation with no weight.
+
+    Args:
+      model: the trained :class:`~.rgcn.RGCN` (on ``device``).
+      topo: the :class:`~..core.hetero.HeteroCSRTopo`.
+      x_dict: ``{node_type: (N_t, F_t)}`` full feature tables.
+      chunk, mode, device: as :func:`sage_layerwise_inference`.
+
+    Returns ``(N_target, num_classes)`` float32 log-probs for every node of
+    ``model.target_type``.
+    """
+    device = resolve_device(device)
+    x_dict = {t: torch.as_tensor(v).to(device) for t, v in x_dict.items()}
+    placed = {et: _place(rel, mode, device) for et, rel in topo.relations.items()}
+    with torch.no_grad():
+        for i, conv in enumerate(model.convs):
+            out = {}
+            for t, x in x_dict.items():
+                lin = conv.self_linear(t)
+                if lin is not None:
+                    out[t] = F.linear(x.float(), lin.weight, lin.bias)
+            for et in sorted(topo.relations, key=str):
+                s_t, _, d_t = et
+                if d_t not in out or s_t not in x_dict:
+                    continue
+                w = conv.relation_weight(et)
+                if w is None:
+                    continue
+                indptr, indices, host = placed[et]
+                out[d_t] = out[d_t] + _neighbor_mean_dev(
+                    indptr, indices, x_dict[s_t].float() @ w, chunk, host)
+            if i != model.num_layers - 1:
+                out = {t: torch.relu(v) for t, v in out.items()}
+            x_dict = out
+        return torch.log_softmax(x_dict[model.target_type], dim=-1)

@@ -647,3 +647,105 @@ def test_first_kernel_load_from_two_threads_builds_once(cuda, monkeypatch):
         t.join()
     assert len(calls) == 1 and len(got) == 2 and got[0] is got[1]
     assert sorted(got[0]) == sorted(build.KERNELS)
+
+
+def _hetero_topo(weights: bool):
+    """A MAG-shaped typed graph (paper-cites-paper, author-writes-paper,
+    inst-employs-author) with exp(N(0, 1)) weights on every relation."""
+    from quiver_tpu_torch import HeteroCSRTopo
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(0)
+    n_paper, n_author, n_inst = 3000, 1500, 75
+    topo = HeteroCSRTopo(
+        {"paper": n_paper, "author": n_author, "inst": n_inst},
+        {("paper", "cites", "paper"): generate_pareto_graph(n_paper, 10.0, seed=0),
+         ("author", "writes", "paper"): np.stack([rng.integers(0, n_author, 3 * n_paper),
+                                                  rng.integers(0, n_paper, 3 * n_paper)]),
+         ("inst", "employs", "author"): np.stack([rng.integers(0, n_inst, 2 * n_author),
+                                                  rng.integers(0, n_author, 2 * n_author)])})
+    if weights:
+        for et, rel in topo.relations.items():
+            topo.set_edge_weight(et, np.exp(rng.normal(size=rel.edge_count)))
+    return topo
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["GPU", "UVA"])
+def test_hetero_sampler_card_matches_plain(cuda, weighted, mode):
+    """The hetero loop on the card (one fused K1 or K3 launch per relation
+    per hop) against its plain run on the CPU, on the same raw draws:
+    frontiers, counts, every Adj and e_id, overflow, bitwise."""
+    from quiver_tpu_torch import HeteroGraphSampler
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, weighted_hop
+    from quiver_tpu_torch.ops.sample import hop_draws
+    from quiver_tpu_torch.sampling.hetero import hetero_multilayer_sample
+
+    topo = _hetero_topo(weighted)
+    kw = {"weighted": weighted, "with_eid": True}
+    card = HeteroGraphSampler(topo, [8, 4], "paper", mode=mode, device=cuda, **kw)
+    cpu = HeteroGraphSampler(topo, [8, 4], "paper", device="cpu", **kw)
+    plans = card._plan(512)
+    rel = {et: i for i, et in enumerate(topo.edge_types)}
+
+    def bits_on(dev):
+        def bits(hop, et, shape):
+            g = torch.Generator().manual_seed(10 * hop + rel[et])
+            d = hop_draws(shape, plans[hop][0][et], g, weighted=weighted)
+            return d.to(dev) if weighted else tuple(x.to(dev) for x in d)
+        return bits
+
+    seeds = np.random.default_rng(1).integers(0, 3000, 500).astype(np.int32)
+    before = (uniform_hop.launches, weighted_hop.launches)
+    got = hetero_multilayer_sample(card.dev_topos, torch.from_numpy(seeds).to(cuda), 500,
+                                   "paper", plans, bits=bits_on(cuda),
+                                   weighted_rels=card.weighted_rels, with_eid=True)
+    hops = sum(len(p[0]) for p in plans)
+    assert hops == 5
+    assert (uniform_hop.launches - before[0], weighted_hop.launches - before[1]) == (
+        (0, hops) if weighted else (hops, 0))
+    want = hetero_multilayer_sample(cpu.dev_topos, torch.from_numpy(seeds), 500, "paper",
+                                    plans, bits=bits_on("cpu"),
+                                    weighted_rels=cpu.weighted_rels, with_eid=True)
+    frontier, counts, layers, overflow, fcounts = got
+    assert all(torch.equal(frontier[t].cpu(), want[0][t]) for t in want[0])
+    assert all(int(counts[t]) == int(want[1][t]) for t in want[1])
+    for lg, lc in zip(layers, want[2]):
+        for et, a in lc.adjs.items():
+            assert torch.equal(lg.adjs[et].edge_index.cpu(), a.edge_index), et
+            assert torch.equal(lg.adjs[et].e_id.cpu(), a.e_id), et
+    assert int(overflow) == int(want[3]) == 0
+
+
+@pytest.mark.parametrize("mode", ["GPU", "UVA"])
+def test_saint_subgraph_card_matches_plain(cuda, mode):
+    """The induced subgraph on the card (the (C, D) window read by one K2
+    ``gather_rows`` launch, over UVA in UVA mode) against its plain run on
+    the CPU, bitwise; and each sampler's launches per draw."""
+    from quiver_tpu_torch import (CSRTopo, SAINTEdgeSampler, SAINTNodeSampler,
+                                  SAINTRandomWalkSampler)
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+    from quiver_tpu_torch.sampling.saint import saint_subgraph
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    topo = CSRTopo(edge_index=generate_pareto_graph(20_000, 20.0, seed=3))
+    rng = np.random.default_rng(2)
+    nodes = rng.integers(0, 20_000, 4096).astype(np.int32)  # repeats: first wins
+    nodes[4000:] = -1
+    before = gather_rows.launches
+    got = saint_subgraph(topo.to_device(mode, cuda), torch.from_numpy(nodes).to(cuda),
+                         4000, 64)
+    assert gather_rows.launches - before == 1
+    want = saint_subgraph(topo.to_device(mode, "cpu"), torch.from_numpy(nodes), 4000, 64)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(got.num_edges) > 0
+    for sampler, k2, k1 in ((SAINTNodeSampler(topo, 1024, device=cuda), 1, 0),
+                            (SAINTEdgeSampler(topo, 512, device=cuda), 2, 0),
+                            (SAINTRandomWalkSampler(topo, 256, 3, device=cuda), 1, 3)):
+        before = (gather_rows.launches, uniform_hop.launches)
+        sub = sampler.sample()
+        assert (gather_rows.launches - before[0], uniform_hop.launches - before[1]) == (k2, k1)
+        valid = sub.node_id[sub.node_id >= 0]
+        assert valid.unique().numel() == valid.numel() == int(sub.num_nodes)
