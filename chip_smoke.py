@@ -149,6 +149,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    + 0.15) and ``examples/train_rgcn_hetero_torch.py`` at its defaults
    (finite losses). Cut in nothing but iterations: none of the three runs
    more than its benchmark's default count.
+9d. beyond-HBM training: ``examples/train_host_offload_torch.py`` at the
+   JAX example's defaults (``generate_pareto_graph(1000000, 15.0,
+   seed=0)``, its edge count printed; a ``mode="HOST"`` sampler, K1
+   reading ``indices`` over UVA, auto caps; F=128 f32 under a 10%
+   degree-ordered hot tier, the cold 90% pinned; 172 classes, GraphSAGE
+   256 x 2, [12, 8] x 1024, Adam 1e-3). The twin's loop and
+   ``DataParallelTrainer.train_epoch`` on ``make_mesh()``, each for 100
+   steps after 5 unrecorded ones, through the Prefetcher at depth 2 and
+   then serially (depth 0, each stage ending in a synchronise): steps/s,
+   stage medians at depth 0, peak memory, the idle share and K1's and
+   K2's device ms of 5 profiled steps (the union of device intervals over
+   both streams, as phase 9b), cold rows and bytes per step, the planned
+   caps beside the worst case; exactly 2 ``uniform_hop`` and 1
+   ``tiered_gather`` launches per step (2 more hops per regrowth rerun of
+   the loop's auto caps; the trainer's are pinned), no composed path and
+   no stock lookup. One HOST-mode sampler call at the planned caps
+   bitwise an HBM copy's, its hops again one by one (K1 over UVA) and its
+   lookup bitwise their plain versions on the card; one
+   ``DataParallelTrainer.step`` on the card against the same step on a
+   CPU mesh (phase 8's tolerances). K1 over UVA at both hops' shapes in
+   turns with the composed hop, K2 on the call's ids in turns with the
+   staged lookup, each beside its bound (UVA sectors and cold rows at the
+   run's copy rate).
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -797,12 +820,16 @@ def time_select(dev_topo, seeds, k, g):
             "index_sectors": sectors, "rows": S, "k": k}
 
 
-def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 7):
+def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 7,
+             plain_topo=None, pcie_bytes_per_s=None):
     """K1's fused hop at ``shape`` rows (per-lane counts when it has lanes),
     in turns with the composed path on the same bits (``sample_layer`` with
     the offsets computed from them: seed_degrees, stratified_offsets,
     rotate_offsets, then the select entry), beside its plain version and
-    its HOP_BOUND_RULE bound."""
+    its HOP_BOUND_RULE bound. For a UVA topology (``indices`` pinned on the
+    host) the plain version reads ``plain_topo``'s device copy, and the
+    bound counts the indices sectors at ``pcie_bytes_per_s`` (the larger
+    of the two times)."""
     import torch
 
     from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
@@ -828,8 +855,9 @@ def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 
     t = in_turns(lambda: uniform_hop(indptr, indices, seeds, num, jitter, rot),
                  lambda: sample_layer(dev_topo, seeds, num, k, offs=offs),
                  iters, reps)
-    plain_ms = cuda_ms(lambda: uniform_hop_plain(indptr, indices, seeds, num,
-                                                 jitter, rot), iters, reps)
+    plain = plain_topo or dev_topo
+    plain_ms = cuda_ms(lambda: uniform_hop_plain(plain.indptr, plain.indices, seeds,
+                                                 num, jitter, rot), iters, reps)
     valid, base, deg = seed_degrees(indptr, seeds, num)
     lane = torch.arange(k, device=dev) < deg.clamp(max=k)[..., None]
     pos = (base.to(torch.int64)[..., None] + offs(deg).to(torch.int64))[lane]
@@ -843,11 +871,16 @@ def time_hop(topo_np, dev_topo, shape, k, g, rng, iters: int = 200, reps: int = 
     lead = rows // shape[-1] if len(shape) > 1 else 0
     nbytes = (rows * 8 + lead * 4 + rows * k * 4
               + SECTOR * (ip_sectors + ix_sectors + rot_sectors + jit_sectors))
+    bound_s = nbytes / HBM_BYTES_PER_S
+    if pcie_bytes_per_s is not None:  # the indices sectors come over UVA
+        uva = SECTOR * ix_sectors
+        bound_s = max((nbytes - uva) / HBM_BYTES_PER_S, uva / pcie_bytes_per_s)
     return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
             "composed_ms": t["yard_ms"], "composed_turns": t["yard_turns"],
             "speedup_over_composed": 1 / t["ratio"], "library_ms": None,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
-            "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / t["ms"],
+            "bound_ms": bound_s * 1e3, "bound_bytes": nbytes,
+            "bound_share": bound_s * 1e3 / t["ms"],
+            "uva_index_bytes": None if pcie_bytes_per_s is None else SECTOR * ix_sectors,
             "indptr_sectors": ip_sectors, "index_sectors": ix_sectors,
             "rot_sectors": rot_sectors, "jitter_sectors": jit_sectors,
             "drawn_rows": int(drawn.numel()), "shape": list(shape), "k": k}
@@ -3522,6 +3555,360 @@ def hetero_saint_phase(card):
             {"rgcn": rgcn, "saint": saint, "twins": twins, "seconds": time.time() - t0})
 
 
+# -- phase 9d: beyond-HBM training (the host-offload twin) ----------------------
+
+OFFLOAD_WARMUP = 5  # unrecorded steps before each timed run
+OFFLOAD_KERNELS = ("uniform_hop_kernel", "gather_kernel")  # K1, K2 by kernel name
+
+
+class StageClock:
+    """A run's sampler and store behind a stopwatch, for phase 9d's serial
+    runs: each sample and each lookup synchronises before it ends, and
+    each sample also before it starts; the train step is what lies between
+    a lookup's end and the next sample's start. Keeps each step's marks
+    and looked-up ids."""
+
+    def __init__(self, sampler, feature):
+        self.sampler, self.feature = sampler, feature
+        self.marks, self.n_ids = [], []
+
+    def sample(self, seeds):
+        sync()
+        a = time.perf_counter()
+        out = self.sampler.sample(seeds)
+        sync()
+        self.marks.append([a, time.perf_counter()])
+        return out
+
+    def __getitem__(self, n_id):
+        x = self.feature[n_id]
+        sync()
+        self.marks[-1].append(time.perf_counter())
+        self.n_ids.append(n_id)
+        return x
+
+    def stages_ms(self, end: float) -> list:
+        """Per step ``(sample, gather, train_step)`` ms; the last step's
+        train step runs to ``end``."""
+        starts = [m[0] for m in self.marks[1:]] + [end]
+        return [((b - a) * 1e3, (c - b) * 1e3, (nxt - c) * 1e3)
+                for (a, b, c), nxt in zip(self.marks, starts)]
+
+
+def offload_loop(run, step, n_steps, depth, first, clock=None):
+    """``n_steps`` steps of the twin's loop (``loop_batches``, then its
+    train step) over fresh seed arrays, through a ``Prefetcher`` at
+    ``depth`` or serially (with ``clock`` as sampler and store). Returns
+    the losses, on the card."""
+    from types import SimpleNamespace
+
+    from examples.train_host_offload_torch import loop_batches
+    from quiver_tpu_torch.ops.sample import seeded_generator
+
+    n, B = run.topo.node_count, run.args.batch
+    stream = [run.rng.integers(0, n, B) for _ in range(n_steps)]
+    src = run if clock is None else SimpleNamespace(
+        args=run.args, labels_all=run.labels_all, sampler=clock, feature=clock)
+    losses = []
+    for i, b in enumerate(loop_batches(src, stream, depth)):
+        x, labels, mask = b.x
+        losses.append(step(x, b.out.adjs, labels, mask,
+                           seeded_generator(run.device, run.args.seed, first + i)))
+    return losses
+
+
+def offload_dp(trainer, run, n_steps, depth, first, clock=None):
+    """One ``DataParallelTrainer.train_epoch`` of ``n_steps`` x batch fresh
+    seeds at ``depth`` (with ``clock`` as sampler and store). Returns
+    ``[mean loss]``."""
+    import torch
+
+    seeds = run.rng.integers(0, run.topo.node_count, n_steps * run.args.batch)
+    sampler, feature = trainer.sampler, trainer.feature
+    if clock is not None:
+        trainer.sampler = trainer.feature = clock
+    try:
+        loss, done = trainer.train_epoch(seeds, run.labels_all,
+                                         torch.Generator().manual_seed(first),
+                                         rng=run.rng, depth=depth)
+    finally:
+        trainer.sampler, trainer.feature = sampler, feature
+    check(done == n_steps, f"beyond-HBM dp: {done} steps of {n_steps}")
+    return [loss]
+
+
+def offload_timed(label, run_n, sampler, feature, depth, steps, card):
+    """``OFFLOAD_WARMUP`` unrecorded steps, then ``steps`` recorded ones at
+    ``depth`` (serially under a :class:`StageClock` when 0): steps/s,
+    exact launches (2 ``uniform_hop`` and 1 ``tiered_gather`` per step, 2
+    more hops per regrowth rerun), finite losses, peak memory; at depth 0
+    the stage medians and the cold rows and bytes per step; then the idle
+    share and K1's and K2's device ms of ``PROFILED_STEPS`` more steps
+    under ``torch.profiler``."""
+    import math
+
+    import torch
+
+    run_n(OFFLOAD_WARMUP, depth, 0)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reruns0 = sampler.reruns
+    clock = StageClock(sampler, feature) if depth == 0 else None
+    t0 = time.perf_counter()
+    losses = run_n(steps, depth, OFFLOAD_WARMUP, clock)
+    sync()
+    end = time.perf_counter()
+    launches, reruns = read_launches(), sampler.reruns - reruns0
+    losses = [float(v) for v in losses]
+    expect_launches(launches, {"uniform_hop": 2 * (steps + reruns), "tiered_gather": steps},
+                    f"beyond-HBM {label}, depth {depth} ({reruns} reruns)")
+    check(all(math.isfinite(v) for v in losses), f"beyond-HBM {label}: finite losses")
+    step_ms = (end - t0) / steps * 1e3
+    r = {"depth": depth, "steps": steps, "steps_per_s": 1e3 / step_ms, "step_ms": step_ms,
+         "reruns": reruns, "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+         "loss_first_last": [losses[0], losses[-1]]}
+    if clock is not None:
+        rows = clock.stages_ms(end)
+        r["median_ms"] = {k: statistics.median(x[j] for x in rows)
+                          for j, k in enumerate(("sample", "gather", "train_step"))}
+        r["per_step_ms"] = rows
+        r["cold"] = clock.n_ids
+    prof = profiled_idle(lambda: run_n(PROFILED_STEPS, depth, 1000), PROFILED_STEPS,
+                         step_ms, OFFLOAD_KERNELS)
+    ours = prof.pop("port_kernels_ms_per_step")
+    prof["profiled_steps"] = prof.pop("steps")
+    del prof["step_ms"]  # the unprofiled run's, already in r
+    r.update(prof, k1_device_ms_per_step=ours["uniform_hop_kernel"],
+             k2_device_ms_per_step=ours["gather_kernel"])
+    log(f"beyond-HBM {label} depth {depth}: {r['steps_per_s']:.4g} steps/s, idle share "
+        f"{r['idle_share']:.4f}, K1 {r['k1_device_ms_per_step']:.4f} ms, K2 "
+        f"{r['k2_device_ms_per_step']:.4f} ms per step, peak "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB" + (f"; stage medians {r['median_ms']}"
+                                                if clock is not None else "") + f" [{card}]")
+    return r
+
+
+def offload_cold(feat, n_ids, pcie_bytes_per_s) -> dict:
+    """Median cold rows and bytes per step of the looked-up ids, and the
+    median GATHER_BOUND_RULE bound of one step's lookup."""
+    rows = [lookup_bytes(feat, n_id) for n_id in n_ids]
+    return {"valid_rows_per_step": statistics.median(r[0] for r in rows),
+            "cold_rows_per_step": statistics.median(r[1] for r in rows),
+            "cold_bytes_per_step": statistics.median(r[3] for r in rows),
+            "lookup_bound_ms": statistics.median(
+                1e3 * max(r[2] / HBM_BYTES_PER_S, r[3] / pcie_bytes_per_s) for r in rows)}
+
+
+def offload_parity(run, caps, seeds):
+    """One sampler call at the planned caps, HOST against an HBM copy of
+    the topology (same seed, bitwise), then that call's hops again one by
+    one, K1 over the UVA ``indices`` against ``uniform_hop_plain`` over the
+    device copy, and its lookup against ``tiered_gather_plain``, bitwise.
+    Returns ``(K1 rows, K2 rows, the HOST call's output and rows, the
+    HBM sampler)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather_plain
+    from quiver_tpu_torch.ops.reindex import reindex_layer
+    from quiver_tpu_torch.ops.sample import hop_draws, seeded_generator
+
+    args, B = run.args, run.args.batch
+
+    def sampler(mode):
+        return GraphSageSampler(run.topo, args.fanout, mode=mode, seed_capacity=B,
+                                seed=args.seed, frontier_caps=caps, device="cuda")
+
+    host, hbm = sampler("HOST"), sampler("HBM")
+    check(host.topo.indices.device.type == "cpu" and host.topo.indices.is_pinned(),
+          "HOST mode keeps indices pinned on the host")
+    reset_launches()
+    got = host.sample(seeds)
+    sync()
+    fired = read_launches()
+    expect_launches(fired, {"uniform_hop": 2}, "beyond-HBM HOST sampler call")
+    want = hbm.sample(seeds)
+    pairs = [(got.n_id, want.n_id), (got.n_count, want.n_count),
+             (got.overflow, want.overflow)]
+    pairs += [(a.edge_index, b.edge_index) for a, b in zip(got.adjs, want.adjs)]
+    same = all(equal(a, b) for a, b in pairs)
+    check(same, "beyond-HBM: the HOST sampler call == the HBM copy's, bitwise")
+    host_row = {"case": f"HOST-mode sampler call ({B} seeds x {args.fanout}, caps "
+                        f"{list(caps)}) against an HBM copy of the topology",
+                "match": same, "max_abs_err": max_err(*zip(*pairs)), "launches": 2}
+    # the call's hops again, one by one, on the call's own draws
+    padded = np.full(B, -1, dtype=np.int32)
+    padded[:len(seeds)] = seeds
+    cur, num = torch.from_numpy(padded).to("cuda"), len(seeds)
+    rows = (B,) + tuple(map(max, host._worst_caps(B), caps))
+    k1_rows = [host_row]
+    for l, k in enumerate(host.sizes):
+        jitter, rot = (d[:cur.shape[0]].contiguous() for d in hop_draws(
+            (rows[l],), k, seeded_generator(host.device, args.seed, 1, l)))
+        kern = uniform_hop(host.topo.indptr, host.topo.indices, cur, num, jitter, rot)
+        plain = uniform_hop_plain(hbm.topo.indptr, hbm.topo.indices, cur, num, jitter, rot)
+        sync()
+        ok = all(equal(a, b) for a, b in zip(kern, plain))
+        k1_rows.append({"case": f"beyond-HBM hop {l}: {cur.shape[0]} rows x {k}, "
+                                f"indices over UVA, against the plain version",
+                        "match": ok, "max_abs_err": max_err(kern, plain)})
+        check(ok, f"beyond-HBM hop {l}: uniform_hop over UVA == plain")
+        cur, num, _col, _ovf = reindex_layer(cur, num, kern[0], caps[l])
+    check(equal(cur, got.n_id), "beyond-HBM: the replayed hops give the call's n_id")
+    f = run.feature
+    reset_launches()
+    x = f[got.n_id]
+    sync()
+    expect_launches(read_launches(), {"tiered_gather": 1}, "beyond-HBM lookup")
+    want_x = tiered_gather_plain(got.n_id.to(torch.int32).contiguous(), f.feature_order,
+                                 f.hot_rows, f.hot, f.cold)
+    ok = equal(x, want_x)
+    check(ok, "beyond-HBM lookup == tiered_gather_plain")
+    nv, nc, _dev_bytes, _cold = lookup_bytes(f, got.n_id)
+    k2_rows = [{"store": f"beyond-HBM store: {f.hot_rows} hot / {f.shape[0] - f.hot_rows} "
+                         f"pinned rows x F={f.shape[1]} f32, a call's n_id ({nv} ids, "
+                         f"{nc} cold)", "ids": int(got.n_id.numel()), "hot_rows": f.hot_rows,
+                "match": ok, "max_abs_err": float((x - want_x).abs().max())}]
+    return k1_rows, k2_rows, (got, x), hbm
+
+
+def offload_step_parity(run, caps, got, x):
+    """One ``DataParallelTrainer.step`` on the card (``make_mesh()``)
+    against the same step on a CPU mesh: the same batch, and the card
+    model's weights moved by their state dict; dropout 0, SGD lr 0.
+    Phase 8's tolerances (:func:`step_parity`)."""
+    import copy
+
+    import torch
+
+    from quiver_tpu_torch import (Batch, DataParallelTrainer, GraphSAGE,
+                                  GraphSageSampler, make_mesh)
+    from quiver_tpu_torch.parallel.train import init_model
+
+    args = run.args
+    sampler = GraphSageSampler(run.topo, args.fanout, mode="HOST", seed_capacity=args.batch,
+                               seed=args.seed, frontier_caps=caps, device="cuda")
+    model = GraphSAGE(args.feature_dim, args.hidden, args.classes,
+                      num_layers=len(args.fanout), dropout=0.0)
+    init_model(model, torch.Generator().manual_seed(1))
+    cpu_model = copy.deepcopy(model)
+    model.to("cuda")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    seeds = got.n_id[:got.batch_size].cpu().numpy()
+    sides = {}
+    for dev, m, mesh in (("cuda", model, make_mesh()),
+                         ("cpu", cpu_model, make_mesh(devices=["cpu"]))):
+        trainer = DataParallelTrainer(mesh, sampler, run.feature, m,
+                                      torch.optim.SGD(m.parameters(), lr=0.0),
+                                      local_batch=args.batch)
+        out = got if dev == "cuda" else got._replace(
+            n_id=got.n_id.cpu(), adjs=[a.to("cpu") for a in got.adjs])
+        loss = float(trainer.step([Batch(seeds, out, x.to(dev))], run.labels_all.to(dev)))
+        sides[dev] = (loss, [p.grad.detach().cpu() for p in m.parameters()])
+    (loss_g, grads_g), (loss_c, grads_c) = sides["cuda"], sides["cpu"]
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
+                for g, c in zip(grads_g, grads_c)]
+    check(rel <= 1e-5, f"beyond-HBM dp step: loss {loss_g} (card) vs {loss_c} (CPU)")
+    check(max(grad_err) <= 1e-4, f"beyond-HBM dp step: gradient errors / max |g| {grad_err}")
+    return {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+            "max_grad_err_over_max": max(grad_err), "rows": int(x.shape[0]),
+            "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"}
+
+
+def offload_phase(card, pcie_bytes_per_s):
+    """Phase 9d (see the module docstring). Returns ``(launches of each
+    timed run, K1's check rows, K2's check rows, K1's and K2's timings at
+    the path's shapes, result)``."""
+    import numpy as np
+    import torch
+
+    from examples.train_host_offload_torch import parse_args, setup
+    from quiver_tpu_torch import DataParallelTrainer, GraphSAGE, GraphSageSampler, make_mesh
+    from quiver_tpu_torch.parallel.train import make_train_step
+
+    t0 = time.time()
+    args = parse_args(["--device", "cuda"])
+    run = setup(args)
+    B, n = args.batch, run.topo.node_count
+    # the twin's first sample plans the auto caps (as its loop does)
+    out0 = run.sampler.sample(run.rng.integers(0, n, B))
+    run.feature[out0.n_id]
+    del out0
+    sync()
+    caps, worst = run.sampler._frontier_caps, run.sampler._worst_caps(B)
+    check(run.sampler.kernel == "pallas" and run.feature.kernel == "pallas",
+          "beyond-HBM: the fused hop and K2's lookup (no composed path, no stock lookup)")
+    setup_s = time.time() - t0
+    log(f"beyond-HBM set-up {setup_s:.1f}s: {n} nodes, {run.topo.edge_count} edges; "
+        f"{run.feature.hot_rows} hot rows; caps {caps} (worst case {worst})")
+    step = make_train_step(run.model, run.optimizer)
+    loop = {d: offload_timed("loop", lambda k, depth, first, clock=None: offload_loop(
+                run, step, k, depth, first, clock), run.sampler, run.feature, d,
+                args.steps, card) for d in (args.prefetch_depth, 0)}
+
+    # the same configuration through DataParallelTrainer on make_mesh(): a
+    # fresh HOST sampler (its probe pins the caps), model and optimizer
+    dp_sampler = GraphSageSampler(run.topo, args.fanout, mode="HOST", seed_capacity=B,
+                                  seed=args.seed, frontier_caps="auto", device="cuda")
+    model = GraphSAGE(args.feature_dim, args.hidden, args.classes,
+                      num_layers=len(args.fanout)).to("cuda")
+    trainer = DataParallelTrainer(make_mesh(), dp_sampler, run.feature, model,
+                                  torch.optim.Adam(model.parameters(), lr=1e-3),
+                                  local_batch=B)
+    trainer.init(torch.Generator().manual_seed(0))
+    dp = {d: offload_timed("dp", lambda k, depth, first, clock=None: offload_dp(
+              trainer, run, k, depth, first, clock), dp_sampler, run.feature, d,
+              args.steps, card) for d in (args.prefetch_depth, 0)}
+    check(all(r["reruns"] == 0 for r in dp.values()), "beyond-HBM dp: the caps stay pinned")
+    cold = offload_cold(run.feature, loop[0].pop("cold"), pcie_bytes_per_s)
+    dp_cold = offload_cold(run.feature, dp[0].pop("cold"), pcie_bytes_per_s)
+
+    # (c) the kernels at this path's shapes, and the card's step
+    seeds = run.rng.integers(0, n, B)
+    k1_rows, k2_rows, (got, x), hbm = offload_parity(run, caps, seeds)
+    parity = offload_step_parity(run, caps, got, x)
+    # (d) K1 over the UVA indices, both hops, and K2 on a step's ids, in
+    # turns with their yardsticks
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    rng = np.random.default_rng(9)
+    host_topo = run.sampler.topo
+    t_hops = [time_hop(run.topo, host_topo, (rows,), k, g, rng, 50, 5, plain_topo=hbm.topo,
+                       pcie_bytes_per_s=pcie_bytes_per_s)
+              for rows, k in ((B, args.fanout[0]), (caps[0], args.fanout[1]))]
+    t_lookup = time_lookup(run.feature, got.n_id.to(torch.int32), pcie_bytes_per_s, 10, 5)
+    del hbm, got, x
+    log(f"beyond-HBM K1 over UVA: {[round(t['ms'], 4) for t in t_hops]} ms (composed "
+        f"{[round(t['composed_ms'], 4) for t in t_hops]}, bound "
+        f"{[round(t['bound_ms'], 5) for t in t_hops]}); K2 {t_lookup['ms']:.4f} ms "
+        f"(staged {t_lookup['yard_ms']:.4f}, bound {t_lookup['bound_ms']:.4f}) [{card}]")
+    launches = {f"{name} depth {d}": r["launches"]
+                for name, runs in (("loop", loop), ("dp", dp)) for d, r in runs.items()}
+    result = {
+        "config": "examples/train_host_offload.py defaults: "
+                  "generate_pareto_graph(1000000, 15.0, seed=0), F=128 f32, 172 classes, "
+                  "GraphSAGE 256 x 2, fanouts [12, 8], batch 1024, mode HOST, auto caps, "
+                  "cache 10% (degree-ordered hot rows on the card, the rest pinned), "
+                  "Adam 1e-3, dropout 0.5",
+        "nodes": n, "edges": run.topo.edge_count, "hot_rows": run.feature.hot_rows,
+        "setup_s": setup_s, "caps": list(caps), "worst_caps": list(worst),
+        "dp_caps": list(dp_sampler._frontier_caps),
+        "loop": {str(d): r for d, r in loop.items()},
+        "dp": {str(d): r for d, r in dp.items()},
+        "cold_loop_depth_0": cold, "cold_dp_depth_0": dp_cold,
+        "pcie_h2d_bytes_per_s": pcie_bytes_per_s, "dp_step_parity": parity,
+        "k1_uva_hops": t_hops, "k2_lookup": t_lookup, "card": card,
+        "seconds": time.time() - t0}
+    log(f"beyond-HBM: {n} nodes, {run.topo.edge_count} edges; cold rows "
+        f"{cold['cold_rows_per_step']} ({cold['cold_bytes_per_step'] / 2**20:.2f} MiB) "
+        f"per step; phase {result['seconds']:.1f}s [{card}]")
+    return launches, k1_rows, k2_rows, (t_hops, t_lookup), result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3765,6 +4152,12 @@ def main() -> int:
     # their defaults, and the two example twins
     launches_h, (win_checks, t_win), rows_h, hetero = hetero_saint_phase(card)
     lap("phase 9c (R-GCN, GraphSAINT, twins)")
+    # phase 9d: beyond-HBM training at examples/train_host_offload.py's
+    # defaults, the twin's loop and DataParallelTrainer
+    launches_o, k1_rows_o, k2_rows_o, (t_uva_hops, t_off_lookup), offload = \
+        offload_phase(card, pcie)
+    torch.cuda.empty_cache()
+    lap("phase 9d (beyond-HBM training)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -3797,8 +4190,8 @@ def main() -> int:
                                "of the already-computed slots"},
                    card, name),
         kernel_row("uniform_hop", "quiver_tpu_torch/ops/kernels/select.cu", k1,
-                   launches_u["uniform_hop"], "uniform serving", hop + rows_h["uniform_hop"],
-                   t_hop,
+                   launches_u["uniform_hop"], "uniform serving",
+                   hop + rows_h["uniform_hop"] + k1_rows_o, t_hop,
                    {"composed_ms": t_hop["composed_ms"],
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
@@ -3815,6 +4208,11 @@ def main() -> int:
                         "uniform_hop"],
                     "rgcn_launches": launches_h["rgcn"]["uniform_hop"],
                     "saint_rw_launches": launches_h["saint"]["uniform_hop"],
+                    "beyond_hbm": {
+                        "launches": {k: v["uniform_hop"] for k, v in launches_o.items()},
+                        "uva_hops": [{key: t[key] for key in (
+                            "shape", "k", "ms", "plain_ms", "composed_ms", "bound_ms",
+                            "bound_share", "uva_index_bytes")} for t in t_uva_hops]},
                     "library": "none: its yardstick is the composed path"},
                    card, name),
         kernel_row("gather_rows", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
@@ -3831,7 +4229,7 @@ def main() -> int:
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_u["tiered_gather"], "uniform serving (hot-only store)",
-                   tier + rows_h["tiered_gather"], t_tier,
+                   tier + rows_h["tiered_gather"] + k2_rows_o, t_tier,
                    {"ratio_to_library": t_tier["ratio_to_yard"],
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
@@ -3843,7 +4241,12 @@ def main() -> int:
                         k: degraded[k]["launches"]["tiered_gather"]
                         for k in ("zeros", "last-good")},
                     "train_lookup_in_turns": train["lookup_in_turns"],
-                    "rgcn_launches": launches_h["rgcn"]["tiered_gather"]},
+                    "rgcn_launches": launches_h["rgcn"]["tiered_gather"],
+                    "beyond_hbm": {
+                        "launches": {k: v["tiered_gather"] for k, v in launches_o.items()},
+                        "lookup": {key: t_off_lookup[key] for key in (
+                            "ids", "cold_rows", "cold_bytes", "ms", "plain_ms", "yard_ms",
+                            "bound_ms", "bound_share")}}},
                    card, name),
         kernel_row("tiered_gather_dequant", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_qa["tiered_gather_dequant"],
@@ -3902,6 +4305,7 @@ def main() -> int:
                        "sampler": samplers, "train": train,
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
+                       "beyond_hbm": offload,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -3924,6 +4328,10 @@ def main() -> int:
     print(json.dumps({"acceptance": accept}), flush=True)
     print(json.dumps({"epoch": epoch}), flush=True)
     print(json.dumps({"hetero_saint": hetero}), flush=True)
+    print(json.dumps({"beyond_hbm": {
+        k: ({d: {key: v for key, v in r.items() if key != "per_step_ms"}
+             for d, r in val.items()} if k in ("loop", "dp") else val)
+        for k, val in offload.items()}}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

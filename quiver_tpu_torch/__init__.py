@@ -28,8 +28,17 @@ from .obs import (
     Tracer,
     profile_epoch,
 )
+from .parallel.mesh import MeshTopo, can_device_access_peer, init_p2p, make_mesh
 from .parallel.pipeline import Batch, Prefetcher
-from .resilience import CircuitBreaker, CorruptCheckpoint, DegradedFeature
+from .parallel.trainer import DataParallelTrainer
+from .resilience import (
+    CircuitBreaker,
+    CorruptCheckpoint,
+    DegradedFeature,
+    FaultPlan,
+    Preemption,
+    TransientFault,
+)
 from .sampling.hetero import HeteroGraphSampler, HeteroLayer, HeteroSampleOutput
 from .sampling.saint import (
     SAINTEdgeSampler,
@@ -52,6 +61,9 @@ from .utils.debug import show_tensor_info, tensor_info
 from .utils.reorder import reorder_by_degree
 from .utils.trace import Timer, enable_trace, get_logger, trace_scope
 
+# the reference's name for the clique view of the devices
+p2pCliqueTopo = MeshTopo
+
 __all__ = [
     "AOTExecutableCache",
     "Adj",
@@ -64,10 +76,12 @@ __all__ = [
     "CircuitBreaker",
     "CorruptCheckpoint",
     "CostModel",
+    "DataParallelTrainer",
     "DeadlineBatcher",
     "DegradedFeature",
     "DeviceTopology",
     "EmbeddingRefresher",
+    "FaultPlan",
     "Feature",
     "FlightRecorder",
     "FreqSketch",
@@ -83,8 +97,10 @@ __all__ = [
     "HeteroLayer",
     "HeteroSampleOutput",
     "InferenceServer",
+    "MeshTopo",
     "MetricSnapshot",
     "MetricsRegistry",
+    "Preemption",
     "Prefetcher",
     "RGCN",
     "RelCSR",
@@ -101,10 +117,15 @@ __all__ = [
     "TelemetryEndpoint",
     "Timer",
     "Tracer",
+    "TransientFault",
     "VersionMismatchError",
+    "can_device_access_peer",
     "enable_trace",
     "get_logger",
+    "init_p2p",
     "load_dataset",
+    "make_mesh",
+    "p2pCliqueTopo",
     "parse_size_bytes",
     "planted_partition",
     "profile_epoch",

@@ -1,22 +1,53 @@
 """Typed runtime configuration: byte sizes, cache policy, sample mode.
 
-The port's copy of ``quiver_tpu/core/config.py`` (the parts the serving
-path reads), and the check of the sampler's ``dedup=`` argument (the
-``kernel=`` check lives with the elections, ``ops/election.py``). The
-enums accept the reference's spellings (``gpu``/``uva``,
-``device_replicate``) so configurations carry over unchanged.
+The port's copy of ``quiver_tpu/core/config.py``, and the check of the
+sampler's ``dedup=`` argument (the ``kernel=`` check lives with the
+elections, ``ops/election.py``). The enums accept the reference's
+spellings (``gpu``/``uva``, ``device_replicate``) so configurations carry
+over unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import os
 import re
 
-__all__ = ["parse_size_bytes", "CachePolicy", "SampleMode", "validate_dedup"]
+import torch
+
+__all__ = ["parse_size_bytes", "resolve_platform_strategy", "CachePolicy",
+           "SampleMode", "SamplerConfig", "validate_dedup"]
 
 # the JAX package's reindex strategies; the port's one reindex is bitwise
 # all three, so each (and "auto") runs it
 _DEDUP_STRATEGIES = ("sort", "map", "scan", "auto")
+
+
+def resolve_platform_strategy(env_var: str, choices, tpu_default: str,
+                              other_default: str, device=None) -> str:
+    """An environment override, else the platform's default strategy.
+
+    ``env_var``, when set, forces one of ``choices`` (case-insensitive; a
+    value outside them raises). Otherwise the default is the device's:
+    ``tpu_default`` on a CUDA device (the argument keeps the JAX package's
+    name and position: the accelerator's default) and ``other_default``
+    elsewhere. ``device`` is a tensor, a device or its name; None means
+    the current CUDA device when there is a card, else the CPU.
+    """
+    v = os.environ.get(env_var, "").strip().lower()
+    if v:
+        if v not in choices:
+            raise ValueError(f"{env_var}={v!r} is not one of {tuple(choices)}")
+        return v
+    if isinstance(device, torch.Tensor):
+        device = device.device
+    if device is None:
+        on_card = torch.cuda.is_available()
+    else:
+        on_card = torch.device(device).type == "cuda"
+    return tpu_default if on_card else other_default
+
 
 _SIZE_RE = re.compile(r"^\s*([0-9]*\.?[0-9]+)\s*([A-Za-z]*)\s*$")
 
@@ -105,6 +136,24 @@ class SampleMode(enum.Enum):
             raise ValueError(
                 f"unknown sample mode {value!r}; expected one of {sorted(aliases)}"
             ) from None
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Static-shape configuration of the multi-layer sampler: the fanouts
+    ``sizes``, the padded batch ``seed_capacity``, one unique-node cap per
+    layer ``frontier_caps`` and the topology's ``mode``."""
+
+    sizes: tuple[int, ...]
+    seed_capacity: int
+    frontier_caps: tuple[int, ...]
+    mode: SampleMode = SampleMode.HBM
+
+    def __post_init__(self):
+        if len(self.frontier_caps) != len(self.sizes):
+            raise ValueError("frontier_caps must have one entry per layer")
+        if self.seed_capacity <= 0:
+            raise ValueError("seed_capacity must be positive")
 
 
 def validate_dedup(dedup: str) -> str:

@@ -91,10 +91,13 @@ class CSRTopo:
     node ids. ``edge_weight``/``edge_time`` attach per-edge weights and
     timestamps (in COO order when built from ``edge_index``, else in CSR
     slot order); see :meth:`set_edge_weight` and :meth:`set_edge_time`.
+    ``use_native`` is accepted for the JAX package's signature and does
+    nothing (the numpy build gives the native CSR build's arrays).
     """
 
     def __init__(self, edge_index=None, indptr=None, indices=None, eid=None,
-                 edge_weight=None, edge_time=None):
+                 edge_weight=None, edge_time=None, use_native: bool = True):
+        del use_native  # inert (class docstring; a native build is ROADMAP A.13)
         if edge_index is not None:
             if indptr is not None or indices is not None:
                 raise ValueError("pass either edge_index or indptr/indices, not both")

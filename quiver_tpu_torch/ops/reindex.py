@@ -1,10 +1,10 @@
 """Order-preserving deduplication with padded shapes.
 
-The port of ``quiver_tpu/ops/reindex.py`` (``masked_unique`` and
-``reindex_layer``). Every id is assigned the position of its first
-occurrence through a stable sort, so the unique list comes out in
-first-occurrence order with the seeds first (PyG's ``n_id[:batch_size]``
-contract). The JAX package keeps three bit-identical strategies
+The port of ``quiver_tpu/ops/reindex.py`` (``masked_unique``,
+``reindex_layer`` and the reference's permutation helpers). Every id is
+assigned the position of its first occurrence through a stable sort, so
+the unique list comes out in first-occurrence order with the seeds first
+(PyG's ``n_id[:batch_size]`` contract). The JAX package keeps three bit-identical strategies
 (sort/map/scan); the port keeps the sort, which suits the small serving
 frontiers and needs no ``(node_count,)`` scratch map per hop. Both
 functions take optional leading batch dimensions, one independent dedup
@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_unique", "reindex_layer"]
+__all__ = ["complete_permutation", "inverse_permutation",
+           "inverse_permutation_gather", "masked_unique", "reindex_layer"]
 
 _SENTINEL = torch.iinfo(torch.int64).max
 
@@ -99,3 +100,33 @@ def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int):
     num_frontier = num_unique.clamp(max=frontier_cap)
     overflow = (num_unique - frontier_cap).clamp(min=0)
     return uniq, num_frontier, col_local, overflow
+
+
+def inverse_permutation(p):
+    """``q`` with ``q[p[i]] == i``, in ``p``'s dtype and on its device (the
+    reference's ``inverse_permutation``), by one scatter."""
+    n = p.shape[0]
+    return torch.zeros_like(p).scatter_(
+        0, p.to(torch.int64), torch.arange(n, dtype=p.dtype, device=p.device))
+
+
+def inverse_permutation_gather(p):
+    """:func:`inverse_permutation` without a scatter: the argsort of a
+    permutation is its inverse. Returns int32."""
+    return torch.argsort(p).to(torch.int32)
+
+
+def complete_permutation(p, n: int):
+    """Extend an injective partial map ``p`` (``m`` distinct values below
+    ``n``) to a permutation of ``0..n-1``: ``p``'s entries first, in
+    order, then the missing values ascending (the reference's
+    ``complete_permutation``). Present values rank by their position in
+    ``p``, absent ones at ``m + value``; the argsort of the ranks is the
+    result, in ``p``'s dtype."""
+    m = p.shape[0]
+    if m > n:
+        raise ValueError(f"partial permutation longer ({m}) than n ({n})")
+    rank = torch.arange(n, dtype=p.dtype, device=p.device) + m
+    rank.scatter_(0, p.to(torch.int64),
+                  torch.arange(m, dtype=p.dtype, device=p.device))
+    return torch.argsort(rank).to(p.dtype)

@@ -22,7 +22,8 @@ id past the table is held under the last id, the row the store's lookup
 reads for it.
 
 The elastic-resume half of the JAX module (``worker_ordered_mean``,
-``validate_resume_meta``) comes with the trainers (ROADMAP A.10/A.11).
+``validate_resume_meta``) comes with the fused trainer and the
+multi-GPU layer (ROADMAP A.10b, A.11).
 """
 
 from __future__ import annotations

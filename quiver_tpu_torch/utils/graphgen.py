@@ -1,14 +1,14 @@
 """Synthetic power-law graphs for tests and dataset-free runs.
 
-A copy of ``quiver_tpu.utils.graphgen.generate_pareto_graph``: the same
-numpy draws from the same seed, so both packages build the same graph.
+A copy of ``quiver_tpu.utils.graphgen``: the same numpy draws from the
+same seed, so both packages build the same graph.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["generate_pareto_graph"]
+__all__ = ["generate_pareto_graph", "generate_uniform_graph"]
 
 
 def generate_pareto_graph(
@@ -35,3 +35,14 @@ def generate_pareto_graph(
     col = rng.integers(0, num_nodes, size=total, dtype=np.int64)
     dtype = np.int32 if num_nodes <= np.iinfo(np.int32).max else np.int64
     return np.stack([row.astype(dtype), col.astype(dtype)])
+
+
+def generate_uniform_graph(num_nodes: int, avg_degree: int, seed: int = 0) -> np.ndarray:
+    """Uniform random graph as a (2, E) COO edge_index: ``num_nodes *
+    avg_degree`` edges, both endpoints uniform."""
+    rng = np.random.default_rng(seed)
+    total = num_nodes * avg_degree
+    dtype = np.int32 if num_nodes <= np.iinfo(np.int32).max else np.int64
+    row = rng.integers(0, num_nodes, size=total, dtype=dtype)
+    col = rng.integers(0, num_nodes, size=total, dtype=dtype)
+    return np.stack([row, col])

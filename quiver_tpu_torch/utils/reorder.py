@@ -1,6 +1,7 @@
 """Degree-based feature reordering (host-side numpy, runs once).
 
-A copy of ``quiver_tpu.utils.reorder.reorder_by_degree``, bitwise equal:
+A copy of ``quiver_tpu.utils.reorder`` (``reorder_by_degree`` and the
+reference-signature ``reindex_by_config``), bitwise equal:
 sort nodes by descending degree so the hot tier of the feature cache holds
 high-degree nodes, and shuffle the hot prefix.
 
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["reorder_by_degree"]
+__all__ = ["reorder_by_degree", "reindex_by_config"]
 
 
 def reorder_by_degree(
@@ -53,3 +54,12 @@ def reorder_by_degree(
     if n <= np.iinfo(np.int32).max:
         new_order = new_order.astype(np.int32)
     return new_feature, new_order
+
+
+def reindex_by_config(adj_csr, graph_feature, gpu_portion, seed: int = 0):
+    """The reference's signature (``reindex_by_config(csr_topo, feature,
+    gpu_portion)``) for :func:`reorder_by_degree`: returns
+    ``(reordered_feature, new_order)``."""
+    return reorder_by_degree(
+        np.asarray(graph_feature), adj_csr.degree, gpu_portion, seed=seed
+    )

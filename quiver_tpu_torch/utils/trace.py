@@ -75,14 +75,17 @@ class Timer:
     ...     out = sampler.sample(seeds)
 
     logs ``[sample] 12.3 ms`` at exit (unless ``quiet``) and leaves the
-    duration in ``t.seconds``. ``sync=True`` synchronises the CUDA device
-    before the clock stops, so the time covers the block's device work.
+    duration in ``t.seconds``. ``sync`` says what to wait for before the
+    clock stops, as the JAX package's ``sync=`` array or pytree does:
+    ``None`` or ``False`` nothing; ``True`` the current CUDA device (when
+    there is one); a tensor, or a nested list, tuple or dict of tensors,
+    each CUDA device its tensors sit on (CPU tensors are already done).
     ``registry=`` feeds the duration to an aggregator with an
     ``observe(name, seconds)`` method; ``metric=`` overrides the name fed
     to it.
     """
 
-    def __init__(self, name: str, sync: bool = False, quiet: bool = False,
+    def __init__(self, name: str, sync=None, quiet: bool = False,
                  registry=None, metric: str | None = None):
         self.name = name
         self.seconds = 0.0
@@ -96,14 +99,30 @@ class Timer:
         return self
 
     def __exit__(self, *exc):
-        if self._sync and torch.cuda.is_available():
-            torch.cuda.synchronize()
+        if self._sync is True:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        elif self._sync is not None and self._sync is not False:
+            for dev in _cuda_devices(self._sync):
+                torch.cuda.synchronize(dev)
         self.seconds = time.perf_counter() - self._t0
         if not self._quiet:
             get_logger().info("[%s] %.1f ms", self.name, self.seconds * 1e3)
         if self._registry is not None:
             self._registry.observe(self._metric, self.seconds)
         return False
+
+
+def _cuda_devices(tree) -> set:
+    """The CUDA devices of the tensors in a tensor or a nested list,
+    tuple or dict of them; other leaves have nothing to wait for."""
+    if isinstance(tree, torch.Tensor):
+        return {tree.device} if tree.is_cuda else set()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*map(_cuda_devices, tree))
+    return set()
 
 
 def get_logger(child: str | None = None) -> logging.Logger:

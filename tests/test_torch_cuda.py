@@ -10,7 +10,8 @@ gradient within 1e-4 x its max |g| (cuBLAS and the CPU's GEMMs sum in
 different orders). ``full_neighbor_mean`` on the card against the CPU:
 within 1e-5 relative and 1e-6 absolute (the card's accumulate may group
 and round its float sums differently); HOST against HBM placement:
-bitwise.
+bitwise. ``DataParallelTrainer.step`` on the card against the same step
+on the CPU: the training step's tolerances.
 """
 
 import numpy as np
@@ -749,3 +750,77 @@ def test_saint_subgraph_card_matches_plain(cuda, mode):
         assert (gather_rows.launches - before[0], uniform_hop.launches - before[1]) == (k2, k1)
         valid = sub.node_id[sub.node_id >= 0]
         assert valid.unique().numel() == valid.numel() == int(sub.num_nodes)
+
+
+def _host_offload_setup(cuda, mode, caps=None):
+    from quiver_tpu_torch import CSRTopo, Feature, GraphSageSampler
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(0)
+    topo = CSRTopo(edge_index=generate_pareto_graph(20_000, 15.0, seed=0))
+    feat = rng.normal(size=(topo.node_count, 32)).astype(np.float32)
+    feature = Feature(device_cache_size=2_000 * 32 * 4, csr_topo=topo,
+                      device=cuda).from_cpu_tensor(feat)
+    sampler = GraphSageSampler(topo, [12, 8], mode=mode, seed_capacity=256, seed=4,
+                               frontier_caps=caps or "auto", device=cuda)
+    return topo, feature, sampler
+
+
+def test_host_mode_sampling_equals_hbm_on_card(cuda):
+    """The beyond-HBM path's sampler: a HOST-mode topology (K1 reading
+    ``indices`` over UVA) samples bitwise as an HBM-mode one with the same
+    seed and caps, call after call."""
+    _, _, host = _host_offload_setup(cuda, "HOST")
+    _, _, hbm = _host_offload_setup(cuda, "HBM")
+    assert host.topo.indices.device.type == "cpu" and host.topo.indices.is_pinned()
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        seeds = rng.integers(0, 20_000, 256)
+        a, b = host.sample(seeds), hbm.sample(seeds)
+        assert torch.equal(a.n_id, b.n_id) and torch.equal(a.overflow, b.overflow)
+        for x, y in zip(a.adjs, b.adjs):
+            assert torch.equal(x.edge_index, y.edge_index)
+    assert host._frontier_caps == hbm._frontier_caps
+
+
+def test_data_parallel_step_card_matches_cpu(cuda):
+    """One ``DataParallelTrainer.step`` on the card (a HOST-mode batch and
+    a tiered lookup) against the same step, batch and weights on a CPU
+    mesh: the loss within 1e-5 relative, each gradient within 1e-4 x its
+    max |g|."""
+    import copy
+
+    from quiver_tpu_torch import Batch, DataParallelTrainer, GraphSAGE, make_mesh
+    from quiver_tpu_torch.parallel.train import init_model
+
+    topo, feature, sampler = _host_offload_setup(cuda, "HOST")
+    labels = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 10, topo.node_count).astype(np.int32))
+    model = GraphSAGE(32, 64, 10, num_layers=2, dropout=0.0)
+    init_model(model, torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = DataParallelTrainer(make_mesh(devices=[cuda]), sampler, feature,
+                                   model.to(cuda),
+                                   torch.optim.SGD(model.parameters(), lr=0.0),
+                                   local_batch=256)
+        seeds = np.arange(200)
+        out = sampler.sample(seeds)
+        batch = Batch(seeds, out, feature[out.n_id])
+        loss_g = float(card.step([batch], labels.to(cuda)))
+        grads_g = [p.grad.detach().cpu() for p in model.parameters()]
+        host = DataParallelTrainer(make_mesh(devices=["cpu"]), sampler, feature,
+                                   cpu_model,
+                                   torch.optim.SGD(cpu_model.parameters(), lr=0.0),
+                                   local_batch=256)
+        cpu_out = out._replace(n_id=out.n_id.cpu(), adjs=[a.to("cpu") for a in out.adjs])
+        loss_c = float(host.step([Batch(seeds, cpu_out, batch.x.cpu())], labels))
+        grads_c = [p.grad.detach() for p in cpu_model.parameters()]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.isfinite(loss_g)
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for g, c in zip(grads_g, grads_c):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())

@@ -1,7 +1,9 @@
 """The Prefetcher of quiver_tpu_torch (``parallel/pipeline.py``): the
 contracts of ``tests/test_pipeline.py`` over the port's sampler and
-``Feature`` on the CPU, and its retry schedule and counters against the
-JAX package's ``Prefetcher`` for one fault plan and ``retry_seed``.
+``Feature`` on the CPU, with the port's ``FaultPlan``
+(``resilience/faults.py``), and its retry schedule and counters against
+the JAX package's ``Prefetcher`` for one fault plan (each package's own)
+and ``retry_seed``.
 
 Tolerances: batches, ids, counters and the retry-delay sequence are
 compared bitwise (the delays are the same float formula over the same
@@ -19,7 +21,8 @@ torch = pytest.importorskip("torch")
 import quiver_tpu as qj  # noqa: E402
 from quiver_tpu.obs.registry import MetricsRegistry as MetricsRegistryJ  # noqa: E402
 from quiver_tpu.parallel.pipeline import Prefetcher as PrefetcherJ  # noqa: E402
-from quiver_tpu.resilience import FaultPlan, TransientFault  # noqa: E402
+from quiver_tpu.resilience import FaultPlan as FaultPlanJ  # noqa: E402
+from quiver_tpu.resilience import TransientFault as TransientFaultJ  # noqa: E402
 
 import quiver_tpu_torch as qt  # noqa: E402
 from quiver_tpu_torch.obs import StepTimeline  # noqa: E402
@@ -27,6 +30,7 @@ from quiver_tpu_torch.obs.registry import (PREFETCH_QUEUE_DEPTH,  # noqa: E402
                                            PREFETCH_RETRIES, PREFETCH_SKIPS,
                                            MetricsRegistry)
 from quiver_tpu_torch.parallel.pipeline import Batch, Prefetcher  # noqa: E402
+from quiver_tpu_torch.resilience import FaultPlan, TransientFault  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -265,19 +269,19 @@ def test_retry_schedule_and_counters_equal_jax(setup, policy):
     kw = dict(depth=2, retries=3, backoff=1e-4, backoff_cap=3e-4, jitter=0.5,
               retry_seed=11, skip_policy=policy)
     runs = {}
-    for name, pf_cls, reg, sampler in (
-            ("jax", PrefetcherJ, MetricsRegistryJ(),
+    for name, pf_cls, plan_cls, reg, sampler in (
+            ("jax", PrefetcherJ, FaultPlanJ, MetricsRegistryJ(),
              qj.GraphSageSampler(qj.CSRTopo(edge_index=ei), [3], seed_capacity=16,
                                  seed=0)),
-            ("torch", Prefetcher, MetricsRegistry(), _sampler(topo))):
+            ("torch", Prefetcher, FaultPlan, MetricsRegistry(), _sampler(topo))):
         rec = _Recorder()
-        pf = pf_cls(FaultPlan(sampler_faults=plan).wrap_sampler(sampler), None,
+        pf = pf_cls(plan_cls(sampler_faults=plan).wrap_sampler(sampler), None,
                     timeline=rec, metrics=reg, **kw)
         delivered, err = 0, None
         try:
             for _ in pf.run(seeds):
                 delivered += 1
-        except TransientFault as e:
+        except (TransientFault, TransientFaultJ) as e:
             err = str(e)
         runs[name] = ([(n, s) for n, s in rec.seen if n != "prefetch.dispatch"],
                       pf.retries_total, pf.skips_total, delivered, err,
