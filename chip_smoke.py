@@ -172,6 +172,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    turns with the composed hop, K2 on the call's ids in turns with the
    staged lookup, each beside its bound (UVA sectors and cold rows at the
    run's copy rate).
+9e. the fused trainer: ``DistributedTrainer`` on ``make_mesh()`` (one
+   worker) over phase 9b's graph and store, at ``benchmarks/bench_epoch.py
+   --fused``'s configuration (fanouts [15, 10, 5], batch 1024, auto caps
+   planned from one draw of 1024 seeds, GraphSAGE 256 x 3, Adam 1e-3).
+   Every check names itself on stderr before it runs. (a) ``trainer.step``
+   5 times untimed, then 20 timed: steps/s, peak memory, exactly 3
+   ``uniform_hop`` and 1 ``tiered_gather`` launches per step and nothing
+   else, the idle share and K1's and K2's device ms of 5 profiled steps.
+   (b) A 64-step epoch (the first 64 x 1024 of ``default_rng(3)``'s
+   permutation, a cut of bench_epoch's 196,615 train nodes) through
+   ``epoch_scan`` at depth 0 twice and at depth 1, as the main path runs
+   (steps/s at each depth; whether the depth-0 runs were bitwise and
+   depth 1's distance are printed, not checked: the backward's
+   scatter-adds use float atomics, and two runs differ in the last bits
+   or by about 1e-5 by chance), then again under
+   ``torch.use_deterministic_algorithms``, where depth 1's losses must
+   lie within the spread rule (every step within 4 x the two depth-0
+   runs' largest difference + 1e-6 x |loss|); in all six runs the seed
+   matrix and every step's sampled ids are bitwise the first run's.
+   (c) The guard drill: NaN rows at step 1, the guard on: that step
+   leaves the parameters and Adam's state bitwise in the same run, one
+   skipped step, one flight-recorder bundle, finite losses after. (d) The
+   preemption drill, deterministic as (b)'s checked runs: checkpoints
+   every 16 steps under ``OUT_DIR``, ``Preemption`` at step 40; a fresh
+   trainer resumes at step 32, its restored state bitwise the saved one,
+   the resumed steps within the spread rule against (b)'s deterministic
+   depth-0 run. (e) One ``issue_block``: its hops replayed on its draws
+   against ``uniform_hop_plain`` and its lookup against
+   ``tiered_gather_plain``, bitwise; ``sample_padded`` == ``sample``,
+   bitwise; one card step against the CPU's (dropout 0, phase 8's
+   tolerances).
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -218,6 +249,7 @@ nothing of JAX or of the JAX package ``quiver_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -2907,7 +2939,8 @@ def epoch_phase(topo, card):
     f32 from ``default_rng(0).normal``, 47 labels from ``default_rng(1)``,
     a 20% degree-ordered cache, the rest pinned) for every family; the
     card-vs-CPU steps of GCN, GIN and GAT; layer-wise inference at
-    bench_infer's configuration; the resume drill."""
+    bench_infer's configuration; the resume drill. Returns ``(result, the
+    store, the labels)``: phase 9e trains over the same store."""
     import numpy as np
     import torch
 
@@ -2932,12 +2965,11 @@ def epoch_phase(topo, card):
         torch.cuda.empty_cache()
     for family in ("gcn", "gin", "gat"):
         result["parity"][family] = family_parity(family, topo, feat, labels_all)
-    del feat, labels_all
     torch.cuda.empty_cache()
     result["layerwise"] = layerwise_families(topo, x_feat, card)
     result["resume"] = resume_drill(card)
     result["seconds"] = time.time() - t0
-    return result
+    return result, feat, labels_all
 
 
 # -- phase 9c: heterogeneous R-GCN and GraphSAINT ------------------------------
@@ -3909,6 +3941,488 @@ def offload_phase(card, pcie_bytes_per_s):
     return launches, k1_rows, k2_rows, (t_hops, t_lookup), result
 
 
+# -- phase 9e: the fused trainer (DistributedTrainer) ------------------------------
+
+FUSED_WARMUP, FUSED_STEPS = 5, 20  # benchmarks/bench_epoch.py --fused: untimed, timed
+FUSED_EPOCH_STEPS = 64  # a 64-step epoch: 64 x 1024 of bench_epoch's 196,615 train nodes
+FUSED_CHUNK, FUSED_PREEMPT = 16, 40  # the preemption drill's checkpoints and kill step
+FUSED_KERNELS = ("uniform_hop_kernel", "gather_kernel")  # K1, K2 by kernel name
+
+
+def step9e(what: str) -> None:
+    """Name a phase 9e check on stderr before it runs."""
+    log(f"phase 9e check: {what}")
+
+
+def fused_trainer(sampler, feat, dropout=0.5, optimizer="adam", **kw):
+    """A ``DistributedTrainer`` on ``make_mesh()`` (one worker) over phase
+    9b's store: GraphSAGE hidden 256 x 3 (``len(EPOCH_FANOUT)`` layers), 47
+    classes, Adam 1e-3 (``optimizer="sgd0"``: SGD at lr 0, which leaves
+    the parameters and keeps the gradients), parameters from ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, make_mesh
+
+    model = make_family("sage", EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, len(EPOCH_FANOUT),
+                        dropout=dropout).to("cuda")
+    opt = (torch.optim.Adam(model.parameters(), lr=1e-3) if optimizer == "adam"
+           else torch.optim.SGD(model.parameters(), lr=0.0))
+    trainer = DistributedTrainer(make_mesh(), sampler, feat, model, opt,
+                                 local_batch=EPOCH_BATCH, **kw)
+    trainer.init(0)
+    return trainer
+
+
+def record_issues(trainer, into: list, keep=lambda block: block):
+    """Make ``trainer`` append ``keep(block)`` of each block it issues to
+    ``into`` (on the card)."""
+    issue = trainer.issue_block
+
+    def recording(*a, **kw):
+        block = issue(*a, **kw)
+        into.append(keep(block))
+        return block
+
+    trainer.issue_block = recording
+
+
+def fused_step_run(sampler, feat, labels_all, n, card):
+    """(a) ``bench_epoch.py --fused``'s loop: ``trainer.step`` 5 times
+    untimed, then 20 timed (each ending in a synchronise; 10%-trimmed
+    mean), exact launches, peak memory, then the idle share and K1's and
+    K2's device ms of ``PROFILED_STEPS`` more steps under the profiler."""
+    import math
+
+    import numpy as np
+    import torch
+
+    trainer = fused_trainer(sampler, feat)
+    rng = np.random.default_rng(1)  # bench_epoch: seed + 1
+    for i in range(FUSED_WARMUP):
+        trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, i)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for i in range(FUSED_STEPS):
+        seeds = rng.integers(0, n, EPOCH_BATCH)
+        t0 = time.perf_counter()
+        losses.append(trainer.step(seeds, labels_all, 100 + i))
+        sync()
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    step9e("(a) exactly 3 uniform_hop and 1 tiered_gather launches per step")
+    expect_launches(launches, {"uniform_hop": 3 * FUSED_STEPS,
+                               "tiered_gather": FUSED_STEPS}, "fused trainer steps")
+    losses = [float(v) for v in losses]
+    step9e("(a) finite step losses")
+    check(all(math.isfinite(v) for v in losses), "fused trainer: finite step losses")
+    step_ms = trimmed_mean(times) * 1e3
+    r = {"warmup": FUSED_WARMUP, "steps": FUSED_STEPS, "step_ms_trimmed_mean": step_ms,
+         "steps_per_s": 1e3 / step_ms, "launches": launches,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "loss_first_last": [losses[0], losses[-1]],
+         "hits_last_step": trainer.last_tier_hits.tolist()}
+    step9e("(a) the profiler sees the card")
+    prof = profiled_idle(lambda: [trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all,
+                                               1000 + k) for k in range(PROFILED_STEPS)],
+                         PROFILED_STEPS, step_ms, FUSED_KERNELS)
+    ours = prof.pop("port_kernels_ms_per_step")
+    prof["profiled_steps"] = prof.pop("steps")
+    del prof["step_ms"]
+    r.update(prof, k1_device_ms_per_step=ours["uniform_hop_kernel"],
+             k2_device_ms_per_step=ours["gather_kernel"])
+    log(f"fused trainer step: {r['steps_per_s']:.4g} steps/s ({step_ms:.3f} ms), idle "
+        f"share {r['idle_share']:.4f}, K1 {r['k1_device_ms_per_step']:.4f} ms, K2 "
+        f"{r['k2_device_ms_per_step']:.4f} ms per step, peak "
+        f"{r['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+    return r
+
+
+def within_spread(got, ref, spread: float) -> tuple[bool, float]:
+    """The spread rule: every step's ``|got - ref|`` at most ``4 x spread +
+    1e-6 x |ref|``; also returns the largest difference."""
+    diffs = [abs(a - b) for a, b in zip(got, ref)]
+    ok = len(got) == len(ref) and all(
+        d <= 4 * spread + 1e-6 * abs(b) for d, b in zip(diffs, ref))
+    return ok, max(diffs, default=0.0)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` for the block: the
+    backward's ``index_add_`` and ``scatter_add_`` (the gathers' and the
+    aggregations' gradients) run their deterministic kernels instead of
+    float atomics, so one float trajectory repeats bitwise."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def epoch_runs(sampler, feat, labels_all, train_idx, ids, mode):
+    """The 64-step epoch through ``epoch_scan`` at depth 0, depth 0 again
+    and depth 1, each from ``init(0)``: steps/s and losses of each; the
+    seed matrix and every step's sampled ids bitwise ``ids`` (a list
+    filled by the first run when empty)."""
+    import math
+
+    import numpy as np
+
+    runs = {}
+    for label, depth in (("depth0", 0), ("depth0_again", 0), ("depth1", 1)):
+        trainer = fused_trainer(sampler, feat, pipeline_depth=depth)
+        seed_mat = trainer.pack_epoch(train_idx, seed=0)
+        blocks = []  # each step's sampled ids
+        record_issues(trainer, blocks, lambda block: block.n_id)
+        sync()
+        t0 = time.perf_counter()
+        losses = trainer.epoch_scan(seed_mat, labels_all, 5).tolist()
+        dt = time.perf_counter() - t0
+        step9e(f"(b) {mode} {label}: {FUSED_EPOCH_STEPS} finite losses")
+        check(len(losses) == FUSED_EPOCH_STEPS and all(math.isfinite(v) for v in losses),
+              f"fused epoch {mode} {label}: {FUSED_EPOCH_STEPS} finite losses")
+        if not ids:
+            ids.extend([seed_mat, blocks])
+        else:
+            step9e(f"(b) {mode} {label}: the seed matrix and every step's ids bitwise "
+                   "the first run's")
+            check(np.array_equal(seed_mat, ids[0]),
+                  f"fused epoch {mode} {label}: seed matrix bitwise the first run's")
+            check(len(blocks) == len(ids[1])
+                  and all(equal(a, b) for a, b in zip(ids[1], blocks)),
+                  f"fused epoch {mode} {label}: every step's sampled ids bitwise the "
+                  "first run's")
+        runs[label] = {"depth": depth, "steps_per_s": FUSED_EPOCH_STEPS / dt,
+                       "epoch_s": dt, "losses": losses}
+        del trainer, blocks
+    return runs
+
+
+def spread_of(runs) -> dict:
+    """The spread rule's terms over :func:`epoch_runs`' runs: the depth-0
+    runs' largest difference, whether they were bitwise, and depth 1's
+    largest difference from the first depth-0 run and its verdict."""
+    import numpy as np
+
+    a, b, d1 = (runs[k]["losses"] for k in ("depth0", "depth0_again", "depth1"))
+    spread = max(abs(x - y) for x, y in zip(a, b))
+    ok, worst = within_spread(d1, a, spread)
+    bitwise = all(np.float32(x).view(np.int32) == np.float32(y).view(np.int32)
+                  for x, y in zip(a, b))
+    return {"depth0_bitwise_twice": bitwise, "depth0_spread": spread,
+            "depth1_max_diff": worst, "within_spread_rule": ok}
+
+
+def fused_epochs(sampler, feat, labels_all, n, card):
+    """(b) The 64-step epoch at depth 0 twice and at depth 1, twice over:
+    as the main path runs (steps/s; whether the depth-0 runs were bitwise
+    and depth 1's distance, readings), then under
+    :func:`deterministic_algorithms`, where depth 1 must lie within the
+    spread rule of the two depth-0 runs. In every run the seed matrix and
+    every step's sampled ids are bitwise the first run's.
+
+    The rule is checked on the deterministic runs because the main path's
+    float atomics do not give a spread to measure depth 1 against: two of
+    its runs differ in the loss's last bits or by about 1e-5 by chance,
+    depth 0 against depth 0 as often as depth 1 against depth 0."""
+    import numpy as np
+
+    train_idx = np.random.default_rng(3).permutation(n)[:FUSED_EPOCH_STEPS * EPOCH_BATCH]
+    ids = []
+    main = epoch_runs(sampler, feat, labels_all, train_idx, ids, "main path")
+    main_spread = spread_of(main)
+    with deterministic_algorithms():
+        det = epoch_runs(sampler, feat, labels_all, train_idx, ids, "deterministic")
+    del ids
+    det_spread = spread_of(det)
+    step9e("(b) deterministic: depth 1 within the spread rule of the two depth-0 runs")
+    check(det_spread["within_spread_rule"],
+          f"fused epoch (deterministic): depth 1 differs from depth 0 by up to "
+          f"{det_spread['depth1_max_diff']} (depth-0 spread {det_spread['depth0_spread']})")
+    for mode, sp, runs in (("main path", main_spread, main),
+                           ("deterministic", det_spread, det)):
+        log(f"fused epoch, {mode}: the two depth-0 runs bitwise: "
+            f"{sp['depth0_bitwise_twice']} (spread {sp['depth0_spread']:.3g}); depth 1 "
+            f"off by {sp['depth1_max_diff']:.3g}; steps/s depth 0 "
+            f"{runs['depth0']['steps_per_s']:.4g} / {runs['depth0_again']['steps_per_s']:.4g}"
+            f", depth 1 {runs['depth1']['steps_per_s']:.4g} [{card}]")
+    ref = det["depth0"]["losses"]
+
+    def strip(runs):
+        return {k: {key: v for key, v in r.items() if key != "losses"}
+                for k, r in runs.items()}
+
+    return {"train_idx": f"first {FUSED_EPOCH_STEPS} x {EPOCH_BATCH} of "
+                         "default_rng(3).permutation(n) (bench_epoch trains 196,615)",
+            "main_path": {"runs": strip(main), **main_spread},
+            "deterministic": {"runs": strip(det), **det_spread},
+            "loss_first_last": [ref[0], ref[-1]],
+            "rule": "every step |depth 1 - depth 0| <= 4 x max |depth 0 - depth 0 again| "
+                    "+ 1e-6 x |loss|, checked under torch.use_deterministic_algorithms"
+            }, ref, det_spread["depth0_spread"], train_idx
+
+
+def fused_guard(sampler, feat, labels_all, n, card):
+    """(c) The guard drill: NaN rows planned at step 1, the guard on; that
+    step leaves the parameters and Adam's state bitwise as they were in
+    the same run, ``resilience.skipped_steps`` reads 1, the recorder dumps
+    one bundle, and the next steps' losses are finite."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from quiver_tpu_torch import FaultPlan, FlightRecorder
+
+    d = os.path.join(OUT_DIR, "fused_guard_recorder")
+    shutil.rmtree(d, ignore_errors=True)
+    recorder = FlightRecorder(d)
+    trainer = fused_trainer(sampler, feat, nonfinite_guard=True, recorder=recorder,
+                            fault_plan=FaultPlan(nan_feature_steps=(1,), nan_rows=4))
+    rng = np.random.default_rng(4)
+
+    def state():
+        return host_copy({"params": trainer.model.state_dict(),
+                          "opt_state": trainer.optimizer.state_dict()})
+
+    losses = [float(trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, 0))]
+    before = state()
+    losses.append(float(trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, 1)))
+    after = state()
+    skipped = int(trainer.metrics.value("resilience.skipped_steps"))
+    nonfinite = int(trainer.metrics.value("resilience.nonfinite_grads"))
+    for i in range(2, 5):
+        losses.append(float(trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, i)))
+    step9e("(c) the poisoned step leaves the parameters and Adam's state bitwise")
+    check(same_tree(before, after),
+          "fused guard: the skipped step left the parameters and Adam's state bitwise")
+    step9e("(c) resilience.skipped_steps reads 1, one flight-recorder bundle")
+    check(skipped == 1 and nonfinite > 0 and not math.isfinite(losses[1]),
+          f"fused guard: skipped {skipped}, non-finite {nonfinite}, loss {losses[1]}")
+    check(len(recorder.bundles()) == 1, "fused guard: one flight-recorder bundle")
+    step9e("(c) the following steps' losses are finite")
+    check(math.isfinite(losses[0]) and all(math.isfinite(v) for v in losses[2:]),
+          f"fused guard: finite losses around the skipped step {losses}")
+    log(f"fused guard: step 1 skipped ({nonfinite} non-finite values), 1 bundle [{card}]")
+    return {"losses": losses, "skipped": skipped, "nonfinite": nonfinite, "bundles": 1,
+            "adam_step_counts": sorted({int(s["step"]) for s in
+                                        after["opt_state"]["state"].values()})}
+
+
+def fused_preempt(sampler, feat, labels_all, train_idx, ref, spread, card):
+    """(d) The preemption drill, under :func:`deterministic_algorithms`
+    as (b)'s checked runs: checkpoints every 16 steps under ``OUT_DIR``,
+    ``Preemption`` at step 40; a fresh trainer resumes at step 32, the
+    state it restores bitwise what was saved there, and the resumed steps
+    within (b)'s spread rule against (b)'s uninterrupted depth-0 run."""
+    import math
+    import shutil
+
+    from quiver_tpu_torch import FaultPlan, Preemption
+    from quiver_tpu_torch.utils import checkpoint
+
+    d = os.path.join(OUT_DIR, "fused_preempt")
+    shutil.rmtree(d, ignore_errors=True)
+    saved, restored = {}, []
+    save, restore = checkpoint.Checkpointer.save, checkpoint.Checkpointer.restore
+
+    def record_save(self, step, state, *a, **kw):
+        saved[int(state["step"])] = host_copy(state)
+        return save(self, step, state, *a, **kw)
+
+    def record_restore(self, *a, **kw):
+        state = restore(self, *a, **kw)
+        restored.append(host_copy(state))
+        return state
+
+    checkpoint.Checkpointer.save = record_save
+    checkpoint.Checkpointer.restore = record_restore
+    try:
+        with deterministic_algorithms():
+            victim = fused_trainer(sampler, feat, checkpoint_dir=d, checkpoint_every=FUSED_CHUNK,
+                                   fault_plan=FaultPlan(preempt_at_step=FUSED_PREEMPT))
+            seed_mat = victim.pack_epoch(train_idx, seed=0)
+            fired = False
+            try:
+                victim.epoch_scan(seed_mat, labels_all, 5)
+            except Preemption:
+                fired = True
+            victim.checkpointer.close()
+            victim_saves = sorted(saved)
+            step9e("(d) Preemption at step 40 after the checkpoints at 16 and 32")
+            check(fired and victim_saves == [16, 32],
+                  f"fused preemption: raised {fired}, checkpoints at {victim_saves}")
+            fresh = fused_trainer(sampler, feat, checkpoint_dir=d, checkpoint_every=FUSED_CHUNK)
+            _, _, key, step, epoch = fresh.resume()
+            step9e("(d) resumed at step 32, the restored state bitwise the saved one")
+            check((key, step, epoch) == (5, 32, 0),
+                  f"fused preemption: resumed at {(key, step, epoch)}")
+            check(len(restored) == 1 and same_tree(saved[32], restored[0]),
+                  "fused preemption: the restored state is bitwise the saved one")
+            losses = fresh.epoch_scan(seed_mat, labels_all, key, epoch=epoch,
+                                      start_step=step).tolist()
+            fresh.checkpointer.close()
+    finally:
+        checkpoint.Checkpointer.save = save
+        checkpoint.Checkpointer.restore = restore
+    ok, worst = within_spread(losses, ref[step:], spread)
+    step9e("(d) the resumed steps within the spread rule")
+    check(len(losses) == len(ref) - step and all(math.isfinite(v) for v in losses) and ok,
+          f"fused preemption: resumed losses off by up to {worst} (spread {spread})")
+    log(f"fused preemption: resumed at step {step}, {len(losses)} steps within the "
+        f"spread rule (off by {worst:.3g}) [{card}]")
+    return {"checkpoints_before_the_kill": victim_saves, "resumed_at": step,
+            "restored_bitwise": True,
+            "resumed_steps": len(losses), "max_diff_from_uninterrupted": worst}
+
+
+def fused_kernels(sampler, feat, labels_all, n):
+    """(e) The kernels at this path's shapes: one ``issue_block`` (3
+    ``uniform_hop`` and 1 ``tiered_gather`` launches), its hops replayed
+    one by one on its own draws against ``uniform_hop_plain`` and its
+    lookup against ``tiered_gather_plain``, bitwise; ``sample_padded``
+    against ``sample`` (a sampler at the trainer's caps), bitwise; one
+    card step against the same step on a CPU copy (dropout 0, SGD lr 0),
+    phase 8's tolerances. Returns ``(K1 rows, K2 rows, result)``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, make_mesh
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather_plain
+    from quiver_tpu_torch.ops.reindex import reindex_layer
+    from quiver_tpu_torch.ops.sample import hop_draws, seeded_generator
+    from quiver_tpu_torch.parallel.trainer import fold_key
+
+    trainer = fused_trainer(sampler, feat, dropout=0.0, optimizer="sgd0")
+    caps, B = trainer.caps, EPOCH_BATCH
+    seeds_np = np.random.default_rng(6).integers(0, n, B - 24)
+    padded = np.full(B, -1, np.int32)
+    padded[:len(seeds_np)] = seeds_np
+    seeds, num = torch.from_numpy(padded).to("cuda"), torch.tensor(len(seeds_np), device="cuda")
+    key = 77
+    reset_launches()
+    block = trainer.issue_block(seeds, num, key)
+    sync()
+    step9e("(e) one issue_block: 3 uniform_hop and 1 tiered_gather launches")
+    expect_launches(read_launches(), {"uniform_hop": 3, "tiered_gather": 1},
+                    "fused issue_block")
+    gen_seed = seeded_generator("cuda", key, 0).initial_seed()
+    rows = (B,) + tuple(map(max, sampler._worst_caps(B), caps))
+    cur, cnt, k1_rows = seeds, num, []
+    for l, k in enumerate(sampler.sizes):
+        jitter, rot = (d[:cur.shape[0]].contiguous() for d in hop_draws(
+            (rows[l],), k, seeded_generator("cuda", gen_seed, l)))
+        kern = uniform_hop(sampler.topo.indptr, sampler.topo.indices, cur, cnt, jitter, rot)
+        plain = uniform_hop_plain(sampler.topo.indptr, sampler.topo.indices, cur, cnt,
+                                  jitter, rot)
+        sync()
+        ok = all(equal(a, b) for a, b in zip(kern, plain))
+        k1_rows.append({"case": f"fused trainer hop {l}: {cur.shape[0]} rows x {k} "
+                                "(issue_block's draws) against the plain version",
+                        "match": ok, "max_abs_err": max_err(kern, plain)})
+        step9e(f"(e) hop {l} bitwise its plain version")
+        check(ok, f"fused trainer hop {l}: uniform_hop == plain")
+        cur, cnt, _col, _ovf = reindex_layer(cur, cnt, kern[0], caps[l])
+    step9e("(e) the replayed hops give issue_block's n_id")
+    check(equal(cur, block.n_id), "fused trainer: the replayed hops give issue_block's n_id")
+    want_x = tiered_gather_plain(block.n_id.to(torch.int32).contiguous(), feat.feature_order,
+                                 feat.hot_rows, feat.hot, feat.cold)
+    ok = equal(block.x, want_x)
+    step9e("(e) issue_block's lookup bitwise tiered_gather_plain")
+    check(ok, "fused trainer lookup == tiered_gather_plain")
+    nv, nc, _b, _c = lookup_bytes(feat, block.n_id)
+    k2_rows = [{"store": f"fused trainer (phase 9b's store: {feat.hot_rows} hot rows), "
+                         f"one issue_block's n_id ({nv} ids, {nc} cold)",
+                "ids": int(block.n_id.numel()), "hot_rows": feat.hot_rows, "match": ok,
+                "max_abs_err": float((block.x - want_x).abs().max())}]
+    # sample_padded against sample: two samplers at the trainer's caps over
+    # its placement, at the same call count
+    a_s, b_s = (GraphSageSampler(sampler.csr_topo, EPOCH_FANOUT, device="cuda",
+                                 seed_capacity=B, seed=0, frontier_caps=caps,
+                                 device_topo=sampler.topo) for _ in range(2))
+    out = a_s.sample(seeds_np)
+    got = b_s.sample_padded(seeds, num)
+    pairs = [(got[0], out.n_id), (got[1], out.n_count), (got[3], out.overflow)]
+    pairs += [(a.edge_index, b.edge_index) for a, b in zip(got[2], out.adjs)]
+    step9e("(e) sample_padded == sample, bitwise")
+    same = all(equal(torch.as_tensor(a), torch.as_tensor(b)) for a, b in pairs)
+    check(same, "fused trainer: sample_padded == sample, bitwise")
+    k1_rows.append({"case": f"sample_padded against sample ({len(seeds_np)} seeds, caps "
+                            f"{list(caps)})", "match": same,
+                    "max_abs_err": max_err(*zip(*pairs))})
+    # one card step against the train half of the same step on a CPU twin
+    # (the same sampler and store objects: only their static facts are read)
+    cpu_model = copy.deepcopy(trainer.model).to("cpu")
+    cpu = DistributedTrainer(make_mesh(devices=["cpu"]), sampler, feat, cpu_model,
+                             torch.optim.SGD(cpu_model.parameters(), lr=0.0),
+                             local_batch=B)
+    blocks = []
+    record_issues(trainer, blocks)
+    loss_g = float(trainer.step(seeds_np, labels_all, key))
+    grads_g = [p.grad.detach().cpu() for p in trainer._params()]
+    b = blocks[0]
+    loss_c, grads_c = cpu.train_block(b.n_id.cpu(), b.x.cpu(), [a.to("cpu") for a in b.adjs],
+                                      b.num_seeds.cpu(), labels_all.cpu(),
+                                      fold_key(key, 1, 0), False)
+    loss_c = float(loss_c)
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = [float((g - c).abs().max()) / float(c.abs().max())
+                for g, c in zip(grads_g, grads_c)]
+    step9e("(e) one card step against the CPU's: loss 1e-5 relative, gradients 1e-4 x max |g|")
+    check(rel <= 1e-5, f"fused step parity: loss {loss_g} (card) vs {loss_c} (CPU)")
+    check(max(grad_err) <= 1e-4, f"fused step parity: gradient errors / max |g| {grad_err}")
+    return k1_rows, k2_rows, {
+        "step_parity": {"loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": rel,
+                        "max_grad_err_over_max": max(grad_err), "rows": int(b.x.shape[0]),
+                        "tolerance": "loss 1e-5 relative; each gradient 1e-4 x max |g|"},
+        "sample_padded_equals_sample": same, "caps": list(caps)}
+
+
+def fused_phase(topo, feat, labels_all, card):
+    """Phase 9e (see the module docstring). Returns ``(launches of the
+    timed steps, K1's check rows, K2's check rows, result)``."""
+    import numpy as np
+
+    from quiver_tpu_torch import GraphSageSampler
+
+    t0 = time.time()
+    n = topo.node_count
+    sampler = GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", mode="HBM",
+                               seed_capacity=EPOCH_BATCH, seed=0, frontier_caps="auto")
+    # bench_epoch --fused: auto caps planned from one draw of local_batch seeds
+    sampler.sample(np.random.default_rng(2).integers(0, n, EPOCH_BATCH))
+    sync()
+    step9e("the fused hop and K2's lookup are the path's")
+    check(sampler.kernel == "pallas" and feat.kernel == "pallas",
+          "fused trainer: the fused hop and K2's lookup")
+    caps = sampler._frontier_caps
+    log(f"fused trainer set-up {time.time() - t0:.1f}s: caps {caps} "
+        f"(worst case {sampler._worst_caps(EPOCH_BATCH)})")
+    steps = fused_step_run(sampler, feat, labels_all, n, card)
+    epochs, ref, spread, train_idx = fused_epochs(sampler, feat, labels_all, n, card)
+    guard = fused_guard(sampler, feat, labels_all, n, card)
+    preempt = fused_preempt(sampler, feat, labels_all, train_idx, ref, spread, card)
+    k1_rows, k2_rows, kernels = fused_kernels(sampler, feat, labels_all, n)
+    result = {
+        "config": "benchmarks/bench_epoch.py --fused defaults on phase 9b's store: "
+                  "products-shaped graph, HBM topology, F=100 f32, 47 classes, 20% "
+                  "cache, fanouts [15, 10, 5], batch 1024, auto caps planned at "
+                  "local_batch, GraphSAGE hidden 256 x 3, Adam 1e-3, dropout 0.5, "
+                  "make_mesh() (one worker)",
+        "caps": list(caps), "worst_caps": list(sampler._worst_caps(EPOCH_BATCH)),
+        "step": steps, "epoch": epochs, "guard": guard, "preempt": preempt,
+        "kernels": kernels, "card": card, "seconds": time.time() - t0}
+    log(f"fused trainer phase {result['seconds']:.1f}s [{card}]")
+    return steps["launches"], k1_rows, k2_rows, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4146,7 +4660,7 @@ def main() -> int:
     # phase 9b: bench_epoch's host loop for every family (serial and
     # through the Prefetcher), GCN/GIN/GAT against the CPU, their
     # layer-wise inference, and the --save-dir resume drill
-    epoch = epoch_phase(topo, card)
+    epoch, epoch_feat, epoch_labels = epoch_phase(topo, card)
     lap("phase 9b (epoch loop, families, resume)")
     # phase 9c: bench_rgcn.py's R-GCN and bench_saint.py's samplers at
     # their defaults, and the two example twins
@@ -4158,6 +4672,15 @@ def main() -> int:
         offload_phase(card, pcie)
     torch.cuda.empty_cache()
     lap("phase 9d (beyond-HBM training)")
+    # phase 9e: the fused trainer (DistributedTrainer) over phase 9b's
+    # store: bench_epoch --fused's steps, the 64-step epoch at depth 0 and
+    # 1, the guard and preemption drills, its kernels against their plain
+    # versions and its step against the CPU's
+    launches_f, k1_rows_f, k2_rows_f, fused = fused_phase(topo, epoch_feat, epoch_labels,
+                                                          card)
+    del epoch_feat, epoch_labels
+    torch.cuda.empty_cache()
+    lap("phase 9e (fused trainer)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -4191,7 +4714,7 @@ def main() -> int:
                    card, name),
         kernel_row("uniform_hop", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    launches_u["uniform_hop"], "uniform serving",
-                   hop + rows_h["uniform_hop"] + k1_rows_o, t_hop,
+                   hop + rows_h["uniform_hop"] + k1_rows_o + k1_rows_f, t_hop,
                    {"composed_ms": t_hop["composed_ms"],
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
@@ -4208,6 +4731,7 @@ def main() -> int:
                         "uniform_hop"],
                     "rgcn_launches": launches_h["rgcn"]["uniform_hop"],
                     "saint_rw_launches": launches_h["saint"]["uniform_hop"],
+                    "fused_trainer_launches": launches_f["uniform_hop"],
                     "beyond_hbm": {
                         "launches": {k: v["uniform_hop"] for k, v in launches_o.items()},
                         "uva_hops": [{key: t[key] for key in (
@@ -4229,7 +4753,7 @@ def main() -> int:
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_u["tiered_gather"], "uniform serving (hot-only store)",
-                   tier + rows_h["tiered_gather"] + k2_rows_o, t_tier,
+                   tier + rows_h["tiered_gather"] + k2_rows_o + k2_rows_f, t_tier,
                    {"ratio_to_library": t_tier["ratio_to_yard"],
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
@@ -4242,6 +4766,7 @@ def main() -> int:
                         for k in ("zeros", "last-good")},
                     "train_lookup_in_turns": train["lookup_in_turns"],
                     "rgcn_launches": launches_h["rgcn"]["tiered_gather"],
+                    "fused_trainer_launches": launches_f["tiered_gather"],
                     "beyond_hbm": {
                         "launches": {k: v["tiered_gather"] for k, v in launches_o.items()},
                         "lookup": {key: t_off_lookup[key] for key in (
@@ -4305,7 +4830,7 @@ def main() -> int:
                        "sampler": samplers, "train": train,
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
-                       "beyond_hbm": offload,
+                       "beyond_hbm": offload, "fused_trainer": fused,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -4332,6 +4857,7 @@ def main() -> int:
         k: ({d: {key: v for key, v in r.items() if key != "per_step_ms"}
              for d, r in val.items()} if k in ("loop", "dp") else val)
         for k, val in offload.items()}}), flush=True)
+    print(json.dumps({"fused_trainer": fused}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

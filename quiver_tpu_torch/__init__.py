@@ -30,7 +30,7 @@ from .obs import (
 )
 from .parallel.mesh import MeshTopo, can_device_access_peer, init_p2p, make_mesh
 from .parallel.pipeline import Batch, Prefetcher
-from .parallel.trainer import DataParallelTrainer
+from .parallel.trainer import DataParallelTrainer, DistributedTrainer
 from .resilience import (
     CircuitBreaker,
     CorruptCheckpoint,
@@ -80,6 +80,7 @@ __all__ = [
     "DeadlineBatcher",
     "DegradedFeature",
     "DeviceTopology",
+    "DistributedTrainer",
     "EmbeddingRefresher",
     "FaultPlan",
     "Feature",

@@ -1,9 +1,8 @@
 """quiver_tpu_torch.parallel: the mesh, the input pipeline, the train steps
-and the data-parallel trainer.
+and the trainers.
 
-The JAX package's export table, for the names ported so far
-(``DistributedTrainer`` is ROADMAP A.10b). Everything but the mesh
-resolves lazily, as in the JAX package.
+The JAX package's export table. Everything but the mesh resolves lazily,
+as in the JAX package.
 """
 
 from .mesh import MeshTopo, can_device_access_peer, init_p2p, make_mesh
@@ -18,6 +17,7 @@ __all__ = [
     "init_model",
     "make_train_step",
     "make_eval_step",
+    "DistributedTrainer",
     "DataParallelTrainer",
 ]
 
@@ -27,6 +27,7 @@ _LAZY = {
     "init_model": "train",
     "make_train_step": "train",
     "make_eval_step": "train",
+    "DistributedTrainer": "trainer",
     "DataParallelTrainer": "trainer",
 }
 

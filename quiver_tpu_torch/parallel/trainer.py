@@ -1,7 +1,19 @@
-"""Data-parallel training over a device mesh: the unfused trainer.
+"""Training over a device mesh: the fused trainer and the data-parallel one.
 
-The port of ``quiver_tpu/parallel/trainer.py``'s :class:`DataParallelTrainer`
-and its telemetry summary. It is the reference's papers100M loop
+The port of ``quiver_tpu/parallel/trainer.py``: :class:`DistributedTrainer`
+and :class:`DataParallelTrainer`, with their telemetry summary.
+
+:class:`DistributedTrainer` owns the whole step, as the JAX package's one
+compiled program does: each data worker samples its padded seed block on
+the device (``GraphSageSampler.sample_padded``, one kernel K1 launch per
+hop) and gathers its rows (one kernel K2 launch), then the forward, the
+backward, the optional non-finite guard and one optimizer step. Here the
+step runs eagerly, one launch after another on the current stream, with
+no host read but the guard's verdict; ``epoch_scan`` is a loop of such
+steps with JAX's contract (checkpoint chunks, the one-step skew of
+``pipeline_depth=1``, preemption and resume).
+
+:class:`DataParallelTrainer` is the reference's papers100M loop
 (benchmarks/ogbn-papers100M/dist_sampling_ogb_paper100M_quiver.py:120-165):
 each data-parallel worker samples its own seed block and gathers its own
 features, host-driven under the :class:`~.pipeline.Prefetcher`, and one
@@ -10,32 +22,45 @@ allreduce, JAX's ``pmean``). It takes any sampler and store configuration:
 ``mode="HOST"`` topologies (kernel K1 reading ``indices`` over UVA), cold
 feature tiers (K2 reading pinned rows), weighted hops, auto caps.
 
-Here every data worker runs in this process on the mesh's one device, in
-worker order: the gradient is the sum of ``loss_w / D`` over the workers,
-each worker's backward accumulating into ``.grad`` in turn. A mesh whose
+In both, every data worker runs in this process on the mesh's one device,
+in worker order, and the gradient is the workers' mean. A mesh whose
 workers map to more than one distinct device raises until the
-``torch.distributed`` layer lands (ROADMAP A.11). The fused
-``DistributedTrainer`` is ROADMAP A.10b.
+``torch.distributed`` layer lands (ROADMAP A.11).
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.config import CachePolicy
-from ..obs.registry import MetricsRegistry
+from ..core.config import CachePolicy, parse_size_bytes
+from ..obs.registry import (
+    GUARD_NONFINITE,
+    GUARD_SKIPPED,
+    PIPELINE_REISSUES,
+    ROUTED_OVERFLOW,
+    SAMPLE_OVERFLOW,
+    TIER_HITS,
+    TRAIN_OVERLAP_EFFICIENCY,
+    MetricsRegistry,
+)
 from ..obs.timeline import StepTimeline
+from ..obs.tracing import Tracer
 from ..ops.sample import seeded_generator
+from ..resilience.elastic import validate_resume_meta
+from ..resilience.faults import Preemption
+from ..resilience.guard import guard_verdict, guarded_update
 from ..sampling.sampler import Adj
-from ..utils.trace import get_logger
+from ..utils.trace import get_logger, info_once
 from .mesh import DATA_AXIS, FEATURE_AXIS, Mesh
 from .pipeline import Batch, Prefetcher
 from .train import cross_entropy_on_seeds, init_model
 
-__all__ = ["DataParallelTrainer"]
+__all__ = ["DistributedTrainer", "DataParallelTrainer", "fold_key"]
 
 
 def _metrics_report(metrics: MetricsRegistry, timeline: StepTimeline,
@@ -67,6 +92,828 @@ def _metrics_report(metrics: MetricsRegistry, timeline: StepTimeline,
     lines.append("timeline:")
     lines.extend("  " + ln for ln in timeline.report().splitlines())
     return "\n".join(lines)
+
+
+_KEY_MASK = 0x7FFFFFFFFFFFFFFF
+
+
+def fold_key(key: int, *words: int) -> int:
+    """A 63-bit seed mixed from the integer ``key`` and ``words`` through
+    numpy's SeedSequence (the role of JAX's ``fold_in``/``split``): nearby
+    inputs give unrelated seeds, and the same inputs the same seed."""
+    mixed = [int(w) & 0xFFFFFFFFFFFFFFFF for w in (key, *words)]
+    state = np.random.SeedSequence(mixed).generate_state(1, np.uint64)[0]
+    return int(state) & _KEY_MASK
+
+
+class IssuedBlock(NamedTuple):
+    """One worker's issued block: what the step's train half consumes."""
+
+    n_id: torch.Tensor  # (frontier_cap,) node ids, seeds first, -1 padded
+    x: torch.Tensor  # (frontier_cap, F) gathered rows
+    adjs: list  # deepest layer first
+    num_seeds: torch.Tensor  # valid seeds of the block (device scalar)
+    tier_hits: torch.Tensor  # int32 (3,) [replicated, hot, cold] hits
+
+
+class DistributedTrainer:
+    """Owns the fused train step for a (sampler, feature, model) triple.
+
+    Args (JAX's, in JAX's order, with a torch optimizer in ``tx``'s place):
+      mesh: a :class:`~.mesh.Mesh` whose workers all sit on one device.
+      sampler: a ``GraphSageSampler`` (its topology on the mesh's device).
+        Its caps planned for ``local_batch`` are the step's: an auto
+        sampler is planned before the trainer is built (one ``sample``
+        call) and is neither planned nor regrown by the step.
+      feature: a ``Feature`` (``device_replicate``), hot rows on the
+        device, cold rows pinned on the host.
+      model: the torch model, its parameters on the mesh's device.
+      optimizer: a ``torch.optim.Optimizer`` over ``model``'s parameters;
+        the step updates them in place.
+      local_batch: seeds per worker block (padded with -1).
+      seed_sharding: ``"data"`` (one worker per data row of the mesh) or
+        ``"all"`` (every mesh slot a worker); equal on a ``feature=1``
+        mesh.
+      routed_alpha: validated (> 0 or None); it sizes the routed gather
+        of a sharded store, which a replicated store does not run.
+      replicate_budget: inert on a replicated store (logged once).
+      collect_metrics: record the step's telemetry in ``metrics``.
+      nonfinite_guard: skip the optimizer update of a step whose loss or
+        gradients hold a NaN or Inf (:mod:`..resilience.guard`); the
+        parameters and the optimizer state pass through bit-unchanged.
+        The verdict is read on the host: one synchronisation per step,
+        only while the guard is on.
+      fault_plan: a :class:`~..resilience.FaultPlan`: NaN rows written
+        into a copy of the gathered block on its planned steps, and a
+        simulated :class:`~..resilience.Preemption`.
+      checkpoint_dir / checkpoint_every / checkpoint_keep: ``epoch_scan``
+        runs in chunks of ``checkpoint_every`` steps and saves (model,
+        optimizer, step, epoch, key) after each through a
+        :class:`~..utils.checkpoint.Checkpointer`; see :meth:`resume`.
+      pipeline_depth: 0, the serial epoch; 1, the one-step skew: issue
+        step t+1's sample and gather, then train step t (a prologue issues
+        the first batch of each chunk, so a chunk after the first issues
+        its first batch again, counted in ``train.pipeline_reissues``).
+        The same ops on the same inputs as depth 0, in another order.
+      donate_epoch_state: accepted; the JAX package's opt-in to reuse the
+        epoch's parameter buffers already holds here, since the step
+        updates the caller's parameters in place.
+      tracer, recorder: the ``train.step``/``train.chunk`` spans and the
+        flight recorder that dumps a bundle when the guard skips a step.
+
+    Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
+    A.11): a store sharded across cards, a ``topo_sharding="mesh"``
+    sampler, ``logical_workers``, ``auto_alpha=True``, a ``controller``,
+    and a mesh whose workers sit on more than one distinct device.
+
+    Keys: a JAX key is played by an int seed, read and never advanced.
+    Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
+    ``w`` of a step keyed ``k`` from ``fold_key(k, 1, w)``; its sample
+    stream is ``(worker key, 0)`` and its dropout stream ``(worker key,
+    1)``. So a re-issued, skewed or resumed step draws exactly what the
+    serial step drew. ``draw_fn`` (None, or ``draw_fn(key, worker, layer,
+    deg)``) replaces the sample draws of the step keyed ``key``, as
+    ``GraphSageSampler.sample``'s ``draw_fn`` does (the tests replay the
+    JAX package's draws through it).
+    """
+
+    def __init__(
+        self,
+        mesh: Mesh,
+        sampler,
+        feature,
+        model: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        local_batch: int = 128,
+        seed_sharding: str = "data",
+        routed_alpha: float | None = 2.0,
+        replicate_budget: int | str | None = None,
+        auto_alpha: bool = False,
+        collect_metrics: bool = True,
+        nonfinite_guard: bool = False,
+        fault_plan=None,
+        checkpoint_dir=None,
+        checkpoint_every: int = 0,
+        checkpoint_keep: int = 3,
+        logical_workers: int | None = None,
+        pipeline_depth: int = 0,
+        controller=None,
+        donate_epoch_state: bool = False,
+        tracer: Tracer | None = None,
+        recorder=None,
+    ):
+        self.seed_sharding = str(seed_sharding)
+        if self.seed_sharding not in ("data", "all"):
+            raise ValueError(
+                f"seed_sharding must be 'data' or 'all', got {seed_sharding!r}"
+            )
+        if routed_alpha is not None and routed_alpha <= 0:
+            raise ValueError(
+                f"routed_alpha must be > 0 or None, got {routed_alpha}"
+            )
+        self.routed_alpha = None if routed_alpha is None else float(routed_alpha)
+        self.pipeline_depth = int(pipeline_depth)
+        if self.pipeline_depth not in (0, 1):
+            raise ValueError(
+                f"pipeline_depth must be 0 (serial) or 1 (one-step skew), "
+                f"got {pipeline_depth}"
+            )
+        self.checkpoint_every = int(checkpoint_every)
+        if checkpoint_dir is not None and self.checkpoint_every < 1:
+            raise ValueError(
+                "checkpoint_dir= requires checkpoint_every >= 1 "
+                f"(got {checkpoint_every})"
+            )
+        if checkpoint_dir is None and self.checkpoint_every:
+            raise ValueError(
+                "checkpoint_every= without checkpoint_dir= has "
+                "nothing to write to"
+            )
+        policy = getattr(feature, "cache_policy", CachePolicy.DEVICE_REPLICATE)
+        for unported, what in (
+            (policy not in (CachePolicy.DEVICE_REPLICATE, "device_replicate"),
+             "a ShardedFeature (a hot tier sharded across cards)"),
+            (getattr(sampler, "topo_sharding", "replicated") == "mesh",
+             "a topo_sharding='mesh' sampler (a topology partitioned "
+             "across cards)"),
+            (logical_workers is not None,
+             "logical_workers= (elastic mode)"),
+            (bool(auto_alpha), "auto_alpha=True (the routing-budget tuner)"),
+            (controller is not None, "controller= (the cache controller's "
+             "placement and routing decisions)"),
+        ):
+            if unported:
+                raise NotImplementedError(
+                    f"DistributedTrainer: {what} is not ported yet "
+                    "(ROADMAP A.11)"
+                )
+        devices = set(mesh.devices.ravel().tolist())
+        if len(devices) > 1:
+            raise NotImplementedError(
+                f"the mesh's workers sit on {len(devices)} devices; training "
+                "across devices needs the torch.distributed layer "
+                "(ROADMAP A.11)"
+            )
+        if replicate_budget is not None and parse_size_bytes(replicate_budget):
+            info_once(
+                "trainer-replicate-budget-inert",
+                "DistributedTrainer(replicate_budget=%r) on a "
+                "device_replicate Feature is INERT: its hot tier is "
+                "already replicated per device (zero-comm); size it "
+                "with device_cache_size",
+                replicate_budget,
+            )
+        self.donate_epoch_state = bool(donate_epoch_state)
+        self.collect_metrics = bool(collect_metrics)
+        self.metrics = MetricsRegistry(enabled=self.collect_metrics)
+        self.metrics.counter(
+            ROUTED_OVERFLOW, unit="lanes",
+            doc="capped-bucket fallback-served lanes of the step's sharded "
+                "feature gather",
+        )
+        self.metrics.gauge(
+            TIER_HITS, shape=(3,), unit="hits",
+            doc="mesh-total per-tier feature hits [replicated, sharded, cold]",
+        )
+        self.metrics.counter(
+            SAMPLE_OVERFLOW, shape=(len(tuple(sampler.sizes)),), unit="lanes",
+            doc="per-hop fallback-served lanes of the topo-sharded sampler "
+                "(seeds-outward)",
+        )
+        self.nonfinite_guard = bool(nonfinite_guard)
+        if self.nonfinite_guard:
+            self.metrics.counter(
+                GUARD_SKIPPED, unit="steps",
+                doc="optimizer updates skipped by the non-finite step guard",
+            )
+            self.metrics.counter(
+                GUARD_NONFINITE, unit="values",
+                doc="non-finite loss/grad values detected before the "
+                    "gradient mean",
+            )
+        self._pipeline_reissues = 0
+        if self.pipeline_depth:
+            self.metrics.counter(
+                PIPELINE_REISSUES, unit="batches",
+                doc="prologue batches re-issued from the seed matrix at "
+                    "checkpoint-chunk/resume boundaries (the carried "
+                    "batch is replayed, not serialized)",
+            )
+            self.metrics.gauge(
+                TRAIN_OVERLAP_EFFICIENCY, dtype=torch.float32, unit="x",
+                doc="serial stage-sum over measured pipelined step time "
+                    "(> 1.0 = sample/gather latency hidden under compute)",
+            )
+        self.fault_plan = fault_plan
+        self._fault_step = 0  # eager step() call counter the plan indexes
+        self._preempt_fired = False
+        self.tracer = tracer if tracer is not None else Tracer(enabled=False)
+        self.recorder = recorder
+        self._guard_trips_seen = 0
+        if checkpoint_dir is not None:
+            from ..utils.checkpoint import Checkpointer
+
+            self.checkpointer = Checkpointer(
+                checkpoint_dir, max_to_keep=checkpoint_keep, tracer=self.tracer,
+            )
+            latest = self.checkpointer.latest_step()
+            # a pre-existing run directory: keep the save ids monotonic
+            self._ckpt_seq = 0 if latest is None else latest + 1
+        else:
+            self.checkpointer = None
+            self._ckpt_seq = 0
+        self.timeline = StepTimeline()
+        self.mesh = mesh
+        self.device = devices.pop()
+        self.sampler = sampler
+        self.feature = feature
+        self.model = model
+        self.optimizer = optimizer
+        self.local_batch = int(local_batch)
+        self.data_size = mesh.shape[DATA_AXIS]
+        self.feature_size = mesh.shape[FEATURE_AXIS]
+        self.workers = self.data_size * (
+            self.feature_size if self.seed_sharding == "all" else 1
+        )
+        self.global_batch = self.local_batch * self.workers
+        self.caps = tuple(sampler._caps_for(self.local_batch))
+        self.draw_fn = None
+        self._bound_versions = self._current_versions()
+
+    # -- telemetry views (over the metrics registry) ---------------------------
+
+    @property
+    def last_routed_overflow(self):
+        """Registry metric ``feature.routed_overflow`` (0: a replicated
+        store routes nothing)."""
+        return self.metrics.value(ROUTED_OVERFLOW)
+
+    @last_routed_overflow.setter
+    def last_routed_overflow(self, value):
+        self.metrics.set(ROUTED_OVERFLOW, value)
+
+    @property
+    def last_tier_hits(self):
+        """Registry metric ``feature.tier_hits``: int32 (3,) per step
+        ((steps, 3) after ``epoch_scan``), ``[replicated, hot, cold]``."""
+        return self.metrics.value(TIER_HITS)
+
+    @last_tier_hits.setter
+    def last_tier_hits(self, value):
+        self.metrics.set(TIER_HITS, value)
+
+    @property
+    def last_sample_overflow(self):
+        """Registry metric ``sample.hop_overflow`` (zeros: a replicated
+        topology routes nothing)."""
+        return self.metrics.value(SAMPLE_OVERFLOW)
+
+    @last_sample_overflow.setter
+    def last_sample_overflow(self, value):
+        self.metrics.set(SAMPLE_OVERFLOW, value)
+
+    def metrics_report(self) -> str:
+        """One-call text summary of the trainer's telemetry: every recorded
+        registry metric (totals and the most recent per-step value) and
+        the host StepTimeline's streaming percentiles."""
+        return _metrics_report(
+            self.metrics, self.timeline,
+            "" if self.collect_metrics else "; collect_metrics=False",
+        )
+
+    def health(self) -> dict:
+        """The ``/healthz`` summary: worker geometry, bound streaming
+        versions, checkpoint progress, guard-trip count."""
+        topo_v, feat_v = self._current_versions()
+        return {
+            "workers": int(self.workers),
+            "global_batch": int(self.global_batch),
+            "topology_version": topo_v,
+            "feature_version": feat_v,
+            "checkpoint_seq": int(self._ckpt_seq),
+            "guard_trips": int(self._guard_trips_seen),
+        }
+
+    def serve_telemetry(self, host: str = "127.0.0.1", port: int = 0):
+        """Start (and return) a live telemetry endpoint over this trainer:
+        ``/metrics`` from its registry, ``/traces`` from its tracer,
+        ``/healthz`` from :meth:`health`. It reads host-side snapshots
+        only."""
+        from ..obs.endpoint import TelemetryEndpoint
+
+        return TelemetryEndpoint(
+            metrics=self.metrics, tracer=self.tracer, health=self.health,
+            host=host, port=port,
+        ).start()
+
+    # -- streaming-mutation versioning -------------------------------------------
+
+    def _current_versions(self) -> tuple[int, int]:
+        """(topology version, feature version) of the host state now."""
+        return (
+            int(getattr(self.sampler.csr_topo, "version", 0)),
+            int(getattr(self.feature, "version", 0)),
+        )
+
+    def _check_versions(self) -> None:
+        """Raise instead of training on a placement older than a committed
+        mutation of the graph or the rows."""
+        current = self._current_versions()
+        if current != self._bound_versions:
+            from ..core.topology import VersionMismatchError
+
+            raise VersionMismatchError(
+                f"trainer program is bound to (topology, feature) "
+                f"versions {self._bound_versions} but the host state has "
+                f"committed {current}; call trainer.refresh() to "
+                f"re-capture the mutated state before training"
+            )
+
+    def refresh(self) -> "DistributedTrainer":
+        """Re-place the sampler's topology from the mutated host CSR (its
+        ``refresh_topology`` seam, when stale) and bind the trainer to the
+        current versions. The mesh, the model, the optimizer state, the
+        seed packing and the keys are untouched."""
+        if int(getattr(self.sampler.csr_topo, "version", 0)) != \
+                self.sampler._topo_version:
+            self.sampler.refresh_topology()
+        self._bound_versions = self._current_versions()
+        return self
+
+    # -- the step's halves --------------------------------------------------------
+
+    def _params(self) -> list:
+        return [p for p in self.model.parameters() if p.requires_grad]
+
+    def _tier_hits(self, n_id) -> torch.Tensor:
+        """int32 (3,) valid lanes per tier ``[replicated, hot, cold]`` of
+        a replicated store (its hot tier is JAX's second), on the device."""
+        valid = n_id >= 0
+        ids = n_id.clamp(min=0).to(torch.int64)
+        order = getattr(self.feature, "feature_order", None)
+        if order is not None:
+            ids = order[ids]
+        hot = ids < int(getattr(self.feature, "hot_rows", 0))
+        return torch.stack([
+            torch.zeros((), dtype=torch.int32, device=n_id.device),
+            (valid & hot).sum(dtype=torch.int32),
+            (valid & ~hot).sum(dtype=torch.int32),
+        ])
+
+    def issue_block(self, seeds, num_seeds, key: int, draw_fn=None) -> IssuedBlock:
+        """The schedule-movable half of one worker's block: the sampler's
+        ``sample_padded`` on the padded device ``seeds`` (one K1 launch per
+        hop, drawing from the worker key's sample stream, or from
+        ``draw_fn(layer, deg)``), one K2 lookup of the frontier through the
+        store (``tiered_gather``; ``tiered_gather_dequant`` for int8) and
+        the tier hits, all on the device."""
+        gen = None if draw_fn is not None else seeded_generator(self.device, key, 0)
+        n_id, _, adjs, _, _, _ = self.sampler.sample_padded(
+            seeds, num_seeds, generator=gen, draw_fn=draw_fn)
+        return IssuedBlock(n_id, self.feature[n_id], adjs, num_seeds,
+                           self._tier_hits(n_id))
+
+    def train_block(self, n_id, x, adjs, num_seeds, labels, key: int,
+                    inject: bool = False):
+        """The compute half of one worker's block: the planned NaN rows
+        (written into a copy of ``x`` when ``inject``), the labels and the
+        seed mask, the forward in training mode (dropout from the worker
+        key's dropout stream) and the backward. Returns ``(loss, grads)``:
+        the block's loss and the gradients of ``loss / workers`` (the
+        worker's share of the step's mean), neither read back."""
+        S = self.local_batch
+        plan = self.fault_plan
+        if inject and plan is not None and plan.injects_nan():
+            if not x.is_floating_point():
+                raise ValueError(
+                    f"FaultPlan NaN injection needs float features, got {x.dtype}"
+                )
+            x = x.clone()
+            x[:min(int(plan.nan_rows), int(x.shape[0]))] = float("nan")
+        lab = labels[n_id[:S].clamp(min=0)]
+        mask = torch.arange(S, device=n_id.device) < num_seeds
+        self.model.train()
+        logits = self.model(x, adjs, seeded_generator(self.device, key, 1))
+        loss = cross_entropy_on_seeds(logits[:S], lab, mask)
+        params = self._params()
+        grads = torch.autograd.grad(loss / self.workers, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        return loss.detach(), grads
+
+    def one_block(self, seeds, num_seeds, labels, key: int, inject: bool = False,
+                  draw_fn=None):
+        """One worker's block, the two halves composed in place (the
+        serial schedule): ``(loss, grads, tier_hits)``."""
+        b = self.issue_block(seeds, num_seeds, key, draw_fn)
+        loss, grads = self.train_block(b.n_id, b.x, b.adjs, b.num_seeds,
+                                       labels, key, inject)
+        return loss, grads, b.tier_hits
+
+    def _worker_draw(self, key: int, w: int):
+        return None if self.draw_fn is None else functools.partial(
+            self.draw_fn, key, w)
+
+    def _blocks(self, packed):
+        """The step's per-worker ``(seeds, num_seeds)`` from its packed
+        ``(workers * local_batch,)`` device row."""
+        rows = packed.reshape(self.workers, self.local_batch)
+        return [(r, (r >= 0).sum(dtype=torch.int32)) for r in rows]
+
+    def _issue(self, packed, key: int) -> list:
+        """Every worker's issued block of the step keyed ``key``."""
+        return [self.issue_block(seeds, num, fold_key(key, 1, w),
+                                 self._worker_draw(key, w))
+                for w, (seeds, num) in enumerate(self._blocks(packed))]
+
+    def _train(self, blocks, labels, key: int, inject: bool):
+        """The train half of a step over its issued blocks."""
+        outs = [self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labels,
+                                 fold_key(key, 1, w), inject)
+                for w, b in enumerate(blocks)]
+        return self._update(outs, [b.tier_hits for b in blocks])
+
+    def _run_step(self, packed, labels, key: int, inject: bool):
+        """The serial step: each worker's block issued and trained in
+        place, in worker order, then the update."""
+        outs, hits = [], []
+        for w, (seeds, num) in enumerate(self._blocks(packed)):
+            wk = fold_key(key, 1, w)
+            loss, grads, h = self.one_block(seeds, num, labels, wk, inject,
+                                            self._worker_draw(key, w))
+            outs.append((loss, grads))
+            hits.append(h)
+        return self._update(outs, hits)
+
+    def _update(self, outs, hits):
+        """Sum the workers' gradient shares into ``.grad`` in worker order,
+        take the guard's verdict before they mix (every worker's count),
+        and step the optimizer. Returns ``(mean loss, the step's metrics
+        dict)``, on the device."""
+        params = self._params()
+        self.optimizer.zero_grad(set_to_none=True)
+        bad = []
+        for loss, grads in outs:
+            if self.nonfinite_guard:
+                bad.append(guard_verdict(loss, grads)[1])
+            for p, g in zip(params, grads):
+                if p.grad is None:
+                    p.grad = g
+                else:
+                    p.grad.add_(g)
+        loss = torch.stack([o[0] for o in outs]).mean()
+        mtree = {}
+        if self.collect_metrics:
+            dev = loss.device
+            mtree = {
+                ROUTED_OVERFLOW: torch.zeros((), dtype=torch.int32, device=dev),
+                TIER_HITS: torch.stack(hits).sum(0, dtype=torch.int32),
+                SAMPLE_OVERFLOW: torch.zeros((len(self.sampler.sizes),),
+                                             dtype=torch.int32, device=dev),
+            }
+        if self.nonfinite_guard:
+            total_bad = torch.stack(bad).sum(dtype=torch.int32)
+            ok = total_bad == 0
+            if self.collect_metrics:
+                mtree[GUARD_NONFINITE] = total_bad
+                mtree[GUARD_SKIPPED] = (~ok).to(torch.int32)
+            guarded_update(self.optimizer, params, ok)
+        else:
+            self.optimizer.step()
+        return loss, mtree
+
+    # -- API -------------------------------------------------------------------
+
+    def init(self, key):
+        """Sample one block (the JAX package's ``init`` does, so the
+        sampler's calls match its), initialise the model's parameters from
+        ``key`` (an int seeding a host generator, or a generator; flax's
+        initialisers, :func:`~.train.init_model`, drawn on its device) and
+        reset the optimizer's state. Returns ``(model, optimizer)``, in the
+        place of JAX's ``(params, opt_state)``."""
+        n = self.sampler.csr_topo.node_count
+        m = min(self.local_batch, n)
+        padded = np.full(self.local_batch, -1, np.int32)
+        padded[:m] = np.arange(m)
+        self.sampler.sample_padded(torch.from_numpy(padded).to(self.device), m,
+                                   generator=seeded_generator(self.device, 0))
+        gen = key if isinstance(key, torch.Generator) else \
+            torch.Generator().manual_seed(int(key))
+        # Module.to moves each parameter's data in place: the optimizer
+        # keeps its references
+        init_model(self.model.to(gen.device), gen)
+        self.model.to(self.device)
+        self.optimizer.state = collections.defaultdict(dict)
+        return self.model, self.optimizer
+
+    def shard_seeds(self, seeds: np.ndarray):
+        """Pack a global seed array into per-worker valid-prefix blocks,
+        padded to ``(workers * local_batch,)`` with -1."""
+        seeds = np.asarray(seeds)
+        blocks = np.array_split(seeds, self.workers)
+        out = np.full((self.workers, self.local_batch), -1, np.int32)
+        for i, b in enumerate(blocks):
+            if len(b) > self.local_batch:
+                raise ValueError(
+                    f"per-device block {len(b)} exceeds local_batch {self.local_batch}"
+                )
+            out[i, : len(b)] = b
+        return out.reshape(-1)
+
+    def _check_guard_trip(self) -> None:
+        """Flight-recorder trigger: a guard trip (the guard skipped >= 1
+        step since last checked) dumps a postmortem bundle naming the
+        train stage. Reads the skip counter on the host."""
+        if self.recorder is None or not self.nonfinite_guard:
+            return
+        snap = self.metrics.snapshot(GUARD_SKIPPED)
+        total = int(snap.total()) if snap is not None else 0
+        if total > self._guard_trips_seen:
+            self._guard_trips_seen = total
+            self.recorder.trigger(
+                "nonfinite_guard", stage="train", skipped_total=total,
+            )
+
+    def step(self, seeds, labels, key: int):
+        """One fused step. ``seeds``: the global seed array (host);
+        ``labels``: the full ``(N,)`` label tensor; ``key``: the step's int
+        seed. Returns the mean loss, on the device.
+
+        After the call ``last_tier_hits`` holds the step's per-tier hits
+        (int32 (3,)), and with the guard on the skip and non-finite
+        counters hold its verdict. A planned preemption raises
+        :class:`~..resilience.Preemption` after the step ran."""
+        self._check_versions()
+        plan = self.fault_plan
+        step_idx = self._fault_step
+        self._fault_step += 1
+        with self.tracer.span("train.step", trace=f"train.step.{step_idx}",
+                              subsystem="trainer", step=step_idx), \
+                self.timeline.stage("step"):
+            packed = torch.from_numpy(self.shard_seeds(seeds)).to(self.device)
+            labels = torch.as_tensor(labels, device=self.device)
+            inject = plan is not None and plan.nan_at(step_idx)
+            loss, mtree = self._run_step(packed, labels, int(key), inject)
+        self.metrics.record(mtree)
+        self._check_guard_trip()
+        if (plan is not None and not self._preempt_fired
+                and plan.preempts_in(step_idx, step_idx + 1)):
+            # the step ran but its results are lost with the raise: the
+            # caller resumes from the last checkpoint, like a real kill
+            self._preempt_fired = True
+            raise Preemption(f"simulated preemption at step {step_idx}")
+        return loss
+
+    def pack_epoch(self, train_idx: np.ndarray, seed=None, key=None):
+        """Shuffle ``train_idx`` and pack it into a ``(steps,
+        workers * local_batch)`` seed matrix of per-worker valid-prefix
+        blocks (-1 padded): the rows of :meth:`epoch_scan`. ``seed`` (or
+        the legacy ``key``): an int, or an integer array whose last word
+        is used, as the JAX package reads a raw key."""
+        if seed is None:
+            seed = key  # legacy name
+        idx = np.asarray(train_idx)
+        if seed is not None:
+            if getattr(seed, "shape", ()) != ():
+                seed = int(np.asarray(seed).ravel()[-1])
+            idx = np.random.default_rng(int(seed)).permutation(idx)
+        steps = -(-len(idx) // self.global_batch)
+        return np.stack([
+            self.shard_seeds(idx[s * self.global_batch: (s + 1) * self.global_batch])
+            for s in range(steps)
+        ])
+
+    @staticmethod
+    def step_key(key0: int, t: int) -> int:
+        """The int seed of step ``t`` of the epoch keyed ``key0``: a
+        function of the two alone, so a chunk or a resumed epoch draws the
+        keys the whole epoch would."""
+        return fold_key(key0, 0, t)
+
+    def _run_chunk(self, packed, labels, key0: int, inject, lo: int, hi: int):
+        """Steps ``[lo, hi)`` of the epoch; ``(losses, metrics dicts)``."""
+        losses, mtrees = [], []
+        keys = [self.step_key(key0, t) for t in range(lo, hi)]
+        if not self.pipeline_depth:
+            for t, k in zip(range(lo, hi), keys):
+                loss, m = self._run_step(packed[t], labels, k, bool(inject[t]))
+                losses.append(loss)
+                mtrees.append(m)
+            return losses, mtrees
+        # the one-step skew: issue step t + 1, then train step t (the
+        # prologue issues step lo; the last step issues nothing)
+        batch = self._issue(packed[lo], keys[0])
+        for i, t in enumerate(range(lo, hi)):
+            nxt = self._issue(packed[t + 1], keys[i + 1]) if t + 1 < hi else None
+            loss, m = self._train(batch, labels, keys[i], bool(inject[t]))
+            losses.append(loss)
+            mtrees.append(m)
+            batch = nxt
+        return losses, mtrees
+
+    def _record_steps(self, mtrees) -> None:
+        """Land per-step metrics dicts as ``(steps, ...)`` stacks."""
+        if mtrees and mtrees[0]:
+            self.metrics.record({name: torch.stack([m[name] for m in mtrees])
+                                 for name in mtrees[0]})
+
+    def epoch_scan(self, seed_mat, labels, key: int, epoch: int = 0,
+                   start_step: int = 0):
+        """A whole epoch over the packed seed matrix, step after step with
+        no host read (but the guard's verdict, when on).
+
+        Returns the ``(steps - start_step,)`` float32 losses, on the
+        device: the caller reads them once. ``last_tier_hits`` holds the
+        per-step hits (int32 ``(steps, 3)``).
+
+        With ``checkpoint_dir=``/``checkpoint_every=`` the epoch runs in
+        chunks of ``checkpoint_every`` steps, with an asynchronous save
+        after each (the state is copied to the host at the save, so the
+        next step cannot race it). ``start_step``/``epoch`` replay a
+        resumed epoch: pass the same seed matrix (``pack_epoch`` with the
+        same seed) and the key :meth:`resume` returned, and the remaining
+        steps draw what the uninterrupted run drew. A ``fault_plan`` with
+        ``preempt_at_step`` raises :class:`~..resilience.Preemption` once
+        that step's chunk has run but before its checkpoint lands.
+        ``pipeline_depth=1`` runs the one-step skew with the same chunking
+        and resume semantics; each chunk after the first issues its first
+        batch again (``train.pipeline_reissues``).
+        """
+        self._check_versions()
+        steps = int(np.shape(seed_mat)[0])
+        start = int(start_step)
+        key = int(key)
+        if not 0 <= start <= steps:
+            raise ValueError(
+                f"start_step {start} outside [0, {steps}] for a "
+                f"{steps}-step epoch"
+            )
+        plan = self.fault_plan
+        losses, mtrees = [], []
+        # the epoch trace id is deterministic: a preempted run's resume
+        # records its chunks under the same id
+        etrace = self.tracer.trace(f"train.epoch.{int(epoch)}")
+        with self.timeline.stage("epoch_scan"):
+            packed = torch.from_numpy(np.asarray(seed_mat, np.int32)).to(self.device)
+            labels = torch.as_tensor(labels, device=self.device)
+            if plan is not None and plan.injects_nan():
+                inject = plan.nan_mask(steps)
+            else:
+                inject = np.zeros(steps, dtype=bool)
+            chunk = (self.checkpoint_every if self.checkpointer is not None
+                     else max(steps - start, 1))
+            lo = start
+            while lo < steps:
+                hi = min(lo + chunk, steps)
+                t0 = self.tracer.now() if self.tracer.enabled else 0.0
+                chunk_losses, chunk_m = self._run_chunk(packed, labels, key,
+                                                        inject, lo, hi)
+                # dispatch-timed: the device may still be running
+                self.tracer.record(
+                    "train.chunk", t0, self.tracer.now() - t0,
+                    trace=etrace, subsystem="trainer", epoch=int(epoch),
+                    start_step=lo, steps=hi - lo,
+                    pipeline_depth=self.pipeline_depth,
+                )
+                if self.pipeline_depth and lo > start:
+                    # this chunk issued its first batch again (the previous
+                    # chunk's last step had not issued it)
+                    self._pipeline_reissues += 1
+                    self.metrics.set(PIPELINE_REISSUES,
+                                     np.int32(self._pipeline_reissues))
+                    self.tracer.event("train.reissue", trace=etrace,
+                                      subsystem="trainer", step=lo)
+                losses.extend(chunk_losses)
+                mtrees.extend(chunk_m)
+                if (plan is not None and not self._preempt_fired
+                        and plan.preempts_in(lo, hi)):
+                    # the chunk ran but dies un-checkpointed; its telemetry
+                    # lands first, so the guard trips that explain the
+                    # preempted run reach the registry and the recorder
+                    self._preempt_fired = True
+                    self._record_steps(mtrees)
+                    self._check_guard_trip()
+                    self.tracer.event("train.preempt", trace=etrace,
+                                      subsystem="trainer",
+                                      step=plan.preempt_at_step)
+                    if self.recorder is not None:
+                        self.recorder.note("preemption", epoch=int(epoch),
+                                           step=int(plan.preempt_at_step))
+                    raise Preemption(
+                        f"simulated preemption at step "
+                        f"{plan.preempt_at_step}: chunk [{lo}, {hi}) lost "
+                        f"(last checkpoint at step {lo})"
+                    )
+                if self.checkpointer is not None:
+                    self._save_checkpoint(key, epoch, hi, steps_per_epoch=steps,
+                                          trace=etrace)
+                lo = hi
+        self._record_steps(mtrees)
+        self._check_guard_trip()
+        if not losses:  # start == steps: a resumed, already-finished epoch
+            return torch.zeros((0,), dtype=torch.float32, device=self.device)
+        return torch.stack(losses)
+
+    # -- checkpoint / resume ------------------------------------------------------
+
+    def _save_checkpoint(self, key: int, epoch: int, step: int,
+                         steps_per_epoch: int | None = None,
+                         trace: str | None = None) -> None:
+        """Asynchronous atomic save between chunks: the model's and the
+        optimizer's state dicts, ``step`` (completed rows of the current
+        epoch's seed matrix), ``epoch`` and the epoch's int ``key``, with
+        the JAX package's manifest metadata (what :meth:`resume`
+        validates)."""
+        state = {
+            "params": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            # Python ints: 0-d int64 leaves, restored as the same ints
+            "step": int(step),
+            "epoch": int(epoch),
+            "key": int(key),
+        }
+        meta = {
+            "mesh": {DATA_AXIS: int(self.data_size),
+                     FEATURE_AXIS: int(self.feature_size)},
+            "workers": int(self.workers),
+            "local_batch": int(self.local_batch),
+            "seed_sharding": self.seed_sharding,
+            "elastic": False,
+            "epoch": int(epoch),
+            "step": int(step),
+        }
+        if steps_per_epoch is not None:
+            meta["steps_per_epoch"] = int(steps_per_epoch)
+        self.checkpointer.save(self._ckpt_seq, state, metadata=meta, trace=trace)
+        self._ckpt_seq += 1
+
+    def resume(self, checkpoint_step: int | None = None, mesh: Mesh | None = None):
+        """Restore the newest VALID checkpoint, if any, into the model and
+        the optimizer.
+
+        Waits for in-flight saves first. ``checkpoint_step`` pins one
+        checkpoint (the checkpointer's sequence id) instead; a pinned one
+        that fails verification raises ``CorruptCheckpoint``. A corrupt
+        or half-written newest checkpoint is quarantined and the newest
+        valid one restores instead. The manifest metadata is checked
+        against this trainer (:func:`~..resilience.validate_resume_meta`);
+        a ``mesh=`` of another shape, or any ``mesh=`` but the trainer's
+        own, raises as the JAX package's non-elastic trainer does.
+
+        Returns ``(model, optimizer, key, step, epoch)``: the JAX tuple
+        with the restored model and optimizer in place of ``(params,
+        opt_state)`` and the saved epoch's int key; feed ``key``, ``epoch``
+        and ``start_step=step`` back to :meth:`epoch_scan`. With no
+        checkpoint on disk: ``(model, optimizer, None, 0, 0)``, untouched.
+        """
+        if self.checkpointer is None:
+            raise ValueError(
+                "resume() needs checkpointing enabled "
+                "(checkpoint_dir=/checkpoint_every= at construction)"
+            )
+        self.checkpointer.wait_until_finished()
+        if checkpoint_step is None:
+            latest = self.checkpointer.latest_valid_step()
+            if latest is None:
+                return self.model, self.optimizer, None, 0, 0
+        else:
+            latest = int(checkpoint_step)
+        meta = self.checkpointer.metadata(latest)
+        target = self.mesh if mesh is None else mesh
+        target_shape = {DATA_AXIS: int(target.shape[DATA_AXIS]),
+                        FEATURE_AXIS: int(target.shape[FEATURE_AXIS])}
+        saved_mesh = meta.get("mesh")
+        if (saved_mesh is not None and mesh is None
+                and dict(saved_mesh) != target_shape):
+            raise ValueError(
+                f"checkpoint was written on mesh {dict(saved_mesh)} but "
+                f"this trainer's mesh is {target_shape}; pass "
+                f"resume(mesh=) to opt into the elastic restore (requires "
+                f"logical_workers= on the writing trainer)"
+            )
+        validate_resume_meta(
+            meta, mesh_shape=target_shape, workers=self.workers,
+            local_batch=self.local_batch,
+        )
+        if mesh is not None and mesh is not self.mesh:
+            raise ValueError(
+                "resume(mesh=) needs an elastic trainer: construct with "
+                "logical_workers=<the writing run's worker count> so the "
+                "step reduction is mesh-shape independent"
+            )
+        state = self.checkpointer.restore(latest)
+        step = int(state["step"])
+        spe = meta.get("steps_per_epoch")
+        if spe is not None and not 0 <= step <= int(spe):
+            raise ValueError(
+                f"restored step {step} is outside [0, {int(spe)}] for the "
+                f"saved epoch — the checkpoint directory does not belong "
+                f"to this run's seed packing"
+            )
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        return (self.model, self.optimizer, int(state["key"]), step,
+                int(state["epoch"]))
 
 
 class DataParallelTrainer:

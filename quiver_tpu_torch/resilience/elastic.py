@@ -21,9 +21,10 @@ is overwritten by each good lookup, and ids never seen get zero rows. An
 id past the table is held under the last id, the row the store's lookup
 reads for it.
 
-The elastic-resume half of the JAX module (``worker_ordered_mean``,
-``validate_resume_meta``) comes with the fused trainer and the
-multi-GPU layer (ROADMAP A.10b, A.11).
+:func:`validate_resume_meta` checks a checkpoint's manifest against the
+trainer that restores it, with the JAX package's errors.
+``worker_ordered_mean``, the elastic reduction across cards, comes with
+the multi-GPU layer (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -34,7 +35,45 @@ import torch
 from ..obs.registry import DEGRADED_LOOKUPS, MetricsRegistry
 from ..utils.trace import get_logger
 
-__all__ = ["CircuitBreaker", "DegradedFeature"]
+__all__ = ["CircuitBreaker", "DegradedFeature", "validate_resume_meta"]
+
+def validate_resume_meta(meta: dict, *, mesh_shape: dict, workers: int,
+                         local_batch: int) -> None:
+    """Validate a checkpoint manifest's ``meta`` against the trainer that
+    wants to restore it.
+
+    Raises ``ValueError`` naming the first mismatch: the logical worker
+    count and per-block batch size decide the seed packing and the
+    per-block seeds, so a mismatch would not crash; it would silently
+    train a DIFFERENT run. A mesh-shape change also needs the writer to
+    have been elastic (``logical_workers=``): a trajectory reduced over
+    one mesh is not reproducible on another shape.
+    """
+    saved_workers = meta.get("workers")
+    if saved_workers is not None and int(saved_workers) != int(workers):
+        raise ValueError(
+            f"checkpoint was written with {saved_workers} logical workers, "
+            f"this trainer runs {workers}; construct the trainer with "
+            f"logical_workers={saved_workers} (seed packing and per-block "
+            f"PRNG fold-in follow the logical worker count)"
+        )
+    saved_lb = meta.get("local_batch")
+    if saved_lb is not None and int(saved_lb) != int(local_batch):
+        raise ValueError(
+            f"checkpoint was written with local_batch={saved_lb}, this "
+            f"trainer uses {local_batch}; the per-block seed width must "
+            f"match for the packed seed matrix to replay"
+        )
+    saved_mesh = meta.get("mesh")
+    if saved_mesh is not None and dict(saved_mesh) != dict(mesh_shape):
+        if not meta.get("elastic"):
+            raise ValueError(
+                f"checkpoint was written on mesh {dict(saved_mesh)} by a "
+                f"NON-elastic trainer and cannot restore onto "
+                f"{dict(mesh_shape)}: only the logical_workers= step "
+                f"reduction is bit-reproducible across mesh shapes"
+            )
+
 
 class CircuitBreaker:
     """Consecutive-failure circuit breaker (closed -> open -> half-open).

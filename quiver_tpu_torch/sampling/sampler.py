@@ -484,23 +484,7 @@ class GraphSageSampler:
         padded = np.full(cap, -1, dtype=np.int32)
         padded[:batch] = seeds
         self._call += 1
-        call = self._call
-        # each hop draws over (at least) its worst-case rows and takes the
-        # prefix it needs, so a row's draws do not depend on the caps: an
-        # auto sampler's rerun repeats them
-        rows = (cap,) + tuple(map(max, self._worst_caps(cap), self._caps_for(cap)))
-
-        def draw(l, deg):
-            return torch.as_tensor(draw_fn(l, deg), device=self.device)
-
-        def bits(l, shape):
-            draws = hop_draws((rows[l],), self.sizes[l], seeded_generator(
-                self.device, self.seed, call, l), weighted=self.weighted)
-            if self.weighted:
-                return draws[:shape[0]]
-            return tuple(d[:shape[0]] for d in draws)
-
-        seam = {"draw": draw} if draw_fn is not None else {"bits": bits}
+        seam = self._draw_seam(cap, draw_fn, (self.seed, self._call))
         dev_seeds = torch.from_numpy(padded).to(self.device)
         fused = self.kernel == "pallas"
 
@@ -540,6 +524,64 @@ class GraphSageSampler:
                 first_plan = False
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)
+
+    def sample_padded(self, seeds, num_seeds, generator=None, draw_fn=None):
+        """Sample already-padded device seeds with no host read: the
+        sampler call of a fused train step.
+
+        ``seeds`` is a ``(cap,)`` int32 tensor on the sampler's device, -1
+        past ``num_seeds`` (an int or a device scalar). The caps are the
+        ones planned for ``cap``: an auto sampler is neither planned nor
+        regrown here, and overflow comes back as a device tensor, as the
+        JAX package's compiled ``run`` returns it. Each hop is one launch
+        of its fused kernel, as in :meth:`sample`.
+
+        Draws: ``draw_fn(layer, deg)`` as in :meth:`sample`; else layer
+        ``l`` draws from a generator seeded by ``(generator.initial_seed(),
+        l)`` (``generator`` plays a JAX key: it is read, not advanced);
+        with neither, from the sampler's own stream, as :meth:`sample`
+        draws (the call counter advances). The outputs are bitwise
+        :meth:`sample`'s for the same seeds, caps and draws.
+
+        Returns ``(n_id, n_count, adjs deepest first, overflow,
+        edge_counts, frontier_counts)``, all on the device.
+        """
+        self.check_topo_version()
+        seeds = torch.as_tensor(seeds, device=self.device).to(torch.int32)
+        cap = int(seeds.shape[0])
+        if generator is not None:
+            key = (generator.initial_seed(),)
+        else:
+            self._call += 1
+            key = (self.seed, self._call)
+        return multilayer_sample(
+            self.topo, seeds, num_seeds, self.sizes, self._caps_for(cap),
+            with_eid=self.with_eid, weighted=self.weighted,
+            time_window=self.time_window, fused=self.kernel == "pallas",
+            **self._draw_seam(cap, draw_fn, key))
+
+    def _draw_seam(self, cap: int, draw_fn, key: tuple) -> dict:
+        """The hop draws of one call at seed capacity ``cap``, as the
+        ``multilayer_sample`` seam: ``draw_fn``'s draws, or layer ``l``'s
+        raw bits from a generator seeded by ``key + (l,)``. Each hop draws
+        over (at least) its worst-case rows and takes the prefix it needs,
+        so a row's draws do not depend on the caps: an auto sampler's
+        rerun repeats them."""
+        if draw_fn is not None:
+            def draw(l, deg):
+                return torch.as_tensor(draw_fn(l, deg), device=self.device)
+
+            return {"draw": draw}
+        rows = (cap,) + tuple(map(max, self._worst_caps(cap), self._caps_for(cap)))
+
+        def bits(l, shape):
+            draws = hop_draws((rows[l],), self.sizes[l], seeded_generator(
+                self.device, *key, l), weighted=self.weighted)
+            if self.weighted:
+                return draws[:shape[0]]
+            return tuple(d[:shape[0]] for d in draws)
+
+        return {"bits": bits}
 
     # -- reference API shims (one process owns the sampler) -----------------
 

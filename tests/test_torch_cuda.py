@@ -10,8 +10,11 @@ gradient within 1e-4 x its max |g| (cuBLAS and the CPU's GEMMs sum in
 different orders). ``full_neighbor_mean`` on the card against the CPU:
 within 1e-5 relative and 1e-6 absolute (the card's accumulate may group
 and round its float sums differently); HOST against HBM placement:
-bitwise. ``DataParallelTrainer.step`` on the card against the same step
-on the CPU: the training step's tolerances.
+bitwise. ``DataParallelTrainer.step`` and a ``DistributedTrainer`` step on
+the card against the same step on the CPU: the training step's
+tolerances. The fused trainer's guard on the card: bitwise within one
+run (a skipped step changes nothing); no test holds two card runs of a
+float trajectory bitwise (the backward's scatter-adds use float atomics).
 """
 
 import numpy as np
@@ -824,3 +827,119 @@ def test_data_parallel_step_card_matches_cpu(cuda):
     assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
     for g, c in zip(grads_g, grads_c):
         assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+def _fused_setup(cuda, model, optimizer, **kw):
+    """A ``DistributedTrainer`` on the card over ``_host_offload_setup``'s
+    HBM graph and tiered store (caps planned by one sample call)."""
+    from quiver_tpu_torch import DistributedTrainer, make_mesh
+
+    topo, feature, sampler = _host_offload_setup(cuda, "HBM")
+    sampler.sample(np.arange(256))
+    labels = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 10, topo.node_count).astype(np.int32)).to(cuda)
+    trainer = DistributedTrainer(make_mesh(devices=[cuda]), sampler, feature,
+                                 model.to(cuda), optimizer, local_batch=256, **kw)
+    return trainer, labels
+
+
+def test_fused_sample_padded_equals_sample_on_card(cuda):
+    """``sample_padded`` on padded device seeds is bitwise ``sample`` of
+    the same seeds at the same caps and call count, each hop one
+    ``uniform_hop`` launch."""
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop
+
+    _, _, planned = _host_offload_setup(cuda, "HBM")
+    planned.sample(np.arange(256))
+    a, b = (GraphSageSampler(planned.csr_topo, [12, 8], seed_capacity=256, seed=4,
+                             frontier_caps=planned._frontier_caps, device=cuda,
+                             device_topo=planned.topo) for _ in range(2))
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        seeds = rng.integers(0, 20_000, 200)
+        padded = np.full(256, -1, np.int32)
+        padded[:200] = seeds
+        want = a.sample(seeds)
+        before = uniform_hop.launches
+        got = b.sample_padded(torch.from_numpy(padded).to(cuda),
+                              torch.tensor(200, device=cuda))
+        assert uniform_hop.launches == before + 2
+        assert torch.equal(got[0], want.n_id) and torch.equal(got[3], want.overflow)
+        for x, y in zip(got[2], want.adjs):
+            assert torch.equal(x.edge_index, y.edge_index)
+
+
+def test_fused_step_card_matches_cpu(cuda):
+    """One ``DistributedTrainer`` step on the card (SGD lr 0, dropout 0)
+    against the train half of the same step on a CPU trainer, on the
+    card's issued block and the same weights: the loss within 1e-5
+    relative, each gradient within 1e-4 x its max |g|."""
+    import copy
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSAGE, make_mesh
+    from quiver_tpu_torch.parallel.train import init_model
+    from quiver_tpu_torch.parallel.trainer import fold_key
+
+    model = GraphSAGE(32, 64, 10, num_layers=2, dropout=0.0)
+    init_model(model, torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    trainer, labels = _fused_setup(cuda, model, torch.optim.SGD(model.parameters(), lr=0.0))
+    blocks = []
+    issue = trainer.issue_block
+    trainer.issue_block = lambda *a, **kw: blocks.append(issue(*a, **kw)) or blocks[-1]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss_g = float(trainer.step(np.arange(200), labels, 9))
+        grads_g = [p.grad.detach().cpu() for p in model.parameters()]
+        host = DistributedTrainer(make_mesh(devices=["cpu"]), trainer.sampler,
+                                  trainer.feature, cpu_model,
+                                  torch.optim.SGD(cpu_model.parameters(), lr=0.0),
+                                  local_batch=256)
+        b = blocks[0]
+        loss_c, grads_c = host.train_block(b.n_id.cpu(), b.x.cpu(),
+                                           [a.to("cpu") for a in b.adjs],
+                                           b.num_seeds.cpu(), labels.cpu(),
+                                           fold_key(9, 1, 0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.isfinite(loss_g)
+    assert abs(loss_g - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for g, c in zip(grads_g, grads_c):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+
+def test_fused_guard_passes_state_through_on_card(cuda):
+    """The guard drill on the card: Adam, NaN rows planned at step 1; that
+    step leaves the parameters and Adam's whole state bitwise as they were
+    in the same run, and the next step trains."""
+    import copy
+
+    from quiver_tpu_torch import FaultPlan, GraphSAGE
+    from quiver_tpu_torch.parallel.train import init_model
+
+    model = GraphSAGE(32, 64, 10, num_layers=2)
+    init_model(model, torch.Generator().manual_seed(0))
+    trainer, labels = _fused_setup(
+        cuda, model, torch.optim.Adam(model.parameters(), lr=1e-3), nonfinite_guard=True,
+        fault_plan=FaultPlan(nan_feature_steps=(1,)))
+
+    def state():
+        return (copy.deepcopy(model.state_dict()),
+                copy.deepcopy(trainer.optimizer.state_dict()["state"]))
+
+    rng = np.random.default_rng(5)
+    assert np.isfinite(float(trainer.step(rng.integers(0, 20_000, 256), labels, 0)))
+    params, opt = state()
+    assert not np.isfinite(float(trainer.step(rng.integers(0, 20_000, 256), labels, 1)))
+    params_after, opt_after = state()
+    assert int(trainer.metrics.value("resilience.skipped_steps")) == 1
+    for k in params:
+        assert torch.equal(params[k], params_after[k]), k
+    for i in opt:
+        for k in opt[i]:
+            assert torch.equal(opt[i][k], opt_after[i][k]), (i, k)
+    assert np.isfinite(float(trainer.step(rng.integers(0, 20_000, 256), labels, 2)))
+    assert not torch.equal(model.state_dict()["convs.0.lin_l.weight"],
+                           params["convs.0.lin_l.weight"])

@@ -3,8 +3,7 @@ makes the same call on both packages.
 
 - The ``parallel`` and ``utils`` subpackages' lazy export tables: every
   name resolves, and the JAX names the port lacks are exactly the ones
-  not ported yet (``DistributedTrainer``, ROADMAP A.10b) or by design
-  (``honor_forced_platform``, a JAX platform switch).
+  left out by design (``honor_forced_platform``, a JAX platform switch).
 - ``CSRTopo(use_native=...)`` is accepted and inert.
 - ``Timer(sync=...)`` takes a tensor or a nested list, tuple or dict of
   them, as JAX's takes an array or pytree.
@@ -41,8 +40,8 @@ from quiver_tpu_torch.utils import graphgen as graphgen_t  # noqa: E402
 from quiver_tpu_torch.utils import reorder as reorder_t  # noqa: E402
 from quiver_tpu_torch.utils import trace  # noqa: E402
 
-# JAX names the port's subpackages do not export yet, or by design
-NOT_PORTED = {"parallel": {"DistributedTrainer"}, "utils": {"honor_forced_platform"}}
+# JAX names the port's subpackages do not export, by design
+NOT_PORTED = {"parallel": set(), "utils": {"honor_forced_platform"}}
 
 
 @pytest.mark.parametrize("pkg,jax_pkg,torch_pkg", [
