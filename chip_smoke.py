@@ -203,6 +203,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tiered_gather_plain``, bitwise; ``sample_padded`` == ``sample``,
    bitwise; one card step against the CPU's (dropout 0, phase 8's
    tolerances).
+9f. the mesh-sharded feature store (``ShardedFeature``) on logical meshes
+   of this card (every mesh slot ``cuda:0``). Every check names itself on
+   stderr before it runs. (a) Phase 9b's rows (the products-shaped graph,
+   F = 100 f32) on the meshes ``(1, 4)`` and ``(2, 2)``, 2% of them on L0,
+   18% on L1, the rest pinned: for a 3-hop frontier of 1024 seeds, the psum
+   gather and the routed gather (uncapped, the planned cap, a cap of 1 that
+   overflows) bitwise phase 9b's replicated K2 lookup and the numpy rows,
+   the tier hits a numpy count, ``gather_rows`` launches exact (one for L0,
+   one per shard per feature group, one for the cold rows); the psum and
+   routed lookups timed in turns with the replicated one, K2's device ms of
+   each and their bound. (b) ``examples/train_multichip.py``'s
+   configuration (``generate_pareto_graph(100000, 25.0)``, F = 128, 47
+   classes, GraphSAGE 256 x 3, [15, 10, 5] x 256, Adam 1e-3) through
+   ``DistributedTrainer`` on a ``(2, 2)`` mesh over a store of 8,192 L0,
+   32,768 L1 and 59,040 cold rows, ``seed_sharding="data"`` and then
+   ``"all"``: 3 + 10 steps (steps/s, peak memory), exactly 3 ``uniform_hop``
+   per worker and 4 ``gather_rows`` per feature group each step, the idle
+   share and K1's and K2's device ms of 5 profiled steps; one step's ids
+   and rows bitwise the same step's over a replicated ``Feature``; 3 steps
+   of the sharded and twice of the replicated trainer as the main path
+   runs (distances printed) and under deterministic kernels (bitwise, and
+   within the spread rule); then the twin's ``main`` with ``--data-axis 2
+   --feature-axis 2 --steps 30 --seed-sharding all --replicate-budget
+   4M`` (in this process, as phase 9c runs its twins), its tier hits
+   printed. (c) One worker's hops replayed on its draws against
+   ``uniform_hop_plain`` and ``gather_rows`` on the L0 block, each L1 shard
+   and the pinned cold rows against ``gather_rows_plain``, bitwise.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -4280,6 +4307,38 @@ def fused_preempt(sampler, feat, labels_all, train_idx, ref, spread, card):
             "resumed_steps": len(losses), "max_diff_from_uninterrupted": worst}
 
 
+def replay_hops(sampler, caps, seeds, num, key: int, n_id, what: str, step) -> list:
+    """The hops of a trainer block keyed ``key`` (its sample stream,
+    ``seeded_generator(device, key, 0)``), replayed one by one on the
+    block's own draws: each ``uniform_hop`` bitwise ``uniform_hop_plain``,
+    the last frontier bitwise the block's ``n_id``. ``step`` names each
+    check first. Returns K1's check rows."""
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
+    from quiver_tpu_torch.ops.reindex import reindex_layer
+    from quiver_tpu_torch.ops.sample import hop_draws, seeded_generator
+
+    B = seeds.shape[0]
+    gen_seed = seeded_generator("cuda", key, 0).initial_seed()
+    rows = (B,) + tuple(map(max, sampler._worst_caps(B), caps))
+    cur, cnt, k1_rows = seeds, num, []
+    for l, k in enumerate(sampler.sizes):
+        jitter, rot = (d[:cur.shape[0]].contiguous() for d in hop_draws(
+            (rows[l],), k, seeded_generator("cuda", gen_seed, l)))
+        args = (sampler.topo.indptr, sampler.topo.indices, cur, cnt, jitter, rot)
+        kern, plain = uniform_hop(*args), uniform_hop_plain(*args)
+        sync()
+        ok = all(equal(a, b) for a, b in zip(kern, plain))
+        k1_rows.append({"case": f"{what} hop {l}: {cur.shape[0]} rows x {k} "
+                                "(the block's draws) against the plain version",
+                        "match": ok, "max_abs_err": max_err(kern, plain)})
+        step(f"hop {l} bitwise its plain version")
+        check(ok, f"{what} hop {l}: uniform_hop == plain")
+        cur, cnt, _col, _ovf = reindex_layer(cur, cnt, kern[0], caps[l])
+    step("the replayed hops give the block's n_id")
+    check(equal(cur, n_id), f"{what}: the replayed hops give the block's n_id")
+    return k1_rows
+
+
 def fused_kernels(sampler, feat, labels_all, n):
     """(e) The kernels at this path's shapes: one ``issue_block`` (3
     ``uniform_hop`` and 1 ``tiered_gather`` launches), its hops replayed
@@ -4294,10 +4353,7 @@ def fused_kernels(sampler, feat, labels_all, n):
     import torch
 
     from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, make_mesh
-    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, uniform_hop_plain
     from quiver_tpu_torch.ops.kernels.gather import tiered_gather_plain
-    from quiver_tpu_torch.ops.reindex import reindex_layer
-    from quiver_tpu_torch.ops.sample import hop_draws, seeded_generator
     from quiver_tpu_torch.parallel.trainer import fold_key
 
     trainer = fused_trainer(sampler, feat, dropout=0.0, optimizer="sgd0")
@@ -4313,25 +4369,8 @@ def fused_kernels(sampler, feat, labels_all, n):
     step9e("(e) one issue_block: 3 uniform_hop and 1 tiered_gather launches")
     expect_launches(read_launches(), {"uniform_hop": 3, "tiered_gather": 1},
                     "fused issue_block")
-    gen_seed = seeded_generator("cuda", key, 0).initial_seed()
-    rows = (B,) + tuple(map(max, sampler._worst_caps(B), caps))
-    cur, cnt, k1_rows = seeds, num, []
-    for l, k in enumerate(sampler.sizes):
-        jitter, rot = (d[:cur.shape[0]].contiguous() for d in hop_draws(
-            (rows[l],), k, seeded_generator("cuda", gen_seed, l)))
-        kern = uniform_hop(sampler.topo.indptr, sampler.topo.indices, cur, cnt, jitter, rot)
-        plain = uniform_hop_plain(sampler.topo.indptr, sampler.topo.indices, cur, cnt,
-                                  jitter, rot)
-        sync()
-        ok = all(equal(a, b) for a, b in zip(kern, plain))
-        k1_rows.append({"case": f"fused trainer hop {l}: {cur.shape[0]} rows x {k} "
-                                "(issue_block's draws) against the plain version",
-                        "match": ok, "max_abs_err": max_err(kern, plain)})
-        step9e(f"(e) hop {l} bitwise its plain version")
-        check(ok, f"fused trainer hop {l}: uniform_hop == plain")
-        cur, cnt, _col, _ovf = reindex_layer(cur, cnt, kern[0], caps[l])
-    step9e("(e) the replayed hops give issue_block's n_id")
-    check(equal(cur, block.n_id), "fused trainer: the replayed hops give issue_block's n_id")
+    k1_rows = replay_hops(sampler, caps, seeds, num, key, block.n_id, "fused trainer",
+                          lambda what: step9e(f"(e) {what}"))
     want_x = tiered_gather_plain(block.n_id.to(torch.int32).contiguous(), feat.feature_order,
                                  feat.hot_rows, feat.hot, feat.cold)
     ok = equal(block.x, want_x)
@@ -4421,6 +4460,453 @@ def fused_phase(topo, feat, labels_all, card):
         "kernels": kernels, "card": card, "seconds": time.time() - t0}
     log(f"fused trainer phase {result['seconds']:.1f}s [{card}]")
     return steps["launches"], k1_rows, k2_rows, result
+
+
+# -- phase 9f: the mesh-sharded feature store under DistributedTrainer ----------
+
+SHARD_MESHES = ((1, 4), (2, 2))  # (data, feature) logical meshes of cuda:0
+SHARD_L0, SHARD_L1 = 0.02, 0.18  # of phase 9b's rows on L0 and on L1; the rest cold
+SHARD_TIMED = (5, 3)  # lookups per turn, turns per figure (in_turns)
+# examples/train_multichip.py's defaults (:47-56)
+MULTI_NODES, MULTI_DEG, MULTI_F, MULTI_CLASSES = 100_000, 25.0, 128, 47
+MULTI_HIDDEN, MULTI_FANOUT, MULTI_BATCH = 256, [15, 10, 5], 256
+# per device: 16,384 L1 rows of 512 B (32,768 over the 2 shards), 8,192 L0
+# rows; the other 59,040 rows cold
+MULTI_L1, MULTI_L0 = "8M", "4M"
+MULTI_WARMUP, MULTI_STEPS, MULTI_DET_STEPS = 3, 10, 3
+
+
+def step9f(what: str) -> None:
+    """Name a phase 9f check on stderr before it runs."""
+    log(f"phase 9f check: {what}")
+
+
+def logical_mesh(data: int, feature: int):
+    """A ``(data, feature)`` mesh whose every slot is ``cuda:0``."""
+    from quiver_tpu_torch import make_mesh
+
+    return make_mesh(data=data, feature=feature, devices=["cuda:0"] * (data * feature))
+
+
+def k2_device_ms(lookups, calls: int = 5, tries: int = 3) -> dict:
+    """K2's device time per call (its ``gather_kernel`` launches, summed)
+    of each ``(name, fn, launches per call)`` of ``lookups``: ``calls``
+    calls of each in one ``torch.profiler`` session, the kernels split by
+    their order and each lookup's exact launch count. A session whose
+    kernel count is not the launches made is taken again (the profiler
+    may drop device rows), at most ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    want = sum(k for _name, _fn, k in lookups) * calls
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _name, fn, _k in lookups:
+                for _ in range(calls):
+                    fn()
+            sync()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "gather_kernel" in e.name)
+        if len(spans) == want:
+            break
+        log(f"K2 profile {attempt + 1}: {len(spans)} gather_kernel rows of {want} "
+            "launches; profiling again")
+    check(len(spans) == want, f"the profiler saw {len(spans)} of {want} K2 launches")
+    out, at = {}, 0
+    for name, _fn, k in lookups:
+        part = spans[at:at + k * calls]
+        out[name] = sum(b - a for a, b in part) / 1e3 / calls
+        at += k * calls
+    return out
+
+
+def sharded_store_phase(topo, feat_rep, pcie, card):
+    """(a) Phase 9b's rows (the products-shaped graph, F = 100 f32 from
+    ``default_rng(0)``) in a ``ShardedFeature`` on the logical meshes
+    ``SHARD_MESHES``: 2% of the rows on L0, 18% on L1, the rest pinned. For
+    the 3-hop frontier of 1024 seeds: the psum gather, the routed gather
+    (uncapped, the planned cap, a cap of 1 that overflows) and phase 9b's
+    replicated store's K2 lookup, bitwise each other and the numpy rows;
+    the tier hits a numpy count; K2's launches per lookup exact; the psum,
+    routed and replicated lookups timed in turns, K2's device ms of each
+    and their common bound (GATHER_BOUND_RULE). Returns ``(K2 check rows,
+    result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import GraphSageSampler, ShardedFeature
+
+    t0 = time.time()
+    n = topo.node_count
+    x = np.random.default_rng(0).normal(size=(n, EPOCH_F)).astype(np.float32)
+    row_b = EPOCH_F * 4
+    sampler = GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", seed_capacity=EPOCH_BATCH,
+                               seed=0, frontier_caps="auto")
+    seeds = np.random.default_rng(7).integers(0, n, EPOCH_BATCH)
+    sampler.sample(seeds)  # plans the caps, as phase 9e's sampler is planned
+    ids = sampler.sample(seeds).n_id
+    ids_np = ids.cpu().numpy()
+    want = x[np.where(ids_np >= 0, ids_np, 0)]
+    want[ids_np < 0] = 0
+    want = torch.from_numpy(want).to("cuda")
+    ref = feat_rep[ids]
+    step9f("(a) phase 9b's replicated lookup gives the numpy rows")
+    check(equal(ref, want), "phase 9b's store's lookup == the numpy rows")
+    rows, result = [], {"ids": int(ids.numel()), "valid_ids": int((ids_np >= 0).sum()),
+                        "meshes": {}}
+    for data, fsize in SHARD_MESHES:
+        t1 = time.time()
+        store = ShardedFeature(
+            logical_mesh(data, fsize), device_cache_size=int(SHARD_L1 * n) // fsize * row_b,
+            csr_topo=topo, replicate_budget=int(SHARD_L0 * n) * row_b).from_cpu_tensor(x)
+        setup_s = time.time() - t1
+        label = f"({data}, {fsize})"
+        step9f(f"(a) {label}: the split and the pinned cold tier")
+        check(store.rep_rows == int(SHARD_L0 * n) and store.cold is not None
+              and store.cold.is_pinned(), f"sharded store {label}: split and cold tier")
+        order = store.feature_order[ids.clamp(min=0).long()].long()
+        valid = ids >= 0
+        end = store.rep_rows + store.hot_rows
+        want_hits = [int((valid & (order < store.rep_rows)).sum()),
+                     int((valid & (order >= store.rep_rows) & (order < end)).sum()),
+                     int((valid & (order >= end)).sum())]
+        local = -(-ids.numel() // (data * fsize))
+        cap = store.hot.routed_cap(local)
+        lookups = {"psum": dict(routed=False), "routed, uncapped": dict(routed=True,
+                   routed_cap=None), f"routed, planned cap {cap}": dict(routed=True,
+                   routed_cap=cap), "routed, cap 1": dict(routed=True, routed_cap=1)}
+        got = {}
+        for name, kw in lookups.items():
+            reset_launches()
+            out = store.gather(ids, **kw)
+            sync()
+            shards = fsize if not kw["routed"] else data * fsize
+            step9f(f"(a) {label} {name}: {shards + 2} gather_rows launches, bitwise the "
+                   "replicated lookup and the numpy rows, exact tier hits")
+            expect_launches(read_launches(), {"gather_rows": shards + 2},
+                            f"sharded store {label} {name}")
+            check(equal(out, ref), f"sharded store {label} {name} == replicated lookup")
+            check(store.last_tier_hits.tolist() == want_hits,
+                  f"sharded store {label} {name}: hits {store.last_tier_hits.tolist()} "
+                  f"against {want_hits}")
+            got[name] = {"overflow": (int(store.last_routed_overflow) if kw["routed"]
+                                      else 0), "launches": shards + 2}
+            rows.append({"store": f"sharded store {label}, {name}: {int(ids.numel())} ids",
+                         "match": True, "max_abs_err": float((out - want).abs().max())})
+            del out
+        step9f(f"(a) {label}: a cap of 1 overflows, the uncapped gather does not")
+        check(got["routed, cap 1"]["overflow"] > 0 and got["routed, uncapped"]["overflow"] == 0,
+              f"sharded store {label}: overflow {got}")
+        # the three lookups in turns, K2's device time of each, one bound
+        psum = lambda: store.gather(ids)  # noqa: E731
+        routed = lambda: store.gather(ids, routed=True, routed_cap=cap)  # noqa: E731
+        replicated = lambda: feat_rep[ids]  # noqa: E731
+        t_psum = in_turns(psum, replicated, *SHARD_TIMED)
+        t_routed = in_turns(routed, replicated, *SHARD_TIMED)
+        nv, nc = want_hits[0] + want_hits[1] + want_hits[2], want_hits[2]
+        B = int(ids.numel())
+        dev_bytes = B * 4 + nv * 4 + (nv - nc) * row_b + B * row_b
+        bound_s = max(dev_bytes / HBM_BYTES_PER_S, nc * row_b / pcie)
+        t = {"psum_ms": t_psum["ms"], "psum_turns": t_psum["ms_turns"],
+             "routed_ms": t_routed["ms"], "routed_turns": t_routed["ms_turns"],
+             "replicated_ms": (t_psum["yard_ms"] + t_routed["yard_ms"]) / 2,
+             "replicated_turns": t_psum["yard_turns"] + t_routed["yard_turns"],
+             "k2_device_ms": k2_device_ms([
+                 ("psum", psum, got["psum"]["launches"]),
+                 ("routed", routed, got[f"routed, planned cap {cap}"]["launches"]),
+                 ("replicated", replicated, 1)]),
+             "bound_ms": bound_s * 1e3, "device_bytes": dev_bytes, "cold_bytes": nc * row_b}
+        result["meshes"][label] = {"rep_rows": store.rep_rows, "hot_rows": store.hot_rows,
+                                   "cold_rows": n - end, "tier_hits": want_hits,
+                                   "planned_cap": cap, "lookups": got, "timing": t,
+                                   "setup_s": setup_s}
+        log(f"sharded store {label}: {store.rep_rows} L0 / {store.hot_rows} L1 / "
+            f"{n - end} cold rows, hits {want_hits}; psum {t['psum_ms']:.4f} ms, routed "
+            f"{t['routed_ms']:.4f} ms, replicated {t['replicated_ms']:.4f} ms; K2 device "
+            f"{t['k2_device_ms']}; bound {t['bound_ms']:.4f} ms [{card}]")
+        store.delete()
+        del store
+    result["seconds"] = time.time() - t0
+    return rows, result
+
+
+def multichip_setup():
+    """``examples/train_multichip.py``'s graph, rows and labels (its
+    generators: ``generate_pareto_graph(100000, 25.0, seed=0)``, then
+    ``default_rng(0)`` for the F = 128 rows and the 47 labels)."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(0)
+    topo = CSRTopo(edge_index=generate_pareto_graph(MULTI_NODES, MULTI_DEG, seed=0))
+    n = topo.node_count
+    x = rng.normal(size=(n, MULTI_F)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, MULTI_CLASSES, n).astype(np.int32)).to("cuda")
+    return topo, x, labels
+
+
+def multichip_trainer(topo, store, seed_sharding):
+    """``DistributedTrainer`` on the ``(2, 2)`` logical mesh at the twin's
+    width: GraphSAGE 256 x 3, Adam 1e-3, local batch 256, the default
+    (worst-case) caps, ``replicate_budget=MULTI_L0``; ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE
+
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, device="cuda")
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES, num_layers=len(MULTI_FANOUT))
+    trainer = DistributedTrainer(logical_mesh(2, 2), sampler, store, model.to("cuda"),
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding=seed_sharding,
+                                 replicate_budget=MULTI_L0)
+    trainer.init(0)
+    return trainer
+
+
+def multichip_losses(trainer, labels, steps: int, issued=None):
+    """``steps`` steps on ``default_rng(5)``'s seeds, keyed 100 + i: the
+    device losses (and, with ``issued``, each step's issued blocks)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    if issued is not None:
+        issue = trainer._issue
+        trainer._issue = lambda *a: issued.append(issue(*a)) or issued[-1]
+    n = trainer.sampler.csr_topo.node_count
+    return [trainer.step(rng.integers(0, n, trainer.global_batch), labels, 100 + i)
+            for i in range(steps)]
+
+
+def multichip_mode(topo, store, replicated, labels, seed_sharding, card):
+    """(b) One ``seed_sharding``: ``MULTI_WARMUP`` steps, then
+    ``MULTI_STEPS`` timed (each synchronised), exact K1 and K2 launches,
+    peak memory, K1's and K2's device ms and the idle share of
+    ``PROFILED_STEPS`` profiled steps; one step's ids and gathered rows
+    bitwise the replicated store's; ``MULTI_DET_STEPS`` steps under
+    deterministic kernels bitwise the replicated store's (and within the
+    spread rule of two replicated runs), the main path's distances
+    printed. Returns ``(launches of the timed steps, result)``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    trainer = multichip_trainer(topo, store, seed_sharding)
+    workers, groups = trainer.workers, trainer.data_size
+    rng = np.random.default_rng(1)
+    n = topo.node_count
+    for i in range(MULTI_WARMUP):
+        trainer.step(rng.integers(0, n, trainer.global_batch), labels, i)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for i in range(MULTI_STEPS):
+        seeds = rng.integers(0, n, trainer.global_batch)
+        t0 = time.perf_counter()
+        losses.append(trainer.step(seeds, labels, 10 + i))
+        sync()
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    k1, k2 = 3 * workers, 4 * groups  # hops per worker; L0, 2 shards, cold per group
+    step9f(f"(b) {seed_sharding}: exactly {k1} uniform_hop and {k2} gather_rows launches "
+           "per step")
+    expect_launches(launches, {"uniform_hop": k1 * MULTI_STEPS,
+                               "gather_rows": k2 * MULTI_STEPS},
+                    f"sharded trainer ({seed_sharding}) steps")
+    losses = [float(v) for v in losses]
+    step9f(f"(b) {seed_sharding}: finite step losses")
+    check(all(math.isfinite(v) for v in losses), f"sharded trainer ({seed_sharding}) losses")
+    step_ms = trimmed_mean(times) * 1e3
+    r = {"workers": workers, "global_batch": trainer.global_batch, "caps": list(trainer.caps),
+         "warmup": MULTI_WARMUP, "steps": MULTI_STEPS, "step_ms_trimmed_mean": step_ms,
+         "steps_per_s": 1e3 / step_ms, "launches": launches,
+         "launches_per_step": {"uniform_hop": k1, "gather_rows": k2},
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "loss_first_last": [losses[0], losses[-1]],
+         "tier_hits_last_step": trainer.last_tier_hits.tolist(),
+         "routed_overflow_last_step": int(trainer.last_routed_overflow)}
+    step9f(f"(b) {seed_sharding}: the profiler sees the card")
+    prof = profiled_idle(lambda: [trainer.step(rng.integers(0, n, trainer.global_batch),
+                                               labels, 1000 + k)
+                                  for k in range(PROFILED_STEPS)],
+                         PROFILED_STEPS, step_ms, FUSED_KERNELS)
+    ours = prof.pop("port_kernels_ms_per_step")
+    prof["profiled_steps"] = prof.pop("steps")
+    del prof["step_ms"]
+    r.update(prof, k1_device_ms_per_step=ours["uniform_hop_kernel"],
+             k2_device_ms_per_step=ours["gather_kernel"])
+    del trainer
+    # the same step on the replicated store: ids and rows bitwise
+    issued = {}
+    for name, feat in (("sharded", store), ("replicated", replicated)):
+        issued[name] = []
+        multichip_losses(multichip_trainer(topo, feat, seed_sharding), labels, 1,
+                         issued[name])
+    step9f(f"(b) {seed_sharding}: one step's ids and rows bitwise the replicated store's")
+    pairs = [(a, b) for a, b in zip(issued["sharded"][0].blocks,
+                                     issued["replicated"][0].blocks)]
+    check(len(pairs) == workers and all(equal(a.n_id, b.n_id) and equal(a.x, b.x)
+                                        for a, b in pairs),
+          f"sharded trainer ({seed_sharding}): ids and rows == the replicated store's")
+    rows = sum(int((a.n_id >= 0).sum()) for a, _ in pairs)
+    del issued, pairs
+    # the losses: main path (readings), then deterministic (checked)
+    runs = {}
+    for mode in ("main path", "deterministic"):
+        ctx = deterministic_algorithms() if mode == "deterministic" else contextlib.nullcontext()
+        with ctx:
+            runs[mode] = {name: [float(v) for v in multichip_losses(
+                multichip_trainer(topo, feat, seed_sharding), labels, MULTI_DET_STEPS)]
+                for name, feat in (("sharded", store), ("replicated", replicated),
+                                   ("replicated_again", replicated))}
+    det = runs["deterministic"]
+    spread = max(abs(a - b) for a, b in zip(det["replicated"], det["replicated_again"]))
+    ok, worst = within_spread(det["sharded"], det["replicated"], spread)
+    step9f(f"(b) {seed_sharding}: deterministic losses bitwise the replicated store's and "
+           "within the spread rule")
+    check(ok and det["sharded"] == det["replicated"],
+          f"sharded trainer ({seed_sharding}): deterministic losses {det}")
+    main = runs["main path"]
+    r["losses"] = {"main_path": main, "deterministic": det,
+                   "main_path_max_diff": max(abs(a - b) for a, b in zip(main["sharded"],
+                                                                       main["replicated"])),
+                   "main_path_replicated_spread": max(
+                       abs(a - b) for a, b in zip(main["replicated"],
+                                                  main["replicated_again"])),
+                   "rule": "every step |sharded - replicated| <= 4 x max |replicated - "
+                           "replicated again| + 1e-6 x |loss|, and bitwise, checked under "
+                           "torch.use_deterministic_algorithms"}
+    r["checked_rows_per_step"] = rows
+    log(f"sharded trainer ({seed_sharding}): {r['steps_per_s']:.4g} steps/s "
+        f"({step_ms:.3f} ms), idle share {r['idle_share']:.4f}, K1 "
+        f"{r['k1_device_ms_per_step']:.4f} ms, K2 {r['k2_device_ms_per_step']:.4f} ms per "
+        f"step, peak {r['peak_bytes'] / 2**30:.3f} GiB, hits {r['tier_hits_last_step']}, "
+        f"main-path loss distance {r['losses']['main_path_max_diff']:.3g} [{card}]")
+    return launches, r
+
+
+def multichip_kernels(topo, store):
+    """(c) The kernels at this path's shapes, bitwise their plain versions:
+    the hops of one worker's ``sample_block`` replayed on its draws
+    (``uniform_hop``), and ``gather_rows`` on the L0 block, on each L1
+    shard and on the pinned cold rows with the ids a psum lookup of that
+    frontier sends each. Returns ``(K1 rows, K2 rows)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+
+    trainer = multichip_trainer(topo, store, "data")
+    sampler, caps, B = trainer.sampler, trainer.caps, MULTI_BATCH
+    padded = np.full(B, -1, np.int32)
+    padded[:B - 16] = np.random.default_rng(6).integers(0, topo.node_count, B - 16)
+    seeds = torch.from_numpy(padded).to("cuda")
+    num = torch.tensor(B - 16, device="cuda")
+    key = 77
+    reset_launches()
+    n_id, _adjs = trainer.sample_block(seeds, num, key)
+    sync()
+    step9f("(c) one sample_block: 3 uniform_hop launches")
+    expect_launches(read_launches(), {"uniform_hop": 3}, "sharded trainer sample_block")
+    k1_rows = replay_hops(sampler, caps, seeds, num, key, n_id, "sharded trainer",
+                          lambda what: step9f(f"(c) {what}"))
+    t = store.feature_order[n_id.clamp(min=0).long()].long()
+    valid = n_id >= 0
+    end = store.rep_rows + store.hot_rows
+    rps = store.hot.rows_per_shard
+    cases = [("L0 block", store.rep, torch.where(valid & (t < store.rep_rows), t, -1)),
+             ("cold rows (pinned, UVA)", store.cold,
+              torch.where(valid & (t >= end), t - end, -1))]
+    l1 = torch.where(valid & (t >= store.rep_rows) & (t < end), t - store.rep_rows, -1)
+    for d, shard in enumerate(store.hot.shards):
+        mine = (l1 >= 0) & (l1 // rps == d)
+        cases.append((f"L1 shard {d}", shard, torch.where(mine, l1 - d * rps, -1)))
+    k2_rows = []
+    for name, table, ids in cases:
+        ids = ids.to(torch.int32).contiguous()
+        kern, plain = gather_rows(table, ids), gather_rows_plain(table, ids)
+        ok = equal(kern, plain)
+        step9f(f"(c) gather_rows on the {name} bitwise its plain version")
+        check(ok, f"sharded trainer gather_rows on the {name} == plain")
+        k2_rows.append({"store": f"sharded trainer, gather_rows on the {name}: "
+                                 f"{int((ids >= 0).sum())} of {ids.numel()} lanes",
+                        "match": ok, "max_abs_err": float((kern - plain).abs().max())})
+    return k1_rows, k2_rows
+
+
+def multichip_phase(card):
+    """(b) and (c) over ``examples/train_multichip.py``'s configuration,
+    then the twin itself on the card (in this process, as phase 9c runs
+    its twins). Returns ``(launches by mode, K1 rows, K2 rows, result)``."""
+    import io
+
+    import torch
+
+    from examples.train_multichip_torch import main as multichip_main
+
+    from quiver_tpu_torch import Feature, ShardedFeature
+
+    t0 = time.time()
+    topo, x, labels = multichip_setup()
+    store = ShardedFeature(logical_mesh(2, 2), device_cache_size=MULTI_L1, csr_topo=topo,
+                           replicate_budget=MULTI_L0).from_cpu_tensor(x)
+    replicated = Feature(device_cache_size=int(0.2 * topo.node_count) * MULTI_F * 4,
+                         csr_topo=topo, device="cuda").from_cpu_tensor(x)
+    del x
+    n = topo.node_count
+    step9f("(b) the store has an L0 block, two L1 shards and a pinned cold tier")
+    check(store.rep_rows == 8192 and store.hot_rows == 32768 and store.cold.is_pinned(),
+          f"multichip store split {store.rep_rows} / {store.hot_rows}")
+    log(f"multichip set-up {time.time() - t0:.1f}s: {topo}, store {store.rep_rows} L0 / "
+        f"{store.hot_rows} L1 / {n - store.rep_rows - store.hot_rows} cold rows")
+    launches, modes = {}, {}
+    for seed_sharding in ("data", "all"):
+        launches[seed_sharding], modes[seed_sharding] = multichip_mode(
+            topo, store, replicated, labels, seed_sharding, card)
+        torch.cuda.empty_cache()
+    k1_rows, k2_rows = multichip_kernels(topo, store)
+    del store, replicated
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    args = ["--data-axis", "2", "--feature-axis", "2", "--steps", "30",
+            "--seed-sharding", "all", "--replicate-budget", "4M"]
+    text = io.StringIO()
+    step9f("(b) the twin runs to its end and prints its tier hits")
+    with contextlib.redirect_stdout(text):
+        multichip_main(args)
+    for line in text.getvalue().splitlines():
+        log(f"train_multichip_torch: {line}")
+    check("feature tier hits (last step): L0 replicated" in text.getvalue(),
+          "the multichip twin prints its tier hits")
+    twin = {"args": " ".join(args), "seconds": time.time() - t1,
+            "stdout_tail": text.getvalue().splitlines()[-4:]}
+    return launches, k1_rows, k2_rows, {
+        "config": "examples/train_multichip.py defaults: generate_pareto_graph(100000, "
+                  "25.0, seed=0), F=128 f32, 47 classes, GraphSAGE 256 x 3, fanouts "
+                  "[15, 10, 5], local batch 256, Adam 1e-3, the default caps; a (2, 2) "
+                  f"logical mesh of cuda:0; ShardedFeature device_cache_size={MULTI_L1}, "
+                  f"replicate_budget={MULTI_L0} (8,192 L0 / 32,768 L1 / 59,040 cold rows); "
+                  "the replicated yardstick Feature holds 20% of the rows",
+        "modes": modes, "twin": twin, "card": card, "seconds": time.time() - t0}
+
+
+def sharded_phase(topo, feat_rep, pcie, card):
+    """Phase 9f (see the module docstring). Returns ``(launches of (b)'s
+    timed steps by mode, K1 rows, K2 rows, result)``."""
+    import torch
+
+    t0 = time.time()
+    k2_a, store = sharded_store_phase(topo, feat_rep, pcie, card)
+    torch.cuda.empty_cache()
+    launches, k1_rows, k2_b, multichip = multichip_phase(card)
+    result = {"store": store, "trainer": multichip, "seconds": time.time() - t0}
+    log(f"sharded phase {result['seconds']:.1f}s [{card}]")
+    return launches, k1_rows, k2_a + k2_b, result
 
 
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
@@ -4678,9 +5164,14 @@ def main() -> int:
     # versions and its step against the CPU's
     launches_f, k1_rows_f, k2_rows_f, fused = fused_phase(topo, epoch_feat, epoch_labels,
                                                           card)
-    del epoch_feat, epoch_labels
     torch.cuda.empty_cache()
     lap("phase 9e (fused trainer)")
+    # phase 9f: the mesh-sharded store on logical meshes of this card, then
+    # DistributedTrainer over it at train_multichip's width, and the twin
+    launches_s, k1_rows_s, k2_rows_s, sharded = sharded_phase(topo, epoch_feat, pcie, card)
+    del epoch_feat, epoch_labels
+    torch.cuda.empty_cache()
+    lap("phase 9f (sharded store)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -4714,7 +5205,7 @@ def main() -> int:
                    card, name),
         kernel_row("uniform_hop", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    launches_u["uniform_hop"], "uniform serving",
-                   hop + rows_h["uniform_hop"] + k1_rows_o + k1_rows_f, t_hop,
+                   hop + rows_h["uniform_hop"] + k1_rows_o + k1_rows_f + k1_rows_s, t_hop,
                    {"composed_ms": t_hop["composed_ms"],
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
@@ -4732,6 +5223,8 @@ def main() -> int:
                     "rgcn_launches": launches_h["rgcn"]["uniform_hop"],
                     "saint_rw_launches": launches_h["saint"]["uniform_hop"],
                     "fused_trainer_launches": launches_f["uniform_hop"],
+                    "sharded_trainer_launches": {
+                        mode: v["uniform_hop"] for mode, v in launches_s.items()},
                     "beyond_hbm": {
                         "launches": {k: v["uniform_hop"] for k, v in launches_o.items()},
                         "uva_hops": [{key: t[key] for key in (
@@ -4742,8 +5235,12 @@ def main() -> int:
         kernel_row("gather_rows", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_h["saint"]["gather_rows"],
                    "GraphSAINT samplers (each draw's (budget, deg_cap) window; the "
-                   "edge sampler's endpoints)", gat + win_checks, t_win,
+                   "edge sampler's endpoints)", gat + win_checks + k2_rows_s, t_win,
                    {"shape": [t_win["ids"], t_win["row_bytes"]],
+                    "sharded_trainer_launches": {
+                        mode: v["gather_rows"] for mode, v in launches_s.items()},
+                    "sharded_lookup": {mesh: r["timing"] for mesh, r in
+                                       sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
                     "bound_rule": WINDOW_BOUND_RULE,
                     "serving_shape": {key: t_gat[key] for key in (
@@ -4817,7 +5314,9 @@ def main() -> int:
     check(len(kernels) == len(ENTRIES)
           and all(k["launches"] > 0 and k["match"] for k in kernels)
           and launches_q["tiered_gather_dequant"] > 0
-          and launches_qb["tiered_gather_dequant"] > 0,
+          and launches_qb["tiered_gather_dequant"] > 0
+          and all(v["uniform_hop"] > 0 and v["gather_rows"] > 0
+                  for v in launches_s.values()),
           "every kernel launched on its main path and every entry matched")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -4831,6 +5330,7 @@ def main() -> int:
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
                        "beyond_hbm": offload, "fused_trainer": fused,
+                       "sharded": sharded,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -4858,6 +5358,7 @@ def main() -> int:
              for d, r in val.items()} if k in ("loop", "dp") else val)
         for k, val in offload.items()}}), flush=True)
     print(json.dumps({"fused_trainer": fused}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -1,0 +1,138 @@
+"""Mesh training with quiver_tpu_torch (PyTorch/CUDA): a sharded feature store.
+
+The torch twin of ``examples/train_multichip.py``, with the same flags,
+defaults and progress lines, plus ``--device``. It trains GraphSAGE with
+``DistributedTrainer`` over a ``(data, feature)`` mesh: per-worker seed
+blocks on the data axis, the feature table in a ``ShardedFeature`` whose
+rows are sharded over the feature axis (the reference's
+``p2p_clique_replicate`` cache), with an optional L0 block of the
+top-degree rows on every device (``--replicate-budget``), and the
+gradients averaged over the workers.
+
+The mesh is ``--data-axis x --feature-axis`` repeats of one device, a
+logical mesh: each slot is a worker and each feature-axis member holds its
+own shard, and the routed lookup (``--seed-sharding all``) really moves
+requests and rows between the shards, on one card. This is the counterpart
+of the JAX example's ``--xla_force_host_platform_device_count`` meshes of
+virtual devices. ``--data-axis`` defaults to 1 (the JAX example's device
+count over ``--feature-axis``, on one device). It runs on the CUDA card
+unless ``--device`` names another (``--device cpu`` runs the kernels' plain
+versions); with no card and no ``--device`` it raises.
+
+    python -m examples.train_multichip_torch --data-axis 2 --feature-axis 2 \\
+        --seed-sharding all --replicate-budget 4M
+    python -m examples.train_multichip_torch --device cpu --nodes 3000 \\
+        --feature-dim 16 --hidden 32 --fanout 5 5 --local-batch 32 \\
+        --data-axis 2 --feature-axis 2
+"""
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from quiver_tpu_torch import CSRTopo, GraphSageSampler, ShardedFeature, make_mesh
+from quiver_tpu_torch.core.memory import resolve_device
+from quiver_tpu_torch.models.sage import GraphSAGE
+from quiver_tpu_torch.parallel.trainer import DistributedTrainer
+from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--nodes", type=int, default=100_000)
+    p.add_argument("--avg-degree", type=float, default=25.0)
+    p.add_argument("--feature-dim", type=int, default=128)
+    p.add_argument("--classes", type=int, default=47)
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--fanout", type=int, nargs="+", default=[15, 10, 5])
+    p.add_argument("--local-batch", type=int, default=256)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--data-axis", type=int, default=None)
+    p.add_argument("--feature-axis", type=int, default=1)
+    p.add_argument("--seed-sharding", default="data", choices=["data", "all"],
+                   help="'all': every mesh slot a data worker; the sharded "
+                   "lookup routes each worker's ids to their owning shards "
+                   "(recommended when feature-axis > 1: no redundant sampling)")
+    p.add_argument("--routed-alpha", type=float, default=2.0,
+                   help="bucket factor of the routed lookup (seed-sharding=all): "
+                   "each exchange moves ~alpha*L lanes instead of F*L; overflow "
+                   "is served exactly and reported. 0 = uncapped")
+    p.add_argument("--replicate-budget", default="0", metavar="BYTES",
+                   help="per-device byte budget ('4M', '0.5G') of the L0 tier: "
+                   "the top-degree rows on every device, read with no routing; "
+                   "per-tier hit counts are reported after training. 0 = "
+                   "two-tier store")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (the kernels' plain versions)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Train; returns the trainer."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    data = args.data_axis or 1
+    slots = data * args.feature_axis
+    mesh = make_mesh(data=data, feature=args.feature_axis, devices=[device] * slots)
+    print(f"mesh over {slots} devices: {dict(mesh.shape)} ({slots} x {device})")
+
+    rng = np.random.default_rng(args.seed)
+    topo = CSRTopo(edge_index=generate_pareto_graph(args.nodes, args.avg_degree,
+                                                    seed=args.seed))
+    n = topo.node_count
+    feat = rng.normal(size=(n, args.feature_dim)).astype(np.float32)
+    # as the JAX example: every row on the devices, sharded over the feature
+    # axis behind the L0 block
+    feature = ShardedFeature(
+        mesh, device_cache_size=n * args.feature_dim * 4, csr_topo=topo,
+        replicate_budget=args.replicate_budget,
+    ).from_cpu_tensor(feat)
+    del feat
+    labels = torch.from_numpy(rng.integers(0, args.classes, n).astype(np.int32)).to(device)
+
+    sampler = GraphSageSampler(topo, args.fanout, seed=args.seed, device=device)
+    model = GraphSAGE(args.feature_dim, args.hidden, args.classes,
+                      num_layers=len(args.fanout)).to(device)
+    trainer = DistributedTrainer(mesh, sampler, feature, model,
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=args.local_batch,
+                                 seed_sharding=args.seed_sharding,
+                                 routed_alpha=args.routed_alpha or None)
+    trainer.init(args.seed)
+
+    global_batch = trainer.global_batch
+    t0 = time.time()
+    for i in range(args.steps):
+        seeds = rng.integers(0, n, global_batch)
+        loss = trainer.step(seeds, labels, 1000 + i)
+        if i == 0:
+            float(loss)  # waits for the first step
+            print(f"step 0 (first step): {time.time() - t0:.1f}s")
+            t0 = time.time()
+        elif i % 10 == 0:
+            print(f"step {i}: loss {float(loss):.4f}")
+    float(loss)
+    per_step = (time.time() - t0) / max(args.steps - 1, 1)
+    print(
+        f"done: {args.steps} steps, global batch {global_batch} "
+        f"({per_step * 1e3:.1f} ms/step, {global_batch / per_step:,.0f} seeds/s)"
+    )
+    if args.seed_sharding == "all" and trainer.last_routed_overflow is not None:
+        print(f"routed overflow (last step): "
+              f"{int(trainer.last_routed_overflow)} lanes fallback-served "
+              f"(grow --routed-alpha if persistent)")
+    if trainer.last_tier_hits is not None:
+        h = trainer.last_tier_hits.tolist()
+        tot = max(sum(h), 1)
+        print(f"feature tier hits (last step): L0 replicated {h[0]} "
+              f"({100 * h[0] / tot:.1f}%, zero-comm), sharded {h[1]} "
+              f"({100 * h[1] / tot:.1f}%), cold {h[2]} "
+              f"({100 * h[2] / tot:.1f}%)")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,7 @@ from .core.hetero import HeteroCSRTopo, RelCSR
 from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from .datasets import GraphDataset, load_dataset, planted_partition
 from .feature.feature import Feature, HeteroFeature
+from .feature.shard import ShardedFeature, ShardedTensor
 from .models.gat import GAT
 from .models.gcn import GCN
 from .models.gin import GIN
@@ -113,6 +114,8 @@ __all__ = [
     "ServeQueueFull",
     "ServeRequest",
     "ServingFleet",
+    "ShardedFeature",
+    "ShardedTensor",
     "SplitTuner",
     "StepTimeline",
     "TelemetryEndpoint",

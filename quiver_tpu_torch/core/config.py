@@ -90,21 +90,29 @@ class CachePolicy(enum.Enum):
     """Hot-tier placement policy of the feature cache.
 
     ``DEVICE_REPLICATE`` keeps the hot rows in the device's memory
-    (reference ``device_replicate``). Sharding the hot tier across cards
-    is not ported yet.
+    (reference ``device_replicate``). ``MESH_SHARD`` partitions the hot
+    rows over the mesh's feature axis (reference ``p2p_clique_replicate``,
+    its clique-partitioned cache): :class:`~..feature.shard.ShardedFeature`.
     """
 
     DEVICE_REPLICATE = "device_replicate"
+    MESH_SHARD = "mesh_shard"
 
     @classmethod
     def parse(cls, value: "CachePolicy | str") -> "CachePolicy":
         if isinstance(value, cls):
             return value
-        if value == "device_replicate":
-            return cls.DEVICE_REPLICATE
-        raise ValueError(
-            f"unknown cache policy {value!r}; expected 'device_replicate'"
-        )
+        aliases = {
+            "device_replicate": cls.DEVICE_REPLICATE,
+            "p2p_clique_replicate": cls.MESH_SHARD,  # reference spelling
+            "mesh_shard": cls.MESH_SHARD,
+        }
+        try:
+            return aliases[value]
+        except KeyError:
+            raise ValueError(
+                f"unknown cache policy {value!r}; expected one of {sorted(aliases)}"
+            ) from None
 
 
 class SampleMode(enum.Enum):

@@ -46,7 +46,7 @@ from ..utils.trace import get_logger, info_once, trace_scope
 
 __all__ = ["Feature", "GATHER_ELECTION", "HeteroFeature", "KernelChoice",
            "quantize_rows_int8", "resolve_gather_kernel", "stock_lookup",
-           "tiered_lookup", "validate_gather_kernel"]
+           "three_tier_lookup", "tiered_lookup", "validate_gather_kernel"]
 
 
 def _parse_storage_dtype(dtype):
@@ -110,6 +110,66 @@ def tiered_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None):
     if scale is None:
         return tiered_gather(n_id, feature_order, hot_rows, hot, cold)
     return tiered_gather_dequant(n_id, feature_order, hot_rows, hot, cold, scale)
+
+
+def three_tier_lookup(n_id, feature_order, hot_rows: int, hot_gather, cold_gather,
+                      rep_rows: int = 0, rep_gather=None, hot_miss_id: int = 0,
+                      with_hits: bool = False):
+    """The tier merge of the sharded store, with the JAX package's
+    ``tiered_lookup`` arguments: three contiguous tiers of the translated
+    row space, replicated ``[0, rep_rows)`` (``rep_gather``), hot ``[rep_rows,
+    rep_rows + hot_rows)`` (``hot_gather``) and cold, the rest
+    (``cold_gather``); each a callable (tier-local ids) -> rows, or None.
+
+    ``n_id`` may be ``(L,)`` or ``(M, L)`` (a feature group's members);
+    each gather gets ids of that shape and returns rows of that shape plus
+    the row width. ``-1`` lanes return zero rows. A tier's gather sees
+    the lanes of the other tiers as ``-1``, which K2 skips (the JAX package
+    points them at row 0; the merge drops them either way), except the hot
+    tier's, which carry ``hot_miss_id``: pass -1 for a sharded gather, so
+    other-tier lanes take no routed bucket capacity. As in the JAX
+    package, an invalid lane is translated as id 0 before the masks, and a
+    store of one tier sends it every lane.
+
+    ``with_hits=True`` also returns the int32 VALID lanes per tier
+    ``[replicated, hot, cold]``: ``(3,)``, or ``(M, 3)`` per member.
+    """
+    valid = n_id >= 0
+    ids = torch.where(valid, n_id, 0).to(torch.int64)
+    if feature_order is not None:
+        ids = feature_order[ids.clamp(max=feature_order.shape[0] - 1)].to(torch.int64)
+    hot_end = rep_rows + hot_rows
+    have_rep = rep_gather is not None and rep_rows > 0
+    # (mask, gather, row offset into the tier's table, other-tier miss id);
+    # the masks partition the id range, in tier order
+    tiers = []
+    if have_rep:
+        tiers.append((ids < rep_rows, rep_gather, 0, -1))
+    if hot_gather is not None:
+        m = ids < hot_end
+        if have_rep:
+            m = m & (ids >= rep_rows)
+        tiers.append((m, hot_gather, rep_rows, hot_miss_id))
+    if cold_gather is not None:
+        tiers.append((ids >= hot_end, cold_gather, hot_end, -1))
+    if len(tiers) == 1:
+        _, gather, off, _ = tiers[0]
+        out = gather(ids - off)
+    else:
+        out = None
+        for mask, gather, off, miss in tiers:
+            part = gather(torch.where(mask, ids - off, miss))
+            out = part if out is None else torch.where(mask[..., None], part, out)
+    out = torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                         device=out.device))
+    if not with_hits:
+        return out
+    hits = torch.stack([
+        (valid & (ids < rep_rows)).sum(-1, dtype=torch.int32),
+        (valid & (ids >= rep_rows) & (ids < hot_end)).sum(-1, dtype=torch.int32),
+        (valid & (ids >= hot_end)).sum(-1, dtype=torch.int32),
+    ], dim=-1)
+    return out, hits
 
 
 def stock_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None,
@@ -226,7 +286,9 @@ class Feature(KernelChoice):
         For int8 storage the ``(N,)`` float32 scales (4 B per row, on the
         device for both tiers) are charged first and the rest buys rows of
         F bytes.
-      cache_policy: ``"device_replicate"``.
+      cache_policy: ``"device_replicate"``; ``"mesh_shard"`` (or the
+        reference's ``"p2p_clique_replicate"``) is
+        :class:`~.shard.ShardedFeature`'s, and ``from_cpu_tensor`` raises.
       csr_topo: enables the degree reorder; sets ``csr_topo.feature_order``.
       hot_shuffle_seed: shuffle seed of the hot prefix.
       kernel: ``"pallas"`` (K2's one launch), ``"xla"`` (the same lookup
@@ -288,6 +350,11 @@ class Feature(KernelChoice):
 
     def from_cpu_tensor(self, tensor) -> "Feature":
         """Split, (optionally) reorder and quantise, and place the table."""
+        if self.cache_policy is CachePolicy.MESH_SHARD:
+            raise NotImplementedError(
+                "mesh_shard placement lives in quiver_tpu_torch.feature.shard."
+                "ShardedFeature; plain Feature supports device_replicate only"
+            )
         quantized = self.storage_dtype == torch.int8
         if quantized:
             table = _numpy_rows(tensor)

@@ -1,0 +1,551 @@
+"""Mesh-sharded feature storage: the reference's clique-partitioned cache.
+
+The port of ``quiver_tpu/feature/shard.py`` (``ShardedTensor``,
+``ShardedFeature``), the reference's ``p2p_clique_replicate`` tier: the hot
+rows are partitioned over the members of the mesh's ``feature`` axis, and
+a lookup fetches each row from the shard that owns it.
+
+The JAX package gathers inside ``shard_map``: with one id set per feature
+group, every shard serves the ids it owns and a ``psum`` over the axis
+merges the rows; with one id set per member (the routed flavour), requests
+travel to their owners and rows back over two ``all_to_all`` hops
+(:class:`~..parallel.routing.BucketRoute`). Here one process holds every
+member of the group: shard ``f`` is its own tensor on member ``f``'s
+device, the ``psum`` is a sum of the shards' answers in member order, and
+the routed exchange moves the requests and rows between the shards' tensors.
+On a logical mesh of one card (``make_mesh(devices=["cuda:0"] * 4, data=2,
+feature=2)``) every shard sits on that card. Each shard serves its lanes
+with one launch of kernel K2's single-table entry (``gather_rows``), the
+counterpart of the JAX package's ``_hot_gather_fn``.
+
+``ShardedFeature`` puts the degree-ordered rows in three tiers: an L0 block
+of the top-degree rows, stored once per distinct device and read with no
+routing (``replicate_budget`` bytes per device); the L1 rows as a
+``ShardedTensor`` (``device_cache_size`` bytes per device); and the cold
+rest in pinned host memory, which K2 reads over UVA. A lookup is
+:func:`~.feature.three_tier_lookup`: one ``gather_rows`` launch for the L0
+lanes, one per shard for the L1 lanes, one for the cold lanes, and L0 and
+cold lanes enter the L1 gather as ``-1``, so they take no bucket capacity.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..core.config import CachePolicy, parse_size_bytes
+from ..core.memory import to_pinned_host
+from ..core.topology import CSRTopo
+from ..obs.registry import ROUTED_OVERFLOW, TIER_HITS, MetricsRegistry
+from ..ops.kernels.gather import gather_rows, gather_rows_plain
+from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, Mesh
+from ..parallel.routing import BucketRoute
+from ..utils.reorder import reorder_by_degree
+from ..utils.trace import get_logger
+from .feature import (KernelChoice, _parse_storage_dtype, three_tier_lookup,
+                      validate_gather_kernel)
+
+__all__ = ["ShardedTensor", "ShardedFeature"]
+
+
+def _host_table(tensor) -> torch.Tensor:
+    """A contiguous CPU tensor of a numpy array or a tensor."""
+    if isinstance(tensor, torch.Tensor):
+        return tensor.detach().cpu().contiguous()
+    return torch.from_numpy(np.ascontiguousarray(tensor))
+
+
+def _row_gather(table, kernel: str):
+    """(ids of any shape) -> rows of ``table`` through K2's single-table
+    entry (``kernel="pallas"``) or its plain version (``"xla"``); a
+    negative id gives a zero row."""
+    fn = gather_rows if kernel == "pallas" else gather_rows_plain
+
+    def rows(ids):
+        flat = ids.reshape(-1).to(torch.int32).contiguous()
+        return fn(table, flat).reshape(tuple(ids.shape) + tuple(table.shape[1:]))
+
+    return rows
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(
+        f"ShardedFeature: {what} is not ported yet (ROADMAP {item})")
+
+
+class ShardedTensor(KernelChoice):
+    """A 2-D table row-sharded over a mesh axis.
+
+    Rows are padded to a multiple of the axis size; shard ``d`` owns rows
+    ``[d * rows_per_shard, (d + 1) * rows_per_shard)`` (the reference's
+    contiguous offsets, ``tensor_offset_device``) and sits on member
+    ``d``'s device, ``shards[d]``.
+    """
+
+    def __init__(self, mesh: Mesh, axis: str = FEATURE_AXIS, kernel: str = "auto",
+                 routed_alpha: float = 2.0):
+        if axis not in (DATA_AXIS, FEATURE_AXIS):
+            raise ValueError(f"axis must be {DATA_AXIS!r} or {FEATURE_AXIS!r}, got {axis!r}")
+        self.mesh = mesh
+        self.axis = axis
+        self.num_shards = mesh.shape[axis]
+        devices = mesh.devices if axis == FEATURE_AXIS else mesh.devices.T
+        self.member_devices = list(devices[0])
+        self.device = self.member_devices[0]
+        self._kernel = validate_gather_kernel(kernel)
+        # capped-bucket routed gather: capacity ceil(routed_alpha * L / F) per
+        # destination; 2 leaves headroom over a uniform owner spread (the
+        # degree order concentrates hot rows on shard 0); grown by
+        # _maybe_grow_routed_alpha after an overflowing eager batch
+        if routed_alpha <= 0:
+            raise ValueError(f"routed_alpha must be > 0, got {routed_alpha}")
+        self.routed_alpha = float(routed_alpha)
+        self.metrics = MetricsRegistry()
+        self.metrics.counter(
+            ROUTED_OVERFLOW, unit="lanes",
+            doc="fallback-served lanes of the last capped routed gather",
+        )
+        self.shards: list[torch.Tensor] = []
+        self.rows_per_shard = 0
+        self.num_rows = 0
+
+    @property
+    def last_routed_overflow(self):
+        """Fallback-served lanes of the last eager routed gather (device
+        int32 scalar; None before any). A view of the registry metric
+        ``feature.routed_overflow``."""
+        return self.metrics.value(ROUTED_OVERFLOW)
+
+    @last_routed_overflow.setter
+    def last_routed_overflow(self, value):
+        self.metrics.set(ROUTED_OVERFLOW, value)
+
+    def from_cpu_tensor(self, tensor) -> "ShardedTensor":
+        table = _host_table(tensor)
+        n, f = table.shape
+        rps = -(-n // self.num_shards)  # ceil
+        padded = rps * self.num_shards
+        if padded != n:
+            table = torch.cat([table, table.new_zeros((padded - n, f))])
+        self.shards = [table[d * rps:(d + 1) * rps].to(dev).contiguous()
+                       for d, dev in enumerate(self.member_devices)]
+        self.rows_per_shard = rps
+        self.num_rows = n
+        return self
+
+    @property
+    def shape(self):
+        return (self.num_rows, self.shards[0].shape[1])
+
+    def local_gather(self, member: int, ids):
+        """Shard ``member``'s rows for the ids it owns, zero rows for every
+        other id (and for ids below 0): one K2 launch on the shard. The
+        psum flavour sums these over the members."""
+        rps = self.rows_per_shard
+        mine = (ids >= 0) & (torch.div(ids, rps, rounding_mode="floor") == member)
+        local = torch.where(mine, ids - member * rps, -1)
+        shard = self.shards[member]
+        return _row_gather(shard, self.kernel)(local.to(shard.device)).to(ids.device)
+
+    def psum_gather(self, ids):
+        """Rows of ``ids`` (any shape; every member requests the same ids):
+        each shard's :meth:`local_gather`, summed in member order."""
+        out = None
+        for d in range(self.num_shards):
+            part = self.local_gather(d, ids)
+            out = part if out is None else out + part
+        return out
+
+    def routed_cap(self, length: int, alpha: float | None = None) -> int:
+        """Bucket capacity for a per-member request length ``L``: ``ceil(alpha
+        * L / F)``, clamped to ``[1, L]``; ``L`` is the uncapped mode."""
+        a = self.routed_alpha if alpha is None else float(alpha)
+        if a <= 0:
+            raise ValueError(f"alpha must be > 0, got {a}")
+        cap = math.ceil(a * length / max(self.num_shards, 1))
+        return max(1, min(int(cap), int(length)))
+
+    def _maybe_grow_routed_alpha(self) -> None:
+        """Between eager capped gathers: if the previous one overflowed its
+        buckets, double ``routed_alpha`` (up to F: full-length buckets)
+        before this one plans its cap. Reads the previous batch's count on
+        the host."""
+        ov = self.last_routed_overflow
+        if ov is None:
+            return
+        self.last_routed_overflow = None
+        count = int(ov)
+        if count <= 0:
+            return
+        old = self.routed_alpha
+        self.routed_alpha = min(old * 2.0, float(self.num_shards))
+        if self.routed_alpha != old:
+            get_logger("feature").info(
+                "routed gather: %d lanes overflowed their buckets "
+                "(fallback-served); growing alpha %.2f -> %.2f",
+                count, old, self.routed_alpha,
+            )
+
+    def routed_gather(self, ids, cap: int | None = None, with_overflow: bool = False):
+        """One feature group's routed gather: ``ids`` is ``(F, L)``, one
+        request vector per member (any negative value marks an invalid
+        lane, whose row is zero); each request travels to its owner and
+        the row back (:class:`~..parallel.routing.BucketRoute`, one K2
+        launch per shard). ``cap`` caps the buckets (``None``: uncapped);
+        overflowed lanes are served by the fallback, exactly. Returns the
+        ``(F, L, row)`` rows, and with ``with_overflow`` also the group's
+        fallback-served lane count (int32 scalar, 0 when uncapped)."""
+        L = ids.shape[1]
+        if cap is not None:
+            cap = int(cap)
+            if cap < 1:
+                raise ValueError(f"cap must be >= 1, got {cap}")
+            if cap >= L:
+                cap = None  # full-length buckets ARE the uncapped path
+        valid = ids >= 0
+        safe = torch.where(valid, ids, 0).to(torch.int64)
+        route = BucketRoute(safe, valid, torch.div(safe, self.rows_per_shard,
+                                                   rounding_mode="floor"),
+                            num_shards=self.num_shards, cap=cap)
+        rows = route.exchange(self.local_gather)
+        return (rows, route.overflow) if with_overflow else rows
+
+    def delete(self) -> None:
+        """Free the shards now (the reference's ``shard_tensor.delete``).
+        The object is unusable after."""
+        self.shards = []
+        self.last_routed_overflow = None
+
+    def gather(self, ids, routed: bool = False, routed_cap="auto"):
+        """Standalone sharded gather of a global id vector.
+
+        ``routed=False``: every shard serves the ids it owns and the rows
+        are summed (the psum flavour). ``routed=True``: the ids are split
+        over every mesh slot, as the JAX package shards them over every
+        axis, and each feature group routes its members' slices to the
+        owners. Both return the same rows bitwise.
+
+        ``routed_cap``: ``"auto"`` caps buckets at ``ceil(routed_alpha * L
+        / F)`` and grows ``routed_alpha`` after an overflowing call (the
+        overflowed lanes themselves are served exactly); ``None`` is the
+        uncapped mode; an int an explicit capacity. After a routed call
+        ``last_routed_overflow`` holds the fallback-served lanes of every
+        group (device int32 scalar).
+        """
+        ids = torch.as_tensor(ids, device=self.device).reshape(-1)
+        if not routed:
+            return self.psum_gather(ids)
+        groups = self.mesh.devices.size // self.num_shards
+        mult = groups * self.num_shards
+        n = ids.shape[0]
+        pad = (-n) % mult
+        if pad:
+            # -1, the invalid-lane sentinel: zero rows, sliced off below
+            ids = torch.cat([ids, ids.new_full((pad,), -1)])
+        local_len = ids.shape[0] // mult
+        if routed_cap == "auto":
+            self._maybe_grow_routed_alpha()
+            cap = self.routed_cap(local_len)
+        elif routed_cap is None:
+            cap = None
+        else:
+            cap = min(int(routed_cap), local_len)
+        if cap is not None and cap >= local_len:
+            cap = None
+        # slot g * F + f of the mesh's slots holds chunk g * F + f of the ids
+        # (JAX's P(("data", "feature")) sharding): group g's members
+        rows, ov = [], None
+        for g in range(groups):
+            chunk = ids[g * self.num_shards * local_len:(g + 1) * self.num_shards * local_len]
+            r, o = self.routed_gather(chunk.reshape(self.num_shards, local_len), cap,
+                                      with_overflow=True)
+            rows.append(r.reshape(-1, r.shape[-1]))
+            ov = o if ov is None else ov + o
+        self.last_routed_overflow = ov
+        out = torch.cat(rows)
+        return out[:n] if pad else out
+
+    def __getitem__(self, ids):
+        """Standalone sharded gather (psum flavour); see :meth:`gather`."""
+        return self.gather(ids)
+
+
+class ShardedFeature(KernelChoice):
+    """Feature store with three tiers over the mesh.
+
+    * **L0** (``replicate_budget`` bytes per device): the top rows by
+      degree, a full copy on every distinct device of the mesh, read with
+      no routing (the reference's ``device_replicate``, kept for the rows
+      hot enough to earn the copies).
+    * **L1** (``device_cache_size`` bytes per device): the next rows, a
+      :class:`ShardedTensor` over the ``feature`` axis (the reference's
+      ``p2p_clique_replicate``), read by the psum or the routed flavour.
+    * **cold**: the rest, in pinned host memory, read by K2 over UVA.
+
+    Both budgets are per device, as the reference's ``device_cache_size``:
+    the L1 holds ``budget x feature-axis size`` rows in all.
+    ``last_tier_hits`` holds the last eager lookup's int32 ``[replicated,
+    sharded, cold]`` hit counts; ``last_routed_overflow`` the L1's
+    fallback-served lanes.
+
+    Storage is the input's float dtype or another float dtype
+    (``"bfloat16"``). Not ported yet: ``dtype="int8"``, ``auto_split=True``,
+    ``repin``, ``apply_row_updates`` and ``note_degree_update`` (ROADMAP
+    A.11c), ``replan`` (A.11d); each raises ``NotImplementedError``.
+    """
+
+    def __init__(
+        self,
+        mesh: Mesh,
+        device_cache_size: int | str = 0,
+        csr_topo: CSRTopo | None = None,
+        axis: str = FEATURE_AXIS,
+        hot_shuffle_seed: int = 0,
+        kernel: str = "auto",
+        dtype=None,
+        routed_alpha: float = 2.0,
+        replicate_budget: int | str = 0,
+        auto_split: bool = False,
+    ):
+        self.mesh = mesh
+        self.axis = axis
+        self.device = mesh.devices.flat[0]
+        self._kernel = validate_gather_kernel(kernel)
+        if routed_alpha <= 0:
+            raise ValueError(f"routed_alpha must be > 0, got {routed_alpha}")
+        self.routed_alpha = float(routed_alpha)
+        self.storage_dtype = _parse_storage_dtype(dtype)
+        if self.storage_dtype == torch.int8:
+            _unported("dtype='int8'", "A.11c")
+        if auto_split:
+            _unported("auto_split=True (the split tuner)", "A.11c")
+        self.cache_policy = CachePolicy.MESH_SHARD
+        self.cache_budget = parse_size_bytes(device_cache_size)
+        self.replicate_budget = parse_size_bytes(replicate_budget)
+        self.csr_topo = csr_topo
+        self.hot_shuffle_seed = hot_shuffle_seed
+        self.reps: dict[torch.device, torch.Tensor] = {}  # L0, per distinct device
+        self.hot: ShardedTensor | None = None
+        self.cold = None
+        self.feature_order = None
+        self.rep_rows = 0
+        self.hot_rows = 0
+        self.shape = None
+        self.dtype = None
+        self.metrics = MetricsRegistry()
+        self.metrics.gauge(
+            TIER_HITS, shape=(3,), unit="hits",
+            doc="per-tier feature hits [replicated, sharded, cold] of the "
+                "last gather",
+        )
+        # host copy of the device region (rows [0, rep_rows + hot_rows) in
+        # storage dtype), kept with a nonzero replicate budget: resplit
+        # rebuilds both device tiers from it
+        self._region_host = None
+        # bumped by a published row update (not ported); the trainer checks it
+        self.version = 0
+
+    @property
+    def rep(self):
+        """The L0 block on the mesh's first device (None without one)."""
+        return self.reps.get(self.device)
+
+    def _plan_split(self, n: int, f: int, itemsize: int,
+                    num_shards: int) -> tuple[int, int]:
+        """(rep_rows, hot_rows) from the two per-device byte budgets."""
+        row_bytes = f * itemsize
+        rep_rows = min(n, self.replicate_budget // row_bytes)
+        hot_rows = min(n - rep_rows, (self.cache_budget // row_bytes) * num_shards)
+        return rep_rows, hot_rows
+
+    def _place_region(self, region: torch.Tensor, rep_rows: int) -> None:
+        """(Re)build the L0 and L1 tiers from the device region's rows;
+        the first ``rep_rows`` are the L0 block."""
+        total = region.shape[0]
+        rep_rows = max(0, min(int(rep_rows), total))
+        devices = dict.fromkeys(self.mesh.devices.ravel().tolist())
+        self.reps = ({dev: region[:rep_rows].to(dev).contiguous() for dev in devices}
+                     if rep_rows > 0 else {})
+        if self.hot is not None:
+            self.hot.delete()
+        self.hot = (ShardedTensor(self.mesh, self.axis, kernel=self._kernel,
+                                  routed_alpha=self.routed_alpha)
+                    .from_cpu_tensor(region[rep_rows:]) if total > rep_rows else None)
+        self.rep_rows = rep_rows
+        self.hot_rows = total - rep_rows
+
+    def from_cpu_tensor(self, tensor) -> "ShardedFeature":
+        table = _host_table(tensor)
+        table = table.to(self.storage_dtype or table.dtype)
+        n, f = table.shape
+        num_shards = self.mesh.shape[self.axis]
+        rep_rows, hot_rows = self._plan_split(n, f, table.element_size(), num_shards)
+        device_rows = rep_rows + hot_rows
+        # the degree order whenever a tier boundary cuts [0, n): the L0
+        # prefix holds the top-degree rows in order, the L1 span is shuffled
+        if self.csr_topo is not None and 0 < device_rows and (
+                device_rows < n or 0 < rep_rows < n):
+            _, order = reorder_by_degree(
+                np.empty((n, 0), np.float32), self.csr_topo.degree,
+                device_rows / n, seed=self.hot_shuffle_seed, pin_top=rep_rows)
+            perm = np.empty(n, dtype=np.int64)
+            perm[order] = np.arange(n)
+            table = table[torch.from_numpy(perm)]
+            self.csr_topo.feature_order = order
+            self.feature_order = torch.from_numpy(order).to(self.device)
+        self.shape = (n, f)
+        self.dtype = table.dtype
+        if device_rows > 0:
+            region = table[:device_rows]
+            if self.replicate_budget > 0:
+                self._region_host = region.clone()
+            self._place_region(region, rep_rows)
+        cold_is_host = False
+        if device_rows < n:
+            self.cold, cold_is_host = to_pinned_host(table[device_rows:], self.device)
+        # placement report (the reference's LOG>>> print)
+        get_logger("feature").info(
+            "feature tiers: %d/%d rows replicated (L0, %.1f MB/device), "
+            "%d sharded over %d devices on mesh axis '%s' (%.1f MB/device); "
+            "cold tier: %s",
+            rep_rows, n, rep_rows * f * table.element_size() / 2**20,
+            hot_rows, num_shards, self.axis,
+            hot_rows * f * table.element_size() / num_shards / 2**20,
+            "pinned host" if cold_is_host
+            else ("none" if device_rows == n else "host"),
+        )
+        return self
+
+    @property
+    def last_tier_hits(self):
+        """Per-tier hits ``[replicated, sharded, cold]`` of the last eager
+        lookup (a view of the registry metric ``feature.tier_hits``)."""
+        return self.metrics.value(TIER_HITS)
+
+    @last_tier_hits.setter
+    def last_tier_hits(self, value):
+        self.metrics.set(TIER_HITS, value)
+
+    @property
+    def last_routed_overflow(self):
+        """Fallback-served lanes of the L1's last routed gather (None
+        before any)."""
+        return None if self.hot is None else self.hot.last_routed_overflow
+
+    @property
+    def cache_ratio(self) -> float:
+        """Fraction of the rows on the devices (L0 and L1)."""
+        if not self.shape:
+            return 0.0
+        return (self.rep_rows + self.hot_rows) / self.shape[0]
+
+    @property
+    def replicated_ratio(self) -> float:
+        return self.rep_rows / self.shape[0] if self.shape else 0.0
+
+    def resplit(self, rep_rows: int) -> None:
+        """Move the L0/L1 boundary to ``rep_rows`` (between batches). The
+        translated rows stay where they are, so lookups return the same
+        rows bitwise; only the path serving each row changes. Needs the
+        host copy of the device region (``replicate_budget > 0``)."""
+        if self._region_host is None:
+            if max(0, int(rep_rows)) == self.rep_rows:
+                return  # a no-op split (a trainer passing budget 0)
+            raise ValueError(
+                "resplit needs the retained host region: construct "
+                "ShardedFeature with replicate_budget > 0 or auto_split=True"
+            )
+        total = self._region_host.shape[0]
+        rep_rows = max(0, min(int(rep_rows), total))
+        if rep_rows == self.rep_rows:
+            return
+        self._place_region(self._region_host, rep_rows)
+        # hits of the old boundary describe nothing now
+        self.last_tier_hits = None
+
+    def resplit_budget(self, replicate_budget: int | str) -> None:
+        """:meth:`resplit` with the boundary in bytes per device (as
+        ``device_cache_size`` is given)."""
+        budget = parse_size_bytes(replicate_budget)
+        row_bytes = self.shape[1] * torch.empty((), dtype=self.dtype).element_size()
+        self.resplit(budget // max(row_bytes, 1))
+
+    def replan(self, mesh: Mesh):
+        _unported("replan() (re-placing onto another mesh)", "A.11d")
+
+    def repin(self, rows):
+        _unported("repin()", "A.11c")
+
+    def apply_row_updates(self, ids, rows):
+        _unported("apply_row_updates()", "A.11c")
+
+    def note_degree_update(self, degree):
+        _unported("note_degree_update()", "A.11c")
+
+    def delete(self) -> None:
+        """Free every tier now (the reference's ``shard_tensor.delete``)."""
+        if self.hot is not None:
+            self.hot.delete()
+        self.reps = {}
+        self.hot = self.cold = self.feature_order = None
+        self.rep_rows = self.hot_rows = 0
+        self.last_tier_hits = None
+        self._region_host = None
+
+    def _tier_gathers(self, device):
+        """The lookup's ``(rep, cold)`` gathers on ``device``: one K2
+        launch each (``gather_rows``; its plain version for ``kernel="xla"``),
+        the cold one reading the pinned rows over UVA."""
+        rep = self.reps.get(device)
+        rep_g = None if rep is None else _row_gather(rep, self.kernel)
+        cold_g = None if self.cold is None else _row_gather(self.cold, self.kernel)
+        return rep_g, cold_g
+
+    def lookup(self, n_id, routed: bool = False, cap: int | None = None):
+        """One feature group's lookup, as the fused trainer's step runs it.
+
+        ``routed=False``: ``n_id`` is the group's shared id vector (the
+        psum flavour). ``routed=True``: ``n_id`` is ``(F, L)``, one vector
+        per member, and the L1 lanes are routed with bucket capacity
+        ``cap`` (``None``: uncapped). Returns ``(rows, hits, overflow)``:
+        the rows, the int32 per-tier hits (``(3,)``, or ``(F, 3)`` per
+        member) and the group's fallback-served lanes (int32 scalar), all
+        on ``n_id``'s device with no host read. K2 launches: one for the
+        L0 lanes (with an L0), one per shard (with an L1), one for the cold
+        lanes (with a cold tier)."""
+        ov = [torch.zeros((), dtype=torch.int32, device=n_id.device)]
+        if self.hot is None:
+            hot_g = None
+        elif routed:
+            def hot_g(ids):
+                rows, ov[0] = self.hot.routed_gather(ids, cap, with_overflow=True)
+                return rows
+        else:
+            hot_g = self.hot.psum_gather
+        rep_g, cold_g = self._tier_gathers(n_id.device)
+        rows, hits = three_tier_lookup(
+            n_id, self.feature_order, self.hot_rows, hot_g, cold_g,
+            rep_rows=self.rep_rows, rep_gather=rep_g, hot_miss_id=-1, with_hits=True)
+        return rows, hits, ov[0]
+
+    def gather(self, n_id, routed: bool = False, routed_cap="auto"):
+        """Standalone three-tier lookup of a global id vector; the L1
+        lanes through :meth:`ShardedTensor.gather` (``routed`` and
+        ``routed_cap`` as there). After the call ``last_tier_hits`` holds
+        its per-tier hits and ``last_routed_overflow`` the routed
+        overflow."""
+        n_id = torch.as_tensor(n_id, device=self.device).reshape(-1)
+        hot_g = None if self.hot is None else (
+            lambda ids: self.hot.gather(ids, routed=routed, routed_cap=routed_cap))
+        rep_g, cold_g = self._tier_gathers(n_id.device)
+        out, hits = three_tier_lookup(
+            n_id, self.feature_order, self.hot_rows, hot_g, cold_g,
+            rep_rows=self.rep_rows, rep_gather=rep_g, hot_miss_id=-1, with_hits=True)
+        self.last_tier_hits = hits
+        return out
+
+    def __getitem__(self, n_id):
+        """Rows of node ids (psum flavour); ``-1`` lanes give zero rows."""
+        return self.gather(n_id)

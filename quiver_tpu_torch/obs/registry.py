@@ -12,8 +12,8 @@ there, so :meth:`MetricsTape.add` never waits for the device;
 :meth:`MetricsTape.finalize` reads every value back in one copy per dtype.
 ``psum=`` names the axes a metric would be summed over across cards; it is
 validated as in the JAX package, and on a world of one card the sum is the
-identity (the multi-card layer, ROADMAP A.11, gives it
-``torch.distributed``).
+identity (meshes of distinct cards, ROADMAP A.11e, give it a
+meaning).
 
 A disabled registry is a no-op: its tapes feed nothing and finalize to
 ``{}``, and ``record`` drops everything.

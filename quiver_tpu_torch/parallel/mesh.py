@@ -7,8 +7,9 @@ a ``(data, feature)`` grid of ``torch.device``s (:class:`Mesh`,
 memory, the reference's ``find_cliques`` over
 ``torch.cuda.can_device_access_peer``), and the process-group entry point
 (:func:`init_distributed`). The JAX package's ``shard_map`` has no
-counterpart: work on a mesh runs as ordinary torch code per device (the
-multi-GPU layer is ROADMAP A.11).
+counterpart: work on a mesh runs as ordinary torch code, one feature
+group's members at a time (``parallel/routing.py``, ``feature/shard.py``);
+meshes of distinct cards are ROADMAP A.11e.
 
 On a CPU-only machine the tests stand in for JAX's eight forced host
 devices with a mesh whose device repeats (``devices=["cpu"] * 8``); a

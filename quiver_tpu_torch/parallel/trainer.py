@@ -6,12 +6,14 @@ and :class:`DataParallelTrainer`, with their telemetry summary.
 :class:`DistributedTrainer` owns the whole step, as the JAX package's one
 compiled program does: each data worker samples its padded seed block on
 the device (``GraphSageSampler.sample_padded``, one kernel K1 launch per
-hop) and gathers its rows (one kernel K2 launch), then the forward, the
-backward, the optional non-finite guard and one optimizer step. Here the
-step runs eagerly, one launch after another on the current stream, with
-no host read but the guard's verdict; ``epoch_scan`` is a loop of such
-steps with JAX's contract (checkpoint chunks, the one-step skew of
-``pipeline_depth=1``, preemption and resume).
+hop), the rows are gathered (one kernel K2 launch per worker from a
+replicated ``Feature``; from a ``ShardedFeature``, one three-tier lookup
+per feature group), then the forward, the backward, the optional
+non-finite guard and one optimizer step. Here the step runs eagerly, one
+launch after another on the current stream, with no host read but the
+guard's verdict; ``epoch_scan`` is a loop of such steps with JAX's
+contract (checkpoint chunks, the one-step skew of ``pipeline_depth=1``,
+preemption and resume).
 
 :class:`DataParallelTrainer` is the reference's papers100M loop
 (benchmarks/ogbn-papers100M/dist_sampling_ogb_paper100M_quiver.py:120-165):
@@ -24,8 +26,8 @@ feature tiers (K2 reading pinned rows), weighted hops, auto caps.
 
 In both, every data worker runs in this process on the mesh's one device,
 in worker order, and the gradient is the workers' mean. A mesh whose
-workers map to more than one distinct device raises until the
-``torch.distributed`` layer lands (ROADMAP A.11).
+workers map to more than one distinct device raises (meshes of distinct
+cards are ROADMAP A.11e).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.config import CachePolicy, parse_size_bytes
+from ..feature.shard import ShardedFeature
 from ..obs.registry import (
     GUARD_NONFINITE,
     GUARD_SKIPPED,
@@ -116,6 +119,14 @@ class IssuedBlock(NamedTuple):
     tier_hits: torch.Tensor  # int32 (3,) [replicated, hot, cold] hits
 
 
+class IssuedStep(NamedTuple):
+    """A step's issued half: every worker's block, in worker order, and
+    the routed lookups' fallback-served lanes (int32 device scalar)."""
+
+    blocks: list
+    routed_overflow: torch.Tensor
+
+
 class DistributedTrainer:
     """Owns the fused train step for a (sampler, feature, model) triple.
 
@@ -125,18 +136,27 @@ class DistributedTrainer:
         Its caps planned for ``local_batch`` are the step's: an auto
         sampler is planned before the trainer is built (one ``sample``
         call) and is neither planned nor regrown by the step.
-      feature: a ``Feature`` (``device_replicate``), hot rows on the
-        device, cold rows pinned on the host.
+      feature: a ``Feature`` (``device_replicate``: hot rows on the device,
+        cold rows pinned on the host), or a
+        :class:`~..feature.shard.ShardedFeature` over a mesh of the same
+        shape (L0 rows on the device, L1 rows sharded over the feature
+        axis, cold rows pinned).
       model: the torch model, its parameters on the mesh's device.
       optimizer: a ``torch.optim.Optimizer`` over ``model``'s parameters;
         the step updates them in place.
       local_batch: seeds per worker block (padded with -1).
       seed_sharding: ``"data"`` (one worker per data row of the mesh) or
         ``"all"`` (every mesh slot a worker); equal on a ``feature=1``
-        mesh.
-      routed_alpha: validated (> 0 or None); it sizes the routed gather
-        of a sharded store, which a replicated store does not run.
-      replicate_budget: inert on a replicated store (logged once).
+        mesh. Over a sharded store, ``"data"`` runs the psum flavour (the
+        feature group shares one sample, every shard serves its lanes) and
+        ``"all"`` the routed one (each member's lanes routed to their
+        owning shards, :class:`~.routing.BucketRoute`).
+      routed_alpha: the routed lookup's bucket capacity, ``ceil(alpha * L
+        / F)`` lanes for ``L`` ids per member (``None``: uncapped; the
+        overflow is served exactly and counted in ``last_routed_overflow``).
+      replicate_budget: on a sharded store, the L0 tier's bytes per device:
+        ``feature.resplit_budget`` before the first step; inert on a
+        replicated store (logged once).
       collect_metrics: record the step's telemetry in ``metrics``.
       nonfinite_guard: skip the optimizer update of a step whose loss or
         gradients hold a NaN or Inf (:mod:`..resilience.guard`); the
@@ -161,10 +181,10 @@ class DistributedTrainer:
       tracer, recorder: the ``train.step``/``train.chunk`` spans and the
         flight recorder that dumps a bundle when the guard skips a step.
 
-    Not ported yet (each raises ``NotImplementedError`` naming ROADMAP
-    A.11): a store sharded across cards, a ``topo_sharding="mesh"``
-    sampler, ``logical_workers``, ``auto_alpha=True``, a ``controller``,
-    and a mesh whose workers sit on more than one distinct device.
+    Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+    item): a ``topo_sharding="mesh"`` sampler (A.11b), ``auto_alpha=True``
+    and a ``controller`` (A.11c), ``logical_workers`` (A.11d), and a mesh
+    whose workers sit on more than one distinct device (A.11e).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -229,40 +249,46 @@ class DistributedTrainer:
                 "checkpoint_every= without checkpoint_dir= has "
                 "nothing to write to"
             )
-        policy = getattr(feature, "cache_policy", CachePolicy.DEVICE_REPLICATE)
-        for unported, what in (
-            (policy not in (CachePolicy.DEVICE_REPLICATE, "device_replicate"),
-             "a ShardedFeature (a hot tier sharded across cards)"),
+        for unported, what, item in (
             (getattr(sampler, "topo_sharding", "replicated") == "mesh",
              "a topo_sharding='mesh' sampler (a topology partitioned "
-             "across cards)"),
+             "across cards)", "A.11b"),
             (logical_workers is not None,
-             "logical_workers= (elastic mode)"),
-            (bool(auto_alpha), "auto_alpha=True (the routing-budget tuner)"),
+             "logical_workers= (elastic mode)", "A.11d"),
+            (bool(auto_alpha), "auto_alpha=True (the routing-budget tuner)",
+             "A.11c"),
             (controller is not None, "controller= (the cache controller's "
-             "placement and routing decisions)"),
+             "placement and routing decisions)", "A.11c"),
         ):
             if unported:
                 raise NotImplementedError(
                     f"DistributedTrainer: {what} is not ported yet "
-                    "(ROADMAP A.11)"
+                    f"(ROADMAP {item})"
                 )
         devices = set(mesh.devices.ravel().tolist())
         if len(devices) > 1:
             raise NotImplementedError(
                 f"the mesh's workers sit on {len(devices)} devices; training "
-                "across devices needs the torch.distributed layer "
-                "(ROADMAP A.11)"
+                "across distinct devices is not ported yet (ROADMAP A.11e)"
             )
-        if replicate_budget is not None and parse_size_bytes(replicate_budget):
-            info_once(
-                "trainer-replicate-budget-inert",
-                "DistributedTrainer(replicate_budget=%r) on a "
-                "device_replicate Feature is INERT: its hot tier is "
-                "already replicated per device (zero-comm); size it "
-                "with device_cache_size",
-                replicate_budget,
+        self._sharded = isinstance(feature, ShardedFeature)
+        if self._sharded and feature.mesh.shape != mesh.shape:
+            raise ValueError(
+                f"the ShardedFeature's mesh {feature.mesh.shape} is not the "
+                f"trainer's {mesh.shape}"
             )
+        if replicate_budget is not None:
+            if self._sharded:
+                feature.resplit_budget(replicate_budget)
+            elif parse_size_bytes(replicate_budget):
+                info_once(
+                    "trainer-replicate-budget-inert",
+                    "DistributedTrainer(replicate_budget=%r) on a "
+                    "device_replicate Feature is INERT: its hot tier is "
+                    "already replicated per device (zero-comm); size it "
+                    "with device_cache_size",
+                    replicate_budget,
+                )
         self.donate_epoch_state = bool(donate_epoch_state)
         self.collect_metrics = bool(collect_metrics)
         self.metrics = MetricsRegistry(enabled=self.collect_metrics)
@@ -335,6 +361,8 @@ class DistributedTrainer:
         self.workers = self.data_size * (
             self.feature_size if self.seed_sharding == "all" else 1
         )
+        # a sharded store under "all": each feature group's lookup routes
+        self._routed = self._sharded and self.seed_sharding == "all"
         self.global_batch = self.local_batch * self.workers
         self.caps = tuple(sampler._caps_for(self.local_batch))
         self.draw_fn = None
@@ -344,8 +372,9 @@ class DistributedTrainer:
 
     @property
     def last_routed_overflow(self):
-        """Registry metric ``feature.routed_overflow`` (0: a replicated
-        store routes nothing)."""
+        """Registry metric ``feature.routed_overflow``: the step's
+        fallback-served lanes of the routed lookups (``(steps,)`` after
+        ``epoch_scan``; 0 when nothing routes)."""
         return self.metrics.value(ROUTED_OVERFLOW)
 
     @last_routed_overflow.setter
@@ -460,18 +489,39 @@ class DistributedTrainer:
             (valid & ~hot).sum(dtype=torch.int32),
         ])
 
-    def issue_block(self, seeds, num_seeds, key: int, draw_fn=None) -> IssuedBlock:
-        """The schedule-movable half of one worker's block: the sampler's
-        ``sample_padded`` on the padded device ``seeds`` (one K1 launch per
-        hop, drawing from the worker key's sample stream, or from
-        ``draw_fn(layer, deg)``), one K2 lookup of the frontier through the
-        store (``tiered_gather``; ``tiered_gather_dequant`` for int8) and
-        the tier hits, all on the device."""
+    def sample_block(self, seeds, num_seeds, key: int, draw_fn=None):
+        """One worker's sample: the sampler's ``sample_padded`` on the
+        padded device ``seeds`` (one K1 launch per hop, drawing from the
+        worker key's sample stream, or from ``draw_fn(layer, deg)``).
+        Returns ``(n_id, adjs)``."""
         gen = None if draw_fn is not None else seeded_generator(self.device, key, 0)
         n_id, _, adjs, _, _, _ = self.sampler.sample_padded(
             seeds, num_seeds, generator=gen, draw_fn=draw_fn)
-        return IssuedBlock(n_id, self.feature[n_id], adjs, num_seeds,
-                           self._tier_hits(n_id))
+        return n_id, adjs
+
+    def _lookup(self, n_id):
+        """``(rows, tier hits, routed overflow)`` of one lookup, on the
+        device: a worker's ``(L,)`` frontier (a replicated store: one K2
+        ``tiered_gather``, or ``tiered_gather_dequant`` for int8; a sharded
+        store: the psum flavour), or a routed feature group's ``(F, L)``
+        frontiers (hits per member)."""
+        if not self._sharded:
+            return (self.feature[n_id], self._tier_hits(n_id),
+                    torch.zeros((), dtype=torch.int32, device=n_id.device))
+        routed = n_id.dim() == 2
+        hot = self.feature.hot
+        cap = (None if not routed or hot is None or self.routed_alpha is None
+               else hot.routed_cap(int(n_id.shape[1]), self.routed_alpha))
+        return self.feature.lookup(n_id, routed=routed, cap=cap)
+
+    def issue_block(self, seeds, num_seeds, key: int, draw_fn=None) -> IssuedBlock:
+        """The schedule-movable half of one worker's block, when its lookup
+        needs no other worker's ids (a replicated store, or a sharded
+        store's psum flavour): :meth:`sample_block`, then the lookup of
+        the frontier and its tier hits, all on the device."""
+        n_id, adjs = self.sample_block(seeds, num_seeds, key, draw_fn)
+        x, hits, _ = self._lookup(n_id)
+        return IssuedBlock(n_id, x, adjs, num_seeds, hits)
 
     def train_block(self, n_id, x, adjs, num_seeds, labels, key: int,
                     inject: bool = False):
@@ -501,15 +551,6 @@ class DistributedTrainer:
                  for p, g in zip(params, grads)]
         return loss.detach(), grads
 
-    def one_block(self, seeds, num_seeds, labels, key: int, inject: bool = False,
-                  draw_fn=None):
-        """One worker's block, the two halves composed in place (the
-        serial schedule): ``(loss, grads, tier_hits)``."""
-        b = self.issue_block(seeds, num_seeds, key, draw_fn)
-        loss, grads = self.train_block(b.n_id, b.x, b.adjs, b.num_seeds,
-                                       labels, key, inject)
-        return loss, grads, b.tier_hits
-
     def _worker_draw(self, key: int, w: int):
         return None if self.draw_fn is None else functools.partial(
             self.draw_fn, key, w)
@@ -520,36 +561,47 @@ class DistributedTrainer:
         rows = packed.reshape(self.workers, self.local_batch)
         return [(r, (r >= 0).sum(dtype=torch.int32)) for r in rows]
 
-    def _issue(self, packed, key: int) -> list:
-        """Every worker's issued block of the step keyed ``key``."""
-        return [self.issue_block(seeds, num, fold_key(key, 1, w),
-                                 self._worker_draw(key, w))
-                for w, (seeds, num) in enumerate(self._blocks(packed))]
+    def _issue(self, packed, key: int) -> IssuedStep:
+        """The issue half of the step keyed ``key``: every worker's block,
+        in worker order. With a routed lookup each feature group samples
+        its members' blocks first, then looks their frontiers up at once."""
+        blocks = self._blocks(packed)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if not self._routed:
+            return IssuedStep([self.issue_block(seeds, num, fold_key(key, 1, w),
+                                                self._worker_draw(key, w))
+                               for w, (seeds, num) in enumerate(blocks)], zero)
+        F, issued, overflow = self.feature_size, [], zero
+        for g in range(self.data_size):
+            members = range(g * F, (g + 1) * F)
+            samples = [self.sample_block(*blocks[w], fold_key(key, 1, w),
+                                         self._worker_draw(key, w)) for w in members]
+            xs, hits, ov = self._lookup(torch.stack([n_id for n_id, _ in samples]))
+            issued.extend(IssuedBlock(n_id, xs[i], adjs, blocks[w][1], hits[i])
+                          for i, (w, (n_id, adjs)) in enumerate(zip(members, samples)))
+            overflow = overflow + ov
+        return IssuedStep(issued, overflow)
 
-    def _train(self, blocks, labels, key: int, inject: bool):
+    def _train(self, issued: IssuedStep, labels, key: int, inject: bool):
         """The train half of a step over its issued blocks."""
         outs = [self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labels,
                                  fold_key(key, 1, w), inject)
-                for w, b in enumerate(blocks)]
-        return self._update(outs, [b.tier_hits for b in blocks])
+                for w, b in enumerate(issued.blocks)]
+        return self._update(outs, [b.tier_hits for b in issued.blocks],
+                            issued.routed_overflow)
 
     def _run_step(self, packed, labels, key: int, inject: bool):
-        """The serial step: each worker's block issued and trained in
-        place, in worker order, then the update."""
-        outs, hits = [], []
-        for w, (seeds, num) in enumerate(self._blocks(packed)):
-            wk = fold_key(key, 1, w)
-            loss, grads, h = self.one_block(seeds, num, labels, wk, inject,
-                                            self._worker_draw(key, w))
-            outs.append((loss, grads))
-            hits.append(h)
-        return self._update(outs, hits)
+        """The serial step: the issue half, then the train half and the
+        update, in worker order."""
+        return self._train(self._issue(packed, key), labels, key, inject)
 
-    def _update(self, outs, hits):
+    def _update(self, outs, hits, routed_overflow):
         """Sum the workers' gradient shares into ``.grad`` in worker order,
         take the guard's verdict before they mix (every worker's count),
         and step the optimizer. Returns ``(mean loss, the step's metrics
-        dict)``, on the device."""
+        dict)``, on the device: the tier hits summed over the workers (a
+        feature group's members share one lookup under the psum flavour,
+        counted once) and the routed overflow."""
         params = self._params()
         self.optimizer.zero_grad(set_to_none=True)
         bad = []
@@ -566,7 +618,7 @@ class DistributedTrainer:
         if self.collect_metrics:
             dev = loss.device
             mtree = {
-                ROUTED_OVERFLOW: torch.zeros((), dtype=torch.int32, device=dev),
+                ROUTED_OVERFLOW: routed_overflow,
                 TIER_HITS: torch.stack(hits).sum(0, dtype=torch.int32),
                 SAMPLE_OVERFLOW: torch.zeros((len(self.sampler.sizes),),
                                              dtype=torch.int32, device=dev),
@@ -656,6 +708,9 @@ class DistributedTrainer:
             loss, mtree = self._run_step(packed, labels, int(key), inject)
         self.metrics.record(mtree)
         self._check_guard_trip()
+        if mtree and self._sharded:
+            # the store's own view of the step's traffic, as after its lookups
+            self.feature.last_tier_hits = mtree[TIER_HITS]
         if (plan is not None and not self._preempt_fired
                 and plan.preempts_in(step_idx, step_idx + 1)):
             # the step ran but its results are lost with the raise: the
@@ -964,8 +1019,8 @@ class DataParallelTrainer:
         if len(set(workers)) > 1:
             raise NotImplementedError(
                 f"the mesh's data workers sit on {len(set(workers))} devices; "
-                "training across devices needs the torch.distributed layer "
-                "(ROADMAP A.11)"
+                "training across distinct devices is not ported yet "
+                "(ROADMAP A.11e)"
             )
         self.mesh = mesh
         self.device = workers[0]

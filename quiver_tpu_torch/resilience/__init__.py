@@ -7,7 +7,7 @@ flight recorder), ``elastic.py`` without the cross-card reduction
 (:class:`CircuitBreaker`, :class:`DegradedFeature`,
 :func:`validate_resume_meta`), ``faults.py`` (:class:`FaultPlan` and its
 wrappers) and ``guard.py`` (the non-finite step guard). The elastic
-resume across mesh shapes comes with the multi-GPU layer (ROADMAP A.11).
+resume across mesh shapes comes with the elastic half (ROADMAP A.11d).
 """
 
 from .elastic import CircuitBreaker, DegradedFeature, validate_resume_meta

@@ -24,7 +24,7 @@ reads for it.
 :func:`validate_resume_meta` checks a checkpoint's manifest against the
 trainer that restores it, with the JAX package's errors.
 ``worker_ordered_mean``, the elastic reduction across cards, comes with
-the multi-GPU layer (ROADMAP A.11).
+the elastic half of the multi-device layer (ROADMAP A.11d).
 """
 
 from __future__ import annotations

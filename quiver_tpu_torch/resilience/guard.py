@@ -63,7 +63,7 @@ def guard_verdict(loss, grads, axes=None):
     ``local_bad == 0``. ``axes`` names the mesh axes the JAX package sums
     the count over so that every chip takes the same branch; in one
     process the sum is the identity and ``axes`` is inert, reserved for
-    the multi-GPU layer (ROADMAP A.11)."""
+    meshes of distinct cards (ROADMAP A.11e)."""
     del axes  # one process: the mesh-wide sum is the identity
     local_bad = nonfinite_count((loss, grads))
     return local_bad == 0, local_bad

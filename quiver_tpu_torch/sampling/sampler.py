@@ -278,7 +278,7 @@ class GraphSageSampler:
         when ``with_eid``, ``cum_weights`` when ``weighted``,
         ``edge_time`` with a ``time_window``; otherwise this raises.
       topo_sharding: ``"replicated"``; ``"mesh"`` (a topology partitioned
-        across cards, ROADMAP A.11) raises.
+        across cards, ROADMAP A.11b) raises.
       compiled_cache_size: accepted for API parity and inert: the JAX
         package bounds its cache of compiled programs with it; the port
         compiles nothing.
@@ -299,7 +299,7 @@ class GraphSageSampler:
         if topo_sharding == "mesh":
             raise NotImplementedError(
                 "topo_sharding='mesh' (a topology partitioned across cards) "
-                "is not ported (ROADMAP A.11)")
+                "is not ported (ROADMAP A.11b)")
         if topo_sharding != "replicated":
             raise ValueError(
                 f"topo_sharding must be 'replicated' or 'mesh', "

@@ -943,3 +943,91 @@ def test_fused_guard_passes_state_through_on_card(cuda):
     assert np.isfinite(float(trainer.step(rng.integers(0, 20_000, 256), labels, 2)))
     assert not torch.equal(model.state_dict()["convs.0.lin_l.weight"],
                            params["convs.0.lin_l.weight"])
+
+
+def _sharded_setup(cuda, n=20_000, f=32):
+    """A three-tier ``ShardedFeature`` on a ``(2, 2)`` logical mesh of the
+    card (L0 1,000 rows, L1 4,000, the rest pinned) and a replicated
+    ``Feature`` of the same rows (20% hot), over a 20,000-node graph."""
+    from quiver_tpu_torch import CSRTopo, Feature, ShardedFeature, make_mesh
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    topo = CSRTopo(edge_index=generate_pareto_graph(n, 10.0, seed=8))
+    x = np.random.default_rng(0).normal(size=(n, f)).astype(np.float32)
+    store = ShardedFeature(make_mesh(data=2, feature=2, devices=[cuda] * 4),
+                           device_cache_size=2_000 * f * 4, csr_topo=topo,
+                           replicate_budget=1_000 * f * 4).from_cpu_tensor(x)
+    replicated = Feature(device_cache_size=(n // 5) * f * 4, csr_topo=topo,
+                         device=cuda).from_cpu_tensor(x)
+    return topo, x, store, replicated
+
+
+def test_sharded_gathers_equal_the_replicated_lookup(cuda):
+    """The psum and routed gathers (uncapped, planned, a cap of 1 that
+    overflows) of a three-tier store on the card: bitwise the replicated
+    store's K2 lookup and the numpy rows; K2 launches: one for L0, one per
+    shard per feature group, one for the cold rows."""
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+
+    topo, x, store, replicated = _sharded_setup(cuda)
+    assert store.cold.is_pinned() and store.rep_rows == 1_000 and store.hot_rows == 4_000
+    rng = np.random.default_rng(1)
+    ids_np = np.concatenate([rng.integers(0, topo.node_count, 5000), [-1] * 7]).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    want = replicated[ids]
+    dense = torch.from_numpy(np.where(ids_np[:, None] >= 0, x[np.maximum(ids_np, 0)], 0)).to(cuda)
+    assert torch.equal(want, dense)
+    for kw, launches in (({}, 4), ({"routed": True, "routed_cap": None}, 6),
+                         ({"routed": True}, 6), ({"routed": True, "routed_cap": 1}, 6)):
+        before = gather_rows.launches
+        got = store.gather(ids, **kw)
+        assert gather_rows.launches == before + launches, kw
+        assert torch.equal(got, want), kw
+    assert int(store.last_routed_overflow) > 0
+
+
+def test_sharded_shard_gather_matches_plain(cuda):
+    """K2's ``gather_rows`` on each L1 shard, the L0 block and the pinned
+    cold rows, with the ids a lookup sends each, bitwise its plain version."""
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+
+    _, _, store, _ = _sharded_setup(cuda)
+    rng = np.random.default_rng(2)
+    for table in [store.rep, store.cold, *store.hot.shards]:
+        ids = torch.from_numpy(rng.integers(-1, table.shape[0] + 3, 3000).astype(np.int32)).to(cuda)
+        assert torch.equal(gather_rows(table, ids), gather_rows_plain(table, ids))
+
+
+@pytest.mark.parametrize("seed_sharding", ["data", "all"])
+def test_sharded_trainer_step_rows_equal_replicated(cuda, seed_sharding):
+    """One ``DistributedTrainer`` step on the logical ``(2, 2)`` mesh: its
+    workers' ids and gathered rows bitwise the same step's over the
+    replicated store; K1 2 launches per worker, K2 4 per feature group."""
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE, make_mesh
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+
+    topo, _, store, replicated = _sharded_setup(cuda)
+    labels = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 10, topo.node_count).astype(np.int32)).to(cuda)
+    issued = {}
+    for name, feat in (("sharded", store), ("replicated", replicated)):
+        model = GraphSAGE(32, 64, 10, num_layers=2).to(cuda)
+        trainer = DistributedTrainer(
+            make_mesh(data=2, feature=2, devices=[cuda] * 4),
+            GraphSageSampler(topo, [12, 8], seed=4, device=cuda), feat, model,
+            torch.optim.Adam(model.parameters(), lr=1e-3), local_batch=128,
+            seed_sharding=seed_sharding)
+        trainer.init(0)
+        issue = trainer._issue
+        issued[name] = []
+        trainer._issue = lambda *a, _i=issue, _l=issued[name]: _l.append(_i(*a)) or _l[-1]
+        hops, k2 = uniform_hop.launches, gather_rows.launches
+        loss = trainer.step(np.random.default_rng(5).integers(0, topo.node_count,
+                                                              trainer.global_batch), labels, 9)
+        assert np.isfinite(float(loss))
+        if name == "sharded":
+            assert uniform_hop.launches - hops == 2 * trainer.workers  # [12, 8]: 2 hops
+            assert gather_rows.launches - k2 == 4 * trainer.data_size
+    for a, b in zip(issued["sharded"][0].blocks, issued["replicated"][0].blocks):
+        assert torch.equal(a.n_id, b.n_id) and torch.equal(a.x, b.x)

@@ -62,6 +62,12 @@ def test_subpackage_names_are_the_top_level_ones():
     assert parallel_t.MeshTopo is qt.MeshTopo is qt.p2pCliqueTopo
     assert utils_t.Checkpointer is qt.Checkpointer
     assert utils_t.Timer is qt.Timer
+    import quiver_tpu as qj
+    from quiver_tpu_torch.feature import shard
+
+    for name in ("ShardedFeature", "ShardedTensor"):
+        assert name in qt.__all__ and name in qj.__all__
+        assert getattr(qt, name) is getattr(shard, name)
 
 
 @pytest.mark.parametrize("use_native", [True, False])

@@ -287,8 +287,25 @@ def test_constructor_errors_equal_jax(graph, tmp_path, kw, match):
     assert msg is not None and msg == msg_j and match in msg
 
 
-@pytest.mark.parametrize("what", ["sharded_feature", "mesh_sampler", "logical_workers",
-                                  "auto_alpha", "controller", "two_devices"])
+def test_trainer_takes_a_sharded_feature(graph):
+    """A ``ShardedFeature`` on the trainer's mesh is taken (its step is
+    held against JAX's in ``tests/test_torch_sharded_trainer.py``)."""
+    ei, feat, _ = graph
+    topo = qt.CSRTopo(edge_index=ei)
+    mesh = _cpu_mesh(2, 2)
+    feature = qt.ShardedFeature(mesh, device_cache_size="1M").from_cpu_tensor(feat)
+    model = GraphSAGE(4, 8, 4, num_layers=1)
+    trainer = DistributedTrainer(
+        mesh, qt.GraphSageSampler(topo, [3], device="cpu", seed=0, seed_capacity=8),
+        feature, model, torch.optim.SGD(model.parameters(), lr=0.1), local_batch=8,
+        seed_sharding="all")
+    trainer.init(0)
+    loss = trainer.step(np.arange(32), torch.from_numpy(graph[2].astype(np.int32)), 0)
+    assert np.isfinite(float(loss)) and trainer.last_tier_hits.tolist()[1] > 0
+
+
+@pytest.mark.parametrize("what", ["mesh_sampler", "logical_workers", "auto_alpha",
+                                  "controller", "two_devices"])
 def test_unported_features_raise(graph, what):
     ei, feat, _ = graph
     topo = qt.CSRTopo(edge_index=ei)
@@ -297,16 +314,11 @@ def test_unported_features_raise(graph, what):
     model = GraphSAGE(4, 8, 4, num_layers=1)
     mesh, kw = _cpu_mesh(2), {}
 
-    class Sharded:  # a store whose hot tier is sharded across the mesh
-        cache_policy = "mesh_shard"
-
     class MeshSampler:  # a sampler whose topology is partitioned
         topo_sharding = "mesh"
         sizes = (3,)
 
-    if what == "sharded_feature":
-        feature = Sharded()
-    elif what == "mesh_sampler":
+    if what == "mesh_sampler":
         sampler = MeshSampler()
     elif what == "two_devices":
         mesh = qt.make_mesh(devices=["cpu", "meta"])
