@@ -230,6 +230,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    printed. (c) One worker's hops replayed on its draws against
    ``uniform_hop_plain`` and ``gather_rows`` on the L0 block, each L1 shard
    and the pinned cold rows against ``gather_rows_plain``, bitwise.
+9g. the topology partitioned over logical meshes of this card and the
+   distributed samplers; every check names itself on stderr first. (a)
+   ``bench_sampler.py --topo-sharding mesh``: the serving graph on ``(1,
+   4)``, [15, 10, 5], a batch of 2048 split over the 4 workers,
+   ``routed_alpha`` 2.0, uniform, weighted (its exp(N(0,1)) weights) and
+   temporal (phase 7's timestamped copy): exactly one owner-side K1
+   ``select`` (K3 ``wselect`` when weighted) per owner per hop and no fused
+   hop, each call bitwise its plain version, every worker's ids and edges
+   bitwise the replicated sampler's (``uniform_hop`` / ``weighted_hop`` /
+   the temporal ``select``) on its block and draws, a cap of 1 and no cap
+   bitwise the planned budget (the first overflows, the second does not);
+   edges/s in turns with the replicated sampler (a, b, b, a), the
+   partition's bytes, the owner-side kernel's device ms beside its bound at
+   the calls' shapes, and the idle share of 5 profiled calls. (b)
+   ``DistributedTrainer`` over a topology-sharded sampler at phase 9f
+   (b)'s configuration under ``seed_sharding="all"``: 3 + 10 steps
+   (steps/s, peak memory), exactly 12 ``select`` and 8 ``gather_rows`` a
+   step, 5 profiled steps; one step's owner-side calls against
+   ``select_plain``; one step's ids and rows bitwise the replicated
+   topology's; 3 steps' losses as the main path runs and under
+   deterministic kernels (bitwise, within the spread rule). (c)
+   ``DistHeteroSampler`` on phase 9c's MAG-shaped graph at
+   ``bench_rgcn.py``'s defaults on ``(1, 4)``, uniform and weighted: exact
+   launches, the owner-side calls against their plain versions, every
+   worker bitwise ``HeteroGraphSampler`` on its block with the same draws,
+   one R-GCN step on a worker's block against the CPU's.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -299,9 +325,10 @@ KERNELS = ("select", "gather", "wselect")
 ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather",
            "tiered_gather_dequant", "wselect", "weighted_hop")
 SELECT_BOUND_RULE = (
-    "8 B start + 4 B count per row; 4 B offset and 4 B output per lane; one "
-    "32 B sector for each distinct sector of indices that the selected "
-    "lanes touch (replayed)"
+    "4 B count per row and 4 B output per lane; 8 B start per row of count "
+    "> 0 and 4 B offset per lane below its row's count (the kernel reads "
+    "neither for the other lanes); one 32 B sector for each distinct "
+    "sector of indices that the selected lanes touch (replayed)"
 )
 HOP_BOUND_RULE = (
     "4 B seed + 4 B count per row, 4 B num per lead, 4 B output per lane; "
@@ -320,9 +347,11 @@ GATHER_BOUND_RULE = (
     "valid id also reads its 4 B scale, and each output row is 4F bytes"
 )
 WSELECT_BOUND_RULE = (
-    "8 B start + 4 B deg per row; 4 B u and two 4 B outputs per lane; one "
-    "32 B sector for each distinct sector of cum_weights and of indices "
-    "that this call's searches and selects touch"
+    "8 B start + 4 B deg per row; two 4 B outputs per lane; 4 B u per "
+    "searching lane (a lane below k of a row of degree > k: the only "
+    "lanes that read u); one 32 B sector for each distinct sector of "
+    "cum_weights and of indices that this call's searches and selects "
+    "touch (the row total's sector only where the kernel scales u)"
 )
 WHOP_BOUND_RULE = (
     "4 B seed + 4 B count per row, 4 B num per lead, 4 B output per lane; "
@@ -342,8 +371,9 @@ K3_LIBRARY = (
 )
 WSELECT_PROBE_RULE = (
     "as WSELECT_BOUND_RULE, but one 32 B sector for every probe (each "
-    "searching row's total, each of the `iters` bisection probes of each "
-    "searching lane) and every indices load, shared or not"
+    "searching row's total where the kernel scales u, each of the `iters` "
+    "bisection probes of each searching lane) and every indices load, "
+    "shared or not"
 )
 
 
@@ -849,6 +879,19 @@ def h2d_rate() -> float:
     return src.numel() * 4 / (ms * 1e-3)
 
 
+def select_bytes(start, offs, count) -> tuple[int, int]:
+    """SELECT_BOUND_RULE's bytes of one ``select`` call on these
+    arguments, and the distinct sectors of ``indices`` it touches."""
+    import torch
+
+    S, k = offs.shape
+    lane = torch.arange(k, device=offs.device)[None, :] < count[:, None]
+    sectors = distinct_sectors((start[:, None] + offs.to(torch.int64))[lane], 4)
+    nbytes = (S * 4 + S * k * 4 + 8 * int((count > 0).sum()) + 4 * int(lane.sum())
+              + SECTOR * sectors)
+    return nbytes, sectors
+
+
 def time_select(dev_topo, seeds, k, g):
     """K1's select entry at one hop's shapes, in turns with the stock
     ``index_select`` of the drawn slots, beside its plain version and its
@@ -869,8 +912,7 @@ def time_select(dev_topo, seeds, k, g):
     t = in_turns(lambda: select(tabs, start, offs, count),
                  lambda: torch.index_select(dev_topo.indices, 0, pos))
     plain_ms = cuda_ms(lambda: select_plain(tabs, start, offs, count))
-    sectors = distinct_sectors(pos[lane.reshape(-1)], 4)
-    nbytes = S * 12 + S * k * 8 + SECTOR * sectors
+    nbytes, sectors = select_bytes(start, offs, count)
     return {"ms": t["ms"], "ms_turns": t["ms_turns"], "plain_ms": plain_ms,
             "stock_ms": t["yard_ms"], "stock_turns": t["yard_turns"],
             "ratio_to_stock": t["ratio"], "library_ms": None,
@@ -1090,11 +1132,14 @@ def time_lookup(feat, ids, pcie_bytes_per_s, iters: int, reps: int):
             "iters": iters, "reps": reps}
 
 
-def wselect_sectors(dev_topo, start, deg, u, k):
-    """Replay K3's searches (scaled draws, no eid lane) and count the 32 B
-    sectors of ``cum_weights`` and ``indices`` they touch: every probe and
-    load, and the distinct ones. Positions // 8 are sectors, since a 4 B
-    array's allocation is sector-aligned."""
+def wselect_sectors(dev_topo, start, deg, u, k, scale_u: bool = True):
+    """Replay K3's searches (draws scaled by the row totals, or already
+    scaled when not ``scale_u``; no eid lane) and count the 32 B sectors of
+    ``cum_weights`` and ``indices`` they touch: every probe and load, and
+    the distinct ones; and the searching lanes, the only ones that read
+    ``u``. The row total is probed only where the kernel scales ``u``.
+    Positions // 8 are sectors, since a 4 B array's allocation is
+    sector-aligned."""
     import torch
 
     cw, iters = dev_topo.cum_weights, dev_topo.search_iters
@@ -1104,9 +1149,9 @@ def wselect_sectors(dev_topo, start, deg, u, k):
     loads = [(start[:, None] + i[None, :])[take]]  # take-all selects
     rows = d > k
     s, dd = start[rows][:, None], d[rows][:, None]
-    probes = [(s + dd - 1).reshape(-1)]  # the row totals
+    probes = [(s + dd - 1).reshape(-1)] if scale_u else []  # the row totals
     lo, hi = s.expand(-1, k), (s + dd - 1).expand(-1, k)
-    uu = u[rows] * cw[s + dd - 1]
+    uu = u[rows] * cw[s + dd - 1] if scale_u else u[rows]
     for _ in range(iters):
         mid = (lo + hi) // 2
         probes.append(mid.reshape(-1))
@@ -1117,7 +1162,16 @@ def wselect_sectors(dev_topo, start, deg, u, k):
     return {"cw_probes": int(probes.numel()),
             "cw_sectors": distinct_sectors(probes, 4),
             "index_loads": int(loads.numel()),
-            "index_sectors": distinct_sectors(loads, 4)}
+            "index_sectors": distinct_sectors(loads, 4),
+            "searching_lanes": int(rows.sum()) * k}
+
+
+def wselect_bytes(sec, rows: int, k: int) -> tuple[int, int]:
+    """WSELECT_BOUND_RULE's bytes of one ``wselect`` call of ``rows`` x
+    ``k`` lanes from its :func:`wselect_sectors`, and WSELECT_PROBE_RULE's."""
+    dense = rows * 12 + rows * k * 8 + sec["searching_lanes"] * 4
+    return (dense + SECTOR * (sec["cw_sectors"] + sec["index_sectors"]),
+            dense + SECTOR * (sec["cw_probes"] + sec["index_loads"]))
 
 
 def time_wselect(dev_topo, seeds, k, g, iters_timed: int = 200):
@@ -1141,9 +1195,7 @@ def time_wselect(dev_topo, seeds, k, g, iters_timed: int = 200):
     ms = cuda_ms(lambda: wselect(*args), iters=iters_timed)
     plain_ms = cuda_ms(lambda: wselect_plain(*args), iters=iters_timed)
     sec = wselect_sectors(dev_topo, start, deg, u, k)
-    dense = S * 12 + S * k * 12
-    nbytes = dense + SECTOR * (sec["cw_sectors"] + sec["index_sectors"])
-    probe_bytes = dense + SECTOR * (sec["cw_probes"] + sec["index_loads"])
+    nbytes, probe_bytes = wselect_bytes(sec, S, k)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
             "bound_share": nbytes / HBM_BYTES_PER_S * 1e3 / ms,
@@ -2194,7 +2246,8 @@ def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int =
     order, from ``--seed``) samples at [15, 10, 5] with ``time_window``;
     times ``batches`` calls after one warm-up, then the window search
     (``temporal_window_counts``) alone at each hop's frontier size; every
-    edge of the last batch must be an in-window edge of its node."""
+    edge of the last batch must be an in-window edge of its node. Returns
+    ``(result, the timestamped CSRTopo)`` (phase 9g samples it again)."""
     import numpy as np
     import torch
 
@@ -2259,7 +2312,7 @@ def sampler_temporal_phase(topo, args, card, window=(0.25, 0.75), batches: int =
             "frontier_sizes": [adj.size[1] for adj in reversed(out.adjs)],
             "window_search_ms": search_ms,
             "window_search_ms_per_batch": sum(search_ms),
-            "launches": launches, "edges_checked": checked, "card": card}
+            "launches": launches, "edges_checked": checked, "card": card}, topo_t
 
 
 # -- phases 8 and 9: train ---------------------------------------------------
@@ -2386,7 +2439,9 @@ def profiled_idle(run_steps, steps: int, step_ms: float, names=()) -> dict:
     """``steps`` more steps under ``torch.profiler``: busy is the union of
     the device intervals, the idle share is against ``step_ms`` (the
     unprofiled run's), and the kernels whose names hold one of ``names``
-    are summed apart, as phase 9b reads them."""
+    are summed apart, as phase 9b reads them. Device launches are the
+    kernels and copies the profiler saw on the card."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2396,7 +2451,10 @@ def profiled_idle(run_steps, steps: int, step_ms: float, names=()) -> dict:
     busy = device_union_ms(prof, steps)
     check(busy > 0, "the profiler saw the card")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not annotation(e))
     return {"steps": steps, "device_busy_ms_per_step": busy,
+            "device_launches_per_step": launches / steps,
             "device_summed_ms_per_step": sum(kernels.values()),
             "idle_share": 1 - busy / step_ms, "step_ms": step_ms,
             "port_kernels_ms_per_step": {n: sum(ms for k, ms in kernels.items() if n in k)
@@ -4649,17 +4707,22 @@ def multichip_setup():
     return topo, x, labels
 
 
-def multichip_trainer(topo, store, seed_sharding):
+def multichip_trainer(topo, store, seed_sharding, topo_sharding="replicated"):
     """``DistributedTrainer`` on the ``(2, 2)`` logical mesh at the twin's
     width: GraphSAGE 256 x 3, Adam 1e-3, local batch 256, the default
-    (worst-case) caps, ``replicate_budget=MULTI_L0``; ``init(0)``."""
+    (worst-case) caps, ``replicate_budget=MULTI_L0``; ``init(0)``. With
+    ``topo_sharding="mesh"`` the sampler's topology is partitioned over
+    the mesh's feature axis (phase 9g)."""
     import torch
 
     from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE
 
-    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, device="cuda")
+    mesh = logical_mesh(2, 2)
+    where = ({"device": "cuda"} if topo_sharding == "replicated"
+             else {"topo_sharding": "mesh", "mesh": mesh})
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, **where)
     model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES, num_layers=len(MULTI_FANOUT))
-    trainer = DistributedTrainer(logical_mesh(2, 2), sampler, store, model.to("cuda"),
+    trainer = DistributedTrainer(mesh, sampler, store, model.to("cuda"),
                                  torch.optim.Adam(model.parameters(), lr=1e-3),
                                  local_batch=MULTI_BATCH, seed_sharding=seed_sharding,
                                  replicate_budget=MULTI_L0)
@@ -4909,6 +4972,490 @@ def sharded_phase(topo, feat_rep, pcie, card):
     return launches, k1_rows, k2_a + k2_b, result
 
 
+# -- phase 9g: the mesh-sharded topology and distributed sampling ---------------
+
+# benchmarks/bench_sampler.py --topo-sharding mesh at its defaults: one
+# global batch split over the mesh's workers, worst-case caps
+DIST_MESH, DIST_FANOUT, DIST_BATCH, DIST_ALPHA = (1, 4), [15, 10, 5], 2048, 2.0
+DIST_KEY, DIST_CALLS = 11, 3  # the sample calls' key; calls per timed turn
+DIST_WINDOW = (0.25, 0.75)  # phase 7's window
+DIST_HETERO_ALPHA = 2.0
+
+
+def step9g(what: str) -> None:
+    """Name a phase 9g check on stderr before it runs."""
+    log(f"phase 9g check: {what}")
+
+
+@contextlib.contextmanager
+def owner_calls():
+    """Every owner-side K1 ``select`` and K3 ``wselect`` call of the
+    distributed samplers inside the block, with its arguments and outputs
+    (the wrappers still launch and count)."""
+    from quiver_tpu_torch.sampling import dist
+
+    calls, orig = [], {"select": dist.select, "wselect": dist.wselect}
+
+    def recording(name):
+        def call(*args, **kwargs):
+            out = orig[name](*args, **kwargs)
+            calls.append((name, args, kwargs, out))
+            return out
+        return call
+
+    dist.select, dist.wselect = recording("select"), recording("wselect")
+    try:
+        yield calls
+    finally:
+        dist.select, dist.wselect = orig["select"], orig["wselect"]
+
+
+def owner_call_rows(calls, what: str) -> tuple[list, dict]:
+    """Each recorded owner-side call against its plain version on the same
+    arguments (bitwise), and the calls' bytes by SELECT_BOUND_RULE /
+    WSELECT_BOUND_RULE at their shapes (``F * cap`` rows, plus the
+    fallback's, by ``k``). Returns ``(check rows, bound)``."""
+    from types import SimpleNamespace
+
+    from quiver_tpu_torch.ops.kernels.fused import select_plain, wselect_plain
+
+    rows, nbytes, shapes = [], 0, []
+    for name, args, kwargs, out in calls:
+        if name == "select":
+            tables, start, offs, count = args
+            want = select_plain(tables, start, offs, count)
+            S, k = offs.shape
+            nbytes += select_bytes(start, offs, count)[0]
+        else:
+            indices, cw, start, deg, u, iters = args
+            want = wselect_plain(*args, **kwargs)
+            S, k = u.shape
+            sec = wselect_sectors(SimpleNamespace(cum_weights=cw, search_iters=iters),
+                                  start, deg, u, k, scale_u=kwargs.get("scale_u", True))
+            nbytes += wselect_bytes(sec, S, k)[0]
+        ok = all(equal(g, w) for g, w in zip(out, want))
+        check(ok, f"{what}: owner-side {name} ({S} x {k}) == {name}_plain")
+        shapes.append([S, k])
+        rows.append({"case": f"{what}: owner-side {name}, {S} x {k}", "match": ok,
+                     "max_abs_err": max_err(out, want)})
+    return rows, {"calls": len(calls), "shapes": shapes, "bound_bytes": nbytes,
+                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def dist_sampler_case(topo, kind: str, card) -> tuple[dict, list, dict]:
+    """(a) One draw of ``bench_sampler.py --topo-sharding mesh`` on the
+    logical mesh ``DIST_MESH``: launches, workers bitwise the replicated
+    sampler, the cap-1 and uncapped budgets, the owner-side calls against
+    their plain versions, and edges/s. The routing's cost is the group
+    entry (``sample_group`` on the packed device seeds, no host read) in
+    turns with the replicated sampler's ``sample_padded`` per worker on
+    the same seeds and draws; the public ``sample`` (host packing, the
+    copy to the card, the counts read back) is timed apart. 5 profiled
+    calls of each entry. Returns ``(launches, check rows, result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.ops.sample import seeded_generator
+
+    t0 = time.time()
+    kw = {"uniform": {}, "weighted": {"weighted": True},
+          "temporal": {"time_window": DIST_WINDOW}}[kind]
+    entry = "wselect" if kind == "weighted" else "select"
+    hop = {"uniform": "uniform_hop", "weighted": "weighted_hop", "temporal": "select"}[kind]
+    smp = GraphSageSampler(topo, DIST_FANOUT, topo_sharding="mesh", mesh=logical_mesh(*DIST_MESH),
+                           routed_alpha=DIST_ALPHA, seed=0, **kw)
+    W = smp.workers
+    cap = max(-(-DIST_BATCH // W), 128)
+    rep = GraphSageSampler(topo, DIST_FANOUT, device="cuda", seed_capacity=cap, seed=0,
+                           kernel="pallas", **kw)
+    setup_s = time.time() - t0
+    seeds = np.random.default_rng(9).integers(0, topo.node_count, DIST_BATCH)
+    packed = torch.from_numpy(smp.shard_seeds(seeds, cap)).to("cuda")
+    nums = [int(v) for v in (packed >= 0).sum(1)]
+    num_dev = (packed >= 0).sum(1, dtype=torch.int32)
+    # worker w of a call keyed DIST_KEY draws from fold_key(DIST_KEY, w):
+    # the seed of seeded_generator(device, DIST_KEY, w)
+    gens = [seeded_generator("cuda", DIST_KEY, w) for w in range(W)]
+    smp.sample(seeds, key=1)  # warm-up
+    sync()
+    reset_launches()
+    with owner_calls() as calls:
+        out = smp.sample(seeds, key=DIST_KEY)
+        sync()
+    launches = read_launches()
+    L = len(DIST_FANOUT)
+    step9g(f"(a) {kind}: exactly {L * DIST_MESH[1]} {entry} launches a sample, no fused hop")
+    expect_launches(launches, {entry: L * DIST_MESH[1]}, f"distributed {kind} sample")
+    step9g(f"(a) {kind}: every owner-side {entry} bitwise {entry}_plain")
+    rows, bound = owner_call_rows(calls, f"distributed {kind} sample")
+    del calls
+    overflow = smp.last_sample_overflow.tolist()
+    n_id = out.n_id.reshape(W, -1)
+
+    def replicated():
+        return [rep.sample_padded(packed[w], nums[w], generator=gens[w]) for w in range(W)]
+
+    def group():
+        return smp.sample_group(packed, num_dev, generators=gens)
+
+    reset_launches()
+    want = replicated()
+    sync()
+    step9g(f"(a) {kind}: the replicated sampler runs {L} {hop} launches a worker")
+    expect_launches(read_launches(), {hop: L * W}, f"replicated {kind} sample")
+    step9g(f"(a) {kind}: every worker's n_id and edge_index bitwise the replicated sampler's")
+    same = all(equal(n_id[w], want[w][0]) and all(
+        equal(a.edge_index.reshape(2, W, -1)[:, w], b.edge_index)
+        for a, b in zip(out.adjs, want[w][2])) for w in range(W))
+    check(same, f"distributed {kind} sample == the replicated sampler per worker")
+    rows.append({"case": f"distributed {kind} sample, {W} workers x {cap} seeds: ids and "
+                         "edges against the replicated sampler", "match": same,
+                 "max_abs_err": 0})
+    budgets = {}
+    for label, alpha in (("cap 1", 1e-9), ("uncapped", None)):
+        smp.routed_alpha = alpha
+        got = smp.sample(seeds, key=DIST_KEY)
+        budgets[label] = smp.last_sample_overflow.tolist()
+        step9g(f"(a) {kind}: the {label} budget gives the same sample")
+        check(equal(got.n_id, out.n_id) and all(equal(a.edge_index, b.edge_index)
+                                                for a, b in zip(got.adjs, out.adjs)),
+              f"distributed {kind} sample, {label} budget == the planned one")
+    smp.routed_alpha = DIST_ALPHA
+    step9g(f"(a) {kind}: a cap of 1 overflows, the uncapped budget does not")
+    check(sum(budgets["cap 1"]) > 0 and sum(budgets["uncapped"]) == 0,
+          f"distributed {kind} overflow by budget {budgets}")
+    # edges/s: the group entry in turns with the replicated sampler (a, b,
+    # b, a) on the same device seeds and draws, which give the same sample
+    edges = int(sum(out.edge_counts))
+    rep_edges = int(torch.stack([c for r in want for c in r[4]]).sum())
+    check(rep_edges == edges, f"distributed {kind}: {edges} edges, replicated {rep_edges}")
+    step9g(f"(a) {kind}: the group entry on the packed seeds gives the public sample")
+    got = group()
+    check(equal(got[0].reshape(-1), out.n_id) and all(
+        equal(a.edge_index, b.edge_index.transpose(0, 1).reshape(2, -1))
+        for a, b in zip(out.adjs, got[2])),
+        f"distributed {kind}: sample_group == sample")
+    del got
+
+    def timed(fn):
+        sync()
+        a = time.perf_counter()
+        for _ in range(DIST_CALLS):
+            fn()
+        sync()
+        return (time.perf_counter() - a) / DIST_CALLS
+
+    public = lambda: smp.sample(seeds, key=DIST_KEY)  # noqa: E731
+    turns = [timed(group), timed(replicated), timed(replicated), timed(group)]
+    dist_s, rep_s = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    public_s = timed(public)
+    kernel = "wselect_kernel" if kind == "weighted" else "select_kernel"
+    step9g(f"(a) {kind}: the profiler sees the card")
+    prof = profiled_idle(lambda: [group() for _ in range(PROFILED_STEPS)], PROFILED_STEPS,
+                         dist_s * 1e3, (kernel,))
+    k_ms = prof["port_kernels_ms_per_step"][kernel]
+    check(k_ms > 0, f"distributed {kind}: the profiler saw {kernel}")
+    prof_public = profiled_idle(lambda: [public() for _ in range(PROFILED_STEPS)],
+                                PROFILED_STEPS, public_s * 1e3)
+    r = {"sizes": DIST_FANOUT, "batch": DIST_BATCH, "workers": W, "seed_cap": cap,
+         "caps": list(smp._caps_for(cap)), "routed_alpha": DIST_ALPHA,
+         "hop_caps": _hop_caps(smp, cap),
+         "launches": launches, "edges": edges, "sample_overflow": overflow,
+         "overflow_by_budget": budgets, "timed": "sample_group on the packed device "
+         "seeds (a) in turns with the replicated sample_padded per worker (b): a, b, b, a; "
+         "the public sample (host packing, copy, counts read) apart",
+         "dist_ms": dist_s * 1e3, "replicated_ms": rep_s * 1e3,
+         "ms_turns": [t * 1e3 for t in turns], "edges_per_s": edges / dist_s,
+         "replicated_edges_per_s": edges / rep_s, "ratio_to_replicated": dist_s / rep_s,
+         "public_sample_ms": public_s * 1e3, "public_edges_per_s": edges / public_s,
+         "public_idle_share": prof_public["idle_share"],
+         "device_launches_per_sample": prof["device_launches_per_step"],
+         "plan": {k: v for k, v in smp.topo.plan.items() if k != "shard_edges"},
+         "shard_edges": smp.topo.plan["shard_edges"],
+         f"{entry}_device_ms_per_sample": k_ms, "owner_side": bound,
+         "bound_share": bound["bound_ms"] / k_ms, "idle_share": prof["idle_share"],
+         "device_busy_ms_per_sample": prof["device_busy_ms_per_step"],
+         "top_kernels_ms_per_sample": prof["top_kernels_ms_per_step"],
+         "setup_s": setup_s, "seconds": time.time() - t0, "card": card}
+    log(f"distributed {kind} sample_group: {r['edges_per_s']:.4g} edges/s ({r['dist_ms']:.3f} "
+        f"ms) against the replicated {r['replicated_edges_per_s']:.4g} "
+        f"({r['replicated_ms']:.3f} ms); public sample {r['public_sample_ms']:.3f} ms; "
+        f"{entry} {k_ms:.4f} ms a sample (bound {bound['bound_ms']:.4f}); idle "
+        f"{r['idle_share']:.4f} ({r['device_launches_per_sample']:.0f} device launches); "
+        f"topology {smp.topo.plan['per_chip_bytes']} B a shard, "
+        f"{smp.topo.plan['replicated_bytes']} B replicated [{card}]")
+    return launches, rows, r
+
+
+def _hop_caps(smp, cap: int) -> list:
+    """The per-destination bucket capacity of each hop at seed capacity
+    ``cap`` (``None``: uncapped)."""
+    from quiver_tpu_torch.sampling.dist import routed_sample_cap
+
+    widths = (cap,) + tuple(smp._caps_for(cap))[:-1]
+    return [routed_sample_cap(S, smp.topo.num_shards, smp.routed_alpha) for S in widths]
+
+
+def dist_sampler_phase(topo, topo_t, card) -> tuple[dict, list, dict]:
+    """(a) over the serving graph (uniform, weighted) and phase 7's
+    timestamped copy (temporal). Returns ``(launches by kind, check rows
+    by entry, result by kind)``."""
+    import torch
+
+    launches, rows, result = {}, {"select": [], "wselect": []}, {}
+    for kind, g in (("uniform", topo), ("weighted", topo), ("temporal", topo_t)):
+        launches[kind], r_rows, result[kind] = dist_sampler_case(g, kind, card)
+        rows["wselect" if kind == "weighted" else "select"].extend(r_rows)
+        torch.cuda.empty_cache()
+    return launches, rows, result
+
+
+def topo_trainer_phase(card) -> tuple[dict, list, dict]:
+    """(b) ``DistributedTrainer`` over a topology-sharded sampler at
+    ``train_multichip``'s width on the ``(2, 2)`` logical mesh under
+    ``seed_sharding="all"``, over phase 9f's sharded store: 3 + 10 steps,
+    exact launches (``select`` 3 hops x 2 owners x 2 groups, ``gather_rows``
+    4 per group, no ``uniform_hop``), peak memory, 5 profiled steps; one
+    step's ids and rows bitwise the replicated topology's; 3 steps' losses
+    as the main path runs and under deterministic kernels (bitwise, and
+    within the spread rule). Returns ``(launches of the timed steps, the
+    owner-side check rows, result)``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import ShardedFeature
+
+    t0 = time.time()
+    topo, x, labels = multichip_setup()
+    store = ShardedFeature(logical_mesh(2, 2), device_cache_size=MULTI_L1, csr_topo=topo,
+                           replicate_budget=MULTI_L0).from_cpu_tensor(x)
+    del x
+    trainer = multichip_trainer(topo, store, "all", topo_sharding="mesh")
+    groups, L = trainer.data_size, len(MULTI_FANOUT)
+    rng = np.random.default_rng(1)
+    n = topo.node_count
+    for i in range(MULTI_WARMUP):
+        trainer.step(rng.integers(0, n, trainer.global_batch), labels, i)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for i in range(MULTI_STEPS):
+        seeds = rng.integers(0, n, trainer.global_batch)
+        a = time.perf_counter()
+        losses.append(trainer.step(seeds, labels, 10 + i))
+        sync()
+        times.append(time.perf_counter() - a)
+    launches = read_launches()
+    k1, k2 = L * trainer.feature_size * groups, 4 * groups
+    step9g(f"(b) exactly {k1} select and {k2} gather_rows launches a step, no uniform_hop")
+    expect_launches(launches, {"select": k1 * MULTI_STEPS, "gather_rows": k2 * MULTI_STEPS},
+                    "topology-sharded trainer steps")
+    losses = [float(v) for v in losses]
+    step9g("(b) finite step losses")
+    check(all(math.isfinite(v) for v in losses), "topology-sharded trainer losses")
+    step_ms = trimmed_mean(times) * 1e3
+    r = {"workers": trainer.workers, "global_batch": trainer.global_batch,
+         "caps": list(trainer.caps), "warmup": MULTI_WARMUP, "steps": MULTI_STEPS,
+         "step_ms_trimmed_mean": step_ms, "steps_per_s": 1e3 / step_ms,
+         "launches": launches, "launches_per_step": {"select": k1, "gather_rows": k2},
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "loss_first_last": [losses[0], losses[-1]],
+         "sample_overflow_last_step": trainer.last_sample_overflow.tolist(),
+         "routed_overflow_last_step": int(trainer.last_routed_overflow)}
+    step9g("(b) the profiler sees the card")
+    prof = profiled_idle(lambda: [trainer.step(rng.integers(0, n, trainer.global_batch),
+                                               labels, 1000 + k)
+                                  for k in range(PROFILED_STEPS)],
+                         PROFILED_STEPS, step_ms, ("select_kernel", "gather_kernel"))
+    ours = prof.pop("port_kernels_ms_per_step")
+    prof["profiled_steps"] = prof.pop("steps")
+    del prof["step_ms"]
+    r.update(prof, k1_device_ms_per_step=ours["select_kernel"],
+             k2_device_ms_per_step=ours["gather_kernel"])
+    # one step's owner-side calls against their plain versions
+    with owner_calls() as calls:
+        trainer.step(rng.integers(0, n, trainer.global_batch), labels, 2000)
+        sync()
+    step9g("(b) one step's owner-side select calls bitwise select_plain")
+    rows, r["owner_side"] = owner_call_rows(calls, "topology-sharded trainer step")
+    del calls, trainer
+    # the same step over the replicated topology: ids and rows bitwise
+    issued = {}
+    for mode in ("mesh", "replicated"):
+        issued[mode] = []
+        multichip_losses(multichip_trainer(topo, store, "all", topo_sharding=mode), labels, 1,
+                         issued[mode])
+    step9g("(b) one step's ids and rows bitwise the replicated topology's")
+    pairs = list(zip(issued["mesh"][0].blocks, issued["replicated"][0].blocks))
+    check(len(pairs) == 4 and all(equal(a.n_id, b.n_id) and equal(a.x, b.x)
+                                  for a, b in pairs),
+          "topology-sharded trainer: ids and rows == the replicated topology's")
+    r["checked_rows_per_step"] = sum(int((a.n_id >= 0).sum()) for a, _ in pairs)
+    del issued, pairs
+    runs = {}
+    for mode in ("main path", "deterministic"):
+        ctx = deterministic_algorithms() if mode == "deterministic" else contextlib.nullcontext()
+        with ctx:
+            runs[mode] = {name: [float(v) for v in multichip_losses(
+                multichip_trainer(topo, store, "all", topo_sharding=ts), labels,
+                MULTI_DET_STEPS)]
+                for name, ts in (("mesh", "mesh"), ("replicated", "replicated"),
+                                 ("replicated_again", "replicated"))}
+    det = runs["deterministic"]
+    spread = max(abs(a - b) for a, b in zip(det["replicated"], det["replicated_again"]))
+    ok, _worst = within_spread(det["mesh"], det["replicated"], spread)
+    step9g("(b) deterministic losses bitwise the replicated topology's and within the "
+           "spread rule")
+    check(ok and det["mesh"] == det["replicated"],
+          f"topology-sharded trainer: deterministic losses {det}")
+    main = runs["main path"]
+    r["losses"] = {"main_path": main, "deterministic": det,
+                   "main_path_max_diff": max(abs(a - b) for a, b in zip(main["mesh"],
+                                                                       main["replicated"])),
+                   "rule": "every step |mesh - replicated| <= 4 x max |replicated - "
+                           "replicated again| + 1e-6 x |loss|, and bitwise, checked under "
+                           "torch.use_deterministic_algorithms"}
+    r["config"] = ("examples/train_multichip.py defaults (as phase 9f (b)) with "
+                   "GraphSageSampler(topo_sharding='mesh', routed_alpha=2.0) on the same "
+                   "(2, 2) logical mesh, seed_sharding='all', phase 9f's ShardedFeature")
+    r["seconds"] = time.time() - t0
+    store.delete()
+    log(f"topology-sharded trainer: {r['steps_per_s']:.4g} steps/s ({step_ms:.3f} ms), idle "
+        f"share {r['idle_share']:.4f}, K1 select {r['k1_device_ms_per_step']:.4f} ms, K2 "
+        f"{r['k2_device_ms_per_step']:.4f} ms a step, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
+        f"hop overflow {r['sample_overflow_last_step']}, main-path loss distance "
+        f"{r['losses']['main_path_max_diff']:.3g} [{card}]")
+    return launches, rows, r
+
+
+def hetero_draw_fn(sampler):
+    """``draw_fn(worker, hop, edge_type, deg)``: deterministic draws (the
+    port's own, from a generator keyed by worker, hop and relation over
+    the degrees' shape), so the distributed and the replicated sampler
+    take the same ones."""
+    from quiver_tpu_torch.ops.sample import draw_u01, seeded_generator, uniform_offsets
+
+    def draw(w, hop, et, deg):
+        g = seeded_generator("cuda", 31, w, hop, sampler._rel_index[et])
+        k = sampler.sizes[hop][et]
+        if et in sampler.weighted_rels:
+            return draw_u01(deg.shape, k, g)
+        return uniform_offsets(deg, k, g)
+
+    return draw
+
+
+def dist_hetero_phase(card) -> tuple[dict, dict, dict]:
+    """(c) ``bench_rgcn.py``'s MAG-shaped graph at its defaults (fanouts
+    [8, 4], batch 512 split over the workers) through ``DistHeteroSampler``
+    on ``(1, 4)``, uniform and weighted: exact launches, every worker
+    bitwise ``HeteroGraphSampler`` on its block with the same draws, the
+    owner-side calls against their plain versions, and one R-GCN step on a
+    worker's block on the card against the CPU's. Returns ``(launches by
+    kind, check rows by entry, result)``."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import DistHeteroSampler, HeteroFeature, HeteroGraphSampler
+    from quiver_tpu_torch.models.rgcn import rgcn_schema
+
+    t0 = time.time()
+    topo, feats, labels_np, _rng = mag_graph()
+    wrng = np.random.default_rng(8)
+    for et in topo.edge_types:
+        topo.set_edge_weight(et, np.exp(wrng.normal(size=topo.relations[et].edge_count)))
+    feature = HeteroFeature.from_cpu_tensors(feats, device_cache_size="4G", device="cuda")
+    labels_all = torch.from_numpy(labels_np).to("cuda")
+    seeds = np.random.default_rng(10).integers(0, MAG_PAPERS, RGCN_BATCH)
+    launches, rows, result = {}, {"select": [], "wselect": []}, {}
+    for kind, weighted in (("uniform", False), ("weighted", True)):
+        smp = DistHeteroSampler(topo, RGCN_FANOUT, "paper", mesh=logical_mesh(*DIST_MESH),
+                                routed_alpha=DIST_HETERO_ALPHA, weighted=weighted, seed=0)
+        W = smp.workers
+        draw = hetero_draw_fn(smp)
+        smp.sample(seeds, draw_fn=draw)  # warm-up
+        sync()
+        cap = -(-RGCN_BATCH // W)
+        plans = smp._plan(max(cap, 128))
+        hops = sum(len(active) for active, _, _ in plans)
+        entry = "wselect" if weighted else "select"
+        reset_launches()
+        with owner_calls() as calls:
+            out = smp.sample(seeds, draw_fn=draw)
+            sync()
+        launches[kind] = read_launches()
+        step9g(f"(c) {kind}: exactly {hops * W} {entry} launches (relation hops x owners)")
+        expect_launches(launches[kind], {entry: hops * W}, f"distributed hetero {kind} sample")
+        step9g(f"(c) {kind}: every owner-side {entry} bitwise {entry}_plain")
+        r_rows, bound = owner_call_rows(calls, f"distributed hetero {kind} sample")
+        del calls
+        rep = HeteroGraphSampler(topo, RGCN_FANOUT, "paper", seed_capacity=out.batch_size,
+                                 weighted=weighted, seed=0, device="cuda")
+        step9g(f"(c) {kind}: every worker bitwise HeteroGraphSampler on its block")
+        same = True
+        for w, blk in enumerate(np.array_split(seeds, W)):
+            ref = rep.sample(blk, draw_fn=functools.partial(draw, w))
+            same &= all(equal(out.n_id[t].reshape(W, -1)[w], ref.n_id[t]) for t in ref.n_id)
+            for la, lb in zip(out.adjs, ref.adjs):
+                same &= all(equal(la.adjs[et].edge_index.reshape(2, W, -1)[:, w],
+                                  a.edge_index) for et, a in lb.adjs.items())
+        check(same, f"distributed hetero {kind} sample == HeteroGraphSampler per worker")
+        r_rows.append({"case": f"distributed hetero {kind} sample, {W} workers: ids and "
+                               "edges against HeteroGraphSampler", "match": same,
+                       "max_abs_err": 0})
+        rows[entry].extend(r_rows)
+        result[kind] = {"launches": launches[kind], "relation_hops": hops,
+                        "overflow_by_rel": {f"{h}:{'-'.join(et)}": v for (h, et), v in
+                                            smp.last_sample_overflow_by_rel.items()},
+                        "owner_side": bound, "plan": {
+                            k: v for k, v in smp.dev_topos.plan.items() if k != "relations"}}
+        if kind == "uniform":
+            # one R-GCN step on worker 0's block, card against CPU
+            w0 = smp.sample_per_worker(seeds, draw_fn=draw)[0]
+            x = feature[w0.n_id]
+            seed_ids = w0.n_id["paper"][:w0.batch_size]
+            model_args = (rgcn_schema(w0.adjs, {t: RGCN_F for t in topo.num_nodes}),
+                          RGCN_HIDDEN, RGCN_CLASSES, "paper", len(RGCN_FANOUT))
+            step9g("(c) one R-GCN step on a worker's block: card against CPU")
+            result["rgcn_parity"] = rgcn_parity(model_args, w0, x,
+                                                labels_all[seed_ids.clamp(min=0)],
+                                                seed_ids >= 0)
+        del smp, rep, out
+    result["config"] = ("bench_rgcn.py defaults: the MAG-shaped graph (200,000 papers, "
+                        "100,000 authors, 5,000 institutions), fanouts [8, 4], batch 512 "
+                        "over the (1, 4) logical mesh (128 a worker), routed_alpha 2.0; "
+                        "weighted: exp(N(0, 1)) weights on every relation")
+    result["seconds"] = time.time() - t0
+    log(f"distributed hetero: {result['seconds']:.1f}s; R-GCN parity loss rel err "
+        f"{result['rgcn_parity']['loss_rel_err']:.3g} [{card}]")
+    return launches, rows, result
+
+
+def dist_phase(topo, topo_t, card):
+    """Phase 9g (see the module docstring). Returns ``(launches by path,
+    check rows by entry, result)``."""
+    import torch
+
+    t0 = time.time()
+    l_a, rows, samplers = dist_sampler_phase(topo, topo_t, card)
+    l_b, rows_b, trainer = topo_trainer_phase(card)
+    torch.cuda.empty_cache()
+    l_c, rows_c, hetero = dist_hetero_phase(card)
+    torch.cuda.empty_cache()
+    rows["select"] += rows_b + rows_c["select"]
+    rows["wselect"] += rows_c["wselect"]
+    result = {"samplers": samplers, "trainer": trainer, "hetero": hetero,
+              "seconds": time.time() - t0}
+    log(f"distributed phase {result['seconds']:.1f}s [{card}]")
+    return {"sample": l_a, "trainer": l_b, "hetero": l_c}, rows, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5123,7 +5670,7 @@ def main() -> int:
     log(f"uniform sampler: {samp_u['edges_per_s']:.4g} sampled edges/s")
     samp_w = sampler_phase(topo, card, weighted=True)
     log(f"weighted sampler: {samp_w['edges_per_s']:.4g} sampled edges/s")
-    samp_t = sampler_temporal_phase(topo, args, card)
+    samp_t, topo_t = sampler_temporal_phase(topo, args, card)
     log(f"temporal sampler: {samp_t['edges_per_s']:.4g} sampled edges/s, "
         f"{samp_t['batch_ms']:.3f} ms per batch, window search "
         f"{samp_t['window_search_ms_per_batch']:.3f} ms of it")
@@ -5172,6 +5719,13 @@ def main() -> int:
     del epoch_feat, epoch_labels
     torch.cuda.empty_cache()
     lap("phase 9f (sharded store)")
+    # phase 9g: the topology partitioned over logical meshes of this card,
+    # the distributed samplers (homogeneous and typed) and
+    # DistributedTrainer over a topology-sharded sampler
+    launches_g, rows_g, dist = dist_phase(topo, topo_t, card)
+    del topo_t
+    torch.cuda.empty_cache()
+    lap("phase 9g (distributed sampling)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -5197,8 +5751,19 @@ def main() -> int:
         kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    samp_t["launches"]["select"],
                    "temporal sampler (and the offs/draw_fn seams)",
-                   sel + rows_h["select"], t_sel,
+                   sel + rows_h["select"] + rows_g["select"], t_sel,
                    {"stock_ms": t_sel["stock_ms"], "ratio_to_stock": t_sel["ratio_to_stock"],
+                    "dist_sample_launches": {k: launches_g["sample"][k]["select"]
+                                             for k in ("uniform", "temporal")},
+                    "topo_sharded_trainer_launches": launches_g["trainer"]["select"],
+                    "dist_hetero_launches": launches_g["hetero"]["uniform"]["select"],
+                    "owner_side": {
+                        **{k: {"device_ms_per_sample": dist["samplers"][k][
+                            "select_device_ms_per_sample"],
+                            **dist["samplers"][k]["owner_side"]}
+                           for k in ("uniform", "temporal")},
+                        "trainer": {"device_ms_per_step": dist["trainer"][
+                            "k1_device_ms_per_step"], **dist["trainer"]["owner_side"]}},
                     "shape": [t_sel["rows"], t_sel["k"]], "bound_rule": SELECT_BOUND_RULE,
                     "library": "none: its yardstick is the stock index_select "
                                "of the already-computed slots"},
@@ -5239,6 +5804,7 @@ def main() -> int:
                    {"shape": [t_win["ids"], t_win["row_bytes"]],
                     "sharded_trainer_launches": {
                         mode: v["gather_rows"] for mode, v in launches_s.items()},
+                    "topo_sharded_trainer_launches": launches_g["trainer"]["gather_rows"],
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
@@ -5290,8 +5856,13 @@ def main() -> int:
         kernel_row("wselect", "quiver_tpu_torch/ops/kernels/wselect.cu", k3,
                    serve_w["parity"]["launches"]["wselect"],
                    "weighted serving's single-query oracle (ladder parity)",
-                   wsel, t_wsel,
+                   wsel + rows_g["wselect"], t_wsel,
                    {"shape": [t_wsel["rows"], t_wsel["k"]],
+                    "dist_sample_launches": launches_g["sample"]["weighted"]["wselect"],
+                    "dist_hetero_launches": launches_g["hetero"]["weighted"]["wselect"],
+                    "owner_side": {"device_ms_per_sample": dist["samplers"]["weighted"][
+                        "wselect_device_ms_per_sample"],
+                        **dist["samplers"]["weighted"]["owner_side"]},
                     "iters": t_wsel["iters"],
                     "bound_rule": WSELECT_BOUND_RULE,
                     "probe_bound_ms": t_wsel["probe_bound_ms"],
@@ -5316,7 +5887,12 @@ def main() -> int:
           and launches_q["tiered_gather_dequant"] > 0
           and launches_qb["tiered_gather_dequant"] > 0
           and all(v["uniform_hop"] > 0 and v["gather_rows"] > 0
-                  for v in launches_s.values()),
+                  for v in launches_s.values())
+          and all(v[k] > 0 for k, v in (("select", launches_g["sample"]["uniform"]),
+                                        ("wselect", launches_g["sample"]["weighted"]),
+                                        ("select", launches_g["trainer"]),
+                                        ("select", launches_g["hetero"]["uniform"]),
+                                        ("wselect", launches_g["hetero"]["weighted"]))),
           "every kernel launched on its main path and every entry matched")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -5330,7 +5906,7 @@ def main() -> int:
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
                        "beyond_hbm": offload, "fused_trainer": fused,
-                       "sharded": sharded,
+                       "sharded": sharded, "distributed": dist,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -5359,6 +5935,7 @@ def main() -> int:
         for k, val in offload.items()}}), flush=True)
     print(json.dumps({"fused_trainer": fused}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"distributed": dist}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -11,6 +11,8 @@ PyTorch versions run instead.
 from .control import AlphaTuner, CacheController, CostModel, FreqSketch, SplitTuner
 from .core.config import CachePolicy, SampleMode, parse_size_bytes
 from .core.hetero import HeteroCSRTopo, RelCSR
+from .core.hetero_sharded import HeteroShardedTopology
+from .core.sharded_topology import ShardedTopology
 from .core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from .datasets import GraphDataset, load_dataset, planted_partition
 from .feature.feature import Feature, HeteroFeature
@@ -40,6 +42,8 @@ from .resilience import (
     Preemption,
     TransientFault,
 )
+from .sampling.dist import DistGraphSageSampler
+from .sampling.dist_hetero import DistHeteroSampler
 from .sampling.hetero import HeteroGraphSampler, HeteroLayer, HeteroSampleOutput
 from .sampling.saint import (
     SAINTEdgeSampler,
@@ -81,6 +85,8 @@ __all__ = [
     "DeadlineBatcher",
     "DegradedFeature",
     "DeviceTopology",
+    "DistGraphSageSampler",
+    "DistHeteroSampler",
     "DistributedTrainer",
     "EmbeddingRefresher",
     "FaultPlan",
@@ -98,6 +104,7 @@ __all__ = [
     "HeteroGraphSampler",
     "HeteroLayer",
     "HeteroSampleOutput",
+    "HeteroShardedTopology",
     "InferenceServer",
     "MeshTopo",
     "MetricSnapshot",
@@ -116,6 +123,7 @@ __all__ = [
     "ServingFleet",
     "ShardedFeature",
     "ShardedTensor",
+    "ShardedTopology",
     "SplitTuner",
     "StepTimeline",
     "TelemetryEndpoint",

@@ -40,7 +40,7 @@ from ..core.memory import to_pinned_host
 from ..core.topology import CSRTopo
 from ..obs.registry import ROUTED_OVERFLOW, TIER_HITS, MetricsRegistry
 from ..ops.kernels.gather import gather_rows, gather_rows_plain
-from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, Mesh
+from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, Mesh, axis_devices
 from ..parallel.routing import BucketRoute
 from ..utils.reorder import reorder_by_degree
 from ..utils.trace import get_logger
@@ -91,8 +91,7 @@ class ShardedTensor(KernelChoice):
         self.mesh = mesh
         self.axis = axis
         self.num_shards = mesh.shape[axis]
-        devices = mesh.devices if axis == FEATURE_AXIS else mesh.devices.T
-        self.member_devices = list(devices[0])
+        self.member_devices = axis_devices(mesh, axis)
         self.device = self.member_devices[0]
         self._kernel = validate_gather_kernel(kernel)
         # capped-bucket routed gather: capacity ceil(routed_alpha * L / F) per

@@ -54,6 +54,7 @@ __all__ = [
     "cdf_search",
     "draw_bits",
     "draw_u01",
+    "fold_key",
     "hop_draws",
     "rotate_offsets",
     "sample_layer",
@@ -69,14 +70,21 @@ __all__ = [
 _BITS = 2**62
 
 
+def fold_key(key: int, *words: int) -> int:
+    """A 63-bit seed mixed from the integer ``key`` and ``words`` through
+    numpy's SeedSequence (the role of JAX's ``fold_in``/``split``): nearby
+    inputs give unrelated seeds, and the same inputs the same seed."""
+    mixed = [int(w) & 0xFFFFFFFFFFFFFFFF for w in (key, *words)]
+    state = np.random.SeedSequence(mixed).generate_state(1, np.uint64)[0]
+    return int(state) & 0x7FFFFFFFFFFFFFFF
+
+
 def seeded_generator(device, *key: int) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded by the integer tuple
-    ``key`` (e.g. ``(seed, seq, layer)``), mixed through numpy's
-    SeedSequence so that nearby keys give unrelated streams."""
-    words = [int(k) & 0xFFFFFFFFFFFFFFFF for k in key]
-    state = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    """A ``torch.Generator`` on ``device`` seeded by ``fold_key(*key)`` of
+    the integer tuple ``key`` (e.g. ``(seed, seq, layer)``), so that nearby
+    keys give unrelated streams."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(state) & 0x7FFFFFFFFFFFFFFF)
+    g.manual_seed(fold_key(*key))
     return g
 
 

@@ -28,9 +28,12 @@ __all__ = [
     "FEATURE_AXIS",
     "Mesh",
     "MeshTopo",
+    "axis_devices",
+    "axis_groups",
     "can_device_access_peer",
     "init_distributed",
     "init_p2p",
+    "shard_seed_blocks",
     "make_mesh",
 ]
 
@@ -53,6 +56,38 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, devices={self.devices.tolist()})"
+
+
+def axis_devices(mesh: Mesh, axis: str) -> list:
+    """The devices of the members along ``axis`` (the first group's; a
+    sharded table or topology keeps one copy, which every group reads)."""
+    devices = mesh.devices if axis == FEATURE_AXIS else mesh.devices.T
+    return list(devices[0])
+
+
+def axis_groups(mesh: Mesh, axis: str) -> list[list[int]]:
+    """The groups of workers that span ``axis``: one list per slot of the
+    other axis, each the flat worker indices (row-major over the mesh's
+    axis names, JAX's ``_worker_index``) of its members in axis order."""
+    D, F = mesh.shape[DATA_AXIS], mesh.shape[FEATURE_AXIS]
+    if axis == FEATURE_AXIS:
+        return [[g * F + f for f in range(F)] for g in range(D)]
+    if axis == DATA_AXIS:
+        return [[d * F + g for d in range(D)] for g in range(F)]
+    raise ValueError(f"axis must be {DATA_AXIS!r} or {FEATURE_AXIS!r}, got {axis!r}")
+
+
+def shard_seed_blocks(seeds, workers: int, local_cap: int,
+                      cap_name: str = "capacity") -> np.ndarray:
+    """Split a global seed array into per-worker valid-prefix blocks
+    (``np.array_split``), padded to ``(workers, local_cap)`` with -1."""
+    seeds = np.asarray(seeds)
+    out = np.full((workers, local_cap), -1, np.int32)
+    for i, b in enumerate(np.array_split(seeds, workers)):
+        if len(b) > local_cap:
+            raise ValueError(f"per-worker block {len(b)} exceeds {cap_name} {local_cap}")
+        out[i, : len(b)] = b
+    return out
 
 
 def _cuda_devices() -> list[torch.device]:

@@ -114,7 +114,7 @@ class BucketRoute:
         self.overflow = self.member_overflow.sum(dtype=torch.int32)
         # the routed request ids, kept after the first exchange: a second
         # exchange through the same plan sends only its payload
-        self._recv_ids = None
+        self._requests = None
         if tape is not None:
             from ..obs.registry import ROUTED_OVERFLOW
 
@@ -147,13 +147,31 @@ class BucketRoute:
 
     # -- API ----------------------------------------------------------------
 
+    def requests(self) -> list:
+        """The flat ids that each owner serves in every exchange: member
+        ``d``'s ``(F * cap,)`` received bucket lanes, then (when the plan
+        has a fallback) every member's ``ov_budget`` overflow lanes; ``-1``
+        on dead lanes. Made at the first call and kept: every exchange
+        hands ``serve`` these same tensors, so an owner may compute what
+        it needs of its ids once per plan."""
+        if self._requests is None:
+            # (F_dst, F_src, cap): the all_to_all
+            recv = self._bucketize(self._sorted_ids, -1).transpose(0, 1)
+            reqs = [recv[d].reshape(-1) for d in range(self.num_shards)]
+            if self.ov_budget > 0:
+                ov_ids = self._compact_overflow(self._sorted_ids, -1).reshape(-1)
+                reqs = [torch.cat([r, ov_ids]) for r in reqs]
+            self._requests = reqs
+        return self._requests
+
     def exchange(self, serve, payload=None):
         """Route the planned ids (and the optional ``(F, L, ...)``
         ``payload``) to their owners, serve, and return ``(F, L, ...)``
         answers in the original lane order (zeros on invalid lanes).
 
         ``serve(member, ids[, payload])`` receives the flat ids that owner
-        ``member`` must answer (``-1`` on dead lanes) and the matching
+        ``member`` must answer (``-1`` on dead lanes; the tensor
+        ``requests()[member]``, the same in every exchange) and the matching
         payload, and returns one answer per id that is ZERO for ids the
         member does not own and for ids below 0: that masking is what
         makes the summed fallback exact. It is called once per member;
@@ -161,25 +179,20 @@ class BucketRoute:
         one call.
         """
         F, cap = self.num_shards, self.cap
-        if self._recv_ids is None:
-            self._recv_ids = self._bucketize(self._sorted_ids, -1).transpose(0, 1)
-        recv = self._recv_ids  # (F_dst, F_src, cap): the all_to_all
+        requests = self.requests()
         recv_pay = sorted_pay = None
         if payload is not None:
             sorted_pay = payload[self._members, self._order]
             recv_pay = self._bucketize(sorted_pay, 0).transpose(0, 1)
         ov = self.ov_budget > 0
-        if ov:
-            ov_ids = self._compact_overflow(self._sorted_ids, -1).reshape(-1)
-            ov_pay = (None if payload is None else
-                      self._compact_overflow(sorted_pay, 0).flatten(0, 1))
+        if ov and payload is not None:
+            ov_pay = self._compact_overflow(sorted_pay, 0).flatten(0, 1)
         mains, fallback = [], None
         for d in range(F):
-            req = recv[d].reshape(-1)
+            req = requests[d]
             pay = None if payload is None else recv_pay[d].flatten(0, 1)
-            if ov:
-                req = torch.cat([req, ov_ids])
-                pay = None if pay is None else torch.cat([pay, ov_pay])
+            if ov and pay is not None:
+                pay = torch.cat([pay, ov_pay])
             out = serve(d, req) if payload is None else serve(d, req, pay)
             mains.append(out[:F * cap])
             if ov:

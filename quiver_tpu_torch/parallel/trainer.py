@@ -53,13 +53,13 @@ from ..obs.registry import (
 )
 from ..obs.timeline import StepTimeline
 from ..obs.tracing import Tracer
-from ..ops.sample import seeded_generator
+from ..ops.sample import fold_key, seeded_generator
 from ..resilience.elastic import validate_resume_meta
 from ..resilience.faults import Preemption
 from ..resilience.guard import guard_verdict, guarded_update
 from ..sampling.sampler import Adj
 from ..utils.trace import get_logger, info_once
-from .mesh import DATA_AXIS, FEATURE_AXIS, Mesh
+from .mesh import DATA_AXIS, FEATURE_AXIS, Mesh, shard_seed_blocks
 from .pipeline import Batch, Prefetcher
 from .train import cross_entropy_on_seeds, init_model
 
@@ -97,18 +97,6 @@ def _metrics_report(metrics: MetricsRegistry, timeline: StepTimeline,
     return "\n".join(lines)
 
 
-_KEY_MASK = 0x7FFFFFFFFFFFFFFF
-
-
-def fold_key(key: int, *words: int) -> int:
-    """A 63-bit seed mixed from the integer ``key`` and ``words`` through
-    numpy's SeedSequence (the role of JAX's ``fold_in``/``split``): nearby
-    inputs give unrelated seeds, and the same inputs the same seed."""
-    mixed = [int(w) & 0xFFFFFFFFFFFFFFFF for w in (key, *words)]
-    state = np.random.SeedSequence(mixed).generate_state(1, np.uint64)[0]
-    return int(state) & _KEY_MASK
-
-
 class IssuedBlock(NamedTuple):
     """One worker's issued block: what the step's train half consumes."""
 
@@ -120,11 +108,14 @@ class IssuedBlock(NamedTuple):
 
 
 class IssuedStep(NamedTuple):
-    """A step's issued half: every worker's block, in worker order, and
-    the routed lookups' fallback-served lanes (int32 device scalar)."""
+    """A step's issued half: every worker's block, in worker order, the
+    routed lookups' fallback-served lanes (int32 device scalar) and the
+    routed hops' per hop (int32 ``(L,)``, a topology-sharded sampler's;
+    None: zeros)."""
 
     blocks: list
     routed_overflow: torch.Tensor
+    sample_overflow: torch.Tensor | None = None
 
 
 class DistributedTrainer:
@@ -132,10 +123,14 @@ class DistributedTrainer:
 
     Args (JAX's, in JAX's order, with a torch optimizer in ``tx``'s place):
       mesh: a :class:`~.mesh.Mesh` whose workers all sit on one device.
-      sampler: a ``GraphSageSampler`` (its topology on the mesh's device).
-        Its caps planned for ``local_batch`` are the step's: an auto
-        sampler is planned before the trainer is built (one ``sample``
-        call) and is neither planned nor regrown by the step.
+      sampler: a ``GraphSageSampler`` (its topology on the mesh's device),
+        or a ``topo_sharding="mesh"`` one (``DistGraphSageSampler``) over
+        this mesh's ``feature`` axis, which needs ``seed_sharding="all"``:
+        each feature group's workers then sample together, one routed hop
+        at a time (``sample_group``). Its caps planned for ``local_batch``
+        are the step's: an auto sampler is planned before the trainer is
+        built (one ``sample`` call) and is neither planned nor regrown by
+        the step.
       feature: a ``Feature`` (``device_replicate``: hot rows on the device,
         cold rows pinned on the host), or a
         :class:`~..feature.shard.ShardedFeature` over a mesh of the same
@@ -182,9 +177,9 @@ class DistributedTrainer:
         flight recorder that dumps a bundle when the guard skips a step.
 
     Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): a ``topo_sharding="mesh"`` sampler (A.11b), ``auto_alpha=True``
-    and a ``controller`` (A.11c), ``logical_workers`` (A.11d), and a mesh
-    whose workers sit on more than one distinct device (A.11e).
+    item): ``auto_alpha=True`` and a ``controller`` (A.11c),
+    ``logical_workers`` (A.11d), and a mesh whose workers sit on more than
+    one distinct device (A.11e).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -250,9 +245,6 @@ class DistributedTrainer:
                 "nothing to write to"
             )
         for unported, what, item in (
-            (getattr(sampler, "topo_sharding", "replicated") == "mesh",
-             "a topo_sharding='mesh' sampler (a topology partitioned "
-             "across cards)", "A.11b"),
             (logical_workers is not None,
              "logical_workers= (elastic mode)", "A.11d"),
             (bool(auto_alpha), "auto_alpha=True (the routing-budget tuner)",
@@ -271,6 +263,28 @@ class DistributedTrainer:
                 f"the mesh's workers sit on {len(devices)} devices; training "
                 "across distinct devices is not ported yet (ROADMAP A.11e)"
             )
+        # a topo_sharding="mesh" sampler routes each hop over the feature
+        # axis, so every mesh slot must be a worker over its own block
+        # ("data" would route a feature group's one frontier F times)
+        self.topo_sharded = getattr(sampler, "topo_sharding", "replicated") == "mesh"
+        if self.topo_sharded:
+            if self.seed_sharding != "all":
+                raise ValueError(
+                    "a topo_sharding='mesh' sampler requires "
+                    "seed_sharding='all' (every device a full sampling "
+                    "worker over its own seed block)"
+                )
+            if sampler.mesh is not mesh:
+                raise ValueError(
+                    "the sampler's mesh must be the trainer's mesh "
+                    "(the topology partition and the step program must "
+                    "agree on the feature axis)"
+                )
+            if sampler.axis != FEATURE_AXIS:
+                raise ValueError(
+                    f"topo_sharding='mesh' sampler must shard over the "
+                    f"'{FEATURE_AXIS}' axis, got {sampler.axis!r}"
+                )
         self._sharded = isinstance(feature, ShardedFeature)
         if self._sharded and feature.mesh.shape != mesh.shape:
             raise ValueError(
@@ -393,8 +407,10 @@ class DistributedTrainer:
 
     @property
     def last_sample_overflow(self):
-        """Registry metric ``sample.hop_overflow`` (zeros: a replicated
-        topology routes nothing)."""
+        """Registry metric ``sample.hop_overflow``: a topology-sharded
+        sampler's per-hop fallback-served lanes, summed over the feature
+        groups (``(steps, L)`` after ``epoch_scan``; zeros when the
+        topology is replicated)."""
         return self.metrics.value(SAMPLE_OVERFLOW)
 
     @last_sample_overflow.setter
@@ -561,12 +577,31 @@ class DistributedTrainer:
         rows = packed.reshape(self.workers, self.local_batch)
         return [(r, (r >= 0).sum(dtype=torch.int32)) for r in rows]
 
+    def sample_group(self, blocks, members, key: int):
+        """A feature group's sample over a topology-sharded sampler: its
+        members' blocks together, one routed hop at a time
+        (``sample_group``, no host read), worker ``w`` drawing from its
+        worker key's sample stream (or ``draw_fn``). Returns ``(n_id (F,
+        L), adjs with (F, 2, E) edge lists, per-hop overflow (L,))``."""
+        seeds = torch.stack([blocks[w][0] for w in members])
+        num = torch.stack([blocks[w][1] for w in members])
+        if self.draw_fn is None:
+            gens = [seeded_generator(self.device, fold_key(key, 1, w), 0) for w in members]
+            out = self.sampler.sample_group(seeds, num, generators=gens)
+        else:
+            out = self.sampler.sample_group(seeds, num, draw_fn=lambda i, l, deg: (
+                self.draw_fn(key, members[i], l, deg)))
+        return out[0], out[2], out[6]
+
     def _issue(self, packed, key: int) -> IssuedStep:
         """The issue half of the step keyed ``key``: every worker's block,
-        in worker order. With a routed lookup each feature group samples
-        its members' blocks first, then looks their frontiers up at once."""
+        in worker order. With a routed lookup or a topology-sharded
+        sampler each feature group samples its members' blocks first, then
+        looks their frontiers up (at once when routed)."""
         blocks = self._blocks(packed)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.topo_sharded:
+            return self._issue_groups(blocks, key)
         if not self._routed:
             return IssuedStep([self.issue_block(seeds, num, fold_key(key, 1, w),
                                                 self._worker_draw(key, w))
@@ -582,26 +617,49 @@ class DistributedTrainer:
             overflow = overflow + ov
         return IssuedStep(issued, overflow)
 
+    def _issue_groups(self, blocks, key: int) -> IssuedStep:
+        """:meth:`_issue` over a topology-sharded sampler: per feature
+        group, :meth:`sample_group`, then the lookup of the members'
+        frontiers (one routed lookup, or one per worker)."""
+        F = self.feature_size
+        issued = []
+        routed_ov = torch.zeros((), dtype=torch.int32, device=self.device)
+        sample_ov = 0
+        for g in range(self.data_size):
+            members = range(g * F, (g + 1) * F)
+            n_id, adjs, hop_ov = self.sample_group(blocks, members, key)
+            sample_ov = sample_ov + hop_ov
+            if self._routed:
+                xs, hits, ov = self._lookup(n_id)
+                routed_ov = routed_ov + ov
+            else:
+                xs, hits, _ = zip(*(self._lookup(n_id[i]) for i in range(F)))
+            for i, w in enumerate(members):
+                issued.append(IssuedBlock(
+                    n_id[i], xs[i], [Adj(a.edge_index[i], None, a.size, a.fanout)
+                                     for a in adjs], blocks[w][1], hits[i]))
+        return IssuedStep(issued, routed_ov, sample_ov)
+
     def _train(self, issued: IssuedStep, labels, key: int, inject: bool):
         """The train half of a step over its issued blocks."""
         outs = [self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labels,
                                  fold_key(key, 1, w), inject)
                 for w, b in enumerate(issued.blocks)]
         return self._update(outs, [b.tier_hits for b in issued.blocks],
-                            issued.routed_overflow)
+                            issued.routed_overflow, issued.sample_overflow)
 
     def _run_step(self, packed, labels, key: int, inject: bool):
         """The serial step: the issue half, then the train half and the
         update, in worker order."""
         return self._train(self._issue(packed, key), labels, key, inject)
 
-    def _update(self, outs, hits, routed_overflow):
+    def _update(self, outs, hits, routed_overflow, sample_overflow=None):
         """Sum the workers' gradient shares into ``.grad`` in worker order,
         take the guard's verdict before they mix (every worker's count),
         and step the optimizer. Returns ``(mean loss, the step's metrics
         dict)``, on the device: the tier hits summed over the workers (a
         feature group's members share one lookup under the psum flavour,
-        counted once) and the routed overflow."""
+        counted once), the routed overflow and the hops' overflow."""
         params = self._params()
         self.optimizer.zero_grad(set_to_none=True)
         bad = []
@@ -620,8 +678,9 @@ class DistributedTrainer:
             mtree = {
                 ROUTED_OVERFLOW: routed_overflow,
                 TIER_HITS: torch.stack(hits).sum(0, dtype=torch.int32),
-                SAMPLE_OVERFLOW: torch.zeros((len(self.sampler.sizes),),
-                                             dtype=torch.int32, device=dev),
+                SAMPLE_OVERFLOW: (torch.zeros((len(self.sampler.sizes),),
+                                              dtype=torch.int32, device=dev)
+                                  if sample_overflow is None else sample_overflow),
             }
         if self.nonfinite_guard:
             total_bad = torch.stack(bad).sum(dtype=torch.int32)
@@ -638,17 +697,19 @@ class DistributedTrainer:
 
     def init(self, key):
         """Sample one block (the JAX package's ``init`` does, so the
-        sampler's calls match its), initialise the model's parameters from
+        sampler's calls match its; over a topology-sharded sampler none,
+        as there JAX's builds empty blocks), initialise the model's parameters from
         ``key`` (an int seeding a host generator, or a generator; flax's
         initialisers, :func:`~.train.init_model`, drawn on its device) and
         reset the optimizer's state. Returns ``(model, optimizer)``, in the
         place of JAX's ``(params, opt_state)``."""
-        n = self.sampler.csr_topo.node_count
-        m = min(self.local_batch, n)
-        padded = np.full(self.local_batch, -1, np.int32)
-        padded[:m] = np.arange(m)
-        self.sampler.sample_padded(torch.from_numpy(padded).to(self.device), m,
-                                   generator=seeded_generator(self.device, 0))
+        if not self.topo_sharded:
+            n = self.sampler.csr_topo.node_count
+            m = min(self.local_batch, n)
+            padded = np.full(self.local_batch, -1, np.int32)
+            padded[:m] = np.arange(m)
+            self.sampler.sample_padded(torch.from_numpy(padded).to(self.device), m,
+                                       generator=seeded_generator(self.device, 0))
         gen = key if isinstance(key, torch.Generator) else \
             torch.Generator().manual_seed(int(key))
         # Module.to moves each parameter's data in place: the optimizer
@@ -661,16 +722,8 @@ class DistributedTrainer:
     def shard_seeds(self, seeds: np.ndarray):
         """Pack a global seed array into per-worker valid-prefix blocks,
         padded to ``(workers * local_batch,)`` with -1."""
-        seeds = np.asarray(seeds)
-        blocks = np.array_split(seeds, self.workers)
-        out = np.full((self.workers, self.local_batch), -1, np.int32)
-        for i, b in enumerate(blocks):
-            if len(b) > self.local_batch:
-                raise ValueError(
-                    f"per-device block {len(b)} exceeds local_batch {self.local_batch}"
-                )
-            out[i, : len(b)] = b
-        return out.reshape(-1)
+        return shard_seed_blocks(seeds, self.workers, self.local_batch,
+                                 "local_batch").reshape(-1)
 
     def _check_guard_trip(self) -> None:
         """Flight-recorder trigger: a guard trip (the guard skipped >= 1

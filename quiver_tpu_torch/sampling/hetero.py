@@ -37,11 +37,10 @@ from ..core.hetero import HeteroCSRTopo
 from ..core.memory import resolve_device
 from ..ops.reindex import masked_unique
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
-from ..utils.trace import get_logger
-from .sampler import Adj, _round_up
+from .sampler import Adj, _round_up, check_seed_range, read_counts, run_auto_caps
 
 __all__ = ["HeteroGraphSampler", "HeteroLayer", "HeteroSampleOutput",
-           "hetero_multilayer_sample"]
+           "hetero_multilayer_sample", "hetero_reindex_hop"]
 
 
 class HeteroLayer:
@@ -111,6 +110,71 @@ def _normalize_sizes(sizes, topo: HeteroCSRTopo):
     return out
 
 
+def hetero_reindex_hop(frontier, counts, samples, rel_fanouts, caps_next,
+                       eids=None):
+    """One typed hop's per-type dedup and ``Adj`` records.
+
+    ``frontier``/``counts`` map each node type to its ``(..., S_t)`` ids
+    and valid counts before the hop; ``samples`` each active relation to
+    its ``(..., S_dst, k)`` neighbours; ``caps_next`` each type to its
+    capacity after the hop; ``eids`` (optional) each relation to its
+    neighbours' edge ids. Every leading index is an independent sample
+    (the distributed sampler's group members).
+
+    Each type's new frontier is the previous one first (forced), then each
+    relation's samples of that source type in ``sorted(str)`` order,
+    deduplicated. Returns ``(new frontier, new counts, {edge_type: Adj},
+    unclipped uniques per type, overflow)``.
+    """
+    new_frontier, new_counts, locals_per_rel, layer_uniques = {}, {}, {}, {}
+    overflow = 0
+    for t, cap in caps_next.items():
+        blocks, valids, spans = [], [], {}
+        prev = frontier.get(t)
+        n_prev = 0
+        if prev is not None:
+            n_prev = prev.shape[-1]
+            blocks.append(prev)
+            lane = torch.arange(n_prev, device=prev.device)
+            num = torch.as_tensor(counts[t], device=prev.device)
+            valids.append((lane < num[..., None]) & (prev >= 0))
+        for et in sorted(samples, key=str):
+            if et[0] != t:
+                continue
+            flat = samples[et].flatten(-2)
+            spans[et] = (sum(b.shape[-1] for b in blocks), flat.shape[-1])
+            blocks.append(flat)
+            valids.append(flat >= 0)
+        uniq, num_u, local = masked_unique(torch.cat(blocks, -1),
+                                           torch.cat(valids, -1), cap,
+                                           num_forced=n_prev)
+        new_frontier[t] = uniq
+        new_counts[t] = num_u.clamp(max=cap)
+        layer_uniques[t] = num_u
+        overflow = overflow + (num_u - cap).clamp(min=0)
+        for et, (off, ln) in spans.items():
+            locals_per_rel[et] = local[..., off:off + ln]
+
+    # one padded Adj per relation: src = local id in the new src-type
+    # frontier, dst = row in the previous dst-type frontier (its local id
+    # next hop, the previous nodes being forced first)
+    adjs = {}
+    for et, k in rel_fanouts.items():
+        s_t, _, d_t = et
+        S = frontier[d_t].shape[-1]
+        col = locals_per_rel[et].unflatten(-1, (S, k))
+        row = torch.arange(S, dtype=torch.int32, device=col.device)[:, None]
+        row = torch.where(col >= 0, row, -1)
+        edge_index = torch.stack([col.flatten(-2), row.flatten(-2)], dim=-2)
+        e_id = None
+        if eids is not None:
+            # neighbours dropped by frontier-cap overflow must not leak
+            # their edge ids
+            e_id = torch.where(col >= 0, eids[et], -1).flatten(-2)
+        adjs[et] = Adj(edge_index, e_id, (caps_next[s_t], S), fanout=k)
+    return new_frontier, new_counts, adjs, layer_uniques, overflow
+
+
 def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
                              layer_plans, draw=None, bits=None,
                              weighted_rels=frozenset(), with_eid: bool = False):
@@ -152,53 +216,10 @@ def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
             if with_eid:
                 eids[et] = res[2]
 
-        # 2) per-type dedup: the previous frontier first (forced), then each
-        #    relation's samples of this source type, in sorted(str) order
-        new_frontier, new_counts, locals_per_rel, layer_uniques = {}, {}, {}, {}
-        for t, cap in caps_next.items():
-            blocks, valids, spans = [], [], {}
-            prev = frontier.get(t)
-            n_prev = 0
-            if prev is not None:
-                n_prev = prev.shape[0]
-                blocks.append(prev)
-                lane = torch.arange(n_prev, device=dev)
-                valids.append((lane < torch.as_tensor(counts[t], device=dev))
-                              & (prev >= 0))
-            for et in sorted(samples, key=str):
-                if et[0] != t:
-                    continue
-                flat = samples[et].reshape(-1)
-                spans[et] = (sum(b.shape[0] for b in blocks), flat.shape[0])
-                blocks.append(flat)
-                valids.append(flat >= 0)
-            uniq, num_u, local = masked_unique(torch.cat(blocks),
-                                               torch.cat(valids), cap,
-                                               num_forced=n_prev)
-            new_frontier[t] = uniq
-            new_counts[t] = num_u.clamp(max=cap)
-            layer_uniques[t] = num_u
-            overflow = overflow + (num_u - cap).clamp(min=0)
-            for et, (off, ln) in spans.items():
-                locals_per_rel[et] = local[off:off + ln]
-
-        # 3) one padded Adj per relation: src = local id in the new
-        #    src-type frontier, dst = row in the previous dst-type frontier
-        #    (its local id next hop, the previous nodes being forced first)
-        adjs = {}
-        for et, k in rel_fanouts.items():
-            s_t, _, d_t = et
-            S = frontier[d_t].shape[0]
-            col = locals_per_rel[et].reshape(S, k)
-            row = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
-            row = torch.where(col >= 0, row, -1)
-            edge_index = torch.stack([col.reshape(-1), row.reshape(-1)])
-            e_id = None
-            if with_eid:
-                # neighbours dropped by frontier-cap overflow must not leak
-                # their edge ids
-                e_id = torch.where(col >= 0, eids[et], -1).reshape(-1)
-            adjs[et] = Adj(edge_index, e_id, (caps_next[s_t], S), fanout=k)
+        new_frontier, new_counts, adjs, layer_uniques, ovf = hetero_reindex_hop(
+            frontier, counts, samples, rel_fanouts, caps_next,
+            eids if with_eid else None)
+        overflow = overflow + ovf
         layers.append(HeteroLayer(adjs, dict(caps_next), dict(caps_prev)))
         frontier_counts.append(layer_uniques)
         frontier, counts = new_frontier, new_counts
@@ -277,9 +298,7 @@ class HeteroGraphSampler:
         else:
             weighted_rels = []
         self.weighted_rels = frozenset(weighted_rels)
-        self.dev_topos = topo.to_device(self.mode, with_eid=self.with_eid,
-                                        weighted_rels=self.weighted_rels,
-                                        device=self.device)
+        self.dev_topos = self._init_topo()
         self._seed_capacity = seed_capacity
         if frontier_caps not in (None, "auto"):
             raise ValueError(
@@ -295,6 +314,12 @@ class HeteroGraphSampler:
         self.seed = int(seed)
         self._call = 0
         self.reruns = 0
+
+    def _init_topo(self):
+        """Place every relation's CSR on the sampling device."""
+        return self.topo.to_device(self.mode, with_eid=self.with_eid,
+                                   weighted_rels=self.weighted_rels,
+                                   device=self.device)
 
     # -- planning ------------------------------------------------------------
 
@@ -348,6 +373,25 @@ class HeteroGraphSampler:
             new.append(layer)
         self._cap_overrides = tuple(new)
 
+    def _bits_seam(self, cap: int, key: tuple):
+        """``bits(hop, edge_type, shape)``: the raw draws of a relation's
+        hop at seed capacity ``cap``, from a generator seeded by ``key +
+        (hop, relation index)`` over the relation's worst-case rows, cut
+        to the rows it needs (so an auto sampler's rerun repeats them)."""
+        worst = self._plan(cap)
+
+        def bits(hop, et, shape):
+            k = worst[hop][0][et]
+            weighted = et in self.weighted_rels
+            rows = max(worst[hop][1][et[2]], shape[0])
+            g = seeded_generator(self.device, *key, hop, self._rel_index[et])
+            draws = hop_draws((rows,), k, g, weighted=weighted)
+            if weighted:
+                return draws[:shape[0]]
+            return tuple(d[:shape[0]] for d in draws)
+
+        return bits
+
     # -- public API ----------------------------------------------------------
 
     def sample(self, input_nodes, draw_fn=None) -> HeteroSampleOutput:
@@ -361,38 +405,19 @@ class HeteroGraphSampler:
         """
         seeds = np.asarray(input_nodes)
         batch = int(seeds.shape[0])
-        n = self.topo.num_nodes[self.input_type]
-        if batch and (seeds.min() < 0 or seeds.max() >= n):
-            raise ValueError(
-                f"seed ids must be in [0, {n}); got "
-                f"[{seeds.min()}, {seeds.max()}]"
-            )
+        check_seed_range(seeds, self.topo.num_nodes[self.input_type])
         cap = self._seed_capacity or max(_round_up(batch, 128), 128)
         if batch > cap:
             raise ValueError(f"batch {batch} exceeds seed_capacity {cap}")
         padded = np.full(cap, -1, dtype=np.int32)
         padded[:batch] = seeds
         self._call += 1
-        call = self._call
-        # each relation's hop draws over its worst-case rows and takes the
-        # prefix it needs, so an auto sampler's rerun repeats the draws
-        worst = self._plan(cap)
-
-        def bits(hop, et, shape):
-            k = worst[hop][0][et]
-            weighted = et in self.weighted_rels
-            rows = max(worst[hop][1][et[2]], shape[0])
-            g = seeded_generator(self.device, self.seed, call, hop,
-                                 self._rel_index[et])
-            draws = hop_draws((rows,), k, g, weighted=weighted)
-            if weighted:
-                return draws[:shape[0]]
-            return tuple(d[:shape[0]] for d in draws)
 
         def draw(hop, et, deg):
             return torch.as_tensor(draw_fn(hop, et, deg), device=self.device)
 
-        seam = {"draw": draw} if draw_fn is not None else {"bits": bits}
+        seam = ({"draw": draw} if draw_fn is not None
+                else {"bits": self._bits_seam(cap, (self.seed, self._call))})
         dev_seeds = torch.from_numpy(padded).to(self.device)
 
         def run():
@@ -403,35 +428,8 @@ class HeteroGraphSampler:
                 weighted_rels=self.weighted_rels, with_eid=self.with_eid,
                 **seam)
 
-        frontier, counts, layers, overflow, fcounts = run()
-        if self._auto_caps:
-            # one host sync per call reads the overflow and the counts;
-            # regrowth is bounded and saturates at the worst-case caps
-            # (then the clipped result and its overflow stand)
-            first_plan = self._cap_overrides is None
-            for _ in range(len(self.sizes) + 2):
-                keys = [(li, t) for li, layer in enumerate(fcounts) for t in layer]
-                ovf, *vals = torch.stack(
-                    [overflow] + [fcounts[li][t] for li, t in keys]).tolist()
-                if not first_plan and ovf == 0:
-                    break
-                observed = [{} for _ in fcounts]
-                for (li, t), v in zip(keys, vals):
-                    observed[li][t] = v
-                before = self._cap_overrides
-                self._plan_auto(observed)
-                if self._cap_overrides != before:
-                    get_logger().info(
-                        "hetero auto caps %s: %s -> %s",
-                        "planned" if before is None else "regrown",
-                        before, self._cap_overrides,
-                    )
-                if not first_plan and self._cap_overrides == before:
-                    break  # saturated: rerunning the same plan can't help
-                if first_plan and ovf == 0:
-                    break  # the worst-case first run was exact; keep it
-                frontier, counts, layers, overflow, fcounts = run()
-                self.reruns += 1
-                first_plan = False
+        frontier, counts, layers, overflow, fcounts = run_auto_caps(
+            self, run, lambda o: read_counts(o[3], o[4]), self._plan_auto,
+            lambda: self._cap_overrides, "hetero auto caps")
         return HeteroSampleOutput(frontier, counts, batch, layers, overflow,
                                   fcounts)

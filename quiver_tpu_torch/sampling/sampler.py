@@ -40,7 +40,8 @@ from ..ops.sample import hop_draws, sample_layer, seeded_generator
 from ..utils.trace import get_logger
 
 __all__ = ["Adj", "GraphSageSampler", "SAMPLE_ELECTION", "SampleOutput",
-           "multilayer_sample", "resolve_sample_kernel"]
+           "check_seed_range", "multilayer_sample", "read_counts", "reindex_hop",
+           "resolve_sample_kernel", "run_auto_caps"]
 
 
 class Adj:
@@ -120,28 +121,99 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
         out = sample_layer(topo, cur, cur_n, k, with_eid=with_eid,
                            weighted=weighted, time_window=time_window,
                            fused=fused, **seam)
-        nbr = out[0]
-        frontier, n_frontier, col, overflow = reindex_layer(
-            cur, cur_n, nbr, caps[l])
-        S = cur.shape[-1]
-        row = torch.arange(S, dtype=torch.int32, device=seeds.device)[:, None]
-        row = torch.where(col >= 0, row, -1)
-        lead = col.shape[:-2]
-        edge_index = torch.stack(
-            [col.reshape(*lead, S * k), row.reshape(*lead, S * k)], dim=-2)
-        eids = None
-        if with_eid:
-            # neighbours dropped by frontier-cap overflow must not leak
-            # their edge ids
-            eids = torch.where(col >= 0, out[2], -1).reshape(*lead, S * k)
-        adjs.append(Adj(edge_index, eids, (caps[l], S), fanout=k))
-        edge_counts.append((col >= 0).sum(dim=(-2, -1)).to(torch.int32))
+        frontier, n_frontier, adj, edges, overflow = reindex_hop(
+            cur, cur_n, out[0], caps[l], out[2] if with_eid else None)
+        adjs.append(adj)
+        edge_counts.append(edges)
         frontier_counts.append(n_frontier + overflow)
         cur, cur_n = frontier, n_frontier
         total_overflow = total_overflow + overflow
     return (cur, torch.as_tensor(cur_n, device=seeds.device), adjs[::-1],
             total_overflow, tuple(edge_counts[::-1]),
             tuple(frontier_counts[::-1]))
+
+
+def reindex_hop(cur, cur_n, nbr, cap: int, eids=None):
+    """One hop's reindex and ``Adj``: the frontier ``unique(cur ∪ nbr)``
+    (seeds first) of capacity ``cap``, and the hop's padded edge list
+    (source = frontier-local neighbour id, target = row of ``cur``).
+    ``cur`` is ``(..., S)``, ``nbr`` ``(..., S, k)``; ``eids`` the
+    neighbours' edge ids, masked where the frontier cap dropped them.
+
+    Returns ``(frontier, n_frontier, adj, edge count, overflow)``."""
+    frontier, n_frontier, col, overflow = reindex_layer(cur, cur_n, nbr, cap)
+    *lead, S, k = col.shape
+    row = torch.arange(S, dtype=torch.int32, device=col.device)[:, None]
+    row = torch.where(col >= 0, row, -1)
+    edge_index = torch.stack(
+        [col.reshape(*lead, S * k), row.reshape(*lead, S * k)], dim=-2)
+    if eids is not None:
+        # neighbours dropped by frontier-cap overflow must not leak
+        # their edge ids
+        eids = torch.where(col >= 0, eids, -1).reshape(*lead, S * k)
+    adj = Adj(edge_index, eids, (cap, S), fanout=k)
+    return (frontier, n_frontier, adj,
+            (col >= 0).sum(dim=(-2, -1)).to(torch.int32), overflow)
+
+
+def check_seed_range(seeds: np.ndarray, n: int) -> None:
+    """Every seed id in ``[0, n)``, else the JAX package's ValueError."""
+    if seeds.shape[0] and (seeds.min() < 0 or seeds.max() >= n):
+        raise ValueError(
+            f"seed ids must be in [0, {n}); got range "
+            f"[{seeds.min()}, {seeds.max()}]"
+        )
+
+
+def read_counts(overflow, counts) -> tuple:
+    """One host read of a run's overflow and its per-layer unclipped
+    counts (a list of scalars, or of ``{type: scalar}`` dicts): ``(int,
+    the counts as ints in the same structure)``."""
+    flat = [c for layer in counts
+            for c in (layer.values() if isinstance(layer, dict) else (layer,))]
+    ovf, *vals = torch.stack([overflow, *flat]).tolist()
+    it = iter(vals)
+    return ovf, [{t: next(it) for t in layer} if isinstance(layer, dict) else next(it)
+                 for layer in counts]
+
+
+def run_auto_caps(sampler, run, observe, plan, state, what: str):
+    """``run()``, and on an auto sampler the planning and regrowth of its
+    caps: the policy of every sampler of the package.
+
+    ``run()`` samples under the current plan, ``state()``;
+    ``observe(out)`` reads a run's overflow and unclipped counts on the
+    host (:func:`read_counts`; the distributed samplers read the worker
+    maxima, since the caps must cover the worst worker); ``plan(counts)``
+    folds the counts into the plan. The first call plans from a worst-case
+    run and keeps that run when it was exact; a later call reruns under
+    regrown caps while it overflows. Regrowth converges in at most
+    ``len(sizes)`` rounds (each round's caps cover that round's counts);
+    the bound guards the saturated case, where duplicate seeds overflow
+    even the worst case, and the clipped result and its overflow stand.
+    Returns the last run's output; ``sampler.reruns`` counts the reruns.
+    """
+    out = run()
+    if not sampler._auto_caps:
+        return out
+    first_plan = state() is None
+    for _ in range(len(sampler.sizes) + 2):
+        ovf, counts = observe(out)
+        if not first_plan and ovf == 0:
+            break
+        before = state()
+        plan(counts)
+        if state() != before:
+            get_logger().info("%s %s: %s -> %s", what,
+                              "planned" if before is None else "regrown", before, state())
+        if first_plan and ovf == 0:
+            break  # the worst-case run stands; later calls fit
+        if not first_plan and state() == before:
+            break  # saturated at the worst case
+        out = run()
+        sampler.reruns += 1
+        first_plan = False
+    return out
 
 
 # -- kernel=auto election (ops/election.py) ------------------------------------
@@ -277,8 +349,11 @@ class GraphSageSampler:
         must lie on ``device`` and carry what this sampler reads: ``eid``
         when ``with_eid``, ``cum_weights`` when ``weighted``,
         ``edge_time`` with a ``time_window``; otherwise this raises.
-      topo_sharding: ``"replicated"``; ``"mesh"`` (a topology partitioned
-        across cards, ROADMAP A.11b) raises.
+      topo_sharding: ``"replicated"`` (every device holds the whole CSR)
+        or ``"mesh"``: the CSR is partitioned over the mesh's feature axis
+        and each hop routes a frontier vertex to the shard that owns its
+        row; construction then returns a
+        :class:`~.dist.DistGraphSageSampler` and needs ``mesh=``.
       compiled_cache_size: accepted for API parity and inert: the JAX
         package bounds its cache of compiled programs with it; the port
         compiles nothing.
@@ -286,6 +361,15 @@ class GraphSageSampler:
     ``reruns`` counts the calls that an auto sampler ran again under
     regrown caps.
     """
+
+    def __new__(cls, *args, **kwargs):
+        # GraphSageSampler(topo_sharding="mesh", mesh=...) builds the
+        # sharded-topology sampler: one entry point, two placements
+        if cls is GraphSageSampler and kwargs.get("topo_sharding") == "mesh":
+            from .dist import DistGraphSageSampler
+
+            return super().__new__(DistGraphSageSampler)
+        return super().__new__(cls)
 
     def __init__(self, csr_topo: CSRTopo, sizes: Sequence[int], device=None,
                  mode: str | SampleMode = SampleMode.HBM,
@@ -296,17 +380,14 @@ class GraphSageSampler:
                  with_eid: bool = False, dedup: str = "auto",
                  device_topo=None, topo_sharding: str = "replicated",
                  compiled_cache_size: int = 8):
-        if topo_sharding == "mesh":
-            raise NotImplementedError(
-                "topo_sharding='mesh' (a topology partitioned across cards) "
-                "is not ported (ROADMAP A.11b)")
-        if topo_sharding != "replicated":
+        if topo_sharding not in ("replicated", "mesh"):
             raise ValueError(
                 f"topo_sharding must be 'replicated' or 'mesh', "
                 f"got {topo_sharding!r}")
         if compiled_cache_size < 1:
             raise ValueError(
                 f"compiled_cache_size must be >= 1, got {compiled_cache_size}")
+        self.topo_sharding = topo_sharding
         self.compiled_cache_size = int(compiled_cache_size)
         self.device = resolve_device(device)
         self._kernel = validate_kernel_arg(str(kernel))
@@ -472,12 +553,7 @@ class GraphSageSampler:
         self.check_topo_version()
         seeds = np.asarray(input_nodes)
         batch = int(seeds.shape[0])
-        n = self.csr_topo.node_count
-        if batch and (seeds.min() < 0 or seeds.max() >= n):
-            raise ValueError(
-                f"seed ids must be in [0, {n}); got range "
-                f"[{seeds.min()}, {seeds.max()}]"
-            )
+        check_seed_range(seeds, self.csr_topo.node_count)
         cap = self._seed_capacity or max(_round_up(batch, 128), 128)
         if batch > cap:
             raise ValueError(f"batch {batch} exceeds seed_capacity {cap}")
@@ -494,34 +570,10 @@ class GraphSageSampler:
                 with_eid=self.with_eid, weighted=self.weighted,
                 time_window=self.time_window, fused=fused, **seam)
 
-        n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run()
-        if self._auto_caps:
-            first_plan = self._frontier_caps is None
-            # regrowth converges in <= len(sizes) rounds (each round's caps
-            # cover that round's counts); the bound guards the saturated
-            # case, where duplicate seeds overflow even the worst case and
-            # the clipped result and its overflow stand
-            for _ in range(len(self.sizes) + 2):
-                # one host sync: the overflow and the unclipped counts
-                ovf, *counts = torch.stack(
-                    [overflow, *frontier_counts]).tolist()
-                if not first_plan and ovf == 0:
-                    break
-                before = self._frontier_caps
-                self._plan_auto(cap, counts[::-1])
-                if self._frontier_caps != before:
-                    get_logger().info(
-                        "auto caps %s: %s -> %s (recompile)",
-                        "planned" if before is None else "regrown",
-                        before, self._frontier_caps,
-                    )
-                if first_plan and ovf == 0:
-                    break  # the worst-case run stands; later calls fit
-                if not first_plan and self._frontier_caps == before:
-                    break  # saturated at the worst case
-                n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run()
-                self.reruns += 1
-                first_plan = False
+        n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run_auto_caps(
+            self, run, lambda o: read_counts(o[3], o[5]),
+            lambda counts: self._plan_auto(cap, counts[::-1]),
+            lambda: self._frontier_caps, "auto caps")
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)
 

@@ -1031,3 +1031,121 @@ def test_sharded_trainer_step_rows_equal_replicated(cuda, seed_sharding):
             assert gather_rows.launches - k2 == 4 * trainer.data_size
     for a, b in zip(issued["sharded"][0].blocks, issued["replicated"][0].blocks):
         assert torch.equal(a.n_id, b.n_id) and torch.equal(a.x, b.x)
+
+
+def _dist_graph(cuda, weighted=False, temporal=False):
+    """A 20,000-node Pareto graph (with weights or timestamps) for the
+    distributed sampler's card tests."""
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    topo = CSRTopo(edge_index=generate_pareto_graph(20_000, 10.0, seed=11))
+    rng = np.random.default_rng(12)
+    if weighted:
+        topo.set_edge_weight(np.exp(rng.normal(size=topo.edge_count)).astype(np.float32))
+    if temporal:
+        topo.set_edge_time(rng.random(topo.edge_count, dtype=np.float32))
+    return topo
+
+
+@pytest.mark.parametrize("kind", ["uniform", "weighted", "temporal"])
+def test_dist_owner_side_kernels_match_plain(cuda, kind, monkeypatch):
+    """On a ``(1, 4)`` logical mesh of the card, a capped distributed
+    sample (its buckets overflow): every owner-side K1 ``select`` (K3
+    ``wselect`` when weighted) bitwise its plain version on the same
+    arguments, one launch per owner per hop, and no fused hop launched."""
+    from quiver_tpu_torch import GraphSageSampler, make_mesh
+    from quiver_tpu_torch.ops.kernels import fused
+    from quiver_tpu_torch.sampling import dist
+
+    topo = _dist_graph(cuda, kind == "weighted", kind == "temporal")
+    kw = {"weighted": {"weighted": True}, "temporal": {"time_window": (0.25, 0.75)}}.get(kind, {})
+    smp = GraphSageSampler(topo, [10, 5], topo_sharding="mesh", routed_alpha=0.5,
+                           mesh=make_mesh(data=1, feature=4, devices=[cuda] * 4), **kw)
+    checked = []
+
+    def recording(kernel, plain):
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            host = [a.cpu() if isinstance(a, torch.Tensor) else
+                    (tuple(t.cpu() for t in a) if isinstance(a, tuple) else a) for a in args]
+            want = plain(*host, **kwargs)
+            checked.append(all(torch.equal(g.cpu(), w) for g, w in zip(out, want)))
+            return out
+        return call
+
+    name = "wselect" if kind == "weighted" else "select"
+    monkeypatch.setattr(dist, name, recording(getattr(fused, name),
+                                              getattr(fused, f"{name}_plain")))
+    counts = {e: getattr(fused, e).launches for e in ("select", "wselect", "uniform_hop",
+                                                      "weighted_hop")}
+    smp.sample(np.random.default_rng(3).integers(0, topo.node_count, 4 * 500), key=4)
+    launched = {e: getattr(fused, e).launches - c for e, c in counts.items()}
+    assert len(checked) == 2 * 4 and all(checked)
+    assert launched == {"select": 0 if kind == "weighted" else 8,
+                        "wselect": 8 if kind == "weighted" else 0,
+                        "uniform_hop": 0, "weighted_hop": 0}
+    assert int(smp.last_sample_overflow.sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["uniform", "weighted", "temporal"])
+def test_dist_sample_on_card_bitwise_replicated(cuda, kind):
+    """A ``(1, 4)`` distributed sample on the card (owner-side ``select`` /
+    ``wselect``) is bitwise the replicated sampler's (the fused
+    ``uniform_hop`` / ``weighted_hop``, the temporal ``select``) on every
+    worker's block with the same generator draws."""
+    from quiver_tpu_torch import GraphSageSampler, make_mesh
+    from quiver_tpu_torch.ops.sample import seeded_generator
+
+    topo = _dist_graph(cuda, kind == "weighted", kind == "temporal")
+    kw = {"weighted": {"weighted": True}, "temporal": {"time_window": (0.25, 0.75)}}.get(kind, {})
+    dist = GraphSageSampler(topo, [15, 10, 5], topo_sharding="mesh", routed_alpha=0.5,
+                            seed_capacity=512,
+                            mesh=make_mesh(data=1, feature=4, devices=[cuda] * 4), **kw)
+    rep = GraphSageSampler(topo, [15, 10, 5], device=cuda, seed_capacity=512,
+                           kernel="pallas", **kw)
+    seeds = np.random.default_rng(5).integers(0, topo.node_count, 4 * 500)
+    per = dist.sample_per_worker(seeds, key=6)
+    for w, blk in enumerate(np.array_split(seeds, 4)):
+        padded = torch.full((512,), -1, dtype=torch.int32)
+        padded[:len(blk)] = torch.from_numpy(blk.astype(np.int32))
+        n_id, _, adjs, *_ = rep.sample_padded(padded.to(cuda), len(blk),
+                                              generator=seeded_generator(cuda, 6, w))
+        assert torch.equal(per[w].n_id, n_id), w
+        assert all(torch.equal(a.edge_index, b.edge_index) for a, b in zip(per[w].adjs, adjs))
+
+
+def test_dist_trainer_step_on_card_equals_replicated_topology(cuda):
+    """One ``DistributedTrainer`` step on the logical ``(2, 2)`` mesh over a
+    topology-sharded sampler: K1 ``select`` 2 groups x 2 owners x 2 hops,
+    no ``uniform_hop``; every worker's ids and rows bitwise the same step's
+    over the replicated topology."""
+    from quiver_tpu_torch import DistributedTrainer, Feature, GraphSageSampler, GraphSAGE
+    from quiver_tpu_torch import make_mesh
+    from quiver_tpu_torch.ops.kernels.fused import select, uniform_hop
+
+    topo = _dist_graph(cuda)
+    x = np.random.default_rng(2).normal(size=(topo.node_count, 32)).astype(np.float32)
+    feat = Feature(device_cache_size=topo.node_count * 32 * 4, device=cuda).from_cpu_tensor(x)
+    labels = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 10, topo.node_count).astype(np.int32)).to(cuda)
+    issued = {}
+    for mode in ("mesh", "replicated"):
+        mesh = make_mesh(data=2, feature=2, devices=[cuda] * 4)
+        kw = {"topo_sharding": "mesh", "mesh": mesh} if mode == "mesh" else {"device": cuda}
+        model = GraphSAGE(32, 64, 10, num_layers=2).to(cuda)
+        trainer = DistributedTrainer(mesh, GraphSageSampler(topo, [12, 8], seed=4, **kw),
+                                     feat, model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                                     local_batch=128, seed_sharding="all")
+        trainer.init(0)
+        issue = trainer._issue
+        issued[mode] = []
+        trainer._issue = lambda *a, _i=issue, _l=issued[mode]: _l.append(_i(*a)) or _l[-1]
+        sel, hops = select.launches, uniform_hop.launches
+        loss = trainer.step(np.random.default_rng(5).integers(0, topo.node_count,
+                                                              trainer.global_batch), labels, 9)
+        assert np.isfinite(float(loss))
+        if mode == "mesh":
+            assert (select.launches - sel, uniform_hop.launches - hops) == (2 * 2 * 2, 0)
+    for a, b in zip(issued["mesh"][0].blocks, issued["replicated"][0].blocks):
+        assert torch.equal(a.n_id, b.n_id) and torch.equal(a.x, b.x)

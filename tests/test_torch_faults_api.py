@@ -1,9 +1,10 @@
 """The four API repairs of quiver_tpu_torch against quiver_tpu: each test
 makes the same call on both packages.
 
-- The ``parallel`` and ``utils`` subpackages' lazy export tables: every
-  name resolves, and the JAX names the port lacks are exactly the ones
-  left out by design (``honor_forced_platform``, a JAX platform switch).
+- The ``parallel``, ``utils`` and ``sampling`` subpackages' export tables:
+  every name resolves, and the JAX names the port lacks are exactly the
+  ones left out by design (``honor_forced_platform``, a JAX platform
+  switch).
 - ``CSRTopo(use_native=...)`` is accepted and inert.
 - ``Timer(sync=...)`` takes a tensor or a nested list, tuple or dict of
   them, as JAX's takes an array or pytree.
@@ -24,6 +25,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import quiver_tpu.parallel as parallel_j  # noqa: E402
+import quiver_tpu.sampling as sampling_j  # noqa: E402
 import quiver_tpu.utils as utils_j  # noqa: E402
 from quiver_tpu.core import config as config_j  # noqa: E402
 from quiver_tpu.core.topology import CSRTopo as CSRTopoJ  # noqa: E402
@@ -32,6 +34,7 @@ from quiver_tpu.utils import graphgen as graphgen_j  # noqa: E402
 from quiver_tpu.utils import reorder as reorder_j  # noqa: E402
 
 import quiver_tpu_torch.parallel as parallel_t  # noqa: E402
+import quiver_tpu_torch.sampling as sampling_t  # noqa: E402
 import quiver_tpu_torch.utils as utils_t  # noqa: E402
 from quiver_tpu_torch.core import config as config_t  # noqa: E402
 from quiver_tpu_torch.core.topology import CSRTopo  # noqa: E402
@@ -41,11 +44,12 @@ from quiver_tpu_torch.utils import reorder as reorder_t  # noqa: E402
 from quiver_tpu_torch.utils import trace  # noqa: E402
 
 # JAX names the port's subpackages do not export, by design
-NOT_PORTED = {"parallel": set(), "utils": {"honor_forced_platform"}}
+NOT_PORTED = {"parallel": set(), "utils": {"honor_forced_platform"}, "sampling": set()}
 
 
 @pytest.mark.parametrize("pkg,jax_pkg,torch_pkg", [
-    ("parallel", parallel_j, parallel_t), ("utils", utils_j, utils_t)])
+    ("parallel", parallel_j, parallel_t), ("utils", utils_j, utils_t),
+    ("sampling", sampling_j, sampling_t)])
 def test_export_tables(pkg, jax_pkg, torch_pkg):
     for name in torch_pkg.__all__:
         assert getattr(torch_pkg, name) is not None, name
@@ -68,6 +72,9 @@ def test_subpackage_names_are_the_top_level_ones():
     for name in ("ShardedFeature", "ShardedTensor"):
         assert name in qt.__all__ and name in qj.__all__
         assert getattr(qt, name) is getattr(shard, name)
+    for name in ("ShardedTopology", "HeteroShardedTopology", "DistGraphSageSampler",
+                 "DistHeteroSampler"):
+        assert name in qt.__all__ and name in qj.__all__
 
 
 @pytest.mark.parametrize("use_native", [True, False])

@@ -246,7 +246,7 @@ def test_sampler_argument_checks(data):
         qt.GraphSageSampler(tt, [2], device="cpu", dedup="hash")
     with pytest.raises(TypeError, match="DeviceTopology"):
         qt.GraphSageSampler(tt, [2], device="cpu", device_topo=object())
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(ValueError, match="requires mesh="):
         qt.GraphSageSampler(tt, [2], device="cpu", topo_sharding="mesh")
     with pytest.raises(ValueError, match="topo_sharding"):
         qt.GraphSageSampler(tt, [2], device="cpu", topo_sharding="ring")

@@ -304,8 +304,24 @@ def test_trainer_takes_a_sharded_feature(graph):
     assert np.isfinite(float(loss)) and trainer.last_tier_hits.tolist()[1] > 0
 
 
-@pytest.mark.parametrize("what", ["mesh_sampler", "logical_workers", "auto_alpha",
-                                  "controller", "two_devices"])
+def test_mesh_sampler_requires_all_seed_sharding(graph):
+    """A topology-sharded sampler under the default ``seed_sharding="data"``
+    raises JAX's ``ValueError`` (each feature group would route one
+    frontier F times); the other checks are in
+    ``tests/test_torch_topo_sharded_trainer.py``."""
+    ei, feat, _ = graph
+    mesh = _cpu_mesh(2)
+    sampler = qt.GraphSageSampler(qt.CSRTopo(edge_index=ei), [3], seed=0, seed_capacity=8,
+                                  topo_sharding="mesh", mesh=mesh)
+    feature = qt.Feature(device_cache_size="1M", device="cpu").from_cpu_tensor(feat)
+    model = GraphSAGE(4, 8, 4, num_layers=1)
+    with pytest.raises(ValueError, match="requires seed_sharding='all'"):
+        DistributedTrainer(mesh, sampler, feature, model,
+                           torch.optim.SGD(model.parameters(), lr=0.1), local_batch=8)
+
+
+@pytest.mark.parametrize("what", ["logical_workers", "auto_alpha", "controller",
+                                  "two_devices"])
 def test_unported_features_raise(graph, what):
     ei, feat, _ = graph
     topo = qt.CSRTopo(edge_index=ei)
@@ -313,14 +329,7 @@ def test_unported_features_raise(graph, what):
     feature = qt.Feature(device_cache_size="1M", device="cpu").from_cpu_tensor(feat)
     model = GraphSAGE(4, 8, 4, num_layers=1)
     mesh, kw = _cpu_mesh(2), {}
-
-    class MeshSampler:  # a sampler whose topology is partitioned
-        topo_sharding = "mesh"
-        sizes = (3,)
-
-    if what == "mesh_sampler":
-        sampler = MeshSampler()
-    elif what == "two_devices":
+    if what == "two_devices":
         mesh = qt.make_mesh(devices=["cpu", "meta"])
     else:
         kw = {"logical_workers": {"logical_workers": 4}, "auto_alpha": {"auto_alpha": True},

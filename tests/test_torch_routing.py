@@ -177,3 +177,42 @@ def test_plan_checks():
         BucketRoute(ids, ids >= 0, ids, num_shards=2, cap=0)
     with pytest.raises(ValueError, match="one row per member"):
         BucketRoute(ids, ids >= 0, ids, num_shards=4)
+
+
+@pytest.mark.parametrize("cap", [None, 5])
+def test_every_exchange_serves_the_requests(cap):
+    """``serve`` receives ``requests()[member]`` itself in every exchange
+    (so an owner may look its rows up once per plan): the member's
+    received bucket lanes, then, with a fallback, every member's overflow
+    lanes; ``-1`` on dead lanes, and every valid id exactly once per
+    owner that holds it in its buckets or the fallback."""
+    F, L = 4, 24
+    rng = np.random.default_rng(11)
+    ids, valid = _requests(F, L, rng, invalid=3)
+    t_ids = torch.from_numpy(ids)
+    route = BucketRoute(t_ids, torch.from_numpy(valid),
+                        torch.div(t_ids, R, rounding_mode="floor"), num_shards=F, cap=cap)
+    reqs = route.requests()
+    width = F * route.cap + (F * route.ov_budget if route.ov_budget else 0)
+    assert [tuple(r.shape) for r in reqs] == [(width,)] * F
+    seen = []
+
+    def serve(d, req, p=None):
+        seen.append(req is reqs[d])
+        return torch.zeros(req.shape, dtype=torch.int32)
+
+    route.exchange(serve)
+    route.exchange(serve, payload=torch.from_numpy(ids))
+    assert seen == [True] * (2 * F) and route.requests() is reqs
+    # each owner's bucket lanes are the valid ids it owns, each once
+    for d, r in enumerate(reqs):
+        live = r[:F * route.cap]
+        live = live[live >= 0]
+        owned = ids[valid & (ids // R == d)]
+        if route.ov_budget == 0:
+            assert sorted(live.tolist()) == sorted(owned.tolist())
+        else:
+            assert set(live.tolist()) <= set(owned.tolist())
+    if route.ov_budget:
+        ov = reqs[0][F * route.cap:]
+        assert int((ov >= 0).sum()) == int(route.overflow)
