@@ -256,6 +256,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches, the owner-side calls against their plain versions, every
    worker bitwise ``HeteroGraphSampler`` on its block with the same draws,
    one R-GCN step on a worker's block against the CPU's.
+9h. the sharded store's int8 tiers, ``repin``, row updates and the cache
+   controller, then ``DistributedTrainer(auto_alpha=, controller=)``;
+   every check names itself on stderr first. (a) Phase 9f (a)'s rows
+   stored as int8 (245 MB of codes, 9.8 MB of scales) on ``(1, 4)`` and
+   ``(2, 2)``, 2% of the rows on L0 and 18% on L1 after the scales are
+   charged, the rest pinned: for the same 3-hop frontier the psum and
+   routed (uncapped, the planned cap, a cap of 1 that overflows) lookups
+   bitwise the replicated int8 ``Feature``'s ``tiered_gather_dequant``
+   lookup and the numpy int8 rows, the tier hits a numpy count, exactly
+   one ``tiered_gather_dequant`` for L0, one per shard per feature group
+   and one for the cold rows, each tier's call bitwise
+   ``tiered_gather_plain(..., scale)``; the lookups timed in turns with the
+   replicated one, K2's device ms and their bound. (b)
+   ``bench_feature.py``'s feature-controller configuration (a ``(1, 4)``
+   mesh, a 20%-of-f32 budget, 16M of L0, ``routed_alpha`` 2), float32 and
+   int8: its recorded trace (4 x 65,536 ids, 80% on the 1,024
+   lowest-degree rows) feeds a ``CacheController`` whose ``maybe_repin``
+   re-tiers the store; the trace's L0 hit rate before and after; every
+   post-repin gather flavour bitwise the dense rows. (c) On that store one
+   ``apply_row_updates`` in every tier (``version`` once; every flavour
+   bitwise the patched rows), a duplicate id and a NaN row rejected with
+   the store bitwise unchanged; ``note_degree_update`` on an ``auto_split``
+   store moves the boundary once. (d) Phase 9f (b)'s trainer over an int8
+   ``auto_split`` store with ``CacheController(heat_bins=256)`` and
+   ``auto_alpha=True`` from ``routed_alpha=0.25``, ``"data"`` over the
+   replicated sampler and ``"all"`` over a topology-sharded one: 3 + 10
+   steps (steps/s, peak memory), exact K1 and K2 launches every step, alpha
+   doubling after each overflowing step, the heat histogram counting every
+   valid lane, 5 profiled steps; 3 steps under deterministic kernels
+   bitwise for ``auto_alpha`` against ``auto_alpha=False`` uncapped and for a
+   frozen controller against none; under ``"all"`` one ``epoch_scan``
+   whose ``end_epoch`` repins (the next step runs) and a manual repin that
+   raises ``VersionMismatchError`` until ``refresh()``.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -4546,36 +4579,42 @@ def logical_mesh(data: int, feature: int):
     return make_mesh(data=data, feature=feature, devices=["cuda:0"] * (data * feature))
 
 
-def k2_device_ms(lookups, calls: int = 5, tries: int = 3) -> dict:
-    """K2's device time per call (its ``gather_kernel`` launches, summed)
-    of each ``(name, fn, launches per call)`` of ``lookups``: ``calls``
-    calls of each in one ``torch.profiler`` session, the kernels split by
-    their order and each lookup's exact launch count. A session whose
-    kernel count is not the launches made is taken again (the profiler
-    may drop device rows), at most ``tries`` times."""
+def k2_device_ms(lookups, calls: int = 5, tries: int = 3,
+                 kernel: str = "gather_kernel") -> dict:
+    """K2's device time per call (its ``kernel`` launches, summed: the
+    single-table and tiered ``gather_kernel``, or the dequantising
+    ``gather_dequant_kernel``) of each ``(name, fn, launches per call)`` of
+    ``lookups``, a ``torch.profiler`` session per lookup. A session runs
+    one call more than it reads and keeps the last ``calls`` calls'
+    launches by start time: after many sessions in one process the
+    profiler has dropped one device row of every session of a whole
+    smoke run. A session that sees fewer rows than that is taken again, at
+    most ``tries`` times, and its K2 rows are logged by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    want = sum(k for _name, _fn, k in lookups) * calls
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _name, fn, _k in lookups:
-                for _ in range(calls):
+    out = {}
+    for name, fn, k in lookups:
+        want = k * calls
+        for attempt in range(tries):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls + 1):
                     fn()
-            sync()
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and "gather_kernel" in e.name)
-        if len(spans) == want:
-            break
-        log(f"K2 profile {attempt + 1}: {len(spans)} gather_kernel rows of {want} "
-            "launches; profiling again")
-    check(len(spans) == want, f"the profiler saw {len(spans)} of {want} K2 launches")
-    out, at = {}, 0
-    for name, _fn, k in lookups:
-        part = spans[at:at + k * calls]
-        out[name] = sum(b - a for a, b in part) / 1e3 / calls
-        at += k * calls
+                sync()
+            rows = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and "gather" in e.name]
+            spans = sorted((e.time_range.start, e.time_range.end) for e in rows
+                           if kernel in e.name)
+            if len(spans) >= want:
+                break
+            log(f"K2 profile of {name}, try {attempt + 1}: {len(spans)} {kernel} rows of "
+                f"{k * (calls + 1)} launches; profiling again")
+        if len(spans) < want:
+            log(f"K2 profile of {name}: the device rows named 'gather': "
+                f"{sorted({e.name[:80] for e in rows})}")
+        check(len(spans) >= want, f"the profiler saw {len(spans)} of {k * (calls + 1)} K2 "
+              f"launches of {name}")
+        out[name] = sum(b - a for a, b in spans[-want:]) / 1e3 / calls
     return out
 
 
@@ -5456,6 +5495,626 @@ def dist_phase(topo, topo_t, card):
     return {"sample": l_a, "trainer": l_b, "hetero": l_c}, rows, result
 
 
+
+# -- phase 9h: the sharded store's int8 tiers, repin, row updates, the controller --
+
+# benchmarks/bench_feature.py's feature-controller configuration
+# (benchmarks/scoreboard.py:161-163: --policy shard --routed --routed-alpha 2
+# --replicate-budget 16M --controller) on a logical mesh of 4, and its
+# recorded trace (bench_feature.py:275-330): 4 batches of 65,536 ids, 80%
+# of them on the 1,024 lowest-degree rows
+CTL_MESH, CTL_REPLICATE, CTL_ALPHA = (1, 4), "16M", 2.0
+CTL_TRACE_BATCHES, CTL_TRACE_IDS, CTL_TRACE_HOT, CTL_TRACE_SHARE = 4, 65_536, 1_024, 0.8
+# the int8 trainer's store: phase 9f (b)'s split (8,192 L0 rows and 16,384
+# L1 rows a shard, the rest cold) in 128 B code rows, the scales charged to
+# the sharded budget first
+CTL_L1, CTL_L0 = 4 * MULTI_NODES + 16_384 * MULTI_F, 8_192 * MULTI_F
+CTL_ALPHA0, CTL_HEAT_BINS, CTL_EPOCH_STEPS = 0.25, 256, 8
+INT8_KERNELS = ("uniform_hop_kernel", "select_kernel", "gather_dequant_kernel")
+
+
+def step9h(what: str) -> None:
+    """Name a phase 9h check on stderr before it runs."""
+    log(f"phase 9h check: {what}")
+
+
+def int8_rows(x, ids_np):
+    """numpy's int8 rows of ``ids_np``: each row quantised on its own
+    (bitwise the stores' per-row quantisation), codes times scale; zero
+    rows on ``-1`` lanes."""
+    import numpy as np
+
+    from quiver_tpu_torch.feature.feature import quantize_rows_int8
+
+    q, scale = quantize_rows_int8(x[np.maximum(ids_np, 0)])
+    out = q.astype(np.float32) * scale[:, None]
+    out[ids_np < 0] = 0
+    return out
+
+
+def dense_rows(x, ids_np):
+    """numpy's float32 rows of ``ids_np``; zero rows on ``-1`` lanes."""
+    import numpy as np
+
+    out = x[np.maximum(ids_np, 0)]
+    out[ids_np < 0] = 0
+    return out
+
+
+def frontier_ids(topo):
+    """Phase 9f (a)'s ids: the 3-hop frontier of 1024 seeds at
+    bench_epoch's fanouts (an auto sampler, planned by its first call)."""
+    import numpy as np
+
+    from quiver_tpu_torch import GraphSageSampler
+
+    sampler = GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", seed_capacity=EPOCH_BATCH,
+                               seed=0, frontier_caps="auto")
+    seeds = np.random.default_rng(7).integers(0, topo.node_count, EPOCH_BATCH)
+    sampler.sample(seeds)
+    return sampler.sample(seeds).n_id
+
+
+def tier_hits(store, ids):
+    """A numpy count of the valid lanes per tier ``[L0, L1, cold]``."""
+    import numpy as np
+
+    t = store.feature_order.cpu().numpy()[np.maximum(ids, 0)]
+    valid = ids >= 0
+    end = store.rep_rows + store.hot_rows
+    return [int((valid & (t < store.rep_rows)).sum()),
+            int((valid & (t >= store.rep_rows) & (t < end)).sum()),
+            int((valid & (t >= end)).sum())]
+
+
+def int8_tier_checks(store, ids, what: str) -> list:
+    """K2's dequantising entry on each int8 tier table (the L0 block, each
+    L1 shard, the pinned cold rows) with the ids a psum lookup of ``ids``
+    sends it, bitwise ``tiered_gather_plain(..., scale)``. Returns the
+    check rows."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather_dequant, tiered_gather_plain
+
+    t = store.feature_order[ids.clamp(min=0).long()].long()
+    valid = ids >= 0
+    end = store.rep_rows + store.hot_rows
+    rps = store.hot.rows_per_shard
+    cases = [("L0 block", store.rep, store._rep_scales[store.rep.device],
+              torch.where(valid & (t < store.rep_rows), t, -1)),
+             ("cold rows (pinned, UVA)", store.cold, store._cold_scale,
+              torch.where(valid & (t >= end), t - end, -1))]
+    l1 = torch.where(valid & (t >= store.rep_rows) & (t < end), t - store.rep_rows, -1)
+    for d, (shard, scale) in enumerate(zip(store.hot.shards, store.hot.scales)):
+        mine = (l1 >= 0) & (l1 // rps == d)
+        cases.append((f"L1 shard {d}", shard, scale, torch.where(mine, l1 - d * rps, -1)))
+    rows = []
+    for name, table, scale, tier_ids in cases:
+        args = (tier_ids.to(torch.int32).contiguous(), None, table.shape[0], table, None, scale)
+        kern, plain = tiered_gather_dequant(*args), tiered_gather_plain(*args)
+        ok = equal(kern, plain)
+        step9h(f"{what}: tiered_gather_dequant on the {name} bitwise its plain version")
+        check(ok, f"{what}: tiered_gather_dequant on the {name} == plain")
+        rows.append({"store": f"{what}, tiered_gather_dequant on the {name}: "
+                              f"{int((args[0] >= 0).sum())} of {args[0].numel()} lanes",
+                     "match": ok, "max_abs_err": float((kern - plain).abs().max())})
+    return rows
+
+
+def int8_store_phase(topo, x, pcie, card):
+    """(a) Phase 9f (a)'s rows stored as int8 on the meshes ``SHARD_MESHES``
+    (2% on L0, 18% on L1 after the scales, the rest pinned): for the 3-hop
+    frontier of 1024 seeds the psum and routed (uncapped, the planned cap,
+    a cap of 1 that overflows) lookups bitwise the replicated int8
+    ``Feature``'s lookup and the numpy int8 rows; the tier hits a numpy
+    count; ``tiered_gather_dequant`` launches exact; each tier's call
+    bitwise its plain version; the lookups timed in turns with the
+    replicated one, K2's device ms and their bound. Returns ``(launches of
+    the checked lookups, check rows, result)``."""
+    import torch
+
+    from quiver_tpu_torch import Feature, ShardedFeature
+
+    t0 = time.time()
+    n, F = x.shape
+    ids = frontier_ids(topo)
+    ids_np = ids.cpu().numpy()
+    want = torch.from_numpy(int8_rows(x, ids_np)).to("cuda")
+    replicated = Feature(device_cache_size=int(0.2 * n) * F * 4, csr_topo=topo, dtype="int8",
+                         device="cuda").from_cpu_tensor(x)
+    check(replicated.kernel == "pallas", "the int8 store's auto lookup resolves to K2")
+    reset_launches()
+    ref = replicated[ids]
+    sync()
+    step9h("(a) the replicated int8 lookup: one tiered_gather_dequant, the numpy int8 rows")
+    expect_launches(read_launches(), {"tiered_gather_dequant": 1}, "replicated int8 lookup")
+    check(equal(ref, want), "replicated int8 lookup == the numpy int8 rows")
+    rows, launches = [], {}
+    result = {"ids": int(ids.numel()), "valid_ids": int((ids_np >= 0).sum()), "meshes": {},
+              "replicated_hot_rows": replicated.hot_rows}
+    for data, fsize in SHARD_MESHES:
+        t1 = time.time()
+        l1_rows = int(SHARD_L1 * n) // fsize
+        store = ShardedFeature(
+            logical_mesh(data, fsize), device_cache_size=4 * n + l1_rows * F, csr_topo=topo,
+            replicate_budget=int(SHARD_L0 * n) * F, dtype="int8").from_cpu_tensor(x)
+        setup_s = time.time() - t1
+        label = f"({data}, {fsize})"
+        step9h(f"(a) {label}: the split after the scale charge and the pinned cold tier")
+        check(store.rep_rows == int(SHARD_L0 * n) and store.hot_rows == l1_rows * fsize
+              and store.cold.is_pinned() and store.scale.is_cuda,
+              f"int8 sharded store {label}: split {store.rep_rows} / {store.hot_rows}")
+        want_hits = tier_hits(store, ids_np)
+        local = -(-ids.numel() // (data * fsize))
+        cap = store.hot.routed_cap(local)
+        got = {}
+        for name, kw in {"psum": dict(routed=False),
+                         "routed, uncapped": dict(routed=True, routed_cap=None),
+                         f"routed, planned cap {cap}": dict(routed=True, routed_cap=cap),
+                         "routed, cap 1": dict(routed=True, routed_cap=1)}.items():
+            reset_launches()
+            out = store.gather(ids, **kw)
+            sync()
+            k = (fsize if not kw["routed"] else data * fsize) + 2
+            step9h(f"(a) {label} {name}: {k} tiered_gather_dequant launches, bitwise the "
+                   "replicated int8 lookup and the numpy int8 rows, exact tier hits")
+            expect_launches(read_launches(), {"tiered_gather_dequant": k},
+                            f"int8 sharded store {label} {name}")
+            check(equal(out, ref) and equal(out, want),
+                  f"int8 sharded store {label} {name} == replicated int8 lookup")
+            check(store.last_tier_hits.tolist() == want_hits,
+                  f"int8 sharded store {label} {name}: hits {store.last_tier_hits.tolist()} "
+                  f"against {want_hits}")
+            got[name] = {"overflow": int(store.last_routed_overflow) if kw["routed"] else 0,
+                         "launches": k}
+            launches[f"{label} {name}"] = k
+            rows.append({"store": f"int8 sharded store {label}, {name}: {int(ids.numel())} ids",
+                         "match": True, "max_abs_err": float((out - want).abs().max())})
+            del out
+        step9h(f"(a) {label}: a cap of 1 overflows, the uncapped gather does not")
+        check(got["routed, cap 1"]["overflow"] > 0 and got["routed, uncapped"]["overflow"] == 0,
+              f"int8 sharded store {label}: overflow {got}")
+        rows += int8_tier_checks(store, ids, f"int8 sharded store {label}")
+        psum = lambda: store.gather(ids)  # noqa: E731
+        routed = lambda: store.gather(ids, routed=True, routed_cap=cap)  # noqa: E731
+        rep = lambda: replicated[ids]  # noqa: E731
+        t_psum = in_turns(psum, rep, *SHARD_TIMED)
+        t_routed = in_turns(routed, rep, *SHARD_TIMED)
+        nv, nc, B = sum(want_hits), want_hits[2], int(ids.numel())
+        dev_bytes = B * 4 + nv * 4 + nv * 4 + (nv - nc) * F + B * F * 4
+        bound_s = max(dev_bytes / HBM_BYTES_PER_S, nc * F / pcie)
+        t = {"psum_ms": t_psum["ms"], "psum_turns": t_psum["ms_turns"],
+             "routed_ms": t_routed["ms"], "routed_turns": t_routed["ms_turns"],
+             "replicated_ms": (t_psum["yard_ms"] + t_routed["yard_ms"]) / 2,
+             "replicated_turns": t_psum["yard_turns"] + t_routed["yard_turns"],
+             "k2_device_ms": k2_device_ms([
+                 ("psum", psum, got["psum"]["launches"]),
+                 ("routed", routed, got[f"routed, planned cap {cap}"]["launches"]),
+                 ("replicated", rep, 1)], kernel="gather_dequant_kernel"),
+             "bound_ms": bound_s * 1e3, "device_bytes": dev_bytes, "cold_bytes": nc * F}
+        result["meshes"][label] = {"rep_rows": store.rep_rows, "hot_rows": store.hot_rows,
+                                   "cold_rows": n - store.rep_rows - store.hot_rows,
+                                   "tier_hits": want_hits, "planned_cap": cap, "lookups": got,
+                                   "timing": t, "setup_s": setup_s}
+        log(f"int8 sharded store {label}: {store.rep_rows} L0 / {store.hot_rows} L1 / "
+            f"{n - store.rep_rows - store.hot_rows} cold rows, hits {want_hits}; psum "
+            f"{t['psum_ms']:.4f} ms, routed {t['routed_ms']:.4f} ms, replicated "
+            f"{t['replicated_ms']:.4f} ms; K2 device {t['k2_device_ms']}; bound "
+            f"{t['bound_ms']:.4f} ms [{card}]")
+        store.delete()
+        del store
+    del replicated
+    result["seconds"] = time.time() - t0
+    return launches, rows, result
+
+
+def controller_store(topo, x, dtype):
+    """bench_feature's feature-controller store on the logical mesh
+    ``CTL_MESH``: a 20%-of-f32 budget split over the mesh, ``routed_alpha``
+    2, a 16M L0 (float32 or int8 rows)."""
+    from quiver_tpu_torch import ShardedFeature
+
+    n, F = x.shape
+    return ShardedFeature(logical_mesh(*CTL_MESH),
+                          device_cache_size=int(0.2 * n) * F * 4 // CTL_MESH[1],
+                          csr_topo=topo, routed_alpha=CTL_ALPHA, dtype=dtype,
+                          replicate_budget=CTL_REPLICATE).from_cpu_tensor(x)
+
+
+def store_state(store, ids):
+    """What a rejected update must leave: the rows of ``ids`` (every
+    flavour), the scales, the order, the host region, version and split."""
+    return ([store.gather(ids, **kw).clone() for kw in (
+                {}, {"routed": True, "routed_cap": None})],
+            None if store.scale is None else store.scale.clone(),
+            store.feature_order.clone(), store._region_host.clone(),
+            store.version, store.rep_rows, store.hot_rows)
+
+
+def same_state(a, b) -> bool:
+    import torch
+
+    for u, v in zip(a, b):
+        if isinstance(u, list):
+            if not all(equal(p, q) for p, q in zip(u, v)):
+                return False
+        elif isinstance(u, torch.Tensor):
+            if not equal(u, v):
+                return False
+        elif u != v:
+            return False
+    return True
+
+
+def controller_phase(topo, x, card):
+    """(b) ``repin`` and the controller at bench_feature's
+    feature-controller configuration, float32 and int8: the recorded trace
+    feeds a ``CacheController`` and ``maybe_repin`` re-tiers the store; the
+    trace's L0 hit rate before and after; a post-repin gather of every
+    flavour bitwise the dense (int8: numpy int8) rows, launches exact. (c)
+    On the repinned store one ``apply_row_updates`` touching an L0 row,
+    every L1 shard's first row and cold rows: ``version`` bumped once, every
+    flavour bitwise the dense rows with the rows patched; a duplicate id and
+    a NaN row each rejected with the store bitwise unchanged. Returns
+    ``(launches, rows, result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import CacheController
+    from quiver_tpu_torch.control.freq import FreqSketch
+
+    t0 = time.time()
+    n, F = x.shape
+    rng = np.random.default_rng(2)  # bench_feature's seed + 2
+    hot = np.argsort(topo.degree.astype(np.int64), kind="stable")[:CTL_TRACE_HOT]
+    trace = [np.where(rng.random(CTL_TRACE_IDS) < CTL_TRACE_SHARE,
+                      rng.choice(hot, size=CTL_TRACE_IDS),
+                      rng.integers(0, n, CTL_TRACE_IDS)).astype(np.int32)
+             for _ in range(CTL_TRACE_BATCHES)]
+    result, launches, rows = {}, {}, []
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for dtype in (None, "int8"):
+        label = "int8" if dtype else "float32"
+        oracle = int8_rows if dtype else dense_rows
+        entry = "tiered_gather_dequant" if dtype else "gather_rows"
+        t1 = time.time()
+        store = controller_store(topo, x, dtype)
+        setup_s = time.time() - t1
+
+        def l0_rate():
+            order = store.feature_order.cpu().numpy()
+            return sum(int((order[b] < store.rep_rows).sum()) for b in trace) / float(
+                CTL_TRACE_BATCHES * CTL_TRACE_IDS)
+
+        before = l0_rate()
+        ctl = CacheController(sketch=FreqSketch(n, top_k=CTL_TRACE_HOT),
+                              decision_log=os.path.join(OUT_DIR, f"ctl_decisions_{label}.jsonl"))
+        for b in trace:
+            ctl.observe_ids(b)
+        split = (store.rep_rows, store.hot_rows)
+        t1 = time.time()
+        repinned = ctl.maybe_repin(store)
+        repin_s = time.time() - t1
+        after = l0_rate()
+        step9h(f"(b) {label}: maybe_repin re-tiers once, the tiers keep their sizes, "
+               "the trace's L0 hit rate rises")
+        check(repinned and store.version == 1 and (store.rep_rows, store.hot_rows) == split
+              and after > before, f"controller {label}: repin {repinned}, version "
+              f"{store.version}, L0 hit rate {before} -> {after}")
+        ids = torch.from_numpy(trace[0]).to("cuda")
+        want = torch.from_numpy(oracle(x, trace[0])).to("cuda")
+        cap = store.hot.routed_cap(CTL_TRACE_IDS // CTL_MESH[1])
+        for name, kw in (("psum", {}), ("routed, uncapped", {"routed": True,
+                                                            "routed_cap": None}),
+                         (f"routed, cap {cap}", {"routed": True, "routed_cap": cap})):
+            reset_launches()
+            out = store.gather(ids, **kw)
+            sync()
+            step9h(f"(b) {label} post-repin {name} gather: 6 {entry} launches, bitwise the "
+                   "dense rows")
+            expect_launches(read_launches(), {entry: CTL_MESH[1] + 2},
+                            f"controller {label} post-repin {name}")
+            check(equal(out, want), f"controller {label} post-repin {name} == dense rows")
+            launches[f"{label} post-repin {name}"] = CTL_MESH[1] + 2
+            rows.append({"store": f"controller store ({label}) post-repin {name}: "
+                                  f"{CTL_TRACE_IDS} ids", "match": True,
+                         "max_abs_err": float((out - want).abs().max())})
+        if dtype:
+            rows += int8_tier_checks(store, ids, "controller store (int8) post-repin")
+        # (c) one transaction in every tier: L0, each shard's first row, cold
+        order = store.feature_order.cpu().numpy()
+        inv = np.empty(n, np.int64)
+        inv[order] = np.arange(n)
+        rps, end = store.hot.rows_per_shard, store.rep_rows + store.hot_rows
+        slots = [0] + [store.rep_rows + d * rps for d in range(CTL_MESH[1])] + [end, n - 1]
+        upd = inv[np.asarray(slots)]
+        new = np.random.default_rng(3).normal(size=(len(upd), F)).astype(np.float32) + 50.0
+        check_ids = np.concatenate([upd, trace[1][:8192]]).astype(np.int32)
+        patched = x[np.maximum(check_ids, 0)]
+        for j, u in enumerate(upd):
+            patched[check_ids == u] = new[j]
+        want = torch.from_numpy(oracle(patched, np.arange(len(check_ids)))).to("cuda")
+        dev_ids = torch.from_numpy(check_ids).to("cuda")
+        store.apply_row_updates(upd, new)
+        step9h(f"(c) {label}: one update in every tier bumps version once; every flavour "
+               "bitwise the patched dense rows")
+        check(store.version == 2, f"row update {label}: version {store.version}")
+        for name, kw in (("psum", {}), ("routed", {"routed": True}),
+                         ("routed, cap 1", {"routed": True, "routed_cap": 1})):
+            out = store.gather(dev_ids, **kw)
+            check(equal(out, want), f"row update {label}: {name} == the patched rows")
+            rows.append({"store": f"controller store ({label}) after a row update, {name}: "
+                                  f"{len(check_ids)} ids", "match": True,
+                         "max_abs_err": float((out - want).abs().max())})
+        state = store_state(store, dev_ids)
+        bad_nan = new[:2].copy()
+        bad_nan[1, 3] = np.nan
+        for what, args, match in (("a duplicate id", (upd[[0, 0]], new[:2]), "duplicate"),
+                                  ("a NaN row", (upd[:2], bad_nan), "non-finite")):
+            step9h(f"(c) {label}: {what} is rejected and the store stays bitwise as it was")
+            try:
+                store.apply_row_updates(*args)
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+            check(raised is not None and match in raised and same_state(store_state(
+                store, dev_ids), state), f"row update {label}: {what} -> {raised}")
+        result[label] = {"split": list(split), "setup_s": setup_s,
+                         "trace_l0_hit_rate": {"before": before, "after": after},
+                         "repin_s": repin_s, "decisions": ctl.stats(),
+                         "updated_rows": len(upd), "version": store.version}
+        log(f"controller store ({label}): {split[0]} L0 / {split[1]} L1 rows; the trace's L0 "
+            f"hit rate {before:.4f} -> {after:.4f} (repin {repin_s:.2f} s) [{card}]")
+        store.delete()
+        del store, state
+    result["seconds"] = time.time() - t0
+    return launches, rows, result
+
+
+def degree_feed_check(topo, x):
+    """(c) ``note_degree_update`` on an ``auto_split=True`` int8 store of
+    phase 9f (b)'s rows with a controller attached: degrees that put every
+    hit past L0 halve the boundary once, the controller gets the prior,
+    the rows stay bitwise."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import CacheController, ShardedFeature
+
+    n = topo.node_count
+    store = ShardedFeature(logical_mesh(2, 2), device_cache_size=CTL_L1, csr_topo=topo,
+                           replicate_budget=CTL_L0, dtype="int8",
+                           auto_split=True).from_cpu_tensor(x)
+    ctl = CacheController().attach(store)
+    ids = torch.arange(-1, n, dtype=torch.int32, device="cuda")
+    before, rep0 = store.gather(ids).clone(), store.rep_rows
+    inv = np.empty(n, np.int64)
+    inv[store.feature_order.cpu().numpy()] = np.arange(n)
+    deg = np.zeros(n, np.int64)
+    deg[inv[rep0:rep0 + store.hot_rows]] = 100
+    store.note_degree_update(deg)
+    step9h("(c) note_degree_update on an auto_split store moves the boundary once, "
+           "seeds the controller, keeps the rows")
+    check(store.rep_rows == rep0 // 2 and ctl.sketch.state()["hitters"]
+          and equal(store.gather(ids), before),
+          f"degree feed: L0 {rep0} -> {store.rep_rows}")
+    out = {"rep_rows": [rep0, store.rep_rows], "prior_hitters": len(ctl.sketch.state()["hitters"])}
+    store.delete()
+    return out
+
+
+def control_trainer(topo, store, seed_sharding, topo_sharding, **kw):
+    """``DistributedTrainer`` at train_multichip's width (GraphSAGE 256 x 3,
+    Adam 1e-3, local batch 256, the default caps) over ``store`` on its
+    mesh; ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE
+
+    where = ({"device": "cuda"} if topo_sharding == "replicated"
+             else {"topo_sharding": "mesh", "mesh": store.mesh})
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, **where)
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES, num_layers=len(MULTI_FANOUT))
+    trainer = DistributedTrainer(store.mesh, sampler, store, model.to("cuda"),
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding=seed_sharding, **kw)
+    trainer.init(0)
+    return trainer
+
+
+def control_mode(topo, x, labels, seed_sharding, topo_sharding, card):
+    """(d) One mode over an int8 ``auto_split`` store with
+    ``controller=CacheController(heat_bins=256)`` and ``auto_alpha=True``
+    from ``routed_alpha=0.25``: 3 + 10 steps (steps/s, peak memory),
+    exact K1 and K2 launches every step (from the split after the step's
+    tuner), alpha doubling after every overflowing step, the heat feed
+    counting every valid lane, 5 profiled steps; 3 steps under
+    deterministic kernels bitwise for auto_alpha against ``auto_alpha=False``
+    uncapped and for a frozen controller against none; under ``"all"``
+    one ``epoch_scan`` whose ``end_epoch`` repins (the next step runs), and
+    a manual repin that raises ``VersionMismatchError`` until
+    ``refresh()``. Returns ``(launches of the timed steps, result)``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import CacheController, ShardedFeature, VersionMismatchError
+    from quiver_tpu_torch.obs.registry import FEATURE_ROW_HEAT
+
+    def store_():
+        return ShardedFeature(logical_mesh(2, 2), device_cache_size=CTL_L1, csr_topo=topo,
+                              replicate_budget=CTL_L0, dtype="int8",
+                              auto_split=True).from_cpu_tensor(x)
+
+    what = f"{seed_sharding}, {topo_sharding} topology"
+    store = store_()
+    check(store.rep_rows == 8192 and store.hot_rows == 32768 and store.cold.is_pinned(),
+          f"int8 trainer store split {store.rep_rows} / {store.hot_rows}")
+    ctl = CacheController(heat_bins=CTL_HEAT_BINS, repin_min_gain=0.0)
+    trainer = control_trainer(topo, store, seed_sharding, topo_sharding,
+                              routed_alpha=CTL_ALPHA0, auto_alpha=True, controller=ctl)
+    check(trainer._heat_bins == CTL_HEAT_BINS and store._controller is ctl,
+          f"{what}: the controller is attached and its heat feed registered")
+    groups, F, n = trainer.data_size, trainer.feature_size, topo.node_count
+    rng = np.random.default_rng(1)
+    k1_name = "select" if topo_sharding == "mesh" else "uniform_hop"
+    k1 = (len(MULTI_FANOUT) * F * groups if topo_sharding == "mesh"
+          else len(MULTI_FANOUT) * trainer.workers)
+    per_step, times, losses = [], [], []
+    total = {}
+    for i in range(MULTI_WARMUP + MULTI_STEPS):
+        if i == MULTI_WARMUP:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        seeds = rng.integers(0, n, trainer.global_batch)
+        reset_launches()
+        a = time.perf_counter()
+        losses.append(trainer.step(seeds, labels, 10 + i))
+        sync()
+        dt = time.perf_counter() - a
+        got = read_launches()
+        k2 = groups * (int(store.rep_rows > 0) + F + int(store.cold is not None))
+        step9h(f"(d) {what} step {i}: exactly {k1} {k1_name} and {k2} tiered_gather_dequant "
+               "launches")
+        expect_launches(got, {k1_name: k1, "tiered_gather_dequant": k2}, f"{what} step {i}")
+        ov = int(trainer.last_routed_overflow) + int(trainer.last_sample_overflow.sum())
+        heat = int(trainer.metrics.value(FEATURE_ROW_HEAT).sum())
+        step9h(f"(d) {what} step {i}: the heat histogram counts every valid lane once")
+        check(heat == int(trainer.last_tier_hits.sum()), f"{what}: heat {heat} against hits "
+              f"{trainer.last_tier_hits.tolist()}")
+        per_step.append({"alpha": trainer.routed_alpha, "overflow": ov, "rep_rows": store.rep_rows,
+                         "launches": {k1_name: k1, "tiered_gather_dequant": k2}})
+        if i >= MULTI_WARMUP:
+            times.append(dt)
+            for name, v in got.items():
+                total[name] = total.get(name, 0) + v
+    grew = 0
+    for a, b in zip(per_step, per_step[1:]):
+        if a["overflow"] > 0 and a["alpha"] < F:
+            grew += 1
+            check(b["alpha"] == min(2 * a["alpha"], F), f"{what}: alpha {a} -> {b}")
+    step9h(f"(d) {what}: alpha doubles after each overflowing step"
+           + (" (it overflowed)" if seed_sharding == "all" else " (nothing routes: no overflow)"))
+    check(grew > 0 if seed_sharding == "all" else all(
+        s["overflow"] == 0 and s["alpha"] == CTL_ALPHA0 for s in per_step),
+        f"{what}: alphas {[(s['alpha'], s['overflow']) for s in per_step]}")
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"{what}: losses")
+    step_ms = trimmed_mean(times) * 1e3
+    r = {"workers": trainer.workers, "global_batch": trainer.global_batch,
+         "caps": list(trainer.caps), "warmup": MULTI_WARMUP, "steps": MULTI_STEPS,
+         "step_ms_trimmed_mean": step_ms, "steps_per_s": 1e3 / step_ms,
+         "peak_bytes": torch.cuda.max_memory_allocated(), "per_step": per_step,
+         "loss_first_last": [losses[0], losses[-1]], "alpha_growths": grew,
+         "controller": ctl.stats()}
+    step9h(f"(d) {what}: the profiler sees the card")
+    prof = profiled_idle(lambda: [trainer.step(rng.integers(0, n, trainer.global_batch),
+                                               labels, 1000 + k)
+                                  for k in range(PROFILED_STEPS)],
+                         PROFILED_STEPS, step_ms, INT8_KERNELS)
+    ours = prof.pop("port_kernels_ms_per_step")
+    prof["profiled_steps"] = prof.pop("steps")
+    del prof["step_ms"]
+    r.update(prof, k1_device_ms_per_step=ours["select_kernel" if topo_sharding == "mesh"
+                                              else "uniform_hop_kernel"],
+             k2_device_ms_per_step=ours["gather_dequant_kernel"])
+    if seed_sharding == "all":
+        # one epoch whose end repins; then a manual repin needs refresh()
+        mat = trainer.pack_epoch(rng.integers(0, n, CTL_EPOCH_STEPS * trainer.global_batch),
+                                 seed=3)
+        v0 = store.version
+        el = trainer.epoch_scan(mat, labels, 21)
+        step9h(f"(d) {what}: epoch_scan's end_epoch repins, the trainer is refreshed and "
+               "its next step runs")
+        check(bool(torch.isfinite(el).all()) and store.version == v0 + 1
+              and ctl.stats()["repins"] >= 1
+              and trainer._bound_versions == trainer._current_versions(),
+              f"{what}: epoch repin, version {v0} -> {store.version}, {ctl.stats()}")
+        check(math.isfinite(float(trainer.step(rng.integers(0, n, trainer.global_batch),
+                                                labels, 3000))), f"{what}: step after repin")
+        probe = rng.integers(-1, n, 20_000).astype(np.int32)
+        step9h(f"(d) {what}: the repinned store's rows bitwise the numpy int8 rows")
+        check(equal(store.gather(torch.from_numpy(probe).to("cuda")),
+                    torch.from_numpy(int8_rows(x, probe)).to("cuda")),
+              f"{what}: repinned rows")
+        store.repin(ctl.sketch.top_rows(64))
+        step9h(f"(d) {what}: a repin without refresh() raises VersionMismatchError")
+        try:
+            trainer.step(rng.integers(0, n, trainer.global_batch), labels, 3001)
+            raised = False
+        except VersionMismatchError:
+            raised = True
+        check(raised, f"{what}: a stale trainer raised")
+        trainer.refresh()
+        check(math.isfinite(float(trainer.step(rng.integers(0, n, trainer.global_batch),
+                                                labels, 3002))), f"{what}: step after refresh")
+        r["epoch"] = {"steps": CTL_EPOCH_STEPS, "losses_first_last": [float(el[0]),
+                                                                     float(el[-1])],
+                      "version": store.version, "controller": ctl.stats()}
+    del trainer
+    store.delete()
+    # bitwise under deterministic kernels: auto_alpha against fixed
+    # uncapped, a frozen controller against none (each over a fresh store)
+    det = {}
+    with deterministic_algorithms():
+        for name, kw in (("auto_alpha", {"routed_alpha": CTL_ALPHA0, "auto_alpha": True}),
+                         ("uncapped", {"routed_alpha": None}),
+                         ("frozen", {"controller": CacheController(frozen=True,
+                                                                   heat_bins=CTL_HEAT_BINS)}),
+                         ("none", {})):
+            s = store_()
+            det[name] = [float(v) for v in multichip_losses(
+                control_trainer(topo, s, seed_sharding, topo_sharding, **kw), labels,
+                MULTI_DET_STEPS)]
+            s.delete()
+    step9h(f"(d) {what}: deterministic losses bitwise: auto_alpha == uncapped, frozen "
+           "controller == none")
+    check(det["auto_alpha"] == det["uncapped"] and det["frozen"] == det["none"],
+          f"{what}: deterministic losses {det}")
+    r["deterministic_losses"] = det
+    log(f"int8 controller trainer ({what}): {r['steps_per_s']:.4g} steps/s ({step_ms:.3f} ms), "
+        f"idle share {r['idle_share']:.4f}, K1 {r['k1_device_ms_per_step']:.4f} ms, K2 "
+        f"{r['k2_device_ms_per_step']:.4f} ms a step, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
+        f"alphas {[s['alpha'] for s in per_step]}, L0 rows {[s['rep_rows'] for s in per_step]} "
+        f"[{card}]")
+    return total, r
+
+
+def control_phase(topo, pcie, card):
+    """Phase 9h (see the module docstring). Returns ``(launches by path,
+    K2 check rows, result)``."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    x = np.random.default_rng(0).normal(size=(topo.node_count, EPOCH_F)).astype(np.float32)
+    l_a, rows, store = int8_store_phase(topo, x, pcie, card)
+    torch.cuda.empty_cache()
+    l_b, rows_b, ctl = controller_phase(topo, x, card)
+    del x
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    mtopo, mx, labels = multichip_setup()
+    degree = degree_feed_check(mtopo, mx)
+    trainer, l_d = {}, {}
+    for seed_sharding, topo_sharding in (("data", "replicated"), ("all", "mesh")):
+        l_d[seed_sharding], trainer[seed_sharding] = control_mode(
+            mtopo, mx, labels, seed_sharding, topo_sharding, card)
+        torch.cuda.empty_cache()
+    result = {"int8_store": store, "controller": ctl, "degree_feed": degree,
+              "trainer": {"modes": trainer, "seconds": time.time() - t1,
+                          "config": "examples/train_multichip.py defaults (phase 9f (b)) over "
+                                    "an int8 auto_split ShardedFeature (8,192 L0 / 32,768 L1 / "
+                                    "59,040 cold rows) with CacheController(heat_bins=256, "
+                                    "repin_min_gain=0) and auto_alpha=True from "
+                                    "routed_alpha=0.25; 'data' over the replicated sampler, "
+                                    "'all' over a topology-sharded one"},
+              "seconds": time.time() - t0}
+    log(f"control phase {result['seconds']:.1f}s [{card}]")
+    return {"store": l_a, "controller": l_b, "trainer": l_d}, rows + rows_b, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5726,6 +6385,12 @@ def main() -> int:
     del topo_t
     torch.cuda.empty_cache()
     lap("phase 9g (distributed sampling)")
+    # phase 9h: the sharded store's int8 tiers, repin, row updates and the
+    # controller, then DistributedTrainer(auto_alpha=, controller=) over an
+    # int8 auto_split store
+    launches_c, rows_c, control = control_phase(topo, pcie, card)
+    torch.cuda.empty_cache()
+    lap("phase 9h (int8 sharded store, controller)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -5756,6 +6421,7 @@ def main() -> int:
                     "dist_sample_launches": {k: launches_g["sample"][k]["select"]
                                              for k in ("uniform", "temporal")},
                     "topo_sharded_trainer_launches": launches_g["trainer"]["select"],
+                    "int8_controller_trainer_launches": launches_c["trainer"]["all"]["select"],
                     "dist_hetero_launches": launches_g["hetero"]["uniform"]["select"],
                     "owner_side": {
                         **{k: {"device_ms_per_sample": dist["samplers"][k][
@@ -5790,6 +6456,8 @@ def main() -> int:
                     "fused_trainer_launches": launches_f["uniform_hop"],
                     "sharded_trainer_launches": {
                         mode: v["uniform_hop"] for mode, v in launches_s.items()},
+                    "int8_controller_trainer_launches": launches_c["trainer"]["data"][
+                        "uniform_hop"],
                     "beyond_hbm": {
                         "launches": {k: v["uniform_hop"] for k, v in launches_o.items()},
                         "uva_hops": [{key: t[key] for key in (
@@ -5838,8 +6506,9 @@ def main() -> int:
                    card, name),
         kernel_row("tiered_gather_dequant", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_qa["tiered_gather_dequant"],
-                   "int8 training (a) (also int8 training (b) and int8 serving)",
-                   deq, t_q,
+                   "int8 training (a) (also int8 training (b), int8 serving and every int8 "
+                   "tier of the sharded store)",
+                   deq + rows_c, t_q,
                    {"yardstick": t_q["yardstick"], "yard_ms": t_q["yard_ms"],
                     "ratio_to_yard": t_q["ratio_to_yard"],
                     "shape": [t_q["ids"], t_q["stored_row_bytes"]],
@@ -5849,6 +6518,13 @@ def main() -> int:
                     "serve_launches": launches_q["tiered_gather_dequant"],
                     "train_b_launches": launches_qb["tiered_gather_dequant"],
                     "train_lookup_in_turns": train_qa["lookup_in_turns"],
+                    "sharded_int8_lookup_launches": launches_c["store"],
+                    "controller_store_launches": launches_c["controller"],
+                    "sharded_int8_trainer_launches": {
+                        mode: v["tiered_gather_dequant"]
+                        for mode, v in launches_c["trainer"].items()},
+                    "sharded_int8_lookup": {mesh: r["timing"] for mesh, r in
+                                            control["int8_store"]["meshes"].items()},
                     "library": "none: no single PyTorch call dequantises a "
                                "tiered lookup; its yardstick is the staged "
                                "lookup in stock torch ops"},
@@ -5888,6 +6564,9 @@ def main() -> int:
           and launches_qb["tiered_gather_dequant"] > 0
           and all(v["uniform_hop"] > 0 and v["gather_rows"] > 0
                   for v in launches_s.values())
+          and all(v["tiered_gather_dequant"] > 0 for v in launches_c["trainer"].values())
+          and launches_c["trainer"]["data"]["uniform_hop"] > 0
+          and launches_c["trainer"]["all"]["select"] > 0
           and all(v[k] > 0 for k, v in (("select", launches_g["sample"]["uniform"]),
                                         ("wselect", launches_g["sample"]["weighted"]),
                                         ("select", launches_g["trainer"]),
@@ -5906,7 +6585,7 @@ def main() -> int:
                        "train_int8_a": train_qa, "train_int8_b": train_qb,
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
                        "beyond_hbm": offload, "fused_trainer": fused,
-                       "sharded": sharded, "distributed": dist,
+                       "sharded": sharded, "distributed": dist, "control": control,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -5936,6 +6615,11 @@ def main() -> int:
     print(json.dumps({"fused_trainer": fused}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"distributed": dist}), flush=True)
+    print(json.dumps({"control": {k: v for k, v in control.items() if k != "trainer"}}),
+          flush=True)
+    print(json.dumps({"control_trainer": {
+        mode: {k: v for k, v in r.items() if k != "per_step"}
+        for mode, r in control["trainer"]["modes"].items()}}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -22,11 +22,10 @@ controller's own registry (``ctrl.decisions``, ``ctrl.repins``,
 
 All controller state is on the host (the sketch, the tuners' hysteresis
 counters, the decision counters), so it survives a server's ``refresh``
-and a topology mutation. On one card the store is a plain ``Feature``:
-the controller observes it, and :meth:`CacheController.maybe_repin`
-(which needs a store with ``rep_rows > 0``) and
-:meth:`CacheController.maybe_promote` (which needs ``restage``) act
-once such stores are ported.
+and a topology mutation. :meth:`CacheController.maybe_repin` acts on a
+``ShardedFeature`` with an L0 tier (a plain ``Feature`` is only
+observed); :meth:`CacheController.maybe_promote` (which needs
+``restage``) acts once an out-of-core store is ported.
 """
 
 from __future__ import annotations

@@ -51,7 +51,9 @@ def row_heat_histogram(n_id, feature_order, num_rows: int, num_bins: int):
     translated row map (None is the identity). Bin ``b`` covers
     translated rows ``[b * rpb, (b + 1) * rpb)`` with ``rpb =
     ceil(num_rows / num_bins)``. Returns an int32 ``(num_bins,)`` tensor on
-    ``n_id``'s device.
+    ``n_id``'s device, with no host read. The counts come from a sort and
+    a binary search of the bin edges, not a scatter-add, so the histogram
+    runs under ``torch.use_deterministic_algorithms`` on a card.
     """
     n_id = torch.as_tensor(n_id)
     valid = (n_id >= 0).reshape(-1)
@@ -61,8 +63,10 @@ def row_heat_histogram(n_id, feature_order, num_rows: int, num_bins: int):
         ids = order[ids].to(torch.int64)
     rpb = -(-num_rows // num_bins)  # ceil; bins stay < num_bins
     bins = torch.clamp(ids // rpb, 0, num_bins - 1)
-    return torch.zeros(num_bins, dtype=torch.int32, device=ids.device).index_add_(
-        0, bins, valid.to(torch.int32))
+    bins = torch.where(valid, bins, num_bins)  # invalid lanes: a spare bin
+    edges = torch.searchsorted(torch.sort(bins).values,
+                               torch.arange(num_bins + 1, device=ids.device))
+    return (edges[1:] - edges[:-1]).to(torch.int32)
 
 
 class FreqSketch:

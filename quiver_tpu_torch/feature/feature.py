@@ -95,17 +95,36 @@ def quantize_rows_int8(tensor: np.ndarray):
     return q, scale
 
 
-def tiered_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None):
-    """Rows for padded node ids from a hot and a cold tier.
+_GATHER_KEYWORDS = frozenset(("rep_rows", "rep_gather", "hot_miss_id", "with_hits"))
 
-    ``hot`` holds translated rows ``[0, hot_rows)`` and ``cold`` the rest
-    (either may be None); ``feature_order`` (int32, or None) translates
-    node ids to rows; ``scale`` (the ``(N,)`` float32 scales of int8 codes,
-    or None) dequantises. ``-1`` lanes return zero rows; an id past the
-    table reads the row of the last id. One K2 launch on the card
+
+def tiered_lookup(n_id, feature_order, hot_rows: int, hot, cold, *args, **kwargs):
+    """Rows for padded node ids from tiers of the translated row space,
+    in either of two contracts.
+
+    The JAX package's: ``tiered_lookup(n_id, feature_order, hot_rows,
+    hot_gather, cold_gather, rep_rows=0, rep_gather=None, hot_miss_id=0,
+    with_hits=False)`` with the tiers behind callables
+    (:func:`three_tier_lookup`). It is taken when ``hot`` or ``cold`` is
+    callable, or when one of its own keywords is given.
+
+    The port's table form: ``tiered_lookup(n_id, feature_order, hot_rows,
+    hot, cold, scale=None)``. ``hot`` holds translated rows ``[0,
+    hot_rows)`` and ``cold`` the rest (either may be None);
+    ``feature_order`` (int32, or None) translates node ids to rows;
+    ``scale`` (the ``(N,)`` float32 scales of int8 codes, or None)
+    dequantises. ``-1`` lanes return zero rows; an id past the table
+    reads the row of the last id. One K2 launch on the card
     (:func:`~..ops.kernels.gather.tiered_gather`, or
     :func:`~..ops.kernels.gather.tiered_gather_dequant` with ``scale``).
     """
+    if callable(hot) or callable(cold) or not _GATHER_KEYWORDS.isdisjoint(kwargs):
+        return three_tier_lookup(n_id, feature_order, hot_rows, hot, cold, *args, **kwargs)
+    return _table_lookup(n_id, feature_order, hot_rows, hot, cold, *args, **kwargs)
+
+
+def _table_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None):
+    """:func:`tiered_lookup`'s table form."""
     n_id = n_id.to(torch.int32).contiguous()
     if scale is None:
         return tiered_gather(n_id, feature_order, hot_rows, hot, cold)
@@ -115,8 +134,8 @@ def tiered_lookup(n_id, feature_order, hot_rows: int, hot, cold, scale=None):
 def three_tier_lookup(n_id, feature_order, hot_rows: int, hot_gather, cold_gather,
                       rep_rows: int = 0, rep_gather=None, hot_miss_id: int = 0,
                       with_hits: bool = False):
-    """The tier merge of the sharded store, with the JAX package's
-    ``tiered_lookup`` arguments: three contiguous tiers of the translated
+    """:func:`tiered_lookup` in the JAX package's contract, the tier merge
+    of the sharded store: three contiguous tiers of the translated
     row space, replicated ``[0, rep_rows)`` (``rep_gather``), hot ``[rep_rows,
     rep_rows + hot_rows)`` (``hot_gather``) and cold, the rest
     (``cold_gather``); each a callable (tier-local ids) -> rows, or None.

@@ -60,7 +60,7 @@ def _edge_chunks(indptr, indices, chunk: int, host: bool):
     for e0 in range(0, E, chunk):
         epos = torch.arange(e0, min(e0 + chunk, E), device=dev)
         if host:
-            src = staged_gather(indices, epos)
+            src = staged_gather(indices, epos, host)
         else:
             src = indices[e0:e0 + epos.shape[0]]
         dst = torch.searchsorted(indptr, epos, right=True) - 1

@@ -7,8 +7,10 @@ the unique list comes out in first-occurrence order with the seeds first
 (PyG's ``n_id[:batch_size]`` contract). The JAX package keeps three bit-identical strategies
 (sort/map/scan); the port keeps the sort, which suits the small serving
 frontiers and needs no ``(node_count,)`` scratch map per hop. Both
-functions take optional leading batch dimensions, one independent dedup
-per leading index.
+functions take JAX's ``node_bound`` and ``scatter_free``, which pick one
+of those strategies there and are inert here (every strategy returns the
+same outputs). Both take optional leading batch dimensions, one
+independent dedup per leading index.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ __all__ = ["complete_permutation", "inverse_permutation",
 _SENTINEL = torch.iinfo(torch.int64).max
 
 
-def masked_unique(ids, valid, size: int, num_forced: int = 0):
+def masked_unique(ids, valid, size: int, num_forced: int = 0,
+                  node_bound: int | None = None, scatter_free: bool = False):
     """First-occurrence-order unique of ``ids[valid]``, padded to ``size``.
 
     Args:
@@ -37,6 +40,10 @@ def masked_unique(ids, valid, size: int, num_forced: int = 0):
       num_unique: ``(...)`` int32 total uniques found (may exceed ``size``).
       local: ``(..., T)`` int32 compact id of each element among the
         uniques, -1 for invalid or overflowed elements.
+
+    ``node_bound`` and ``scatter_free`` are JAX's strategy switches
+    (a scatter-min map, the zero-scatter scan), accepted and inert: the
+    outputs are the sort's either way.
     """
     lead, T = ids.shape[:-1], ids.shape[-1]
     ids2 = ids.reshape(-1, T)
@@ -71,7 +78,8 @@ def masked_unique(ids, valid, size: int, num_forced: int = 0):
             local.reshape(*lead, T))
 
 
-def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int):
+def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int,
+                  node_bound: int | None = None, scatter_free: bool = False):
     """Per-layer reindex: frontier = unique(seeds ∪ neighbors), seeds first.
 
     Args:
@@ -86,6 +94,8 @@ def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int):
       col_local: ``(..., S, K)`` frontier-local id per neighbour, -1 where
         invalid (seed i's local id is i).
       overflow: ``(...)`` uniques dropped for exceeding ``frontier_cap``.
+
+    ``node_bound`` and ``scatter_free``: as :func:`masked_unique`, inert.
     """
     *lead, S, K = neighbors.shape
     flat = neighbors.reshape(*lead, S * K)

@@ -399,9 +399,14 @@ def sample_layer(topo, seeds, num_seeds, k: int, generator=None, *,
     return nbr, counts, eids
 
 
-def staged_gather(table, idx):
-    """``table[idx]`` for a 1-D table. A pinned host table is read directly
-    over UVA by kernel K2 when ``idx`` is on the card (the reference's
-    zero-copy read, which the TPU had to stage through host compute)."""
+def staged_gather(table, idx, host: bool):
+    """``table[idx]``: rows of ``table`` (entries of a 1-D one) for ids of
+    any shape, by kernel K2. A pinned host table is read directly over UVA
+    when ``idx`` is on the card (the reference's zero-copy read, which the
+    TPU had to stage through host compute), a device table in place.
+    ``host`` is JAX's flag for the staged path, accepted and inert: K2
+    reads either table the same way."""
     flat = idx.reshape(-1).to(torch.int32).contiguous()
-    return gather_rows(table.reshape(-1, 1), flat).reshape(idx.shape)
+    rows = gather_rows(table.reshape(-1, 1) if table.dim() == 1
+                       else table.reshape(table.shape[0], -1), flat)
+    return rows.reshape(tuple(idx.shape) + tuple(table.shape[1:]))

@@ -39,9 +39,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..control.freq import heat_num_bins, row_heat_histogram
 from ..core.config import CachePolicy, parse_size_bytes
 from ..feature.shard import ShardedFeature
 from ..obs.registry import (
+    FEATURE_ROW_HEAT,
     GUARD_NONFINITE,
     GUARD_SKIPPED,
     PIPELINE_REISSUES,
@@ -105,6 +107,7 @@ class IssuedBlock(NamedTuple):
     adjs: list  # deepest layer first
     num_seeds: torch.Tensor  # valid seeds of the block (device scalar)
     tier_hits: torch.Tensor  # int32 (3,) [replicated, hot, cold] hits
+    heat: torch.Tensor | None = None  # int32 row-heat histogram (heat feed on)
 
 
 class IssuedStep(NamedTuple):
@@ -170,6 +173,21 @@ class DistributedTrainer:
         the first batch of each chunk, so a chunk after the first issues
         its first batch again, counted in ``train.pipeline_reissues``).
         The same ops on the same inputs as depth 0, in another order.
+      auto_alpha: tune ``routed_alpha`` between steps: one budget for the
+        routed lookup and a topology-sharded sampler's hops, read from both
+        overflow counts of the previous step (an
+        :class:`~..control.AlphaTuner`: double on overflow, up to F; halve
+        after a run of clean steps, not below a value that overflowed).
+        With no ``controller`` a default one with no heat feed is made; it
+        is not attached to the store.
+      controller: a :class:`~..control.CacheController` that owns the
+        store's placement and routing decisions: attached to a
+        ``ShardedFeature`` (its split tuner moves the L0/L1 boundary, its
+        ``end_epoch`` may ``repin``), fed each step's seeds and, when it
+        asks for heat and metrics are on, each step's row-heat histogram
+        (``feature.row_heat``, computed on the device in the step), and
+        driving the ``routed_alpha`` tuner. A frozen controller observes
+        and decides nothing: the losses stay those of ``controller=None``.
       donate_epoch_state: accepted; the JAX package's opt-in to reuse the
         epoch's parameter buffers already holds here, since the step
         updates the caller's parameters in place.
@@ -177,9 +195,8 @@ class DistributedTrainer:
         flight recorder that dumps a bundle when the guard skips a step.
 
     Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): ``auto_alpha=True`` and a ``controller`` (A.11c),
-    ``logical_workers`` (A.11d), and a mesh whose workers sit on more than
-    one distinct device (A.11e).
+    item): ``logical_workers`` (A.11d), and a mesh whose workers sit on
+    more than one distinct device (A.11e).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -244,19 +261,12 @@ class DistributedTrainer:
                 "checkpoint_every= without checkpoint_dir= has "
                 "nothing to write to"
             )
-        for unported, what, item in (
-            (logical_workers is not None,
-             "logical_workers= (elastic mode)", "A.11d"),
-            (bool(auto_alpha), "auto_alpha=True (the routing-budget tuner)",
-             "A.11c"),
-            (controller is not None, "controller= (the cache controller's "
-             "placement and routing decisions)", "A.11c"),
-        ):
-            if unported:
-                raise NotImplementedError(
-                    f"DistributedTrainer: {what} is not ported yet "
-                    f"(ROADMAP {item})"
-                )
+        if logical_workers is not None:
+            raise NotImplementedError(
+                "DistributedTrainer: logical_workers= (elastic mode) is not "
+                "ported yet (ROADMAP A.11d)"
+            )
+        self.auto_alpha = bool(auto_alpha)
         devices = set(mesh.devices.ravel().tolist())
         if len(devices) > 1:
             raise NotImplementedError(
@@ -378,6 +388,27 @@ class DistributedTrainer:
         # a sharded store under "all": each feature group's lookup routes
         self._routed = self._sharded and self.seed_sharding == "all"
         self.global_batch = self.local_batch * self.workers
+        # the cache controller: auto_alpha with none builds an alpha-only
+        # one (no heat feed, not attached: it must not move a split the
+        # caller never asked for); a given one is attached to a sharded
+        # store, and its heat feed is registered before the first step
+        if controller is None and self.auto_alpha:
+            from ..control import CacheController
+
+            controller = CacheController(heat_bins=0)
+        elif controller is not None and self._sharded:
+            controller.attach(feature)
+        self.controller = controller
+        self._heat_bins = 0
+        if (controller is not None and controller.wants_heat and self.collect_metrics
+                and self._sharded and feature.shape):
+            self._heat_bins = heat_num_bins(feature.shape[0], controller.heat_bins)
+            self.metrics.gauge(
+                FEATURE_ROW_HEAT, shape=(self._heat_bins,), unit="hits",
+                doc="in-program per-row access-heat histogram (positional "
+                    "bins over the store's translated row order, "
+                    "mesh-total; feeds the controller's FreqSketch)",
+            )
         self.caps = tuple(sampler._caps_for(self.local_batch))
         self.draw_fn = None
         self._bound_versions = self._current_versions()
@@ -505,6 +536,15 @@ class DistributedTrainer:
             (valid & ~hot).sum(dtype=torch.int32),
         ])
 
+    def _heat(self, n_id):
+        """The row-heat histogram of one worker's frontier ids (int32
+        ``(bins,)`` on the device, no host read), or None with the heat
+        feed off."""
+        if not self._heat_bins:
+            return None
+        return row_heat_histogram(n_id, self.feature.feature_order,
+                                  self.sampler.csr_topo.node_count, self._heat_bins)
+
     def sample_block(self, seeds, num_seeds, key: int, draw_fn=None):
         """One worker's sample: the sampler's ``sample_padded`` on the
         padded device ``seeds`` (one K1 launch per hop, drawing from the
@@ -537,7 +577,7 @@ class DistributedTrainer:
         the frontier and its tier hits, all on the device."""
         n_id, adjs = self.sample_block(seeds, num_seeds, key, draw_fn)
         x, hits, _ = self._lookup(n_id)
-        return IssuedBlock(n_id, x, adjs, num_seeds, hits)
+        return IssuedBlock(n_id, x, adjs, num_seeds, hits, self._heat(n_id))
 
     def train_block(self, n_id, x, adjs, num_seeds, labels, key: int,
                     inject: bool = False):
@@ -585,12 +625,15 @@ class DistributedTrainer:
         L), adjs with (F, 2, E) edge lists, per-hop overflow (L,))``."""
         seeds = torch.stack([blocks[w][0] for w in members])
         num = torch.stack([blocks[w][1] for w in members])
+        # the step's one routing budget: the trainer's alpha caps the hops
+        # as it caps the routed lookup
         if self.draw_fn is None:
             gens = [seeded_generator(self.device, fold_key(key, 1, w), 0) for w in members]
-            out = self.sampler.sample_group(seeds, num, generators=gens)
+            out = self.sampler.sample_group(seeds, num, generators=gens,
+                                            routed_alpha=self.routed_alpha)
         else:
             out = self.sampler.sample_group(seeds, num, draw_fn=lambda i, l, deg: (
-                self.draw_fn(key, members[i], l, deg)))
+                self.draw_fn(key, members[i], l, deg)), routed_alpha=self.routed_alpha)
         return out[0], out[2], out[6]
 
     def _issue(self, packed, key: int) -> IssuedStep:
@@ -612,7 +655,8 @@ class DistributedTrainer:
             samples = [self.sample_block(*blocks[w], fold_key(key, 1, w),
                                          self._worker_draw(key, w)) for w in members]
             xs, hits, ov = self._lookup(torch.stack([n_id for n_id, _ in samples]))
-            issued.extend(IssuedBlock(n_id, xs[i], adjs, blocks[w][1], hits[i])
+            issued.extend(IssuedBlock(n_id, xs[i], adjs, blocks[w][1], hits[i],
+                                      self._heat(n_id))
                           for i, (w, (n_id, adjs)) in enumerate(zip(members, samples)))
             overflow = overflow + ov
         return IssuedStep(issued, overflow)
@@ -637,7 +681,8 @@ class DistributedTrainer:
             for i, w in enumerate(members):
                 issued.append(IssuedBlock(
                     n_id[i], xs[i], [Adj(a.edge_index[i], None, a.size, a.fanout)
-                                     for a in adjs], blocks[w][1], hits[i]))
+                                     for a in adjs], blocks[w][1], hits[i],
+                    self._heat(n_id[i])))
         return IssuedStep(issued, routed_ov, sample_ov)
 
     def _train(self, issued: IssuedStep, labels, key: int, inject: bool):
@@ -646,20 +691,22 @@ class DistributedTrainer:
                                  fold_key(key, 1, w), inject)
                 for w, b in enumerate(issued.blocks)]
         return self._update(outs, [b.tier_hits for b in issued.blocks],
-                            issued.routed_overflow, issued.sample_overflow)
+                            issued.routed_overflow, issued.sample_overflow,
+                            [b.heat for b in issued.blocks])
 
     def _run_step(self, packed, labels, key: int, inject: bool):
         """The serial step: the issue half, then the train half and the
         update, in worker order."""
         return self._train(self._issue(packed, key), labels, key, inject)
 
-    def _update(self, outs, hits, routed_overflow, sample_overflow=None):
+    def _update(self, outs, hits, routed_overflow, sample_overflow=None, heat=None):
         """Sum the workers' gradient shares into ``.grad`` in worker order,
         take the guard's verdict before they mix (every worker's count),
         and step the optimizer. Returns ``(mean loss, the step's metrics
-        dict)``, on the device: the tier hits summed over the workers (a
-        feature group's members share one lookup under the psum flavour,
-        counted once), the routed overflow and the hops' overflow."""
+        dict)``, on the device: the tier hits (and the row heat, with the
+        heat feed on) summed over the workers (a feature group's members
+        share one lookup under the psum flavour, counted once), the routed
+        overflow and the hops' overflow."""
         params = self._params()
         self.optimizer.zero_grad(set_to_none=True)
         bad = []
@@ -682,6 +729,8 @@ class DistributedTrainer:
                                               dtype=torch.int32, device=dev)
                                   if sample_overflow is None else sample_overflow),
             }
+            if self._heat_bins:
+                mtree[FEATURE_ROW_HEAT] = torch.stack(heat).sum(0, dtype=torch.int32)
         if self.nonfinite_guard:
             total_bad = torch.stack(bad).sum(dtype=torch.int32)
             ok = total_bad == 0
@@ -747,15 +796,29 @@ class DistributedTrainer:
         After the call ``last_tier_hits`` holds the step's per-tier hits
         (int32 (3,)), and with the guard on the skip and non-finite
         counters hold its verdict. A planned preemption raises
-        :class:`~..resilience.Preemption` after the step ran."""
+        :class:`~..resilience.Preemption` after the step ran.
+
+        Before the step, between batches: a sharded store with
+        ``auto_split=True`` or a controller moves its L0/L1 boundary from
+        the previous step's hits, the ``routed_alpha`` tuner reads the
+        previous step's overflow, and the controller observes the seeds.
+        After it, the controller folds in the step's row heat."""
         self._check_versions()
+        feature = self.feature
         plan = self.fault_plan
         step_idx = self._fault_step
         self._fault_step += 1
         with self.tracer.span("train.step", trace=f"train.step.{step_idx}",
                               subsystem="trainer", step=step_idx), \
                 self.timeline.stage("step"):
-            packed = torch.from_numpy(self.shard_seeds(seeds)).to(self.device)
+            if self._sharded and (feature.auto_split or feature._controller is not None):
+                feature._maybe_auto_split()
+            self._maybe_grow_routed_alpha()
+            packed = self.shard_seeds(seeds)
+            if self.controller is not None:
+                # the host-visible ids of the step: they name repin rows
+                self.controller.observe_ids(packed)
+            packed = torch.from_numpy(packed).to(self.device)
             labels = torch.as_tensor(labels, device=self.device)
             inject = plan is not None and plan.nan_at(step_idx)
             loss, mtree = self._run_step(packed, labels, int(key), inject)
@@ -764,6 +827,8 @@ class DistributedTrainer:
         if mtree and self._sharded:
             # the store's own view of the step's traffic, as after its lookups
             self.feature.last_tier_hits = mtree[TIER_HITS]
+        if mtree and self.controller is not None:
+            self.controller.observe_histogram(mtree.get(FEATURE_ROW_HEAT))
         if (plan is not None and not self._preempt_fired
                 and plan.preempts_in(step_idx, step_idx + 1)):
             # the step ran but its results are lost with the raise: the
@@ -819,11 +884,14 @@ class DistributedTrainer:
             batch = nxt
         return losses, mtrees
 
-    def _record_steps(self, mtrees) -> None:
-        """Land per-step metrics dicts as ``(steps, ...)`` stacks."""
-        if mtrees and mtrees[0]:
-            self.metrics.record({name: torch.stack([m[name] for m in mtrees])
-                                 for name in mtrees[0]})
+    def _record_steps(self, mtrees) -> dict:
+        """Land per-step metrics dicts as ``(steps, ...)`` stacks; returns
+        the stacks."""
+        if not (mtrees and mtrees[0]):
+            return {}
+        stacked = {name: torch.stack([m[name] for m in mtrees]) for name in mtrees[0]}
+        self.metrics.record(stacked)
+        return stacked
 
     def epoch_scan(self, seed_mat, labels, key: int, epoch: int = 0,
                    start_step: int = 0):
@@ -846,6 +914,13 @@ class DistributedTrainer:
         ``pipeline_depth=1`` runs the one-step skew with the same chunking
         and resume semantics; each chunk after the first issues its first
         batch again (``train.pipeline_reissues``).
+
+        The split is frozen for the epoch: before it, a sharded store with
+        a controller moves its boundary, the ``routed_alpha`` tuner reads
+        the last overflow and the controller observes the seed matrix;
+        after it, the controller folds in the epoch's heat, the store gets
+        the epoch's summed tier hits, and ``controller.end_epoch`` may
+        ``repin`` the store (and ``refresh()`` this trainer).
         """
         self._check_versions()
         steps = int(np.shape(seed_mat)[0])
@@ -862,6 +937,11 @@ class DistributedTrainer:
         # records its chunks under the same id
         etrace = self.tracer.trace(f"train.epoch.{int(epoch)}")
         with self.timeline.stage("epoch_scan"):
+            if self._sharded and self.feature._controller is not None:
+                self.feature._maybe_auto_split()
+            self._maybe_grow_routed_alpha()
+            if self.controller is not None:
+                self.controller.observe_ids(np.asarray(seed_mat))
             packed = torch.from_numpy(np.asarray(seed_mat, np.int32)).to(self.device)
             labels = torch.as_tensor(labels, device=self.device)
             if plan is not None and plan.injects_nan():
@@ -916,8 +996,17 @@ class DistributedTrainer:
                     self._save_checkpoint(key, epoch, hi, steps_per_epoch=steps,
                                           trace=etrace)
                 lo = hi
-        self._record_steps(mtrees)
+        stacked = self._record_steps(mtrees)
         self._check_guard_trip()
+        if self.controller is not None:
+            # the epoch's boundary: its heat into the sketch, its summed
+            # tier hits to the store's split tuner, then a possible repin
+            if stacked:
+                self.controller.observe_histogram(stacked.get(FEATURE_ROW_HEAT))
+                if self._sharded and TIER_HITS in stacked:
+                    self.feature.last_tier_hits = stacked[TIER_HITS].sum(0).cpu().numpy()
+            if self._sharded:
+                self.controller.end_epoch(self.feature, self)
         if not losses:  # start == steps: a resumed, already-finished epoch
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
         return torch.stack(losses)
@@ -1022,6 +1111,33 @@ class DistributedTrainer:
         self.optimizer.load_state_dict(state["opt_state"])
         return (self.model, self.optimizer, int(state["key"]), step,
                 int(state["epoch"]))
+
+
+    def _maybe_grow_routed_alpha(self) -> None:
+        """The shared routing tuner, between batches: the routed lookup and
+        a topology-sharded sampler's hops draw on one ``routed_alpha``, so
+        the controller's :class:`~..control.AlphaTuner` reads both overflow
+        counts of the previous step (host reads). Overflow doubles alpha
+        (up to F, the uncapped buckets); a run of clean steps halves it.
+        Overflowed lanes were served exactly either way."""
+        if self.controller is None or self.routed_alpha is None:
+            return
+        total = 0
+        for v in (self.last_routed_overflow, self.last_sample_overflow):
+            if v is not None:
+                total += int(v.sum())
+        new = self.controller.decide_alpha(total, self.routed_alpha, float(self.feature_size))
+        if new is None:
+            return
+        old = self.routed_alpha
+        self.routed_alpha = float(new)
+        get_logger().info(
+            "shared routing budget: %d lanes fallback-served last batch "
+            "(feature gather + sampler hops); alpha %.2f -> %.2f",
+            total, old, self.routed_alpha,
+        )
+        self.last_routed_overflow = None
+        self.last_sample_overflow = None
 
 
 class DataParallelTrainer:

@@ -84,6 +84,8 @@ __all__ = [
 ]
 
 
+_OWN = object()  # sample_group's default budget: the sampler's own routed_alpha
+
 def routed_sample_cap(length: int, num_shards: int,
                       alpha: float | None) -> int | None:
     """Per-destination bucket capacity for a frontier of width ``length``:
@@ -436,14 +438,16 @@ class DistGraphSageSampler(GraphSageSampler):
         return lambda l, deg: stack_draws([bits(l, (deg.shape[-1],)) for bits in seams],
                                           self.weighted)
 
-    def _sample_group(self, seeds, num_seeds, keys, draw_fn):
+    def _sample_group(self, seeds, num_seeds, keys, draw_fn, routed_alpha=_OWN):
         cap = int(seeds.shape[-1])
         return dist_multilayer_sample(
             self.topo, seeds, num_seeds, self.sizes, self._caps_for(cap),
-            self._group_draw(cap, keys, draw_fn), routed_alpha=self.routed_alpha,
+            self._group_draw(cap, keys, draw_fn),
+            routed_alpha=self.routed_alpha if routed_alpha is _OWN else routed_alpha,
             weighted=self.weighted, time_window=self.time_window)
 
-    def sample_group(self, seeds, num_seeds, generators=None, draw_fn=None):
+    def sample_group(self, seeds, num_seeds, generators=None, draw_fn=None,
+                     routed_alpha=_OWN):
         """Sample one feature group's padded device seed blocks with no host
         read: the sampler call of a fused train step.
 
@@ -455,14 +459,16 @@ class DistGraphSageSampler(GraphSageSampler):
         draws. Returns ``dist_multilayer_sample``'s tuple: ``(n_id (F,
         frontier_cap), n_count (F,), adjs deepest first (edge_index (F, 2,
         E_l)), overflow (F,), edge_counts, frontier_counts, hop overflow
-        (L,))``, all on the device.
+        (L,))``, all on the device. ``routed_alpha`` (a float, or None for
+        uncapped buckets) replaces the sampler's own for this call: a fused
+        trainer's step caps the hops with its own budget.
         """
         self.check_topo_version()
         keys = None if generators is None else [g.initial_seed() for g in generators]
         if keys is None and draw_fn is None:
             raise ValueError("sample_group needs generators or draw_fn")
         seeds = torch.as_tensor(seeds, device=self.device).to(torch.int32)
-        return self._sample_group(seeds, num_seeds, keys, draw_fn)
+        return self._sample_group(seeds, num_seeds, keys, draw_fn, routed_alpha)
 
     # -- the public API -------------------------------------------------------
 

@@ -47,7 +47,8 @@ from .hetero import (
     HeteroSampleOutput,
     hetero_reindex_hop,
 )
-from .sampler import Adj, _round_up, check_seed_range, read_counts, run_auto_caps
+from .sampler import (Adj, _round_up, check_seed_range, read_counts,
+                      resolve_sample_kernel, run_auto_caps)
 
 __all__ = ["DistHeteroSampler", "dist_hetero_multilayer_sample"]
 
@@ -124,8 +125,9 @@ class DistHeteroSampler(HeteroGraphSampler):
     Extra args over the replicated sampler: ``mesh`` (required),
     ``routed_alpha`` (``cap = ceil(alpha * S / F)`` lanes per destination
     per hop; None: uncapped), ``axis`` (the mesh axis of the partitions)
-    and ``kernel`` (validated and inert: the owner side runs K1 ``select``
-    / K3 ``wselect``). HBM mode only, no ``with_eid``. ``device`` defaults
+    and ``kernel`` (validated, and resolved lazily by :attr:`kernel` as the
+    replicated sampler's; the owner side runs K1 ``select`` / K3
+    ``wselect`` whatever it resolves to). HBM mode only, no ``with_eid``. ``device`` defaults
     to the mesh's first device.
 
     After :meth:`sample`, ``last_sample_overflow`` holds the
@@ -190,6 +192,17 @@ class DistHeteroSampler(HeteroGraphSampler):
             self.mesh, self.topo, axis=self.axis,
             weighted_rels=self.weighted_rels,
         )
+
+    @property
+    def kernel(self) -> str:
+        """The resolved hop path (``"pallas"`` or ``"xla"``), resolved at
+        the first read and kept, as ``GraphSageSampler.kernel``;
+        ``_kernel`` holds the constructor's request."""
+        resolved = getattr(self, "_kernel_resolved", None)
+        if resolved is None:
+            resolved = resolve_sample_kernel(self._kernel, self.device)
+            self._kernel_resolved = resolved
+        return resolved
 
     @property
     def overflow_slots(self) -> tuple:

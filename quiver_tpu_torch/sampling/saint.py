@@ -95,7 +95,8 @@ def saint_subgraph(topo, nodes, num_nodes, deg_cap: int) -> SaintSubgraph:
     j = torch.arange(deg_cap, dtype=torch.int32, device=dev)[None, :]
     in_window = j < deg.clamp(max=deg_cap)[:, None]
     epos = base[:, None] + torch.where(in_window, j, 0).to(base.dtype)
-    nbr = torch.where(in_window, staged_gather(topo.indices, epos), -1)
+    host = topo.indices.device.type == "cpu"
+    nbr = torch.where(in_window, staged_gather(topo.indices, epos, host), -1)
 
     dst_local = _membership(nodes, nbr)  # (C, D)
     src_local = torch.arange(C, dtype=torch.int32, device=dev)[:, None].expand(
@@ -135,7 +136,7 @@ def _uniform_edge_endpoints(topo, draws, budget: int):
     """The endpoints of ``budget`` uniform edges (``draws``, edge
     positions), deduplicated, under a ``2 * budget`` cap; the destination
     lookup is one K2 ``gather_rows`` launch on a card."""
-    dst = staged_gather(topo.indices, draws).to(torch.int32)
+    dst = staged_gather(topo.indices, draws, topo.indices.device.type == "cpu").to(torch.int32)
     r = draws.to(topo.indptr.dtype)
     src = (torch.searchsorted(topo.indptr, r, right=True) - 1).to(torch.int32)
     both = torch.cat([src, dst])

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import gc
 import time
 
 import torch
@@ -118,9 +119,19 @@ class _Program:
         current.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            outputs = self.step()
+        # a garbage collection during capture can free a pinned host block,
+        # whose allocator then queries CUDA events, which invalidates the
+        # capture: collect first and keep the collector off until it ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                outputs = self.step()
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

@@ -1149,3 +1149,91 @@ def test_dist_trainer_step_on_card_equals_replicated_topology(cuda):
             assert (select.launches - sel, uniform_hop.launches - hops) == (2 * 2 * 2, 0)
     for a, b in zip(issued["mesh"][0].blocks, issued["replicated"][0].blocks):
         assert torch.equal(a.n_id, b.n_id) and torch.equal(a.x, b.x)
+
+
+def _sharded_int8_setup(cuda, n=20_000, f=32):
+    """``_sharded_setup``'s store stored as int8 (the scales charged first:
+    L0 1,000 rows, L1 4,000, the rest pinned) and the replicated int8
+    ``Feature`` of the same rows (every row on the card)."""
+    from quiver_tpu_torch import CSRTopo, Feature, ShardedFeature, make_mesh
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    topo = CSRTopo(edge_index=generate_pareto_graph(n, 10.0, seed=8))
+    x = np.random.default_rng(0).normal(size=(n, f)).astype(np.float32)
+    store = ShardedFeature(make_mesh(data=2, feature=2, devices=[cuda] * 4),
+                           device_cache_size=4 * n + 2_000 * f, csr_topo=topo,
+                           replicate_budget=1_000 * f, dtype="int8").from_cpu_tensor(x)
+    replicated = Feature(device_cache_size=4 * n + n * f, csr_topo=topo, dtype="int8",
+                         device=cuda).from_cpu_tensor(x)
+    return topo, x, store, replicated
+
+
+def test_sharded_int8_tiers_match_plain(cuda):
+    """K2's ``tiered_gather_dequant`` on each int8 tier (the L0 block, each
+    L1 shard with its zero-padded scales, the pinned cold rows), with ids
+    past and below the table, bitwise ``tiered_gather_plain(..., scale)``;
+    then every lookup flavour bitwise the replicated int8 store's, with
+    exact launch counts (one per tier table per feature group)."""
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather_dequant, tiered_gather_plain
+
+    topo, _, store, replicated = _sharded_int8_setup(cuda)
+    assert (store.rep_rows, store.hot_rows) == (1_000, 4_000) and store.cold.is_pinned()
+    rng = np.random.default_rng(2)
+    tiers = [(store.rep, store._rep_scales[store.rep.device]),
+             (store.cold, store._cold_scale),
+             *zip(store.hot.shards, store.hot.scales)]
+    for table, scale in tiers:
+        assert scale.shape == (table.shape[0],) and scale.is_cuda
+        ids = torch.from_numpy(rng.integers(-1, table.shape[0] + 3, 3000).astype(np.int32)).to(cuda)
+        args = (ids, None, table.shape[0], table, None, scale)
+        assert torch.equal(tiered_gather_dequant(*args), tiered_gather_plain(*args))
+    ids = torch.from_numpy(np.concatenate([rng.integers(0, topo.node_count, 5000),
+                                           [-1] * 7]).astype(np.int32)).to(cuda)
+    want = replicated[ids]
+    for kw, launches in (({}, 4), ({"routed": True, "routed_cap": None}, 6),
+                         ({"routed": True}, 6), ({"routed": True, "routed_cap": 1}, 6)):
+        before = tiered_gather_dequant.launches
+        got = store.gather(ids, **kw)
+        assert tiered_gather_dequant.launches == before + launches, kw
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.parametrize("dtype", [None, "int8"])
+def test_sharded_repin_and_update_bitwise_dense(cuda, dtype):
+    """A repinned store (an arbitrary hot set to the front) and then a row
+    update in every tier, on the card: every lookup flavour bitwise the
+    dense rows (float32) or the unpinned store's rows (int8), and the
+    updated rows read back; ``version`` bumped once each."""
+    from quiver_tpu_torch import ShardedFeature, make_mesh
+
+    n, f = 20_000, 32
+    x = np.random.default_rng(0).normal(size=(n, f)).astype(np.float32)
+    mesh = make_mesh(data=2, feature=2, devices=[cuda] * 4)
+    kw = ({"device_cache_size": 2_000 * f * 4, "replicate_budget": 1_000 * f * 4}
+          if dtype is None else {"device_cache_size": 4 * n + 2_000 * f,
+                                 "replicate_budget": 1_000 * f, "dtype": "int8"})
+    store = ShardedFeature(mesh, **kw).from_cpu_tensor(x)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(-1, n, 6000).astype(np.int32)).to(cuda)
+    before = store.gather(ids)
+    store.repin(np.random.default_rng(2).choice(n, 3_000, replace=False))
+    assert store.version == 1
+    for g in ({}, {"routed": True}, {"routed": True, "routed_cap": 1}):
+        assert torch.equal(store.gather(ids, **g), before), g
+    if dtype is None:
+        dense = np.where(ids.cpu().numpy()[:, None] >= 0, x[ids.cpu().numpy().clip(0)], 0)
+        assert np.array_equal(before.cpu().numpy(), dense)
+    order = store.feature_order.cpu().numpy()
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    upd = np.array([inv[0], inv[1_000], inv[5_000]])
+    rows = np.full((3, f), 3.0, np.float32)
+    store.apply_row_updates(upd, rows)
+    assert store.version == 2
+    if dtype is not None:  # the rows read back requantised
+        from quiver_tpu_torch.feature.feature import quantize_rows_int8
+
+        q, sc = quantize_rows_int8(rows)
+        rows = q.astype(np.float32) * sc[:, None]
+    for g in ({}, {"routed": True}):
+        got = store.gather(torch.from_numpy(upd.astype(np.int32)).to(cuda), **g)
+        assert torch.equal(got, torch.from_numpy(rows).to(cuda)), g

@@ -1,5 +1,5 @@
-"""The four API repairs of quiver_tpu_torch against quiver_tpu: each test
-makes the same call on both packages.
+"""The API repairs of quiver_tpu_torch against quiver_tpu: each test makes
+the same call on both packages.
 
 - The ``parallel``, ``utils`` and ``sampling`` subpackages' export tables:
   every name resolves, and the JAX names the port lacks are exactly the
@@ -10,9 +10,13 @@ makes the same call on both packages.
   them, as JAX's takes an array or pytree.
 - ``generate_uniform_graph``, ``reindex_by_config``, the permutation
   helpers, ``resolve_platform_strategy`` and ``SamplerConfig``.
+- ``DistHeteroSampler.kernel`` (C.5); ``masked_unique`` and
+  ``reindex_layer`` with ``node_bound`` and ``scatter_free``, and
+  ``staged_gather`` with ``host`` (C.6); ``feature.tiered_lookup`` in
+  JAX's gather contract (C.7).
 
-Tolerance: every output here is integer (or a string, or a boolean), so
-every comparison is bitwise.
+Tolerance: bitwise everywhere (the outputs are integers, strings,
+booleans, or float rows that are moved, never computed).
 """
 
 import logging
@@ -250,3 +254,150 @@ def test_sampler_config_checks(kwargs):
             want.sizes, want.seed_capacity, want.frontier_caps, want.mode.value)
         with pytest.raises(AttributeError):
             got.seed_capacity = 4  # frozen
+
+
+# -- the repairs of a later re-anchor: C.5, C.6 and C.7 --------------------------
+
+
+def test_dist_hetero_sampler_kernel_property():
+    """C.5: ``DistHeteroSampler.kernel`` resolves lazily and is kept, as
+    ``GraphSageSampler.kernel`` is, and equals JAX's (``"xla"`` on the
+    CPU); an explicit request passes through."""
+    import jax
+
+    import quiver_tpu as qj
+    import quiver_tpu_torch as qt
+    from quiver_tpu.parallel.mesh import make_mesh as make_mesh_j
+
+    from test_torch_hetero import both_topos
+
+    assert isinstance(getattr(qt.DistHeteroSampler, "kernel"), property)
+    assert isinstance(getattr(qj.DistHeteroSampler, "kernel"), property)
+    tj, tt, _ = both_topos(0)
+    for kernel in ("auto", "xla"):
+        port = qt.DistHeteroSampler(tt, [3, 2], "paper", kernel=kernel,
+                                    mesh=qt.make_mesh(data=1, feature=2, devices=["cpu"] * 2))
+        jx = qj.DistHeteroSampler(tj, [3, 2], "paper", kernel=kernel,
+                                  mesh=make_mesh_j(data=1, feature=2,
+                                                   devices=jax.devices()[:2]))
+        assert getattr(port, "_kernel_resolved", None) is None  # nothing resolved yet
+        assert port.kernel == jx.kernel == "xla"
+        assert port._kernel_resolved == "xla" and port._kernel == kernel
+
+
+def _dedup_inputs(seed):
+    rng = np.random.default_rng(seed)
+    S, K, n = 8, 5, 60
+    seeds = np.full(S, -1, np.int32)
+    num = 6
+    seeds[:num] = rng.integers(0, n, num)
+    nbr = rng.integers(-1, n, (S, K)).astype(np.int32)
+    return seeds, num, nbr, n
+
+
+@pytest.mark.parametrize("strategy", [
+    {}, {"node_bound": 60}, {"scatter_free": True},
+    {"node_bound": None, "scatter_free": True}, {"node_bound": 60, "scatter_free": True}])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reindex_takes_jax_strategy_arguments(strategy, seed):
+    """C.6: ``masked_unique`` and ``reindex_layer`` take JAX's
+    ``node_bound`` and ``scatter_free`` (by keyword and in JAX's
+    positions); the port's outputs are bitwise JAX's under every strategy
+    JAX picks with them, and bitwise the port's own default."""
+    seeds, num, nbr, n = _dedup_inputs(seed)
+    cap = 30
+    nb, sf = strategy.get("node_bound"), strategy.get("scatter_free", False)
+    want = reindex_j.reindex_layer(jnp.asarray(seeds), jnp.int32(num), jnp.asarray(nbr), cap,
+                                   **strategy)
+    got = reindex_t.reindex_layer(torch.from_numpy(seeds), num, torch.from_numpy(nbr), cap,
+                                  nb, sf)
+    base = reindex_t.reindex_layer(torch.from_numpy(seeds), num, torch.from_numpy(nbr), cap)
+    for a, b, c in zip(got, want, base):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert torch.equal(a, c)
+    ids = np.concatenate([seeds, nbr.reshape(-1)])
+    valid = ids >= 0
+    want = reindex_j.masked_unique(jnp.asarray(ids), jnp.asarray(valid), 25, 4, **strategy)
+    got = reindex_t.masked_unique(torch.from_numpy(ids), torch.from_numpy(valid), 25, 4,
+                                  node_bound=nb, scatter_free=sf)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("host", [True, False])
+@pytest.mark.parametrize("shape", [(40,), (40, 3)])
+def test_staged_gather_takes_host(host, shape):
+    """C.6: ``staged_gather(table, idx, host)`` in JAX's order, for a 1-D
+    and a 2-D table and ids of two dimensions; ``host`` is inert here (K2
+    reads a pinned table over UVA either way): bitwise JAX's."""
+    from quiver_tpu.ops.sample import staged_gather as staged_gather_j
+
+    from quiver_tpu_torch.ops.sample import staged_gather
+
+    rng = np.random.default_rng(len(shape))
+    table = rng.integers(0, 1000, shape).astype(np.int32)
+    idx = rng.integers(0, shape[0], (6, 4)).astype(np.int32)
+    want = np.asarray(staged_gather_j(jnp.asarray(table), jnp.asarray(idx), False))
+    got = staged_gather(torch.from_numpy(table), torch.from_numpy(idx), host)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rep_rows,hot_rows,cold,order,miss", [
+    (10, 30, True, True, -1), (0, 40, True, False, 0), (10, 90, False, True, -1),
+    (25, 0, True, True, 0)])
+@pytest.mark.parametrize("form", ["positional", "keywords", "gathers only"])
+def test_tiered_lookup_takes_jax_contract(rep_rows, hot_rows, cold, order, miss, form):
+    """C.7: ``feature.tiered_lookup`` takes JAX's contract (gather
+    callables, then ``rep_rows``, ``rep_gather``, ``hot_miss_id``,
+    ``with_hits``; the sixth positional argument is ``rep_rows``), with
+    each package's own gathers over the same tier tables: rows and hits
+    bitwise JAX's. The port's table form keeps working beside it."""
+    from quiver_tpu.feature.feature import tiered_lookup as tiered_lookup_j
+
+    from quiver_tpu_torch.feature.feature import tiered_lookup
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows_plain
+
+    n, f = 100, 5
+    rng = np.random.default_rng(rep_rows + hot_rows)
+    table = rng.normal(size=(n, f)).astype(np.float32)
+    perm = rng.permutation(n).astype(np.int32) if order else None
+    ids = np.concatenate([rng.integers(0, n, 60), [-1, -3]]).astype(np.int32)
+    hot_end = rep_rows + hot_rows
+    parts = (table[:rep_rows], table[rep_rows:hot_end], table[hot_end:])
+
+    def jax_gather(part):
+        t = jnp.asarray(part)
+        return lambda i: t[jnp.clip(i, 0, part.shape[0] - 1)]
+
+    def port_gather(part):
+        t = torch.from_numpy(part)
+        return lambda i: gather_rows_plain(t, i.reshape(-1).to(torch.int32)).reshape(
+            tuple(i.shape) + (f,))
+
+    def call(fn, gather, to):
+        rep_g = gather(parts[0]) if rep_rows else None
+        hot_g = gather(parts[1]) if hot_rows else None
+        cold_g = gather(parts[2]) if cold else None
+        o = None if perm is None else to(perm)
+        if form == "positional":
+            return fn(to(ids), o, hot_rows, hot_g, cold_g, rep_rows, rep_g, miss, True)
+        if form == "keywords":
+            return fn(to(ids), o, hot_rows, hot_g, cold_g, rep_rows=rep_rows,
+                      rep_gather=rep_g, hot_miss_id=miss, with_hits=True)
+        # no JAX keyword: the callables alone pick the contract
+        return fn(to(ids), o, rep_rows + hot_rows, gather(table[:hot_end]) if hot_end else None,
+                  cold_g), None
+
+    want, hits_j = call(tiered_lookup_j, jax_gather, jnp.asarray)
+    got, hits = call(tiered_lookup, port_gather, torch.from_numpy)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    if hits is not None:
+        assert hits.tolist() == np.asarray(hits_j).tolist()
+    # the table form: a tensor hot tier and cold tier, the sixth positional
+    # argument the scales (None here)
+    if not rep_rows and cold and hot_rows:
+        t = torch.from_numpy(table)
+        o = None if perm is None else torch.from_numpy(perm)
+        rows = tiered_lookup(torch.from_numpy(ids), o, hot_rows, t[:hot_rows], t[hot_rows:],
+                             None)
+        assert np.array_equal(rows.numpy(), got.numpy())

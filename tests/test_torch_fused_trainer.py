@@ -323,6 +323,11 @@ def test_mesh_sampler_requires_all_seed_sharding(graph):
 @pytest.mark.parametrize("what", ["logical_workers", "auto_alpha", "controller",
                                   "two_devices"])
 def test_unported_features_raise(graph, what):
+    """``logical_workers`` (A.11d) and a mesh of two devices (A.11e) still
+    raise. ``auto_alpha=True`` and a ``controller``, ported with A.11c,
+    now build over a replicated store: ``auto_alpha`` makes an alpha-only
+    controller (no heat feed), and a controller is not attached to a
+    ``Feature``, as in the JAX package."""
     ei, feat, _ = graph
     topo = qt.CSRTopo(edge_index=ei)
     sampler = qt.GraphSageSampler(topo, [3], device="cpu", seed=0, seed_capacity=8)
@@ -334,10 +339,20 @@ def test_unported_features_raise(graph, what):
     else:
         kw = {"logical_workers": {"logical_workers": 4}, "auto_alpha": {"auto_alpha": True},
               "controller": {"controller": qt.CacheController()}}[what]
-    with pytest.raises(NotImplementedError, match="A.11"):
-        DistributedTrainer(mesh, sampler, feature, model,
-                           torch.optim.SGD(model.parameters(), lr=0.1),
-                           local_batch=8, **kw)
+
+    def build():
+        return DistributedTrainer(mesh, sampler, feature, model,
+                                  torch.optim.SGD(model.parameters(), lr=0.1),
+                                  local_batch=8, **kw)
+
+    if what in ("logical_workers", "two_devices"):
+        with pytest.raises(NotImplementedError, match="A.11"):
+            build()
+        return
+    trainer = build()
+    assert trainer.controller is not None and not hasattr(feature, "_controller")
+    assert trainer.controller.wants_heat == (what == "controller")
+    assert trainer.auto_alpha == (what == "auto_alpha")
 
 
 def _learning_trainer(graph_n400, mesh, seed_sharding="data", dtype=None, local=64,

@@ -6,8 +6,9 @@ JAX places the tables on its 8 forced host devices and gathers inside
 ``shard_map``; the port places the same shards as tensors on a mesh whose
 device repeats (``make_mesh(devices=["cpu"] * 8)``). Meshes ``(data=4,
 feature=2)`` and ``(1, 8)``. The counterparts of ``tests/test_shard.py``,
-``tests/test_routed_cap.py`` and ``tests/test_threetier.py``, without the
-int8 cases (int8 storage is not ported: ROADMAP A.11c).
+``tests/test_routed_cap.py`` and ``tests/test_threetier.py``; the int8
+cases, the split tuner, ``repin`` and row updates are in
+``tests/test_torch_shard_control.py``.
 
 Tolerance: bitwise everywhere (rows are moved, never computed: the psum
 flavour's sum adds one row to zeros), against JAX's rows and the dense
@@ -414,16 +415,34 @@ def test_lookup_of_a_group_is_the_standalone_gather():
 @pytest.mark.parametrize("call", ["int8", "auto_split", "repin", "apply_row_updates",
                                   "note_degree_update", "replan"])
 def test_unported_store_features_raise(call):
-    mesh = _meshes(2, 4)[1]
-    feat = np.zeros((40, 8), np.float32)
-    item = "A.11d" if call == "replan" else "A.11c"
-    with pytest.raises(NotImplementedError, match=item):
-        if call == "int8":
-            qt.ShardedFeature(mesh, dtype="int8")
-        elif call == "auto_split":
-            qt.ShardedFeature(mesh, auto_split=True)
-        else:
-            store = qt.ShardedFeature(mesh, device_cache_size="1M").from_cpu_tensor(feat)
-            args = {"repin": ([0],), "apply_row_updates": ([0], feat[:1]),
-                    "note_degree_update": (np.ones(40),), "replan": (mesh,)}[call]
-            getattr(store, call)(*args)
+    """``replan`` (ROADMAP A.11d) still raises. The calls that raised
+    until A.11c was ported (int8 storage, ``auto_split``, ``repin``,
+    ``apply_row_updates``, ``note_degree_update``) now run on both packages
+    and leave the same store: its split, its version and its rows bitwise
+    (``tests/test_torch_shard_control.py`` holds each at length)."""
+    mesh_j, mesh = _meshes(2, 4)
+    feat = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
+    if call == "replan":
+        store = qt.ShardedFeature(mesh, device_cache_size="1M").from_cpu_tensor(feat)
+        with pytest.raises(NotImplementedError, match="A.11d"):
+            store.replan(mesh)
+        return
+    kw = {"device_cache_size": 3 * ROW_B, "replicate_budget": 4 * ROW_B,
+          "auto_split": call == "auto_split"}
+    if call == "int8":
+        kw.update(device_cache_size=4 * 40 + 3 * 8, replicate_budget=4 * 8, dtype="int8")
+    stores = (ShardedFeatureJ(mesh_j, **kw).from_cpu_tensor(feat),
+              qt.ShardedFeature(mesh, **kw).from_cpu_tensor(feat))
+    args = {"repin": ([7, 30, 7],), "apply_row_updates": ([3, 20], feat[:2] + 1.0),
+            "note_degree_update": (np.arange(40)[::-1].copy(),)}.get(call)
+    ids = np.arange(-1, 40).astype(np.int32)
+    for _ in range(3 if call == "auto_split" else 1):
+        if args is not None:
+            for store in stores:
+                getattr(store, call)(*args)
+        rows = _both(*stores, ids)
+    assert stores[1].rep_rows == stores[0].rep_rows and stores[1].version == stores[0].version
+    if call == "apply_row_updates":
+        assert np.array_equal(rows[[4, 21]], feat[:2] + 1.0) and stores[1].version == 1
+    elif call != "int8":
+        assert np.array_equal(rows, _oracle(feat, ids))
