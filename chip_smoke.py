@@ -289,6 +289,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    frozen controller against none; under ``"all"`` one ``epoch_scan``
    whose ``end_epoch`` repins (the next step runs) and a manual repin that
    raises ``VersionMismatchError`` until ``refresh()``.
+9i. elastic resume across logical mesh shapes (``benchmarks/chaos.py``'s
+   resize drill and the JAX package's
+   ``test_elastic_resume_cross_mesh_bit_parity`` at full width); every
+   check names itself on stderr first. Phase 9f (b)'s configuration
+   (``train_multichip``'s graph, rows and model, a three-tier store of 8M
+   L1 and 4M L0 per device) through ``DistributedTrainer(seed_sharding=
+   "all", logical_workers=4)`` over a topology-sharded sampler, under
+   deterministic kernels: (a) a 9-step epoch on ``(1, 4)`` (checkpoints
+   every 3 steps), exact K1 ``select`` and K2 ``gather_rows`` launches;
+   (b) the same epoch preempted by ``FaultPlan(preempt_at_step=3)``; (c)
+   resumed onto ``(1, 2)`` (2 blocks a slot) and again from the first
+   checkpoint onto ``(1, 1)`` (4 blocks): the remaining losses and the
+   final parameters bitwise (a)'s, exact launches, the seconds to resume
+   and steps/s per mesh; (d) a trainer built afresh on ``(1, 2)`` resuming
+   the ``(1, 4)`` checkpoint, bitwise (a); (e) an int8 store replanned
+   ``(1, 4)`` -> ``(1, 2)`` -> ``(1, 1)``, its psum and routed lookups
+   bitwise before and after, one ``tiered_gather_dequant`` per tier table.
+9j. the out-of-core epoch at ``benchmarks/ooc_drill.py``'s defaults
+   (550,503 nodes x 128 f32, 4.2x the 64 MiB budget, degree 10, 10% hot,
+   [5, 5] x 128, 8 steps, 2 measured epochs); every check names itself on
+   stderr first. The topology saved raw and loaded memory-mapped, the rows
+   written by ``MmapFeatureStore.write`` and read with ``pread`` (windows
+   of 1,024 rows, 8 cached); ``DataParallelTrainer`` on a logical ``(2,
+   1)`` mesh through the Prefetcher, under deterministic kernels: the
+   measured epochs' losses bitwise the same run over the in-RAM
+   ``Feature``, exactly 2 ``uniform_hop`` and 2 ``tiered_gather`` launches
+   a step, ``readahead_hits > 0``, the growth of ``VmRSS`` over the
+   measured epochs under the budget (an address-space limit cannot bound a
+   CUDA process); one lookup's K2 launch over the pinned staged block
+   bitwise its plain version; the lookup timed in turns with the in-RAM
+   one; ``CacheController.maybe_promote`` restages measured-hot disk rows
+   and the lookups stay bitwise.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -338,6 +370,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -6115,6 +6148,435 @@ def control_phase(topo, pcie, card):
     return {"store": l_a, "controller": l_b, "trainer": l_d}, rows + rows_b, result
 
 
+# -- phase 9i: elastic resume across mesh shapes --------------------------------
+
+ELASTIC_MESHES = (4, 2, 1)  # feature-axis sizes of the logical (1, F) meshes
+ELASTIC_WORKERS = 4  # logical workers: 1, 2 and 4 blocks a slot
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_PREEMPT = 9, 3, 3  # epoch, checkpoint chunk, kill
+SCRATCH = os.path.join(HERE, ".smoke_scratch")  # git-ignored; removed after each phase
+
+
+def step9i(what: str) -> None:
+    """Name a phase 9i check on stderr before it runs."""
+    log(f"phase 9i check: {what}")
+
+
+def elastic_trainer(topo, x, fsize: int, ckpt, plan=None):
+    """The elastic trainer of phase 9i on the logical ``(1, fsize)`` mesh
+    at ``train_multichip``'s width: a three-tier store (``MULTI_L1`` per
+    device of L1, ``MULTI_L0`` of L0, the rest pinned), a topology-sharded
+    sampler, GraphSAGE 256 x 3, Adam 1e-3, local batch 256,
+    ``logical_workers=ELASTIC_WORKERS``, checkpoints every
+    ``ELASTIC_EVERY`` steps into ``ckpt``; ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import (DistributedTrainer, GraphSageSampler, GraphSAGE,
+                                  ShardedFeature)
+
+    mesh = logical_mesh(1, fsize)
+    store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
+                           replicate_budget=MULTI_L0).from_cpu_tensor(x)
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, topo_sharding="mesh", mesh=mesh)
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES, num_layers=len(MULTI_FANOUT))
+    trainer = DistributedTrainer(mesh, sampler, store, model.to("cuda"),
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding="all",
+                                 logical_workers=ELASTIC_WORKERS, fault_plan=plan,
+                                 checkpoint_dir=ckpt, checkpoint_every=ELASTIC_EVERY,
+                                 checkpoint_keep=16)
+    trainer.init(0)
+    return trainer
+
+
+def elastic_launches(fsize: int, steps: int) -> dict:
+    """Exact K1 and K2 launches of ``steps`` elastic steps on ``(1,
+    fsize)``: per step and per feature group's block, one owner-side
+    ``select`` per owner per hop, and one ``gather_rows`` for L0, one per
+    shard and one for the cold rows."""
+    bpd = ELASTIC_WORKERS // fsize
+    return {"select": steps * bpd * fsize * len(MULTI_FANOUT),
+            "gather_rows": steps * bpd * (fsize + 2)}
+
+
+def timed_epoch(trainer, seed_mat, labels, key, **kw):
+    """``epoch_scan`` on the card, synchronised: ``(losses, seconds)``."""
+    sync()
+    t0 = time.perf_counter()
+    losses = trainer.epoch_scan(seed_mat, labels, key, **kw)
+    sync()
+    return losses, time.perf_counter() - t0
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return a.shape == b.shape and bool((a.view(np.uint32) == b.view(np.uint32)).all())
+
+
+def same_params(a: dict, b: dict) -> bool:
+    """Two state dicts bitwise alike."""
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def elastic_int8_replan(topo, x, ids, card) -> dict:
+    """(e) An int8 store on ``(1, 4)`` replanned onto ``(1, 2)`` and ``(1,
+    1)``: its psum and routed lookups of a frontier bitwise the lookups
+    before the replan, one ``tiered_gather_dequant`` per tier table, and
+    its tiers as the budgets plan them."""
+    from quiver_tpu_torch import ShardedFeature
+
+    n = topo.node_count
+    # per device: n / 8 L1 rows of MULTI_F code bytes after the (n,) f32
+    # scales, n / 16 L0 rows; on (1, 4) the rest (7 / 16) cold
+    store = ShardedFeature(logical_mesh(1, 4), device_cache_size=4 * n + (n // 8) * MULTI_F,
+                           csr_topo=topo, replicate_budget=(n // 16) * MULTI_F,
+                           dtype="int8").from_cpu_tensor(x)
+    before = {"psum": store.gather(ids), "routed": store.gather(ids, routed=True)}
+    tiers, out = {}, {}
+    for fsize in ELASTIC_MESHES:
+        if fsize != 4:
+            t0 = time.perf_counter()
+            store.replan(logical_mesh(1, fsize))
+            out[f"replan_s_to_{fsize}"] = time.perf_counter() - t0
+        tiers[fsize] = [store.rep_rows, store.hot_rows, n - store.rep_rows - store.hot_rows]
+        for name, kw in (("psum", {}), ("routed", {"routed": True})):
+            reset_launches()
+            got = store.gather(ids, **kw)
+            sync()
+            launches = fsize + 2  # L0, each shard, the cold rows
+            step9i(f"(e) int8 (1, {fsize}) {name}: bitwise the (1, 4) lookup, "
+                   f"{launches} tiered_gather_dequant launches")
+            check(equal(got, before[name]), f"int8 replan (1, {fsize}) {name} bitwise")
+            expect_launches(read_launches(), {"tiered_gather_dequant": launches},
+                            f"int8 replan (1, {fsize}) {name}")
+    step9i("(e) the int8 tiers follow the budgets: L0 kept, L1 shrinks with F")
+    check(tiers[4][0] == tiers[2][0] == tiers[1][0]
+          and tiers[4][1] == 2 * tiers[2][1] == 4 * tiers[1][1],
+          f"int8 replan tiers {tiers}")
+    store.delete()
+    out["tiers"] = {f"(1, {f})": t for f, t in tiers.items()}
+    log(f"int8 replan: tiers {out['tiers']} [{card}]")
+    return out
+
+
+def elastic_phase(card):
+    """Phase 9i (see the module docstring). Returns ``(launches by mesh,
+    result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import FaultPlan, GraphSageSampler, Preemption
+
+    t0 = time.time()
+    topo, x, labels = multichip_setup()
+    n = topo.node_count
+    train_idx = np.random.default_rng(3).permutation(n)[
+        :ELASTIC_STEPS * ELASTIC_WORKERS * MULTI_BATCH]
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    result, launches, per_mesh = {}, {}, {}
+    try:
+        with deterministic_algorithms():
+            # (a) the uninterrupted epoch on (1, 4), as the main path runs
+            a = elastic_trainer(topo, x, 4, os.path.join(SCRATCH, "a"))
+            seed_mat = a.pack_epoch(train_idx, seed=0)
+            check(seed_mat.shape[0] == ELASTIC_STEPS, f"epoch of {seed_mat.shape[0]} steps")
+            reset_launches()
+            ref, secs = timed_epoch(a, seed_mat, labels, 7)
+            launches["(1, 4)"] = read_launches()
+            step9i(f"(a) (1, 4): {ELASTIC_STEPS} finite losses, exact K1 select and K2 "
+                   "gather_rows launches")
+            check(bool(torch.isfinite(ref).all()), "elastic (1, 4) losses finite")
+            expect_launches(launches["(1, 4)"], elastic_launches(4, ELASTIC_STEPS),
+                            "elastic epoch (1, 4)")
+            ref = ref.cpu().numpy()
+            final = {k: v.clone() for k, v in a.model.state_dict().items()}
+            per_mesh["(1, 4)"] = {"steps_per_s": ELASTIC_STEPS / secs, "epoch_s": secs,
+                                  "blocks_per_device": a.blocks_per_device}
+            a.checkpointer.close()
+            del a
+            # (b) the same epoch preempted after its first chunk
+            b = elastic_trainer(topo, x, 4, os.path.join(SCRATCH, "b"),
+                                plan=FaultPlan(preempt_at_step=ELASTIC_PREEMPT))
+            step9i(f"(b) a FaultPlan preempts the (1, 4) epoch at step {ELASTIC_PREEMPT}")
+            try:
+                b.epoch_scan(seed_mat, labels, 7)
+                check(False, "the planned preemption raised")
+            except Preemption:
+                pass
+            first = b.checkpointer.all_steps()[0]
+            resumes = {}
+            for fsize, pin in ((2, None), (1, first)):
+                mesh = logical_mesh(1, fsize)
+                sync()
+                t1 = time.perf_counter()
+                _, _, key, step, epoch = b.resume(mesh=mesh, checkpoint_step=pin)
+                sync()
+                resume_s = time.perf_counter() - t1
+                label = f"(1, {fsize})"
+                step9i(f"(c) resumed onto {label}: step {ELASTIC_EVERY}, "
+                       f"{ELASTIC_WORKERS // fsize} blocks a slot, store and sampler "
+                       "re-partitioned")
+                check(step == ELASTIC_EVERY and b.blocks_per_device == ELASTIC_WORKERS // fsize
+                      and b.feature.mesh is mesh and b.sampler.topo.num_shards == fsize,
+                      f"elastic resume onto {label}")
+                reset_launches()
+                losses, secs = timed_epoch(b, seed_mat, labels, key, epoch=epoch,
+                                           start_step=step)
+                launches[label] = read_launches()
+                step9i(f"(c) {label}: the remaining losses and the final parameters bitwise "
+                       "the uninterrupted (1, 4) run's; exact launches")
+                check(same_bits(losses.cpu().numpy(), ref[step:]),
+                      f"elastic {label} losses bitwise the (1, 4) run's")
+                check(same_params(b.model.state_dict(), final),
+                      f"elastic {label} parameters bitwise the (1, 4) run's")
+                expect_launches(launches[label], elastic_launches(fsize, ELASTIC_STEPS - step),
+                                f"elastic epoch {label}")
+                resumes[label] = resume_s
+                per_mesh[label] = {"steps_per_s": (ELASTIC_STEPS - step) / secs,
+                                   "epoch_s": secs, "resume_s": resume_s,
+                                   "blocks_per_device": b.blocks_per_device,
+                                   "tiers": [b.feature.rep_rows, b.feature.hot_rows,
+                                             n - b.feature.rep_rows - b.feature.hot_rows]}
+            b.checkpointer.close()
+            del b
+            # (d) the process-death flow: a trainer built afresh on (1, 2)
+            fresh = elastic_trainer(topo, x, 2, os.path.join(SCRATCH, "b"))
+            sync()
+            t1 = time.perf_counter()
+            _, _, key, step, epoch = fresh.resume(mesh=fresh.mesh, checkpoint_step=first)
+            resume_s = time.perf_counter() - t1
+            losses, secs = timed_epoch(fresh, seed_mat, labels, key, epoch=epoch,
+                                       start_step=step)
+            step9i("(d) a fresh (1, 2) trainer resuming the (1, 4) checkpoint: bitwise the "
+                   "uninterrupted run")
+            check(step == ELASTIC_EVERY and same_bits(losses.cpu().numpy(), ref[step:])
+                  and same_params(fresh.model.state_dict(), final),
+                  "a fresh (1, 2) trainer resumes the (1, 4) run bitwise")
+            per_mesh["(1, 2), fresh trainer"] = {"steps_per_s": (ELASTIC_STEPS - step) / secs,
+                                                 "epoch_s": secs, "resume_s": resume_s}
+            fresh.checkpointer.close()
+            del fresh
+            # (e) the int8 store's replan
+            ids = GraphSageSampler(topo, MULTI_FANOUT, seed=0, device="cuda").sample(
+                train_idx[:MULTI_BATCH]).n_id
+            result["int8_replan"] = elastic_int8_replan(topo, x, ids, card)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    result.update({"meshes": per_mesh, "losses": ref.tolist(),
+                   "config": "examples/train_multichip.py defaults (phase 9f (b)): 100,000 "
+                             "nodes, degree 25, F = 128 f32, 47 classes, GraphSAGE 256 x 3, "
+                             "[15, 10, 5] x 256, Adam 1e-3; a three-tier store of 8M L1 and "
+                             "4M L0 per device, a topology-sharded sampler, "
+                             f"logical_workers={ELASTIC_WORKERS}, a {ELASTIC_STEPS}-step "
+                             "epoch under deterministic kernels",
+                   "seconds": time.time() - t0})
+    log(f"elastic phase {result['seconds']:.1f}s: "
+        + "; ".join(f"{k} {v['steps_per_s']:.2f} steps/s"
+                    + (f", resume {v['resume_s']:.3f} s" if "resume_s" in v else "")
+                    for k, v in per_mesh.items()) + f" [{card}]")
+    return launches, result
+
+
+# -- phase 9j: the out-of-core epoch ----------------------------------------------
+
+# benchmarks/ooc_drill.py's defaults
+OOC_BUDGET = 64 * 2**20  # address-space headroom; the rows are >= 4x it
+OOC_F, OOC_DEG, OOC_HOT, OOC_BATCH = 128, 10, 0.1, 128
+OOC_STEPS, OOC_EPOCHS, OOC_WINDOW, OOC_CACHE = 8, 2, 1024, 8
+OOC_NODES = -(-int(4.2 * OOC_BUDGET) // (OOC_F * 4))  # 550,503
+OOC_PROMOTE_ROWS = 4096  # the host cold cache maybe_promote fills
+
+
+def step9j(what: str) -> None:
+    """Name a phase 9j check on stderr before it runs."""
+    log(f"phase 9j check: {what}")
+
+
+def vm_rss() -> int:
+    """This process's resident bytes (``VmRSS`` of ``/proc/self/status``)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("VmRSS not found in /proc/self/status")
+
+
+def ooc_trainer(topo, feature):
+    """The drill's ``DataParallelTrainer`` on the logical ``(2, 1)`` mesh:
+    GraphSAGE 16 x 2 over 4 classes, SGD 1e-2, [5, 5] x 128."""
+    import torch
+
+    from quiver_tpu_torch import DataParallelTrainer, GraphSageSampler, GraphSAGE
+
+    sampler = GraphSageSampler(topo, [5, 5], seed=3, seed_capacity=OOC_BATCH, device="cuda")
+    model = GraphSAGE(OOC_F, 16, 4, num_layers=2).to("cuda")
+    trainer = DataParallelTrainer(logical_mesh(2, 1), sampler, feature, model,
+                                  torch.optim.SGD(model.parameters(), lr=1e-2),
+                                  local_batch=OOC_BATCH)
+    trainer.init(torch.Generator().manual_seed(0))
+    return trainer
+
+
+def ooc_epochs(trainer, idx, labels, epochs) -> tuple[list, list]:
+    """``train_epoch`` for each of ``epochs`` (its dropout generator and
+    permutation seeded by the epoch), through the Prefetcher at depth 2:
+    ``(losses, seconds)``."""
+    import numpy as np
+    import torch
+
+    losses, secs = [], []
+    for epoch in epochs:
+        sync()
+        t0 = time.perf_counter()
+        loss, steps = trainer.train_epoch(idx, labels, torch.Generator().manual_seed(epoch),
+                                          rng=np.random.default_rng(epoch))
+        sync()
+        secs.append(time.perf_counter() - t0)
+        check(steps == OOC_STEPS, f"out-of-core epoch delivered {steps}/{OOC_STEPS} steps")
+        losses.append(loss)
+    return losses, secs
+
+
+def ooc_phase(card):
+    """Phase 9j (see the module docstring). Returns ``(launches, K2 check
+    rows, result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import CacheController, CSRTopo, Feature, FreqSketch, MmapFeatureStore
+    from quiver_tpu_torch.obs import MetricsRegistry, StepTimeline
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather, tiered_gather_plain
+
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    n, f = OOC_NODES, OOC_F
+    topo = CSRTopo(edge_index=rng.integers(0, n, size=(2, OOC_DEG * n)).astype(np.int64))
+    feat = rng.normal(size=(n, f)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to("cuda")
+    hot_budget = int(OOC_HOT * n) * f * 4
+    idx = rng.integers(0, n, OOC_STEPS * 2 * OOC_BATCH)
+    graph_bytes = n * f * 4 + topo.indices.nbytes + topo.indptr.nbytes
+    step9j(f"the graph's {graph_bytes / 1e6:.1f} MB are at least 4x the "
+           f"{OOC_BUDGET / 2**20:.0f} MiB budget")
+    check(graph_bytes >= 4 * OOC_BUDGET, f"graph {graph_bytes} B against budget {OOC_BUDGET} B")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    topo_dir, rows_dir = os.path.join(SCRATCH, "topo"), os.path.join(SCRATCH, "rows")
+    result = {}
+    try:
+        t1 = time.perf_counter()
+        topo.save(topo_dir, format="raw")
+        MmapFeatureStore.write(rows_dir, feat, device_cache_size=hot_budget, csr_topo=topo)
+        result["write_s"] = time.perf_counter() - t1
+        epochs = list(range(2, 2 + OOC_EPOCHS))
+        with deterministic_algorithms():
+            # the in-RAM run: the same rows in a Feature (10% on the card, the
+            # rest pinned)
+            ram = Feature(device_cache_size=hot_budget, csr_topo=topo,
+                          device="cuda").from_cpu_tensor(feat)
+            tr = ooc_trainer(topo, ram)
+            ooc_epochs(tr, idx, labels, [1])
+            ram_losses, ram_s = ooc_epochs(tr, idx, labels, epochs)
+            del tr, feat
+            # the disk run: the topology mmap'd, the rows read with pread
+            mtopo = CSRTopo.load(topo_dir, mmap=True)
+            step9j("the topology loaded memory-mapped, its max degree from the manifest")
+            check(isinstance(mtopo.indices, np.memmap) and mtopo._max_degree == topo.max_degree,
+                  "CSRTopo.load(mmap=True)")
+            metrics, timeline = MetricsRegistry(), StepTimeline()
+            store = MmapFeatureStore(rows_dir, access="pread", window_rows=OOC_WINDOW,
+                                     cache_windows=OOC_CACHE, host_cache_rows=OOC_PROMOTE_ROWS,
+                                     metrics=metrics, timeline=timeline, device="cuda")
+            step9j("the store's hot rows are the in-RAM store's, and its lookup is K2")
+            check(store.hot_rows == ram.hot_rows and equal(store.hot, ram.hot)
+                  and store.kernel == "pallas", "MmapFeatureStore hot tier")
+            tr = ooc_trainer(mtopo, store)
+            warm_losses, warm_s = ooc_epochs(tr, idx, labels, [1])
+            rss0 = vm_rss()
+            reset_launches()
+            disk_losses, disk_s = ooc_epochs(tr, idx, labels, epochs)
+            got = read_launches()
+            rss1 = vm_rss()
+            step9j("the measured epochs: exactly 2 uniform_hop and 2 tiered_gather launches a "
+                   "step (one per worker's lookup), nothing else")
+            expect_launches(got, {"uniform_hop": 2 * 2 * OOC_STEPS * OOC_EPOCHS,
+                                  "tiered_gather": 2 * OOC_STEPS * OOC_EPOCHS},
+                            "out-of-core epochs")
+            step9j("the losses bitwise the in-RAM Feature's, epoch by epoch")
+            check(disk_losses == ram_losses, f"out-of-core losses {disk_losses} against "
+                  f"the in-RAM {ram_losses}")
+            hits = int(store.stager.readahead_hits_total)
+            step9j("readahead_hits > 0")
+            check(hits > 0, "the stager's windowed reads amortised")
+            step9j(f"VmRSS grew {(rss1 - rss0) / 2**20:.2f} MiB over the measured epochs, "
+                   f"under the {OOC_BUDGET / 2**20:.0f} MiB budget")
+            check(rss1 - rss0 < OOC_BUDGET, f"VmRSS growth {rss1 - rss0} B")
+        # one lookup against K2's plain version on its own launch inputs, and
+        # the lookup timed in turns with the in-RAM store's
+        smp = tr.sampler
+        n_id = smp.sample(idx[:OOC_BATCH]).n_id
+        reset_launches()
+        got_rows = store[n_id]
+        staged = store._staging.rows[:n_id.numel()]
+        plain = tiered_gather_plain(store._staging.ids[:n_id.numel()].to("cuda"), None,
+                                    store.hot_rows, store.hot, staged)
+        sync()
+        step9j("one lookup: one tiered_gather launch over the pinned staged block, "
+               "bitwise its plain version and the in-RAM lookup")
+        check(staged.is_pinned() and read_launches()["tiered_gather"] == 1
+              and equal(got_rows, plain) and equal(got_rows, ram[n_id]),
+              "the out-of-core lookup's K2 launch")
+        rows = [{"store": f"out-of-core store (pread, staged block over UVA): "
+                          f"{n_id.numel()} ids", "match": True,
+                 "max_abs_err": float((got_rows - plain).abs().max())}]
+        t_look = in_turns(lambda: store[n_id], lambda: ram[n_id], 5, 3)
+        cold = int(((store.feature_order[n_id.clamp(min=0).long()] >= store.hot_rows)
+                    & (n_id >= 0)).sum())
+        # the controller promotes the measured-hottest disk rows
+        ctl = CacheController(sketch=FreqSketch(n)).attach(store)
+        ctl.observe_ids(np.concatenate([idx] * 4))
+        before_hits = store.cold_cache_hits_total
+        ctl.end_epoch(feature=store)
+        after = store[n_id]
+        step9j("maybe_promote restages measured-hot disk rows; the lookups stay bitwise")
+        check(ctl.stats()["ooc_promotions"] == 1 and 0 < store.staged_ids.size
+              <= OOC_PROMOTE_ROWS and equal(after, got_rows), "maybe_promote")
+        wait = timeline.summary().get("ooc.stage_wait")
+        reads = timeline.summary().get("ooc.read")
+        result.update({
+            "nodes": n, "feature_dim": f, "graph_bytes": int(graph_bytes),
+            "budget_bytes": OOC_BUDGET, "graph_over_budget": graph_bytes / OOC_BUDGET,
+            "hot_rows": store.hot_rows, "losses": disk_losses, "in_ram_losses": ram_losses,
+            "steps_per_s": [OOC_STEPS / s for s in disk_s],
+            "in_ram_steps_per_s": [OOC_STEPS / s for s in ram_s],
+            "warm_epoch_s": warm_s[0], "rss_growth_bytes": rss1 - rss0,
+            "readahead_hits": hits, "page_reads": int(store.stager.page_reads_total),
+            "stage_wait_s": 0.0 if wait is None else wait.total,
+            "stage_wait_count": 0 if wait is None else wait.count,
+            "window_read_ms_mean": None if reads is None else reads.mean * 1e3,
+            "lookup": {"ids": int(n_id.numel()), "cold_lanes": cold,
+                       "ms": t_look["ms"], "ms_turns": t_look["ms_turns"],
+                       "in_ram_ms": t_look["yard_ms"], "in_ram_turns": t_look["yard_turns"],
+                       "ratio": t_look["ratio"]},
+            "promoted_rows": int(store.staged_ids.size),
+            "cold_cache_hits": store.cold_cache_hits_total - before_hits,
+            "config": "benchmarks/ooc_drill.py defaults: 550,503 nodes x 128 f32 (4.2x the "
+                      "64 MiB budget), degree 10, 10% hot, [5, 5] x 128 on a logical (2, 1) "
+                      "mesh, 8 steps x 2 measured epochs, pread windows of 1,024 rows, 8 "
+                      "cached, the topology mmap'd; under deterministic kernels"})
+        store.close()
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    result["seconds"] = time.time() - t0
+    log(f"out-of-core phase {result['seconds']:.1f}s: {result['steps_per_s']} steps/s "
+        f"(in RAM {result['in_ram_steps_per_s']}), lookup {t_look['ms']:.3f} ms against "
+        f"{t_look['yard_ms']:.3f} in RAM, {hits} readahead hits, VmRSS +"
+        f"{(rss1 - rss0) / 2**20:.2f} MiB [{card}]")
+    return got, rows, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6391,6 +6853,15 @@ def main() -> int:
     launches_c, rows_c, control = control_phase(topo, pcie, card)
     torch.cuda.empty_cache()
     lap("phase 9h (int8 sharded store, controller)")
+    # phase 9i: elastic resume across logical mesh shapes, (1, 4) -> (1, 2)
+    # -> (1, 1), at train_multichip's width
+    launches_e, elastic = elastic_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9i (elastic resume)")
+    # phase 9j: the out-of-core epoch at benchmarks/ooc_drill.py's defaults
+    launches_j, rows_j, ooc = ooc_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9j (out-of-core epoch)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -6422,6 +6893,7 @@ def main() -> int:
                                              for k in ("uniform", "temporal")},
                     "topo_sharded_trainer_launches": launches_g["trainer"]["select"],
                     "int8_controller_trainer_launches": launches_c["trainer"]["all"]["select"],
+                    "elastic_trainer_launches": {m: v["select"] for m, v in launches_e.items()},
                     "dist_hetero_launches": launches_g["hetero"]["uniform"]["select"],
                     "owner_side": {
                         **{k: {"device_ms_per_sample": dist["samplers"][k][
@@ -6458,6 +6930,7 @@ def main() -> int:
                         mode: v["uniform_hop"] for mode, v in launches_s.items()},
                     "int8_controller_trainer_launches": launches_c["trainer"]["data"][
                         "uniform_hop"],
+                    "ooc_epoch_launches": launches_j["uniform_hop"],
                     "beyond_hbm": {
                         "launches": {k: v["uniform_hop"] for k, v in launches_o.items()},
                         "uva_hops": [{key: t[key] for key in (
@@ -6473,6 +6946,8 @@ def main() -> int:
                     "sharded_trainer_launches": {
                         mode: v["gather_rows"] for mode, v in launches_s.items()},
                     "topo_sharded_trainer_launches": launches_g["trainer"]["gather_rows"],
+                    "elastic_trainer_launches": {m: v["gather_rows"]
+                                                 for m, v in launches_e.items()},
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
@@ -6484,7 +6959,7 @@ def main() -> int:
                    card, name),
         kernel_row("tiered_gather", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_u["tiered_gather"], "uniform serving (hot-only store)",
-                   tier + rows_h["tiered_gather"] + k2_rows_o + k2_rows_f, t_tier,
+                   tier + rows_h["tiered_gather"] + k2_rows_o + k2_rows_f + rows_j, t_tier,
                    {"ratio_to_library": t_tier["ratio_to_yard"],
                     "shape": [t_tier["ids"], t_tier["row_bytes"]],
                     "bound_rule": GATHER_BOUND_RULE, "tiered_store": t_tier_split,
@@ -6498,6 +6973,8 @@ def main() -> int:
                     "train_lookup_in_turns": train["lookup_in_turns"],
                     "rgcn_launches": launches_h["rgcn"]["tiered_gather"],
                     "fused_trainer_launches": launches_f["tiered_gather"],
+                    "ooc_epoch_launches": launches_j["tiered_gather"],
+                    "ooc_lookup": ooc["lookup"],
                     "beyond_hbm": {
                         "launches": {k: v["tiered_gather"] for k, v in launches_o.items()},
                         "lookup": {key: t_off_lookup[key] for key in (
@@ -6567,6 +7044,8 @@ def main() -> int:
           and all(v["tiered_gather_dequant"] > 0 for v in launches_c["trainer"].values())
           and launches_c["trainer"]["data"]["uniform_hop"] > 0
           and launches_c["trainer"]["all"]["select"] > 0
+          and launches_j["tiered_gather"] > 0 and launches_j["uniform_hop"] > 0
+          and all(v["select"] > 0 and v["gather_rows"] > 0 for v in launches_e.values())
           and all(v[k] > 0 for k, v in (("select", launches_g["sample"]["uniform"]),
                                         ("wselect", launches_g["sample"]["weighted"]),
                                         ("select", launches_g["trainer"]),
@@ -6586,6 +7065,7 @@ def main() -> int:
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
+                       "elastic": elastic, "ooc": ooc,
                        "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
@@ -6620,6 +7100,8 @@ def main() -> int:
     print(json.dumps({"control_trainer": {
         mode: {k: v for k, v in r.items() if k != "per_step"}
         for mode, r in control["trainer"]["modes"].items()}}), flush=True)
+    print(json.dumps({"elastic": elastic}), flush=True)
+    print(json.dumps({"ooc": ooc}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -31,6 +31,16 @@ from .obs import (
     Tracer,
     profile_epoch,
 )
+from .ooc import (
+    RAW_FORMAT,
+    AsyncStager,
+    CorruptRawDir,
+    MmapFeatureStore,
+    load_raw_dir,
+    quarantine_raw_dir,
+    save_raw_dir,
+    verify_raw_dir,
+)
 from .parallel.mesh import MeshTopo, can_device_access_peer, init_p2p, make_mesh
 from .parallel.pipeline import Batch, Prefetcher
 from .parallel.trainer import DataParallelTrainer, DistributedTrainer
@@ -73,6 +83,7 @@ __all__ = [
     "AOTExecutableCache",
     "Adj",
     "AlphaTuner",
+    "AsyncStager",
     "Batch",
     "CSRTopo",
     "CacheController",
@@ -80,6 +91,7 @@ __all__ = [
     "Checkpointer",
     "CircuitBreaker",
     "CorruptCheckpoint",
+    "CorruptRawDir",
     "CostModel",
     "DataParallelTrainer",
     "DeadlineBatcher",
@@ -109,8 +121,10 @@ __all__ = [
     "MeshTopo",
     "MetricSnapshot",
     "MetricsRegistry",
+    "MmapFeatureStore",
     "Preemption",
     "Prefetcher",
+    "RAW_FORMAT",
     "RGCN",
     "RelCSR",
     "SAINTEdgeSampler",
@@ -136,17 +150,21 @@ __all__ = [
     "get_logger",
     "init_p2p",
     "load_dataset",
+    "load_raw_dir",
     "make_mesh",
     "p2pCliqueTopo",
     "parse_size_bytes",
     "planted_partition",
     "profile_epoch",
     "program_fingerprint",
+    "quarantine_raw_dir",
     "reorder_by_degree",
     "saint_subgraph",
+    "save_raw_dir",
     "show_tensor_info",
     "tensor_info",
     "trace_scope",
+    "verify_raw_dir",
 ]
 
 

@@ -5,7 +5,10 @@
 from ``indptr``/``indices``, exposing ``degree``/``eid``/``feature_order``,
 per-edge weights (``cum_weights``, the row-local prefix sums the weighted
 hop searches) and per-edge timestamps (rows re-sorted by time for the
-temporal hop). The COO -> CSR build is a numpy stable argsort plus
+temporal hop). ``save``/``load`` persist it as one ``.npz`` with an
+embedded CRC32 record or as a raw ``.npy`` directory
+(:mod:`~quiver_tpu_torch.ooc.format`) that loads memory-mapped; files
+cross-load with the JAX package's, bitwise. The COO -> CSR build is a numpy stable argsort plus
 bincount, so CSR slots within a row follow COO order and ``eid`` maps them
 back.
 
@@ -15,6 +18,9 @@ memory, read over UVA by the select kernels (``UVA`` mode).
 """
 
 from __future__ import annotations
+
+import os
+import warnings
 
 import numpy as np
 import torch
@@ -327,6 +333,216 @@ class CSRTopo:
     def __repr__(self):
         return f"CSRTopo(nodes={self.node_count}, edges={self.edge_count})"
 
+    # -- persistence --------------------------------------------------------
+
+    def _persist_arrays(self) -> dict:
+        """Every array worth round-tripping, keyed by canonical name.
+        ``cum_weights`` rides along so a load never pays the O(E) prefix
+        recompute; the raw format's mmap loads depend on that."""
+        arrays = {"indptr": self._indptr, "indices": self._indices}
+        for name in ("eid", "edge_weight", "cum_weights", "edge_time",
+                     "feature_order"):
+            v = getattr(self, f"_{name}")
+            if v is not None:
+                arrays[name] = v
+        return arrays
+
+    def save(self, path: str, format: str = "npz") -> None:
+        """Persist the topology (CSR + eid + weights + feature_order).
+
+        ``format="npz"`` (default) writes one ``.npz`` — the reference's
+        users ``torch.save`` their CSR preprocessing artifacts
+        (benchmarks/ogbn-papers100M/preprocess.py); this is the same
+        round-trip in a file the JAX package reads too. A ``_integrity`` member
+        (JSON, per-array CRC32 via the raw-manifest helper) rides inside
+        the zip so :meth:`load` can catch silent byte corruption, not
+        just zip-level truncation.
+
+        ``format="raw"`` writes the mmap-native directory layout
+        (:mod:`quiver_tpu_torch.ooc.format`): per-array uncompressed ``.npy``
+        files + CRC32 manifest + COMMIT marker. This is the out-of-core
+        path — :meth:`load` with ``mmap=True`` backs ``indptr``/
+        ``indices``/edge attrs onto ``np.memmap`` so resident bytes stay
+        O(touched pages). Derived state (``cum_weights``, ``max_degree``)
+        is persisted so the load path never runs an O(E) or O(N) scan.
+
+        Both formats publish atomically (same-filesystem temp + fsync +
+        ``os.replace``): a crash mid-save can leave a stale temp behind
+        but never a torn artifact at ``path``."""
+        if format == "raw":
+            from ..ooc.format import save_raw_dir  # lazy: ooc sits above core
+
+            save_raw_dir(path, self._persist_arrays(), meta={
+                "kind": "csr-topo",
+                "node_count": self.node_count,
+                "edge_count": self.edge_count,
+                "max_degree": self.max_degree,
+                "version": self._version,
+            })
+            return
+        if format != "npz":
+            raise ValueError(f'format must be "npz" or "raw", got {format!r}')
+        from ..resilience.integrity import array_checksum  # lazy (cycle)
+        import json
+
+        arrays = self._persist_arrays()
+        arrays.pop("cum_weights", None)  # npz loads re-derive (legacy shape)
+        integrity = json.dumps(
+            {name: array_checksum(v) for name, v in arrays.items()},
+            sort_keys=True,
+        )
+        # JSON-as-uint8 smuggles the checksums through np.savez without
+        # allow_pickle; readers that predate it just see an extra member
+        arrays["_integrity"] = np.frombuffer(
+            integrity.encode(), dtype=np.uint8
+        )
+        tmp = f"{path}.tmp-{os.getpid()}"
+        try:
+            with open(tmp, "wb") as fh:  # exact filename, no np suffixing
+                np.savez(fh, **arrays)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+
+    @classmethod
+    def _from_raw(cls, arrays: dict, meta: dict) -> "CSRTopo":
+        """Assemble a topology from raw-format arrays WITHOUT running
+        ``__init__`` — its O(N)/O(E) boundary scans and int64 coercion
+        would page every byte of an mmap'd load in, defeating the
+        out-of-core point. Safe because the arrays were validated on the
+        way INTO :func:`~..ooc.format.save_raw_dir` (they came
+        from a live CSRTopo) and the format's manifest pins their exact
+        sizes; run ``ooc.verify_raw_dir`` for a full byte-level sweep."""
+        topo = cls.__new__(cls)
+        topo._indptr = arrays["indptr"]
+        topo._indices = arrays["indices"]
+        topo._eid = arrays.get("eid")
+        topo._feature_order = arrays.get("feature_order")
+        topo._edge_weight = arrays.get("edge_weight")
+        topo._cum_weights = arrays.get("cum_weights")
+        topo._edge_time = arrays.get("edge_time")
+        topo._max_degree = (
+            int(meta["max_degree"]) if "max_degree" in meta else None
+        )
+        topo._version = int(meta.get("version", 0))
+        return topo
+
+    @classmethod
+    def load(cls, path: str, mmap: bool = False) -> "CSRTopo":
+        """Rebuild a :meth:`save`'d topology (either format — a directory
+        at ``path`` is the raw layout, a file is the legacy ``.npz``).
+
+        ``mmap=True`` (raw format only) backs every array onto read-only
+        ``np.memmap``: resident bytes stay O(touched pages) and no
+        validation scan runs (see :meth:`_from_raw`) — the papers100M
+        path, where the CSR alone outgrows host RAM. Eager raw loads
+        (``mmap=False``) run the full CRC32 sweep instead.
+
+        Legacy ``.npz``: weights re-derive their per-row prefix sums
+        (stored CSR-ordered, so coo_order is False on the way back in);
+        when the archive carries a ``_integrity`` member the per-array
+        CRC32s are verified, so silent byte corruption fails as loudly
+        as zip-level truncation. A truncated, corrupt, or foreign file
+        raises a clear ``ValueError`` naming the artifact — np.load's
+        raw zipfile errors (or a KeyError three stack frames later) left
+        the operator guessing which file was bad."""
+        import zipfile
+
+        if os.path.isdir(path):
+            from ..ooc.format import load_raw_dir  # lazy: ooc sits above core
+
+            arrays, meta = load_raw_dir(path, mmap=mmap)
+            if meta.get("kind") != "csr-topo":
+                raise ValueError(
+                    f"{path}: raw dir holds {meta.get('kind')!r}, not a "
+                    f"csr-topo artifact"
+                )
+            return cls._from_raw(arrays, meta)
+        if mmap:
+            raise ValueError(
+                f"{path}: mmap loading needs the raw directory format — "
+                f'save with format="raw" (a legacy .npz is a zip that '
+                f"must be decompressed into RAM)"
+            )
+        try:
+            z = np.load(path)
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
+            raise ValueError(
+                f"{path}: not a readable topology file — truncated, "
+                f"corrupt, or not an .npz ({type(e).__name__}: {e})"
+            ) from None
+        with z:
+            cls._verify_npz_integrity(path, z)
+            missing = [k for k in ("indptr", "indices") if k not in z.files]
+            if missing:
+                raise ValueError(
+                    f"{path}: topology file lacks required array(s) "
+                    f"{missing} (has {sorted(z.files)}) — truncated save "
+                    f"or not a CSRTopo artifact"
+                )
+            try:
+                topo = cls(indptr=z["indptr"], indices=z["indices"],
+                           eid=z["eid"] if "eid" in z.files else None)
+            except (OSError, ValueError, EOFError,
+                    zipfile.BadZipFile) as e:
+                raise ValueError(
+                    f"{path}: topology arrays failed to load/validate "
+                    f"({e})"
+                ) from None
+            if "edge_weight" in z.files:
+                topo.set_edge_weight(z["edge_weight"], coo_order=False)
+            if "edge_time" in z.files:
+                # stored post-sort, so the re-sort inside is the identity
+                topo.set_edge_time(z["edge_time"], coo_order=False)
+            if "feature_order" in z.files:
+                topo.feature_order = z["feature_order"]
+        return topo
+
+    @staticmethod
+    def _verify_npz_integrity(path: str, z) -> None:
+        """Check the ``_integrity`` CRC32 record an npz :meth:`save`
+        embeds (absent on pre-record archives — those load unverified,
+        backward compatible). Raises ``ValueError`` naming the first
+        corrupt array."""
+        if "_integrity" not in z.files:
+            return
+        import json
+        import zipfile
+
+        from ..resilience.integrity import array_checksum  # lazy (cycle)
+
+        try:
+            expected = json.loads(bytes(z["_integrity"]).decode())
+        except (ValueError, UnicodeDecodeError, zipfile.BadZipFile) as e:
+            raise ValueError(
+                f"{path}: unreadable _integrity record ({e})"
+            ) from None
+        for name, crc in expected.items():
+            if name not in z.files:
+                raise ValueError(
+                    f"{path}: _integrity covers array {name!r} but the "
+                    f"archive lacks it — truncated or tampered save"
+                )
+            try:
+                got = array_checksum(z[name])
+            except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
+                # the zip's own member CRC can fire first on corrupt bytes
+                raise ValueError(
+                    f"{path}: array {name!r} unreadable — corrupt bytes "
+                    f"({type(e).__name__}: {e})"
+                ) from None
+            if got != int(crc):
+                raise ValueError(
+                    f"{path}: checksum mismatch on array {name!r} "
+                    f"(stored {crc}, computed {got}) — corrupt bytes"
+                )
+
     def to_device(self, mode: SampleMode | str = SampleMode.HBM, device=None,
                   with_eid: bool = False, with_weights: bool = False,
                   with_times: bool = False) -> "DeviceTopology":
@@ -364,6 +580,19 @@ class CSRTopo:
             mode, device, edge_time=self._edge_time if with_times else None)
 
 
+def _host_tensor(a) -> torch.Tensor:
+    """A tensor over the numpy array ``a``, with no copy. A read-only
+    array (a ``CSRTopo.load(mmap=True)`` memmap) is wrapped as it is: the
+    placement's one copy to the device reads the file once, and nothing
+    writes through the wrapper."""
+    a = np.ascontiguousarray(a)
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(a)
+
+
 def place_csr_arrays(indptr, indices, eid, cum_weights, max_degree: int,
                      mode: SampleMode | str, device=None,
                      edge_time=None) -> "DeviceTopology":
@@ -380,7 +609,7 @@ def place_csr_arrays(indptr, indices, eid, cum_weights, max_degree: int,
     """
     mode = SampleMode.parse(mode)
     device = resolve_device(device)
-    indptr = torch.from_numpy(np.ascontiguousarray(indptr)).to(device)
+    indptr = _host_tensor(indptr).to(device)
     per_edge = [indices, eid, cum_weights]
     host = False
     if mode is SampleMode.HOST:
@@ -388,12 +617,10 @@ def place_csr_arrays(indptr, indices, eid, cum_weights, max_degree: int,
                   for a in per_edge]
         host = device.type == "cuda"
     else:
-        placed = [None if a is None else
-                  torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                  for a in per_edge]
+        placed = [None if a is None else _host_tensor(a).to(device) for a in per_edge]
     indices, eid, cum_weights = placed
     if edge_time is not None:
-        edge_time = torch.from_numpy(edge_time).to(device)
+        edge_time = _host_tensor(edge_time).to(device)
     iters = (max(int(np.ceil(np.log2(max_degree + 1))), 1)
              if cum_weights is not None or edge_time is not None else 0)
     return DeviceTopology(indptr, indices, eid, cum_weights=cum_weights,

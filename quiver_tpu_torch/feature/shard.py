@@ -102,11 +102,6 @@ def _row_gather(table, kernel: str, scale=None):
     return rows
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(
-        f"ShardedFeature: {what} is not ported yet (ROADMAP {item})")
-
-
 class ShardedTensor(KernelChoice):
     """A 2-D table row-sharded over a mesh axis.
 
@@ -352,8 +347,8 @@ class ShardedFeature(KernelChoice):
     :class:`~..control.CacheController`) moves the L0/L1 boundary between
     batches from the measured tier hits; ``repin`` re-tiers to a measured
     hot set; ``apply_row_updates`` patches rows in every tier; each of the
-    last two bumps ``version`` once. Not ported yet: ``replan`` (ROADMAP
-    A.11d), which raises ``NotImplementedError``.
+    last two bumps ``version`` once; ``replan`` re-places the tiers onto
+    another mesh shape with every row's bytes kept.
     """
 
     def __init__(
@@ -611,8 +606,53 @@ class ShardedFeature(KernelChoice):
         self._rep_ceiling_rows = max(self._rep_ceiling_rows, rows)
         self.resplit(rows)
 
-    def replan(self, mesh: Mesh):
-        _unported("replan() (re-placing onto another mesh)", "A.11d")
+    def replan(self, mesh: Mesh) -> "ShardedFeature":
+        """Re-place the three tiers onto another mesh shape (an elastic
+        resume: a run checkpointed at F = 8 continuing at F = 4).
+
+        The translated row space is kept as it is: ``feature_order``, the
+        int8 ``scale`` and every row's bytes. Only the tier boundaries are
+        planned again for the new feature-axis size (the same per-device
+        budgets buy fewer sharded rows on a smaller mesh, and the spill
+        goes to the cold tier), and the tiers (with their int8 scale
+        slices) are placed again. Lookups therefore return the same rows
+        bitwise, possibly over another tier. ``last_tier_hits`` is reset;
+        a trainer re-binds through its own ``resume(mesh=)``."""
+        if self.shape is None:
+            raise ValueError("replan() before from_cpu_tensor()")
+        n, f = self.shape
+        num_shards = int(mesh.shape[self.axis])
+        # the whole translated row space on the host: the device region
+        # (the retained copy, or read back) and the cold rows
+        region = self._device_region()
+        full = torch.cat([region, self.cold.cpu()]) if self.cold is not None else region
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        rep_rows, hot_rows = self._plan_split(n, f, itemsize, self._quantized, num_shards)
+        device_rows = rep_rows + hot_rows
+        old_shards = self.mesh.shape[self.axis]
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0]
+        if self.feature_order is not None:
+            self.feature_order = self.feature_order.to(self.device)
+        if self.scale is not None:
+            self.scale = self.scale.to(self.device)
+        self.cold = None
+        self._cold_is_host = False
+        self._rep_ceiling_rows = rep_rows
+        self._place_region(full[:device_rows], rep_rows)
+        if device_rows < n:
+            self._place_cold(full[device_rows:])
+        self._region_host = (full[:device_rows].clone()
+                             if self.auto_split or self.replicate_budget > 0 else None)
+        # hits of the old mesh's tiers describe nothing now
+        self.last_tier_hits = None
+        get_logger("feature").info(
+            "feature replan: %d -> %d shards on mesh axis '%s'; tiers now "
+            "%d replicated / %d sharded / %d cold rows (same translated "
+            "order — gathers stay bit-identical)",
+            old_shards, num_shards, self.axis, rep_rows, self.hot_rows, n - device_rows,
+        )
+        return self
 
     def _device_region(self) -> torch.Tensor:
         """The device region's rows on the host: the retained copy, or

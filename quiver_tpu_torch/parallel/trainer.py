@@ -27,7 +27,10 @@ feature tiers (K2 reading pinned rows), weighted hops, auto caps.
 In both, every data worker runs in this process on the mesh's one device,
 in worker order, and the gradient is the workers' mean. A mesh whose
 workers map to more than one distinct device raises (meshes of distinct
-cards are ROADMAP A.11e).
+cards are ROADMAP A.11e). :class:`DistributedTrainer`'s elastic mode
+(``logical_workers=``) fixes the worker count apart from the mesh and
+reduces in logical-worker order, so ``resume(mesh=)`` continues a run on
+another mesh shape bitwise.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from ..obs.registry import (
 from ..obs.timeline import StepTimeline
 from ..obs.tracing import Tracer
 from ..ops.sample import fold_key, seeded_generator
-from ..resilience.elastic import validate_resume_meta
+from ..resilience.elastic import validate_resume_meta, worker_ordered_mean
 from ..resilience.faults import Preemption
 from ..resilience.guard import guard_verdict, guarded_update
 from ..sampling.sampler import Adj
@@ -97,6 +100,17 @@ def _metrics_report(metrics: MetricsRegistry, timeline: StepTimeline,
     lines.append("timeline:")
     lines.extend("  " + ln for ln in timeline.report().splitlines())
     return "\n".join(lines)
+
+
+def _one_device(mesh: Mesh) -> torch.device:
+    """The one device every slot of ``mesh`` sits on; raises for more."""
+    devices = set(mesh.devices.ravel().tolist())
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"the mesh's workers sit on {len(devices)} devices; training "
+            "across distinct devices is not ported yet (ROADMAP A.11e)"
+        )
+    return devices.pop()
 
 
 class IssuedBlock(NamedTuple):
@@ -188,15 +202,27 @@ class DistributedTrainer:
         (``feature.row_heat``, computed on the device in the step), and
         driving the ``routed_alpha`` tuner. A frozen controller observes
         and decides nothing: the losses stay those of ``controller=None``.
+      logical_workers: elastic mode: the logical seed-block worker count,
+        fixed apart from the mesh (``seed_sharding="all"``, a multiple of
+        the mesh's slots). Slot ``s`` runs ``blocks_per_device`` blocks in
+        turn; block ``b`` is logical worker ``w = s * blocks_per_device +
+        b``, keyed ``fold_key(k, 1, w)``; a feature group's routed sample
+        and lookup pair its members' block ``b``; the loss and the
+        gradients are :func:`~..resilience.worker_ordered_mean` of the
+        blocks' unscaled values. The trajectory is then bitwise
+        independent of the mesh shape, so :meth:`resume` with ``mesh=``
+        continues a run on another shape. None: one block per slot and
+        the plain mean (each worker's gradient of ``loss / workers``,
+        summed in worker order).
       donate_epoch_state: accepted; the JAX package's opt-in to reuse the
         epoch's parameter buffers already holds here, since the step
         updates the caller's parameters in place.
       tracer, recorder: the ``train.step``/``train.chunk`` spans and the
         flight recorder that dumps a bundle when the guard skips a step.
 
-    Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-    item): ``logical_workers`` (A.11d), and a mesh whose workers sit on
-    more than one distinct device (A.11e).
+    Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
+    item): a mesh whose workers sit on more than one distinct device
+    (A.11e).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -261,18 +287,8 @@ class DistributedTrainer:
                 "checkpoint_every= without checkpoint_dir= has "
                 "nothing to write to"
             )
-        if logical_workers is not None:
-            raise NotImplementedError(
-                "DistributedTrainer: logical_workers= (elastic mode) is not "
-                "ported yet (ROADMAP A.11d)"
-            )
         self.auto_alpha = bool(auto_alpha)
-        devices = set(mesh.devices.ravel().tolist())
-        if len(devices) > 1:
-            raise NotImplementedError(
-                f"the mesh's workers sit on {len(devices)} devices; training "
-                "across distinct devices is not ported yet (ROADMAP A.11e)"
-            )
+        device = _one_device(mesh)
         # a topo_sharding="mesh" sampler routes each hop over the feature
         # axis, so every mesh slot must be a worker over its own block
         # ("data" would route a feature group's one frontier F times)
@@ -374,7 +390,7 @@ class DistributedTrainer:
             self._ckpt_seq = 0
         self.timeline = StepTimeline()
         self.mesh = mesh
-        self.device = devices.pop()
+        self.device = device
         self.sampler = sampler
         self.feature = feature
         self.model = model
@@ -382,9 +398,32 @@ class DistributedTrainer:
         self.local_batch = int(local_batch)
         self.data_size = mesh.shape[DATA_AXIS]
         self.feature_size = mesh.shape[FEATURE_AXIS]
-        self.workers = self.data_size * (
+        # seed-block workers: every slot under "all", one per data group
+        # under "data"; elastic mode fixes the LOGICAL count apart from the
+        # mesh, and each slot runs blocks_per_device of them in turn
+        self._device_workers = self.data_size * (
             self.feature_size if self.seed_sharding == "all" else 1
         )
+        self.elastic = logical_workers is not None
+        if self.elastic:
+            lw = int(logical_workers)
+            if self.seed_sharding != "all":
+                raise ValueError(
+                    "logical_workers= (elastic mode) requires "
+                    "seed_sharding='all': every device must be a full "
+                    "seed-block worker for blocks to re-map across mesh "
+                    "shapes"
+                )
+            if lw < self._device_workers or lw % self._device_workers:
+                raise ValueError(
+                    f"logical_workers={lw} must be a multiple of the "
+                    f"device worker count {self._device_workers} (each "
+                    f"device runs logical_workers/devices seed blocks)"
+                )
+            self.workers = lw
+        else:
+            self.workers = self._device_workers
+        self.blocks_per_device = self.workers // self._device_workers
         # a sharded store under "all": each feature group's lookup routes
         self._routed = self._sharded and self.seed_sharding == "all"
         self.global_batch = self.local_batch * self.workers
@@ -586,7 +625,9 @@ class DistributedTrainer:
         seed mask, the forward in training mode (dropout from the worker
         key's dropout stream) and the backward. Returns ``(loss, grads)``:
         the block's loss and the gradients of ``loss / workers`` (the
-        worker's share of the step's mean), neither read back."""
+        worker's share of the step's mean; of the unscaled ``loss`` in
+        elastic mode, which divides after its fixed-order sum), neither
+        read back."""
         S = self.local_batch
         plan = self.fault_plan
         if inject and plan is not None and plan.injects_nan():
@@ -602,7 +643,8 @@ class DistributedTrainer:
         logits = self.model(x, adjs, seeded_generator(self.device, key, 1))
         loss = cross_entropy_on_seeds(logits[:S], lab, mask)
         params = self._params()
-        grads = torch.autograd.grad(loss / self.workers, params, allow_unused=True)
+        grads = torch.autograd.grad(loss if self.elastic else loss / self.workers,
+                                    params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return loss.detach(), grads
@@ -616,6 +658,15 @@ class DistributedTrainer:
         ``(workers * local_batch,)`` device row."""
         rows = packed.reshape(self.workers, self.local_batch)
         return [(r, (r >= 0).sum(dtype=torch.int32)) for r in rows]
+
+    def _group_members(self) -> list:
+        """Each feature group's members as logical workers, group by group
+        and block by block: group ``g``'s block ``b`` pairs the slots ``g *
+        F + i`` at their block ``b``, logical workers ``(g * F + i) *
+        blocks_per_device + b``."""
+        F, bpd = self.feature_size, self.blocks_per_device
+        return [[(g * F + i) * bpd + b for i in range(F)]
+                for g in range(self.data_size) for b in range(bpd)]
 
     def sample_group(self, blocks, members, key: int):
         """A feature group's sample over a topology-sharded sampler: its
@@ -649,15 +700,14 @@ class DistributedTrainer:
             return IssuedStep([self.issue_block(seeds, num, fold_key(key, 1, w),
                                                 self._worker_draw(key, w))
                                for w, (seeds, num) in enumerate(blocks)], zero)
-        F, issued, overflow = self.feature_size, [], zero
-        for g in range(self.data_size):
-            members = range(g * F, (g + 1) * F)
+        issued, overflow = [None] * self.workers, zero
+        for members in self._group_members():
             samples = [self.sample_block(*blocks[w], fold_key(key, 1, w),
                                          self._worker_draw(key, w)) for w in members]
             xs, hits, ov = self._lookup(torch.stack([n_id for n_id, _ in samples]))
-            issued.extend(IssuedBlock(n_id, xs[i], adjs, blocks[w][1], hits[i],
-                                      self._heat(n_id))
-                          for i, (w, (n_id, adjs)) in enumerate(zip(members, samples)))
+            for i, (w, (n_id, adjs)) in enumerate(zip(members, samples)):
+                issued[w] = IssuedBlock(n_id, xs[i], adjs, blocks[w][1], hits[i],
+                                        self._heat(n_id))
             overflow = overflow + ov
         return IssuedStep(issued, overflow)
 
@@ -665,24 +715,22 @@ class DistributedTrainer:
         """:meth:`_issue` over a topology-sharded sampler: per feature
         group, :meth:`sample_group`, then the lookup of the members'
         frontiers (one routed lookup, or one per worker)."""
-        F = self.feature_size
-        issued = []
+        issued = [None] * self.workers
         routed_ov = torch.zeros((), dtype=torch.int32, device=self.device)
         sample_ov = 0
-        for g in range(self.data_size):
-            members = range(g * F, (g + 1) * F)
+        for members in self._group_members():
             n_id, adjs, hop_ov = self.sample_group(blocks, members, key)
             sample_ov = sample_ov + hop_ov
             if self._routed:
                 xs, hits, ov = self._lookup(n_id)
                 routed_ov = routed_ov + ov
             else:
-                xs, hits, _ = zip(*(self._lookup(n_id[i]) for i in range(F)))
+                xs, hits, _ = zip(*(self._lookup(n_id[i]) for i in range(len(members))))
             for i, w in enumerate(members):
-                issued.append(IssuedBlock(
+                issued[w] = IssuedBlock(
                     n_id[i], xs[i], [Adj(a.edge_index[i], None, a.size, a.fanout)
                                      for a in adjs], blocks[w][1], hits[i],
-                    self._heat(n_id[i])))
+                    self._heat(n_id[i]))
         return IssuedStep(issued, routed_ov, sample_ov)
 
     def _train(self, issued: IssuedStep, labels, key: int, inject: bool):
@@ -700,25 +748,32 @@ class DistributedTrainer:
         return self._train(self._issue(packed, key), labels, key, inject)
 
     def _update(self, outs, hits, routed_overflow, sample_overflow=None, heat=None):
-        """Sum the workers' gradient shares into ``.grad`` in worker order,
-        take the guard's verdict before they mix (every worker's count),
-        and step the optimizer. Returns ``(mean loss, the step's metrics
-        dict)``, on the device: the tier hits (and the row heat, with the
-        heat feed on) summed over the workers (a feature group's members
-        share one lookup under the psum flavour, counted once), the routed
-        overflow and the hops' overflow."""
+        """Sum the workers' gradient shares into ``.grad`` in worker order
+        (elastic mode: :func:`~..resilience.worker_ordered_mean` of the
+        blocks' gradients and losses), take the guard's verdict before they
+        mix (every worker's count), and step the optimizer. Returns ``(mean
+        loss, the step's metrics dict)``, on the device: the tier hits (and
+        the row heat, with the heat feed on) summed over the workers (a
+        feature group's members share one lookup under the psum flavour,
+        counted once), the routed overflow and the hops' overflow."""
         params = self._params()
         self.optimizer.zero_grad(set_to_none=True)
-        bad = []
-        for loss, grads in outs:
-            if self.nonfinite_guard:
-                bad.append(guard_verdict(loss, grads)[1])
-            for p, g in zip(params, grads):
-                if p.grad is None:
-                    p.grad = g
-                else:
-                    p.grad.add_(g)
-        loss = torch.stack([o[0] for o in outs]).mean()
+        bad = ([guard_verdict(loss, grads)[1] for loss, grads in outs]
+               if self.nonfinite_guard else [])
+        if self.elastic:
+            stacked = [torch.stack(g) for g in zip(*(grads for _, grads in outs))]
+            for p, g in zip(params, worker_ordered_mean(stacked, None, self.workers)):
+                p.grad = g
+            loss = worker_ordered_mean(torch.stack([o[0] for o in outs]), None,
+                                       self.workers)
+        else:
+            for _, grads in outs:
+                for p, g in zip(params, grads):
+                    if p.grad is None:
+                        p.grad = g
+                    else:
+                        p.grad.add_(g)
+            loss = torch.stack([o[0] for o in outs]).mean()
         mtree = {}
         if self.collect_metrics:
             dev = loss.device
@@ -1035,7 +1090,7 @@ class DistributedTrainer:
             "workers": int(self.workers),
             "local_batch": int(self.local_batch),
             "seed_sharding": self.seed_sharding,
-            "elastic": False,
+            "elastic": bool(self.elastic),
             "epoch": int(epoch),
             "step": int(step),
         }
@@ -1054,8 +1109,18 @@ class DistributedTrainer:
         or half-written newest checkpoint is quarantined and the newest
         valid one restores instead. The manifest metadata is checked
         against this trainer (:func:`~..resilience.validate_resume_meta`);
-        a ``mesh=`` of another shape, or any ``mesh=`` but the trainer's
-        own, raises as the JAX package's non-elastic trainer does.
+        a checkpoint of another mesh shape needs ``mesh=``.
+
+        Elastic resume (``mesh=``): restore onto another mesh shape. The
+        writing trainer must have been elastic (``logical_workers=``) and
+        so must this one; it re-plans in place (:meth:`_replan`): the
+        topology-sharded sampler and the sharded store re-partition onto
+        the new mesh, and each slot runs ``logical_workers / slots``
+        blocks. A trainer built afresh on the new mesh (the process-death
+        flow) passes its own mesh, ``resume(mesh=trainer.mesh)``. Regenerate
+        the same seed matrix (``pack_epoch`` with the same seed) and call
+        ``epoch_scan(..., key, epoch=epoch, start_step=step)``: the
+        remaining steps are the uninterrupted run's, bitwise.
 
         Returns ``(model, optimizer, key, step, epoch)``: the JAX tuple
         with the restored model and optimizer in place of ``(params,
@@ -1093,11 +1158,7 @@ class DistributedTrainer:
             local_batch=self.local_batch,
         )
         if mesh is not None and mesh is not self.mesh:
-            raise ValueError(
-                "resume(mesh=) needs an elastic trainer: construct with "
-                "logical_workers=<the writing run's worker count> so the "
-                "step reduction is mesh-shape independent"
-            )
+            self._replan(mesh)
         state = self.checkpointer.restore(latest)
         step = int(state["step"])
         spe = meta.get("steps_per_epoch")
@@ -1111,6 +1172,51 @@ class DistributedTrainer:
         self.optimizer.load_state_dict(state["opt_state"])
         return (self.model, self.optimizer, int(state["key"]), step,
                 int(state["epoch"]))
+
+    def _replan(self, mesh: Mesh) -> None:
+        """Re-plan the trainer onto another mesh shape (an elastic resume).
+
+        The logical worker count stays (seed packing, block keys and the
+        fixed-order reduction follow it); what changes is how many blocks
+        each slot runs. A topology-sharded sampler and a sharded store
+        re-partition through their ``replan`` (same bytes, new owners), an
+        attached controller is attached to the re-placed store again, and
+        the trainer binds to the current versions."""
+        if not self.elastic:
+            raise ValueError(
+                "resume(mesh=) needs an elastic trainer: construct with "
+                "logical_workers=<the writing run's worker count> so the "
+                "step reduction is mesh-shape independent"
+            )
+        dev_workers = int(mesh.shape[DATA_AXIS]) * int(mesh.shape[FEATURE_AXIS])
+        if dev_workers < 1 or self.workers % dev_workers:
+            raise ValueError(
+                f"cannot re-plan {self.workers} logical workers onto "
+                f"{dev_workers} devices (must divide evenly)"
+            )
+        device = _one_device(mesh)
+        old = (int(self.data_size), int(self.feature_size))
+        self.mesh = mesh
+        self.device = device
+        self.data_size = mesh.shape[DATA_AXIS]
+        self.feature_size = mesh.shape[FEATURE_AXIS]
+        self._device_workers = dev_workers
+        self.blocks_per_device = self.workers // dev_workers
+        if self.topo_sharded:
+            self.sampler.replan(mesh)
+        if self._sharded:
+            self.feature.replan(mesh)
+            if self.controller is not None and self.feature._controller is self.controller:
+                self.controller.attach(self.feature)
+        info_once(
+            "trainer-elastic-replan",
+            "elastic replan: mesh (data=%d, feature=%d) -> (data=%d, "
+            "feature=%d); %d logical workers now run %d block(s)/device "
+            "(trajectory stays bit-identical — fixed-order reduction)",
+            old[0], old[1], int(self.data_size), int(self.feature_size),
+            self.workers, self.blocks_per_device,
+        )
+        self._bound_versions = self._current_versions()
 
 
     def _maybe_grow_routed_alpha(self) -> None:

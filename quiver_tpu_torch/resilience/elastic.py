@@ -1,7 +1,16 @@
-"""Degraded-mode feature serving: keep answering when a store is down.
+"""Elastic resume's reduction, and degraded-mode feature serving.
 
-The port of the serving half of ``quiver_tpu/resilience/elastic.py``:
-:class:`CircuitBreaker` and :class:`DegradedFeature`, with the JAX
+The port of ``quiver_tpu/resilience/elastic.py``.
+
+:func:`worker_ordered_mean` is the step reduction of an elastic trainer
+(``DistributedTrainer(logical_workers=)``): the per-block values in
+logical-worker order, summed by an explicit left fold and only then
+divided by the worker count, so the result does not depend on how the
+logical workers map onto mesh slots. That is what lets ``resume(mesh=)``
+continue a run on another mesh shape bitwise.
+
+:class:`CircuitBreaker` and :class:`DegradedFeature` keep serving when a
+store is down, with the JAX
 package's state machine, thresholds, counter and recorder trigger. While
 the breaker is closed, lookups pass through and failures propagate; after
 ``failures`` consecutive failures (an OUTAGE of the cold tier, not a
@@ -23,8 +32,6 @@ reads for it.
 
 :func:`validate_resume_meta` checks a checkpoint's manifest against the
 trainer that restores it, with the JAX package's errors.
-``worker_ordered_mean``, the elastic reduction across cards, comes with
-the elastic half of the multi-device layer (ROADMAP A.11d).
 """
 
 from __future__ import annotations
@@ -35,7 +42,44 @@ import torch
 from ..obs.registry import DEGRADED_LOOKUPS, MetricsRegistry
 from ..utils.trace import get_logger
 
-__all__ = ["CircuitBreaker", "DegradedFeature", "validate_resume_meta"]
+__all__ = ["CircuitBreaker", "DegradedFeature", "validate_resume_meta",
+           "worker_ordered_mean"]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def worker_ordered_mean(tree, axes, workers: int):
+    """Mean over the logical-worker axis in a fixed order, bitwise
+    independent of how the workers map onto mesh slots.
+
+    Each leaf is the ``(workers, ...)`` stack of the per-block values in
+    logical-worker order (slot-major, block-minor: ``worker = slot *
+    blocks_per_device + block``): on the port's one-process mesh this
+    stack is the JAX package's ``all_gather``. The reduction is the
+    explicit left fold ``g[0] + g[1] + ... + g[W-1]``, then the division by
+    ``workers``; ``torch.mean`` and ``torch.sum`` reduce in another order.
+    ``axes`` is accepted for the JAX package's signature and is inert.
+    Leaves may sit in dicts, lists and tuples."""
+    del axes  # the stack is already in logical-worker order
+
+    def one(g):
+        if g.shape[0] != workers:
+            raise ValueError(
+                f"a leaf of shape {tuple(g.shape)} does not stack {workers} workers"
+            )
+        total = g[0]
+        for i in range(1, workers):
+            total = total + g[i]
+        return total / workers
+
+    return _tree_map(one, tree)
+
 
 def validate_resume_meta(meta: dict, *, mesh_shape: dict, workers: int,
                          local_batch: int) -> None:

@@ -1237,3 +1237,139 @@ def test_sharded_repin_and_update_bitwise_dense(cuda, dtype):
     for g in ({}, {"routed": True}):
         got = store.gather(torch.from_numpy(upd.astype(np.int32)).to(cuda), **g)
         assert torch.equal(got, torch.from_numpy(rows).to(cuda)), g
+
+
+@pytest.mark.parametrize("access", ["mmap", "pread"])
+@pytest.mark.parametrize("dtype", [None, "int8"])
+def test_ooc_store_k2_over_staged_block_matches_plain(cuda, tmp_path, dtype, access):
+    """``MmapFeatureStore`` on the card: each lookup is one K2 launch
+    (``tiered_gather``, or ``tiered_gather_dequant`` for int8) over the
+    device hot rows and the pinned staged block, bitwise the in-RAM
+    ``Feature``'s K2 lookup and K2's plain version on the same ids, table
+    and scales, before and after a ``restage``; the staging buffer is
+    pinned and reused."""
+    from quiver_tpu_torch import CSRTopo, Feature, MmapFeatureStore
+    from quiver_tpu_torch.ops.kernels import gather as k2
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    n, f = 20_000, 32
+    ei = generate_pareto_graph(n, 10.0, seed=8)
+    x = np.random.default_rng(0).normal(size=(n, f)).astype(np.float32)
+    budget = (4 * n + 2_000 * f) if dtype == "int8" else 2_000 * f * 4
+    feat = Feature(device_cache_size=budget, csr_topo=CSRTopo(edge_index=ei), dtype=dtype,
+                   device=cuda).from_cpu_tensor(x)
+    p = str(tmp_path / "rows")
+    MmapFeatureStore.write(p, x, device_cache_size=budget, csr_topo=CSRTopo(edge_index=ei),
+                           dtype=dtype)
+    store = MmapFeatureStore(p, access=access, window_rows=256, cache_windows=16,
+                             host_cache_rows=500, device=cuda, kernel="pallas")
+    entry = k2.tiered_gather_dequant if dtype == "int8" else k2.tiered_gather
+    rng = np.random.default_rng(1)
+    ptrs = set()
+    for step in range(3):
+        ids = rng.integers(-1, n + 3, 4096).astype(np.int32)
+        if step == 2:
+            store.restage(np.arange(0, 4_000, 3))
+        before = entry.launches
+        got = store[torch.from_numpy(ids).to(cuda)]
+        assert entry.launches == before + 1
+        assert torch.equal(got, feat[torch.from_numpy(ids).to(cuda)])
+        staged = store._staging.rows[:ids.size]
+        assert staged.is_pinned()
+        ptrs.add(staged.data_ptr())
+        scale = None if dtype is None else store._staging.scale[:store.hot_rows + ids.size]
+        plain = k2.tiered_gather_plain(store._staging.ids[:ids.size].to(cuda), None,
+                                       store.hot_rows, store.hot, staged, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain)
+    assert len(ptrs) == 1 and store.cold_cache_hits_total > 0
+    store.close()
+
+
+def test_ooc_data_parallel_on_card_equals_in_ram(cuda, tmp_path):
+    """``DataParallelTrainer`` on the card over the disk-backed store,
+    through the Prefetcher's worker thread, gives the in-RAM store's
+    epoch losses and parameters bitwise under deterministic kernels, with
+    one K2 launch per lookup."""
+    from quiver_tpu_torch import (CSRTopo, DataParallelTrainer, Feature, GraphSageSampler,
+                                  GraphSAGE, MmapFeatureStore, make_mesh)
+    from quiver_tpu_torch.ops.kernels.gather import tiered_gather
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    n, f, classes = 20_000, 32, 8
+    ei = generate_pareto_graph(n, 10.0, seed=3)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, classes, n).astype(np.int32)).to(cuda)
+    budget = 2_000 * f * 4
+    idx = rng.integers(0, n, 8 * 256)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for kind in ("ram", "disk"):
+            topo = CSRTopo(edge_index=ei)
+            if kind == "ram":
+                feature = Feature(device_cache_size=budget, csr_topo=topo,
+                                  device=cuda).from_cpu_tensor(x)
+            else:
+                p = str(tmp_path / "rows")
+                MmapFeatureStore.write(p, x, device_cache_size=budget, csr_topo=topo)
+                feature = MmapFeatureStore(p, access="pread", window_rows=256,
+                                           cache_windows=8, device=cuda)
+            sampler = GraphSageSampler(topo, [5, 5], seed=3, seed_capacity=128, device=cuda)
+            model = GraphSAGE(f, 32, classes, num_layers=2).to(cuda)
+            trainer = DataParallelTrainer(make_mesh(data=2, devices=[cuda] * 2), sampler,
+                                          feature, model,
+                                          torch.optim.SGD(model.parameters(), lr=1e-2),
+                                          local_batch=128)
+            trainer.init(torch.Generator().manual_seed(0))
+            before = tiered_gather.launches
+            loss, steps = trainer.train_epoch(idx, labels,
+                                              torch.Generator().manual_seed(1),
+                                              rng=np.random.default_rng(1), depth=2)
+            assert steps == 8 and tiered_gather.launches - before == 16
+            runs[kind] = (loss, {k: v.clone() for k, v in model.state_dict().items()})
+            if kind == "disk":
+                assert feature.stager.readahead_hits_total > 0
+                feature.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert runs["ram"][0] == runs["disk"][0]
+    assert all(torch.equal(runs["ram"][1][k], runs["disk"][1][k]) for k in runs["ram"][1])
+
+
+def test_elastic_step_on_card_mesh_independent(cuda):
+    """``DistributedTrainer(logical_workers=4)`` over a topology-sharded
+    sampler and a sharded store on the logical meshes ``(1, 4)``, ``(1,
+    2)`` and ``(1, 1)`` of the card: two steps' losses and the parameters
+    after them bitwise alike under deterministic kernels."""
+    from quiver_tpu_torch import (DistributedTrainer, GraphSageSampler, GraphSAGE,
+                                  ShardedFeature, make_mesh)
+
+    topo = _dist_graph(cuda)
+    x = np.random.default_rng(2).normal(size=(topo.node_count, 32)).astype(np.float32)
+    labels = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 10, topo.node_count).astype(np.int32)).to(cuda)
+    seeds = np.random.default_rng(5).integers(0, topo.node_count, 4 * 128)
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for fsize in (4, 2, 1):
+            mesh = make_mesh(data=1, feature=fsize, devices=[cuda] * fsize)
+            store = ShardedFeature(mesh, device_cache_size=2_000 * 32 * 4, csr_topo=topo,
+                                   replicate_budget=500 * 32 * 4).from_cpu_tensor(x)
+            model = GraphSAGE(32, 64, 10, num_layers=2).to(cuda)
+            trainer = DistributedTrainer(
+                mesh, GraphSageSampler(topo, [12, 8], seed=4, topo_sharding="mesh", mesh=mesh),
+                store, model, torch.optim.Adam(model.parameters(), lr=1e-3), local_batch=128,
+                seed_sharding="all", logical_workers=4)
+            trainer.init(0)
+            assert trainer.blocks_per_device == 4 // fsize
+            losses = [trainer.step(seeds, labels, 9 + t) for t in range(2)]
+            runs.append((torch.stack(losses), {k: v.clone()
+                                               for k, v in model.state_dict().items()}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for losses, state in runs[1:]:
+        assert torch.equal(losses, runs[0][0])
+        assert all(torch.equal(state[k], runs[0][1][k]) for k in state)

@@ -323,11 +323,13 @@ def test_mesh_sampler_requires_all_seed_sharding(graph):
 @pytest.mark.parametrize("what", ["logical_workers", "auto_alpha", "controller",
                                   "two_devices"])
 def test_unported_features_raise(graph, what):
-    """``logical_workers`` (A.11d) and a mesh of two devices (A.11e) still
-    raise. ``auto_alpha=True`` and a ``controller``, ported with A.11c,
-    now build over a replicated store: ``auto_alpha`` makes an alpha-only
-    controller (no heat feed), and a controller is not attached to a
-    ``Feature``, as in the JAX package."""
+    """A mesh of two devices (A.11e) still raises. ``logical_workers``,
+    ported with A.11d, needs ``seed_sharding="all"`` (JAX's
+    ``ValueError``) and then runs two blocks a slot. ``auto_alpha=True``
+    and a ``controller``, ported with A.11c, now build over a replicated
+    store: ``auto_alpha`` makes an alpha-only controller (no heat feed),
+    and a controller is not attached to a ``Feature``, as in the JAX
+    package."""
     ei, feat, _ = graph
     topo = qt.CSRTopo(edge_index=ei)
     sampler = qt.GraphSageSampler(topo, [3], device="cpu", seed=0, seed_capacity=8)
@@ -345,9 +347,16 @@ def test_unported_features_raise(graph, what):
                                   torch.optim.SGD(model.parameters(), lr=0.1),
                                   local_batch=8, **kw)
 
-    if what in ("logical_workers", "two_devices"):
-        with pytest.raises(NotImplementedError, match="A.11"):
+    if what == "two_devices":
+        with pytest.raises(NotImplementedError, match="A.11e"):
             build()
+        return
+    if what == "logical_workers":
+        with pytest.raises(ValueError, match="requires seed_sharding='all'"):
+            build()
+        kw["seed_sharding"] = "all"
+        trainer = build()
+        assert (trainer.elastic, trainer.workers, trainer.blocks_per_device) == (True, 4, 2)
         return
     trainer = build()
     assert trainer.controller is not None and not hasattr(feature, "_controller")

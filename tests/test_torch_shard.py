@@ -415,18 +415,14 @@ def test_lookup_of_a_group_is_the_standalone_gather():
 @pytest.mark.parametrize("call", ["int8", "auto_split", "repin", "apply_row_updates",
                                   "note_degree_update", "replan"])
 def test_unported_store_features_raise(call):
-    """``replan`` (ROADMAP A.11d) still raises. The calls that raised
-    until A.11c was ported (int8 storage, ``auto_split``, ``repin``,
-    ``apply_row_updates``, ``note_degree_update``) now run on both packages
-    and leave the same store: its split, its version and its rows bitwise
-    (``tests/test_torch_shard_control.py`` holds each at length)."""
+    """The calls that raised until A.11c (int8 storage, ``auto_split``,
+    ``repin``, ``apply_row_updates``, ``note_degree_update``) and A.11d
+    (``replan``, here from a ``(2, 4)`` onto a ``(2, 2)`` mesh) were ported
+    run on both packages and leave the same store: its split, its version
+    and its rows bitwise (``tests/test_torch_shard_control.py`` and
+    ``tests/test_torch_elastic_resize.py`` hold each at length)."""
     mesh_j, mesh = _meshes(2, 4)
     feat = np.random.default_rng(0).normal(size=(40, 8)).astype(np.float32)
-    if call == "replan":
-        store = qt.ShardedFeature(mesh, device_cache_size="1M").from_cpu_tensor(feat)
-        with pytest.raises(NotImplementedError, match="A.11d"):
-            store.replan(mesh)
-        return
     kw = {"device_cache_size": 3 * ROW_B, "replicate_budget": 4 * ROW_B,
           "auto_split": call == "auto_split"}
     if call == "int8":
@@ -435,6 +431,13 @@ def test_unported_store_features_raise(call):
               qt.ShardedFeature(mesh, **kw).from_cpu_tensor(feat))
     args = {"repin": ([7, 30, 7],), "apply_row_updates": ([3, 20], feat[:2] + 1.0),
             "note_degree_update": (np.arange(40)[::-1].copy(),)}.get(call)
+    if call == "replan":
+        args = None
+        new_meshes = (make_mesh_j(n_devices=4, data=2, feature=2),
+                      qt.make_mesh(data=2, feature=2, devices=["cpu"] * 4))
+        for store, new_mesh in zip(stores, new_meshes):
+            store.replan(new_mesh)
+        assert stores[1].hot_rows == stores[0].hot_rows == 3 * 2
     ids = np.arange(-1, 40).astype(np.int32)
     for _ in range(3 if call == "auto_split" else 1):
         if args is not None:
