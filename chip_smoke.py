@@ -321,6 +321,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise its plain version; the lookup timed in turns with the in-RAM
    one; ``CacheController.maybe_promote`` restages measured-hot disk rows
    and the lookups stay bitwise.
+9k. transactional streaming mutation and the native CSR build; every
+   check names itself on stderr first. (a) ``benchmarks/chaos.py``'s
+   ``mutate`` drill at ``train_multichip``'s width: a ``ShardedFeature``
+   on the logical ``(1, 4)`` mesh, a ``GraphSageSampler(topo_sharding=
+   "mesh")`` at [15, 10, 5] x 256 and a ``StreamingGraph`` over both;
+   three malformed batches quarantined (the counter reads 3, nothing
+   staged); an injected failure at ``merge``, ``verify`` and ``features``
+   each leaves both versions at 0 and the sample bitwise the pre-commit
+   oracle; a commit of 4,096 inserts, 1,024 deletes of live edges and 512
+   row updates publishes version 1 on both, the stale sampler raises until
+   ``refresh_topology()``, every sampled edge is an edge of the merged CSR
+   (exactly 12 owner-side ``select`` launches), and the updated rows
+   gather bitwise from every tier; ingest, commit and refresh ms. (b) the
+   epoch differential under deterministic kernels: ``DistributedTrainer(
+   seed_sharding="all")`` over a topology-sharded sampler and an f32 store
+   in identity row order, Adam; an 8-step epoch, the same delta committed
+   at the boundary, ``step`` raising until ``refresh()``, an 8-step epoch
+   on the mutated state; a trainer over the rebuilt graph and rows, given
+   the same post-epoch-0 state and keys: the merged CSR, the samples, the
+   losses and the parameters bitwise; the crash twin (a ``verify`` failure
+   between the epochs) bitwise the uncrashed run; exactly 12 ``select``
+   and 6 ``gather_rows`` launches a step. (c) the native host library
+   built and loaded (required); ``CSRTopo`` over the products-shaped graph
+   (62.6M edges) natively and with numpy, in turns, bitwise (dtypes
+   included); one commit of 1,024 inserts and 256 deletes on it, bitwise
+   the native rebuild of the final COO; bench_rgcn's ``HeteroCSRTopo``,
+   native bitwise numpy.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -3141,6 +3168,26 @@ SAINT_LAUNCHES = {"node": {"gather_rows": 1}, "edge": {"gather_rows": 2},
                   "rw": {"gather_rows": 1, "uniform_hop": SAINT_WALK}}
 
 
+def mag_edges(rng):
+    """``bench_rgcn.py``'s node counts and relations: paper-cites-paper
+    from ``generate_pareto_graph(200000, 10.0, seed=0)``, then 3 writes per
+    paper and 2 employs per author drawn from ``rng``."""
+    import numpy as np
+
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    num_nodes = {"paper": MAG_PAPERS, "author": MAG_AUTHORS, "inst": MAG_INSTS}
+    return num_nodes, {
+        ("paper", "cites", "paper"): generate_pareto_graph(MAG_PAPERS, 10.0, seed=0),
+        ("author", "writes", "paper"): np.stack([
+            rng.integers(0, MAG_AUTHORS, MAG_PAPERS * 3),
+            rng.integers(0, MAG_PAPERS, MAG_PAPERS * 3)]),
+        ("inst", "employs", "author"): np.stack([
+            rng.integers(0, MAG_INSTS, MAG_AUTHORS * 2),
+            rng.integers(0, MAG_AUTHORS, MAG_AUTHORS * 2)]),
+    }
+
+
 def mag_graph():
     """``bench_rgcn.py``'s graph, features and labels, drawn in its order
     from ``default_rng(0)``: paper-cites-paper from
@@ -3149,19 +3196,10 @@ def mag_graph():
     import numpy as np
 
     from quiver_tpu_torch import HeteroCSRTopo
-    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
 
     rng = np.random.default_rng(0)
-    num_nodes = {"paper": MAG_PAPERS, "author": MAG_AUTHORS, "inst": MAG_INSTS}
-    topo = HeteroCSRTopo(num_nodes, {
-        ("paper", "cites", "paper"): generate_pareto_graph(MAG_PAPERS, 10.0, seed=0),
-        ("author", "writes", "paper"): np.stack([
-            rng.integers(0, MAG_AUTHORS, MAG_PAPERS * 3),
-            rng.integers(0, MAG_PAPERS, MAG_PAPERS * 3)]),
-        ("inst", "employs", "author"): np.stack([
-            rng.integers(0, MAG_INSTS, MAG_AUTHORS * 2),
-            rng.integers(0, MAG_AUTHORS, MAG_AUTHORS * 2)]),
-    })
+    num_nodes, edges = mag_edges(rng)
+    topo = HeteroCSRTopo(num_nodes, edges)
     feats = {t: rng.normal(size=(c, RGCN_F)).astype(np.float32)
              for t, c in num_nodes.items()}
     labels = rng.integers(0, RGCN_CLASSES, MAG_PAPERS).astype(np.int32)
@@ -6577,6 +6615,412 @@ def ooc_phase(card):
     return got, rows, result
 
 
+# -- phase 9k: transactional streaming mutation and the native CSR build -----------
+
+STREAM_DELTA = (4096, 1024, 512)  # inserts, deletes of live edges, row updates
+STREAM_STEPS = 8  # the differential's epochs
+STREAM_KEY = 29  # the mutate drill's sample key
+PRODUCTS_DELTA = (1024, 256)  # the products-shaped commit: inserts, deletes
+
+
+def step9k(what: str) -> None:
+    """Name a phase 9k check on stderr before it runs."""
+    log(f"phase 9k check: {what}")
+
+
+def live_deletes(topo, count: int, rng):
+    """``count`` live edges of ``topo`` as a ``(2, count)`` COO: the pairs
+    at distinct CSR slots drawn at random."""
+    import numpy as np
+
+    slots = np.sort(rng.choice(topo.edge_count, count, replace=False))
+    rows = np.searchsorted(topo.indptr.astype(np.int64), slots, side="right") - 1
+    return np.stack([rows, topo.indices[slots].astype(np.int64)])
+
+
+def final_coo(topo, deletes, inserts):
+    """The COO a rebuild after a commit of ``inserts`` and ``deletes`` of
+    live edges starts from: ``topo``'s edges in slot order, less the
+    earliest remaining slot of each deleted pair, then the inserts (what
+    ``merge_csr`` keeps, in a stable build's order)."""
+    import numpy as np
+
+    indptr = topo.indptr.astype(np.int64)
+    keep = np.ones(topo.edge_count, bool)
+    for s, d in deletes.T.tolist():
+        lo, hi = int(indptr[s]), int(indptr[s + 1])
+        keep[lo + np.flatnonzero((topo.indices[lo:hi] == d) & keep[lo:hi])[0]] = False
+    rows = np.repeat(np.arange(topo.node_count, dtype=np.int64), np.diff(indptr))
+    return np.concatenate([np.stack([rows[keep], topo.indices[keep].astype(np.int64)]),
+                           inserts.astype(np.int64)], axis=1)
+
+
+def stream_delta(topo, x, rng, inserts: int, deletes: int, updates: int, tiers=None):
+    """A well-formed delta of ``inserts`` random edges, ``deletes`` live
+    edges and ``updates`` new rows (the first three ids one from each of
+    the ``tiers`` store's L0, L1 and cold tiers when given)."""
+    import numpy as np
+
+    from quiver_tpu_torch import DeltaBatch
+
+    n = topo.node_count
+    ids = rng.choice(n, updates, replace=False)
+    if tiers is not None:
+        order = tiers.feature_order
+        order = np.arange(n) if order is None else np.asarray(order.cpu()).astype(np.int64)
+        inv = np.empty(n, np.int64)
+        inv[order] = np.arange(n)
+        firsts = inv[[0, tiers.rep_rows, tiers.rep_rows + tiers.hot_rows]]
+        ids = np.concatenate([firsts, ids[~np.isin(ids, firsts)]])[:updates]
+    return DeltaBatch(edge_inserts=rng.integers(0, n, size=(2, inserts)),
+                      edge_deletes=live_deletes(topo, deletes, rng), update_ids=ids,
+                      update_rows=rng.normal(size=(updates, x.shape[1])).astype(np.float32),
+                      tag="drill")
+
+
+def same_sample(a, b) -> bool:
+    return equal(a.n_id, b.n_id) and all(equal(p.edge_index, q.edge_index)
+                                         for p, q in zip(a.adjs, b.adjs))
+
+
+def sampled_edges_real(per_worker, keys, n: int) -> int:
+    """Every valid lane of every worker's sample is an edge of the CSR
+    whose sorted keys are ``keys``; returns the edges checked."""
+    import torch
+
+    edges = 0
+    for out in per_worker:
+        n_id = out.n_id.to(torch.int64)
+        for adj in out.adjs:
+            src, dst = adj.edge_index[0].to(torch.int64), adj.edge_index[1].to(torch.int64)
+            ok = (src >= 0) & (dst >= 0)
+            check(real_edges(keys, n, n_id[dst[ok]], n_id[src[ok]]),
+                  "every sampled edge lies in the merged CSR")
+            edges += int(ok.sum())
+    return edges
+
+
+def mutate_drill(card):
+    """(a) ``benchmarks/chaos.py``'s ``mutate`` drill at ``train_multichip``'s
+    width; returns ``(launches, result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import (CommitAborted, DeltaBatch, GraphSageSampler,
+                                  ShardedFeature, StreamingGraph, VersionMismatchError)
+    from quiver_tpu_torch.obs.registry import DELTAS_QUARANTINED
+
+    topo, x, _ = multichip_setup()
+    n = topo.node_count
+    rng = np.random.default_rng(31)
+    mesh = logical_mesh(1, 4)
+    store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
+                           replicate_budget=MULTI_L0).from_cpu_tensor(x)
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, topo_sharding="mesh", mesh=mesh)
+    seeds = rng.permutation(n)[:4 * MULTI_BATCH]
+    oracle = sampler.sample(seeds, key=STREAM_KEY)
+    sg = StreamingGraph(topo, feature=store)
+    nan_rows = np.ones((1, MULTI_F), np.float32)
+    nan_rows[0, 7] = np.nan
+    bad = [DeltaBatch(edge_inserts=np.array([[0], [n]]), tag="out of range"),
+           DeltaBatch(update_ids=np.array([1]), update_rows=nan_rows, tag="NaN row"),
+           DeltaBatch(edge_inserts=np.array([[1, 1], [2, 2]]), tag="duplicate insert")]
+    step9k("(a) three malformed batches (out of range, NaN row, duplicate insert) "
+           "quarantined, the counter reads 3, nothing staged")
+    check(not any(sg.ingest(b) for b in bad) and len(sg.quarantined) == 3
+          and int(np.asarray(sg.metrics.value(DELTAS_QUARANTINED))) == 3 and not sg.staged,
+          f"malformed batches quarantined: {[q.reason[:60] for q in sg.quarantined]}")
+    ins, dels, upd = STREAM_DELTA
+    delta = stream_delta(topo, x, rng, ins, dels, upd, tiers=store)
+    for stage in ("merge", "verify", "features"):
+        check(sg.ingest(delta), f"the drill's delta is admitted ({stage})")
+        try:
+            sg.commit(inject_failure=stage)
+            check(False, f"the injected {stage} failure raised")
+        except CommitAborted:
+            pass
+        step9k(f"(a) an injected failure at {stage}: both versions 0, the sample bitwise "
+               "the pre-commit oracle")
+        check(topo.version == 0 and store.version == 0
+              and same_sample(sampler.sample(seeds, key=STREAM_KEY), oracle),
+              f"rollback at {stage}")
+    sync()
+    t0 = time.perf_counter()
+    admitted = sg.ingest(delta)
+    ingest_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    res = sg.commit()
+    sync()
+    commit_ms = 1e3 * (time.perf_counter() - t0)
+    step9k(f"(a) the commit of {ins} inserts, {dels} deletes and {upd} row updates publishes "
+           "version 1 on the topology and the store")
+    check(admitted and res.version == 1 and topo.version == 1 and store.version == 1
+          and (res.edges_inserted, res.edges_deleted, res.rows_updated) == (ins, dels, upd)
+          and res.edge_count == topo.edge_count, f"commit {res}")
+    step9k("(a) the stale sampler raises VersionMismatchError")
+    try:
+        sampler.sample(seeds, key=STREAM_KEY)
+        check(False, "the stale sampler raised")
+    except VersionMismatchError:
+        pass
+    t0 = time.perf_counter()
+    sampler.refresh_topology()
+    sync()
+    refresh_ms = 1e3 * (time.perf_counter() - t0)
+    reset_launches()
+    per_worker = sampler.sample_per_worker(seeds, key=STREAM_KEY)
+    sync()
+    launches = {"sample": read_launches()}
+    step9k("(a) after refresh_topology(): every sampled edge is an edge of the merged CSR, "
+           f"{4 * len(MULTI_FANOUT)} owner-side select launches")
+    expect_launches(launches["sample"], {"select": 4 * len(MULTI_FANOUT)},
+                    "refreshed topology-sharded sample")
+    edges = sampled_edges_real(per_worker, edge_keys(topo.indptr, topo.indices, n), n)
+    ids = torch.from_numpy(delta.update_ids).to("cuda")
+    want = torch.from_numpy(delta.update_rows)
+    order = np.asarray(store.feature_order.cpu()).astype(np.int64)[delta.update_ids]
+    tiers = np.bincount(np.searchsorted([store.rep_rows, store.rep_rows + store.hot_rows],
+                                        order, side="right"), minlength=3)
+    for name, kw in (("psum", {}), ("routed", {"routed": True})):
+        reset_launches()
+        got = store.gather(ids, **kw)
+        sync()
+        launches[f"gather_{name}"] = read_launches()
+        step9k(f"(a) store.gather(update_ids) ({name}) bitwise the new rows in every tier "
+               f"({tiers.tolist()} ids in L0 / L1 / cold)")
+        check(bool((tiers > 0).all()) and equal(got.cpu(), want), f"updated rows ({name})")
+    result = {"ingest_ms": ingest_ms, "commit_ms": commit_ms, "refresh_topology_ms": refresh_ms,
+              "quarantined_at_ingest": len(bad), "rollbacks": 3, "sampled_edges": edges,
+              "update_tiers": tiers.tolist(), "edges": topo.edge_count,
+              "commit": res.__dict__}
+    store.delete()
+    log(f"mutate drill: ingest {ingest_ms:.2f} ms, commit {commit_ms:.2f} ms, "
+        f"refresh_topology {refresh_ms:.2f} ms [{card}]")
+    return launches, result
+
+
+def stream_launches(steps: int) -> dict:
+    """Exact K1 and K2 launches of ``steps`` steps of the ``(1, 4)``
+    trainer under ``"all"``: one owner-side ``select`` per owner per hop;
+    one ``gather_rows`` for L0, one per shard and one for the cold rows."""
+    return {"select": steps * 4 * len(MULTI_FANOUT), "gather_rows": steps * (4 + 2)}
+
+
+def stream_trainer(topo, x, state=None):
+    """The differential's trainer on the logical ``(1, 4)`` mesh at
+    ``train_multichip``'s width: a topology-sharded sampler, an f32
+    three-tier store in identity row order (``csr_topo=None``: the
+    differential compares graph content, not placement), GraphSAGE 256 x
+    3, Adam 1e-3, ``seed_sharding="all"``; ``init(0)``, then ``state``
+    (model and optimizer state dicts) when given."""
+    import copy
+
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE, ShardedFeature
+
+    mesh = logical_mesh(1, 4)
+    store = ShardedFeature(mesh, device_cache_size=MULTI_L1,
+                           replicate_budget=MULTI_L0).from_cpu_tensor(x)
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, topo_sharding="mesh", mesh=mesh)
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES, num_layers=len(MULTI_FANOUT))
+    trainer = DistributedTrainer(mesh, sampler, store, model.to("cuda"),
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding="all")
+    trainer.init(0)
+    if state is not None:
+        trainer.model.load_state_dict(state[0])
+        # the optimizer adopts the dict's tensors and steps them in place
+        trainer.optimizer.load_state_dict(copy.deepcopy(state[1]))
+    return trainer, store
+
+
+def stream_epoch(trainer, seed_mat, labels, key: int, what: str):
+    """One ``epoch_scan`` with its launches checked exactly:
+    ``(losses on the host, seconds, launches)``."""
+    reset_launches()
+    losses, secs = timed_epoch(trainer, seed_mat, labels, key)
+    launches = read_launches()
+    expect_launches(launches, stream_launches(seed_mat.shape[0]), what)
+    return losses.cpu().numpy(), secs, launches
+
+
+def stream_differential(card):
+    """(b) the epoch differential and its crash twin; returns ``(launches,
+    result)``."""
+    import copy
+
+    import numpy as np
+
+    from quiver_tpu_torch import (CSRTopo, CommitAborted, StreamingGraph,
+                                  VersionMismatchError)
+
+    topo, x, labels = multichip_setup()
+    n = topo.node_count
+    rng = np.random.default_rng(37)
+    g0 = (topo.indptr.copy(), topo.indices.copy())
+    train_idx = rng.permutation(n)[:STREAM_STEPS * 4 * MULTI_BATCH]
+    ins, dels, upd = STREAM_DELTA
+    delta = stream_delta(topo, x, rng, ins, dels, upd)
+    final = final_coo(topo, delta.edge_deletes, delta.edge_inserts)
+    x_final = x.copy()
+    x_final[delta.update_ids] = delta.update_rows
+    out, launches = {}, {}
+    with deterministic_algorithms():
+        inc, store = stream_trainer(topo, x)
+        seed_mat = inc.pack_epoch(train_idx, seed=0)
+        check(seed_mat.shape[0] == STREAM_STEPS, f"epoch of {seed_mat.shape[0]} steps")
+        step9k(f"(b) epoch 0 ({STREAM_STEPS} steps): finite losses, exact select and "
+               "gather_rows launches")
+        l0, s0, launches["epoch_0"] = stream_epoch(inc, seed_mat, labels, 7, "stream epoch 0")
+        check(bool(np.isfinite(l0).all()), "epoch 0 losses finite")
+        state = ({k: v.clone() for k, v in inc.model.state_dict().items()},
+                 copy.deepcopy(inc.optimizer.state_dict()))
+        sg = StreamingGraph(topo, feature=store)
+        check(sg.ingest(delta), "the differential's delta is admitted")
+        res = sg.commit()
+        step9k("(b) after the commit step() raises until refresh()")
+        try:
+            inc.step(train_idx[:inc.global_batch], labels, 3)
+            check(False, "the stale trainer raised")
+        except VersionMismatchError:
+            pass
+        t0 = time.perf_counter()
+        inc.refresh()
+        sync()
+        out["refresh_ms"] = 1e3 * (time.perf_counter() - t0)
+        step9k("(b) epoch 1 on the mutated state: exact launches")
+        l1, s1, launches["epoch_1"] = stream_epoch(inc, seed_mat, labels, 21, "stream epoch 1")
+        reb_topo = CSRTopo(edge_index=final)
+        step9k("(b) the merged CSR bitwise the rebuild's (dtypes included)")
+        check(all(getattr(topo, a).dtype == getattr(reb_topo, a).dtype
+                  and np.array_equal(getattr(topo, a), getattr(reb_topo, a))
+                  for a in ("indptr", "indices"))
+              and topo.max_degree == reb_topo.max_degree and topo.eid is None,
+              "merged CSR == rebuild")
+        reb, _ = stream_trainer(reb_topo, x_final, state)
+        lr, sr, launches["rebuild_epoch_1"] = stream_epoch(reb, seed_mat, labels, 21,
+                                                            "rebuild epoch 1")
+        step9k("(b) epoch 1: the samples, losses and parameters bitwise the rebuilt trainer's")
+        seeds = train_idx[:inc.global_batch]
+        check(same_sample(inc.sampler.sample(seeds, key=33), reb.sampler.sample(seeds, key=33)),
+              "epoch-1 samples bitwise")
+        check(same_bits(l1, lr) and same_params(inc.model.state_dict(), reb.model.state_dict()),
+              "incremental epoch 1 bitwise the rebuild's")
+        del inc, reb, store
+        # the crash twin: a verify failure between the epochs changes nothing
+        crash, cstore = stream_trainer(CSRTopo(indptr=g0[0], indices=g0[1]), x)
+        lc0, _, _ = stream_epoch(crash, seed_mat, labels, 7, "crash twin epoch 0")
+        csg = StreamingGraph(crash.sampler.csr_topo, feature=cstore)
+        check(csg.ingest(delta), "the crash twin's delta is admitted")
+        try:
+            csg.commit(inject_failure="verify")
+            check(False, "the injected verify failure raised")
+        except CommitAborted:
+            pass
+        lc1, _, _ = stream_epoch(crash, seed_mat, labels, 21, "crash twin epoch 1")
+        none, _ = stream_trainer(CSRTopo(indptr=g0[0], indices=g0[1]), x, state)
+        ln1, _, _ = stream_epoch(none, seed_mat, labels, 21, "uncrashed epoch 1")
+        step9k("(b) the crash twin: versions 0, no refresh, both epochs bitwise the "
+               "uncrashed run")
+        check(crash.sampler.csr_topo.version == 0 and cstore.version == 0
+              and same_bits(lc0, l0) and same_bits(lc1, ln1)
+              and same_params(crash.model.state_dict(), none.model.state_dict()),
+              "a crashed commit leaves the run bitwise")
+    out.update({"steps_per_s": {"epoch_0": STREAM_STEPS / s0, "epoch_1": STREAM_STEPS / s1,
+                                "rebuild_epoch_1": STREAM_STEPS / sr},
+                "losses_epoch_1": l1.tolist(), "commit": res.__dict__})
+    log(f"stream differential: epoch 0 {STREAM_STEPS / s0:.2f}, epoch 1 "
+        f"{STREAM_STEPS / s1:.2f}, rebuilt {STREAM_STEPS / sr:.2f} steps/s, refresh "
+        f"{out['refresh_ms']:.2f} ms [{card}]")
+    return launches, out
+
+
+def native_builds(card):
+    """(c) the native CSR build at the products-shaped graph, one
+    commit at that scale, and bench_rgcn's typed graph."""
+    import numpy as np
+
+    from quiver_tpu_torch import CSRTopo, DeltaBatch, HeteroCSRTopo, StreamingGraph, native
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    step9k("(c) the native host library builds (g++ -O3 -fopenmp) and loads")
+    check(native.available, "native.available on the card machine")
+    ei = generate_pareto_graph(PRODUCTS_NODES, PRODUCTS_AVG_DEG, seed=0)
+    seconds, topos = {"native": [], "numpy": []}, {}
+    for _ in range(2):
+        for mode in ("native", "numpy"):
+            topos.pop(mode, None)
+            t0 = time.perf_counter()
+            topos[mode] = CSRTopo(edge_index=ei, use_native=mode == "native")
+            seconds[mode].append(time.perf_counter() - t0)
+    a, b = topos["native"], topos.pop("numpy")
+    step9k(f"(c) CSRTopo at {a.edge_count:,} edges: the native build bitwise the numpy "
+           "build, dtypes included")
+    check(all(getattr(a, k).dtype == getattr(b, k).dtype
+              and np.array_equal(getattr(a, k), getattr(b, k))
+              for k in ("indptr", "indices", "eid")), "native CSR == numpy CSR")
+    del b, ei
+    rng = np.random.default_rng(41)
+    ins = rng.integers(0, a.node_count, size=(2, PRODUCTS_DELTA[0]))
+    dele = live_deletes(a, PRODUCTS_DELTA[1], rng)
+    final = final_coo(a, dele, ins)
+    sg = StreamingGraph(a)
+    t0 = time.perf_counter()
+    admitted = sg.ingest(DeltaBatch(edge_inserts=ins, edge_deletes=dele))
+    ingest_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    res = sg.commit()
+    commit_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    reb = CSRTopo(edge_index=final, use_native=True)
+    rebuild_s = time.perf_counter() - t0
+    step9k(f"(c) a commit of {PRODUCTS_DELTA[0]} inserts and {PRODUCTS_DELTA[1]} deletes: "
+           "the merged CSR bitwise the native rebuild of the final COO")
+    check(admitted and res.version == 1
+          and all(getattr(a, k).dtype == getattr(reb, k).dtype
+                  and np.array_equal(getattr(a, k), getattr(reb, k))
+                  for k in ("indptr", "indices")), "products commit == rebuild")
+    del a, reb, final
+    num_nodes, edges = mag_edges(np.random.default_rng(0))
+    hetero = {}
+    for mode in ("native", "numpy"):
+        t0 = time.perf_counter()
+        hetero[mode] = HeteroCSRTopo(num_nodes, edges, use_native=mode == "native")
+        seconds[f"hetero_{mode}"] = time.perf_counter() - t0
+    step9k("(c) bench_rgcn's HeteroCSRTopo: every relation native bitwise numpy")
+    check(all(getattr(hetero["native"].relations[et], k).dtype
+              == getattr(hetero["numpy"].relations[et], k).dtype
+              and np.array_equal(getattr(hetero["native"].relations[et], k),
+                                 getattr(hetero["numpy"].relations[et], k))
+              for et in edges for k in ("indptr", "indices", "eid")), "hetero native == numpy")
+    out = {"threads": native.num_threads(), "build_s": seconds,
+           "edges": res.edge_count, "ingest_ms": ingest_ms, "commit_ms": commit_ms,
+           "rebuild_s": rebuild_s}
+    log(f"native builds ({out['threads']} threads): CSR native {seconds['native']} s, numpy "
+        f"{seconds['numpy']} s; commit at {res.edge_count:,} edges: ingest {ingest_ms:.2f} ms, "
+        f"commit {commit_ms:.1f} ms, native rebuild {rebuild_s:.2f} s [{card}]")
+    return out
+
+
+def stream_phase(card):
+    """Phase 9k (see the module docstring). Returns ``(launches, result)``."""
+    t0 = time.time()
+    launches_a, drill = mutate_drill(card)
+    launches_b, diff = stream_differential(card)
+    builds = native_builds(card)
+    result = {"drill": drill, "differential": diff, "native": builds,
+              "config": "examples/train_multichip.py's width (100,000 nodes, degree 25, "
+                        "F = 128 f32, GraphSAGE 256 x 3, [15, 10, 5] x 256, Adam 1e-3) on a "
+                        "logical (1, 4) mesh, 8M L1 and 4M L0 per device; a delta of 4,096 "
+                        "inserts, 1,024 deletes and 512 row updates; 8-step epochs under "
+                        "deterministic kernels; the products-shaped graph "
+                        "(generate_pareto_graph(2450000, 50.5, seed=0)) built natively and "
+                        "with numpy, one commit of 1,024 inserts and 256 deletes on it",
+              "seconds": time.time() - t0}
+    return {**launches_a, **launches_b}, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6635,6 +7079,14 @@ def main() -> int:
     build_s = time.time() - t0
     check(sorted(libs) == sorted(KERNELS), f"built {sorted(libs)}")
     log(f"kernels built in {build_s:.1f}s: {sorted(libs)}")
+    # the native host library (CSR builds; phase 9k requires it)
+    from quiver_tpu_torch import native
+
+    t0 = time.time()
+    host_ok = native.available
+    host_build_s = time.time() - t0
+    log(f"native host library: available {host_ok}, {host_build_s:.1f}s, "
+        f"{native.num_threads()} threads")
 
     # graph, weights and features of the serving configuration
     from quiver_tpu_torch import CSRTopo, Feature
@@ -6862,6 +7314,12 @@ def main() -> int:
     launches_j, rows_j, ooc = ooc_phase(card)
     torch.cuda.empty_cache()
     lap("phase 9j (out-of-core epoch)")
+    # phase 9k: streaming mutation under the topology-sharded trainer (the
+    # mutate drill, the epoch differential and its crash twin), then the
+    # native CSR build at the products-shaped graph
+    launches_k, stream = stream_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9k (streaming mutation, native CSR build)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -6894,6 +7352,7 @@ def main() -> int:
                     "topo_sharded_trainer_launches": launches_g["trainer"]["select"],
                     "int8_controller_trainer_launches": launches_c["trainer"]["all"]["select"],
                     "elastic_trainer_launches": {m: v["select"] for m, v in launches_e.items()},
+                    "stream_launches": {k: v["select"] for k, v in launches_k.items()},
                     "dist_hetero_launches": launches_g["hetero"]["uniform"]["select"],
                     "owner_side": {
                         **{k: {"device_ms_per_sample": dist["samplers"][k][
@@ -6948,6 +7407,7 @@ def main() -> int:
                     "topo_sharded_trainer_launches": launches_g["trainer"]["gather_rows"],
                     "elastic_trainer_launches": {m: v["gather_rows"]
                                                  for m, v in launches_e.items()},
+                    "stream_launches": {k: v["gather_rows"] for k, v in launches_k.items()},
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
@@ -7046,6 +7506,9 @@ def main() -> int:
           and launches_c["trainer"]["all"]["select"] > 0
           and launches_j["tiered_gather"] > 0 and launches_j["uniform_hop"] > 0
           and all(v["select"] > 0 and v["gather_rows"] > 0 for v in launches_e.values())
+          and all(launches_k[k]["select"] > 0 and launches_k[k]["gather_rows"] > 0
+                  for k in ("epoch_0", "epoch_1"))
+          and launches_k["sample"]["select"] > 0 and launches_k["gather_psum"]["gather_rows"] > 0
           and all(v[k] > 0 for k, v in (("select", launches_g["sample"]["uniform"]),
                                         ("wselect", launches_g["sample"]["weighted"]),
                                         ("select", launches_g["trainer"]),
@@ -7065,8 +7528,9 @@ def main() -> int:
                        "acceptance": accept, "epoch": epoch, "hetero_saint": hetero,
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
-                       "elastic": elastic, "ooc": ooc,
-                       "build_s": build_s, "graph_s": graph_s, "phase_s": phase_s,
+                       "elastic": elastic, "ooc": ooc, "stream": stream,
+                       "build_s": build_s, "host_build_s": host_build_s,
+                       "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
                                  "max_degree": topo.max_degree}}, fh, indent=1)
@@ -7102,6 +7566,7 @@ def main() -> int:
         for mode, r in control["trainer"]["modes"].items()}}), flush=True)
     print(json.dumps({"elastic": elastic}), flush=True)
     print(json.dumps({"ooc": ooc}), flush=True)
+    print(json.dumps({"stream": stream}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

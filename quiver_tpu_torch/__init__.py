@@ -72,6 +72,7 @@ from .serving import (
     ServingFleet,
     program_fingerprint,
 )
+from .streaming import CommitAborted, DeltaBatch, DeltaRejected, StreamingGraph
 from .utils.debug import show_tensor_info, tensor_info
 from .utils.reorder import reorder_by_degree
 from .utils.trace import Timer, enable_trace, get_logger, trace_scope
@@ -90,12 +91,15 @@ __all__ = [
     "CachePolicy",
     "Checkpointer",
     "CircuitBreaker",
+    "CommitAborted",
     "CorruptCheckpoint",
     "CorruptRawDir",
     "CostModel",
     "DataParallelTrainer",
     "DeadlineBatcher",
     "DegradedFeature",
+    "DeltaBatch",
+    "DeltaRejected",
     "DeviceTopology",
     "DistGraphSageSampler",
     "DistHeteroSampler",
@@ -140,6 +144,7 @@ __all__ = [
     "ShardedTopology",
     "SplitTuner",
     "StepTimeline",
+    "StreamingGraph",
     "TelemetryEndpoint",
     "Timer",
     "Tracer",

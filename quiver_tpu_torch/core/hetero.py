@@ -50,10 +50,9 @@ class RelCSR:
     def from_edge_index(cls, edge_index, num_dst: int, num_src: int,
                         use_native: bool = True) -> "RelCSR":
         """Build from a ``(2, E)`` ``[src_ids, dst_ids]`` COO (PyG's
-        convention). ``use_native`` is accepted for the JAX package's
-        signature and does nothing: the port makes every CSR with numpy's
-        stable argsort, which gives the native ``csr_from_coo``'s arrays
-        (its port is ROADMAP A.13)."""
+        convention). ``use_native`` takes the native host build when the
+        src id space fits int32 (it stores columns as int32), as
+        ``CSRTopo`` does; the arrays are the numpy build's either way."""
         edge_index = _as_numpy(edge_index)
         if edge_index.ndim != 2 or edge_index.shape[0] != 2:
             raise ValueError(f"edge_index must be (2, E), got {edge_index.shape}")
@@ -66,7 +65,8 @@ class RelCSR:
                     f"dst id {int(dst.max())} out of range for {num_dst} dst nodes"
                 )
         # incoming CSR: row = dst, col = src
-        indptr, indices, eid = _build_csr(dst, src, num_dst)
+        use_native = use_native and num_src <= np.iinfo(np.int32).max
+        indptr, indices, eid = _build_csr(dst, src, num_dst, use_native)
         return cls(indptr, indices, num_src, eid)
 
     @property
@@ -149,7 +149,8 @@ class HeteroCSRTopo:
       num_nodes: ``{node_type: count}``.
       edge_index_dict: ``{(src_type, rel_name, dst_type): (2, E) [src,
         dst]}``.
-      use_native: accepted and inert (see :meth:`RelCSR.from_edge_index`).
+      use_native: build each relation's CSR natively when possible (see
+        :meth:`RelCSR.from_edge_index`).
       edge_weight_dict: optional ``{edge_type: weights}`` in COO order.
 
     Types are normalised to strings. The per-relation CSRs are incoming

@@ -8,9 +8,10 @@ hop searches) and per-edge timestamps (rows re-sorted by time for the
 temporal hop). ``save``/``load`` persist it as one ``.npz`` with an
 embedded CRC32 record or as a raw ``.npy`` directory
 (:mod:`~quiver_tpu_torch.ooc.format`) that loads memory-mapped; files
-cross-load with the JAX package's, bitwise. The COO -> CSR build is a numpy stable argsort plus
-bincount, so CSR slots within a row follow COO order and ``eid`` maps them
-back.
+cross-load with the JAX package's, bitwise. The COO -> CSR build is the
+native host library's counting sort (``quiver_tpu_torch/native``) or a
+numpy stable argsort plus bincount; both keep CSR slots within a row in
+COO order, so ``eid`` maps them back.
 
 ``DeviceTopology`` is the sampling view: torch tensors in device memory
 (``GPU`` mode) or with ``indices``/``eid``/``cum_weights`` in pinned host
@@ -47,8 +48,19 @@ def _index_dtype(max_value: int) -> np.dtype:
     return np.dtype(np.int32) if max_value <= np.iinfo(np.int32).max else np.dtype(np.int64)
 
 
-def _build_csr(row, col, node_count: int):
-    """COO -> CSR by stable argsort: slots within a row keep COO order."""
+def _build_csr(row, col, node_count: int, use_native: bool = False):
+    """COO -> CSR; slots within a row keep COO order, so ``eid`` maps them
+    back. ``use_native`` takes the native linear-time parallel build
+    (``native.csr_from_coo``) when ``node_count`` fits int32 and the
+    library is available, else a numpy stable argsort: the two give the
+    same arrays (the native build's indices are int32, numpy's keep
+    ``col``'s dtype; ``CSRTopo`` narrows both alike)."""
+    if use_native and node_count <= np.iinfo(np.int32).max:
+        from .. import native
+
+        if native.available:
+            # a failure inside the native build propagates; no fallback
+            return native.csr_from_coo(row, col, node_count)
     order = np.argsort(row, kind="stable")
     counts = np.bincount(row, minlength=node_count)
     indptr = np.zeros(node_count + 1, dtype=np.int64)
@@ -97,13 +109,13 @@ class CSRTopo:
     node ids. ``edge_weight``/``edge_time`` attach per-edge weights and
     timestamps (in COO order when built from ``edge_index``, else in CSR
     slot order); see :meth:`set_edge_weight` and :meth:`set_edge_time`.
-    ``use_native`` is accepted for the JAX package's signature and does
-    nothing (the numpy build gives the native CSR build's arrays).
+    ``use_native`` builds the CSR from ``edge_index`` with the native host
+    library when it is available (:func:`_build_csr`); the arrays and
+    their dtypes are the numpy build's either way.
     """
 
     def __init__(self, edge_index=None, indptr=None, indices=None, eid=None,
                  edge_weight=None, edge_time=None, use_native: bool = True):
-        del use_native  # inert (class docstring; a native build is ROADMAP A.13)
         if edge_index is not None:
             if indptr is not None or indices is not None:
                 raise ValueError("pass either edge_index or indptr/indices, not both")
@@ -114,7 +126,7 @@ class CSRTopo:
             if edge_index.size and min(row.min(), col.min()) < 0:
                 raise ValueError("edge_index must not contain negative node ids")
             node_count = int(max(row.max(initial=-1), col.max(initial=-1)) + 1)
-            indptr, indices, eid = _build_csr(row, col, node_count)
+            indptr, indices, eid = _build_csr(row, col, node_count, use_native)
         elif indptr is not None and indices is not None:
             indptr = _as_numpy(indptr).astype(np.int64, copy=False)
             indices = _as_numpy(indices)

@@ -1373,3 +1373,139 @@ def test_elastic_step_on_card_mesh_independent(cuda):
     for losses, state in runs[1:]:
         assert torch.equal(losses, runs[0][0])
         assert all(torch.equal(state[k], runs[0][1][k]) for k in state)
+
+
+def _streaming_delta(ei, n, f, seed=21):
+    """A delta of 400 inserts, 100 deletes of live edges and 50 row
+    updates over a COO ``ei``; the final COO a rebuild starts from; the
+    updated rows."""
+    from collections import Counter
+
+    from quiver_tpu_torch import DeltaBatch
+
+    rng = np.random.default_rng(seed)
+    ins = rng.integers(0, n, size=(2, 400))
+    dele = ei[:, rng.choice(ei.shape[1], 100, replace=False)]
+    ids = rng.choice(n, 50, replace=False)
+    rows = rng.normal(size=(50, f)).astype(np.float32)
+    want = Counter((dele[0] * n + dele[1]).tolist())
+    enc = ei[0] * n + ei[1]
+    remove = np.zeros(ei.shape[1], bool)
+    for pos in np.argsort(ei[0], kind="stable").tolist():
+        if want.get(int(enc[pos]), 0) > 0:
+            want[int(enc[pos])] -= 1
+            remove[pos] = True
+    final = np.concatenate([ei[:, ~remove], ins], axis=1)
+    delta = DeltaBatch(edge_inserts=ins, edge_deletes=dele, update_ids=ids, update_rows=rows)
+    return delta, final, ids, rows
+
+
+def test_streaming_commit_on_card_equals_rebuild(cuda):
+    """A commit on the card's resident state: the topology-sharded
+    sampler raises until ``refresh_topology()``, then samples bitwise what
+    a sampler over the rebuilt graph samples (K1 ``select`` once per owner
+    per hop), and every tier of the sharded store serves the new rows."""
+    from quiver_tpu_torch import (CSRTopo, GraphSageSampler, ShardedFeature, StreamingGraph,
+                                  VersionMismatchError, make_mesh)
+    from quiver_tpu_torch.ops.kernels.fused import select
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    n, f = 20_000, 32
+    ei = generate_pareto_graph(n, 10.0, seed=11)
+    topo = CSRTopo(edge_index=ei)
+    x = np.random.default_rng(2).normal(size=(n, f)).astype(np.float32)
+    mesh = make_mesh(data=1, feature=4, devices=[cuda] * 4)
+    store = ShardedFeature(mesh, device_cache_size=2_000 * f * 4, csr_topo=topo,
+                           replicate_budget=500 * f * 4).from_cpu_tensor(x)
+    kw = {"seed": 4, "topo_sharding": "mesh", "mesh": mesh}
+    sampler = GraphSageSampler(topo, [12, 8], **kw)
+    seeds = np.random.default_rng(5).integers(0, n, 512)
+    sampler.sample(seeds, key=3)
+    delta, final, ids, rows = _streaming_delta(ei, n, f)
+    sg = StreamingGraph(topo, feature=store, duplicates="allow")
+    assert sg.ingest(delta)
+    sg.commit()
+    assert (topo.version, store.version) == (1, 1)
+    with pytest.raises(VersionMismatchError):
+        sampler.sample(seeds, key=3)
+    sampler.refresh_topology()
+    rebuilt = GraphSageSampler(CSRTopo(edge_index=final), [12, 8], **kw)
+    before = select.launches
+    out = sampler.sample(seeds, key=3)
+    assert select.launches - before == 4 * 2
+    ref = rebuilt.sample(seeds, key=3)
+    assert torch.equal(out.n_id, ref.n_id)
+    for a, b in zip(out.adjs, ref.adjs):
+        assert torch.equal(a.edge_index, b.edge_index)
+    want = torch.from_numpy(x)
+    want[torch.from_numpy(ids)] = torch.from_numpy(rows)
+    all_ids = torch.arange(n, device=cuda)
+    assert torch.equal(store.gather(all_ids).cpu(), want)
+    assert torch.equal(store.gather(all_ids, routed=True).cpu(), want)
+
+
+def test_streaming_epoch_differential_on_card(cuda):
+    """Under deterministic kernels: two steps after a commit and refresh
+    on the card bitwise two steps of a trainer built on the rebuilt graph
+    and rows from the same state; a commit crashed at ``verify`` leaves
+    the next steps bitwise an uncrashed run's."""
+    import copy
+
+    from quiver_tpu_torch import (CSRTopo, CommitAborted, DistributedTrainer, GraphSageSampler,
+                                  GraphSAGE, ShardedFeature, StreamingGraph, make_mesh)
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    n, f = 20_000, 32
+    ei = generate_pareto_graph(n, 10.0, seed=11)
+    x = np.random.default_rng(2).normal(size=(n, f)).astype(np.float32)
+    labels = torch.from_numpy(np.random.default_rng(3).integers(0, 10, n)).to(cuda)
+    seeds = np.random.default_rng(5).integers(0, n, 4 * 128)
+    delta, final, ids, rows = _streaming_delta(ei, n, f)
+    x_final = x.copy()
+    x_final[ids] = rows
+
+    def trainer(coo, feats, state=None):
+        topo = CSRTopo(edge_index=coo)
+        mesh = make_mesh(data=1, feature=4, devices=[cuda] * 4)
+        store = ShardedFeature(mesh, device_cache_size=2_000 * f * 4,
+                               replicate_budget=500 * f * 4).from_cpu_tensor(feats)
+        model = GraphSAGE(f, 64, 10, num_layers=2).to(cuda)
+        tr = DistributedTrainer(
+            mesh, GraphSageSampler(topo, [12, 8], seed=4, topo_sharding="mesh", mesh=mesh),
+            store, model, torch.optim.Adam(model.parameters(), lr=1e-3), local_batch=128,
+            seed_sharding="all")
+        tr.init(0)
+        if state is not None:
+            model.load_state_dict(state[0])
+            tr.optimizer.load_state_dict(state[1])
+        return tr, topo, store
+
+    def steps(tr, first):
+        return torch.stack([tr.step(seeds, labels, first + t) for t in range(2)])
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for kind in ("commit", "crash", "none"):
+            tr, topo, store = trainer(ei, x)
+            steps(tr, 1)
+            state = ({k: v.clone() for k, v in tr.model.state_dict().items()},
+                     copy.deepcopy(tr.optimizer.state_dict()))
+            sg = StreamingGraph(topo, feature=store, duplicates="allow")
+            if kind != "none":
+                assert sg.ingest(delta)
+            if kind == "commit":
+                sg.commit()
+                tr.refresh()
+            if kind == "crash":
+                with pytest.raises(CommitAborted):
+                    sg.commit(inject_failure="verify")
+            runs[kind] = (steps(tr, 7), tr.model.state_dict())
+            if kind == "commit":
+                reb = trainer(final, x_final, state)[0]
+                runs["rebuild"] = (steps(reb, 7), reb.model.state_dict())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in (("commit", "rebuild"), ("crash", "none")):
+        assert torch.equal(runs[a][0], runs[b][0]), (a, b)
+        assert all(torch.equal(runs[a][1][k], runs[b][1][k]) for k in runs[a][1])

@@ -5,7 +5,8 @@ the same call on both packages.
   every name resolves, and the JAX names the port lacks are exactly the
   ones left out by design (``honor_forced_platform``, a JAX platform
   switch).
-- ``CSRTopo(use_native=...)`` is accepted and inert.
+- ``CSRTopo(use_native=...)`` builds the same arrays natively or with
+  numpy.
 - ``Timer(sync=...)`` takes a tensor or a nested list, tuple or dict of
   them, as JAX's takes an array or pytree.
 - ``generate_uniform_graph``, ``reindex_by_config``, the permutation
@@ -82,7 +83,10 @@ def test_subpackage_names_are_the_top_level_ones():
 
 
 @pytest.mark.parametrize("use_native", [True, False])
-def test_csrtopo_use_native_is_inert(use_native):
+def test_csrtopo_use_native_builds_the_same_arrays(use_native):
+    """``use_native=True`` takes the native host build (when the library builds
+    here), ``False`` the numpy one: the same arrays and dtypes either way,
+    and JAX's."""
     rng = np.random.default_rng(3)
     ei = rng.integers(0, 300, size=(2, 4000))
     default = CSRTopo(edge_index=ei)

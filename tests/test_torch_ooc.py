@@ -53,9 +53,8 @@ def _graph(n=200, deg=6, seed=0):
 
 # -- export tables ----------------------------------------------------------------
 
-# the top-level names still missing are the streaming layer's (ROADMAP A.12c)
-NOT_PORTED = {"top": {"CommitAborted", "DeltaBatch", "DeltaRejected", "StreamingGraph"},
-              "ooc": set(), "resilience": set()}
+# every top-level name is ported (the streaming layer's since A.12c)
+NOT_PORTED = {"top": set(), "ooc": set(), "resilience": set()}
 
 
 @pytest.mark.parametrize("pkg,jax_pkg,torch_pkg", [
