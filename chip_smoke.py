@@ -8,7 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the hand-written kernels (K1 ``select.cu``, K2
    ``gather.cu``, K3 ``wselect.cu``) from the sources in this checkout, one
-   ``nvcc`` each, in parallel.
+   ``nvcc`` each, in parallel. 2b. lint: ``quiver_tpu_torch.tools.lint``
+   over ``quiver_tpu_torch/``, this script and ``examples/*_torch.py`` on
+   this Python; any finding fails the run.
 3. kernel checks: hold every kernel entry bitwise against its plain
    PyTorch version on the card (K1's select and fused uniform hop, K2's
    single-table and tiered gathers and the int8 dequantising tiered
@@ -149,6 +151,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    + 0.15) and ``examples/train_rgcn_hetero_torch.py`` at its defaults
    (finite losses). Cut in nothing but iterations: none of the three runs
    more than its benchmark's default count.
+9l. (run right after 9c (a), over its graph, store, planned samplers
+   and model) ``bench_rgcn.py --stream 16``'s twin: 16 R-GCN steps as one
+   stream of launches through ``hetero_stream_steps``
+   (``HeteroGraphSampler.sample_padded`` with a device ``num_seeds``, the
+   lookup, the labels, ``make_train_step``'s step), step ``t`` keyed
+   ``fold_key(key0, 0, t)``, a ``(16, 512)`` seed matrix uploaded before
+   each rep, one host read after the last step; a warm rep, 3 timed reps
+   and one more under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   synchronising call may happen: (a)), then one rep over the weighted
+   relations. Exactly 80 ``uniform_hop`` (80 ``weighted_hop`` in the
+   weighted rep) and 48 ``tiered_gather`` launches per rep (b); under
+   deterministic kernels the 16 losses and the final parameters of the
+   stream bitwise a loop of the same calls with a synchronise after every
+   step (c); finite losses (d); the summed overflow printed, the caps
+   planned, never regrown (e). The hops at the stream's shapes with a
+   device ``num_seeds`` against the CPU, bitwise. Prints the stream's and
+   9c's per-call step ms, the epoch seconds (``dispatch="stream"``),
+   device busy ms, the idle share and device launches a step.
 9d. beyond-HBM training: ``examples/train_host_offload_torch.py`` at the
    JAX example's defaults (``generate_pareto_graph(1000000, 15.0,
    seed=0)``, its edge count printed; a ``mode="HOST"`` sampler, K1
@@ -395,6 +415,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -3266,10 +3287,11 @@ def rgcn_parity(model_args, out, x, labels, mask):
             "rows": {t: int(v.shape[0]) for t, v in x.items()}}
 
 
-def hetero_parity(topo, sampler, seeds, what: str):
+def hetero_parity(topo, sampler, seeds, what: str, num=None):
     """One call of the hetero loop at the main path's planned caps: on the
     card over ``sampler.dev_topos`` (one fused K1 or K3 launch per relation
-    per hop) against its plain run over the same relations placed on the
+    per hop; ``num`` valid seeds, a device scalar, or ``len(seeds)``
+    unnamed) against its plain run over the same relations placed on the
     CPU, on the same raw draws (made on the card, then copied). Frontiers,
     counts, every ``Adj`` (and ``e_id``), overflow and the per-hop unique
     counts must agree bitwise. Returns ``(check row, the card's
@@ -3296,7 +3318,8 @@ def hetero_parity(topo, sampler, seeds, what: str):
     ids = torch.from_numpy(seeds.astype("int32"))
     kw = {"weighted_rels": sampler.weighted_rels, "with_eid": sampler.with_eid}
     before = (uniform_hop.launches, weighted_hop.launches)
-    got = hetero_multilayer_sample(sampler.dev_topos, ids.to("cuda"), len(seeds), "paper",
+    got = hetero_multilayer_sample(sampler.dev_topos, ids.to("cuda"),
+                                   len(seeds) if num is None else num, "paper",
                                    plans, bits=bits_on("cuda"), **kw)
     sync()
     fired = {"uniform_hop": uniform_hop.launches - before[0],
@@ -3361,7 +3384,7 @@ def rgcn_phase(card):
     """``bench_rgcn.py`` at its defaults on the card (see the module
     docstring, phase 9c (a)). Returns ``(launches of the timed
     iterations, launches of the weighted calls, check rows by entry,
-    result)``."""
+    result, the phase's objects for phase 9l)``."""
     import math
 
     import numpy as np
@@ -3539,7 +3562,216 @@ def rgcn_phase(card):
     log(f"R-GCN weighted sample: {result['weighted']['sample_ms_median']:.3f} ms median; "
         f"layer-wise HBM {layerwise['HBM']['paper_nodes_per_s']:.4g} / HOST "
         f"{layerwise['HOST']['paper_nodes_per_s']:.4g} paper nodes/s [{card}]")
-    return launches, wlaunches, parity_rows, result
+    ctx = {"topo": topo, "feature": feature, "labels_all": labels_all, "sampler": sampler,
+           "wsampler": wsampler, "model_args": model_args, "step": step,
+           "iter_ms": iter_s * 1e3, "stage_ms": stage, "iteration": iteration}
+    return launches, wlaunches, parity_rows, result, ctx
+
+
+# -- phase 9l: R-GCN steps streamed with no host read ---------------------------
+
+# benchmarks/bench_rgcn.py --stream 16 (benchmarks/scoreboard.py:109):
+# one warm rep, 3 timed reps (:281-283), then one rep over weighted relations
+RGCN_STREAM_STEPS, RGCN_STREAM_REPS = 16, 3
+
+
+def step9l(what: str) -> None:
+    """Name a phase 9l check on stderr before it runs."""
+    log(f"phase 9l check: {what}")
+
+
+def stream_steps(ctx, sampler, step, seed_mat, num, key0: int, synced: bool):
+    """The stream's steps: ``hetero_stream_steps``, or with ``synced`` a
+    loop of the same calls with a synchronise after every step. Returns
+    ``(losses, overflow)`` on the device."""
+    import torch
+
+    from quiver_tpu_torch.ops.sample import fold_key, seeded_generator
+    from quiver_tpu_torch.parallel.train import hetero_stream_steps
+
+    feature, labels_all = ctx["feature"], ctx["labels_all"]
+    if not synced:
+        return hetero_stream_steps(sampler, feature, labels_all, step, seed_mat, num, key0)
+    losses, overflow = [], torch.zeros((), dtype=torch.int32, device="cuda")
+    for t in range(seed_mat.shape[0]):
+        k = fold_key(key0, 0, t)
+        frontier, _c, layers, ovf, _u = sampler.sample_padded(
+            seed_mat[t], num, generator=seeded_generator("cuda", k, 0))
+        seed_ids = frontier["paper"][:RGCN_BATCH]
+        losses.append(step(feature[frontier], layers, labels_all[seed_ids.clamp(min=0)],
+                           seed_ids >= 0, seeded_generator("cuda", k, 1)))
+        overflow = overflow + ovf
+        sync()
+    return torch.stack(losses), overflow
+
+
+def stream_rep(ctx, sampler, step, seed_mat, num, key0: int, debug: bool,
+               synced: bool = False):
+    """One rep of :func:`stream_steps` over ``seed_mat`` (under
+    ``torch.cuda.set_sync_debug_mode("error")`` when ``debug``), then the
+    one host read of the losses and the summed overflow. Returns ``(ms a
+    step, losses, overflow, launches)``, the time from the first launch to
+    the read."""
+    import torch
+
+    reset_launches()
+    a = time.perf_counter()
+    if debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, overflow = stream_steps(ctx, sampler, step, seed_mat, num, key0, synced)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    *vals, ovf = torch.cat([losses, overflow.to(losses.dtype)[None]]).tolist()
+    ms = (time.perf_counter() - a) / seed_mat.shape[0] * 1e3
+    return ms, vals, int(ovf), read_launches()
+
+
+def stream_composition(ctx, seed_mat, num, key0: int) -> dict:
+    """Check (c): under deterministic kernels, the stream from fresh
+    ``init_model(seed 3)`` parameters against a loop of the same calls
+    with a synchronise after every step, from the same parameters: the
+    losses, the overflow and the final parameters bitwise."""
+    import torch
+
+    from quiver_tpu_torch import RGCN
+    from quiver_tpu_torch.parallel.train import init_model, make_train_step
+
+    runs = []
+    with deterministic_algorithms():
+        for synced in (False, True):
+            model = RGCN(*ctx["model_args"])
+            init_model(model, torch.Generator().manual_seed(3))
+            model.to("cuda")
+            step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=5e-3))
+            losses, overflow = stream_steps(ctx, ctx["sampler"], step, seed_mat, num, key0,
+                                            synced)
+            sync()
+            runs.append((losses, overflow, [p.detach().clone() for p in model.parameters()]))
+    (la, oa, pa), (lb, ob, pb) = runs
+    ok = (equal(la, lb) and equal(oa, ob) and len(pa) == len(pb)
+          and all(equal(a, b) for a, b in zip(pa, pb)))
+    return {"bitwise": ok, "losses_first_last": [float(la[0]), float(la[-1])],
+            "parameters": len(pa)}
+
+
+def rgcn_stream_phase(ctx, card):
+    """Phase 9l: ``bench_rgcn.py --stream 16``'s twin over phase 9c's
+    graph, store, planned samplers and model (see the module docstring).
+    Returns ``(launches by rep, check rows by entry, result)``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    rng = np.random.default_rng(19)
+    num = torch.full((), RGCN_BATCH, dtype=torch.int32, device="cuda")
+
+    def seed_mat():
+        # one pageable upload (a synchronising copy) before each rep's loop
+        return torch.from_numpy(rng.integers(
+            0, MAG_PAPERS, (RGCN_STREAM_STEPS, RGCN_BATCH)).astype(np.int32)).to("cuda")
+
+    uniform = {"uniform_hop": RGCN_HOPS * RGCN_STREAM_STEPS,
+               "tiered_gather": RGCN_TYPES * RGCN_STREAM_STEPS}
+    sampler, step = ctx["sampler"], ctx["step"]
+    step9l("(a, b) the warm rep under sync debug mode, exact launches")
+    _ms, losses, ovf, launches = stream_rep(ctx, sampler, step, seed_mat(), num, 1000, True)
+    expect_launches(launches, uniform, "stream warm rep")
+    # the timed reps as the benchmark times them, then one more under the
+    # sync debug mode (its time printed beside theirs)
+    reps = []
+    for r in range(RGCN_STREAM_REPS + 1):
+        debug = r == RGCN_STREAM_REPS
+        step9l(f"(b, d) timed rep {r}: exact launches, finite losses"
+               + (" (a) under sync debug mode: no sync" if debug else ""))
+        mat = seed_mat()
+        sync()
+        ms, losses, ovf, launches = stream_rep(ctx, sampler, step, mat, num, 1001 + r, debug)
+        expect_launches(launches, uniform, f"stream rep {r}")
+        check(all(math.isfinite(v) for v in losses), f"stream rep {r}: finite losses {losses}")
+        reps.append({"ms_per_step": ms, "final_loss": losses[-1], "overflow": ovf,
+                     "sync_debug_mode": "error" if debug else "off", "launches": launches})
+    step_ms = statistics.median(r["ms_per_step"] for r in reps[:RGCN_STREAM_REPS])
+    # in turns, in this process state: 9c (a)'s per-call iteration (its
+    # host reads and a synchronise after every stage; its own seeds), the
+    # stream's calls with a synchronise after every step, and the stream
+    turns = {"per_call": [], "synced_loop": [], "stream": []}
+    reruns0 = sampler.reruns
+    for r in range(2):
+        for kind in ("per_call", "synced_loop", "stream", "stream", "synced_loop",
+                     "per_call"):
+            if kind == "per_call":  # 9c (a)'s iterations: sample, lookup, step
+                turns[kind].append(statistics.fmean(
+                    sum(ctx["iteration"](300 + t)[3]) for t in range(RGCN_STREAM_STEPS)) * 1e3)
+                continue
+            mat = seed_mat()
+            sync()
+            turns[kind].append(stream_rep(ctx, sampler, step, mat, num, 1010 + r, False,
+                                          synced=kind == "synced_loop")[0])
+    turns["per_call_reruns"] = sampler.reruns - reruns0
+    # PROFILED_STEPS steps under the profiler, as 9c (a) profiles: a
+    # session over a whole 16-step rep (about 10,000 device records) left
+    # the profiler dropping device rows in every later session
+    mat = seed_mat()[:PROFILED_STEPS]
+    sync()
+    prof = profiled_idle(
+        lambda: stream_rep(ctx, sampler, step, mat, num, 1100, False), PROFILED_STEPS,
+        step_ms, ("uniform_hop_kernel", "gather_kernel"))
+
+    # --weighted's relations (phase 9c's exp(N(0, 1)) weights): K3 on every hop
+    step9l("(a, b, d) the weighted rep: no sync, exact weighted_hop launches")
+    mat = seed_mat()
+    sync()
+    wms, wlosses, wovf, wlaunches = stream_rep(ctx, ctx["wsampler"], step, mat, num, 1200,
+                                               True)
+    expect_launches(wlaunches, {"weighted_hop": RGCN_HOPS * RGCN_STREAM_STEPS,
+                                "tiered_gather": RGCN_TYPES * RGCN_STREAM_STEPS},
+                    "weighted stream rep")
+    check(all(math.isfinite(v) for v in wlosses), f"weighted stream: finite losses {wlosses}")
+
+    step9l("(c) the stream bitwise the synchronised composition (deterministic kernels)")
+    composition = stream_composition(ctx, seed_mat(), num, 1300)
+    check(composition["bitwise"], "stream == the loop with a synchronise after every step")
+
+    # the kernels at the stream's shapes, a device num_seeds included,
+    # against their plain versions on the CPU
+    step9l("the hops at the stream's shapes on the card == plain on the CPU")
+    prng = np.random.default_rng(21)
+    u_row, _ = hetero_parity(ctx["topo"], sampler, prng.integers(0, MAG_PAPERS, RGCN_BATCH),
+                             "stream uniform", num=num)
+    w_row, _ = hetero_parity(ctx["topo"], ctx["wsampler"],
+                             prng.integers(0, MAG_PAPERS, RGCN_BATCH), "stream weighted",
+                             num=num)
+    per_epoch = -(-(MAG_PAPERS // 10) // RGCN_BATCH)
+    result = {
+        "config": f"benchmarks/bench_rgcn.py --stream {RGCN_STREAM_STEPS} on phase 9c's "
+                  "graph, store, planned caps and model: (16, 512) int32 seeds uploaded "
+                  "before each rep, step t keyed fold_key(key0, 0, t), 1 warm-up + "
+                  f"{RGCN_STREAM_REPS} timed reps, 1 under sync debug mode, then 1 weighted rep",
+        "dispatch": "stream", "stream_batches": RGCN_STREAM_STEPS,
+        "step_ms_median": step_ms, "per_call_iter_ms": ctx["iter_ms"],
+        "per_call_stage_ms": ctx["stage_ms"], "iterations_per_epoch": per_epoch,
+        "epoch_s": step_ms / 1e3 * per_epoch, "reps": reps,
+        "overflow": [r["overflow"] for r in reps], "profile": prof,
+        "weighted": {"ms_per_step": wms, "final_loss": wlosses[-1], "overflow": wovf,
+                     "launches": wlaunches},
+        "step_ms_sync_debug": reps[-1]["ms_per_step"],
+        "in_turns_ms": turns,
+        "composition": composition, "card": card,
+        "seconds": time.time() - t0}
+    log(f"R-GCN stream: {step_ms:.3f} ms a step ({reps[-1]['ms_per_step']:.3f} under sync "
+        f"debug mode; 9c per call {ctx['iter_ms']:.3f}; in turns, medians: per call "
+        f"{statistics.median(turns['per_call']):.3f}, synced loop "
+        f"{statistics.median(turns['synced_loop']):.3f}, stream "
+        f"{statistics.median(turns['stream']):.3f}), epoch "
+        f"{result['epoch_s']:.3f} s; device busy {prof['device_busy_ms_per_step']:.3f} ms a "
+        f"step, idle share {prof['idle_share']:.4f}, "
+        f"{prof['device_launches_per_step']:.1f} device launches a step; overflow "
+        f"{result['overflow']} (weighted {wovf}); weighted {wms:.3f} ms a step [{card}]")
+    return ({"uniform": reps[-1]["launches"], "weighted": wlaunches},
+            {"uniform_hop": [u_row], "weighted_hop": [w_row]}, result)
 
 
 def walk_parity(topo):
@@ -3759,21 +3991,27 @@ def twins_phase(card):
 
 
 def hetero_saint_phase(card):
-    """Phase 9c: R-GCN (a), GraphSAINT (b), the twins (c). Returns
+    """Phase 9c: R-GCN (a), then phase 9l over (a)'s objects, GraphSAINT
+    (b), the twins (c). Returns
     ``(launches by part, K2's window row, the check rows of the kernels at
     the phase's shapes by entry, result)``."""
     import torch
 
     t0 = time.time()
-    rgcn_launches, rgcn_wlaunches, rgcn_rows, rgcn = rgcn_phase(card)
+    rgcn_launches, rgcn_wlaunches, rgcn_rows, rgcn, ctx = rgcn_phase(card)
+    # phase 9l, over 9c (a)'s objects: the per-call and streamed steps in one run
+    stream_launches, stream_rows, stream = rgcn_stream_phase(ctx, card)
+    del ctx
     torch.cuda.empty_cache()
     saint_launches, k2_row, walk_rows, saint = saint_phase(card)
     torch.cuda.empty_cache()
     twins = twins_phase(card)
-    rows = {name: rgcn_rows.get(name, []) + walk_rows.get(name, []) for name in ENTRIES}
+    rows = {name: rgcn_rows.get(name, []) + stream_rows.get(name, []) + walk_rows.get(name, [])
+            for name in ENTRIES}
     return ({"rgcn": rgcn_launches, "rgcn_weighted": rgcn_wlaunches,
-             "saint": saint_launches}, k2_row, rows,
-            {"rgcn": rgcn, "saint": saint, "twins": twins, "seconds": time.time() - t0})
+             "rgcn_stream": stream_launches, "saint": saint_launches}, k2_row, rows,
+            {"rgcn": rgcn, "rgcn_stream": stream, "saint": saint, "twins": twins,
+             "seconds": time.time() - t0})
 
 
 # -- phase 9d: beyond-HBM training (the host-offload twin) ----------------------
@@ -4366,6 +4604,7 @@ def fused_guard(sampler, feat, labels_all, n, card):
     import numpy as np
 
     from quiver_tpu_torch import FaultPlan, FlightRecorder
+    from quiver_tpu_torch.obs import GUARD_NONFINITE, GUARD_SKIPPED
 
     d = os.path.join(OUT_DIR, "fused_guard_recorder")
     shutil.rmtree(d, ignore_errors=True)
@@ -4382,8 +4621,8 @@ def fused_guard(sampler, feat, labels_all, n, card):
     before = state()
     losses.append(float(trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, 1)))
     after = state()
-    skipped = int(trainer.metrics.value("resilience.skipped_steps"))
-    nonfinite = int(trainer.metrics.value("resilience.nonfinite_grads"))
+    skipped = int(trainer.metrics.value(GUARD_SKIPPED))
+    nonfinite = int(trainer.metrics.value(GUARD_NONFINITE))
     for i in range(2, 5):
         losses.append(float(trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, i)))
     step9e("(c) the poisoned step leaves the parameters and Adam's state bitwise")
@@ -7079,6 +7318,20 @@ def main() -> int:
     build_s = time.time() - t0
     check(sorted(libs) == sorted(KERNELS), f"built {sorted(libs)}")
     log(f"kernels built in {build_s:.1f}s: {sorted(libs)}")
+    # phase 2b: the port's static lint over the shipped tree, on this
+    # Python (stdlib ast; it imports nothing it lints); a finding fails
+    from quiver_tpu_torch.tools.lint import lint_paths
+
+    t0 = time.time()
+    lint = lint_paths([pkg, os.path.join(HERE, "chip_smoke.py"),
+                       *sorted(glob.glob(os.path.join(HERE, "examples", "*_torch.py")))])
+    lint_s = time.time() - t0
+    check(not lint.findings, "graftlint: " + "; ".join(
+        f"{f.path}:{f.line}: {f.rule}" for f in lint.findings))
+    lint_row = {"files": len(lint.files), "findings": 0, "suppressed": len(lint.suppressed),
+                "annotations": len(lint.annotations), "seconds": lint_s}
+    log(f"graftlint: {len(lint.files)} files clean ({len(lint.suppressed)} suppressed) "
+        f"in {lint_s:.1f}s")
     # the native host library (CSR builds; phase 9k requires it)
     from quiver_tpu_torch import native
 
@@ -7383,6 +7636,7 @@ def main() -> int:
                     "fleet_serve_replayed": fleet["serve"]["launches"]["replayed"][
                         "uniform_hop"],
                     "rgcn_launches": launches_h["rgcn"]["uniform_hop"],
+                    "rgcn_stream_launches": launches_h["rgcn_stream"]["uniform"]["uniform_hop"],
                     "saint_rw_launches": launches_h["saint"]["uniform_hop"],
                     "fused_trainer_launches": launches_f["uniform_hop"],
                     "sharded_trainer_launches": {
@@ -7432,6 +7686,8 @@ def main() -> int:
                         for k in ("zeros", "last-good")},
                     "train_lookup_in_turns": train["lookup_in_turns"],
                     "rgcn_launches": launches_h["rgcn"]["tiered_gather"],
+                    "rgcn_stream_launches": {k: v["tiered_gather"]
+                                             for k, v in launches_h["rgcn_stream"].items()},
                     "fused_trainer_launches": launches_f["tiered_gather"],
                     "ooc_epoch_launches": launches_j["tiered_gather"],
                     "ooc_lookup": ooc["lookup"],
@@ -7492,6 +7748,8 @@ def main() -> int:
                     "launches_by": serve_w["launches_by"],
                     "replay_profile": serve_w["replay_profile"],
                     "rgcn_weighted_launches": launches_h["rgcn_weighted"]["weighted_hop"],
+                    "rgcn_stream_weighted_launches": launches_h["rgcn_stream"]["weighted"][
+                        "weighted_hop"],
                     "library": K3_LIBRARY + "; its yardstick is the composed path"},
                    card, name),
     ]
@@ -7529,11 +7787,13 @@ def main() -> int:
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
+                       "lint": lint_row,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
                                  "max_degree": topo.max_degree}}, fh, indent=1)
+    print(json.dumps({"lint": lint_row}), flush=True)
     print(json.dumps({"bulk": bulk, "int8_lookup": t_q, "card": card}), flush=True)
     print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w,
                                 "int8": serve_q}}), flush=True)

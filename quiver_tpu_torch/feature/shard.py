@@ -577,6 +577,7 @@ class ShardedFeature(KernelChoice):
         rows bitwise; only the path serving each row changes. Needs the
         host copy of the device region (``replicate_budget > 0`` or
         ``auto_split=True``)."""
+        # graftlint: disable=stale-version-read -- the store's own state: ShardedFeature publishes its versions, it is no versioned consumer (its 'lookup' guard is a homonym)
         if self._region_host is None:
             if max(0, int(rep_rows)) == self.rep_rows:
                 return  # a no-op split (a trainer passing budget 0)
@@ -584,10 +585,12 @@ class ShardedFeature(KernelChoice):
                 "resplit needs the retained host region: construct "
                 "ShardedFeature with replicate_budget > 0 or auto_split=True"
             )
+        # graftlint: disable=stale-version-read -- the store's own state: ShardedFeature publishes its versions, it is no versioned consumer (its 'lookup' guard is a homonym)
         total = self._region_host.shape[0]
         rep_rows = max(0, min(int(rep_rows), total))
         if rep_rows == self.rep_rows:
             return
+        # graftlint: disable=stale-version-read -- the store's own state: ShardedFeature publishes its versions, it is no versioned consumer (its 'lookup' guard is a homonym)
         self._place_region(self._region_host, rep_rows)
         # hits of the old boundary describe nothing now
         self.last_tier_hits = None
@@ -634,7 +637,9 @@ class ShardedFeature(KernelChoice):
         self.device = mesh.devices.flat[0]
         if self.feature_order is not None:
             self.feature_order = self.feature_order.to(self.device)
+        # graftlint: disable=stale-version-read -- the store's own state: ShardedFeature publishes its versions, it is no versioned consumer (its 'lookup' guard is a homonym)
         if self.scale is not None:
+            # graftlint: disable=stale-version-read -- the store's own state: ShardedFeature publishes its versions, it is no versioned consumer (its 'lookup' guard is a homonym)
             self.scale = self.scale.to(self.device)
         self.cold = None
         self._cold_is_host = False
@@ -838,6 +843,7 @@ class ShardedFeature(KernelChoice):
             prior = _host(degree).reshape(-1)
             if prior.shape[0] == self.shape[0]:
                 self._controller.observe_prior(prior)
+        # graftlint: disable=stale-version-read -- the store's own state: ShardedFeature publishes its versions, it is no versioned consumer (its 'lookup' guard is a homonym)
         if not self.auto_split or self._region_host is None:
             return
         n, _ = self.shape

@@ -61,7 +61,7 @@ def build() -> str:
     lib = _target()
     if os.path.exists(lib):
         return lib
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # one compiler per directory
         if os.path.exists(lib):
             return lib
@@ -76,6 +76,13 @@ def build() -> str:
                 os.unlink(tmp)
             raise RuntimeError(
                 f"{' '.join(cmd)} failed ({proc.returncode}):\n{proc.stderr}")
+        # durable before it is published: a torn library under its final
+        # (digest) name would be loaded, and fail, on every later start
+        fd = os.open(tmp, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
         os.replace(tmp, lib)
     return lib
 

@@ -378,10 +378,10 @@ class MmapFeatureStore(KernelChoice):
     def trace_lookup(self, batch: int):
         """The JAX package's ahead-of-time audit surface for this lookup
         (a traced program of the tier merge for its static memory audit);
-        the torch analogue is ROADMAP A.14."""
+        the torch analogue is ROADMAP A.14b."""
         raise NotImplementedError(
             "MmapFeatureStore.trace_lookup: the JAX package's traced-program "
-            "audit surface is not ported yet (ROADMAP A.14)"
+            "audit surface is not ported yet (ROADMAP A.14b)"
         )
 
     def prefetch(self, n_id) -> int:

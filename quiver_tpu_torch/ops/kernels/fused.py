@@ -232,6 +232,7 @@ def _hop_args(indptr, indices, eid, with_eid, seeds, num_seeds, draws, index):
         num_t = num_seeds.to(device=seeds.device, dtype=torch.int32).contiguous()
         num, num_stride = num_t.data_ptr(), int(num_seeds.numel() != 1)
     else:
+        # graftlint: disable=host-op-on-tracer -- num_seeds is a host int on this branch, a device tensor takes the one above
         num_scalar = int(num_seeds)
     # one allocation per output: cheaper on the host than views of one
     nbr = torch.empty_like(draws, dtype=torch.int32)

@@ -215,6 +215,7 @@ def temporal_window_counts(edge_time, base, deg, lo_t, hi_t, iters: int):
         return zero, zero
     basec = base.to(torch.int64)
     probe_cap = (degc - 1).clamp(min=0)
+    # graftlint: disable=host-op-on-tracer -- lo_t and hi_t are the sampler's host float window bounds, never tensors
     lo_t, hi_t = float(np.float32(lo_t)), float(np.float32(hi_t))
 
     def count(below):

@@ -21,10 +21,11 @@ import torch
 from torch import nn
 
 from ..core.memory import resolve_device
+from ..ops.sample import fold_key, seeded_generator
 from ..sampling.sampler import Adj, _round_up
 
-__all__ = ["cross_entropy_on_seeds", "empty_adjs", "init_model",
-           "make_eval_step", "make_train_step"]
+__all__ = ["cross_entropy_on_seeds", "empty_adjs", "hetero_stream_steps",
+           "init_model", "make_eval_step", "make_train_step"]
 
 # the std of a standard normal truncated at +-2, which flax's
 # variance_scaling divides out so the truncated draw keeps its variance
@@ -110,3 +111,39 @@ def make_eval_step(model: nn.Module) -> Callable:
         return correct, label_mask.sum()
 
     return eval_step
+
+
+def hetero_stream_steps(sampler, feature, labels, step, seed_mat, num_seeds,
+                        key0: int, draw_fn=None):
+    """``seed_mat.shape[0]`` typed training steps with no host read: the
+    port of ``benchmarks/bench_rgcn.py --stream``'s scan body, run as one
+    stream of launches.
+
+    Step ``t`` is keyed ``k = fold_key(key0, 0, t)``, as
+    ``DistributedTrainer`` keys its steps: ``sampler.sample_padded`` of
+    ``seed_mat[t]`` draws from ``(k, 0)`` (or ``draw_fn(t, hop,
+    edge_type, deg)``), ``feature`` (a ``HeteroFeature``) looks up the
+    frontiers, the labels are ``labels[seed_ids.clamp(min=0)]`` over the
+    first ``seed_mat.shape[1]`` rows of the input type's frontier, masked
+    where the id is -1, and ``step`` (``make_train_step``'s) runs with the
+    dropout stream ``(k, 1)``. ``num_seeds`` is an int or a device scalar;
+    ``seed_mat`` is ``(N, cap)`` int32 on the sampler's device, -1 padded.
+
+    Returns ``(losses (N,), overflow)`` on the device: the losses stacked
+    and the samples' overflow summed, for the caller to read once.
+    """
+    dev = seed_mat.device
+    batch = int(seed_mat.shape[1])
+    losses = []
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    for t in range(int(seed_mat.shape[0])):
+        k = fold_key(key0, 0, t)
+        draws = ({"generator": seeded_generator(dev, k, 0)} if draw_fn is None
+                 else {"draw_fn": lambda hop, et, deg, t=t: draw_fn(t, hop, et, deg)})
+        frontier, _counts, layers, ovf, _uniques = sampler.sample_padded(
+            seed_mat[t], num_seeds, **draws)
+        seed_ids = frontier[sampler.input_type][:batch]
+        losses.append(step(feature[frontier], layers, labels[seed_ids.clamp(min=0)],
+                           seed_ids >= 0, seeded_generator(dev, k, 1)))
+        overflow = overflow + ovf
+    return torch.stack(losses), overflow

@@ -19,7 +19,8 @@ uniform hop (``uniform_hop``), or of K3's fused weighted hop
 ``r`` (its index in ``topo.edge_types``) in call ``c`` draws from
 ``seeded_generator(device, seed, c, h, r)``, over the relation's
 worst-case rows, and takes the prefix it needs, so an auto-caps rerun
-repeats the draws. The ``draw_fn(hop, edge_type, deg)`` seam replaces
+repeats the draws; ``sample_padded(generator=g)`` draws from
+``(g.initial_seed(), h, r)``. The ``draw_fn(hop, edge_type, deg)`` seam replaces
 them (the tests feed it JAX's): it returns a uniform hop's int32 offsets
 (K1's ``select`` then runs) or a weighted hop's float32 ``u01`` block
 (K3's ``wselect``).
@@ -187,7 +188,9 @@ def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
     offsets (``float32`` ``u01`` on a relation of ``weighted_rels``) from
     its degrees; ``bits(hop, edge_type, shape)`` its raw draws over rows of
     ``shape``, which a fused entry consumes. ``with_eid`` threads each
-    relation's COO edge positions into every ``Adj.e_id``.
+    relation's COO edge positions into every ``Adj.e_id``. ``num_seeds`` is
+    an int or a device scalar; nothing on this path reads the device back,
+    so it runs as one stream of launches.
 
     Returns ``(frontier {type: ids}, counts {type: 0-d}, layers deepest
     first, overflow, per-hop unclipped unique counts seeds outward)``.
@@ -195,6 +198,10 @@ def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
     if (draw is None) == (bits is None):
         raise ValueError("hetero_multilayer_sample takes one of draw and bits")
     dev = seeds.device
+    if not torch.is_tensor(num_seeds):
+        # a fill on the device, not a copy from the host: a copy from
+        # pageable memory would synchronise with the card
+        num_seeds = torch.full((), int(num_seeds), dtype=torch.int32, device=dev)
     frontier = {input_type: seeds}
     counts = {input_type: num_seeds}
     layers, frontier_counts = [], []
@@ -412,12 +419,7 @@ class HeteroGraphSampler:
         padded = np.full(cap, -1, dtype=np.int32)
         padded[:batch] = seeds
         self._call += 1
-
-        def draw(hop, et, deg):
-            return torch.as_tensor(draw_fn(hop, et, deg), device=self.device)
-
-        seam = ({"draw": draw} if draw_fn is not None
-                else {"bits": self._bits_seam(cap, (self.seed, self._call))})
+        seam = self._draw_seam(cap, draw_fn, (self.seed, self._call))
         dev_seeds = torch.from_numpy(padded).to(self.device)
 
         def run():
@@ -433,3 +435,52 @@ class HeteroGraphSampler:
             lambda: self._cap_overrides, "hetero auto caps")
         return HeteroSampleOutput(frontier, counts, batch, layers, overflow,
                                   fcounts)
+
+    def sample_padded(self, seeds, num_seeds, generator=None, draw_fn=None):
+        """Sample already-padded device seeds with no host read: the
+        sampler call of a streamed train step (the JAX package's compiled
+        ``run`` of ``_compiled(seed_cap)``).
+
+        ``seeds`` is a ``(cap,)`` int32 tensor on the sampler's device, -1
+        past ``num_seeds`` (an int or a device scalar). The caps are the
+        ones planned for ``cap``: an auto sampler is neither planned nor
+        regrown here, and the overflow comes back as a device tensor. Each
+        relation's hop is one launch of its fused kernel, as in
+        :meth:`sample`.
+
+        Draws: ``draw_fn(hop, edge_type, deg)`` as in :meth:`sample`; else
+        the hop of relation ``r`` draws from a generator seeded by
+        ``(generator.initial_seed(), hop, r)`` (``generator`` plays a JAX
+        key: it is read, not advanced); with neither, from the sampler's
+        own stream, as :meth:`sample` draws (the call counter advances).
+        The outputs are bitwise :meth:`sample`'s for the same seeds, caps
+        and draws.
+
+        Returns ``(frontier {type: ids}, counts {type: 0-d}, layers deepest
+        first, overflow, per-hop unclipped unique counts)``, all on the
+        device.
+        """
+        seeds = torch.as_tensor(seeds, device=self.device).to(torch.int32)
+        cap = int(seeds.shape[0])
+        if generator is not None:
+            key = (generator.initial_seed(),)
+        else:
+            self._call += 1
+            key = (self.seed, self._call)
+        plans = self._plan(cap, self._cap_overrides if self._auto_caps else None)
+        return hetero_multilayer_sample(
+            self.dev_topos, seeds, num_seeds, self.input_type, plans,
+            weighted_rels=self.weighted_rels, with_eid=self.with_eid,
+            **self._draw_seam(cap, draw_fn, key))
+
+    def _draw_seam(self, cap: int, draw_fn, key: tuple) -> dict:
+        """The relation hops' draws of one call at seed capacity ``cap``,
+        as the ``hetero_multilayer_sample`` seam: ``draw_fn``'s, or the raw
+        bits of :meth:`_bits_seam` under ``key``."""
+        if draw_fn is None:
+            return {"bits": self._bits_seam(cap, key)}
+
+        def draw(hop, et, deg):
+            return torch.as_tensor(draw_fn(hop, et, deg), device=self.device)
+
+        return {"draw": draw}

@@ -425,6 +425,7 @@ class ServeLadder:
         seeds = torch.full((bucket,), -1, dtype=torch.int32, device=self.device)
         inputs = {"seeds": seeds, "seqs": [None] * bucket}
         if self.draw_fn is not None:
+            # graftlint: eager -- a static=False program runs eagerly on every replay, never under capture
             def step():
                 n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
                     topo, seeds[:, None], 1, self.sizes, self.lane_caps,

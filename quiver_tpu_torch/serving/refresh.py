@@ -144,6 +144,7 @@ class EmbeddingRefresher:
         """The published ``(N, num_classes)`` table (None before the first
         refresh), unchecked against the committed version."""
         with self._lock:
+            # graftlint: disable=stale-version-read -- the documented unchecked accessor; lookup() is the checked read
             return self._table
 
     def lookup(self, ids) -> torch.Tensor:

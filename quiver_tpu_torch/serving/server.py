@@ -279,6 +279,7 @@ class InferenceServer:
 
     @property
     def ladder(self) -> ServeLadder:
+        # graftlint: disable=stale-version-read -- the ladder object itself, for inspection; every serving path checks the version first
         return self._ladder
 
     # -- streaming-mutation versioning --------------------------------------

@@ -136,11 +136,13 @@ def get_logger(child: str | None = None) -> logging.Logger:
     """
     logger = logging.getLogger("quiver_tpu_torch")
     if not logger.handlers:
+        # graftlint: disable=env-at-trace -- one-shot handler bootstrap, not a live switch
         level = os.environ.get("QUIVER_LOG_LEVEL")
         if level:
             try:
                 logger.setLevel(level)
             except ValueError:
+                # graftlint: disable=per-call-logging-in-jit -- one-shot handler bootstrap (guarded by logger.handlers), not a per-step path
                 print(
                     f"quiver_tpu_torch: ignoring invalid QUIVER_LOG_LEVEL="
                     f"{level!r} (use DEBUG/INFO/WARNING/ERROR/CRITICAL "

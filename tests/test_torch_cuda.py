@@ -1509,3 +1509,86 @@ def test_streaming_epoch_differential_on_card(cuda):
     for a, b in (("commit", "rebuild"), ("crash", "none")):
         assert torch.equal(runs[a][0], runs[b][0]), (a, b)
         assert all(torch.equal(runs[a][1][k], runs[b][1][k]) for k in runs[a][1])
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_rgcn_stream_sample_padded_card_matches_plain(cuda, weighted):
+    """``sample_padded`` on the card with a device ``num_seeds`` (one fused
+    K1 or K3 launch per relation per hop, drawn from the generator's
+    initial seed) against the plain loop on the CPU over the same raw
+    draws: frontiers, counts, every Adj, overflow, bitwise."""
+    from quiver_tpu_torch import HeteroGraphSampler
+    from quiver_tpu_torch.ops.kernels.fused import uniform_hop, weighted_hop
+    from quiver_tpu_torch.sampling.hetero import hetero_multilayer_sample
+
+    topo = _hetero_topo(weighted)
+    kw = {"weighted": weighted, "with_eid": True, "seed_capacity": 512}
+    card = HeteroGraphSampler(topo, [8, 4], "paper", device=cuda, **kw)
+    cpu = HeteroGraphSampler(topo, [8, 4], "paper", device="cpu", **kw)
+    seeds = np.full(512, -1, np.int32)
+    seeds[:500] = np.random.default_rng(4).integers(0, 3000, 500)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(23)
+    num = torch.full((), 500, dtype=torch.int32, device=cuda)
+    before = (uniform_hop.launches, weighted_hop.launches)
+    got = card.sample_padded(torch.from_numpy(seeds).to(cuda), num, generator=g)
+    assert (uniform_hop.launches - before[0], weighted_hop.launches - before[1]) == (
+        (0, 5) if weighted else (5, 0))
+    card_bits = card._bits_seam(512, (23,))
+
+    def bits(hop, et, shape):
+        d = card_bits(hop, et, shape)
+        return d.cpu() if weighted else tuple(x.cpu() for x in d)
+
+    want = hetero_multilayer_sample(cpu.dev_topos, torch.from_numpy(seeds), 500, "paper",
+                                    cpu._plan(512), bits=bits,
+                                    weighted_rels=cpu.weighted_rels, with_eid=True)
+    assert all(torch.equal(got[0][t].cpu(), want[0][t]) for t in want[0])
+    assert all(int(got[1][t]) == int(want[1][t]) for t in want[1])
+    for lg, lc in zip(got[2], want[2]):
+        for et, a in lc.adjs.items():
+            assert torch.equal(lg.adjs[et].edge_index.cpu(), a.edge_index), et
+            assert torch.equal(lg.adjs[et].e_id.cpu(), a.e_id), et
+    assert int(got[3]) == int(want[3])
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_rgcn_stream_no_sync_under_debug_mode(cuda, weighted):
+    """``hetero_stream_steps`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read in 4 R-GCN
+    steps (sample, lookup, labels, forward, backward, Adam), exactly 5
+    hops and 3 ``tiered_gather`` launches a step, finite losses."""
+    from quiver_tpu_torch import HeteroFeature, HeteroGraphSampler, RGCN
+    from quiver_tpu_torch.models.rgcn import rgcn_schema
+    from quiver_tpu_torch.ops.kernels import launch_counts
+    from quiver_tpu_torch.parallel.train import (hetero_stream_steps, init_model,
+                                                 make_train_step)
+
+    topo = _hetero_topo(weighted)
+    sampler = HeteroGraphSampler(topo, [8, 4], "paper", seed_capacity=256,
+                                 frontier_caps="auto", weighted=weighted, device=cuda)
+    rng = np.random.default_rng(5)
+    out = sampler.sample(rng.integers(0, 3000, 256))  # plans the caps
+    feats = {t: rng.normal(size=(n, 16)).astype(np.float32) for t, n in topo.num_nodes.items()}
+    feature = HeteroFeature.from_cpu_tensors(feats, device_cache_size="1G", device=cuda)
+    model = RGCN(rgcn_schema(out.adjs, {t: 16 for t in feats}), 8, 4, "paper")
+    init_model(model, torch.Generator().manual_seed(0))
+    model.to(cuda)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=5e-3))
+    labels = torch.from_numpy(rng.integers(0, 4, 3000)).to(cuda)
+    seed_mat = torch.from_numpy(rng.integers(0, 3000, (4, 256)).astype(np.int32)).to(cuda)
+    num = torch.full((), 256, dtype=torch.int32, device=cuda)
+    hetero_stream_steps(sampler, feature, labels, step, seed_mat, num, 0)  # warm-up
+    torch.cuda.synchronize()
+    before = launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses, overflow = hetero_stream_steps(sampler, feature, labels, step, seed_mat, num, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = launch_counts()
+    hop = "weighted_hop" if weighted else "uniform_hop"
+    assert after[hop] - before[hop] == 5 * 4
+    assert after["tiered_gather"] - before["tiered_gather"] == 3 * 4
+    assert bool(torch.isfinite(losses).all()) and losses.shape == (4,)
+    assert int(overflow) >= 0

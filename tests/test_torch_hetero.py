@@ -59,10 +59,18 @@ def both_topos(seed=0, weights=False, **kw):
 
 def jax_draw_fn(sampler, seed, call):
     """``draw_fn(hop, edge_type, deg)`` replaying the JAX hetero sampler's
-    draws of call ``call``: each (hop, relation) takes the next ``split``
-    of ``fold_in(PRNGKey(seed), call)`` the first time it is drawn (in the
-    loop's order), and the same key again on a regrowth rerun."""
-    state = {"key": jax.random.fold_in(jax.random.PRNGKey(seed), call)}
+    draws of call ``call``: :func:`jax_key_draw_fn` of ``fold_in(
+    PRNGKey(seed), call)``."""
+    return jax_key_draw_fn(sampler, jax.random.fold_in(jax.random.PRNGKey(seed), call))
+
+
+def jax_key_draw_fn(sampler, key):
+    """``draw_fn(hop, edge_type, deg)`` replaying the JAX hetero loop's
+    draws under ``key`` (the key its compiled ``run`` takes): each (hop,
+    relation) takes the next ``split`` of ``key`` the first time it is
+    drawn (in the loop's order), and the same key again on a regrowth
+    rerun."""
+    state = {"key": key}
     subs = {}
 
     def draw(hop, et, deg):
