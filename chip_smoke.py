@@ -10,7 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gather.cu``, K3 ``wselect.cu``) from the sources in this checkout, one
    ``nvcc`` each, in parallel. 2b. lint: ``quiver_tpu_torch.tools.lint``
    over ``quiver_tpu_torch/``, this script and ``examples/*_torch.py`` on
-   this Python; any finding fails the run.
+   this Python; any finding fails the run. 2c. audit: the program audit
+   (``quiver_tpu_torch.tools.audit``) over its registry's 14 programs,
+   each recorded once on the card and once on the CPU: 0 findings under
+   every rule, no kernel-attribute finding suppressed (each launched
+   kernel's registers, shared memory and block size read on the card),
+   each target's card kernel nodes the CPU recording's, and each target's
+   estimated growth (512 B blocks) against the growth of
+   ``max_memory_allocated`` over one more run within the registry's
+   ``PEAK_BAND``; prints an ``{"audit": ...}`` line.
 3. kernel checks: hold every kernel entry bitwise against its plain
    PyTorch version on the card (K1's select and fused uniform hop, K2's
    single-table and tiered gathers and the int8 dequantising tiered
@@ -222,7 +230,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``uniform_hop_plain`` and its lookup against
    ``tiered_gather_plain``, bitwise; ``sample_padded`` == ``sample``,
    bitwise; one card step against the CPU's (dropout 0, phase 8's
-   tolerances).
+   tolerances). (f) One full-width ``trainer.step`` recorded by the
+   program audit: its kernel nodes equal its launches (3 ``uniform_hop``,
+   1 ``tiered_gather``), its estimated growth beside the growth of
+   ``max_memory_allocated`` over the same step.
 9f. the mesh-sharded feature store (``ShardedFeature``) on logical meshes
    of this card (every mesh slot ``cuda:0``). Every check names itself on
    stderr before it runs. (a) Phase 9b's rows (the products-shaped graph,
@@ -285,9 +296,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    routed (uncapped, the planned cap, a cap of 1 that overflows) lookups
    bitwise the replicated int8 ``Feature``'s ``tiered_gather_dequant``
    lookup and the numpy int8 rows, the tier hits a numpy count, exactly
-   one ``tiered_gather_dequant`` for L0, one per shard per feature group
-   and one for the cold rows, each tier's call bitwise
-   ``tiered_gather_plain(..., scale)``; the lookups timed in turns with the
+   one ``tiered_gather_dequant`` for L0 and one for the cold rows, each
+   shard's codes by ``gather_rows`` and one ``tiered_gather_dequant``
+   after their sum (psum) or per feature group after the exchange
+   (routed), each K2 call bitwise its plain version; the lookups timed in turns with the
    replicated one, K2's device ms and their bound. (b)
    ``bench_feature.py``'s feature-controller configuration (a ``(1, 4)``
    mesh, a 20%-of-f32 budget, 16M of L0, ``routed_alpha`` 2), float32 and
@@ -325,7 +337,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and steps/s per mesh; (d) a trainer built afresh on ``(1, 2)`` resuming
    the ``(1, 4)`` checkpoint, bitwise (a); (e) an int8 store replanned
    ``(1, 4)`` -> ``(1, 2)`` -> ``(1, 1)``, its psum and routed lookups
-   bitwise before and after, one ``tiered_gather_dequant`` per tier table.
+   bitwise before and after, one ``tiered_gather_dequant`` for L0 and one
+   for the cold rows, the shards' codes by ``gather_rows`` and one
+   dequantising launch after their sum or the exchange.
 9j. the out-of-core epoch at ``benchmarks/ooc_drill.py``'s defaults
    (550,503 nodes x 128 f32, 4.2x the 64 MiB budget, degree 10, 10% hot,
    [5, 5] x 128, 8 steps, 2 measured epochs); every check names itself on
@@ -418,6 +432,7 @@ import contextlib
 import glob
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1445,7 +1460,7 @@ def replay_profile(server, hop: str) -> dict:
         sync()
     check(read_launches() == before, "a replay calls no wrapper")
     rows = [e for e in prof.key_averages()
-            if name in e.key and e.self_device_time_total > 0]
+            if kernel_name(e.key) == name and e.self_device_time_total > 0]
     check(bool(rows), f"the profiler sees {name} run in a replay")
     return {"kernel": name, "calls": sum(e.count for e in rows),
             "device_us": sum(e.self_device_time_total for e in rows)}
@@ -1836,7 +1851,7 @@ def idle_share(serve_pass, batches, queries: int, card, passes: int = 3):
     busy = sum(kernels.values())
     check(len(reqs) == queries and busy > 0, f"the profiler saw the card: {spans}")
     ours = {k: v for k, v in kernels.items()
-            if any(m in k for m in ("uniform_hop_kernel", "gather_kernel"))}
+            if kernel_name(k) in ("uniform_hop_kernel", "gather_kernel")}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     trace_bytes = os.path.getsize(os.path.join(log_dir, "serve.trace.json"))
     log(f"serving idle share: device busy {busy:.4f} ms per batch of "
@@ -2492,6 +2507,21 @@ def annotation(e) -> bool:
     return bool(getattr(e, "is_user_annotation", False)) or e.key.startswith("train:")
 
 
+_KERNEL_NAME = re.compile(r"^(?:void\s+)?(\w+)[<(]")
+
+
+def kernel_name(key: str) -> str:
+    """The identifier of the kernel a profiled device row names:
+    ``gather_kernel`` for ``void gather_kernel<uint4>(...)``, and ``""``
+    for a kernel in a namespace (ATen's ``void
+    at::native::vectorized_gather_kernel<16, long>(...)``) or a row that is
+    no kernel. A port kernel is matched by its whole name, never as a
+    substring of another's (``gather_kernel`` of ATen's, ``select_kernel``
+    of ``wselect_kernel``)."""
+    m = _KERNEL_NAME.match(key)
+    return m.group(1) if m else ""
+
+
 def device_ms(prof, steps: int) -> tuple[dict, dict]:
     """Device time per step in ms of every profiled CUDA row: ``(kernels
     and copies, annotations' spans)``."""
@@ -2537,7 +2567,7 @@ def profile_steps(step, batches, first, median_step_ms):
     spans = {k: ms for k, ms in spans.items() if k.startswith("train:")}
     busy = sum(kernels.values())
     check(busy > 0 and len(spans) == 3, f"the profiler saw the card: spans {spans}")
-    ours = {name: sum(ms for key, ms in kernels.items() if name in key)
+    ours = {name: sum(ms for key, ms in kernels.items() if kernel_name(key) == name)
             for name in ("uniform_hop_kernel", "gather_kernel", "gather_dequant_kernel")}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     log(f"train profile: device busy {busy:.3f} ms per step of {median_step_ms:.3f}; "
@@ -2571,7 +2601,8 @@ def profiled_idle(run_steps, steps: int, step_ms: float, names=()) -> dict:
             "device_launches_per_step": launches / steps,
             "device_summed_ms_per_step": sum(kernels.values()),
             "idle_share": 1 - busy / step_ms, "step_ms": step_ms,
-            "port_kernels_ms_per_step": {n: sum(ms for k, ms in kernels.items() if n in k)
+            "port_kernels_ms_per_step": {n: sum(ms for k, ms in kernels.items()
+                                                if kernel_name(k) == n)
                                          for n in names},
             "top_kernels_ms_per_step": {k[:100]: v for k, v in top}}
 
@@ -4368,6 +4399,66 @@ def offload_phase(card, pcie_bytes_per_s):
     return launches, k1_rows, k2_rows, (t_hops, t_lookup), result
 
 
+# -- phase 2c: the program audit on the card ----------------------------------------
+
+
+def step2c(what: str) -> None:
+    """Name a phase 2c check on stderr before it runs."""
+    log(f"phase 2c check: {what}")
+
+
+def audit_phase(card) -> dict:
+    """Phase 2c: the program audit (``quiver_tpu_torch/tools/audit``) on the
+    card: ``run_audit(device="cuda")`` over every registry target and every
+    rule (0 findings, no kernel-attribute finding suppressed); each
+    target's kernel nodes against its CPU recording's (entries, shapes and
+    dtypes, in order); each target's estimated growth, rounded to the
+    allocator's 512 B blocks, against ``cuda_memory_stats``'s measured
+    growth of ``max_memory_allocated`` over one more run, within
+    ``audit_targets.PEAK_BAND``; and every kernel instantiation's
+    registers, shared bytes and spills. Returns the ``audit`` line."""
+    from quiver_tpu_torch.tools.audit import audit_targets, ir, mem
+    from quiver_tpu_torch.tools.audit.runner import run_audit
+
+    t0 = time.time()
+    result = run_audit(device="cuda")
+    audit_s = time.time() - t0
+    step2c(f"0 findings over {len(result.targets)} targets and every rule")
+    check(not result.findings, "graftaudit on the card: " + "; ".join(
+        f"{f.rule}: {f.message}" for f in result.findings))
+    attr_waived = [f.message for f in result.suppressed if f.rule == "vmem-budget"]
+    step2c("no kernel-attribute finding suppressed")
+    check(not attr_waived, f"kernel attributes suppressed on the card: {attr_waived}")
+    nodes = {}
+    for name in audit_targets.REGISTRY:
+        card_nodes = ir.kernel_nodes(audit_targets.build(name, "cuda").program)
+        cpu_nodes = ir.kernel_nodes(audit_targets.build(name, "cpu").program)
+        step2c(f"{name}: the card's kernel nodes are the CPU recording's")
+        check(card_nodes == cpu_nodes, f"{name}: kernel nodes on the card {card_nodes} "
+              f"against the CPU's {cpu_nodes}")
+        nodes[name] = [n[0] for n in card_nodes]
+    lo, hi = audit_targets.PEAK_BAND
+    rows = mem.peak_table(device="cuda", with_cuda=True)
+    for r in rows:
+        step2c(f"{r['target']}: estimated growth {r['growth_512_bytes']} B against the "
+               f"card's {r['cuda_growth_bytes']} B within [{lo}, {hi}]")
+        check(r["cuda_ratio"] is not None and lo <= r["cuda_ratio"] <= hi,
+              f"{r['target']}: estimate / measured growth {r['cuda_ratio']} outside "
+              f"[{lo}, {hi}]")
+    kernels = [{"kernel": a["kernel"], "entry": a["entry"], "block": a["block"],
+                "regs": a["regs"], "shared_bytes": a["shared_static"] + a["shared_dynamic"],
+                "local_bytes": a["local"], "max_threads": a["max_threads"]}
+               for attrs in mem.kernel_attrs().values() for a in attrs]
+    out = {"targets": len(result.targets), "findings": len(result.findings),
+           "suppressed": len(result.suppressed), "kernel_nodes": nodes, "kernels": kernels,
+           "peak_table": rows, "peak_band": [lo, hi], "audit_s": audit_s,
+           "seconds": time.time() - t0, "card": card}
+    audit_targets.clear_cache()
+    log(f"graftaudit on the card: {out['targets']} targets, 0 findings, "
+        f"{out['suppressed']} suppressed, {out['seconds']:.1f}s [{card}]")
+    return out
+
+
 # -- phase 9e: the fused trainer (DistributedTrainer) ------------------------------
 
 FUSED_WARMUP, FUSED_STEPS = 5, 20  # benchmarks/bench_epoch.py --fused: untimed, timed
@@ -4825,6 +4916,56 @@ def fused_kernels(sampler, feat, labels_all, n):
         "sample_padded_equals_sample": same, "caps": list(caps)}
 
 
+def fused_audit(sampler, feat, labels_all, n, card) -> dict:
+    """(f) One ``DistributedTrainer.step`` at this path's full width,
+    recorded by the program audit (``tools/audit/ir.record``): its kernel
+    nodes equal the wrapper launches the step made (3 ``uniform_hop``, 1
+    ``tiered_gather``), and its estimated growth (rounded to the
+    allocator's 512 B blocks) stands beside the growth of
+    ``max_memory_allocated`` over the same step."""
+    import collections
+    import gc
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.tools.audit import ir, mem
+
+    trainer = fused_trainer(sampler, feat)
+    rng = np.random.default_rng(9)
+    trainer.step(rng.integers(0, n, EPOCH_BATCH), labels_all, 0)  # Adam's state exists
+    seeds = rng.integers(0, n, EPOCH_BATCH)
+    # the earlier drills' trainers sit in reference cycles: collected
+    # during the step, they would free memory the step never held
+    gc.collect()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    program = ir.record(lambda: trainer.step(seeds, labels_all, 1), name="fused step",
+                        device="cuda")
+    sync()
+    record_s = time.perf_counter() - t0
+    growth = torch.cuda.max_memory_allocated() - before
+    launches = read_launches()
+    nodes = collections.Counter(node.name for node in program.kernels)
+    step9e("(f) the recorded step's kernel nodes are its launches: 3 uniform_hop and "
+           "1 tiered_gather")
+    expect_launches(launches, {"uniform_hop": 3, "tiered_gather": 1}, "recorded fused step")
+    check(dict(nodes) == {k: v for k, v in launches.items() if v},
+          f"recorded fused step: kernel nodes {dict(nodes)} against launches {launches}")
+    est = mem.estimate_peak(program, mem.ALLOCATOR_ROUND)
+    out = {"kernel_nodes": dict(nodes), "ops": len(program.ops),
+           "estimated_growth_bytes": est.growth_bytes, "measured_growth_bytes": growth,
+           "ratio": est.growth_bytes / growth if growth else None,
+           "state_bytes": est.state_bytes, "record_s": record_s, "card": card}
+    log(f"recorded fused step: {len(program.ops)} ops, kernel nodes {dict(nodes)}, estimated "
+        f"growth {est.growth_bytes / 2**20:.2f} MiB against max_memory_allocated's "
+        f"{growth / 2**20:.2f} MiB [{card}]")
+    return out
+
+
 def fused_phase(topo, feat, labels_all, card):
     """Phase 9e (see the module docstring). Returns ``(launches of the
     timed steps, K1's check rows, K2's check rows, result)``."""
@@ -4850,6 +4991,7 @@ def fused_phase(topo, feat, labels_all, card):
     guard = fused_guard(sampler, feat, labels_all, n, card)
     preempt = fused_preempt(sampler, feat, labels_all, train_idx, ref, spread, card)
     k1_rows, k2_rows, kernels = fused_kernels(sampler, feat, labels_all, n)
+    audit = fused_audit(sampler, feat, labels_all, n, card)
     result = {
         "config": "benchmarks/bench_epoch.py --fused defaults on phase 9b's store: "
                   "products-shaped graph, HBM topology, F=100 f32, 47 classes, 20% "
@@ -4858,7 +5000,7 @@ def fused_phase(topo, feat, labels_all, card):
                   "make_mesh() (one worker)",
         "caps": list(caps), "worst_caps": list(sampler._worst_caps(EPOCH_BATCH)),
         "step": steps, "epoch": epochs, "guard": guard, "preempt": preempt,
-        "kernels": kernels, "card": card, "seconds": time.time() - t0}
+        "kernels": kernels, "audit": audit, "card": card, "seconds": time.time() - t0}
     log(f"fused trainer phase {result['seconds']:.1f}s [{card}]")
     return steps["launches"], k1_rows, k2_rows, result
 
@@ -4889,42 +5031,62 @@ def logical_mesh(data: int, feature: int):
     return make_mesh(data=data, feature=feature, devices=["cuda:0"] * (data * feature))
 
 
-def k2_device_ms(lookups, calls: int = 5, tries: int = 3,
-                 kernel: str = "gather_kernel") -> dict:
-    """K2's device time per call (its ``kernel`` launches, summed: the
-    single-table and tiered ``gather_kernel``, or the dequantising
-    ``gather_dequant_kernel``) of each ``(name, fn, launches per call)`` of
-    ``lookups``, a ``torch.profiler`` session per lookup. A session runs
-    one call more than it reads and keeps the last ``calls`` calls'
-    launches by start time: after many sessions in one process the
-    profiler has dropped one device row of every session of a whole
-    smoke run. A session that sees fewer rows than that is taken again, at
-    most ``tries`` times, and its K2 rows are logged by name."""
+K2_LAUNCH_OF = {"gather_rows": "gather", "tiered_gather": "gather",
+                "tiered_gather_dequant": "gather_dequant"}
+
+
+@contextlib.contextmanager
+def k2_timed():
+    """Every K2 launch inside the block bracketed by two CUDA events on its
+    stream (``ops/kernels/gather.py``'s ``launch`` wrapped for the block):
+    nothing else runs on the stream between them, so their elapsed time is
+    the kernel's device time. Yields the ``(launch entry, start, end)``
+    list."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from quiver_tpu_torch.ops.kernels import gather as k2
+
+    real, timed = k2.launch, []
+
+    def timed_launch(entry, index, *args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        stream = torch.cuda.current_stream(index)
+        stream.record_event(start)
+        real(entry, index, *args)
+        stream.record_event(end)
+        timed.append((entry, start, end))
+
+    setattr(k2, "launch", timed_launch)
+    try:
+        yield timed
+    finally:
+        setattr(k2, "launch", real)
+
+
+def k2_device_ms(lookups, calls: int = 5) -> dict:
+    """K2's device time per call of each ``(name, fn, {K2 entry: launches
+    per call})`` of ``lookups``: after one warm call, ``calls`` calls with
+    every K2 launch timed by :func:`k2_timed`, which must see exactly the
+    launches each entry makes, and their times summed. Events, not
+    ``torch.profiler``: late in a smoke run a profiler session has missed
+    every device row of a whole lookup."""
+    import collections
 
     out = {}
-    for name, fn, k in lookups:
-        want = k * calls
-        for attempt in range(tries):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls + 1):
-                    fn()
-                sync()
-            rows = [e for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and "gather" in e.name]
-            spans = sorted((e.time_range.start, e.time_range.end) for e in rows
-                           if kernel in e.name)
-            if len(spans) >= want:
-                break
-            log(f"K2 profile of {name}, try {attempt + 1}: {len(spans)} {kernel} rows of "
-                f"{k * (calls + 1)} launches; profiling again")
-        if len(spans) < want:
-            log(f"K2 profile of {name}: the device rows named 'gather': "
-                f"{sorted({e.name[:80] for e in rows})}")
-        check(len(spans) >= want, f"the profiler saw {len(spans)} of {k * (calls + 1)} K2 "
-              f"launches of {name}")
-        out[name] = sum(b - a for a, b in spans[-want:]) / 1e3 / calls
+    for name, fn, entries in lookups:
+        per_call = collections.Counter()
+        for entry, k in entries.items():
+            per_call[K2_LAUNCH_OF[entry]] += k
+        fn()
+        sync()
+        with k2_timed() as timed:
+            for _ in range(calls):
+                fn()
+            sync()
+        seen = collections.Counter(entry for entry, _, _ in timed)
+        check(seen == collections.Counter({e: k * calls for e, k in per_call.items()}),
+              f"K2 launches timed of {name}: {dict(seen)} in {calls} calls of {dict(per_call)}")
+        out[name] = sum(a.elapsed_time(b) for _, a, b in timed) / calls
     return out
 
 
@@ -5020,9 +5182,10 @@ def sharded_store_phase(topo, feat_rep, pcie, card):
              "replicated_ms": (t_psum["yard_ms"] + t_routed["yard_ms"]) / 2,
              "replicated_turns": t_psum["yard_turns"] + t_routed["yard_turns"],
              "k2_device_ms": k2_device_ms([
-                 ("psum", psum, got["psum"]["launches"]),
-                 ("routed", routed, got[f"routed, planned cap {cap}"]["launches"]),
-                 ("replicated", replicated, 1)]),
+                 ("psum", psum, {"gather_rows": got["psum"]["launches"]}),
+                 ("routed", routed, {"gather_rows": got[f"routed, planned cap {cap}"]
+                                     ["launches"]}),
+                 ("replicated", replicated, {"tiered_gather": 1})]),
              "bound_ms": bound_s * 1e3, "device_bytes": dev_bytes, "cold_bytes": nc * row_b}
         result["meshes"][label] = {"rep_rows": store.rep_rows, "hot_rows": store.hot_rows,
                                    "cold_rows": n - end, "tier_hits": want_hits,
@@ -5820,7 +5983,8 @@ CTL_TRACE_BATCHES, CTL_TRACE_IDS, CTL_TRACE_HOT, CTL_TRACE_SHARE = 4, 65_536, 1_
 # the sharded budget first
 CTL_L1, CTL_L0 = 4 * MULTI_NODES + 16_384 * MULTI_F, 8_192 * MULTI_F
 CTL_ALPHA0, CTL_HEAT_BINS, CTL_EPOCH_STEPS = 0.25, 256, 8
-INT8_KERNELS = ("uniform_hop_kernel", "select_kernel", "gather_dequant_kernel")
+INT8_KERNELS = ("uniform_hop_kernel", "select_kernel", "gather_dequant_kernel",
+                "gather_kernel")
 
 
 def step9h(what: str) -> None:
@@ -5878,36 +6042,48 @@ def tier_hits(store, ids):
 
 
 def int8_tier_checks(store, ids, what: str) -> list:
-    """K2's dequantising entry on each int8 tier table (the L0 block, each
-    L1 shard, the pinned cold rows) with the ids a psum lookup of ``ids``
-    sends it, bitwise ``tiered_gather_plain(..., scale)``. Returns the
-    check rows."""
+    """K2 on each int8 tier with the ids a psum lookup of ``ids`` sends it:
+    the dequantising entry on the L0 block and the pinned cold rows, and on
+    the L1 shards' summed codes with the L1 scales, bitwise
+    ``tiered_gather_plain(..., scale)``; ``gather_rows`` on each L1 shard's
+    codes bitwise ``gather_rows_plain``. Returns the check rows."""
     import torch
 
-    from quiver_tpu_torch.ops.kernels.gather import tiered_gather_dequant, tiered_gather_plain
+    from quiver_tpu_torch.ops.kernels.gather import (gather_rows, gather_rows_plain,
+                                                     tiered_gather_dequant, tiered_gather_plain)
 
     t = store.feature_order[ids.clamp(min=0).long()].long()
     valid = ids >= 0
     end = store.rep_rows + store.hot_rows
     rps = store.hot.rows_per_shard
+    l1 = torch.where(valid & (t >= store.rep_rows) & (t < end), t - store.rep_rows, -1)
+    codes = None
+    rows = []
+
+    def row(name, entry, n, kern, plain):
+        ok = equal(kern, plain)
+        step9h(f"{what}: {entry} on the {name} bitwise its plain version")
+        check(ok, f"{what}: {entry} on the {name} == plain")
+        rows.append({"store": f"{what}, {entry} on the {name}: {n} lanes",
+                     "match": ok, "max_abs_err": float((kern.float() - plain.float()).abs().max())})
+
+    for d, shard in enumerate(store.hot.shards):
+        mine = (l1 >= 0) & (l1 // rps == d)
+        local = torch.where(mine, l1 - d * rps, -1).to(torch.int32).contiguous()
+        kern = gather_rows(shard, local)
+        row(f"L1 shard {d}", "gather_rows", int(mine.sum()), kern, gather_rows_plain(shard, local))
+        codes = kern if codes is None else codes + kern
+    lanes = torch.where(l1 >= 0, torch.arange(l1.numel(), device=l1.device), -1)
     cases = [("L0 block", store.rep, store._rep_scales[store.rep.device],
               torch.where(valid & (t < store.rep_rows), t, -1)),
              ("cold rows (pinned, UVA)", store.cold, store._cold_scale,
-              torch.where(valid & (t >= end), t - end, -1))]
-    l1 = torch.where(valid & (t >= store.rep_rows) & (t < end), t - store.rep_rows, -1)
-    for d, (shard, scale) in enumerate(zip(store.hot.shards, store.hot.scales)):
-        mine = (l1 >= 0) & (l1 // rps == d)
-        cases.append((f"L1 shard {d}", shard, scale, torch.where(mine, l1 - d * rps, -1)))
-    rows = []
+              torch.where(valid & (t >= end), t - end, -1)),
+             ("L1 shards' summed codes", codes,
+              torch.where(l1 >= 0, store.hot.scale[l1.clamp(min=0)], 0.0), lanes)]
     for name, table, scale, tier_ids in cases:
         args = (tier_ids.to(torch.int32).contiguous(), None, table.shape[0], table, None, scale)
-        kern, plain = tiered_gather_dequant(*args), tiered_gather_plain(*args)
-        ok = equal(kern, plain)
-        step9h(f"{what}: tiered_gather_dequant on the {name} bitwise its plain version")
-        check(ok, f"{what}: tiered_gather_dequant on the {name} == plain")
-        rows.append({"store": f"{what}, tiered_gather_dequant on the {name}: "
-                              f"{int((args[0] >= 0).sum())} of {args[0].numel()} lanes",
-                     "match": ok, "max_abs_err": float((kern - plain).abs().max())})
+        row(name, "tiered_gather_dequant", int((args[0] >= 0).sum()),
+            tiered_gather_dequant(*args), tiered_gather_plain(*args))
     return rows
 
 
@@ -5965,18 +6141,22 @@ def int8_store_phase(topo, x, pcie, card):
             reset_launches()
             out = store.gather(ids, **kw)
             sync()
-            k = (fsize if not kw["routed"] else data * fsize) + 2
-            step9h(f"(a) {label} {name}: {k} tiered_gather_dequant launches, bitwise the "
+            # L0 and cold one dequantising launch each; each shard's codes
+            # by gather_rows and one dequantising launch after their sum
+            # (psum) or per feature group after the exchange (routed)
+            want_k = ({"tiered_gather_dequant": data + 2, "gather_rows": data * fsize}
+                      if kw["routed"] else {"tiered_gather_dequant": 3, "gather_rows": fsize})
+            k = sum(want_k.values())
+            step9h(f"(a) {label} {name}: K2 launches {want_k}, bitwise the "
                    "replicated int8 lookup and the numpy int8 rows, exact tier hits")
-            expect_launches(read_launches(), {"tiered_gather_dequant": k},
-                            f"int8 sharded store {label} {name}")
+            expect_launches(read_launches(), want_k, f"int8 sharded store {label} {name}")
             check(equal(out, ref) and equal(out, want),
                   f"int8 sharded store {label} {name} == replicated int8 lookup")
             check(store.last_tier_hits.tolist() == want_hits,
                   f"int8 sharded store {label} {name}: hits {store.last_tier_hits.tolist()} "
                   f"against {want_hits}")
             got[name] = {"overflow": int(store.last_routed_overflow) if kw["routed"] else 0,
-                         "launches": k}
+                         "launches": k, "k2": want_k}
             launches[f"{label} {name}"] = k
             rows.append({"store": f"int8 sharded store {label}, {name}: {int(ids.numel())} ids",
                          "match": True, "max_abs_err": float((out - want).abs().max())})
@@ -5998,9 +6178,9 @@ def int8_store_phase(topo, x, pcie, card):
              "replicated_ms": (t_psum["yard_ms"] + t_routed["yard_ms"]) / 2,
              "replicated_turns": t_psum["yard_turns"] + t_routed["yard_turns"],
              "k2_device_ms": k2_device_ms([
-                 ("psum", psum, got["psum"]["launches"]),
-                 ("routed", routed, got[f"routed, planned cap {cap}"]["launches"]),
-                 ("replicated", rep, 1)], kernel="gather_dequant_kernel"),
+                 ("psum", psum, got["psum"]["k2"]),
+                 ("routed", routed, got[f"routed, planned cap {cap}"]["k2"]),
+                 ("replicated", rep, {"tiered_gather_dequant": 1})]),
              "bound_ms": bound_s * 1e3, "device_bytes": dev_bytes, "cold_bytes": nc * F}
         result["meshes"][label] = {"rep_rows": store.rep_rows, "hot_rows": store.hot_rows,
                                    "cold_rows": n - store.rep_rows - store.hot_rows,
@@ -6120,12 +6300,18 @@ def controller_phase(topo, x, card):
             reset_launches()
             out = store.gather(ids, **kw)
             sync()
-            step9h(f"(b) {label} post-repin {name} gather: 6 {entry} launches, bitwise the "
-                   "dense rows")
-            expect_launches(read_launches(), {entry: CTL_MESH[1] + 2},
-                            f"controller {label} post-repin {name}")
+            # float32: one launch per tier table; int8: the shards' codes
+            # (gather_rows), dequantised once after their sum or once per
+            # feature group after the exchange
+            groups, fsize = CTL_MESH
+            want_k = ({entry: fsize + 2} if not dtype
+                      else {entry: (groups if kw else 1) + 2,
+                            "gather_rows": (groups if kw else 1) * fsize})
+            step9h(f"(b) {label} post-repin {name} gather: K2 launches {want_k}, bitwise "
+                   "the dense rows")
+            expect_launches(read_launches(), want_k, f"controller {label} post-repin {name}")
             check(equal(out, want), f"controller {label} post-repin {name} == dense rows")
-            launches[f"{label} post-repin {name}"] = CTL_MESH[1] + 2
+            launches[f"{label} post-repin {name}"] = sum(want_k.values())
             rows.append({"store": f"controller store ({label}) post-repin {name}: "
                                   f"{CTL_TRACE_IDS} ids", "match": True,
                          "max_abs_err": float((out - want).abs().max())})
@@ -6284,17 +6470,20 @@ def control_mode(topo, x, labels, seed_sharding, topo_sharding, card):
         sync()
         dt = time.perf_counter() - a
         got = read_launches()
-        k2 = groups * (int(store.rep_rows > 0) + F + int(store.cold is not None))
-        step9h(f"(d) {what} step {i}: exactly {k1} {k1_name} and {k2} tiered_gather_dequant "
-               "launches")
-        expect_launches(got, {k1_name: k1, "tiered_gather_dequant": k2}, f"{what} step {i}")
+        # per feature group: L0 and cold one dequantising launch each, each
+        # shard's codes by gather_rows and one dequantising launch after
+        # their sum (psum) or the exchange (routed)
+        tiers = int(store.rep_rows > 0) + int(store.cold is not None)
+        k2 = {"tiered_gather_dequant": groups * (tiers + 1), "gather_rows": groups * F}
+        step9h(f"(d) {what} step {i}: exactly {k1} {k1_name} and K2 launches {k2}")
+        expect_launches(got, {k1_name: k1, **k2}, f"{what} step {i}")
         ov = int(trainer.last_routed_overflow) + int(trainer.last_sample_overflow.sum())
         heat = int(trainer.metrics.value(FEATURE_ROW_HEAT).sum())
         step9h(f"(d) {what} step {i}: the heat histogram counts every valid lane once")
         check(heat == int(trainer.last_tier_hits.sum()), f"{what}: heat {heat} against hits "
               f"{trainer.last_tier_hits.tolist()}")
         per_step.append({"alpha": trainer.routed_alpha, "overflow": ov, "rep_rows": store.rep_rows,
-                         "launches": {k1_name: k1, "tiered_gather_dequant": k2}})
+                         "launches": {k1_name: k1, **k2}})
         if i >= MULTI_WARMUP:
             times.append(dt)
             for name, v in got.items():
@@ -6328,7 +6517,7 @@ def control_mode(topo, x, labels, seed_sharding, topo_sharding, card):
     del prof["step_ms"]
     r.update(prof, k1_device_ms_per_step=ours["select_kernel" if topo_sharding == "mesh"
                                               else "uniform_hop_kernel"],
-             k2_device_ms_per_step=ours["gather_dequant_kernel"])
+             k2_device_ms_per_step=ours["gather_dequant_kernel"] + ours["gather_kernel"])
     if seed_sharding == "all":
         # one epoch whose end repins; then a manual repin needs refresh()
         mat = trainer.pack_epoch(rng.integers(0, n, CTL_EPOCH_STEPS * trainer.global_batch),
@@ -6501,8 +6690,10 @@ def same_params(a: dict, b: dict) -> bool:
 def elastic_int8_replan(topo, x, ids, card) -> dict:
     """(e) An int8 store on ``(1, 4)`` replanned onto ``(1, 2)`` and ``(1,
     1)``: its psum and routed lookups of a frontier bitwise the lookups
-    before the replan, one ``tiered_gather_dequant`` per tier table, and
-    its tiers as the budgets plan them."""
+    before the replan, one ``tiered_gather_dequant`` for L0 and one for the
+    cold rows, the shards' codes by ``gather_rows`` and one dequantising
+    launch after their sum or the exchange, and its tiers as the budgets
+    plan them."""
     from quiver_tpu_torch import ShardedFeature
 
     n = topo.node_count
@@ -6523,12 +6714,13 @@ def elastic_int8_replan(topo, x, ids, card) -> dict:
             reset_launches()
             got = store.gather(ids, **kw)
             sync()
-            launches = fsize + 2  # L0, each shard, the cold rows
+            # L0 and the cold rows, each shard's codes by gather_rows and
+            # one dequantising launch after their sum or the exchange
+            launches = {"tiered_gather_dequant": 3, "gather_rows": fsize}
             step9i(f"(e) int8 (1, {fsize}) {name}: bitwise the (1, 4) lookup, "
-                   f"{launches} tiered_gather_dequant launches")
+                   f"K2 launches {launches}")
             check(equal(got, before[name]), f"int8 replan (1, {fsize}) {name} bitwise")
-            expect_launches(read_launches(), {"tiered_gather_dequant": launches},
-                            f"int8 replan (1, {fsize}) {name}")
+            expect_launches(read_launches(), launches, f"int8 replan (1, {fsize}) {name}")
     step9i("(e) the int8 tiers follow the budgets: L0 kept, L1 shrinks with F")
     check(tiers[4][0] == tiers[2][0] == tiers[1][0]
           and tiers[4][1] == 2 * tiers[2][1] == 4 * tiers[1][1],
@@ -6797,8 +6989,9 @@ def ooc_phase(card):
         reset_launches()
         got_rows = store[n_id]
         staged = store._staging.rows[:n_id.numel()]
-        plain = tiered_gather_plain(store._staging.ids[:n_id.numel()].to("cuda"), None,
-                                    store.hot_rows, store.hot, staged)
+        t = torch.from_numpy(store._translate(n_id.cpu().numpy()).astype(np.int32))
+        k_ids, _, _ = store._launch_args(t.to(n_id.device), staged)
+        plain = tiered_gather_plain(k_ids, None, store.hot_rows, store.hot, staged)
         sync()
         step9j("one lookup: one tiered_gather launch over the pinned staged block, "
                "bitwise its plain version and the in-RAM lookup")
@@ -7332,6 +7525,8 @@ def main() -> int:
                 "annotations": len(lint.annotations), "seconds": lint_s}
     log(f"graftlint: {len(lint.files)} files clean ({len(lint.suppressed)} suppressed) "
         f"in {lint_s:.1f}s")
+    # phase 2c: the program audit over the registry's recorded programs
+    audit = audit_phase(card)
     # the native host library (CSR builds; phase 9k requires it)
     from quiver_tpu_torch import native
 
@@ -7787,13 +7982,14 @@ def main() -> int:
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
-                       "lint": lint_row,
+                       "lint": lint_row, "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
                                  "edges": topo.edge_count,
                                  "max_degree": topo.max_degree}}, fh, indent=1)
     print(json.dumps({"lint": lint_row}), flush=True)
+    print(json.dumps({"audit": audit}), flush=True)
     print(json.dumps({"bulk": bulk, "int8_lookup": t_q, "card": card}), flush=True)
     print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w,
                                 "int8": serve_q}}), flush=True)

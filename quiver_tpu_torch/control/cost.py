@@ -201,17 +201,17 @@ class CostModel:
             )
         return out
 
-    # -- static HBM peaks (graftmem) -----------------------------------------
+    # -- peak memory (the program audit) ---------------------------------------
 
     def calibrate_hbm(self, peaks: dict) -> bool:
-        """Anchor the per-target static peak-HBM surface from graftmem's
-        liveness-walk estimates (``{target_name: peak_bytes}`` — e.g. the
-        ``peak_bytes`` column of :func:`quiver_tpu.tools.audit.mem
-        .peak_table`). Unlike the timing coefficients these are not
-        measured: they are PROVEN upper-shape bounds over the lowered IR,
+        """Anchor the per-target peak-memory surface from the program
+        audit's estimates (``{target_name: peak_bytes}``, e.g. the
+        ``peak_bytes`` column of :func:`~..tools.audit.mem.peak_table`).
+        Unlike the timing coefficients these are not timed: each is the
+        alloc/free walk of a recorded run of the target on small inputs,
         so a candidate the controller is ranking can be rejected for not
-        fitting before anything executes. Returns False (model
-        unchanged) on an empty mapping."""
+        fitting before it runs at scale. Returns False (model unchanged)
+        on an empty mapping."""
         clean = {str(k): int(v) for k, v in dict(peaks).items()
                  if int(v) >= 0}
         if not clean:

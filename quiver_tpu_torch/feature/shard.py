@@ -30,15 +30,17 @@ cold lanes enter the L1 gather as ``-1``, so they take no bucket capacity.
 With ``dtype="int8"`` every tier holds per-row absmax codes and the
 ``(N,)`` float32 scales live on the device. The JAX package gathers the
 codes of a tier, sums them over the shards (psum or the routed fallback)
-and then multiplies by the scales; here each tier's one launch is K2's
-dequantising entry (``tiered_gather_dequant``) over that tier's table and
-the contiguous slice of the scales that starts at the tier's offset, so a
-shard dequantises its own rows and the shards' float32 answers are summed.
-The rows stay bitwise JAX's: exactly one shard owns a lane and every other
-shard answers ``+0.0`` (a negative id reads a zero code and a zero scale),
-a code times a scale of 0 or more is never ``-0.0``, ``x + (+0.0) == x``
-for every such ``x``, and the kernel rounds each product once
-(``__fmul_rn``), as ``codes.astype(float32) * scale`` does.
+and then multiplies by the scales. Here the L0 and cold tiers each run
+K2's dequantising entry (``tiered_gather_dequant``) over their table and
+the contiguous slice of the scales that starts at their offset. The L1
+shards, as JAX's, serve codes (``gather_rows``): both flavours sum them
+(the psum) or exchange them (the routed flavour, whose ``all_to_all``
+carries int8), and the requesters dequantise the summed or received
+block in one launch. The rows stay bitwise JAX's: exactly one shard owns
+a lane and every other shard answers zero codes, so the sum is the
+owner's codes (a negative id reads a zero code and a zero scale), and the
+kernel rounds each product once (``__fmul_rn``), as
+``codes.astype(float32) * scale`` does.
 
 ``repin`` and ``apply_row_updates`` are transactions: every new host array
 is built and checked aside, then published with one ``version`` bump and
@@ -58,6 +60,7 @@ from ..control.freq import _host
 from ..core.config import CachePolicy, parse_size_bytes
 from ..core.memory import to_pinned_host
 from ..core.topology import CSRTopo
+from ..obs.marks import collective
 from ..obs.registry import ROUTED_OVERFLOW, TIER_HITS, MetricsRegistry
 from ..ops.kernels.gather import (gather_rows, gather_rows_plain, tiered_gather_dequant,
                                   tiered_gather_plain)
@@ -134,8 +137,9 @@ class ShardedTensor(KernelChoice):
             doc="fallback-served lanes of the last capped routed gather",
         )
         self.shards: list[torch.Tensor] = []
-        # int8 codes only: each shard's (rows_per_shard,) float32 scales
-        self.scales: list[torch.Tensor] | None = None
+        # int8 codes only: every row's float32 scale (padded as the rows
+        # are), on the requesters' device, which dequantises the codes
+        self.scale: torch.Tensor | None = None
         self.rows_per_shard = 0
         self.num_rows = 0
 
@@ -152,7 +156,8 @@ class ShardedTensor(KernelChoice):
 
     def from_cpu_tensor(self, tensor, scale=None) -> "ShardedTensor":
         """Place the rows; ``scale`` (the ``(N,)`` float32 scales of int8
-        rows, or None) makes every shard's gather dequantise."""
+        rows, or None) makes every gather dequantise the codes it sums or
+        receives."""
         table = _host_table(tensor)
         n, f = table.shape
         rps = -(-n // self.num_shards)  # ceil
@@ -167,44 +172,42 @@ class ShardedTensor(KernelChoice):
         return self
 
     def set_scale(self, scale) -> None:
-        """Give each shard its slice of ``scale`` (``(N,)`` float32, the
-        scales of the table's int8 rows; None: the rows are not codes),
-        padded with zeros as the rows are."""
+        """Take ``scale`` (``(N,)`` float32, the scales of the table's int8
+        rows; None: the rows are not codes), padded with zeros as the rows
+        are."""
         if scale is None:
-            self.scales = None
+            self.scale = None
             return
-        rps = self.rows_per_shard
         scale = torch.as_tensor(scale, dtype=torch.float32).reshape(-1)
-        pad = rps * self.num_shards - scale.shape[0]
+        pad = self.rows_per_shard * self.num_shards - scale.shape[0]
         if pad:
             scale = torch.cat([scale, scale.new_zeros(pad)])
-        self.scales = [scale[d * rps:(d + 1) * rps].to(dev).contiguous()
-                       for d, dev in enumerate(self.member_devices)]
+        self.scale = scale.to(self.device)
 
     @property
     def shape(self):
         return (self.num_rows, self.shards[0].shape[1])
 
     def local_gather(self, member: int, ids):
-        """Shard ``member``'s rows for the ids it owns, zero rows for every
-        other id (and for ids below 0): one K2 launch on the shard, which
-        dequantises int8 rows (``+0.0`` on the lanes it does not own). The
-        psum flavour sums these over the members."""
+        """Shard ``member``'s stored rows (int8 codes for an int8 table) for
+        the ids it owns, zero rows for every other id (and for ids below
+        0): one K2 ``gather_rows`` launch on the shard."""
         rps = self.rows_per_shard
         mine = (ids >= 0) & (torch.div(ids, rps, rounding_mode="floor") == member)
         local = torch.where(mine, ids - member * rps, -1)
         shard = self.shards[member]
-        scale = None if self.scales is None else self.scales[member]
-        return _row_gather(shard, self.kernel, scale)(local.to(shard.device)).to(ids.device)
+        return _row_gather(shard, self.kernel)(local.to(shard.device)).to(ids.device)
 
     def psum_gather(self, ids):
         """Rows of ``ids`` (any shape; every member requests the same ids):
-        each shard's :meth:`local_gather`, summed in member order."""
+        each shard's :meth:`local_gather`, summed in member order, then
+        dequantised (an int8 table)."""
         out = None
         for d in range(self.num_shards):
             part = self.local_gather(d, ids)
             out = part if out is None else out + part
-        return out
+        collective("psum", (self.axis,), out)
+        return self._dequantise(ids, out)
 
     def routed_cap(self, length: int, alpha: float | None = None) -> int:
         """Bucket capacity for a per-member request length ``L``: ``ceil(alpha
@@ -244,7 +247,11 @@ class ShardedTensor(KernelChoice):
         launch per shard). ``cap`` caps the buckets (``None``: uncapped);
         overflowed lanes are served by the fallback, exactly. Returns the
         ``(F, L, row)`` rows, and with ``with_overflow`` also the group's
-        fallback-served lane count (int32 scalar, 0 when uncapped)."""
+        fallback-served lane count (int32 scalar, 0 when uncapped).
+
+        An int8 table's codes ride the exchange (a quarter of the float
+        rows' bytes, as in the JAX package), and the requesters dequantise
+        the received block."""
         L = ids.shape[1]
         if cap is not None:
             cap = int(cap)
@@ -257,14 +264,30 @@ class ShardedTensor(KernelChoice):
         route = BucketRoute(safe, valid, torch.div(safe, self.rows_per_shard,
                                                    rounding_mode="floor"),
                             num_shards=self.num_shards, cap=cap)
-        rows = route.exchange(self.local_gather)
+        rows = self._dequantise(ids, route.exchange(self.local_gather))
         return (rows, route.overflow) if with_overflow else rows
+
+    def _dequantise(self, ids, codes):
+        """The int8 ``codes`` summed or received for ``ids`` (any shape) ->
+        float32 rows: one K2 ``tiered_gather_dequant`` over the block, lane
+        ``j`` reading block row ``j`` times its id's scale; zero rows on
+        invalid lanes. Rows that are not codes pass through."""
+        if self.scale is None:
+            return codes
+        flat = codes.reshape(-1, codes.shape[-1]).contiguous()
+        valid = (ids >= 0).reshape(-1)
+        lanes = flat.shape[0]
+        lane = torch.where(valid, torch.arange(lanes, device=flat.device), -1)
+        scale = torch.where(valid, self.scale[ids.reshape(-1).clamp(min=0)], 0.0)
+        deq = tiered_gather_dequant if self.kernel == "pallas" else tiered_gather_plain
+        rows = deq(lane.to(torch.int32), None, lanes, flat, None, scale)
+        return rows.reshape(tuple(ids.shape) + (codes.shape[-1],))
 
     def delete(self) -> None:
         """Free the shards now (the reference's ``shard_tensor.delete``).
         The object is unusable after."""
         self.shards = []
-        self.scales = None
+        self.scale = None
         self.last_routed_overflow = None
 
     def gather(self, ids, routed: bool = False, routed_cap="auto"):
@@ -935,7 +958,8 @@ class ShardedFeature(KernelChoice):
         the rows, the int32 per-tier hits (``(3,)``, or ``(F, 3)`` per
         member) and the group's fallback-served lanes (int32 scalar), all
         on ``n_id``'s device with no host read. K2 launches: one for the
-        L0 lanes (with an L0), one per shard (with an L1), one for the cold
+        L0 lanes (with an L0), one per shard (with an L1; int8: one more, the
+        dequantisation of the summed or received codes), one for the cold
         lanes (with a cold tier)."""
         ov = [torch.zeros((), dtype=torch.int32, device=n_id.device)]
         if self.hot is None:

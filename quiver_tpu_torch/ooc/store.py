@@ -132,10 +132,10 @@ class MmapFeatureStore(KernelChoice):
         self.cache_budget = int(meta.get("cache_budget", 0))
         # scale and feature_order are O(N) metadata, resident as Feature's
         # are (the O(graph) rows are what stays on disk)
-        self.scale = self._scale_np = None
+        self.scale = None
         if "scale" in arrays:
-            self._scale_np = np.array(arrays["scale"], np.float32)
-            self.scale = torch.from_numpy(self._scale_np).to(self.device)
+            self.scale = torch.from_numpy(np.array(arrays["scale"], np.float32)).to(
+                self.device)
         self.feature_order = self._order_np = None
         if "feature_order" in arrays:
             self._order_np = np.array(arrays["feature_order"])
@@ -292,53 +292,47 @@ class MmapFeatureStore(KernelChoice):
     # -- lookup --------------------------------------------------------------
 
     def _translate(self, ids: np.ndarray) -> np.ndarray:
-        """Translated rows of host ids: ``-1`` lanes read id 0, an id past
-        the table the last id (as every K2 entry clamps), then
-        ``feature_order``."""
+        """Translated rows of host ids, the lookup's one translation: an
+        id past the table reads the last id (as every K2 entry clamps),
+        then ``feature_order``; ``-1`` lanes stay ``-1``."""
         t = np.minimum(np.where(ids >= 0, ids, 0), self.shape[0] - 1).astype(np.int64)
         if self._order_np is not None:
             t = self._order_np[t].astype(np.int64)
-        return t
+        return np.where(ids >= 0, t, -1)
 
     def _cold_local(self, t: np.ndarray) -> np.ndarray | None:
-        """The JAX package's cold-tier routing: each lane's cold-local row,
-        row 0 on the lanes of another tier (the cold-lane trick), so the
-        assembled block is lane for lane what the in-RAM lookup reads."""
+        """The JAX package's cold-tier routing of translated rows ``t``:
+        each lane's cold-local row, row 0 on the lanes of another tier and
+        on ``-1`` lanes (the cold-lane trick), so the assembled block is
+        lane for lane what the in-RAM lookup reads."""
         if self._cold_rows <= 0:
             return None
         return np.where(t >= self.hot_rows, t - self.hot_rows, 0)
 
     def _buffers(self, lanes: int):
-        """This thread's staging buffers for ``lanes`` lanes: the cold rows,
-        the launch's ids and (int8) the scale vector, pinned on a card.
-        Waits for the last launch that read them. Returns ``(rows, ids,
-        scale tail or None, device scale vector or None)``."""
+        """This thread's staging buffers for ``lanes`` lanes, pinned on a
+        card: ``(cold rows, translated rows)``. Waits for the last launch
+        that read them."""
         local = self._staging
         if getattr(local, "read", None) is not None:
             local.read.synchronize()
             local.read = None
         cap = getattr(local, "cap", 0)
-        pin = self.device.type == "cuda"
         if cap < lanes:
             cap = max(lanes, 2 * cap)
-            f = self.shape[1]
-            local.rows = torch.empty((cap, f), dtype=self.dtype, pin_memory=pin)
-            local.ids = torch.empty((cap,), dtype=torch.int32, pin_memory=pin)
-            local.tail = local.scale = None
-            if self.scale is not None:
-                local.tail = torch.empty((cap,), dtype=torch.float32, pin_memory=pin)
-                local.scale = torch.cat([
-                    self.scale[:self.hot_rows],
-                    torch.zeros(cap, dtype=torch.float32, device=self.device)])
+            pin = self.device.type == "cuda"
+            local.rows = torch.empty((cap, self.shape[1]), dtype=self.dtype, pin_memory=pin)
+            local.t = torch.empty((cap,), dtype=torch.int32, pin_memory=pin)
             local.cap = cap
-        return local.rows, local.ids, local.tail, local.scale
+        return local.rows[:lanes], local.t[:lanes]
 
     def __getitem__(self, n_id):
         """Rows for (possibly padded, ``-1`` sentinel) node ids: ``-1``
         lanes give zero rows, int8 stores return float32; bitwise the
-        in-RAM ``Feature``'s lookup. One K2 launch on the card."""
-        n_id = torch.as_tensor(n_id).reshape(-1)
-        ids = n_id.cpu().numpy()  # the host stages the bytes: one read
+        in-RAM ``Feature``'s lookup. The host translates the ids once and
+        stages the cold lanes' rows, then :meth:`merge` runs one K2 launch
+        on the card."""
+        ids = torch.as_tensor(n_id).reshape(-1).cpu().numpy()  # the host stages: one read
         lanes = ids.shape[0]
         t = self._translate(ids)
         cold_local = self._cold_local(t)
@@ -347,42 +341,69 @@ class MmapFeatureStore(KernelChoice):
             with trace_scope("ooc_stage"):
                 block = self._gather_cold(cold_local)
         with trace_scope("feature_gather"):
-            rows_buf, ids_buf, tail_buf, scale_ext = self._buffers(lanes)
-            k_ids = np.where(ids >= 0, np.where(t < self.hot_rows, t,
-                                                self.hot_rows + np.arange(lanes)), -1)
-            ids_buf[:lanes].numpy()[:] = k_ids
-            k_ids = ids_buf[:lanes].to(self.device, non_blocking=True)
+            rows_buf, t_buf = self._buffers(lanes)
+            t_buf.numpy()[:] = t
             staged = None
             if block is not None:
-                rows_buf[:lanes].numpy()[:] = block
-                staged = rows_buf[:lanes]
-            scale = None
-            if scale_ext is not None:
-                # the staged lanes' own scales after the hot rows', so the
-                # launch's scale[t] is each lane's scale
-                n_scale = self.hot_rows + (lanes if staged is not None else 0)
-                if staged is not None:
-                    tail_buf[:lanes].numpy()[:] = self._scale_np[self.hot_rows + cold_local]
-                    scale_ext[self.hot_rows:n_scale].copy_(tail_buf[:lanes],
-                                                           non_blocking=True)
-                scale = scale_ext[:n_scale]
-            if self.kernel == "pallas":
-                out = tiered_lookup(k_ids, None, self.hot_rows, self.hot, staged, scale)
-            else:
-                out = stock_lookup(k_ids, None, self.hot_rows, self.hot, staged, scale)
+                rows_buf.numpy()[:] = block
+                staged = rows_buf
+            out = self.merge(t_buf.to(self.device, non_blocking=True), staged)
             if self.device.type == "cuda":
                 self._staging.read = torch.cuda.Event()
                 self._staging.read.record(torch.cuda.current_stream(self.device))
             return out
 
+    def merge(self, t, block=None):
+        """The device half of :meth:`__getitem__`: the tier merge of one
+        staged batch. ``t`` is the ``(B,)`` int32 translated rows on the
+        store's device (:meth:`_translate`: ``-1`` on the lanes that read
+        nothing); ``block`` the host-staged lane-aligned cold rows (row
+        ``j`` for lane ``j``, what the stager assembles; in pinned memory
+        on a card), or None for a store with no cold tier. One K2 launch
+        (``kernel="pallas"``) over :meth:`_launch_args`, or the stock
+        merge."""
+        ids, staged, scale = self._launch_args(t, block)
+        lookup = tiered_lookup if self.kernel == "pallas" else stock_lookup
+        return lookup(ids, None, self.hot_rows, self.hot, staged, scale)
+
+    def _launch_args(self, t, block):
+        """``(ids, cold table, scale)`` of :meth:`merge`'s launch. The ids
+        make the block its cold table: a hot lane reads its translated row,
+        cold lane ``j`` row ``hot_rows + j``, a ``-1`` lane zeros; for int8
+        the scales are the hot rows' followed by each cold lane's own, so
+        every lane is ``q[t] * scale[t]``."""
+        lane = torch.arange(t.shape[0], device=t.device, dtype=t.dtype)
+        ids = torch.where(t >= 0, torch.where(t < self.hot_rows, t, self.hot_rows + lane), -1)
+        staged = block if self._cold_rows > 0 else None
+        scale = None
+        if self.scale is not None:
+            scale = self.scale[:self.hot_rows]
+            if staged is not None:
+                cold = torch.where(t >= self.hot_rows, t, self.hot_rows).to(torch.int64)
+                scale = torch.cat([scale, self.scale[cold]])
+        return ids, staged, scale
+
     def trace_lookup(self, batch: int):
-        """The JAX package's ahead-of-time audit surface for this lookup
-        (a traced program of the tier merge for its static memory audit);
-        the torch analogue is ROADMAP A.14b."""
-        raise NotImplementedError(
-            "MmapFeatureStore.trace_lookup: the JAX package's traced-program "
-            "audit surface is not ported yet (ROADMAP A.14b)"
-        )
+        """The recorded program (``tools.audit.ir.Program``) of the tier
+        merge one staged batch runs: :meth:`merge` on the ``(batch,)``
+        translated rows of ids that span both tiers and a ``(batch, F)``
+        staged block as operands (the JAX package's traced program has two
+        arguments of the same shapes and dtypes), the hot
+        rows, order and scales as state. No disk I/O: the example block is
+        zeros, in pinned memory on a card. The program's ``fn`` is
+        :meth:`merge`, to run again on a real staged block. This is the
+        audit's ``mmap_tiered_gather`` target."""
+        from ..tools.audit.ir import record
+
+        batch = int(batch)
+        n, f = self.shape
+        t = self._translate(np.arange(batch) * 7 % n).astype(np.int32)
+        operands = [torch.from_numpy(t).to(self.device)]
+        if self._cold_rows > 0:
+            operands.append(torch.zeros((batch, f), dtype=self.dtype,
+                                        pin_memory=self.device.type == "cuda"))
+        return record(self.merge, *operands, name="mmap_tiered_gather",
+                      device=self.device.type)
 
     def prefetch(self, n_id) -> int:
         """Dispatch background disk reads for a FUTURE batch's cold rows

@@ -21,6 +21,11 @@ error. Every entry takes its arguments as one packed struct of 8-byte
 fields, the stream last, which ctypes passes as one pointer (every ctypes
 argument costs host time to convert). A build or launch failure raises:
 there is no fallback to the plain PyTorch version on a CUDA device.
+
+Every library also exports ``quiver_kernel_attrs``: each of its
+``__global__`` instantiations with its ``cudaFuncGetAttributes`` and the
+block size its launches use, which :func:`kernel_attrs` reads for the
+program audit's kernel check (``tools/audit``).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import threading
 
 import torch
 
-__all__ = ["KERNELS", "address", "build_all", "launch"]
+__all__ = ["KERNELS", "address", "build_all", "kernel_attrs", "launch"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, ".cuda_build")
@@ -159,6 +164,36 @@ def _kernel(entry: str):
     fn.restype = _I
     fn.argtypes = [ctypes.c_char_p]
     return fn, struct.Struct(f"<{fields}q").pack
+
+
+class _KernelAttrs(ctypes.Structure):
+    """``common.cuh``'s ``KernelAttrs``."""
+
+    _fields_ = [("kernel", ctypes.c_char * 64), ("entry", ctypes.c_char * 32)] + [
+        (name, ctypes.c_longlong) for name in (
+            "block", "regs", "shared_static", "shared_dynamic", "local", "max_threads")]
+
+
+def kernel_attrs() -> list[dict]:
+    """Every ``__global__`` instantiation of every kernel library, as
+    ``cudaFuncGetAttributes`` reports it on the current device, with the
+    block size its launches use: one dict per kernel (``kernel``,
+    ``entry``, ``block``, ``regs``, ``shared_static``, ``shared_dynamic``,
+    ``local``, ``max_threads``). Builds the libraries first; raises on a
+    CUDA error."""
+    out = []
+    for name, lib in _libraries().items():
+        fn = lib.quiver_kernel_attrs
+        fn.argtypes = [ctypes.POINTER(_KernelAttrs), _I]
+        fn.restype = _I
+        rows = (_KernelAttrs * 32)()
+        n = fn(rows, len(rows))
+        if n < 0:
+            raise RuntimeError(f"quiver_kernel_attrs of {name}.cu failed ({n})")
+        out += [{"kernel": r.kernel.decode(), "entry": r.entry.decode(),
+                 **{f: int(getattr(r, f)) for f, _ in _KernelAttrs._fields_[2:]}}
+                for r in rows[:n]]
+    return out
 
 
 def address(t, index: int) -> int:

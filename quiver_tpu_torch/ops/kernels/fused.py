@@ -26,13 +26,16 @@ draws scaled elsewhere (``scale_u=False``).
 
 Each of the four launches its kernel for CUDA tensors and raises if it
 cannot; its ``*_plain`` twin is the same function in plain PyTorch, used
-for CPU tensors and as the reference the kernel is checked against.
+for CPU tensors and as the reference the kernel is checked against. Each
+is a ``kernel_entry`` (``obs/marks.py``): under the program audit's
+recorder one call is one opaque kernel node, on either device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...obs.marks import kernel_entry
 from .build import address, launch
 
 __all__ = [
@@ -87,6 +90,7 @@ def _check_rows(t, name: str, dtype, S: int, index: int):
     return t.contiguous()
 
 
+@kernel_entry
 def select(tables, start, offs, count=None):
     """Neighbour select over one or two int32 tables (kernel K1).
 
@@ -154,6 +158,7 @@ def uniform_hop_plain(indptr, indices, seeds, num_seeds, jitter, rot, *,
     return nbr, counts, torch.where(nbr >= 0, epos, -1).to(base.dtype)
 
 
+@kernel_entry
 def uniform_hop(indptr, indices, seeds, num_seeds, jitter, rot, *, eid=None,
                 with_eid: bool = False):
     """The uniform hop in one launch (kernel K1, ``quiver_uniform_hop``).
@@ -276,6 +281,7 @@ def wselect_plain(indices, cum_weights, start, deg, u, iters: int, *,
     return tuple(outs)
 
 
+@kernel_entry
 def wselect(indices, cum_weights, start, deg, u, iters: int, *, eid=None,
             scale_u: bool = True):
     """Weighted neighbour select (kernel K3).
@@ -351,6 +357,7 @@ def weighted_hop_plain(indptr, indices, cum_weights, seeds, num_seeds, u01,
     return nbr, counts, torch.where(nbr >= 0, epos, -1).to(base.dtype)
 
 
+@kernel_entry
 def weighted_hop(indptr, indices, cum_weights, seeds, num_seeds, u01,
                  iters: int, *, eid=None, with_eid: bool = False):
     """The weighted hop in one launch (kernel K3, ``quiver_weighted_hop``).

@@ -40,6 +40,7 @@
 
 constexpr int V = 4;             // words in flight per lane: a chunk is 32 * V
 constexpr int MAX_ROWS = 4;      // rows per warp at most
+constexpr int THREADS = 256;     // 8 warps, every launch of this file
 
 // The source row of id `id` (null for a negative id or an empty table) and
 // its translated row `t`, clamped to the table.
@@ -203,7 +204,7 @@ static unsigned blocks_for(long long n_ids, int rows, int threads) {
 
 template <typename W>
 static void launch(const GatherArgs* a) {
-    const int threads = 256;  // 8 warps
+    const int threads = THREADS;
     long long words = a->row_bytes / (long long)sizeof(W);
     int rows = rows_per_warp(words);
     gather_kernel<W><<<blocks_for(a->n_ids, rows, threads), threads, 0,
@@ -214,7 +215,7 @@ static void launch(const GatherArgs* a) {
 
 template <typename W>
 static void launch_dequant(const GatherArgs* a) {
-    const int threads = 256;  // 8 warps
+    const int threads = THREADS;
     long long words = a->row_bytes / (long long)sizeof(W);
     int rows = rows_per_warp(words);
     gather_dequant_kernel<W><<<blocks_for(a->n_ids, rows, threads), threads, 0,
@@ -259,4 +260,22 @@ extern "C" int quiver_gather_dequant(const GatherArgs* a) {
         launch_dequant<uint8_t>(a);
     }
     return (int)cudaGetLastError();
+}
+
+// The audit's kernel check (common.cuh): every instantiation of this file.
+extern "C" int quiver_kernel_attrs(KernelAttrs* out, int cap) {
+    static const KernelRow rows[] = {
+        {(const void*)gather_kernel<uint4>, "gather_kernel<uint4>", "gather", THREADS},
+        {(const void*)gather_kernel<uint2>, "gather_kernel<uint2>", "gather", THREADS},
+        {(const void*)gather_kernel<uint32_t>, "gather_kernel<uint32_t>", "gather", THREADS},
+        {(const void*)gather_kernel<uint16_t>, "gather_kernel<uint16_t>", "gather", THREADS},
+        {(const void*)gather_kernel<uint8_t>, "gather_kernel<uint8_t>", "gather", THREADS},
+        {(const void*)gather_dequant_kernel<uint32_t>, "gather_dequant_kernel<uint32_t>",
+         "gather_dequant", THREADS},
+        {(const void*)gather_dequant_kernel<uint16_t>, "gather_dequant_kernel<uint16_t>",
+         "gather_dequant", THREADS},
+        {(const void*)gather_dequant_kernel<uint8_t>, "gather_dequant_kernel<uint8_t>",
+         "gather_dequant", THREADS},
+    };
+    return fill_kernel_attrs(out, cap, rows, (int)(sizeof(rows) / sizeof(rows[0])));
 }

@@ -19,13 +19,16 @@ clamp; a negative id gives a zero row.
 :func:`tiered_gather_dequant` launch the kernel for CUDA ids and raise if
 they cannot; :func:`gather_rows_plain` and :func:`tiered_gather_plain`
 are the same functions in plain PyTorch, used for CPU tensors and as the
-references the kernel is checked against.
+references the kernel is checked against. The three are
+``kernel_entry``s (``obs/marks.py``): under the program audit's recorder
+one call is one opaque kernel node.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...obs.marks import kernel_entry
 from .build import address, launch
 
 __all__ = ["gather_rows", "gather_rows_plain", "tiered_gather",
@@ -61,6 +64,7 @@ def _check_table(table, name: str, F=None, dtype=None) -> None:
         raise ValueError(f"{name} must hold ({F},) {dtype} rows")
 
 
+@kernel_entry
 def gather_rows(table, ids, out=None):
     """Gather rows of a ``(N, F)`` table (kernel K2, one table).
 
@@ -147,6 +151,7 @@ def _tiered_args(n_id, feature_order, hot_rows, hot, cold):
     return index, first, order, n_rows
 
 
+@kernel_entry
 def tiered_gather(n_id, feature_order, hot_rows: int, hot, cold):
     """Rows for padded node ids from a hot and a cold tier (kernel K2, one
     launch).
@@ -182,6 +187,7 @@ def tiered_gather(n_id, feature_order, hot_rows: int, hot, cold):
 tiered_gather.launches = 0
 
 
+@kernel_entry
 def tiered_gather_dequant(n_id, feature_order, hot_rows: int, hot, cold,
                           scale):
     """Float32 rows for padded node ids from int8 codes in a hot and a cold

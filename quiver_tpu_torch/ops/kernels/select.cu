@@ -41,6 +41,8 @@
 // memory or in pinned host memory (a UVA device pointer).
 #include "common.cuh"
 
+constexpr int THREADS = 256;  // every launch of this file
+
 template <bool TWO>
 __global__ void select_kernel(const int32_t* __restrict__ tab0,
                               const int32_t* __restrict__ tab1,
@@ -84,7 +86,7 @@ static_assert(sizeof(SelectArgs) == 10 * 8, "SelectArgs is 10 packed fields");
 extern "C" int quiver_select(const SelectArgs* a) {
     long long n = a->rows * a->k;
     if (n == 0) return 0;
-    const int threads = 256;
+    const int threads = THREADS;
     long long blocks = (n + threads - 1) / threads;
     cudaStream_t s = (cudaStream_t)a->stream;
     if (a->out1 != nullptr) {
@@ -181,7 +183,7 @@ static_assert(sizeof(UniformHopArgs) == 18 * 8, "UniformHopArgs is 18 packed fie
 
 template <typename IP>
 static void launch_hop(const UniformHopArgs* a, long long n) {
-    const int threads = 256;
+    const int threads = THREADS;
     unsigned blocks = (unsigned)((n + threads - 1) / threads);
     cudaStream_t s = (cudaStream_t)a->stream;
     const IP* ip = (const IP*)a->indptr;
@@ -210,4 +212,25 @@ extern "C" int quiver_uniform_hop(const UniformHopArgs* a) {
         launch_hop<int32_t>(a, n);
     }
     return (int)cudaGetLastError();
+}
+
+// The audit's kernel check (common.cuh): every instantiation of this file.
+extern "C" int quiver_kernel_attrs(KernelAttrs* out, int cap) {
+    static const KernelRow rows[] = {
+        {(const void*)select_kernel<true>, "select_kernel<true>", "select", THREADS},
+        {(const void*)select_kernel<false>, "select_kernel<false>", "select", THREADS},
+        {(const void*)uniform_hop_kernel<int32_t, 0>, "uniform_hop_kernel<int32_t, 0>",
+         "uniform_hop", THREADS},
+        {(const void*)uniform_hop_kernel<int32_t, 1>, "uniform_hop_kernel<int32_t, 1>",
+         "uniform_hop", THREADS},
+        {(const void*)uniform_hop_kernel<int32_t, 2>, "uniform_hop_kernel<int32_t, 2>",
+         "uniform_hop", THREADS},
+        {(const void*)uniform_hop_kernel<int64_t, 0>, "uniform_hop_kernel<int64_t, 0>",
+         "uniform_hop", THREADS},
+        {(const void*)uniform_hop_kernel<int64_t, 1>, "uniform_hop_kernel<int64_t, 1>",
+         "uniform_hop", THREADS},
+        {(const void*)uniform_hop_kernel<int64_t, 2>, "uniform_hop_kernel<int64_t, 2>",
+         "uniform_hop", THREADS},
+    };
+    return fill_kernel_attrs(out, cap, rows, (int)(sizeof(rows) / sizeof(rows[0])));
 }

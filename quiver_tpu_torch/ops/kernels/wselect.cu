@@ -196,3 +196,24 @@ static int launch_hop(const WeightedHopArgs* a) {
 extern "C" int quiver_weighted_hop(const WeightedHopArgs* a) {
     return a->indptr64 ? launch_hop<int64_t>(a) : launch_hop<int32_t>(a);
 }
+
+// The audit's kernel check (common.cuh): every instantiation of this file.
+extern "C" int quiver_kernel_attrs(KernelAttrs* out, int cap) {
+    static const KernelRow rows[] = {
+        {(const void*)wselect_kernel<true>, "wselect_kernel<true>", "wselect", THREADS},
+        {(const void*)wselect_kernel<false>, "wselect_kernel<false>", "wselect", THREADS},
+        {(const void*)weighted_hop_kernel<int32_t, 0>, "weighted_hop_kernel<int32_t, 0>",
+         "weighted_hop", THREADS},
+        {(const void*)weighted_hop_kernel<int32_t, 1>, "weighted_hop_kernel<int32_t, 1>",
+         "weighted_hop", THREADS},
+        {(const void*)weighted_hop_kernel<int32_t, 2>, "weighted_hop_kernel<int32_t, 2>",
+         "weighted_hop", THREADS},
+        {(const void*)weighted_hop_kernel<int64_t, 0>, "weighted_hop_kernel<int64_t, 0>",
+         "weighted_hop", THREADS},
+        {(const void*)weighted_hop_kernel<int64_t, 1>, "weighted_hop_kernel<int64_t, 1>",
+         "weighted_hop", THREADS},
+        {(const void*)weighted_hop_kernel<int64_t, 2>, "weighted_hop_kernel<int64_t, 2>",
+         "weighted_hop", THREADS},
+    };
+    return fill_kernel_attrs(out, cap, rows, (int)(sizeof(rows) / sizeof(rows[0])));
+}

@@ -27,11 +27,20 @@ the merge drops. The answers are the same bitwise either way: at most
 ``L`` lanes are valid and every overflowing bucket keeps its first ``cap``,
 so the total overflow of a member is at most ``L - cap``. Capped and
 uncapped routing (``cap >= L``) return the same answers bitwise.
+
+Each collective is marked where it runs (``obs.marks.collective``, over
+the ``feature`` axis): the overflow count's ``psum`` (capped plans), the
+two ``all_to_all`` transposes (and a payload's), the overflow lanes'
+``all_gather`` and the fallback's ``psum``, so the program audit
+(``tools/audit``) sees JAX's collective schedule.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..obs.marks import collective
+from .mesh import FEATURE_AXIS
 
 __all__ = ["BucketRoute"]
 
@@ -112,6 +121,8 @@ class BucketRoute:
                                           stable=True)[:, :self.ov_budget]
             self._ov_rank = self._ov_mask.to(torch.int64).cumsum(1) - 1
         self.overflow = self.member_overflow.sum(dtype=torch.int32)
+        if self.ov_budget:
+            collective("psum", (FEATURE_AXIS,), self.overflow)
         # the routed request ids, kept after the first exchange: a second
         # exchange through the same plan sends only its payload
         self._requests = None
@@ -156,10 +167,14 @@ class BucketRoute:
         it needs of its ids once per plan."""
         if self._requests is None:
             # (F_dst, F_src, cap): the all_to_all
-            recv = self._bucketize(self._sorted_ids, -1).transpose(0, 1)
+            send = self._bucketize(self._sorted_ids, -1)
+            collective("all_to_all", (FEATURE_AXIS,), send)
+            recv = send.transpose(0, 1)
             reqs = [recv[d].reshape(-1) for d in range(self.num_shards)]
             if self.ov_budget > 0:
-                ov_ids = self._compact_overflow(self._sorted_ids, -1).reshape(-1)
+                ov_ids = self._compact_overflow(self._sorted_ids, -1)
+                collective("all_gather", (FEATURE_AXIS,), ov_ids)
+                ov_ids = ov_ids.reshape(-1)
                 reqs = [torch.cat([r, ov_ids]) for r in reqs]
             self._requests = reqs
         return self._requests
@@ -183,10 +198,14 @@ class BucketRoute:
         recv_pay = sorted_pay = None
         if payload is not None:
             sorted_pay = payload[self._members, self._order]
-            recv_pay = self._bucketize(sorted_pay, 0).transpose(0, 1)
+            send_pay = self._bucketize(sorted_pay, 0)
+            collective("all_to_all", (FEATURE_AXIS,), send_pay)
+            recv_pay = send_pay.transpose(0, 1)
         ov = self.ov_budget > 0
         if ov and payload is not None:
-            ov_pay = self._compact_overflow(sorted_pay, 0).flatten(0, 1)
+            ov_pay = self._compact_overflow(sorted_pay, 0)
+            collective("all_gather", (FEATURE_AXIS,), ov_pay)
+            ov_pay = ov_pay.flatten(0, 1)
         mains, fallback = [], None
         for d in range(F):
             req = requests[d]
@@ -201,7 +220,13 @@ class BucketRoute:
                 part = out[F * cap:]
                 fallback = part if fallback is None else fallback + part
         trailing = tuple(mains[0].shape[1:])
-        back = torch.stack(mains).reshape((F, F, cap) + trailing).transpose(0, 1)
+        if ov:
+            collective("psum", (FEATURE_AXIS,), fallback,
+                       shape=(F, self.ov_budget) + trailing)
+        # (F_owner, F_src, cap, ...): the answers' all_to_all back
+        answers = torch.stack(mains).reshape((F, F, cap) + trailing)
+        collective("all_to_all", (FEATURE_AXIS,), answers)
+        back = answers.transpose(0, 1)
         main = back[self._members, self._owner_c, self._slot.clamp(0, cap - 1)]
         if ov:
             ov_rows = fallback.reshape((F, self.ov_budget) + trailing)

@@ -45,6 +45,7 @@ import torch
 from ..control.freq import heat_num_bins, row_heat_histogram
 from ..core.config import CachePolicy, parse_size_bytes
 from ..feature.shard import ShardedFeature
+from ..obs.marks import collective
 from ..obs.registry import (
     FEATURE_ROW_HEAT,
     GUARD_NONFINITE,
@@ -775,6 +776,10 @@ class DistributedTrainer:
                         p.grad.add_(g)
             loss = torch.stack([o[0] for o in outs]).mean()
         mtree = {}
+        # the JAX package's tape psums: each metric's sum over the workers is
+        # marked as its mesh reduction (the counts are per mesh slot under
+        # "all", shared by a feature group under "data")
+        axes = (DATA_AXIS, FEATURE_AXIS) if self.seed_sharding == "all" else (DATA_AXIS,)
         if self.collect_metrics:
             dev = loss.device
             mtree = {
@@ -784,13 +789,23 @@ class DistributedTrainer:
                                               dtype=torch.int32, device=dev)
                                   if sample_overflow is None else sample_overflow),
             }
+            collective("psum", (DATA_AXIS,), routed_overflow)
+            collective("psum", axes, mtree[TIER_HITS])
+            if sample_overflow is not None:
+                collective("psum", (DATA_AXIS,), sample_overflow)
             if self._heat_bins:
                 mtree[FEATURE_ROW_HEAT] = torch.stack(heat).sum(0, dtype=torch.int32)
+                collective("psum", axes, mtree[FEATURE_ROW_HEAT])
         if self.nonfinite_guard:
+            # the verdict's sum runs on every guarded step, over the whole
+            # mesh as the JAX package's guard_verdict psums; the metric is
+            # a sum of its own, as the JAX package's tape adds it
             total_bad = torch.stack(bad).sum(dtype=torch.int32)
+            collective("psum", (DATA_AXIS, FEATURE_AXIS), total_bad)
             ok = total_bad == 0
             if self.collect_metrics:
-                mtree[GUARD_NONFINITE] = total_bad
+                mtree[GUARD_NONFINITE] = torch.stack(bad).sum(dtype=torch.int32)
+                collective("psum", axes, mtree[GUARD_NONFINITE])
                 mtree[GUARD_SKIPPED] = (~ok).to(torch.int32)
             guarded_update(self.optimizer, params, ok)
         else:

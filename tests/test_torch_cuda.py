@@ -1169,32 +1169,49 @@ def _sharded_int8_setup(cuda, n=20_000, f=32):
 
 
 def test_sharded_int8_tiers_match_plain(cuda):
-    """K2's ``tiered_gather_dequant`` on each int8 tier (the L0 block, each
-    L1 shard with its zero-padded scales, the pinned cold rows), with ids
-    past and below the table, bitwise ``tiered_gather_plain(..., scale)``;
-    then every lookup flavour bitwise the replicated int8 store's, with
-    exact launch counts (one per tier table per feature group)."""
-    from quiver_tpu_torch.ops.kernels.gather import tiered_gather_dequant, tiered_gather_plain
+    """K2's ``tiered_gather_dequant`` on the int8 tiers it reads (the L0
+    block, the pinned cold rows, the L1 shards' codes with the zero-padded
+    L1 scales), with ids past and below the table, bitwise
+    ``tiered_gather_plain(..., scale)``, and ``gather_rows`` on each L1
+    shard's codes bitwise ``gather_rows_plain``; then every lookup flavour
+    bitwise the replicated int8 store's, with exact launch counts (L0 and
+    cold one ``tiered_gather_dequant`` each; each shard's codes by
+    ``gather_rows`` and one ``tiered_gather_dequant`` after their sum
+    (psum) or per feature group after the exchange (routed))."""
+    from quiver_tpu_torch.ops.kernels.gather import (gather_rows_plain, tiered_gather_dequant,
+                                                     tiered_gather_plain)
 
     topo, _, store, replicated = _sharded_int8_setup(cuda)
     assert (store.rep_rows, store.hot_rows) == (1_000, 4_000) and store.cold.is_pinned()
     rng = np.random.default_rng(2)
+    l1 = torch.cat(store.hot.shards)
+    assert store.hot.scale.shape == (l1.shape[0],) and store.hot.scale.is_cuda
     tiers = [(store.rep, store._rep_scales[store.rep.device]),
-             (store.cold, store._cold_scale),
-             *zip(store.hot.shards, store.hot.scales)]
+             (store.cold, store._cold_scale), (l1, store.hot.scale)]
     for table, scale in tiers:
         assert scale.shape == (table.shape[0],) and scale.is_cuda
         ids = torch.from_numpy(rng.integers(-1, table.shape[0] + 3, 3000).astype(np.int32)).to(cuda)
         args = (ids, None, table.shape[0], table, None, scale)
         assert torch.equal(tiered_gather_dequant(*args), tiered_gather_plain(*args))
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows
+
+    for shard in store.hot.shards:
+        ids = torch.from_numpy(rng.integers(-1, shard.shape[0] + 3, 3000).astype(np.int32)).to(cuda)
+        assert torch.equal(gather_rows(shard, ids), gather_rows_plain(shard, ids))
     ids = torch.from_numpy(np.concatenate([rng.integers(0, topo.node_count, 5000),
                                            [-1] * 7]).astype(np.int32)).to(cuda)
     want = replicated[ids]
-    for kw, launches in (({}, 4), ({"routed": True, "routed_cap": None}, 6),
-                         ({"routed": True}, 6), ({"routed": True, "routed_cap": 1}, 6)):
-        before = tiered_gather_dequant.launches
+    # L0 and cold one dequantising launch each; psum: the 2 shards' codes
+    # by gather_rows, one dequantising launch after their sum; routed: each
+    # shard's codes (2 groups x 2 shards), one dequantising launch per group
+    # after the exchange
+    for kw, launches, codes in (({}, 3, 2), ({"routed": True, "routed_cap": None}, 4, 4),
+                                ({"routed": True}, 4, 4),
+                                ({"routed": True, "routed_cap": 1}, 4, 4)):
+        before = tiered_gather_dequant.launches, gather_rows.launches
         got = store.gather(ids, **kw)
-        assert tiered_gather_dequant.launches == before + launches, kw
+        assert tiered_gather_dequant.launches == before[0] + launches, kw
+        assert gather_rows.launches == before[1] + codes, kw
         assert torch.equal(got, want), kw
 
 
@@ -1277,9 +1294,9 @@ def test_ooc_store_k2_over_staged_block_matches_plain(cuda, tmp_path, dtype, acc
         staged = store._staging.rows[:ids.size]
         assert staged.is_pinned()
         ptrs.add(staged.data_ptr())
-        scale = None if dtype is None else store._staging.scale[:store.hot_rows + ids.size]
-        plain = k2.tiered_gather_plain(store._staging.ids[:ids.size].to(cuda), None,
-                                       store.hot_rows, store.hot, staged, scale)
+        t = torch.from_numpy(store._translate(ids).astype(np.int32)).to(cuda)
+        k_ids, _, scale = store._launch_args(t, staged)
+        plain = k2.tiered_gather_plain(k_ids, None, store.hot_rows, store.hot, staged, scale)
         torch.cuda.synchronize()
         assert torch.equal(got, plain)
     assert len(ptrs) == 1 and store.cold_cache_hits_total > 0
@@ -1592,3 +1609,63 @@ def test_rgcn_stream_no_sync_under_debug_mode(cuda, weighted):
     assert after["tiered_gather"] - before["tiered_gather"] == 3 * 4
     assert bool(torch.isfinite(losses).all()) and losses.shape == (4,)
     assert int(overflow) >= 0
+
+
+def test_kernel_attrs_entry(cuda):
+    """Every kernel library's ``quiver_kernel_attrs``: each ``__global__``
+    instantiation with its ``cudaFuncGetAttributes`` and launch block, each
+    within Hopper's limits (the audit's vmem-budget rule)."""
+    from quiver_tpu_torch.ops.kernels.build import kernel_attrs
+    from quiver_tpu_torch.tools.audit.mem import DEFAULT_VMEM_BUDGET, REGISTERS_PER_SM
+
+    attrs = kernel_attrs()
+    entries = {a["entry"] for a in attrs}
+    assert entries == {"select", "uniform_hop", "gather", "gather_dequant", "wselect",
+                       "weighted_hop"}
+    assert len(attrs) == 24
+    for a in attrs:
+        assert a["block"] == 256 and 0 < a["regs"] <= 255, a
+        assert a["shared_static"] + a["shared_dynamic"] <= DEFAULT_VMEM_BUDGET, a
+        assert a["regs"] * a["block"] <= REGISTERS_PER_SM, a
+        assert a["block"] <= a["max_threads"], a
+
+
+@pytest.fixture(scope="module")
+def audit_cache():
+    from quiver_tpu_torch.tools.audit import audit_targets
+
+    yield audit_targets
+    audit_targets.clear_cache()
+
+
+@pytest.mark.parametrize("name", ["routed_gather", "tiered_lookup_int8", "sample_hop",
+                                  "epoch_body_alpha1", "serve_sample", "pallas_fused_interp",
+                                  "mmap_tiered_gather"])
+def test_audit_kernel_nodes_card_equal_cpu(cuda, audit_cache, name):
+    """A target recorded on the card has the kernel nodes of its CPU
+    recording: the same entries, shapes and dtypes, in order; and no rule
+    finds anything on the card."""
+    from quiver_tpu_torch.tools.audit import ir
+    from quiver_tpu_torch.tools.audit.runner import run_audit
+
+    card = ir.kernel_nodes(audit_cache.build(name, "cuda").program)
+    cpu = ir.kernel_nodes(audit_cache.build(name, "cpu").program)
+    assert card == cpu and card
+    result = run_audit(targets=[name], device="cuda")
+    assert result.findings == []
+    assert not [f for f in result.suppressed if f.rule == "vmem-budget"]
+
+
+def test_audit_mem_cuda_column(cuda, audit_cache, capsys):
+    """``--mem-table --mem-cuda``: the card's measured growth joins every
+    row, within the stated band of the estimate."""
+    from quiver_tpu_torch.tools.audit.cli import main
+
+    assert main(["--mem-table", "--mem-cuda", "--targets",
+                 "routed_gather,mmap_tiered_gather,serve_forward"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "cuda-grow" in out[0] and len(out) == 4
+    lo, hi = audit_cache.PEAK_BAND
+    for line in out[1:]:
+        ratio = float(line.split()[-1])
+        assert lo <= ratio <= hi, line

@@ -435,8 +435,12 @@ def test_store_prefetch_overlaps_and_counts_hits(tmp_path):
     assert int(np.asarray(reg.value(OOC_READAHEAD_HITS))) == \
         store.stager.readahead_hits_total
     assert "ooc.stage_wait" in tl.summary()
-    with pytest.raises(NotImplementedError, match="A.14"):
-        store.trace_lookup(64)
+    # the merge's recorded program (the audit's surface): the ids and the
+    # staged block are its operands, and it stages nothing from disk
+    reads = store.stager.page_reads_total
+    program = store.trace_lookup(64)
+    assert [v.shape for v in program.inputs] == [(64,), (64, feat.shape[1])]
+    assert store.stager.page_reads_total == reads
     store.close()
 
 
