@@ -382,6 +382,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    included); one commit of 1,024 inserts and 256 deletes on it, bitwise
    the native rebuild of the final COO; bench_rgcn's ``HeteroCSRTopo``,
    native bitwise numpy.
+9m. the trainers over a world of processes (A.11e (a1)); every check
+   names itself on stderr first. ``init_distributed`` over ``nccl`` with a
+   world of one rank (a file store under the git-ignored
+   ``.smoke_scratch/``), the world mesh ``(1, 1)`` and, beside it, the
+   logical ``(1, 1)`` mesh of the card, at phase 9f (b)'s configuration
+   (the twin's defaults and width, a fresh three-tier store of 8M L1 and 4M
+   L0 per device, the guard on): ``DistributedTrainer`` over a routed f32
+   store (``"all"``) and a psum int8 one (``"data"``), 4 steps of each form
+   under deterministic kernels: losses, tier hits, overflow, guard counters
+   and parameters bitwise the logical mesh's, exactly 3 ``uniform_hop``
+   and the store's K2 launches per step in both forms, every collective
+   (``parallel/world.py`` ``CALLS``) on CUDA tensors; steps/s of the two
+   forms in turns and the collectives per step. ``DataParallelTrainer``
+   over a replicated ``Feature``: a 4-step epoch of each form, bitwise,
+   3 ``uniform_hop`` and 1 ``tiered_gather`` a step. The process group is
+   torn down; then a 2-rank ``nccl`` world on the one card is tried once
+   (two processes, one ``all_reduce`` on ``cuda:0``, killed after 60 s)
+   and what NCCL said is printed: a refusal is reported, not routed
+   around.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -7453,6 +7472,269 @@ def stream_phase(card):
     return {**launches_a, **launches_b}, result
 
 
+# -- phase 9m: the trainers over a world of processes (one rank over nccl) -------
+
+WORLD_STEPS = 4  # checked steps of each trainer, under deterministic kernels
+WORLD_TIMED = 20  # steps per turn; turns world, logical, logical, world
+WORLD_DP_SEEDS = 4 * MULTI_BATCH  # the DataParallelTrainer epoch: 4 steps
+WORLD_FLAVOURS = (("routed f32", "all", None), ("psum int8", "data", "int8"))
+# K2 launches per step of a (1, 1) three-tier store: L0, the one shard and
+# the cold rows (int8: the shard's codes by gather_rows, then one
+# dequantising launch for L0, the summed codes and the cold rows)
+WORLD_K2 = {None: {"gather_rows": 3}, "int8": {"gather_rows": 1, "tiered_gather_dequant": 3}}
+TWO_RANKS_S = 60  # the 2-rank nccl attempt's deadline
+
+
+def step9m(what: str) -> None:
+    """Name a phase 9m check on stderr before it runs."""
+    log(f"phase 9m check: {what}")
+
+
+def world_trainer(topo, x, mesh, seed_sharding, dtype):
+    """Phase 9f (b)'s trainer (the twin's width: GraphSAGE 256 x 3, Adam
+    1e-3, [15, 10, 5] x 256, the worst-case caps) on ``mesh`` over a fresh
+    three-tier store of 8M L1 and 4M L0 per device, f32 or int8, with the
+    non-finite guard on; ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE, ShardedFeature
+
+    store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
+                           replicate_budget=MULTI_L0, dtype=dtype,
+                           kernel="pallas").from_cpu_tensor(x)
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, device="cuda", kernel="pallas")
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES,
+                      num_layers=len(MULTI_FANOUT)).to("cuda")
+    trainer = DistributedTrainer(mesh, sampler, store, model,
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding=seed_sharding,
+                                 nonfinite_guard=True)
+    trainer.init(0)
+    return trainer
+
+
+def world_steps(trainer, labels, steps: int, key0: int) -> list:
+    """``steps`` steps on ``default_rng(key0)``'s seeds, keyed ``key0 + i``:
+    each step's loss, tier hits and routed overflow, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(key0)
+    n = trainer.sampler.csr_topo.node_count
+    out = []
+    for i in range(steps):
+        loss = trainer.step(rng.integers(0, n, trainer.global_batch), labels, key0 + i)
+        out.append((loss, trainer.last_tier_hits.clone(),
+                    trainer.last_routed_overflow.clone()))
+    return out
+
+
+def same_steps(a, b) -> bool:
+    return len(a) == len(b) and all(equal(x, y) for sa, sb in zip(a, b)
+                                    for x, y in zip(sa, sb))
+
+
+def timed_turns(world_fn, logical_fn) -> dict:
+    """Steps/s of the two forms, timed in turns (world, logical, logical,
+    world), each turn ``WORLD_TIMED`` synchronised steps."""
+    turns = {"world": [], "logical": []}
+    for form, fn in (("world", world_fn), ("logical", logical_fn),
+                     ("logical", logical_fn), ("world", world_fn)):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        turns[form].append(WORLD_TIMED / (time.perf_counter() - t0))
+    return {f"{form}_steps_per_s": sum(v) / len(v) for form, v in turns.items()} | {
+        "turns_steps_per_s": turns}
+
+
+def world_flavour(topo, x, labels, meshes, seed_sharding, dtype, card) -> tuple[dict, dict]:
+    """One ``DistributedTrainer`` flavour on the world ``(1, 1)`` mesh and
+    the logical one: ``WORLD_STEPS`` steps of each under deterministic
+    kernels (losses, tier hits, overflow, guard counters and parameters
+    bitwise; exact K1 and K2 launches, the world's equal to the logical
+    form's; every collective on CUDA tensors), then steps/s in turns on the
+    main path. Returns ``(the world run's launches, result)``."""
+    import math
+
+    from quiver_tpu_torch.obs.registry import GUARD_NONFINITE, GUARD_SKIPPED
+    from quiver_tpu_torch.parallel import world
+
+    wmesh, lmesh = meshes
+    what = f"{seed_sharding} over {'int8' if dtype else 'f32'}"
+    runs, launches, params, guard = {}, {}, {}, {}
+    with deterministic_algorithms():
+        trainers = {"world": world_trainer(topo, x, wmesh, seed_sharding, dtype),
+                    "logical": world_trainer(topo, x, lmesh, seed_sharding, dtype)}
+        for form, trainer in trainers.items():
+            reset_launches()
+            world.reset_calls()
+            runs[form] = world_steps(trainer, labels, WORLD_STEPS, 100)
+            sync()
+            launches[form] = read_launches()
+            if form == "world":
+                calls = dict(world.CALLS)
+            params[form] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+            guard[form] = [trainer.metrics.value(GUARD_SKIPPED),
+                           trainer.metrics.value(GUARD_NONFINITE)]
+    step9m(f"{what}: losses, tier hits, overflow, guard counters and parameters bitwise "
+           "the logical (1, 1) mesh's (deterministic kernels)")
+    check(same_steps(runs["world"], runs["logical"])
+          and all(equal(params["world"][k], v) for k, v in params["logical"].items())
+          and all(equal(a, b) for a, b in zip(guard["world"], guard["logical"])),
+          f"world trainer ({what}) == the logical mesh's")
+    want = {"uniform_hop": 3 * WORLD_STEPS,
+            **{k: v * WORLD_STEPS for k, v in WORLD_K2[dtype].items()}}
+    step9m(f"{what}: exactly 3 uniform_hop and {WORLD_K2[dtype]} K2 launches per step, "
+           "in both forms")
+    expect_launches(launches["world"], want, f"world trainer ({what})")
+    check(launches["logical"] == launches["world"], f"world trainer ({what}): the logical "
+          f"form launched {launches['logical']}")
+    step9m(f"{what}: every collective ran on CUDA tensors")
+    check(calls and all(dev == "cuda" for _, dev in calls),
+          f"world trainer ({what}): collectives {calls}")
+    per_step = {prim: n / WORLD_STEPS for (prim, _), n in calls.items()}
+    timing = timed_turns(
+        lambda: world_steps(trainers["world"], labels, WORLD_TIMED, 200),
+        lambda: world_steps(trainers["logical"], labels, WORLD_TIMED, 200))
+    losses = [float(v[0]) for v in runs["world"]]
+    check(all(math.isfinite(v) for v in losses), f"world trainer ({what}): finite losses")
+    r = {"seed_sharding": seed_sharding, "dtype": dtype or "float32",
+         "split": [trainers["world"].feature.rep_rows, trainers["world"].feature.hot_rows],
+         "losses": losses, "launches": launches["world"], "collectives_per_step": per_step,
+         "collective_devices": sorted({dev for _, dev in calls}), **timing}
+    log(f"world trainer ({what}): world {timing['world_steps_per_s']:.4g} steps/s, "
+        f"logical {timing['logical_steps_per_s']:.4g} steps/s (in turns), collectives per "
+        f"step {per_step} [{card}]")
+    return launches["world"], r
+
+
+def world_dp(topo, x, labels, meshes, card) -> tuple[dict, dict]:
+    """``DataParallelTrainer`` on the world ``(1, 1)`` mesh and the
+    logical one, over one replicated ``Feature`` (20% of the rows on the
+    card): a 4-step epoch each under deterministic kernels, the mean loss
+    and the parameters bitwise, exact launches."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import DataParallelTrainer, Feature, GraphSageSampler, GraphSAGE
+
+    feature = Feature(device_cache_size=int(0.2 * topo.node_count) * MULTI_F * 4,
+                      csr_topo=topo, device="cuda", kernel="pallas").from_cpu_tensor(x)
+    out, launches, params = {}, {}, {}
+    with deterministic_algorithms():
+        for form, mesh in zip(("world", "logical"), meshes):
+            sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, device="cuda",
+                                       kernel="pallas")
+            model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES,
+                              num_layers=len(MULTI_FANOUT)).to("cuda")
+            trainer = DataParallelTrainer(mesh, sampler, feature, model,
+                                          torch.optim.Adam(model.parameters(), lr=1e-3),
+                                          local_batch=MULTI_BATCH)
+            trainer.init(torch.Generator().manual_seed(0))
+            reset_launches()
+            out[form] = trainer.train_epoch(np.arange(WORLD_DP_SEEDS), labels,
+                                            torch.Generator().manual_seed(7), depth=0)
+            sync()
+            launches[form] = read_launches()
+            params[form] = {k: v.clone() for k, v in model.state_dict().items()}
+    steps = out["world"][1]
+    step9m("DataParallelTrainer: the epoch's mean loss and parameters bitwise the logical "
+           "(1, 1) mesh's, 3 uniform_hop and 1 tiered_gather launches per step")
+    check(out["world"] == out["logical"] and steps == WORLD_DP_SEEDS // MULTI_BATCH
+          and all(equal(params["world"][k], v) for k, v in params["logical"].items()),
+          f"world DataParallelTrainer {out}")
+    expect_launches(launches["world"], {"uniform_hop": 3 * steps, "tiered_gather": steps},
+                    "world DataParallelTrainer")
+    check(launches["logical"] == launches["world"], "world DataParallelTrainer: the logical "
+          f"form launched {launches['logical']}")
+    log(f"world DataParallelTrainer: {steps} steps, mean loss {out['world'][0]:.6f} [{card}]")
+    return launches["world"], {"steps": steps, "mean_loss": out["world"][0],
+                               "launches": launches["world"]}
+
+
+def two_ranks_one_card(store: str) -> dict:
+    """A 2-rank ``nccl`` world on the one card, tried once: each rank joins
+    through a file store on ``cuda:0`` and all-reduces one CUDA tensor.
+    Returns what happened and the tail of what each rank printed; nothing
+    routes around a refusal (no host-staged collective, no CPU
+    fallback)."""
+    code = ("import sys, torch\n"
+            "from quiver_tpu_torch.parallel.mesh import init_distributed, "
+            "shutdown_distributed\n"
+            "rank = int(sys.argv[1])\n"
+            "init_distributed('file://' + sys.argv[2], 2, rank, device='cuda:0')\n"
+            "try:\n"
+            "    t = torch.full((4,), float(rank + 1), device='cuda:0')\n"
+            "    torch.distributed.all_reduce(t)\n"
+            "    torch.cuda.synchronize()\n"
+            "    print('all_reduce', t.tolist(), flush=True)\n"
+            "finally:\n"
+            "    shutdown_distributed()\n")
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), store], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    tails, codes = [], []
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=max(TWO_RANKS_S - (time.time() - t0), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+            text += f"\n(no exit within {TWO_RANKS_S} s; killed)"
+        codes.append(p.returncode)
+        tails.append([ln for ln in text.splitlines() if ln.strip()][-6:])
+    ran = codes == [0, 0] and all(any("all_reduce" in ln for ln in t) for t in tails)
+    return {"ran": ran, "exit_codes": codes, "rank_output_tails": tails,
+            "seconds": time.time() - t0}
+
+
+def world_phase(card):
+    """Phase 9m (see the module docstring). Returns ``(launches by
+    trainer, result)``."""
+    import torch
+
+    from quiver_tpu_torch import make_mesh
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    t0 = time.time()
+    topo, x, labels = multichip_setup()
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    launches, flavours = {}, {}
+    try:
+        step9m("init_distributed over nccl, a world of one through a file store")
+        dev = init_distributed(f"file://{os.path.join(SCRATCH, 'world_store')}", 1, 0,
+                               device="cuda")
+        check(dev == torch.device("cuda", 0) and torch.distributed.get_backend() == "nccl",
+              f"world of one: {dev}, {torch.distributed.get_backend()}")
+        wmesh = make_mesh(data=1, feature=1)
+        check(type(wmesh).__name__ == "WorldMesh" and wmesh.slot == (0, 0),
+              f"world mesh {wmesh!r}")
+        meshes = (wmesh, logical_mesh(1, 1))
+        for name, seed_sharding, dtype in WORLD_FLAVOURS:
+            launches[name], flavours[name] = world_flavour(
+                topo, x, labels, meshes, seed_sharding, dtype, card)
+            torch.cuda.empty_cache()
+        launches["dp"], dp = world_dp(topo, x, labels, meshes, card)
+    finally:
+        shutdown_distributed()
+    step9m("a 2-rank nccl world on the one card, tried once")
+    two = two_ranks_one_card(os.path.join(SCRATCH, "two_store"))
+    log(f"2-rank nccl world on one card: ran={two['ran']}, exit codes "
+        f"{two['exit_codes']}, last lines {two['rank_output_tails']}")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    del x
+    return launches, {
+        "config": "phase 9f (b)'s: examples/train_multichip.py defaults (100,000 nodes, "
+                  "degree 25, F = 128, GraphSAGE 256 x 3, [15, 10, 5] x 256, Adam 1e-3, "
+                  "the worst-case caps), 8M L1 and 4M L0 per device; a world of one rank "
+                  "over nccl (file store) against the logical (1, 1) mesh of cuda:0",
+        "trainer": flavours, "data_parallel": dp, "two_ranks_one_card": two,
+        "card": card, "seconds": time.time() - t0}
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7768,6 +8050,11 @@ def main() -> int:
     launches_k, stream = stream_phase(card)
     torch.cuda.empty_cache()
     lap("phase 9k (streaming mutation, native CSR build)")
+    # phase 9m: the trainers over a world of one process (nccl) against the
+    # logical (1, 1) mesh, then a 2-rank nccl world tried on the one card
+    launches_m, world_res = world_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9m (a world of processes)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -7836,6 +8123,8 @@ def main() -> int:
                     "fused_trainer_launches": launches_f["uniform_hop"],
                     "sharded_trainer_launches": {
                         mode: v["uniform_hop"] for mode, v in launches_s.items()},
+                    "world_trainer_launches": {k: v["uniform_hop"]
+                                               for k, v in launches_m.items()},
                     "int8_controller_trainer_launches": launches_c["trainer"]["data"][
                         "uniform_hop"],
                     "ooc_epoch_launches": launches_j["uniform_hop"],
@@ -7854,6 +8143,8 @@ def main() -> int:
                     "sharded_trainer_launches": {
                         mode: v["gather_rows"] for mode, v in launches_s.items()},
                     "topo_sharded_trainer_launches": launches_g["trainer"]["gather_rows"],
+                    "world_trainer_launches": {k: launches_m[k]["gather_rows"]
+                                               for k, _, _ in WORLD_FLAVOURS},
                     "elastic_trainer_launches": {m: v["gather_rows"]
                                                  for m, v in launches_e.items()},
                     "stream_launches": {k: v["gather_rows"] for k, v in launches_k.items()},
@@ -7884,6 +8175,7 @@ def main() -> int:
                     "rgcn_stream_launches": {k: v["tiered_gather"]
                                              for k, v in launches_h["rgcn_stream"].items()},
                     "fused_trainer_launches": launches_f["tiered_gather"],
+                    "world_dp_launches": launches_m["dp"]["tiered_gather"],
                     "ooc_epoch_launches": launches_j["tiered_gather"],
                     "ooc_lookup": ooc["lookup"],
                     "beyond_hbm": {
@@ -7911,6 +8203,8 @@ def main() -> int:
                     "sharded_int8_trainer_launches": {
                         mode: v["tiered_gather_dequant"]
                         for mode, v in launches_c["trainer"].items()},
+                    "world_int8_trainer_launches": launches_m["psum int8"][
+                        "tiered_gather_dequant"],
                     "sharded_int8_lookup": {mesh: r["timing"] for mesh, r in
                                             control["int8_store"]["meshes"].items()},
                     "library": "none: no single PyTorch call dequantises a "
@@ -7958,6 +8252,9 @@ def main() -> int:
           and launches_c["trainer"]["data"]["uniform_hop"] > 0
           and launches_c["trainer"]["all"]["select"] > 0
           and launches_j["tiered_gather"] > 0 and launches_j["uniform_hop"] > 0
+          and all(v["uniform_hop"] > 0 for v in launches_m.values())
+          and launches_m["psum int8"]["tiered_gather_dequant"] > 0
+          and launches_m["dp"]["tiered_gather"] > 0
           and all(v["select"] > 0 and v["gather_rows"] > 0 for v in launches_e.values())
           and all(launches_k[k]["select"] > 0 and launches_k[k]["gather_rows"] > 0
                   for k in ("epoch_0", "epoch_1"))
@@ -7982,7 +8279,7 @@ def main() -> int:
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
-                       "lint": lint_row, "audit": audit,
+                       "world": world_res, "lint": lint_row, "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
@@ -8023,6 +8320,7 @@ def main() -> int:
     print(json.dumps({"elastic": elastic}), flush=True)
     print(json.dumps({"ooc": ooc}), flush=True)
     print(json.dumps({"stream": stream}), flush=True)
+    print(json.dumps({"world": world_res}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

@@ -19,21 +19,35 @@ count over ``--feature-axis``, on one device). It runs on the CUDA card
 unless ``--device`` names another (``--device cpu`` runs the kernels' plain
 versions); with no card and no ``--device`` it raises.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) it runs one process per mesh slot:
+each calls ``init_distributed()`` (``nccl`` on the card ``LOCAL_RANK``
+names; ``gloo`` with ``--device cpu``) and builds the world mesh
+(``--data-axis`` defaults to the world size over ``--feature-axis``), whose
+collectives run over ``torch.distributed``; only rank 0 prints.
+
     python -m examples.train_multichip_torch --data-axis 2 --feature-axis 2 \\
         --seed-sharding all --replicate-budget 4M
+    torchrun --nproc_per_node=4 examples/train_multichip_torch.py \\
+        --feature-axis 2 --seed-sharding all
     python -m examples.train_multichip_torch --device cpu --nodes 3000 \\
         --feature-dim 16 --hidden 32 --fanout 5 5 --local-batch 32 \\
         --data-axis 2 --feature-axis 2
 """
 
 import argparse
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
+if __package__ in (None, ""):  # run as a script (torchrun): the repo root first
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 from quiver_tpu_torch import CSRTopo, GraphSageSampler, ShardedFeature, make_mesh
 from quiver_tpu_torch.core.memory import resolve_device
+from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
 from quiver_tpu_torch.models.sage import GraphSAGE
 from quiver_tpu_torch.parallel.trainer import DistributedTrainer
 from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
@@ -71,13 +85,31 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Train; returns the trainer."""
+    """Train; returns the trainer. Under ``torchrun`` (``WORLD_SIZE`` set),
+    one process per slot of a world mesh."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    data = args.data_axis or 1
-    slots = data * args.feature_axis
-    mesh = make_mesh(data=data, feature=args.feature_axis, devices=[device] * slots)
-    print(f"mesh over {slots} devices: {dict(mesh.shape)} ({slots} x {device})")
+    if "WORLD_SIZE" not in os.environ:
+        return train(args)
+    init_distributed(device=args.device)
+    try:
+        return train(args)
+    finally:
+        shutdown_distributed()
+
+
+def train(args):
+    if "WORLD_SIZE" in os.environ:
+        mesh = make_mesh(data=args.data_axis, feature=args.feature_axis)
+        device, lead = mesh.device, mesh.rank == 0
+        say = print if lead else (lambda *a, **k: None)
+        say(f"world mesh over {mesh.world_size} processes: {dict(mesh.shape)} "
+            f"(rank 0 on {device})")
+    else:
+        device, say = resolve_device(args.device), print
+        data = args.data_axis or 1
+        slots = data * args.feature_axis
+        mesh = make_mesh(data=data, feature=args.feature_axis, devices=[device] * slots)
+        say(f"mesh over {slots} devices: {dict(mesh.shape)} ({slots} x {device})")
 
     rng = np.random.default_rng(args.seed)
     topo = CSRTopo(edge_index=generate_pareto_graph(args.nodes, args.avg_degree,
@@ -110,24 +142,24 @@ def main(argv=None):
         loss = trainer.step(seeds, labels, 1000 + i)
         if i == 0:
             float(loss)  # waits for the first step
-            print(f"step 0 (first step): {time.time() - t0:.1f}s")
+            say(f"step 0 (first step): {time.time() - t0:.1f}s")
             t0 = time.time()
         elif i % 10 == 0:
-            print(f"step {i}: loss {float(loss):.4f}")
+            say(f"step {i}: loss {float(loss):.4f}")
     float(loss)
     per_step = (time.time() - t0) / max(args.steps - 1, 1)
-    print(
+    say(
         f"done: {args.steps} steps, global batch {global_batch} "
         f"({per_step * 1e3:.1f} ms/step, {global_batch / per_step:,.0f} seeds/s)"
     )
     if args.seed_sharding == "all" and trainer.last_routed_overflow is not None:
-        print(f"routed overflow (last step): "
+        say(f"routed overflow (last step): "
               f"{int(trainer.last_routed_overflow)} lanes fallback-served "
               f"(grow --routed-alpha if persistent)")
     if trainer.last_tier_hits is not None:
         h = trainer.last_tier_hits.tolist()
         tot = max(sum(h), 1)
-        print(f"feature tier hits (last step): L0 replicated {h[0]} "
+        say(f"feature tier hits (last step): L0 replicated {h[0]} "
               f"({100 * h[0] / tot:.1f}%, zero-comm), sharded {h[1]} "
               f"({100 * h[1] / tot:.1f}%), cold {h[2]} "
               f"({100 * h[2] / tot:.1f}%)")

@@ -17,11 +17,7 @@ import re
 import torch
 
 __all__ = ["parse_size_bytes", "resolve_platform_strategy", "CachePolicy",
-           "SampleMode", "SamplerConfig", "validate_dedup"]
-
-# the JAX package's reindex strategies; the port's one reindex is bitwise
-# all three, so each (and "auto") runs it
-_DEDUP_STRATEGIES = ("sort", "map", "scan", "auto")
+           "SampleMode", "SamplerConfig"]
 
 
 def resolve_platform_strategy(env_var: str, choices, tpu_default: str,
@@ -163,10 +159,3 @@ class SamplerConfig:
         if self.seed_capacity <= 0:
             raise ValueError("seed_capacity must be positive")
 
-
-def validate_dedup(dedup: str) -> str:
-    """Check a sampler's ``dedup=`` request: ``sort``, ``map``, ``scan``
-    or ``auto``; unknown names raise."""
-    if dedup not in _DEDUP_STRATEGIES:
-        raise ValueError(f"dedup must be one of {_DEDUP_STRATEGIES}, got {dedup!r}")
-    return dedup

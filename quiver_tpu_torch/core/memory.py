@@ -25,16 +25,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def to_pinned_host(x, device) -> tuple[torch.Tensor, bool]:
-    """Place ``x`` in pinned host memory when ``device`` is a CUDA device.
+def to_pinned_host(x, device=None, mesh=None) -> tuple[torch.Tensor, bool]:
+    """Place ``x`` in pinned host memory when its device is a CUDA device.
+
+    The device is ``device``; else, with ``mesh``, the device of this
+    process's slot in the mesh (a logical mesh's one device, a world
+    mesh's rank device: pinned memory is one copy per host, which every
+    slot of the process reads); else :func:`resolve_device` ``(None)``, the
+    card, raising without one. The JAX package's ``to_pinned_host(x,
+    mesh=None)`` calls take the same arguments.
 
     Returns ``(tensor, is_host)``. Pinned host memory is mapped into the
     card's address space (UVA), so the kernels read it over PCIe with no
     staging copy: the reference's zero-copy design. On a CPU device the
     tensor stays in ordinary memory and ``is_host`` is False.
     """
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
+    device = resolve_device(device)
     t = torch.as_tensor(np.ascontiguousarray(x)) if isinstance(
         x, np.ndarray) else torch.as_tensor(x)
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         return t.contiguous().pin_memory(), True
     return t.contiguous(), False

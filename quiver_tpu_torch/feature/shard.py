@@ -47,6 +47,16 @@ is built and checked aside, then published with one ``version`` bump and
 the tiers placed again. The split tuner (``auto_split=True``, or an
 attached :class:`~..control.CacheController`) moves the L0/L1 boundary
 between batches from the measured tier hits.
+
+On a world mesh (``parallel/mesh.py`` ``WorldMesh``, one process per
+slot) each rank builds its own parts from the same ``from_cpu_tensor``
+input: its own L1 shard (the one of its slot's feature coordinate), the L0
+block on its device and the cold rows in its own pinned memory. The psum
+is its ``local_gather`` followed by the ordered sum over its feature group
+(int8: over the codes, then one ``tiered_gather_dequant``), the routed
+flavour a world ``BucketRoute`` over the group, and the answers are bitwise
+the logical mesh's. ``replan``, ``repin``, ``apply_row_updates`` and the
+split tuner are not ported to a world mesh (ROADMAP A.11e (a2)) and raise.
 """
 
 from __future__ import annotations
@@ -64,7 +74,8 @@ from ..obs.marks import collective
 from ..obs.registry import ROUTED_OVERFLOW, TIER_HITS, MetricsRegistry
 from ..ops.kernels.gather import (gather_rows, gather_rows_plain, tiered_gather_dequant,
                                   tiered_gather_plain)
-from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, Mesh, axis_devices
+from ..parallel import world
+from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, Mesh, axis_devices, is_world
 from ..parallel.routing import BucketRoute
 from ..utils.reorder import reorder_by_degree
 from ..utils.trace import get_logger, info_once
@@ -72,6 +83,12 @@ from .feature import (KernelChoice, _numpy_rows, _parse_storage_dtype,
                       quantize_rows_int8, tiered_lookup, validate_gather_kernel)
 
 __all__ = ["ShardedTensor", "ShardedFeature"]
+
+
+def _world_refusal(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on a world mesh (one process per slot) is not ported yet "
+        "(ROADMAP A.11e (a2)); run it on a logical mesh")
 
 
 def _host_table(tensor) -> torch.Tensor:
@@ -111,7 +128,8 @@ class ShardedTensor(KernelChoice):
     Rows are padded to a multiple of the axis size; shard ``d`` owns rows
     ``[d * rows_per_shard, (d + 1) * rows_per_shard)`` (the reference's
     contiguous offsets, ``tensor_offset_device``) and sits on member
-    ``d``'s device, ``shards[d]``.
+    ``d``'s device, ``shards[d]``. On a world mesh the rank holds only its
+    own member's shard (``shards[0]``, member :attr:`member` of its group).
     """
 
     def __init__(self, mesh: Mesh, axis: str = FEATURE_AXIS, kernel: str = "auto",
@@ -123,6 +141,9 @@ class ShardedTensor(KernelChoice):
         self.num_shards = mesh.shape[axis]
         self.member_devices = axis_devices(mesh, axis)
         self.device = self.member_devices[0]
+        # the world form: this rank's group over the axis and its place there
+        self.group = mesh.group(axis) if is_world(mesh) else None
+        self.member = None if self.group is None else self.group.index
         self._kernel = validate_gather_kernel(kernel)
         # capped-bucket routed gather: capacity ceil(routed_alpha * L / F) per
         # destination; 2 leaves headroom over a uniform owner spread (the
@@ -164,8 +185,10 @@ class ShardedTensor(KernelChoice):
         padded = rps * self.num_shards
         if padded != n:
             table = torch.cat([table, table.new_zeros((padded - n, f))])
+        held = (enumerate(self.member_devices) if self.group is None
+                else [(self.member, self.device)])
         self.shards = [table[d * rps:(d + 1) * rps].to(dev).contiguous()
-                       for d, dev in enumerate(self.member_devices)]
+                       for d, dev in held]
         self.rows_per_shard = rps
         self.num_rows = n
         self.set_scale(scale)
@@ -195,13 +218,20 @@ class ShardedTensor(KernelChoice):
         rps = self.rows_per_shard
         mine = (ids >= 0) & (torch.div(ids, rps, rounding_mode="floor") == member)
         local = torch.where(mine, ids - member * rps, -1)
-        shard = self.shards[member]
+        if self.group is not None and member != self.member:
+            raise ValueError(f"rank holds shard {self.member}, not {member}")
+        shard = self.shards[0 if self.group is not None else member]
         return _row_gather(shard, self.kernel)(local.to(shard.device)).to(ids.device)
 
     def psum_gather(self, ids):
         """Rows of ``ids`` (any shape; every member requests the same ids):
         each shard's :meth:`local_gather`, summed in member order, then
-        dequantised (an int8 table)."""
+        dequantised (an int8 table). On a world mesh: this rank's
+        :meth:`local_gather`, then the ordered sum over its group."""
+        if self.group is not None:
+            out = world.ordered_sum(self.local_gather(self.member, ids), self.group,
+                                    (self.axis,))
+            return self._dequantise(ids, out)
         out = None
         for d in range(self.num_shards):
             part = self.local_gather(d, ids)
@@ -251,8 +281,11 @@ class ShardedTensor(KernelChoice):
 
         An int8 table's codes ride the exchange (a quarter of the float
         rows' bytes, as in the JAX package), and the requesters dequantise
-        the received block."""
-        L = ids.shape[1]
+        the received block.
+
+        On a world mesh ``ids`` is this member's ``(L,)`` request vector
+        and the rows come back ``(L, row)``; the overflow is the group's."""
+        L = ids.shape[-1]
         if cap is not None:
             cap = int(cap)
             if cap < 1:
@@ -263,7 +296,7 @@ class ShardedTensor(KernelChoice):
         safe = torch.where(valid, ids, 0).to(torch.int64)
         route = BucketRoute(safe, valid, torch.div(safe, self.rows_per_shard,
                                                    rounding_mode="floor"),
-                            num_shards=self.num_shards, cap=cap)
+                            num_shards=self.num_shards, cap=cap, group=self.group)
         rows = self._dequantise(ids, route.exchange(self.local_gather))
         return (rows, route.overflow) if with_overflow else rows
 
@@ -326,6 +359,8 @@ class ShardedTensor(KernelChoice):
             cap = min(int(routed_cap), local_len)
         if cap is not None and cap >= local_len:
             cap = None
+        if self.group is not None:
+            return self._world_routed(ids, local_len, cap, n, pad)
         # slot g * F + f of the mesh's slots holds chunk g * F + f of the ids
         # (JAX's P(("data", "feature")) sharding): group g's members
         rows, ov = [], None
@@ -337,6 +372,26 @@ class ShardedTensor(KernelChoice):
             ov = o if ov is None else ov + o
         self.last_routed_overflow = ov
         out = torch.cat(rows)
+        return out[:n] if pad else out
+
+    def _world_routed(self, ids, local_len: int, cap, n: int, pad: int):
+        """:meth:`gather`'s routed flavour on a world mesh: this rank routes
+        its chunk of the ids (the logical form's group ``g``, member ``f``
+        chunk ``g * F + f``), then every rank's rows are gathered over the
+        whole world in chunk order, and the groups' overflow summed."""
+        mesh, F = self.mesh, self.num_shards
+        other = DATA_AXIS if self.axis == FEATURE_AXIS else FEATURE_AXIS
+        g = mesh.group(other).index
+        chunk = ids[(g * F + self.member) * local_len:(g * F + self.member + 1) * local_len]
+        rows, ov = self.routed_gather(chunk, cap, with_overflow=True)
+        everyone = world.all_gather(rows, mesh.group(mesh.axis_names), mesh.axis_names)
+        if self.axis != FEATURE_AXIS:
+            # rank d * F' + f holds chunk f * D + d
+            D, Fo = mesh.shape[DATA_AXIS], mesh.shape[FEATURE_AXIS]
+            order = [d * Fo + f for f in range(Fo) for d in range(D)]
+            everyone = everyone[order]
+        self.last_routed_overflow = world.int_sum(ov, mesh.group(other), (other,))
+        out = everyone.reshape(-1, rows.shape[-1])
         return out[:n] if pad else out
 
     def __getitem__(self, ids):
@@ -644,6 +699,8 @@ class ShardedFeature(KernelChoice):
         slices) are placed again. Lookups therefore return the same rows
         bitwise, possibly over another tier. ``last_tier_hits`` is reset;
         a trainer re-binds through its own ``resume(mesh=)``."""
+        if is_world(self.mesh) or is_world(mesh):
+            raise _world_refusal("ShardedFeature.replan")
         if self.shape is None:
             raise ValueError("replan() before from_cpu_tensor()")
         n, f = self.shape
@@ -707,6 +764,8 @@ class ShardedFeature(KernelChoice):
         ids keep their first occurrence; ids past the device rows are
         ignored. Bumps ``version``: a trainer must ``refresh()``
         (:class:`~..control.CacheController` does it for its trainer)."""
+        if is_world(self.mesh):
+            raise _world_refusal("ShardedFeature.repin")
         if self.shape is None:
             raise ValueError("repin() before from_cpu_tensor()")
         n, _f = self.shape
@@ -779,6 +838,8 @@ class ShardedFeature(KernelChoice):
         ids, non-finite rows) raises ``ValueError`` and leaves the store
         bitwise as it was. int8 stores quantise the new rows and patch
         their scales in the same transaction."""
+        if is_world(self.mesh):
+            raise _world_refusal("ShardedFeature.apply_row_updates")
         if self.shape is None:
             raise ValueError("apply_row_updates() before from_cpu_tensor()")
         n, f = self.shape
@@ -897,6 +958,8 @@ class ShardedFeature(KernelChoice):
         its copies, doubles it (up to the ceiling) when the hit mass sits
         just past the boundary, and waits for a reversal to repeat before
         it turns. Reads the previous batch's hits on the host."""
+        if is_world(self.mesh) and (self.auto_split or self._controller is not None):
+            raise _world_refusal("the split tuner (auto_split=True or a controller)")
         hits = self.last_tier_hits
         if hits is None or self._region_host is None:
             return

@@ -5,10 +5,11 @@ The JAX package's audit reads both off the lowered IR: a kernel is a
 ``pallas_call`` equation, a collective an ``all_to_all``, ``psum`` or
 ``all_gather`` primitive. The port runs eagerly, its kernels are ctypes
 calls that PyTorch's dispatcher never sees, and its collectives are tensor
-operations over the members of a logical mesh held by one process. So the
-code says where each one is: every kernel wrapper is a
+operations over the members of a logical mesh held by one process, or
+``torch.distributed`` calls on a world mesh (``parallel/world.py``). So
+the code says where each one is: every kernel wrapper is a
 :func:`kernel_entry`, and every exchange over a mesh axis calls
-:func:`collective` with the group-level tensor it moves.
+:func:`collective` with the tensor it moves.
 
 Both do nothing unless a recorder (``tools.audit.ir.record``) is active on
 the calling thread. Then the recorder notes the kernel as one opaque node,
@@ -54,12 +55,17 @@ def kernel_entry(fn):
     return entry
 
 
-def collective(prim: str, axes: tuple, value, shape=None) -> None:
+def collective(prim: str, axes: tuple, value, shape=None, member: bool = False) -> None:
     """Note a collective over mesh ``axes``: ``prim`` is ``"all_to_all"``
     (``value`` the ``(F_src, F_dst, ...)`` send buckets of every member),
     ``"all_gather"`` (``value`` the gathered ``(F, ...)`` result) or
     ``"psum"`` (``value`` the summed result; ``shape`` the per-member
-    operand's shape when it differs from ``value``'s)."""
+    operand's shape when it differs from ``value``'s).
+
+    ``member=True``: ``value`` is one member's own operand, as a process of
+    a world mesh holds it (its ``(F_dst, ...)`` send buckets, or a psum's
+    operand): the per-member shape is ``value``'s (or ``shape``), so a
+    rank's mark records what one member of the logical form records."""
     recorder = getattr(_LOCAL, "recorder", None)
     if recorder is not None:
-        recorder.collective(prim, tuple(axes), value, shape)
+        recorder.collective(prim, tuple(axes), value, shape, member)

@@ -10,10 +10,12 @@ spells a metric through the module constants below, so none drifts.
 A tape keeps what it is fed as tensors on their device and adds them
 there, so :meth:`MetricsTape.add` never waits for the device;
 :meth:`MetricsTape.finalize` reads every value back in one copy per dtype.
-``psum=`` names the axes a metric would be summed over across cards; it is
-validated as in the JAX package, and on a world of one card the sum is the
-identity (meshes of distinct cards, ROADMAP A.11e, give it a
-meaning).
+``psum=`` names the axes a metric is summed over: validated as in the
+JAX package, the identity in one process, and on a world mesh (one
+process per slot, ``parallel/world.py``) a sum over the rank's process
+group for those axes (integers: one ``all_reduce``; floats: the ordered
+sum), so that every rank's ``finalize()`` returns the logical mesh's
+numbers.
 
 A disabled registry is a no-op: its tapes feed nothing and finalize to
 ``{}``, and ``record`` drops everything.
@@ -249,11 +251,13 @@ class MetricsTape:
         self._note_psum(name, psum)
         self._values[name] = value
 
-    def finalize(self, names=None) -> dict[str, np.ndarray]:
+    def finalize(self, names=None, mesh=None) -> dict[str, np.ndarray]:
         """The step's metrics: every registered metric present (zero-filled
         from its spec when unfed), as host numpy arrays of the spec's
-        dtype, read back in one copy per dtype. ``psum`` is the identity on
-        one card.
+        dtype, read back in one copy per dtype. Each fed metric with
+        ``psum`` axes is summed over them first: over the rank's group of
+        ``mesh`` (default: the process's newest world mesh) on a world
+        mesh, the identity in one process.
 
         ``names`` restricts the dict to that subset of registered metrics
         (still zero-filled when unfed); feeding a metric and then
@@ -271,6 +275,9 @@ class MetricsTape:
                     f"{sorted(dropped)}; include them in names or don't "
                     f"feed them on this tape"
                 )
+        from ..parallel import mesh as mesh_mod, world
+
+        mesh = mesh if mesh is not None else mesh_mod.current_world()
         # one device -> host copy per dtype: flatten and concatenate
         groups: dict[torch.dtype, list[tuple[str, torch.Tensor]]] = {}
         for name, spec in specs.items():
@@ -278,6 +285,12 @@ class MetricsTape:
             if v is None:
                 v = torch.zeros(spec.shape, dtype=spec.dtype)
             v = torch.as_tensor(v).to(spec.dtype)
+            axes = self._psum.get(name)  # set only for fed metrics
+            if axes and mesh_mod.is_world(mesh):
+                v = v.to(mesh.device)
+                group = mesh.group(axes)
+                v = (world.ordered_sum(v, group, axes) if v.is_floating_point()
+                     else world.int_sum(v, group, axes))
             groups.setdefault(spec.dtype, []).append((name, v))
         out = {}
         for dtype, items in groups.items():

@@ -10,15 +10,74 @@ frontiers and needs no ``(node_count,)`` scratch map per hop. Both
 functions take JAX's ``node_bound`` and ``scatter_free``, which pick one
 of those strategies there and are inert here (every strategy returns the
 same outputs). Both take optional leading batch dimensions, one
-independent dedup per leading index.
+independent dedup per leading index. :func:`resolve_dedup` keeps the JAX
+package's contract for the strategy names.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from ..core.config import resolve_platform_strategy
+from ..utils.trace import info_once
+
 __all__ = ["complete_permutation", "inverse_permutation",
-           "inverse_permutation_gather", "masked_unique", "reindex_layer"]
+           "inverse_permutation_gather", "masked_unique", "reindex_layer",
+           "resolve_dedup"]
+
+DEDUP_STRATEGIES = ("sort", "map", "scan")
+
+# QUIVER_DEDUP resolution caches, one environment read per process each
+# (set QUIVER_DEDUP before the first sampler is built; tests reset these)
+_forced_dedup: str | None = None
+_auto_dedup: str | None = None
+
+
+def _forced_dedup_env() -> str:
+    """The ``QUIVER_DEDUP`` force, read once per process ("" = no force)."""
+    global _forced_dedup
+    if _forced_dedup is None:
+        _forced_dedup = os.environ.get("QUIVER_DEDUP", "").strip()
+    return _forced_dedup
+
+
+def resolve_dedup(dedup: str) -> str:
+    """Resolve a dedup strategy name, mapping ``"auto"`` to the default.
+
+    The JAX package's contract: an explicit ``"sort"``, ``"map"`` or
+    ``"scan"`` passes through, and a ``QUIVER_DEDUP`` force that differs
+    from it is logged once (the force applies to ``"auto"`` only);
+    ``"auto"`` takes a valid force, else the default, both read once per
+    process; an unknown name, or an unknown force, raises ``ValueError``.
+
+    The port runs the sort for every name (the three strategies are
+    bit-identical; the map and scan ones are not ported), so its
+    ``"auto"`` resolves to ``"sort"``, the strategy that runs, where the
+    JAX package's picks ``"map"`` on the CPU and ``"scan"`` on a TPU.
+    """
+    if dedup in DEDUP_STRATEGIES:
+        forced = _forced_dedup_env()
+        if forced and forced != dedup:
+            info_once(
+                f"dedup-env-ignored-{dedup}",
+                "QUIVER_DEDUP=%s ignored for explicit dedup=%r (the env "
+                "override applies only to dedup='auto')",
+                forced, dedup,
+            )
+        return dedup
+    if dedup != "auto":
+        raise ValueError(
+            f"dedup must be 'auto', 'sort', 'map', or 'scan', got {dedup!r}"
+        )
+    global _auto_dedup
+    if _auto_dedup is None:
+        _auto_dedup = resolve_platform_strategy(
+            "QUIVER_DEDUP", DEDUP_STRATEGIES, tpu_default="sort",
+            other_default="sort",
+        )
+    return _auto_dedup
 
 _SENTINEL = torch.iinfo(torch.int64).max
 

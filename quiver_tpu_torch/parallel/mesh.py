@@ -1,22 +1,34 @@
 """Device mesh and peer-access topology.
 
-The port of ``quiver_tpu/parallel/mesh.py`` for a world of one process:
-a ``(data, feature)`` grid of ``torch.device``s (:class:`Mesh`,
-:func:`make_mesh`), the reference's clique view of the devices
-(:class:`MeshTopo`, cliques of CUDA devices that can reach each other's
-memory, the reference's ``find_cliques`` over
+The port of ``quiver_tpu/parallel/mesh.py``: a ``(data, feature)`` grid of
+``torch.device``s (:class:`Mesh`, :func:`make_mesh`), the reference's
+clique view of the devices (:class:`MeshTopo`, cliques of CUDA devices
+that can reach each other's memory, the reference's ``find_cliques`` over
 ``torch.cuda.can_device_access_peer``), and the process-group entry point
 (:func:`init_distributed`). The JAX package's ``shard_map`` has no
-counterpart: work on a mesh runs as ordinary torch code, one feature
-group's members at a time (``parallel/routing.py``, ``feature/shard.py``);
-meshes of distinct cards are ROADMAP A.11e.
+counterpart: work on a mesh runs as ordinary torch code.
 
-On a CPU-only machine the tests stand in for JAX's eight forced host
-devices with a mesh whose device repeats (``devices=["cpu"] * 8``); a
-trainer runs the workers of a repeated device one after another on it.
+A mesh takes one of two forms:
+
+* **logical**, one process over every slot (``make_mesh(devices=...)``,
+  or ``make_mesh()`` without a process group): its members run one after
+  another in the process, and a collective is a tensor operation over
+  them (``parallel/routing.py``, ``feature/shard.py``). On a CPU-only
+  machine the tests stand in for JAX's eight forced host devices with a
+  mesh whose device repeats (``devices=["cpu"] * 8``); one process over
+  several distinct cards is not ported (ROADMAP A.11e (b)).
+* **world**, one process per slot (:class:`WorldMesh`: ``make_mesh(data=,
+  feature=)`` after :func:`init_distributed`, as JAX's ``make_mesh()``
+  spans every process after ``jax.distributed.initialize``): rank ``r``
+  holds slot ``(r // F, r % F)`` on its own device, and the collectives
+  run over ``torch.distributed`` groups (``parallel/world.py``) with
+  results bitwise the logical mesh's of the same shape.
 """
 
 from __future__ import annotations
+
+import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,11 +40,16 @@ __all__ = [
     "FEATURE_AXIS",
     "Mesh",
     "MeshTopo",
+    "AxisGroup",
+    "WorldMesh",
     "axis_devices",
     "axis_groups",
     "can_device_access_peer",
+    "current_world",
     "init_distributed",
     "init_p2p",
+    "shutdown_distributed",
+    "is_world",
     "shard_seed_blocks",
     "make_mesh",
 ]
@@ -56,6 +73,78 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.shape}, devices={self.devices.tolist()})"
+
+
+class AxisGroup(NamedTuple):
+    """One rank's process group along some mesh axes: the member ranks in
+    member order, this rank's index among them, and the
+    ``torch.distributed`` group."""
+
+    ranks: list
+    index: int
+    group: object
+
+
+class WorldMesh(Mesh):
+    """A ``(data, feature)`` mesh over a world of processes, one slot each.
+
+    Rank ``r`` holds slot ``(d, f) = (r // F, r % F)``, so its flat worker
+    index (JAX's ``_worker_index``) is ``r``. A process sees only its own
+    device, so ``devices`` holds this rank's device in every slot: code
+    that places a tensor "on the mesh" places it on the rank's device.
+    Every rank builds one ``torch.distributed`` group per feature group
+    and one per data group, in :func:`axis_groups`' order (``new_group``
+    must be called identically on every rank, members or not);
+    :meth:`group` returns this rank's."""
+
+    def __init__(self, data: int, feature: int, rank: int, device: torch.device):
+        devices = np.empty((data, feature), dtype=object)
+        devices.fill(device)
+        super().__init__(devices)
+        self.rank = int(rank)
+        self.world_size = data * feature
+        self.slot = divmod(self.rank, feature)
+        self.device = device
+        dist = torch.distributed
+        self._groups = {}
+        for axis in (FEATURE_AXIS, DATA_AXIS):
+            for ranks in axis_groups(self, axis):
+                pg = dist.new_group(ranks)
+                if self.rank in ranks:
+                    self._groups[(axis,)] = AxisGroup(ranks, ranks.index(self.rank), pg)
+        self._groups[self.axis_names] = AxisGroup(
+            list(range(self.world_size)), self.rank, dist.group.WORLD)
+        global _CURRENT_WORLD
+        _CURRENT_WORLD = self
+
+    def group(self, axes) -> AxisGroup:
+        """This rank's group over ``axes`` (an axis name or a tuple of
+        them): its feature group, its data group, or the whole world in
+        rank (= worker) order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        key = tuple(a for a in self.axis_names if a in axes)
+        if key not in self._groups or len(key) != len(set(axes)):
+            raise ValueError(f"unknown mesh axes {axes!r}; the axes are {self.axis_names}")
+        return self._groups[key]
+
+    def __repr__(self):
+        return (f"WorldMesh({self.shape}, rank={self.rank}, slot={self.slot}, "
+                f"device={self.device})")
+
+
+def is_world(mesh) -> bool:
+    """Whether ``mesh`` is a :class:`WorldMesh` (one process per slot)."""
+    return isinstance(mesh, WorldMesh)
+
+
+_CURRENT_WORLD: WorldMesh | None = None  # the process's newest WorldMesh
+
+
+def current_world() -> WorldMesh | None:
+    """The newest :class:`WorldMesh` this process built (None without a
+    process group): the mesh whose axes a collective named only by its
+    axes runs over, as JAX's axis names refer to the enclosing mesh."""
+    return _CURRENT_WORLD
 
 
 def axis_devices(mesh: Mesh, axis: str) -> list:
@@ -107,10 +196,17 @@ def make_mesh(
     feature: int = 1,
     devices=None,
 ) -> Mesh:
-    """Build a ``(data, feature)`` mesh over ``devices`` (default: every
-    visible CUDA device). The ``data`` axis carries data parallelism (the
-    reference's one process per GPU); the ``feature`` axis shards the hot
-    feature cache. A device may appear more than once."""
+    """Build a ``(data, feature)`` mesh. The ``data`` axis carries data
+    parallelism (the reference's one process per GPU); the ``feature`` axis
+    shards the hot feature cache.
+
+    After :func:`init_distributed`, and with no ``devices``, the mesh spans
+    the world's ranks (:class:`WorldMesh`; ``data * feature`` must be the
+    world size). Otherwise it is a logical mesh over ``devices`` (default:
+    every visible CUDA device), in which a device may appear more than
+    once."""
+    if devices is None and _WORLD_DEVICE is not None:
+        return _world_mesh(n_devices, data, feature)
     devices = _cuda_devices() if devices is None else [
         resolve_device(d) for d in devices]
     n = n_devices or len(devices)
@@ -123,6 +219,19 @@ def make_mesh(
     arr = np.empty(n, dtype=object)
     arr[:] = devices[:n]
     return Mesh(arr.reshape(data, feature))
+
+
+def _world_mesh(n_devices, data, feature) -> WorldMesh:
+    dist = torch.distributed
+    n = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != n:
+        raise ValueError(f"a world mesh spans the world's {n} ranks, got n_devices={n_devices}")
+    if data is None:
+        data = n // feature
+    if data * feature != n:
+        raise ValueError(
+            f"data*feature = {data}*{feature} != the world size {n} (one rank per slot)")
+    return WorldMesh(int(data), int(feature), dist.get_rank(), _WORLD_DEVICE)
 
 
 def _as_device(d) -> torch.device:
@@ -194,19 +303,29 @@ def init_p2p(device_list=None) -> None:
     return None
 
 
+_WORLD_DEVICE: torch.device | None = None  # this rank's, after init_distributed
+
+
 def init_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
     device=None,
-) -> None:
-    """Join a process group: ``torch.distributed.init_process_group`` with
-    ``nccl`` on a card and ``gloo`` when ``device`` names the CPU.
-    ``coordinator_address`` is ``host:port`` (or a URL such as
-    ``tcp://localhost:29500``); unset arguments come from the environment
-    (``env://``: ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
-    ``RANK``). Call once per process, before any collective."""
-    backend = "gloo" if resolve_device(device).type == "cpu" else "nccl"
+) -> torch.device:
+    """Join a process group and record this rank's device: ``cpu`` over
+    ``gloo`` when ``device`` names the CPU; else a card over ``nccl``,
+    ``device`` itself when it names one by index, otherwise
+    ``cuda:LOCAL_RANK`` (``cuda:rank % device_count`` when ``LOCAL_RANK``
+    is unset). ``coordinator_address`` is ``host:port``, a URL
+    (``tcp://localhost:29500``, ``file:///path/to/store``) or None
+    (``env://``); unset arguments come from the environment
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``). Call once
+    per process, before any collective; :func:`make_mesh` then builds a
+    :class:`WorldMesh`. Returns the rank's device."""
+    global _WORLD_DEVICE
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        resolve_device(device)  # raises without a card
     kwargs = {}
     if coordinator_address is not None:
         kwargs["init_method"] = (coordinator_address if "://" in coordinator_address
@@ -215,4 +334,26 @@ def init_distributed(
         kwargs["world_size"] = int(num_processes)
     if process_id is not None:
         kwargs["rank"] = int(process_id)
-    torch.distributed.init_process_group(backend, **kwargs)
+    torch.distributed.init_process_group("gloo" if cpu else "nccl", **kwargs)
+    if cpu:
+        dev = torch.device("cpu")
+    elif device is not None and torch.device(device).index is not None:
+        dev = torch.device(device)
+    else:
+        local = os.environ.get("LOCAL_RANK")
+        index = (int(local) if local is not None
+                 else torch.distributed.get_rank() % torch.cuda.device_count())
+        dev = torch.device("cuda", index)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    _WORLD_DEVICE = dev
+    return dev
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (``destroy_process_group``) and forget the
+    rank's device: :func:`make_mesh` builds logical meshes again."""
+    global _WORLD_DEVICE, _CURRENT_WORLD
+    _WORLD_DEVICE = _CURRENT_WORLD = None
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

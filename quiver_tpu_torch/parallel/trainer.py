@@ -24,13 +24,18 @@ allreduce, JAX's ``pmean``). It takes any sampler and store configuration:
 ``mode="HOST"`` topologies (kernel K1 reading ``indices`` over UVA), cold
 feature tiers (K2 reading pinned rows), weighted hops, auto caps.
 
-In both, every data worker runs in this process on the mesh's one device,
-in worker order, and the gradient is the workers' mean. A mesh whose
-workers map to more than one distinct device raises (meshes of distinct
-cards are ROADMAP A.11e). :class:`DistributedTrainer`'s elastic mode
-(``logical_workers=``) fixes the worker count apart from the mesh and
-reduces in logical-worker order, so ``resume(mesh=)`` continues a run on
-another mesh shape bitwise.
+On a logical mesh every data worker runs in this process on the mesh's
+one device, in worker order, and the gradient is the workers' mean. A
+logical mesh over more than one distinct device raises (one process over
+several cards is ROADMAP A.11e (b)). On a world mesh
+(``parallel/mesh.py`` ``WorldMesh``: one process per slot over
+``torch.distributed``) each rank runs its own worker, and the sums that
+the logical mesh's loop makes (gradients, loss, metrics, the guard's
+count) run over the rank's process groups (``parallel/world.py``), so
+every rank's step is bitwise the logical mesh's. :class:`DistributedTrainer`'s
+elastic mode (``logical_workers=``) fixes the worker count apart from the
+mesh and reduces in logical-worker order, so ``resume(mesh=)`` continues
+a run on another mesh shape bitwise.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ from ..resilience.faults import Preemption
 from ..resilience.guard import guard_verdict, guarded_update
 from ..sampling.sampler import Adj
 from ..utils.trace import get_logger, info_once
-from .mesh import DATA_AXIS, FEATURE_AXIS, Mesh, shard_seed_blocks
+from . import world
+from .mesh import DATA_AXIS, FEATURE_AXIS, Mesh, is_world, shard_seed_blocks
 from .pipeline import Batch, Prefetcher
 from .train import cross_entropy_on_seeds, init_model
 
@@ -104,14 +110,41 @@ def _metrics_report(metrics: MetricsRegistry, timeline: StepTimeline,
 
 
 def _one_device(mesh: Mesh) -> torch.device:
-    """The one device every slot of ``mesh`` sits on; raises for more."""
+    """The one device every slot of ``mesh`` sits on (a world mesh's: the
+    rank's); raises for a logical mesh over more."""
     devices = set(mesh.devices.ravel().tolist())
     if len(devices) > 1:
         raise NotImplementedError(
-            f"the mesh's workers sit on {len(devices)} devices; training "
-            "across distinct devices is not ported yet (ROADMAP A.11e)"
+            f"the mesh's workers sit on {len(devices)} devices; one process "
+            "over several distinct devices is not ported yet (ROADMAP A.11e "
+            "(b)): run one process per device (init_distributed, then "
+            "make_mesh) instead"
         )
     return devices.pop()
+
+
+def _a2_refusal(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on a world mesh (one process per slot) is not ported yet "
+        "(ROADMAP A.11e (a2)); use a logical mesh for it"
+    )
+
+
+def _ordered_grads(grads, group, axes) -> list:
+    """Each gradient summed over the world ``group`` in member order:
+    one flat buffer, so one collective, per dtype; bitwise the logical
+    mesh's accumulation of the workers' gradients. The fold holds the
+    group's W flat buffers at once."""
+    out = [None] * len(grads)
+    by_dtype: dict = {}
+    for i, g in enumerate(grads):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        total = world.ordered_sum(flat, group, axes, mark=False)
+        for i, part in zip(idx, total.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
 
 
 class IssuedBlock(NamedTuple):
@@ -221,9 +254,20 @@ class DistributedTrainer:
       tracer, recorder: the ``train.step``/``train.chunk`` spans and the
         flight recorder that dumps a bundle when the guard skips a step.
 
+    On a world mesh (``WorldMesh``, one process per slot) the rank runs
+    one worker, ``w = rank`` under ``"all"`` and its data row under
+    ``"data"``: its block of the same seed packing, its keys, its sample
+    (over its own replicated topology) and its lookup (the psum or the
+    routed flavour over its feature group); the gradients (one flat buffer
+    per dtype), the loss, the metrics and the guard's count are summed
+    over its process groups (``parallel/world.py``), so the step is
+    bitwise the logical mesh's of the same shape.
+
     Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
-    item): a mesh whose workers sit on more than one distinct device
-    (A.11e).
+    item): a logical mesh over more than one distinct device (A.11e (b));
+    on a world mesh, a topology-sharded sampler, ``logical_workers=``,
+    ``resume(mesh=)``, ``controller=``, ``auto_alpha=`` and
+    ``checkpoint_dir=`` (A.11e (a2)).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -290,6 +334,17 @@ class DistributedTrainer:
             )
         self.auto_alpha = bool(auto_alpha)
         device = _one_device(mesh)
+        self.world = is_world(mesh)
+        if self.world:
+            for what, given in (
+                    ("a topology-sharded sampler",
+                     getattr(sampler, "topo_sharding", "replicated") == "mesh"),
+                    ("logical_workers=", logical_workers is not None),
+                    ("controller=", controller is not None),
+                    ("auto_alpha=True", self.auto_alpha),
+                    ("checkpoint_dir=", checkpoint_dir is not None)):
+                if given:
+                    raise _a2_refusal(f"DistributedTrainer({what})")
         # a topo_sharding="mesh" sampler routes each hop over the feature
         # axis, so every mesh slot must be a worker over its own block
         # ("data" would route a feature group's one frontier F times)
@@ -313,10 +368,11 @@ class DistributedTrainer:
                     f"'{FEATURE_AXIS}' axis, got {sampler.axis!r}"
                 )
         self._sharded = isinstance(feature, ShardedFeature)
-        if self._sharded and feature.mesh.shape != mesh.shape:
+        if self._sharded and (feature.mesh.shape != mesh.shape
+                              or is_world(feature.mesh) != self.world):
             raise ValueError(
-                f"the ShardedFeature's mesh {feature.mesh.shape} is not the "
-                f"trainer's {mesh.shape}"
+                f"the ShardedFeature's mesh {feature.mesh!r} is not the "
+                f"trainer's {mesh!r} (shape and form must agree)"
             )
         if replicate_budget is not None:
             if self._sharded:
@@ -425,6 +481,12 @@ class DistributedTrainer:
         else:
             self.workers = self._device_workers
         self.blocks_per_device = self.workers // self._device_workers
+        # the workers this process runs: all of them in turn, or the rank's
+        if self.world:
+            d, f = mesh.slot
+            self._held = [d * self.feature_size + f if self.seed_sharding == "all" else d]
+        else:
+            self._held = list(range(self.workers))
         # a sharded store under "all": each feature group's lookup routes
         self._routed = self._sharded and self.seed_sharding == "all"
         self.global_batch = self.local_batch * self.workers
@@ -604,10 +666,11 @@ class DistributedTrainer:
         if not self._sharded:
             return (self.feature[n_id], self._tier_hits(n_id),
                     torch.zeros((), dtype=torch.int32, device=n_id.device))
-        routed = n_id.dim() == 2
+        # a world rank's routed frontier is its own (L,) vector
+        routed = self._routed if self.world else n_id.dim() == 2
         hot = self.feature.hot
         cap = (None if not routed or hot is None or self.routed_alpha is None
-               else hot.routed_cap(int(n_id.shape[1]), self.routed_alpha))
+               else hot.routed_cap(int(n_id.shape[-1]), self.routed_alpha))
         return self.feature.lookup(n_id, routed=routed, cap=cap)
 
     def issue_block(self, seeds, num_seeds, key: int, draw_fn=None) -> IssuedBlock:
@@ -695,6 +758,16 @@ class DistributedTrainer:
         looks their frontiers up (at once when routed)."""
         blocks = self._blocks(packed)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.world:
+            # the rank's one worker; a routed lookup exchanges over its group
+            w = self._held[0]
+            seeds, num = blocks[w]
+            wkey, draw = fold_key(key, 1, w), self._worker_draw(key, w)
+            if not self._routed:
+                return IssuedStep([self.issue_block(seeds, num, wkey, draw)], zero)
+            n_id, adjs = self.sample_block(seeds, num, wkey, draw)
+            x, hits, ov = self._lookup(n_id)
+            return IssuedStep([IssuedBlock(n_id, x, adjs, num, hits, self._heat(n_id))], ov)
         if self.topo_sharded:
             return self._issue_groups(blocks, key)
         if not self._routed:
@@ -738,7 +811,10 @@ class DistributedTrainer:
         """The train half of a step over its issued blocks."""
         outs = [self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labels,
                                  fold_key(key, 1, w), inject)
-                for w, b in enumerate(issued.blocks)]
+                for w, b in zip(self._held, issued.blocks)]
+        if self.world:
+            return self._world_update(outs[0], issued.blocks[0].tier_hits,
+                                      issued.routed_overflow)
         return self._update(outs, [b.tier_hits for b in issued.blocks],
                             issued.routed_overflow, issued.sample_overflow,
                             [b.heat for b in issued.blocks])
@@ -811,6 +887,42 @@ class DistributedTrainer:
         else:
             self.optimizer.step()
         return loss, mtree
+
+    def _world_update(self, out, hits, routed_overflow):
+        """:meth:`_update` on a world mesh, for the rank's one worker: the
+        same sums over the rank's process groups, in the same order and
+        with the same marks. The gradients and the loss are summed over the
+        workers' group (the world under ``"all"``, the data group under
+        ``"data"``, whose feature members hold the same worker) in worker
+        order; the metrics are integer sums; the guard's count is summed
+        over the whole world."""
+        loss, grads = out
+        mesh = self.mesh
+        axes = (DATA_AXIS, FEATURE_AXIS) if self.seed_sharding == "all" else (DATA_AXIS,)
+        group = mesh.group(axes)
+        params = self._params()
+        self.optimizer.zero_grad(set_to_none=True)
+        for p, g in zip(params, _ordered_grads(grads, group, axes)):
+            p.grad = g
+        mean = world.all_gather(loss, group, axes, mark=False).mean()
+        mtree = {}
+        if self.collect_metrics:
+            mtree = {
+                ROUTED_OVERFLOW: world.int_sum(routed_overflow, mesh.group(DATA_AXIS),
+                                               (DATA_AXIS,)),
+                TIER_HITS: world.int_sum(hits, group, axes),
+                SAMPLE_OVERFLOW: torch.zeros((len(self.sampler.sizes),), dtype=torch.int32,
+                                             device=loss.device),
+            }
+        if self.nonfinite_guard:
+            ok, bad = guard_verdict(loss, grads, (DATA_AXIS, FEATURE_AXIS), mesh=mesh)
+            if self.collect_metrics:
+                mtree[GUARD_NONFINITE] = world.int_sum(bad, group, axes)
+                mtree[GUARD_SKIPPED] = (~ok).to(torch.int32)
+            guarded_update(self.optimizer, params, ok)
+        else:
+            self.optimizer.step()
+        return mean, mtree
 
     # -- API -------------------------------------------------------------------
 
@@ -1143,6 +1255,8 @@ class DistributedTrainer:
         and ``start_step=step`` back to :meth:`epoch_scan`. With no
         checkpoint on disk: ``(model, optimizer, None, 0, 0)``, untouched.
         """
+        if mesh is not None and (self.world or is_world(mesh)):
+            raise _a2_refusal("DistributedTrainer.resume(mesh=)")
         if self.checkpointer is None:
             raise ValueError(
                 "resume() needs checkpointing enabled "
@@ -1261,13 +1375,39 @@ class DistributedTrainer:
         self.last_sample_overflow = None
 
 
+class _RankCalls:
+    """A sampler seen by one rank of a world of ``size`` data workers,
+    whose epoch samples blocks ``rank, rank + size, ...`` of the logical
+    loop's. The sampler's own stream keys each call by its call counter,
+    so the counter starts ``rank`` calls on and steps past the other
+    ranks' ``size - 1`` blocks after each call; :meth:`finish` leaves it
+    where the logical loop's ends."""
+
+    def __init__(self, sampler, rank: int, size: int):
+        self.sampler, self.rank, self.size = sampler, rank, size
+        self.device = getattr(sampler, "device", None)
+        sampler._call += rank
+
+    def sample(self, seeds):
+        out = self.sampler.sample(seeds)
+        self.sampler._call += self.size - 1
+        return out
+
+    def finish(self) -> None:
+        self.sampler._call -= self.rank
+
+
 class DataParallelTrainer:
     """Unfused data-parallel training: host-driven sample and gather with
     prefetch overlap, one model step per group of D worker blocks.
 
     Args:
       mesh: a :class:`~.mesh.Mesh` with ``feature == 1``; its ``data``
-        axis gives D workers, all on one device.
+        axis gives D workers, all on one device (a logical mesh), or one
+        per process (a world mesh: the rank is worker ``rank``, its
+        ``step`` takes its own batch and its ``train_epoch`` samples its
+        own blocks; the gradients and the loss are summed over the world
+        in worker order, bitwise the logical mesh's step).
       sampler: any sampler (``GraphSageSampler`` or a wrapper of one).
       feature: a replicated feature store (``Feature`` or a wrapper).
       model: the torch model (its parameters on the mesh's device).
@@ -1305,15 +1445,9 @@ class DataParallelTrainer:
                 "DataParallelTrainer is pure data parallelism; build the "
                 "mesh with feature=1"
             )
-        workers = list(mesh.devices[:, 0])
-        if len(set(workers)) > 1:
-            raise NotImplementedError(
-                f"the mesh's data workers sit on {len(set(workers))} devices; "
-                "training across distinct devices is not ported yet "
-                "(ROADMAP A.11e)"
-            )
+        self.world = is_world(mesh)
         self.mesh = mesh
-        self.device = workers[0]
+        self.device = _one_device(mesh)
         self.sampler = sampler
         self.feature = feature
         self.model = model
@@ -1321,6 +1455,8 @@ class DataParallelTrainer:
         self.local_batch = int(local_batch)
         self.data_size = mesh.shape[DATA_AXIS]
         self.global_batch = self.local_batch * self.data_size
+        # the workers this process runs: all of them in turn, or the rank's
+        self._held = [mesh.rank] if self.world else list(range(self.data_size))
         # the epoch loop's Prefetcher lands its retry and skip counters
         # here, readable beside the stage timeline (metrics_report)
         self.metrics = MetricsRegistry()
@@ -1416,8 +1552,9 @@ class DataParallelTrainer:
 
     def step(self, batches, labels, generator: torch.Generator | None = None):
         """One data-parallel step from D batches (``Batch`` or anything
-        with ``.out`` and ``.x``), worker ``w``'s first. ``labels`` is the
-        full ``(N,)`` label tensor on the mesh's device.
+        with ``.out`` and ``.x``), worker ``w``'s first; on a world mesh
+        from one, this rank's. ``labels`` is the full ``(N,)`` label tensor
+        on the mesh's device.
 
         Worker ``w``'s loss is the masked NLL of its block's first
         ``local_batch`` rows: lanes past the block's true ``batch_size``
@@ -1428,10 +1565,10 @@ class DataParallelTrainer:
         mean of the workers' (JAX's ``pmean``), then one optimizer step.
         Returns the mean of the workers' losses, on the device (no host
         sync)."""
-        if len(batches) != self.data_size:
+        if len(batches) != len(self._held):
             raise ValueError(
-                f"need {self.data_size} batches (one per data shard), "
-                f"got {len(batches)}"
+                f"need {len(self._held)} batches (one per data shard held "
+                f"by this process), got {len(batches)}"
             )
         caps, fanouts = self._stack(batches)
         adj_sizes = self._adj_sizes(caps)
@@ -1441,7 +1578,7 @@ class DataParallelTrainer:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         losses = []
-        for w, b in enumerate(batches):
+        for w, b in zip(self._held, batches):
             adjs = [Adj(a.edge_index, None, sz, fanout=f)
                     for a, sz, f in zip(b.out.adjs, adj_sizes, fanouts)]
             seed_ids = b.out.n_id[:S]
@@ -1452,6 +1589,16 @@ class DataParallelTrainer:
             loss = cross_entropy_on_seeds(self.model(b.x, adjs, g)[:S], lab, mask)
             (loss / self.data_size).backward()
             losses.append(loss.detach())
+        if self.world:
+            # the logical step accumulates every worker's backward in turn:
+            # the ordered sum over the world in worker order
+            group = self.mesh.group(DATA_AXIS)
+            params = [p for p in self.model.parameters() if p.grad is not None]
+            for p, g in zip(params, _ordered_grads([p.grad for p in params], group,
+                                                   (DATA_AXIS,))):
+                p.grad = g
+            self.optimizer.step()
+            return world.all_gather(losses[0], group, (DATA_AXIS,), mark=False).mean()
         self.optimizer.step()
         return torch.stack(losses).mean()
 
@@ -1467,11 +1614,11 @@ class DataParallelTrainer:
             blocks.extend(self.seed_blocks(chunk))
         return blocks
 
-    def _serial(self, blocks):
+    def _serial(self, blocks, sampler):
         """The blocks' batches on the caller's thread, one after another
         (``depth=0``: no Prefetcher, so no retries)."""
         for seeds in blocks:
-            out = self.sampler.sample(seeds)
+            out = sampler.sample(seeds)
             yield Batch(seeds, out, self.feature[out.n_id])
 
     def train_epoch(self, train_idx, labels, generator: torch.Generator,
@@ -1499,23 +1646,32 @@ class DataParallelTrainer:
             )
         blocks = self._epoch_blocks(train_idx, rng)
         labels = torch.as_tensor(labels, device=self.device)
+        sampler = self.sampler
+        if self.world:
+            # the rank's blocks, drawing what the logical loop's calls for
+            # them draw: the call counter steps past the other ranks' blocks
+            rank, D = self.mesh.rank, self.data_size
+            blocks = blocks[rank::D]
+            sampler = _RankCalls(self.sampler, rank, D)
         if depth > 0:
             batches = Prefetcher(
-                self.sampler, self.feature, depth=depth,
+                sampler, self.feature, depth=depth,
                 retries=self.prefetch_retries, backoff=self.prefetch_backoff,
                 skip_policy=self.prefetch_skip_policy,
                 timeline=self.timeline, metrics=self.metrics,
             ).run(blocks)
         else:
-            batches = self._serial(blocks)
+            batches = self._serial(blocks, sampler)
         seed = generator.initial_seed()
         losses, group = [], []
         for batch in batches:
             group.append(batch)
-            if len(group) == self.data_size:
+            if len(group) == len(self._held):
                 sub = seeded_generator("cpu", seed, len(losses))
                 losses.append(self.step(group, labels, sub))
                 group = []
+        if self.world:
+            sampler.finish()
         if not losses:
             return float("nan"), 0
         return float(torch.stack(losses).mean()), len(losses)

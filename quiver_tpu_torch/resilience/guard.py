@@ -12,7 +12,9 @@ is visible to the caller.
 The JAX package decides inside its compiled step (a ``lax.cond`` on a
 mesh-psum'd verdict). Here the verdict is a device tensor and
 :func:`guarded_update` reads it on the host, one synchronisation per step,
-paid only while the guard is on.
+paid only while the guard is on. On a world mesh (one process per slot)
+the count is summed over the named axes' process group first, so that
+every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -53,19 +55,27 @@ def nonfinite_count(tree) -> torch.Tensor:
     return total
 
 
-def guard_verdict(loss, grads, axes=None):
+def guard_verdict(loss, grads, axes=None, mesh=None):
     """The step's verdict, taken before the gradients are averaged (the
     average spreads one worker's NaN to every worker; counting first
     attributes the fault to the worker that produced it).
 
     Returns ``(ok, local_bad)``: ``local_bad`` is the int32 count of
-    non-finite values in ``(loss, grads)`` and ``ok`` the device bool
-    ``local_bad == 0``. ``axes`` names the mesh axes the JAX package sums
-    the count over so that every chip takes the same branch; in one
-    process the sum is the identity and ``axes`` is inert, reserved for
-    meshes of distinct cards (ROADMAP A.11e)."""
-    del axes  # one process: the mesh-wide sum is the identity
+    non-finite values in ``(loss, grads)`` and ``ok`` the device bool that
+    the count summed over ``axes`` is 0. The sum runs over this rank's
+    process group for ``axes`` on a world mesh (``mesh``, default the
+    process's newest, ``parallel.mesh.current_world``), an integer sum, so
+    every rank takes the same branch; with one process (no world mesh, or
+    no ``axes``) it is the identity."""
     local_bad = nonfinite_count((loss, grads))
+    if axes is not None:
+        from ..parallel import mesh as mesh_mod, world
+
+        mesh = mesh if mesh is not None else mesh_mod.current_world()
+        if mesh_mod.is_world(mesh):
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            total = world.int_sum(local_bad, mesh.group(axes), axes)
+            return total == 0, local_bad
     return local_bad == 0, local_bad
 
 

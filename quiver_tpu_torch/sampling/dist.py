@@ -62,7 +62,8 @@ from ..ops.sample import (
     stratified_offsets,
     temporal_window_counts,
 )
-from ..parallel.mesh import FEATURE_AXIS, axis_devices, axis_groups, shard_seed_blocks
+from ..parallel.mesh import (FEATURE_AXIS, axis_devices, axis_groups, is_world,
+                             shard_seed_blocks)
 from ..parallel.routing import BucketRoute
 from ..utils.trace import trace_scope
 from .sampler import (
@@ -346,6 +347,10 @@ class DistGraphSageSampler(GraphSageSampler):
             )
         if mesh is None:
             raise ValueError("topo_sharding='mesh' requires mesh=")
+        if is_world(mesh):
+            raise NotImplementedError(
+                "DistGraphSageSampler on a world mesh (one process per slot) is not "
+                "ported yet (ROADMAP A.11e (a2)); use a logical mesh")
         if with_eid:
             raise ValueError(
                 "with_eid over a sharded topology is not supported; the "

@@ -37,7 +37,8 @@ from ..core.hetero_sharded import HeteroShardedTopology
 from ..obs.registry import HETERO_SAMPLE_OVERFLOW, MetricsRegistry
 from ..ops.election import validate_kernel_arg
 from ..ops.sample import fold_key
-from ..parallel.mesh import FEATURE_AXIS, axis_devices, axis_groups, shard_seed_blocks
+from ..parallel.mesh import (FEATURE_AXIS, axis_devices, axis_groups, is_world,
+                             shard_seed_blocks)
 from ..parallel.routing import BucketRoute
 from ..utils.trace import trace_scope
 from .dist import dist_sample_layer, routed_sample_cap, stack_draws, worker_major
@@ -146,6 +147,10 @@ class DistHeteroSampler(HeteroGraphSampler):
                  axis: str = FEATURE_AXIS, kernel: str = "auto", device=None):
         if mesh is None:
             raise ValueError("DistHeteroSampler requires mesh=")
+        if is_world(mesh):
+            raise NotImplementedError(
+                "DistHeteroSampler on a world mesh (one process per slot) is not "
+                "ported yet (ROADMAP A.11e (a2)); use a logical mesh")
         self._kernel = validate_kernel_arg(str(kernel))
         if with_eid:
             raise ValueError(

@@ -33,10 +33,10 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..core.config import SampleMode, validate_dedup
+from ..core.config import SampleMode
 from ..core.hetero import HeteroCSRTopo
 from ..core.memory import resolve_device
-from ..ops.reindex import masked_unique
+from ..ops.reindex import masked_unique, resolve_dedup
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
 from .sampler import Adj, _round_up, check_seed_range, read_counts, run_auto_caps
 
@@ -260,8 +260,9 @@ class HeteroGraphSampler:
         relations sample uniformly.
       with_eid: populate every ``Adj.e_id`` with relation-local COO edge
         positions.
-      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, validated:
-        the JAX package's three strategies give identical results, and each
+      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, resolved by
+        :func:`~..ops.reindex.resolve_dedup` (``"auto"`` is ``"sort"``): the
+        JAX package's three strategies give identical results, and each
         runs the port's one reindex, which gives them too.
       device: sampling device; CUDA unless the caller names another.
 
@@ -277,7 +278,7 @@ class HeteroGraphSampler:
                  with_eid: bool = False, dedup: str = "auto", device=None):
         if input_type not in topo.num_nodes:
             raise ValueError(f"unknown input_type {input_type!r}")
-        self.dedup = validate_dedup(str(dedup))
+        self.dedup = resolve_dedup(str(dedup))  # validates; "auto" -> "sort"
         self.device = resolve_device(device)
         self.topo = topo
         self.input_type = input_type

@@ -31,11 +31,11 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..core.config import SampleMode, validate_dedup
+from ..core.config import SampleMode
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from ..ops.election import KernelElection, validate_kernel_arg
-from ..ops.reindex import reindex_layer
+from ..ops.reindex import reindex_layer, resolve_dedup
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
 from ..utils.trace import get_logger
 
@@ -340,9 +340,10 @@ class GraphSageSampler:
         card, ``"xla"`` on the CPU; see :func:`resolve_sample_kernel`),
         resolved at the first ``sample``.
       with_eid: populate ``Adj.e_id`` with per-edge ids.
-      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, validated:
-        the JAX package's three reindex strategies give identical results,
-        and every one runs the port's one reindex, which gives them too.
+      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, resolved by
+        :func:`~..ops.reindex.resolve_dedup` (``"auto"`` is ``"sort"``): the
+        JAX package's three reindex strategies give identical results, and
+        every one runs the port's one reindex, which gives them too.
       device_topo: a placed :class:`~..core.topology.DeviceTopology` to
         reuse instead of placing a fresh copy, so that samplers (and the
         serving replicas over them) share one device-resident graph. It
@@ -391,7 +392,7 @@ class GraphSageSampler:
         self.compiled_cache_size = int(compiled_cache_size)
         self.device = resolve_device(device)
         self._kernel = validate_kernel_arg(str(kernel))
-        self.dedup = validate_dedup(str(dedup))
+        self.dedup = resolve_dedup(str(dedup))  # validates; "auto" -> "sort"
         self.csr_topo = csr_topo
         self.mode = SampleMode.parse(mode)
         max_deg = csr_topo.max_degree

@@ -246,7 +246,8 @@ _EXPECTED_METRIC_REDUCTIONS = 2
     "capped-bucket routed feature gather (cap 2), recorded on ids that fit "
     "the buckets and on ids that overflow them (the fallback serves)",
     sources=("quiver_tpu_torch/feature/shard.py", "quiver_tpu_torch/parallel/routing.py",
-             "quiver_tpu_torch/parallel/mesh.py", "quiver_tpu_torch/obs/marks.py"),
+             "quiver_tpu_torch/parallel/mesh.py", "quiver_tpu_torch/parallel/world.py",
+             "quiver_tpu_torch/obs/marks.py"),
     meta={"hbm_budget": 3 * 1024},
 )
 def _routed_gather(dev):

@@ -268,11 +268,15 @@ class _Recorder(TorchDispatchMode):
         p.nodes.append(Node("kernel", name, operands, results, writes, index=len(p.nodes)))
         return out
 
-    def collective(self, prim: str, axes: tuple, value, shape=None) -> None:
+    def collective(self, prim: str, axes: tuple, value, shape=None,
+                   member: bool = False) -> None:
         if self._opaque:
             return
         full = tuple(value.shape)
-        if prim in ("all_to_all", "all_gather"):
+        if member:
+            operand = tuple(shape) if shape is not None else full
+            full = operand
+        elif prim in ("all_to_all", "all_gather"):
             operand = full[1:]
         else:
             operand = tuple(shape) if shape is not None else full

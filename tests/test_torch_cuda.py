@@ -1669,3 +1669,77 @@ def test_audit_mem_cuda_column(cuda, audit_cache, capsys):
     for line in out[1:]:
         ratio = float(line.split()[-1])
         assert lo <= ratio <= hi, line
+
+
+@pytest.mark.parametrize("seed_sharding,dtype", [("all", None), ("data", "int8")])
+def test_world_of_one_over_nccl_equals_logical(cuda, tmp_path, seed_sharding, dtype):
+    """A world of one rank over ``nccl`` (``init_distributed`` through a
+    file store, the world mesh ``(1, 1)``): 3 ``DistributedTrainer`` steps
+    over a three-tier store, the routed f32 and the psum int8 flavours,
+    bitwise the logical ``(1, 1)`` mesh's on the same card under
+    deterministic kernels (losses, tier hits and parameters), every
+    collective on CUDA tensors; then ``DataParallelTrainer`` steps alike."""
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch.models.sage import GraphSAGE
+    from quiver_tpu_torch.parallel import world
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    from torch_world_worker import GRAPH, SIZES, STORES
+
+    ei, feat, labels = GRAPH
+    labels = torch.from_numpy(labels.astype(np.int32)).to(cuda)
+
+    def sharded_run(mesh):
+        topo = qt.CSRTopo(edge_index=ei)
+        store = qt.ShardedFeature(mesh, csr_topo=topo, dtype=dtype, kernel="pallas",
+                                  **STORES[dtype]).from_cpu_tensor(feat)
+        model = GraphSAGE(4, 16, 4, num_layers=2).to(cuda)
+        trainer = qt.DistributedTrainer(
+            mesh, qt.GraphSageSampler(topo, list(SIZES), device=cuda, seed=9,
+                                      kernel="pallas"),
+            store, model, torch.optim.Adam(model.parameters(), lr=5e-3), local_batch=32,
+            seed_sharding=seed_sharding, routed_alpha=0.05, nonfinite_guard=True)
+        trainer.init(0)
+        rng = np.random.default_rng(3)
+        out = [(trainer.step(rng.integers(0, 300, trainer.global_batch), labels, 5 + t),
+                trainer.last_tier_hits.clone()) for t in range(3)]
+        return out, dict(model.state_dict())
+
+    def dp_run(mesh):
+        topo = qt.CSRTopo(edge_index=ei)
+        store = qt.Feature(device_cache_size=1600, csr_topo=topo, device=cuda,
+                           kernel="pallas").from_cpu_tensor(feat)
+        model = GraphSAGE(4, 16, 4, num_layers=2).to(cuda)
+        trainer = qt.DataParallelTrainer(
+            mesh, qt.GraphSageSampler(topo, list(SIZES), device=cuda, seed=4,
+                                      kernel="pallas"),
+            store, model, torch.optim.Adam(model.parameters(), lr=5e-3), local_batch=32)
+        trainer.init(torch.Generator().manual_seed(0))
+        loss = trainer.train_epoch(np.arange(96), labels, torch.Generator().manual_seed(7),
+                                   depth=0)
+        return loss, dict(model.state_dict())
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cuda")
+        try:
+            wmesh = qt.make_mesh(data=1, feature=1)
+            world.reset_calls()
+            got, got_dp = sharded_run(wmesh), dp_run(wmesh)
+            calls = dict(world.CALLS)
+        finally:
+            shutdown_distributed()
+        lmesh = qt.make_mesh(data=1, feature=1, devices=[cuda])
+        want, want_dp = sharded_run(lmesh), dp_run(lmesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert calls and all(dev == "cuda" for _, dev in calls)
+    for (a, ha), (b, hb) in zip(got[0], want[0]):
+        assert torch.equal(a, b) and torch.equal(ha, hb)
+    assert all(torch.equal(got[1][k], v) for k, v in want[1].items())
+    assert got_dp[0] == want_dp[0]
+    assert all(torch.equal(got_dp[1][k], v) for k, v in want_dp[1].items())

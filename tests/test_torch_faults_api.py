@@ -405,3 +405,148 @@ def test_tiered_lookup_takes_jax_contract(rep_rows, hot_rows, cold, order, miss,
         rows = tiered_lookup(torch.from_numpy(ids), o, hot_rows, t[:hot_rows], t[hot_rows:],
                              None)
         assert np.array_equal(rows.numpy(), got.numpy())
+
+
+# -- C.8: resolve_dedup, and the samplers' resolved dedup ------------------------------
+
+
+@pytest.fixture
+def dedup_fresh(monkeypatch):
+    """Both packages' QUIVER_DEDUP caches and once-keys reset, no force
+    set; returns a function that resets the caches again."""
+    from quiver_tpu.utils import trace as trace_j
+
+    def reset():
+        for mod in (reindex_j, reindex_t):
+            monkeypatch.setattr(mod, "_forced_dedup", None)
+            monkeypatch.setattr(mod, "_auto_dedup", None)
+
+    monkeypatch.setattr(trace_j, "_ONCE_KEYS", set())
+    monkeypatch.setattr(trace, "_ONCE_KEYS", set())
+    monkeypatch.delenv("QUIVER_DEDUP", raising=False)
+    reset()
+    yield reset
+    reset()
+
+
+def _both(fn):
+    """``fn(resolve_dedup)`` on the JAX package, then on the port: each
+    result, or the ``ValueError``'s text."""
+    out = []
+    for mod in (reindex_j, reindex_t):
+        try:
+            out.append(fn(mod.resolve_dedup))
+        except ValueError as e:
+            out.append(("ValueError", str(e)))
+    return out
+
+
+def test_resolve_dedup_twin_platform_and_env(dedup_fresh, monkeypatch):
+    """``tests/test_reindex.py::test_resolve_dedup_platform_and_env`` on
+    both packages: explicit names pass through, the resolution is pinned
+    once per process (an env change after first use is inert until a
+    reset), a force applies, a typo'd force and an unknown name raise the
+    same ``ValueError``. Only ``auto`` differs: JAX's CPU default is
+    ``map``, the port's ``sort`` (the strategy it runs)."""
+    for name in ("sort", "map", "scan"):
+        assert _both(lambda r: r(name)) == [name, name]
+    assert _both(lambda r: r("auto")) == ["map", "sort"]
+    monkeypatch.setenv("QUIVER_DEDUP", "scan")
+    assert _both(lambda r: r("auto")) == ["map", "sort"]  # pinned at first use
+    dedup_fresh()
+    assert _both(lambda r: r("auto")) == ["scan", "scan"]
+    dedup_fresh()
+    monkeypatch.setenv("QUIVER_DEDUP", "bogus")
+    jax_err, port_err = _both(lambda r: r("auto"))
+    assert jax_err == port_err and jax_err[0] == "ValueError" and "QUIVER_DEDUP" in jax_err[1]
+    jax_err, port_err = _both(lambda r: r("hash"))
+    assert jax_err == port_err and jax_err[0] == "ValueError" and "dedup" in jax_err[1]
+
+
+def test_dedup_env_ignored_for_explicit_logged_once_twin(dedup_fresh, monkeypatch, records):
+    """``tests/test_guardrails.py:96-98`` on both packages: a force wins for
+    ``auto``; an explicit name wins over it, and the ignored force is
+    logged once, in the same words. Each package's records are taken by a
+    handler on its own logger (not through propagation)."""
+    from quiver_tpu.utils import trace as trace_j
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.DEBUG)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    logger = trace_j.get_logger()
+    level, handler = logger.level, Records()
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        monkeypatch.setenv("QUIVER_DEDUP", "scan")
+        assert _both(lambda r: r("auto")) == ["scan", "scan"]
+        assert _both(lambda r: [r("sort"), r("sort")]) == [["sort", "sort"]] * 2
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    jax_lines = [r.getMessage() for r in handler.records if "QUIVER_DEDUP" in r.getMessage()]
+    port_lines = [r.getMessage() for r in records if "QUIVER_DEDUP" in r.getMessage()]
+    assert len(jax_lines) == 1 and port_lines == jax_lines
+    assert "ignored" in jax_lines[0]
+
+
+def test_samplers_resolve_dedup(dedup_fresh):
+    """The port's samplers hold the resolved name, as JAX's do: ``auto``
+    reads ``sort``, an explicit name passes through, a typo raises."""
+    from quiver_tpu_torch.core.hetero import HeteroCSRTopo
+    from quiver_tpu_torch.sampling import HeteroGraphSampler
+
+    rng = np.random.default_rng(0)
+    ei = rng.integers(0, 50, (2, 400)).astype(np.int64)
+    topo = CSRTopo(edge_index=ei)
+    assert sampling_j.GraphSageSampler(CSRTopoJ(edge_index=ei), [3],
+                                       seed_capacity=16).dedup == "map"
+    assert sampling_t.GraphSageSampler(topo, [3], device="cpu").dedup == "sort"
+    assert sampling_t.GraphSageSampler(topo, [3], device="cpu", dedup="scan").dedup == "scan"
+    mesh = parallel_t.make_mesh(data=1, feature=2, devices=["cpu"] * 2)
+    assert sampling_t.GraphSageSampler(topo, [3], topo_sharding="mesh",
+                                       mesh=mesh).dedup == "sort"
+    hetero = HeteroCSRTopo({"paper": 50}, {("paper", "cites", "paper"): ei})
+    assert HeteroGraphSampler(hetero, [3], "paper", device="cpu").dedup == "sort"
+    with pytest.raises(ValueError, match="dedup must be"):
+        sampling_t.GraphSageSampler(topo, [3], device="cpu", dedup="hash")
+
+
+# -- C.9: to_pinned_host(x, device=None, mesh=None) ------------------------------------
+
+
+def test_to_pinned_host_takes_jax_calls():
+    """JAX's one-argument and ``mesh=`` calls on both packages, on one
+    array: equal values; JAX's CPU backend has a pinned host memory space
+    (``is_host`` True), the port keeps CPU tensors in ordinary memory
+    (``is_host`` False). The port's one-argument call resolves the device
+    as every entry point does: with no card it raises as
+    ``resolve_device(None)`` does. The port's ``(x, device)`` calls keep
+    working."""
+    import jax
+
+    from quiver_tpu.core.memory import to_pinned_host as pinned_j
+    from quiver_tpu.parallel.mesh import make_mesh as make_mesh_j
+    from quiver_tpu_torch.core.memory import resolve_device, to_pinned_host
+
+    x = np.arange(24, dtype=np.float32).reshape(6, 4)
+    arr, host = pinned_j(x)
+    assert host is True and np.array_equal(np.asarray(arr), x)
+    arr, host = pinned_j(x, mesh=make_mesh_j(data=2, feature=2, devices=jax.devices()[:4]))
+    assert host is True and np.array_equal(np.asarray(arr), x)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError) as want:
+            resolve_device(None)
+        with pytest.raises(RuntimeError) as got:
+            to_pinned_host(x)
+        assert str(got.value) == str(want.value)
+    t, host = to_pinned_host(x, mesh=parallel_t.make_mesh(data=2, feature=2,
+                                                          devices=["cpu"] * 4))
+    assert host is False and np.array_equal(t.numpy(), x)
+    t, host = to_pinned_host(x, "cpu")
+    assert host is False and np.array_equal(t.numpy(), x)
