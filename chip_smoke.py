@@ -401,6 +401,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    (two processes, one ``all_reduce`` on ``cuda:0``, killed after 60 s)
    and what NCCL said is printed: a refusal is reported, not routed
    around.
+9n. the topology-sharded samplers, checkpoints and the elastic resume over
+   a world of processes (A.11e (a2)); every check names itself on stderr
+   first. A world of one rank over ``nccl`` (a file store under
+   ``.smoke_scratch/``) beside the logical ``(1, 1)`` mesh. (a) phase 9g
+   (b)'s trainer (9f (b)'s width under ``"all"`` over a topology-sharded
+   sampler), uniform and then weighted (exp(N(0, 1)) weights): 4 steps of
+   each form under deterministic kernels: losses, tier hits, routed and
+   per-hop overflow, guard counters and parameters bitwise, exactly 3
+   owner-side ``select`` (``wselect``) and 3 ``gather_rows`` launches a
+   step in both forms, every collective on CUDA tensors; one world step's
+   owner-side calls against their plain versions; the rank's topology
+   shard on the card; steps/s of both forms in turns and the collectives
+   per step. (b) ``DistHeteroSampler`` at ``bench_rgcn.py``'s
+   configuration, uniform and weighted: the world sample bitwise the
+   logical one, one owner-side launch per relation hop. (c) phase 9i's
+   elastic epoch (``logical_workers=4``) on the world of one, preempted at
+   step 3; the group torn down; a fresh world of one (a new file store)
+   and a new trainer resume it with ``resume(mesh=trainer.mesh)``: the
+   tail bitwise the uninterrupted logical ``(1, 4)`` run, exact launches;
+   the same checkpoint resumed on the logical ``(1, 2)`` mesh, bitwise
+   too.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -6646,19 +6667,19 @@ def step9i(what: str) -> None:
     log(f"phase 9i check: {what}")
 
 
-def elastic_trainer(topo, x, fsize: int, ckpt, plan=None):
+def elastic_trainer(topo, x, fsize: int, ckpt, plan=None, mesh=None):
     """The elastic trainer of phase 9i on the logical ``(1, fsize)`` mesh
-    at ``train_multichip``'s width: a three-tier store (``MULTI_L1`` per
-    device of L1, ``MULTI_L0`` of L0, the rest pinned), a topology-sharded
-    sampler, GraphSAGE 256 x 3, Adam 1e-3, local batch 256,
-    ``logical_workers=ELASTIC_WORKERS``, checkpoints every
-    ``ELASTIC_EVERY`` steps into ``ckpt``; ``init(0)``."""
+    (or on ``mesh``, phase 9n's world) at ``train_multichip``'s width: a
+    three-tier store (``MULTI_L1`` per device of L1, ``MULTI_L0`` of L0,
+    the rest pinned), a topology-sharded sampler, GraphSAGE 256 x 3, Adam
+    1e-3, local batch 256, ``logical_workers=ELASTIC_WORKERS``, checkpoints
+    every ``ELASTIC_EVERY`` steps into ``ckpt``; ``init(0)``."""
     import torch
 
     from quiver_tpu_torch import (DistributedTrainer, GraphSageSampler, GraphSAGE,
                                   ShardedFeature)
 
-    mesh = logical_mesh(1, fsize)
+    mesh = logical_mesh(1, fsize) if mesh is None else mesh
     store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
                            replicate_budget=MULTI_L0).from_cpu_tensor(x)
     sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, topo_sharding="mesh", mesh=mesh)
@@ -7735,6 +7756,319 @@ def world_phase(card):
         "card": card, "seconds": time.time() - t0}
 
 
+# -- phase 9n: the topology-sharded trainer, samplers and elastic resume over a world --
+
+WORLD_TOPO_STEPS = 4  # checked steps of each kind, under deterministic kernels
+WORLD_TOPO_KINDS = (("uniform", False), ("weighted", True))
+WORLD_TOPO_WEIGHTS = 12  # seed of the trainer graph's exp(N(0, 1)) weights
+
+
+def step9n(what: str) -> None:
+    """Name a phase 9n check on stderr before it runs."""
+    log(f"phase 9n check: {what}")
+
+
+def world_topo_trainer(topo, x, mesh, weighted):
+    """Phase 9g (b)'s trainer (9f (b)'s width under ``"all"`` over a
+    topology-sharded sampler, uniform or weighted) on ``mesh`` over a fresh
+    three-tier store of 8M L1 and 4M L0 per device, the guard on;
+    ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSageSampler, GraphSAGE, ShardedFeature
+
+    store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
+                           replicate_budget=MULTI_L0, kernel="pallas").from_cpu_tensor(x)
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, topo_sharding="mesh", mesh=mesh,
+                               weighted=weighted, kernel="pallas")
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES,
+                      num_layers=len(MULTI_FANOUT)).to("cuda")
+    trainer = DistributedTrainer(mesh, sampler, store, model,
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding="all",
+                                 nonfinite_guard=True)
+    trainer.init(0)
+    return trainer
+
+
+def world_topo_steps(trainer, labels, steps: int, key0: int) -> list:
+    """:func:`world_steps` with each step's per-hop overflow as well."""
+    import numpy as np
+
+    rng = np.random.default_rng(key0)
+    n = trainer.sampler.csr_topo.node_count
+    out = []
+    for i in range(steps):
+        loss = trainer.step(rng.integers(0, n, trainer.global_batch), labels, key0 + i)
+        out.append((loss, trainer.last_tier_hits.clone(), trainer.last_routed_overflow.clone(),
+                    trainer.last_sample_overflow.clone()))
+    return out
+
+
+def world_topo_kind(topo, x, labels, meshes, weighted, card) -> tuple[dict, list, dict]:
+    """(a) One kind of the topology-sharded trainer on the world ``(1, 1)``
+    mesh and the logical one: ``WORLD_TOPO_STEPS`` steps of each under
+    deterministic kernels (losses, tier hits, routed and per-hop overflow,
+    guard counters and parameters bitwise; exactly one owner-side K1
+    ``select`` or K3 ``wselect`` per hop and 3 K2 ``gather_rows`` a step in
+    both forms; every collective on CUDA tensors), one recorded world
+    step's owner-side calls against their plain versions, the shard's
+    topology bytes on the card, then steps/s in turns on the main path.
+    Returns ``(the world run's launches, check rows, result)``."""
+    import math
+
+    from quiver_tpu_torch.obs.registry import GUARD_NONFINITE, GUARD_SKIPPED
+    from quiver_tpu_torch.parallel import world
+
+    wmesh, lmesh = meshes
+    kind = "weighted" if weighted else "uniform"
+    entry = "wselect" if weighted else "select"
+    L = len(MULTI_FANOUT)
+    runs, launches, params, guard = {}, {}, {}, {}
+    with deterministic_algorithms():
+        trainers = {"world": world_topo_trainer(topo, x, wmesh, weighted),
+                    "logical": world_topo_trainer(topo, x, lmesh, weighted)}
+        for form, trainer in trainers.items():
+            reset_launches()
+            world.reset_calls()
+            runs[form] = world_topo_steps(trainer, labels, WORLD_TOPO_STEPS, 300)
+            sync()
+            launches[form] = read_launches()
+            if form == "world":
+                calls = dict(world.CALLS)
+            params[form] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+            guard[form] = [trainer.metrics.value(GUARD_SKIPPED),
+                           trainer.metrics.value(GUARD_NONFINITE)]
+    step9n(f"(a) {kind}: losses, tier hits, routed and per-hop overflow, guard counters and "
+           "parameters bitwise the logical (1, 1) mesh's (deterministic kernels)")
+    check(same_steps(runs["world"], runs["logical"])
+          and all(equal(params["world"][k], v) for k, v in params["logical"].items())
+          and all(equal(a, b) for a, b in zip(guard["world"], guard["logical"])),
+          f"world topology-sharded trainer ({kind}) == the logical mesh's")
+    want = {entry: L * WORLD_TOPO_STEPS, "gather_rows": 3 * WORLD_TOPO_STEPS}
+    step9n(f"(a) {kind}: exactly {L} owner-side {entry} and 3 gather_rows launches a step, "
+           "in both forms")
+    expect_launches(launches["world"], want, f"world topology-sharded trainer ({kind})")
+    check(launches["logical"] == launches["world"], f"world topology-sharded trainer "
+          f"({kind}): the logical form launched {launches['logical']}")
+    step9n(f"(a) {kind}: every collective ran on CUDA tensors")
+    check(calls and all(dev == "cuda" for _, dev in calls),
+          f"world topology-sharded trainer ({kind}): collectives {calls}")
+    per_step = {prim: n / WORLD_TOPO_STEPS for (prim, _), n in calls.items()}
+    trainer = trainers["world"]
+    with owner_calls() as recorded:
+        world_topo_steps(trainer, labels, 1, 400)
+        sync()
+    step9n(f"(a) {kind}: one world step's {L} owner-side {entry} calls bitwise {entry}_plain")
+    check(len(recorded) == L, f"world step's owner-side calls: {len(recorded)}")
+    rows, owner = owner_call_rows(recorded, f"world topology-sharded trainer ({kind}) step")
+    del recorded
+    part = trainer.sampler.topo
+    tensors = [t for ts in (part.indptr, part.indices, part.cum_weights) if ts for t in ts]
+    step9n(f"(a) {kind}: the rank holds one shard of the topology, on the card")
+    check(part.member == 0 and part.held_bytes == part.plan["per_chip_bytes"]
+          and all(t.is_cuda for t in tensors), f"world topology shard {part.plan}")
+    timing = timed_turns(
+        lambda: world_topo_steps(trainers["world"], labels, WORLD_TIMED, 500),
+        lambda: world_topo_steps(trainers["logical"], labels, WORLD_TIMED, 500))
+    losses = [float(v[0]) for v in runs["world"]]
+    check(all(math.isfinite(v) for v in losses), f"world topology trainer ({kind}): losses")
+    r = {"kind": kind, "losses": losses, "launches": launches["world"],
+         "launches_per_step": {entry: L, "gather_rows": 3},
+         "sample_overflow": [v[3].tolist() for v in runs["world"]],
+         "collectives_per_step": per_step,
+         "collective_devices": sorted({dev for _, dev in calls}), "owner_side": owner,
+         "topology_bytes": {"shard_on_card": part.held_bytes,
+                            "replicated": part.plan["replicated_bytes"],
+                            "shards": part.num_shards},
+         **timing}
+    log(f"world topology-sharded trainer ({kind}): world {timing['world_steps_per_s']:.4g} "
+        f"steps/s, logical {timing['logical_steps_per_s']:.4g} steps/s (in turns), "
+        f"collectives per step {per_step}, shard {part.held_bytes} B on the card [{card}]")
+    for t in trainers.values():
+        t.feature.delete()
+    return launches["world"], rows, r
+
+
+def world_hetero(meshes, card) -> tuple[dict, dict]:
+    """(b) ``DistHeteroSampler`` at ``bench_rgcn.py``'s configuration on
+    the world ``(1, 1)`` mesh and the logical one, uniform and weighted, on
+    the same draws: ids of every type, every relation's edge list and the
+    overflow bitwise; one owner-side launch per relation hop in both
+    forms. Returns ``(launches by kind, result)``."""
+    import numpy as np
+
+    from quiver_tpu_torch import DistHeteroSampler
+
+    topo, _feats, _labels, _rng = mag_graph()
+    del _feats
+    wrng = np.random.default_rng(8)
+    for et in topo.edge_types:
+        topo.set_edge_weight(et, np.exp(wrng.normal(size=topo.relations[et].edge_count)))
+    seeds = np.random.default_rng(10).integers(0, MAG_PAPERS, RGCN_BATCH)
+    launches, result = {}, {}
+    for kind, weighted in (("uniform", False), ("weighted", True)):
+        entry = "wselect" if weighted else "select"
+        outs, got = {}, {}
+        for form, mesh in zip(("world", "logical"), meshes):
+            smp = DistHeteroSampler(topo, RGCN_FANOUT, "paper", mesh=mesh,
+                                    routed_alpha=DIST_HETERO_ALPHA, weighted=weighted, seed=0)
+            reset_launches()
+            outs[form] = smp.sample(seeds, draw_fn=hetero_draw_fn(smp))
+            sync()
+            got[form] = read_launches()
+            hops = sum(len(active) for active, _, _ in smp._plan(outs[form].batch_size))
+        a, b = outs["world"], outs["logical"]
+        step9n(f"(b) {kind}: the world sample bitwise the logical (1, 1) one; {hops} "
+               f"{entry} launches in both forms")
+        same = (set(a.n_id) == set(b.n_id) and all(equal(a.n_id[t], b.n_id[t]) for t in b.n_id)
+                and equal(a.overflow, b.overflow)
+                and all(equal(la.adjs[et].edge_index, x.edge_index)
+                        for la, lb in zip(a.adjs, b.adjs) for et, x in lb.adjs.items()))
+        check(same, f"world DistHeteroSampler ({kind}) == the logical mesh's")
+        expect_launches(got["world"], {entry: hops}, f"world DistHeteroSampler ({kind})")
+        check(got["logical"] == got["world"], f"world DistHeteroSampler ({kind}): logical "
+              f"launched {got['logical']}")
+        launches[kind] = got["world"]
+        result[kind] = {"launches": got["world"], "relation_hops": hops,
+                        "sampled_ids": {t: int((v >= 0).sum()) for t, v in a.n_id.items()}}
+    result["config"] = ("bench_rgcn.py defaults: the MAG-shaped graph, fanouts [8, 4], batch "
+                        "512 on one worker, routed_alpha 2.0; weighted: exp(N(0, 1)) weights")
+    log(f"world DistHeteroSampler: {result['uniform']['relation_hops']} relation hops, "
+        f"bitwise the logical form, uniform and weighted [{card}]")
+    return launches, result
+
+
+def world_elastic(topo, x, labels, wmesh, card) -> tuple[dict, dict]:
+    """(c) ``logical_workers=4`` on the world of one: the 9-step epoch
+    preempted at step 3 (a checkpoint every 3); the group torn down; a
+    fresh world of one (a new file store) and a new trainer resuming with
+    ``resume(mesh=trainer.mesh)``: its tail bitwise the uninterrupted
+    logical ``(1, 4)`` run's, exact launches; the same checkpoint resumed
+    on the logical ``(1, 2)`` mesh, bitwise too. Under deterministic
+    kernels. Returns ``(the resumed world's launches, result)``; the
+    process group stays up (the new world's)."""
+    import numpy as np
+
+    from quiver_tpu_torch import FaultPlan, Preemption, make_mesh
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    n = topo.node_count
+    train_idx = np.random.default_rng(3).permutation(n)[
+        :ELASTIC_STEPS * ELASTIC_WORKERS * MULTI_BATCH]
+    ckpt = os.path.join(SCRATCH, "world_elastic")
+    out = {}
+    with deterministic_algorithms():
+        ref_tr = elastic_trainer(topo, x, 4, os.path.join(SCRATCH, "logical_full"))
+        seed_mat = ref_tr.pack_epoch(train_idx, seed=0)
+        ref = ref_tr.epoch_scan(seed_mat, labels, 7).cpu().numpy()
+        final = {k: v.clone() for k, v in ref_tr.model.state_dict().items()}
+        ref_tr.checkpointer.close()
+        del ref_tr
+        w = elastic_trainer(topo, x, 1, ckpt, plan=FaultPlan(preempt_at_step=ELASTIC_PREEMPT),
+                            mesh=wmesh)
+        step9n(f"(c) the world of one's elastic epoch is preempted at step {ELASTIC_PREEMPT}")
+        try:
+            w.epoch_scan(seed_mat, labels, 7)
+            check(False, "the planned preemption raised")
+        except Preemption:
+            pass
+        w.checkpointer.close()
+        del w
+        shutdown_distributed()
+        t0 = time.perf_counter()
+        init_distributed(f"file://{os.path.join(SCRATCH, 'world_store_2')}", 1, 0,
+                         device="cuda")
+        fresh = elastic_trainer(topo, x, 1, ckpt, mesh=make_mesh(data=1, feature=1))
+        sync()
+        t1 = time.perf_counter()
+        _, _, key, step, epoch = fresh.resume(mesh=fresh.mesh)
+        sync()
+        out["resume_s"] = time.perf_counter() - t1
+        out["new_world_and_trainer_s"] = t1 - t0
+        reset_launches()
+        losses, secs = timed_epoch(fresh, seed_mat, labels, key, epoch=epoch, start_step=step)
+        launches = read_launches()
+        step9n("(c) a fresh world of one resumes it: the tail bitwise the uninterrupted "
+               "logical (1, 4) run's, exact launches")
+        check(step == ELASTIC_PREEMPT and same_bits(losses.cpu().numpy(), ref[step:])
+              and same_params(fresh.model.state_dict(), final),
+              "the fresh world's resumed tail == the uninterrupted (1, 4) run's")
+        expect_launches(launches, elastic_launches(1, ELASTIC_STEPS - step),
+                        "the fresh world's resumed tail")
+        out["world_steps_per_s"] = (ELASTIC_STEPS - step) / secs
+        fresh.checkpointer.close()
+        del fresh
+        l2 = elastic_trainer(topo, x, 2, ckpt)
+        _, _, key, step, epoch = l2.resume(mesh=l2.mesh, checkpoint_step=0)
+        losses, secs = timed_epoch(l2, seed_mat, labels, key, epoch=epoch, start_step=step)
+        step9n("(c) the world's checkpoint resumed on the logical (1, 2) mesh: bitwise too")
+        check(step == ELASTIC_PREEMPT and same_bits(losses.cpu().numpy(), ref[step:])
+              and same_params(l2.model.state_dict(), final),
+              "the world's checkpoint on the logical (1, 2) mesh == the (1, 4) run")
+        out["logical_12_steps_per_s"] = (ELASTIC_STEPS - step) / secs
+        l2.checkpointer.close()
+        del l2
+    out["losses"] = ref.tolist()
+    log(f"world elastic resume: resumed in {out['resume_s']:.3f} s (new world and trainer "
+        f"{out['new_world_and_trainer_s']:.2f} s), tail {out['world_steps_per_s']:.3g} "
+        f"steps/s; logical (1, 2) {out['logical_12_steps_per_s']:.3g} steps/s [{card}]")
+    return launches, out
+
+
+def world_topo_phase(card):
+    """Phase 9n (see the module docstring). Returns ``(launches by path,
+    owner-side check rows by entry, result)``."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import make_mesh
+    from quiver_tpu_torch.parallel import world
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    t0 = time.time()
+    topo, x, labels = multichip_setup()
+    # the weighted kind's weights (the uniform samplers read none of them)
+    topo.set_edge_weight(np.exp(np.random.default_rng(WORLD_TOPO_WEIGHTS).normal(
+        size=topo.edge_count)).astype(np.float32))
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    launches, rows, result = {}, {"select": [], "wselect": []}, {}
+    try:
+        step9n("init_distributed over nccl, a world of one through a file store")
+        init_distributed(f"file://{os.path.join(SCRATCH, 'world_store')}", 1, 0, device="cuda")
+        wmesh = make_mesh(data=1, feature=1)
+        check(type(wmesh).__name__ == "WorldMesh" and torch.distributed.get_backend() == "nccl",
+              f"world mesh {wmesh!r}")
+        meshes = (wmesh, logical_mesh(1, 1))
+        trainers = {}
+        for kind, weighted in WORLD_TOPO_KINDS:
+            launches[kind], r_rows, trainers[kind] = world_topo_kind(
+                topo, x, labels, meshes, weighted, card)
+            rows["wselect" if weighted else "select"] += r_rows
+            torch.cuda.empty_cache()
+        result["trainer"] = trainers
+        launches["hetero"], result["hetero"] = world_hetero(meshes, card)
+        torch.cuda.empty_cache()
+        launches["elastic"], result["elastic"] = world_elastic(topo, x, labels, wmesh, card)
+        result["collectives"] = {f"{p}:{d}": n for (p, d), n in world.CALLS.items()}
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    del x
+    result["config"] = ("phase 9g (b)'s: examples/train_multichip.py defaults (100,000 nodes, "
+                        "degree 25, F = 128, GraphSAGE 256 x 3, [15, 10, 5] x 256, Adam 1e-3, "
+                        "the worst-case caps) under seed_sharding='all' over a "
+                        "topology-sharded sampler (uniform; weighted: exp(N(0, 1)) weights), "
+                        "8M L1 and 4M L0 per device; a world of one rank over nccl (file "
+                        "store) against the logical (1, 1) mesh of cuda:0; phase 9i's elastic "
+                        "epoch across two successive worlds of one")
+    result["card"] = card
+    result["seconds"] = time.time() - t0
+    log(f"phase 9n {result['seconds']:.1f}s [{card}]")
+    return launches, rows, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8055,6 +8389,12 @@ def main() -> int:
     launches_m, world_res = world_phase(card)
     torch.cuda.empty_cache()
     lap("phase 9m (a world of processes)")
+    # phase 9n: the topology-sharded trainer, DistHeteroSampler and the
+    # elastic resume over a world of one process (nccl) against the logical
+    # meshes, the resume across two successive worlds
+    launches_n, rows_n, world_topo = world_topo_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9n (topology-sharded world, checkpoints, elastic resume)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -8080,7 +8420,7 @@ def main() -> int:
         kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    samp_t["launches"]["select"],
                    "temporal sampler (and the offs/draw_fn seams)",
-                   sel + rows_h["select"] + rows_g["select"], t_sel,
+                   sel + rows_h["select"] + rows_g["select"] + rows_n["select"], t_sel,
                    {"stock_ms": t_sel["stock_ms"], "ratio_to_stock": t_sel["ratio_to_stock"],
                     "dist_sample_launches": {k: launches_g["sample"][k]["select"]
                                              for k in ("uniform", "temporal")},
@@ -8089,6 +8429,9 @@ def main() -> int:
                     "elastic_trainer_launches": {m: v["select"] for m, v in launches_e.items()},
                     "stream_launches": {k: v["select"] for k, v in launches_k.items()},
                     "dist_hetero_launches": launches_g["hetero"]["uniform"]["select"],
+                    "world_topo_trainer_launches": launches_n["uniform"]["select"],
+                    "world_hetero_launches": launches_n["hetero"]["uniform"]["select"],
+                    "world_elastic_launches": launches_n["elastic"]["select"],
                     "owner_side": {
                         **{k: {"device_ms_per_sample": dist["samplers"][k][
                             "select_device_ms_per_sample"],
@@ -8145,6 +8488,9 @@ def main() -> int:
                     "topo_sharded_trainer_launches": launches_g["trainer"]["gather_rows"],
                     "world_trainer_launches": {k: launches_m[k]["gather_rows"]
                                                for k, _, _ in WORLD_FLAVOURS},
+                    "world_topo_trainer_launches": {
+                        k: launches_n[k]["gather_rows"] for k in ("uniform", "weighted",
+                                                                   "elastic")},
                     "elastic_trainer_launches": {m: v["gather_rows"]
                                                  for m, v in launches_e.items()},
                     "stream_launches": {k: v["gather_rows"] for k, v in launches_k.items()},
@@ -8214,10 +8560,12 @@ def main() -> int:
         kernel_row("wselect", "quiver_tpu_torch/ops/kernels/wselect.cu", k3,
                    serve_w["parity"]["launches"]["wselect"],
                    "weighted serving's single-query oracle (ladder parity)",
-                   wsel + rows_g["wselect"], t_wsel,
+                   wsel + rows_g["wselect"] + rows_n["wselect"], t_wsel,
                    {"shape": [t_wsel["rows"], t_wsel["k"]],
                     "dist_sample_launches": launches_g["sample"]["weighted"]["wselect"],
                     "dist_hetero_launches": launches_g["hetero"]["weighted"]["wselect"],
+                    "world_topo_trainer_launches": launches_n["weighted"]["wselect"],
+                    "world_hetero_launches": launches_n["hetero"]["weighted"]["wselect"],
                     "owner_side": {"device_ms_per_sample": dist["samplers"]["weighted"][
                         "wselect_device_ms_per_sample"],
                         **dist["samplers"]["weighted"]["owner_side"]},
@@ -8263,7 +8611,13 @@ def main() -> int:
                                         ("wselect", launches_g["sample"]["weighted"]),
                                         ("select", launches_g["trainer"]),
                                         ("select", launches_g["hetero"]["uniform"]),
-                                        ("wselect", launches_g["hetero"]["weighted"]))),
+                                        ("wselect", launches_g["hetero"]["weighted"]),
+                                        ("select", launches_n["uniform"]),
+                                        ("wselect", launches_n["weighted"]),
+                                        ("select", launches_n["hetero"]["uniform"]),
+                                        ("wselect", launches_n["hetero"]["weighted"]),
+                                        ("select", launches_n["elastic"]),
+                                        ("gather_rows", launches_n["uniform"]))),
           "every kernel launched on its main path and every entry matched")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -8279,7 +8633,8 @@ def main() -> int:
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
-                       "world": world_res, "lint": lint_row, "audit": audit,
+                       "world": world_res, "world_topo": world_topo, "lint": lint_row,
+                       "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
                        "graph": {"nodes": topo.node_count,
@@ -8321,6 +8676,7 @@ def main() -> int:
     print(json.dumps({"ooc": ooc}), flush=True)
     print(json.dumps({"stream": stream}), flush=True)
     print(json.dumps({"world": world_res}), flush=True)
+    print(json.dumps({"world_topo": world_topo}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

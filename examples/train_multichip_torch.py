@@ -23,12 +23,14 @@ Under ``torchrun`` (``WORLD_SIZE`` set) it runs one process per mesh slot:
 each calls ``init_distributed()`` (``nccl`` on the card ``LOCAL_RANK``
 names; ``gloo`` with ``--device cpu``) and builds the world mesh
 (``--data-axis`` defaults to the world size over ``--feature-axis``), whose
-collectives run over ``torch.distributed``; only rank 0 prints.
+collectives run over ``torch.distributed``; only rank 0 prints. With
+``--topo-sharding mesh`` each process holds only its own row range of the
+CSR (its feature-axis shard) and every hop routes over its feature group.
 
     python -m examples.train_multichip_torch --data-axis 2 --feature-axis 2 \\
         --seed-sharding all --replicate-budget 4M
     torchrun --nproc_per_node=4 examples/train_multichip_torch.py \\
-        --feature-axis 2 --seed-sharding all
+        --feature-axis 2 --seed-sharding all [--topo-sharding mesh]
     python -m examples.train_multichip_torch --device cpu --nodes 3000 \\
         --feature-dim 16 --hidden 32 --fanout 5 5 --local-batch 32 \\
         --data-axis 2 --feature-axis 2
@@ -78,6 +80,10 @@ def parse_args(argv=None):
                    "the top-degree rows on every device, read with no routing; "
                    "per-tier hit counts are reported after training. 0 = "
                    "two-tier store")
+    p.add_argument("--topo-sharding", default="replicated", choices=["replicated", "mesh"],
+                   help="'mesh': the CSR itself partitioned over the feature axis "
+                   "(each process holds its own row range; hops route to the owners; "
+                   "needs --seed-sharding all)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (the kernels' plain versions)")
@@ -125,7 +131,12 @@ def train(args):
     del feat
     labels = torch.from_numpy(rng.integers(0, args.classes, n).astype(np.int32)).to(device)
 
-    sampler = GraphSageSampler(topo, args.fanout, seed=args.seed, device=device)
+    where = ({"device": device} if args.topo_sharding == "replicated"
+             else {"topo_sharding": "mesh", "mesh": mesh, "routed_alpha": args.routed_alpha or None})
+    sampler = GraphSageSampler(topo, args.fanout, seed=args.seed, **where)
+    if args.topo_sharding == "mesh":
+        say(f"topology shard: {sampler.topo.held_bytes / 2**20:.2f} MB on this process's "
+            f"device ({sampler.topo.plan['replicated_bytes'] / 2**20:.2f} MB replicated)")
     model = GraphSAGE(args.feature_dim, args.hidden, args.classes,
                       num_layers=len(args.fanout)).to(device)
     trainer = DistributedTrainer(mesh, sampler, feature, model,

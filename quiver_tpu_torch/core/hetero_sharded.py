@@ -13,17 +13,19 @@ owner-routing plan per (hop, destination type) serves them all
 Each relation's layout is the homogeneous one (``row_partition``): a
 rebased ``indptr`` per shard, zero-padded ``indices`` and, on a weighted
 relation, the prefix-weight slice (row-local, so bitwise the replicated
-array's segment), one tensor per shard on its member's device.
+array's segment), one tensor per shard on its member's device. On a world
+mesh a rank holds each relation's shard ``member`` alone, as
+``ShardedTopology`` does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..parallel.mesh import FEATURE_AXIS, axis_devices
+from ..parallel.mesh import FEATURE_AXIS
 from ..utils.trace import get_logger
 from .hetero import HeteroCSRTopo
-from .sharded_topology import place_shards, row_partition
+from .sharded_topology import held_bytes, held_shards, place_shards, row_partition
 
 __all__ = ["HeteroShardedTopology", "ShardedRel"]
 
@@ -35,8 +37,9 @@ class ShardedRel:
     edge_time = None  # relations carry no timestamps
 
     def __init__(self, indptr, indices, cum_weights, rows_per_shard: int,
-                 padded_edges: int, search_iters: int, shard_edges):
-        self.indptr = indptr  # F tensors (rows_per_shard + 1,)
+                 padded_edges: int, search_iters: int, shard_edges, member=None):
+        self.member = member  # a world rank's own shard (None: all held)
+        self.indptr = indptr  # F tensors (rows_per_shard + 1,); a world rank's one
         self.indices = indices  # F tensors (padded_edges,)
         self.cum_weights = cum_weights  # F f32 tensors, or None
         self.rows_per_shard = rows_per_shard
@@ -84,7 +87,7 @@ class HeteroShardedTopology:
             t: (-(-n // F) if n else 1)
             for t, n in hetero_topo.num_nodes.items()
         }
-        self.member_devices = axis_devices(mesh, axis)
+        self.member, held, self.member_devices = held_shards(mesh, axis)
         self.rels: dict[tuple, ShardedRel] = {}
         per_chip = 0
         replicated = 0
@@ -95,7 +98,7 @@ class HeteroShardedTopology:
             E = int(indptr[-1])
             weighted = et in self.weighted_rels
             attrs = [indices] + ([np.asarray(rel.cum_weights)] if weighted else [])
-            ip, shard_edges, e_pad, (ix, *cw) = row_partition(indptr, F, rps, attrs)
+            ip, shard_edges, e_pad, (ix, *cw) = row_partition(indptr, F, rps, attrs, held)
             iters = (
                 max(int(np.ceil(np.log2(rel.max_degree + 1))), 1)
                 if weighted else 0
@@ -104,7 +107,7 @@ class HeteroShardedTopology:
                 place_shards(ip, self.member_devices),
                 place_shards(ix, self.member_devices),
                 place_shards(cw[0], self.member_devices) if weighted else None,
-                rps, e_pad, iters, shard_edges,
+                rps, e_pad, iters, shard_edges, self.member,
             )
             per_chip += (
                 (rps + 1) * ip.dtype.itemsize + e_pad * ix.dtype.itemsize
@@ -130,6 +133,9 @@ class HeteroShardedTopology:
             "replicated_bytes": replicated,
             "shrink_factor": replicated / max(per_chip, 1),
         }
+        # the bytes of every relation's shard tensors on this process's devices
+        self.held_bytes = sum(held_bytes(r.indptr, r.indices, r.cum_weights)
+                              for r in self.rels.values())
         get_logger("topology").info(
             "hetero sharded topology: %d relations x %d shards on mesh "
             "axis '%s'; %.2f MB/chip vs %.2f MB replicated (%.1fx shrink)",

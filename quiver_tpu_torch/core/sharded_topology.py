@@ -24,6 +24,14 @@ Where the JAX package places an ``(F, ...)`` array with one block per
 device, each shard here is a tensor of its own on member ``d``'s device
 (``indptr[d]``, ``indices[d]``, ...). On a logical mesh of one card every
 member is that card.
+
+On a world mesh (``parallel/mesh.py`` ``WorldMesh``, one process per
+slot) a rank holds only its own shard ``d``, its index in its group along
+the axis (:attr:`ShardedTopology.member`): the lists hold that one tensor.
+Every rank partitions the same host CSR: the geometry (``rows_per_shard``,
+the padded edge width, the ``indptr`` dtype) comes from ``indptr`` alone,
+so every rank agrees on it, and only the rank's own edge segment is
+copied.
 """
 
 from __future__ import annotations
@@ -31,43 +39,79 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.mesh import FEATURE_AXIS, axis_devices
+from ..parallel.mesh import FEATURE_AXIS, axis_devices, is_world
 from ..utils.trace import get_logger
 from .topology import CSRTopo
 
-__all__ = ["ShardedTopology", "row_partition"]
+__all__ = ["ShardedTopology", "held_bytes", "held_shards", "row_partition",
+           "shard_position"]
 
 
-def row_partition(indptr, num_shards: int, rows_per_shard: int, edge_attrs=()):
+def row_partition(indptr, num_shards: int, rows_per_shard: int, edge_attrs=(),
+                  shards=None):
     """The row-range partition of one CSR (``indptr`` int64 with
     ``rows_per_shard * num_shards >= node_count``): ``(local indptrs
-    (F, rps + 1) in the JAX package's dtype rule, per-shard edge counts,
-    padded edge width, [each of edge_attrs as (F, padded edges)])``. Every
-    shard's ``indptr`` is rebased to its first edge; rows past the node
-    count are empty; the edge arrays are zero-padded to the widest shard.
-    ``indptr`` is int32 unless the widest shard passes int32."""
+    (len(shards), rps + 1) in the JAX package's dtype rule, every shard's
+    edge count, padded edge width, [each of edge_attrs as (len(shards),
+    padded edges)])``. ``shards``: the shards to build (default all; a
+    world rank builds its own). Every shard's ``indptr`` is rebased to its
+    first edge; rows past the node count are empty; the edge arrays are
+    zero-padded to the widest shard. ``indptr`` is int32 unless the widest
+    shard passes int32. The geometry comes from ``indptr`` alone, so every
+    subset of the shards is built to the same width and dtype."""
     n = int(indptr.shape[0] - 1)
     rps = rows_per_shard
-    shard_edges, local, firsts = [], [], []
-    for d in range(num_shards):
-        lo, hi = min(d * rps, n), min((d + 1) * rps, n)
-        lo_e, hi_e = int(indptr[lo]), int(indptr[hi])
-        li = np.full(rps + 1, hi_e - lo_e, dtype=np.int64)
-        li[: hi - lo + 1] = indptr[lo: hi + 1] - lo_e
-        local.append(li)
-        shard_edges.append(hi_e - lo_e)
-        firsts.append(lo_e)
+    bounds = [(min(d * rps, n), min((d + 1) * rps, n)) for d in range(num_shards)]
+    firsts = [int(indptr[lo]) for lo, _ in bounds]
+    shard_edges = [int(indptr[hi]) - first for (_, hi), first in zip(bounds, firsts)]
     e_pad = max(max(shard_edges), 1)
     ip_dtype = np.int32 if e_pad <= np.iinfo(np.int32).max else np.int64
+    shards = range(num_shards) if shards is None else list(shards)
+    local = []
+    for d in shards:
+        (lo, hi), lo_e = bounds[d], firsts[d]
+        li = np.full(rps + 1, shard_edges[d], dtype=np.int64)
+        li[: hi - lo + 1] = indptr[lo: hi + 1] - lo_e
+        local.append(li)
     attrs = []
     for attr in edge_attrs:
         # np slicing copies bytes verbatim: each shard's slice is bitwise
         # the replicated array's segment
-        out = np.zeros((num_shards, e_pad), dtype=attr.dtype)
-        for d in range(num_shards):
-            out[d, : shard_edges[d]] = attr[firsts[d]: firsts[d] + shard_edges[d]]
+        out = np.zeros((len(local), e_pad), dtype=attr.dtype)
+        for i, d in enumerate(shards):
+            out[i, : shard_edges[d]] = attr[firsts[d]: firsts[d] + shard_edges[d]]
         attrs.append(out)
     return np.stack(local).astype(ip_dtype), shard_edges, e_pad, attrs
+
+
+def held_shards(mesh, axis: str):
+    """``(member, the shards this process builds, their devices)``: on a
+    world mesh the rank's index along ``axis`` and its own shard on its
+    device; on a logical mesh ``(None, every shard, the members'
+    devices)``."""
+    if is_world(mesh):
+        member = mesh.group(axis).index
+        return member, [member], [mesh.device]
+    devices = axis_devices(mesh, axis)
+    return None, list(range(len(devices))), devices
+
+
+def shard_position(shards, d: int) -> int:
+    """The position of shard ``d`` in a partition's held lists (a
+    ``ShardedTopology``'s or a ``ShardedRel``'s): ``d`` on a logical mesh,
+    0 on a world mesh, whose rank holds its own shard (``member``) alone."""
+    if shards.member is None:
+        return d
+    if d != shards.member:
+        raise ValueError(f"this rank holds shard {shards.member}, not {d}")
+    return 0
+
+
+def held_bytes(*shard_lists) -> int:
+    """The bytes of the shard tensors this process holds (None lists
+    skipped)."""
+    return sum(t.numel() * t.element_size() for ts in shard_lists if ts is not None
+               for t in ts)
 
 
 def place_shards(rows: np.ndarray, devices) -> list:
@@ -92,7 +136,10 @@ class ShardedTopology:
         timestamps (``CSRTopo.edge_time``) for temporal windows.
 
     ``indptr``, ``indices``, ``cum_weights`` and ``edge_time`` are lists
-    of ``num_shards`` tensors (the last two None unless placed);
+    of ``num_shards`` tensors (the last two None unless placed); on a world
+    mesh, of the one tensor of the rank's shard :attr:`member` (None on a
+    logical mesh), and :attr:`held_bytes` is then about ``1 / F`` of the
+    replicated CSR's bytes;
     ``search_iters`` bounds the weighted and temporal binary searches from
     the GLOBAL max degree, so every shard runs the same loop; ``version``
     is the host CSR's committed version; ``plan`` the partition's byte
@@ -128,8 +175,8 @@ class ShardedTopology:
             attrs.append(np.asarray(csr_topo.cum_weights))
         if self.with_times:
             attrs.append(np.asarray(csr_topo.edge_time))
-        ip, shard_edges, e_pad, (ix, *extra) = row_partition(indptr, F, rps, attrs)
-        self.member_devices = axis_devices(mesh, axis)
+        self.member, held, self.member_devices = held_shards(mesh, axis)
+        ip, shard_edges, e_pad, (ix, *extra) = row_partition(indptr, F, rps, attrs, held)
         self.indptr = place_shards(ip, self.member_devices)
         self.indices = place_shards(ix, self.member_devices)
         self.cum_weights = self.edge_time = None
@@ -170,6 +217,9 @@ class ShardedTopology:
             "replicated_bytes": replicated,
             "shrink_factor": replicated / max(per_chip, 1),
         }
+        # the bytes of the shard tensors on this process's devices
+        self.held_bytes = held_bytes(self.indptr, self.indices, self.cum_weights,
+                                     self.edge_time)
         get_logger("topology").info(
             "sharded topology: %d rows x %d shards on mesh axis '%s' "
             "(%d rows/shard, widest shard %d/%d edges); %.2f MB/chip vs "
@@ -181,7 +231,8 @@ class ShardedTopology:
     def replan(self, mesh, axis: str | None = None) -> "ShardedTopology":
         """A fresh partition of the same host CSR onto another mesh: new
         ``rows_per_shard``, owner map and ``plan``; the node and edge data
-        are the same, so samples are too."""
+        are the same, so samples are too. On a world mesh the rank builds
+        its own shard of the new mesh from the host CSR."""
         return ShardedTopology(
             mesh, self.csr_topo, axis=self.axis if axis is None else axis,
             with_weights=self.with_weights, with_times=self.with_times,

@@ -55,8 +55,10 @@ block on its device and the cold rows in its own pinned memory. The psum
 is its ``local_gather`` followed by the ordered sum over its feature group
 (int8: over the codes, then one ``tiered_gather_dequant``), the routed
 flavour a world ``BucketRoute`` over the group, and the answers are bitwise
-the logical mesh's. ``replan``, ``repin``, ``apply_row_updates`` and the
-split tuner are not ported to a world mesh (ROADMAP A.11e (a2)) and raise.
+the logical mesh's. ``replan`` onto another world shape gathers the device
+region over the old feature group (``world.all_gather``) and places the
+rank's new parts. ``repin``, ``apply_row_updates`` and the split tuner are
+not ported to a world mesh (ROADMAP A.11e (a3)) and raise.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ __all__ = ["ShardedTensor", "ShardedFeature"]
 def _world_refusal(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} on a world mesh (one process per slot) is not ported yet "
-        "(ROADMAP A.11e (a2)); run it on a logical mesh")
+        "(ROADMAP A.11e (a3)); run it on a logical mesh")
 
 
 def _host_table(tensor) -> torch.Tensor:
@@ -698,9 +700,19 @@ class ShardedFeature(KernelChoice):
         goes to the cold tier), and the tiers (with their int8 scale
         slices) are placed again. Lookups therefore return the same rows
         bitwise, possibly over another tier. ``last_tier_hits`` is reset;
-        a trainer re-binds through its own ``resume(mesh=)``."""
-        if is_world(self.mesh) or is_world(mesh):
-            raise _world_refusal("ShardedFeature.replan")
+        a trainer re-binds through its own ``resume(mesh=)``.
+
+        On a world mesh every rank calls it with a world mesh over the same
+        processes: the device region comes from the retained host copy, or
+        the L0 block and the L1 shards gathered over the old feature group
+        (``world.all_gather``, the bytes verbatim), and the rank places its
+        new L0, L1 and cold parts. The gather holds the whole device region
+        on each rank for a moment (its host copy as well), which the
+        widths the port trains at afford."""
+        if is_world(self.mesh) != is_world(mesh):
+            raise ValueError(
+                f"replan moves a store within one form (world or logical), got "
+                f"{self.mesh!r} -> {mesh!r}")
         if self.shape is None:
             raise ValueError("replan() before from_cpu_tensor()")
         n, f = self.shape
@@ -741,14 +753,22 @@ class ShardedFeature(KernelChoice):
 
     def _device_region(self) -> torch.Tensor:
         """The device region's rows on the host: the retained copy, or
-        the L0 block and the L1 shards read back."""
+        the L0 block and the L1 shards read back (on a world mesh, gathered
+        over the feature group in member order)."""
         if self._region_host is not None:
             return self._region_host
         parts = []
         if self.rep is not None:
             parts.append(self.rep.cpu())
         if self.hot is not None:
-            parts.append(torch.cat([t.cpu() for t in self.hot.shards])[:self.hot_rows])
+            hot = self.hot
+            if hot.group is None:
+                shards = torch.cat(hot.shards)
+            else:
+                # a world rank holds its own shard: the others' over its group
+                shards = world.all_gather(hot.shards[0], hot.group, (hot.axis,),
+                                          mark=False).flatten(0, 1)
+            parts.append(shards[:self.hot_rows].cpu())
         if not parts:
             return torch.empty((0, self.shape[1]), dtype=self.dtype)
         return torch.cat(parts) if len(parts) > 1 else parts[0]

@@ -157,6 +157,11 @@ class BucketRoute:
 
             tape.add(metric or ROUTED_OVERFLOW, self.overflow)
 
+    @property
+    def group(self):
+        """The world form's feature group (None: the group form)."""
+        return self._group
+
     # -- internals ----------------------------------------------------------
 
     def _bucketize(self, sorted_vals, fill):

@@ -29,19 +29,23 @@ one device, in worker order, and the gradient is the workers' mean. A
 logical mesh over more than one distinct device raises (one process over
 several cards is ROADMAP A.11e (b)). On a world mesh
 (``parallel/mesh.py`` ``WorldMesh``: one process per slot over
-``torch.distributed``) each rank runs its own worker, and the sums that
-the logical mesh's loop makes (gradients, loss, metrics, the guard's
-count) run over the rank's process groups (``parallel/world.py``), so
-every rank's step is bitwise the logical mesh's. :class:`DistributedTrainer`'s
-elastic mode (``logical_workers=``) fixes the worker count apart from the
-mesh and reduces in logical-worker order, so ``resume(mesh=)`` continues
-a run on another mesh shape bitwise.
+``torch.distributed``) each rank runs its own worker (its own blocks, in
+elastic mode), and the sums that the logical mesh's loop makes
+(gradients, loss, metrics, the guard's count) run over the rank's process
+groups (``parallel/world.py``), so every rank's step is bitwise the
+logical mesh's. :class:`DistributedTrainer`'s elastic mode
+(``logical_workers=``) fixes the worker count apart from the mesh and
+reduces in logical-worker order, so ``resume(mesh=)`` continues a run on
+another mesh shape bitwise, and a fresh world of another size continues a
+checkpoint of the old one; on a world rank 0 alone writes the
+checkpoints and chooses the step that every rank restores.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -123,11 +127,30 @@ def _one_device(mesh: Mesh) -> torch.device:
     return devices.pop()
 
 
-def _a2_refusal(what: str) -> NotImplementedError:
+def _a3_refusal(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} on a world mesh (one process per slot) is not ported yet "
-        "(ROADMAP A.11e (a2)); use a logical mesh for it"
+        "(ROADMAP A.11e (a3)); use a logical mesh for it"
     )
+
+
+def _flat_by_dtype(tensors) -> tuple[list, list]:
+    """``(index lists, one flat buffer per dtype)`` of ``tensors``: the
+    collectives of a gradient move one buffer per dtype."""
+    by_dtype: dict = {}
+    for i, g in enumerate(tensors):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    idxs = list(by_dtype.values())
+    return idxs, [torch.cat([tensors[i].reshape(-1) for i in idx]) for idx in idxs]
+
+
+def _unflatten(flats, idxs, like) -> list:
+    """The tensors of :func:`_flat_by_dtype`'s buffers, shaped as ``like``."""
+    out = [None] * len(like)
+    for idx, flat in zip(idxs, flats):
+        for i, part in zip(idx, flat.split([like[i].numel() for i in idx])):
+            out[i] = part.view_as(like[i])
+    return out
 
 
 def _ordered_grads(grads, group, axes) -> list:
@@ -135,16 +158,9 @@ def _ordered_grads(grads, group, axes) -> list:
     one flat buffer, so one collective, per dtype; bitwise the logical
     mesh's accumulation of the workers' gradients. The fold holds the
     group's W flat buffers at once."""
-    out = [None] * len(grads)
-    by_dtype: dict = {}
-    for i, g in enumerate(grads):
-        by_dtype.setdefault(g.dtype, []).append(i)
-    for idx in by_dtype.values():
-        flat = torch.cat([grads[i].reshape(-1) for i in idx])
-        total = world.ordered_sum(flat, group, axes, mark=False)
-        for i, part in zip(idx, total.split([grads[i].numel() for i in idx])):
-            out[i] = part.view_as(grads[i])
-    return out
+    idxs, flats = _flat_by_dtype(grads)
+    return _unflatten([world.ordered_sum(f, group, axes, mark=False) for f in flats],
+                      idxs, grads)
 
 
 class IssuedBlock(NamedTuple):
@@ -256,18 +272,23 @@ class DistributedTrainer:
 
     On a world mesh (``WorldMesh``, one process per slot) the rank runs
     one worker, ``w = rank`` under ``"all"`` and its data row under
-    ``"data"``: its block of the same seed packing, its keys, its sample
-    (over its own replicated topology) and its lookup (the psum or the
-    routed flavour over its feature group); the gradients (one flat buffer
-    per dtype), the loss, the metrics and the guard's count are summed
-    over its process groups (``parallel/world.py``), so the step is
-    bitwise the logical mesh's of the same shape.
+    ``"data"`` (in elastic mode its blocks, logical workers ``rank *
+    blocks_per_device + b``): its blocks of the same seed packing, its
+    keys, its sample (over its own replicated topology, or its own shard
+    of a topology-sharded sampler's, routed over its feature group) and
+    its lookup (the psum or the routed flavour over its feature group);
+    the gradients (one flat buffer per dtype), the loss, the metrics and
+    the guard's count are summed over its process groups
+    (``parallel/world.py``; elastic mode gathers the blocks' values over
+    the world, :func:`~..resilience.worker_ordered_mean`), so the step is
+    bitwise the logical mesh's of the same shape. With ``checkpoint_dir=``
+    rank 0 alone writes; every rank reads the same directory (see
+    :meth:`resume`).
 
     Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
     item): a logical mesh over more than one distinct device (A.11e (b));
-    on a world mesh, a topology-sharded sampler, ``logical_workers=``,
-    ``resume(mesh=)``, ``controller=``, ``auto_alpha=`` and
-    ``checkpoint_dir=`` (A.11e (a2)).
+    on a world mesh, ``controller=`` and ``auto_alpha=True`` (A.11e
+    (a3)).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -336,15 +357,10 @@ class DistributedTrainer:
         device = _one_device(mesh)
         self.world = is_world(mesh)
         if self.world:
-            for what, given in (
-                    ("a topology-sharded sampler",
-                     getattr(sampler, "topo_sharding", "replicated") == "mesh"),
-                    ("logical_workers=", logical_workers is not None),
-                    ("controller=", controller is not None),
-                    ("auto_alpha=True", self.auto_alpha),
-                    ("checkpoint_dir=", checkpoint_dir is not None)):
+            for what, given in (("controller=", controller is not None),
+                                ("auto_alpha=True", self.auto_alpha)):
                 if given:
-                    raise _a2_refusal(f"DistributedTrainer({what})")
+                    raise _a3_refusal(f"DistributedTrainer({what})")
         # a topo_sharding="mesh" sampler routes each hop over the feature
         # axis, so every mesh slot must be a worker over its own block
         # ("data" would route a feature group's one frontier F times)
@@ -433,18 +449,10 @@ class DistributedTrainer:
         self.tracer = tracer if tracer is not None else Tracer(enabled=False)
         self.recorder = recorder
         self._guard_trips_seen = 0
+        self.checkpointer = None
+        self._ckpt_seq = 0
         if checkpoint_dir is not None:
-            from ..utils.checkpoint import Checkpointer
-
-            self.checkpointer = Checkpointer(
-                checkpoint_dir, max_to_keep=checkpoint_keep, tracer=self.tracer,
-            )
-            latest = self.checkpointer.latest_step()
-            # a pre-existing run directory: keep the save ids monotonic
-            self._ckpt_seq = 0 if latest is None else latest + 1
-        else:
-            self.checkpointer = None
-            self._ckpt_seq = 0
+            self._open_checkpoints(mesh, checkpoint_dir, checkpoint_keep)
         self.timeline = StepTimeline()
         self.mesh = mesh
         self.device = device
@@ -481,12 +489,7 @@ class DistributedTrainer:
         else:
             self.workers = self._device_workers
         self.blocks_per_device = self.workers // self._device_workers
-        # the workers this process runs: all of them in turn, or the rank's
-        if self.world:
-            d, f = mesh.slot
-            self._held = [d * self.feature_size + f if self.seed_sharding == "all" else d]
-        else:
-            self._held = list(range(self.workers))
+        self._held = self._held_workers()
         # a sharded store under "all": each feature group's lookup routes
         self._routed = self._sharded and self.seed_sharding == "all"
         self.global_batch = self.local_batch * self.workers
@@ -514,6 +517,52 @@ class DistributedTrainer:
         self.caps = tuple(sampler._caps_for(self.local_batch))
         self.draw_fn = None
         self._bound_versions = self._current_versions()
+
+    def _held_workers(self) -> list:
+        """The workers this process runs, in turn: every one on a logical
+        mesh; on a world mesh the rank's own (its data row under
+        ``"data"``; its ``blocks_per_device`` logical workers under
+        ``"all"``)."""
+        if not self.world:
+            return list(range(self.workers))
+        d, f = self.mesh.slot
+        if self.seed_sharding != "all":
+            return [d]
+        slot = d * self.feature_size + f
+        return [slot * self.blocks_per_device + b for b in range(self.blocks_per_device)]
+
+    def _open_checkpoints(self, mesh, directory, keep: int) -> None:
+        """The checkpointer and the next save id (monotonic over a
+        pre-existing run directory). On a world mesh rank 0 opens the
+        directory (creating it) and alone writes; after a barrier every
+        other rank opens it read-only, and every rank raises when any
+        cannot see it (a rank never starts afresh alone); rank 0's next
+        save id is shared."""
+        from ..utils.checkpoint import Checkpointer
+
+        if not is_world(mesh):
+            self.checkpointer = Checkpointer(directory, max_to_keep=keep, tracer=self.tracer)
+            latest = self.checkpointer.latest_step()
+            self._ckpt_seq = 0 if latest is None else latest + 1
+            return
+        writer = mesh.rank == 0
+        if writer:
+            self.checkpointer = Checkpointer(directory, max_to_keep=keep, tracer=self.tracer)
+        world.barrier(mesh)
+        seen = torch.tensor([int(os.path.isdir(directory))], device=mesh.device)
+        axes = mesh.axis_names
+        blind = [r for r, v in enumerate(
+            world.all_gather(seen, mesh.group(axes), axes, mark=False).reshape(-1).tolist())
+            if not v]
+        if blind:
+            raise FileNotFoundError(
+                f"checkpoint_dir {os.path.abspath(directory)!r} is not visible to rank(s) "
+                f"{blind}: every rank reads rank 0's checkpoints, so the directory must "
+                "be on a file system they share (the node's own disk on one machine)")
+        if not writer:
+            self.checkpointer = Checkpointer(directory, max_to_keep=keep, read_only=True)
+        latest = self.checkpointer.latest_step() if writer else None
+        self._ckpt_seq = world.root_int(-1 if latest is None else latest, mesh) + 1
 
     # -- telemetry views (over the metrics registry) ---------------------------
 
@@ -759,15 +808,7 @@ class DistributedTrainer:
         blocks = self._blocks(packed)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if self.world:
-            # the rank's one worker; a routed lookup exchanges over its group
-            w = self._held[0]
-            seeds, num = blocks[w]
-            wkey, draw = fold_key(key, 1, w), self._worker_draw(key, w)
-            if not self._routed:
-                return IssuedStep([self.issue_block(seeds, num, wkey, draw)], zero)
-            n_id, adjs = self.sample_block(seeds, num, wkey, draw)
-            x, hits, ov = self._lookup(n_id)
-            return IssuedStep([IssuedBlock(n_id, x, adjs, num, hits, self._heat(n_id))], ov)
+            return self._issue_world(blocks, key)
         if self.topo_sharded:
             return self._issue_groups(blocks, key)
         if not self._routed:
@@ -807,14 +848,40 @@ class DistributedTrainer:
                     self._heat(n_id[i]))
         return IssuedStep(issued, routed_ov, sample_ov)
 
+    def _issue_world(self, blocks, key: int) -> IssuedStep:
+        """:meth:`_issue` on a world mesh: the rank's workers in turn (one,
+        or its blocks in elastic mode, every rank of a feature group at the
+        same block), each sampled (over a topology-sharded sampler: routed
+        over the rank's feature group) and looked up (routed over the
+        group, or the psum flavour); the overflows are the rank's groups'
+        totals, summed over its blocks."""
+        issued = []
+        routed_ov = torch.zeros((), dtype=torch.int32, device=self.device)
+        sample_ov = None
+        for w in self._held:
+            seeds, num = blocks[w]
+            if self.topo_sharded:
+                n_id, adjs, hop_ov = self.sample_group(blocks, [w], key)
+                n_id = n_id[0]
+                adjs = [Adj(a.edge_index[0], None, a.size, a.fanout) for a in adjs]
+                sample_ov = hop_ov if sample_ov is None else sample_ov + hop_ov
+            else:
+                n_id, adjs = self.sample_block(seeds, num, fold_key(key, 1, w),
+                                               self._worker_draw(key, w))
+            x, hits, ov = self._lookup(n_id)
+            if self._routed:
+                routed_ov = routed_ov + ov
+            issued.append(IssuedBlock(n_id, x, adjs, num, hits, self._heat(n_id)))
+        return IssuedStep(issued, routed_ov, sample_ov)
+
     def _train(self, issued: IssuedStep, labels, key: int, inject: bool):
         """The train half of a step over its issued blocks."""
         outs = [self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labels,
                                  fold_key(key, 1, w), inject)
                 for w, b in zip(self._held, issued.blocks)]
         if self.world:
-            return self._world_update(outs[0], issued.blocks[0].tier_hits,
-                                      issued.routed_overflow)
+            return self._world_update(outs, [b.tier_hits for b in issued.blocks],
+                                      issued.routed_overflow, issued.sample_overflow)
         return self._update(outs, [b.tier_hits for b in issued.blocks],
                             issued.routed_overflow, issued.sample_overflow,
                             [b.heat for b in issued.blocks])
@@ -888,34 +955,52 @@ class DistributedTrainer:
             self.optimizer.step()
         return loss, mtree
 
-    def _world_update(self, out, hits, routed_overflow):
-        """:meth:`_update` on a world mesh, for the rank's one worker: the
+    def _world_update(self, outs, hits, routed_overflow, sample_overflow=None):
+        """:meth:`_update` on a world mesh, for the rank's workers: the
         same sums over the rank's process groups, in the same order and
         with the same marks. The gradients and the loss are summed over the
         workers' group (the world under ``"all"``, the data group under
         ``"data"``, whose feature members hold the same worker) in worker
-        order; the metrics are integer sums; the guard's count is summed
-        over the whole world."""
-        loss, grads = out
+        order; in elastic mode each rank's blocks are gathered over the
+        world into the logical-worker stack of
+        :func:`~..resilience.worker_ordered_mean`. The metrics are integer
+        sums; the guard's count is summed over the whole world."""
+        losses = [o[0] for o in outs]
         mesh = self.mesh
         axes = (DATA_AXIS, FEATURE_AXIS) if self.seed_sharding == "all" else (DATA_AXIS,)
         group = mesh.group(axes)
         params = self._params()
         self.optimizer.zero_grad(set_to_none=True)
-        for p, g in zip(params, _ordered_grads(grads, group, axes)):
+        if self.elastic:
+            # one (blocks, n) stack per dtype, gathered over the world in
+            # rank order: the (workers, n) stack in logical-worker order
+            idxs, _ = _flat_by_dtype(outs[0][1])
+            stacks = [torch.stack(flats) for flats in zip(
+                *(_flat_by_dtype(grads)[1] for _, grads in outs))]
+            means = worker_ordered_mean(stacks, axes, self.workers, mesh=mesh)
+            reduced = _unflatten(means, idxs, outs[0][1])
+            mean = worker_ordered_mean(torch.stack(losses), axes, self.workers, mesh=mesh)
+        else:
+            (_, grads), = outs
+            reduced = _ordered_grads(grads, group, axes)
+            mean = world.all_gather(losses[0], group, axes, mark=False).mean()
+        for p, g in zip(params, reduced):
             p.grad = g
-        mean = world.all_gather(loss, group, axes, mark=False).mean()
         mtree = {}
         if self.collect_metrics:
+            data = mesh.group(DATA_AXIS)
             mtree = {
-                ROUTED_OVERFLOW: world.int_sum(routed_overflow, mesh.group(DATA_AXIS),
-                                               (DATA_AXIS,)),
-                TIER_HITS: world.int_sum(hits, group, axes),
-                SAMPLE_OVERFLOW: torch.zeros((len(self.sampler.sizes),), dtype=torch.int32,
-                                             device=loss.device),
+                ROUTED_OVERFLOW: world.int_sum(routed_overflow, data, (DATA_AXIS,)),
+                TIER_HITS: world.int_sum(torch.stack(hits).sum(0, dtype=torch.int32),
+                                         group, axes),
+                SAMPLE_OVERFLOW: (torch.zeros((len(self.sampler.sizes),), dtype=torch.int32,
+                                              device=mean.device)
+                                  if sample_overflow is None else
+                                  world.int_sum(sample_overflow, data, (DATA_AXIS,))),
             }
         if self.nonfinite_guard:
-            ok, bad = guard_verdict(loss, grads, (DATA_AXIS, FEATURE_AXIS), mesh=mesh)
+            ok, bad = guard_verdict(losses, [g for _, g in outs], (DATA_AXIS, FEATURE_AXIS),
+                                    mesh=mesh)
             if self.collect_metrics:
                 mtree[GUARD_NONFINITE] = world.int_sum(bad, group, axes)
                 mtree[GUARD_SKIPPED] = (~ok).to(torch.int32)
@@ -1202,7 +1287,8 @@ class DistributedTrainer:
         optimizer's state dicts, ``step`` (completed rows of the current
         epoch's seed matrix), ``epoch`` and the epoch's int ``key``, with
         the JAX package's manifest metadata (what :meth:`resume`
-        validates)."""
+        validates). On a world mesh rank 0 alone writes (every rank holds
+        the same state) and every rank advances the save id."""
         state = {
             "params": self.model.state_dict(),
             "opt_state": self.optimizer.state_dict(),
@@ -1223,7 +1309,8 @@ class DistributedTrainer:
         }
         if steps_per_epoch is not None:
             meta["steps_per_epoch"] = int(steps_per_epoch)
-        self.checkpointer.save(self._ckpt_seq, state, metadata=meta, trace=trace)
+        if not self.world or self.mesh.rank == 0:
+            self.checkpointer.save(self._ckpt_seq, state, metadata=meta, trace=trace)
         self._ckpt_seq += 1
 
     def resume(self, checkpoint_step: int | None = None, mesh: Mesh | None = None):
@@ -1249,26 +1336,33 @@ class DistributedTrainer:
         ``epoch_scan(..., key, epoch=epoch, start_step=step)``: the
         remaining steps are the uninterrupted run's, bitwise.
 
+        On a world mesh every rank calls :meth:`resume`: rank 0 waits for
+        its saves, a barrier follows, then rank 0 chooses the step (the
+        newest valid, quarantining a corrupt one) and shares it, and every
+        rank restores that one from the shared directory (the state and
+        its metadata are those of a logical checkpoint, so either form
+        restores the other's). ``mesh=`` is another world mesh over the
+        same processes (the replan of the sampler's shards and the store
+        runs over the old groups), or the trainer's own (the process-death
+        flow: a fresh world of another size, with the same
+        ``logical_workers``, resumes with ``resume(mesh=trainer.mesh)``).
+
         Returns ``(model, optimizer, key, step, epoch)``: the JAX tuple
         with the restored model and optimizer in place of ``(params,
         opt_state)`` and the saved epoch's int key; feed ``key``, ``epoch``
         and ``start_step=step`` back to :meth:`epoch_scan`. With no
         checkpoint on disk: ``(model, optimizer, None, 0, 0)``, untouched.
         """
-        if mesh is not None and (self.world or is_world(mesh)):
-            raise _a2_refusal("DistributedTrainer.resume(mesh=)")
+        if mesh is not None and mesh is not self.mesh:
+            self._check_replan_form(mesh)
         if self.checkpointer is None:
             raise ValueError(
                 "resume() needs checkpointing enabled "
                 "(checkpoint_dir=/checkpoint_every= at construction)"
             )
-        self.checkpointer.wait_until_finished()
-        if checkpoint_step is None:
-            latest = self.checkpointer.latest_valid_step()
-            if latest is None:
-                return self.model, self.optimizer, None, 0, 0
-        else:
-            latest = int(checkpoint_step)
+        latest = self._restore_step(checkpoint_step)
+        if latest is None:
+            return self.model, self.optimizer, None, 0, 0
         meta = self.checkpointer.metadata(latest)
         target = self.mesh if mesh is None else mesh
         target_shape = {DATA_AXIS: int(target.shape[DATA_AXIS]),
@@ -1302,6 +1396,44 @@ class DistributedTrainer:
         return (self.model, self.optimizer, int(state["key"]), step,
                 int(state["epoch"]))
 
+    def _restore_step(self, checkpoint_step):
+        """The step every rank restores (None: no checkpoint). In-flight
+        saves finish first; on a world mesh rank 0 alone waits for its
+        saves and, after a barrier, chooses the step (the pinned one, or
+        the newest valid, quarantining a corrupt newest one) and shares it
+        as one integer."""
+        ckpt = self.checkpointer
+        if not self.world:
+            ckpt.wait_until_finished()
+            return ckpt.latest_valid_step() if checkpoint_step is None else int(checkpoint_step)
+        rank0 = self.mesh.rank == 0
+        if rank0:
+            ckpt.wait_until_finished()
+        world.barrier(self.mesh)
+        step = -1
+        if rank0:
+            step = ckpt.latest_valid_step() if checkpoint_step is None else int(checkpoint_step)
+            step = -1 if step is None else step
+        step = world.root_int(step, self.mesh)
+        return None if step < 0 else step
+
+    def _check_replan_form(self, mesh) -> None:
+        """``resume(mesh=)`` replans within one form: a world trainer onto a
+        world mesh over the live process group (a group's size is fixed for
+        its processes' lives), a logical one onto a logical mesh."""
+        if not self.world and not is_world(mesh):
+            return
+        live = (torch.distributed.get_world_size()
+                if torch.distributed.is_initialized() else None)
+        if not (self.world and is_world(mesh) and mesh.world_size == live):
+            raise ValueError(
+                f"resume(mesh={mesh!r}) cannot move this trainer ({self.mesh!r}) onto "
+                f"another form or a world of another size than the live process group "
+                f"({live} ranks): a process group's size is fixed for its processes' "
+                "lives. To continue on another number of processes, start a fresh world "
+                "of that size, build the trainer there with the same logical_workers= "
+                "and call resume(mesh=trainer.mesh)")
+
     def _replan(self, mesh: Mesh) -> None:
         """Re-plan the trainer onto another mesh shape (an elastic resume).
 
@@ -1331,6 +1463,7 @@ class DistributedTrainer:
         self.feature_size = mesh.shape[FEATURE_AXIS]
         self._device_workers = dev_workers
         self.blocks_per_device = self.workers // dev_workers
+        self._held = self._held_workers()
         if self.topo_sharded:
             self.sampler.replan(mesh)
         if self._sharded:

@@ -19,6 +19,9 @@ every tensor on the rank's device.
 * :func:`all_to_all`: equal splits over the group
   (``all_to_all_single``).
 * :func:`all_gather`: the members' tensors stacked in member order.
+* :func:`barrier` and :func:`root_int`: the host-side agreement a
+  checkpoint needs: every rank waits until all arrive, and every rank
+  takes rank 0's integer (the step it restores, the save sequence).
 
 Each marks itself (``obs.marks.collective``) with the primitive, the mesh
 axes and the per-member operand the logical form marks, so the program
@@ -36,8 +39,8 @@ import torch
 
 from ..obs.marks import collective
 
-__all__ = ["CALLS", "all_gather", "all_to_all", "int_sum", "ordered_sum",
-           "reset_calls"]
+__all__ = ["CALLS", "all_gather", "all_to_all", "barrier", "int_sum", "ordered_sum",
+           "reset_calls", "root_int"]
 
 # (primitive, device type) -> collectives run in this process
 CALLS: collections.Counter = collections.Counter()
@@ -103,3 +106,27 @@ def all_to_all(x, group, axes):
     out = torch.empty_like(x)
     torch.distributed.all_to_all_single(out, x, group=group.group)
     return out
+
+
+def barrier(mesh) -> None:
+    """Wait until every rank of ``mesh``'s world arrives (``barrier`` over
+    the world group, on the rank's card under ``nccl``). Unmarked: the
+    logical form has no counterpart."""
+    dev = mesh.device
+    CALLS["barrier", dev.type] += 1
+    if dev.type == "cuda":
+        torch.distributed.barrier(device_ids=[dev.index])
+    else:
+        torch.distributed.barrier()
+
+
+def root_int(value, mesh) -> int:
+    """Rank 0's ``value`` (an int; anything on the other ranks), on every
+    rank of ``mesh``'s world: one ``broadcast`` of an int64 on the rank's
+    device, read on the host. Unmarked, as :func:`barrier`."""
+    dev = mesh.device
+    CALLS["broadcast", dev.type] += 1
+    t = torch.full((1,), int(value) if mesh.rank == 0 else 0, dtype=torch.int64,
+                   device=dev)
+    torch.distributed.broadcast(t, src=0)
+    return int(t.item())

@@ -54,21 +54,37 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def worker_ordered_mean(tree, axes, workers: int):
+def worker_ordered_mean(tree, axes, workers: int, mesh=None):
     """Mean over the logical-worker axis in a fixed order, bitwise
     independent of how the workers map onto mesh slots.
 
-    Each leaf is the ``(workers, ...)`` stack of the per-block values in
+    Each leaf is this process's stack of per-block values in
     logical-worker order (slot-major, block-minor: ``worker = slot *
-    blocks_per_device + block``): on the port's one-process mesh this
-    stack is the JAX package's ``all_gather``. The reduction is the
-    explicit left fold ``g[0] + g[1] + ... + g[W-1]``, then the division by
-    ``workers``; ``torch.mean`` and ``torch.sum`` reduce in another order.
-    ``axes`` is accepted for the JAX package's signature and is inert.
-    Leaves may sit in dicts, lists and tuples."""
-    del axes  # the stack is already in logical-worker order
+    blocks_per_device + block``). On a world mesh (``mesh``, default the
+    process's newest, ``parallel.mesh.current_world``) with ``axes`` given,
+    a leaf is the rank's ``(blocks_per_device, ...)`` stack, and an
+    ``all_gather`` over the ``axes`` group (rank order, which is slot
+    order) makes the ``(workers, ...)`` stack, as the JAX package's
+    ``all_gather`` does; on a one-process mesh (or with ``axes=None``) the
+    leaf is that stack already. The reduction is the explicit left fold
+    ``g[0] + g[1] + ... + g[W-1]``, then the division by ``workers``;
+    ``torch.mean`` and ``torch.sum`` reduce in another order, and so would
+    an ``all_reduce`` of each rank's partial sum. The gather is unmarked,
+    as the one-process stack is no marked collective. Leaves may sit in
+    dicts, lists and tuples."""
+    group = None
+    if axes is not None:
+        from ..parallel import mesh as mesh_mod, world
+
+        mesh = mesh if mesh is not None else mesh_mod.current_world()
+        if mesh_mod.is_world(mesh):
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            group = mesh.group(axes)
 
     def one(g):
+        if group is not None:
+            g = world.all_gather(g, group, axes, mark=False)
+            g = g.reshape((-1,) + tuple(g.shape[2:]))
         if g.shape[0] != workers:
             raise ValueError(
                 f"a leaf of shape {tuple(g.shape)} does not stack {workers} workers"

@@ -35,6 +35,17 @@ the shape distinct cards would run. An owner masks every lane it does not
 own (and every dead lane) to zero rows and reads nothing for it: the
 bucket fallback's sum over the members is exact only then.
 
+World form. On a world mesh (``parallel/mesh.py`` ``WorldMesh``, one
+process per slot) a rank is one member: it holds its own ``(S,)``
+frontier (a ``(1, S)`` row here) and its own shard of the topology, each
+hop's ``BucketRoute`` carries the exchanges over its feature group's
+``all_to_all_single`` (``group=``), and ``serve`` runs once, for the
+rank's own shard: one K1 ``select`` (or K3 ``wselect``) launch per
+neighbour exchange. The caps and bucket capacities come from the shapes
+alone, or, for auto caps, from counts maxed over the world, so every
+rank's ``all_to_all_single`` has the same splits; the answers are bitwise
+the group form's.
+
 Bucket overflow is served exactly by the route's fallback and counted:
 the per-hop vector is ``last_sample_overflow``.
 
@@ -52,7 +63,7 @@ import numpy as np
 import torch
 
 from ..core.config import SampleMode
-from ..core.sharded_topology import ShardedTopology
+from ..core.sharded_topology import ShardedTopology, shard_position
 from ..core.topology import CSRTopo
 from ..obs.registry import SAMPLE_OVERFLOW, MetricsRegistry
 from ..ops.kernels.fused import select, wselect
@@ -62,6 +73,7 @@ from ..ops.sample import (
     stratified_offsets,
     temporal_window_counts,
 )
+from ..parallel import world
 from ..parallel.mesh import (FEATURE_AXIS, axis_devices, axis_groups, is_world,
                              shard_seed_blocks)
 from ..parallel.routing import BucketRoute
@@ -123,6 +135,31 @@ def worker_major(parts, groups):
     return out[inv.to(out.device)]
 
 
+def merger(mesh, outs, groups):
+    """``merge(get)``: the per-member tensors ``get(o)`` of the groups'
+    outputs ``outs`` as one worker-major tensor. On a world mesh ``outs``
+    holds the rank's own output alone, and the merge is an ``all_gather``
+    over the world in rank (= worker) order, the same on every rank;
+    unmarked, as the logical form's concatenation is no collective."""
+    if not is_world(mesh):
+        return lambda get: worker_major([get(o) for o in outs], groups)
+    axes = mesh.axis_names
+    group = mesh.group(axes)
+    return lambda get: world.all_gather(get(outs[0]), group, axes,
+                                        mark=False).flatten(0, 1)
+
+
+def group_total(mesh, outs, get, groups):
+    """The groups' totals ``get(o)`` (int32, each group's own) summed over
+    the groups; on a world mesh gathered first, each group's total taken
+    from its first member."""
+    if not is_world(mesh):
+        return sum(get(o) for o in outs)
+    axes = mesh.axis_names
+    every = world.all_gather(get(outs[0]), mesh.group(axes), axes, mark=False)
+    return every[[members[0] for members in groups]].sum(0, dtype=torch.int32)
+
+
 class _Owner:
     """The owner side of one shard of a partition (a ``ShardedTopology``
     or a ``ShardedRel``) for one routing plan: member ``d`` answering the
@@ -133,12 +170,13 @@ class _Owner:
     plan."""
 
     def __init__(self, shards, d: int, ids):
-        self.indices = shards.indices[d]
-        self.cum_weights = None if shards.cum_weights is None else shards.cum_weights[d]
-        self.edge_time = None if shards.edge_time is None else shards.edge_time[d]
+        i = shard_position(shards, d)
+        self.indices = shards.indices[i]
+        self.cum_weights = None if shards.cum_weights is None else shards.cum_weights[i]
+        self.edge_time = None if shards.edge_time is None else shards.edge_time[i]
         self.iters = shards.search_iters
         self.out_device = ids.device
-        indptr, rps = shards.indptr[d], shards.rows_per_shard
+        indptr, rps = shards.indptr[i], shards.rows_per_shard
         ids = ids.to(indptr.device)
         mine = (ids >= 0) & (torch.div(ids, rps, rounding_mode="floor") == d)
         r = torch.where(mine, ids - d * rps, 0).to(torch.int64)
@@ -181,6 +219,21 @@ class _Owner:
                            0).to(self.out_device)
 
 
+def exchange(route, serve, payload=None):
+    """``route.exchange`` over ``(rows, L, ...)`` tensors in either form:
+    a world route takes and returns this member's one row."""
+    if route.group is None:
+        return route.exchange(serve, payload)
+    return route.exchange(serve, None if payload is None else payload[0])[None]
+
+
+def owners_of(shards, route) -> dict:
+    """``{member: _Owner}`` for every member this process serves in
+    ``route`` (all of them, or a world rank's own)."""
+    held = range(route.num_shards) if route.group is None else [route.group.index]
+    return {d: _Owner(shards, d, ids) for d, ids in zip(held, route.requests())}
+
+
 def _offsets(draws, deg, k: int):
     """A uniform hop's ``(F, S, k)`` int32 offsets and selection mask from
     its draws: raw ``(jitter, rot)`` bits (the replicated hop's scheme),
@@ -195,8 +248,9 @@ def _offsets(draws, deg, k: int):
 
 def dist_sample_layer(shards, seeds, num_seeds, k: int, draw, *,
                       cap: int | None = None, weighted: bool = False,
-                      time_window=None, route=None):
-    """One distributed hop of a feature group (group form).
+                      time_window=None, route=None, group=None):
+    """One distributed hop of a feature group (group form), or of one
+    member (world form, ``group=``).
 
     Args:
       shards: the partition, a ``ShardedTopology`` or a ``ShardedRel``
@@ -216,11 +270,15 @@ def dist_sample_layer(shards, seeds, num_seeds, k: int, draw, *,
       time_window: ``(lo, hi)``: draw among each row's in-window edges.
       route: a ``BucketRoute`` already planned over ``seeds`` (the hetero
         sampler shares one per destination type); None plans one.
+      group: the world form: this rank's feature group
+        (``WorldMesh.group("feature")``); ``seeds`` is then this member's
+        ``(1, S)`` row and ``shards`` its own shard.
 
     Returns ``(neighbours (F, S, k) int32 -1 masked, counts (F, S), the
     group's fallback-served lanes)``.
     """
-    F, S = seeds.shape
+    S = seeds.shape[1]
+    F = seeds.shape[0] if group is None else len(group.ranks)
     dev = seeds.device
     num = torch.as_tensor(num_seeds, device=dev)
     valid = (torch.arange(S, device=dev) < num[..., None]) & (seeds >= 0)
@@ -228,25 +286,25 @@ def dist_sample_layer(shards, seeds, num_seeds, k: int, draw, *,
     if route is None:
         route = BucketRoute(s, valid, torch.div(s, shards.rows_per_shard,
                                                 rounding_mode="floor"),
-                            num_shards=F, cap=cap)
+                            num_shards=F, cap=cap, group=group)
     # every exchange of the plan serves owner d the same ids: its rows are
     # looked up once
-    owners = [_Owner(shards, d, ids) for d, ids in enumerate(route.requests())]
+    owners = owners_of(shards, route)
     if weighted:
-        deg = route.exchange(lambda d, _ids: owners[d].deg())
-        tot = route.exchange(lambda d, _ids: owners[d].total())
+        deg = exchange(route, lambda d, _ids: owners[d].deg())
+        tot = exchange(route, lambda d, _ids: owners[d].total())
         tot = torch.where(deg > 0, tot, 1.0)
         u = draw(deg).to(torch.float32) * tot[..., None]
-        nbr = route.exchange(lambda d, _ids, u: owners[d].wnbr(u), payload=u)
+        nbr = exchange(route, lambda d, _ids, u: owners[d].wnbr(u), payload=u)
         i = torch.arange(k, device=dev)
         mask = valid[..., None] & (i < deg.clamp(max=k)[..., None])
     else:
         if time_window is None:
-            deg = route.exchange(lambda d, _ids: owners[d].deg())
+            deg = exchange(route, lambda d, _ids: owners[d].deg())
             first = None
         else:
             lo_t, hi_t = time_window
-            win = route.exchange(lambda d, _ids: owners[d].window(lo_t, hi_t))
+            win = exchange(route, lambda d, _ids: owners[d].window(lo_t, hi_t))
             first, deg = win[..., 0], win[..., 1]
         off, sel = _offsets(draw(deg), deg, k)
         mask = valid[..., None] & sel
@@ -254,8 +312,8 @@ def dist_sample_layer(shards, seeds, num_seeds, k: int, draw, *,
             off = first[..., None] + off
         # offsets out (the ids are not sent again), -1 past each lane's
         # valid prefix; neighbour blocks back
-        nbr = route.exchange(lambda d, _ids, offs: owners[d].nbr(offs),
-                             payload=torch.where(mask, off, -1))
+        nbr = exchange(route, lambda d, _ids, offs: owners[d].nbr(offs),
+                       payload=torch.where(mask, off, -1))
     nbr = torch.where(mask, nbr, -1).to(torch.int32)
     counts = torch.where(valid, deg.clamp(max=k), 0)
     return nbr, counts, route.overflow
@@ -263,8 +321,10 @@ def dist_sample_layer(shards, seeds, num_seeds, k: int, draw, *,
 
 def dist_multilayer_sample(shards, seeds, num_seeds, sizes, caps, draw, *,
                            routed_alpha: float | None = 2.0,
-                           weighted: bool = False, time_window=None):
-    """The multi-layer distributed sample and reindex of a feature group.
+                           weighted: bool = False, time_window=None, group=None):
+    """The multi-layer distributed sample and reindex of a feature group
+    (of one member, its ``(1, S)`` row, on a world mesh: ``group=``, as in
+    :func:`dist_sample_layer`).
 
     The sharded-topology twin of ``sampling.sampler.multilayer_sample``:
     ``seeds`` is ``(F, S)`` (one row per member), ``num_seeds`` an int or
@@ -275,16 +335,16 @@ def dist_multilayer_sample(shards, seeds, num_seeds, sizes, caps, draw, *,
     leading member dimension, and the ``(L,)`` int32 vector of per-hop
     fallback-served lanes (group totals, seeds outward).
     """
-    F = seeds.shape[0]
+    F = seeds.shape[0] if group is None else len(group.ranks)
     adjs, edge_counts, frontier_counts, hop_overflows = [], [], [], []
     cur, cur_n = seeds, torch.as_tensor(num_seeds, device=seeds.device)
-    total_overflow = torch.zeros(F, dtype=torch.int32, device=seeds.device)
+    total_overflow = torch.zeros(seeds.shape[0], dtype=torch.int32, device=seeds.device)
     for l, k in enumerate(sizes):
         cap = routed_sample_cap(cur.shape[-1], F, routed_alpha)
         with trace_scope(f"dist_sample_layer_{l}"):
             nbr, _, hop_ov = dist_sample_layer(
                 shards, cur, cur_n, k, lambda deg, l=l: draw(l, deg), cap=cap,
-                weighted=weighted, time_window=time_window)
+                weighted=weighted, time_window=time_window, group=group)
         hop_overflows.append(hop_ov)
         with trace_scope(f"reindex_layer_{l}"):
             frontier, n_frontier, adj, edges, overflow = reindex_hop(
@@ -317,6 +377,13 @@ class DistGraphSageSampler(GraphSageSampler):
     After :meth:`sample`, ``last_sample_overflow`` holds the per-hop
     fallback-served lanes (int32 ``(num_layers,)``, seeds outward, mesh
     totals), a view of ``metrics``' ``SAMPLE_OVERFLOW``; never read back.
+
+    On a world mesh (one process per slot) the rank is worker ``rank`` and
+    holds its own shard of the topology (``ShardedTopology.member``):
+    :meth:`sample_group`, :meth:`sample_padded` and
+    :meth:`sample_per_worker` give the rank's own worker, and
+    :meth:`sample` the logical form's merged output, gathered over the
+    world in worker order (the same on every rank).
     """
 
     def __init__(
@@ -347,10 +414,6 @@ class DistGraphSageSampler(GraphSageSampler):
             )
         if mesh is None:
             raise ValueError("topo_sharding='mesh' requires mesh=")
-        if is_world(mesh):
-            raise NotImplementedError(
-                "DistGraphSageSampler on a world mesh (one process per slot) is not "
-                "ported yet (ROADMAP A.11e (a2)); use a logical mesh")
         if with_eid:
             raise ValueError(
                 "with_eid over a sharded topology is not supported; the "
@@ -419,10 +482,40 @@ class DistGraphSageSampler(GraphSageSampler):
         """Seed-block workers: every slot of the mesh."""
         return self.mesh.devices.size
 
-    def sample_padded(self, *args, **kwargs):
-        raise TypeError(
-            "a topology-sharded sampler samples a feature group at once: "
-            "call sample_group")
+    def _world_group(self):
+        """The rank's group along the partition's axis (None: logical)."""
+        return self.mesh.group(self.axis) if is_world(self.mesh) else None
+
+    def sample_padded(self, seeds, num_seeds, generator=None, draw_fn=None,
+                      routed_alpha=_OWN):
+        """On a world mesh, the rank's own worker: the replicated
+        ``sample_padded``'s contract and tuple (``(cap,)`` device seeds;
+        ``draw_fn(layer, deg)``, or layer ``l`` from ``(generator
+        .initial_seed(), l)``, or, with neither, worker ``rank`` of a
+        :meth:`sample` call on the sampler's own stream), with no host
+        read. On a logical mesh a feature group samples at once: call
+        :meth:`sample_group`."""
+        if not is_world(self.mesh):
+            raise TypeError(
+                "a topology-sharded sampler samples a feature group at once: "
+                "call sample_group")
+        self.check_topo_version()
+        seeds = torch.as_tensor(seeds, device=self.device).to(torch.int32).reshape(1, -1)
+        keys = None
+        if generator is not None:
+            keys = [generator.initial_seed()]
+        elif draw_fn is None:
+            self._call += 1
+            keys = [fold_key(fold_key(self.seed, self._call), self.mesh.rank)]
+        num = torch.as_tensor(num_seeds, device=self.device).reshape(1)
+        out = self._sample_group(
+            seeds, num, keys,
+            None if draw_fn is None else (lambda _i, l, deg: draw_fn(l, deg)), routed_alpha)
+        self.last_sample_overflow = out[6]
+        n_id, n_count, adjs, overflow, ecs, fcs, _ = out
+        return (n_id[0], n_count[0], [Adj(a.edge_index[0], None, a.size, a.fanout)
+                                       for a in adjs],
+                overflow[0], tuple(c[0] for c in ecs), tuple(c[0] for c in fcs))
 
     # -- the group entry ------------------------------------------------------
 
@@ -449,7 +542,8 @@ class DistGraphSageSampler(GraphSageSampler):
             self.topo, seeds, num_seeds, self.sizes, self._caps_for(cap),
             self._group_draw(cap, keys, draw_fn),
             routed_alpha=self.routed_alpha if routed_alpha is _OWN else routed_alpha,
-            weighted=self.weighted, time_window=self.time_window)
+            weighted=self.weighted, time_window=self.time_window,
+            group=self._world_group())
 
     def sample_group(self, seeds, num_seeds, generators=None, draw_fn=None,
                      routed_alpha=_OWN):
@@ -461,7 +555,9 @@ class DistGraphSageSampler(GraphSageSampler):
         or an ``(F,)`` tensor). The caps are those planned for ``cap``.
         Draws: ``draw_fn(member, layer, deg)``, or member ``i`` draws what
         ``sample_padded(generator=generators[i])`` of a replicated sampler
-        draws. Returns ``dist_multilayer_sample``'s tuple: ``(n_id (F,
+        draws. On a world mesh ``seeds`` is the rank's own ``(1, cap)`` row
+        (``member`` 0 of ``draw_fn`` is that row) and every tensor of the
+        result has a leading dimension of 1. Returns ``dist_multilayer_sample``'s tuple: ``(n_id (F,
         frontier_cap), n_count (F,), adjs deepest first (edge_index (F, 2,
         E_l)), overflow (F,), edge_counts, frontier_counts, hop overflow
         (L,))``, all on the device. ``routed_alpha`` (a float, or None for
@@ -486,27 +582,27 @@ class DistGraphSageSampler(GraphSageSampler):
         """Every group's sample, worker-major: ``(n_id, n_count, edge
         indices deepest first, overflow, edge_counts, frontier_counts)``,
         each with a leading ``(workers,)`` dimension (``edge_index`` ``(W,
-        2, E_l)``), and the mesh-total per-hop overflow."""
+        2, E_l)``), and the mesh-total per-hop overflow. On a world mesh
+        the rank samples its own worker and the outputs are gathered over
+        the world."""
         groups = axis_groups(self.mesh, self.axis)
         outs = []
-        for members in groups:
+        # a world rank samples its own worker's row, a logical mesh every group
+        for members in ([[self.mesh.rank]] if is_world(self.mesh) else groups):
             idx = torch.tensor(members, device=self.device)
             gdraw = None if draw_fn is None else (
                 lambda i, l, deg, m=members: draw_fn(m[i], l, deg))
             outs.append(self._sample_group(
                 seeds[idx], num[idx], None if keys is None else [keys[w] for w in members],
                 gdraw))
-
-        def merge(get):
-            return worker_major([get(o) for o in outs], groups)
-
+        merge = merger(self.mesh, outs, groups)
         L = len(self.sizes)
         return (merge(lambda o: o[0]), merge(lambda o: o[1]),
                 [merge(lambda o, l=l: o[2][l].edge_index) for l in range(L)],
                 merge(lambda o: o[3]),
                 [merge(lambda o, l=l: o[4][l]) for l in range(L)],
                 [merge(lambda o, l=l: o[5][l]) for l in range(L)],
-                sum(o[6] for o in outs))
+                group_total(self.mesh, outs, lambda o: o[6], groups))
 
     def sample(self, input_nodes, key: int | None = None, draw_fn=None) -> SampleOutput:
         """Sample k-hop neighbourhoods of a GLOBAL seed batch, split across
@@ -524,7 +620,8 @@ class DistGraphSageSampler(GraphSageSampler):
         w)``. ``draw_fn(worker, layer, deg)`` replaces the draws (the
         ``(S_l,)`` degrees of that worker's hop; offsets, or ``u01`` when
         weighted). An auto sampler plans and regrows its caps from the
-        worker maxima, reading the counts on the host.
+        worker maxima, reading the counts on the host (on a world mesh,
+        from the gathered output, so every rank plans the same caps).
         """
         self.check_topo_version()
         seeds = np.asarray(input_nodes)
@@ -569,7 +666,8 @@ class DistGraphSageSampler(GraphSageSampler):
                           draw_fn=None) -> list[SampleOutput]:
         """:meth:`sample`, cut into per-worker ``SampleOutput``s, each
         comparable bitwise with the replicated sampler's on that worker's
-        seed block and draws."""
+        seed block and draws; on a world mesh, a list of one: the rank's
+        own worker."""
         seeds = np.asarray(input_nodes)
         out = self.sample(seeds, key=key, draw_fn=draw_fn)
         W = self.workers
@@ -580,4 +678,4 @@ class DistGraphSageSampler(GraphSageSampler):
             adjs = [Adj(a.edge_index.reshape(2, W, -1)[:, w], None, a.size,
                         fanout=a.fanout) for a in out.adjs]
             per.append(SampleOutput(n_id[w], len(blk), adjs, zero, zero, (), ()))
-        return per
+        return [per[self.mesh.rank]] if is_world(self.mesh) else per

@@ -13,7 +13,10 @@ degree, offset and neighbour exchanges ride the same buckets.
 In group form, as in ``sampling/dist.py``: one process holds a feature
 group's F members and each exchange serves every owner in turn (one K1
 ``select``, or K3 ``wselect`` on a weighted relation, per owner per
-relation per hop).
+relation per hop). In world form (a ``WorldMesh``, one process per slot)
+the rank is one member over its own shard of each relation: one route per
+(hop, destination type) over its feature group, and one launch per
+relation per exchange, for its own shard.
 
 Parity: for the same seed block, draws, caps and dedup, every worker's
 sample is bitwise the replicated ``HeteroGraphSampler``'s on that block;
@@ -41,7 +44,7 @@ from ..parallel.mesh import (FEATURE_AXIS, axis_devices, axis_groups, is_world,
                              shard_seed_blocks)
 from ..parallel.routing import BucketRoute
 from ..utils.trace import trace_scope
-from .dist import dist_sample_layer, routed_sample_cap, stack_draws, worker_major
+from .dist import dist_sample_layer, group_total, merger, routed_sample_cap, stack_draws
 from .hetero import (
     HeteroGraphSampler,
     HeteroLayer,
@@ -57,8 +60,10 @@ __all__ = ["DistHeteroSampler", "dist_hetero_multilayer_sample"]
 def dist_hetero_multilayer_sample(rels, seeds, num_seeds, input_type,
                                   layer_plans, draw, *, rows_per_shard: dict,
                                   routed_alpha: float | None = 2.0,
-                                  weighted_rels=frozenset()):
-    """The distributed hetero loop of a feature group (group form).
+                                  weighted_rels=frozenset(), group=None):
+    """The distributed hetero loop of a feature group (group form), or of
+    one member's ``(1, S)`` row over its feature group ``group`` (world
+    form, as ``dist_sample_layer``'s).
 
     Args:
       rels: ``{edge_type: ShardedRel}``, the partition of every relation.
@@ -78,12 +83,12 @@ def dist_hetero_multilayer_sample(rels, seeds, num_seeds, input_type,
     hop overflow)``; the last is int32 ``(slots,)``: per hop, the shared
     plan's fallback-served lanes of each active relation in sorted order.
     """
-    F = seeds.shape[0]
+    F = seeds.shape[0] if group is None else len(group.ranks)
     dev = seeds.device
     frontier = {input_type: seeds}
     counts = {input_type: torch.as_tensor(num_seeds, device=dev)}
     layers, frontier_counts, hop_overflows = [], [], []
-    overflow = torch.zeros(F, dtype=torch.int32, device=dev)
+    overflow = torch.zeros(seeds.shape[0], dtype=torch.int32, device=dev)
     for hop, (rel_fanouts, caps_prev, caps_next) in enumerate(layer_plans):
         # every active relation through ONE shared plan per destination type
         routes, samples = {}, {}
@@ -97,7 +102,7 @@ def dist_hetero_multilayer_sample(rels, seeds, num_seeds, input_type,
                 s = torch.where(valid, cur, 0)
                 routes[d] = BucketRoute(
                     s, valid, torch.div(s, rows_per_shard[d], rounding_mode="floor"),
-                    num_shards=F, cap=routed_sample_cap(S, F, routed_alpha))
+                    num_shards=F, cap=routed_sample_cap(S, F, routed_alpha), group=group)
             with trace_scope(f"dist_hetero_layer_{hop}"):
                 samples[et], _, _ = dist_sample_layer(
                     rels[et], cur, counts[d], k,
@@ -135,6 +140,11 @@ class DistHeteroSampler(HeteroGraphSampler):
     fallback-served lanes per (hop, edge type), an int32 ``(num_slots,)``
     tensor in :attr:`overflow_slots` order (the ``HETERO_SAMPLE_OVERFLOW``
     registry metric).
+
+    On a world mesh the rank samples its own worker over its own shards,
+    and :meth:`sample` gathers the workers over the world (the logical
+    form's merged output, the same on every rank);
+    :meth:`sample_per_worker` gives the rank's own worker.
     """
 
     def __init__(self, topo: HeteroCSRTopo, sizes, input_type: str,
@@ -147,10 +157,6 @@ class DistHeteroSampler(HeteroGraphSampler):
                  axis: str = FEATURE_AXIS, kernel: str = "auto", device=None):
         if mesh is None:
             raise ValueError("DistHeteroSampler requires mesh=")
-        if is_world(mesh):
-            raise NotImplementedError(
-                "DistHeteroSampler on a world mesh (one process per slot) is not "
-                "ported yet (ROADMAP A.11e (a2)); use a logical mesh")
         self._kernel = validate_kernel_arg(str(kernel))
         if with_eid:
             raise ValueError(
@@ -256,11 +262,13 @@ class DistHeteroSampler(HeteroGraphSampler):
 
     def _run(self, seeds, num, keys, draw_fn, plans):
         """Every group's sample, worker-major (a leading ``(workers,)``
-        dimension on every tensor but the mesh-total hop overflow)."""
+        dimension on every tensor but the mesh-total hop overflow); on a
+        world mesh the rank's own worker, gathered over the world."""
         cap = int(seeds.shape[-1])
         groups = axis_groups(self.mesh, self.axis)
+        world_group = self.mesh.group(self.axis) if is_world(self.mesh) else None
         outs = []
-        for members in groups:
+        for members in ([[self.mesh.rank]] if world_group is not None else groups):
             idx = torch.tensor(members, device=self.device)
             gdraw = None if draw_fn is None else (
                 lambda i, h, et, deg, m=members: draw_fn(m[i], h, et, deg))
@@ -268,10 +276,9 @@ class DistHeteroSampler(HeteroGraphSampler):
                 self.dev_topos.rels, seeds[idx], num[idx], self.input_type, plans,
                 self._group_draw(cap, [keys[w] for w in members], gdraw),
                 rows_per_shard=self.dev_topos.rows_per_shard,
-                routed_alpha=self.routed_alpha, weighted_rels=self.weighted_rels))
-
-        def merge(get):
-            return worker_major([get(o) for o in outs], groups)
+                routed_alpha=self.routed_alpha, weighted_rels=self.weighted_rels,
+                group=world_group))
+        merge = merger(self.mesh, outs, groups)
 
         frontier = {t: merge(lambda o, t=t: o[0][t]) for t in outs[0][0]}
         counts = {t: merge(lambda o, t=t: o[1][t]) for t in outs[0][1]}
@@ -286,7 +293,7 @@ class DistHeteroSampler(HeteroGraphSampler):
         fcounts = tuple({t: merge(lambda o, li=li, t=t: o[4][li][t]) for t in layer}
                         for li, layer in enumerate(outs[0][4]))
         return (frontier, counts, layers, merge(lambda o: o[3]), fcounts,
-                sum(o[5] for o in outs))
+                group_total(self.mesh, outs, lambda o: o[5], groups))
 
     def sample(self, input_nodes, key: int | None = None,
                draw_fn=None) -> HeteroSampleOutput:
@@ -336,7 +343,8 @@ class DistHeteroSampler(HeteroGraphSampler):
     def sample_per_worker(self, input_nodes, key: int | None = None, draw_fn=None):
         """:meth:`sample`, cut into per-worker ``HeteroSampleOutput``s, each
         comparable bitwise with the replicated sampler's on that worker's
-        seed block and draws."""
+        seed block and draws; on a world mesh, a list of one: the rank's
+        own worker."""
         out = self.sample(np.asarray(input_nodes), key=key, draw_fn=draw_fn)
         W = self.workers
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -348,4 +356,4 @@ class DistHeteroSampler(HeteroGraphSampler):
                          fanout=a.fanout) for et, a in layer.adjs.items()},
                 dict(layer.src_caps), dict(layer.dst_caps)) for layer in out.adjs]
             per.append(HeteroSampleOutput(n_id, {}, out.batch_size, layers, zero, ()))
-        return per
+        return [per[self.mesh.rank]] if is_world(self.mesh) else per

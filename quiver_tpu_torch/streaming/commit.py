@@ -47,6 +47,7 @@ from ..obs.registry import (
     STREAMING_COMMITS,
     MetricsRegistry,
 )
+from ..parallel.mesh import is_world
 from ..utils.trace import get_logger
 from .delta import (DeltaBatch, DeltaRejected, _as_edge_array, encode_pairs,
                     validate_delta)
@@ -483,6 +484,12 @@ class StreamingGraph:
         ``inject_failure`` forces the abort at stage ``"merge"``,
         ``"verify"`` or ``"features"``: a crash at any point before
         publish, after which the old version is intact.
+
+        Row updates into a store on a world mesh (one process per slot)
+        are not ported yet (ROADMAP A.11e (a3)): such a commit raises
+        ``NotImplementedError`` before anything is published, the batches
+        still staged. A topology-only commit runs, and each rank's
+        sampler re-places its own shard at its ``refresh``.
         """
         if inject_failure is not None and inject_failure not in _FAIL_STAGES:
             raise ValueError(
@@ -491,6 +498,11 @@ class StreamingGraph:
             )
         if not self._staged:
             return None
+        if (self.feature is not None and is_world(getattr(self.feature, "mesh", None))
+                and any(d.update_ids is not None for d in self._staged)):
+            raise NotImplementedError(
+                "row updates into a store on a world mesh (one process per slot) are "
+                "not ported yet (ROADMAP A.11e (a3)); nothing was published")
         staged = tuple(self._staged)
         topo = self.csr_topo
         try:

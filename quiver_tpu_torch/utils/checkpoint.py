@@ -187,13 +187,17 @@ class Checkpointer:
       tracer: optional ``Tracer``: each save lands a ``ckpt.save`` span
         (subsystem ``resilience``) over the worker's write, tagged with
         the caller's trace.
+      read_only: a reader of a directory another process writes (a world
+        rank other than 0): the directory must exist, :meth:`save` raises,
+        and a corrupt checkpoint is skipped, never quarantined.
     """
 
     def __init__(self, directory: str | os.PathLike, max_to_keep: int = 3,
-                 integrity: bool = True, tracer=None):
+                 integrity: bool = True, tracer=None, read_only: bool = False):
         self.directory = os.path.abspath(os.fspath(directory))
         self.integrity = bool(integrity)
         self.tracer = tracer
+        self.read_only = bool(read_only)
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         if self.integrity and max_to_keep < 2:
@@ -204,7 +208,11 @@ class Checkpointer:
                 f"to keep a single-checkpoint window"
             )
         self.max_to_keep = int(max_to_keep)
-        os.makedirs(self.directory, exist_ok=True)
+        if self.read_only:
+            if not os.path.isdir(self.directory):
+                raise FileNotFoundError(f"no checkpoint directory at {self.directory}")
+        else:
+            os.makedirs(self.directory, exist_ok=True)
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="quiver-ckpt"
         )
@@ -275,7 +283,9 @@ class Checkpointer:
 
     def _quarantine(self, step: int, err: CorruptCheckpoint) -> None:
         """Rename a failed directory out of the step namespace (one log
-        line per directory)."""
+        line per directory); a reader leaves it where it is."""
+        if self.read_only:
+            return
         src = self._step_dir(step)
         dst = os.path.join(self.directory, quarantine_name(
             os.path.basename(src), time.time() * 1000))
@@ -305,6 +315,8 @@ class Checkpointer:
         nothing is written. ``metadata`` lands in the manifest's
         ``meta``.
         """
+        if self.read_only:
+            raise RuntimeError(f"a read-only Checkpointer of {self.directory} cannot save")
         step = int(step)
         if step in self._inflight or self._committed(step):
             info_once(

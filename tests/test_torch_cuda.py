@@ -1743,3 +1743,136 @@ def test_world_of_one_over_nccl_equals_logical(cuda, tmp_path, seed_sharding, dt
     assert all(torch.equal(got[1][k], v) for k, v in want[1].items())
     assert got_dp[0] == want_dp[0]
     assert all(torch.equal(got_dp[1][k], v) for k, v in want_dp[1].items())
+
+
+def _world_topo_trainer(mesh, cuda, weighted=False, **kw):
+    """The topology-sharded trainer of ``tests/torch_world_topo_worker.py``
+    on ``mesh``, over the card: a topology-sharded sampler (uniform or
+    weighted) and a three-tier store, routed alpha 0.05, the guard on."""
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch.models.sage import GraphSAGE
+
+    from torch_world_topo_worker import topo_of
+    from torch_world_worker import GRAPH, LOCAL, SIZES, STORES
+
+    topo = topo_of("weighted" if weighted else "uniform")
+    store = qt.ShardedFeature(mesh, csr_topo=topo, routed_alpha=0.05, kernel="pallas",
+                              **STORES[None]).from_cpu_tensor(GRAPH[1])
+    sampler = qt.GraphSageSampler(topo, list(SIZES), seed_capacity=LOCAL, seed=9,
+                                  topo_sharding="mesh", mesh=mesh, routed_alpha=0.05,
+                                  weighted=weighted, kernel="pallas")
+    model = GraphSAGE(4, 16, 4, num_layers=2).to(cuda)
+    trainer = qt.DistributedTrainer(mesh, sampler, store, model,
+                                    torch.optim.Adam(model.parameters(), lr=5e-3),
+                                    local_batch=LOCAL, seed_sharding="all", routed_alpha=0.05,
+                                    nonfinite_guard=True, **kw)
+    trainer.init(0)
+    return trainer
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_world_of_one_topo_sharded_equals_logical(cuda, tmp_path, weighted):
+    """A world of one rank over ``nccl``: 3 steps of the topology-sharded
+    trainer (uniform or weighted) bitwise the logical ``(1, 1)`` mesh's on
+    the card under deterministic kernels (losses, tier hits, routed and
+    per-hop overflow, parameters), the owner side launching K1 ``select``
+    (K3 ``wselect``) once per hop in both forms, the rank's topology shard
+    on the card, every collective on CUDA tensors."""
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch.ops.kernels.fused import select, wselect
+    from quiver_tpu_torch.parallel import world
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    from torch_world_worker import GRAPH, SIZES
+
+    labels = torch.from_numpy(GRAPH[2].astype(np.int32)).to(cuda)
+    entry = wselect if weighted else select
+
+    def run(mesh):
+        trainer = _world_topo_trainer(mesh, cuda, weighted)
+        assert all(t.is_cuda for t in trainer.sampler.topo.indices)
+        rng = np.random.default_rng(3)
+        before = entry.launches
+        out = [(trainer.step(rng.integers(0, 300, trainer.global_batch), labels, 5 + t),
+                trainer.last_tier_hits.clone(), trainer.last_routed_overflow.clone(),
+                trainer.last_sample_overflow.clone()) for t in range(3)]
+        torch.cuda.synchronize()
+        return out, dict(trainer.model.state_dict()), entry.launches - before
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cuda")
+        try:
+            world.reset_calls()
+            got = run(qt.make_mesh(data=1, feature=1))
+            calls = dict(world.CALLS)
+        finally:
+            shutdown_distributed()
+        want = run(qt.make_mesh(data=1, feature=1, devices=[cuda]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert calls and all(dev == "cuda" for _, dev in calls)
+    for a, b in zip(got[0], want[0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(got[1][k], v) for k, v in want[1].items())
+    assert got[2] == want[2] == 3 * len(SIZES)
+
+
+def test_world_checkpoint_resume_across_two_worlds(cuda, tmp_path):
+    """``logical_workers=4`` on a world of one over ``nccl``: a 9-step epoch
+    checkpointed every 3 steps and preempted at step 3; the group torn
+    down; a second world of one (a new file store) builds a fresh trainer
+    and resumes with ``resume(mesh=trainer.mesh)``: its 6 remaining losses
+    and the final parameters bitwise the uninterrupted logical ``(1, 4)``
+    run's, under deterministic kernels."""
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from quiver_tpu_torch.resilience import FaultPlan, Preemption
+
+    from torch_world_worker import GRAPH
+
+    labels = torch.from_numpy(GRAPH[2].astype(np.int32)).to(cuda)
+    ckpt = str(tmp_path / "ckpt")
+
+    def elastic(mesh, **kw):
+        return _world_topo_trainer(mesh, cuda, logical_workers=4, **kw)
+
+    def matrix(trainer):
+        return trainer.pack_epoch(np.random.default_rng(9).integers(
+            0, 300, 9 * trainer.global_batch), seed=6)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = elastic(qt.make_mesh(data=1, feature=4, devices=[cuda] * 4))
+        full = ref.epoch_scan(matrix(ref), labels, 23)
+        final = dict(ref.model.state_dict())
+        init_distributed(f"file://{tmp_path / 'store1'}", 1, 0, device="cuda")
+        try:
+            first = elastic(qt.make_mesh(data=1, feature=1), checkpoint_dir=ckpt,
+                            checkpoint_every=3, fault_plan=FaultPlan(preempt_at_step=3))
+            with pytest.raises(Preemption):
+                first.epoch_scan(matrix(first), labels, 23)
+            first.checkpointer.close()
+        finally:
+            shutdown_distributed()
+        init_distributed(f"file://{tmp_path / 'store2'}", 1, 0, device="cuda")
+        try:
+            fresh = elastic(qt.make_mesh(data=1, feature=1), checkpoint_dir=ckpt,
+                            checkpoint_every=3)
+            _, _, key, step, epoch = fresh.resume(mesh=fresh.mesh)
+            tail = fresh.epoch_scan(matrix(fresh), labels, key, epoch=epoch, start_step=step)
+            fresh.checkpointer.close()
+        finally:
+            shutdown_distributed()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert step == 3 and torch.equal(tail, full[3:])
+    assert all(torch.equal(v, final[k]) for k, v in fresh.model.state_dict().items())

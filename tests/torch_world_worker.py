@@ -353,10 +353,12 @@ def case_dp(run):
         run.put_ref("dp", "res", 0, dp_record(logical(run.size, 1)))
 
 
-# -- (vi) what waits for A.11e (a2) --------------------------------------------------------
+# -- (vi) what A.11e (a2) ported, and what waits for A.11e (a3) ----------------------------
 
 
 def case_refusals(run, out_dir):
+    """Each option of the ten that A.11e (a1) left refused: what it raised
+    (``NotImplementedError``'s message), or ``"no raise"``."""
     ei, feat, _ = GRAPH
     mesh = qt.make_mesh(data=1, feature=run.size)
     topo = qt.CSRTopo(edge_index=ei)
@@ -378,11 +380,11 @@ def case_refusals(run, out_dir):
     attempt("controller", lambda: make_trainer(mesh, "all", 0,
                                                controller=CacheController()))
     attempt("auto_alpha", lambda: make_trainer(mesh, "all", 0, auto_alpha=True))
-    attempt("checkpoint_dir", lambda: make_trainer(
-        mesh, "all", 0, checkpoint_dir=os.path.join(out_dir, f"ckpt{run.rank}"),
-        checkpoint_every=1))
+    held = {}
+    attempt("checkpoint_dir", lambda: held.setdefault("ckpt", make_trainer(
+        mesh, "all", 0, checkpoint_dir=os.path.join(out_dir, "ckpt"), checkpoint_every=1)))
+    attempt("resume_mesh", lambda: held["ckpt"].resume(mesh=mesh))
     trainer = make_trainer(mesh, "all", 0)
-    attempt("resume_mesh", lambda: trainer.resume(mesh=mesh))
     store = trainer.feature
     attempt("replan", lambda: store.replan(mesh))
     attempt("repin", lambda: store.repin(np.arange(5)))
