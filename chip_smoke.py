@@ -422,6 +422,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    tail bitwise the uninterrupted logical ``(1, 4)`` run, exact launches;
    the same checkpoint resumed on the logical ``(1, 2)`` mesh, bitwise
    too.
+9o. the adaptive tuners over a world of processes (A.11e (a3)); every
+   check names itself on stderr first. A world of one rank over ``nccl``
+   (a file store under ``.smoke_scratch/``) beside the logical ``(1, 1)``
+   mesh, at phase 9h (d)'s configuration (the twin's width over an int8
+   ``auto_split`` store of 8M L1 and 4M L0 per device, the trainer's
+   ``replicate_budget`` starting L0 at half that ceiling,
+   ``CacheController(heat_bins=256, repin_min_gain=0)``, ``auto_alpha``
+   from ``routed_alpha=0.25``), ``"data"`` over the replicated sampler and
+   ``"all"`` over a topology-sharded one. Each form under deterministic
+   kernels: 3 + 10 steps (the split tuner moves the boundary), an 8-step
+   ``epoch_scan`` whose ``end_epoch``
+   repins, a ``StreamingGraph`` commit of row updates into every tier
+   (the trainer stale until ``refresh``, the fresh rows served) and the
+   next step: losses, alpha, the split, the store's version and order,
+   the overflow counts, tier hits, heat, the decision list and the
+   parameters bitwise the logical mesh's; exact K1 and K2 launches every
+   step and the epoch, in both forms; every collective on CUDA tensors;
+   one world step's K1 and K2 calls recorded where the sampler and the
+   store make them, each bitwise its plain version; steps/s of both forms
+   in turns.
 10. serve, observed and degraded, last so that the earlier phases run as
    before them; over phase 4's tiered store (612,500 hot rows): serving
    under telemetry, uniform and then weighted: the tracer, the registry
@@ -5539,57 +5559,82 @@ def step9g(what: str) -> None:
     log(f"phase 9g check: {what}")
 
 
+# the distributed samplers' owner-side K1 and K3 wrappers: (module, name)
+OWNER_WRAPPERS = (("quiver_tpu_torch.sampling.dist", "select"),
+                  ("quiver_tpu_torch.sampling.dist", "wselect"))
+
+
 @contextlib.contextmanager
-def owner_calls():
-    """Every owner-side K1 ``select`` and K3 ``wselect`` call of the
-    distributed samplers inside the block, with its arguments and outputs
-    (the wrappers still launch and count)."""
-    from quiver_tpu_torch.sampling import dist
+def owner_calls(wrappers=OWNER_WRAPPERS):
+    """Every call of the kernel wrappers ``wrappers`` ((module, name),
+    recorded where the path calls them; by default the distributed
+    samplers' owner-side K1 ``select`` and K3 ``wselect``) inside the
+    block, with its arguments and outputs (the wrappers still launch and
+    count)."""
+    import importlib
 
-    calls, orig = [], {"select": dist.select, "wselect": dist.wselect}
+    calls, orig = [], {}
 
-    def recording(name):
+    def recording(name, fn):
         def call(*args, **kwargs):
-            out = orig[name](*args, **kwargs)
+            out = fn(*args, **kwargs)
             calls.append((name, args, kwargs, out))
             return out
         return call
 
-    dist.select, dist.wselect = recording("select"), recording("wselect")
+    for mod, name in wrappers:
+        m = importlib.import_module(mod)
+        orig[mod, name] = getattr(m, name)
+        setattr(m, name, recording(name, orig[mod, name]))
     try:
         yield calls
     finally:
-        dist.select, dist.wselect = orig["select"], orig["wselect"]
+        for (mod, name), fn in orig.items():
+            setattr(importlib.import_module(mod), name, fn)
+
+
+def call_rows(calls, what: str, plain: dict) -> dict:
+    """Each recorded call against its plain version ``plain[name]`` on the
+    same arguments (bitwise); the check rows by wrapper name."""
+    import torch
+
+    rows = {}
+    for name, args, kwargs, out in calls:
+        want = plain[name](*args, **kwargs)
+        got, want = ((out,), (want,)) if isinstance(out, torch.Tensor) else (out, want)
+        ok = all(equal(g, w) for g, w in zip(got, want))
+        shape = list(got[0].shape)
+        check(ok, f"{what}: {name} {shape} == its plain version")
+        rows.setdefault(name, []).append({"case": f"{what}: {name} -> {shape}", "match": ok,
+                                          "max_abs_err": max_err(got, want)})
+    return rows
 
 
 def owner_call_rows(calls, what: str) -> tuple[list, dict]:
     """Each recorded owner-side call against its plain version on the same
-    arguments (bitwise), and the calls' bytes by SELECT_BOUND_RULE /
-    WSELECT_BOUND_RULE at their shapes (``F * cap`` rows, plus the
-    fallback's, by ``k``). Returns ``(check rows, bound)``."""
+    arguments (bitwise, :func:`call_rows`), and the calls' bytes by
+    SELECT_BOUND_RULE / WSELECT_BOUND_RULE at their shapes (``F * cap``
+    rows, plus the fallback's, by ``k``). Returns ``(check rows, bound)``."""
     from types import SimpleNamespace
 
     from quiver_tpu_torch.ops.kernels.fused import select_plain, wselect_plain
 
-    rows, nbytes, shapes = [], 0, []
+    nbytes, shapes = 0, []
     for name, args, kwargs, out in calls:
         if name == "select":
             tables, start, offs, count = args
-            want = select_plain(tables, start, offs, count)
             S, k = offs.shape
             nbytes += select_bytes(start, offs, count)[0]
         else:
             indices, cw, start, deg, u, iters = args
-            want = wselect_plain(*args, **kwargs)
             S, k = u.shape
             sec = wselect_sectors(SimpleNamespace(cum_weights=cw, search_iters=iters),
                                   start, deg, u, k, scale_u=kwargs.get("scale_u", True))
             nbytes += wselect_bytes(sec, S, k)[0]
-        ok = all(equal(g, w) for g, w in zip(out, want))
-        check(ok, f"{what}: owner-side {name} ({S} x {k}) == {name}_plain")
         shapes.append([S, k])
-        rows.append({"case": f"{what}: owner-side {name}, {S} x {k}", "match": ok,
-                     "max_abs_err": max_err(out, want)})
+    by_name = call_rows(calls, f"{what}: owner-side",
+                        {"select": select_plain, "wselect": wselect_plain})
+    rows = [row for name_rows in by_name.values() for row in name_rows]
     return rows, {"calls": len(calls), "shapes": shapes, "bound_bytes": nbytes,
                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
@@ -8069,6 +8114,267 @@ def world_topo_phase(card):
     return launches, rows, result
 
 
+# -- phase 9o: the adaptive tuners over a world of processes (one rank over nccl) --
+
+WORLD_CTL_MODES = (("data", "replicated"), ("all", "mesh"))
+WORLD_CTL_UPDATES = 64  # rows a commit updates in each tier
+# the trainer's starting L0: half the store's 4M ceiling of int8 rows, so
+# the split tuner has room to move the boundary
+WORLD_CTL_L0 = 16_384 * MULTI_F
+# the kernel wrappers of the path at their call sites: (module, name)
+PATH_WRAPPERS = (("quiver_tpu_torch.ops.sample", "uniform_hop"),
+                 ("quiver_tpu_torch.sampling.dist", "select"),
+                 ("quiver_tpu_torch.feature.shard", "gather_rows"),
+                 ("quiver_tpu_torch.feature.shard", "tiered_gather_dequant"))
+
+
+def step9o(what: str) -> None:
+    """Name a phase 9o check on stderr before it runs."""
+    log(f"phase 9o check: {what}")
+
+
+def world_ctl_launches(trainer, k1: str) -> dict:
+    """A step's K1 and K2 launches on a ``(1, 1)`` mesh from the store's
+    split after the step's tuner: 3 hops; the L0 and cold tiers one
+    dequantising launch each, the shard's codes one ``gather_rows`` and
+    their dequantisation one more."""
+    store = trainer.feature
+    tiers = int(store.rep_rows > 0) + int(store.cold is not None)
+    return {k1: len(MULTI_FANOUT), "gather_rows": 1, "tiered_gather_dequant": tiers + 1}
+
+
+def world_ctl_state(trainer) -> tuple:
+    """What the tuners decided and read after a step: alpha, the split,
+    the store's version and order, the overflow counts, the tier hits and
+    the heat histogram (on the card)."""
+    from quiver_tpu_torch.obs.registry import FEATURE_ROW_HEAT
+
+    store = trainer.feature
+    return (trainer.routed_alpha, store.rep_rows, store.version,
+            store.feature_order.clone(), trainer.last_routed_overflow.clone(),
+            trainer.last_sample_overflow.clone(), trainer.last_tier_hits.clone(),
+            trainer.metrics.value(FEATURE_ROW_HEAT).clone())
+
+
+def world_ctl_updates(store, rng):
+    """``WORLD_CTL_UPDATES`` node ids in each tier of ``store`` (L0, the L1
+    shard, the cold rows) and their new rows."""
+    import numpy as np
+
+    order = store.feature_order.cpu().numpy().astype(np.int64)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.shape[0])
+    end = store.rep_rows + store.hot_rows
+    t = np.concatenate([rng.choice(lo_hi[1] - lo_hi[0], WORLD_CTL_UPDATES, replace=False)
+                        + lo_hi[0] for lo_hi in ((0, store.rep_rows),
+                                                  (store.rep_rows, end),
+                                                  (end, order.shape[0])) if lo_hi[1] > lo_hi[0]])
+    return inv[t], rng.normal(size=(t.shape[0], MULTI_F)).astype(np.float32)
+
+
+def world_ctl_run(trainer, labels, k1: str) -> dict:
+    """The checked run of one form: 3 + 10 steps, one epoch_scan whose
+    ``end_epoch`` repins, a commit of row updates into every tier, the
+    trainer's ``refresh`` and the next step: each step's loss and tuner
+    state, the launches of each step (and of the epoch) against the split,
+    the decisions, the fresh rows and the parameters."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.streaming import DeltaBatch, StreamingGraph
+
+    store = trainer.feature
+    n, gb = trainer.sampler.csr_topo.node_count, trainer.global_batch
+    rng = np.random.default_rng(1)
+    out = {"losses": [], "states": [], "launches": [], "want": []}
+    for i in range(MULTI_WARMUP + MULTI_STEPS):
+        reset_launches()
+        out["losses"].append(trainer.step(rng.integers(0, n, gb), labels, 10 + i))
+        sync()
+        out["launches"].append(read_launches())
+        out["want"].append(world_ctl_launches(trainer, k1))
+        out["states"].append(world_ctl_state(trainer))
+    mat = trainer.pack_epoch(rng.integers(0, n, CTL_EPOCH_STEPS * gb), seed=3)
+    reset_launches()
+    out["epoch"] = trainer.epoch_scan(mat, labels, 21)
+    sync()
+    out["launches"].append(read_launches())
+    out["want"].append({k: v * CTL_EPOCH_STEPS
+                        for k, v in world_ctl_launches(trainer, k1).items()})
+    out["states"].append(world_ctl_state(trainer))
+    out["repinned"] = trainer._bound_versions == trainer._current_versions()
+    ids, rows = world_ctl_updates(store, np.random.default_rng(2))
+    graph = StreamingGraph(trainer.sampler.csr_topo, feature=store)
+    check(graph.ingest(DeltaBatch(update_ids=ids, update_rows=rows)), "the update batch")
+    result = graph.commit()
+    out["stale"] = trainer._bound_versions != trainer._current_versions()
+    trainer.refresh()
+    out["fresh"] = equal(store.gather(torch.from_numpy(ids).to("cuda")),
+                         torch.from_numpy(int8_rows(rows, np.arange(ids.shape[0]))).to("cuda"))
+    out["commit"] = (result.rows_updated, store.version)
+    reset_launches()
+    out["losses"].append(trainer.step(rng.integers(0, n, gb), labels, 4000))
+    sync()
+    out["launches"].append(read_launches())
+    out["want"].append(world_ctl_launches(trainer, k1))
+    out["states"].append(world_ctl_state(trainer))
+    out["decisions"] = list(trainer.controller.decisions)
+    out["params"] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    return out
+
+
+def world_ctl_mode(topo, x, labels, meshes, seed_sharding, topo_sharding, card):
+    """One mode on the world ``(1, 1)`` mesh and the logical one (see the
+    module docstring). Returns ``(the world run's launches, check rows by
+    wrapper, result)``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import CacheController, ShardedFeature
+    from quiver_tpu_torch.ops.kernels.fused import select_plain, uniform_hop_plain
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows_plain, tiered_gather_plain
+    from quiver_tpu_torch.parallel import world
+
+    def trainer_on(mesh):
+        store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
+                               replicate_budget=MULTI_L0, dtype="int8", auto_split=True,
+                               kernel="pallas").from_cpu_tensor(x)
+        ctl = CacheController(heat_bins=CTL_HEAT_BINS, repin_min_gain=0.0)
+        return control_trainer(topo, store, seed_sharding, topo_sharding,
+                                routed_alpha=CTL_ALPHA0, auto_alpha=True, controller=ctl,
+                                replicate_budget=WORLD_CTL_L0)
+
+    wmesh, lmesh = meshes
+    what = f"{seed_sharding}, {topo_sharding} topology"
+    k1 = "select" if topo_sharding == "mesh" else "uniform_hop"
+    runs, calls = {}, None
+    with deterministic_algorithms():
+        trainers = {"world": trainer_on(wmesh), "logical": trainer_on(lmesh)}
+        for form, trainer in trainers.items():
+            world.reset_calls()
+            runs[form] = world_ctl_run(trainer, labels, k1)
+            if form == "world":
+                calls = dict(world.CALLS)
+    w, lg = runs["world"], runs["logical"]
+    step9o(f"{what}: 3 + 10 steps, the epoch, the commit and the next step bitwise the "
+           "logical (1, 1) mesh's: losses, alpha, split, version, order, overflow, tier "
+           "hits, heat, decisions and parameters (deterministic kernels)")
+    check(all(equal(a, b) for a, b in zip(w["losses"], lg["losses"]))
+          and equal(w["epoch"], lg["epoch"])
+          and all(same_state(a, b) for a, b in zip(w["states"], lg["states"]))
+          and w["decisions"] == lg["decisions"] and w["commit"] == lg["commit"]
+          and all(equal(w["params"][k], v) for k, v in lg["params"].items()),
+          f"world controlled trainer ({what}) == the logical mesh's")
+    kinds = [d["decision"] for d in w["decisions"]]
+    splits = [s[1] for s in w["states"]]
+    step9o(f"{what}: the split tuner moved the L0/L1 boundary from its start below the "
+           "ceiling (the world resplit re-placed the rank's L0 and L1)")
+    check("split" in kinds and splits[0] * MULTI_F <= WORLD_CTL_L0 and len(set(splits)) > 1,
+          f"world controlled trainer ({what}): L0 rows {splits}, decisions {kinds}")
+    step9o(f"{what}: the epoch's end repinned (the trainer refreshed), the commit published "
+           "fresh rows in every tier, a stale trainer until refresh()")
+    check(w["repinned"] and "repin" in kinds and w["states"][-2][2] == 1 and w["stale"]
+          and w["fresh"] and w["commit"] == (3 * WORLD_CTL_UPDATES, 2),
+          f"world controlled trainer ({what}): decisions {kinds}, commit {w['commit']}")
+    if seed_sharding == "all":
+        step9o(f"{what}: alpha grew after overflowing steps")
+        check("alpha" in kinds and w["states"][-1][0] > CTL_ALPHA0,
+              f"{what}: alphas {[s[0] for s in w['states']]}")
+    step9o(f"{what}: exact K1 and K2 launches every step and the epoch, in both forms")
+    for i, (got, want) in enumerate(zip(w["launches"], w["want"])):
+        expect_launches(got, want, f"world controlled trainer ({what}) part {i}")
+    check(w["launches"] == lg["launches"], f"{what}: the logical form launched "
+          f"{lg['launches']}")
+    step9o(f"{what}: every collective ran on CUDA tensors")
+    check(calls and all(dev == "cuda" for _, dev in calls)
+          and calls.get(("all_reduce", "cuda"), 0) > 0,
+          f"world controlled trainer ({what}): collectives {calls}")
+    trainer = trainers["world"]
+    with owner_calls(PATH_WRAPPERS) as recorded:
+        trainer.step(np.random.default_rng(9).integers(0, topo.node_count,
+                                                       trainer.global_batch), labels, 5000)
+        sync()
+    step9o(f"{what}: one world step's K1 and K2 calls bitwise their plain versions")
+    rows = call_rows(recorded, f"world controlled trainer ({what}) step",
+                     {"uniform_hop": uniform_hop_plain, "select": select_plain,
+                      "gather_rows": gather_rows_plain,
+                      "tiered_gather_dequant": tiered_gather_plain})
+    want = world_ctl_launches(trainer, k1)
+    check({k: len(v) for k, v in rows.items()} == want,
+          f"{what}: recorded calls {[c[0] for c in recorded]}")
+    del recorded
+    timing = timed_turns(
+        lambda: world_steps(trainers["world"], labels, WORLD_TIMED, 200),
+        lambda: world_steps(trainers["logical"], labels, WORLD_TIMED, 200))
+    losses = [float(v) for v in w["losses"]]
+    check(all(math.isfinite(v) for v in losses), f"{what}: finite losses")
+    total = {}
+    for got in w["launches"]:
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    per_step = {prim: n for (prim, _), n in calls.items()}
+    r = {"seed_sharding": seed_sharding, "topology": topo_sharding,
+         "alphas": [s[0] for s in w["states"]], "rep_rows": [s[1] for s in w["states"]],
+         "decisions": kinds, "loss_first_last": [losses[0], losses[-1]],
+         "epoch_losses_first_last": [float(w["epoch"][0]), float(w["epoch"][-1])],
+         "commit_rows": w["commit"][0], "launches": total,
+         "collectives_in_checked_run": per_step,
+         "checked_steps": MULTI_WARMUP + MULTI_STEPS + CTL_EPOCH_STEPS + 1, **timing}
+    log(f"world controlled trainer ({what}): world {timing['world_steps_per_s']:.4g} "
+        f"steps/s, logical {timing['logical_steps_per_s']:.4g} steps/s (in turns), alphas "
+        f"{r['alphas']}, L0 rows {r['rep_rows']}, decisions {kinds} [{card}]")
+    for t in trainers.values():
+        t.feature.delete()
+    torch.cuda.empty_cache()
+    return total, rows, r
+
+
+def world_control_phase(card):
+    """Phase 9o (see the module docstring). Returns ``(launches by mode,
+    check rows by wrapper, result)``."""
+    import torch
+
+    from quiver_tpu_torch import make_mesh
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+
+    t0 = time.time()
+    topo, x, labels = multichip_setup()
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    launches, modes = {}, {}
+    rows = {"uniform_hop": [], "select": [], "gather_rows": [], "tiered_gather_dequant": []}
+    try:
+        step9o("init_distributed over nccl, a world of one through a file store")
+        init_distributed(f"file://{os.path.join(SCRATCH, 'world_store')}", 1, 0, device="cuda")
+        wmesh = make_mesh(data=1, feature=1)
+        check(type(wmesh).__name__ == "WorldMesh" and torch.distributed.get_backend() == "nccl",
+              f"world mesh {wmesh!r}")
+        meshes = (wmesh, logical_mesh(1, 1))
+        for seed_sharding, topo_sharding in WORLD_CTL_MODES:
+            launches[seed_sharding], r_rows, modes[seed_sharding] = world_ctl_mode(
+                topo, x, labels, meshes, seed_sharding, topo_sharding, card)
+            for k, v in r_rows.items():
+                rows[k] += v
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    del x
+    result = {"modes": modes, "card": card,
+              "config": "examples/train_multichip.py defaults (100,000 nodes, degree 25, "
+                        "F = 128, GraphSAGE 256 x 3, [15, 10, 5] x 256, Adam 1e-3, the "
+                        "worst-case caps) over an int8 auto_split ShardedFeature of 8M L1 and "
+                        "4M L0 per device with CacheController(heat_bins=256, "
+                        "repin_min_gain=0) and auto_alpha=True from routed_alpha=0.25; "
+                        "'data' over the replicated sampler, 'all' over a topology-sharded "
+                        "one; a world of one rank over nccl (file store) against the logical "
+                        "(1, 1) mesh of cuda:0",
+              "seconds": time.time() - t0}
+    log(f"phase 9o {result['seconds']:.1f}s [{card}]")
+    return launches, rows, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8395,6 +8701,12 @@ def main() -> int:
     launches_n, rows_n, world_topo = world_topo_phase(card)
     torch.cuda.empty_cache()
     lap("phase 9n (topology-sharded world, checkpoints, elastic resume)")
+    # phase 9o: the controller, auto_alpha, the split tuner, the epoch's
+    # repin and a commit of row updates over a world of one process (nccl)
+    # against the logical (1, 1) mesh, both seed shardings
+    launches_ctl, rows_ctl, world_ctl = world_control_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9o (the adaptive tuners over a world)")
     # last, so that the earlier phases run as they did before them: serving
     # under telemetry (tracer, registry, recorder on against off), its
     # device idle share, and degraded serving through an outage, all over
@@ -8420,7 +8732,8 @@ def main() -> int:
         kernel_row("select", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    samp_t["launches"]["select"],
                    "temporal sampler (and the offs/draw_fn seams)",
-                   sel + rows_h["select"] + rows_g["select"] + rows_n["select"], t_sel,
+                   sel + rows_h["select"] + rows_g["select"] + rows_n["select"]
+                   + rows_ctl["select"], t_sel,
                    {"stock_ms": t_sel["stock_ms"], "ratio_to_stock": t_sel["ratio_to_stock"],
                     "dist_sample_launches": {k: launches_g["sample"][k]["select"]
                                              for k in ("uniform", "temporal")},
@@ -8432,6 +8745,7 @@ def main() -> int:
                     "world_topo_trainer_launches": launches_n["uniform"]["select"],
                     "world_hetero_launches": launches_n["hetero"]["uniform"]["select"],
                     "world_elastic_launches": launches_n["elastic"]["select"],
+                    "world_control_trainer_launches": launches_ctl["all"]["select"],
                     "owner_side": {
                         **{k: {"device_ms_per_sample": dist["samplers"][k][
                             "select_device_ms_per_sample"],
@@ -8445,7 +8759,8 @@ def main() -> int:
                    card, name),
         kernel_row("uniform_hop", "quiver_tpu_torch/ops/kernels/select.cu", k1,
                    launches_u["uniform_hop"], "uniform serving",
-                   hop + rows_h["uniform_hop"] + k1_rows_o + k1_rows_f + k1_rows_s, t_hop,
+                   hop + rows_h["uniform_hop"] + k1_rows_o + k1_rows_f + k1_rows_s
+                   + rows_ctl["uniform_hop"], t_hop,
                    {"composed_ms": t_hop["composed_ms"],
                     "speedup_over_composed": t_hop["speedup_over_composed"],
                     "shape": t_hop["shape"] + [t_hop["k"]], "bound_rule": HOP_BOUND_RULE,
@@ -8470,6 +8785,7 @@ def main() -> int:
                                                for k, v in launches_m.items()},
                     "int8_controller_trainer_launches": launches_c["trainer"]["data"][
                         "uniform_hop"],
+                    "world_control_trainer_launches": launches_ctl["data"]["uniform_hop"],
                     "ooc_epoch_launches": launches_j["uniform_hop"],
                     "beyond_hbm": {
                         "launches": {k: v["uniform_hop"] for k, v in launches_o.items()},
@@ -8481,7 +8797,8 @@ def main() -> int:
         kernel_row("gather_rows", "quiver_tpu_torch/ops/kernels/gather.cu", k2,
                    launches_h["saint"]["gather_rows"],
                    "GraphSAINT samplers (each draw's (budget, deg_cap) window; the "
-                   "edge sampler's endpoints)", gat + win_checks + k2_rows_s, t_win,
+                   "edge sampler's endpoints)", gat + win_checks + k2_rows_s
+                   + rows_ctl["gather_rows"], t_win,
                    {"shape": [t_win["ids"], t_win["row_bytes"]],
                     "sharded_trainer_launches": {
                         mode: v["gather_rows"] for mode, v in launches_s.items()},
@@ -8494,6 +8811,8 @@ def main() -> int:
                     "elastic_trainer_launches": {m: v["gather_rows"]
                                                  for m, v in launches_e.items()},
                     "stream_launches": {k: v["gather_rows"] for k, v in launches_k.items()},
+                    "world_control_trainer_launches": {
+                        k: v["gather_rows"] for k, v in launches_ctl.items()},
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
@@ -8534,7 +8853,7 @@ def main() -> int:
                    launches_qa["tiered_gather_dequant"],
                    "int8 training (a) (also int8 training (b), int8 serving and every int8 "
                    "tier of the sharded store)",
-                   deq + rows_c, t_q,
+                   deq + rows_c + rows_ctl["tiered_gather_dequant"], t_q,
                    {"yardstick": t_q["yardstick"], "yard_ms": t_q["yard_ms"],
                     "ratio_to_yard": t_q["ratio_to_yard"],
                     "shape": [t_q["ids"], t_q["stored_row_bytes"]],
@@ -8551,6 +8870,8 @@ def main() -> int:
                         for mode, v in launches_c["trainer"].items()},
                     "world_int8_trainer_launches": launches_m["psum int8"][
                         "tiered_gather_dequant"],
+                    "world_control_trainer_launches": {
+                        k: v["tiered_gather_dequant"] for k, v in launches_ctl.items()},
                     "sharded_int8_lookup": {mesh: r["timing"] for mesh, r in
                                             control["int8_store"]["meshes"].items()},
                     "library": "none: no single PyTorch call dequantises a "
@@ -8617,7 +8938,13 @@ def main() -> int:
                                         ("select", launches_n["hetero"]["uniform"]),
                                         ("wselect", launches_n["hetero"]["weighted"]),
                                         ("select", launches_n["elastic"]),
-                                        ("gather_rows", launches_n["uniform"]))),
+                                        ("gather_rows", launches_n["uniform"]),
+                                        ("uniform_hop", launches_ctl["data"]),
+                                        ("select", launches_ctl["all"]),
+                                        ("gather_rows", launches_ctl["data"]),
+                                        ("gather_rows", launches_ctl["all"]),
+                                        ("tiered_gather_dequant", launches_ctl["data"]),
+                                        ("tiered_gather_dequant", launches_ctl["all"]))),
           "every kernel launched on its main path and every entry matched")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -8633,7 +8960,8 @@ def main() -> int:
                        "beyond_hbm": offload, "fused_trainer": fused,
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
-                       "world": world_res, "world_topo": world_topo, "lint": lint_row,
+                       "world": world_res, "world_topo": world_topo,
+                       "world_control": world_ctl, "lint": lint_row,
                        "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
@@ -8677,6 +9005,7 @@ def main() -> int:
     print(json.dumps({"stream": stream}), flush=True)
     print(json.dumps({"world": world_res}), flush=True)
     print(json.dumps({"world_topo": world_topo}), flush=True)
+    print(json.dumps({"world_control": world_ctl}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

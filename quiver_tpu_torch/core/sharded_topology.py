@@ -164,6 +164,8 @@ class ShardedTopology:
                 "with_times=True requires edge timestamps; call "
                 "csr_topo.set_edge_time() or pass edge_time= to CSRTopo"
             )
+        if is_world(mesh):
+            csr_topo._world_mesh = mesh
         F = int(mesh.shape[axis])
         indptr = np.asarray(csr_topo.indptr, dtype=np.int64)
         indices = np.asarray(csr_topo.indices)

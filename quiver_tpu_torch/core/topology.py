@@ -166,6 +166,9 @@ class CSRTopo:
         # committed mutation version; device placements record the version
         # they were built from and raise VersionMismatchError once it moves
         self._version = 0
+        # the WorldMesh a ShardedTopology placed this CSR's shards on (one
+        # process per slot): a StreamingGraph commit votes over it
+        self._world_mesh = None
         if edge_weight is not None:
             self.set_edge_weight(edge_weight, coo_order=edge_index is not None)
         if edge_time is not None:

@@ -57,8 +57,15 @@ is its ``local_gather`` followed by the ordered sum over its feature group
 flavour a world ``BucketRoute`` over the group, and the answers are bitwise
 the logical mesh's. ``replan`` onto another world shape gathers the device
 region over the old feature group (``world.all_gather``) and places the
-rank's new parts. ``repin``, ``apply_row_updates`` and the split tuner are
-not ported to a world mesh (ROADMAP A.11e (a3)) and raise.
+rank's new parts. ``repin`` and ``apply_row_updates`` build the new order,
+scales and rows on every rank from the same inputs (the device region is
+the retained host copy, or gathered over the feature group, so every rank
+of the group enters them together), and each rank places its own parts.
+The split tuner reads tier hits that are the same on every rank: a
+trainer's are summed over the world, and a standalone ``gather`` on a
+world mesh takes the same global id vector on every rank (the psum form's
+contract), whose hits each rank counts whole. Every rank then moves the
+same boundary.
 """
 
 from __future__ import annotations
@@ -85,12 +92,6 @@ from .feature import (KernelChoice, _numpy_rows, _parse_storage_dtype,
                       quantize_rows_int8, tiered_lookup, validate_gather_kernel)
 
 __all__ = ["ShardedTensor", "ShardedFeature"]
-
-
-def _world_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on a world mesh (one process per slot) is not ported yet "
-        "(ROADMAP A.11e (a3)); run it on a logical mesh")
 
 
 def _host_table(tensor) -> torch.Tensor:
@@ -783,9 +784,8 @@ class ShardedFeature(KernelChoice):
         the move, so every lookup returns the same rows bitwise. Duplicate
         ids keep their first occurrence; ids past the device rows are
         ignored. Bumps ``version``: a trainer must ``refresh()``
-        (:class:`~..control.CacheController` does it for its trainer)."""
-        if is_world(self.mesh):
-            raise _world_refusal("ShardedFeature.repin")
+        (:class:`~..control.CacheController` does it for its trainer).
+        On a world mesh every rank calls it with the same ``rows``."""
         if self.shape is None:
             raise ValueError("repin() before from_cpu_tensor()")
         n, _f = self.shape
@@ -857,9 +857,8 @@ class ShardedFeature(KernelChoice):
         rejected update (a shape mismatch, ids out of range, duplicate
         ids, non-finite rows) raises ``ValueError`` and leaves the store
         bitwise as it was. int8 stores quantise the new rows and patch
-        their scales in the same transaction."""
-        if is_world(self.mesh):
-            raise _world_refusal("ShardedFeature.apply_row_updates")
+        their scales in the same transaction. On a world mesh every rank
+        calls it with the same ``ids`` and ``rows``."""
         if self.shape is None:
             raise ValueError("apply_row_updates() before from_cpu_tensor()")
         n, f = self.shape
@@ -978,8 +977,6 @@ class ShardedFeature(KernelChoice):
         its copies, doubles it (up to the ceiling) when the hit mass sits
         just past the boundary, and waits for a reversal to repeat before
         it turns. Reads the previous batch's hits on the host."""
-        if is_world(self.mesh) and (self.auto_split or self._controller is not None):
-            raise _world_refusal("the split tuner (auto_split=True or a controller)")
         hits = self.last_tier_hits
         if hits is None or self._region_host is None:
             return
@@ -1065,7 +1062,10 @@ class ShardedFeature(KernelChoice):
         ``routed_cap`` as there). With ``auto_split=True`` or a controller
         attached, the split tuner reads the previous call's hits first.
         After the call ``last_tier_hits`` holds its per-tier hits and
-        ``last_routed_overflow`` the routed overflow."""
+        ``last_routed_overflow`` the routed overflow. On a world mesh every
+        rank passes the same global ``n_id`` (the psum form's contract), so
+        every rank counts the same hits and the tuner moves the same
+        boundary."""
         if self.auto_split or self._controller is not None:
             self._maybe_auto_split()
         n_id = torch.as_tensor(n_id, device=self.device).reshape(-1)

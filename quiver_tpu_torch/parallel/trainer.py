@@ -127,13 +127,6 @@ def _one_device(mesh: Mesh) -> torch.device:
     return devices.pop()
 
 
-def _a3_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on a world mesh (one process per slot) is not ported yet "
-        "(ROADMAP A.11e (a3)); use a logical mesh for it"
-    )
-
-
 def _flat_by_dtype(tensors) -> tuple[list, list]:
     """``(index lists, one flat buffer per dtype)`` of ``tensors``: the
     collectives of a gradient move one buffer per dtype."""
@@ -283,12 +276,15 @@ class DistributedTrainer:
     the world, :func:`~..resilience.worker_ordered_mean`), so the step is
     bitwise the logical mesh's of the same shape. With ``checkpoint_dir=``
     rank 0 alone writes; every rank reads the same directory (see
-    :meth:`resume`).
+    :meth:`resume`). The controller and ``auto_alpha`` run on every rank
+    and decide from world-identical inputs: the global seeds (every rank
+    packs the whole array), the row heat, the tier hits and the overflow
+    counts, each summed over the world before a rank reads it. So every
+    rank moves the same boundary, picks the same alpha and repins the same
+    rows, and the shapes of the next collectives agree.
 
     Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
-    item): a logical mesh over more than one distinct device (A.11e (b));
-    on a world mesh, ``controller=`` and ``auto_alpha=True`` (A.11e
-    (a3)).
+    item): a logical mesh over more than one distinct device (A.11e (b)).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -356,11 +352,6 @@ class DistributedTrainer:
         self.auto_alpha = bool(auto_alpha)
         device = _one_device(mesh)
         self.world = is_world(mesh)
-        if self.world:
-            for what, given in (("controller=", controller is not None),
-                                ("auto_alpha=True", self.auto_alpha)):
-                if given:
-                    raise _a3_refusal(f"DistributedTrainer({what})")
         # a topo_sharding="mesh" sampler routes each hop over the feature
         # axis, so every mesh slot must be a worker over its own block
         # ("data" would route a feature group's one frontier F times)
@@ -881,7 +872,8 @@ class DistributedTrainer:
                 for w, b in zip(self._held, issued.blocks)]
         if self.world:
             return self._world_update(outs, [b.tier_hits for b in issued.blocks],
-                                      issued.routed_overflow, issued.sample_overflow)
+                                      issued.routed_overflow, issued.sample_overflow,
+                                      [b.heat for b in issued.blocks])
         return self._update(outs, [b.tier_hits for b in issued.blocks],
                             issued.routed_overflow, issued.sample_overflow,
                             [b.heat for b in issued.blocks])
@@ -955,7 +947,7 @@ class DistributedTrainer:
             self.optimizer.step()
         return loss, mtree
 
-    def _world_update(self, outs, hits, routed_overflow, sample_overflow=None):
+    def _world_update(self, outs, hits, routed_overflow, sample_overflow=None, heat=None):
         """:meth:`_update` on a world mesh, for the rank's workers: the
         same sums over the rank's process groups, in the same order and
         with the same marks. The gradients and the loss are summed over the
@@ -964,7 +956,10 @@ class DistributedTrainer:
         order; in elastic mode each rank's blocks are gathered over the
         world into the logical-worker stack of
         :func:`~..resilience.worker_ordered_mean`. The metrics are integer
-        sums; the guard's count is summed over the whole world."""
+        sums, each the world's total on every rank (the overflows' per
+        group sums over the data group, the tier hits and the row heat over
+        the workers' group), so the tuners that read them decide the same
+        on every rank; the guard's count is summed over the whole world."""
         losses = [o[0] for o in outs]
         mesh = self.mesh
         axes = (DATA_AXIS, FEATURE_AXIS) if self.seed_sharding == "all" else (DATA_AXIS,)
@@ -998,6 +993,9 @@ class DistributedTrainer:
                                   if sample_overflow is None else
                                   world.int_sum(sample_overflow, data, (DATA_AXIS,))),
             }
+            if self._heat_bins:
+                mtree[FEATURE_ROW_HEAT] = world.int_sum(
+                    torch.stack(heat).sum(0, dtype=torch.int32), group, axes)
         if self.nonfinite_guard:
             ok, bad = guard_verdict(losses, [g for _, g in outs], (DATA_AXIS, FEATURE_AXIS),
                                     mesh=mesh)

@@ -86,13 +86,16 @@ def ordered_sum(x, group, axes, shape=None, mark: bool = True):
     return out
 
 
-def int_sum(x, group, axes):
+def int_sum(x, group, axes, mark: bool = True):
     """The members' integer ``x`` summed (JAX's ``psum`` over ``axes``):
-    one ``all_reduce``, exact in any order."""
+    one ``all_reduce``, exact in any order. ``mark=False`` as in
+    :func:`all_gather` (a streaming commit's abort vote, which the logical
+    form does not need)."""
     CALLS["all_reduce", x.device.type] += 1
     out = x.clone()
     torch.distributed.all_reduce(out, group=group.group)
-    collective("psum", axes, out)
+    if mark:
+        collective("psum", axes, out)
     return out
 
 

@@ -25,7 +25,13 @@ steps:
 Any failure before publish aborts the whole transaction: the staged
 batches are quarantined with the reason (``streaming.deltas_quarantined``),
 the committed state is untouched, and :class:`CommitAborted` propagates.
-``commit(inject_failure=)`` forces that path at a named stage.
+``commit(inject_failure=)`` forces that path at a named stage. With a
+store on a world mesh (one process per slot), or a topology whose shards
+a ``ShardedTopology`` placed on one, every rank stages the same batches
+and commits together: between the build-aside and the publish the ranks
+count their failures over the world (one integer ``all_reduce``), and a
+failure on any one rank, of whatever kind, aborts every rank, so all
+publish or none does.
 
 Admission reads the live-edge multiset only at the pairs a batch's
 deletes name (:meth:`StreamingGraph._live_pair_counts`), counted from
@@ -39,6 +45,7 @@ import dataclasses
 import zlib
 
 import numpy as np
+import torch
 
 from ..core.topology import CSRTopo, VersionMismatchError
 from ..obs.registry import (
@@ -47,7 +54,8 @@ from ..obs.registry import (
     STREAMING_COMMITS,
     MetricsRegistry,
 )
-from ..parallel.mesh import is_world
+from ..parallel import world
+from ..parallel.mesh import current_world, is_world
 from ..utils.trace import get_logger
 from .delta import (DeltaBatch, DeltaRejected, _as_edge_array, encode_pairs,
                     validate_delta)
@@ -286,6 +294,9 @@ def verify_merged_csr(old_indptr, old_indices, new_indptr, new_indices,
 
 
 _FAIL_STAGES = ("merge", "verify", "features")
+# the build-aside failures that reject the staged batches (CommitAborted);
+# any other error propagates as it is
+_REJECTIONS = (DeltaRejected, ValueError, VersionMismatchError)
 
 
 class StreamingGraph:
@@ -453,6 +464,28 @@ class StreamingGraph:
 
     # -- commit -------------------------------------------------------------
 
+    def _world(self):
+        """The world mesh this commit votes over: the attached store's,
+        else, with no store on a mesh, the one whose ranks hold the
+        committed CSR's shards while that world is up (None: no world)."""
+        mesh = getattr(self.feature, "mesh", None)
+        if mesh is None:
+            mesh = self.csr_topo._world_mesh
+            if mesh is not current_world():
+                return None
+        return mesh if is_world(mesh) else None
+
+    def _world_aborts(self, aborted: bool) -> int:
+        """The ranks that abort this commit, summed over :meth:`_world`
+        (one ``int_sum`` on the rank's device; every rank enters it); 0 or
+        1 with no world."""
+        mesh = self._world()
+        if mesh is None:
+            return int(aborted)
+        axes = mesh.axis_names
+        flag = torch.full((), int(aborted), dtype=torch.int32, device=mesh.device)
+        return int(world.int_sum(flag, mesh.group(axes), axes, mark=False))
+
     def _collapse_updates(self):
         """Fold the staged row updates into one last-wins ``(ids, rows)``
         pair in first-touch order: what applying the batches one after
@@ -485,11 +518,16 @@ class StreamingGraph:
         ``"verify"`` or ``"features"``: a crash at any point before
         publish, after which the old version is intact.
 
-        Row updates into a store on a world mesh (one process per slot)
-        are not ported yet (ROADMAP A.11e (a3)): such a commit raises
-        ``NotImplementedError`` before anything is published, the batches
-        still staged. A topology-only commit runs, and each rank's
-        sampler re-places its own shard at its ``refresh``.
+        With a store on a world mesh (one process per slot), or with no
+        store on a mesh and the CSR's shards placed on a world, every rank
+        commits the same staged batches at once. After the build-aside the
+        ranks sum their failure flags over the world, whatever the error;
+        a failure on any rank aborts every rank (each quarantines its
+        batches; a rank whose error was no rejection raises it as it is,
+        the others :class:`CommitAborted`), else every rank publishes: the
+        topology, the row updates into its own parts of the store, the
+        degree feed. Each rank's sampler re-places its own shard at its
+        ``refresh``.
         """
         if inject_failure is not None and inject_failure not in _FAIL_STAGES:
             raise ValueError(
@@ -498,13 +536,9 @@ class StreamingGraph:
             )
         if not self._staged:
             return None
-        if (self.feature is not None and is_world(getattr(self.feature, "mesh", None))
-                and any(d.update_ids is not None for d in self._staged)):
-            raise NotImplementedError(
-                "row updates into a store on a world mesh (one process per slot) are "
-                "not ported yet (ROADMAP A.11e (a3)); nothing was published")
         staged = tuple(self._staged)
         topo = self.csr_topo
+        failure = None
         try:
             ins_parts = [d.edge_inserts for d in staged
                          if d.edge_inserts is not None
@@ -570,14 +604,25 @@ class StreamingGraph:
                     "injected commit failure at stage 'features' "
                     "(chaos seam)"
                 )
-        except (DeltaRejected, ValueError, VersionMismatchError) as e:
-            self._staged.clear()
-            self._quarantine("commit", str(e), staged)
+        except Exception as e:  # every rank votes whatever failed
+            failure = e
+        aborts = self._world_aborts(failure is not None)
+        if failure is None and aborts:
+            failure = DeltaRejected(
+                f"{aborts} other rank(s) of the world aborted this commit")
+        if failure is not None:
+            rejected = isinstance(failure, _REJECTIONS)
+            if rejected or self._world() is not None:
+                # on a world every rank drops the batches, whatever failed
+                self._staged.clear()
+                self._quarantine("commit", str(failure), staged)
+            if not rejected:
+                raise failure
             raise CommitAborted(
                 f"commit of {len(staged)} staged batch(es) aborted before "
-                f"publish: {e} (pre-commit state intact; batches "
+                f"publish: {failure} (pre-commit state intact; batches "
                 f"quarantined)"
-            ) from e
+            ) from failure
         # ---- publish: everything above is verified and aside ----
         if topo_changed:
             topo._publish_mutation(

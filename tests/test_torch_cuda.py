@@ -1876,3 +1876,93 @@ def test_world_checkpoint_resume_across_two_worlds(cuda, tmp_path):
         torch.use_deterministic_algorithms(False)
     assert step == 3 and torch.equal(tail, full[3:])
     assert all(torch.equal(v, final[k]) for k, v in fresh.model.state_dict().items())
+
+
+@pytest.mark.parametrize("seed_sharding,topo_sharding", [("data", "replicated"),
+                                                         ("all", "mesh")])
+def test_world_of_one_tuners_equal_logical(cuda, tmp_path, seed_sharding, topo_sharding):
+    """A world of one rank over ``nccl`` with the tuners on: ``auto_alpha``
+    from 0.05, ``CacheController(heat_bins=16, repin_min_gain=0)`` and an
+    int8 ``auto_split`` store re-split to 15 L0 rows; 3 steps, a 3-step
+    ``epoch_scan`` whose end repins, a commit of row updates in every tier,
+    ``refresh`` and one more step, bitwise the logical ``(1, 1)`` mesh's on
+    the card under deterministic kernels (losses, alpha, the split, the
+    order, the version, the decision list, the fresh rows and the
+    parameters), every collective on CUDA tensors; the split tuner moved
+    the boundary."""
+    import torch.distributed as dist
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    import quiver_tpu_torch as qt
+    from quiver_tpu_torch.models.sage import GraphSAGE
+    from quiver_tpu_torch.parallel import world
+    from quiver_tpu_torch.parallel.mesh import init_distributed, shutdown_distributed
+    from quiver_tpu_torch.streaming import DeltaBatch, StreamingGraph
+
+    from torch_world_worker import GRAPH, LOCAL, SIZES, STORES
+
+    ei, feat, labels = GRAPH
+    labels = torch.from_numpy(labels.astype(np.int32)).to(cuda)
+
+    def run(mesh):
+        topo = qt.CSRTopo(edge_index=ei)
+        store = qt.ShardedFeature(mesh, csr_topo=topo, routed_alpha=0.05, dtype="int8",
+                                  kernel="pallas", auto_split=True,
+                                  **STORES["int8"]).from_cpu_tensor(feat)
+        where = ({"device": cuda} if topo_sharding == "replicated" else
+                 {"topo_sharding": "mesh", "mesh": mesh, "routed_alpha": 0.05})
+        sampler = qt.GraphSageSampler(topo, list(SIZES), seed_capacity=LOCAL, seed=9,
+                                      kernel="pallas", **where)
+        model = GraphSAGE(4, 16, 4, num_layers=2).to(cuda)
+        trainer = qt.DistributedTrainer(
+            mesh, sampler, store, model, torch.optim.Adam(model.parameters(), lr=5e-3),
+            local_batch=LOCAL, seed_sharding=seed_sharding, routed_alpha=0.05,
+            auto_alpha=True, replicate_budget=15 * 4,
+            controller=qt.CacheController(heat_bins=16, repin_min_gain=0.0))
+        trainer.init(0)
+        rng = np.random.default_rng(3)
+        losses, states = [], []
+        for t in range(3):
+            losses.append(trainer.step(rng.integers(0, 300, trainer.global_batch), labels, 5 + t))
+            states.append((trainer.routed_alpha, store.rep_rows, store.version))
+        mat = trainer.pack_epoch(rng.integers(0, 300, 3 * trainer.global_batch), seed=2)
+        losses.append(trainer.epoch_scan(mat, labels, 11))
+        states.append((trainer.routed_alpha, store.rep_rows, store.version))
+        order = store.feature_order.clone()
+        graph = StreamingGraph(topo, feature=store)
+        ids = np.array([0, 150, 299])
+        assert graph.ingest(DeltaBatch(update_ids=ids, update_rows=np.full((3, 4), 2.0,
+                                                                           np.float32)))
+        graph.commit()
+        trainer.refresh()
+        fresh = store.gather(torch.from_numpy(ids).to(cuda))
+        losses.append(trainer.step(rng.integers(0, 300, trainer.global_batch), labels, 20))
+        states.append((trainer.routed_alpha, store.rep_rows, store.version))
+        torch.cuda.synchronize()
+        return (losses, states, order, fresh, list(trainer.controller.decisions),
+                dict(model.state_dict()))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device="cuda")
+        try:
+            world.reset_calls()
+            got = run(qt.make_mesh(data=1, feature=1))
+            calls = dict(world.CALLS)
+        finally:
+            shutdown_distributed()
+        want = run(qt.make_mesh(data=1, feature=1, devices=[cuda]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert calls and all(dev == "cuda" for _, dev in calls)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert got[1] == want[1] and got[4] == want[4]
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert all(torch.equal(got[5][k], v) for k, v in want[5].items())
+    assert got[1][3][2] == 1 and got[1][4][2] == 2  # the epoch's repin, then the commit
+    # the split tuner moved the boundary from its 15 rows (re-placing L0 and L1)
+    assert any(d["decision"] == "split" for d in got[4]) and {s[1] for s in got[1]} != {15}
+    assert (got[3] - 2.0).abs().max() <= 2.0 / 127  # one int8 code step
+    if seed_sharding == "all":
+        assert got[1][-1][0] > 0.05

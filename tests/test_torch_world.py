@@ -22,9 +22,8 @@ them:
 - (v) ``DataParallelTrainer`` on a world of 2 against ``(2, 1)``: two
   epochs (serial and prefetched), their losses, parameters and the
   sampler's call counter;
-- (vi) of the ten options that A.11e (a1) left refused, the five that
-  ROADMAP A.11e (a2) ported no longer raise, and the five left for A.11e
-  (a3) raise ``NotImplementedError`` naming it;
+- (vi) the ten options that A.11e (a1) left refused no longer raise:
+  five were ported by ROADMAP A.11e (a2), five by A.11e (a3);
 - the program audit records the same collectives for a rank's step as
   for the logical ``(1, 2)`` step;
 - (vii) one ``(2, 2)`` routed step on the JAX trainer's draws and initial
@@ -279,20 +278,19 @@ def test_data_parallel_trainer_world_bitwise(worlds):
 
 PORTED_A2 = {"topo_sharded_sampler", "logical_workers", "checkpoint_dir", "resume_mesh",
              "replan"}
+PORTED_A3 = {"controller", "auto_alpha", "repin", "row_updates", "split_tuner"}
 
 
 def test_a2_options_raise_on_a_world_mesh(worlds):
-    """(vi): of the ten options A.11e (a1) left refused, the five that
-    A.11e (a2) ported run on every rank, and the five left for A.11e (a3)
-    raise NotImplementedError naming it."""
+    """(vi): the ten options A.11e (a1) left refused all run on every rank
+    now: the five that A.11e (a2) ported and the five that A.11e (a3)
+    ported (the controller, ``auto_alpha``, ``repin``, row updates, the
+    split tuner); none raises."""
     for r in worlds[2]:
         said = r["refusals/said"]
-        assert len(said) == 10
+        assert set(said) == PORTED_A2 | PORTED_A3
         for name, text in said.items():
-            if name in PORTED_A2:
-                assert text == "no raise", (name, text)
-            else:
-                assert "A.11e (a3)" in text, (name, text)
+            assert text == "no raise", (name, text)
 
 
 def test_audit_records_the_logical_collectives(worlds):

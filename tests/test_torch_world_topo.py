@@ -18,9 +18,10 @@ of 4's preempted elastic run. This file compares them:
   ``sample()`` (the same merged output on every rank), the rank's
   ``sample_per_worker`` and its ``sample_padded``;
 - (iii) ``DistHeteroSampler``, uniform and weighted, on ``(1, 2)``; a
-  ``StreamingGraph`` over a world store: row updates raise naming A.11e
-  (a3) before anything is published, a topology-only commit runs and the
-  sampler's refreshed shard samples as the logical one;
+  ``StreamingGraph`` over a world store: a commit of row updates
+  publishes into every rank's parts as into the logical store, a
+  topology-only commit runs and the sampler's refreshed shard samples as
+  the logical one;
 - (iv) ``DistributedTrainer`` over a topology-sharded sampler on ``(2,
   2)``: 3 steps (the guard skips step 1, whose rows a ``FaultPlan``
   poisons) and a 3-step ``epoch_scan``, at depth 0 and 1; the program
@@ -210,16 +211,22 @@ def test_dist_hetero_world_bitwise(worlds, kind):
 
 
 def test_streaming_commit_on_a_world(worlds):
-    """(iii): a commit with row updates into a world store raises naming
-    A.11e (a3) and publishes nothing; a topology-only commit runs, and each
-    rank's refreshed sampler samples bitwise as the logical one, before
-    and after the commit."""
+    """(iii): a commit with row updates into a world store publishes on
+    every rank: the store's version moves once and every rank's rows
+    (psum and routed) are the logical store's, the new values included; a
+    topology-only commit runs, and each rank's refreshed sampler samples
+    bitwise as the logical one, before and after the commit."""
     res = worlds[2]
     want = _ref(res, "stream", "samples", 0)
+    updated = _ref(res, "stream", "updates", 0)
     for r in res:
-        assert "A.11e (a3)" in r["stream/updates"], r["stream/updates"]
-        assert r["stream/version_after_refusal"] == 0
+        same(r["stream/updates"], updated)
         same(r["stream/samples"], want)
+    assert list(updated["result"]) == [4, 0] and list(updated["versions"]) == [0, 1]
+    ids = [0, 7, 150, 299]
+    rows = np.random.default_rng(41).normal(size=(4, 4)).astype(np.float32)
+    assert np.array_equal(updated["rows"].numpy()[ids], rows)
+    assert torch.equal(updated["rows"], updated["routed"])
     assert not torch.equal(want[0]["n_id"], want[1]["n_id"])
 
 

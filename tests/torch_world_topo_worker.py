@@ -322,46 +322,44 @@ def stream_sample(sampler):
 
 
 def case_stream(run, data, feature):
-    """A ``StreamingGraph`` over a world store: a batch with row updates
-    raises naming A.11e (a3) before anything is published; a
-    topology-only commit runs, and the topology-sharded sampler's
-    ``refresh_topology`` re-places the rank's shard (its samples against
-    the logical sampler's over the same mutated CSR)."""
+    """A ``StreamingGraph`` over a world store: a commit of row updates
+    publishes into the rank's parts of the store (its rows, version and
+    result against the logical store's); then a topology-only commit runs,
+    and the topology-sharded sampler's ``refresh_topology`` re-places the
+    rank's shard (its samples against the logical sampler's over the same
+    mutated CSR)."""
     from quiver_tpu_torch.streaming import DeltaBatch, StreamingGraph
 
     ei, feat, _ = GRAPH
     inserts = np.random.default_rng(40).integers(0, N, (2, 64))
+    update_ids = np.array([0, 7, 150, 299])
+    update_rows = np.random.default_rng(41).normal(size=(4, 4)).astype(np.float32)
 
-    def mutated(mesh):
+    def committed(mesh):
         topo = qt.CSRTopo(edge_index=ei)
         store = qt.ShardedFeature(mesh, csr_topo=topo, **STORES[None]).from_cpu_tensor(feat)
         sampler = qt.GraphSageSampler(topo, list(SIZES), topo_sharding="mesh", mesh=mesh,
                                       seed=3)
         graph = StreamingGraph(topo, feature=store)
-        return topo, sampler, graph
-
-    topo, sampler, graph = mutated(qt.make_mesh(data=data, feature=feature))
-    before = stream_sample(sampler)
-    assert graph.ingest(DeltaBatch(update_ids=np.arange(3),
-                                   update_rows=np.ones((3, 4), np.float32)))
-    try:
-        graph.commit()
-        run.put("stream", "updates", "no raise")
-    except NotImplementedError as e:
-        run.put("stream", "updates", str(e))
-    run.put("stream", "version_after_refusal", topo.version)
-    graph._staged.clear()
-    assert graph.ingest(DeltaBatch(edge_inserts=inserts))
-    graph.commit()
-    sampler.refresh_topology()
-    run.put("stream", "samples", (before, stream_sample(sampler)))
-    if run.ref:
-        topo, sampler, graph = mutated(logical(data, feature))
         before = stream_sample(sampler)
+        assert graph.ingest(DeltaBatch(update_ids=update_ids, update_rows=update_rows))
+        result = graph.commit()
+        updates = _clone({"rows": store.gather(torch.arange(N)),
+                          "routed": store.gather(torch.arange(N), routed=True),
+                          "result": (result.rows_updated, result.version),
+                          "versions": (topo.version, store.version)})
         assert graph.ingest(DeltaBatch(edge_inserts=inserts))
         graph.commit()
         sampler.refresh_topology()
-        run.put_ref("stream", "samples", 0, (before, stream_sample(sampler)))
+        return updates, (before, stream_sample(sampler))
+
+    updates, samples = committed(qt.make_mesh(data=data, feature=feature))
+    run.put("stream", "updates", updates)
+    run.put("stream", "samples", samples)
+    if run.ref:
+        updates, samples = committed(logical(data, feature))
+        run.put_ref("stream", "updates", 0, updates)
+        run.put_ref("stream", "samples", 0, samples)
 
 
 # -- (v) checkpoints -------------------------------------------------------------------------------

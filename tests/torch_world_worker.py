@@ -353,12 +353,13 @@ def case_dp(run):
         run.put_ref("dp", "res", 0, dp_record(logical(run.size, 1)))
 
 
-# -- (vi) what A.11e (a2) ported, and what waits for A.11e (a3) ----------------------------
+# -- (vi) the options A.11e (a1) left refused, which A.11e (a2) and (a3) ported -----------
 
 
 def case_refusals(run, out_dir):
     """Each option of the ten that A.11e (a1) left refused: what it raised
-    (``NotImplementedError``'s message), or ``"no raise"``."""
+    (``NotImplementedError``'s message), or ``"no raise"``. Every rank
+    calls each with the same inputs."""
     ei, feat, _ = GRAPH
     mesh = qt.make_mesh(data=1, feature=run.size)
     topo = qt.CSRTopo(edge_index=ei)
