@@ -24,8 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    single-table and tiered gathers and the int8 dequantising tiered
    gather, K3's search-and-select and fused weighted hop), on the
    products-scale graph (with exp(N(0,1)) edge weights) and feature tables
-   (and wide f32 rows of 1 KB and 2.4 KB; int8 stores at F = 100, 602 and
-   7, hot-only, cold-only and split, with and without the degree reorder),
+   (and wide f32 rows of 1 KB and 2.4 KB; int8 stores at F = 100, 602, 7,
+   1000 and 2000, hot-only, cold-only and split, with and without the
+   degree reorder, and code tables whose base is not 16 B aligned),
    a small graph with zero-weight rows and one whose rows take every degree
    of 0-40 and some up to 3232, device and pinned host (UVA) tables, and
    K2's lookups also at ids past the table (which read its last row); then
@@ -33,7 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    its yardstick (yardstick, kernel, kernel, yardstick) where it has one,
    beside its bound, and the int8 lookup at ``bench_feature.py``'s
    configuration (65,536 uniform ids, a 20%-of-f32 budget stored as int8)
-   in turns with the same lookup in stock torch ops.
+   in turns with the same lookup in stock torch ops, and the rate at which
+   the int8 entry reads cold rows over UVA against the f32 entry's at the
+   same 65,536 cold ids, in turns, beside the pinned copy rate.
    Then both kernel resolutions from an empty election cache
    (``QUIVER_ELECTION_CACHE`` in a fresh temporary directory): the
    lookup's ``auto`` is K2 after its bitwise smoke, with nothing measured
@@ -64,7 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    again from a UVA weighted topology. Then the uniform server over the
    tiered store stored as int8 (612,500 rows on the card, the rest pinned;
    every lookup one launch of K2's dequantising entry), with the same
-   checks.
+   checks; then that entry at the serving lookup's shape (384 ids) in
+   turns with the lookup in stock torch ops.
 6. sampler, uniform and weighted (K1's and K3's fused hops):
    ``bench_sampler``'s configuration
    (fanouts [15, 10, 5], batch 2048, worst-case caps) samples a few
@@ -858,10 +862,38 @@ def tiered_checks(stores, rng):
     return results
 
 
+def offset_codes(codes, pinned_host: bool, skip: int = 1):
+    """A contiguous copy of the code table ``codes`` that starts ``skip``
+    bytes into a buffer on the card or in pinned host memory: a base that
+    is not 16 B aligned."""
+    import torch
+
+    n, F = codes.shape
+    flat = torch.empty(n * F + skip, dtype=torch.int8)
+    flat = flat.pin_memory() if pinned_host else flat.to("cuda")
+    view = flat[skip:].view(n, F)
+    view.copy_(codes)
+    return view
+
+
+def unaligned_store(feat):
+    """``feat`` (a split int8 store) with both code tiers copied to bases
+    one byte past a 16 B boundary: the hot tier on the card, the cold one
+    pinned."""
+    import types
+
+    return types.SimpleNamespace(
+        shape=feat.shape, feature_order=feat.feature_order, hot_rows=feat.hot_rows,
+        hot=offset_codes(feat.hot, False), cold=offset_codes(feat.cold.cpu(), True),
+        scale=feat.scale)
+
+
 def int8_stores(x_small, small_topo):
-    """int8 stores of the small graph at F = 100, 602 and 7: hot-only,
-    cold-only and split, with and without the degree reorder (row 5 all
-    zeros: scale 0)."""
+    """int8 stores of the small graph at F = 100, 602, 7, 1000 and 2000 (one
+    row filling a stage of the kernel's ring, and two segments a row):
+    hot-only, cold-only and split, with and without the degree reorder (row
+    5 all zeros: scale 0); and at every F the split store with both code
+    tables at a base that is not 16 B aligned."""
     import numpy as np
 
     from quiver_tpu_torch import Feature
@@ -869,7 +901,7 @@ def int8_stores(x_small, small_topo):
     n = x_small.shape[0]
     rng = np.random.default_rng(7)
     stores = []
-    for F in (100, 602, 7):
+    for F in (100, 602, 7, 1000, 2000):
         x = np.array(x_small[:, :F]) if F <= x_small.shape[1] else rng.standard_normal(
             (n, F), dtype=np.float32)
         x[5] = 0.0
@@ -880,6 +912,9 @@ def int8_stores(x_small, small_topo):
             stores.append((f"int8 F={F} {label}", Feature(
                 device_cache_size=4 * n + hot * F, csr_topo=topo, dtype="int8",
                 device="cuda").from_cpu_tensor(x)))
+            if label == "split, reorder":
+                stores.append((f"int8 F={F} {label}, unaligned bases",
+                               unaligned_store(stores[-1][1])))
     return stores
 
 
@@ -1319,6 +1354,42 @@ def time_lookup(feat, ids, pcie_bytes_per_s, iters: int, reps: int):
             "hot_rows": feat.hot_rows, "rows": feat.shape[0],
             "stored_row_bytes": feat.shape[1] * feat.cold.element_size(),
             "iters": iters, "reps": reps}
+
+
+def cold_rates(feat_q, feat_f32, count: int, pcie_bytes_per_s, rng) -> dict:
+    """The rate at which K2 reads cold rows over UVA: ``count`` ids drawn
+    from the nodes whose rows are cold in both the int8 store ``feat_q``
+    and the f32 store ``feat_f32`` (each under its degree reorder), looked up by
+    ``tiered_gather_dequant`` and by ``tiered_gather`` in turns (f32, int8,
+    int8, f32); each rate the stored row bytes of the lookup over its
+    time, beside the pinned copy rate measured in phase 3."""
+    import torch
+
+    from quiver_tpu_torch.ops.kernels.gather import (tiered_gather, tiered_gather_dequant,
+                                                     tiered_gather_plain)
+
+    cold = torch.nonzero((feat_q.feature_order >= feat_q.hot_rows)
+                         & (feat_f32.feature_order >= feat_f32.hot_rows))
+    check(cold.shape[0] > 0, "nodes cold in both stores")
+    pick = torch.from_numpy(rng.integers(0, cold.shape[0], count)).to(cold.device)
+    ids = cold[pick, 0].to(torch.int32)
+    q_args = (ids, feat_q.feature_order, feat_q.hot_rows, feat_q.hot, feat_q.cold,
+              feat_q.scale)
+    f_args = (ids, feat_f32.feature_order, feat_f32.hot_rows, feat_f32.hot, feat_f32.cold)
+    check(equal(tiered_gather_dequant(*q_args), tiered_gather_plain(*q_args)),
+          "tiered_gather_dequant == plain on cold ids")
+    check(equal(tiered_gather(*f_args), tiered_gather_plain(*f_args)),
+          "tiered_gather == plain on cold ids")
+    t = in_turns(lambda: tiered_gather_dequant(*q_args), lambda: tiered_gather(*f_args),
+                 50, 5)
+    F = feat_q.shape[1]
+    q_bytes, f_bytes = count * F, count * F * 4
+    return {"ids": count, "row_bytes": {"int8": F, "f32": F * 4},
+            "int8_ms": t["ms"], "int8_turns": t["ms_turns"],
+            "f32_ms": t["yard_ms"], "f32_turns": t["yard_turns"],
+            "int8_cold_bytes_per_s": q_bytes / (t["ms"] * 1e-3),
+            "f32_cold_bytes_per_s": f_bytes / (t["yard_ms"] * 1e-3),
+            "pcie_h2d_bytes_per_s": pcie_bytes_per_s}
 
 
 def wselect_sectors(dev_topo, start, deg, u, k, scale_u: bool = True):
@@ -4509,6 +4580,13 @@ def audit_phase(card) -> dict:
                 "regs": a["regs"], "shared_bytes": a["shared_static"] + a["shared_dynamic"],
                 "local_bytes": a["local"], "max_threads": a["max_threads"]}
                for attrs in mem.kernel_attrs().values() for a in attrs]
+    step2c("every kernel instantiation spills 0 B; the int8 entry's ring is its "
+           "only shared memory")
+    check(all(k["local_bytes"] == 0 for k in kernels),
+          f"spills: {[(k['kernel'], k['local_bytes']) for k in kernels if k['local_bytes']]}")
+    check({k["kernel"] for k in kernels if k["shared_bytes"]}
+          == {f"gather_dequant_kernel<{s}>" for s in (4, 2, 1)},
+          f"shared memory: {[(k['kernel'], k['shared_bytes']) for k in kernels]}")
     out = {"targets": len(result.targets), "findings": len(result.findings),
            "suppressed": len(result.suppressed), "kernel_nodes": nodes, "kernels": kernels,
            "peak_table": rows, "peak_band": [lo, hi], "audit_s": audit_s,
@@ -8564,6 +8642,10 @@ def main() -> int:
     t_q = time_lookup(feat_q, q_ids, pcie, 50, 5)
     log(f"int8 lookup, 65,536 ids: {t_q['ms']:.4f} ms (staged lookup in torch ops "
         f"{t_q['yard_ms']:.4f}, plain {t_q['plain_ms']:.4f}, bound {t_q['bound_ms']:.4f})")
+    t_cold = cold_rates(feat_q, feat_cold, 65_536, pcie, rng)
+    log(f"cold rows over UVA, 65,536 ids: int8 {t_cold['int8_cold_bytes_per_s'] / 1e9:.4g} "
+        f"GB/s, f32 {t_cold['f32_cold_bytes_per_s'] / 1e9:.4g} GB/s, pinned copy "
+        f"{pcie / 1e9:.4g} GB/s")
     del feat_q, q_ids
     lap("phase 3 int8 lookup timing")
     bulk_seeds = torch.from_numpy(rng.integers(0, n, 1_000_000).astype(np.int32)).to("cuda")
@@ -8605,6 +8687,9 @@ def main() -> int:
                      dtype="int8", device="cuda").from_cpu_tensor(x_all)
     check(feat_q.hot_rows == n // 4, f"int8 serving store hot rows {feat_q.hot_rows}")
     launches_q, serve_q = serve_phase(args, topo, feat_q, [], card, weighted=False)
+    t_q_serve = time_lookup(feat_q, look_ids, pcie, 200, 7)
+    log(f"int8 serving lookup, 384 ids: {t_q_serve['ms']:.4f} ms (staged lookup in torch "
+        f"ops {t_q_serve['yard_ms']:.4f}, bound {t_q_serve['bound_ms']:.4f})")
     del feat_q
     lap("int8 serving")
 
@@ -8863,6 +8948,11 @@ def main() -> int:
                     "serve_launches": launches_q["tiered_gather_dequant"],
                     "train_b_launches": launches_qb["tiered_gather_dequant"],
                     "train_lookup_in_turns": train_qa["lookup_in_turns"],
+                    "train_b_lookup_in_turns": train_qb["lookup_in_turns"],
+                    "serving_shape": {key: t_q_serve[key] for key in (
+                        "ids", "ms", "ms_turns", "plain_ms", "yard_ms", "yard_turns",
+                        "ratio_to_yard", "bound_ms", "bound_share", "cold_rows")},
+                    "cold_read": t_cold,
                     "sharded_int8_lookup_launches": launches_c["store"],
                     "controller_store_launches": launches_c["controller"],
                     "sharded_int8_trainer_launches": {
@@ -8950,6 +9040,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as fh:
             json.dump({"kernels": kernels, "bulk": bulk, "int8_lookup": t_q,
+                       "int8_serving_lookup": t_q_serve, "cold_read": t_cold,
                        "serve": {"uniform": serve_u, "weighted": serve_w,
                                  "int8": serve_q},
                        "elections": elect, "telemetry": telemetry,
@@ -8970,7 +9061,8 @@ def main() -> int:
                                  "max_degree": topo.max_degree}}, fh, indent=1)
     print(json.dumps({"lint": lint_row}), flush=True)
     print(json.dumps({"audit": audit}), flush=True)
-    print(json.dumps({"bulk": bulk, "int8_lookup": t_q, "card": card}), flush=True)
+    print(json.dumps({"bulk": bulk, "int8_lookup": t_q, "int8_serving_lookup": t_q_serve,
+                      "cold_read": t_cold, "card": card}), flush=True)
     print(json.dumps({"serve": {"uniform": serve_u, "weighted": serve_w,
                                 "int8": serve_q}}), flush=True)
     print(json.dumps({"elections": elect}), flush=True)

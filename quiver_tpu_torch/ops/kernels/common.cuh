@@ -32,17 +32,19 @@ struct KernelAttrs {
     long long max_threads;     // the most threads per block it can launch with
 };
 
-// One row of a file's kernel table: the kernel, its name, its entry, its block.
+// One row of a file's kernel table: the kernel, its name, its entry, its
+// block, and the dynamic shared bytes the largest of its launches asks for
+// (0, left out, for a kernel that uses none).
 struct KernelRow {
     const void* fn;
     const char* kernel;
     const char* entry;
     int block;
+    int shared_dynamic;
 };
 
 // Fill out[0..n) from the file's kernel table `rows`; returns n, or minus the
-// first CUDA error, or -1 when `cap` rows do not hold them. No launch asks for
-// dynamic shared memory.
+// first CUDA error, or -1 when `cap` rows do not hold them.
 static int fill_kernel_attrs(KernelAttrs* out, int cap, const KernelRow* rows, int n) {
     if (cap < n) return -1;
     for (int i = 0; i < n; ++i) {
@@ -54,7 +56,7 @@ static int fill_kernel_attrs(KernelAttrs* out, int cap, const KernelRow* rows, i
         out[i].block = rows[i].block;
         out[i].regs = a.numRegs;
         out[i].shared_static = (long long)a.sharedSizeBytes;
-        out[i].shared_dynamic = 0;
+        out[i].shared_dynamic = rows[i].shared_dynamic;
         out[i].local = (long long)a.localSizeBytes;
         out[i].max_threads = a.maxThreadsPerBlock;
     }

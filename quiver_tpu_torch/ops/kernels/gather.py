@@ -9,8 +9,12 @@ rows (as many as their width allows) with coalesced words, loads before
 stores; the same kernel reads a device table (the hot feature tier) and a
 pinned host table over UVA (the cold tier). :func:`tiered_gather`
 translates the ids, picks the tier and merges both tiers in its one
-launch; :func:`tiered_gather_dequant` does the same over int8 codes and
-writes float32 rows, each code times its row's scale.
+launch. :func:`tiered_gather_dequant` does the same over int8 codes and
+writes float32 rows, each code times its row's scale, in a kernel of its
+own: each warp of a persistent grid keeps a ring of stages in shared
+memory filled by 16 B asynchronous copies of whole aligned granules (code
+tables at any byte address), several stages ahead of the one it converts
+to wide float stores.
 
 An id past the table reads its last row, as the JAX package's XLA gathers
 clamp; a negative id gives a zero row.

@@ -353,25 +353,89 @@ def _int8_store(cuda, n, F, store, seed):
     return feat, torch.from_numpy(ids).to(cuda)
 
 
-# F=100: 4 codes a word, four rows a warp; F=602: 2 codes a word, one row in
-# several chunks; F=7: single codes
-@pytest.mark.parametrize("F", [100, 602, 7])
-@pytest.mark.parametrize("store", ["hot", "cold", "split", "split, reorder", "cold, reorder"])
-def test_tiered_gather_dequant_matches_plain(cuda, F, store):
+def _dequant_once(args):
+    """One ``tiered_gather_dequant`` call on ``args``: one launch, bitwise
+    its plain version; returns the rows."""
     from quiver_tpu_torch.ops.kernels import gather
 
-    feat, ids = _int8_store(cuda, 1500, F, store, F)
-    args = (ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold, feat.scale)
     before = gather.tiered_gather_dequant.launches
     got = gather.tiered_gather_dequant(*args)
     want = gather.tiered_gather_plain(*args)
     torch.cuda.synchronize()
     assert gather.tiered_gather_dequant.launches == before + 1
     assert got.dtype == torch.float32 and torch.equal(got, want)
+    return got
+
+
+# every case of the granule arithmetic: F = 1 (one code), 7, 15, 17 (rows
+# that straddle granules), 16, 100 (float4 stores), 602 (float2 stores, a
+# 2 B-aligned row), 1000 (one item filling a slot)
+DEQUANT_WIDTHS = [1, 7, 15, 16, 17, 100, 602, 1000]
+
+
+@pytest.mark.parametrize("F", DEQUANT_WIDTHS)
+@pytest.mark.parametrize("store", ["hot", "cold", "split", "split, reorder", "cold, reorder"])
+def test_tiered_gather_dequant_matches_plain(cuda, F, store):
+    feat, ids = _int8_store(cuda, 1500, F, store, F)
+    ids[4:6] = torch.tensor([0, 1499], dtype=torch.int32)  # the first and last rows
+    got = _dequant_once((ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold,
+                         feat.scale))
     assert torch.equal(feat[ids], got)
     assert not got[ids < 0].any()
     # ids past the table read the row of id N - 1
     assert torch.equal(got[2], got[1]) and torch.equal(got[3], got[1])
+
+
+def _offset_table(codes, where: str, skip: int):
+    """``codes`` copied into a contiguous view that starts ``skip`` bytes
+    into a buffer on the card or in pinned host memory: a base that is not
+    16 B aligned."""
+    n, F = codes.shape
+    flat = torch.empty(n * F + skip, dtype=torch.int8)
+    flat = flat.pin_memory() if where == "pinned" else flat.to("cuda")
+    view = flat[skip:].view(n, F)
+    view.copy_(codes)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("F", DEQUANT_WIDTHS)
+@pytest.mark.parametrize("layout", ["pinned", "device", "split", "pinned rows[1:]"])
+def test_tiered_gather_dequant_unaligned_tables(cuda, F, layout):
+    """Code tables whose base is not 16 B aligned: a pinned and a device
+    view at byte offset 1, both tiers so, and a pinned ``codes[1:]`` (F
+    bytes in: aligned only where 16 divides F)."""
+    rng = np.random.default_rng(F)
+    n = 700
+    codes = torch.from_numpy(rng.integers(-127, 128, (n + 1, F)).astype(np.int8))
+    scale = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
+    if layout == "pinned rows[1:]":
+        full = codes.pin_memory()
+        hot, cold, hot_rows = None, full[1:], 0
+    elif layout == "split":
+        hot_rows = n // 3
+        hot = _offset_table(codes[1:hot_rows + 1], "device", 1)
+        cold = _offset_table(codes[hot_rows + 1:], "pinned", 1)
+    else:
+        hot_rows = n if layout == "device" else 0
+        table = _offset_table(codes[1:], layout, 1)
+        hot, cold = (table, None) if layout == "device" else (None, table)
+    ids = rng.integers(0, n + 9, 333).astype(np.int32)
+    ids[::7] = -1
+    ids[1:5] = [0, n - 1, n, 2**31 - 1]
+    _dequant_once((torch.from_numpy(ids).to(cuda), None, hot_rows, hot, cold, scale))
+
+
+@pytest.mark.parametrize("F", [7, 100, 602])
+def test_tiered_gather_dequant_loops_the_persistent_grid(cuda, F):
+    """More than 2^20 ids: every warp of the persistent grid walks many
+    stages; hot, cold, -1 lanes and ids past the table together."""
+    feat, _ = _int8_store(cuda, 5000, F, "split, reorder", F)
+    rng = np.random.default_rng(F + 1)
+    ids = rng.integers(-1, 5010, (1 << 20) + 4099).astype(np.int32)
+    ids[:2] = [0, 4999]
+    ids = torch.from_numpy(ids).to(cuda)
+    _dequant_once((ids, feat.feature_order, feat.hot_rows, feat.hot, feat.cold, feat.scale))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1623,6 +1687,9 @@ def test_kernel_attrs_entry(cuda):
     assert entries == {"select", "uniform_hop", "gather", "gather_dequant", "wselect",
                        "weighted_hop"}
     assert len(attrs) == 24
+    # only the int8 entry's ring asks for dynamic shared memory
+    assert {a["kernel"] for a in attrs if a["shared_dynamic"]} == {
+        f"gather_dequant_kernel<{s}>" for s in (4, 2, 1)}
     for a in attrs:
         assert a["block"] == 256 and 0 < a["regs"] <= 255, a
         assert a["shared_static"] + a["shared_dynamic"] <= DEFAULT_VMEM_BUDGET, a

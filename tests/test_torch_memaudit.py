@@ -16,7 +16,10 @@ Held here:
 - ``trace_lookup``: its argument bytes equal JAX's ``estimate_peak`` of
   JAX's traced merge for the same store, and its merge given the staged
   block is bitwise ``store[ids]``;
-- each target's ``sources`` cover its builder's import closure.
+- each target's ``sources`` cover its builder's import closure;
+- a kernel's shared memory is its static plus its dynamic bytes (the int8
+  lookup's ring is dynamic), and the vmem-budget rule flags a launch whose
+  sum passes ``DEFAULT_VMEM_BUDGET`` and passes one that meets it.
 Every comparison is exact (integer bytes, names, bitwise rows).
 """
 
@@ -34,8 +37,10 @@ from quiver_tpu.tools.audit import mem as jax_mem  # noqa: E402
 from quiver_tpu_torch.control.cost import CostModel  # noqa: E402
 from quiver_tpu_torch.core.topology import CSRTopo  # noqa: E402
 from quiver_tpu_torch.ooc.store import MmapFeatureStore  # noqa: E402
+from quiver_tpu_torch.ops.kernels.gather import tiered_gather_dequant  # noqa: E402
 from quiver_tpu_torch.tools.audit import audit_targets as at  # noqa: E402
-from quiver_tpu_torch.tools.audit import ir, mem  # noqa: E402
+from quiver_tpu_torch.tools.audit import ir, mem, rules  # noqa: E402
+from quiver_tpu_torch.tools.audit.audit_targets import Case, Target, build_from  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -166,6 +171,46 @@ def test_arg_and_out_bytes_exact_on_routed_gather():
     assert est.out_bytes == 2 * 4 * 4 * 4 + 4
     assert (est.n_args, est.n_outputs) == (1, 2)
     assert est.peak_bytes == est.state_bytes + est.arg_bytes + est.growth_bytes
+
+
+# -- shared memory (the vmem-budget rule) ---------------------------------------------
+
+
+def _dequant_program():
+    """A CPU recording of one int8 tiered lookup: one ``tiered_gather_dequant``
+    kernel node."""
+    codes = torch.ones(8, 4, dtype=torch.int8)
+    args = (torch.arange(6, dtype=torch.int32), None, 8, codes, None, torch.ones(8))
+    return args, ir.record(tiered_gather_dequant, *args)
+
+
+def _dequant_attrs(static: int, dynamic: int) -> dict:
+    return {"gather_dequant": [{
+        "kernel": f"gather_dequant_kernel<{s}>", "entry": "gather_dequant", "block": 256,
+        "regs": 40, "shared_static": static, "shared_dynamic": dynamic, "local": 0,
+        "max_threads": 1024} for s in (4, 2, 1)]}
+
+
+def test_vmem_usages_sum_static_and_dynamic_shared_bytes():
+    _, program = _dequant_program()
+    assert [n.name for n in program.kernels] == ["tiered_gather_dequant"]
+    usages = mem.vmem_usages(program, _dequant_attrs(16, 49_664))
+    assert [u.kernel for u in usages] == [f"gather_dequant_kernel<{s}>" for s in (4, 2, 1)]
+    assert {u.shared_bytes for u in usages} == {16 + 49_664}
+
+
+@pytest.mark.parametrize("dynamic,flagged", [(mem.DEFAULT_VMEM_BUDGET - 16, False),
+                                             (mem.DEFAULT_VMEM_BUDGET - 15, True)])
+def test_vmem_budget_flags_dynamic_shared_memory_over_the_budget(dynamic, flagged):
+    args, _ = _dequant_program()
+    target = Target("vmem_dynamic", "vmem_dynamic",
+                    lambda dev: Case(tiered_gather_dequant, args),
+                    ("tests/test_torch_memaudit.py",),
+                    meta={"kernel_attrs": _dequant_attrs(16, dynamic)})
+    found = rules.check_vmem_budget(target, build_from(target, "cpu"), None)
+    assert [f.rule for f in found] == (["vmem-budget"] * 3 if flagged else [])
+    assert all(not f.suppressed and f"shared {mem.DEFAULT_VMEM_BUDGET + 1} B" in f.message
+               for f in found)
 
 
 # -- trace_lookup ----------------------------------------------------------------------
