@@ -484,6 +484,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    replayed fleet's device idle share, as phase 10 measures it, with the
    controller's feed and without it.
 
+9p. the reindex's two dedup strategies (``"sort"`` and ``"map"``; the
+   port's ``"scan"`` runs the sort), last, on the serving graph; every
+   check names itself on stderr first. ``dedup="auto"`` resolves to ``"sort"`` on the card. (a)
+   ``GraphSageSampler`` per strategy over one placement at bench_epoch's
+   [15, 10, 5] x 1024 (auto caps: the planning call and a planned one)
+   and at the serving fanouts [5, 5] x 8, uniform and weighted: ids, edge
+   lists and planned caps bitwise across the strategies, the same K1 and
+   K3 launches; each hop's ``reindex_layer`` under every strategy on the
+   same inputs (the planned call's, and the ladder's 8 lanes of one seed),
+   CUDA events around each eager call and around each replay of a CUDA
+   graph of one call, the median of 50 of each in two turns, with each
+   strategy's peak memory growth (the map's ``(rows, 2,450,000)`` int32
+   scratch); the planned sample in turns; each strategy once under
+   ``torch.use_deterministic_algorithms(True)``, recording whether it
+   raises (only PyTorch's "no deterministic implementation" error is
+   recorded; any other fails the run). (b) an ``InferenceServer`` per
+   strategy (phase 4's, over a hot-only store, one placement), both on
+   one program cache: 8 captures each and no cache hit (the strategy
+   forks the sample programs' fingerprint), the map's scratch inside the
+   capture; 256 closed-loop
+   queries twice, the servers in turns: the answers bitwise across the
+   strategies, 2 replayed ``uniform_hop`` and 1 ``tiered_gather`` a batch
+   under each; queries/s. (c) ``DistributedTrainer`` over the serving
+   graph partitioned on the logical ``(1, 4)`` mesh (``"all"``, GraphSAGE
+   100 x 256 x 47 x 3, [15, 10, 5] x 256 a worker, the hot-only store), 3
+   steps per strategy under deterministic kernels: losses, overflow and
+   parameters bitwise, the same launches. (d) ``HeteroGraphSampler`` and
+   ``DistHeteroSampler`` (``(1, 4)``) at bench_rgcn's defaults per
+   strategy: bitwise, the same launches.
+
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the JAX package ``quiver_tpu``.
@@ -8453,6 +8483,446 @@ def world_control_phase(card):
     return launches, rows, result
 
 
+# -- phase 9p: the reindex's dedup strategies -------------------------------------
+
+DEDUPS = ("sort", "map")
+DEDUP_REPS = 25  # CUDA-event timings per strategy per turn (two turns)
+DEDUP_SERVE_BUCKET = 8  # the ladder's largest bucket: 8 lanes of one seed
+
+
+def step9p(what: str) -> None:
+    """Name a phase 9p check on stderr before it runs."""
+    log(f"phase 9p check: {what}")
+
+
+@contextlib.contextmanager
+def recorded_hops():
+    """Record the inputs ``(cur, cur_n, nbr, cap)`` of every
+    ``reindex_hop`` the samplers run in the block."""
+    from quiver_tpu_torch.sampling import sampler as sampler_mod
+
+    hops, orig = [], sampler_mod.reindex_hop
+
+    def rec(cur, cur_n, nbr, cap, eids=None, **kw):
+        hops.append((cur, cur_n, nbr, cap))
+        return orig(cur, cur_n, nbr, cap, eids, **kw)
+
+    sampler_mod.reindex_hop = rec
+    try:
+        yield hops
+    finally:
+        sampler_mod.reindex_hop = orig
+
+
+def same_sample(a, b) -> bool:
+    """Two ``SampleOutput``s bitwise: ids, counts and every edge list."""
+    return (equal(a.n_id, b.n_id) and int(a.n_count) == int(b.n_count)
+            and int(a.overflow) == int(b.overflow)
+            and all(equal(x.edge_index, y.edge_index) for x, y in zip(a.adjs, b.adjs)))
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` between CUDA events, in ms."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def time_reindex(hops, node_bound: int) -> list:
+    """Each recorded hop's ``reindex_layer`` under every strategy on the
+    same inputs, in turns (sort, map, map, sort),
+    ``DEDUP_REPS`` calls a turn after one untimed, each between CUDA
+    events: the eager call (the host's launches and the card's work, what
+    a caller on an idle card waits for) and the replay of a CUDA graph
+    captured from one call (the card's work alone); the median of each
+    strategy's ``2 * DEDUP_REPS``; and each strategy's peak memory growth
+    over one call (the map's scratch)."""
+    import functools
+
+    import torch
+
+    from quiver_tpu_torch.ops.reindex import dedup_bound, reindex_layer
+
+    out = []
+    for l, (cur, cur_n, nbr, cap) in enumerate(hops):
+        # a count given as an int would be copied to the card inside the
+        # capture, which capture forbids
+        cur_n = torch.as_tensor(cur_n, device=cur.device)
+        calls = {d: functools.partial(reindex_layer, cur, cur_n, nbr, cap,
+                                      node_bound=dedup_bound(d, node_bound))
+                 for d in DEDUPS}
+        graphs = {}
+        for d in DEDUPS:
+            calls[d]()
+            sync()
+            graphs[d] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[d]):
+                calls[d]()
+        times = {d: [] for d in DEDUPS}
+        replay = {d: [] for d in DEDUPS}
+        for d in DEDUPS + DEDUPS[::-1]:
+            calls[d]()
+            graphs[d].replay()
+            sync()
+            for _ in range(DEDUP_REPS):
+                times[d].append(event_ms(calls[d]))
+                replay[d].append(event_ms(graphs[d].replay))
+        del graphs
+        peak = {}
+        for d in DEDUPS:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            calls[d]()
+            sync()
+            peak[d] = torch.cuda.max_memory_allocated() - base
+        rows = cur.reshape(-1, cur.shape[-1]).shape[0]
+        out.append({"hop": l, "rows": rows, "seed_lanes": int(cur.shape[-1]),
+                    "lanes": int(cur.shape[-1] * (1 + nbr.shape[-1])), "cap": int(cap),
+                    "ms": {d: statistics.median(t) for d, t in times.items()},
+                    "ms_turns": {d: [statistics.median(t[:DEDUP_REPS]),
+                                     statistics.median(t[DEDUP_REPS:])]
+                                 for d, t in times.items()},
+                    "replay_ms": {d: statistics.median(t) for d, t in replay.items()},
+                    "replay_ms_turns": {d: [statistics.median(t[:DEDUP_REPS]),
+                                            statistics.median(t[DEDUP_REPS:])]
+                                        for d, t in replay.items()},
+                    "map_scratch_bytes": rows * node_bound * 4,
+                    "peak_growth_bytes": peak})
+    return out
+
+
+def dedup_samplers(topo, dev_topo, card) -> tuple[dict, dict]:
+    """(a) ``GraphSageSampler`` under each strategy over one placement, on
+    the same draws: bench_epoch's [15, 10, 5] x 1024 (auto caps; the
+    planning call, then a planned one) and the serving fanouts [5, 5] x 8
+    (uniform and weighted); every output bitwise across the strategies,
+    the same launches; each hop's reindex timed on the planned call's
+    inputs and at the ladder's shape (8 lanes of one seed); the map once
+    more under ``torch.use_deterministic_algorithms(True)``. Returns
+    ``(launches by strategy, result)``."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import GraphSageSampler
+    from quiver_tpu_torch.ops.sample import hop_draws, seeded_generator
+    from quiver_tpu_torch.sampling.sampler import multilayer_sample
+
+    n = topo.node_count
+    rng = np.random.default_rng(91)
+    calls = [rng.integers(0, n, EPOCH_BATCH) for _ in range(2)]
+    serve_seeds = rng.integers(0, n, DEDUP_SERVE_BUCKET)
+    launches, outs, samplers = {}, {}, {}
+    for d in DEDUPS:
+        smp = samplers[d] = GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", seed=0,
+                                             frontier_caps="auto", dedup=d,
+                                             device_topo=dev_topo)
+        check(smp.dedup == d, f"sampler dedup {smp.dedup!r}")
+        sync()
+        reset_launches()
+        outs[d] = [smp.sample(seeds) for seeds in calls]
+        for weighted in (False, True):
+            serve = GraphSageSampler(topo, [5, 5], device="cuda", seed=0, seed_capacity=8,
+                                     weighted=weighted, dedup=d, device_topo=dev_topo)
+            outs[d].append(serve.sample(serve_seeds))
+        sync()
+        launches[d] = read_launches()
+    step9p("(a) every sample bitwise across sort and map")
+    for d in DEDUPS[1:]:
+        check(all(same_sample(a, b) for a, b in zip(outs[d], outs["sort"])),
+              f"(a) dedup={d!r} samples == dedup='sort' samples")
+        check(samplers[d]._frontier_caps == samplers["sort"]._frontier_caps,
+              f"(a) dedup={d!r} planned caps")
+    reruns = samplers["sort"].reruns
+    step9p("(a) the same launches under every strategy")
+    want = {"uniform_hop": len(EPOCH_FANOUT) * (len(calls) + reruns) + 2, "weighted_hop": 2}
+    for d in DEDUPS:
+        check(samplers[d].reruns == reruns, f"(a) dedup={d!r} reruns {samplers[d].reruns}")
+        expect_launches(launches[d], want, f"(a) dedup={d!r} samplers")
+    # each hop's reindex, timed on a planned call's inputs and at the
+    # ladder's shape (8 lanes of one seed, its lane caps, the hop's bits)
+    with recorded_hops() as epoch_hops:
+        samplers["sort"].sample(calls[1])
+    lane_caps = GraphSageSampler(topo, [5, 5], device="cuda", seed=0,
+                                 device_topo=dev_topo)._worst_caps(1)
+    g = seeded_generator("cuda", 92)
+    bits = [hop_draws((DEDUP_SERVE_BUCKET, c), k, g)
+            for c, k in zip((1,) + lane_caps[:-1], (5, 5))]
+    lanes = torch.from_numpy(serve_seeds.astype(np.int32)).to("cuda")[:, None]
+    ones = torch.ones(DEDUP_SERVE_BUCKET, dtype=torch.int32, device="cuda")
+    with recorded_hops() as serve_hops:
+        multilayer_sample(dev_topo, lanes, ones, (5, 5), lane_caps,
+                          bits=lambda l, _shape: bits[l])
+    step9p("(a) each hop's reindex timed under every strategy")
+    timed = {"epoch": time_reindex(epoch_hops, n), "serve": time_reindex(serve_hops, n)}
+    # the whole planned sample, in turns
+    sample_ms = {d: [] for d in DEDUPS}
+    for d in DEDUPS + DEDUPS[::-1]:
+        sample_ms[d].append(cuda_ms(functools.partial(samplers[d].sample, calls[1]), 3, 5))
+    # the map (and, beside it, the others) under deterministic algorithms
+    step9p("(a) dedup='map' once under torch.use_deterministic_algorithms(True)")
+    deterministic = {}
+
+    def planned(d):
+        return GraphSageSampler(topo, EPOCH_FANOUT, device="cuda", seed=0, dedup=d,
+                                frontier_caps=samplers["sort"]._frontier_caps,
+                                device_topo=dev_topo)
+
+    ref = planned("sort").sample(calls[0])
+    for d in DEDUPS:
+        fresh = planned(d)
+        got, raised = None, None
+        torch.use_deterministic_algorithms(True)
+        try:
+            got = fresh.sample(calls[0])
+            sync()
+        except RuntimeError as e:
+            # the answer this check records is PyTorch's refusal alone;
+            # any other error fails the run
+            if "does not have a deterministic implementation" not in str(e):
+                raise
+            raised = str(e).splitlines()[0][:300]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        deterministic[d] = {"raised": raised, "bitwise_sort_sampler":
+                            None if got is None else same_sample(got, ref)}
+        check(got is None or deterministic[d]["bitwise_sort_sampler"],
+              f"(a) deterministic dedup={d!r} sample")
+    log("phase 9p (a) reindex ms per hop, eager | replayed (sort / map): "
+        + "; ".join(f"{shape} hop {h['hop']} "
+                    + " / ".join(f"{h['ms'][d]:.4f}" for d in DEDUPS) + " | "
+                    + " / ".join(f"{h['replay_ms'][d]:.4f}" for d in DEDUPS)
+                    for shape, hs in timed.items() for h in hs)
+        + f"; deterministic {deterministic} [{card}]")
+    return launches, {
+        "config": "bench_epoch.py's [15, 10, 5] x 1024 (auto caps) and the serving fanouts "
+                  "[5, 5] x 8 on the products-shaped graph; one placement shared by every "
+                  "sampler",
+        "planned_caps": list(samplers["sort"]._frontier_caps), "reruns": reruns,
+        "lane_caps": list(lane_caps), "launches": launches, "reindex": timed,
+        "sample_ms": {d: statistics.median(t) for d, t in sample_ms.items()},
+        "sample_ms_turns": sample_ms, "deterministic": deterministic,
+        "timing": f"CUDA events around each eager call and around each replay of a CUDA "
+                  f"graph of one call, the median of {2 * DEDUP_REPS} in two turns (sort, "
+                  "map, map, sort)"}
+
+
+def served_batches(server) -> int:
+    """The batches ``server`` has sampled so far."""
+    st = server.timeline.stats("sample")
+    return 0 if st is None else st.count
+
+
+def dedup_servers(args, topo, dev_topo, store, card) -> tuple[dict, dict]:
+    """(b) One ``InferenceServer`` per strategy over one placement, one
+    store and one program cache under ``SCRATCH``: every server captures
+    its own programs (the strategy forks the sample programs'
+    fingerprint, so the map server takes nothing of the sort's), the
+    capture's launches, then ``args.requests`` closed-loop queries twice,
+    the servers in turns (sort, map, map, sort); each pass's
+    answers bitwise across the strategies and its launches the same
+    (replayed hops, eager lookups); queries/s of every pass."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import GraphSAGE, GraphSageSampler, InferenceServer
+    from quiver_tpu_torch.serving.aot import AOTExecutableCache
+
+    F = store.size(1)
+    servers, warm = {}, {}
+    cache = AOTExecutableCache(os.path.join(SCRATCH, "aot"))
+    for i, d in enumerate(DEDUPS):
+        smp = GraphSageSampler(topo, [5, 5], device="cuda", seed=0, dedup=d,
+                               device_topo=dev_topo)
+        torch.manual_seed(0)
+        model = GraphSAGE(F, 256, 47, num_layers=2)
+        server = servers[d] = InferenceServer(smp, model, store, device="cuda", max_batch=8,
+                                              seed=0, aot_cache=cache)
+        sync()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        captures = server.warmup()
+        sync()
+        buckets = len(server.batcher.buckets)
+        step9p(f"(b) dedup={d!r}: {2 * buckets} programs captured into the shared cache, "
+               "no hit")
+        check(captures == 2 * buckets and cache.stores == 2 * buckets * (i + 1)
+              and cache.hits == 0,
+              f"(b) dedup={d!r} captures {captures}, cache {cache.stores} stored, "
+              f"{cache.hits} hits")
+        expect_launches(read_launches(), {"uniform_hop": 2 * 2 * buckets},
+                        f"(b) dedup={d!r} warm-up")
+        warm[d] = {"captures": captures,
+                   "allocated_growth_bytes": torch.cuda.memory_allocated() - base}
+    nodes = np.random.default_rng(args.seed + 9).integers(0, topo.node_count, args.requests)
+    passes = {d: [] for d in DEDUPS}
+    for d in DEDUPS + DEDUPS[::-1]:
+        sync()
+        reset_launches()
+        before = served_batches(servers[d])
+        t0 = time.perf_counter()
+        reqs = closed_loop(servers[d], nodes, 8)
+        sync()
+        wall = time.perf_counter() - t0
+        batches = served_batches(servers[d]) - before
+        expect_launches(read_launches(), {"tiered_gather": batches},
+                        f"(b) dedup={d!r} pass", replayed={"uniform_hop": 2 * batches})
+        out = np.stack([r.result for r in reqs])
+        check(out.shape == (args.requests, 47) and bool(np.isfinite(out).all())
+              and all(r.overflow == 0 for r in reqs), f"(b) dedup={d!r} answers")
+        passes[d].append({"qps": len(reqs) / wall, "answers": out, "batches": batches})
+    step9p("(b) every pass's answers bitwise across sort and map")
+    for d in DEDUPS[1:]:
+        for a, b in zip(passes[d], passes["sort"]):
+            check(np.array_equal(a["answers"], b["answers"]),
+                  f"(b) dedup={d!r} answers == dedup='sort' answers")
+    qps = {d: [p["qps"] for p in ps] for d, ps in passes.items()}
+    log("phase 9p (b) queries/s (sort / map): " + " / ".join(
+        f"{statistics.mean(qps[d]):.1f}" for d in DEDUPS) + f" [{card}]")
+    batches = passes["sort"][0]["batches"]
+    return {d: {"uniform_hop": 2 * batches, "tiered_gather": batches} for d in DEDUPS}, {
+        "config": "phase 4's server (GraphSAGE 100 x 256 x 47, [5, 5], max_batch 8) over "
+                  "a hot-only store, one sampler per strategy on one placement, one "
+                  "AOTExecutableCache for both servers",
+        "warmup": warm, "qps": qps, "queries": args.requests, "batches": batches}
+
+
+def dedup_trainer(topo, store, card) -> tuple[dict, dict]:
+    """(c) ``DistributedTrainer`` over a topology-sharded sampler on the
+    logical ``(1, 4)`` mesh, ``"all"``, per strategy (the map bounded by
+    the global node count): 3 steps from ``init(0)`` under deterministic
+    kernels; losses and parameters bitwise across the strategies, the
+    same launches."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch import DistributedTrainer, GraphSAGE, GraphSageSampler
+
+    n = topo.node_count
+    labels = torch.from_numpy(np.random.default_rng(93).integers(0, 47, n)
+                              .astype(np.int32)).to("cuda")
+    rng = np.random.default_rng(94)
+    steps = [rng.integers(0, n, MULTI_BATCH * 4) for _ in range(MULTI_DET_STEPS)]
+    runs, launches = {}, {}
+    for d in DEDUPS:
+        mesh = logical_mesh(1, 4)
+        smp = GraphSageSampler(topo, MULTI_FANOUT, seed=0, topo_sharding="mesh", mesh=mesh,
+                               dedup=d)
+        model = GraphSAGE(store.size(1), MULTI_HIDDEN, 47, num_layers=len(MULTI_FANOUT))
+        trainer = DistributedTrainer(mesh, smp, store, model.to("cuda"),
+                                     torch.optim.Adam(model.parameters(), lr=1e-3),
+                                     local_batch=MULTI_BATCH, seed_sharding="all")
+        trainer.init(0)
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        with deterministic_algorithms():
+            losses = [trainer.step(s, labels, 300 + i) for i, s in enumerate(steps)]
+            sync()
+        launches[d] = read_launches()
+        runs[d] = {"losses": torch.stack([torch.as_tensor(v) for v in losses]).cpu(),
+                   "seconds": time.perf_counter() - t0,
+                   "params": {k: v.detach().clone() for k, v in model.state_dict().items()},
+                   "sample_overflow": trainer.last_sample_overflow.clone()}
+        del trainer, smp
+    step9p("(c) losses, parameters and overflow bitwise across sort and map; "
+           "the same launches")
+    for d in DEDUPS[1:]:
+        check(equal(runs[d]["losses"], runs["sort"]["losses"])
+              and equal(runs[d]["sample_overflow"], runs["sort"]["sample_overflow"])
+              and all(equal(v, runs["sort"]["params"][k]) for k, v in runs[d]["params"].items()),
+              f"(c) dedup={d!r} trainer == dedup='sort' trainer")
+        check(launches[d] == launches["sort"], f"(c) dedup={d!r} launches {launches[d]}")
+    check(launches["sort"]["select"] > 0 and launches["sort"]["tiered_gather"] > 0,
+          f"(c) launches {launches['sort']}")
+    return launches, {
+        "config": f"the products-shaped graph partitioned over the (1, 4) logical mesh, "
+                  f"GraphSAGE {store.size(1)} x {MULTI_HIDDEN} x 47 x {len(MULTI_FANOUT)}, "
+                  f"{MULTI_FANOUT} x {MULTI_BATCH} a worker, Adam 1e-3, seed_sharding='all', "
+                  "the hot-only store of (b); deterministic kernels",
+        "steps": MULTI_DET_STEPS, "losses": runs["sort"]["losses"].tolist(),
+        "seconds": {d: r["seconds"] for d, r in runs.items()}, "launches": launches}
+
+
+def dedup_typed(card) -> tuple[dict, dict]:
+    """(d) ``HeteroGraphSampler`` and ``DistHeteroSampler`` (``(1, 4)``)
+    per strategy at ``bench_rgcn.py``'s defaults (the MAG-shaped graph,
+    [8, 4] x 512): each strategy's samples bitwise the sort's, the same
+    launches."""
+    import numpy as np
+
+    from quiver_tpu_torch import DistHeteroSampler, HeteroCSRTopo, HeteroGraphSampler
+
+    num_nodes, edges = mag_edges(np.random.default_rng(0))
+    topo = HeteroCSRTopo(num_nodes, edges)
+    seeds = np.random.default_rng(95).integers(0, MAG_PAPERS, RGCN_BATCH)
+    outs, launches = {}, {}
+    for d in DEDUPS:
+        rep = HeteroGraphSampler(topo, RGCN_FANOUT, "paper", seed=0, dedup=d, device="cuda")
+        dist = DistHeteroSampler(topo, RGCN_FANOUT, "paper", mesh=logical_mesh(*DIST_MESH),
+                                 routed_alpha=DIST_HETERO_ALPHA, seed=0, dedup=d)
+        sync()
+        reset_launches()
+        outs[d] = (rep.sample(seeds), dist.sample(seeds, key=7))
+        sync()
+        launches[d] = read_launches()
+    step9p("(d) typed samples bitwise across sort and map; the same launches")
+    for d in DEDUPS[1:]:
+        for got, want in zip(outs[d], outs["sort"]):
+            check(all(equal(got.n_id[t], want.n_id[t]) for t in want.n_id)
+                  and all(equal(la.adjs[et].edge_index, a.edge_index)
+                          for la, lb in zip(got.adjs, want.adjs) for et, a in lb.adjs.items()),
+                  f"(d) dedup={d!r} typed sample == dedup='sort'")
+        check(launches[d] == launches["sort"], f"(d) dedup={d!r} launches {launches[d]}")
+    check(launches["sort"]["uniform_hop"] == RGCN_HOPS and launches["sort"]["select"] > 0,
+          f"(d) launches {launches['sort']}")
+    return launches, {"config": "bench_rgcn.py defaults: the MAG-shaped graph, [8, 4] x 512; "
+                                "HeteroGraphSampler and DistHeteroSampler on (1, 4)",
+                      "launches": launches}
+
+
+def dedup_phase(args, topo, x_all, card) -> tuple[dict, dict]:
+    """Phase 9p (see the module docstring). Returns ``(launches by part and
+    strategy, result)``."""
+    import torch
+
+    from quiver_tpu_torch import Feature
+    from quiver_tpu_torch.ops.reindex import resolve_dedup
+
+    t0 = time.time()
+    step9p("dedup='auto' resolves to 'sort' on the card")
+    check(resolve_dedup("auto") == "sort", f"auto dedup {resolve_dedup('auto')!r}")
+    dev_topo = topo.to_device("GPU", "cuda", with_weights=True)
+    launches, result = {}, {"card": card}
+    launches["samplers"], result["samplers"] = dedup_samplers(topo, dev_topo, card)
+    n, F = x_all.shape
+    store = Feature(device_cache_size=n * F * 4, device="cuda").from_cpu_tensor(x_all)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    try:
+        launches["servers"], result["servers"] = dedup_servers(args, topo, dev_topo, store,
+                                                               card)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    del dev_topo
+    torch.cuda.empty_cache()
+    launches["trainer"], result["trainer"] = dedup_trainer(topo, store, card)
+    del store
+    torch.cuda.empty_cache()
+    launches["typed"], result["typed"] = dedup_typed(card)
+    result["seconds"] = time.time() - t0
+    log(f"phase 9p {result['seconds']:.1f}s [{card}]")
+    return launches, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8807,6 +9277,12 @@ def main() -> int:
     fleet = fleet_phase(args, topo, feat_cold, x_all, card)
     del feat_cold
     lap("phase 11 (serving fleet)")
+    # phase 9p: the reindex's sort and map strategies on the serving
+    # graph: the samplers, the captured ladder, the (1, 4) trainer and the
+    # typed samplers, bitwise across the strategies, each reindex timed
+    launches_p, dedup = dedup_phase(args, topo, x_all, card)
+    torch.cuda.empty_cache()
+    lap("phase 9p (dedup strategies)")
     for mode in ("sampled", "layerwise", "int8_sampled"):
         log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
             f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
@@ -9018,6 +9494,10 @@ def main() -> int:
           and all(launches_k[k]["select"] > 0 and launches_k[k]["gather_rows"] > 0
                   for k in ("epoch_0", "epoch_1"))
           and launches_k["sample"]["select"] > 0 and launches_k["gather_psum"]["gather_rows"] > 0
+          and all(v["uniform_hop"] > 0 and v["weighted_hop"] > 0
+                  for v in launches_p["samplers"].values())
+          and all(v["select"] > 0 and v["tiered_gather"] > 0
+                  for v in launches_p["trainer"].values())
           and all(v[k] > 0 for k, v in (("select", launches_g["sample"]["uniform"]),
                                         ("wselect", launches_g["sample"]["weighted"]),
                                         ("select", launches_g["trainer"]),
@@ -9052,7 +9532,7 @@ def main() -> int:
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
                        "world": world_res, "world_topo": world_topo,
-                       "world_control": world_ctl, "lint": lint_row,
+                       "world_control": world_ctl, "dedup": dedup, "lint": lint_row,
                        "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
@@ -9098,6 +9578,7 @@ def main() -> int:
     print(json.dumps({"world": world_res}), flush=True)
     print(json.dumps({"world_topo": world_topo}), flush=True)
     print(json.dumps({"world_control": world_ctl}), flush=True)
+    print(json.dumps({"dedup": dedup}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

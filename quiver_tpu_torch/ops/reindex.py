@@ -2,16 +2,26 @@
 
 The port of ``quiver_tpu/ops/reindex.py`` (``masked_unique``,
 ``reindex_layer`` and the reference's permutation helpers). Every id is
-assigned the position of its first occurrence through a stable sort, so
-the unique list comes out in first-occurrence order with the seeds first
-(PyG's ``n_id[:batch_size]`` contract). The JAX package keeps three bit-identical strategies
-(sort/map/scan); the port keeps the sort, which suits the small serving
-frontiers and needs no ``(node_count,)`` scratch map per hop. Both
-functions take JAX's ``node_bound`` and ``scatter_free``, which pick one
-of those strategies there and are inert here (every strategy returns the
-same outputs). Both take optional leading batch dimensions, one
-independent dedup per leading index. :func:`resolve_dedup` keeps the JAX
-package's contract for the strategy names.
+assigned the position of its first occurrence, so the unique list comes
+out in first-occurrence order with the seeds first (PyG's
+``n_id[:batch_size]`` contract). Two strategies find that position, with
+the same outputs:
+
+- ``"sort"``: a stable sort, a run-start scan, scatters back to the lanes
+  and into the unique list;
+- ``"map"`` (``node_bound=``): a scatter-min into a dense ``(node_bound,)``
+  int32 position map per row, no sort (the reference's GPU hash table).
+
+The JAX package's third strategy, ``"scan"`` (``scatter_free=True``),
+avoids scatters, which are slow on a TPU; on the card it was slower than
+the sort at every measured shape (``chip_smoke.py`` phase 9p), so the
+name is accepted and runs the sort, with the same outputs.
+
+Both functions take optional leading batch dimensions, one independent
+dedup per leading index (the map is then ``(R, node_bound)``).
+:func:`resolve_dedup` keeps the JAX package's contract for the strategy
+names and ``QUIVER_DEDUP``; :func:`dedup_bound` turns a resolved name
+into the functions' ``node_bound``.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import torch
 from ..core.config import resolve_platform_strategy
 from ..utils.trace import info_once
 
-__all__ = ["complete_permutation", "inverse_permutation",
+__all__ = ["complete_permutation", "dedup_bound", "inverse_permutation",
            "inverse_permutation_gather", "masked_unique", "reindex_layer",
            "resolve_dedup"]
 
@@ -49,13 +59,14 @@ def resolve_dedup(dedup: str) -> str:
     The JAX package's contract: an explicit ``"sort"``, ``"map"`` or
     ``"scan"`` passes through, and a ``QUIVER_DEDUP`` force that differs
     from it is logged once (the force applies to ``"auto"`` only);
-    ``"auto"`` takes a valid force, else the default, both read once per
-    process; an unknown name, or an unknown force, raises ``ValueError``.
+    ``"auto"`` takes a valid force, else the platform's default, both read
+    once per process; an unknown name, or an unknown force, raises
+    ``ValueError``.
 
-    The port runs the sort for every name (the three strategies are
-    bit-identical; the map and scan ones are not ported), so its
-    ``"auto"`` resolves to ``"sort"``, the strategy that runs, where the
-    JAX package's picks ``"map"`` on the CPU and ``"scan"`` on a TPU.
+    The default is ``"map"`` off the card, as the JAX package's CPU
+    default, and ``"sort"`` when a CUDA device is present (the strategy
+    the card's paths were built and timed with; ``chip_smoke.py`` phase
+    9p times the map beside it there).
     """
     if dedup in DEDUP_STRATEGIES:
         forced = _forced_dedup_env()
@@ -75,11 +86,49 @@ def resolve_dedup(dedup: str) -> str:
     if _auto_dedup is None:
         _auto_dedup = resolve_platform_strategy(
             "QUIVER_DEDUP", DEDUP_STRATEGIES, tpu_default="sort",
-            other_default="sort",
+            other_default="map",
         )
     return _auto_dedup
 
+
+def dedup_bound(dedup: str, bound):
+    """The ``node_bound`` that runs the resolved strategy ``dedup``:
+    ``bound`` (an id bound, or the typed samplers' ``{type: bound}``)
+    under ``"map"``, None under ``"sort"`` and ``"scan"``, which both run
+    the sort. Raises ``ValueError`` on a name that is not a resolved
+    strategy (``"auto"`` included), or on ``"map"`` with no bound."""
+    if dedup not in DEDUP_STRATEGIES:
+        raise ValueError(f"dedup must be one of {DEDUP_STRATEGIES} (resolved), "
+                         f"got {dedup!r}")
+    if dedup != "map":
+        return None
+    if bound is None:
+        raise ValueError("dedup='map' needs a node bound")
+    return bound
+
+
 _SENTINEL = torch.iinfo(torch.int64).max
+
+
+def _rep_by_map(ids2, valid2, node_bound: int):
+    """``dedup="map"``: each lane's first-occurrence position from a dense
+    ``(R, node_bound)`` int32 position map filled with ``T``: the valid
+    lanes scatter-min their positions into it and every lane reads its
+    id's slot back (the reference's hash table, whose atomicMin keeps the
+    first occurrence). No sort. Ids index the map as JAX's do: a negative
+    id counts from the end; a valid id outside the map is left out of the
+    scatter, and its read clamps into the map (a wrong answer, as in the
+    JAX package: ``node_bound`` must bound the ids)."""
+    R, T = ids2.shape
+    pos = torch.arange(T, dtype=torch.int32, device=ids2.device)
+    slot = torch.where(valid2, ids2, 0).to(torch.int64)
+    slot = torch.where(slot < 0, slot + node_bound, slot)
+    inside = valid2 & (slot >= 0) & (slot < node_bound)
+    # a lane left out writes the fill T into slot 0, which changes no slot
+    first = torch.full((R, node_bound), T, dtype=torch.int32, device=ids2.device)
+    first.scatter_reduce_(1, torch.where(inside, slot, 0),
+                          torch.where(inside, pos, T), "amin")
+    return torch.gather(first, 1, slot.clamp(0, node_bound - 1))
 
 
 def masked_unique(ids, valid, size: int, num_forced: int = 0,
@@ -93,16 +142,20 @@ def masked_unique(ids, valid, size: int, num_forced: int = 0,
       num_forced: the first ``num_forced`` valid lanes are kept as distinct
         outputs even when their values repeat (seed lanes, duplicates
         included); later duplicates map to the first occurrence.
+      node_bound: run ``dedup="map"``: a scatter-min into a dense
+        ``(..., node_bound)`` int32 position map, no sort. Every valid id
+        must lie in ``[0, node_bound)``: one past it gives a wrong answer
+        and no error, as in the JAX package.
+      scatter_free: JAX's ``dedup="scan"`` switch, accepted; the sort
+        runs (the same outputs).
+
+    Without ``node_bound``, ``dedup="sort"``: a stable sort and scatters.
 
     Returns:
       uniq: ``(..., size)`` unique ids in first-occurrence order, -1 padded.
       num_unique: ``(...)`` int32 total uniques found (may exceed ``size``).
       local: ``(..., T)`` int32 compact id of each element among the
         uniques, -1 for invalid or overflowed elements.
-
-    ``node_bound`` and ``scatter_free`` are JAX's strategy switches
-    (a scatter-min map, the zero-scatter scan), accepted and inert: the
-    outputs are the sort's either way.
     """
     lead, T = ids.shape[:-1], ids.shape[-1]
     ids2 = ids.reshape(-1, T)
@@ -110,17 +163,20 @@ def masked_unique(ids, valid, size: int, num_forced: int = 0,
     R = ids2.shape[0]
     dev = ids.device
     pos = torch.arange(T, device=dev, dtype=torch.int64)
-    vals = torch.where(valid2, ids2.to(torch.int64), _SENTINEL)
-    # stable sort: within a run of equal values positions ascend, so a
-    # run's first sorted element is the value's first occurrence
-    sv, order = torch.sort(vals, dim=-1, stable=True)
-    first = torch.ones_like(sv, dtype=torch.bool)
-    first[:, 1:] = sv[:, 1:] != sv[:, :-1]
-    first &= sv != _SENTINEL
-    idx_first = torch.cummax(torch.where(first, pos, -1), dim=-1).values
-    rep_sorted = torch.where(
-        idx_first >= 0, torch.gather(order, 1, idx_first.clamp(min=0)), T)
-    rep_pos = torch.empty_like(rep_sorted).scatter_(1, order, rep_sorted)
+    if node_bound is not None:
+        rep_pos = _rep_by_map(ids2, valid2, int(node_bound)).to(torch.int64)
+    else:
+        vals = torch.where(valid2, ids2.to(torch.int64), _SENTINEL)
+        # stable sort: within a run of equal values positions ascend, so a
+        # run's first sorted element is the value's first occurrence
+        sv, order = torch.sort(vals, dim=-1, stable=True)
+        first = torch.ones_like(sv, dtype=torch.bool)
+        first[:, 1:] = sv[:, 1:] != sv[:, :-1]
+        first &= sv != _SENTINEL
+        idx_first = torch.cummax(torch.where(first, pos, -1), dim=-1).values
+        rep_sorted = torch.where(
+            idx_first >= 0, torch.gather(order, 1, idx_first.clamp(min=0)), T)
+        rep_pos = torch.empty_like(rep_sorted).scatter_(1, order, rep_sorted)
 
     forced = (pos < num_forced) & valid2
     is_rep = (valid2 & (rep_pos == pos)) | forced
@@ -146,6 +202,9 @@ def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int,
       num_seeds: valid seed count, scalar or ``(...)``.
       neighbors: ``(..., S, K)`` sampled ids, -1 where invalid.
       frontier_cap: capacity of the output frontier.
+      node_bound, scatter_free: the dedup strategy, as
+        :func:`masked_unique` (``"map"`` with ``node_bound``, else
+        ``"sort"``).
 
     Returns:
       frontier: ``(..., frontier_cap)`` unique ids, seeds first, -1 padded.
@@ -153,8 +212,6 @@ def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int,
       col_local: ``(..., S, K)`` frontier-local id per neighbour, -1 where
         invalid (seed i's local id is i).
       overflow: ``(...)`` uniques dropped for exceeding ``frontier_cap``.
-
-    ``node_bound`` and ``scatter_free``: as :func:`masked_unique`, inert.
     """
     *lead, S, K = neighbors.shape
     flat = neighbors.reshape(*lead, S * K)
@@ -164,7 +221,7 @@ def reindex_layer(seeds, num_seeds, neighbors, frontier_cap: int,
     seed_valid = (lane < num[..., None]) & (seeds >= 0)
     valid = torch.cat([seed_valid, flat >= 0], dim=-1)
     uniq, num_unique, local = masked_unique(ids, valid, frontier_cap,
-                                            num_forced=S)
+                                            num_forced=S, node_bound=node_bound)
     col_local = local[..., S:].reshape(*lead, S, K)
     num_frontier = num_unique.clamp(max=frontier_cap)
     overflow = (num_unique - frontier_cap).clamp(min=0)

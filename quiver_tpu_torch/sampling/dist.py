@@ -67,6 +67,7 @@ from ..core.sharded_topology import ShardedTopology, shard_position
 from ..core.topology import CSRTopo
 from ..obs.registry import SAMPLE_OVERFLOW, MetricsRegistry
 from ..ops.kernels.fused import select, wselect
+from ..ops.reindex import dedup_bound
 from ..ops.sample import (
     fold_key,
     rotate_offsets,
@@ -321,7 +322,8 @@ def dist_sample_layer(shards, seeds, num_seeds, k: int, draw, *,
 
 def dist_multilayer_sample(shards, seeds, num_seeds, sizes, caps, draw, *,
                            routed_alpha: float | None = 2.0,
-                           weighted: bool = False, time_window=None, group=None):
+                           weighted: bool = False, time_window=None, group=None,
+                           dedup: str = "sort", node_count: int | None = None):
     """The multi-layer distributed sample and reindex of a feature group
     (of one member, its ``(1, S)`` row, on a world mesh: ``group=``, as in
     :func:`dist_sample_layer`).
@@ -331,10 +333,14 @@ def dist_multilayer_sample(shards, seeds, num_seeds, sizes, caps, draw, *,
     ``(F,)``, ``draw(layer, deg)`` gives a hop's draws over its ``(F,
     S_l)`` degrees (see :func:`dist_sample_layer`); the reindex and the
     ``Adj`` assembly are the replicated loop's (``reindex_hop``), one per
-    member. Returns the replicated loop's tuple, each entry with a
-    leading member dimension, and the ``(L,)`` int32 vector of per-hop
-    fallback-served lanes (group totals, seeds outward).
+    member, by the resolved strategy ``dedup``; ``"map"`` needs
+    ``node_count``, the GLOBAL node count (every rank holds it from the
+    indptr geometry), which bounds every sampled id. Returns the
+    replicated loop's tuple, each entry with a leading member dimension,
+    and the ``(L,)`` int32 vector of per-hop fallback-served lanes (group
+    totals, seeds outward).
     """
+    node_bound = dedup_bound(dedup, node_count)
     F = seeds.shape[0] if group is None else len(group.ranks)
     adjs, edge_counts, frontier_counts, hop_overflows = [], [], [], []
     cur, cur_n = seeds, torch.as_tensor(num_seeds, device=seeds.device)
@@ -348,7 +354,7 @@ def dist_multilayer_sample(shards, seeds, num_seeds, sizes, caps, draw, *,
         hop_overflows.append(hop_ov)
         with trace_scope(f"reindex_layer_{l}"):
             frontier, n_frontier, adj, edges, overflow = reindex_hop(
-                cur, cur_n, nbr, caps[l])
+                cur, cur_n, nbr, caps[l], node_bound=node_bound)
         adjs.append(adj)
         edge_counts.append(edges)
         frontier_counts.append(n_frontier + overflow)
@@ -543,7 +549,8 @@ class DistGraphSageSampler(GraphSageSampler):
             self._group_draw(cap, keys, draw_fn),
             routed_alpha=self.routed_alpha if routed_alpha is _OWN else routed_alpha,
             weighted=self.weighted, time_window=self.time_window,
-            group=self._world_group())
+            group=self._world_group(), dedup=self.dedup,
+            node_count=self.topo.node_count)
 
     def sample_group(self, seeds, num_seeds, generators=None, draw_fn=None,
                      routed_alpha=_OWN):

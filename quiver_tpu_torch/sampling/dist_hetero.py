@@ -60,7 +60,8 @@ __all__ = ["DistHeteroSampler", "dist_hetero_multilayer_sample"]
 def dist_hetero_multilayer_sample(rels, seeds, num_seeds, input_type,
                                   layer_plans, draw, *, rows_per_shard: dict,
                                   routed_alpha: float | None = 2.0,
-                                  weighted_rels=frozenset(), group=None):
+                                  weighted_rels=frozenset(), group=None,
+                                  node_bounds=None):
     """The distributed hetero loop of a feature group (group form), or of
     one member's ``(1, S)`` row over its feature group ``group`` (world
     form, as ``dist_sample_layer``'s).
@@ -77,6 +78,8 @@ def dist_hetero_multilayer_sample(rels, seeds, num_seeds, input_type,
       routed_alpha: the bucket budget, ``ceil(alpha * S_t / F)`` lanes per
         destination per (hop, type); None: uncapped.
       weighted_rels: the relations that draw by weight.
+      node_bounds: ``{type: global node count}`` runs the per-type
+        dedup by ``"map"``, as ``hetero_reindex_hop``'s; None, the sort.
 
     Returns ``(frontier {type: (F, cap)}, counts {type: (F,)}, layers
     deepest first, overflow (F,), per-hop unclipped uniques seeds outward,
@@ -111,7 +114,8 @@ def dist_hetero_multilayer_sample(rels, seeds, num_seeds, input_type,
         hop_overflows.extend(routes[et[2]].overflow
                              for et in sorted(rel_fanouts, key=str))
         frontier, counts, adjs, uniques, ovf = hetero_reindex_hop(
-            frontier, counts, samples, rel_fanouts, caps_next)
+            frontier, counts, samples, rel_fanouts, caps_next,
+            node_bounds=node_bounds)
         overflow = overflow + ovf
         layers.append(HeteroLayer(adjs, dict(caps_next), dict(caps_prev)))
         frontier_counts.append(uniques)
@@ -277,7 +281,7 @@ class DistHeteroSampler(HeteroGraphSampler):
                 self._group_draw(cap, [keys[w] for w in members], gdraw),
                 rows_per_shard=self.dev_topos.rows_per_shard,
                 routed_alpha=self.routed_alpha, weighted_rels=self.weighted_rels,
-                group=world_group))
+                group=world_group, **self._dedup_args()))
         merge = merger(self.mesh, outs, groups)
 
         frontier = {t: merge(lambda o, t=t: o[0][t]) for t in outs[0][0]}

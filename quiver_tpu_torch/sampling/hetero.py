@@ -36,7 +36,7 @@ import torch
 from ..core.config import SampleMode
 from ..core.hetero import HeteroCSRTopo
 from ..core.memory import resolve_device
-from ..ops.reindex import masked_unique, resolve_dedup
+from ..ops.reindex import dedup_bound, masked_unique, resolve_dedup
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
 from .sampler import Adj, _round_up, check_seed_range, read_counts, run_auto_caps
 
@@ -112,7 +112,7 @@ def _normalize_sizes(sizes, topo: HeteroCSRTopo):
 
 
 def hetero_reindex_hop(frontier, counts, samples, rel_fanouts, caps_next,
-                       eids=None):
+                       eids=None, node_bounds=None):
     """One typed hop's per-type dedup and ``Adj`` records.
 
     ``frontier``/``counts`` map each node type to its ``(..., S_t)`` ids
@@ -124,8 +124,10 @@ def hetero_reindex_hop(frontier, counts, samples, rel_fanouts, caps_next,
 
     Each type's new frontier is the previous one first (forced), then each
     relation's samples of that source type in ``sorted(str)`` order,
-    deduplicated. Returns ``(new frontier, new counts, {edge_type: Adj},
-    unclipped uniques per type, overflow)``.
+    deduplicated: by ``"map"`` with ``node_bounds`` (``{type: node
+    count}``), else by ``"sort"``.
+    Returns ``(new frontier, new counts, {edge_type: Adj}, unclipped
+    uniques per type, overflow)``.
     """
     new_frontier, new_counts, locals_per_rel, layer_uniques = {}, {}, {}, {}
     overflow = 0
@@ -146,9 +148,9 @@ def hetero_reindex_hop(frontier, counts, samples, rel_fanouts, caps_next,
             spans[et] = (sum(b.shape[-1] for b in blocks), flat.shape[-1])
             blocks.append(flat)
             valids.append(flat >= 0)
-        uniq, num_u, local = masked_unique(torch.cat(blocks, -1),
-                                           torch.cat(valids, -1), cap,
-                                           num_forced=n_prev)
+        uniq, num_u, local = masked_unique(
+            torch.cat(blocks, -1), torch.cat(valids, -1), cap, num_forced=n_prev,
+            node_bound=None if node_bounds is None else node_bounds[t])
         new_frontier[t] = uniq
         new_counts[t] = num_u.clamp(max=cap)
         layer_uniques[t] = num_u
@@ -178,7 +180,8 @@ def hetero_reindex_hop(frontier, counts, samples, rel_fanouts, caps_next,
 
 def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
                              layer_plans, draw=None, bits=None,
-                             weighted_rels=frozenset(), with_eid: bool = False):
+                             weighted_rels=frozenset(), with_eid: bool = False,
+                             node_bounds=None):
     """The hetero sampling loop.
 
     ``layer_plans`` is a tuple of per-hop plans ``(rel_fanouts, caps_prev,
@@ -188,9 +191,11 @@ def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
     offsets (``float32`` ``u01`` on a relation of ``weighted_rels``) from
     its degrees; ``bits(hop, edge_type, shape)`` its raw draws over rows of
     ``shape``, which a fused entry consumes. ``with_eid`` threads each
-    relation's COO edge positions into every ``Adj.e_id``. ``num_seeds`` is
-    an int or a device scalar; nothing on this path reads the device back,
-    so it runs as one stream of launches.
+    relation's COO edge positions into every ``Adj.e_id``. ``node_bounds``
+    (``{type: node count}``) runs the per-type dedup by ``"map"``, else
+    by ``"sort"``, as in :func:`hetero_reindex_hop`. ``num_seeds`` is an int or a device
+    scalar; nothing on this path reads the device back, so it runs as one
+    stream of launches.
 
     Returns ``(frontier {type: ids}, counts {type: 0-d}, layers deepest
     first, overflow, per-hop unclipped unique counts seeds outward)``.
@@ -225,7 +230,7 @@ def hetero_multilayer_sample(dev_topos, seeds, num_seeds, input_type,
 
         new_frontier, new_counts, adjs, layer_uniques, ovf = hetero_reindex_hop(
             frontier, counts, samples, rel_fanouts, caps_next,
-            eids if with_eid else None)
+            eids if with_eid else None, node_bounds)
         overflow = overflow + ovf
         layers.append(HeteroLayer(adjs, dict(caps_next), dict(caps_prev)))
         frontier_counts.append(layer_uniques)
@@ -260,10 +265,12 @@ class HeteroGraphSampler:
         relations sample uniformly.
       with_eid: populate every ``Adj.e_id`` with relation-local COO edge
         positions.
-      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, resolved by
-        :func:`~..ops.reindex.resolve_dedup` (``"auto"`` is ``"sort"``): the
-        JAX package's three strategies give identical results, and each
-        runs the port's one reindex, which gives them too.
+      dedup: the per-type reindex strategy, ``"sort"``, ``"map"`` (a
+        dense ``(num_nodes[type],)`` position map per type, no sort),
+        ``"scan"`` (JAX's scatter-free strategy; the port runs the sort)
+        or ``"auto"``, resolved once here by
+        :func:`~..ops.reindex.resolve_dedup` (``"map"`` off the card,
+        ``"sort"`` on it). All give the same samples.
       device: sampling device; CUDA unless the caller names another.
 
     ``reruns`` counts the calls an auto sampler ran again under regrown
@@ -278,7 +285,7 @@ class HeteroGraphSampler:
                  with_eid: bool = False, dedup: str = "auto", device=None):
         if input_type not in topo.num_nodes:
             raise ValueError(f"unknown input_type {input_type!r}")
-        self.dedup = resolve_dedup(str(dedup))  # validates; "auto" -> "sort"
+        self.dedup = resolve_dedup(str(dedup))  # validates; "auto" -> platform
         self.device = resolve_device(device)
         self.topo = topo
         self.input_type = input_type
@@ -429,7 +436,7 @@ class HeteroGraphSampler:
             return hetero_multilayer_sample(
                 self.dev_topos, dev_seeds, batch, self.input_type, plans,
                 weighted_rels=self.weighted_rels, with_eid=self.with_eid,
-                **seam)
+                **self._dedup_args(), **seam)
 
         frontier, counts, layers, overflow, fcounts = run_auto_caps(
             self, run, lambda o: read_counts(o[3], o[4]), self._plan_auto,
@@ -472,7 +479,13 @@ class HeteroGraphSampler:
         return hetero_multilayer_sample(
             self.dev_topos, seeds, num_seeds, self.input_type, plans,
             weighted_rels=self.weighted_rels, with_eid=self.with_eid,
-            **self._draw_seam(cap, draw_fn, key))
+            **self._dedup_args(), **self._draw_seam(cap, draw_fn, key))
+
+    def _dedup_args(self) -> dict:
+        """The per-type dedup's arguments for :attr:`dedup`: the node
+        counts bound the ``"map"`` strategy's position maps."""
+        return {"node_bounds": dedup_bound(
+            self.dedup, {t: int(n) for t, n in self.topo.num_nodes.items()})}
 
     def _draw_seam(self, cap: int, draw_fn, key: tuple) -> dict:
         """The relation hops' draws of one call at seed capacity ``cap``,

@@ -35,7 +35,7 @@ from ..core.config import SampleMode
 from ..core.memory import resolve_device
 from ..core.topology import CSRTopo, DeviceTopology, VersionMismatchError
 from ..ops.election import KernelElection, validate_kernel_arg
-from ..ops.reindex import reindex_layer, resolve_dedup
+from ..ops.reindex import dedup_bound, reindex_layer, resolve_dedup
 from ..ops.sample import hop_draws, sample_layer, seeded_generator
 from ..utils.trace import get_logger
 
@@ -89,7 +89,8 @@ def _round_up(x: int, m: int) -> int:
 
 def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
                       with_eid: bool = False, weighted: bool = False,
-                      time_window=None, bits=None, fused: bool = True):
+                      time_window=None, bits=None, fused: bool = True,
+                      dedup: str = "sort"):
     """The multi-layer sample + reindex loop.
 
     ``seeds`` is ``(..., S)``, ``num_seeds`` a scalar or ``(...)``; every
@@ -102,13 +103,18 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
     ``u01``), which a fused entry consumes. ``time_window`` makes every
     hop temporal (``deg`` is then the in-window degree). ``fused=False``
     runs a ``bits`` hop through the composed path (``sample_layer``'s
-    ``fused``).
+    ``fused``). ``dedup`` is each hop's reindex strategy, a name
+    ``resolve_dedup`` resolved: ``"map"`` bounds the ids by the placed
+    topology's node count, read here at each call.
 
     Returns (n_id, n_count, adjs deepest-first, overflow, per-layer edge
     counts, per-layer unclipped frontier counts).
     """
     if (draw is None) == (bits is None):
         raise ValueError("multilayer_sample takes one of draw and bits")
+    # the map's bound is the placement's node count, static in indptr's
+    # shape (a commit republishes the topology, so it is read per call)
+    node_bound = dedup_bound(dedup, int(topo.indptr.shape[0]) - 1)
     adjs, edge_counts, frontier_counts = [], [], []
     cur, cur_n = seeds, num_seeds
     total_overflow = torch.zeros(cur.shape[:-1], dtype=torch.int32,
@@ -122,7 +128,8 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
                            weighted=weighted, time_window=time_window,
                            fused=fused, **seam)
         frontier, n_frontier, adj, edges, overflow = reindex_hop(
-            cur, cur_n, out[0], caps[l], out[2] if with_eid else None)
+            cur, cur_n, out[0], caps[l], out[2] if with_eid else None,
+            node_bound=node_bound)
         adjs.append(adj)
         edge_counts.append(edges)
         frontier_counts.append(n_frontier + overflow)
@@ -133,15 +140,17 @@ def multilayer_sample(topo, seeds, num_seeds, sizes, caps, draw=None,
             tuple(frontier_counts[::-1]))
 
 
-def reindex_hop(cur, cur_n, nbr, cap: int, eids=None):
+def reindex_hop(cur, cur_n, nbr, cap: int, eids=None, node_bound: int | None = None):
     """One hop's reindex and ``Adj``: the frontier ``unique(cur ∪ nbr)``
     (seeds first) of capacity ``cap``, and the hop's padded edge list
     (source = frontier-local neighbour id, target = row of ``cur``).
     ``cur`` is ``(..., S)``, ``nbr`` ``(..., S, k)``; ``eids`` the
-    neighbours' edge ids, masked where the frontier cap dropped them.
+    neighbours' edge ids, masked where the frontier cap dropped them;
+    ``node_bound`` runs the map (``reindex_layer``'s).
 
     Returns ``(frontier, n_frontier, adj, edge count, overflow)``."""
-    frontier, n_frontier, col, overflow = reindex_layer(cur, cur_n, nbr, cap)
+    frontier, n_frontier, col, overflow = reindex_layer(
+        cur, cur_n, nbr, cap, node_bound=node_bound)
     *lead, S, k = col.shape
     row = torch.arange(S, dtype=torch.int32, device=col.device)[:, None]
     row = torch.where(col >= 0, row, -1)
@@ -340,10 +349,13 @@ class GraphSageSampler:
         card, ``"xla"`` on the CPU; see :func:`resolve_sample_kernel`),
         resolved at the first ``sample``.
       with_eid: populate ``Adj.e_id`` with per-edge ids.
-      dedup: ``"sort"``, ``"map"``, ``"scan"`` or ``"auto"``, resolved by
-        :func:`~..ops.reindex.resolve_dedup` (``"auto"`` is ``"sort"``): the
-        JAX package's three reindex strategies give identical results, and
-        every one runs the port's one reindex, which gives them too.
+      dedup: each hop's reindex strategy, ``"sort"``, ``"map"`` (a
+        dense ``(node_count,)`` position map per row, no sort),
+        ``"scan"`` (JAX's scatter-free strategy; the port runs the sort)
+        or ``"auto"``, resolved once here by
+        :func:`~..ops.reindex.resolve_dedup` (``"map"`` off the card,
+        ``"sort"`` on it; ``QUIVER_DEDUP`` forces it). All give the same
+        samples.
       device_topo: a placed :class:`~..core.topology.DeviceTopology` to
         reuse instead of placing a fresh copy, so that samplers (and the
         serving replicas over them) share one device-resident graph. It
@@ -392,7 +404,7 @@ class GraphSageSampler:
         self.compiled_cache_size = int(compiled_cache_size)
         self.device = resolve_device(device)
         self._kernel = validate_kernel_arg(str(kernel))
-        self.dedup = resolve_dedup(str(dedup))  # validates; "auto" -> "sort"
+        self.dedup = resolve_dedup(str(dedup))  # validates; "auto" -> platform
         self.csr_topo = csr_topo
         self.mode = SampleMode.parse(mode)
         max_deg = csr_topo.max_degree
@@ -569,7 +581,8 @@ class GraphSageSampler:
             return multilayer_sample(
                 self.topo, dev_seeds, batch, self.sizes, self._caps_for(cap),
                 with_eid=self.with_eid, weighted=self.weighted,
-                time_window=self.time_window, fused=fused, **seam)
+                time_window=self.time_window, fused=fused, dedup=self.dedup,
+                **seam)
 
         n_id, n_count, adjs, overflow, edge_counts, frontier_counts = run_auto_caps(
             self, run, lambda o: read_counts(o[3], o[5]),
@@ -611,7 +624,7 @@ class GraphSageSampler:
             self.topo, seeds, num_seeds, self.sizes, self._caps_for(cap),
             with_eid=self.with_eid, weighted=self.weighted,
             time_window=self.time_window, fused=self.kernel == "pallas",
-            **self._draw_seam(cap, draw_fn, key))
+            dedup=self.dedup, **self._draw_seam(cap, draw_fn, key))
 
     def _draw_seam(self, cap: int, draw_fn, key: tuple) -> dict:
         """The hop draws of one call at seed capacity ``cap``, as the

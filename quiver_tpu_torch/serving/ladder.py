@@ -347,7 +347,9 @@ class ServeLadder:
         ladder's keys, with torch's, CUDA's and the card's versions and
         name in place of jax, platform and device kind. The CSR's
         committed ``version`` and the placed topology's shapes are both in
-        the key, so a mutation always forks the fingerprint."""
+        the key, so a mutation always forks the fingerprint; the sampler's
+        dedup strategy is keyed by name (JAX's key, a bool, ties the
+        strategies together)."""
         s = self.sampler
         cuda = self.device.type == "cuda"
         comp = {
@@ -356,7 +358,7 @@ class ServeLadder:
             "sizes": list(self.sizes),
             "lane_caps": list(self.lane_caps),
             "kernel": s.kernel,
-            "dedup": bool(s.dedup),
+            "dedup": s.dedup,
             "weighted": bool(s.weighted),
             "draws": "draw_fn" if self.draw_fn is not None else "generator",
             "csr_version": int(s.csr_topo.version),
@@ -422,6 +424,7 @@ class ServeLadder:
     def _new_sample(self, bucket: int) -> _Program:
         topo = self.sampler.topo
         fused = self.sampler.kernel == "pallas"  # resolved before any capture
+        dedup = self.sampler.dedup
         seeds = torch.full((bucket,), -1, dtype=torch.int32, device=self.device)
         inputs = {"seeds": seeds, "seqs": [None] * bucket}
         if self.draw_fn is not None:
@@ -429,7 +432,7 @@ class ServeLadder:
             def step():
                 n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
                     topo, seeds[:, None], 1, self.sizes, self.lane_caps,
-                    weighted=self.weighted, fused=fused,
+                    weighted=self.weighted, fused=fused, dedup=dedup,
                     draw=self._draw(inputs["seqs"]))
                 return n_id, tuple(a.edge_index for a in adjs), overflow
             return _Program(step, inputs, device=self.device, static=False,
@@ -440,9 +443,11 @@ class ServeLadder:
         draws = inputs["draws"] = self._draw_buffers(bucket)
 
         def step():
+            # the map strategy's (bucket, node_count) scratch is allocated
+            # here, inside the capture, so it lives in the capture's pool
             n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
                 topo, seeds[:, None], nvalid, self.sizes, self.lane_caps,
-                weighted=self.weighted, fused=fused,
+                weighted=self.weighted, fused=fused, dedup=dedup,
                 bits=lambda layer, _shape: draws[layer])
             return n_id, tuple(a.edge_index for a in adjs), overflow
         stream, pool = self._capture_ctx
@@ -548,7 +553,7 @@ class ServeLadder:
         n_id, _n, adjs, overflow, _ec, _fc = multilayer_sample(
             self.sampler.topo, seeds, 1, self.sizes, self.lane_caps,
             lambda layer, deg: self._lane_draw(int(seq), layer, deg),
-            weighted=self.weighted,
+            weighted=self.weighted, dedup=self.sampler.dedup,
         )
         return n_id, tuple(a.edge_index for a in adjs), overflow
 

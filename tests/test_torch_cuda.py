@@ -2033,3 +2033,44 @@ def test_world_of_one_tuners_equal_logical(cuda, tmp_path, seed_sharding, topo_s
     assert (got[3] - 2.0).abs().max() <= 2.0 / 127  # one int8 code step
     if seed_sharding == "all":
         assert got[1][-1][0] > 0.05
+
+
+def test_dedup_auto_is_sort_on_the_card(cuda, monkeypatch):
+    """``resolve_dedup("auto")`` reads ``"sort"`` where a CUDA device is
+    present (the CPU's is ``"map"``, the JAX package's), and a sampler on
+    the card holds it."""
+    from quiver_tpu_torch import CSRTopo, GraphSageSampler
+    from quiver_tpu_torch.ops import reindex
+
+    monkeypatch.setattr(reindex, "_forced_dedup", None)
+    monkeypatch.setattr(reindex, "_auto_dedup", None)
+    monkeypatch.delenv("QUIVER_DEDUP", raising=False)
+    assert reindex.resolve_dedup("auto") == "sort"
+    topo = CSRTopo(edge_index=np.random.default_rng(0).integers(0, 50, (2, 400)))
+    assert GraphSageSampler(topo, [3], device=cuda).dedup == "sort"
+
+
+@pytest.mark.parametrize("dedup", ["map", "scan"])
+def test_dedup_strategies_bitwise_on_card(cuda, dedup):
+    """``masked_unique`` on the card under map or scan (leading rows,
+    forced seeds, overflow) bitwise the CPU's sort, and a sampler's own
+    draws under it bitwise a sort sampler's on the card."""
+    from quiver_tpu_torch import CSRTopo, GraphSageSampler
+    from quiver_tpu_torch.ops.reindex import masked_unique
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(0, 3000, (5, 900)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((5, 900)) < 0.85)
+    kw = {"node_bound": 3000} if dedup == "map" else {"scatter_free": True}
+    want = masked_unique(ids, valid, 400, 16)
+    got = masked_unique(ids.to(cuda), valid.to(cuda), 400, 16, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    topo = CSRTopo(edge_index=generate_pareto_graph(5000, 8.0, seed=1))
+    seeds = rng.integers(0, 5000, 300)
+    a, b = (GraphSageSampler(topo, [10, 5], device=cuda, seed=2, dedup=d).sample(seeds)
+            for d in ("sort", dedup))
+    assert torch.equal(a.n_id, b.n_id) and int(a.n_count) == int(b.n_count)
+    for x, y in zip(a.adjs, b.adjs):
+        assert torch.equal(x.edge_index, y.edge_index)

@@ -446,13 +446,12 @@ def test_resolve_dedup_twin_platform_and_env(dedup_fresh, monkeypatch):
     both packages: explicit names pass through, the resolution is pinned
     once per process (an env change after first use is inert until a
     reset), a force applies, a typo'd force and an unknown name raise the
-    same ``ValueError``. Only ``auto`` differs: JAX's CPU default is
-    ``map``, the port's ``sort`` (the strategy it runs)."""
+    same ``ValueError``. ``auto`` is ``map`` on the CPU in both."""
     for name in ("sort", "map", "scan"):
         assert _both(lambda r: r(name)) == [name, name]
-    assert _both(lambda r: r("auto")) == ["map", "sort"]
+    assert _both(lambda r: r("auto")) == ["map", "map"]
     monkeypatch.setenv("QUIVER_DEDUP", "scan")
-    assert _both(lambda r: r("auto")) == ["map", "sort"]  # pinned at first use
+    assert _both(lambda r: r("auto")) == ["map", "map"]  # pinned at first use
     dedup_fresh()
     assert _both(lambda r: r("auto")) == ["scan", "scan"]
     dedup_fresh()
@@ -497,7 +496,8 @@ def test_dedup_env_ignored_for_explicit_logged_once_twin(dedup_fresh, monkeypatc
 
 def test_samplers_resolve_dedup(dedup_fresh):
     """The port's samplers hold the resolved name, as JAX's do: ``auto``
-    reads ``sort``, an explicit name passes through, a typo raises."""
+    reads ``map`` on the CPU, an explicit name passes through, a typo
+    raises."""
     from quiver_tpu_torch.core.hetero import HeteroCSRTopo
     from quiver_tpu_torch.sampling import HeteroGraphSampler
 
@@ -506,13 +506,13 @@ def test_samplers_resolve_dedup(dedup_fresh):
     topo = CSRTopo(edge_index=ei)
     assert sampling_j.GraphSageSampler(CSRTopoJ(edge_index=ei), [3],
                                        seed_capacity=16).dedup == "map"
-    assert sampling_t.GraphSageSampler(topo, [3], device="cpu").dedup == "sort"
+    assert sampling_t.GraphSageSampler(topo, [3], device="cpu").dedup == "map"
     assert sampling_t.GraphSageSampler(topo, [3], device="cpu", dedup="scan").dedup == "scan"
     mesh = parallel_t.make_mesh(data=1, feature=2, devices=["cpu"] * 2)
     assert sampling_t.GraphSageSampler(topo, [3], topo_sharding="mesh",
-                                       mesh=mesh).dedup == "sort"
+                                       mesh=mesh).dedup == "map"
     hetero = HeteroCSRTopo({"paper": 50}, {("paper", "cites", "paper"): ei})
-    assert HeteroGraphSampler(hetero, [3], "paper", device="cpu").dedup == "sort"
+    assert HeteroGraphSampler(hetero, [3], "paper", device="cpu").dedup == "map"
     with pytest.raises(ValueError, match="dedup must be"):
         sampling_t.GraphSageSampler(topo, [3], device="cpu", dedup="hash")
 

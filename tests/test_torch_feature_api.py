@@ -241,9 +241,9 @@ def test_sampler_argument_checks(data):
     coo, _ = data
     tt = qt.CSRTopo(edge_index=coo)
     for dedup in ("sort", "map", "scan", "auto"):
-        # resolved as JAX's resolve_dedup resolves it; the port's "auto" is
-        # "sort", the one strategy it runs
-        want = "sort" if dedup == "auto" else dedup
+        # resolved as JAX's resolve_dedup resolves it: "auto" is "map" on
+        # the CPU
+        want = "map" if dedup == "auto" else dedup
         assert qt.GraphSageSampler(tt, [2], device="cpu", dedup=dedup).dedup == want
     with pytest.raises(ValueError, match="dedup"):
         qt.GraphSageSampler(tt, [2], device="cpu", dedup="hash")
@@ -255,7 +255,7 @@ def test_sampler_argument_checks(data):
         qt.GraphSageSampler(tt, [2], device="cpu", topo_sharding="ring")
     with pytest.raises(ValueError, match="compiled_cache_size"):
         qt.GraphSageSampler(tt, [2], device="cpu", compiled_cache_size=0)
-    # the same sample whatever the (inert) cache size or dedup strategy
+    # the same sample whatever the (inert) cache size or the dedup strategy
     outs = [qt.GraphSageSampler(tt, [3, 2], device="cpu", seed=1, dedup=d,
                                 compiled_cache_size=c).sample(np.arange(9))
             for d, c in (("sort", 8), ("map", 1), ("scan", 99))]

@@ -356,9 +356,9 @@ def test_sampler_validation_matches_jax():
     with pytest.raises(ValueError, match="unknown input_type"):
         qt.HeteroGraphSampler(tt, [2], "venue", device="cpu")
     for dedup in ("auto", "sort", "map", "scan"):
-        # resolved as JAX's resolve_dedup resolves it; the port's "auto" is
-        # "sort", the one strategy it runs
-        want = "sort" if dedup == "auto" else dedup
+        # resolved as JAX's resolve_dedup resolves it: "auto" is "map" on
+        # the CPU
+        want = "map" if dedup == "auto" else dedup
         assert qt.HeteroGraphSampler(tt, [2], "paper", dedup=dedup,
                                      device="cpu").dedup == want
     with pytest.raises(ValueError, match="dedup"):

@@ -1,5 +1,9 @@
-"""quiver_tpu_torch's reindex (one stable-sort strategy) against all three
-quiver_tpu dedup strategies (sort, map, scan).
+"""quiver_tpu_torch's reindex in its default strategy (``"sort"``: no
+``node_bound``, no ``scatter_free``) against all three quiver_tpu dedup
+strategies (sort, map, scan). The port runs the map itself too (by JAX's
+``node_bound``), and takes JAX's ``scatter_free`` for the scan, which runs
+its sort; each is held against JAX's same strategy, and shown to run its
+own work, in ``tests/test_torch_dedup.py``.
 
 Tolerance: bitwise. Unique lists, counts, local ids and overflow are
 integers; the port must equal each JAX strategy exactly, dtype included,

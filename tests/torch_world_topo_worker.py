@@ -7,8 +7,9 @@ world through a file store, runs the comma-separated CASES on world meshes
 and, on rank 0, the same calls on logical meshes of the same shapes, then
 writes ``OUT_DIR/rank<RANK>.pt``: a world result under ``"<case>/<name>"``
 and rank 0's logical reference for worker ``w`` under
-``"ref/<case>/<name>/<w>"``. The cases cover the topology-sharded samplers,
-the trainer over them, rank-0 checkpoints and the elastic resume.
+``"ref/<case>/<name>/<w>"``. The cases cover the topology-sharded samplers
+(also under ``dedup="map"``), the trainer over them, rank-0 checkpoints and
+the elastic resume.
 
 Every process runs at one thread, the logical reference too. It imports
 neither JAX nor the JAX package.
@@ -213,6 +214,45 @@ def case_hetero(run, data, feature):
             run.put_ref(case, "out", 0, out)
             for w, v in enumerate(every):
                 run.put_ref(case, "own", w, v)
+
+
+def case_dedup(run, data, feature):
+    """The topology-sharded sampler (uniform and weighted, capped buckets)
+    and the typed one with ``dedup="map"``, each rank's against the logical
+    mesh's; rank 0 also records the logical mesh under ``dedup="sort"``."""
+    for kind in ("uniform", "weighted"):
+        topo = topo_of(kind)
+        case = f"dedup{data}{feature}_{kind}"
+
+        def make(mesh, dedup="map"):
+            return qt.GraphSageSampler(topo, list(SIZES), topo_sharding="mesh", mesh=mesh,
+                                       seed=3, routed_alpha=ALPHA, dedup=dedup, **KINDS[kind])
+
+        out, mine = sampler_calls(make(qt.make_mesh(data=data, feature=feature)), [run.rank])
+        run.put(case, "out", out)
+        run.put(case, "worker", mine[run.rank])
+        if run.ref:
+            workers = list(range(data * feature))
+            for dedup in ("map", "sort"):
+                out, every = sampler_calls(make(logical(data, feature), dedup), workers)
+                run.put_ref(case, f"out_{dedup}", 0, out)
+                for w, v in every.items():
+                    run.put_ref(case, f"worker_{dedup}", w, v)
+
+    def make_typed(mesh, dedup="map"):
+        return qt.DistHeteroSampler(hetero_topo(False), [3, 2], "paper", mesh=mesh,
+                                    routed_alpha=0.25, seed=0, dedup=dedup)
+
+    case = f"dedup{data}{feature}_hetero"
+    out, own = hetero_calls(make_typed(qt.make_mesh(data=data, feature=feature)), run.rank)
+    run.put(case, "out", out)
+    run.put(case, "own", own)
+    if run.ref:
+        for dedup in ("map", "sort"):
+            out, every = hetero_calls(make_typed(logical(data, feature), dedup), None)
+            run.put_ref(case, f"out_{dedup}", 0, out)
+            for w, v in enumerate(every):
+                run.put_ref(case, f"own_{dedup}", w, v)
 
 
 # -- (iv) DistributedTrainer over a topology-sharded sampler ------------------------------------
@@ -526,7 +566,7 @@ def main():
     try:
         for case in cases.split(","):
             name, _, arg = case.partition(":")
-            if name in ("topo", "sampler", "hetero", "trainer", "audit", "stream"):
+            if name in ("topo", "sampler", "hetero", "dedup", "trainer", "audit", "stream"):
                 globals()[f"case_{name}"](run, int(arg[0]), int(arg[1]))
             elif name == "ckpt":
                 case_ckpt(run, out_dir, int(arg[0]), int(arg[1]))
