@@ -514,6 +514,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``DistHeteroSampler`` (``(1, 4)``) at bench_rgcn's defaults per
    strategy: bitwise, the same launches.
 
+9q. the layer-wise inference's ``QUIVER_INFER_AGG`` switch, last; every
+   check names itself on stderr first. The port reads and checks the
+   variable and runs its accumulate under ``"scatter"`` and ``"scan"``
+   alike. (a) ``bench_infer.py``'s defaults on the serving graph (F = 100
+   f32, GraphSAGE 256 x 2, 47 classes, chunk 2^21), HBM and HOST: a
+   warm-up pass, then one pass under each value; nodes/s of each pass,
+   its peak memory growth, exact launches (a HOST pass reads each chunk's
+   ids by K2 ``gather_rows``, the same count under both; an HBM pass
+   launches no kernel); finite log-probs, ``"scan"`` bitwise
+   ``"scatter"``, HOST within 1e-5 x max |out| of HBM; one more HBM pass
+   under ``torch.profiler`` (device busy, idle share, the costliest
+   kernels). (b) ``QUIVER_INFER_AGG=scna`` raises ``ValueError`` from the
+   SAGE pass and not from GAT's. K2 over the pinned edge array at the
+   HOST pass's shapes against its plain version.
+
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the JAX package ``quiver_tpu``.
@@ -8923,6 +8938,196 @@ def dedup_phase(args, topo, x_all, card) -> tuple[dict, dict]:
     return launches, result
 
 
+# -- phase 9q: the layer-wise inference's QUIVER_INFER_AGG switch ------------------
+
+INFER_AGG_VALUES = ("scatter", "scan")  # after one warm-up pass
+INFER_CHUNK = 1 << 21  # the SAGE, GCN and GIN passes' default chunk
+
+
+def step9q(what: str) -> None:
+    """Name a phase 9q check on stderr before it runs."""
+    log(f"phase 9q check: {what}")
+
+
+@contextlib.contextmanager
+def infer_agg(value: str):
+    """``QUIVER_INFER_AGG`` set to ``value`` in the block, restored after."""
+    old = os.environ.get("QUIVER_INFER_AGG")
+    os.environ["QUIVER_INFER_AGG"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("QUIVER_INFER_AGG", None)
+        else:
+            os.environ["QUIVER_INFER_AGG"] = old
+
+
+def agg_turns(label: str, run, shape: tuple, card, gather_rows: int = 0) -> tuple[dict, dict]:
+    """``run()``, one whole layer-wise pass: a warm-up pass, then one pass
+    under each of ``INFER_AGG_VALUES``, each ending in a synchronise,
+    timed on the host clock, its peak memory growth read, and its launches
+    counted (exactly ``gather_rows`` K2 launches and nothing else). Then
+    the log-probs are finite and of ``shape``, and bitwise the same under
+    both values. Returns ``(result, the log-probs by value)``."""
+    import torch
+
+    run()
+    sync()
+    res, out = {}, {}
+    for s in INFER_AGG_VALUES:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with infer_agg(s):
+            out[s] = run()
+        sync()
+        secs = time.perf_counter() - t0
+        got = read_launches()
+        expect_launches(got, {"gather_rows": gather_rows}, f"{label}, {s} pass")
+        res[s] = {"pass_s": secs, "nodes_per_s": shape[0] / secs,
+                  "peak_growth_bytes": torch.cuda.max_memory_allocated() - base,
+                  "gather_rows_launches": got["gather_rows"]}
+    step9q(f"{label}: finite {shape} log-probs, \"scan\" bitwise \"scatter\"")
+    for s, logp in out.items():
+        check(tuple(logp.shape) == shape and bool(torch.isfinite(logp).all()),
+              f"{label}, {s}: finite {shape} log-probs")
+    check(equal(out["scan"], out["scatter"]), f"{label}: \"scan\" bitwise \"scatter\"")
+    res["card"] = card
+    log(f"{label}: nodes/s {[round(res[s]['nodes_per_s']) for s in INFER_AGG_VALUES]}; "
+        f"peak growth {[round(res[s]['peak_growth_bytes'] / 2**30, 3) for s in INFER_AGG_VALUES]}"
+        f" GiB ({', '.join(INFER_AGG_VALUES)}) [{card}]")
+    return res, out
+
+
+def agg_profile(run, pass_s: list) -> dict:
+    """One more pass under ``torch.profiler``: the device's busy time (the
+    union of its intervals), the idle share against the mean of the
+    unprofiled passes (``pass_s``), and the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        sync()
+    kernels, _ = device_ms(prof, 1)
+    busy = device_union_ms(prof, 1)
+    wall_ms = 1e3 * sum(pass_s) / len(pass_s)
+    check(busy > 0, "the profiler saw the card")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    named = {}
+    for k, v in top:  # names cut to 100 characters; sum those that meet
+        named[k[:100]] = named.get(k[:100], 0.0) + v
+    log(f"(a) SAGE HBM under the profiler: busy {busy:.2f} ms of {wall_ms:.2f}; "
+        f"top {[(k[:60], round(v, 2)) for k, v in top[:4]]}")
+    return {"device_busy_ms": busy, "unprofiled_pass_ms": wall_ms,
+            "idle_share": 1 - busy / wall_ms, "top_kernels_ms": named}
+
+
+def infer_agg_full_width(topo, x_dev, card) -> tuple[dict, int]:
+    """(a) SAGE at bench_infer's defaults, HBM and HOST. Returns
+    ``(result, K2 launches a HOST pass)``."""
+    import functools
+
+    from quiver_tpu_torch.models import inference
+
+    n = topo.node_count
+    host_k2 = 2 * -(-topo.edge_count // INFER_CHUNK)  # one read of each chunk's ids a layer
+    res = {"config": "benchmarks/bench_infer.py defaults on the serving graph "
+                     f"({n} nodes, {topo.edge_count} edges), F=100 f32, hidden 256, "
+                     "47 classes, 2 layers, chunk 2^21"}
+    sage = make_family("sage", EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, 2, dropout=0.0)
+    sage = sage.to("cuda").eval()
+    outs = {}
+    for mode in ("HBM", "HOST"):
+        run = functools.partial(inference.sage_layerwise_inference, sage, topo, x_dev,
+                                mode=mode, device="cuda")
+        res[f"sage_{mode}"], outs[mode] = agg_turns(
+            f"(a) SAGE {mode}", run, (n, EPOCH_CLASSES), card,
+            host_k2 if mode == "HOST" else 0)
+        if mode == "HBM":
+            res["sage_HBM"]["profile"] = agg_profile(
+                run, [res["sage_HBM"][s]["pass_s"] for s in INFER_AGG_VALUES])
+    step9q("(a) SAGE: HOST against HBM within 1e-5 x max |out|")
+    hbm, host = outs["HBM"]["scatter"], outs["HOST"]["scatter"]
+    err = float((host - hbm).abs().max()) / float(hbm.abs().max())
+    check(err <= 1e-5, f"(a) SAGE: HOST against HBM {err} x max |out|")
+    res["sage_host_against_hbm"] = {"err_over_max": err, "bitwise": equal(host, hbm)}
+    return res, host_k2
+
+
+def infer_agg_bad_value(card) -> dict:
+    """(b) A misspelt ``QUIVER_INFER_AGG`` raises ``ValueError`` from the
+    SAGE pass and not from GAT's, on ``small_graphs()``' first graph."""
+    import numpy as np
+    import torch
+
+    from quiver_tpu_torch.models import inference
+
+    label, st = small_graphs()[0][:2]
+    xs = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(st.node_count, EPOCH_F)).astype(np.float32)).to("cuda")
+    sage = make_family("sage", EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, 2, dropout=0.0)
+    gat = make_family("gat", EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, 2, dropout=0.0)
+    before = os.environ.get("QUIVER_INFER_AGG")
+    step9q("(b) QUIVER_INFER_AGG=scna raises ValueError from the SAGE pass, not from GAT's")
+    with infer_agg("scna"):
+        try:
+            inference.sage_layerwise_inference(sage.to("cuda"), st, xs, device="cuda")
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        logp = inference.gat_layerwise_inference(gat.to("cuda"), st, xs, device="cuda")
+    check(raised is not None and "QUIVER_INFER_AGG" in raised,
+          f"(b) the SAGE pass under a misspelt value raised {raised!r}")
+    check(bool(torch.isfinite(logp).all()), "(b) GAT under a misspelt value: finite")
+    check(os.environ.get("QUIVER_INFER_AGG") == before, "(b) the environment is restored")
+    return {"bad_value_error": raised, "gat_ran": True, "graph": label, "card": card}
+
+
+def infer_agg_k2_checks(topo) -> list:
+    """K2 ``gather_rows`` at the HOST pass's shapes (the first and the last
+    chunk's ids over the pinned edge array, 4 B rows) against its plain
+    version."""
+    import torch
+
+    from quiver_tpu_torch.core.memory import to_pinned_host
+    from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+
+    table = to_pinned_host(topo.indices, "cuda")[0].reshape(-1, 1)
+    E = table.shape[0]
+    rows = []
+    for e0 in (0, (E - 1) // INFER_CHUNK * INFER_CHUNK):
+        ids = torch.arange(e0, min(e0 + INFER_CHUNK, E), device="cuda", dtype=torch.int32)
+        got, want = gather_rows(table, ids), gather_rows_plain(table, ids)
+        sync()
+        ok = equal(got, want)
+        rows.append({"table": "layer-wise HOST edge array (pinned, 4 B rows)",
+                     "ids": int(ids.shape[0]), "first_edge": e0, "match": ok,
+                     "max_abs_err": float((got.to(torch.int64) - want.to(torch.int64))
+                                          .abs().max())})
+        check(ok, f"gather_rows over the pinned edge array, edges from {e0}")
+    return rows
+
+
+def infer_agg_phase(topo, x_all, card) -> tuple[dict, list, dict]:
+    """Phase 9q (see the module docstring). Returns ``(K2 launches of a
+    HOST SAGE pass by value, K2 check rows, result)``."""
+    import torch
+
+    t0 = time.time()
+    x_dev = torch.from_numpy(x_all).to("cuda")
+    result, host_k2 = infer_agg_full_width(topo, x_dev, card)
+    del x_dev
+    torch.cuda.empty_cache()
+    result["bad_value"] = infer_agg_bad_value(card)
+    checks = infer_agg_k2_checks(topo)
+    result["seconds"] = time.time() - t0
+    log(f"phase 9q {result['seconds']:.1f}s [{card}]")
+    launches = {s: result["sage_HOST"][s]["gather_rows_launches"] for s in INFER_AGG_VALUES}
+    return launches, checks, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -9283,6 +9488,11 @@ def main() -> int:
     launches_p, dedup = dedup_phase(args, topo, x_all, card)
     torch.cuda.empty_cache()
     lap("phase 9p (dedup strategies)")
+    # phase 9q: the layer-wise inference's QUIVER_INFER_AGG switch, SAGE HBM
+    # and HOST at full width under both values, a misspelt value
+    launches_agg, agg_checks, infer_aggs = infer_agg_phase(topo, x_all, card)
+    torch.cuda.empty_cache()
+    lap("phase 9q (layer-wise aggregation switch)")
     for mode in ("sampled", "layerwise", "int8_sampled"):
         log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
             f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
@@ -9359,7 +9569,7 @@ def main() -> int:
                    launches_h["saint"]["gather_rows"],
                    "GraphSAINT samplers (each draw's (budget, deg_cap) window; the "
                    "edge sampler's endpoints)", gat + win_checks + k2_rows_s
-                   + rows_ctl["gather_rows"], t_win,
+                   + rows_ctl["gather_rows"] + agg_checks, t_win,
                    {"shape": [t_win["ids"], t_win["row_bytes"]],
                     "sharded_trainer_launches": {
                         mode: v["gather_rows"] for mode, v in launches_s.items()},
@@ -9374,6 +9584,7 @@ def main() -> int:
                     "stream_launches": {k: v["gather_rows"] for k, v in launches_k.items()},
                     "world_control_trainer_launches": {
                         k: v["gather_rows"] for k, v in launches_ctl.items()},
+                    "layerwise_host_launches": launches_agg,
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
@@ -9490,6 +9701,7 @@ def main() -> int:
           and all(v["uniform_hop"] > 0 for v in launches_m.values())
           and launches_m["psum int8"]["tiered_gather_dequant"] > 0
           and launches_m["dp"]["tiered_gather"] > 0
+          and launches_agg["scatter"] > 0 and launches_agg["scan"] == launches_agg["scatter"]
           and all(v["select"] > 0 and v["gather_rows"] > 0 for v in launches_e.values())
           and all(launches_k[k]["select"] > 0 and launches_k[k]["gather_rows"] > 0
                   for k in ("epoch_0", "epoch_1"))
@@ -9532,7 +9744,8 @@ def main() -> int:
                        "sharded": sharded, "distributed": dist, "control": control,
                        "elastic": elastic, "ooc": ooc, "stream": stream,
                        "world": world_res, "world_topo": world_topo,
-                       "world_control": world_ctl, "dedup": dedup, "lint": lint_row,
+                       "world_control": world_ctl, "dedup": dedup,
+                       "infer_agg": infer_aggs, "lint": lint_row,
                        "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
@@ -9579,6 +9792,7 @@ def main() -> int:
     print(json.dumps({"world_topo": world_topo}), flush=True)
     print(json.dumps({"world_control": world_ctl}), flush=True)
     print(json.dumps({"dedup": dedup}), flush=True)
+    print(json.dumps({"infer_agg": infer_aggs}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

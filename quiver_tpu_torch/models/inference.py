@@ -12,15 +12,25 @@ the mean times the degree); GAT runs two chunked passes per layer, the
 per-destination logit max and then the softmax's numerator and
 denominator together.
 
-One aggregation strategy: a sorted accumulate per chunk. The JAX package
-also has a cumsum-difference ("scan") strategy because XLA serialises
-scatters on the TPU; the tests hold this one against both. The chunk's
+One aggregation strategy: a sorted accumulate per chunk. The chunk's
 destinations are sorted (CSR order), and the accumulate is
 ``index_put_(accumulate=True)`` on the card, which sums each row's
 messages in edge order after a stable sort rather than with atomics, and
 ``index_add_`` on the CPU, which adds them one index after another (the
 CPU's ``index_put_`` adds large float chunks with parallel atomics), so a
 result is the same from run to run and from HBM and HOST placements.
+
+The JAX package also has a cumsum-difference ("scan") strategy, because
+XLA serialises scatters on the TPU, picked by
+``QUIVER_INFER_AGG=scatter|scan``. ``full_neighbor_mean`` and the SAGE,
+GCN, GIN and R-GCN passes read that variable once per call, before
+anything is placed, so a value outside those two raises ``ValueError``
+as it does in the JAX package; both names run the accumulate. A scan
+would round differently from the accumulate without being the JAX
+scan's bits either (the tests hold the accumulate against both JAX
+strategies), and on an H100 it ran at 0.52-0.72x the accumulate's nodes
+per second at every shape measured (``PERF.md``). GAT's passes do not
+read the variable, in either package.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ import copy
 import torch
 import torch.nn.functional as F
 
-from ..core.config import SampleMode
+from ..core.config import SampleMode, resolve_platform_strategy
 from ..core.memory import resolve_device, to_pinned_host
 from ..ops.sample import staged_gather
 
@@ -76,6 +86,14 @@ def _accumulate(acc, dst, values) -> None:
         acc.index_add_(0, dst, values)
 
 
+def _read_infer_agg() -> str:
+    """``QUIVER_INFER_AGG``, read on every entry call as the JAX package
+    reads it; a value outside ``scan`` and ``scatter`` raises. Either
+    name runs the accumulate (module docstring)."""
+    return resolve_platform_strategy("QUIVER_INFER_AGG", ("scan", "scatter"),
+                                     "scatter", "scatter")
+
+
 def _neighbor_mean_dev(indptr, indices, x_all, chunk: int, host: bool = False):
     """:func:`full_neighbor_mean` on placed CSR tensors (``indptr`` int64).
 
@@ -107,7 +125,9 @@ def full_neighbor_mean(topo, x_all, chunk: int = 1 << 21,
     ``mode="HBM"`` places the edge array on the device; ``mode="HOST"``
     keeps it pinned on the host and reads each chunk's ids over UVA
     (graphs beyond device memory stay evaluable). ``device`` as every
-    entry point's (CUDA unless named)."""
+    entry point's (CUDA unless named). ``QUIVER_INFER_AGG`` is read and
+    checked (module docstring)."""
+    _read_infer_agg()
     device = resolve_device(device)
     indptr, indices, host = _place(topo, mode, device)
     return _neighbor_mean_dev(indptr, indices, torch.as_tensor(x_all).to(device),
@@ -124,9 +144,10 @@ def sage_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     each layer is ``lin_l(mean of neighbours) + lin_r(x)`` in float32 (as
     the JAX package's fresh ``SAGEConv`` computes it), ReLU between
     layers, no dropout. ``chunk`` edges per accumulate; ``mode`` as
-    :func:`full_neighbor_mean`. The other families' passes compute in
-    float32 too.
+    :func:`full_neighbor_mean`, and ``QUIVER_INFER_AGG`` too. The other
+    families' passes compute in float32 too.
     """
+    _read_infer_agg()
     device = resolve_device(device)
     # place the (possibly multi-GB) CSR arrays once, not once per layer
     indptr, indices, host = _place(topo, mode, device)
@@ -153,6 +174,7 @@ def gcn_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     ``rsqrt(deg + 1)``; ReLU between layers. ``(N, num_classes)`` float32
     log-probs; ``chunk``, ``mode`` and ``device`` as
     :func:`sage_layerwise_inference`."""
+    _read_infer_agg()
     device = resolve_device(device)
     indptr, indices, host = _place(topo, mode, device)
     x = torch.as_tensor(x_all).to(device)
@@ -177,6 +199,7 @@ def gin_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     graph (the neighbour sum is the chunked mean times the degree); ReLU
     between layers. Arguments and result as
     :func:`sage_layerwise_inference`."""
+    _read_infer_agg()
     device = resolve_device(device)
     indptr, indices, host = _place(topo, mode, device)
     x = torch.as_tensor(x_all).to(device)
@@ -204,7 +227,8 @@ def gat_layerwise_inference(model, topo, x_all, chunk: int = 1 << 20,
     between layers. A node with no in-edges gets its bias only, as the
     sampled model gives it. The default ``chunk`` is half the other
     families' (a chunk's messages are ``(chunk, H, F)``). Arguments and
-    result as :func:`sage_layerwise_inference`."""
+    result as :func:`sage_layerwise_inference`; ``QUIVER_INFER_AGG`` is
+    not read, as in the JAX package."""
     device = resolve_device(device)
     indptr, indices, host = _place(topo, mode, device)
     x = torch.as_tensor(x_all).to(device)
@@ -257,6 +281,7 @@ def rgcn_layerwise_inference(model, topo, x_dict, chunk: int = 1 << 20,
     Returns ``(N_target, num_classes)`` float32 log-probs for every node of
     ``model.target_type``.
     """
+    _read_infer_agg()
     device = resolve_device(device)
     x_dict = {t: torch.as_tensor(v).to(device) for t, v in x_dict.items()}
     placed = {et: _place(rel, mode, device) for et, rel in topo.relations.items()}

@@ -2,9 +2,11 @@
 (``models/inference.py``) against quiver_tpu's.
 
 The port has one aggregation strategy (a sorted accumulate per edge
-chunk); the JAX package has two (``QUIVER_INFER_AGG=scatter|scan``), and
-the port is held against both, at chunk sizes that split rows, on graphs
-with zero-degree rows.
+chunk) and reads ``QUIVER_INFER_AGG=scatter|scan`` only to check it; the
+JAX package has two. Each case sets the variable for both packages, so
+the port is held against JAX's accumulate and JAX's scan, at chunk sizes
+that split rows, on graphs with zero-degree rows
+(``tests/test_torch_infer_agg.py`` holds the switch further).
 
 Tolerance: ``full_neighbor_mean`` within 1e-5 relative, plus 1e-5 of
 the output's largest magnitude absolute: the JAX scan strategy differences

@@ -3,9 +3,12 @@ quiver_tpu_torch (``models/inference.py``) against quiver_tpu's, and
 against the port's own sampled models at full fanout.
 
 The port has one aggregation strategy (a sorted accumulate per edge
-chunk); the JAX package has two (``QUIVER_INFER_AGG=scatter|scan``), and
-the port is held against both, in HBM and HOST placement, at chunk sizes
-that split rows (7 and 97 edges) and at one chunk for the whole graph.
+chunk) and reads ``QUIVER_INFER_AGG=scatter|scan`` only to check it; the
+JAX package has two. Each case sets the variable for both packages, so
+GCN and GIN are held against JAX's accumulate and JAX's scan; GAT reads
+no variable in either package and accumulates under both. In HBM and
+HOST placement, at chunk sizes that split rows (7 and 97 edges) and at
+one chunk for the whole graph.
 
 Tolerances (float32; the frameworks and the two paths sum in different
 orders):
