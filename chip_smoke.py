@@ -529,6 +529,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    SAGE pass and not from GAT's. K2 over the pinned edge array at the
    HOST pass's shapes against its plain version.
 
+9r. one process over distinct devices, last; every check names itself on
+   stderr first. Phase 9f (b)'s width (``generate_pareto_graph(100000,
+   25.0)``, F = 128, 47 classes, GraphSAGE 256 x 3, [15, 10, 5] x 256,
+   Adam 1e-3, dropout 0), a ``Feature`` with 20% of the rows on the lead
+   device or a three-tier ``ShardedFeature`` (8M L1, 4M L0 per device), the guard on,
+   deterministic kernels, every step's draws from one numpy seed through
+   ``draw_fn`` (a host slot's generator cannot replay the card's Philox).
+   (a) ``DistributedTrainer`` on logical meshes over the card and the host,
+   ``(2, 1)`` and ``(1, 2)`` over ``["cuda:0", "cpu"]`` and ``(2, 2)`` over
+   ``["cuda:0", "cpu", "cuda:0", "cpu"]``: a replicated ``Feature`` on all
+   three, a psum int8 store (``"data"``), a routed f32 store (``"all"``)
+   and a topology-sharded weighted sampler (``"all"``, routed f32 store)
+   on the last two; 4 steps each against the one-card mesh of the same
+   shape: every worker's ids, frontier size, rows and edge lists, the tier
+   hits, overflows and guard counters bitwise, every worker's tensors on
+   its slot's device, the card's K1/K2/K3 launches exact (the card slots'
+   share: each launch counted on the device its work runs on; the one-card
+   run held to the same rule), the losses within 1e-4 relative and the
+   parameters within 1e-2 of their update; steps/s of each mixed mesh and
+   its one-card twin in turns. (b) ``DataParallelTrainer`` on ``(2, 1)``
+   over the card and the host: a 4-step epoch under its ``Prefetcher``,
+   held as (a). (c) an elastic run (4 logical workers, ``auto_alpha`` and a
+   ``CacheController``) checkpointed on the one-card ``(1, 4)``, preempted,
+   resumed with ``resume(mesh=)`` onto the mixed ``(2, 2)``: the resumed
+   steps' blocks bitwise the uninterrupted one-card ``(2, 2)`` epoch's,
+   their hits and overflow and the tuners' decisions (the epoch's end, two
+   tuned steps) the one-card twin's (resumed the same way), the floats
+   within tolerance of the uninterrupted epoch. (d) with two cards,
+   (a)'s routed store on ``(2, 2)`` over both, bitwise the one-card mesh;
+   with one, a line says it did not run.
+
 Prints one ``{"kernels": [...]}`` line with every kernel entry under its
 TPU kernel; the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of the JAX package ``quiver_tpu``.
@@ -9128,6 +9159,569 @@ def infer_agg_phase(topo, x_all, card) -> tuple[dict, list, dict]:
     return launches, checks, result
 
 
+# -- phase 9r: one process over distinct devices (the card and the host) ---------
+
+MIXED_STEPS = 4  # checked steps of each run, under deterministic kernels
+MIXED_TIMED = 2  # steps a turn of the figures (turns: mixed, one-card, one-card, mixed)
+MIXED_DRAW_SEED = 27  # the numpy seed every step's draws come from
+CARD, HOST = "cuda:0", "cpu"
+MIXED_MESHES = {(2, 1): [CARD, HOST], (1, 2): [CARD, HOST],
+                (2, 2): [CARD, HOST, CARD, HOST]}
+# (name, store, dtype, seed sharding, topology sharding, weighted, meshes)
+MIXED_CASES = (
+    ("replicated f32", "replicated", None, "all", "replicated", False,
+     ((2, 1), (1, 2), (2, 2))),
+    ("psum int8", "sharded", "int8", "data", "replicated", False, ((1, 2), (2, 2))),
+    ("routed f32", "sharded", None, "all", "replicated", False, ((1, 2), (2, 2))),
+    ("topology weighted", "sharded", None, "all", "mesh", True, ((1, 2), (2, 2))),
+)
+# the float tolerance, stated before the first run: each step's loss within
+# 1e-4 relative of the one-card twin's, and over all the parameters
+# ||p_mixed - p_card|| at most 1e-2 x ||p_card - p_0|| (the host's GEMMs
+# and reductions round differently from the card's; Adam can turn a
+# near-zero gradient's sign, so single elements are not bounded tighter)
+MIXED_LOSS_RTOL = 1e-4
+MIXED_PARAM_RATIO = 1e-2
+MIXED_ELASTIC_STEPS = 4  # the resumed drill's epoch; preempted at step 2
+MIXED_TUNED_STEPS = 2  # tuned steps after the resumed epoch
+
+
+def step9r(what: str) -> None:
+    """Name a phase 9r check on stderr before it runs."""
+    log(f"phase 9r check: {what}")
+
+
+def mixed_mesh(shape, devices=None):
+    """The ``shape`` mesh over ``devices`` (default the card repeated)."""
+    from quiver_tpu_torch import make_mesh
+
+    data, feature = shape
+    return make_mesh(data=data, feature=feature, devices=devices or [CARD] * (data * feature))
+
+
+def mixed_draws(weighted: bool):
+    """``draw_fn(key, worker, layer, deg)`` of every 9r trainer: numpy
+    draws from ``(MIXED_DRAW_SEED, key, worker, layer)``, so a host slot
+    draws what a card slot draws (a card's Philox stream has no host
+    twin): stratified row-local offsets (uniform; every lane of a row of
+    degree at most k), or ``u01`` in [0, 1) (weighted)."""
+    import numpy as np
+    import torch
+
+    def draw(key, w, layer, deg):
+        rng = np.random.default_rng([MIXED_DRAW_SEED, int(key) & (2**64 - 1), int(w), layer])
+        k = MULTI_FANOUT[layer]
+        d = deg.cpu().numpy().astype(np.int64)[:, None]
+        if weighted:
+            return torch.from_numpy(rng.random((d.shape[0], k), dtype=np.float32))
+        i = np.arange(k)[None, :]
+        strata = np.floor(d * (i + rng.random((d.shape[0], k))) / k).astype(np.int64)
+        off = np.where(d > k, np.minimum(strata, d - 1), np.minimum(i, np.maximum(d - 1, 0)))
+        return torch.from_numpy(off.astype(np.int32))
+
+    return draw
+
+
+def mixed_setup():
+    """Phase 9f (b)'s graph, rows and labels, with phase 9n's exp(N(0, 1))
+    edge weights for the weighted sampler."""
+    import numpy as np
+
+    topo, x, labels = multichip_setup()
+    topo.set_edge_weight(np.exp(np.random.default_rng(WORLD_TOPO_WEIGHTS).normal(
+        size=topo.edge_count)).astype(np.float32))
+    return topo, x, labels
+
+
+def mixed_trainer(topo, x, mesh, case, **kw):
+    """A 9r ``DistributedTrainer`` on ``mesh``: 9f (b)'s width (GraphSAGE
+    256 x 3, Adam 1e-3, [15, 10, 5] x 256, worst-case caps), dropout 0 (a
+    host slot's dropout stream cannot replay the card's), the guard on,
+    every kernel asked for (``"pallas"``), over a ``Feature`` with 20% of
+    the rows on the lead device or a three-tier ``ShardedFeature`` of 8M L1
+    and 4M L0 per device; the numpy draws; ``init(0)``."""
+    import torch
+
+    from quiver_tpu_torch import (DistributedTrainer, Feature, GraphSageSampler, GraphSAGE,
+                                  ShardedFeature)
+
+    _name, store_kind, dtype, seed_sharding, topo_sharding, weighted, _ = case
+    lead = mesh.devices.flat[0]
+    if store_kind == "replicated":
+        store = Feature(device_cache_size=int(0.2 * topo.node_count) * MULTI_F * 4,
+                        csr_topo=topo, device=lead, kernel="pallas").from_cpu_tensor(x)
+    else:
+        store = ShardedFeature(mesh, device_cache_size=MULTI_L1, csr_topo=topo,
+                               replicate_budget=MULTI_L0, dtype=dtype,
+                               kernel="pallas").from_cpu_tensor(x)
+    where = ({"topo_sharding": "mesh", "mesh": mesh} if topo_sharding == "mesh"
+             else {"device": lead})
+    sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, weighted=weighted,
+                               kernel="pallas", **where)
+    model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES,
+                      num_layers=len(MULTI_FANOUT), dropout=0.0).to(lead)
+    trainer = DistributedTrainer(mesh, sampler, store, model,
+                                 torch.optim.Adam(model.parameters(), lr=1e-3),
+                                 local_batch=MULTI_BATCH, seed_sharding=seed_sharding,
+                                 nonfinite_guard=True, **kw)
+    trainer.init(0)
+    trainer.draw_fn = mixed_draws(weighted)
+    return trainer
+
+
+def mixed_expected(trainer, steps: int) -> dict:
+    """The card's launches of ``steps`` steps of a 9r trainer, by where
+    each runs: a worker's composed hops (``select``, or ``wselect``
+    weighted) and its replicated lookup (one K2) on its slot's device; a
+    topology-sharded group's hops one launch per owner on a card per hop;
+    a sharded lookup's L0, cold and int8 dequantising launches on the
+    device it runs on (a worker's under ``"data"``, its group's first
+    member's when routed), one ``gather_rows`` per shard on a card. Launches
+    on the host are none: a wrapper given host tensors runs its plain
+    version and counts nothing."""
+    import collections
+
+    import torch
+
+    from quiver_tpu_torch.parallel.mesh import FEATURE_AXIS, axis_devices
+
+    def card(d):
+        return torch.device(d).type == "cuda"
+
+    store, L = trainer.feature, len(MULTI_FANOUT)
+    hop = "wselect" if trainer.sampler.weighted else "select"
+    int8 = getattr(store, "storage_dtype", None) == torch.int8
+    owners = sum(card(d) for d in axis_devices(trainer.mesh, FEATURE_AXIS))
+    workers = [trainer._worker_device(w) for w in range(trainer.workers)]
+    groups = ([trainer._worker_device(m[0]) for m in trainer._group_members()]
+              if trainer.seed_sharding == "all" else [])
+    want = collections.Counter()
+    if trainer.topo_sharded:
+        want[hop] += L * owners * len(groups)
+    else:
+        want[hop] += L * sum(card(d) for d in workers)
+    if not trainer._sharded:
+        want["tiered_gather_dequant" if int8 else "tiered_gather"] += sum(
+            card(d) for d in workers)
+    else:
+        tier = "tiered_gather_dequant" if int8 else "gather_rows"
+        for dev in (groups if trainer._routed else workers):
+            want[tier] += card(dev) * (bool(store.rep_rows) + (store.cold is not None))
+            if store.hot_rows:
+                want["gather_rows"] += owners
+                want["tiered_gather_dequant"] += card(dev) * int8
+    return {k: v * steps for k, v in want.items() if v}
+
+
+def mixed_blocks(trainer, into: list):
+    """Make ``trainer`` append, for each step it issues, each worker's
+    block as host copies (ids, frontier size, rows, edge lists, valid
+    seeds) and whether its tensors lie on its slot's device."""
+    import torch
+
+    issue = trainer._issue
+
+    def recording(*a, **kw):
+        step = issue(*a, **kw)
+        rows = []
+        for w, b in enumerate(step.blocks):
+            dev = torch.device(trainer._worker_device(w))
+            tensors = [b.n_id, b.x, b.num_seeds] + [a.edge_index for a in b.adjs]
+            rows.append({"n_id": b.n_id.cpu(), "frontier": int((b.n_id >= 0).sum()),
+                         "x": b.x.cpu(), "edges": [a.edge_index.cpu() for a in b.adjs],
+                         "num": int(b.num_seeds), "placed": all(t.device == dev
+                                                                for t in tensors)})
+        into.append(rows)
+        return step
+
+    trainer._issue = recording
+
+
+def mixed_steps(trainer, labels, steps: int, key0: int) -> list:
+    """``steps`` steps on ``default_rng(key0)``'s seeds, keyed ``key0 +
+    i``: each step's loss and its integer outputs, read on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(key0)
+    n = trainer.sampler.csr_topo.node_count
+    out = []
+    for i in range(steps):
+        loss = trainer.step(rng.integers(0, n, trainer.global_batch), labels, key0 + i)
+        out.append(mixed_outputs(trainer, loss))
+    return out
+
+
+def mixed_outputs(trainer, loss) -> dict:
+    """One step's (or epoch's) loss and integer outputs, on the host."""
+    from quiver_tpu_torch.obs.registry import GUARD_NONFINITE, GUARD_SKIPPED
+
+    m = trainer.metrics
+    return {"loss": loss.cpu(), "hits": trainer.last_tier_hits.cpu(),
+            "routed_overflow": trainer.last_routed_overflow.cpu(),
+            "sample_overflow": trainer.last_sample_overflow.cpu(),
+            "guard": [m.value(GUARD_SKIPPED).cpu(), m.value(GUARD_NONFINITE).cpu()]}
+
+
+def same_ints(a: list, b: list) -> bool:
+    """The integer outputs of two runs' steps bitwise (loss apart)."""
+    return len(a) == len(b) and all(
+        equal(x[k], y[k]) for x, y in zip(a, b)
+        for k in ("hits", "routed_overflow", "sample_overflow")) and all(
+        equal(p, q) for x, y in zip(a, b) for p, q in zip(x["guard"], y["guard"]))
+
+
+def same_blocks(a: list, b: list) -> bool:
+    """Two runs' recorded blocks bitwise: ids, frontier sizes, rows, edge
+    lists and valid seeds, step by step and worker by worker."""
+    return len(a) == len(b) and all(
+        len(s) == len(t) and all(
+            x["frontier"] == y["frontier"] and x["num"] == y["num"]
+            and equal(x["n_id"], y["n_id"]) and equal(x["x"], y["x"])
+            and len(x["edges"]) == len(y["edges"])
+            and all(equal(e, f) for e, f in zip(x["edges"], y["edges"]))
+            for x, y in zip(s, t))
+        for s, t in zip(a, b))
+
+
+def close_floats(losses, want, params, want_params, params0) -> dict:
+    """The float outputs against the one-card run's: the largest relative
+    loss difference and the parameters' distance over their update
+    (``||p - p_card|| / ||p_card - p_0||`` over every parameter), each with
+    whether it is within 9r's tolerance."""
+    import torch
+
+    rel = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+              for a, b in zip(losses, want))
+    flat = lambda d: torch.cat([v.double().reshape(-1).cpu() for v in d.values()])  # noqa: E731
+    p, q, p0 = flat(params), flat(want_params), flat(params0)
+    ratio = float((p - q).norm() / max(float((q - p0).norm()), 1e-30))
+    return {"loss_rel": rel, "param_ratio": ratio, "param_max_abs": float((p - q).abs().max()),
+            "ok": rel <= MIXED_LOSS_RTOL and ratio <= MIXED_PARAM_RATIO}
+
+
+def host_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def mixed_case_mesh(topo, x, labels, case, shape, card) -> tuple[dict, dict, tuple]:
+    """(a) One configuration on one mixed mesh and on the one-card mesh of
+    its shape: ``MIXED_STEPS`` steps each under deterministic kernels, the
+    blocks, tier hits, overflows and guard counters bitwise, every worker's
+    tensors on its slot's device, the card's launches exact (the one-card
+    run's by the same rule), the floats within tolerance. Returns ``(the
+    mixed run's launches, result, (mixed trainer, one-card trainer))``."""
+    name = case[0]
+    what = f"{name} on {shape} over {MIXED_MESHES[shape]}"
+    runs, blocks, launches, params, params0, trainers = {}, {}, {}, {}, {}, {}
+    with deterministic_algorithms():
+        for form, devices in (("card", None), ("mixed", MIXED_MESHES[shape])):
+            trainer = mixed_trainer(topo, x, mixed_mesh(shape, devices), case)
+            params0[form] = host_state(trainer.model)
+            blocks[form] = []
+            mixed_blocks(trainer, blocks[form])
+            reset_launches()
+            runs[form] = mixed_steps(trainer, labels, MIXED_STEPS, 300)
+            sync()
+            launches[form] = read_launches()
+            params[form] = host_state(trainer.model)
+            trainers[form] = trainer
+    step9r(f"{what}: sampled ids, frontier sizes, gathered rows, tier hits, overflow and "
+           "guard counters bitwise the one-card mesh's")
+    check(same_blocks(blocks["mixed"], blocks["card"])
+          and same_ints(runs["mixed"], runs["card"]), f"{what}: integer outputs")
+    step9r(f"{what}: every worker's ids, rows, edges and seeds on its slot's device")
+    check(all(r["placed"] for s in blocks["mixed"] for r in s), f"{what}: placement")
+    for form in ("card", "mixed"):
+        want = mixed_expected(trainers[form], MIXED_STEPS)
+        step9r(f"{what}: the {form} run's card launches exactly {want}")
+        expect_launches(launches[form], want, f"{what} ({form})")
+    for trainer in trainers.values():
+        del trainer._issue  # the recording: the figures time the main path
+    step9r(f"{what}: losses within {MIXED_LOSS_RTOL} relative, parameters within "
+           f"{MIXED_PARAM_RATIO} of their update")
+    floats = close_floats([r["loss"] for r in runs["mixed"]], [r["loss"] for r in runs["card"]],
+                          params["mixed"], params["card"], params0["card"])
+    check(floats["ok"], f"{what}: floats {floats}")
+    check(params0["mixed"].keys() == params0["card"].keys()
+          and all(equal(params0["mixed"][k], v) for k, v in params0["card"].items()),
+          f"{what}: the same initial parameters")
+    replicas = sorted(str(d) for d in trainers["mixed"]._replicas.copies)
+    log(f"{what}: loss rel {floats['loss_rel']:.3g}, parameters {floats['param_ratio']:.3g} "
+        f"of their update (max |d| {floats['param_max_abs']:.3g}); card launches "
+        f"{launches['mixed']} against the one-card {launches['card']}; replicas {replicas}")
+    return launches["mixed"], {
+        "losses": [float(r["loss"]) for r in runs["mixed"]],
+        "card_losses": [float(r["loss"]) for r in runs["card"]],
+        "launches": launches["mixed"], "card_launches": launches["card"],
+        "floats": floats, "replicas": replicas,
+        "workers": [str(trainers["mixed"]._worker_device(w))
+                    for w in range(trainers["mixed"].workers)]}, (
+        trainers["mixed"], trainers["card"])
+
+
+def mixed_turns(trainers, labels, card) -> dict:
+    """Steps/s of a mixed mesh and its one-card twin, in turns (mixed,
+    one-card, one-card, mixed), each turn ``MIXED_TIMED`` synchronised
+    steps of the main path (kernels as they come)."""
+    turns = {"mixed": [], "card": []}
+    for form, trainer in (("mixed", trainers[0]), ("card", trainers[1]),
+                          ("card", trainers[1]), ("mixed", trainers[0])):
+        sync()
+        t0 = time.perf_counter()
+        mixed_steps(trainer, labels, MIXED_TIMED, 400)
+        sync()
+        turns[form].append(MIXED_TIMED / (time.perf_counter() - t0))
+    return {f"{form}_steps_per_s": sum(v) / len(v) for form, v in turns.items()} | {
+        "turns_steps_per_s": turns, "card": card}
+
+
+def mixed_dp(topo, x, labels, card) -> tuple[dict, dict]:
+    """(b) ``DataParallelTrainer`` on ``(2, 1)`` over the card and the
+    host and on the one-card ``(2, 1)``: a 4-step epoch each under its
+    ``Prefetcher`` (depth 2, a side stream for the card's slot only) and
+    deterministic kernels, one ``Feature`` (20% on the card) and the numpy
+    draws by the sampler's call number: the batches bitwise, placed on
+    their slots, the card's launches exact (3 ``select`` and 1
+    ``tiered_gather`` a card block), the floats within tolerance."""
+    import torch
+
+    from quiver_tpu_torch import DataParallelTrainer, Feature, GraphSageSampler, GraphSAGE
+
+    draws = mixed_draws(False)
+    out, blocks, launches, params, params0 = {}, {}, {}, {}, {}
+    with deterministic_algorithms():
+        for form, devices in (("card", None), ("mixed", MIXED_MESHES[(2, 1)])):
+            mesh = mixed_mesh((2, 1), devices)
+            feature = Feature(device_cache_size=int(0.2 * topo.node_count) * MULTI_F * 4,
+                              csr_topo=topo, device=CARD, kernel="pallas").from_cpu_tensor(x)
+            sampler = GraphSageSampler(topo, MULTI_FANOUT, seed=0, device=CARD,
+                                       kernel="pallas")
+            model = GraphSAGE(MULTI_F, MULTI_HIDDEN, MULTI_CLASSES,
+                              num_layers=len(MULTI_FANOUT), dropout=0.0).to(CARD)
+            trainer = DataParallelTrainer(mesh, sampler, feature, model,
+                                          torch.optim.Adam(model.parameters(), lr=1e-3),
+                                          local_batch=MULTI_BATCH)
+            trainer.init(torch.Generator().manual_seed(0))
+            params0[form] = host_state(model)
+            trainer.draw_fn = lambda call, layer, deg: draws(call, 0, layer, deg)
+            blocks[form], step = [], trainer.step
+
+            def recording(batches, *a, into=blocks[form], tr=trainer, step=step):
+                into.append([{"n_id": b.out.n_id.cpu(), "frontier": int((b.out.n_id >= 0).sum()),
+                              "x": b.x.cpu(), "edges": [e.edge_index.cpu() for e in b.out.adjs],
+                              "num": int(b.out.batch_size),
+                              "placed": all(t.device == torch.device(tr.mesh.devices[w, 0])
+                                            for t in (b.out.n_id, b.x))}
+                             for w, b in enumerate(batches)])
+                return step(batches, *a)
+
+            trainer.step = recording
+            reset_launches()
+            out[form] = trainer.train_epoch(torch.arange(4 * 2 * MULTI_BATCH).numpy(), labels,
+                                            torch.Generator().manual_seed(7), depth=2)
+            sync()
+            launches[form] = read_launches()
+            params[form] = host_state(model)
+    steps = out["mixed"][1]
+    step9r("(b) DataParallelTrainer (2, 1) over the card and the host: the epoch's batches "
+           "bitwise the one-card mesh's, each on its slot's device")
+    check(steps == 4 and same_blocks(blocks["mixed"], blocks["card"])
+          and all(r["placed"] for s in blocks["mixed"] for r in s), "mixed DataParallelTrainer")
+    for form, card_blocks in (("card", 2 * steps), ("mixed", steps)):
+        want = {"select": len(MULTI_FANOUT) * card_blocks, "tiered_gather": card_blocks}
+        step9r(f"(b) the {form} epoch's card launches exactly {want}")
+        expect_launches(launches[form], want, f"mixed DataParallelTrainer ({form})")
+    floats = close_floats([out["mixed"][0]], [out["card"][0]], params["mixed"], params["card"],
+                          params0["card"])
+    step9r("(b) the mean loss and the parameters within tolerance")
+    check(floats["ok"], f"mixed DataParallelTrainer: floats {floats}")
+    log(f"mixed DataParallelTrainer: {steps} steps, mean loss {out['mixed'][0]:.6f} "
+        f"(one-card {out['card'][0]:.6f}), parameters {floats['param_ratio']:.3g} of their "
+        f"update [{card}]")
+    return launches["mixed"], {"steps": steps, "mean_loss": out["mixed"][0],
+                               "card_mean_loss": out["card"][0], "floats": floats,
+                               "launches": launches["mixed"],
+                               "card_launches": launches["card"]}
+
+
+def mixed_elastic_trainer(topo, x, mesh, ckpt=None, plan=None):
+    """(c)'s trainer: 4 logical workers under ``"all"`` over a routed f32
+    three-tier store with ``auto_alpha`` and an attached
+    ``CacheController`` (``routed_alpha`` 0.5, so the tuner has overflow to
+    read), the replicated sampler; checkpoints every 2 steps."""
+    from quiver_tpu_torch import CacheController
+
+    kw = {"logical_workers": 4, "auto_alpha": True, "controller": CacheController(),
+          "routed_alpha": 0.5, "fault_plan": plan}
+    if ckpt is not None:
+        kw.update(checkpoint_dir=ckpt, checkpoint_every=2)
+    return mixed_trainer(topo, x, mesh, MIXED_CASES[2], **kw)
+
+
+def mixed_decisions(trainer) -> tuple:
+    """The tuners' state a decision leaves: the routed budget, the L0/L1
+    boundary and the store's version (one bump per repin)."""
+    return (trainer.routed_alpha, trainer.feature.rep_rows, trainer.feature.version)
+
+
+def mixed_elastic(topo, x, labels, card) -> tuple[dict, dict]:
+    """(c) An elastic run checkpointed on the one-card ``(1, 4)`` and
+    resumed with ``resume(mesh=)`` onto ``(2, 2)`` over the card and the
+    host, against its one-card twin resumed onto the one-card ``(2, 2)``
+    and the uninterrupted one-card ``(2, 2)`` epoch, under deterministic
+    kernels: the resumed steps' blocks and integer outputs bitwise the
+    uninterrupted run's, the floats within tolerance; then the tuners'
+    decisions (the epoch's end, ``MIXED_TUNED_STEPS`` tuned steps) equal
+    the twin's. Returns ``(the mixed tail's launches, result)``."""
+    import torch
+
+    from quiver_tpu_torch import Preemption
+    from quiver_tpu_torch.resilience.faults import FaultPlan
+
+    steps, stop = MIXED_ELASTIC_STEPS, 2
+    out, blocks, decisions, launches = {}, {}, {}, {}
+    with deterministic_algorithms():
+        ref = mixed_elastic_trainer(topo, x, mixed_mesh((2, 2)))
+        seed_mat = ref.pack_epoch(torch.arange(steps * ref.global_batch).numpy(), seed=3)
+        blocks["uninterrupted"] = []
+        mixed_blocks(ref, blocks["uninterrupted"])
+        losses = ref.epoch_scan(seed_mat, labels, 31)
+        out["uninterrupted"] = (losses.cpu(), ref.last_tier_hits.cpu(),
+                                ref.last_routed_overflow.cpu(), host_state(ref.model))
+        del ref
+        params0 = None
+        for form, devices in (("card", None), ("mixed", MIXED_MESHES[(2, 2)])):
+            ckpt = os.path.join(SCRATCH, f"elastic_{form}")
+            trainer = mixed_elastic_trainer(topo, x, mixed_mesh((1, 4)), ckpt,
+                                            FaultPlan(preempt_at_step=stop))
+            params0 = params0 or host_state(trainer.model)
+            try:
+                trainer.epoch_scan(seed_mat, labels, 31)
+                raise AssertionError("the planned preemption did not fire")
+            except Preemption:
+                pass
+            t0 = time.time()
+            _, _, key, step, epoch = trainer.resume(mesh=mixed_mesh((2, 2), devices))
+            resume_s = time.time() - t0
+            check((key, step) == (31, stop), f"(c) {form}: resumed at {(key, step)}")
+            blocks[form] = []
+            mixed_blocks(trainer, blocks[form])
+            reset_launches()
+            tail = trainer.epoch_scan(seed_mat, labels, key, epoch=epoch, start_step=step)
+            sync()
+            launches[form] = read_launches()
+            out[form] = (tail.cpu(), trainer.last_tier_hits.cpu(),
+                         trainer.last_routed_overflow.cpu(), host_state(trainer.model))
+            del trainer._issue
+            # the epoch's end (a possible repin), then each tuned step's
+            # decisions (made before it) and the counts it leaves
+            decisions[form] = [mixed_decisions(trainer)]
+            for i in range(MIXED_TUNED_STEPS):
+                (s,) = mixed_steps(trainer, labels, 1, 500 + i)
+                decisions[form].append(mixed_decisions(trainer) + (
+                    int(s["routed_overflow"]), s["hits"].tolist()))
+            out[form] += (resume_s,)
+    u, m, c = out["uninterrupted"], out["mixed"], out["card"]
+    # the tiers keep the degree order of the (1, 4) placement (its L1 span
+    # shuffled over (1, 4)'s device rows) and the routed budget is the one
+    # the tuner chose at the resume, so the hits and the overflow are held
+    # to the one-card twin's
+    step9r("(c) the resumed steps' ids, frontier sizes and rows bitwise the uninterrupted "
+           "one-card (2, 2) epoch's, the tier hits and routed overflow the one-card twin's, "
+           "each block on its slot's device")
+    check(same_blocks(blocks["mixed"], blocks["uninterrupted"][stop:])
+          and same_blocks(blocks["card"], blocks["uninterrupted"][stop:])
+          and equal(m[1], c[1]) and equal(m[2], c[2])
+          and all(r["placed"] for s in blocks["mixed"] for r in s), "(c) elastic integers")
+    step9r("(c) the resumed losses and parameters within tolerance of the uninterrupted run")
+    floats = close_floats(m[0].tolist(), u[0][stop:].tolist(), m[3], u[3], params0)
+    check(floats["ok"], f"(c) elastic floats {floats}")
+    step9r("(c) the tuners (controller, auto_alpha) decide the same on the mixed mesh as on "
+           "the one-card twin: alpha, the L0 boundary, repins, every tuned step's overflow "
+           "and hits")
+    check(decisions["mixed"] == decisions["card"], f"(c) decisions {decisions}")
+    log(f"(c) elastic resume onto {MIXED_MESHES[(2, 2)]}: tail losses {m[0].tolist()}, "
+        f"resume {m[4]:.2f} s (one-card {c[4]:.2f} s), decisions {decisions['mixed']}, "
+        f"floats {floats} [{card}]")
+    return launches["mixed"], {
+        "tail_losses": m[0].tolist(), "uninterrupted_losses": u[0].tolist(),
+        "floats": floats, "decisions": decisions["mixed"], "resume_s": m[4],
+        "card_resume_s": c[4], "launches": launches["mixed"],
+        "card_launches": launches["card"]}
+
+
+def mixed_two_cards(topo, x, labels, card) -> dict:
+    """(d) Where the machine has two cards: (a)'s routed f32 store on
+    ``(2, 2)`` over ``cuda:0`` and ``cuda:1``, the trainer's own draws,
+    under deterministic kernels: losses, integer outputs and parameters
+    bitwise the one-card mesh's."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        log("9r (d): not run, 1 card")
+        return {"ran": False, "reason": f"{torch.cuda.device_count()} card"}
+    two = ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]
+    runs, params = {}, {}
+    with deterministic_algorithms():
+        for form, devices in (("card", None), ("two", two)):
+            trainer = mixed_trainer(topo, x, mixed_mesh((2, 2), devices), MIXED_CASES[2])
+            trainer.draw_fn = None
+            runs[form] = mixed_steps(trainer, labels, MIXED_STEPS, 300)
+            params[form] = host_state(trainer.model)
+    step9r("(d) two cards: every output bitwise the one-card logical mesh's")
+    check(same_ints(runs["two"], runs["card"])
+          and all(equal(a["loss"], b["loss"]) for a, b in zip(runs["two"], runs["card"]))
+          and all(equal(params["two"][k], v) for k, v in params["card"].items()),
+          "(d) two cards")
+    return {"ran": True, "losses": [float(r["loss"]) for r in runs["two"]], "card": card}
+
+
+def multi_device_phase(card):
+    """Phase 9r (see the module docstring). Returns ``(the card's launches
+    of the mixed runs by check, result)``."""
+    import torch
+
+    t0 = time.time()
+    topo, x, labels = mixed_setup()
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    launches, cases, figures = {}, {}, {}
+    try:
+        for case in MIXED_CASES:
+            for shape in case[6]:
+                label = f"{case[0]} {shape}"
+                launches[label], cases[label], pair = mixed_case_mesh(
+                    topo, x, labels, case, shape, card)
+                figures[label] = mixed_turns(pair, labels, card)
+                log(f"{label} over {MIXED_MESHES[shape]}: "
+                    f"{figures[label]['mixed_steps_per_s']:.4g} steps/s, one-card "
+                    f"{figures[label]['card_steps_per_s']:.4g} steps/s (in turns) [{card}]")
+                del pair
+                torch.cuda.empty_cache()
+        launches["dp"], dp = mixed_dp(topo, x, labels, card)
+        torch.cuda.empty_cache()
+        launches["elastic"], elastic = mixed_elastic(topo, x, labels, card)
+        torch.cuda.empty_cache()
+        two = mixed_two_cards(topo, x, labels, card)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    del x
+    result = {
+        "config": "phase 9f (b)'s: examples/train_multichip.py defaults (100,000 nodes, "
+                  "degree 25, F = 128, GraphSAGE 256 x 3, [15, 10, 5] x 256, Adam 1e-3, "
+                  "the worst-case caps), a Feature with 20% of the rows on the lead device "
+                  "or 8M L1 and 4M L0 per device, the guard on, numpy draws; logical meshes "
+                  "over the card and the host against the one-card meshes of their shapes",
+        "tolerance": {"loss_rtol": MIXED_LOSS_RTOL, "param_ratio": MIXED_PARAM_RATIO},
+        "trainer": cases, "figures": figures, "data_parallel": dp, "elastic": elastic,
+        "two_cards": two, "not_run_here": (
+            [] if two["ran"] else ["two cards in one process (9r (d))",
+                                   "NVLink peer copies", "an nccl world of more than one rank"]),
+        "card": card, "seconds": time.time() - t0}
+    log(f"phase 9r {result['seconds']:.1f}s [{card}]")
+    return launches, result
+
+
 def kernel_row(name, source, replaces, launches, path, checks, t, extra, card,
                device):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -9493,6 +10087,12 @@ def main() -> int:
     launches_agg, agg_checks, infer_aggs = infer_agg_phase(topo, x_all, card)
     torch.cuda.empty_cache()
     lap("phase 9q (layer-wise aggregation switch)")
+    # phase 9r: one process over distinct devices: both trainers on logical
+    # meshes of the card and the host against the one-card meshes
+    launches_r, multi = multi_device_phase(card)
+    torch.cuda.empty_cache()
+    lap("phase 9r (one process over distinct devices)")
+    mixed_of = lambda entry: {k: v.get(entry, 0) for k, v in launches_r.items()}  # noqa: E731
     for mode in ("sampled", "layerwise", "int8_sampled"):
         log(f"planted:20000 {mode}: test acc {accept[mode]['test_acc']:.4f} "
             f"(feature-only Bayes {accept[mode]['feature_bayes_acc']:.4f})")
@@ -9517,6 +10117,7 @@ def main() -> int:
                     "world_hetero_launches": launches_n["hetero"]["uniform"]["select"],
                     "world_elastic_launches": launches_n["elastic"]["select"],
                     "world_control_trainer_launches": launches_ctl["all"]["select"],
+                    "mixed_mesh_launches": mixed_of("select"),
                     "owner_side": {
                         **{k: {"device_ms_per_sample": dist["samplers"][k][
                             "select_device_ms_per_sample"],
@@ -9584,6 +10185,7 @@ def main() -> int:
                     "stream_launches": {k: v["gather_rows"] for k, v in launches_k.items()},
                     "world_control_trainer_launches": {
                         k: v["gather_rows"] for k, v in launches_ctl.items()},
+                    "mixed_mesh_launches": mixed_of("gather_rows"),
                     "layerwise_host_launches": launches_agg,
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
@@ -9613,6 +10215,7 @@ def main() -> int:
                                              for k, v in launches_h["rgcn_stream"].items()},
                     "fused_trainer_launches": launches_f["tiered_gather"],
                     "world_dp_launches": launches_m["dp"]["tiered_gather"],
+                    "mixed_mesh_launches": mixed_of("tiered_gather"),
                     "ooc_epoch_launches": launches_j["tiered_gather"],
                     "ooc_lookup": ooc["lookup"],
                     "beyond_hbm": {
@@ -9649,6 +10252,7 @@ def main() -> int:
                         "tiered_gather_dequant"],
                     "world_control_trainer_launches": {
                         k: v["tiered_gather_dequant"] for k, v in launches_ctl.items()},
+                    "mixed_mesh_launches": mixed_of("tiered_gather_dequant"),
                     "sharded_int8_lookup": {mesh: r["timing"] for mesh, r in
                                             control["int8_store"]["meshes"].items()},
                     "library": "none: no single PyTorch call dequantises a "
@@ -9664,6 +10268,7 @@ def main() -> int:
                     "dist_hetero_launches": launches_g["hetero"]["weighted"]["wselect"],
                     "world_topo_trainer_launches": launches_n["weighted"]["wselect"],
                     "world_hetero_launches": launches_n["hetero"]["weighted"]["wselect"],
+                    "mixed_mesh_launches": mixed_of("wselect"),
                     "owner_side": {"device_ms_per_sample": dist["samplers"]["weighted"][
                         "wselect_device_ms_per_sample"],
                         **dist["samplers"]["weighted"]["owner_side"]},
@@ -9702,6 +10307,14 @@ def main() -> int:
           and launches_m["psum int8"]["tiered_gather_dequant"] > 0
           and launches_m["dp"]["tiered_gather"] > 0
           and launches_agg["scatter"] > 0 and launches_agg["scan"] == launches_agg["scatter"]
+          and all(launches_r[f"replicated f32 {s}"]["select"] > 0
+                  and launches_r[f"replicated f32 {s}"]["tiered_gather"] > 0
+                  for s in ((2, 1), (1, 2), (2, 2)))
+          and all(launches_r[f"psum int8 {s}"]["tiered_gather_dequant"] > 0
+                  and launches_r[f"routed f32 {s}"]["gather_rows"] > 0
+                  and launches_r[f"topology weighted {s}"]["wselect"] > 0
+                  for s in ((1, 2), (2, 2)))
+          and launches_r["dp"]["select"] > 0 and launches_r["elastic"]["gather_rows"] > 0
           and all(v["select"] > 0 and v["gather_rows"] > 0 for v in launches_e.values())
           and all(launches_k[k]["select"] > 0 and launches_k[k]["gather_rows"] > 0
                   for k in ("epoch_0", "epoch_1"))
@@ -9745,7 +10358,7 @@ def main() -> int:
                        "elastic": elastic, "ooc": ooc, "stream": stream,
                        "world": world_res, "world_topo": world_topo,
                        "world_control": world_ctl, "dedup": dedup,
-                       "infer_agg": infer_aggs, "lint": lint_row,
+                       "infer_agg": infer_aggs, "multi_device": multi, "lint": lint_row,
                        "audit": audit,
                        "build_s": build_s, "host_build_s": host_build_s,
                        "graph_s": graph_s, "phase_s": phase_s,
@@ -9793,6 +10406,7 @@ def main() -> int:
     print(json.dumps({"world_control": world_ctl}), flush=True)
     print(json.dumps({"dedup": dedup}), flush=True)
     print(json.dumps({"infer_agg": infer_aggs}), flush=True)
+    print(json.dumps({"multi_device": multi}), flush=True)
     log(f"seconds by phase: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     for k in kernels:
         k.pop("checks")

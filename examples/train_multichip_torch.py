@@ -19,6 +19,13 @@ count over ``--feature-axis``, on one device). It runs on the CUDA card
 unless ``--device`` names another (``--device cpu`` runs the kernels' plain
 versions); with no card and no ``--device`` it raises.
 
+``--devices`` (a comma list, such as ``cuda:0,cuda:1``, or a card and the
+host, ``cuda:0,cpu``) builds the mesh over those devices instead, one slot
+each in order, as the JAX example's mesh spans ``jax.devices()``: one
+process runs every slot, each worker on its slot's device, and the step
+reduces on the first (``--data-axis`` defaults to the device count over
+``--feature-axis``).
+
 Under ``torchrun`` (``WORLD_SIZE`` set) it runs one process per mesh slot:
 each calls ``init_distributed()`` (``nccl`` on the card ``LOCAL_RANK``
 names; ``gloo`` with ``--device cpu``) and builds the world mesh
@@ -34,6 +41,8 @@ CSR (its feature-axis shard) and every hop routes over its feature group.
     python -m examples.train_multichip_torch --device cpu --nodes 3000 \\
         --feature-dim 16 --hidden 32 --fanout 5 5 --local-batch 32 \\
         --data-axis 2 --feature-axis 2
+    python -m examples.train_multichip_torch --devices cuda:0,cuda:1 \\
+        --feature-axis 2 --seed-sharding all
 """
 
 import argparse
@@ -87,6 +96,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--devices", default=None, metavar="LIST",
+                   help="a comma list of devices (cuda:0,cuda:1 or cuda:0,cpu): "
+                   "the mesh's slots, one per device, in one process")
     return p.parse_args(argv)
 
 
@@ -110,6 +122,12 @@ def train(args):
         say = print if lead else (lambda *a, **k: None)
         say(f"world mesh over {mesh.world_size} processes: {dict(mesh.shape)} "
             f"(rank 0 on {device})")
+    elif args.devices:
+        devices = [d.strip() for d in args.devices.split(",") if d.strip()]
+        mesh = make_mesh(data=args.data_axis, feature=args.feature_axis, devices=devices)
+        device, say = mesh.devices.flat[0], print
+        say(f"mesh over {len(devices)} devices: {dict(mesh.shape)} "
+            f"({', '.join(str(d) for d in mesh.devices.ravel())})")
     else:
         device, say = resolve_device(args.device), print
         data = args.data_axis or 1

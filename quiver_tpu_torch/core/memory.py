@@ -28,12 +28,14 @@ def resolve_device(device=None) -> torch.device:
 def to_pinned_host(x, device=None, mesh=None) -> tuple[torch.Tensor, bool]:
     """Place ``x`` in pinned host memory when its device is a CUDA device.
 
-    The device is ``device``; else, with ``mesh``, the device of this
-    process's slot in the mesh (a logical mesh's one device, a world
-    mesh's rank device: pinned memory is one copy per host, which every
-    slot of the process reads); else :func:`resolve_device` ``(None)``, the
-    card, raising without one. The JAX package's ``to_pinned_host(x,
-    mesh=None)`` calls take the same arguments.
+    The device is ``device``; else, with ``mesh``, a CUDA device among the
+    slots this process runs (the first such, so a mesh of a card and the
+    host pins, since the card reads the rows over UVA; a world mesh's rank
+    device: pinned memory is one copy per host, which every slot of the
+    process reads), or the mesh's first device when none is a card; else
+    :func:`resolve_device` ``(None)``, the card, raising without one. The
+    JAX package's ``to_pinned_host(x, mesh=None)`` calls take the same
+    arguments.
 
     Returns ``(tensor, is_host)``. Pinned host memory is mapped into the
     card's address space (UVA), so the kernels read it over PCIe with no
@@ -41,7 +43,8 @@ def to_pinned_host(x, device=None, mesh=None) -> tuple[torch.Tensor, bool]:
     tensor stays in ordinary memory and ``is_host`` is False.
     """
     if device is None and mesh is not None:
-        device = mesh.devices.flat[0]
+        slots = mesh.devices.ravel().tolist()
+        device = next((d for d in slots if torch.device(d).type == "cuda"), slots[0])
     device = resolve_device(device)
     t = torch.as_tensor(np.ascontiguousarray(x)) if isinstance(
         x, np.ndarray) else torch.as_tensor(x)

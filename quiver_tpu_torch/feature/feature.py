@@ -31,6 +31,7 @@ package.
 
 from __future__ import annotations
 
+import copy
 import threading
 
 import numpy as np
@@ -283,6 +284,18 @@ class KernelChoice:
             self._kernel_resolved = resolved
         return resolved
 
+    def kernel_on(self, device) -> str:
+        """The request resolved for ``device`` (a mesh slot's, where a
+        store's parts sit on several devices); :attr:`kernel` on the
+        store's own."""
+        device = torch.device(device)
+        if device == self.device:
+            return self.kernel
+        by_device = self.__dict__.setdefault("_kernel_by_device", {})
+        if device not in by_device:
+            by_device[device] = resolve_gather_kernel(self._kernel, device)
+        return by_device[device]
+
 
 def _numpy_rows(tensor) -> np.ndarray:
     """A host numpy view of a table given as an array or a tensor (bf16
@@ -322,6 +335,11 @@ class Feature(KernelChoice):
         added to ``device_cache_size`` (logged once).
       device: the device of the hot tier and of lookups; CUDA unless the
         caller passes another.
+
+    :meth:`replica` gives the store on another device of a mesh (its hot
+    tier, order and scales copied there; the cold rows shared, pinned
+    when a card reads them), for a trainer whose workers sit on distinct
+    devices.
     """
 
     def __init__(self, rank: int = 0, device_list=None,
@@ -366,6 +384,7 @@ class Feature(KernelChoice):
         self.hot_rows = 0
         self.shape = None
         self.dtype = None
+        self._replicas: dict = {}  # device -> this store placed there
 
     def from_cpu_tensor(self, tensor) -> "Feature":
         """Split, (optionally) reorder and quantise, and place the table."""
@@ -427,6 +446,35 @@ class Feature(KernelChoice):
     def from_numpy(cls, tensor, **kwargs) -> "Feature":
         return cls(**kwargs).from_cpu_tensor(tensor)
 
+    def replica(self, device) -> "Feature":
+        """This store on ``device``: itself on its own device, else a copy
+        made at the first call and kept per ``device`` as given (the mesh's
+        key). The copy holds the hot rows, the order and the int8 scales on
+        ``device`` and shares the cold rows (pinned first when ``device``
+        is a card and they are not), so its lookups return the same rows
+        bitwise; its path (``kernel``) resolves for ``device``. Placed
+        before a lookup, never between a lookup's launches."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        rep = self._replicas.get(device)
+        if rep is None:
+            rep = copy.copy(self)
+            rep.device = device
+            rep._replicas = {}
+            rep._staging = threading.local()
+            rep.__dict__.pop("_kernel_resolved", None)
+            rep.__dict__.pop("_kernel_by_device", None)
+            for name in ("hot", "feature_order", "scale"):
+                t = getattr(self, name)
+                if t is not None:
+                    setattr(rep, name, t.to(device).contiguous())
+            if (self.cold is not None and device.type == "cuda"
+                    and self.cold.device.type == "cpu" and not self.cold.is_pinned()):
+                rep.cold = self.cold.pin_memory()
+            self._replicas[device] = rep
+        return rep
+
     def __getitem__(self, n_id):
         """Rows for (possibly padded, -1 sentinel) node ids; invalid lanes
         return zero rows, int8 stores return float32."""
@@ -476,6 +524,7 @@ class Feature(KernelChoice):
         ``shard_tensor.delete``). The store is unusable after."""
         self.hot = self.cold = self.feature_order = self.scale = None
         self._staging = threading.local()
+        self._replicas = {}
         self.hot_rows = 0
 
     # -- reference API shims (one process owns the store; IPC is a no-op) --

@@ -14,9 +14,20 @@ member of the group: shard ``f`` is its own tensor on member ``f``'s
 device, the ``psum`` is a sum of the shards' answers in member order, and
 the routed exchange moves the requests and rows between the shards' tensors.
 On a logical mesh of one card (``make_mesh(devices=["cuda:0"] * 4, data=2,
-feature=2)``) every shard sits on that card. Each shard serves its lanes
-with one launch of kernel K2's single-table entry (``gather_rows``), the
-counterpart of the JAX package's ``_hot_gather_fn``.
+feature=2)``) every shard sits on that card; on a mesh of distinct devices
+(``["cuda:0", "cpu"]``) each shard sits on its member's, the requests move
+to it and its rows back to the requester's device. Each shard serves its
+lanes with one launch of kernel K2's single-table entry (``gather_rows``)
+on a card, its plain version on the host, the counterpart of the JAX
+package's ``_hot_gather_fn``.
+
+A lookup runs on the device its caller names (``lookup(..., device=)``: a
+worker's slot, or a routed feature group's first member): the L0 block,
+the translation order and the int8 scales are read from that device's
+copies (the L0 block is placed on every distinct device; the order and
+the scales are copied to a device at its first lookup and kept, keyed by
+the device as the mesh lists it), the cold rows (pinned when the mesh
+holds a card) from the host.
 
 ``ShardedFeature`` puts the degree-ordered rows in three tiers: an L0 block
 of the top-degree rows, stored once per distinct device and read with no
@@ -84,7 +95,8 @@ from ..obs.registry import ROUTED_OVERFLOW, TIER_HITS, MetricsRegistry
 from ..ops.kernels.gather import (gather_rows, gather_rows_plain, tiered_gather_dequant,
                                   tiered_gather_plain)
 from ..parallel import world
-from ..parallel.mesh import DATA_AXIS, FEATURE_AXIS, Mesh, axis_devices, is_world
+from ..parallel.mesh import (DATA_AXIS, FEATURE_AXIS, Mesh, axis_devices, is_world,
+                             mesh_devices)
 from ..parallel.routing import BucketRoute
 from ..utils.reorder import reorder_by_degree
 from ..utils.trace import get_logger, info_once
@@ -162,8 +174,10 @@ class ShardedTensor(KernelChoice):
         )
         self.shards: list[torch.Tensor] = []
         # int8 codes only: every row's float32 scale (padded as the rows
-        # are), on the requesters' device, which dequantises the codes
+        # are), on the first member's device, which dequantises the codes,
+        # and its copies on the other requesters' devices
         self.scale: torch.Tensor | None = None
+        self._scales: dict = {}
         self.rows_per_shard = 0
         self.num_rows = 0
 
@@ -201,6 +215,7 @@ class ShardedTensor(KernelChoice):
         """Take ``scale`` (``(N,)`` float32, the scales of the table's int8
         rows; None: the rows are not codes), padded with zeros as the rows
         are."""
+        self._scales = {}
         if scale is None:
             self.scale = None
             return
@@ -209,6 +224,14 @@ class ShardedTensor(KernelChoice):
         if pad:
             scale = torch.cat([scale, scale.new_zeros(pad)])
         self.scale = scale.to(self.device)
+
+    def _scale_on(self, device):
+        """The scales on ``device`` (copied there at its first request)."""
+        if device == self.device:
+            return self.scale
+        if device not in self._scales:
+            self._scales[device] = self.scale.to(device)
+        return self._scales[device]
 
     @property
     def shape(self):
@@ -223,14 +246,18 @@ class ShardedTensor(KernelChoice):
         local = torch.where(mine, ids - member * rps, -1)
         if self.group is not None and member != self.member:
             raise ValueError(f"rank holds shard {self.member}, not {member}")
-        shard = self.shards[0 if self.group is not None else member]
-        return _row_gather(shard, self.kernel)(local.to(shard.device)).to(ids.device)
+        world = self.group is not None
+        shard = self.shards[0 if world else member]
+        kernel = self.kernel_on(self.device if world else self.member_devices[member])
+        return _row_gather(shard, kernel)(local.to(shard.device)).to(ids.device)
 
-    def psum_gather(self, ids):
+    def psum_gather(self, ids, device=None):
         """Rows of ``ids`` (any shape; every member requests the same ids):
-        each shard's :meth:`local_gather`, summed in member order, then
-        dequantised (an int8 table). On a world mesh: this rank's
-        :meth:`local_gather`, then the ordered sum over its group."""
+        each shard's :meth:`local_gather`, summed in member order on the
+        ids' device, then dequantised there (an int8 table) with the
+        scales of ``device``, the mesh's name for it (default the first
+        member's). On a world mesh: this rank's :meth:`local_gather`, then
+        the ordered sum over its group."""
         if self.group is not None:
             out = world.ordered_sum(self.local_gather(self.member, ids), self.group,
                                     (self.axis,))
@@ -240,7 +267,7 @@ class ShardedTensor(KernelChoice):
             part = self.local_gather(d, ids)
             out = part if out is None else out + part
         collective("psum", (self.axis,), out)
-        return self._dequantise(ids, out)
+        return self._dequantise(ids, out, device)
 
     def routed_cap(self, length: int, alpha: float | None = None) -> int:
         """Bucket capacity for a per-member request length ``L``: ``ceil(alpha
@@ -272,7 +299,8 @@ class ShardedTensor(KernelChoice):
                 count, old, self.routed_alpha,
             )
 
-    def routed_gather(self, ids, cap: int | None = None, with_overflow: bool = False):
+    def routed_gather(self, ids, cap: int | None = None, with_overflow: bool = False,
+                      device=None):
         """One feature group's routed gather: ``ids`` is ``(F, L)``, one
         request vector per member (any negative value marks an invalid
         lane, whose row is zero); each request travels to its owner and
@@ -285,6 +313,10 @@ class ShardedTensor(KernelChoice):
         An int8 table's codes ride the exchange (a quarter of the float
         rows' bytes, as in the JAX package), and the requesters dequantise
         the received block.
+
+        The plan, the exchange's merge and the dequantisation run on the
+        ids' device (``device`` names it, default the first member's);
+        each owner serves on its shard's device.
 
         On a world mesh ``ids`` is this member's ``(L,)`` request vector
         and the rows come back ``(L, row)``; the overflow is the group's."""
@@ -300,22 +332,26 @@ class ShardedTensor(KernelChoice):
         route = BucketRoute(safe, valid, torch.div(safe, self.rows_per_shard,
                                                    rounding_mode="floor"),
                             num_shards=self.num_shards, cap=cap, group=self.group)
-        rows = self._dequantise(ids, route.exchange(self.local_gather))
+        rows = self._dequantise(ids, route.exchange(self.local_gather), device)
         return (rows, route.overflow) if with_overflow else rows
 
-    def _dequantise(self, ids, codes):
+    def _dequantise(self, ids, codes, device=None):
         """The int8 ``codes`` summed or received for ``ids`` (any shape) ->
         float32 rows: one K2 ``tiered_gather_dequant`` over the block, lane
-        ``j`` reading block row ``j`` times its id's scale; zero rows on
-        invalid lanes. Rows that are not codes pass through."""
+        ``j`` reading block row ``j`` times its id's scale (the scales of
+        ``device``, where the block lies; default the first member's); zero
+        rows on invalid lanes. Rows that are not codes pass through."""
         if self.scale is None:
             return codes
+        device = self.device if device is None else device
         flat = codes.reshape(-1, codes.shape[-1]).contiguous()
         valid = (ids >= 0).reshape(-1)
         lanes = flat.shape[0]
         lane = torch.where(valid, torch.arange(lanes, device=flat.device), -1)
-        scale = torch.where(valid, self.scale[ids.reshape(-1).clamp(min=0)], 0.0)
-        deq = tiered_gather_dequant if self.kernel == "pallas" else tiered_gather_plain
+        scale = torch.where(valid, self._scale_on(device)[ids.reshape(-1).clamp(min=0)],
+                            0.0)
+        deq = (tiered_gather_dequant if self.kernel_on(device) == "pallas"
+               else tiered_gather_plain)
         rows = deq(lane.to(torch.int32), None, lanes, flat, None, scale)
         return rows.reshape(tuple(ids.shape) + (codes.shape[-1],))
 
@@ -324,6 +360,7 @@ class ShardedTensor(KernelChoice):
         The object is unusable after."""
         self.shards = []
         self.scale = None
+        self._scales = {}
         self.last_routed_overflow = None
 
     def gather(self, ids, routed: bool = False, routed_cap="auto"):
@@ -468,6 +505,9 @@ class ShardedFeature(KernelChoice):
         # int8 only: the scales of each tier's rows, on the tier's devices
         self._rep_scales: dict[torch.device, torch.Tensor] = {}
         self._cold_scale = None
+        # (name, device) -> (the lead's tensor, its copy on device): the
+        # order and the cold scales where a lookup runs off the lead
+        self._copies: dict = {}
         self.rep_rows = 0
         self.hot_rows = 0
         self.shape = None
@@ -497,6 +537,18 @@ class ShardedFeature(KernelChoice):
     def rep(self):
         """The L0 block on the mesh's first device (None without one)."""
         return self.reps.get(self.device)
+
+    def _on(self, name: str, device):
+        """Attribute ``name`` (a tensor on the lead device, or None) on
+        ``device``: itself there, else a copy made at the first request
+        and kept until the attribute is replaced."""
+        t = getattr(self, name)
+        if t is None or device == self.device:
+            return t
+        hit = self._copies.get((name, device))
+        if hit is None or hit[0] is not t:
+            hit = self._copies[(name, device)] = (t, t.to(device))
+        return hit[1]
 
     @property
     def _quantized(self) -> bool:
@@ -541,9 +593,9 @@ class ShardedFeature(KernelChoice):
         the first ``rep_rows`` are the L0 block."""
         total = region.shape[0]
         rep_rows = max(0, min(int(rep_rows), total))
-        devices = dict.fromkeys(self.mesh.devices.ravel().tolist())
-        self.reps = ({dev: region[:rep_rows].to(dev).contiguous() for dev in devices}
-                     if rep_rows > 0 else {})
+        self._copies = {}
+        self.reps = ({dev: region[:rep_rows].to(dev).contiguous()
+                      for dev in mesh_devices(self.mesh)} if rep_rows > 0 else {})
         if self.hot is not None:
             self.hot.delete()
         self.hot = (ShardedTensor(self.mesh, self.axis, kernel=self._kernel,
@@ -554,8 +606,9 @@ class ShardedFeature(KernelChoice):
         self._slice_scales()
 
     def _place_cold(self, rows) -> None:
-        """Pin the cold rows on the host (UVA on a card)."""
-        self.cold, self._cold_is_host = to_pinned_host(rows, self.device)
+        """Pin the cold rows on the host (UVA on a card) when a slot of the
+        mesh is a card."""
+        self.cold, self._cold_is_host = to_pinned_host(rows, mesh=self.mesh)
         self._slice_scales()
 
     def _slice_scales(self) -> None:
@@ -764,7 +817,7 @@ class ShardedFeature(KernelChoice):
         if self.hot is not None:
             hot = self.hot
             if hot.group is None:
-                shards = torch.cat(hot.shards)
+                shards = torch.cat([sh.cpu() for sh in hot.shards])
             else:
                 # a world rank holds its own shard: the others' over its group
                 shards = world.all_gather(hot.shards[0], hot.group, (hot.axis,),
@@ -1011,24 +1064,26 @@ class ShardedFeature(KernelChoice):
             self.hot.delete()
         self.reps = {}
         self.hot = self.cold = self.feature_order = self.scale = None
-        self._rep_scales, self._cold_scale = {}, None
+        self._rep_scales, self._cold_scale, self._copies = {}, None, {}
         self.rep_rows = self.hot_rows = 0
         self.last_tier_hits = None
         self._region_host = None
 
     def _tier_gathers(self, device):
-        """The lookup's ``(rep, cold)`` gathers on ``device``: one K2
-        launch each (``gather_rows``, or ``tiered_gather_dequant`` over
-        int8 codes; the plain version for ``kernel="xla"``), the cold one
-        reading the pinned rows over UVA."""
+        """The lookup's ``(rep, cold)`` gathers on ``device`` (the mesh's
+        name for it): one K2 launch each on a card (``gather_rows``, or
+        ``tiered_gather_dequant`` over int8 codes; the plain version for
+        ``kernel="xla"`` and on the host), the cold one reading the pinned
+        rows over UVA."""
         rep = self.reps.get(device)
-        rep_g = None if rep is None else _row_gather(rep, self.kernel,
+        kernel = self.kernel_on(device)
+        rep_g = None if rep is None else _row_gather(rep, kernel,
                                                      self._rep_scales.get(device))
-        cold_g = None if self.cold is None else _row_gather(self.cold, self.kernel,
-                                                            self._cold_scale)
+        cold_g = None if self.cold is None else _row_gather(
+            self.cold, kernel, self._on("_cold_scale", device))
         return rep_g, cold_g
 
-    def lookup(self, n_id, routed: bool = False, cap: int | None = None):
+    def lookup(self, n_id, routed: bool = False, cap: int | None = None, device=None):
         """One feature group's lookup, as the fused trainer's step runs it.
 
         ``routed=False``: ``n_id`` is the group's shared id vector (the
@@ -1037,22 +1092,27 @@ class ShardedFeature(KernelChoice):
         ``cap`` (``None``: uncapped). Returns ``(rows, hits, overflow)``:
         the rows, the int32 per-tier hits (``(3,)``, or ``(F, 3)`` per
         member) and the group's fallback-served lanes (int32 scalar), all
-        on ``n_id``'s device with no host read. K2 launches: one for the
+        on ``n_id``'s device with no host read. ``device`` is the mesh's
+        name for that device (default the lead's), whose copies of the L0
+        block, the order and the scales the lookup reads. K2 launches: one for the
         L0 lanes (with an L0), one per shard (with an L1; int8: one more, the
         dequantisation of the summed or received codes), one for the cold
         lanes (with a cold tier)."""
+        device = self.device if device is None else device
         ov = [torch.zeros((), dtype=torch.int32, device=n_id.device)]
         if self.hot is None:
             hot_g = None
         elif routed:
             def hot_g(ids):
-                rows, ov[0] = self.hot.routed_gather(ids, cap, with_overflow=True)
+                rows, ov[0] = self.hot.routed_gather(ids, cap, with_overflow=True,
+                                                     device=device)
                 return rows
         else:
-            hot_g = self.hot.psum_gather
-        rep_g, cold_g = self._tier_gathers(n_id.device)
+            def hot_g(ids):
+                return self.hot.psum_gather(ids, device)
+        rep_g, cold_g = self._tier_gathers(device)
         rows, hits = tiered_lookup(
-            n_id, self.feature_order, self.hot_rows, hot_g, cold_g,
+            n_id, self._on("feature_order", device), self.hot_rows, hot_g, cold_g,
             rep_rows=self.rep_rows, rep_gather=rep_g, hot_miss_id=-1, with_hits=True)
         return rows, hits, ov[0]
 
@@ -1071,7 +1131,7 @@ class ShardedFeature(KernelChoice):
         n_id = torch.as_tensor(n_id, device=self.device).reshape(-1)
         hot_g = None if self.hot is None else (
             lambda ids: self.hot.gather(ids, routed=routed, routed_cap=routed_cap))
-        rep_g, cold_g = self._tier_gathers(n_id.device)
+        rep_g, cold_g = self._tier_gathers(self.device)
         out, hits = tiered_lookup(
             n_id, self.feature_order, self.hot_rows, hot_g, cold_g,
             rep_rows=self.rep_rows, rep_gather=rep_g, hot_miss_id=-1, with_hits=True)

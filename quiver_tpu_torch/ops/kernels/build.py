@@ -199,27 +199,33 @@ def kernel_attrs() -> list[dict]:
 def address(t, index: int) -> int:
     """Address a kernel on CUDA device ``index`` reads ``t`` at: its own
     for a tensor on that device, the UVA device address for a pinned host
-    tensor (looked up once per tensor and storage). Raises for another
-    device and for pageable host memory, which a kernel cannot read."""
+    tensor (looked up in device ``index``'s context, once per tensor,
+    storage and device). Raises for another device and for pageable host
+    memory, which a kernel cannot read."""
     where = t.get_device()
     if where == index:
         return t.data_ptr()
     if where >= 0:
         raise ValueError(f"tensor on cuda:{where}, kernel on cuda:{index}")
     ptr = t.data_ptr()
-    known = t.__dict__.get("_uva_address")
-    if known is not None and known[0] == ptr:
-        return known[1]
+    known = t.__dict__.setdefault("_uva_addresses", {})
+    if (ptr, index) in known:
+        return known[(ptr, index)]
     if not t.is_pinned():
         raise ValueError(
             "a CUDA kernel can read a host tensor only from pinned memory "
             "(see core.memory.to_pinned_host)"
         )
     dev = _P()
-    err = _libraries()[KERNELS[0]].quiver_device_pointer(ptr, ctypes.byref(dev))
+    lookup = _libraries()[KERNELS[0]].quiver_device_pointer
+    if torch._C._cuda_getDevice() == index:
+        err = lookup(ptr, ctypes.byref(dev))
+    else:
+        with torch.cuda.device(index):
+            err = lookup(ptr, ctypes.byref(dev))
     if err:
         raise RuntimeError(f"cudaHostGetDevicePointer failed with CUDA error {err}")
-    t._uva_address = (ptr, dev.value)
+    known[(ptr, index)] = dev.value
     return dev.value
 
 

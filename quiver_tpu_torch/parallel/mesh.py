@@ -13,10 +13,15 @@ A mesh takes one of two forms:
 * **logical**, one process over every slot (``make_mesh(devices=...)``,
   or ``make_mesh()`` without a process group): its members run one after
   another in the process, and a collective is a tensor operation over
-  them (``parallel/routing.py``, ``feature/shard.py``). On a CPU-only
-  machine the tests stand in for JAX's eight forced host devices with a
-  mesh whose device repeats (``devices=["cpu"] * 8``); one process over
-  several distinct cards is not ported (ROADMAP A.11e (b)).
+  them (``parallel/routing.py``, ``feature/shard.py``). Its slots may sit
+  on one device repeated (``devices=["cuda:0"] * 4``; on a CPU-only
+  machine the tests stand in for JAX's eight forced host devices with
+  ``devices=["cpu"] * 8``) or on distinct devices (``devices=["cuda:0",
+  "cuda:1"]``, or a card and the host, ``["cuda:0", "cpu"]``): each slot's
+  work runs on its own device, state kept per device is keyed by the
+  device as the mesh lists it (:func:`mesh_devices`), and the sums that
+  decide a step (gradients, loss, metrics, the tuners' inputs) run on the
+  lead device (:func:`lead_device`).
 * **world**, one process per slot (:class:`WorldMesh`: ``make_mesh(data=,
   feature=)`` after :func:`init_distributed`, as JAX's ``make_mesh()``
   spans every process after ``jax.distributed.initialize``): rank ``r``
@@ -50,6 +55,8 @@ __all__ = [
     "init_p2p",
     "shutdown_distributed",
     "is_world",
+    "lead_device",
+    "mesh_devices",
     "shard_seed_blocks",
     "make_mesh",
 ]
@@ -147,6 +154,22 @@ def current_world() -> WorldMesh | None:
     return _CURRENT_WORLD
 
 
+def mesh_devices(mesh: Mesh) -> list:
+    """The mesh's distinct devices in slot order (row-major over the
+    ``(data, feature)`` grid), each as the mesh lists it: the keys of state
+    kept once per device (model replicas, the L0 block, translation
+    tables). One entry on a mesh of one repeated device and on a world
+    mesh (the rank's)."""
+    return list(dict.fromkeys(mesh.devices.ravel().tolist()))
+
+
+def lead_device(mesh: Mesh) -> torch.device:
+    """The device of the mesh's first slot, ``devices.flat[0]``: the
+    gradient mean, the optimizer step, checkpoints and the tuners' inputs
+    live there."""
+    return mesh.devices.flat[0]
+
+
 def axis_devices(mesh: Mesh, axis: str) -> list:
     """The devices of the members along ``axis`` (the first group's; a
     sharded table or topology keeps one copy, which every group reads)."""
@@ -204,11 +227,17 @@ def make_mesh(
     the world's ranks (:class:`WorldMesh`; ``data * feature`` must be the
     world size). Otherwise it is a logical mesh over ``devices`` (default:
     every visible CUDA device), in which a device may appear more than
-    once."""
+    once and distinct devices may mix (cards, the host). A device that
+    cannot compute (``meta``) raises ``ValueError``."""
     if devices is None and _WORLD_DEVICE is not None:
         return _world_mesh(n_devices, data, feature)
     devices = _cuda_devices() if devices is None else [
         resolve_device(d) for d in devices]
+    for d in devices:
+        if d.type not in ("cuda", "cpu"):
+            raise ValueError(
+                f"mesh device {d} cannot run a slot's work: give CUDA devices "
+                "or the CPU")
     n = n_devices or len(devices)
     if data is None:
         data = n // feature

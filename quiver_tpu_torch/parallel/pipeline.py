@@ -6,17 +6,22 @@ and gather run while the train step of batch i computes (the reference
 overlaps its stages with CUDA streams, quiver_sample.cu:84-88).
 
 On a card the worker dispatches on a CUDA stream of its own (one per
-:meth:`Prefetcher.run`, from PyTorch's pool of non-blocking streams, on
-the device of the feature store or else the sampler), after
-``torch.cuda.set_device`` to that device: PyTorch's current stream and
-current device are per thread. Host syncs in the dispatch (the auto
-frontier caps' readback, the ``"xla"`` lookup's cold-row ids) wait on
-that stream only. Each batch records an event after its dispatch; the
-consumer's current stream waits on it before the batch is yielded, and
-every CUDA tensor of the batch (``n_id``, the Adjs, ``x``, whatever
-``transform`` returns) is marked used on the consumer's stream
-(``record_stream``), so the caching allocator does not hand the worker a
-block the consumer's step still reads.
+:meth:`Prefetcher.run` and CUDA device, from PyTorch's pool of
+non-blocking streams, on the device of the feature store or else the
+sampler), after ``torch.cuda.set_device`` to that device: PyTorch's
+current stream and current device are per thread. Host syncs in the
+dispatch (the auto frontier caps' readback, the ``"xla"`` lookup's
+cold-row ids) wait on that stream only. Each batch records an event after
+its dispatch; the consumer's current stream on that device waits on it
+before the batch is yielded, and every CUDA tensor of the batch
+(``n_id``, the Adjs, ``x``, whatever ``transform`` returns) is marked used
+on the consumer's stream (``record_stream``), so the caching allocator
+does not hand the worker a block the consumer's step still reads.
+
+A data-parallel epoch over a mesh of distinct devices passes one sampler
+and one store per worker slot (lists, cycled over the stream: batch ``i``
+is slot ``i % len``'s): each CUDA device that feeds a slot gets its own
+side stream, and a slot on the host dispatches on none.
 
 A single worker keeps the sampler's call order, so the prefetched stream
 is bitwise the sequential loop's. Transient failures of the sampler, the
@@ -108,9 +113,10 @@ class Prefetcher:
     """Iterate (seeds -> Batch) with ``depth`` batches dispatched ahead.
 
     Args:
-      sampler: GraphSageSampler (or any object with .sample(seeds)).
+      sampler: GraphSageSampler (or any object with .sample(seeds)), or a
+        list of them, one per worker slot, cycled over the stream.
       feature: Feature (or any ids -> rows indexable); None prefetches
-        sampling only.
+        sampling only; a list (one per slot) beside a list of samplers.
       depth: max batches in flight beyond the one being consumed (2 =
         double buffering).
       transform: optional callback (seeds, out, x) -> Batch-like, run on
@@ -209,7 +215,15 @@ class Prefetcher:
         self._jitter_rng = random.Random(retry_seed)
         self.tracer = tracer
         self.trace = trace
-        self.device = _device_of(feature, sampler)
+        samplers = list(sampler) if isinstance(sampler, (list, tuple)) else [sampler]
+        features = (list(feature) if isinstance(feature, (list, tuple))
+                    else [feature] * len(samplers))
+        if len(features) != len(samplers):
+            raise ValueError(f"{len(samplers)} samplers but {len(features)} stores")
+        self._slots = list(zip(samplers, features))
+        # each slot's CUDA device (None: the host), and the first's
+        self._devices = [_device_of(f, s) for s, f in self._slots]
+        self.device = self._devices[0]
         self._batch_index = 0  # worker-thread only (single worker)
         self.retries_total = 0
         self.skips_total = 0
@@ -230,33 +244,34 @@ class Prefetcher:
             self.metrics.set(PREFETCH_RETRIES, np.int32(self.retries_total))
             self.metrics.set(PREFETCH_SKIPS, np.int32(self.skips_total))
 
-    def _dispatch(self, seeds):
-        out = self.sampler.sample(seeds)
-        x = None if self.feature is None else self.feature[out.n_id]
+    def _dispatch(self, seeds, slot: int = 0):
+        sampler, feature = self._slots[slot]
+        out = sampler.sample(seeds)
+        x = None if feature is None else feature[out.n_id]
         if self.transform is not None:
             return self.transform(seeds, out, x)
         return Batch(seeds, out, x)
 
-    def _dispatch_on(self, seeds, stream):
-        """One batch on the worker's ``stream`` (None off the card), with
-        the event the consumer waits on."""
+    def _dispatch_on(self, seeds, stream, slot: int = 0):
+        """One batch of ``slot`` on the worker's ``stream`` (None off the
+        card), with the event the consumer waits on."""
         if stream is None:
-            return self._dispatch_resilient(seeds), None
+            return self._dispatch_resilient(seeds, slot), None
         torch.cuda.set_device(stream.device)
         with torch.cuda.stream(stream):
-            batch = self._dispatch_resilient(seeds)
+            batch = self._dispatch_resilient(seeds, slot)
             done = torch.cuda.Event()
             done.record(stream)
         return batch, done
 
-    def _dispatch_resilient(self, seeds):
+    def _dispatch_resilient(self, seeds, slot: int = 0):
         """One batch with bounded retry; runs on the worker thread."""
         self._batch_index += 1
         attempt = 0
         while True:
             t0 = time.perf_counter()
             try:
-                batch = self._dispatch(seeds)
+                batch = self._dispatch(seeds, slot)
             except Exception as e:  # noqa: BLE001 (bounded retry, then
                 if attempt >= self.retries:  # surface or skip per policy)
                     if self.skip_policy == "skip":
@@ -295,13 +310,13 @@ class Prefetcher:
         promptly: queued dispatches are cancelled and the pool is shut
         down WITHOUT joining the worker, which finishes its one in-flight
         dispatch in the background and exits."""
-        stream = consumer = None
-        if self.device is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            stream = torch.cuda.Stream(self.device)
+        streams, consumers = {}, {}
+        for dev in dict.fromkeys(d for d in self._devices if d is not None):
+            consumers[dev] = torch.cuda.current_stream(dev)
+            streams[dev] = torch.cuda.Stream(dev)
             # whatever the consumer enqueued before the run (tables,
             # placements) is visible to the worker's first dispatch
-            stream.wait_stream(consumer)
+            streams[dev].wait_stream(consumers[dev])
         pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="quiver-prefetch"
         )
@@ -313,17 +328,21 @@ class Prefetcher:
                 self.metrics.set(PREFETCH_QUEUE_DEPTH, np.int32(len(inflight)))
 
         def _take():
-            batch, done = inflight.popleft().result()
+            future, dev = inflight.popleft()
+            batch, done = future.result()
             _note_depth()
             if done is not None and not isinstance(batch, _Skipped):
-                consumer.wait_event(done)
+                consumers[dev].wait_event(done)
                 for t in _cuda_tensors(batch):
-                    t.record_stream(consumer)
+                    t.record_stream(consumers[dev])
             return batch
 
         try:
-            for seeds in seed_stream:
-                inflight.append(pool.submit(self._dispatch_on, seeds, stream))
+            for i, seeds in enumerate(seed_stream):
+                slot = i % len(self._slots)
+                dev = self._devices[slot]
+                inflight.append((pool.submit(self._dispatch_on, seeds, streams.get(dev),
+                                             slot), dev))
                 _note_depth()
                 if len(inflight) > self.depth:
                     batch = _take()

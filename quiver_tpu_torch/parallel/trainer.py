@@ -24,10 +24,17 @@ allreduce, JAX's ``pmean``). It takes any sampler and store configuration:
 ``mode="HOST"`` topologies (kernel K1 reading ``indices`` over UVA), cold
 feature tiers (K2 reading pinned rows), weighted hops, auto caps.
 
-On a logical mesh every data worker runs in this process on the mesh's
-one device, in worker order, and the gradient is the workers' mean. A
-logical mesh over more than one distinct device raises (one process over
-several cards is ROADMAP A.11e (b)). On a world mesh
+On a logical mesh every data worker runs in this process, in worker
+order, each on its slot's device, and the gradient is the workers' mean.
+Its slots may repeat one device or sit on distinct devices (cards, or a
+card and the host): a worker's sample, lookup, forward and backward run on
+its slot's device, over the sampler's and the store's parts or copies
+there and one replica of the model per distinct device; its loss, its
+gradients and its counters move to the lead device (``devices.flat[0]``),
+where they are reduced in the same worker order as on one device, the
+optimizer steps and the tuners decide; the replicas take the lead's
+parameters before every step. On a mesh of one repeated device nothing
+moves and the step is what it was. On a world mesh
 (``parallel/mesh.py`` ``WorldMesh``: one process per slot over
 ``torch.distributed``) each rank runs its own worker (its own blocks, in
 elastic mode), and the sums that the logical mesh's loop makes
@@ -44,6 +51,7 @@ checkpoints and chooses the step that every rank restores.
 from __future__ import annotations
 
 import collections
+import copy
 import functools
 import os
 from typing import NamedTuple
@@ -75,7 +83,8 @@ from ..resilience.guard import guard_verdict, guarded_update
 from ..sampling.sampler import Adj
 from ..utils.trace import get_logger, info_once
 from . import world
-from .mesh import DATA_AXIS, FEATURE_AXIS, Mesh, is_world, shard_seed_blocks
+from .mesh import (DATA_AXIS, FEATURE_AXIS, Mesh, is_world, lead_device, mesh_devices,
+                   shard_seed_blocks)
 from .pipeline import Batch, Prefetcher
 from .train import cross_entropy_on_seeds, init_model
 
@@ -113,18 +122,58 @@ def _metrics_report(metrics: MetricsRegistry, timeline: StepTimeline,
     return "\n".join(lines)
 
 
-def _one_device(mesh: Mesh) -> torch.device:
-    """The one device every slot of ``mesh`` sits on (a world mesh's: the
-    rank's); raises for a logical mesh over more."""
-    devices = set(mesh.devices.ravel().tolist())
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"the mesh's workers sit on {len(devices)} devices; one process "
-            "over several distinct devices is not ported yet (ROADMAP A.11e "
-            "(b)): run one process per device (init_distributed, then "
-            "make_mesh) instead"
-        )
-    return devices.pop()
+def _check_placeable(mesh: Mesh, sampler, feature, replanning: bool = False) -> bool:
+    """Whether ``mesh`` is one device (repeated); over distinct devices,
+    check that the sampler and the store can run on each (a replicated
+    sampler's ``placed_on``, a replicated store's ``replica``, a sharded
+    store over the same devices, unless it is being re-planned onto
+    ``mesh``) and raise ``ValueError`` if not."""
+    if len(mesh_devices(mesh)) == 1:
+        return True
+    if (getattr(sampler, "topo_sharding", "replicated") != "mesh"
+            and not hasattr(sampler, "placed_on")):
+        raise ValueError(
+            f"a mesh of distinct devices ({mesh_devices(mesh)}) needs a sampler that "
+            f"places its topology per device (GraphSageSampler); got {type(sampler).__name__}")
+    if isinstance(feature, ShardedFeature):
+        if (not replanning
+                and feature.mesh.devices.ravel().tolist() != mesh.devices.ravel().tolist()):
+            raise ValueError(
+                f"the ShardedFeature's devices {feature.mesh.devices.tolist()} are not "
+                f"the trainer mesh's {mesh.devices.tolist()}")
+    elif not hasattr(feature, "replica"):
+        raise ValueError(
+            f"a mesh of distinct devices ({mesh_devices(mesh)}) needs a store that "
+            f"places itself per device (Feature, ShardedFeature); got "
+            f"{type(feature).__name__}")
+    return False
+
+
+class _Replicas:
+    """One replica of a model per distinct device of a mesh besides the
+    lead's, which holds the model itself: each made at its device's first
+    use, and each given the lead's parameters and buffers by
+    :meth:`refresh`."""
+
+    def __init__(self, model: torch.nn.Module, lead: torch.device):
+        self.model, self.lead, self.copies = model, lead, {}
+
+    def on(self, device) -> torch.nn.Module:
+        if device == self.lead:
+            return self.model
+        rep = self.copies.get(device)
+        if rep is None:
+            rep = self.copies[device] = copy.deepcopy(self.model).to(device)
+        return rep
+
+    def refresh(self) -> None:
+        if not self.copies:
+            return
+        src = list(self.model.state_dict().values())
+        with torch.no_grad():
+            for rep in self.copies.values():
+                for dst, t in zip(rep.state_dict().values(), src):
+                    dst.copy_(t)
 
 
 def _flat_by_dtype(tensors) -> tuple[list, list]:
@@ -182,8 +231,10 @@ class DistributedTrainer:
     """Owns the fused train step for a (sampler, feature, model) triple.
 
     Args (JAX's, in JAX's order, with a torch optimizer in ``tx``'s place):
-      mesh: a :class:`~.mesh.Mesh` whose workers all sit on one device.
-      sampler: a ``GraphSageSampler`` (its topology on the mesh's device),
+      mesh: a :class:`~.mesh.Mesh`: its slots on one device (repeated) or
+        on distinct devices (see below), or a world mesh.
+      sampler: a ``GraphSageSampler`` (placed on each device a worker
+        samples on, :meth:`~..sampling.sampler.GraphSageSampler.placed_on`),
         or a ``topo_sharding="mesh"`` one (``DistGraphSageSampler``) over
         this mesh's ``feature`` axis, which needs ``seed_sharding="all"``:
         each feature group's workers then sample together, one routed hop
@@ -196,7 +247,8 @@ class DistributedTrainer:
         :class:`~..feature.shard.ShardedFeature` over a mesh of the same
         shape (L0 rows on the device, L1 rows sharded over the feature
         axis, cold rows pinned).
-      model: the torch model, its parameters on the mesh's device.
+      model: the torch model, its parameters on the mesh's lead device
+        (``devices.flat[0]``).
       optimizer: a ``torch.optim.Optimizer`` over ``model``'s parameters;
         the step updates them in place.
       local_batch: seeds per worker block (padded with -1).
@@ -283,8 +335,23 @@ class DistributedTrainer:
     rank moves the same boundary, picks the same alpha and repins the same
     rows, and the shapes of the next collectives agree.
 
-    Not ported yet (raises ``NotImplementedError`` naming its ROADMAP
-    item): a logical mesh over more than one distinct device (A.11e (b)).
+    On a logical mesh of distinct devices (``make_mesh(devices=["cuda:0",
+    "cuda:1"])``, or a card and the host) worker ``w`` runs on its slot's
+    device (under ``"all"`` slot ``w // blocks_per_device``, under
+    ``"data"`` the first slot of its data row): its seeds, its sample (over
+    the sampler's placement there, drawing from that device's generators),
+    its lookup (a replicated store's :meth:`~..feature.feature.Feature.replica`
+    there; a sharded store's psum flavour served by each shard on its own
+    member's device and summed on the worker's), its forward and backward
+    (on that device's replica of the model). A feature group's joint work
+    (a routed lookup, a topology-sharded sample) runs on the device of its
+    first member, each owner serving on its own; its rows and frontiers
+    then move to each member's device. Losses, gradients, tier hits,
+    overflows, row heat and the guard's counts move to the lead device and
+    are reduced there in worker order, so on a mesh of one repeated device
+    the step is bitwise what it was; the replicas take the lead's
+    parameters before each step (after every optimizer step, and after a
+    caller loads a state into the model).
 
     Keys: a JAX key is played by an int seed, read and never advanced.
     Step ``t`` of an epoch draws from ``fold_key(key0, 0, t)``; worker
@@ -350,7 +417,8 @@ class DistributedTrainer:
                 "nothing to write to"
             )
         self.auto_alpha = bool(auto_alpha)
-        device = _one_device(mesh)
+        device = lead_device(mesh)
+        self._single = _check_placeable(mesh, sampler, feature)
         self.world = is_world(mesh)
         # a topo_sharding="mesh" sampler routes each hop over the feature
         # axis, so every mesh slot must be a worker over its own block
@@ -450,6 +518,7 @@ class DistributedTrainer:
         self.sampler = sampler
         self.feature = feature
         self.model = model
+        self._replicas = _Replicas(model, device)
         self.optimizer = optimizer
         self.local_batch = int(local_batch)
         self.data_size = mesh.shape[DATA_AXIS]
@@ -508,6 +577,14 @@ class DistributedTrainer:
         self.caps = tuple(sampler._caps_for(self.local_batch))
         self.draw_fn = None
         self._bound_versions = self._current_versions()
+
+    def _worker_device(self, w: int) -> torch.device:
+        """The device worker ``w`` runs on, as the mesh lists it: its
+        slot's (``"all"``: slot ``w // blocks_per_device``; ``"data"``: the
+        first slot of data row ``w``); on a world mesh, the rank's."""
+        if self.seed_sharding == "all":
+            return self.mesh.devices.flat[w // self.blocks_per_device]
+        return self.mesh.devices[w, 0]
 
     def _held_workers(self) -> list:
         """The workers this process runs, in turn: every one on a logical
@@ -663,75 +740,93 @@ class DistributedTrainer:
     def _params(self) -> list:
         return [p for p in self.model.parameters() if p.requires_grad]
 
-    def _tier_hits(self, n_id) -> torch.Tensor:
+    def _store_on(self, device):
+        """The replicated store a worker on ``device`` reads: the store
+        itself on a mesh of one device, else its replica there."""
+        return self.feature if self._single else self.feature.replica(device)
+
+    def _tier_hits(self, n_id, store=None) -> torch.Tensor:
         """int32 (3,) valid lanes per tier ``[replicated, hot, cold]`` of
-        a replicated store (its hot tier is JAX's second), on the device."""
+        a replicated store (its hot tier is JAX's second; ``store``, the
+        copy the lookup read, default the trainer's), on the ids' device."""
+        store = self.feature if store is None else store
         valid = n_id >= 0
         ids = n_id.clamp(min=0).to(torch.int64)
-        order = getattr(self.feature, "feature_order", None)
+        order = getattr(store, "feature_order", None)
         if order is not None:
             ids = order[ids]
-        hot = ids < int(getattr(self.feature, "hot_rows", 0))
+        hot = ids < int(getattr(store, "hot_rows", 0))
         return torch.stack([
             torch.zeros((), dtype=torch.int32, device=n_id.device),
             (valid & hot).sum(dtype=torch.int32),
             (valid & ~hot).sum(dtype=torch.int32),
         ])
 
-    def _heat(self, n_id):
+    def _heat(self, n_id, device=None):
         """The row-heat histogram of one worker's frontier ids (int32
-        ``(bins,)`` on the device, no host read), or None with the heat
-        feed off."""
+        ``(bins,)`` on the ids' device, ``device`` in the mesh's name,
+        no host read), or None with the heat feed off."""
         if not self._heat_bins:
             return None
-        return row_heat_histogram(n_id, self.feature.feature_order,
-                                  self.sampler.csr_topo.node_count, self._heat_bins)
+        order = self.feature._on("feature_order", self.device if device is None else device)
+        return row_heat_histogram(n_id, order, self.sampler.csr_topo.node_count,
+                                  self._heat_bins)
 
-    def sample_block(self, seeds, num_seeds, key: int, draw_fn=None):
+    def sample_block(self, seeds, num_seeds, key: int, draw_fn=None, device=None):
         """One worker's sample: the sampler's ``sample_padded`` on the
-        padded device ``seeds`` (one K1 launch per hop, drawing from the
-        worker key's sample stream, or from ``draw_fn(layer, deg)``).
+        padded ``seeds`` on ``device`` (the worker's; default the lead's;
+        one K1 launch per hop on a card, drawing from the worker key's
+        sample stream on that device, or from ``draw_fn(layer, deg)``).
         Returns ``(n_id, adjs)``."""
-        gen = None if draw_fn is not None else seeded_generator(self.device, key, 0)
+        dev = self.device if device is None else device
+        gen = None if draw_fn is not None else seeded_generator(dev, key, 0)
+        where = {} if self._single else {"device": dev}
         n_id, _, adjs, _, _, _ = self.sampler.sample_padded(
-            seeds, num_seeds, generator=gen, draw_fn=draw_fn)
+            seeds, num_seeds, generator=gen, draw_fn=draw_fn, **where)
         return n_id, adjs
 
-    def _lookup(self, n_id):
-        """``(rows, tier hits, routed overflow)`` of one lookup, on the
-        device: a worker's ``(L,)`` frontier (a replicated store: one K2
+    def _lookup(self, n_id, device=None):
+        """``(rows, tier hits, routed overflow)`` of one lookup on
+        ``device`` (where ``n_id`` lies, in the mesh's name; default the
+        lead's): a worker's ``(L,)`` frontier (a replicated store: one K2
         ``tiered_gather``, or ``tiered_gather_dequant`` for int8; a sharded
         store: the psum flavour), or a routed feature group's ``(F, L)``
         frontiers (hits per member)."""
+        dev = self.device if device is None else device
         if not self._sharded:
-            return (self.feature[n_id], self._tier_hits(n_id),
+            store = self._store_on(dev)
+            return (store[n_id], self._tier_hits(n_id, store),
                     torch.zeros((), dtype=torch.int32, device=n_id.device))
         # a world rank's routed frontier is its own (L,) vector
         routed = self._routed if self.world else n_id.dim() == 2
         hot = self.feature.hot
         cap = (None if not routed or hot is None or self.routed_alpha is None
                else hot.routed_cap(int(n_id.shape[-1]), self.routed_alpha))
-        return self.feature.lookup(n_id, routed=routed, cap=cap)
+        return self.feature.lookup(n_id, routed=routed, cap=cap, device=dev)
 
-    def issue_block(self, seeds, num_seeds, key: int, draw_fn=None) -> IssuedBlock:
+    def issue_block(self, seeds, num_seeds, key: int, draw_fn=None,
+                    device=None) -> IssuedBlock:
         """The schedule-movable half of one worker's block, when its lookup
         needs no other worker's ids (a replicated store, or a sharded
         store's psum flavour): :meth:`sample_block`, then the lookup of
-        the frontier and its tier hits, all on the device."""
-        n_id, adjs = self.sample_block(seeds, num_seeds, key, draw_fn)
-        x, hits, _ = self._lookup(n_id)
-        return IssuedBlock(n_id, x, adjs, num_seeds, hits, self._heat(n_id))
+        the frontier and its tier hits, all on ``device`` (the worker's;
+        default the lead's)."""
+        n_id, adjs = self.sample_block(seeds, num_seeds, key, draw_fn, device)
+        x, hits, _ = self._lookup(n_id, device)
+        return IssuedBlock(n_id, x, adjs, num_seeds, hits, self._heat(n_id, device))
 
     def train_block(self, n_id, x, adjs, num_seeds, labels, key: int,
-                    inject: bool = False):
-        """The compute half of one worker's block: the planned NaN rows
+                    inject: bool = False, device=None):
+        """The compute half of one worker's block, on ``device`` (the
+        worker's, where its block and ``labels`` lie; default the lead's),
+        over that device's replica of the model: the planned NaN rows
         (written into a copy of ``x`` when ``inject``), the labels and the
         seed mask, the forward in training mode (dropout from the worker
         key's dropout stream) and the backward. Returns ``(loss, grads)``:
         the block's loss and the gradients of ``loss / workers`` (the
         worker's share of the step's mean; of the unscaled ``loss`` in
         elastic mode, which divides after its fixed-order sum), neither
-        read back."""
+        read back, on ``device``."""
         S = self.local_batch
         plan = self.fault_plan
         if inject and plan is not None and plan.injects_nan():
@@ -741,12 +836,14 @@ class DistributedTrainer:
                 )
             x = x.clone()
             x[:min(int(plan.nan_rows), int(x.shape[0]))] = float("nan")
+        dev = self.device if device is None else device
+        model = self._replicas.on(dev)
         lab = labels[n_id[:S].clamp(min=0)]
         mask = torch.arange(S, device=n_id.device) < num_seeds
-        self.model.train()
-        logits = self.model(x, adjs, seeded_generator(self.device, key, 1))
+        model.train()
+        logits = model(x, adjs, seeded_generator(dev, key, 1))
         loss = cross_entropy_on_seeds(logits[:S], lab, mask)
-        params = self._params()
+        params = [p for p in model.parameters() if p.requires_grad]
         grads = torch.autograd.grad(loss if self.elastic else loss / self.workers,
                                     params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -759,8 +856,10 @@ class DistributedTrainer:
 
     def _blocks(self, packed):
         """The step's per-worker ``(seeds, num_seeds)`` from its packed
-        ``(workers * local_batch,)`` device row."""
+        ``(workers * local_batch,)`` row on the lead, each on its worker's
+        device."""
         rows = packed.reshape(self.workers, self.local_batch)
+        rows = [r.to(self._worker_device(w)) for w, r in enumerate(rows)]
         return [(r, (r >= 0).sum(dtype=torch.int32)) for r in rows]
 
     def _group_members(self) -> list:
@@ -772,23 +871,26 @@ class DistributedTrainer:
         return [[(g * F + i) * bpd + b for i in range(F)]
                 for g in range(self.data_size) for b in range(bpd)]
 
-    def sample_group(self, blocks, members, key: int):
+    def sample_group(self, blocks, members, key: int, device=None):
         """A feature group's sample over a topology-sharded sampler: its
         members' blocks together, one routed hop at a time
-        (``sample_group``, no host read), worker ``w`` drawing from its
-        worker key's sample stream (or ``draw_fn``). Returns ``(n_id (F,
-        L), adjs with (F, 2, E) edge lists, per-hop overflow (L,))``."""
-        seeds = torch.stack([blocks[w][0] for w in members])
-        num = torch.stack([blocks[w][1] for w in members])
+        (``sample_group``, no host read), on ``device`` (the group's first
+        member's; default the lead's), worker ``w`` drawing from its worker
+        key's sample stream there (or ``draw_fn``). Returns ``(n_id (F, L),
+        adjs with (F, 2, E) edge lists, per-hop overflow (L,))``."""
+        dev = self.device if device is None else device
+        seeds = torch.stack([blocks[w][0].to(dev) for w in members])
+        num = torch.stack([blocks[w][1].to(dev) for w in members])
         # the step's one routing budget: the trainer's alpha caps the hops
         # as it caps the routed lookup
         if self.draw_fn is None:
-            gens = [seeded_generator(self.device, fold_key(key, 1, w), 0) for w in members]
+            gens = [seeded_generator(dev, fold_key(key, 1, w), 0) for w in members]
             out = self.sampler.sample_group(seeds, num, generators=gens,
-                                            routed_alpha=self.routed_alpha)
+                                            routed_alpha=self.routed_alpha, device=dev)
         else:
             out = self.sampler.sample_group(seeds, num, draw_fn=lambda i, l, deg: (
-                self.draw_fn(key, members[i], l, deg)), routed_alpha=self.routed_alpha)
+                self.draw_fn(key, members[i], l, deg)), routed_alpha=self.routed_alpha,
+                device=dev)
         return out[0], out[2], out[6]
 
     def _issue(self, packed, key: int) -> IssuedStep:
@@ -804,17 +906,23 @@ class DistributedTrainer:
             return self._issue_groups(blocks, key)
         if not self._routed:
             return IssuedStep([self.issue_block(seeds, num, fold_key(key, 1, w),
-                                                self._worker_draw(key, w))
+                                                self._worker_draw(key, w),
+                                                self._worker_device(w))
                                for w, (seeds, num) in enumerate(blocks)], zero)
         issued, overflow = [None] * self.workers, zero
         for members in self._group_members():
+            # the group's routed lookup runs on its first member's device
+            gdev = self._worker_device(members[0])
             samples = [self.sample_block(*blocks[w], fold_key(key, 1, w),
-                                         self._worker_draw(key, w)) for w in members]
-            xs, hits, ov = self._lookup(torch.stack([n_id for n_id, _ in samples]))
+                                         self._worker_draw(key, w), self._worker_device(w))
+                       for w in members]
+            xs, hits, ov = self._lookup(torch.stack([n_id.to(gdev) for n_id, _ in samples]),
+                                        gdev)
             for i, (w, (n_id, adjs)) in enumerate(zip(members, samples)):
-                issued[w] = IssuedBlock(n_id, xs[i], adjs, blocks[w][1], hits[i],
-                                        self._heat(n_id))
-            overflow = overflow + ov
+                wdev = self._worker_device(w)
+                issued[w] = IssuedBlock(n_id, xs[i].to(wdev), adjs, blocks[w][1], hits[i],
+                                        self._heat(n_id, wdev))
+            overflow = overflow + ov.to(self.device)
         return IssuedStep(issued, overflow)
 
     def _issue_groups(self, blocks, key: int) -> IssuedStep:
@@ -825,18 +933,23 @@ class DistributedTrainer:
         routed_ov = torch.zeros((), dtype=torch.int32, device=self.device)
         sample_ov = 0
         for members in self._group_members():
-            n_id, adjs, hop_ov = self.sample_group(blocks, members, key)
-            sample_ov = sample_ov + hop_ov
+            # the group samples (and looks up, when routed) on its first
+            # member's device; each member's block then moves to its own
+            gdev = self._worker_device(members[0])
+            devs = [self._worker_device(w) for w in members]
+            n_id, adjs, hop_ov = self.sample_group(blocks, members, key, gdev)
+            sample_ov = sample_ov + hop_ov.to(self.device)
             if self._routed:
-                xs, hits, ov = self._lookup(n_id)
-                routed_ov = routed_ov + ov
+                xs, hits, ov = self._lookup(n_id, gdev)
+                routed_ov = routed_ov + ov.to(self.device)
             else:
-                xs, hits, _ = zip(*(self._lookup(n_id[i]) for i in range(len(members))))
-            for i, w in enumerate(members):
+                xs, hits, _ = zip(*(self._lookup(n_id[i].to(d), d)
+                                    for i, d in enumerate(devs)))
+            for i, (w, d) in enumerate(zip(members, devs)):
                 issued[w] = IssuedBlock(
-                    n_id[i], xs[i], [Adj(a.edge_index[i], None, a.size, a.fanout)
-                                     for a in adjs], blocks[w][1], hits[i],
-                    self._heat(n_id[i]))
+                    n_id[i].to(d), xs[i].to(d),
+                    [Adj(a.edge_index[i].to(d), None, a.size, a.fanout) for a in adjs],
+                    blocks[w][1], hits[i], self._heat(n_id[i], gdev))
         return IssuedStep(issued, routed_ov, sample_ov)
 
     def _issue_world(self, blocks, key: int) -> IssuedStep:
@@ -866,17 +979,26 @@ class DistributedTrainer:
         return IssuedStep(issued, routed_ov, sample_ov)
 
     def _train(self, issued: IssuedStep, labels, key: int, inject: bool):
-        """The train half of a step over its issued blocks."""
-        outs = [self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labels,
-                                 fold_key(key, 1, w), inject)
-                for w, b in zip(self._held, issued.blocks)]
+        """The train half of a step over its issued blocks: each worker's
+        block on its device, then its loss, gradients and counters on the
+        lead for the update."""
+        self._replicas.refresh()
+        lead, labs, outs = self.device, {}, []
+        for w, b in zip(self._held, issued.blocks):
+            dev = self._worker_device(w)
+            if dev not in labs:
+                labs[dev] = labels.to(dev)
+            loss, grads = self.train_block(b.n_id, b.x, b.adjs, b.num_seeds, labs[dev],
+                                           fold_key(key, 1, w), inject, dev)
+            outs.append((loss.to(lead), [g.to(lead) for g in grads]))
+        hits = [b.tier_hits.to(lead) for b in issued.blocks]
+        heat = [None if b.heat is None else b.heat.to(lead) for b in issued.blocks]
+        routed_ov = issued.routed_overflow.to(lead)
+        sample_ov = (None if issued.sample_overflow is None
+                     else issued.sample_overflow.to(lead))
         if self.world:
-            return self._world_update(outs, [b.tier_hits for b in issued.blocks],
-                                      issued.routed_overflow, issued.sample_overflow,
-                                      [b.heat for b in issued.blocks])
-        return self._update(outs, [b.tier_hits for b in issued.blocks],
-                            issued.routed_overflow, issued.sample_overflow,
-                            [b.heat for b in issued.blocks])
+            return self._world_update(outs, hits, routed_ov, sample_ov, heat)
+        return self._update(outs, hits, routed_ov, sample_ov, heat)
 
     def _run_step(self, packed, labels, key: int, inject: bool):
         """The serial step: the issue half, then the train half and the
@@ -1328,7 +1450,10 @@ class DistributedTrainer:
         so must this one; it re-plans in place (:meth:`_replan`): the
         topology-sharded sampler and the sharded store re-partition onto
         the new mesh, and each slot runs ``logical_workers / slots``
-        blocks. A trainer built afresh on the new mesh (the process-death
+        blocks. The new mesh may hold other devices (a mesh of one card onto
+        one of a card and the host, or of two cards): the model moves to its
+        lead device before the restore, and the replicas follow its devices.
+        A trainer built afresh on the new mesh (the process-death
         flow) passes its own mesh, ``resume(mesh=trainer.mesh)``. Regenerate
         the same seed matrix (``pack_epoch`` with the same seed) and call
         ``epoch_scan(..., key, epoch=epoch, start_step=step)``: the
@@ -1453,10 +1578,17 @@ class DistributedTrainer:
                 f"cannot re-plan {self.workers} logical workers onto "
                 f"{dev_workers} devices (must divide evenly)"
             )
-        device = _one_device(mesh)
+        device = lead_device(mesh)
+        single = _check_placeable(mesh, self.sampler, self.feature, replanning=True)
         old = (int(self.data_size), int(self.feature_size))
         self.mesh = mesh
+        if device != self.device:
+            # Module.to moves the parameters in place: the optimizer keeps
+            # its references, and the restore places its state beside them
+            self.model.to(device)
         self.device = device
+        self._single = single
+        self._replicas = _Replicas(self.model, device)
         self.data_size = mesh.shape[DATA_AXIS]
         self.feature_size = mesh.shape[FEATURE_AXIS]
         self._device_workers = dev_workers
@@ -1528,20 +1660,46 @@ class _RankCalls:
         self.sampler._call -= self.rank
 
 
+class _SlotSampler:
+    """The sampler of a :class:`DataParallelTrainer` as one data worker
+    sees it: each call samples on the worker's slot ``device`` (None: the
+    sampler's own), with the trainer's ``draw_fn`` keyed by the sampler's
+    call number. Every slot shares the sampler, so its call counter, caps
+    and draws run in the logical loop's order."""
+
+    def __init__(self, trainer, device):
+        self.trainer, self.device = trainer, device
+
+    def sample(self, seeds):
+        sampler, fn = self.trainer.sampler, self.trainer.draw_fn
+        draw = None if fn is None else functools.partial(fn, sampler._call + 1)
+        where = {} if self.device is None else {"device": self.device}
+        return sampler.sample(seeds, draw_fn=draw, **where)
+
+
 class DataParallelTrainer:
     """Unfused data-parallel training: host-driven sample and gather with
     prefetch overlap, one model step per group of D worker blocks.
 
     Args:
       mesh: a :class:`~.mesh.Mesh` with ``feature == 1``; its ``data``
-        axis gives D workers, all on one device (a logical mesh), or one
-        per process (a world mesh: the rank is worker ``rank``, its
-        ``step`` takes its own batch and its ``train_epoch`` samples its
-        own blocks; the gradients and the loss are summed over the world
-        in worker order, bitwise the logical mesh's step).
-      sampler: any sampler (``GraphSageSampler`` or a wrapper of one).
-      feature: a replicated feature store (``Feature`` or a wrapper).
-      model: the torch model (its parameters on the mesh's device).
+        axis gives D workers: a logical mesh runs them in this process,
+        worker ``w`` on slot ``w``'s device (one device repeated, or
+        distinct devices: each worker samples and gathers on its own,
+        over the sampler's placement and the store's replica there, and
+        runs its forward and backward on that device's replica of the
+        model; its gradients are added on the lead device in worker order,
+        where the optimizer steps), or one per process (a world mesh: the
+        rank is worker ``rank``, its ``step`` takes its own batch and its
+        ``train_epoch`` samples its own blocks; the gradients and the loss
+        are summed over the world in worker order, bitwise the logical
+        mesh's step).
+      sampler: any sampler (``GraphSageSampler`` or a wrapper of one; a
+        ``GraphSageSampler`` over distinct devices).
+      feature: a replicated feature store (``Feature`` or a wrapper; a
+        ``Feature`` over distinct devices).
+      model: the torch model (its parameters on the mesh's lead device,
+        ``devices.flat[0]``).
       optimizer: a ``torch.optim.Optimizer`` over ``model``'s parameters,
         in the place of JAX's optax transformation.
       local_batch: seeds per worker block.
@@ -1550,7 +1708,10 @@ class DataParallelTrainer:
         transient sample or gather faults, then raise or skip).
 
     ``metrics`` and ``timeline`` receive the Prefetcher's counters and
-    stages; :meth:`metrics_report` prints them.
+    stages; :meth:`metrics_report` prints them. ``draw_fn`` (None, or
+    ``draw_fn(call, layer, deg)``) replaces the epoch's sample draws of the
+    sampler's call number ``call``, as ``GraphSageSampler.sample``'s
+    ``draw_fn`` does (a logical mesh).
     """
 
     def __init__(
@@ -1578,11 +1739,14 @@ class DataParallelTrainer:
             )
         self.world = is_world(mesh)
         self.mesh = mesh
-        self.device = _one_device(mesh)
+        self.device = lead_device(mesh)
+        self._single = _check_placeable(mesh, sampler, feature)
         self.sampler = sampler
         self.feature = feature
         self.model = model
+        self._replicas = _Replicas(model, self.device)
         self.optimizer = optimizer
+        self.draw_fn = None
         self.local_batch = int(local_batch)
         self.data_size = mesh.shape[DATA_AXIS]
         self.global_batch = self.local_batch * self.data_size
@@ -1695,7 +1859,13 @@ class DataParallelTrainer:
         key, ``generator`` is read, not advanced). The gradient is the
         mean of the workers' (JAX's ``pmean``), then one optimizer step.
         Returns the mean of the workers' losses, on the device (no host
-        sync)."""
+        sync).
+
+        On a mesh of distinct devices worker ``w``'s batch lies on slot
+        ``w``'s device; its forward and backward run there on that device's
+        replica of the model (which takes the lead's parameters first), and
+        its gradients are added to the lead's in worker order; the loss
+        returned lies on the lead device."""
         if len(batches) != len(self._held):
             raise ValueError(
                 f"need {len(self._held)} batches (one per data shard held "
@@ -1705,21 +1875,30 @@ class DataParallelTrainer:
         adj_sizes = self._adj_sizes(caps)
         S, dev = self.local_batch, self.device
         labels = torch.as_tensor(labels, device=dev)
-        lanes = torch.arange(S, device=dev)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        losses = []
+        self._replicas.refresh()
+        losses, on = [], {}
         for w, b in zip(self._held, batches):
+            wdev = self.mesh.devices[w, 0]
+            if wdev not in on:
+                on[wdev] = (labels.to(wdev), torch.arange(S, device=wdev))
+            lab_w, lanes = on[wdev]
+            model = self._replicas.on(wdev)
             adjs = [Adj(a.edge_index, None, sz, fanout=f)
                     for a, sz, f in zip(b.out.adjs, adj_sizes, fanouts)]
             seed_ids = b.out.n_id[:S]
-            lab = labels[seed_ids.clamp(min=0)]
+            lab = lab_w[seed_ids.clamp(min=0)]
             mask = (lanes < b.out.batch_size) & (seed_ids >= 0)
             g = (None if generator is None
-                 else seeded_generator(dev, generator.initial_seed(), w))
-            loss = cross_entropy_on_seeds(self.model(b.x, adjs, g)[:S], lab, mask)
-            (loss / self.data_size).backward()
-            losses.append(loss.detach())
+                 else seeded_generator(wdev, generator.initial_seed(), w))
+            model.train()
+            loss = cross_entropy_on_seeds(model(b.x, adjs, g)[:S], lab, mask)
+            if model is self.model:
+                (loss / self.data_size).backward()
+            else:
+                self._add_grads(model, loss / self.data_size)
+            losses.append(loss.detach().to(dev))
         if self.world:
             # the logical step accumulates every worker's backward in turn:
             # the ordered sum over the world in worker order
@@ -1733,6 +1912,23 @@ class DataParallelTrainer:
         self.optimizer.step()
         return torch.stack(losses).mean()
 
+    def _add_grads(self, replica, scaled) -> None:
+        """The backward of ``scaled`` on a replica, its gradients added to
+        the lead model's ``.grad`` (set where None), as the lead's own
+        backward accumulates them; a parameter the loss does not reach
+        keeps its gradient."""
+        pairs = [(p, r) for p, r in zip(self.model.parameters(), replica.parameters())
+                 if r.requires_grad]
+        grads = torch.autograd.grad(scaled, [r for _, r in pairs], allow_unused=True)
+        for (p, _), g in zip(pairs, grads):
+            if g is None:
+                continue
+            g = g.to(self.device)
+            if p.grad is None:
+                p.grad = g
+            else:
+                p.grad.add_(g)
+
     def _epoch_blocks(self, train_idx: np.ndarray, rng) -> list:
         """The epoch's worker blocks: ``steps`` global batches of a
         permutation of ``train_idx`` (at least one, short if it must), each
@@ -1745,12 +1941,28 @@ class DataParallelTrainer:
             blocks.extend(self.seed_blocks(chunk))
         return blocks
 
-    def _serial(self, blocks, sampler):
+    def _serial(self, blocks, sampler, feature):
         """The blocks' batches on the caller's thread, one after another
-        (``depth=0``: no Prefetcher, so no retries)."""
-        for seeds in blocks:
-            out = sampler.sample(seeds)
-            yield Batch(seeds, out, self.feature[out.n_id])
+        (``depth=0``: no Prefetcher, so no retries); block ``i`` from
+        ``sampler[i % len]`` and ``feature[i % len]`` when they are lists
+        (one per worker slot)."""
+        samplers = sampler if isinstance(sampler, list) else [sampler]
+        features = feature if isinstance(feature, list) else [feature]
+        for i, seeds in enumerate(blocks):
+            out = samplers[i % len(samplers)].sample(seeds)
+            yield Batch(seeds, out, features[i % len(features)][out.n_id])
+
+    def _slot_inputs(self):
+        """The epoch's ``(sampler, feature)`` for the Prefetcher or the
+        serial loop: the trainer's own on a mesh of one device with no
+        ``draw_fn``, else one per data worker (each sampling on its slot's
+        device with the trainer's ``draw_fn``, and the store's replica
+        there)."""
+        if self._single and self.draw_fn is None:
+            return self.sampler, self.feature
+        devs = [self.mesh.devices[w, 0] for w in range(self.data_size)]
+        return ([_SlotSampler(self, None if self._single else d) for d in devs],
+                [self.feature if self._single else self.feature.replica(d) for d in devs])
 
     def train_epoch(self, train_idx, labels, generator: torch.Generator,
                     rng=None, depth: int = 2):
@@ -1777,7 +1989,9 @@ class DataParallelTrainer:
             )
         blocks = self._epoch_blocks(train_idx, rng)
         labels = torch.as_tensor(labels, device=self.device)
-        sampler = self.sampler
+        sampler, feature = self.sampler, self.feature
+        if not self.world:
+            sampler, feature = self._slot_inputs()
         if self.world:
             # the rank's blocks, drawing what the logical loop's calls for
             # them draw: the call counter steps past the other ranks' blocks
@@ -1786,13 +2000,13 @@ class DataParallelTrainer:
             sampler = _RankCalls(self.sampler, rank, D)
         if depth > 0:
             batches = Prefetcher(
-                sampler, self.feature, depth=depth,
+                sampler, feature, depth=depth,
                 retries=self.prefetch_retries, backoff=self.prefetch_backoff,
                 skip_policy=self.prefetch_skip_policy,
                 timeline=self.timeline, metrics=self.metrics,
             ).run(blocks)
         else:
-            batches = self._serial(blocks, sampler)
+            batches = self._serial(blocks, sampler, feature)
         seed = generator.initial_seed()
         losses, group = [], []
         for batch in batches:

@@ -525,35 +525,37 @@ class DistGraphSageSampler(GraphSageSampler):
 
     # -- the group entry ------------------------------------------------------
 
-    def _group_draw(self, cap: int, keys, draw_fn):
+    def _group_draw(self, cap: int, keys, draw_fn, device=None):
         """``draw(layer, deg)`` of a group: each member's draws stacked,
         from ``draw_fn(member, layer, deg)`` or, for the member keyed
         ``key``, the replicated ``sample_padded``'s draws from a generator
         seeded ``key`` (layer ``l`` from ``seeded_generator(device, key,
-        l)`` over the worst-case rows)."""
+        l)`` over the worst-case rows), on ``device`` (default the
+        sampler's)."""
+        dev = self.device if device is None else device
         if draw_fn is not None:
             def draw(l, deg):
-                return torch.stack([torch.as_tensor(draw_fn(i, l, deg[i]),
-                                                    device=self.device)
+                return torch.stack([torch.as_tensor(draw_fn(i, l, deg[i]), device=dev)
                                     for i in range(deg.shape[0])])
 
             return draw
-        seams = [self._draw_seam(cap, None, (int(key),))["bits"] for key in keys]
+        seams = [self._draw_seam(cap, None, (int(key),), dev)["bits"] for key in keys]
         return lambda l, deg: stack_draws([bits(l, (deg.shape[-1],)) for bits in seams],
                                           self.weighted)
 
-    def _sample_group(self, seeds, num_seeds, keys, draw_fn, routed_alpha=_OWN):
+    def _sample_group(self, seeds, num_seeds, keys, draw_fn, routed_alpha=_OWN,
+                      device=None):
         cap = int(seeds.shape[-1])
         return dist_multilayer_sample(
             self.topo, seeds, num_seeds, self.sizes, self._caps_for(cap),
-            self._group_draw(cap, keys, draw_fn),
+            self._group_draw(cap, keys, draw_fn, device),
             routed_alpha=self.routed_alpha if routed_alpha is _OWN else routed_alpha,
             weighted=self.weighted, time_window=self.time_window,
             group=self._world_group(), dedup=self.dedup,
             node_count=self.topo.node_count)
 
     def sample_group(self, seeds, num_seeds, generators=None, draw_fn=None,
-                     routed_alpha=_OWN):
+                     routed_alpha=_OWN, device=None):
         """Sample one feature group's padded device seed blocks with no host
         read: the sampler call of a fused train step.
 
@@ -569,14 +571,19 @@ class DistGraphSageSampler(GraphSageSampler):
         E_l)), overflow (F,), edge_counts, frontier_counts, hop overflow
         (L,))``, all on the device. ``routed_alpha`` (a float, or None for
         uncapped buckets) replaces the sampler's own for this call: a fused
-        trainer's step caps the hops with its own budget.
+        trainer's step caps the hops with its own budget. ``device`` (default
+        the sampler's) is where the group's plan, draws, reindex and
+        results live, as the mesh names it: a trainer passes its group's
+        first member's on a mesh of distinct devices; each owner answers on
+        its shard's device either way.
         """
         self.check_topo_version()
         keys = None if generators is None else [g.initial_seed() for g in generators]
         if keys is None and draw_fn is None:
             raise ValueError("sample_group needs generators or draw_fn")
-        seeds = torch.as_tensor(seeds, device=self.device).to(torch.int32)
-        return self._sample_group(seeds, num_seeds, keys, draw_fn, routed_alpha)
+        dev = self.device if device is None else device
+        seeds = torch.as_tensor(seeds, device=dev).to(torch.int32)
+        return self._sample_group(seeds, num_seeds, keys, draw_fn, routed_alpha, dev)
 
     # -- the public API -------------------------------------------------------
 

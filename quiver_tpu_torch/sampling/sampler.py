@@ -373,6 +373,11 @@ class GraphSageSampler:
 
     ``reruns`` counts the calls that an auto sampler ran again under
     regrown caps.
+
+    ``sample`` and ``sample_padded`` take ``device=``: the call runs on
+    another device of a mesh (a trainer's worker on its own slot), over
+    the topology placed there once (:meth:`placed_on`, kept per device as
+    the caller names it), with the same call counter, caps and draws.
     """
 
     def __new__(cls, *args, **kwargs):
@@ -452,6 +457,10 @@ class GraphSageSampler:
         self.seed = int(seed)
         self._call = 0
         self.reruns = 0
+        # the placements on the other devices a caller samples on, and
+        # the hop path resolved for each
+        self._placements: dict = {}
+        self._kernels: dict = {}
         self.topo = self._init_topo(device_topo)
         self._topo_version = int(csr_topo.version)
 
@@ -491,6 +500,32 @@ class GraphSageSampler:
                     f"place it with to_device({flag}=True)")
         return device_topo
 
+    def placed_on(self, device) -> DeviceTopology:
+        """The topology on ``device``: the sampler's own on its device,
+        else a placement of the host CSR there (the sampler's mode and
+        arrays), made at the first call and kept, keyed by ``device`` as
+        given. Raises, as a sample does, on a stale placement."""
+        self.check_topo_version()
+        device = torch.device(device)
+        if device == self.device:
+            return self.topo
+        topo = self._placements.get(device)
+        if topo is None:
+            topo = self._placements[device] = self.csr_topo.to_device(
+                self.mode, device, with_eid=self.with_eid, with_weights=self.weighted,
+                with_times=self.time_window is not None)
+        return topo
+
+    def kernel_on(self, device) -> str:
+        """The resolved hop path on ``device`` (:attr:`kernel` on the
+        sampler's own)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self.kernel
+        if device not in self._kernels:
+            self._kernels[device] = resolve_sample_kernel(self._kernel, device)
+        return self._kernels[device]
+
     # -- streaming-mutation versioning --------------------------------------
 
     def check_topo_version(self) -> None:
@@ -515,6 +550,7 @@ class GraphSageSampler:
         if self._topo_version == int(self.csr_topo.version):
             return self
         self.topo = self._init_topo()
+        self._placements = {}
         self._topo_version = int(self.csr_topo.version)
         return self
 
@@ -554,8 +590,9 @@ class GraphSageSampler:
 
     # -- public API ----------------------------------------------------------
 
-    def sample(self, input_nodes, draw_fn=None) -> SampleOutput:
-        """Sample k-hop neighbourhoods of ``input_nodes``.
+    def sample(self, input_nodes, draw_fn=None, device=None) -> SampleOutput:
+        """Sample k-hop neighbourhoods of ``input_nodes`` (on ``device``,
+        default the sampler's).
 
         ``draw_fn(layer, deg)`` replaces the generator draws: it
         receives layer ``l``'s ``(S_l,)`` int32 degrees (0 on invalid
@@ -573,13 +610,15 @@ class GraphSageSampler:
         padded = np.full(cap, -1, dtype=np.int32)
         padded[:batch] = seeds
         self._call += 1
-        seam = self._draw_seam(cap, draw_fn, (self.seed, self._call))
-        dev_seeds = torch.from_numpy(padded).to(self.device)
-        fused = self.kernel == "pallas"
+        dev = self.device if device is None else torch.device(device)
+        seam = self._draw_seam(cap, draw_fn, (self.seed, self._call), dev)
+        dev_seeds = torch.from_numpy(padded).to(dev)
+        fused = self.kernel_on(dev) == "pallas"
+        topo = self.placed_on(dev)
 
         def run():
             return multilayer_sample(
-                self.topo, dev_seeds, batch, self.sizes, self._caps_for(cap),
+                topo, dev_seeds, batch, self.sizes, self._caps_for(cap),
                 with_eid=self.with_eid, weighted=self.weighted,
                 time_window=self.time_window, fused=fused, dedup=self.dedup,
                 **seam)
@@ -591,7 +630,8 @@ class GraphSageSampler:
         return SampleOutput(n_id, batch, adjs, n_count, overflow,
                             edge_counts, frontier_counts)
 
-    def sample_padded(self, seeds, num_seeds, generator=None, draw_fn=None):
+    def sample_padded(self, seeds, num_seeds, generator=None, draw_fn=None,
+                      device=None):
         """Sample already-padded device seeds with no host read: the
         sampler call of a fused train step.
 
@@ -610,10 +650,12 @@ class GraphSageSampler:
         :meth:`sample`'s for the same seeds, caps and draws.
 
         Returns ``(n_id, n_count, adjs deepest first, overflow,
-        edge_counts, frontier_counts)``, all on the device.
+        edge_counts, frontier_counts)``, all on the device (``device``,
+        default the sampler's).
         """
         self.check_topo_version()
-        seeds = torch.as_tensor(seeds, device=self.device).to(torch.int32)
+        dev = self.device if device is None else torch.device(device)
+        seeds = torch.as_tensor(seeds, device=dev).to(torch.int32)
         cap = int(seeds.shape[0])
         if generator is not None:
             key = (generator.initial_seed(),)
@@ -621,28 +663,30 @@ class GraphSageSampler:
             self._call += 1
             key = (self.seed, self._call)
         return multilayer_sample(
-            self.topo, seeds, num_seeds, self.sizes, self._caps_for(cap),
+            self.placed_on(dev), seeds, num_seeds, self.sizes, self._caps_for(cap),
             with_eid=self.with_eid, weighted=self.weighted,
-            time_window=self.time_window, fused=self.kernel == "pallas",
-            dedup=self.dedup, **self._draw_seam(cap, draw_fn, key))
+            time_window=self.time_window, fused=self.kernel_on(dev) == "pallas",
+            dedup=self.dedup, **self._draw_seam(cap, draw_fn, key, dev))
 
-    def _draw_seam(self, cap: int, draw_fn, key: tuple) -> dict:
+    def _draw_seam(self, cap: int, draw_fn, key: tuple, device=None) -> dict:
         """The hop draws of one call at seed capacity ``cap``, as the
         ``multilayer_sample`` seam: ``draw_fn``'s draws, or layer ``l``'s
         raw bits from a generator seeded by ``key + (l,)``. Each hop draws
         over (at least) its worst-case rows and takes the prefix it needs,
         so a row's draws do not depend on the caps: an auto sampler's
-        rerun repeats them."""
+        rerun repeats them. Both are made on ``device`` (default the
+        sampler's)."""
+        dev = self.device if device is None else device
         if draw_fn is not None:
             def draw(l, deg):
-                return torch.as_tensor(draw_fn(l, deg), device=self.device)
+                return torch.as_tensor(draw_fn(l, deg), device=dev)
 
             return {"draw": draw}
         rows = (cap,) + tuple(map(max, self._worst_caps(cap), self._caps_for(cap)))
 
         def bits(l, shape):
             draws = hop_draws((rows[l],), self.sizes[l], seeded_generator(
-                self.device, *key, l), weighted=self.weighted)
+                dev, *key, l), weighted=self.weighted)
             if self.weighted:
                 return draws[:shape[0]]
             return tuple(d[:shape[0]] for d in draws)

@@ -244,9 +244,11 @@ def test_constructor_errors(graph):
         DataParallelTrainer(_cpu_mesh(4), sampler, Sharded(), model, opt)
     with pytest.raises(ValueError, match="feature=1"):
         DataParallelTrainer(_cpu_mesh(4, 2), sampler, feature, model, opt)
-    two = qt.make_mesh(devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        DataParallelTrainer(two, sampler, feature, model, opt)
+    with pytest.raises(ValueError, match="meta"):
+        qt.make_mesh(devices=["cpu", "meta"])
+    two = qt.make_mesh(devices=["cpu:0", "cpu:1"])
+    assert DataParallelTrainer(two, sampler, feature, model, opt).device == \
+        torch.device("cpu", 0)
 
 
 def test_adj_sizes_unbound_equals_jax():

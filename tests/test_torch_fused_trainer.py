@@ -323,13 +323,14 @@ def test_mesh_sampler_requires_all_seed_sharding(graph):
 @pytest.mark.parametrize("what", ["logical_workers", "auto_alpha", "controller",
                                   "two_devices"])
 def test_unported_features_raise(graph, what):
-    """A mesh of two devices (A.11e) still raises. ``logical_workers``,
-    ported with A.11d, needs ``seed_sharding="all"`` (JAX's
-    ``ValueError``) and then runs two blocks a slot. ``auto_alpha=True``
-    and a ``controller``, ported with A.11c, now build over a replicated
-    store: ``auto_alpha`` makes an alpha-only controller (no heat feed),
-    and a controller is not attached to a ``Feature``, as in the JAX
-    package."""
+    """A mesh of two distinct devices builds and steps (A.11e (b)), and a
+    device that cannot compute (``meta``) is refused by ``make_mesh``.
+    ``logical_workers``, ported with A.11d, needs ``seed_sharding="all"``
+    (JAX's ``ValueError``) and then runs two blocks a slot.
+    ``auto_alpha=True`` and a ``controller``, ported with A.11c, now build
+    over a replicated store: ``auto_alpha`` makes an alpha-only controller
+    (no heat feed), and a controller is not attached to a ``Feature``, as
+    in the JAX package."""
     ei, feat, _ = graph
     topo = qt.CSRTopo(edge_index=ei)
     sampler = qt.GraphSageSampler(topo, [3], device="cpu", seed=0, seed_capacity=8)
@@ -337,7 +338,9 @@ def test_unported_features_raise(graph, what):
     model = GraphSAGE(4, 8, 4, num_layers=1)
     mesh, kw = _cpu_mesh(2), {}
     if what == "two_devices":
-        mesh = qt.make_mesh(devices=["cpu", "meta"])
+        with pytest.raises(ValueError, match="meta"):
+            qt.make_mesh(devices=["cpu", "meta"])
+        mesh = qt.make_mesh(devices=["cpu:0", "cpu:1"])
     else:
         kw = {"logical_workers": {"logical_workers": 4}, "auto_alpha": {"auto_alpha": True},
               "controller": {"controller": qt.CacheController()}}[what]
@@ -348,8 +351,10 @@ def test_unported_features_raise(graph, what):
                                   local_batch=8, **kw)
 
     if what == "two_devices":
-        with pytest.raises(NotImplementedError, match="A.11e"):
-            build()
+        trainer = build()
+        trainer.init(0)
+        loss = trainer.step(np.arange(16), torch.from_numpy(graph[2].astype(np.int32)), 3)
+        assert trainer.device == torch.device("cpu", 0) and torch.isfinite(loss)
         return
     if what == "logical_workers":
         with pytest.raises(ValueError, match="requires seed_sharding='all'"):
