@@ -31,6 +31,15 @@ scan's bits either (the tests hold the accumulate against both JAX
 strategies), and on an H100 it ran at 0.52-0.72x the accumulate's nodes
 per second at every shape measured (``PERF.md``). GAT's passes do not
 read the variable, in either package.
+
+Every pass records its spans through :func:`~..obs.tracing.span` (free
+when tracing is off): ``infer.pass`` (``layers``) over ``infer.place``
+(the copies of the CSR and the features to the card; ``h2d_bytes``, what
+they carried from the host), and per conv an ``infer.layer`` over its
+``infer.aggregate`` (a chunk loop) and ``infer.combine`` (the linear
+maps, their sum and the activation) spans. The place, aggregate and
+combine spans time the card's stream too (``device_ms``); none
+synchronises.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch.nn.functional as F
 
 from ..core.config import SampleMode, resolve_platform_strategy
 from ..core.memory import resolve_device, to_pinned_host
+from ..obs import tracing
 from ..ops.sample import staged_gather
 
 __all__ = ["full_neighbor_mean", "gat_layerwise_inference",
@@ -49,16 +59,44 @@ __all__ = ["full_neighbor_mean", "gat_layerwise_inference",
            "rgcn_layerwise_inference", "sage_layerwise_inference"]
 
 
-def _place(topo, mode, device):
-    """``(indptr, indices, host)`` on ``device``: HBM puts both on the
-    device; HOST keeps the edge array in pinned host memory (``host`` is
-    True on a CUDA device), read over UVA by kernel K2."""
+def _host_csr(topo, mode, device):
+    """``(indptr, indices, host)`` on the host, ready to cross to
+    ``device``: ``indptr`` widened to int64 there; HOST keeps the edge
+    array in pinned host memory (``host`` is True on a CUDA device), read
+    over UVA by kernel K2, where HBM copies it to the device too."""
     mode = SampleMode.parse(mode)
-    indptr = torch.from_numpy(topo.indptr).to(device, torch.int64)
+    indptr = torch.from_numpy(topo.indptr).to(torch.int64)
     if mode is SampleMode.HOST:
-        indices, host = to_pinned_host(topo.indices, device)
-        return indptr, indices, host
-    return indptr, torch.from_numpy(topo.indices).to(device), False
+        return (indptr, *to_pinned_host(topo.indices, device))
+    return indptr, torch.from_numpy(topo.indices), False
+
+
+def _to_device(t: torch.Tensor, device, span) -> torch.Tensor:
+    """``t`` on ``device``; ``span``'s ``h2d_bytes`` gains the bytes that
+    crossed from the host to a card."""
+    out = t.to(device)
+    if t.device.type == "cpu" and out.is_cuda:
+        span.set("h2d_bytes", span.attrs.get("h2d_bytes", 0) + t.nbytes)
+    return out
+
+
+def _csr_to_device(csr, device, span):
+    """A :func:`_host_csr` triple on ``device``; HOST mode's pinned edge
+    array stays where it is."""
+    indptr, indices, host = csr
+    return (_to_device(indptr, device, span),
+            indices if host else _to_device(indices, device, span), host)
+
+
+def _place(topo, x_all, mode, device):
+    """``(indptr, indices, host, x)``: the CSR and the features on
+    ``device``. Their copies alone fill the ``infer.place`` span, so its
+    device time is theirs: the host's preparation goes first."""
+    csr, x = _host_csr(topo, mode, device), torch.as_tensor(x_all)
+    with tracing.span("infer.place", device=device, h2d_bytes=0) as sp:
+        indptr, indices, host = _csr_to_device(csr, device, sp)
+        x = _to_device(x, device, sp)
+    return indptr, indices, host, x
 
 
 def _edge_chunks(indptr, indices, chunk: int, host: bool):
@@ -99,11 +137,12 @@ def _neighbor_mean_dev(indptr, indices, x_all, chunk: int, host: bool = False):
 
     The output has ``indptr``'s row count; zero-degree rows are zeros."""
     n_out, f = indptr.shape[0] - 1, x_all.shape[1]
-    acc = torch.zeros(n_out, f, dtype=x_all.dtype, device=x_all.device)
-    for src, dst in _edge_chunks(indptr, indices, chunk, host):
-        _accumulate(acc, dst, x_all[src])
-    deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(x_all.dtype)
-    return acc / deg[:, None]
+    with tracing.span("infer.aggregate", device=x_all.device):
+        acc = torch.zeros(n_out, f, dtype=x_all.dtype, device=x_all.device)
+        for src, dst in _edge_chunks(indptr, indices, chunk, host):
+            _accumulate(acc, dst, x_all[src])
+        deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(x_all.dtype)
+        return acc / deg[:, None]
 
 
 def _float32_convs(model) -> list:
@@ -129,9 +168,8 @@ def full_neighbor_mean(topo, x_all, chunk: int = 1 << 21,
     checked (module docstring)."""
     _read_infer_agg()
     device = resolve_device(device)
-    indptr, indices, host = _place(topo, mode, device)
-    return _neighbor_mean_dev(indptr, indices, torch.as_tensor(x_all).to(device),
-                              chunk, host)
+    indptr, indices, host, x = _place(topo, x_all, mode, device)
+    return _neighbor_mean_dev(indptr, indices, x, chunk, host)
 
 
 def sage_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
@@ -149,17 +187,18 @@ def sage_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     """
     _read_infer_agg()
     device = resolve_device(device)
-    # place the (possibly multi-GB) CSR arrays once, not once per layer
-    indptr, indices, host = _place(topo, mode, device)
-    x = torch.as_tensor(x_all).to(device)
-    with torch.no_grad():
+    with tracing.span("infer.pass", new_trace=True, layers=len(model.convs)), torch.no_grad():
+        # place the (possibly multi-GB) CSR arrays once, not once per layer
+        indptr, indices, host, x = _place(topo, x_all, mode, device)
         for i, conv in enumerate(model.convs):
-            agg = _neighbor_mean_dev(indptr, indices, x, chunk, host)
-            lin_l, lin_r = conv.lin_l, conv.lin_r
-            x = (F.linear(agg.float(), lin_l.weight, lin_l.bias)
-                 + F.linear(x.float(), lin_r.weight))
-            if i != len(model.convs) - 1:
-                x = torch.relu(x)
+            with tracing.span("infer.layer"):
+                agg = _neighbor_mean_dev(indptr, indices, x, chunk, host)
+                with tracing.span("infer.combine", device=device):
+                    lin_l, lin_r = conv.lin_l, conv.lin_r
+                    x = (F.linear(agg.float(), lin_l.weight, lin_l.bias)
+                         + F.linear(x.float(), lin_r.weight))
+                    if i != len(model.convs) - 1:
+                        x = torch.relu(x)
         return torch.log_softmax(x, dim=-1)
 
 
@@ -176,18 +215,19 @@ def gcn_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     :func:`sage_layerwise_inference`."""
     _read_infer_agg()
     device = resolve_device(device)
-    indptr, indices, host = _place(topo, mode, device)
-    x = torch.as_tensor(x_all).to(device)
-    deg = (indptr[1:] - indptr[:-1]).to(x.dtype)
-    inv_s = torch.rsqrt(deg + 1.0)  # self-loop-augmented degrees
     convs = _float32_convs(model)
-    with torch.no_grad():
+    with tracing.span("infer.pass", new_trace=True, layers=len(convs)), torch.no_grad():
+        indptr, indices, host, x = _place(topo, x_all, mode, device)
+        deg = (indptr[1:] - indptr[:-1]).to(x.dtype)
+        inv_s = torch.rsqrt(deg + 1.0)  # self-loop-augmented degrees
         for i, conv in enumerate(convs):
-            h = x * inv_s[:, None]
-            agg = _neighbor_mean_dev(indptr, indices, h, chunk, host)
-            x = conv.combine((agg * deg[:, None] + h) * inv_s[:, None])
-            if i != len(convs) - 1:
-                x = torch.relu(x)
+            with tracing.span("infer.layer"):
+                h = x * inv_s[:, None]
+                agg = _neighbor_mean_dev(indptr, indices, h, chunk, host)
+                with tracing.span("infer.combine", device=device):
+                    x = conv.combine((agg * deg[:, None] + h) * inv_s[:, None])
+                    if i != len(convs) - 1:
+                        x = torch.relu(x)
         return torch.log_softmax(x.float(), dim=-1)
 
 
@@ -201,16 +241,17 @@ def gin_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     :func:`sage_layerwise_inference`."""
     _read_infer_agg()
     device = resolve_device(device)
-    indptr, indices, host = _place(topo, mode, device)
-    x = torch.as_tensor(x_all).to(device)
-    deg = (indptr[1:] - indptr[:-1]).to(x.dtype)
     convs = _float32_convs(model)
-    with torch.no_grad():
+    with tracing.span("infer.pass", new_trace=True, layers=len(convs)), torch.no_grad():
+        indptr, indices, host, x = _place(topo, x_all, mode, device)
+        deg = (indptr[1:] - indptr[:-1]).to(x.dtype)
         for i, conv in enumerate(convs):
-            agg = _neighbor_mean_dev(indptr, indices, x, chunk, host)
-            x = conv.combine(agg * deg[:, None] + (1.0 + conv.eps) * x)
-            if i != len(convs) - 1:
-                x = torch.relu(x)
+            with tracing.span("infer.layer"):
+                agg = _neighbor_mean_dev(indptr, indices, x, chunk, host)
+                with tracing.span("infer.combine", device=device):
+                    x = conv.combine(agg * deg[:, None] + (1.0 + conv.eps) * x)
+                    if i != len(convs) - 1:
+                        x = torch.relu(x)
         return torch.log_softmax(x.float(), dim=-1)
 
 
@@ -228,35 +269,47 @@ def gat_layerwise_inference(model, topo, x_all, chunk: int = 1 << 20,
     sampled model gives it. The default ``chunk`` is half the other
     families' (a chunk's messages are ``(chunk, H, F)``). Arguments and
     result as :func:`sage_layerwise_inference`; ``QUIVER_INFER_AGG`` is
-    not read, as in the JAX package."""
+    not read, as in the JAX package. A layer's spans are an
+    ``infer.combine`` for the projection, one ``infer.aggregate`` over
+    both edge passes and the normalisation, and an ``infer.combine`` for
+    ``finish``."""
     device = resolve_device(device)
-    indptr, indices, host = _place(topo, mode, device)
-    x = torch.as_tensor(x_all).to(device)
-    n = indptr.shape[0] - 1
     convs = _float32_convs(model)
-    with torch.no_grad():
+    with tracing.span("infer.pass", new_trace=True, layers=len(convs)), torch.no_grad():
+        indptr, indices, host, x = _place(topo, x_all, mode, device)
+        n = indptr.shape[0] - 1
         for i, conv in enumerate(convs):
-            h_all, a_s, a_d = conv.project(x)
-            H = h_all.shape[1]
-            slope = conv.negative_slope
-            seg_max = torch.full((n, H), -torch.inf, dtype=h_all.dtype, device=device)
-            for src, dst in _edge_chunks(indptr, indices, chunk, host):
-                logit = F.leaky_relu(a_s[src] + a_d[dst], slope)
-                seg_max.scatter_reduce_(0, dst[:, None].expand_as(logit), logit,
-                                        "amax")
-            # destinations with no in-edges: a finite shift (their sums stay 0)
-            seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-            num = torch.zeros_like(h_all)
-            denom = torch.zeros((n, H), dtype=h_all.dtype, device=device)
-            for src, dst in _edge_chunks(indptr, indices, chunk, host):
-                w = torch.exp(F.leaky_relu(a_s[src] + a_d[dst], slope) - seg_max[dst])
-                _accumulate(num, dst, w[:, :, None] * h_all[src])
-                _accumulate(denom, dst, w)
-            out = num / denom.clamp(min=torch.finfo(h_all.dtype).tiny)[:, :, None]
-            x = conv.finish(out)
-            if i != len(convs) - 1:
-                x = F.elu(x)
+            with tracing.span("infer.layer"):
+                with tracing.span("infer.combine", device=device):
+                    h_all, a_s, a_d = conv.project(x)
+                with tracing.span("infer.aggregate", device=device):
+                    out = _gat_attend(indptr, indices, h_all, a_s, a_d,
+                                      conv.negative_slope, n, chunk, host)
+                with tracing.span("infer.combine", device=device):
+                    x = conv.finish(out)
+                    if i != len(convs) - 1:
+                        x = F.elu(x)
         return torch.log_softmax(x.float(), dim=-1)
+
+
+def _gat_attend(indptr, indices, h_all, a_s, a_d, slope, n: int, chunk: int,
+                host: bool):
+    """One GAT layer's attention-weighted neighbour mean over every edge:
+    the segment max pass, then the numerator and denominator pass."""
+    H, device = h_all.shape[1], h_all.device
+    seg_max = torch.full((n, H), -torch.inf, dtype=h_all.dtype, device=device)
+    for src, dst in _edge_chunks(indptr, indices, chunk, host):
+        logit = F.leaky_relu(a_s[src] + a_d[dst], slope)
+        seg_max.scatter_reduce_(0, dst[:, None].expand_as(logit), logit, "amax")
+    # destinations with no in-edges: a finite shift (their sums stay 0)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    num = torch.zeros_like(h_all)
+    denom = torch.zeros((n, H), dtype=h_all.dtype, device=device)
+    for src, dst in _edge_chunks(indptr, indices, chunk, host):
+        w = torch.exp(F.leaky_relu(a_s[src] + a_d[dst], slope) - seg_max[dst])
+        _accumulate(num, dst, w[:, :, None] * h_all[src])
+        _accumulate(denom, dst, w)
+    return num / denom.clamp(min=torch.finfo(h_all.dtype).tiny)[:, :, None]
 
 
 def rgcn_layerwise_inference(model, topo, x_dict, chunk: int = 1 << 20,
@@ -270,7 +323,10 @@ def rgcn_layerwise_inference(model, topo, x_dict, chunk: int = 1 << 20,
     (rows are its destination nodes), all in float32. What each layer
     computes is read from the model's modules, as the JAX package reads
     it from the parameter tree: a type with no ``self_{t}`` transform in a
-    layer is skipped there, and so is a relation with no weight.
+    layer is skipped there, and so is a relation with no weight. A
+    layer's spans are one ``infer.aggregate`` per relation, between
+    ``infer.combine`` spans for the self transforms, each relation's
+    projection and the sums with their activation.
 
     Args:
       model: the trained :class:`~.rgcn.RGCN` (on ``device``).
@@ -283,26 +339,36 @@ def rgcn_layerwise_inference(model, topo, x_dict, chunk: int = 1 << 20,
     """
     _read_infer_agg()
     device = resolve_device(device)
-    x_dict = {t: torch.as_tensor(v).to(device) for t, v in x_dict.items()}
-    placed = {et: _place(rel, mode, device) for et, rel in topo.relations.items()}
-    with torch.no_grad():
+    with tracing.span("infer.pass", new_trace=True, layers=model.num_layers), \
+            torch.no_grad():
+        x_dict = {t: torch.as_tensor(v) for t, v in x_dict.items()}
+        csrs = {et: _host_csr(rel, mode, device) for et, rel in topo.relations.items()}
+        with tracing.span("infer.place", device=device, h2d_bytes=0) as sp:
+            x_dict = {t: _to_device(v, device, sp) for t, v in x_dict.items()}
+            placed = {et: _csr_to_device(csr, device, sp) for et, csr in csrs.items()}
         for i, conv in enumerate(model.convs):
-            out = {}
-            for t, x in x_dict.items():
-                lin = conv.self_linear(t)
-                if lin is not None:
-                    out[t] = F.linear(x.float(), lin.weight, lin.bias)
-            for et in sorted(topo.relations, key=str):
-                s_t, _, d_t = et
-                if d_t not in out or s_t not in x_dict:
-                    continue
-                w = conv.relation_weight(et)
-                if w is None:
-                    continue
-                indptr, indices, host = placed[et]
-                out[d_t] = out[d_t] + _neighbor_mean_dev(
-                    indptr, indices, x_dict[s_t].float() @ w, chunk, host)
-            if i != model.num_layers - 1:
-                out = {t: torch.relu(v) for t, v in out.items()}
-            x_dict = out
+            with tracing.span("infer.layer"):
+                with tracing.span("infer.combine", device=device):
+                    out = {}
+                    for t, x in x_dict.items():
+                        lin = conv.self_linear(t)
+                        if lin is not None:
+                            out[t] = F.linear(x.float(), lin.weight, lin.bias)
+                for et in sorted(topo.relations, key=str):
+                    s_t, _, d_t = et
+                    if d_t not in out or s_t not in x_dict:
+                        continue
+                    w = conv.relation_weight(et)
+                    if w is None:
+                        continue
+                    indptr, indices, host = placed[et]
+                    with tracing.span("infer.combine", device=device):
+                        h = x_dict[s_t].float() @ w
+                    agg = _neighbor_mean_dev(indptr, indices, h, chunk, host)
+                    with tracing.span("infer.combine", device=device):
+                        out[d_t] = out[d_t] + agg
+                if i != model.num_layers - 1:
+                    with tracing.span("infer.combine", device=device):
+                        out = {t: torch.relu(v) for t, v in out.items()}
+                x_dict = out
         return torch.log_softmax(x_dict[model.target_type], dim=-1)

@@ -12,7 +12,9 @@ The port of ``quiver_tpu/obs/``:
 * :func:`profile_epoch`: ``torch.profiler`` bracketing with the same
   stage names on the card's timeline (``profile.py``);
 * :class:`Tracer` / :class:`Span`: per-request causal spans, exported as
-  Chrome trace-event JSON (``tracing.py``);
+  Chrome trace-event JSON, on the profiler's clock and timed on the card;
+  :func:`default_tracer`, where functions that hold no tracer record
+  (the layer-wise pass) (``tracing.py``);
 * :class:`FlightRecorder`: a bounded black-box ring dumping atomic,
   checksummed postmortem bundles on fault triggers (``recorder.py``);
 * :class:`TelemetryEndpoint`: an opt-in stdlib HTTP thread serving
@@ -51,7 +53,13 @@ from .registry import (
     MetricsTape,
 )
 from .timeline import P2Quantile, StageStats, StepTimeline
-from .tracing import Span, Tracer, to_chrome_trace, write_chrome_trace
+from .tracing import (
+    Span,
+    Tracer,
+    default_tracer,
+    to_chrome_trace,
+    write_chrome_trace,
+)
 
 __all__ = [
     "MetricSpec",
@@ -76,6 +84,7 @@ __all__ = [
     "profile_epoch",
     "Span",
     "Tracer",
+    "default_tracer",
     "TRACE_SPANS",
     "RECORDER_BUNDLES",
     "RECORDER_EVENTS",

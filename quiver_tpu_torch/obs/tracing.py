@@ -12,6 +12,24 @@ it: a disabled tracer does no work beyond one attribute check and returns
 a shared no-op span, and enabling it changes no input of any kernel or
 model call, so responses are bitwise identical either way.
 
+A live span (inside its ``with`` block) is its thread's current span.
+Functions that hold no tracer open theirs with :func:`span`: a child of
+the thread's current span, in that span's tracer, or else a root in the
+process-wide :func:`default_tracer`. With no span live, :func:`span`
+records only while the trace switch is on (``QUIVER_ENABLE_TRACE`` /
+``enable_trace``) or a ``torch.profiler`` records in the process.
+
+While a profiler records, every live span is also a range of its name on
+the profiler's host timeline, so it lines up with the card's work there.
+The range is recorded as an operator and not as a user annotation: the
+profiler mirrors only the innermost user annotation on the device's
+streams, so a span of the program's there would take the mirror from an
+enclosing ``record_function`` of the caller's (a benchmark's span around
+the call) and leave its device work charged to nothing. A span given a
+CUDA ``device`` records a timing event pair on that device's current
+stream at entry and exit; its ``device_ms`` is read from them lazily,
+once the end event has completed, and no span ever synchronises.
+
 Export is Chrome trace-event JSON (:func:`to_chrome_trace`), loadable in
 Perfetto / ``chrome://tracing``: every span becomes a complete
 ``"ph": "X"`` event carrying its trace/span/parent ids in ``args``.
@@ -24,10 +42,14 @@ import threading
 import time
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
+from ..utils.trace import trace_enabled
 from .registry import TRACE_SPANS, MetricsRegistry
 
-__all__ = ["Span", "Tracer", "to_chrome_trace", "write_chrome_trace"]
+__all__ = ["Span", "Tracer", "default_tracer", "span",
+           "to_chrome_trace", "write_chrome_trace"]
 
 
 class Span:
@@ -40,10 +62,12 @@ class Span:
     exports start near zero), ``tid`` (small stable per-thread id), and
     free-form ``attrs`` (``subsystem`` is the conventional grouping key:
     serve / fleet / trainer / prefetch / stager / resilience / control).
+    :attr:`device_ms` is the span's time on its card's stream, when it
+    was opened with a CUDA ``device``.
     """
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "t0", "dur",
-                 "tid", "attrs")
+                 "tid", "attrs", "_events", "_device_ms")
 
     def __init__(self, name, trace_id, span_id, parent_id, t0, dur, tid,
                  attrs):
@@ -55,6 +79,20 @@ class Span:
         self.dur = dur
         self.tid = tid
         self.attrs = attrs
+        self._events = None
+        self._device_ms = None
+
+    @property
+    def device_ms(self) -> float | None:
+        """Milliseconds on the span's stream from its first enqueued work
+        to its last (the timing events recorded at entry and exit). None
+        for a span with no CUDA device, and while the end event is still
+        pending: reading it never waits for the card."""
+        events = self._events
+        if events is not None and events[1].query():
+            self._device_ms = events[0].elapsed_time(events[1])
+            self._events = None
+        return self._device_ms
 
     def set(self, key: str, value) -> None:
         """Attach/overwrite one attribute (live spans: inside the
@@ -92,6 +130,7 @@ class _NullSpan:
     dur = 0.0
     tid = 0
     attrs: dict = {}
+    device_ms = None
 
     def set(self, key, value) -> None:
         pass
@@ -120,24 +159,63 @@ class _NullScope:
 _NULL_SCOPE = _NullScope()
 
 
+_LIVE = threading.local()  # .stack: the thread's live (tracer, span) pairs
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process: the autograd
+    profiler's process-wide flag (a profile of every thread sets only
+    this one), or this thread's profiler state."""
+    return (getattr(_autograd_profiler, "_is_profiler_enabled", False)
+            or torch.autograd._profiler_enabled())
+
+
+def _live_stack() -> list:
+    stack = getattr(_LIVE, "stack", None)
+    if stack is None:
+        stack = _LIVE.stack = []
+    return stack
+
+
 class _SpanScope:
     """Live-path context manager: clocks the block and records one span
     on exit (even when the block raises — a failing stage still lands on
-    the timeline, tagged by the caller if it wants to)."""
+    the timeline, tagged by the caller if it wants to). While the block
+    runs the span is its thread's current span; under a recording
+    profiler it is also an operator range of its name on the host's
+    timeline, and with a CUDA ``device`` it records a timing event at
+    entry and at exit."""
 
-    __slots__ = ("_tracer", "_span", "_t0")
+    __slots__ = ("_tracer", "_span", "_t0", "_device", "_range", "_start")
 
-    def __init__(self, tracer: "Tracer", span: Span):
+    def __init__(self, tracer: "Tracer", span: Span, device=None):
         self._tracer = tracer
         self._span = span
+        self._device = device
 
     def __enter__(self) -> Span:
+        s = self._span
+        self._range = self._start = None
+        if _profiling():
+            self._range = torch._C._profiler._RecordFunctionFast(s.name)
+            self._range.__enter__()
+        if self._device is not None:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self._device))
+        _live_stack().append((self._tracer, s))
         self._t0 = time.perf_counter()
-        return self._span
+        return s
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
         s = self._span
+        _live_stack().pop()
+        if self._start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self._device))
+            s._events = (self._start, end)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         s.t0 = self._t0 - self._tracer._epoch
         s.dur = t1 - self._t0
         if exc_type is not None:
@@ -237,14 +315,19 @@ class Tracer:
                     tid, a)
 
     def span(self, name: str, trace: str | None = None, parent=None,
-             subsystem: str | None = None, **attrs):
+             subsystem: str | None = None, device=None, **attrs):
         """Context manager timing one unit of work; yields the live
         :class:`Span` (callers may ``.set()`` attrs inside the block).
-        ``parent`` is a parent :class:`Span` or span-id string."""
+        ``parent`` is a parent :class:`Span` or span-id string; ids are
+        what the caller gives, whatever span is live (:func:`span` takes
+        them from the thread). With a CUDA ``device`` the span also times
+        its stream (:attr:`Span.device_ms`)."""
         if not self.enabled:
             return _NULL_SCOPE
+        if device is not None and torch.device(device).type != "cuda":
+            device = None
         return _SpanScope(self, self._make(name, trace, parent,
-                                           subsystem, attrs))
+                                           subsystem, attrs), device)
 
     def record(self, name: str, t0: float, dur: float,
                trace: str | None = None, parent=None,
@@ -296,6 +379,16 @@ class Tracer:
         with self._lock:
             self._spans.clear()
 
+    def traces(self, name: str) -> list[list[Span]]:
+        """The retained spans of each trace holding a span ``name``,
+        oldest first per trace, traces in the order their ``name`` spans
+        finished."""
+        spans = self.spans()
+        by_trace: dict[str, list[Span]] = {}
+        for s in spans:
+            by_trace.setdefault(s.trace_id, []).append(s)
+        return [by_trace[s.trace_id] for s in spans if s.name == name]
+
     def subsystems(self) -> set[str]:
         """Distinct ``subsystem`` attrs across retained spans."""
         return {s.attrs["subsystem"] for s in self.spans()
@@ -306,6 +399,40 @@ class Tracer:
 
     def write_chrome(self, path) -> int:
         return write_chrome_trace(self.spans(), path)
+
+
+# -- the program's own spans -------------------------------------------------
+
+_DEFAULT: list = []
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_tracer() -> Tracer:
+    """The process-wide tracer that :func:`span` records into when no live
+    span encloses it (made on first use)."""
+    if not _DEFAULT:
+        with _DEFAULT_LOCK:
+            if not _DEFAULT:
+                _DEFAULT.append(Tracer())
+    return _DEFAULT[0]
+
+
+def span(name: str, new_trace: bool = False, device=None, **attrs):
+    """A span for a function that holds no tracer: a child of this
+    thread's current span, in that span's tracer (and, unless
+    ``new_trace``, in its trace); else a root of a new trace in
+    :func:`default_tracer`, recorded only while the trace switch is on or
+    a ``torch.profiler`` records, and otherwise the shared no-op scope.
+    ``device`` and ``attrs`` as :meth:`Tracer.span`."""
+    stack = _live_stack()
+    if stack:
+        tracer, parent = stack[-1]
+        trace = tracer.trace() if new_trace else parent.trace_id
+        return tracer.span(name, trace, parent, device=device, **attrs)
+    if not (trace_enabled() or _profiling()):
+        return _NULL_SCOPE
+    tracer = default_tracer()
+    return tracer.span(name, tracer.trace(), device=device, **attrs)
 
 
 # -- Chrome trace-event / Perfetto export -------------------------------------

@@ -20,6 +20,7 @@ that stream has synchronised.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -48,7 +49,8 @@ class EmbeddingRefresher:
       chunk / mode: forwarded to ``infer_fn``.
       tracer: optional :class:`~..obs.tracing.Tracer`; each recompute
         lands a ``serve.refresh`` span tagged with the version it
-        published.
+        published, live while it runs, so the pass's own spans
+        (``infer.pass`` and below) land beneath it in this tracer.
       device: where the table is computed and kept; CUDA unless the
         caller passes another.
     """
@@ -92,24 +94,19 @@ class EmbeddingRefresher:
         published. Safe from the background thread while lookups read the
         old table."""
         version = int(self.csr_topo.version)
-        t0 = (self.tracer.now()
-              if self.tracer is not None and self.tracer.enabled else None)
-        if self._stream is None:
-            table = self._compute()
-        else:
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._stream):
+        with (self.tracer.span("serve.refresh", subsystem="serve", version=version)
+              if self.tracer is not None else contextlib.nullcontext()):
+            if self._stream is None:
                 table = self._compute()
-            self._stream.synchronize()
-        with self._lock:
-            self._table = table
-            self._table_version = version
-            self.refreshes += 1
-        if t0 is not None:
-            self.tracer.record(
-                "serve.refresh", t0, self.tracer.now() - t0,
-                subsystem="serve", version=version,
-            )
+            else:
+                self._stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._stream):
+                    table = self._compute()
+                self._stream.synchronize()
+            with self._lock:
+                self._table = table
+                self._table_version = version
+                self.refreshes += 1
         return version
 
     # -- versioned reads -----------------------------------------------------

@@ -2,7 +2,9 @@
 reordering and tracing.
 
 The JAX package's export table, resolved lazily as there, but for
-``honor_forced_platform`` (a JAX platform switch, not ported by design).
+``honor_forced_platform`` (a JAX platform switch, not ported by design)
+and ``start_trace`` / ``stop_trace`` (a profile of a block is
+``obs.profile_epoch``).
 """
 
 __all__ = [
@@ -17,8 +19,6 @@ __all__ = [
     "disable_trace",
     "trace_enabled",
     "get_logger",
-    "start_trace",
-    "stop_trace",
 ]
 
 _LAZY = {
@@ -33,8 +33,6 @@ _LAZY = {
     "disable_trace": "trace",
     "trace_enabled": "trace",
     "get_logger": "trace",
-    "start_trace": "trace",
-    "stop_trace": "trace",
 }
 
 

@@ -11,8 +11,9 @@ The port of ``quiver_tpu/utils/trace.py``:
   name; ``QUIVER_LOG_LEVEL`` opts into a ready-made stderr handler.
 - :func:`info_once` / :func:`warn_once` log a message once per process per
   key.
-- :func:`start_trace` / :func:`stop_trace` collect a ``torch.profiler``
-  profile of the host and the card and write it as a Chrome trace.
+
+A ``torch.profiler`` profile of a block, written as a Chrome trace, is
+``obs.profile_epoch``.
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ __all__ = [
     "info_once",
     "reset_once",
     "warn_once",
-    "start_trace",
-    "stop_trace",
 ]
 
 _TRACE_ENV = "QUIVER_ENABLE_TRACE"
@@ -185,35 +184,3 @@ def reset_once() -> None:
     """Forget which keys :func:`info_once` / :func:`warn_once` have logged
     (for test fixtures, so log assertions do not depend on test order)."""
     _ONCE_KEYS.clear()
-
-
-_PROFILE: list = []  # the running profile and its output path, if any
-
-
-def start_trace(log_dir: str) -> None:
-    """Enable trace scopes and start a ``torch.profiler`` profile of the
-    host and, when there is one, the CUDA device; :func:`stop_trace`
-    writes it to ``log_dir/trace.json`` (Chrome trace format, opened by
-    Perfetto or ``chrome://tracing``)."""
-    if _PROFILE:
-        raise RuntimeError("a trace is already running; call stop_trace() first")
-    enable_trace()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.__enter__()
-    _PROFILE.extend([prof, os.path.join(log_dir, "trace.json")])
-
-
-def stop_trace() -> str:
-    """Stop the profile :func:`start_trace` began and write it; returns
-    the trace file's path."""
-    if not _PROFILE:
-        raise RuntimeError("no trace is running; call start_trace() first")
-    prof, path = _PROFILE
-    _PROFILE.clear()
-    prof.__exit__(None, None, None)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    return path

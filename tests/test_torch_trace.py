@@ -2,8 +2,8 @@
 and ``utils/debug.py``, the ports of quiver_tpu's): ``info_once`` /
 ``warn_once`` log once per key, ``trace_scope`` is a no-op when tracing is
 off and a profiler annotation when it is on, ``Timer``, the
-``QUIVER_LOG_LEVEL`` bootstrap, the profile a ``start_trace`` /
-``stop_trace`` pair writes, and ``tensor_info``.
+``QUIVER_LOG_LEVEL`` bootstrap, the profile ``obs.profile_epoch`` writes
+around a lookup, and ``tensor_info``.
 
 Records are captured by a handler attached to the ``quiver_tpu_torch``
 logger itself, not through propagation to the root logger.
@@ -112,25 +112,23 @@ def test_trace_scope_is_a_no_op_when_disabled(tracing, monkeypatch):
 
 
 def test_feature_lookup_annotated_only_when_tracing(tracing, tmp_path):
-    """With tracing on, a store's lookup shows up as a ``feature_gather``
-    range in the written profile; with it off the lookup is the same."""
+    """Inside ``obs.profile_epoch`` a store's lookup shows up as a
+    ``feature_gather`` range in the written profile; with tracing off the
+    lookup is the same, and the switch is restored after the block."""
     import quiver_tpu_torch as qt
+    from quiver_tpu_torch.obs import profile_epoch
 
     x = np.random.default_rng(0).normal(size=(30, 4)).astype(np.float32)
     feat = qt.Feature(device_cache_size="1M", device="cpu").from_cpu_tensor(x)
     ids = np.array([1, 2, -1], np.int32)
     off = feat[ids]
-    trace.start_trace(str(tmp_path))
-    with pytest.raises(RuntimeError, match="already running"):
-        trace.start_trace(str(tmp_path))
-    on = feat[ids]
-    path = trace.stop_trace()
-    assert torch.equal(on, off) and trace.trace_enabled()
-    with open(path) as fh:
+    with profile_epoch(str(tmp_path), "lookup"):
+        assert trace.trace_enabled()
+        on = feat[ids]
+    assert torch.equal(on, off) and not trace.trace_enabled()
+    with open(tmp_path / "lookup.trace.json") as fh:
         names = {e.get("name") for e in json.load(fh)["traceEvents"]}
-    assert "feature_gather" in names
-    with pytest.raises(RuntimeError, match="no trace"):
-        trace.stop_trace()
+    assert {"lookup", "feature_gather"} <= names
 
 
 def test_timer(records):
