@@ -516,18 +516,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 9q. the layer-wise inference's ``QUIVER_INFER_AGG`` switch, last; every
    check names itself on stderr first. The port reads and checks the
-   variable and runs its accumulate under ``"scatter"`` and ``"scan"``
+   variable and runs its segment mean under ``"scatter"`` and ``"scan"``
    alike. (a) ``bench_infer.py``'s defaults on the serving graph (F = 100
-   f32, GraphSAGE 256 x 2, 47 classes, chunk 2^21), HBM and HOST: a
-   warm-up pass, then one pass under each value; nodes/s of each pass,
-   its peak memory growth, exact launches (a HOST pass reads each chunk's
-   ids by K2 ``gather_rows``, the same count under both; an HBM pass
-   launches no kernel); finite log-probs, ``"scan"`` bitwise
-   ``"scatter"``, HOST within 1e-5 x max |out| of HBM; one more HBM pass
-   under ``torch.profiler`` (device busy, idle share, the costliest
-   kernels). (b) ``QUIVER_INFER_AGG=scna`` raises ``ValueError`` from the
-   SAGE pass and not from GAT's. K2 over the pinned edge array at the
-   HOST pass's shapes against its plain version.
+   f32, GraphSAGE 256 x 2, 47 classes), HBM and HOST: a warm-up pass,
+   then one pass under each value; nodes/s of each pass, its peak memory
+   growth, exact launches (one ``segment_mean`` a layer, HOST reading the
+   pinned edge array over UVA, and no K2); finite log-probs, ``"scan"``
+   bitwise ``"scatter"``, HOST bitwise HBM; one more HBM pass under
+   ``torch.profiler`` (device busy, idle share, the costliest kernels).
+   (b) ``QUIVER_INFER_AGG=scna`` raises ``ValueError`` from the SAGE pass
+   and not from GAT's. (c) ``segment_mean`` on the serving graph at F =
+   100 (the features; ids on the card and pinned) and F = 256 (the hidden
+   width) bitwise its plain version, the chunked, sorted accumulate that
+   the passes ran before it (chunk 2^21), and each timed by CUDA events
+   against it, beside its byte bound.
 
 9r. one process over distinct devices, last; every check names itself on
    stderr first. Phase 9f (b)'s width (``generate_pareto_graph(100000,
@@ -588,11 +590,11 @@ PRODUCTS_AVG_DEG = 50.5
 WIDE_ROWS = 1_000_000  # rows of the wide-row gather tables
 PROFILED_STEPS = 5  # training steps traced by torch.profiler
 OUT_DIR = os.path.join(HERE, "chiprun_out")  # run artifacts (git-ignored)
-KERNELS = ("select", "gather", "wselect")
+KERNELS = ("select", "gather", "wselect", "segment")
 # the wrappers, each with its launch count: K1's two entries, K2's three,
-# K3's two
+# K3's two, the layer-wise segment mean
 ENTRIES = ("select", "uniform_hop", "gather_rows", "tiered_gather",
-           "tiered_gather_dequant", "wselect", "weighted_hop")
+           "tiered_gather_dequant", "wselect", "weighted_hop", "segment_mean")
 SELECT_BOUND_RULE = (
     "4 B count per row and 4 B output per lane; 8 B start per row of count "
     "> 0 and 4 B offset per lane below its row's count (the kernel reads "
@@ -708,11 +710,13 @@ def kernel_fns():
                                                     weighted_hop, wselect)
     from quiver_tpu_torch.ops.kernels.gather import (gather_rows, tiered_gather,
                                                      tiered_gather_dequant)
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean
 
     return {"select": select, "uniform_hop": uniform_hop,
             "gather_rows": gather_rows, "tiered_gather": tiered_gather,
             "tiered_gather_dequant": tiered_gather_dequant,
-            "wselect": wselect, "weighted_hop": weighted_hop}
+            "wselect": wselect, "weighted_hop": weighted_hop,
+            "segment_mean": segment_mean}
 
 
 def reset_launches() -> None:
@@ -2394,8 +2398,8 @@ def fleet_phase(args, topo, store, x_all, card):
     fg_s = time.perf_counter() - t0
     check(fg.table.shape == (n, 47) and bool(torch.isfinite(fg.table).all()),
           "refresher table shape and finite")
-    # the layer-wise path is deterministic on the card (a sorted accumulate,
-    # the same GEMMs), so the tables should agree bitwise; the stated
+    # the layer-wise path is deterministic on the card (the segment-mean
+    # kernel adds each row's edges in CSR order; the same GEMMs), so the tables should agree bitwise; the stated
     # tolerance (tests/test_torch_inference.py's) is the floor
     bitwise = bool(torch.equal(bg.table, fg.table))
     err = float((bg.table - fg.table).abs().max())
@@ -4656,12 +4660,14 @@ def audit_phase(card) -> dict:
                 "regs": a["regs"], "shared_bytes": a["shared_static"] + a["shared_dynamic"],
                 "local_bytes": a["local"], "max_threads": a["max_threads"]}
                for attrs in mem.kernel_attrs().values() for a in attrs]
-    step2c("every kernel instantiation spills 0 B; the int8 entry's ring is its "
-           "only shared memory")
+    step2c("every kernel instantiation spills 0 B; the int8 entry's ring and the "
+           "segment mean's static row table (at most 256 B) are the only shared memory")
     check(all(k["local_bytes"] == 0 for k in kernels),
           f"spills: {[(k['kernel'], k['local_bytes']) for k in kernels if k['local_bytes']]}")
+    segment = {k["kernel"] for k in kernels if k["entry"] == "segment_mean"}
     check({k["kernel"] for k in kernels if k["shared_bytes"]}
-          == {f"gather_dequant_kernel<{s}>" for s in (4, 2, 1)},
+          == {f"gather_dequant_kernel<{s}>" for s in (4, 2, 1)} | segment
+          and all(k["shared_bytes"] <= 256 for k in kernels if k["kernel"] in segment),
           f"shared memory: {[(k['kernel'], k['shared_bytes']) for k in kernels]}")
     out = {"targets": len(result.targets), "findings": len(result.findings),
            "suppressed": len(result.suppressed), "kernel_nodes": nodes, "kernels": kernels,
@@ -8972,7 +8978,14 @@ def dedup_phase(args, topo, x_all, card) -> tuple[dict, dict]:
 # -- phase 9q: the layer-wise inference's QUIVER_INFER_AGG switch ------------------
 
 INFER_AGG_VALUES = ("scatter", "scan")  # after one warm-up pass
-INFER_CHUNK = 1 << 21  # the SAGE, GCN and GIN passes' default chunk
+INFER_CHUNK = 1 << 21  # the SAGE, GCN and GIN passes' default chunk (the plain mean's)
+INFER_LAYERS = 2  # the 9q SAGE's layers: one segment_mean launch each
+SEGMENT_WIDTHS = (EPOCH_F, EPOCH_HIDDEN)  # the layers' input widths
+SEGMENT_BOUND_RULE = (
+    "device memory at 3.35 TB/s: each edge's source row read once (F x 4 B) "
+    "and its 4 B id, 8 B of indptr per row, each output row written once; "
+    "rows drawn again may come from L2, so the kernel can pass this bound"
+)
 
 
 def step9q(what: str) -> None:
@@ -8994,13 +9007,13 @@ def infer_agg(value: str):
             os.environ["QUIVER_INFER_AGG"] = old
 
 
-def agg_turns(label: str, run, shape: tuple, card, gather_rows: int = 0) -> tuple[dict, dict]:
+def agg_turns(label: str, run, shape: tuple, card) -> tuple[dict, dict]:
     """``run()``, one whole layer-wise pass: a warm-up pass, then one pass
     under each of ``INFER_AGG_VALUES``, each ending in a synchronise,
     timed on the host clock, its peak memory growth read, and its launches
-    counted (exactly ``gather_rows`` K2 launches and nothing else). Then
-    the log-probs are finite and of ``shape``, and bitwise the same under
-    both values. Returns ``(result, the log-probs by value)``."""
+    counted (exactly ``INFER_LAYERS`` ``segment_mean`` launches and nothing
+    else). Then the log-probs are finite and of ``shape``, and bitwise the
+    same under both values. Returns ``(result, the log-probs by value)``."""
     import torch
 
     run()
@@ -9016,9 +9029,10 @@ def agg_turns(label: str, run, shape: tuple, card, gather_rows: int = 0) -> tupl
         sync()
         secs = time.perf_counter() - t0
         got = read_launches()
-        expect_launches(got, {"gather_rows": gather_rows}, f"{label}, {s} pass")
+        expect_launches(got, {"segment_mean": INFER_LAYERS}, f"{label}, {s} pass")
         res[s] = {"pass_s": secs, "nodes_per_s": shape[0] / secs,
                   "peak_growth_bytes": torch.cuda.max_memory_allocated() - base,
+                  "segment_mean_launches": got["segment_mean"],
                   "gather_rows_launches": got["gather_rows"]}
     step9q(f"{label}: finite {shape} log-probs, \"scan\" bitwise \"scatter\"")
     for s, logp in out.items():
@@ -9032,59 +9046,75 @@ def agg_turns(label: str, run, shape: tuple, card, gather_rows: int = 0) -> tupl
     return res, out
 
 
+AGG_PROFILE_PAD_S = 1.0  # idle host time on each side of 9q's profiled pass
+
+
 def agg_profile(run, pass_s: list) -> dict:
     """One more pass under ``torch.profiler``: the device's busy time (the
     union of its intervals), the idle share against the mean of the
-    unprofiled passes (``pass_s``), and the costliest kernels."""
+    unprofiled passes (``pass_s``), and the costliest kernels. The profiler
+    keeps only the device records it dates inside its window; unpadded, the
+    whole smoke's 9q kept no device record of a 0.1-s pass where a fresh
+    process kept all of them, so the window opens and closes
+    ``AGG_PROFILE_PAD_S`` away from the pass (idle padding adds no busy
+    time), and ``device_lead_ms`` reads how far the first device record
+    is dated after the pass's first host operation."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(AGG_PROFILE_PAD_S)
         run()
         sync()
+        time.sleep(AGG_PROFILE_PAD_S)
     kernels, _ = device_ms(prof, 1)
     busy = device_union_ms(prof, 1)
     wall_ms = 1e3 * sum(pass_s) / len(pass_s)
-    check(busy > 0, "the profiler saw the card")
+    starts = {kind: [e.time_range.start for e in prof.events()
+                     if (e.device_type == torch.autograd.DeviceType.CUDA) == kind
+                     and not annotation(e)] for kind in (True, False)}
+    lead = (min(starts[True]) - min(starts[False])) / 1e3 if all(starts.values()) else None
+    check(busy > 0, f"the profiler saw the card: {len(prof.events())} events, device rows "
+          f"{ {k[:40]: round(v, 3) for k, v in kernels.items()} }, device lead {lead} ms")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     named = {}
     for k, v in top:  # names cut to 100 characters; sum those that meet
         named[k[:100]] = named.get(k[:100], 0.0) + v
-    log(f"(a) SAGE HBM under the profiler: busy {busy:.2f} ms of {wall_ms:.2f}; "
-        f"top {[(k[:60], round(v, 2)) for k, v in top[:4]]}")
+    log(f"(a) SAGE HBM under the profiler: busy {busy:.2f} ms of {wall_ms:.2f}, device "
+        f"lead {lead} ms; top {[(k[:60], round(v, 2)) for k, v in top[:4]]}")
     return {"device_busy_ms": busy, "unprofiled_pass_ms": wall_ms,
-            "idle_share": 1 - busy / wall_ms, "top_kernels_ms": named}
+            "idle_share": 1 - busy / wall_ms, "device_lead_ms": lead,
+            "top_kernels_ms": named}
 
 
-def infer_agg_full_width(topo, x_dev, card) -> tuple[dict, int]:
-    """(a) SAGE at bench_infer's defaults, HBM and HOST. Returns
-    ``(result, K2 launches a HOST pass)``."""
+def infer_agg_full_width(topo, x_dev, card) -> dict:
+    """(a) SAGE at bench_infer's defaults, HBM and HOST."""
     import functools
 
     from quiver_tpu_torch.models import inference
 
     n = topo.node_count
-    host_k2 = 2 * -(-topo.edge_count // INFER_CHUNK)  # one read of each chunk's ids a layer
     res = {"config": "benchmarks/bench_infer.py defaults on the serving graph "
                      f"({n} nodes, {topo.edge_count} edges), F=100 f32, hidden 256, "
-                     "47 classes, 2 layers, chunk 2^21"}
-    sage = make_family("sage", EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, 2, dropout=0.0)
+                     f"47 classes, {INFER_LAYERS} layers"}
+    sage = make_family("sage", EPOCH_F, EPOCH_HIDDEN, EPOCH_CLASSES, INFER_LAYERS,
+                       dropout=0.0)
     sage = sage.to("cuda").eval()
     outs = {}
     for mode in ("HBM", "HOST"):
         run = functools.partial(inference.sage_layerwise_inference, sage, topo, x_dev,
                                 mode=mode, device="cuda")
         res[f"sage_{mode}"], outs[mode] = agg_turns(
-            f"(a) SAGE {mode}", run, (n, EPOCH_CLASSES), card,
-            host_k2 if mode == "HOST" else 0)
+            f"(a) SAGE {mode}", run, (n, EPOCH_CLASSES), card)
         if mode == "HBM":
             res["sage_HBM"]["profile"] = agg_profile(
                 run, [res["sage_HBM"][s]["pass_s"] for s in INFER_AGG_VALUES])
-    step9q("(a) SAGE: HOST against HBM within 1e-5 x max |out|")
+    step9q("(a) SAGE: HOST bitwise HBM")
     hbm, host = outs["HBM"]["scatter"], outs["HOST"]["scatter"]
     err = float((host - hbm).abs().max()) / float(hbm.abs().max())
-    check(err <= 1e-5, f"(a) SAGE: HOST against HBM {err} x max |out|")
-    res["sage_host_against_hbm"] = {"err_over_max": err, "bitwise": equal(host, hbm)}
-    return res, host_k2
+    check(equal(host, hbm), f"(a) SAGE: HOST against HBM {err} x max |out|")
+    res["sage_host_against_hbm"] = {"err_over_max": err, "bitwise": True}
+    return res
 
 
 def infer_agg_bad_value(card) -> dict:
@@ -9116,47 +9146,102 @@ def infer_agg_bad_value(card) -> dict:
     return {"bad_value_error": raised, "gat_ran": True, "graph": label, "card": card}
 
 
-def infer_agg_k2_checks(topo) -> list:
-    """K2 ``gather_rows`` at the HOST pass's shapes (the first and the last
-    chunk's ids over the pinned edge array, 4 B rows) against its plain
-    version."""
+def segment_turns(kernel_fn, plain_fn, warm: int = 1, iters: int = 5) -> dict:
+    """Kernel and plain version timed by CUDA events in turns (plain,
+    kernel, kernel, plain), each turn the mean of ``iters`` calls after
+    ``warm``; each figure the mean of its two turns."""
+    import torch
+
+    def turn(fn, n):
+        for _ in range(warm):
+            fn()
+        sync()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    p1, k1, k2, p2 = (turn(plain_fn, 1), turn(kernel_fn, iters), turn(kernel_fn, iters),
+                      turn(plain_fn, 1))
+    return {"ms": (k1 + k2) / 2, "ms_turns": [k1, k2], "plain_ms": (p1 + p2) / 2,
+            "plain_turns": [p1, p2]}
+
+
+def segment_phase(topo, x_dev) -> tuple[list, dict]:
+    """(c) ``segment_mean`` on the serving graph at the layers' widths:
+    bitwise its plain version (ids on the card, and at F = 100 pinned on
+    the host too), one launch a call; timed against the plain version, the
+    chunked, sorted accumulate the passes ran before the kernel, which is
+    the yardstick too (no single PyTorch call takes a CSR segment mean).
+    Returns ``(check rows, timing at F = 100 with every width's figures)``."""
     import torch
 
     from quiver_tpu_torch.core.memory import to_pinned_host
-    from quiver_tpu_torch.ops.kernels.gather import gather_rows, gather_rows_plain
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean, segment_mean_plain
 
-    table = to_pinned_host(topo.indices, "cuda")[0].reshape(-1, 1)
-    E = table.shape[0]
-    rows = []
-    for e0 in (0, (E - 1) // INFER_CHUNK * INFER_CHUNK):
-        ids = torch.arange(e0, min(e0 + INFER_CHUNK, E), device="cuda", dtype=torch.int32)
-        got, want = gather_rows(table, ids), gather_rows_plain(table, ids)
-        sync()
-        ok = equal(got, want)
-        rows.append({"table": "layer-wise HOST edge array (pinned, 4 B rows)",
-                     "ids": int(ids.shape[0]), "first_edge": e0, "match": ok,
-                     "max_abs_err": float((got.to(torch.int64) - want.to(torch.int64))
-                                          .abs().max())})
-        check(ok, f"gather_rows over the pinned edge array, edges from {e0}")
-    return rows
+    indptr = torch.from_numpy(topo.indptr).to(torch.int64).to("cuda")
+    ids = torch.from_numpy(topo.indices).to("cuda")
+    pinned_ids = to_pinned_host(topo.indices, "cuda")[0]
+    n, E = topo.node_count, topo.edge_count
+    g = torch.Generator(device="cuda")
+    g.manual_seed(31)
+    rows, widths = [], {}
+    for F in SEGMENT_WIDTHS:
+        table = x_dev if F == x_dev.shape[1] else torch.randn(
+            n, F, device="cuda", generator=g)
+        want = segment_mean_plain(indptr, ids, table, INFER_CHUNK)
+        for where, e in (("device", ids), ("pinned", pinned_ids)):
+            if where == "pinned" and F != EPOCH_F:
+                continue
+            step9q(f"(c) segment_mean at F = {F}, ids {where}: one launch, bitwise plain")
+            before = segment_mean.launches
+            got = segment_mean(indptr, e, table)
+            sync()
+            ok = equal(got, want)
+            rows.append({"table": f"serving graph, F = {F} f32, ids {where}",
+                         "rows": n, "edges": E, "match": ok,
+                         "max_abs_err": float((got - want).abs().max())})
+            check(ok and segment_mean.launches == before + 1,
+                  f"(c) segment_mean at F = {F}, ids {where} against plain")
+            del got
+        del want
+        t = segment_turns(lambda: segment_mean(indptr, ids, table),
+                          lambda: segment_mean_plain(indptr, ids, table, INFER_CHUNK))
+        t["bound_ms"] = (E * (F * 4 + 4) + (n + 1) * 8 + n * F * 4) / 3.35e12 * 1e3
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["speedup_over_plain"] = t["plain_ms"] / t["ms"]
+        widths[F] = t
+        log(f"(c) segment_mean F = {F}: {t['ms']:.3f} ms against plain {t['plain_ms']:.1f} "
+            f"ms, bound {t['bound_ms']:.2f} ms ({t['bound_share']:.3f})")
+        del table
+        torch.cuda.empty_cache()
+    timing = dict(widths[EPOCH_F], shape=[n, E, EPOCH_F], library_ms=None,
+                  widths={str(F): t for F, t in widths.items()})
+    return rows, timing
 
 
-def infer_agg_phase(topo, x_all, card) -> tuple[dict, list, dict]:
-    """Phase 9q (see the module docstring). Returns ``(K2 launches of a
-    HOST SAGE pass by value, K2 check rows, result)``."""
+def infer_agg_phase(topo, x_all, card) -> tuple[dict, list, dict, dict]:
+    """Phase 9q (see the module docstring). Returns ``(segment_mean
+    launches of a HOST SAGE pass by value, its check rows, its timing,
+    result)``."""
     import torch
 
     t0 = time.time()
     x_dev = torch.from_numpy(x_all).to("cuda")
-    result, host_k2 = infer_agg_full_width(topo, x_dev, card)
+    result = infer_agg_full_width(topo, x_dev, card)
+    result["bad_value"] = infer_agg_bad_value(card)
+    checks, timing = segment_phase(topo, x_dev)
+    result["segment_mean"] = timing
     del x_dev
     torch.cuda.empty_cache()
-    result["bad_value"] = infer_agg_bad_value(card)
-    checks = infer_agg_k2_checks(topo)
     result["seconds"] = time.time() - t0
     log(f"phase 9q {result['seconds']:.1f}s [{card}]")
-    launches = {s: result["sage_HOST"][s]["gather_rows_launches"] for s in INFER_AGG_VALUES}
-    return launches, checks, result
+    launches = {s: result["sage_HOST"][s]["segment_mean_launches"] for s in INFER_AGG_VALUES}
+    return launches, checks, timing, result
 
 
 # -- phase 9r: one process over distinct devices (the card and the host) ---------
@@ -10084,7 +10169,7 @@ def main() -> int:
     lap("phase 9p (dedup strategies)")
     # phase 9q: the layer-wise inference's QUIVER_INFER_AGG switch, SAGE HBM
     # and HOST at full width under both values, a misspelt value
-    launches_agg, agg_checks, infer_aggs = infer_agg_phase(topo, x_all, card)
+    launches_agg, agg_checks, t_seg, infer_aggs = infer_agg_phase(topo, x_all, card)
     torch.cuda.empty_cache()
     lap("phase 9q (layer-wise aggregation switch)")
     # phase 9r: one process over distinct devices: both trainers on logical
@@ -10170,7 +10255,7 @@ def main() -> int:
                    launches_h["saint"]["gather_rows"],
                    "GraphSAINT samplers (each draw's (budget, deg_cap) window; the "
                    "edge sampler's endpoints)", gat + win_checks + k2_rows_s
-                   + rows_ctl["gather_rows"] + agg_checks, t_win,
+                   + rows_ctl["gather_rows"], t_win,
                    {"shape": [t_win["ids"], t_win["row_bytes"]],
                     "sharded_trainer_launches": {
                         mode: v["gather_rows"] for mode, v in launches_s.items()},
@@ -10186,7 +10271,6 @@ def main() -> int:
                     "world_control_trainer_launches": {
                         k: v["gather_rows"] for k, v in launches_ctl.items()},
                     "mixed_mesh_launches": mixed_of("gather_rows"),
-                    "layerwise_host_launches": launches_agg,
                     "sharded_lookup": {mesh: r["timing"] for mesh, r in
                                        sharded["store"]["meshes"].items()},
                     "ratio_to_library": t_win["ratio_to_library"],
@@ -10291,6 +10375,20 @@ def main() -> int:
                     "rgcn_stream_weighted_launches": launches_h["rgcn_stream"]["weighted"][
                         "weighted_hop"],
                     "library": K3_LIBRARY + "; its yardstick is the composed path"},
+                   card, name),
+        kernel_row("segment_mean", "quiver_tpu_torch/ops/kernels/segment.cu",
+                   "none: the JAX package's XLA scatter or cumsum scan "
+                   "(quiver_tpu/models/inference.py)", launches_agg["scatter"],
+                   "layer-wise inference (the SAGE, GCN, GIN and R-GCN passes; the refresher)",
+                   agg_checks, t_seg,
+                   {"shape": t_seg["shape"], "widths": t_seg["widths"],
+                    "bound_rule": SEGMENT_BOUND_RULE,
+                    "layerwise_host_launches": launches_agg,
+                    "acceptance_layerwise_launches":
+                        accept["layerwise"]["launches"]["segment_mean"],
+                    "library": "none: no single PyTorch call takes a CSR segment mean; "
+                               "its yardstick is the plain version, the chunked, sorted "
+                               "index_put_ accumulate (chunk 2^21)"},
                    card, name),
     ]
     check(len(kernels) == len(ENTRIES)

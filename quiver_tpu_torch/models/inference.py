@@ -4,39 +4,47 @@ The port of ``quiver_tpu/models/inference.py`` (GraphSAGE, GCN, GIN, GAT,
 and R-GCN over a typed graph): the reference's ``model.inference``
 evaluation walks one layer at a time over every node with all of its
 edges (torch-quiver examples/pyg/reddit_quiver.py:68-92). Mean aggregation
-over every node is ``D^-1 A X``, computed as chunked whole-graph segment
-sums: walk the CSR edge array in fixed-size chunks, gather the source
-rows, accumulate them into an ``(N, F)`` buffer, divide by the degree,
-then apply the trained layer's weights. GCN and GIN reuse it (a sum is
+over every node is ``D^-1 A X``, a whole-graph segment mean over the CSR
+rows, then the trained layer's weights. GCN and GIN reuse it (a sum is
 the mean times the degree); GAT runs two chunked passes per layer, the
 per-destination logit max and then the softmax's numerator and
 denominator together.
 
-One aggregation strategy: a sorted accumulate per chunk. The chunk's
-destinations are sorted (CSR order), and the accumulate is
-``index_put_(accumulate=True)`` on the card, which sums each row's
-messages in edge order after a stable sort rather than with atomics, and
-``index_add_`` on the CPU, which adds them one index after another (the
-CPU's ``index_put_`` adds large float chunks with parallel atomics), so a
-result is the same from run to run and from HBM and HOST placements.
+One aggregation strategy: each row's edges summed in CSR order. On the
+card the mean is one launch per layer of the hand-written kernel
+``ops.kernels.segment.segment_mean``: each source row is read once into
+registers, added in edge order from zero, divided by the degree, and each
+output row written once; it reads the edge array on the card (HBM) or in
+pinned host memory over UVA (HOST), with no chunks. On the CPU it is
+:func:`~..ops.kernels.segment.segment_mean_plain`: the edge array walked
+in chunks of ``chunk`` edges, each chunk's source rows gathered and added
+with ``index_add_``, one index after another (the CPU's ``index_put_``
+adds large float chunks with parallel atomics). Both add a row's edges
+one after another in CSR order, so a result is the same from run to run
+and from HBM and HOST placements, and the card's float32 rows are the
+CPU's bit for bit, and the chunked, sorted ``index_put_(accumulate=True)``
+accumulate's that the card ran before the kernel (at more than 32 floats
+a row; at fewer ATen sums a chunk's run of a row apart). ``chunk`` sizes
+the CPU's chunks and GAT's passes, which keep the sorted accumulate per
+chunk.
 
 The JAX package also has a cumsum-difference ("scan") strategy, because
 XLA serialises scatters on the TPU, picked by
 ``QUIVER_INFER_AGG=scatter|scan``. ``full_neighbor_mean`` and the SAGE,
 GCN, GIN and R-GCN passes read that variable once per call, before
 anything is placed, so a value outside those two raises ``ValueError``
-as it does in the JAX package; both names run the accumulate. A scan
-would round differently from the accumulate without being the JAX
-scan's bits either (the tests hold the accumulate against both JAX
-strategies), and on an H100 it ran at 0.52-0.72x the accumulate's nodes
-per second at every shape measured (``PERF.md``). GAT's passes do not
+as it does in the JAX package; both names run the segment mean above. A
+scan would round differently from it without being the JAX scan's bits
+either (the tests hold the mean against both JAX strategies), and on an
+H100 it ran at 0.52-0.72x the chunked accumulate's nodes per second at
+every shape measured (``PERF.md``). GAT's passes do not
 read the variable, in either package.
 
 Every pass records its spans through :func:`~..obs.tracing.span` (free
 when tracing is off): ``infer.pass`` (``layers``) over ``infer.place``
 (the copies of the CSR and the features to the card; ``h2d_bytes``, what
 they carried from the host), and per conv an ``infer.layer`` over its
-``infer.aggregate`` (a chunk loop) and ``infer.combine`` (the linear
+``infer.aggregate`` (the segment mean) and ``infer.combine`` (the linear
 maps, their sum and the activation) spans. The place, aggregate and
 combine spans time the card's stream too (``device_ms``); none
 synchronises.
@@ -52,6 +60,7 @@ import torch.nn.functional as F
 from ..core.config import SampleMode, resolve_platform_strategy
 from ..core.memory import resolve_device, to_pinned_host
 from ..obs import tracing
+from ..ops.kernels.segment import segment_mean
 from ..ops.sample import staged_gather
 
 __all__ = ["full_neighbor_mean", "gat_layerwise_inference",
@@ -63,7 +72,8 @@ def _host_csr(topo, mode, device):
     """``(indptr, indices, host)`` on the host, ready to cross to
     ``device``: ``indptr`` widened to int64 there; HOST keeps the edge
     array in pinned host memory (``host`` is True on a CUDA device), read
-    over UVA by kernel K2, where HBM copies it to the device too."""
+    over UVA by the card's kernels, where HBM copies it to the device
+    too."""
     mode = SampleMode.parse(mode)
     indptr = torch.from_numpy(topo.indptr).to(torch.int64)
     if mode is SampleMode.HOST:
@@ -133,16 +143,15 @@ def _read_infer_agg() -> str:
 
 
 def _neighbor_mean_dev(indptr, indices, x_all, chunk: int, host: bool = False):
-    """:func:`full_neighbor_mean` on placed CSR tensors (``indptr`` int64).
+    """:func:`full_neighbor_mean` on placed CSR tensors (``indptr`` int64),
+    in one ``infer.aggregate`` span: one ``segment_mean`` launch on the
+    card, which reads ``indices`` where it lies (so ``host``, HOST mode's
+    flag, changes nothing and ``chunk`` is unused); ``chunk``-edge chunks
+    on the CPU (module docstring).
 
     The output has ``indptr``'s row count; zero-degree rows are zeros."""
-    n_out, f = indptr.shape[0] - 1, x_all.shape[1]
     with tracing.span("infer.aggregate", device=x_all.device):
-        acc = torch.zeros(n_out, f, dtype=x_all.dtype, device=x_all.device)
-        for src, dst in _edge_chunks(indptr, indices, chunk, host):
-            _accumulate(acc, dst, x_all[src])
-        deg = (indptr[1:] - indptr[:-1]).clamp(min=1).to(x_all.dtype)
-        return acc / deg[:, None]
+        return segment_mean(indptr, indices, x_all, chunk)
 
 
 def _float32_convs(model) -> list:
@@ -162,10 +171,11 @@ def full_neighbor_mean(topo, x_all, chunk: int = 1 << 21,
     F)``, over a host :class:`~..core.topology.CSRTopo`.
 
     ``mode="HBM"`` places the edge array on the device; ``mode="HOST"``
-    keeps it pinned on the host and reads each chunk's ids over UVA
-    (graphs beyond device memory stay evaluable). ``device`` as every
-    entry point's (CUDA unless named). ``QUIVER_INFER_AGG`` is read and
-    checked (module docstring)."""
+    keeps it pinned on the host, where the card's kernel reads the ids over
+    UVA (graphs beyond device memory stay evaluable). ``chunk``: edges per
+    accumulate on the CPU; the card's mean has no chunks. ``device`` as
+    every entry point's (CUDA unless named). ``QUIVER_INFER_AGG`` is read
+    and checked (module docstring)."""
     _read_infer_agg()
     device = resolve_device(device)
     indptr, indices, host, x = _place(topo, x_all, mode, device)
@@ -181,9 +191,9 @@ def sage_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     ``model`` is the trained :class:`~.sage.GraphSAGE` (on ``device``);
     each layer is ``lin_l(mean of neighbours) + lin_r(x)`` in float32 (as
     the JAX package's fresh ``SAGEConv`` computes it), ReLU between
-    layers, no dropout. ``chunk`` edges per accumulate; ``mode`` as
-    :func:`full_neighbor_mean`, and ``QUIVER_INFER_AGG`` too. The other
-    families' passes compute in float32 too.
+    layers, no dropout. ``chunk``, ``mode`` and ``QUIVER_INFER_AGG`` as
+    :func:`full_neighbor_mean` (one ``segment_mean`` launch a layer on the
+    card). The other families' passes compute in float32 too.
     """
     _read_infer_agg()
     device = resolve_device(device)
@@ -209,7 +219,7 @@ def gcn_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
     X`` per layer with global degrees, what ``GCNConv`` computes on a
     block that covers the whole graph (on the usual symmetric topology,
     whose CSR row degree is both sides' degree). The neighbour sum is the
-    chunked mean times the degree, over features pre-scaled by
+    segment mean times the degree, over features pre-scaled by
     ``rsqrt(deg + 1)``; ReLU between layers. ``(N, num_classes)`` float32
     log-probs; ``chunk``, ``mode`` and ``device`` as
     :func:`sage_layerwise_inference`."""
@@ -236,7 +246,7 @@ def gin_layerwise_inference(model, topo, x_all, chunk: int = 1 << 21,
                             device=None):
     """Layer-wise full-neighbour GIN inference: ``MLP((1 + eps) x + A x)``
     per layer, what ``GINConv`` computes on a block that covers the whole
-    graph (the neighbour sum is the chunked mean times the degree); ReLU
+    graph (the neighbour sum is the segment mean times the degree); ReLU
     between layers. Arguments and result as
     :func:`sage_layerwise_inference`."""
     _read_infer_agg()
@@ -318,7 +328,7 @@ def rgcn_layerwise_inference(model, topo, x_dict, chunk: int = 1 << 20,
     """Layer-wise full-neighbour R-GCN inference over a typed graph.
 
     Per layer: each node type's self transform, plus, per relation in
-    ``sorted(..., key=str)`` order, the chunked whole-relation mean of the
+    ``sorted(..., key=str)`` order, the whole-relation segment mean of the
     relation-projected source rows, walked over the relation's own CSR
     (rows are its destination nodes), all in float32. What each layer
     computes is read from the model's modules, as the JAX package reads

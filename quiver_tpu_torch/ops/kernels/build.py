@@ -45,7 +45,7 @@ __all__ = ["KERNELS", "address", "build_all", "kernel_attrs", "launch"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, ".cuda_build")
-KERNELS = ("select", "gather", "wselect")
+KERNELS = ("select", "gather", "wselect", "segment")
 _HEADERS = ("common.cuh",)
 _LOCK = threading.RLock()  # builds and the first load of the libraries
 _LIBS: dict[str, ctypes.CDLL] | None = None
@@ -137,6 +137,7 @@ _ENTRIES = {
     "gather_dequant": ("gather", "quiver_gather_dequant", 12),
     "wselect": ("wselect", "quiver_wselect", 14),
     "weighted_hop": ("wselect", "quiver_weighted_hop", 19),
+    "segment_mean": ("segment", "quiver_segment_mean", 8),
 }
 
 

@@ -422,7 +422,9 @@ def _serve_forward(dev):
     "serve_sample",
     "serving-ladder per-bucket sample program (the lanes' hops, one fused "
     "launch per hop)",
-    sources=("quiver_tpu_torch/serving/ladder.py", "quiver_tpu_torch/ops/sample.py"),
+    sources=("quiver_tpu_torch/serving/ladder.py", "quiver_tpu_torch/ops/sample.py",
+             # the ladder's launch tally (ops.kernels.launch_counts) reads it
+             "quiver_tpu_torch/ops/kernels/segment.py"),
     meta={"donation": "none", "hbm_budget": 33 * 1024},
 )
 def _serve_sample(dev):

@@ -92,6 +92,7 @@ KERNEL_ENTRIES = {
     "tiered_gather_dequant": "gather_dequant",
     "wselect": "wselect",
     "weighted_hop": "weighted_hop",
+    "segment_mean": "segment_mean",
 }
 
 

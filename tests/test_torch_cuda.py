@@ -8,13 +8,25 @@ step on the card against the same step on the CPU (TF32 off, dropout 0,
 the same parameters and inputs): the loss within 1e-5 relative, each
 gradient within 1e-4 x its max |g| (cuBLAS and the CPU's GEMMs sum in
 different orders). ``full_neighbor_mean`` on the card against the CPU:
-within 1e-5 relative and 1e-6 absolute (the card's accumulate may group
-and round its float sums differently); HOST against HBM placement:
-bitwise. ``DataParallelTrainer.step`` and a ``DistributedTrainer`` step on
-the card against the same step on the CPU: the training step's
-tolerances. The fused trainer's guard on the card: bitwise within one
-run (a skipped step changes nothing); no test holds two card runs of a
-float trajectory bitwise (the backward's scatter-adds use float atomics).
+within 1e-5 relative and 1e-6 absolute; HOST against HBM placement:
+bitwise. The segment-mean kernel: a float32 table bitwise the CPU's
+``index_add_`` path at every width (both add a row's edges one after
+another in CSR order), and bitwise the card's chunked, sorted accumulate
+at widths of more than 32 floats, where ATen adds each edge to the stored
+row; at 32 floats or fewer ATen sums a chunk's run of a row apart and adds
+it to the stored row (rows that straddle a chunk) or groups a row's sums
+(1 float), so the kernel is held there within the bound of a reordered
+sum, 2^-23 x (degree x mean |x| + |mean|) a row. A
+bfloat16 or float16 table: bitwise the CPU's float32 path rounded once;
+against the card's accumulate over the 16-bit table, which rounds the
+running sum to 16 bits after every edge, within 2^-8 x (degree x mean |x|
++ |mean|) a row (each edge's rounding is at most 2^-9 of a running sum,
+which is at most the row's sum of |x|). ``DataParallelTrainer.step`` and
+a ``DistributedTrainer`` step on the card against the same step on the
+CPU: the training step's tolerances. The fused trainer's guard on the
+card: bitwise within one run (a skipped step changes nothing); no test
+holds two card runs of a float trajectory bitwise (the backward's
+scatter-adds use float atomics).
 """
 
 import numpy as np
@@ -315,19 +327,21 @@ def test_train_step_card_matches_cpu(cuda, batch, fanout):
 
 
 def test_layerwise_host_equals_hbm_on_card(cuda):
-    """The HOST placement reads the edge array over UVA (K2 single-table
-    entry) and must equal the HBM placement bitwise on the card."""
+    """The HOST placement's kernel reads the edge array over UVA (one
+    ``segment_mean`` launch, no K2) and must equal the HBM placement
+    bitwise on the card."""
     from quiver_tpu_torch import CSRTopo
     from quiver_tpu_torch.models.inference import full_neighbor_mean
     from quiver_tpu_torch.ops.kernels.gather import gather_rows
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean
     from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
 
     topo = CSRTopo(edge_index=generate_pareto_graph(5000, 20.0, seed=2))
     x = torch.randn(topo.node_count, 33, device=cuda)
     hbm = full_neighbor_mean(topo, x, chunk=4096, mode="HBM", device=cuda)
-    before = gather_rows.launches
+    before = gather_rows.launches, segment_mean.launches
     host = full_neighbor_mean(topo, x, chunk=4096, mode="HOST", device=cuda)
-    assert gather_rows.launches > before
+    assert (gather_rows.launches, segment_mean.launches) == (before[0], before[1] + 1)
     assert torch.equal(host, hbm)
     cpu = full_neighbor_mean(topo, x.cpu(), chunk=4096, device="cpu")
     assert torch.allclose(hbm.cpu(), cpu, rtol=1e-5, atol=1e-6)
@@ -1685,8 +1699,8 @@ def test_kernel_attrs_entry(cuda):
     attrs = kernel_attrs()
     entries = {a["entry"] for a in attrs}
     assert entries == {"select", "uniform_hop", "gather", "gather_dequant", "wselect",
-                       "weighted_hop"}
-    assert len(attrs) == 24
+                       "weighted_hop", "segment_mean"}
+    assert len(attrs) == 35
     # only the int8 entry's ring asks for dynamic shared memory
     assert {a["kernel"] for a in attrs if a["shared_dynamic"]} == {
         f"gather_dequant_kernel<{s}>" for s in (4, 2, 1)}
@@ -2074,3 +2088,196 @@ def test_dedup_strategies_bitwise_on_card(cuda, dedup):
     assert torch.equal(a.n_id, b.n_id) and int(a.n_count) == int(b.n_count)
     for x, y in zip(a.adjs, b.adjs):
         assert torch.equal(x.edge_index, y.edge_index)
+
+
+def _segment_graph(seed: int, n: int = 3000):
+    """A CSR over ``utils/graphgen.py``'s Pareto graph of ``n`` nodes with
+    five zero-degree rows inserted after row 100, a row of degree 20,000
+    (past 2^14) after them, and three zero-degree rows at the end: int64
+    ``indptr`` and int32 ``indices`` into an ``n``-row table."""
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    rng = np.random.default_rng(seed)
+    topo = CSRTopo(edge_index=generate_pareto_graph(n, 12.0, seed=seed))
+    indptr, indices = topo.indptr.astype(np.int64), topo.indices.astype(np.int32)
+    cut = int(indptr[100])
+    long_row = rng.integers(0, n, 20_000).astype(np.int32)
+    deg = np.concatenate([np.diff(indptr)[:100], [0] * 5, [long_row.shape[0]],
+                          np.diff(indptr)[100:], [0] * 3])
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = np.concatenate([indices[:cut], long_row, indices[cut:]])
+    return torch.from_numpy(indptr), torch.from_numpy(indices)
+
+
+def _segment_table(seed: int, n: int, F: int):
+    """``(n, F)`` float32 rows over six decades, so that a sum's bits
+    depend on its order of adds."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, F)) * 10.0 ** rng.uniform(-3, 3, (n, 1))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+SEGMENT_CHUNK = 4096  # edges per accumulate of the references: many rows straddle
+
+
+def _within_reordering(got, want, ptr, ids, tab):
+    """Two orders of a float32 row sum of n terms differ by at most
+    2^-23 x n x (their sum of |x|), and each mean's division rounds once:
+    |got - want| <= 2^-23 x (degree x mean |x| + |want|), row by row."""
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean_plain
+
+    deg = (ptr[1:] - ptr[:-1]).clamp(min=1).to(tab.dtype)[:, None]
+    abs_mean = segment_mean_plain(ptr, ids, tab.abs())
+    return bool(((got - want).abs() <= 2.0**-23 * (deg * abs_mean + want.abs())).all())
+
+
+@pytest.mark.parametrize("F", [32, 100, 256, 602])
+def test_segment_mean_bitwise_the_chunked_accumulate(cuda, F):
+    """float32 at the widths the passes use: one launch, bitwise the CPU's
+    ``index_add_`` path and the card's chunked, sorted ``index_put_``
+    accumulate and divide (the long row and the zero-degree rows
+    included). At more than 32 floats the accumulate adds each edge to the
+    stored row, so rows that straddle its chunks are bitwise too; at 32 or
+    fewer it sums a chunk's run from zero and adds that to the stored row,
+    so only they differ, within the bound of a reordered sum."""
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean, segment_mean_plain
+
+    indptr, indices = _segment_graph(F)
+    table = _segment_table(F, 3000, F)
+    ptr, ids, tab = indptr.to(cuda), indices.to(cuda), table.to(cuda)
+    starts = indptr[:-1].numpy()
+    assert int((np.diff(indptr.numpy()) == 0).sum()) >= 8
+    assert int(np.diff(indptr.numpy()).max()) > 2**14
+    assert any(s // SEGMENT_CHUNK != (e - 1) // SEGMENT_CHUNK
+               for s, e in zip(starts, indptr[1:].numpy()) if e - s < 100)
+    before = segment_mean.launches
+    got = segment_mean(ptr, ids, tab)
+    torch.cuda.synchronize()
+    assert segment_mean.launches == before + 1
+    assert got.shape == (indptr.shape[0] - 1, F) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), segment_mean_plain(indptr, indices, table, SEGMENT_CHUNK))
+    assert torch.equal(got, segment_mean_plain(ptr, ids, tab))  # one chunk
+    want = segment_mean_plain(ptr, ids, tab, SEGMENT_CHUNK)
+    if F > 32:
+        assert torch.equal(got, want)
+    else:
+        ends = indptr[1:].numpy()
+        straddle = torch.from_numpy(starts // SEGMENT_CHUNK != (ends - 1) // SEGMENT_CHUNK)
+        straddle &= torch.from_numpy(ends > starts)
+        assert torch.equal(got[~straddle.to(cuda)], want[~straddle.to(cuda)])
+        assert _within_reordering(got, want, ptr, ids, tab)
+    assert not got[100:105].any()
+
+
+@pytest.mark.parametrize("F,offset", [(1, 0), (3, 0), (100, 1), (256, 2)])
+def test_segment_mean_narrow_and_unaligned_widths(cuda, F, offset):
+    """Widths of 1 and 3 floats, and tables that start 4 or 8 B past an
+    aligned address (narrower words): bitwise the CPU's path, and within
+    the bound of a reordered sum of the card's accumulate (which may group
+    a narrow row's sums)."""
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean, segment_mean_plain
+
+    indptr, indices = _segment_graph(F + 7)
+    table = _segment_table(F, 3000, F)
+    flat = torch.zeros(3000 * F + offset, device=cuda)
+    tab = flat[offset:].view(3000, F)
+    tab.copy_(table)
+    assert tab.is_contiguous() and tab.data_ptr() % 16 == 4 * offset
+    ptr, ids = indptr.to(cuda), indices.to(cuda)
+    got = segment_mean(ptr, ids, tab)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), segment_mean_plain(indptr, indices, table, SEGMENT_CHUNK))
+    want = segment_mean_plain(ptr, ids, tab, SEGMENT_CHUNK)
+    assert _within_reordering(got, want, ptr, ids, tab)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("F", [3, 100, 256])
+def test_segment_mean_16bit_tables(cuda, dtype, F):
+    """A bfloat16 or float16 table: a float32 sum rounded once, bitwise the
+    CPU's float32 path over the same values, rounded; against the card's
+    accumulate over the 16-bit table, within the module's bound."""
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean, segment_mean_plain
+
+    indptr, indices = _segment_graph(F + 11)
+    ptr, ids = indptr.to(cuda), indices.to(cuda)
+    table = torch.from_numpy(np.random.default_rng(F).normal(
+        size=(3000, F)).astype(np.float32)).to(cuda).to(dtype)
+    got = segment_mean(ptr, ids, table)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    want = segment_mean_plain(indptr, indices, table.float().cpu()).to(dtype)
+    assert torch.equal(got.cpu(), want)
+    today = segment_mean_plain(ptr, ids, table, SEGMENT_CHUNK).float()
+    deg = (ptr[1:] - ptr[:-1]).clamp(min=1).float()[:, None]
+    abs_mean = segment_mean_plain(ptr, ids, table.float().abs())
+    bound = 2.0**-8 * (deg * abs_mean + got.float().abs())
+    assert bool(((got.float() - today).abs() <= bound).all())
+
+
+def test_segment_mean_host_ids_equal_device_ids(cuda):
+    """The ids in pinned host memory (HOST, read over UVA) give the same
+    rows bitwise as the ids on the card (HBM)."""
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean
+
+    indptr, indices = _segment_graph(5)
+    tab = _segment_table(5, 3000, 100).to(cuda)
+    ptr = indptr.to(cuda)
+    hbm = segment_mean(ptr, indices.to(cuda), tab)
+    host = segment_mean(ptr, indices.pin_memory(), tab)
+    torch.cuda.synchronize()
+    assert torch.equal(host, hbm)
+
+
+@pytest.mark.parametrize("mode", ["HBM", "HOST"])
+def test_sage_pass_on_card_bitwise_the_chunked_accumulate(cuda, monkeypatch, mode):
+    """``sage_layerwise_inference`` on the card: exactly ``layers``
+    ``segment_mean`` launches and no K2, and log-probs bitwise the same
+    pass with its mean taken by the chunked, sorted accumulate (the pass
+    as it ran before the kernel)."""
+    from quiver_tpu_torch import CSRTopo
+    from quiver_tpu_torch.models import inference
+    from quiver_tpu_torch.models.sage import GraphSAGE
+    from quiver_tpu_torch.ops.kernels import launch_counts
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean_plain
+    from quiver_tpu_torch.utils.graphgen import generate_pareto_graph
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        topo = CSRTopo(edge_index=generate_pareto_graph(20_000, 25.0, seed=7))
+        torch.manual_seed(7)
+        model = GraphSAGE(100, 256, 47, num_layers=3, dropout=0.0).to(cuda).eval()
+        x = torch.randn(topo.node_count, 100, device=cuda)
+        before = launch_counts()
+        got = inference.sage_layerwise_inference(model, topo, x, mode=mode, device=cuda)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            "segment_mean": 3}
+        monkeypatch.setattr(inference, "segment_mean", segment_mean_plain)
+        want = inference.sage_layerwise_inference(model, topo, x, chunk=1 << 16, mode=mode,
+                                                  device=cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_segment_mean_refuses_what_it_cannot_take(cuda):
+    """An integer table, a non-contiguous table, an ``indptr`` on another
+    device, ids in pageable host memory, int64 ids: ``ValueError``."""
+    from quiver_tpu_torch.ops.kernels.segment import segment_mean
+
+    indptr, indices = _segment_graph(9)
+    ptr, ids = indptr.to(cuda), indices.to(cuda)
+    tab = torch.randn(3000, 8, device=cuda)
+    cases = {"dtype": (ptr, ids, tab.to(torch.int32)),
+             "contiguous": (ptr, ids, torch.randn(8, 3000, device=cuda).t()),
+             "indptr on the host": (indptr, ids, tab),
+             "pageable ids": (ptr, indices, tab),
+             "int64 ids": (ptr, ids.long(), tab)}
+    for what, args in cases.items():
+        with pytest.raises(ValueError):
+            segment_mean(*args)
+            pytest.fail(what)
